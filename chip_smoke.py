@@ -3,12 +3,17 @@
 
     python3 chip_smoke.py [--out-dir DIR]
 
-Needs one NVIDIA GPU and ``nvcc``.  It builds the CUDA kernel from the
-sources in this checkout, holds it against its plain PyTorch version on
-the GPU, renders the Cornell box at full size (600x338, 100 spp, depth 5)
-through the public entry points, checks the image, times the kernel at the
-render's own shapes beside its roofline bound, times three more scenes for
-the record, and prints one JSON line per phase.  The last line is
+Needs one NVIDIA GPU and ``nvcc``.  It builds the three CUDA kernels from
+the sources in this checkout (the forward megakernel, the stash-writing
+gradient forward and the reverse sweep), holds each against its plain
+PyTorch version on the GPU, renders the Cornell box at full size (600x338,
+100 spp, depth 5) through the public entry points, checks the image, times
+the forward kernel at the render's own shapes beside its roofline bound,
+times three more scenes for the record, then takes the loss and the
+gradients of the same Cornell job through ``render_grad`` (everything
+stashed, and once more with a stash budget of two chunks), checks them, and
+times the two gradient kernels alone.  It prints one JSON line per phase.
+The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failing phase raises: the exit code is then not 0 and no result line
 is printed.  On a machine without a CUDA device it fails at once.
@@ -21,6 +26,15 @@ of rays outside rtol 1e-3 / atol 1e-3 (or with another flag word), and
 mean radiance within 1 %.  The kernel is built without fused multiply-add
 contraction and is expected to agree on every ray; the contracted build is
 compared and timed beside it, for the record only.
+
+The gradient forward is the same bounce loop, so its radiance, flags, miss
+colour and stash are held to the same per-ray gate.  The reverse kernel adds
+float32 terms in a fixed tree (warp butterfly, warps of a block, blocks),
+its plain version adds the same float32 terms in float64: they agree to
+1e-4 of the largest entry of the result.  Against ``torch.autograd`` through
+the plain forward (other formulas for the same derivative) the gate is 2e-3
+of the largest entry of each colour table, the tolerance of the JAX
+package's own test of its gradient kernel.
 """
 
 import argparse
@@ -38,11 +52,14 @@ from go_raytracing_tpu_torch.camera import Camera, generate_rays
 from go_raytracing_tpu_torch.integrator import wavefront
 from go_raytracing_tpu_torch.ops import _build
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
+from go_raytracing_tpu_torch.render import grad as gradmod
 from go_raytracing_tpu_torch.render import renderer
 
 RTOL = ATOL = 1e-3
 MAX_MISMATCH_SHARE = 0.005
 MAX_MEAN_REL_DIFF = 0.01
+REV_RTOL_OF_LARGEST = 1e-4
+AUTOGRAD_RTOL_OF_LARGEST = 2e-3
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the yardstick of
 # bound_ms whatever the card's power limit, which is printed beside it.
@@ -59,6 +76,9 @@ PEAK_FP32_FLOPS = 67e12
 # Shadow sweeps, texture and light sampling are left out (how many rays run
 # them is not counted), so the operation bound is a floor.
 FLOPS_PLANAR, FLOPS_SPHERE, FLOPS_VOLUME, FLOPS_SHADE = 12, 23, 73, 60
+# Reverse sweep, per ray, entered bounce and channel: s_c (7), g*T (1),
+# cot_alb (4), cot_lem (1), aeff (3), R (2).
+FLOPS_REVERSE = 3 * 18
 
 
 def emit(phase, **fields):
@@ -83,6 +103,22 @@ def cuda_ms(fn, repeats=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / repeats, out
+
+
+def rounds_ms(fn, rounds=3, repeats=5):
+    """``rounds`` timings of ``repeats`` calls each.  Returns (the rounds'
+    ms per call in the order taken, the last output).  A kernel's time in
+    the ``kernels`` line is the median round: a single round now and then
+    reads several times the others on a machine whose host is shared."""
+    taken = []
+    for _ in range(rounds):
+        ms, out = cuda_ms(fn, repeats=repeats)
+        taken.append(ms)
+    return taken, out
+
+
+def median(values):
+    return sorted(values)[len(values) // 2]
 
 
 def mixed_scene(device):
@@ -160,6 +196,254 @@ def compare(scene, cam, seed, name):
     return mismatch, max_err
 
 
+def checker_sky_scene(device):
+    """Checker floor, lambertian spheres (one moving), a quad light bright
+    enough for the firefly clamp, a fog box, under the sky gradient: what
+    the Cornell box does not give the gradient kernels."""
+    b = grt.SceneBuilder()
+    b.plane((0, 0, 0), (0, 1, 0),
+            b.lambertian(b.checker(0.7, (0.2, 0.3, 0.1), (0.9, 0.9, 0.8))))
+    b.sphere((0, 1, -1), 0.8, b.lambertian((0.2, 0.5, 0.8)))
+    b.moving_sphere((1.8, 0.5, 0.5), (2.2, 0.9, 0.5), 0.4,
+                    b.lambertian((0.7, 0.2, 0.2)))
+    b.add_light(b.quad((-1, 4, -1), (2, 0, 0), (0, 0, 2),
+                       b.diffuse_light((120, 112, 104))))
+    b.volume_box((-3, 0, -3), (3, 3, 3), 0.05, (0.8, 0.9, 1.0))
+    cam = Camera(image_width=64, aspect_ratio=1.0, samples_per_pixel=4,
+                 max_depth=4, look_from=(0, 2, 5), look_at=(0, 0.8, 0),
+                 vfov=45.0, use_sky_gradient=True)
+    return b.build(device=device), cam
+
+
+def grad_fwd_mismatch(k, p):
+    """Gradient forward against its plain version, per ray: (share of rays
+    outside the gate, largest absolute error on the agreeing rays)."""
+    good = (torch.isclose(k[0], p[0], rtol=RTOL, atol=ATOL).all(dim=0)
+            & (k[1] == p[1])
+            & torch.isclose(k[2], p[2], rtol=RTOL, atol=ATOL).all(dim=0)
+            & torch.isclose(k[3], p[3], rtol=RTOL, atol=ATOL).all(dim=1).all(dim=0)
+            & (k[4] == p[4]).all(dim=1).all(dim=0))
+    err = max(float((k[0] - p[0]).abs().max(dim=0).values[good].max()),
+              float((k[3] - p[3]).abs().amax(dim=(0, 1))[good].max()))
+    return 1.0 - float(good.float().mean()), err
+
+
+def compare_grad(scene, cam, seed, name):
+    """The two gradient kernels against their plain versions and against
+    autograd through the plain forward, on one scene."""
+    if not cw.grad_applicable(scene, cam.max_depth):
+        raise RuntimeError(f"{name}: outside the gradient kernels' gate")
+    tb = cw.build_tables(scene)
+    n = cam.image_width * cam.image_height * cam.samples_per_pixel
+    o, d, tm, sid = chunk_rays(cam, n, seed, scene.device)
+    args = (tb, o, d, tm, sid, seed, cam.max_depth, cw.miss_config(cam))
+    k = cw.wavefront_grad_fwd(*args)
+    torch.cuda.synchronize()
+    p = cw._wavefront_grad_fwd_plain(*args)
+    mismatch, fwd_err = grad_fwd_mismatch(k, p)
+    same_as_fwd = torch.equal(k[0], cw.wavefront_fwd(*args[:-1])[0])
+
+    gen = torch.Generator(device=scene.device).manual_seed(seed)
+    g3 = torch.rand((3, n), device=scene.device, generator=gen) * 1e-3
+    n_tex = int(scene.textures.color.shape[0])
+    gk = cw.wavefront_grad_rev(k[3], k[4], g3, k[2], n_tex)
+    torch.cuda.synchronize()
+    gp = cw._wavefront_grad_rev_plain(k[3], k[4], g3, k[2], n_tex)
+    rev_err = float((gk - gp).abs().max())
+    rev_rel = rev_err / float(gp.abs().max())
+    ga = cw.autograd_colour_grads(scene, cam, o, d, tm, sid, seed, g3)
+    auto_rel = {}
+    for v, key in enumerate(("color", "even_color", "odd_color")):
+        if not torch.isfinite(ga[key]).all():
+            raise RuntimeError(f"{name}: autograd's {key} gradient is not finite")
+        big = float(ga[key].abs().max())
+        if big > 0.0:
+            auto_rel[key] = float((gk[:, v] - ga[key]).abs().max()) / big
+        elif float(gk[:, v].abs().max()) != 0.0:
+            raise RuntimeError(f"{name}: {key} gradient where autograd has none")
+    clamped = float(((k[4][:, 2] & (7 * cw.MK_CLAMPED)) != 0).any(dim=0).float().mean())
+    emit("grad_kernels_vs_plain", scene=name, rays=n, depth=cam.max_depth,
+         textures=n_tex, fwd_mismatch_share=mismatch,
+         fwd_max_abs_err_agreeing_rays=fwd_err,
+         radiance_equals_forward_kernel=same_as_fwd,
+         rev_max_abs_err=rev_err, rev_err_of_largest=rev_rel,
+         autograd_err_of_largest=auto_rel, share_of_rays_clamped=clamped,
+         largest_gradient=float(gp.abs().max()))
+    if not torch.isfinite(k[0]).all() or not torch.isfinite(k[3]).all():
+        raise RuntimeError(f"{name}: gradient forward output is not finite")
+    if mismatch >= MAX_MISMATCH_SHARE:
+        raise RuntimeError(f"{name}: {mismatch:.4%} of rays' stash rows disagree")
+    if not same_as_fwd:
+        raise RuntimeError(f"{name}: gradient forward's radiance is not the forward's")
+    if not rev_rel <= REV_RTOL_OF_LARGEST:
+        raise RuntimeError(f"{name}: reverse kernel off by {rev_rel:.2e} of the largest entry")
+    if not auto_rel or max(auto_rel.values()) > AUTOGRAD_RTOL_OF_LARGEST:
+        raise RuntimeError(f"{name}: kernels against autograd: {auto_rel}")
+    return mismatch, fwd_err, rev_err
+
+
+def grad_main_path(scene, cam):
+    """``render_grad`` for the Cornell job at full size: everything stashed,
+    then with a stash budget of two chunks.  Returns (launches of the
+    gradient forward, launches of the reverse sweep) of the first."""
+    spp = cam.samples_per_pixel
+    n_camera_rays = cam.image_width * cam.image_height * spp
+    fb = grt.render(scene, cam, seed=0)
+    target = fb / spp * 0.8
+    loss_ref = float(torch.mean((fb / spp - target) ** 2))
+    del fb
+
+    def run(**kw):
+        stats = grt.RenderStats()
+        cw.LAUNCHES = cw.LAUNCHES_GRAD_FWD = cw.LAUNCHES_GRAD_REV = 0
+        torch.cuda.reset_peak_memory_stats()
+        ms, (loss, grads) = cuda_ms(
+            lambda: grt.render_grad(scene, cam, target, seed=0, stats=stats, **kw))
+        counts = cw.LAUNCHES, cw.LAUNCHES_GRAD_FWD, cw.LAUNCHES_GRAD_REV
+        return ms, loss, grads, stats, counts, torch.cuda.max_memory_allocated()
+
+    grt.render_grad(scene, cam, target, seed=0)  # warm-up
+    ms, loss, grads, stats, (n_b1, n_b2, n_b3), peak = run()
+    if (n_b1, n_b2, n_b3) != (0, stats.chunks, stats.chunks) or stats.chunks < 1:
+        raise RuntimeError(f"launches {(n_b1, n_b2, n_b3)} for {stats.chunks} chunks")
+    loss_f = float(loss)
+    if not loss_f == loss_f or abs(loss_f - loss_ref) > 1e-5 * loss_ref:
+        raise RuntimeError(f"loss {loss_f} against {loss_ref} from render()")
+    if set(grads) != {"fuzz", "ior", "color", "even_color", "odd_color", "atlas"}:
+        raise RuntimeError(f"gradient keys {sorted(grads)}")
+    for key, g in grads.items():
+        if g.device != scene.device or not torch.isfinite(g).all():
+            raise RuntimeError(f"gradient {key} is not finite on {scene.device}")
+    if any(float(grads[key].abs().max()) != 0.0 for key in ("fuzz", "ior", "atlas")):
+        raise RuntimeError("fuzz / ior / atlas gradients must be zero on this tier")
+    # white, red, green, light and fog: every texture of the box is reached
+    if not bool((grads["color"].abs().amax(dim=1) > 0).all()):
+        raise RuntimeError(f"a texture got no gradient: {grads['color'].tolist()}")
+    stash_bytes = n_camera_rays * gradmod.stash_bytes_per_ray(cam.max_depth)
+    # one chunk of each pass alone, for the breakdown of the time above
+    args = dict(spp=spp, chunk=n_camera_rays // stats.chunks,
+                max_depth=cam.max_depth)
+    pass_a_ms, (_, carry) = cuda_ms(lambda: gradmod._twophase_fwd(
+        scene, cam, 0, 0, keep_stash=True, **args))
+    g_virt = torch.full((cam.image_width * cam.image_height, 3), 1e-6,
+                        device=scene.device)
+    pass_b_ms, _ = cuda_ms(lambda: gradmod._twophase_rev(
+        scene, cam, g_virt, 0, 0, carry, **args))
+    del carry
+    emit("grad_main_path", scene="cornell", width=cam.image_width,
+         height=cam.image_height, spp=spp, depth=cam.max_depth,
+         camera_rays=n_camera_rays, chunks=stats.chunks,
+         launches_grad_fwd=n_b2, launches_grad_rev=n_b3, launches_fwd=n_b1,
+         render_grad_ms_cuda_events=ms,
+         fwd_bwd_camera_mrays_per_s=n_camera_rays / (ms * 1e-3) / 1e6,
+         loss=loss_f, loss_from_render=loss_ref,
+         pass_a_ms_one_chunk=pass_a_ms, pass_b_ms_one_chunk=pass_b_ms,
+         color_grad=grads["color"].tolist(), stash_bytes=stash_bytes,
+         max_memory_allocated=peak)
+
+    # over budget: two chunks keep their stash, the others are traced by
+    # the forward kernel in pass A and again, with stash, in pass B
+    budget = 2 * (stash_bytes // stats.chunks) + 1
+    ms2, loss2, grads2, stats2, counts2, peak2 = run(stash_budget=budget)
+    want = (stats.chunks - 2, stats.chunks, stats.chunks)
+    if stats2.chunks != stats.chunks or counts2 != want:
+        raise RuntimeError(f"over budget: launches {counts2}, expected {want}")
+    big = float(grads["color"].abs().max())
+    grad_diff = float((grads2["color"] - grads["color"]).abs().max()) / big
+    loss_diff = abs(float(loss2) - loss_f) / loss_f
+    emit("grad_main_path_over_budget", stash_budget=budget, chunks=stats2.chunks,
+         launches_fwd=counts2[0], launches_grad_fwd=counts2[1],
+         launches_grad_rev=counts2[2], render_grad_ms_cuda_events=ms2,
+         fwd_bwd_camera_mrays_per_s=n_camera_rays / (ms2 * 1e-3) / 1e6,
+         loss_rel_diff=loss_diff, color_grad_diff_of_largest=grad_diff,
+         max_memory_allocated=peak2)
+    if loss_diff > 1e-6 or grad_diff > 1e-5:
+        raise RuntimeError(f"over budget: loss off by {loss_diff}, grads by {grad_diff}")
+    return n_b2, n_b3
+
+
+def grad_kernel_timing(scene, rays, cam, entering, render_grad_launches,
+                       small_checks):
+    """The two gradient kernels alone at the main path's chunk, beside their
+    bounds, and against their plain versions at that size.  Returns their
+    entries of the ``kernels`` line; ``small_checks`` are the results of
+    ``compare_grad``, folded into the entries' errors."""
+    tb = cw.build_tables(scene)
+    o, d, tm, sid = rays
+    n = tm.shape[0]
+    depth = cam.max_depth
+    args = (tb, o, d, tm, sid, 0, depth, cw.miss_config(cam))
+    cw.wavefront_grad_fwd(*args)
+    fwd_rounds, k = rounds_ms(lambda: cw.wavefront_grad_fwd(*args))
+    fwd_ms = median(fwd_rounds)
+    plain_fwd_ms, p = cuda_ms(lambda: cw._wavefront_grad_fwd_plain(*args))
+    mismatch, fwd_err = grad_fwd_mismatch(k, p)
+    del p
+    if mismatch >= MAX_MISMATCH_SHARE:
+        raise RuntimeError(f"full-size chunk: {mismatch:.4%} of rays' stash rows disagree")
+
+    gen = torch.Generator(device=tm.device).manual_seed(0)
+    g3 = torch.rand((3, n), device=tm.device, generator=gen) * 1e-6
+    n_tex = int(scene.textures.color.shape[0])
+    cw.wavefront_grad_rev(k[3], k[4], g3, k[2], n_tex)
+    rev_rounds, gk = rounds_ms(
+        lambda: cw.wavefront_grad_rev(k[3], k[4], g3, k[2], n_tex))
+    rev_ms = median(rev_rounds)
+    plain_rev_ms, gp = cuda_ms(
+        lambda: cw._wavefront_grad_rev_plain(k[3], k[4], g3, k[2], n_tex))
+    rev_err = float((gk - gp).abs().max())
+    rev_rel = rev_err / float(gp.abs().max())
+    if not rev_rel <= REV_RTOL_OF_LARGEST:
+        raise RuntimeError(f"full-size chunk: reverse kernel off by {rev_rel:.2e}")
+
+    table_bytes = 4 * sum(t.numel() for t in (tb.pt, tb.st, tb.vt, tb.lt))
+    stash_rows = (cw.STASH_F_ROWS + cw.STASH_I_ROWS) * depth
+    fwd_bytes = (8 + 10 + 3 + stash_rows) * 4 * n + table_bytes
+    per_bounce = (tb.n_planar * FLOPS_PLANAR + tb.n_sphere * FLOPS_SPHERE
+                  + tb.n_vol * FLOPS_VOLUME + FLOPS_SHADE)
+    fwd_bound = (fwd_bytes / PEAK_BYTES_PER_S * 1e3,
+                 float(sum(entering)) * per_bounce / PEAK_FP32_FLOPS * 1e3)
+    # one row of partial sums for each block of the reverse kernel
+    block_rays = _build.load("wavefront_grad").lib.wavefront_grad_rev_block_rays()
+    rev_bytes = (stash_rows + 6) * 4 * n + 4 * gk.numel() * -(-n // block_rays)
+    rev_bound = (rev_bytes / PEAK_BYTES_PER_S * 1e3,
+                 float(sum(entering)) * FLOPS_REVERSE / PEAK_FP32_FLOPS * 1e3)
+    emit("grad_kernel_timing", rays_per_launch=n, depth=depth,
+         grad_fwd_ms=fwd_ms, grad_fwd_ms_rounds=fwd_rounds,
+         grad_fwd_plain_ms=plain_fwd_ms,
+         grad_fwd_bytes_counted=fwd_bytes, grad_fwd_bound_bytes_ms=fwd_bound[0],
+         grad_fwd_bound_ops_ms=fwd_bound[1],
+         grad_fwd_roofline_share=max(fwd_bound) / fwd_ms,
+         grad_fwd_mismatch_share_full_chunk=mismatch,
+         grad_rev_ms=rev_ms, grad_rev_ms_rounds=rev_rounds,
+         grad_rev_plain_ms=plain_rev_ms,
+         grad_rev_bytes_counted=rev_bytes, grad_rev_bound_bytes_ms=rev_bound[0],
+         grad_rev_bound_ops_ms=rev_bound[1],
+         grad_rev_roofline_share=max(rev_bound) / rev_ms,
+         grad_rev_err_of_largest_full_chunk=rev_rel)
+
+    def entry(name, source, replaces, launches, ms, plain_ms, bound, errs):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(errs),
+                "ms": ms, "ms_per_launch": ms, "rays_per_launch": n,
+                "plain_ms": plain_ms, "bound_ms": max(bound),
+                "bound_by": "bytes" if bound[0] >= bound[1] else "operations",
+                "library_ms": None}
+
+    return (
+        entry("wavefront_grad_fwd", "go_raytracing_tpu_torch/csrc/wavefront.cu",
+              "go_raytracing_tpu/ops/pallas_wavefront.py:2087 (_call_grad_fwd)",
+              render_grad_launches[0], fwd_ms, plain_fwd_ms, fwd_bound,
+              [fwd_err] + [c[1] for c in small_checks])
+        | {"mismatch_share": max([mismatch] + [c[0] for c in small_checks])},
+        entry("wavefront_grad_rev", "go_raytracing_tpu_torch/csrc/wavefront_grad.cu",
+              "go_raytracing_tpu/ops/pallas_wavefront.py:2162 (_call_grad_rev)",
+              render_grad_launches[1], rev_ms, plain_rev_ms, rev_bound,
+              [rev_err] + [c[2] for c in small_checks]),
+    )
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out-dir", default=str(_build.BUILD_DIR),
@@ -181,14 +465,26 @@ def main():
 
     # ---- build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    built = _build.load("wavefront")
-    built_fma = _build.load("wavefront", fmad=True)
-    emit("build", seconds=time.perf_counter() - t0, nvcc_seconds=built.build_seconds,
-         library=built.path.name,
-         registers=built.registers, spill_bytes=built.spill_bytes,
-         registers_with_fma=built_fma.registers,
-         ptxas=[l for l in built.log.splitlines() if "ptxas info" in l and
-                ("Used" in l or "spill" in l)])
+    built, built_fma, built_grad = _build.load_all(
+        [("wavefront", False), ("wavefront", True), ("wavefront_grad", False)])
+
+    def kernel_stats(lib, tag):
+        (stats,) = [v for name, v in lib.kernels.items() if tag in name]
+        return stats
+
+    # wavefront_kernel<false> is the forward, <true> the gradient forward
+    fwd_regs, fwd_spill = kernel_stats(built, "wavefront_kernelILb0E")
+    gfwd_regs, gfwd_spill = kernel_stats(built, "wavefront_kernelILb1E")
+    grev_regs, grev_spill = kernel_stats(built_grad, "wavefront_grad_rev_kernel")
+    emit("build", seconds=time.perf_counter() - t0,
+         nvcc_seconds=[b.build_seconds for b in (built, built_fma, built_grad)],
+         libraries=[built.path.name, built_grad.path.name],
+         registers=fwd_regs, spill_bytes=fwd_spill,
+         registers_with_fma=kernel_stats(built_fma, "wavefront_kernelILb0E")[0],
+         grad_fwd_registers=gfwd_regs, grad_fwd_spill_bytes=gfwd_spill,
+         grad_rev_registers=grev_regs, grad_rev_spill_bytes=grev_spill,
+         ptxas=[l for b in (built, built_grad) for l in b.log.splitlines()
+                if "ptxas info" in l and ("Used" in l or "spill" in l)])
 
     # ---- kernel against plain version -----------------------------------------
     m_scene, m_cam = mixed_scene(dev)
@@ -203,6 +499,14 @@ def main():
     r_cam = dataclasses.replace(r_cam, image_width=64, aspect_ratio=1.0,
                                 samples_per_pixel=1, max_depth=4)
     mismatch_random, err_random = compare(r_scene, r_cam, 4, "random_700_spheres")
+
+    # ---- the gradient kernels against plain versions and autograd -----------------
+    grad_checks = [compare_grad(scene, c_cam, 3, "cornell")]
+    s_scene, s_cam = grt.load_scene("cornell-smoke")
+    s_cam = dataclasses.replace(s_cam, image_width=64, aspect_ratio=1.0,
+                                samples_per_pixel=4, max_depth=5)
+    grad_checks.append(compare_grad(s_scene, s_cam, 5, "cornell-smoke"))
+    grad_checks.append(compare_grad(*checker_sky_scene(dev), 6, "checker_sky"))
 
     # ---- main path at full size ------------------------------------------------
     cam = dataclasses.replace(cam0, image_width=600, aspect_ratio=600 / 338,
@@ -258,7 +562,7 @@ def main():
     max_err_full = float((k_rows - p_rows).abs().max(dim=0).values[good].max())
     if mismatch_full >= MAX_MISMATCH_SHARE:
         raise RuntimeError(f"full-size chunk: {mismatch_full:.4%} of rays disagree")
-    del p_rows, p_flags
+    del p_rows, p_flags, k_rows, k_flags
 
     # rays entering bounce k = rays still alive after k bounces (depth-k launch)
     entering = [chunk]
@@ -301,6 +605,15 @@ def main():
              tiled=renderer.scene_tiled(sc), render_ms_cuda_events=ms,
              camera_mrays_per_s=n / (ms * 1e-3) / 1e6, image_mean=float(im.mean()))
 
+    # ---- the gradient main path, and its two kernels alone ------------------------
+    grad_launches = grad_main_path(scene, cam)
+    grad_entries = grad_kernel_timing(scene, (o, d, tm, sid), cam, entering,
+                                      grad_launches, grad_checks)
+    kernel_ms3, _ = cuda_ms(lambda: cw.wavefront_fwd(*kargs), repeats=5)
+    fwd_rounds = [kernel_ms, kernel_ms2, kernel_ms3]
+    emit("forward_kernel_again", kernel_ms=kernel_ms3, rounds=fwd_rounds,
+         median_ms=median(fwd_rounds))
+
     print(json.dumps({"kernels": [{
         "name": "wavefront_fwd",
         "route": "cuda",
@@ -310,14 +623,14 @@ def main():
         "max_abs_err": max(err_mixed, err_cornell, err_random, max_err_full),
         "mismatch_share": max(mismatch_mixed, mismatch_cornell, mismatch_random,
                               mismatch_full),
-        "ms": kernel_ms,
-        "ms_per_launch": kernel_ms,
+        "ms": median(fwd_rounds),
+        "ms_per_launch": median(fwd_rounds),
         "rays_per_launch": chunk,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "library_ms": None,
-    }]}), flush=True)
+    }, *grad_entries]}), flush=True)
     print(name_and_limit, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

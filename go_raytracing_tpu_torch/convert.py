@@ -86,3 +86,16 @@ def camera_from_dict(fields: dict) -> Camera:
             v = fields[f.name]
             vals[f.name] = tuple(v) if isinstance(v, (list, tuple, np.ndarray)) else v
     return Camera(**vals)
+
+
+def params_from_numpy(tree: dict, device=None) -> dict:
+    """``trainable_params`` dict of numpy arrays -> dict of float32 tensors
+    on ``device`` (``None`` means "cuda"), for ``apply_params``."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v, np.float32)).to(dev)
+            for k, v in tree.items()}
+
+
+def params_to_numpy(params: dict) -> dict:
+    """Dict of tensors (parameters or their gradients) -> numpy arrays."""
+    return {k: v.detach().cpu().numpy() for k, v in params.items()}

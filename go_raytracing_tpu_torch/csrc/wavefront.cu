@@ -1,9 +1,19 @@
-// Forward wavefront megakernel for Hopper (sm_90a): the whole bounce loop
-// of the path tracer in one kernel, one thread per ray.
+// Wavefront megakernel for Hopper (sm_90a): the whole bounce loop of the
+// path tracer in one kernel, one thread per ray.  Two instantiations of one
+// template:
 //
-// Replaces: the forward specialization of make_kernel in the JAX package's
-// go_raytracing_tpu/ops/pallas_wavefront.py (launched by _call through
-// pl.pallas_call, entry point trace_megakernel).
+//   wavefront_kernel<false>  the forward render.  Replaces the forward
+//       specialization of make_kernel in the JAX package's
+//       go_raytracing_tpu/ops/pallas_wavefront.py (launched by _call
+//       through pl.pallas_call, entry point trace_megakernel).
+//   wavefront_kernel<true>   the gradient forward: the same bounce loop,
+//       and per bounce the 12 float + 3 int stash rows that the reverse
+//       sweep (wavefront_grad.cu) reads, and the miss colour.  Replaces
+//       make_kernel(grad_mode=True, phase="fwd") of the same file
+//       (launched by _call_grad_fwd, entry point grad_fwd_stash), product
+//       rows only.  Its radiance is the forward's by construction.
+//
+// The forward first.
 //
 // What bounds it on this card: by the roofline's count the two bounds lie
 // close together.  A ray moves 18 rows of 4 bytes (8 in, 10 out) once; a
@@ -33,6 +43,17 @@
 //   * built without --use_fast_math: log(max(u, 1e-38)) needs denormals,
 //     and division and sqrt stay IEEE; and with -fmad=false, so that the
 //     kernel rounds like its plain PyTorch version (ops/_build.py).
+//
+// The gradient forward moves five times the bytes: 15 stash rows a bounce
+// besides the forward's 18 and the 3 miss colour rows, 384 bytes a ray at
+// depth 5, so the stash writes bound it.  The design: the stash is
+// [depth, row, ray] with the ray innermost, so the 32 stores of a warp to
+// one row are one 128-byte line; a thread writes the rows of the bounces it
+// enters as it goes and, after its loop, inert rows (floats 0, slots
+// negative, mask 0) for the bounces it never entered, so every word of the
+// stash is defined and the reverse sweep needs no length per ray.  The
+// stores sit behind `if constexpr`, so the forward instantiation carries
+// none of them.
 //
 // Table layouts (row-major [rows, columns], one column per primitive) are
 // those of ops/cuda_wavefront.build_tables.
@@ -78,6 +99,40 @@ struct Tables {
 struct U3 {
     float x, y, z;
 };
+
+// Outputs of the gradient forward only.
+struct Stash {
+    float* f;        // [depth, 12, n] T(3) alb(3) em_su(3) alb_su(3)
+    int* i;          // [depth, 3, n]  slot, lslot, mask
+    long long n;     // rays (row stride)
+};
+
+// Mask bits of stash row 2 (ops/cuda_wavefront.py: MK_*)
+constexpr int MK_EMIT = 1;
+constexpr int MK_ALIVE_NEXT = 2;
+constexpr int MK_LIT = 4;
+constexpr int MK_CLAMPED = 8;  // << channel
+constexpr int SLOT_NONE = -3;
+constexpr int LSLOT_NONE = -9;
+
+__device__ __forceinline__ void stash_row(const Stash& Z, long long ray, int k,
+                                          const float T[3], const float alb[3],
+                                          const float em_su[3],
+                                          const float alb_su[3], int slot,
+                                          int lslot, int mk) {
+    float* f = Z.f + (size_t)k * 12 * Z.n + ray;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+        f[(0 + c) * Z.n] = T[c];
+        f[(3 + c) * Z.n] = alb[c];
+        f[(6 + c) * Z.n] = em_su[c];
+        f[(9 + c) * Z.n] = alb_su[c];
+    }
+    int* q = Z.i + (size_t)k * 3 * Z.n + ray;
+    q[0] = slot;
+    q[Z.n] = lslot;
+    q[2 * Z.n] = mk;
+}
 
 __device__ __forceinline__ U3 uniform3(uint32_t stream, uint32_t seed,
                                        uint32_t bounce, uint32_t purpose) {
@@ -236,14 +291,18 @@ __device__ __forceinline__ bool occluded(const Tables& S, const float o[3],
     return false;
 }
 
+template <bool STASH>
 __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3],
                                           float tmv, uint32_t sid, uint32_t seed,
                                           int max_depth, float rad[3],
                                           float m_dir[3], float m_tp[3],
-                                          int& flags) {
+                                          int& flags, const Stash& Z,
+                                          long long ray) {
     float tp[3] = {1.0f, 1.0f, 1.0f};
     bool alive = true, allow = true, missed = false, m_prim = false;
     const bool use_nee = S.n_lights > 0;
+    const float zero3[3] = {0.0f, 0.0f, 0.0f};
+    int stashed = 0;  // stash rows written so far
 
     int b = 0;
     for (; b < max_depth && alive; ++b) {
@@ -282,6 +341,12 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             missed = true;
             alive = false;
             allow = true;
+            if constexpr (STASH) {
+                // the reverse sweep adds the miss colour at this bounce
+                stash_row(Z, ray, b, tp, zero3, zero3, zero3, SLOT_NONE,
+                          LSLOT_NONE, MK_LIT);
+                stashed = b + 1;
+            }
             break;
         }
 
@@ -292,6 +357,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
         // ---- winner constants -------------------------------------------
         float outn[3], col[3], even[3], odd[3];
         float matkind, texkind, fuzz, ior, inv_scale;
+        float tex_id = 0.0f;  // read by the gradient forward only
         if (hitk == 2) {
             const float* P = S.pt + hidx;
             const int pc = S.pc;
@@ -307,6 +373,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             fuzz = P[17 * pc];
             ior = P[18 * pc];
             inv_scale = P[28 * pc];
+            if constexpr (STASH) tex_id = P[29 * pc];
         } else if (hitk == 1) {
             const float* Q = S.st + hidx;
             const int sc = S.sc;
@@ -324,6 +391,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             fuzz = Q[9 * sc];
             ior = Q[10 * sc];
             inv_scale = Q[20 * sc];
+            if constexpr (STASH) tex_id = Q[21 * sc];
         } else {
             const float* V = S.vt + hidx;
             const int vc = S.vc;
@@ -339,6 +407,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             fuzz = 0.0f;
             ior = 1.0f;
             inv_scale = 0.0f;
+            if constexpr (STASH) tex_id = V[24 * vc];
         }
         ior = fmaxf(ior, 1e-3f);
 
@@ -356,6 +425,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
 
         // ---- texture ----------------------------------------------------
         float albedo[3] = {col[0], col[1], col[2]};
+        float variant = 0.0f;  // 0 solid, 1 checker even, 2 checker odd
         if (texkind == 1.0f) {
             const float lat = floorf(inv_scale * p[0] + 1e-4f) +
                               floorf(inv_scale * p[1] + 1e-4f) +
@@ -363,6 +433,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             const bool is_even = (lat - 2.0f * floorf(lat * 0.5f)) == 0.0f;
 #pragma unroll
             for (int c = 0; c < 3; ++c) albedo[c] = is_even ? even[c] : odd[c];
+            variant = is_even ? 1.0f : 2.0f;
         }
 
         // ---- scatter ----------------------------------------------------
@@ -434,7 +505,8 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
         for (int c = 0; c < 3; ++c) atten[c] = is_die ? 1.0f : albedo[c];
 
         // ---- emission (the light's albedo is its emission) ----------------
-        if (allow && is_light) {
+        const bool emits = allow && is_light;
+        if (emits) {
 #pragma unroll
             for (int c = 0; c < 3; ++c) rad[c] = rad[c] + tp[c] * albedo[c];
         }
@@ -443,6 +515,11 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
         // The clamp floors (1e-20, 1e-12, cos_l < 1e-3) are the JAX
         // kernel's: the gradient kernels differentiate against them.
         const bool use_mis = use_nee && is_lam;
+        // gradient forward: d(contribution)/d(albedo), d(contribution)/
+        // d(emission) where the sample counts and the clamp does not bite
+        float em_su[3] = {0.0f, 0.0f, 0.0f};
+        float alb_su[3] = {0.0f, 0.0f, 0.0f};
+        int lslot = LSLOT_NONE, mk = 0;
         if (use_mis) {
             const int nl = S.n_lights;
             const int lc = S.lc;
@@ -450,6 +527,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             const int li = (int)fminf(floorf(up * (float)nl), (float)(nl - 1));
             const U3 uab = uniform3(sid, seed, bu, LIGHT_U);
             const float* L = S.lt + li;
+            if constexpr (STASH) lslot = (int)(L[16 * lc] * 3.0f);
             float tl[3];
 #pragma unroll
             for (int c = 0; c < 3; ++c) {
@@ -476,12 +554,29 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
                         cos_th / fmaxf(pdf_l, 1e-12f) * weight * (float)nl;
 #pragma unroll
                     for (int c = 0; c < 3; ++c) {
-                        const float contrib =
-                            fminf(L[(13 + c) * lc] * atten[c] * scale, FIREFLY);
+                        const float raw = L[(13 + c) * lc] * atten[c] * scale;
+                        const float contrib = fminf(raw, FIREFLY);
                         rad[c] = rad[c] + tp[c] * contrib;
+                        if constexpr (STASH) {
+                            if (raw < FIREFLY) {
+                                em_su[c] = L[(13 + c) * lc] * scale;
+                                alb_su[c] = atten[c] * scale;
+                            } else {
+                                mk |= MK_CLAMPED << c;
+                            }
+                        }
                     }
                 }
             }
+        }
+
+        if constexpr (STASH) {
+            // noise textures (kind 2) have no trainable colour
+            const int slot = (texkind != 2.0f)
+                                 ? (int)(tex_id * 3.0f + variant) : SLOT_NONE;
+            mk |= (emits ? MK_EMIT : 0) | (scattered ? MK_ALIVE_NEXT : 0);
+            stash_row(Z, ray, b, tp, atten, em_su, alb_su, slot, lslot, mk);
+            stashed = b + 1;
         }
 
         // ---- state update -------------------------------------------------
@@ -500,17 +595,33 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
     // again by the next bounce of a masked wavefront loop.
     if (!alive && b < max_depth) allow = true;
 
+    if constexpr (STASH) {
+        // bounces never entered: inert rows
+        for (int k = stashed; k < max_depth; ++k)
+            stash_row(Z, ray, k, zero3, zero3, zero3, zero3, SLOT_NONE,
+                      LSLOT_NONE, 0);
+    }
+
     flags = (missed ? 1 : 0) | (m_prim ? 2 : 0) | (alive ? 4 : 0) | (allow ? 8 : 0);
 }
 
+// Miss shader of the gradient forward: the flat background, or the sky
+// gradient of the miss direction (the formula of the JAX kernel).
+struct Miss {
+    int use_sky;
+    float bg[3];
+};
+
+template <bool STASH>
 __global__ void __launch_bounds__(THREADS)
-wavefront_fwd_kernel(Tables G, const float* __restrict__ ox,
-                     const float* __restrict__ oy, const float* __restrict__ oz,
-                     const float* __restrict__ dx, const float* __restrict__ dy,
-                     const float* __restrict__ dz, const float* __restrict__ tm,
-                     const uint32_t* __restrict__ stream, float* __restrict__ out,
-                     int* __restrict__ flags_out, long long n_rays, uint32_t seed,
-                     int max_depth, int tables_in_smem) {
+wavefront_kernel(Tables G, const float* __restrict__ ox,
+                 const float* __restrict__ oy, const float* __restrict__ oz,
+                 const float* __restrict__ dx, const float* __restrict__ dy,
+                 const float* __restrict__ dz, const float* __restrict__ tm,
+                 const uint32_t* __restrict__ stream, float* __restrict__ out,
+                 int* __restrict__ flags_out, long long n_rays, uint32_t seed,
+                 int max_depth, int tables_in_smem, Stash Z, Miss M,
+                 float* __restrict__ miss_col) {
     extern __shared__ float smem[];
     Tables S = G;
     if (tables_in_smem) {
@@ -540,8 +651,8 @@ wavefront_fwd_kernel(Tables G, const float* __restrict__ ox,
         float m_dir[3] = {0.0f, 0.0f, 0.0f};
         float m_tp[3] = {0.0f, 0.0f, 0.0f};
         int flags;
-        trace_ray(S, o, d, tm[i], stream[i], seed, max_depth, rad, m_dir, m_tp,
-                  flags);
+        trace_ray<STASH>(S, o, d, tm[i], stream[i], seed, max_depth, rad, m_dir,
+                         m_tp, flags, Z, i);
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
             out[(0 + c) * n_rays + i] = rad[c];
@@ -549,20 +660,33 @@ wavefront_fwd_kernel(Tables G, const float* __restrict__ ox,
             out[(6 + c) * n_rays + i] = m_tp[c];
         }
         flags_out[i] = flags;
+        if constexpr (STASH) {
+            float col[3] = {0.0f, 0.0f, 0.0f};
+            if (flags & 1) {
+                if (M.use_sky) {
+                    const float dl = sqrtf(fmaxf(dot3(m_dir, m_dir), 1e-20f));
+                    const float aa = 0.5f * (m_dir[1] / dl + 1.0f);
+                    col[0] = (1.0f - aa) + aa * 0.5f;
+                    col[1] = (1.0f - aa) + aa * 0.7f;
+                    col[2] = (1.0f - aa) + aa * 1.0f;
+                } else {
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) col[c] = M.bg[c];
+                }
+            }
+#pragma unroll
+            for (int c = 0; c < 3; ++c) miss_col[c * n_rays + i] = col[c];
+        }
     }
 }
 
-}  // namespace
-
-// Launches on the given stream, does not synchronize, allocates nothing.
-// Returns cudaGetLastError() (0 on success).
-extern "C" int wavefront_fwd_launch(
-    const float* pt, const float* st, const float* vt, const float* lt,
-    int n_planar, int n_sphere, int n_vol, int n_lights,
-    const float* ox, const float* oy, const float* oz,
-    const float* dx, const float* dy, const float* dz, const float* tm,
-    const void* stream, float* out, int* flags, long long n_rays,
-    unsigned int seed, int max_depth, void* cuda_stream) {
+template <bool STASH>
+int launch(const float* pt, const float* st, const float* vt, const float* lt,
+           int n_planar, int n_sphere, int n_vol, int n_lights, const float* ox,
+           const float* oy, const float* oz, const float* dx, const float* dy,
+           const float* dz, const float* tm, const void* stream, float* out,
+           int* flags, long long n_rays, unsigned int seed, int max_depth,
+           void* cuda_stream, Stash Z, Miss M, float* miss_col) {
     Tables G;
     G.pt = pt;
     G.st = st;
@@ -593,10 +717,44 @@ extern "C" int wavefront_fwd_launch(
     if (blocks > cap) blocks = cap;
     if (blocks < 1) blocks = 1;
 
-    wavefront_fwd_kernel<<<(unsigned int)blocks, THREADS,
-                           in_smem ? table_bytes : (size_t)0,
-                           (cudaStream_t)cuda_stream>>>(
+    wavefront_kernel<STASH><<<(unsigned int)blocks, THREADS,
+                              in_smem ? table_bytes : (size_t)0,
+                              (cudaStream_t)cuda_stream>>>(
         G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, out, flags,
-        n_rays, seed, max_depth, in_smem);
+        n_rays, seed, max_depth, in_smem, Z, M, miss_col);
     return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Both launch on the given stream, do not synchronize, allocate nothing and
+// return cudaGetLastError() (0 on success).
+extern "C" int wavefront_fwd_launch(
+    const float* pt, const float* st, const float* vt, const float* lt,
+    int n_planar, int n_sphere, int n_vol, int n_lights,
+    const float* ox, const float* oy, const float* oz,
+    const float* dx, const float* dy, const float* dz, const float* tm,
+    const void* stream, float* out, int* flags, long long n_rays,
+    unsigned int seed, int max_depth, void* cuda_stream) {
+    return launch<false>(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights, ox,
+                         oy, oz, dx, dy, dz, tm, stream, out, flags, n_rays, seed,
+                         max_depth, cuda_stream, Stash{nullptr, nullptr, 0},
+                         Miss{0, {0.0f, 0.0f, 0.0f}}, nullptr);
+}
+
+// miss_col [3, n_rays], stash_f [max_depth, 12, n_rays] and stash_i
+// [max_depth, 3, n_rays] are written in full.
+extern "C" int wavefront_grad_fwd_launch(
+    const float* pt, const float* st, const float* vt, const float* lt,
+    int n_planar, int n_sphere, int n_vol, int n_lights,
+    const float* ox, const float* oy, const float* oz,
+    const float* dx, const float* dy, const float* dz, const float* tm,
+    const void* stream, float* out, int* flags, float* miss_col,
+    float* stash_f, int* stash_i, long long n_rays, unsigned int seed,
+    int max_depth, int use_sky, float bg_r, float bg_g, float bg_b,
+    void* cuda_stream) {
+    return launch<true>(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights, ox,
+                        oy, oz, dx, dy, dz, tm, stream, out, flags, n_rays, seed,
+                        max_depth, cuda_stream, Stash{stash_f, stash_i, n_rays},
+                        Miss{use_sky, {bg_r, bg_g, bg_b}}, miss_col);
 }

@@ -14,7 +14,7 @@ Primitive map:
   - Constant-density media                  -> VolumePack (OBB media)
 
 This module holds the table types and constants only; the tensor-side
-``intersect_*`` oracles come with the gradient slice (ROADMAP.md A7).
+``intersect_*`` oracles come with the gather integrator (ROADMAP.md A8a).
 """
 
 from __future__ import annotations

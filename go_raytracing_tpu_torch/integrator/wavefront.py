@@ -5,11 +5,14 @@ The forward render runs the whole bounce loop in one kernel
 kernel's miss records, so the kernel needs no environment lookups.
 
 Ported so far: the megakernel branch of ``trace`` and the flat-background
-and sky-gradient miss shaders.  The gather integrator (``bounce_step``,
+and sky-gradient miss shaders.  Gradients do not pass through here: the
+product-chain tier of ``render/grad.render_grad`` calls the gradient
+kernels of ``ops/cuda_wavefront`` itself, and their autograd oracle is the
+forward kernel's plain version.  The gather integrator (``bounce_step``,
 ``closest_hit``, ``extract_record``, ``occluded``, ``sample_area_light``)
-is the oracle of the gradient slice and comes with it (ROADMAP.md A7); a
-scene outside the kernel's gate, or ``differentiable=True``, raises
-``NotImplementedError`` until then.
+runs its sweeps through the intersection kernels in the JAX package and
+comes with them (ROADMAP.md A8a, B7, B8); a scene outside the megakernel's
+gate, or ``differentiable=True``, raises ``NotImplementedError`` until then.
 """
 
 from __future__ import annotations
@@ -67,15 +70,16 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
 
     if differentiable:
         raise NotImplementedError(
-            "differentiable tracing comes with the gradient slice "
-            "(ROADMAP.md A7, A9)")
+            "differentiable tracing comes with the gather integrator "
+            "(ROADMAP.md A8a); for gradients of the texture colours use "
+            "render/grad.render_grad or ops/cuda_wavefront.ProductChainTrace")
     if mega_mode is None:
         mega_mode = choose_mega_mode(scene, cam, r, differentiable)
     if mega_mode != "single":
         raise NotImplementedError(
             f"mega_mode {mega_mode!r}: only the single-launch megakernel "
             "path is ported; the gather integrator for scenes outside its "
-            "gate comes with the gradient slice (ROADMAP.md A7)")
+            "gate comes with the intersection kernels (ROADMAP.md A8a)")
 
     radiance, miss_dir, miss_tp, flags = mega.trace_megakernel(
         scene, cam, V3(*(c.contiguous() for c in o)),

@@ -14,8 +14,8 @@ Kinds:
   - ISOTROPIC: uniform-sphere scatter (volume phase function).
 
 This module holds the table type and kind ids only; the tensor-side
-``scatter`` / ``brdf_pdf`` / ``emitted`` come with the gradient slice
-(ROADMAP.md A5).  The forward render evaluates materials inside
+``scatter`` / ``brdf_pdf`` / ``emitted`` come with the gather integrator
+(ROADMAP.md A8a).  The forward render evaluates materials inside
 ``ops/cuda_wavefront``.
 """
 

@@ -4,7 +4,7 @@ A dense SoA pack evaluated branchlessly per ray.  Checker is the 3D
 lattice parity of floor(p/scale + 1e-4).  Marble noise (ROADMAP.md A13)
 and image textures (ROADMAP.md A16) keep their kind ids and table columns
 so the tables stay comparable with the JAX package's, but cannot be built
-yet.  ``evaluate`` comes with the gradient slice (ROADMAP.md A5).
+yet.  ``evaluate`` comes with the gather integrator (ROADMAP.md A8a).
 """
 
 from __future__ import annotations

@@ -7,6 +7,7 @@ PyTorch headers, so a build takes seconds.  Libraries go to
 carries a hash of every file in ``csrc/`` and of the compiler flags, so a
 changed source rebuilds and an unchanged one is reused.  A failed build
 raises with the compiler's output; nothing falls back to another path.
+``load_all`` starts one ``nvcc`` for each library at the same time.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -38,6 +40,7 @@ class Built:
     build_seconds: float   # 0.0 when an earlier build was reused
     registers: int         # most registers a thread of any kernel uses
     spill_bytes: int       # spill stores + loads, summed over kernels
+    kernels: dict          # mangled kernel name -> (registers, spill bytes)
     log: str               # nvcc / ptxas output
 
 
@@ -68,11 +71,19 @@ def _sources_hash(flags) -> str:
     return h.hexdigest()[:16]
 
 
-def _ptxas_stats(log: str):
-    regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
-    spills = [int(a) + int(b) for a, b in re.findall(
-        r"(\d+) bytes spill stores, (\d+) bytes spill loads", log)]
-    return (max(regs) if regs else -1), sum(spills)
+def _ptxas_stats(log: str) -> dict:
+    """``nvcc -Xptxas -v`` output -> {mangled kernel name: (registers,
+    spill bytes)}."""
+    kernels = {}
+    for part in log.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+        kernels[name] = (
+            int(regs.group(1)) if regs else -1,
+            int(spill.group(1)) + int(spill.group(2)) if spill else 0)
+    return kernels
 
 
 def load(name: str, fmad: bool = False) -> Built:
@@ -110,7 +121,17 @@ def load(name: str, fmad: bool = False) -> Built:
         log_path.write_text(log)
         os.replace(tmp, so)  # atomic: concurrent builders agree on one file
     log = log_path.read_text() if log_path.exists() else ""
-    regs, spills = _ptxas_stats(log)
-    built = Built(ctypes.CDLL(str(so)), so, seconds, regs, spills, log)
+    kernels = _ptxas_stats(log)
+    built = Built(ctypes.CDLL(str(so)), so, seconds,
+                  max((r for r, _ in kernels.values()), default=-1),
+                  sum(s for _, s in kernels.values()), kernels, log)
     _loaded[key] = built
     return built
+
+
+def load_all(libraries) -> list:
+    """``load`` for each ``(name, fmad)`` pair, the compilers running side
+    by side (``nvcc`` is a child process, so threads are enough)."""
+    libraries = list(libraries)
+    with ThreadPoolExecutor(max_workers=max(len(libraries), 1)) as pool:
+        return list(pool.map(lambda lib: load(*lib), libraries))

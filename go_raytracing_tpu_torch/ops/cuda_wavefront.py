@@ -1,36 +1,54 @@
-"""Wavefront megakernel: the whole bounce loop in one CUDA kernel.
+"""Wavefront megakernel: the whole bounce loop in one CUDA kernel, and its
+product-chain gradient in two more.
 
-Counterpart of the JAX package's ``ops/pallas_wavefront.py`` (forward
-specialization).  One launch traces a chunk of camera rays through every
-bounce: planar + sphere closest hit, box-volume free flight, miss capture
-for the deferred miss shader, emission with the allowLightHits bit,
-scatter for the five material kinds, checker texture, and NEE toward a
-uniformly picked quad light with a shadow sweep and balance-heuristic MIS.
-The RNG is the PCG3D counter scheme of ``core/rng.py``, recomputed per ray
-inside the kernel.
+Counterpart of the JAX package's ``ops/pallas_wavefront.py``.  One launch
+of the forward kernel traces a chunk of camera rays through every bounce:
+planar + sphere closest hit, box-volume free flight, miss capture for the
+deferred miss shader, emission with the allowLightHits bit, scatter for
+the five material kinds, checker texture, and NEE toward a uniformly
+picked quad light with a shadow sweep and balance-heuristic MIS.  The RNG
+is the PCG3D counter scheme of ``core/rng.py``, recomputed per ray inside
+the kernel.
 
-Three things live here:
+The gradient of a chunk's radiance with respect to the texture colours
+takes two kernels, for scenes inside ``grad_applicable`` (no scatter
+direction depends on a trainable parameter): the gradient forward is the
+same bounce loop and also writes a per-bounce stash (``grad_fwd_stash``);
+the reverse sweep reads the stash, the loss cotangent and the miss colour
+and returns the cotangent of every colour (``grad_rev_stash``).
+``ProductChainTrace`` joins the two for ``torch.autograd``.
+
+What lives here:
 
   * ``build_tables`` — scene -> PT/ST/VT/LT float tables, same row layout
     as the JAX package's (columns are the real primitive counts, with no
     padding);
-  * ``trace_megakernel`` — the kernel wrapper.  A CUDA tensor launches
-    ``csrc/wavefront.cu`` (built at first use by ``ops/_build.py``) or
-    raises; a CPU tensor runs the plain version, and only because it lies
-    on the CPU.  There is no fallback from one to the other;
-  * ``trace_megakernel_plain`` — the same function of the same tables and
-    rays written with ``[R]`` tensors and Python loops over primitives and
-    bounces.  The tests use it and the chip check holds the kernel against
-    it; nothing on the render path calls it when the rays are on a GPU.
+  * the kernel wrappers ``wavefront_fwd``, ``wavefront_grad_fwd`` and
+    ``wavefront_grad_rev`` and, over them, ``trace_megakernel``,
+    ``grad_fwd_stash`` and ``grad_rev_stash``.  A CUDA tensor launches the
+    kernel (``csrc/wavefront.cu``, ``csrc/wavefront_grad.cu``, built at
+    first use by ``ops/_build.py``) or raises; a CPU tensor runs the plain
+    version, and only because it lies on the CPU.  There is no fallback
+    from one to the other;
+  * the plain versions ``_wavefront_fwd_plain``,
+    ``_wavefront_grad_fwd_plain`` and ``_wavefront_grad_rev_plain`` — the
+    same functions of the same inputs written with ``[R]`` tensors and
+    Python loops over primitives and bounces.  The tests use them and the
+    chip check holds the kernels against them; nothing on the render path
+    calls them when the rays are on a GPU.  ``autograd_colour_grads`` is
+    the oracle of the gradient: ``torch.autograd`` through the plain
+    forward.
 
 Not ported yet (``applicable`` is False or the caller raises): marble
-noise, HDRI-NEE rows, decision recording, the resumable variant, the
-gradient variants, sphere segment culling (ROADMAP.md queue B).
+noise, HDRI-NEE rows, decision recording, the resumable variant, the fused
+and the pathwise gradient variants, sphere segment culling (ROADMAP.md
+queue B).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -64,8 +82,28 @@ FLAG_PRIMARY = 2
 FLAG_ALIVE = 4
 FLAG_ALLOW = 8
 
-# Kernel launches made by trace_megakernel (CUDA tensors only).
-LAUNCHES = 0
+# Gradient stash: per bounce 12 float rows (throughput at entry T, albedo,
+# d(NEE term)/d(albedo) em_su, d(NEE term)/d(emission) alb_su, 3 channels
+# each) and 3 int rows (albedo slot = texture * 3 + variant, light slot =
+# light texture * 3, mask).  Same rows as the JAX package's product stash.
+STASH_F_ROWS = 12
+STASH_I_ROWS = 3
+SLOT_NONE = -3    # albedo slot of a row without a trainable colour
+LSLOT_NONE = -9   # light slot of a row that sampled no light
+MK_EMIT = 1         # the ray hit a light and its emission counted
+MK_ALIVE_NEXT = 2   # the ray scattered on
+MK_LIT = 4          # the ray left the scene at this bounce
+MK_CLAMPED = 8      # << channel: the firefly clamp cut the NEE term
+
+# Most textures the reverse kernel's accumulator holds: one block keeps
+# 9 floats a texture (3 variants x 3 channels) for each of its 8 warps in
+# 48 KB of shared memory (csrc/wavefront_grad.cu, MAX_ACC).
+GRAD_MAX_TEX = 170
+
+# Kernel launches made by the three wrappers (CUDA tensors only).
+LAUNCHES = 0            # wavefront_fwd
+LAUNCHES_GRAD_FWD = 0   # wavefront_grad_fwd
+LAUNCHES_GRAD_REV = 0   # wavefront_grad_rev
 
 
 class Tables(NamedTuple):
@@ -94,6 +132,28 @@ def applicable(scene, max_prims: int = 1024) -> bool:
         and (scene.n_volumes == 0
              or bool((scene.volumes.kind == packs.VOL_BOX).all()))
     )
+
+
+def grad_applicable(scene, max_depth: int) -> bool:
+    """Can the product-chain gradient kernels take this scene?  On top of
+    ``applicable``: no metal and no dielectric material, so that no scatter
+    direction depends on a trainable parameter (fuzz, IOR); the gradients
+    of fuzz, ior and atlas are then zero by structure and the adjoint of
+    the path is an exact product-chain reverse sweep.  The number of
+    textures is bounded by the reverse kernel's accumulator; the depth is
+    bounded by memory alone (``render/grad.render_grad`` budgets it)."""
+    if not applicable(scene) or max_depth < 1:
+        return False
+    kinds = scene.materials.kind
+    if bool(((kinds == 1) | (kinds == 2)).any()):   # metal / dielectric
+        return False
+    return int(scene.textures.color.shape[0]) <= GRAD_MAX_TEX
+
+
+def grad_two_phase_ok(scene, max_depth: int) -> bool:
+    """Can the gradient run as stash-writing forward, then reverse sweep?
+    Every scene the gradient kernels take can."""
+    return grad_applicable(scene, max_depth)
 
 
 # -----------------------------------------------------------------------------
@@ -301,9 +361,12 @@ def _occluded(tb, kinds, o, d, t_cap, seed, stream, bounce, purpose_base):
     return blocked
 
 
-def _wavefront_fwd_plain(tb: Tables, o, d, tm, stream, seed, max_depth):
-    """Plain version on component lists.  Returns ([9, R] f32 rows:
-    radiance, miss direction, miss throughput; [R] i32 flag word)."""
+def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None):
+    """The bounce loop on component lists.  Returns ([9, R] f32 rows:
+    radiance, miss direction, miss throughput; [R] i32 flag word).
+
+    ``stash``: (stash_f [D, 12, R] f32, stash_i [D, 3, R] i32) holding inert
+    rows; the rows of every bounce a ray enters are written into it."""
     f32 = torch.float32
     zero = torch.zeros_like(tm)
     one = torch.ones_like(tm)
@@ -468,6 +531,11 @@ def _wavefront_fwd_plain(tb: Tables, o, d, tm, stream, seed, max_depth):
             rad[c] = rad[c] + torch.where(emit_mask, tp[c] * albedo[c], 0.0)
 
         use_mis = (alive & hit & is_lam) if use_nee else torch.zeros_like(alive)
+        if stash is not None:
+            em_su = [zero, zero, zero]
+            alb_su = [zero, zero, zero]
+            clamped = [torch.zeros_like(alive)] * 3
+            lslot = torch.full_like(zero_i, LSLOT_NONE)
         if use_nee:
             # The clamp floors (1e-20, 1e-12, cos_l < 1e-3) are the JAX
             # kernel's: the gradient kernels differentiate against them.
@@ -494,8 +562,41 @@ def _wavefront_fwd_plain(tb: Tables, o, d, tm, stream, seed, max_depth):
             scale = cos_th / torch.clamp_min(pdf_l, 1e-12) * weight * float(nl)
             ok = facing & ~blocked & ~grazing & use_mis
             for c in range(3):
-                contrib = torch.clamp_max(lsel[13 + c] * atten[c] * scale, FIREFLY)
+                raw = lsel[13 + c] * atten[c] * scale
+                contrib = torch.clamp_max(raw, FIREFLY)
                 rad[c] = rad[c] + torch.where(ok, tp[c] * contrib, 0.0)
+                if stash is not None:
+                    counts = ok & (raw < FIREFLY)
+                    em_su[c] = torch.where(counts, lsel[13 + c] * scale, 0.0)
+                    alb_su[c] = torch.where(counts, atten[c] * scale, 0.0)
+                    clamped[c] = ok & ~counts
+            if stash is not None:
+                lslot = torch.where(use_mis, (lsel[16] * 3.0).to(torch.int32),
+                                    LSLOT_NONE)
+
+        if stash is not None:
+            # rows of the lanes that entered this bounce; the others keep
+            # inert rows (a dead lane can still "hit" a volume: its free
+            # flight is not capped)
+            stash_f, stash_i = stash
+            hit_a = alive & hit
+            variant = torch.where(is_checker, torch.where(is_even, 1.0, 2.0), 0.0)
+            tex_id = pick(29, 21, vrow(24))
+            # noise textures (kind 2) have no trainable colour
+            slot = torch.where(hit_a & (texkind != 2.0),
+                               (tex_id * 3.0 + variant).to(torch.int32), SLOT_NONE)
+            mk = (emit_mask.to(torch.int32) * MK_EMIT
+                  + (hit_a & scattered).to(torch.int32) * MK_ALIVE_NEXT
+                  + lit.to(torch.int32) * MK_LIT)
+            for c in range(3):
+                stash_f[bounce, 0 + c] = torch.where(alive, tp[c], 0.0)
+                stash_f[bounce, 3 + c] = torch.where(hit_a, atten[c], 0.0)
+                stash_f[bounce, 6 + c] = em_su[c]
+                stash_f[bounce, 9 + c] = alb_su[c]
+                mk = mk + clamped[c].to(torch.int32) * (MK_CLAMPED << c)
+            stash_i[bounce, 0] = slot
+            stash_i[bounce, 1] = lslot
+            stash_i[bounce, 2] = mk
 
         alive = alive & hit & scattered
         for c in range(3):
@@ -512,42 +613,122 @@ def _wavefront_fwd_plain(tb: Tables, o, d, tm, stream, seed, max_depth):
     return out, flags
 
 
+def _wavefront_fwd_plain(tb: Tables, o, d, tm, stream, seed, max_depth):
+    """Plain version of the forward kernel: ([9, R] f32, [R] i32)."""
+    return _bounce_loop(tb, o, d, tm, stream, seed, max_depth)
+
+
+def _miss_colour_rows(out, flags, miss):
+    """[3, R] miss colour, zero where the ray did not leave the scene:
+    the flat background, or the sky gradient of the miss direction.
+    ``miss`` = (use_sky, (r, g, b))."""
+    use_sky, bg = miss
+    missed = (flags & FLAG_MISSED) != 0
+    if use_sky:
+        m_dir = [out[3], out[4], out[5]]
+        dl = torch.sqrt(torch.clamp_min(_dot3(m_dir, m_dir), 1e-20))
+        aa = 0.5 * (m_dir[1] / dl + 1.0)
+        cols = [(1.0 - aa) + aa * 0.5, (1.0 - aa) + aa * 0.7,
+                (1.0 - aa) + aa * 1.0]
+    else:
+        cols = [torch.full_like(out[0], float(bg[c])) for c in range(3)]
+    return torch.stack([torch.where(missed, cols[c], 0.0) for c in range(3)])
+
+
+def _empty_stash(r, max_depth, device):
+    stash_f = torch.empty((max_depth, STASH_F_ROWS, r), dtype=torch.float32,
+                          device=device)
+    stash_i = torch.empty((max_depth, STASH_I_ROWS, r), dtype=torch.int32,
+                          device=device)
+    return stash_f, stash_i
+
+
+def _wavefront_grad_fwd_plain(tb: Tables, o, d, tm, stream, seed, max_depth,
+                              miss):
+    """Plain version of the gradient forward.  Returns (out [9, R] f32 and
+    flags [R] i32 as the forward's, miss colour [3, R] f32, stash_f
+    [D, 12, R] f32, stash_i [D, 3, R] i32).  Lanes that never enter a bounce
+    keep inert rows there: floats 0, slot -3, light slot -9, mask 0."""
+    stash_f, stash_i = _empty_stash(tm.shape[0], max_depth, tm.device)
+    stash_f.zero_()
+    stash_i[:, 0] = SLOT_NONE
+    stash_i[:, 1] = LSLOT_NONE
+    stash_i[:, 2] = 0
+    out, flags = _bounce_loop(tb, o, d, tm, stream, seed, max_depth,
+                              stash=(stash_f, stash_i))
+    return out, flags, _miss_colour_rows(out, flags, miss), stash_f, stash_i
+
+
+def _wavefront_grad_rev_plain(stash_f, stash_i, g3, miss_col, n_tex):
+    """Plain version of the reverse sweep: the product-chain adjoint
+
+        R_k = s_k + aeff_k * R_{k+1}
+        s_c = alb*emit + alb*em_su + FIREFLY*clamped_c + miss_col*lit
+        cot_alb_c = g_c T_c (R_c*alive_next + emit + em_su_c)  -> slot
+        cot_lem_c = g_c T_c alb_su_c                            -> light slot
+
+    from the last bounce to the first.  ``g3`` [3, R] is the cotangent of
+    the rays' radiance.  Returns [n_tex, 3 variants, 3 channels] f32.  The
+    per-ray terms are float32 as in the kernel; they are summed in float64,
+    so this is the more exact of the two."""
+    depth = stash_f.shape[0]
+    null = 9 * n_tex   # bin of the rows without a slot
+    acc = torch.zeros(null + 1, dtype=torch.float64, device=stash_f.device)
+    rk = [torch.zeros_like(g3[0]) for _ in range(3)]
+    for k in range(depth - 1, -1, -1):
+        sf = stash_f[k]
+        slot, lslot, mk = stash_i[k, 0], stash_i[k, 1], stash_i[k, 2]
+        emitf = ((mk & MK_EMIT) > 0).to(torch.float32)
+        alive_nf = ((mk & MK_ALIVE_NEXT) > 0).to(torch.float32)
+        litf = ((mk & MK_LIT) > 0).to(torch.float32)
+        a_bin, l_bin = slot.long() * 3, lslot.long() * 3
+        for c in range(3):
+            t_c, alb, em_su, alb_su = sf[c], sf[3 + c], sf[6 + c], sf[9 + c]
+            clampf = ((mk & (MK_CLAMPED << c)) > 0).to(torch.float32)
+            s_c = alb * emitf + alb * em_su + FIREFLY * clampf + miss_col[c] * litf
+            cotb = g3[c] * t_c
+            cot_alb = cotb * (rk[c] * alive_nf + emitf + em_su)
+            cot_lem = cotb * alb_su
+            acc.index_add_(0, torch.where(slot >= 0, a_bin + c, null),
+                           cot_alb.double())
+            acc.index_add_(0, torch.where(lslot >= 0, l_bin + c, null),
+                           cot_lem.double())
+            aeff = alb * alive_nf + (1.0 - alive_nf)
+            rk[c] = s_c + aeff * rk[c]
+    return acc[:null].to(torch.float32).reshape(n_tex, 3, 3)
+
+
 # -----------------------------------------------------------------------------
 # Kernel wrapper
 # -----------------------------------------------------------------------------
 
 _P = ctypes.c_void_p
-_ARGTYPES = (
-    [_P] * 4 + [ctypes.c_int] * 4        # tables, counts
+_I, _F = ctypes.c_int, ctypes.c_float
+_TABLES_AND_RAYS = (
+    [_P] * 4 + [_I] * 4                  # tables, counts
     + [_P] * 8                           # ox oy oz dx dy dz tm stream
-    + [_P, _P]                           # out rows, flags
-    + [ctypes.c_longlong, ctypes.c_uint, ctypes.c_int]  # R, seed, depth
-    + [_P]                               # CUDA stream
 )
+_SIZES = [ctypes.c_longlong, ctypes.c_uint, _I]   # R, seed, depth
+_FWD_ARGTYPES = _TABLES_AND_RAYS + [_P, _P] + _SIZES + [_P]
+_GRAD_FWD_ARGTYPES = (_TABLES_AND_RAYS + [_P] * 5 + _SIZES
+                      + [_I, _F, _F, _F] + [_P])
+_GRAD_REV_ARGTYPES = [_P] * 5 + [ctypes.c_longlong, _I, _I, _P]
 
 
-def _kernel(fmad: bool = False):
+def _kernel(library: str, function: str, argtypes, fmad: bool = False):
     from . import _build
 
-    lib = _build.load("wavefront", fmad=fmad).lib
-    fn = lib.wavefront_fwd_launch
-    fn.argtypes = _ARGTYPES
+    fn = getattr(_build.load(library, fmad=fmad).lib, function)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
 
-def _wavefront_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
-                        fmad: bool = False):
-    """Launch the kernel on PyTorch's current stream.  Does not
-    synchronize.  Returns ([9, R] f32, [R] i32).
-
-    The inputs may be freed by the caller right after the call: PyTorch's
-    allocator hands their memory only to later work on the same stream."""
-    global LAUNCHES
-    rays = list(o) + list(d) + [tm]
+def _check_rays(tb: Tables, o, d, tm, stream, max_depth):
+    """Raise on what the two tracing kernels do not take."""
     r = tm.shape[0]
     dev = tm.device
-    for a in rays:
+    for a in list(o) + list(d) + [tm]:
         if a.device != dev or a.dtype != torch.float32 or a.shape != (r,) \
                 or not a.is_contiguous():
             raise ValueError(
@@ -567,16 +748,34 @@ def _wavefront_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
     if not 0 < max_depth:
         raise ValueError("max_depth must be positive")
 
+
+def _table_and_ray_args(tb: Tables, o, d, tm, stream):
+    return (
+        tb.pt.data_ptr(), tb.st.data_ptr(), tb.vt.data_ptr(),
+        tb.lt.data_ptr(), tb.n_planar, tb.n_sphere, tb.n_vol, tb.n_lights,
+        *[a.data_ptr() for a in list(o) + list(d) + [tm]], stream.data_ptr(),
+    )
+
+
+def _wavefront_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
+                        fmad: bool = False):
+    """Launch the kernel on PyTorch's current stream.  Does not
+    synchronize.  Returns ([9, R] f32, [R] i32).
+
+    The inputs may be freed by the caller right after the call: PyTorch's
+    allocator hands their memory only to later work on the same stream."""
+    global LAUNCHES
+    _check_rays(tb, o, d, tm, stream, max_depth)
+    r = tm.shape[0]
+    dev = tm.device
     out = torch.empty((9, r), dtype=torch.float32, device=dev)
     flags = torch.empty((r,), dtype=torch.int32, device=dev)
     if r == 0:
         return out, flags
-    fn = _kernel(fmad)
+    fn = _kernel("wavefront", "wavefront_fwd_launch", _FWD_ARGTYPES, fmad)
     with torch.cuda.device(dev):
         err = fn(
-            tb.pt.data_ptr(), tb.st.data_ptr(), tb.vt.data_ptr(),
-            tb.lt.data_ptr(), tb.n_planar, tb.n_sphere, tb.n_vol, tb.n_lights,
-            *[a.data_ptr() for a in rays], stream.data_ptr(),
+            *_table_and_ray_args(tb, o, d, tm, stream),
             out.data_ptr(), flags.data_ptr(),
             r, int(seed) & 0xFFFFFFFF, int(max_depth),
             torch.cuda.current_stream(dev).cuda_stream,
@@ -585,6 +784,80 @@ def _wavefront_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
         raise RuntimeError(f"wavefront_fwd kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out, flags
+
+
+def _wavefront_grad_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
+                             miss):
+    """Launch the gradient forward on PyTorch's current stream; does not
+    synchronize.  Returns what ``_wavefront_grad_fwd_plain`` returns."""
+    global LAUNCHES_GRAD_FWD
+    _check_rays(tb, o, d, tm, stream, max_depth)
+    r = tm.shape[0]
+    dev = tm.device
+    out = torch.empty((9, r), dtype=torch.float32, device=dev)
+    flags = torch.empty((r,), dtype=torch.int32, device=dev)
+    miss_col = torch.empty((3, r), dtype=torch.float32, device=dev)
+    stash_f, stash_i = _empty_stash(r, max_depth, dev)
+    if r == 0:
+        return out, flags, miss_col, stash_f, stash_i
+    use_sky, bg = miss
+    fn = _kernel("wavefront", "wavefront_grad_fwd_launch", _GRAD_FWD_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(
+            *_table_and_ray_args(tb, o, d, tm, stream),
+            out.data_ptr(), flags.data_ptr(), miss_col.data_ptr(),
+            stash_f.data_ptr(), stash_i.data_ptr(),
+            r, int(seed) & 0xFFFFFFFF, int(max_depth),
+            int(bool(use_sky)), float(bg[0]), float(bg[1]), float(bg[2]),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"wavefront_grad_fwd kernel launch failed: CUDA error {err}")
+    LAUNCHES_GRAD_FWD += 1
+    return out, flags, miss_col, stash_f, stash_i
+
+
+def _wavefront_grad_rev_cuda(stash_f, stash_i, g3, miss_col, n_tex):
+    """Launch the reverse sweep on PyTorch's current stream; does not
+    synchronize.  Returns [n_tex, 3, 3] f32: the kernel writes one row of
+    partial sums a block, in an order fixed by the ray count, and the rows
+    are added here."""
+    global LAUNCHES_GRAD_REV
+    dev = stash_f.device
+    depth, r = stash_f.shape[0], stash_f.shape[2]
+    for a, shape, dtype in ((stash_f, (depth, STASH_F_ROWS, r), torch.float32),
+                            (stash_i, (depth, STASH_I_ROWS, r), torch.int32),
+                            (g3, (3, r), torch.float32),
+                            (miss_col, (3, r), torch.float32)):
+        if a.device != dev or a.dtype != dtype or tuple(a.shape) != shape \
+                or not a.is_contiguous():
+            raise ValueError(
+                f"expected a contiguous {dtype} {shape} tensor on {dev}, got "
+                f"{a.dtype} {tuple(a.shape)} on {a.device}")
+    if not 0 < n_tex <= GRAD_MAX_TEX:
+        raise ValueError(
+            f"the reverse kernel's accumulator holds 1 to {GRAD_MAX_TEX} "
+            f"textures, got {n_tex}")
+    if depth < 1:
+        raise ValueError("the stash holds no bounce")
+    n_acc = 9 * n_tex
+    if r == 0:
+        return torch.zeros((n_tex, 3, 3), dtype=torch.float32, device=dev)
+    block_rays = _kernel("wavefront_grad", "wavefront_grad_rev_block_rays", [])()
+    partial = torch.empty((-(-r // block_rays), n_acc), dtype=torch.float32,
+                          device=dev)
+    fn = _kernel("wavefront_grad", "wavefront_grad_rev_launch",
+                 _GRAD_REV_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(stash_f.data_ptr(), stash_i.data_ptr(), g3.data_ptr(),
+                 miss_col.data_ptr(), partial.data_ptr(), r, depth, n_acc,
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"wavefront_grad_rev kernel launch failed: CUDA error {err}")
+    LAUNCHES_GRAD_REV += 1
+    return partial.sum(dim=0).reshape(n_tex, 3, 3)
 
 
 def stream_to_i32(stream):
@@ -603,6 +876,23 @@ def wavefront_fwd(tb: Tables, o, d, tm, stream, seed, max_depth):
     if tm.is_cuda:
         return _wavefront_fwd_cuda(tb, o, d, tm, stream, seed, max_depth)
     return _wavefront_fwd_plain(tb, o, d, tm, stream, seed, max_depth)
+
+
+def wavefront_grad_fwd(tb: Tables, o, d, tm, stream, seed, max_depth, miss):
+    """Gradient forward on prepared tables: the forward's outputs, the miss
+    colour and the stash.  CUDA rays launch the kernel (or raise); CPU rays
+    run the plain version.  ``miss`` = (use_sky, (r, g, b))."""
+    stream = stream_to_i32(stream)
+    impl = _wavefront_grad_fwd_cuda if tm.is_cuda else _wavefront_grad_fwd_plain
+    return impl(tb, o, d, tm, stream, seed, max_depth, miss)
+
+
+def wavefront_grad_rev(stash_f, stash_i, g3, miss_col, n_tex):
+    """Reverse sweep over a stash -> [n_tex, 3 variants, 3 channels]
+    cotangents.  A CUDA stash launches the kernel (or raises); a CPU stash
+    runs the plain version."""
+    impl = _wavefront_grad_rev_cuda if stash_f.is_cuda else _wavefront_grad_rev_plain
+    return impl(stash_f, stash_i, g3, miss_col, n_tex)
 
 
 def _unpack(out, flags):
@@ -635,3 +925,117 @@ def trace_megakernel_plain(scene, cam, o: V3, d: V3, tm, stream, seed):
     tb = build_tables(scene)
     return _unpack(*_wavefront_fwd_plain(
         tb, o, d, tm, stream_to_i32(stream), seed, cam.max_depth))
+
+
+# -----------------------------------------------------------------------------
+# Product-chain gradient of one ray chunk
+# -----------------------------------------------------------------------------
+
+def _check_grad_scene(scene, max_depth):
+    if not grad_applicable(scene, max_depth):
+        raise NotImplementedError(
+            "scene is outside the product-chain gradient kernels' gate "
+            "(metal or dielectric materials need the pathwise kernel, "
+            f"ROADMAP.md B5; more than {GRAD_MAX_TEX} textures; or outside "
+            "the forward megakernel's gate): see ROADMAP.md queues A and B")
+
+
+def miss_config(cam):
+    """Camera -> the ``miss`` argument of the gradient forward."""
+    return bool(cam.use_sky_gradient), tuple(float(x) for x in cam.background)
+
+
+def grad_fwd_stash(scene, cam, o: V3, d: V3, tm, stream, seed):
+    """Gradient forward for one ray chunk.  Returns (radiance V3 with the
+    miss colour applied, the chunk's contribution to the framebuffer; carry
+    for ``grad_rev_stash``: miss colour [3, R], stash_f, stash_i)."""
+    _check_grad_scene(scene, cam.max_depth)
+    tb = build_tables(scene)
+    out, _, miss_col, stash_f, stash_i = wavefront_grad_fwd(
+        tb, o, d, tm, stream, seed, cam.max_depth, miss_config(cam))
+    rad = V3(*(out[c] + out[6 + c] * miss_col[c] for c in range(3)))
+    return rad, (miss_col, stash_f, stash_i)
+
+
+def grad_rev_stash(scene, cam, g3, carry):
+    """Reverse sweep for one ray chunk against the carry of
+    ``grad_fwd_stash``.  ``g3``: [3, R] cotangent of the chunk's radiance
+    (or three [R] rows).  Returns dict(color, even_color, odd_color), each
+    [n_tex, 3]: the cotangents of the scene's texture colour tables."""
+    _check_grad_scene(scene, cam.max_depth)
+    miss_col, stash_f, stash_i = carry
+    if not isinstance(g3, torch.Tensor):
+        g3 = torch.stack(list(g3))
+    n_tex = int(scene.textures.color.shape[0])
+    grads = wavefront_grad_rev(stash_f, stash_i, g3.contiguous(), miss_col, n_tex)
+    return dict(color=grads[:, 0], even_color=grads[:, 1],
+                odd_color=grads[:, 2])
+
+
+def _with_colours(scene, color, even_color, odd_color):
+    return dataclasses.replace(scene, textures=dataclasses.replace(
+        scene.textures, color=color, even_color=even_color,
+        odd_color=odd_color))
+
+
+class ProductChainTrace(torch.autograd.Function):
+    """Radiance [3, R] of a ray chunk as a function of the three texture
+    colour tables, for a caller's own loss:
+
+        rad = ProductChainTrace.apply(color, even_color, odd_color,
+                                      scene, cam, o, d, tm, stream, seed)
+        loss_of(rad).backward()
+
+    Forward is ``grad_fwd_stash`` (it keeps the chunk's stash until the
+    backward), backward is ``grad_rev_stash``."""
+
+    @staticmethod
+    def forward(ctx, color, even_color, odd_color, scene, cam, o, d, tm,
+                stream, seed):
+        scene = _with_colours(scene, color.detach(), even_color.detach(),
+                              odd_color.detach())
+        rad, carry = grad_fwd_stash(scene, cam, o, d, tm, stream, seed)
+        ctx.scene, ctx.cam, ctx.carry = scene, cam, carry
+        return torch.stack(list(rad))
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = grad_rev_stash(ctx.scene, ctx.cam, g.contiguous(), ctx.carry)
+        ctx.carry = None
+        return (grads["color"], grads["even_color"], grads["odd_color"],
+                None, None, None, None, None, None, None)
+
+
+# Rows of the tables that hold texture colours: what a gradient flows to.
+_COLOUR_ROWS = dict(pt=(19, 28), st=(11, 20), vt=(21, 24), lt=(13, 16))
+
+
+def autograd_colour_grads(scene, cam, o: V3, d: V3, tm, stream, seed, g3):
+    """Oracle of the gradient kernels: ``torch.autograd`` through the plain
+    forward.  Returns the dict ``grad_rev_stash`` returns, for the loss
+    sum(radiance * g3).
+
+    Only the colour rows of the tables carry a gradient; geometry is
+    detached, because a zero cotangent times an infinite local derivative
+    (sqrt at 0, a clamped division) is NaN, and no colour depends on it."""
+    _check_grad_scene(scene, cam.max_depth)
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (scene.textures.color, scene.textures.even_color,
+                        scene.textures.odd_color)]
+    with torch.enable_grad():
+        tb = build_tables(_with_colours(scene, *leaves))
+        tabs = {}
+        for name, (lo, hi) in _COLOUR_ROWS.items():
+            tab = getattr(tb, name)
+            fixed = tab.detach()
+            tabs[name] = torch.cat([fixed[:lo], tab[lo:hi], fixed[hi:]])
+        tb = tb._replace(**tabs)
+        out, flags = _wavefront_fwd_plain(
+            tb, o, d, tm, stream_to_i32(stream), seed, cam.max_depth)
+        miss_col = _miss_colour_rows(out.detach(), flags, miss_config(cam))
+        loss = sum(((out[c] + out[6 + c] * miss_col[c]) * g3[c]).sum()
+                   for c in range(3))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for g, t in zip(grads, leaves)]
+    return dict(color=grads[0], even_color=grads[1], odd_color=grads[2])

@@ -86,19 +86,18 @@ def scene_tiled(scene) -> bool:
     return int(scene.spheres.radius.shape[0]) >= SPH_CULL_MIN
 
 
-def _render_chunk(scene, cam: Camera, accum, ray_start: int, seed, *, spp: int,
-                  chunk: int, max_depth: int, differentiable: bool = False,
-                  mega_mode: Optional[str] = None):
-    """Trace ``chunk`` rays starting at global ray id ``ray_start`` and add
-    their radiance into the flat accumulator [W*H, 3] IN PLACE (the buffer
-    belongs to ``render``; nothing else holds it)."""
+def _chunk_rays(scene, cam: Camera, ray_start: int, seed, *, spp: int,
+                chunk: int, max_depth: int, device):
+    """The camera rays of one chunk: ray ids ``ray_start .. ray_start +
+    chunk`` of the scene's ray layout.  Returns (camera at ``max_depth``,
+    o, d, tm, stream ids, pixel index, valid mask); iterating over all
+    chunks covers every (pixel, sample) once."""
     w, h = cam.image_width, cam.image_height
     tiled = scene_tiled(scene)
     _, _, n_virt = ray_layout(w, h, tiled)
     total = n_virt * spp
-    dev = accum.device
 
-    ids = ray_start + torch.arange(chunk, dtype=torch.int64, device=dev)
+    ids = ray_start + torch.arange(chunk, dtype=torch.int64, device=device)
     valid = ids < total
     ids = torch.clamp_max(ids, total - 1)
     px, py, in_bounds = _id_to_pixel(ids % n_virt, w, h, tiled)
@@ -107,10 +106,22 @@ def _render_chunk(scene, cam: Camera, accum, ray_start: int, seed, *, spp: int,
     # Stream id = sample * n_virt + virtual_pixel == the global ray id:
     # independent of the total spp, so SPP-chunked/resumed renders and any
     # chunking layout produce identical samples.
-    stream = ids
-
     cam2 = dataclasses.replace(cam, max_depth=max_depth)
-    o, d, tm = generate_rays(cam2, px, py, stream, seed)
+    o, d, tm = generate_rays(cam2, px, py, ids, seed)
+    return cam2, o, d, tm, ids, pixel, valid
+
+
+def _render_chunk(scene, cam: Camera, accum, ray_start: int, seed, *, spp: int,
+                  chunk: int, max_depth: int, differentiable: bool = False,
+                  mega_mode: Optional[str] = None):
+    """Trace ``chunk`` rays starting at global ray id ``ray_start`` and add
+    their radiance into the flat accumulator [W*H, 3] IN PLACE (the buffer
+    belongs to ``render``; nothing else holds it)."""
+    tiled = scene_tiled(scene)
+    _, _, n_virt = ray_layout(cam.image_width, cam.image_height, tiled)
+    cam2, o, d, tm, stream, pixel, valid = _chunk_rays(
+        scene, cam, ray_start, seed, spp=spp, chunk=chunk,
+        max_depth=max_depth, device=accum.device)
     radiance, tstats = wavefront.trace(
         scene, cam2, o, d, tm, stream, seed, differentiable=differentiable,
         mega_mode=mega_mode, with_stats=True,

@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version, on a GPU.
+"""The port's CUDA kernels against their plain PyTorch versions, on a GPU.
 
 These tests carry the ``cuda`` marker and skip, with a reason, on a machine
 without a CUDA device (a CUDA kernel has no CPU or interpret mode).  This
@@ -90,3 +90,106 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
         cw._wavefront_fwd_cuda(tb, o, d, tm, ids, 0, 3)  # int64 stream
     with pytest.raises(ValueError):
         cw._wavefront_fwd_cuda(tb, o, d, tm[::2], cw.stream_to_i32(ids), 0, 3)
+
+
+def _grad_scene(name):
+    if name == "cornell":
+        scene, cam = grtt.load_scene("cornell", device="cuda")
+        return scene, dataclasses.replace(cam, image_width=64, aspect_ratio=1.0,
+                                          samples_per_pixel=4)
+    # checker floor, lambertian spheres, quad light, fog box, sky gradient
+    b = grtt.SceneBuilder()
+    b.plane((0, 0, 0), (0, 1, 0),
+            b.lambertian(b.checker(0.7, (0.2, 0.3, 0.1), (0.9, 0.9, 0.8))))
+    b.sphere((0, 1, -1), 0.8, b.lambertian((0.2, 0.5, 0.8)))
+    b.sphere((-1.8, 0.8, 0), 0.7, b.lambertian((0.7, 0.2, 0.2)))
+    b.add_light(b.quad((-1, 4, -1), (2, 0, 0), (0, 0, 2),
+                       b.diffuse_light((120, 112, 104))))
+    b.volume_box((-3, 0, -3), (3, 3, 3), 0.05, (0.8, 0.9, 1.0))
+    cam = tcamera.Camera(image_width=64, aspect_ratio=1.0, samples_per_pixel=4,
+                         max_depth=4, look_from=(0, 2, 5), look_at=(0, 0.8, 0),
+                         vfov=45.0, use_sky_gradient=True)
+    return b.build(device="cuda"), cam
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene_name", ["cornell", "checker-sky"])
+def test_cuda_grad_kernels_match_plain_versions(scene_name):
+    """On a GPU: the stash-writing forward and the reverse sweep against
+    their plain versions.  The forward is built without fused multiply-add
+    contraction like the forward kernel, so radiance and stash agree per
+    ray (fewer than 0.5 % of rays outside rtol/atol 1e-3).  The reverse
+    kernel sums in float32 in a fixed tree, its plain version in float64:
+    rtol 1e-4 of the largest entry, on the same stash."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene, cam = _grad_scene(scene_name)
+    assert cw.grad_applicable(scene, cam.max_depth)
+    n = 64 * 64 * 4
+    o, d, tm, ids = _rays(cam, n, 3, "cuda")
+    tb = cw.build_tables(scene)
+    args = (tb, o, d, tm, cw.stream_to_i32(ids), 3, cam.max_depth,
+            cw.miss_config(cam))
+    before = cw.LAUNCHES_GRAD_FWD, cw.LAUNCHES_GRAD_REV
+    k = cw.wavefront_grad_fwd(*args)
+    torch.cuda.synchronize()
+    p = cw._wavefront_grad_fwd_plain(*args)
+    good = (torch.isclose(k[0], p[0], rtol=1e-3, atol=1e-3).all(dim=0)
+            & (k[1] == p[1])
+            & torch.isclose(k[2], p[2], rtol=1e-3, atol=1e-3).all(dim=0)
+            & torch.isclose(k[3], p[3], rtol=1e-3, atol=1e-3).all(dim=(0, 1))
+            & (k[4] == p[4]).all(dim=(0, 1)))
+    assert float((~good).float().mean()) < 0.005
+    f_rows, _ = cw.wavefront_fwd(*args[:-1])
+    assert torch.equal(f_rows, k[0])  # one bounce loop, two instantiations
+
+    g3 = torch.rand((3, n), device="cuda", generator=torch.Generator("cuda").manual_seed(0)) * 1e-3
+    n_tex = int(scene.textures.color.shape[0])
+    gk = cw.wavefront_grad_rev(k[3], k[4], g3, k[2], n_tex)
+    torch.cuda.synchronize()
+    assert (cw.LAUNCHES_GRAD_FWD, cw.LAUNCHES_GRAD_REV) == (before[0] + 1, before[1] + 1)
+    gp = cw._wavefront_grad_rev_plain(k[3], k[4], g3, k[2], n_tex)
+    assert float(gp.abs().max()) > 1e-4
+    assert float((gk - gp).abs().max()) <= 1e-4 * float(gp.abs().max())
+    # the same launch again gives the same bits: no atomics on device memory
+    assert torch.equal(gk, cw.wavefront_grad_rev(k[3], k[4], g3, k[2], n_tex))
+
+
+@pytest.mark.cuda
+def test_cuda_render_grad_goes_through_the_kernels():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene, cam = grtt.load_scene("cornell")
+    cam = dataclasses.replace(cam, image_width=32, aspect_ratio=1.0,
+                              samples_per_pixel=4)
+    target = grtt.render(scene, cam, seed=1) / 4 * 0.8
+    stats = grtt.RenderStats()
+    before = cw.LAUNCHES_GRAD_FWD, cw.LAUNCHES_GRAD_REV
+    loss, grads = grtt.render_grad(scene, cam, target, seed=1, chunk=2048,
+                                   stats=stats)
+    assert stats.chunks == 2
+    assert (cw.LAUNCHES_GRAD_FWD, cw.LAUNCHES_GRAD_REV) == (before[0] + 2, before[1] + 2)
+    assert loss.is_cuda and all(g.is_cuda for g in grads.values())
+    cpu_scene, _ = grtt.load_scene("cornell", device="cpu")
+    ref_loss, ref = grtt.render_grad(cpu_scene, cam, target.cpu(), seed=1,
+                                     chunk=2048, device="cpu")
+    # same streams on both devices; an ulp flips a few rays of 4096
+    assert abs(float(loss) - float(ref_loss)) < 0.02 * float(ref_loss)
+    big = float(ref["color"].abs().max())
+    assert float((grads["color"].cpu() - ref["color"]).abs().max()) < 0.05 * big
+
+
+@pytest.mark.cuda
+def test_cuda_grad_wrappers_reject_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    r, depth = 64, 3
+    sf = torch.zeros((depth, 12, r), device="cuda")
+    si = torch.zeros((depth, 3, r), dtype=torch.int32, device="cuda")
+    g3 = torch.zeros((3, r), device="cuda")
+    with pytest.raises(ValueError):
+        cw.wavefront_grad_rev(sf, si, g3, g3, cw.GRAD_MAX_TEX + 1)
+    with pytest.raises(ValueError):
+        cw.wavefront_grad_rev(sf, si.long(), g3, g3, 4)
+    with pytest.raises(ValueError):
+        cw.wavefront_grad_rev(sf, si, g3[:, ::2], g3, 4)

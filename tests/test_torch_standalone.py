@@ -58,6 +58,10 @@ def test_package_imports_with_jax_unimportable():
         cam = dataclasses.replace(cam, image_width=8, samples_per_pixel=1, max_depth=2)
         img = pkg.render_image(scene, cam, device="cpu")
         assert tuple(img.shape) == (8, 8, 3)
+        loss, grads = pkg.render_grad(scene, cam, img, device="cpu")
+        assert loss.ndim == 0 and set(grads) == set(pkg.trainable_params(scene))
+        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "go_raytracing_tpu")]
+        assert not bad, bad
         print("OK", len(names))
     """)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -65,6 +69,14 @@ def test_package_imports_with_jax_unimportable():
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("OK")
     assert int(proc.stdout.split()[1]) >= 15
+
+
+def test_gradient_modules_are_part_of_the_package():
+    """The gradient slice's modules and kernel sources are among the files
+    the two tests above scan and import."""
+    names = {str(p.relative_to(PORT)) for p in _sources()[:-1]}
+    assert {"render/grad.py", "parallel/sharding.py", "csrc/wavefront.cu",
+            "csrc/wavefront_grad.cu"} <= names
 
 
 def test_chip_smoke_fails_without_a_gpu():

@@ -122,7 +122,7 @@ def test_trace_gates():
     o, d, tm, ids = _rays(cam, 64, 0)
     assert twf.choose_mega_mode(ts, cam, 64, False) == "single"
     assert twf.choose_mega_mode(ts, cam, 64, True) == "off"
-    with pytest.raises(NotImplementedError, match="gradient slice"):
+    with pytest.raises(NotImplementedError, match="gather integrator"):
         twf.trace(ts, cam, o, d, tm, ids, 0, differentiable=True)
     outside = dataclasses.replace(ts, has_noise=True)
     assert twf.choose_mega_mode(outside, cam, 64, False) == "off"
