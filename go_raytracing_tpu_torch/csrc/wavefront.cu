@@ -1,17 +1,29 @@
 // Wavefront megakernel for Hopper (sm_90a): the whole bounce loop of the
-// path tracer in one kernel, one thread per ray.  Two instantiations of one
-// template:
+// path tracer in one kernel, one thread per ray.  Three instantiations of
+// one template:
 //
-//   wavefront_kernel<false>  the forward render.  Replaces the forward
+//   wavefront_kernel<FWD>       the forward render.  Replaces the forward
 //       specialization of make_kernel in the JAX package's
 //       go_raytracing_tpu/ops/pallas_wavefront.py (launched by _call
 //       through pl.pallas_call, entry point trace_megakernel).
-//   wavefront_kernel<true>   the gradient forward: the same bounce loop,
-//       and per bounce the 12 float + 3 int stash rows that the reverse
-//       sweep (wavefront_grad.cu) reads, and the miss colour.  Replaces
-//       make_kernel(grad_mode=True, phase="fwd") of the same file
-//       (launched by _call_grad_fwd, entry point grad_fwd_stash), product
-//       rows only.  Its radiance is the forward's by construction.
+//   wavefront_kernel<PRODUCT>   the gradient forward of the product-chain
+//       tier: the same bounce loop, and per bounce the 12 float + 3 int
+//       stash rows that the reverse sweep (wavefront_grad.cu) reads, and
+//       the miss colour.  Replaces make_kernel(grad_mode=True, phase="fwd")
+//       of the same file (launched by _call_grad_fwd, entry point
+//       grad_fwd_stash), product rows.
+//   wavefront_kernel<PATHWISE>  the gradient forward of the pathwise tier
+//       (scenes with metal or glass): the same bounce loop, and per bounce
+//       the 19 float + 3 int rows that the pathwise reverse sweep
+//       (wavefront_grad_pathwise.cu) reads: throughput, attenuation, hit
+//       point, incoming direction, normal, fuzz, IOR, d(normal)/d(point),
+//       hit distance; albedo slot, material id, mask.  Replaces
+//       make_kernel(grad_mode=True, pathwise=True, phase="fwd"), without
+//       the marble row.  It stores no NEE rows: the reverse sweep
+//       recomputes that chain, and of the shadow sweep only the outcome is
+//       kept, as a mask bit.
+//
+// The radiance of all three is the same by construction.
 //
 // The forward first.
 //
@@ -46,14 +58,17 @@
 //
 // The gradient forward moves five times the bytes: 15 stash rows a bounce
 // besides the forward's 18 and the 3 miss colour rows, 384 bytes a ray at
-// depth 5, so the stash writes bound it.  The design: the stash is
+// depth 5 (the pathwise rows: 22 a bounce, 524 bytes a ray), so the stash
+// writes bound it.  The design: the stash is
 // [depth, row, ray] with the ray innermost, so the 32 stores of a warp to
 // one row are one 128-byte line; a thread writes the rows of the bounces it
 // enters as it goes and, after its loop, inert rows (floats 0, slots
 // negative, mask 0) for the bounces it never entered, so every word of the
 // stash is defined and the reverse sweep needs no length per ray.  The
 // stores sit behind `if constexpr`, so the forward instantiation carries
-// none of them.
+// none of them, and the product instantiation none of the pathwise rows.
+// What the pathwise reverse sweep recomputes (random draws, the Fresnel
+// decision, the light sample) comes from wavefront_common.cuh in both.
 //
 // Table layouts (row-major [rows, columns], one column per primitive) are
 // those of ops/cuda_wavefront.build_tables.
@@ -61,15 +76,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wavefront_common.cuh"
+
 namespace {
 
+using namespace wf;
+
 constexpr float BIG = 3.0e38f;
-constexpr float EPS_HIT = 1e-3f;
 constexpr float EPS_PARALLEL = 1e-8f;
-constexpr float FIREFLY = 20.0f;
-constexpr float TWO_PI = 6.283185307179586f;
-constexpr float INV_PI = 0.3183098861837907f;
-constexpr float F24 = 5.9604644775390625e-08f;  // 2^-24
 
 constexpr int PT_ROWS = 31;
 constexpr int ST_ROWS = 23;
@@ -79,13 +93,14 @@ constexpr int THREADS = 128;
 constexpr int BLOCKS_PER_SM = 16;
 constexpr size_t SMEM_TABLE_LIMIT = 48 * 1024;
 
-// RNG purposes (core/rng.py)
-constexpr uint32_t SCATTER_U = 5;
-constexpr uint32_t FRESNEL = 7;
-constexpr uint32_t LIGHT_PICK = 8;
-constexpr uint32_t LIGHT_U = 9;
+// RNG purposes of the volumes (core/rng.py)
 constexpr uint32_t VOL_FLIGHT = 64;   // + 32 * volume index
 constexpr uint32_t VOL_SHADOW = 65;   // + 32 * volume index
+
+// What a launch writes besides the forward's outputs.
+constexpr int FWD = 0;        // nothing
+constexpr int PRODUCT = 1;    // the product-chain stash and the miss colour
+constexpr int PATHWISE = 2;   // the pathwise stash and the miss colour
 
 struct Tables {
     const float* pt;
@@ -96,14 +111,12 @@ struct Tables {
     int pc, sc, vc, lc;  // column counts (row strides), at least 1
 };
 
-struct U3 {
-    float x, y, z;
-};
-
-// Outputs of the gradient forward only.
+// Outputs of the gradient forwards only.
 struct Stash {
-    float* f;        // [depth, 12, n] T(3) alb(3) em_su(3) alb_su(3)
-    int* i;          // [depth, 3, n]  slot, lslot, mask
+    float* f;        // product:  [depth, 12, n] T(3) alb(3) em_su(3) alb_su(3)
+                     // pathwise: [depth, 19, n] T(3) alb(3) p(3) d(3) n(3)
+                     //           fuzz ior dndp t
+    int* i;          // [depth, 3, n]  slot, lslot or material id, mask
     long long n;     // rays (row stride)
 };
 
@@ -112,7 +125,6 @@ constexpr int MK_EMIT = 1;
 constexpr int MK_ALIVE_NEXT = 2;
 constexpr int MK_LIT = 4;
 constexpr int MK_CLAMPED = 8;  // << channel
-constexpr int SLOT_NONE = -3;
 constexpr int LSLOT_NONE = -9;
 
 __device__ __forceinline__ void stash_row(const Stash& Z, long long ray, int k,
@@ -134,32 +146,28 @@ __device__ __forceinline__ void stash_row(const Stash& Z, long long ray, int k,
     q[2 * Z.n] = mk;
 }
 
-__device__ __forceinline__ U3 uniform3(uint32_t stream, uint32_t seed,
-                                       uint32_t bounce, uint32_t purpose) {
-    uint32_t x = stream ^ (seed * 0x9E3779B9u);
-    uint32_t y = (bounce * 0x85EBCA6Bu) ^ seed;
-    uint32_t z = purpose * 0xC2B2AE35u + 0x27D4EB2Fu;
-    x = x * 1664525u + 1013904223u;
-    y = y * 1664525u + 1013904223u;
-    z = z * 1664525u + 1013904223u;
-    x += y * z;
-    y += z * x;
-    z += x * y;
-    x ^= x >> 16;
-    y ^= y >> 16;
-    z ^= z >> 16;
-    x += y * z;
-    y += z * x;
-    z += x * y;
-    U3 r;
-    r.x = (float)(x >> 8) * F24;
-    r.y = (float)(y >> 8) * F24;
-    r.z = (float)(z >> 8) * F24;
-    return r;
-}
-
-__device__ __forceinline__ float dot3(const float a[3], const float b[3]) {
-    return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+// One row of the pathwise stash.
+__device__ __forceinline__ void stash_row_pathwise(
+    const Stash& Z, long long ray, int k, const float T[3], const float alb[3],
+    const float p[3], const float d[3], const float nrm[3], float fuzz,
+    float ior, float dndp, float t, int slot, int mslot, int mk) {
+    float* f = Z.f + (size_t)k * PW_F_ROWS * Z.n + ray;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+        f[(0 + c) * Z.n] = T[c];
+        f[(3 + c) * Z.n] = alb[c];
+        f[(6 + c) * Z.n] = p[c];
+        f[(9 + c) * Z.n] = d[c];
+        f[(12 + c) * Z.n] = nrm[c];
+    }
+    f[15 * Z.n] = fuzz;
+    f[16 * Z.n] = ior;
+    f[17 * Z.n] = dndp;
+    f[18 * Z.n] = t;
+    int* q = Z.i + (size_t)k * 3 * Z.n + ray;
+    q[0] = slot;
+    q[Z.n] = mslot;
+    q[2 * Z.n] = mk;
 }
 
 // Planar sweep in table order.  Plane kind: strict t > eps, t < best; the
@@ -291,7 +299,7 @@ __device__ __forceinline__ bool occluded(const Tables& S, const float o[3],
     return false;
 }
 
-template <bool STASH>
+template <int MODE>
 __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3],
                                           float tmv, uint32_t sid, uint32_t seed,
                                           int max_depth, float rad[3],
@@ -301,6 +309,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
     float tp[3] = {1.0f, 1.0f, 1.0f};
     bool alive = true, allow = true, missed = false, m_prim = false;
     const bool use_nee = S.n_lights > 0;
+    constexpr bool STASH = MODE == PRODUCT;
     const float zero3[3] = {0.0f, 0.0f, 0.0f};
     int stashed = 0;  // stash rows written so far
 
@@ -347,6 +356,16 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
                           LSLOT_NONE, MK_LIT);
                 stashed = b + 1;
             }
+            if constexpr (MODE == PATHWISE) {
+                // the rows a masked loop would leave on a lane without a
+                // hit: the reverse sweep reads T and d (the miss direction)
+                const float pm[3] = {o[0] + 1.0f * d[0], o[1] + 1.0f * d[1],
+                                     o[2] + 1.0f * d[2]};
+                stash_row_pathwise(Z, ray, b, tp, zero3, pm, d, zero3, 0.0f,
+                                   1e-3f, 0.0f, 1.0f, SLOT_NONE, MSLOT_NONE,
+                                   PW_LIT);
+                stashed = b + 1;
+            }
             break;
         }
 
@@ -357,7 +376,8 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
         // ---- winner constants -------------------------------------------
         float outn[3], col[3], even[3], odd[3];
         float matkind, texkind, fuzz, ior, inv_scale;
-        float tex_id = 0.0f;  // read by the gradient forward only
+        float tex_id = 0.0f;  // read by the gradient forwards only
+        float mat_id = (float)MSLOT_NONE, dndp = 0.0f;  // pathwise only
         if (hitk == 2) {
             const float* P = S.pt + hidx;
             const int pc = S.pc;
@@ -373,7 +393,8 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             fuzz = P[17 * pc];
             ior = P[18 * pc];
             inv_scale = P[28 * pc];
-            if constexpr (STASH) tex_id = P[29 * pc];
+            if constexpr (MODE != FWD) tex_id = P[29 * pc];
+            if constexpr (MODE == PATHWISE) mat_id = P[30 * pc];
         } else if (hitk == 1) {
             const float* Q = S.st + hidx;
             const int sc = S.sc;
@@ -391,7 +412,11 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             fuzz = Q[9 * sc];
             ior = Q[10 * sc];
             inv_scale = Q[20 * sc];
-            if constexpr (STASH) tex_id = Q[21 * sc];
+            if constexpr (MODE != FWD) tex_id = Q[21 * sc];
+            if constexpr (MODE == PATHWISE) {
+                mat_id = Q[22 * sc];
+                dndp = inv_rad;  // times flip, below
+            }
         } else {
             const float* V = S.vt + hidx;
             const int vc = S.vc;
@@ -407,7 +432,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             fuzz = 0.0f;
             ior = 1.0f;
             inv_scale = 0.0f;
-            if constexpr (STASH) tex_id = V[24 * vc];
+            if constexpr (MODE != FWD) tex_id = V[24 * vc];
         }
         ior = fmaxf(ior, 1e-3f);
 
@@ -437,11 +462,8 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
         }
 
         // ---- scatter ----------------------------------------------------
-        const U3 su = uniform3(sid, seed, bu, SCATTER_U);
-        const float zr = 1.0f - 2.0f * su.x;
-        const float phi = TWO_PI * su.y;
-        const float rrr = sqrtf(fmaxf(1.0f - zr * zr, 0.0f));
-        const float ru[3] = {rrr * cosf(phi), rrr * sinf(phi), zr};
+        float ru[3];
+        unit_sphere_draw(sid, seed, bu, ru);
 
         const bool is_lam = matkind == 0.0f;
         const bool is_met = matkind == 1.0f;
@@ -469,29 +491,14 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             scattered = dot3(new_d, nrm) > 0.0f;
         } else if (is_die) {
             const float ufr = uniform3(sid, seed, bu, FRESNEL).x;
-            const float ri = front ? 1.0f / ior : ior;
-            const float dlen = sqrtf(fmaxf(dot3(d, d), 1e-20f));
-            float ud[3];
+            const Fresnel F = fresnel(d, nrm, ior, front, ufr);
+            if (F.do_refl) {
 #pragma unroll
-            for (int c = 0; c < 3; ++c) ud[c] = d[c] / dlen;
-            const float udn = dot3(ud, nrm);
-            const float cos_t = fminf(-udn, 1.0f);
-            const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
-            const bool cannot = ri * sin_t > 1.0f;
-            float r0s = (1.0f - ri) / (1.0f + ri);
-            r0s = r0s * r0s;
-            const float omc = fmaxf(1.0f - cos_t, 0.0f);
-            const float omc2 = omc * omc;
-            const float schl = r0s + (1.0f - r0s) * omc2 * omc2 * omc;
-            if (cannot || schl > ufr) {
-#pragma unroll
-                for (int c = 0; c < 3; ++c) new_d[c] = ud[c] - nrm[c] * (2.0f * udn);
+                for (int c = 0; c < 3; ++c)
+                    new_d[c] = F.ud[c] - nrm[c] * (2.0f * F.udn);
             } else {
-                float perp[3];
-#pragma unroll
-                for (int c = 0; c < 3; ++c) perp[c] = (ud[c] + nrm[c] * cos_t) * ri;
-                const float parl =
-                    -sqrtf(fmaxf(fabsf(1.0f - dot3(perp, perp)), 1e-20f));
+                float perp[3], xv;
+                const float parl = refract_parts(F, nrm, perp, xv);
 #pragma unroll
                 for (int c = 0; c < 3; ++c) new_d[c] = perp[c] + nrm[c] * parl;
             }
@@ -521,37 +528,24 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
         float alb_su[3] = {0.0f, 0.0f, 0.0f};
         int lslot = LSLOT_NONE, mk = 0;
         if (use_mis) {
-            const int nl = S.n_lights;
             const int lc = S.lc;
-            const float up = uniform3(sid, seed, bu, LIGHT_PICK).x;
-            const int li = (int)fminf(floorf(up * (float)nl), (float)(nl - 1));
-            const U3 uab = uniform3(sid, seed, bu, LIGHT_U);
-            const float* L = S.lt + li;
+            const LightDir D = light_dir(S.lt, S.n_lights, lc, sid, seed, bu, p, nrm);
+            const float* L = D.L;
             if constexpr (STASH) lslot = (int)(L[16 * lc] * 3.0f);
-            float tl[3];
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                const float lp = L[c * lc] + uab.x * L[(3 + c) * lc] +
-                                 uab.y * L[(6 + c) * lc];
-                tl[c] = lp - p[c];
-            }
-            const float dist = sqrtf(fmaxf(dot3(tl, tl), 1e-20f));
-            float ld[3];
-#pragma unroll
-            for (int c = 0; c < 3; ++c) ld[c] = tl[c] / dist;
-            const float cos_th = dot3(nrm, ld);
-            if (cos_th > 0.0f) {
-                const float cos_l = fabsf(-(L[9 * lc] * ld[0] + L[10 * lc] * ld[1] +
-                                            L[11 * lc] * ld[2]));
-                const bool grazing = cos_l < 1e-3f;
-                if (!grazing &&
-                    !occluded(S, p, ld, dist - EPS_HIT, sid, seed, bu)) {
-                    const float pdf_l =
-                        (dist * dist) / fmaxf(cos_l * L[12 * lc], 1e-20f);
-                    const float pdf_b = fmaxf(cos_th, 0.0f) * INV_PI;
-                    const float weight = pdf_l / fmaxf(pdf_l + pdf_b, 1e-20f);
-                    const float scale =
-                        cos_th / fmaxf(pdf_l, 1e-12f) * weight * (float)nl;
+            if (D.cos_th > 0.0f) {
+                bool dark = D.cos_l < 1e-3f;  // grazing the light's plane
+                if constexpr (MODE == PATHWISE) {
+                    // the shadow ray's outcome is stashed whatever the angle
+                    if (occluded(S, p, D.ld, D.dist - EPS_HIT, sid, seed, bu)) {
+                        mk |= PW_BLK_A;
+                        dark = true;
+                    }
+                } else {
+                    dark = dark ||
+                           occluded(S, p, D.ld, D.dist - EPS_HIT, sid, seed, bu);
+                }
+                if (!dark) {
+                    const float scale = nee_scale(D, lc, S.n_lights).scale;
 #pragma unroll
                     for (int c = 0; c < 3; ++c) {
                         const float raw = L[(13 + c) * lc] * atten[c] * scale;
@@ -578,6 +572,20 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             stash_row(Z, ray, b, tp, atten, em_su, alb_su, slot, lslot, mk);
             stashed = b + 1;
         }
+        if constexpr (MODE == PATHWISE) {
+            // a dielectric's albedo never enters (atten = 1) and a noise
+            // texture has no trainable colour
+            const int slot = (!is_die && texkind != 2.0f)
+                                 ? (int)(tex_id * 3.0f + variant) : SLOT_NONE;
+            mk |= (emits ? PW_EMIT : 0) | (scattered ? PW_ALIVE_NEXT : 0) |
+                  (front ? PW_FRONT : 0) | (is_met ? PW_METAL : 0) |
+                  (is_die ? PW_DIELECTRIC : 0) | PW_HIT |
+                  (use_mis ? PW_USE_MIS : 0) |
+                  (is_vol ? (PW_VOLUME | (hidx << PW_VOL_SHIFT)) : 0);
+            stash_row_pathwise(Z, ray, b, tp, atten, p, d, nrm, fuzz, ior,
+                               flip * dndp, t, slot, (int)mat_id, mk);
+            stashed = b + 1;
+        }
 
         // ---- state update -------------------------------------------------
         alive = scattered;
@@ -601,6 +609,11 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             stash_row(Z, ray, k, zero3, zero3, zero3, zero3, SLOT_NONE,
                       LSLOT_NONE, 0);
     }
+    if constexpr (MODE == PATHWISE) {
+        for (int k = stashed; k < max_depth; ++k)
+            stash_row_pathwise(Z, ray, k, zero3, zero3, zero3, zero3, zero3, 0.0f,
+                               0.0f, 0.0f, 0.0f, SLOT_NONE, MSLOT_NONE, 0);
+    }
 
     flags = (missed ? 1 : 0) | (m_prim ? 2 : 0) | (alive ? 4 : 0) | (allow ? 8 : 0);
 }
@@ -612,7 +625,7 @@ struct Miss {
     float bg[3];
 };
 
-template <bool STASH>
+template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 wavefront_kernel(Tables G, const float* __restrict__ ox,
                  const float* __restrict__ oy, const float* __restrict__ oz,
@@ -651,8 +664,8 @@ wavefront_kernel(Tables G, const float* __restrict__ ox,
         float m_dir[3] = {0.0f, 0.0f, 0.0f};
         float m_tp[3] = {0.0f, 0.0f, 0.0f};
         int flags;
-        trace_ray<STASH>(S, o, d, tm[i], stream[i], seed, max_depth, rad, m_dir,
-                         m_tp, flags, Z, i);
+        trace_ray<MODE>(S, o, d, tm[i], stream[i], seed, max_depth, rad, m_dir,
+                        m_tp, flags, Z, i);
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
             out[(0 + c) * n_rays + i] = rad[c];
@@ -660,7 +673,7 @@ wavefront_kernel(Tables G, const float* __restrict__ ox,
             out[(6 + c) * n_rays + i] = m_tp[c];
         }
         flags_out[i] = flags;
-        if constexpr (STASH) {
+        if constexpr (MODE != FWD) {
             float col[3] = {0.0f, 0.0f, 0.0f};
             if (flags & 1) {
                 if (M.use_sky) {
@@ -680,7 +693,7 @@ wavefront_kernel(Tables G, const float* __restrict__ ox,
     }
 }
 
-template <bool STASH>
+template <int MODE>
 int launch(const float* pt, const float* st, const float* vt, const float* lt,
            int n_planar, int n_sphere, int n_vol, int n_lights, const float* ox,
            const float* oy, const float* oz, const float* dx, const float* dy,
@@ -717,7 +730,7 @@ int launch(const float* pt, const float* st, const float* vt, const float* lt,
     if (blocks > cap) blocks = cap;
     if (blocks < 1) blocks = 1;
 
-    wavefront_kernel<STASH><<<(unsigned int)blocks, THREADS,
+    wavefront_kernel<MODE><<<(unsigned int)blocks, THREADS,
                               in_smem ? table_bytes : (size_t)0,
                               (cudaStream_t)cuda_stream>>>(
         G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, out, flags,
@@ -727,7 +740,7 @@ int launch(const float* pt, const float* st, const float* vt, const float* lt,
 
 }  // namespace
 
-// Both launch on the given stream, do not synchronize, allocate nothing and
+// All three launch on the given stream, do not synchronize, allocate nothing and
 // return cudaGetLastError() (0 on success).
 extern "C" int wavefront_fwd_launch(
     const float* pt, const float* st, const float* vt, const float* lt,
@@ -736,7 +749,7 @@ extern "C" int wavefront_fwd_launch(
     const float* dx, const float* dy, const float* dz, const float* tm,
     const void* stream, float* out, int* flags, long long n_rays,
     unsigned int seed, int max_depth, void* cuda_stream) {
-    return launch<false>(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights, ox,
+    return launch<FWD>(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights, ox,
                          oy, oz, dx, dy, dz, tm, stream, out, flags, n_rays, seed,
                          max_depth, cuda_stream, Stash{nullptr, nullptr, 0},
                          Miss{0, {0.0f, 0.0f, 0.0f}}, nullptr);
@@ -753,8 +766,26 @@ extern "C" int wavefront_grad_fwd_launch(
     float* stash_f, int* stash_i, long long n_rays, unsigned int seed,
     int max_depth, int use_sky, float bg_r, float bg_g, float bg_b,
     void* cuda_stream) {
-    return launch<true>(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights, ox,
-                        oy, oz, dx, dy, dz, tm, stream, out, flags, n_rays, seed,
-                        max_depth, cuda_stream, Stash{stash_f, stash_i, n_rays},
-                        Miss{use_sky, {bg_r, bg_g, bg_b}}, miss_col);
+    return launch<PRODUCT>(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights,
+                           ox, oy, oz, dx, dy, dz, tm, stream, out, flags, n_rays,
+                           seed, max_depth, cuda_stream,
+                           Stash{stash_f, stash_i, n_rays},
+                           Miss{use_sky, {bg_r, bg_g, bg_b}}, miss_col);
+}
+
+// The pathwise tier's: as above with stash_f [max_depth, 19, n_rays].
+extern "C" int wavefront_grad_fwd_pathwise_launch(
+    const float* pt, const float* st, const float* vt, const float* lt,
+    int n_planar, int n_sphere, int n_vol, int n_lights,
+    const float* ox, const float* oy, const float* oz,
+    const float* dx, const float* dy, const float* dz, const float* tm,
+    const void* stream, float* out, int* flags, float* miss_col,
+    float* stash_f, int* stash_i, long long n_rays, unsigned int seed,
+    int max_depth, int use_sky, float bg_r, float bg_g, float bg_b,
+    void* cuda_stream) {
+    return launch<PATHWISE>(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights,
+                            ox, oy, oz, dx, dy, dz, tm, stream, out, flags,
+                            n_rays, seed, max_depth, cuda_stream,
+                            Stash{stash_f, stash_i, n_rays},
+                            Miss{use_sky, {bg_r, bg_g, bg_b}}, miss_col);
 }

@@ -23,13 +23,17 @@ kernel in pass A (radiance only) and, in pass B, by the gradient forward
 followed at once by the reverse sweep: the same numbers for one more
 forward trace of those chunks, with one chunk's stash alive at a time.
 
-Ported: the product-chain tier (scenes inside
-``cuda_wavefront.grad_applicable``: lambertian, light and isotropic
-materials), on one device.  Not ported yet, each raising
-``NotImplementedError``: the pathwise tier for metal and dielectric
-(ROADMAP.md A12, B5), the image-prefactor tier (A16), environments (A15),
-the replay tier for scenes outside the kernels' gates (A18) and ``mesh=``
-(A19).
+Two tiers of gradient kernels are ported, on one device.  Scenes inside
+``cuda_wavefront.grad_applicable`` (lambertian, light and isotropic
+materials) take the product-chain tier: gradients of the texture colours.
+Scenes with metal or glass inside ``grad_pathwise_applicable`` take the
+pathwise tier: gradients of fuzz and IOR too, and of colours seen through a
+specular chain.  Its stash is heavier (22 rows a bounce against 15), and
+its pass B recomputes the rays' random draws, so it is given the chunk's
+stream ids (ids only: it reads no camera rays).  Not ported yet, each
+raising ``NotImplementedError``: environments (ROADMAP.md A15), the
+image-prefactor tier (A16), the replay tier for scenes outside the kernels'
+gates (A18) and ``mesh=`` (A19).
 """
 
 from __future__ import annotations
@@ -56,10 +60,13 @@ STASH_SHARE_OF_FREE_MEMORY = 0.5
 CPU_STASH_BUDGET = 2 << 30
 
 
-def stash_bytes_per_ray(max_depth: int) -> int:
+def stash_bytes_per_ray(max_depth: int, pathwise: bool = False) -> int:
     """Bytes a ray keeps between the passes: the stash rows of every bounce
-    and the 3 miss colour rows."""
-    return (max_depth * (mega.STASH_F_ROWS + mega.STASH_I_ROWS) + 3) * 4
+    (15 in the product tier, 22 in the pathwise tier) and the 3 miss colour
+    rows."""
+    rows = ((mega.PW_STASH_F_ROWS + mega.PW_STASH_I_ROWS) if pathwise
+            else (mega.STASH_F_ROWS + mega.STASH_I_ROWS))
+    return (max_depth * rows + 3) * 4
 
 
 def _virtual_pixels(w: int, h: int, device):
@@ -73,14 +80,16 @@ def _virtual_pixels(w: int, h: int, device):
 
 
 def _twophase_fwd(scene: Scene, cam: Camera, ray_start: int, seed, *,
-                  spp: int, chunk: int, max_depth: int, keep_stash: bool):
+                  spp: int, chunk: int, max_depth: int, keep_stash: bool,
+                  pathwise: bool = False):
     """Pass A for one chunk.  Returns ([n_virt, 3] sums of the chunk's
     radiance per virtual pixel, carry for pass B or None)."""
     cam2, o, d, tm, stream, _, valid = rmod._chunk_rays(
         scene, cam, ray_start, seed, spp=spp, chunk=chunk,
         max_depth=max_depth, device=scene.device)
     if keep_stash:
-        rad, carry = mega.grad_fwd_stash(scene, cam2, o, d, tm, stream, seed)
+        rad, carry = mega.grad_fwd_stash(scene, cam2, o, d, tm, stream, seed,
+                                         pathwise=pathwise)
     else:
         rad, carry = wavefront.trace(scene, cam2, o, d, tm, stream, seed), None
     rows = torch.where(valid, torch.stack(list(rad)), 0.0)   # [3, chunk]
@@ -102,18 +111,27 @@ def _chunk_cotangent(g_virt, ray_start: int, chunk: int, total: int):
 
 
 def _twophase_rev(scene: Scene, cam: Camera, g_virt, ray_start: int, seed,
-                  carry, *, spp: int, chunk: int, max_depth: int):
+                  carry, *, spp: int, chunk: int, max_depth: int,
+                  pathwise: bool = False):
     """Pass B for one chunk: the reverse sweep over the chunk's stash.  A
     chunk without one (over budget in pass A) is traced again first."""
     cam2 = dataclasses.replace(cam, max_depth=max_depth)
+    total = g_virt.shape[0] * spp
+    stream = None
     if carry is None:
         _, o, d, tm, stream, _, _ = rmod._chunk_rays(
             scene, cam, ray_start, seed, spp=spp, chunk=chunk,
             max_depth=max_depth, device=scene.device)
-        _, carry = mega.grad_fwd_stash(scene, cam2, o, d, tm, stream, seed)
-    total = g_virt.shape[0] * spp
+        _, carry = mega.grad_fwd_stash(scene, cam2, o, d, tm, stream, seed,
+                                       pathwise=pathwise)
+    elif pathwise:
+        # the stream ids of _chunk_rays, without its rays
+        stream = torch.clamp_max(
+            ray_start + torch.arange(chunk, dtype=torch.int64,
+                                     device=scene.device), total - 1)
     g3 = _chunk_cotangent(g_virt, ray_start, chunk, total)
-    return mega.grad_rev_stash(scene, cam2, g3, carry)
+    return mega.grad_rev_stash(scene, cam2, g3, carry, pathwise=pathwise,
+                               stream=stream, seed=seed)
 
 
 @torch.no_grad()
@@ -129,6 +147,10 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
     ``sharding.trainable_params``.  Gradients are exactly those of
     mean((render/spp - target)^2): the loss is quadratic in the framebuffer
     (see the module docstring) and both passes use the same RNG streams.
+    A scene without metal and glass goes through the product-chain kernels
+    (``fuzz``, ``ior`` and ``atlas`` are then zero by structure), one with
+    them through the pathwise kernels (``atlas`` zero); a scene outside both
+    gates raises ``NotImplementedError``.
 
     ``device=None`` means "cuda" (a machine without one raises); the scene
     must have been built on the same device.
@@ -145,13 +167,15 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
             "render_grad(mesh=...) is not ported yet (ROADMAP.md A19)")
     spp = cam.samples_per_pixel if spp is None else spp
     max_depth = cam.max_depth if max_depth is None else max_depth
-    if not mega.grad_applicable(scene, max_depth):
+    # the product tier wins where both gates hold: its stash is lighter
+    pathwise = not mega.grad_applicable(scene, max_depth)
+    if pathwise and not mega.grad_pathwise_applicable(scene, max_depth):
         raise NotImplementedError(
-            "only the product-chain gradient tier is ported (lambertian, "
-            "light and isotropic materials inside the megakernel's gate): "
-            "the pathwise tier for metal and dielectric is ROADMAP.md A12 / "
-            "B5, the image tier A16, environments A15, the replay tier for "
-            "every other scene A18")
+            "the scene is outside the gates of both ported gradient tiers "
+            "(product chain and pathwise): environments are ROADMAP.md A15, "
+            "image textures A16, and the replay tier for every other scene "
+            "(meshes, noise textures, non-box media, too many primitives, "
+            "textures or materials) A18")
     w, h = cam.image_width, cam.image_height
     tiled = rmod.scene_tiled(scene)
     _, _, n_virt = rmod.ray_layout(w, h, tiled)
@@ -173,7 +197,7 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
             stash_budget = int(STASH_SHARE_OF_FREE_MEMORY * free)
         else:
             stash_budget = CPU_STASH_BUDGET
-    chunk_bytes = kchunk * stash_bytes_per_ray(max_depth)
+    chunk_bytes = kchunk * stash_bytes_per_ray(max_depth, pathwise)
     n_stash = min(int(stash_budget) // chunk_bytes, n_chunks)
 
     def _sync():
@@ -182,7 +206,7 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
 
     _sync()
     t0 = time.perf_counter()
-    args = dict(spp=spp, chunk=kchunk, max_depth=max_depth)
+    args = dict(spp=spp, chunk=kchunk, max_depth=max_depth, pathwise=pathwise)
 
     # ---- pass A: framebuffer, and the stashes of the first n_stash chunks
     flat_vs = torch.zeros((n_virt, 3), dtype=torch.float32, device=dev)

@@ -193,3 +193,120 @@ def test_cuda_grad_wrappers_reject_what_the_kernels_do_not_take():
         cw.wavefront_grad_rev(sf, si.long(), g3, g3, 4)
     with pytest.raises(ValueError):
         cw.wavefront_grad_rev(sf, si, g3[:, ::2], g3, 4)
+
+
+def _pathwise_scene(name):
+    if name == "cornell-glossy":
+        scene, cam = grtt.load_scene("cornell-glossy", device="cuda")
+        return scene, dataclasses.replace(cam, image_width=64, aspect_ratio=1.0,
+                                          samples_per_pixel=4, max_depth=5)
+    # checker plane, metal, glass, a moving sphere, quad light, fog box
+    return build_mixed(grtt, device="cuda"), dataclasses.replace(
+        tcamera.Camera(**MIXED_CAM), image_width=64, use_sky_gradient=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene_name", ["cornell-glossy", "mixed-sky"])
+def test_cuda_pathwise_kernels_match_plain_versions(scene_name):
+    """On a GPU: the pathwise stash-writing forward and the pathwise reverse
+    sweep against their plain versions.  The forward agrees per ray (fewer
+    than 0.5 % of rays outside rtol/atol 1e-3) and its radiance is the
+    forward kernel's bit for bit.  The reverse kernel sums in float32 in a
+    fixed tree, its plain version in float64: each key within 1e-4 of its
+    largest entry, on the same stash, and the same bits on every launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene, cam = _pathwise_scene(scene_name)
+    assert cw.grad_pathwise_applicable(scene, cam.max_depth)
+    assert not cw.grad_applicable(scene, cam.max_depth)
+    n = 64 * 64 * 4
+    o, d, tm, ids = _rays(cam, n, 3, "cuda")
+    sid = cw.stream_to_i32(ids)
+    tb = cw.build_tables(scene)
+    args = (tb, o, d, tm, sid, 3, cam.max_depth, cw.miss_config(cam))
+    before = (cw.LAUNCHES_GRAD_FWD_PATHWISE, cw.LAUNCHES_GRAD_REV_PATHWISE,
+              cw.LAUNCHES_GRAD_FWD, cw.LAUNCHES_GRAD_REV)
+    k = cw.wavefront_grad_fwd(*args, pathwise=True)
+    torch.cuda.synchronize()
+    p = cw._wavefront_grad_fwd_plain(*args, pathwise=True)
+    assert k[3].shape == (cam.max_depth, cw.PW_STASH_F_ROWS, n)
+    good = (torch.isclose(k[0], p[0], rtol=1e-3, atol=1e-3).all(dim=0)
+            & (k[1] == p[1])
+            & torch.isclose(k[2], p[2], rtol=1e-3, atol=1e-3).all(dim=0)
+            & torch.isclose(k[3], p[3], rtol=1e-3, atol=1e-3).all(dim=(0, 1))
+            & (k[4] == p[4]).all(dim=(0, 1)))
+    assert float((~good).float().mean()) < 0.005
+    f_rows, _ = cw.wavefront_fwd(*args[:-1])
+    assert torch.equal(f_rows, k[0])  # one bounce loop, three instantiations
+
+    g3 = torch.rand((3, n), device="cuda", generator=torch.Generator("cuda").manual_seed(0)) * 1e-3
+    n_tex = int(scene.textures.color.shape[0])
+    n_mat = int(scene.materials.kind.shape[0])
+    rev_args = (tb, k[3], k[4], g3, k[2], sid, 3, bool(cam.use_sky_gradient),
+                n_tex, n_mat)
+    gk = cw.wavefront_grad_rev_pathwise(*rev_args)
+    torch.cuda.synchronize()
+    # CUDA tensors launch the pathwise kernels and nothing else
+    assert (cw.LAUNCHES_GRAD_FWD_PATHWISE, cw.LAUNCHES_GRAD_REV_PATHWISE,
+            cw.LAUNCHES_GRAD_FWD, cw.LAUNCHES_GRAD_REV) == (
+                before[0] + 1, before[1] + 1, before[2], before[3])
+    gp = cw._wavefront_grad_rev_pathwise_plain(*rev_args)
+    for a, b in zip(gk, gp):
+        assert torch.isfinite(a).all() and float(b.abs().max()) > 1e-5
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    kinds = scene.materials.kind
+    assert bool((gk[1][kinds != 1] == 0).all()) and bool((gk[2][kinds != 2] == 0).all())
+    # the same launch again gives the same bits: no atomics on device memory
+    for a, b in zip(gk, cw.wavefront_grad_rev_pathwise(*rev_args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_render_grad_goes_through_the_pathwise_kernels():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene, cam = grtt.load_scene("cornell-glossy")
+    cam = dataclasses.replace(cam, image_width=32, aspect_ratio=1.0,
+                              samples_per_pixel=4)
+    target = grtt.render(scene, cam, seed=1) / 4 * 0.8
+    stats = grtt.RenderStats()
+    before = (cw.LAUNCHES_GRAD_FWD_PATHWISE, cw.LAUNCHES_GRAD_REV_PATHWISE,
+              cw.LAUNCHES_GRAD_FWD, cw.LAUNCHES_GRAD_REV)
+    loss, grads = grtt.render_grad(scene, cam, target, seed=1, chunk=2048,
+                                   stats=stats)
+    assert stats.chunks == 2
+    assert (cw.LAUNCHES_GRAD_FWD_PATHWISE, cw.LAUNCHES_GRAD_REV_PATHWISE,
+            cw.LAUNCHES_GRAD_FWD, cw.LAUNCHES_GRAD_REV) == (
+                before[0] + 2, before[1] + 2, before[2], before[3])
+    assert loss.is_cuda and all(g.is_cuda for g in grads.values())
+    cpu_scene, _ = grtt.load_scene("cornell-glossy", device="cpu")
+    ref_loss, ref = grtt.render_grad(cpu_scene, cam, target.cpu(), seed=1,
+                                     chunk=2048, device="cpu")
+    # same streams on both devices; an ulp flips a few rays of 4096
+    assert abs(float(loss) - float(ref_loss)) < 0.02 * float(ref_loss)
+    for key in ("color", "fuzz", "ior"):
+        big = float(ref[key].abs().max())
+        assert big > 0
+        assert float((grads[key].cpu() - ref[key]).abs().max()) < 0.05 * big, key
+
+
+@pytest.mark.cuda
+def test_cuda_pathwise_wrappers_reject_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene = build_mixed(grtt, device="cuda")
+    tb = cw.build_tables(scene)
+    r, depth = 64, 3
+    sf = torch.zeros((depth, cw.PW_STASH_F_ROWS, r), device="cuda")
+    si = torch.zeros((depth, 3, r), dtype=torch.int32, device="cuda")
+    g3 = torch.zeros((3, r), device="cuda")
+    sid = torch.zeros(r, dtype=torch.int32, device="cuda")
+    ok = cw.wavefront_grad_rev_pathwise(tb, sf, si, g3, g3, sid, 0, False, 7, 7)
+    assert all(float(t.abs().max()) == 0.0 for t in ok)   # inert rows add nothing
+    with pytest.raises(ValueError):     # a product-chain stash
+        cw.wavefront_grad_rev_pathwise(tb, sf[:, :12].contiguous(), si, g3, g3,
+                                       sid, 0, False, 7, 7)
+    with pytest.raises(ValueError):     # over the accumulator
+        cw.wavefront_grad_rev_pathwise(tb, sf, si, g3, g3, sid, 0, False, 170, 8)
+    with pytest.raises(ValueError):
+        cw.wavefront_grad_rev_pathwise(tb, sf, si, g3, g3, sid.cpu(), 0, False, 7, 7)

@@ -209,10 +209,11 @@ def test_product_chain_trace_backward():
 
 def test_grad_gate():
     """Metal or dielectric leaves the product-chain gate, as in the JAX
-    package; the port states its own texture limit."""
+    package (the pathwise gate takes it); the port states its own texture
+    limit.  The product-chain wrappers refuse a pathwise scene."""
     mixed = build_mixed(grtt, device="cpu")          # metal + dielectric
     assert cw.applicable(mixed) and not cw.grad_applicable(mixed, 4)
-    assert not cw.grad_two_phase_ok(mixed, 4)
+    assert cw.grad_pathwise_applicable(mixed, 4) and cw.grad_two_phase_ok(mixed, 4)
     assert not jmega.grad_applicable(build_mixed(grt), 4)
     cornell, cam = grtt.load_scene("cornell", device="cpu")
     assert cw.grad_applicable(cornell, 5) and cw.grad_two_phase_ok(cornell, 50)

@@ -153,11 +153,13 @@ def test_render_grad_descends():
 
 
 def test_render_grad_raises_outside_the_ported_tier():
-    mixed = build_mixed(grtt, device="cpu")      # metal and dielectric
+    # metal and dielectric are inside the pathwise tier; a noise texture is
+    # outside both tiers' gates
+    marbled = dataclasses.replace(build_mixed(grtt, device="cpu"), has_noise=True)
     scene, cam = _sky(spp=1)
     target = torch.zeros((16, 16, 3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        grtt.render_grad(mixed, cam, target, device="cpu")
+        grtt.render_grad(marbled, cam, target, device="cpu")
     with pytest.raises(NotImplementedError, match="A19"):
         grtt.render_grad(scene, cam, target, device="cpu", mesh=object())
     if not torch.cuda.is_available():

@@ -79,6 +79,39 @@ def test_gradient_modules_are_part_of_the_package():
             "csrc/wavefront_grad.cu"} <= names
 
 
+def test_pathwise_sources_are_part_of_the_package():
+    """The pathwise tier's kernel source and the header it shares with the
+    tracing kernels are scanned too, and the pathwise path runs with JAX
+    unimportable."""
+    names = {str(p.relative_to(PORT)) for p in _sources()[:-1]}
+    assert {"csrc/wavefront_grad_pathwise.cu", "csrc/wavefront_common.cuh"} <= names
+    code = textwrap.dedent("""
+        import dataclasses, sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "go_raytracing_tpu"):
+                    raise ImportError("blocked: " + name)
+
+        sys.meta_path.insert(0, Block())
+        import go_raytracing_tpu_torch as pkg
+        scene, cam = pkg.load_scene("cornell-glossy", device="cpu")
+        cam = dataclasses.replace(cam, image_width=16, aspect_ratio=1.0,
+                                  samples_per_pixel=4)
+        img = pkg.render(scene, cam, device="cpu") / 4 * 0.8
+        loss, grads = pkg.render_grad(scene, cam, img, device="cpu")
+        assert set(grads) == set(pkg.trainable_params(scene))
+        assert bool(grads["fuzz"].any()) and bool(grads["ior"].any())
+        bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "go_raytracing_tpu")]
+        assert not bad, bad
+        print("OK")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("OK")
+
+
 def test_chip_smoke_fails_without_a_gpu():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
