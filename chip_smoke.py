@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py [--out-dir DIR]
 
-Needs one NVIDIA GPU and ``nvcc``.  It builds the five CUDA kernels from
+Needs one NVIDIA GPU and ``nvcc``.  It builds the nine CUDA kernels from
 the sources in this checkout (the forward megakernel, the stash-writing
-gradient forward and the reverse sweep of the product-chain tier, and the
-same two of the pathwise tier), holds each against its plain
+gradient forward and the reverse sweep of the product-chain tier, the
+same two of the pathwise tier, and the four closest-hit kernels of the
+standard integrator), holds each against its plain
 PyTorch version on the GPU, renders the Cornell box at full size (600x338,
 100 spp, depth 5) through the public entry points, checks the image, times
 the forward kernel at the render's own shapes beside its roofline bound,
@@ -16,7 +17,14 @@ stashed, and once more with a stash budget of two chunks), checks them, and
 times the two gradient kernels alone.  Then the pathwise tier: the loss and
 the gradients (fuzz and IOR among them) of ``cornell-glossy`` at 600x600,
 100 spp, depth 5 through ``render_grad`` on both routes, and its two
-kernels alone.  It prints one JSON line per phase.
+kernels alone.  Then the standard integrator: its four closest-hit kernels
+against their plain versions, the Cornell job again through
+``render_image(mega_mode="off")`` held against the megakernel's picture, a
+scene the megakernel cannot take (round and pyramid fog) on both of the
+integrator's routes, ``random`` with ``mega_mode="off"``, ``torch.autograd``
+through ``render(differentiable=True)`` held against ``render_grad``, and
+the four kernels alone.  The earlier phases run at the sizes they always
+had.  It prints one JSON line per phase.
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failing phase raises: the exit code is then not 0 and no result line
@@ -48,6 +56,16 @@ within 1e-4 of the key's largest entry; and two launches on one stash must
 give the same bits.  Autograd is no oracle of this tier (behind a fuzzy
 metal a colour's gradient also flows through positions): the plain version
 is held against the JAX kernel, and that against ``jax.grad``, by the tests.
+
+The closest-hit kernels are held to equality: hit, index, t and every
+attribute row of a ray are the plain version's bits, or the ray counts as a
+mismatch (gate 0.5 % of rays, 0.0 expected).  The standard integrator's
+pictures are held against the megakernel's, and its two routes against each
+other, on the tonemapped image at rtol 1e-3 / atol 2e-3, the tolerance of
+the JAX package's own test of the same pair; a ray whose branch flips on a
+last digit moves its pixel by more than that, so the share of pixel
+channels outside is printed and gated at 0.5 %.  Autograd's colour
+gradients are held against ``render_grad``'s at 2e-3 of the largest entry.
 """
 
 import argparse
@@ -64,7 +82,9 @@ import torch
 import go_raytracing_tpu_torch as grt
 from go_raytracing_tpu_torch.camera import Camera, generate_rays
 from go_raytracing_tpu_torch.integrator import wavefront
+from go_raytracing_tpu_torch.core.vec3 import V3
 from go_raytracing_tpu_torch.ops import _build
+from go_raytracing_tpu_torch.ops import cuda_intersect as ck
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from go_raytracing_tpu_torch.render import grad as gradmod
 from go_raytracing_tpu_torch.render import renderer
@@ -74,6 +94,8 @@ MAX_MISMATCH_SHARE = 0.005
 MAX_MEAN_REL_DIFF = 0.01
 REV_RTOL_OF_LARGEST = 1e-4
 AUTOGRAD_RTOL_OF_LARGEST = 2e-3
+IMAGE_RTOL, IMAGE_ATOL = 1e-3, 2e-3
+MAX_PIXEL_SHARE_OUTSIDE = 0.005
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the yardstick of
 # bound_ms whatever the card's power limit, which is printed beside it.
@@ -777,6 +799,466 @@ def pathwise_kernel_timing(scene, cam, launches, small_checks):
     )
 
 
+def intersect_counts():
+    return {"planar_closest": ck.LAUNCHES_PLANAR,
+            "sphere_closest": ck.LAUNCHES_SPHERE,
+            "planar_closest_attrs": ck.LAUNCHES_PLANAR_ATTRS,
+            "sphere_closest_attrs": ck.LAUNCHES_SPHERE_ATTRS}
+
+
+def reset_intersect_counts():
+    ck.LAUNCHES_PLANAR = ck.LAUNCHES_SPHERE = 0
+    ck.LAUNCHES_PLANAR_ATTRS = ck.LAUNCHES_SPHERE_ATTRS = 0
+
+
+def intersect_scene(device):
+    """The mixed scene and a triangle and a circle: all four planar kinds,
+    spheres (one moving), every material kind, a checker texture."""
+    b = grt.SceneBuilder()
+    floor = b.lambertian(b.checker(0.7, (0.2, 0.2, 0.2), (0.9, 0.9, 0.9)))
+    b.plane((0, 0, 0), (0, 1, 0), floor)
+    b.sphere((0, 1, -1), 0.8, b.metal((0.9, 0.8, 0.5), 0.2))
+    b.sphere((-1.8, 0.8, 0), 0.7, b.dielectric(1.5))
+    b.moving_sphere((1.8, 0.5, 0.5), (2.2, 0.9, 0.5), 0.4,
+                    b.lambertian((0.2, 0.5, 0.8)))
+    b.quad((1.0, 0.2, 0.8), (1.2, 0, 0), (0, 1.2, 0), b.lambertian((0.7, 0.2, 0.2)))
+    b.triangle((-3, 0.1, -2), (-1, 0.1, -3), (-2, 2.5, -2.5), floor)
+    b.circle((2.5, 1.5, -2), (-0.3, 0.2, 1), 1.0, b.metal((0.8, 0.8, 0.9), 0.0))
+    b.add_light(b.quad((-1, 4, -1), (2, 0, 0), (0, 0, 2), b.diffuse_light((6, 6, 6))))
+    cam = Camera(image_width=64, aspect_ratio=1.0, samples_per_pixel=4,
+                 max_depth=4, look_from=(0, 2, 5), look_at=(0, 0.8, 0),
+                 background=(0.1, 0.1, 0.2), vfov=45.0)
+    return b.build(device=device), cam
+
+
+def intersect_tables(scene):
+    """(sphere geometry, sphere constants, planar geometry, planar
+    constants) of a scene, None where it has no such primitive."""
+    n_s, n_p = int(scene.spheres.radius.shape[0]), int(scene.planar.d.shape[0])
+    return (
+        ck.sphere_table(scene.spheres) if n_s else None,
+        ck._material_consts(scene.materials, scene.textures, scene.spheres.mat)
+        if n_s else None,
+        ck.planar_table(scene.planar) if n_p else None,
+        ck._material_consts(scene.materials, scene.textures, scene.planar.mat)
+        if n_p else None)
+
+
+def intersect_calls(scene, o, d, tm, t_max_s, t_max_p):
+    """name -> (kernel call, plain call, table elements, ray rows in) for each
+    of the four kernels this scene has primitives for."""
+    sgeo, scon, pgeo, pcon = intersect_tables(scene)
+    extra = ck.CHECKER_EXTRA if scene.has_checker else 0
+    ol, dl, t_min = list(o), list(d), cw.EPS_HIT
+    calls = {}
+    if pgeo is not None:
+        n_attr = ck.PLANAR_ATTRS + extra
+        calls["planar_closest"] = (
+            lambda: ck.planar_closest_table(pgeo, o, d, t_max_p, t_min=t_min),
+            lambda: ck._planar_closest_plain(pgeo, ol, dl, t_max_p, t_min),
+            pgeo.numel(), 7)
+        calls["planar_closest_attrs"] = (
+            lambda: ck.planar_closest_attrs_table(pgeo, pcon, o, d, t_max_p,
+                                                  t_min=t_min, n_attr=n_attr),
+            lambda: ck._planar_closest_attrs_plain(pgeo, pcon, ol, dl, t_max_p,
+                                                   t_min, n_attr),
+            pgeo.numel() + pcon.numel(), 7)
+    if sgeo is not None:
+        n_attr = ck.SPHERE_ATTRS + extra
+        calls["sphere_closest"] = (
+            lambda: ck.sphere_closest_table(sgeo, o, d, tm, t_max_s, t_min=t_min),
+            lambda: ck._sphere_closest_plain(sgeo, ol, dl, tm, t_max_s, t_min),
+            sgeo.numel(), 8)
+        calls["sphere_closest_attrs"] = (
+            lambda: ck.sphere_closest_attrs_table(sgeo, scon, o, d, tm, t_max_s,
+                                                  t_min=t_min, n_attr=n_attr),
+            lambda: ck._sphere_closest_attrs_plain(sgeo, scon, ol, dl, tm, t_max_s,
+                                                   t_min, n_attr),
+            sgeo.numel() + scon.numel(), 8)
+    return calls
+
+
+def intersect_mismatch(k, p):
+    """Kernel outputs against the plain version's: (share of rays on which
+    hit, index, t or any attribute row differs, largest absolute error of t
+    and the attributes on rays that hit in both)."""
+    bad = (k[0] != p[0]) | (k[1] != p[1]) | (k[2] != p[2])
+    both = k[2] & p[2]
+    err = (k[0] - p[0]).abs()[both].max() if bool(both.any()) else k[0].new_zeros(())
+    if len(k) == 4:
+        bad |= (k[3] != p[3]).any(dim=0)
+        if bool(both.any()):
+            err = torch.maximum(err, (k[3] - p[3]).abs()[:, both].max())
+    return float(bad.float().mean()), float(err)
+
+
+def compare_intersect(scene, o, d, tm, name):
+    """The four kernels against their plain versions on one set of rays, with
+    t_max of BIG, of half the nearest hit's distance, and of -1 on a third of
+    the rays.  Returns {kernel: (worst mismatch share, worst error)}."""
+    n = tm.shape[0]
+    big = torch.full_like(tm, ck.BIG)
+    third = torch.arange(n, device=tm.device) % 3 == 0
+    first = {k: v[0]() for k, v in intersect_calls(scene, o, d, tm, big, big).items()}
+
+    def t_max_for(kernel, kind):
+        if kind == "big":
+            return big
+        if kind == "minus_one_on_a_third":
+            return torch.where(third, -1.0, big)
+        t, _, hit = first[kernel][:3]
+        return torch.where(hit, t * 0.5, big)
+
+    worst = {}
+    fields = {}
+    for kind in ("big", "halved", "minus_one_on_a_third"):
+        tmax_s = t_max_for("sphere_closest", kind) if "sphere_closest" in first else big
+        tmax_p = t_max_for("planar_closest", kind) if "planar_closest" in first else big
+        for kernel, (run, plain, _, _) in intersect_calls(
+                scene, o, d, tm, tmax_s, tmax_p).items():
+            k = run()
+            torch.cuda.synchronize()
+            p = plain()
+            share, err = intersect_mismatch(k, p)
+            if not torch.isfinite(k[0]).all():
+                raise RuntimeError(f"{name}: {kernel} returned a t that is not finite")
+            if kind == "halved" and bool(k[2][first[kernel][2]].any()):
+                raise RuntimeError(f"{name}: {kernel} hit beyond its t_max")
+            if kind == "minus_one_on_a_third" and bool(k[2][third].any()):
+                raise RuntimeError(f"{name}: {kernel} hit on a ray with t_max = -1")
+            fields[f"{kernel}_{kind}"] = dict(
+                mismatch_share=share, max_abs_err=err,
+                hit_share=float(k[2].float().mean()))
+            w = worst.get(kernel, (0.0, 0.0))
+            worst[kernel] = (max(w[0], share), max(w[1], err))
+    emit("intersect_kernels_vs_plain", scene=name, rays=n,
+         n_planar=int(scene.planar.d.shape[0]),
+         n_spheres=int(scene.spheres.radius.shape[0]),
+         checker=scene.has_checker, **fields)
+    for kernel, (share, _) in worst.items():
+        if share >= MAX_MISMATCH_SHARE:
+            raise RuntimeError(f"{name}: {kernel} differs from its plain version "
+                               f"on {share:.4%} of rays")
+    return worst
+
+
+def scattered_rays(cam, n, seed, device):
+    """Half camera rays, half rays from random points in random directions,
+    each with a random time: what the sweeps see after the first bounce."""
+    o, d, _, _ = chunk_rays(cam, n, seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    rnd = torch.rand((7, n), device=device, generator=gen)
+    second = torch.arange(n, device=device) >= n // 2
+    o = V3(*(torch.where(second, (rnd[i] - 0.5) * 6.0, c) for i, c in enumerate(o)))
+    d = V3(*(torch.where(second, rnd[3 + i] - 0.5, c) for i, c in enumerate(d)))
+    return (V3(*(c.contiguous() for c in o)), V3(*(c.contiguous() for c in d)),
+            rnd[6].contiguous())
+
+
+def image_share_outside(a, b):
+    """Share of pixel channels of ``a`` outside rtol/atol of ``b``."""
+    return 1.0 - float(torch.isclose(a, b, rtol=IMAGE_RTOL, atol=IMAGE_ATOL)
+                       .float().mean())
+
+
+def timed_renders(fn, rounds):
+    """``rounds`` renders, each timed by CUDA events, with the launch counts
+    of the last (set to 0 just before it, read just after).  Returns (ms of
+    each round, the last image, its counts, its stats)."""
+    taken = []
+    for _ in range(rounds):
+        stats = grt.RenderStats()
+        reset_intersect_counts()
+        cw.LAUNCHES = 0
+        ms, img = cuda_ms(lambda: fn(stats))
+        counts = intersect_counts()
+        taken.append(ms)
+    return taken, img, counts, stats, cw.LAUNCHES
+
+
+def standard_main_path(scene, cam, mega_img, mega_ms):
+    """The Cornell job through the standard integrator's fast route, held
+    against the megakernel's picture of the same seed."""
+    n_rays = cam.image_width * cam.image_height * cam.samples_per_pixel
+    grt.render_image(scene, cam, seed=0, mega_mode="off")   # warm-up
+    rounds, img, counts, stats, mega_launches = timed_renders(
+        lambda st: grt.render_image(scene, cam, seed=0, mega_mode="off", stats=st), 3)
+    ms = median(rounds)
+    share = image_share_outside(img, mega_img)
+    emit("standard_main_path", scene="cornell", width=cam.image_width,
+         height=cam.image_height, spp=cam.samples_per_pixel, depth=cam.max_depth,
+         camera_rays=n_rays, chunks=stats.chunks, route="fast", launches=counts,
+         launches_megakernel=mega_launches, render_ms_rounds=rounds,
+         render_ms_median=ms, camera_mrays_per_s=n_rays / (ms * 1e-3) / 1e6,
+         megakernel_render_ms=mega_ms,
+         megakernel_camera_mrays_per_s=n_rays / (mega_ms * 1e-3) / 1e6,
+         pixel_share_outside_tolerance=share,
+         max_abs_diff=float((img - mega_img).abs().max()),
+         image_mean=float(img.mean()), rtol=IMAGE_RTOL, atol=IMAGE_ATOL)
+    if not torch.isfinite(img).all():
+        raise RuntimeError("standard integrator: image is not finite")
+    per_chunk = cam.max_depth * stats.chunks
+    if mega_launches != 0 or not (
+            0 < counts["planar_closest_attrs"] <= per_chunk
+            and 0 < counts["planar_closest"] <= per_chunk
+            and counts["sphere_closest"] == counts["sphere_closest_attrs"] == 0):
+        raise RuntimeError(f"standard integrator: launches {counts} for "
+                           f"{stats.chunks} chunks, megakernel {mega_launches}")
+    if share >= MAX_PIXEL_SHARE_OUTSIDE:
+        raise RuntimeError(f"standard integrator: {share:.4%} of pixel channels "
+                           "differ from the megakernel's picture")
+    return counts, ms, stats.chunks
+
+
+def fog_room_scene(device):
+    """A scene the megakernel cannot take: the Cornell room with a round fog
+    and a pyramid fog, a checker floor, a metal and a glass sphere."""
+    b = grt.SceneBuilder()
+    red = b.lambertian((0.65, 0.05, 0.05))
+    white = b.lambertian((0.73, 0.73, 0.73))
+    green = b.lambertian((0.12, 0.45, 0.15))
+    checker = b.lambertian(b.checker(60.0, (0.2, 0.3, 0.1), (0.9, 0.9, 0.8)))
+    b.quad((555, 0, 0), (0, 555, 0), (0, 0, 555), green)
+    b.quad((0, 0, 0), (0, 555, 0), (0, 0, 555), red)
+    b.add_light(b.quad((213, 554, 227), (130, 0, 0), (0, 0, 105),
+                       b.diffuse_light((15, 15, 15))))
+    b.quad((0, 0, 0), (555, 0, 0), (0, 0, 555), checker)
+    b.quad((555, 555, 555), (-555, 0, 0), (0, 0, -555), white)
+    b.quad((0, 0, 555), (555, 0, 0), (0, 555, 0), white)
+    b.sphere((400, 90, 190), 90, b.metal((0.8, 0.6, 0.2), 0.15))
+    b.sphere((170, 80, 140), 80, b.dielectric(1.5))
+    b.volume_sphere((278, 330, 300), 130, 0.004, (0.85, 0.9, 0.95))
+    b.volume_pyramid((150, 0, 400), 220, 300, 0.006, (0.9, 0.7, 0.6))
+    cam = Camera(image_width=600, aspect_ratio=1.0, samples_per_pixel=100,
+                 max_depth=5, look_from=(278, 278, -800), look_at=(278, 278, 0),
+                 vfov=40.0, background=(0.0, 0.0, 0.0))
+    return b.build(device=device), cam
+
+
+def standard_outside_gate(device, width=600, spp=100, random_spp=25):
+    """The fog room at 600x600, 100 spp, depth 5 through ``render_image`` left
+    to itself (fast route), its two routes against each other on one chunk's
+    worth of samples, and ``random`` with ``mega_mode="off"`` against its
+    megakernel render.  Returns the launch counts of the fog room's render."""
+    scene, cam = fog_room_scene(device)
+    cam = dataclasses.replace(cam, image_width=width, samples_per_pixel=spp)
+    n_rays = cam.image_width * cam.image_height * cam.samples_per_pixel
+    chose = wavefront.choose_mega_mode(scene, cam, n_rays, False)
+    if cw.applicable(scene) or chose != "off":
+        raise RuntimeError(f"the fog room must be outside the gate, mode {chose!r}")
+    rounds, img, counts, stats, mega_launches = timed_renders(
+        lambda st: grt.render_image(scene, cam, seed=0, stats=st), 2)
+    # one chunk of the fast route, and the same samples on the gather route
+    one = min(renderer.pick_chunk_size(scene)
+              // (cam.image_width * cam.image_height), spp)
+    chunk = one * cam.image_width * cam.image_height
+    fast_ms, fast = cuda_ms(lambda: grt.render_image(
+        scene, cam, spp=one, seed=0, chunk=chunk, mega_mode="off"))
+    reset_intersect_counts()
+    with torch.no_grad():
+        gather_ms, gather = cuda_ms(lambda: grt.render_image(
+            scene, cam, spp=one, seed=0, chunk=chunk, differentiable=True))
+    gather_counts = intersect_counts()
+    share = image_share_outside(fast, gather)
+    mean = float(img.mean())
+    emit("standard_outside_gate", scene="fog_room", width=cam.image_width,
+         height=cam.image_height, spp=cam.samples_per_pixel, depth=cam.max_depth,
+         camera_rays=n_rays, chunks=stats.chunks, chose_mega_mode=chose,
+         launches=counts, render_ms_rounds=rounds,
+         camera_mrays_per_s=n_rays / (min(rounds) * 1e-3) / 1e6,
+         image_mean=mean, one_chunk_spp=one, one_chunk_rays=chunk,
+         fast_route_ms_one_chunk=fast_ms, gather_route_ms_one_chunk=gather_ms,
+         gather_route_launches=gather_counts,
+         routes_pixel_share_outside_tolerance=share,
+         routes_max_abs_diff=float((fast - gather).abs().max()))
+    if not torch.isfinite(img).all() or not 0.02 < mean < 0.98:
+        raise RuntimeError(f"fog room: image mean {mean}")
+    if mega_launches != 0 or min(counts.values()) < 1:
+        raise RuntimeError(f"fog room: launches {counts}, megakernel {mega_launches}")
+    if (gather_counts["planar_closest_attrs"] or gather_counts["sphere_closest_attrs"]
+            or gather_counts["planar_closest"] != 2 * cam.max_depth
+            or gather_counts["sphere_closest"] != 2 * cam.max_depth):
+        raise RuntimeError(f"fog room, gather route: launches {gather_counts}")
+    if share >= MAX_PIXEL_SHARE_OUTSIDE:
+        raise RuntimeError(f"fog room: the two routes differ on {share:.4%} of "
+                           "pixel channels")
+
+    r_scene, r_cam = grt.load_scene("random")
+    r_cam = dataclasses.replace(r_cam, image_width=width, aspect_ratio=16 / 9,
+                                samples_per_pixel=random_spp, max_depth=10)
+    n_r = r_cam.image_width * r_cam.image_height * r_cam.samples_per_pixel
+    mega_ms, mega_img = cuda_ms(lambda: grt.render_image(r_scene, r_cam, seed=0))
+    r_rounds, r_img, r_counts, r_stats, _ = timed_renders(
+        lambda st: grt.render_image(r_scene, r_cam, seed=0, mega_mode="off",
+                                    stats=st), 2)
+    r_share = image_share_outside(r_img, mega_img)
+    emit("standard_random", scene="random", width=width,
+         height=r_cam.image_height, spp=random_spp, depth=10, camera_rays=n_r, chunks=r_stats.chunks,
+         n_spheres=int(r_scene.spheres.radius.shape[0]),
+         n_planar=int(r_scene.planar.d.shape[0]), launches=r_counts,
+         render_ms_rounds=r_rounds,
+         camera_mrays_per_s=n_r / (min(r_rounds) * 1e-3) / 1e6,
+         megakernel_render_ms=mega_ms,
+         pixel_share_outside_tolerance=r_share,
+         max_abs_diff=float((r_img - mega_img).abs().max()))
+    if r_counts["sphere_closest_attrs"] < 1 or not torch.isfinite(r_img).all():
+        raise RuntimeError(f"random: launches {r_counts}")
+    if r_share >= MAX_PIXEL_SHARE_OUTSIDE:
+        raise RuntimeError(f"random: {r_share:.4%} of pixel channels differ from "
+                           "the megakernel's picture")
+    return counts
+
+
+def standard_autograd(name, scene, cam):
+    """``torch.autograd`` through ``render(differentiable=True)`` (gather
+    route: the closest-hit kernels under a recorded graph) against
+    ``render_grad`` (the gradient kernels) for the same pixel-MSE loss: two
+    independent routes to the colour gradients.  fuzz and ior are not
+    compared: the closest-hit kernels hand autograd a hit distance without
+    a gradient, so its fuzz and ior gradients lack the terms that reach
+    later hits through that distance; ``render_grad``'s are the exact ones."""
+    spp = cam.samples_per_pixel
+    target = grt.render(scene, cam, seed=1) / spp * 0.8
+    loss_k, g_k = grt.render_grad(scene, cam, target, seed=0)
+    params = {k: v.clone().requires_grad_()
+              for k, v in grt.trainable_params(scene).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_intersect_counts()
+    stats = grt.RenderStats()
+
+    def run():
+        fb = grt.render(grt.apply_params(scene, params), cam, seed=0,
+                        differentiable=True, stats=stats)
+        loss = torch.mean((fb / spp - target) ** 2)
+        loss.backward()
+        return loss.detach()
+
+    ms, loss = cuda_ms(run)
+    counts = intersect_counts()
+    peak = torch.cuda.max_memory_allocated()
+    big = float(g_k["color"].abs().max())
+    diff = float((params["color"].grad - g_k["color"]).abs().max()) / big
+    loss_diff = abs(float(loss) - float(loss_k)) / float(loss_k)
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in params.values()
+                 if p.grad is not None)
+    emit("standard_autograd", scene=name, width=cam.image_width,
+         height=cam.image_height, spp=spp, depth=cam.max_depth,
+         camera_rays=cam.image_width * cam.image_height * spp,
+         chunks=stats.chunks, launches=counts, forward_backward_ms=ms,
+         loss=float(loss), loss_rel_diff_to_render_grad=loss_diff,
+         color_grad_diff_of_largest=diff, largest_color_grad=big,
+         all_gradients_finite=finite, max_memory_allocated=peak,
+         fuzz_and_ior="not compared: the kernels' hit distance carries no gradient")
+    if not finite:
+        raise RuntimeError(f"{name}: a gradient through autograd is not finite")
+    if counts["planar_closest_attrs"] or counts["sphere_closest_attrs"] \
+            or counts["planar_closest"] != 2 * cam.max_depth * stats.chunks:
+        raise RuntimeError(f"{name}: launches {counts} for {stats.chunks} chunks")
+    if loss_diff > 1e-4 or not diff <= AUTOGRAD_RTOL_OF_LARGEST:
+        raise RuntimeError(f"{name}: autograd against render_grad: loss off by "
+                           f"{loss_diff}, colour gradients by {diff}")
+
+
+def intersect_kernel_timing(cases, launches, small_checks):
+    """The four kernels alone at their main paths' chunks, all rays with
+    t_max = BIG, beside their bounds, and against their plain versions at
+    that size.  ``cases``: (scene name, scene, o, d, tm).  Returns the four
+    entries of the ``kernels`` line."""
+    sources = {
+        "planar_closest": ("175 (planar_closest)", FLOPS_PLANAR),
+        "sphere_closest": ("270 (sphere_closest)", FLOPS_SPHERE),
+        "planar_closest_attrs": ("480 (_run_attr_kernel, planar_closest_attrs)",
+                                 FLOPS_PLANAR),
+        "sphere_closest_attrs": ("480 (_run_attr_kernel, sphere_closest_attrs)",
+                                 FLOPS_SPHERE),
+    }
+    entries = {}
+    for scene_name, scene, o, d, tm, wanted in cases:
+        n = tm.shape[0]
+        big = torch.full_like(tm, ck.BIG)
+        for kernel, (run, plain, table_elems, rows_in) in intersect_calls(
+                scene, o, d, tm, big, big).items():
+            if kernel not in wanted:
+                continue
+            run()
+            rounds, k = rounds_ms(run)
+            ms = median(rounds)
+            plain_ms, p = cuda_ms(plain)
+            share, err = intersect_mismatch(k, p)
+            if share >= MAX_MISMATCH_SHARE:
+                raise RuntimeError(f"{scene_name}, full chunk: {kernel} differs "
+                                   f"from its plain version on {share:.4%} of rays")
+            n_prims = (scene.planar.d if kernel.startswith("planar")
+                       else scene.spheres.radius).shape[0]
+            out_bytes = sum(t.numel() * t.element_size() for t in k)
+            moved = rows_in * 4 * n + out_bytes + 4 * table_elems
+            flops = float(n) * n_prims * sources[kernel][1]
+            bound = (moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3)
+            emit("intersect_kernel_timing", kernel=kernel, scene=scene_name,
+                 rays_per_launch=n, primitives=int(n_prims),
+                 n_attr=int(k[3].shape[0]) if len(k) == 4 else 0,
+                 ms=ms, ms_rounds=rounds, plain_ms=plain_ms, bytes_counted=moved,
+                 flops_counted=flops, bound_bytes_ms=bound[0], bound_ops_ms=bound[1],
+                 roofline_share=max(bound) / ms, hit_share=float(k[2].float().mean()),
+                 mismatch_share_full_chunk=share, max_abs_err_full_chunk=err)
+            small = [c[kernel] for c in small_checks if kernel in c]
+            entries[kernel] = kernel_entry(
+                n, kernel, "go_raytracing_tpu_torch/csrc/intersect.cu",
+                "go_raytracing_tpu/ops/pallas_intersect.py:" + sources[kernel][0],
+                launches[kernel], ms, plain_ms, bound,
+                [err] + [c[1] for c in small]) | {
+                    "mismatch_share": max([share] + [c[0] for c in small]),
+                    "primitives": int(n_prims), "scene": scene_name}
+            del k, p
+    return [entries[k] for k in sources]
+
+
+def profile_standard_chunk(scene, cam):
+    """Device time by kernel over one chunk of the Cornell job on the fast
+    route, from ``torch.profiler``, beside the same render's time without the
+    profiler (which slows the host many times over): the device's busy share
+    is the kernels' summed time over that.  For the record only: a profiler
+    that does not work on this machine is reported and fails nothing."""
+    n_virt = cam.image_width * cam.image_height
+    one = renderer.pick_chunk_size(scene) // n_virt
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        grt.render(scene, cam, spp=one, seed=0, mega_mode="off")
+        plain_ms, _ = cuda_ms(
+            lambda: grt.render(scene, cam, spp=one, seed=0, mega_mode="off"))
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            grt.render(scene, cam, spp=one, seed=0, mega_mode="off")
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [(e.key, getattr(e, "device_time_total", 0.0) / 1e3, e.count)
+                for e in prof.key_averages()
+                if getattr(e, "device_type", None) is not None
+                and "cuda" in str(e.device_type).lower()]
+        if not rows:
+            rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
+                    for e in prof.key_averages()
+                    if getattr(e, "self_device_time_total", 0.0) > 0]
+        rows.sort(key=lambda r: -r[1])
+        device_ms = sum(r[1] for r in rows)
+        ours = sum(r[1] for r in rows if "planar_kernel" in r[0] or "sphere_kernel" in r[0])
+        int64 = [r for r in rows if "<long" in r[0] or " long" in r[0]]   # the PCG3D hash
+        emit("standard_profile", scene="cornell", rays=one * n_virt, spp=one,
+             render_ms_without_profiler=plain_ms,
+             wall_ms_under_profiler=wall_ms, device_ms=device_ms,
+             device_busy_share=device_ms / plain_ms,
+             device_idle_share=1.0 - device_ms / plain_ms,
+             device_kernel_launches=sum(r[2] for r in rows),
+             closest_hit_kernels_ms=ours,
+             int64_kernels_ms=sum(r[1] for r in int64),
+             int64_kernel_launches=sum(r[2] for r in int64),
+             top=[dict(name=r[0][:80], ms=r[1], calls=r[2]) for r in rows[:12]])
+    except Exception as exc:  # the profiler is optional on this machine
+        emit("standard_profile", error=repr(exc)[:300])
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out-dir", default=str(_build.BUILD_DIR),
@@ -798,9 +1280,9 @@ def main():
 
     # ---- build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    built, built_fma, built_grad, built_pw = _build.load_all(
+    built, built_fma, built_grad, built_pw, built_ix = _build.load_all(
         [("wavefront", False), ("wavefront", True), ("wavefront_grad", False),
-         ("wavefront_grad_pathwise", False)])
+         ("wavefront_grad_pathwise", False), ("intersect", False)])
 
     def kernel_stats(lib, tag):
         (stats,) = [v for name, v in lib.kernels.items() if tag in name]
@@ -813,10 +1295,20 @@ def main():
     pfwd_regs, pfwd_spill = kernel_stats(built, "wavefront_kernelILi2E")
     grev_regs, grev_spill = kernel_stats(built_grad, "wavefront_grad_rev_kernel")
     prev_regs, prev_spill = kernel_stats(built_pw, "wavefront_grad_rev_pathwise_kernel")
-    emit("build", seconds=time.perf_counter() - t0, kernels=5,
+    # planar_kernel<false> / <true> and sphere_kernel<false> / <true>: closest
+    # hit alone, and with the winner's attributes
+    ix_stats = {name: kernel_stats(built_ix, tag) for name, tag in (
+        ("planar_closest", "planar_kernelILb0E"),
+        ("planar_closest_attrs", "planar_kernelILb1E"),
+        ("sphere_closest", "sphere_kernelILb0E"),
+        ("sphere_closest_attrs", "sphere_kernelILb1E"))}
+    emit("build", seconds=time.perf_counter() - t0, kernels=9,
          nvcc_seconds=[b.build_seconds
-                       for b in (built, built_fma, built_grad, built_pw)],
-         libraries=[built.path.name, built_grad.path.name, built_pw.path.name],
+                       for b in (built, built_fma, built_grad, built_pw, built_ix)],
+         libraries=[built.path.name, built_grad.path.name, built_pw.path.name,
+                    built_ix.path.name],
+         intersect_registers={k: v[0] for k, v in ix_stats.items()},
+         intersect_spill_bytes={k: v[1] for k, v in ix_stats.items()},
          registers=fwd_regs, spill_bytes=fwd_spill,
          registers_with_fma=kernel_stats(built_fma, "wavefront_kernelILi0E")[0],
          grad_fwd_registers=gfwd_regs, grad_fwd_spill_bytes=gfwd_spill,
@@ -825,7 +1317,8 @@ def main():
          grad_fwd_pathwise_spill_bytes=pfwd_spill,
          grad_rev_pathwise_registers=prev_regs,
          grad_rev_pathwise_spill_bytes=prev_spill,
-         ptxas=[l for b in (built, built_grad, built_pw) for l in b.log.splitlines()
+         ptxas=[l for b in (built, built_grad, built_pw, built_ix)
+                for l in b.log.splitlines()
                 if "ptxas info" in l and ("Used" in l or "spill" in l)])
 
     # ---- kernel against plain version -----------------------------------------
@@ -857,6 +1350,11 @@ def main():
     pw_checks = [compare_pathwise(g_scene, g_small, 7, "cornell-glossy"),
                  compare_pathwise(*glossy_sky_scene(dev), 8, "glossy_sky_volume"),
                  compare_pathwise(m_scene, m_cam, 9, "mixed")]
+
+    # ---- the closest-hit kernels against their plain versions ----------------------
+    ix_scene, ix_cam = intersect_scene(dev)
+    ix_checks = [compare_intersect(ix_scene, *scattered_rays(ix_cam, 16384, 11, dev),
+                                   "mixed_four_planar_kinds")]
 
     # ---- main path at full size ------------------------------------------------
     cam = dataclasses.replace(cam0, image_width=600, aspect_ratio=600 / 338,
@@ -974,6 +1472,48 @@ def main():
     emit("forward_kernel_again", kernel_ms=kernel_ms3, rounds=fwd_rounds,
          median_ms=median(fwd_rounds))
 
+    del o, d, tm, sid
+
+    # ---- the standard integrator: main path, outside the gate, autograd ---------
+    std_counts, std_ms, std_chunks = standard_main_path(scene, cam, img, render_ms)
+    fog_counts = standard_outside_gate(dev)
+    a_cam = dataclasses.replace(cam, samples_per_pixel=8)
+    standard_autograd("cornell", scene, a_cam)
+    standard_autograd("cornell-glossy", g_scene, dataclasses.replace(
+        g_cam0, image_width=600, aspect_ratio=600 / 338, samples_per_pixel=8,
+        max_depth=5))
+
+    # ---- the four closest-hit kernels alone, at their main paths' chunks ---------
+    o, d, tm, _ = chunk_rays(cam, chunk, 0, dev)
+    r_scene, r_cam = grt.load_scene("random")
+    r_cam = dataclasses.replace(r_cam, image_width=600, aspect_ratio=16 / 9,
+                                samples_per_pixel=25, max_depth=10)
+    _, _, r_virt = renderer.ray_layout(r_cam.image_width, r_cam.image_height,
+                                       renderer.scene_tiled(r_scene))
+    r_chunk = min(renderer.pick_chunk_size(r_scene) // r_virt, 25) * r_virt
+    _, ro, rd, rtm, _, _, _ = renderer._chunk_rays(
+        r_scene, r_cam, 0, 0, spp=25, chunk=r_chunk, max_depth=10, device=dev)
+    ix_entries = intersect_kernel_timing(
+        [("cornell", scene, o, d, tm, ("planar_closest", "planar_closest_attrs")),
+         ("random", r_scene, V3(*(c.contiguous() for c in ro)),
+          V3(*(c.contiguous() for c in rd)), rtm.contiguous(),
+          ("sphere_closest", "sphere_closest_attrs"))],
+        {"planar_closest": std_counts["planar_closest"],
+         "planar_closest_attrs": std_counts["planar_closest_attrs"],
+         "sphere_closest": fog_counts["sphere_closest"],
+         "sphere_closest_attrs": fog_counts["sphere_closest_attrs"]},
+        ix_checks)
+    del o, d, tm, ro, rd, rtm
+    by_name = {e["name"]: e for e in ix_entries}
+    kernels_ms = (by_name["planar_closest_attrs"]["ms"] * std_counts["planar_closest_attrs"]
+                  + by_name["planar_closest"]["ms"] * std_counts["planar_closest"])
+    emit("standard_split", scene="cornell", chunks=std_chunks,
+         render_ms_median=std_ms, closest_hit_kernels_ms_at_full_chunk=kernels_ms,
+         kernels_share_of_render_at_most=kernels_ms / std_ms,
+         note="kernel times are those of a launch with every ray alive; later "
+              "bounces and shadow launches sweep fewer rays")
+    profile_standard_chunk(scene, cam)
+
     print(json.dumps({"kernels": [{
         "name": "wavefront_fwd",
         "route": "cuda",
@@ -990,7 +1530,7 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "library_ms": None,
-    }, *grad_entries, *pw_entries]}), flush=True)
+    }, *grad_entries, *pw_entries, *ix_entries]}), flush=True)
     print(name_and_limit, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,9 @@
 
 Second package beside ``go_raytracing_tpu`` (JAX, the reference), with
 the same subpackage layout and public names, written for one NVIDIA GPU:
-plain tensor code in PyTorch, the bounce loop and its product-chain
-gradient in hand-written CUDA kernels (``csrc/``).  It imports ``torch``
-and ``numpy`` only.
+plain tensor code in PyTorch; the bounce loop, its gradients and the
+standard integrator's closest-hit sweeps in hand-written CUDA kernels
+(``csrc/``).  It imports ``torch`` and ``numpy`` only.
 
 Entry points run on the GPU unless the caller passes ``device="cpu"``.
 """

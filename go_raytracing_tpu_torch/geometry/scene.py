@@ -142,7 +142,7 @@ class SceneBuilder:
     def __init__(self):
         self._sph: list = []       # (center, velocity, radius, mat)
         self._pla: list = []       # (q, u, v, normal, w, d, radius, kind, mat)
-        self._vol: list = []       # (world_to_local 3x4, bmin, bmax, nid, mat, kind)
+        self._vol: list = []       # (world_to_local 3x4, bmin, bmax, nid, mat, kind, planes)
         self._mat: list = []       # (kind, tex, fuzz, ior)
         self._tex: list = []       # dict per texture
         self._lights: list = []    # planar indices
@@ -324,23 +324,63 @@ class SceneBuilder:
         inv = np.eye(4) if transform is None else transform.inverse().m
         mat = self.isotropic(color_or_tex)
         self._vol.append((inv[:3, :4], mn, mx, -1.0 / float(density), mat,
-                          packs.VOL_BOX))
+                          packs.VOL_BOX, None))
         return len(self._vol) - 1
 
     def volume_sphere(self, center, radius, density, color_or_tex) -> int:
-        raise NotImplementedError(
-            "sphere-bounded media are not ported yet (ROADMAP.md A14)")
+        """Constant-density medium in a sphere.  Baked as a world->local
+        affine mapping the sphere to the unit ball (center and radius
+        folded into the transform)."""
+        c = np.asarray(center, np.float64)
+        r = float(radius)
+        inv = np.zeros((3, 4))
+        inv[0, 0] = inv[1, 1] = inv[2, 2] = 1.0 / r
+        inv[:, 3] = -c / r
+        mat = self.isotropic(color_or_tex)
+        self._vol.append((inv, np.zeros(3), np.zeros(3),
+                          -1.0 / float(density), mat, packs.VOL_SPHERE, None))
+        return len(self._vol) - 1
 
     def volume_convex(self, planes, density, color_or_tex,
                       transform: Optional[Affine] = None) -> int:
-        raise NotImplementedError(
-            "convex-polyhedron media are not ported yet (ROADMAP.md A14)")
+        """Constant-density medium in an arbitrary convex polyhedron.
+        ``planes``: iterable of (normal, d) or 4-vectors; inside = n.x <= d
+        for all, in the local frame of ``transform`` (like volume_box's
+        a/b)."""
+        rows = []
+        for p in planes:
+            if len(p) == 2:
+                nrm, dd = p
+                rows.append([*np.asarray(nrm, np.float64), float(dd)])
+            else:
+                rows.append([float(x) for x in p])
+        pl = np.asarray(rows, np.float64).reshape(-1, 4)
+        inv = np.eye(4) if transform is None else transform.inverse().m
+        mat = self.isotropic(color_or_tex)
+        self._vol.append((inv[:3, :4], np.zeros(3), np.zeros(3),
+                          -1.0 / float(density), mat, packs.VOL_PLANES, pl))
+        return len(self._vol) - 1
 
     def volume_pyramid(self, base_center, base_size, height, density,
                        color_or_tex,
                        transform: Optional[Affine] = None) -> int:
-        raise NotImplementedError(
-            "convex-polyhedron media are not ported yet (ROADMAP.md A14)")
+        """Constant-density medium in the builder's pyramid shape (base
+        quad + 4 slanted faces)."""
+        c = np.asarray(base_center, np.float64)
+        hs = base_size / 2.0
+        apex = c + [0.0, height, 0.0]
+        corners = [c + [hs, 0, -hs], c + [hs, 0, hs],
+                   c + [-hs, 0, hs], c + [-hs, 0, -hs]]
+        planes = [((0.0, -1.0, 0.0), -c[1])]  # base: y >= c.y
+        for i in range(4):
+            a, b = corners[i], corners[(i + 1) % 4]
+            nrm = np.cross(b - a, apex - a)
+            nrm = nrm / np.linalg.norm(nrm)
+            # orient outward (away from the base center + up a bit)
+            if np.dot(nrm, (a + b + apex) / 3.0 - (c + [0, height / 3, 0])) < 0:
+                nrm = -nrm
+            planes.append((tuple(nrm), float(np.dot(nrm, a))))
+        return self.volume_convex(planes, density, color_or_tex, transform)
 
     # --- lights / environment --------------------------------------------
     def add_light(self, planar_index: int):
@@ -377,9 +417,22 @@ class SceneBuilder:
             self._sph, (f32, f32, f32, i32), (v3, v3, sc, sc)))
         planar = packs.PlanarPack(*cols(
             self._pla, (f32,) * 7 + (i32, i32), (v3,) * 5 + (sc,) * 4))
+        # Half-space rows of the polyhedron media, padded to the longest
+        # list with a plane every point satisfies (n = 0, d = 1).
+        vplanes = [v[6] for v in self._vol]
+        planes_arr = None
+        if any(p is not None for p in vplanes):
+            kmax = max(len(p) for p in vplanes if p is not None)
+            noop = np.array([0.0, 0.0, 0.0, 1.0])
+            rows = []
+            for p in vplanes:
+                p = np.zeros((0, 4)) if p is None else np.asarray(p)
+                pad = np.broadcast_to(noop, (kmax - len(p), 4))
+                rows.append(np.concatenate([p, pad], axis=0))
+            planes_arr = dv(np.stack(rows), f32)
         volumes = packs.VolumePack(*cols(
-            self._vol, (f32, f32, f32, f32, i32, i32),
-            ((3, 4), v3, v3, sc, sc, sc)))
+            [v[:6] for v in self._vol], (f32, f32, f32, f32, i32, i32),
+            ((3, 4), v3, v3, sc, sc, sc)), planes=planes_arr)
 
         if not self._mat:
             self.lambertian((0.5, 0.5, 0.5))  # scenes must have >= 1 material

@@ -4,7 +4,7 @@ A dense SoA pack evaluated branchlessly per ray.  Checker is the 3D
 lattice parity of floor(p/scale + 1e-4).  Marble noise (ROADMAP.md A13)
 and image textures (ROADMAP.md A16) keep their kind ids and table columns
 so the tables stay comparable with the JAX package's, but cannot be built
-yet.  ``evaluate`` comes with the gather integrator (ROADMAP.md A8a).
+yet; ``evaluate`` raises for a scene that claims to hold one.
 """
 
 from __future__ import annotations
@@ -12,6 +12,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+
+from ..core.vec3 import V3
 
 TEX_SOLID = 0
 TEX_CHECKER = 1
@@ -30,3 +32,42 @@ class TexturePack:
     image_id: torch.Tensor     # [T] i32 index into atlas
     atlas: torch.Tensor        # [I, Hmax, Wmax, 3] f32 (dummy [1,1,1,3])
     atlas_wh: torch.Tensor     # [I, 2] i32 (width, height) of each image
+
+
+def take_rows(table, idx):
+    """``table[idx]`` for a table a gradient may flow into.  On a GPU the
+    backward pass of ``index_select`` adds the rows with atomics; that of
+    advanced indexing sorts the indices and then walks every run of equal
+    indices in one thread, which for a few-row table indexed by millions of
+    rays takes seconds (on an H100 the backward pass of a 1.6 M-ray Cornell
+    render took 14 s that way and under 1 s this way; PERF.md).  The price:
+    the order of the sums, and so a gradient's last bits, change from run
+    to run."""
+    return torch.index_select(table, 0, idx)
+
+
+def evaluate(pack: TexturePack, tex_id, u, v, p: V3, *, has_noise=False,
+             has_image=False) -> V3:
+    """Texture value for each ray: tex_id [R] integer, u/v [R], p: V3 -> V3.
+
+    Differentiable in the colour tables (the rows are picked by indexing)
+    and, nowhere, in ``p``: a checker's parity is piecewise constant.
+    ``has_noise`` / ``has_image`` are the scene's static flags; both kinds
+    are still to be ported."""
+    if has_noise:
+        raise NotImplementedError(
+            "marble noise textures are not ported yet (ROADMAP.md A13)")
+    if has_image:
+        raise NotImplementedError(
+            "image textures are not ported yet (ROADMAP.md A16)")
+    tex_id = tex_id.long()
+    kind = take_rows(pack.kind, tex_id)
+    inv_scale = take_rows(pack.inv_scale, tex_id)
+    out = V3.from_rows(take_rows(pack.color, tex_id))
+    lx = torch.floor(inv_scale * p.x + 1e-4).to(torch.int32)
+    ly = torch.floor(inv_scale * p.y + 1e-4).to(torch.int32)
+    lz = torch.floor(inv_scale * p.z + 1e-4).to(torch.int32)
+    is_even = (lx + ly + lz) % 2 == 0
+    checker = V3.select(is_even, V3.from_rows(take_rows(pack.even_color, tex_id)),
+                        V3.from_rows(take_rows(pack.odd_color, tex_id)))
+    return V3.select(kind == TEX_CHECKER, checker, out)

@@ -10,7 +10,10 @@ Because the RNG is counter-based over (pixel, sample), SPP chunks also
 double as checkpoint units: the accumulator + the number of completed
 samples fully determine resumption.
 
-Everything here runs under ``torch.no_grad()``.
+A render runs under ``torch.no_grad()`` unless the caller asks for
+``differentiable=True`` with autograd enabled: the framebuffer then keeps
+its ``grad_fn`` and ``loss.backward()`` reaches the scene's parameters
+through the standard integrator (``integrator/wavefront``).
 """
 
 from __future__ import annotations
@@ -32,12 +35,23 @@ from ..utils.device import resolve_device
 DEFAULT_PAIR_BUDGET = 1 << 26
 # Largest chunk, in rays.  Likewise a carried-over starting value.
 MAX_CHUNK_RAYS = 1 << 22
+# Largest chunk of a differentiable render.  Under autograd every bounce of
+# the standard integrator keeps a few hundred [R] tensors for the backward
+# pass (kilobytes a ray and bounce), and the temporaries of one chunk's
+# forward come on top of the graphs of all chunks before it: a quarter of
+# the forward chunk keeps that share small.  A starting value, not tuned.
+MAX_CHUNK_RAYS_DIFFERENTIABLE = 1 << 20
 
 
 def pick_chunk_size(scene: Scene, *, pair_budget: int = DEFAULT_PAIR_BUDGET,
-                    max_rays: int = MAX_CHUNK_RAYS) -> int:
-    # The kernel never materializes [R, N] pair buffers, so only the
-    # per-ray rows bound memory: size launches large.
+                    max_rays: Optional[int] = None,
+                    differentiable: bool = False) -> int:
+    # The kernels never materialize [R, N] pair buffers over primitives, so
+    # only the per-ray rows (and the [R, n_volumes] free-flight buffers)
+    # bound memory: size launches large.
+    if max_rays is None:
+        max_rays = (MAX_CHUNK_RAYS_DIFFERENTIABLE if differentiable
+                    else MAX_CHUNK_RAYS)
     n = max(scene.n_volumes * 4, 16)
     chunk = min(max_rays, max(pair_budget // n, 4096))
     return int(max(1024, (chunk // 1024) * 1024))
@@ -115,8 +129,9 @@ def _render_chunk(scene, cam: Camera, accum, ray_start: int, seed, *, spp: int,
                   chunk: int, max_depth: int, differentiable: bool = False,
                   mega_mode: Optional[str] = None):
     """Trace ``chunk`` rays starting at global ray id ``ray_start`` and add
-    their radiance into the flat accumulator [W*H, 3] IN PLACE (the buffer
-    belongs to ``render``; nothing else holds it)."""
+    their radiance into the flat accumulator [W*H, 3]: in place (the buffer
+    belongs to ``render``; nothing else holds it) unless autograd records
+    the render, which needs a new tensor per chunk."""
     tiled = scene_tiled(scene)
     _, _, n_virt = ray_layout(cam.image_width, cam.image_height, tiled)
     cam2, o, d, tm, stream, pixel, valid = _chunk_rays(
@@ -139,14 +154,19 @@ def _render_chunk(scene, cam: Camera, accum, ray_start: int, seed, *, spp: int,
                              "boundary (ray_start % n_virt == 0)")
         vs = rows.reshape(chunk // n_virt, n_virt, 3).sum(dim=0)
         if not tiled:
-            accum += vs
+            accum = accum + vs if rows.requires_grad else accum.add_(vs)
         else:
-            accum.index_add_(0, pixel[:n_virt], vs)
+            accum = _index_add(accum, pixel[:n_virt], vs)
         return accum, tstats["mesh_overflow"]
-    # Unaligned chunks: a scatter-add.  On a GPU index_add_ uses atomics,
+    # Unaligned chunks: a scatter-add.  On a GPU index_add uses atomics,
     # so the order of the sums (and the last bits) changes from run to run.
-    accum.index_add_(0, pixel, rows)
-    return accum, tstats["mesh_overflow"]
+    return _index_add(accum, pixel, rows), tstats["mesh_overflow"]
+
+
+def _index_add(accum, index, rows):
+    if rows.requires_grad:
+        return accum.index_add(0, index, rows)
+    return accum.index_add_(0, index, rows)
 
 
 @dataclasses.dataclass
@@ -162,7 +182,6 @@ class RenderStats:
         return self.rays_traced / self.wall_seconds if self.wall_seconds > 0 else 0.0
 
 
-@torch.no_grad()
 def render(scene: Scene, cam: Camera, *, spp: Optional[int] = None,
            max_depth: Optional[int] = None, seed: int = 0,
            chunk: Optional[int] = None, sample_offset: int = 0,
@@ -180,7 +199,20 @@ def render(scene: Scene, cam: Camera, *, spp: Optional[int] = None,
     is the buffer to continue from (it is copied, not modified).
     ``sync=False`` skips the final device synchronization; wall-clock stats
     are only recorded when ``sync`` is true.
+    ``differentiable=True`` renders through the standard integrator's
+    gather route and, where autograd is enabled, records the render: the
+    returned buffer then has a ``grad_fn`` (see ``wavefront.trace`` for what
+    the gradients hold).  ``mega_mode`` forces 'off' (standard integrator)
+    or 'single' (megakernel); None picks by scene.
     """
+    record_graph = differentiable and torch.is_grad_enabled()
+    with torch.set_grad_enabled(record_graph):
+        return _render(scene, cam, spp, max_depth, seed, chunk, sample_offset,
+                       accum, stats, differentiable, sync, mega_mode, device)
+
+
+def _render(scene, cam, spp, max_depth, seed, chunk, sample_offset, accum,
+            stats, differentiable, sync, mega_mode, device):
     dev = resolve_device(device)
     if scene.device.type != dev.type:
         raise ValueError(f"scene lies on {scene.device}, render asked for {dev}")
@@ -191,7 +223,7 @@ def render(scene: Scene, cam: Camera, *, spp: Optional[int] = None,
     n_pixels = w * h
     _, _, n_virt = ray_layout(w, h, scene_tiled(scene))
     if chunk is None:
-        chunk = pick_chunk_size(scene)
+        chunk = pick_chunk_size(scene, differentiable=differentiable)
         # Never launch (much) more than the job itself.
         chunk = min(chunk, max(1024, -(-n_virt * spp // 1024) * 1024))
     if chunk >= n_virt:
@@ -257,12 +289,15 @@ def render(scene: Scene, cam: Camera, *, spp: Optional[int] = None,
 def render_image(scene: Scene, cam: Camera, *, spp: Optional[int] = None,
                  max_depth: Optional[int] = None, seed: int = 0,
                  chunk: Optional[int] = None,
-                 stats: Optional[RenderStats] = None, device=None):
+                 stats: Optional[RenderStats] = None,
+                 differentiable: bool = False,
+                 mega_mode: Optional[str] = None, device=None):
     """Render and tonemap to [H, W, 3] floats in [0, 0.999]."""
     spp_eff = cam.samples_per_pixel if spp is None else spp
     accum = render(
         scene, cam, spp=spp_eff, max_depth=max_depth, seed=seed, chunk=chunk,
-        stats=stats, device=device,
+        stats=stats, differentiable=differentiable, mega_mode=mega_mode,
+        device=device,
     )
     return film.tonemap(accum, spp_eff)
 
@@ -271,7 +306,8 @@ PROGRESSIVE_PASSES = "preview", "refining", "final"
 
 
 def render_progressive(scene: Scene, cam: Camera, *, seed: int = 0,
-                       callback=None, device=None):
+                       callback=None, differentiable: bool = False,
+                       mega_mode: Optional[str] = None, device=None):
     """Progressive schedule: preview = 1 SPP / depth 3, refine = spp/4 /
     depth/2, final = full quality.  Each pass renders afresh and replaces
     the displayed image (the final image is the full-quality pass alone).
@@ -284,6 +320,7 @@ def render_progressive(scene: Scene, cam: Camera, *, seed: int = 0,
     ]
     for name, n, depth in schedule:
         img = render_image(scene, cam, spp=n, max_depth=depth, seed=seed,
+                           differentiable=differentiable, mega_mode=mega_mode,
                            device=device)
         if callback is not None:
             callback(name, img)

@@ -14,8 +14,11 @@ import torch
 
 import go_raytracing_tpu_torch as grtt
 from go_raytracing_tpu_torch import camera as tcamera
+from go_raytracing_tpu_torch.core.vec3 import V3
+from go_raytracing_tpu_torch.ops import cuda_intersect as ck
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
-from test_torch_helpers import MIXED_CAM, build_mixed
+from test_torch_helpers import (FOG_ROOM_CAM, MIXED_CAM, build_fog_room,
+                                build_mixed, build_random_prims, random_rays)
 
 
 def _rays(cam, n, seed, device):
@@ -310,3 +313,148 @@ def test_cuda_pathwise_wrappers_reject_what_the_kernels_do_not_take():
         cw.wavefront_grad_rev_pathwise(tb, sf, si, g3, g3, sid, 0, False, 170, 8)
     with pytest.raises(ValueError):
         cw.wavefront_grad_rev_pathwise(tb, sf, si, g3, g3, sid.cpu(), 0, False, 7, 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_max_kind", ["big", "halved", "minus-one-on-a-third"])
+def test_cuda_intersect_kernels_match_plain_versions(t_max_kind):
+    """On a GPU: the four closest-hit kernels against their plain versions,
+    on 200 spheres (three in ten moving; two tiles of the kernel's staging)
+    and all four planar kinds, with a checker texture (n_attr 17 and 19).
+    Built without fused multiply-add contraction, a kernel repeats its plain
+    version's rounding: hit, index, t and every attribute row are equal on
+    every ray."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene = build_random_prims(grtt, n_spheres=200, device="cuda")
+    assert scene.has_checker
+    o, d, tm = (torch.from_numpy(a).cuda() for a in random_rays(20000, 5))
+    o, d = V3.from_rows(o), V3.from_rows(d)
+    big = torch.full_like(tm, ck.BIG)
+    sgeo, pgeo = ck.sphere_table(scene.spheres), ck.planar_table(scene.planar)
+    scon = ck._material_consts(scene.materials, scene.textures, scene.spheres.mat)
+    pcon = ck._material_consts(scene.materials, scene.textures, scene.planar.mat)
+
+    def t_max_for(t, hit):
+        if t_max_kind == "big":
+            return big
+        if t_max_kind == "halved":
+            return torch.where(hit, t * 0.5, big)
+        third = torch.arange(t.shape[0], device="cuda") % 3 == 0
+        return torch.where(third, -1.0, big)
+
+    before = (ck.LAUNCHES_PLANAR, ck.LAUNCHES_SPHERE, ck.LAUNCHES_PLANAR_ATTRS,
+              ck.LAUNCHES_SPHERE_ATTRS)
+    t0, _, h0 = ck.sphere_closest_table(sgeo, o, d, tm, big)
+    t1, _, h1 = ck.planar_closest_table(pgeo, o, d, big)
+    ts, tp = t_max_for(t0, h0), t_max_for(t1, h1)
+    cases = [
+        (ck.sphere_closest_table(sgeo, o, d, tm, ts),
+         ck._sphere_closest_plain(sgeo, list(o), list(d), tm, ts, 1e-3)),
+        (ck.planar_closest_table(pgeo, o, d, tp),
+         ck._planar_closest_plain(pgeo, list(o), list(d), tp, 1e-3)),
+        (ck.sphere_closest_attrs_table(sgeo, scon, o, d, tm, ts, n_attr=17),
+         ck._sphere_closest_attrs_plain(sgeo, scon, list(o), list(d), tm, ts, 1e-3, 17)),
+        (ck.planar_closest_attrs_table(pgeo, pcon, o, d, tp, n_attr=19),
+         ck._planar_closest_attrs_plain(pgeo, pcon, list(o), list(d), tp, 1e-3, 19)),
+    ]
+    torch.cuda.synchronize()
+    assert (ck.LAUNCHES_PLANAR, ck.LAUNCHES_SPHERE, ck.LAUNCHES_PLANAR_ATTRS,
+            ck.LAUNCHES_SPHERE_ATTRS) == (before[0] + 2, before[1] + 2,
+                                          before[2] + 1, before[3] + 1)
+    for k, p in cases:
+        assert k[2].dtype == torch.bool and k[1].dtype == torch.int32
+        assert 0.05 < float(k[2].float().mean()) < 0.99 or t_max_kind == "halved"
+        for a, b in zip(k, p):
+            assert a.shape == b.shape and torch.equal(a, b)
+    if t_max_kind == "halved":
+        # a ray cut at half its nearest hit's distance hits nothing
+        assert not bool(cases[0][0][2][h0].any()) and not bool(cases[1][0][2][h1].any())
+    if t_max_kind == "minus-one-on-a-third":
+        third = torch.arange(tm.shape[0], device="cuda") % 3 == 0
+        for k, _ in cases:
+            assert not bool(k[2][third].any())
+            assert bool((k[0][third] == ck.BIG).all()) and bool((k[1][third] == 0).all())
+            if len(k) == 4:
+                assert bool((k[3][:, third] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene_name", ["mixed", "fog-room"])
+def test_cuda_standard_integrator_goes_through_the_kernels(scene_name):
+    """On a GPU: ``mega_mode="off"`` launches the attribute kernels for the
+    hit and the closest-hit kernels for the shadow ray, ``differentiable=True``
+    only the latter pair, and both give the picture the CPU gives."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    build, cam_fields = ((build_mixed, MIXED_CAM) if scene_name == "mixed"
+                         else (build_fog_room, FOG_ROOM_CAM))
+    scene = build(grtt, device="cuda")
+    cam = dataclasses.replace(tcamera.Camera(**cam_fields), image_width=32)
+
+    def counts():
+        return (ck.LAUNCHES_PLANAR, ck.LAUNCHES_SPHERE,
+                ck.LAUNCHES_PLANAR_ATTRS, ck.LAUNCHES_SPHERE_ATTRS)
+
+    c0 = counts()
+    fast = grtt.render_image(scene, cam, seed=2, mega_mode="off")
+    c1 = counts()
+    gather = grtt.render_image(scene, cam, seed=2, differentiable=True)
+    c2 = counts()
+    depth = cam.max_depth
+    assert all(0 < b - a <= depth for a, b in zip(c0, c1))
+    assert c2[2:] == c1[2:] and all(b - a in (depth, 2 * depth)
+                                    for a, b in zip(c1[:2], c2[:2]))
+    assert fast.is_cuda and torch.isfinite(fast).all()
+    torch.testing.assert_close(fast, gather, rtol=1e-3, atol=2e-3)
+    cpu = grtt.render_image(build(grtt, device="cpu"), cam, seed=2,
+                            mega_mode="off", device="cpu")
+    # same streams on both devices; an ulp flips a few rays of 4096
+    assert float((fast.cpu() - cpu).abs().mean()) < 0.01 * float(cpu.mean())
+
+
+@pytest.mark.cuda
+def test_cuda_autograd_matches_render_grad():
+    """On a GPU: colour gradients by ``torch.autograd`` through
+    ``render(differentiable=True)`` against ``render_grad``'s product tier,
+    two independent routes to the same derivative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene, cam = grtt.load_scene("cornell")
+    cam = dataclasses.replace(cam, image_width=32, aspect_ratio=1.0,
+                              samples_per_pixel=4)
+    target = grtt.render(scene, cam, seed=1) / 4 * 0.8
+    loss_k, g_k = grtt.render_grad(scene, cam, target, seed=0)
+    params = {k: v.clone().requires_grad_()
+              for k, v in grtt.trainable_params(scene).items()}
+    fb = grtt.render(grtt.apply_params(scene, params), cam, seed=0,
+                     differentiable=True)
+    assert fb.requires_grad
+    loss = torch.mean((fb / 4 - target) ** 2)
+    loss.backward()
+    assert abs(float(loss.detach()) - float(loss_k)) < 1e-4 * float(loss_k)
+    big = float(g_k["color"].abs().max())
+    assert big > 0 and all(torch.isfinite(p.grad).all() for p in params.values()
+                           if p.grad is not None)
+    assert float((params["color"].grad - g_k["color"]).abs().max()) < 2e-3 * big
+
+
+@pytest.mark.cuda
+def test_cuda_intersect_wrappers_reject_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene = build_random_prims(grtt, n_spheres=4, device="cuda")
+    o, d, tm = (torch.from_numpy(a).cuda() for a in random_rays(64, 5))
+    o, d = V3.from_rows(o), V3.from_rows(d)
+    big = torch.full_like(tm, ck.BIG)
+    pgeo = ck.planar_table(scene.planar)
+    with pytest.raises(ValueError):     # a sphere table
+        ck.planar_closest_table(ck.sphere_table(scene.spheres), o, d, big)
+    with pytest.raises(ValueError):     # a table on the CPU
+        ck.planar_closest_table(pgeo.cpu(), o, d, big)
+    with pytest.raises(ValueError):     # too few rays' worth of t_max
+        ck.planar_closest_table(pgeo, o, d, big[:32])
+    with pytest.raises(ValueError):
+        ck.planar_closest_attrs_table(
+            pgeo, ck._material_consts(scene.materials, scene.textures,
+                                      scene.planar.mat), o, d, big, n_attr=11)

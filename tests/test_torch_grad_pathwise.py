@@ -27,7 +27,8 @@ torch.set_num_threads(2)
 
 @functools.lru_cache(maxsize=None)
 def _case():
-    return pathwise_case(build_mini_glossy, MINI_GLOSSY_CAM)
+    # depth 3: the interpret-mode reverse costs about 15 s a bounce
+    return pathwise_case(build_mini_glossy, dict(MINI_GLOSSY_CAM, max_depth=3))
 
 
 def test_pathwise_fwd_plain_matches_interpret_pallas_kernel():

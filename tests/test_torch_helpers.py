@@ -28,6 +28,19 @@ def scene_tree(jscene):
     return tree
 
 
+def port_and_jax(build, cam_fields):
+    """One scene and camera in both packages: (JAX scene, JAX camera, the
+    port's scene on the CPU carried across as numpy, the port's camera)."""
+    import go_raytracing_tpu as grt
+    from go_raytracing_tpu import camera as jcamera
+    from go_raytracing_tpu_torch import convert
+
+    js = build(grt)
+    jcam = jcamera.Camera(**cam_fields)
+    ts = convert.scene_from_numpy(scene_tree(js), "cpu")
+    return js, jcam, ts, convert.camera_from_dict(dataclasses.asdict(jcam))
+
+
 def build_mixed(pkg, **build_kwargs):
     """The mixed scene of tests/test_pallas.py's megakernel test: checker
     plane, metal, dielectric and moving spheres, quad, quad light, box
@@ -168,6 +181,71 @@ def build_mini_volume_glossy(pkg, **build_kwargs):
 
 MINI_GLOSSY_CAM = dict(
     image_width=16, aspect_ratio=1.0, samples_per_pixel=4, max_depth=4,
+    look_from=(0, 3, 9), look_at=(0, 1.5, 0), vfov=45.0,
+    background=(0.02, 0.01, 0.03),
+)
+
+
+def build_random_prims(pkg, n_spheres=40, n_planar=True, seed=0, **build_kwargs):
+    """The random scene of tests/test_pallas.py's intersection tests
+    (spheres, three in ten of them moving, and one or two of each planar
+    kind), with four materials dealt out in turn so that the attribute
+    kernels have something to tell apart: solid lambertian, checker
+    lambertian, fuzzy metal, glass."""
+    r = np.random.default_rng(seed)
+    b = pkg.SceneBuilder()
+    mats = [b.lambertian((0.9, 0.5, 0.1)),
+            b.lambertian(b.checker(0.7, (0.2, 0.3, 0.1), (0.9, 0.9, 0.8))),
+            b.metal((0.8, 0.6, 0.2), 0.25), b.dielectric(1.5)]
+    for i in range(n_spheres):
+        m = mats[i % 4]
+        if r.random() < 0.3:
+            c = r.normal(size=3) * 4
+            b.moving_sphere(c, c + r.normal(size=3), r.uniform(0.3, 1.2), m)
+        else:
+            b.sphere(r.normal(size=3) * 4, r.uniform(0.3, 1.2), m)
+    if n_planar:
+        b.quad((-2, -2, -6), (4, 0, 0), (0, 4, 0), mats[0])
+        b.triangle((-3, -1, -4), (0, -1, -4), (-1.5, 2, -4), mats[1])
+        b.circle((2, 0, -5), (0.3, 0.2, 1), 1.0, mats[2])
+        b.plane((0, -5, 0), (0, 1, 0), mats[1])
+        b.quad((5, -2, -2), (0, 0, 4), (0, 4, 0), mats[3])
+    return b.build(**build_kwargs)
+
+
+def random_rays(n=700, seed=1):
+    """Origins, directions and times of tests/test_pallas.py's ``_rays``, as
+    float32 numpy arrays ([n, 3], [n, 3], [n])."""
+    r = np.random.default_rng(seed)
+    o = (r.normal(size=(n, 3)) * 3).astype(np.float32)
+    d = r.normal(size=(n, 3)).astype(np.float32)
+    tm = r.random(n).astype(np.float32)
+    return o, d, tm
+
+
+def build_fog_room(pkg, **build_kwargs):
+    """A scene outside the megakernel's gate: a round fog and a pyramid fog
+    in a small room with a checker floor, a red wall, a quad light, a fuzzy
+    metal sphere and a glass sphere."""
+    b = pkg.SceneBuilder()
+    white = b.lambertian((0.73, 0.72, 0.71))
+    red = b.lambertian((0.65, 0.05, 0.05))
+    checker = b.lambertian(b.checker(1.5, (0.2, 0.3, 0.1), (0.9, 0.9, 0.8)))
+    b.quad((-5, 0, -5), (10, 0, 0), (0, 0, 10), checker)      # floor
+    b.quad((-5, 0, -5), (0, 8, 0), (10, 0, 0), white)         # back wall
+    b.quad((5, 0, -5), (0, 8, 0), (0, 0, 10), red)            # right wall
+    q = b.quad((-1.5, 7.9, -1.5), (3, 0, 0), (0, 0, 3),
+               b.diffuse_light((13.0, 12.0, 11.0)))
+    b.add_light(q)
+    b.sphere((-2.2, 1.2, 0.0), 1.2, b.metal((0.8, 0.6, 0.2), fuzz=0.25))
+    b.sphere((2.0, 1.0, 1.0), 1.0, b.dielectric(1.5))
+    b.volume_sphere((0.0, 2.0, -1.0), 2.0, 0.35, (0.85, 0.9, 0.95))
+    b.volume_pyramid((1.5, 0.0, -2.5), 3.0, 4.0, 0.5, (0.9, 0.7, 0.6))
+    return b.build(**build_kwargs)
+
+
+FOG_ROOM_CAM = dict(
+    image_width=16, aspect_ratio=1.0, samples_per_pixel=2, max_depth=4,
     look_from=(0, 3, 9), look_at=(0, 1.5, 0), vfov=45.0,
     background=(0.02, 0.01, 0.03),
 )

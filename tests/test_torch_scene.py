@@ -118,9 +118,6 @@ def test_builder_gaps_and_errors():
         (lambda: b.set_environment(np.zeros((2, 4, 3))), "A15"),
         (lambda: b.mesh(np.zeros((3, 3)), np.zeros((1, 3))), "A17"),
         (lambda: b.mesh_instance(0, m), "A17"),
-        (lambda: b.volume_sphere((0, 0, 0), 1.0, 0.1, (1, 1, 1)), "A14"),
-        (lambda: b.volume_convex([((0, 1, 0), 1.0)], 0.1, (1, 1, 1)), "A14"),
-        (lambda: b.volume_pyramid((0, 0, 0), 1.0, 1.0, 0.1, (1, 1, 1)), "A14"),
     ]:
         with pytest.raises(NotImplementedError, match=item):
             call()
@@ -129,6 +126,50 @@ def test_builder_gaps_and_errors():
     q = b.triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), m)
     with pytest.raises(ValueError, match="quads"):
         b.add_light(q)
+
+
+def _media(pkg, which, **build_kwargs):
+    b = pkg.SceneBuilder()
+    b.quad((-5, 0, -5), (10, 0, 0), (0, 0, 10), b.lambertian((0.5, 0.5, 0.5)))
+    turn = pkg.Affine.trs(scale=(1, 2, 1), rotation_deg=(10, 20, 30),
+                          position=(1, 0, -1))
+    if which in ("sphere", "all"):
+        b.volume_sphere((0.5, 2.0, -1.0), 1.5, 0.3, (0.9, 0.9, 0.7))
+    if which in ("convex", "all"):
+        b.volume_convex([((0, 1, 0), 1.0), ((0, -1, 0), 0.5), (1, 0, 0, 2.0),
+                         (-1, 0, 0, 2.0), ((0, 0, 1), 1.5), ((0, 0, -1), 1.5),
+                         ((0.6, 0.8, 0), 2.2)], 0.4, (0.7, 0.9, 0.9), turn)
+    if which in ("pyramid", "all"):
+        b.volume_pyramid((-1.0, 0.0, 1.0), 3.0, 3.5, 1.2, (0.7, 0.9, 0.9), turn)
+    if which == "all":
+        b.volume_box((-3, 0, -3), (3, 3, 3), 0.02, b.checker(0.5, (0, 0, 0), (1, 1, 1)))
+    return b.build(**build_kwargs)
+
+
+@pytest.mark.parametrize("which", ["sphere", "convex", "pyramid", "all"])
+def test_round_and_polyhedral_media_tables_equal(which):
+    """``volume_sphere``, ``volume_convex`` and ``volume_pyramid`` build the
+    JAX builder's tables: the unit-ball transform, the half-space rows (the
+    shorter lists padded with the plane every point satisfies) and the
+    volume kinds, built here and carried across."""
+    js = _media(grt, which)
+    ts = _media(grtt, which, device="cpu")
+    tree = scene_tree(js)
+    _assert_scene_equal(ts, tree)
+    _assert_scene_equal(convert.scene_from_numpy(tree, "cpu"), tree)
+    if which == "sphere":
+        assert ts.volumes.planes is None
+        assert ts.volumes.kind.tolist() == [grtt.geometry.packs.VOL_SPHERE]
+    else:
+        assert ts.volumes.planes.shape[1:] == (7 if which != "pyramid" else 5, 4)
+    if which == "all":
+        assert ts.volumes.kind.tolist() == [1, 2, 2, 0]
+        # the pyramid's 5 planes are padded to the convex medium's 7, the
+        # sphere's and the box's rows are all padding
+        pad = torch.tensor([0.0, 0.0, 0.0, 1.0])
+        assert bool((ts.volumes.planes[2, 5:] == pad).all())
+        assert bool((ts.volumes.planes[[0, 3]] == pad).all())
+    assert not cw.applicable(ts)     # the megakernel's volume window is a box
 
 
 def test_build_without_device_raises_and_names_cuda():

@@ -60,6 +60,13 @@ def test_package_imports_with_jax_unimportable():
         assert tuple(img.shape) == (8, 8, 3)
         loss, grads = pkg.render_grad(scene, cam, img, device="cpu")
         assert loss.ndim == 0 and set(grads) == set(pkg.trainable_params(scene))
+        # the standard integrator: fast route, and the gather route under autograd
+        off = pkg.render_image(scene, cam, device="cpu", mega_mode="off")
+        assert float((off - img).abs().max()) < 2e-3
+        scene.textures.color.requires_grad_()
+        fb = pkg.render(scene, cam, device="cpu", differentiable=True)
+        fb.sum().backward()
+        assert float(scene.textures.color.grad.abs().max()) > 0
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "go_raytracing_tpu")]
         assert not bad, bad
         print("OK", len(names))
@@ -119,3 +126,19 @@ def test_chip_smoke_fails_without_a_gpu():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_standard_integrator_sources_are_part_of_the_package():
+    """The closest-hit kernels' source and wrapper module and the modules
+    of the standard integrator are among the files scanned and imported
+    above (which also renders through both of its routes with JAX
+    unimportable)."""
+    names = {str(p.relative_to(PORT)) for p in _sources()[:-1]}
+    assert {"csrc/intersect.cu", "ops/cuda_intersect.py",
+            "integrator/wavefront.py", "materials/tables.py",
+            "materials/textures.py", "geometry/packs.py"} <= names
+    text = (PORT / "csrc" / "intersect.cu").read_text()
+    for entry in ("planar_closest_launch", "sphere_closest_launch",
+                  "planar_closest_attrs_launch", "sphere_closest_attrs_launch"):
+        assert f'extern "C" int {entry}(' in text
+    assert "torch/extension.h" not in text and "cublas" not in text.lower()

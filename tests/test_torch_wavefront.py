@@ -122,14 +122,44 @@ def test_trace_gates():
     o, d, tm, ids = _rays(cam, 64, 0)
     assert twf.choose_mega_mode(ts, cam, 64, False) == "single"
     assert twf.choose_mega_mode(ts, cam, 64, True) == "off"
-    with pytest.raises(NotImplementedError, match="gather integrator"):
-        twf.trace(ts, cam, o, d, tm, ids, 0, differentiable=True)
-    outside = dataclasses.replace(ts, has_noise=True)
-    assert twf.choose_mega_mode(outside, cam, 64, False) == "off"
+    # differentiable=True and a scene outside the gate no longer raise: both
+    # go through the standard integrator and return what the JAX package's
+    # standard integrator returns for the same rays.  Nine lights (the one
+    # light nine times) are one more than the megakernel takes.
+    light_fields = ("light_q", "light_u", "light_v", "light_normal",
+                    "light_area", "light_mat")
+    many_lights = dataclasses.replace(
+        ts, **{k: getattr(ts, k).repeat((9,) + (1,) * (getattr(ts, k).ndim - 1))
+               for k in light_fields})
+    assert many_lights.n_lights == 9 and not cw.applicable(many_lights)
+    assert twf.choose_mega_mode(many_lights, cam, 64, False) == "off"
+
+    def to_j(v):
+        return grt.core.vec3.V3(*(jnp.asarray(c.numpy()) for c in v))
+
+    js, jcam = grt.load_scene("cornell")
+    js = dataclasses.replace(
+        js, **{k: jnp.asarray(getattr(many_lights, k).numpy()) for k in light_fields})
+    jcam = dataclasses.replace(jcam, image_width=8)
+    j_rows = np.stack([np.asarray(c) for c in grt.integrator.wavefront.trace(
+        js, jcam, to_j(o), to_j(d), jnp.asarray(tm.numpy()),
+        jnp.asarray(ids.numpy().astype(np.uint32)), 0, differentiable=True,
+        mega_mode="off")])
+    assert j_rows.sum() > 0
+    gather = twf.trace(many_lights, cam, o, d, tm, ids, 0, differentiable=True)
+    np.testing.assert_allclose(gather.rows().numpy().T, j_rows, rtol=1e-4, atol=1e-5)
+    outside = twf.trace(many_lights, cam, o, d, tm, ids, 0)
+    np.testing.assert_allclose(outside.rows().numpy().T, j_rows, rtol=1e-4, atol=1e-5)
+    # inside the gate the gather route gives the megakernel's radiance
+    torch.testing.assert_close(
+        twf.trace(ts, cam, o, d, tm, ids, 0, differentiable=True).rows(),
+        twf.trace(ts, cam, o, d, tm, ids, 0).rows(), rtol=1e-4, atol=1e-5)
     with pytest.raises(NotImplementedError):
-        twf.trace(outside, cam, o, d, tm, ids, 0)
-    with pytest.raises(NotImplementedError):
-        cw.trace_megakernel(outside, cam, o, d, tm, ids, 0)
+        cw.trace_megakernel(many_lights, cam, o, d, tm, ids, 0)
+    noise = dataclasses.replace(ts, has_noise=True)
+    assert twf.choose_mega_mode(noise, cam, 64, False) == "off"
+    with pytest.raises(NotImplementedError, match="A13"):
+        twf.trace(noise, cam, o, d, tm, ids, 0)
     # [R, 3] inputs are accepted and give the same radiance as V3 inputs
     r1 = twf.trace(ts, cam, o, d, tm, ids, 0)
     r2, stats = twf.trace(ts, cam, o.rows(), d.rows(), tm, ids, 0, with_stats=True)
