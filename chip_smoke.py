@@ -3,11 +3,11 @@
 
     python3 chip_smoke.py [--out-dir DIR]
 
-Needs one NVIDIA GPU and ``nvcc``.  It builds the nine CUDA kernels from
+Needs one NVIDIA GPU and ``nvcc``.  It builds the eleven CUDA kernels from
 the sources in this checkout (the forward megakernel, the stash-writing
 gradient forward and the reverse sweep of the product-chain tier, the
-same two of the pathwise tier, and the four closest-hit kernels of the
-standard integrator), holds each against its plain
+same two of the pathwise tier, the four closest-hit kernels of the
+standard integrator, and the two mesh kernels), holds each against its plain
 PyTorch version on the GPU, renders the Cornell box at full size (600x338,
 100 spp, depth 5) through the public entry points, checks the image, times
 the forward kernel at the render's own shapes beside its roofline bound,
@@ -23,7 +23,14 @@ against their plain versions, the Cornell job again through
 scene the megakernel cannot take (round and pyramid fog) on both of the
 integrator's routes, ``random`` with ``mega_mode="off"``, ``torch.autograd``
 through ``render(differentiable=True)`` held against ``render_grad``, and
-the four kernels alone.  The earlier phases run at the sizes they always
+the four kernels alone.  Then meshes: both mesh kernels against their plain
+versions (``mesh_kernels_vs_plain``), ``cornell-lucy`` at the JAX package's
+bench size (600x600, 25 spp, depth 5, 112,128 triangles x 10 instances)
+through ``render_image`` with a crop held against the plain versions on the
+CPU (``mesh_main_path``, ``mesh_stream``), the same at the scene's default
+3,744 triangles (``mesh_small_path``, ``mesh_sweep``), autograd through a
+mesh scene (``mesh_autograd``) and the two kernels alone
+(``mesh_kernel_timing``).  The earlier phases run at the sizes they always
 had.  It prints one JSON line per phase.
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -66,6 +73,12 @@ the JAX package's own test of the same pair; a ray whose branch flips on a
 last digit moves its pixel by more than that, so the share of pixel
 channels outside is printed and gated at 0.5 %.  Autograd's colour
 gradients are held against ``render_grad``'s at 2e-3 of the largest entry.
+
+The mesh kernels are held to equality too: hit, the bits of t, tri and inst
+(any-hit mode: hit) are the plain version's, or the ray counts as a mismatch
+(gate 0.5 %, 0.0 expected).  A mesh render's 32x32 crop at 1 spp, traced on
+the card and by the plain versions on the CPU, is held to rtol 1e-3 / atol
+2e-3 on the tonemapped pixels (gate 0.5 % of channels).
 """
 
 import argparse
@@ -85,6 +98,7 @@ from go_raytracing_tpu_torch.integrator import wavefront
 from go_raytracing_tpu_torch.core.vec3 import V3
 from go_raytracing_tpu_torch.ops import _build
 from go_raytracing_tpu_torch.ops import cuda_intersect as ck
+from go_raytracing_tpu_torch.ops import cuda_mesh as cm
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from go_raytracing_tpu_torch.render import grad as gradmod
 from go_raytracing_tpu_torch.render import renderer
@@ -123,6 +137,19 @@ FLOPS_REVERSE = 3 * 18
 FLOPS_REVERSE_PATHWISE = 120 + 100 + 60
 INT_OPS_REVERSE_PATHWISE = 4 * 30
 PEAK_INT32_OPS = PEAK_FP32_FLOPS / 2
+# Float32 operations of the mesh kernels (csrc/mesh.cu), per test:
+#   local ray, per (ray, instance): origin (18), direction (15), 1/d (9) = 42
+#   slab test of a box: per axis 2 sub, 2 mul, min, max, 2 clips (8) x 3
+#     and the compare                                                   = 25
+#   Moller-Trumbore: h (9), a (5), |a| test (2), f (2), s (3), u (6),
+#     q (9), v (6), t (6), accept tests (7)                             = 55
+#   Baldwin-Weber: den (5), num (6), |den| test (2), t (2), hit point (6),
+#     u (6), v (6), accept tests (6), tie compare (2)                   = 41
+# The box and triangle tests a chunk needs are counted by an instrumented
+# run of the plain version on a sample of its rays (``counts=``).
+FLOPS_MESH_LOCAL_RAY, FLOPS_BOX_TEST = 42, 25
+FLOPS_MOLLER_TRUMBORE, FLOPS_BALDWIN_WEBER = 55, 41
+MESH_RAYS_IN, MESH_BYTES_OUT = 7 * 4, 4 + 4 + 4 + 1
 
 
 def emit(phase, **fields):
@@ -1259,6 +1286,372 @@ def profile_standard_chunk(scene, cam):
         emit("standard_profile", error=repr(exc)[:300])
 
 
+# ---- instanced triangle meshes: cornell-lucy through the two mesh kernels ----
+
+MESH_KERNELS = {"mesh_sweep": "sweep", "mesh_stream": "stream"}
+
+
+def mesh_counts():
+    return {"mesh_sweep": cm.LAUNCHES_SWEEP, "mesh_stream": cm.LAUNCHES_STREAM}
+
+
+def reset_mesh_counts():
+    cm.LAUNCHES_SWEEP = cm.LAUNCHES_STREAM = 0
+
+
+def lucy_scene(detail, device, width=600, spp=25, depth=5):
+    """``cornell-lucy`` with ``mesh_detail=detail``, 10 instances, at the JAX
+    package's bench size (600x600, 25 spp, depth 5)."""
+    scene, cam = grt.load_scene("cornell-lucy", mesh_detail=detail, device=device)
+    return scene, dataclasses.replace(cam, image_width=width, aspect_ratio=1.0,
+                                      samples_per_pixel=spp, max_depth=depth)
+
+
+def lucy_chunk(scene, cam, device):
+    """The render's first chunk (as ``render`` sizes it): camera rays and
+    their stream ids."""
+    _, _, n_virt = renderer.ray_layout(cam.image_width, cam.image_height,
+                                       renderer.scene_tiled(scene))
+    chunk = min(renderer.pick_chunk_size(scene),
+                -(-n_virt * cam.samples_per_pixel // 1024) * 1024)
+    chunk = min(chunk // n_virt, cam.samples_per_pixel) * n_virt
+    cam2, o, d, tm, ids, _, _ = renderer._chunk_rays(
+        scene, cam, 0, 0, spp=cam.samples_per_pixel, chunk=chunk,
+        max_depth=cam.max_depth, device=device)
+    return cam2, o, d, tm, ids
+
+
+def mesh_mixed_rays(n, seed, device):
+    """Two thirds camera rays aimed at the ten statues (unnormalized
+    directions), a third from random points in the room in random
+    directions."""
+    from go_raytracing_tpu_torch.scenes.builders import LUCY_POSITIONS
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n_cam = 2 * n // 3
+    centres = torch.tensor([[p[0], 120.0, p[2]] for p, _ in LUCY_POSITIONS], device=device)
+    pick = torch.randint(0, len(LUCY_POSITIONS), (n_cam,), device=device, generator=gen)
+    spread = torch.tensor([70.0, 110.0, 45.0], device=device)
+    o_cam = torch.tensor([278.0, 278.0, -800.0], device=device) \
+        + torch.randn((n_cam, 3), device=device, generator=gen) * 5
+    d_cam = centres[pick] + torch.randn((n_cam, 3), device=device, generator=gen) * spread - o_cam
+    lo = torch.tensor([20.0, 1.0, 20.0], device=device)
+    hi = torch.tensor([535.0, 400.0, 535.0], device=device)
+    o_box = lo + torch.rand((n - n_cam, 3), device=device, generator=gen) * (hi - lo)
+    d_box = torch.randn((n - n_cam, 3), device=device, generator=gen)
+    o, d = torch.cat([o_cam, o_box]), torch.cat([d_cam, d_box])
+    return (V3(*(o[:, i].contiguous() for i in range(3))),
+            V3(*(d[:, i].contiguous() for i in range(3))))
+
+
+def mesh_chunk_rays(scene, cam, n, seed, device):
+    """``n`` rays drawn from the render's first chunk: half camera rays, half
+    the first-bounce rays that leave their hits (the standard integrator's
+    bounce 0 on the whole chunk)."""
+    cam2, o, d, tm, ids = lucy_chunk(scene, cam, device)
+    r = tm.shape[0]
+    state = wavefront.PathState(
+        o, d, V3.full((r,), (1.0, 1.0, 1.0), device=device), V3.zeros((r,), device=device),
+        torch.ones(r, dtype=torch.bool, device=device),
+        torch.ones(r, dtype=torch.bool, device=device),
+        V3.zeros((r,), device=device), V3.zeros((r,), device=device),
+        torch.zeros(r, dtype=torch.bool, device=device),
+        torch.zeros(r, dtype=torch.bool, device=device))
+    with torch.no_grad():
+        nxt, _ = wavefront.bounce_step(scene, cam2, state, tm, ids, 0, 0, fast=False)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    cam_pick = torch.randint(0, r, (n // 2,), device=device, generator=gen)
+    alive = torch.nonzero(nxt.alive).squeeze(1)
+    bounce_pick = alive[torch.randint(0, alive.numel(), (n - n // 2,), device=device,
+                                      generator=gen)]
+    o_ = V3(*(torch.cat([a[cam_pick], b[bounce_pick]]).contiguous()
+              for a, b in zip(o, nxt.o)))
+    d_ = V3(*(torch.cat([a[cam_pick], b[bounce_pick]]).contiguous()
+              for a, b in zip(d, nxt.d)))
+    return o_, d_
+
+
+def mesh_mismatch(k, p, any_hit):
+    """Shares of rays on which hit, tri, inst and the bits of t differ, and
+    the largest |t difference| on rays that hit in both (any-hit mode: hit
+    only)."""
+    both = k[3] & p[3]
+    out = {"hit": float((k[3] != p[3]).float().mean())}
+    if not any_hit:
+        out.update(tri=float((k[1] != p[1]).float().mean()),
+                   inst=float((k[2] != p[2]).float().mean()),
+                   t_bits=float((k[0].view(torch.int32) != p[0].view(torch.int32))
+                                .float().mean()))
+        out["max_abs_dt"] = (float((k[0] - p[0]).abs()[both].max())
+                             if bool(both.any()) else 0.0)
+    out["any"] = max(v for key, v in out.items() if key != "max_abs_dt")
+    return out
+
+
+def compare_mesh(name, proto, kernel, rays, rays_name):
+    """One kernel against its plain version on one set of rays, closest-hit
+    and any-hit, with t_max BIG, cut at a random 0.5 to 1.5 of the hit
+    distance, and -1 on a third of the rays.  Returns (worst mismatch
+    share, worst |dt|)."""
+    o, d = rays
+    kind = MESH_KERNELS[kernel]
+    fn = cm.intersect_mesh_kernel if kind == "sweep" else cm.intersect_mesh_stream
+    n = o.x.shape[0]
+    big = torch.full((n,), ck.BIG, device=o.x.device)
+    t0, _, _, h0, _ = fn(proto, o, d, cw.EPS_HIT, big)
+    gen = torch.Generator(device=o.x.device).manual_seed(13)
+    scale = 0.5 + torch.rand(n, device=o.x.device, generator=gen)
+    third = torch.arange(n, device=o.x.device) % 3 == 0
+    kinds = {"big": big, "cut": torch.where(h0, t0 * scale, big),
+             "minus_one_on_a_third": torch.where(third, -1.0, big)}
+    fields, worst, worst_dt = {}, 0.0, 0.0
+    for any_hit in (False, True):
+        for tname, t_max in kinds.items():
+            k = fn(proto, o, d, cw.EPS_HIT, t_max, any_hit=any_hit)
+            torch.cuda.synchronize()
+            p_ms, p = cuda_ms(lambda: cm.plain(kind, proto, o, d, cw.EPS_HIT, t_max,
+                                               any_hit=any_hit))
+            mm = mesh_mismatch(k, p, any_hit)
+            if tname == "minus_one_on_a_third" and bool(k[3][third].any()):
+                raise RuntimeError(f"{name}: {kernel} hit on a ray with t_max = -1")
+            if k[4] != 0 or not torch.isfinite(k[0]).all():
+                raise RuntimeError(f"{name}: {kernel} overflow {k[4]} or t not finite")
+            fields[f"{'any' if any_hit else 'closest'}_{tname}"] = dict(
+                mm, hit_share=float(k[3].float().mean()), plain_ms=p_ms)
+            worst = max(worst, mm["any"])
+            worst_dt = max(worst_dt, mm.get("max_abs_dt", 0.0))
+    emit("mesh_kernels_vs_plain", kernel=kernel, mesh=name, rays=rays_name,
+         n_rays=n, triangles=proto.n_tris, instances=proto.n_instances, **fields)
+    if worst >= MAX_MISMATCH_SHARE:
+        raise RuntimeError(f"{name}: {kernel} differs from its plain version on "
+                           f"{worst:.4%} of rays ({rays_name})")
+    return worst, worst_dt
+
+
+def crop_rays(cam, x0, y0, size, seed, device):
+    """Camera rays of sample 0 of the pixels [x0, x0 + size) x [y0, y0 + size)
+    with the stream ids the full render gives them (tiled layout)."""
+    tiles_x = -(-cam.image_width // renderer.BUCKET)
+    ys, xs = torch.meshgrid(torch.arange(y0, y0 + size, device=device),
+                            torch.arange(x0, x0 + size, device=device), indexing="ij")
+    px, py = xs.reshape(-1), ys.reshape(-1)
+    tile = (py // renderer.BUCKET) * tiles_x + px // renderer.BUCKET
+    ids = tile * renderer.BUCKET ** 2 + (py % renderer.BUCKET) * renderer.BUCKET \
+        + px % renderer.BUCKET
+    o, d, tm = generate_rays(cam, px, py, ids, seed)
+    return o, d, tm, ids
+
+
+def mesh_crop_check(scene, cpu_scene, cam, name, x0=284, y0=405, size=32):
+    """A 32x32-pixel crop at 1 spp traced on the card (the kernels) and on
+    the CPU (the plain versions), same rays and streams: the share of
+    tonemapped pixel channels outside rtol 1e-3 / atol 2e-3."""
+    imgs = []
+    for sc in (scene, cpu_scene):
+        o, d, tm, ids = crop_rays(cam, x0, y0, size, 0, sc.device)
+        rad = wavefront.trace(sc, cam, o, d, tm, ids, 0)
+        imgs.append(grt.film.tonemap(rad.rows().reshape(size, size, 3), 1).cpu())
+        if not imgs[1:]:
+            hit = wavefront._mesh_intersect(sc.meshes[0], o, d, cw.EPS_HIT,
+                                            torch.full_like(tm, ck.BIG))[3]
+            mesh_share = float(hit.float().mean())
+    share = image_share_outside(imgs[0], imgs[1])
+    return dict(crop=[x0, y0, size], crop_mesh_hit_share=mesh_share,
+                crop_share_outside_tolerance=share,
+                crop_max_abs_diff=float((imgs[0] - imgs[1]).abs().max()),
+                crop_mean=float(imgs[0].mean())), share
+
+
+def mesh_main_path(phase, detail, kernel, device, rounds=3):
+    """``cornell-lucy`` at ``mesh_detail=detail`` through ``render_image`` on
+    the card (the standard integrator's gather route): median of ``rounds``
+    renders after a warm-up, the launches of the last, and the crop against
+    the plain versions on the CPU.  Returns (launches, chunks, scene, cam)."""
+    scene, cam = lucy_scene(detail, device)
+    proto = scene.meshes[0]
+    n_rays = cam.image_width * cam.image_height * cam.samples_per_pixel
+    grt.render_image(scene, cam, seed=0, device=device)  # warm-up
+    taken = []
+    for _ in range(rounds):
+        stats = grt.RenderStats()
+        reset_mesh_counts()
+        reset_intersect_counts()
+        cw.LAUNCHES = 0
+        ms, img = cuda_ms(lambda: grt.render_image(scene, cam, seed=0, stats=stats,
+                                                   device=device))
+        counts, ix = mesh_counts(), intersect_counts()
+        taken.append(ms)
+    ms = median(taken)
+    mean = float(img.mean())
+    cpu_scene, _ = lucy_scene(detail, "cpu")
+    crop, share = mesh_crop_check(scene, cpu_scene, cam, phase)
+    emit(phase, scene="cornell-lucy", mesh_detail=list(detail),
+         triangles=proto.n_tris, instances=proto.n_instances, kernel=kernel,
+         width=cam.image_width, height=cam.image_height, spp=cam.samples_per_pixel,
+         depth=cam.max_depth, camera_rays=n_rays, chunks=stats.chunks,
+         launches=counts, closest_hit_launches=ix, megakernel_launches=cw.LAUNCHES,
+         mesh_overflow=stats.mesh_overflow, render_ms_rounds=taken,
+         render_ms_median=ms, camera_mrays_per_s=n_rays / (ms * 1e-3) / 1e6,
+         image_mean=mean, image_finite=bool(torch.isfinite(img).all()), **crop)
+    other = "mesh_stream" if kernel == "mesh_sweep" else "mesh_sweep"
+    if counts[kernel] < 1 or counts[other] != 0 or cw.LAUNCHES != 0:
+        raise RuntimeError(f"{phase}: launches {counts}, megakernel {cw.LAUNCHES}")
+    if stats.mesh_overflow != 0:
+        raise RuntimeError(f"{phase}: mesh_overflow {stats.mesh_overflow}")
+    if not torch.isfinite(img).all() or not mean > 0.01:
+        raise RuntimeError(f"{phase}: image mean {mean}")
+    if crop["crop_mesh_hit_share"] < 0.1:
+        raise RuntimeError(f"{phase}: the crop shows too little of a statue")
+    if share >= MAX_PIXEL_SHARE_OUTSIDE:
+        raise RuntimeError(f"{phase}: {share:.4%} of the crop's pixel channels differ "
+                           "from the plain versions' on the CPU")
+    return counts[kernel], stats.chunks, scene, cam
+
+
+def mesh_autograd(device):
+    """``torch.autograd`` through ``render(differentiable=True)`` on
+    ``cornell-lucy`` (48, 40) at 64x64, 4 spp, depth 3: the statue's colour
+    gets a finite, non-zero gradient, and no gradient is NaN."""
+    scene, cam = lucy_scene((48, 40), device, width=64, spp=4, depth=3)
+    params = {k: v.clone().requires_grad_()
+              for k, v in grt.trainable_params(scene).items()}
+    reset_mesh_counts()
+    target = torch.full((64, 64, 3), 0.3, device=device)
+
+    def run():
+        fb = grt.render(grt.apply_params(scene, params), cam, seed=0,
+                        differentiable=True, device=device)
+        loss = torch.mean((fb / cam.samples_per_pixel - target) ** 2)
+        loss.backward()
+        return loss.detach()
+
+    ms, loss = cuda_ms(run)
+    statue_tex = int(scene.materials.tex[int(scene.meshes[0].inst_mat[0])])
+    g = params["color"].grad[statue_tex]
+    finite = all(bool(torch.isfinite(p.grad).all()) for p in params.values()
+                 if p.grad is not None)
+    emit("mesh_autograd", scene="cornell-lucy", mesh_detail=[48, 40], width=64,
+         height=64, spp=4, depth=3, launches=mesh_counts(), forward_backward_ms=ms,
+         loss=float(loss), statue_texture=statue_tex, statue_color_grad=g.tolist(),
+         all_gradients_finite=finite)
+    if not finite or not bool((g.abs() > 0).all()) or cm.LAUNCHES_SWEEP < 1:
+        raise RuntimeError(f"mesh autograd: statue colour gradient {g.tolist()}, "
+                           f"finite {finite}, launches {mesh_counts()}")
+
+
+def sorted_like_the_integrator(proto, o, d):
+    """The chunk's rays as ``_mesh_intersect`` hands them to a kernel at
+    the first bounce: unreaching rays with t_max = -1, sorted by the key."""
+    big = torch.full_like(o.x, ck.BIG)
+    reach, key = wavefront._mesh_sort_key(proto, o, d, cw.EPS_HIT, big)
+    t_max = torch.where(reach, big, -1.0)
+    order = torch.argsort(key, stable=True)
+    return (V3(*(c[order].contiguous() for c in o)),
+            V3(*(c[order].contiguous() for c in d)), t_max[order].contiguous(),
+            float(reach.float().mean()))
+
+
+def mesh_kernel_timing(cases, checks):
+    """Each mesh kernel alone at its main path's first-bounce chunk (camera
+    rays, sorted and filtered as the integrator does), beside its bound, and
+    its plain version's time on 16,384 of those rays.  ``cases``: kernel ->
+    (scene, cam, launches per render, renders' chunks).  Returns the
+    kernels' entries of the ``kernels`` line."""
+    entries = []
+    for kernel, (scene, cam, launches, chunks) in cases.items():
+        kind = MESH_KERNELS[kernel]
+        proto = scene.meshes[0]
+        fn = cm.intersect_mesh_kernel if kind == "sweep" else cm.intersect_mesh_stream
+        o_dev = scene.device
+        _, o, d, _, _ = lucy_chunk(scene, cam, o_dev)
+        o, d, t_max, reach = sorted_like_the_integrator(proto, o, d)
+        n = t_max.shape[0]
+        fn(proto, o, d, cw.EPS_HIT, t_max)
+        rounds, k = rounds_ms(lambda: fn(proto, o, d, cw.EPS_HIT, t_max), rounds=3,
+                              repeats=3)
+        ms = median(rounds)
+        # a sample of 16,384 of the chunk's rays: the plain version's time,
+        # its box and triangle tests (scaled to the chunk), and one more
+        # comparison
+        gen = torch.Generator(device=o_dev).manual_seed(21)
+        pick = torch.randint(0, n, (16384,), device=o_dev, generator=gen)
+        so, sd = V3(*(c[pick] for c in o)), V3(*(c[pick] for c in d))
+        counts = {}
+        plain_ms, p = cuda_ms(lambda: cm.plain(kind, proto, so, sd, cw.EPS_HIT,
+                                               t_max[pick], counts=counts))
+        mm = mesh_mismatch(tuple(a[pick] if torch.is_tensor(a) else a for a in k), p,
+                           False)
+        scale = n / 16384
+        tri_flops = FLOPS_MOLLER_TRUMBORE if kind == "sweep" else FLOPS_BALDWIN_WEBER
+        flops = (n * proto.n_instances * FLOPS_MESH_LOCAL_RAY
+                 + scale * counts.get("box_tests", 0) * FLOPS_BOX_TEST
+                 + scale * counts.get("tri_tests", 0) * tri_flops)
+        tables = ((proto.k_tri, proto.k_leafbox, proto.k_subtilebox, proto.k_tilebox,
+                   proto.k_coarsebox) if kind == "sweep" else (proto.s_tri, proto.s_tilebox))
+        table_bytes = sum(t.numel() * 4 for t in tables) + proto.inst_w2l.numel() * 4
+        moved = n * (MESH_RAYS_IN + MESH_BYTES_OUT) + table_bytes
+        bound = (moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3)
+        emit("mesh_kernel_timing", kernel=kernel, triangles=proto.n_tris,
+             instances=proto.n_instances, rays_per_launch=n, reach_share=reach,
+             hit_share=float(k[3].float().mean()), ms=ms, ms_rounds=rounds,
+             launches_per_render=launches, render_chunks=chunks,
+             plain_ms=plain_ms, plain_rays=16384,
+             plain_note="the plain version timed on 16,384 of the chunk's rays",
+             box_tests_per_ray=counts.get("box_tests", 0) / 16384,
+             tri_tests_per_ray=counts.get("tri_tests", 0) / 16384,
+             counted="box and triangle tests of the plain version on 16,384 of the "
+                     "chunk's rays, scaled to the chunk; x 25 / 55 (sweep) or 41 "
+                     "(stream) operations, + 42 a (ray, instance) local ray",
+             bytes_counted=moved, table_bytes=table_bytes, flops_counted=flops,
+             bound_bytes_ms=bound[0], bound_ops_ms=bound[1],
+             roofline_share=max(bound) / ms, sample_mismatch=mm)
+        if mm["any"] >= MAX_MISMATCH_SHARE:
+            raise RuntimeError(f"{kernel}: the chunk's sample differs from the plain "
+                               f"version on {mm['any']:.4%} of rays")
+        line = ("312 (_call of intersect_mesh_kernel)" if kind == "sweep"
+                else "791 (_call of intersect_mesh_stream)")
+        src = "pallas_mesh.py" if kind == "sweep" else "pallas_mesh_stream.py"
+        small = checks[kernel]
+        entries.append(kernel_entry(
+            n, kernel, "go_raytracing_tpu_torch/csrc/mesh.cu",
+            f"go_raytracing_tpu/ops/{src}:{line}", launches, ms, plain_ms, bound,
+            [mm.get("max_abs_dt", 0.0)] + [c[1] for c in small]) | {
+                "mismatch_share": max([mm["any"]] + [c[0] for c in small]),
+                "plain_rays": 16384, "triangles": proto.n_tris,
+                "instances": proto.n_instances, "scene": "cornell-lucy"})
+        del o, d, t_max, k, p
+    return entries
+
+
+def mesh_phases(dev):
+    """Every mesh phase: both kernels against their plain versions, the
+    main path (112,128 triangles x 10, mesh_stream), the small path (3,744 x
+    10, mesh_sweep), autograd, and the two kernels alone.  Returns their
+    entries of the ``kernels`` line."""
+    main_scene, main_cam = lucy_scene((256, 220), dev)
+    small_scene, small_cam = lucy_scene((48, 40), dev)
+    checks = {}
+    for kernel, scene, cam in (("mesh_sweep", small_scene, small_cam),
+                               ("mesh_stream", main_scene, main_cam)):
+        proto = scene.meshes[0]
+        checks[kernel] = [
+            compare_mesh("lucy_%d" % proto.n_tris, proto, kernel,
+                         mesh_mixed_rays(16384, 17, dev), "mixed"),
+            compare_mesh("lucy_%d" % proto.n_tris, proto, kernel,
+                         mesh_chunk_rays(scene, cam, 16384, 19, dev),
+                         "chunk_camera_and_first_bounce")]
+    del main_scene, small_scene
+    stream_launches, stream_chunks, main_scene, main_cam = mesh_main_path(
+        "mesh_main_path", (256, 220), "mesh_stream", dev)
+    sweep_launches, sweep_chunks, small_scene, small_cam = mesh_main_path(
+        "mesh_small_path", (48, 40), "mesh_sweep", dev)
+    mesh_autograd(dev)
+    return mesh_kernel_timing(
+        {"mesh_sweep": (small_scene, small_cam, sweep_launches, sweep_chunks),
+         "mesh_stream": (main_scene, main_cam, stream_launches, stream_chunks)},
+        checks)
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out-dir", default=str(_build.BUILD_DIR),
@@ -1280,9 +1673,9 @@ def main():
 
     # ---- build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    built, built_fma, built_grad, built_pw, built_ix = _build.load_all(
+    built, built_fma, built_grad, built_pw, built_ix, built_mesh = _build.load_all(
         [("wavefront", False), ("wavefront", True), ("wavefront_grad", False),
-         ("wavefront_grad_pathwise", False), ("intersect", False)])
+         ("wavefront_grad_pathwise", False), ("intersect", False), ("mesh", False)])
 
     def kernel_stats(lib, tag):
         (stats,) = [v for name, v in lib.kernels.items() if tag in name]
@@ -1302,13 +1695,22 @@ def main():
         ("planar_closest_attrs", "planar_kernelILb1E"),
         ("sphere_closest", "sphere_kernelILb0E"),
         ("sphere_closest_attrs", "sphere_kernelILb1E"))}
-    emit("build", seconds=time.perf_counter() - t0, kernels=9,
-         nvcc_seconds=[b.build_seconds
-                       for b in (built, built_fma, built_grad, built_pw, built_ix)],
+    # mesh_sweep_kernel<false> / <true> and mesh_stream_kernel<false> / <true>:
+    # closest hit and any hit
+    mesh_stats = {name: kernel_stats(built_mesh, tag) for name, tag in (
+        ("mesh_sweep", "mesh_sweep_kernelILb0E"),
+        ("mesh_sweep_any_hit", "mesh_sweep_kernelILb1E"),
+        ("mesh_stream", "mesh_stream_kernelILb0E"),
+        ("mesh_stream_any_hit", "mesh_stream_kernelILb1E"))}
+    emit("build", seconds=time.perf_counter() - t0, kernels=11,
+         nvcc_seconds=[b.build_seconds for b in (built, built_fma, built_grad, built_pw,
+                                                 built_ix, built_mesh)],
          libraries=[built.path.name, built_grad.path.name, built_pw.path.name,
-                    built_ix.path.name],
+                    built_ix.path.name, built_mesh.path.name],
          intersect_registers={k: v[0] for k, v in ix_stats.items()},
          intersect_spill_bytes={k: v[1] for k, v in ix_stats.items()},
+         mesh_registers={k: v[0] for k, v in mesh_stats.items()},
+         mesh_spill_bytes={k: v[1] for k, v in mesh_stats.items()},
          registers=fwd_regs, spill_bytes=fwd_spill,
          registers_with_fma=kernel_stats(built_fma, "wavefront_kernelILi0E")[0],
          grad_fwd_registers=gfwd_regs, grad_fwd_spill_bytes=gfwd_spill,
@@ -1317,7 +1719,7 @@ def main():
          grad_fwd_pathwise_spill_bytes=pfwd_spill,
          grad_rev_pathwise_registers=prev_regs,
          grad_rev_pathwise_spill_bytes=prev_spill,
-         ptxas=[l for b in (built, built_grad, built_pw, built_ix)
+         ptxas=[l for b in (built, built_grad, built_pw, built_ix, built_mesh)
                 for l in b.log.splitlines()
                 if "ptxas info" in l and ("Used" in l or "spill" in l)])
 
@@ -1514,6 +1916,9 @@ def main():
               "bounces and shadow launches sweep fewer rays")
     profile_standard_chunk(scene, cam)
 
+    # ---- instanced meshes: cornell-lucy through mesh_sweep and mesh_stream ------
+    mesh_entries = mesh_phases(dev)
+
     print(json.dumps({"kernels": [{
         "name": "wavefront_fwd",
         "route": "cuda",
@@ -1530,7 +1935,7 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "library_ms": None,
-    }, *grad_entries, *pw_entries, *ix_entries]}), flush=True)
+    }, *grad_entries, *pw_entries, *ix_entries, *mesh_entries]}), flush=True)
     print(name_and_limit, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

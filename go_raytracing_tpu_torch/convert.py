@@ -8,8 +8,9 @@ imported here.  With this the tests feed both packages the same scene.
 Expected tree: a dict with the ``Scene`` field names.  ``spheres``,
 ``planar``, ``volumes``, ``materials`` and ``textures`` are dicts of the
 pack's field names; ``light_*`` are arrays; ``has_noise``, ``has_image``,
-``has_checker`` and ``env_importance`` are bools.  ``env`` must be None
-and ``meshes`` empty: neither is ported yet.
+``has_checker`` and ``env_importance`` are bools.  ``meshes`` is a list of
+dicts of the ``MeshProto`` field names (``geometry/mesh_bvh.proto_from_numpy``).
+``env`` must be None: environments are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from .camera import Camera
-from .geometry import packs
+from .geometry import mesh_bvh, packs
 from .geometry.scene import Scene
 from .materials import tables as mats
 from .materials import textures as tex
@@ -51,9 +52,6 @@ def scene_from_numpy(tree: dict, device=None) -> Scene:
     if tree.get("env") is not None:
         raise NotImplementedError(
             "HDRI environments are not ported yet (ROADMAP.md A15)")
-    if tree.get("meshes"):
-        raise NotImplementedError(
-            "triangle meshes are not ported yet (ROADMAP.md A17)")
 
     def arr(name, dtype):
         return torch.from_numpy(
@@ -71,6 +69,8 @@ def scene_from_numpy(tree: dict, device=None) -> Scene:
         light_normal=arr("light_normal", np.float32),
         light_area=arr("light_area", np.float32),
         light_mat=arr("light_mat", np.int32),
+        meshes=tuple(mesh_bvh.proto_from_numpy(m, dev)
+                     for m in tree.get("meshes", ())),
         has_noise=bool(tree.get("has_noise", False)),
         has_image=bool(tree.get("has_image", False)),
         has_checker=bool(tree.get("has_checker", False)),

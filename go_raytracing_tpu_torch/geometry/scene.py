@@ -19,7 +19,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import packs
+from . import mesh_bvh, packs
 from ..materials import tables as mats
 from ..materials import textures as tex
 from ..utils.device import resolve_device
@@ -108,9 +108,10 @@ class Scene:
     light_normal: torch.Tensor  # [L, 3]
     light_area: torch.Tensor    # [L]
     light_mat: torch.Tensor     # [L] i32
-    # HDRI environment and instanced meshes: not ported yet, always empty
-    # (ROADMAP.md A15, A17); the fields keep the scene's shape stable.
+    # HDRI environment: not ported yet, always None (ROADMAP.md A15); the
+    # field keeps the scene's shape stable.
     env: None = None
+    # Instanced triangle meshes: one mesh_bvh.MeshProto per prototype
     meshes: tuple = ()
     # --- static metadata ---
     has_noise: bool = False
@@ -146,6 +147,8 @@ class SceneBuilder:
         self._mat: list = []       # (kind, tex, fuzz, ior)
         self._tex: list = []       # dict per texture
         self._lights: list = []    # planar indices
+        self._protos: list = []    # (verts [V,3] f64, tris [T,3] i64)
+        self._instances: list = []  # (proto id, local->world 4x4, mat)
         self._env_importance = True
 
     # --- textures ---------------------------------------------------------
@@ -307,13 +310,16 @@ class SceneBuilder:
         return out
 
     def mesh(self, verts, tris) -> int:
-        raise NotImplementedError(
-            "triangle meshes are not ported yet (ROADMAP.md A17)")
+        """Register a triangle-mesh prototype (one BVH, shared by its
+        instances); returns its id."""
+        self._protos.append((np.asarray(verts, np.float64), np.asarray(tris, np.int64)))
+        return len(self._protos) - 1
 
     def mesh_instance(self, proto_id: int, mat: int,
                       transform: Optional[Affine] = None):
-        raise NotImplementedError(
-            "triangle meshes are not ported yet (ROADMAP.md A17)")
+        """Instance a prototype with a local->world transform."""
+        l2w = np.eye(4) if transform is None else transform.m
+        self._instances.append((proto_id, l2w, mat))
 
     def volume_box(self, a, b, density, color_or_tex,
                    transform: Optional[Affine] = None) -> int:
@@ -472,6 +478,13 @@ class SceneBuilder:
             la[i] = np.linalg.norm(np.cross(u, v))
             lm[i] = m
 
+        # A prototype without instances is left out, as in the JAX package.
+        meshes = []
+        for pid, (verts, tris) in enumerate(self._protos):
+            insts = [(l2w, m) for p, l2w, m in self._instances if p == pid]
+            if insts:
+                meshes.append(mesh_bvh.build_proto(verts, tris, insts, dev))
+
         return Scene(
             spheres=spheres,
             planar=planar,
@@ -484,6 +497,7 @@ class SceneBuilder:
             light_normal=dv(ln, f32),
             light_area=dv(la, f32),
             light_mat=dv(lm, i32),
+            meshes=tuple(meshes),
             has_checker=bool((kind == tex.TEX_CHECKER).any()),
             env_importance=self._env_importance,
         )

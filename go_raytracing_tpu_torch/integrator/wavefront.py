@@ -6,8 +6,9 @@ Two ways through ``trace``:
   kernel of ``ops/cuda_wavefront``, for scenes inside its gate;
 * the standard integrator (``mega_mode="off"``): a Python loop over
   bounces, each bounce a closest-hit sweep through the kernels of
-  ``ops/cuda_intersect`` and plain tensor code for everything else.  It
-  serves every scene the megakernel does not take (round or polyhedral
+  ``ops/cuda_intersect`` (and, for instanced triangle meshes, of
+  ``ops/cuda_mesh``) and plain tensor code for everything else.  It serves
+  every scene the megakernel does not take (meshes, round or polyhedral
   fog, more than 1,024 primitives, more than 8 lights) and
   ``differentiable=True``.
 
@@ -18,20 +19,27 @@ recorded escape direction and throughput.
 The standard integrator has two routes of its own.  ``differentiable=False``
 takes the *fast route*: the attribute kernels return the winner's geometry
 and material constants with the hit, so no table is indexed per ray.
-``differentiable=True`` takes the *gather route*: the kernels return only
-(t, index), the hit record is rebuilt by indexing the scene's tables, and
-``torch.autograd`` flows through records, materials and textures.
+``differentiable=True``, and every scene with a mesh, takes the *gather
+route*: the kernels return only (t, index), the hit record is rebuilt by
+indexing the scene's tables, and ``torch.autograd`` flows through records,
+materials and textures.
 
-Per bounce: closest hit over spheres and planar primitives, then stochastic
-volume scattering may preempt the surface hit; a miss records direction and
-throughput for the deferred miss shader; emission counts iff the
+A mesh's closest hit goes through one of two kernels by the prototype's
+size (``_mesh_intersect``): a reach test per instance root box first sends
+the rays that can meet no instance in with ``t_max = -1``, and a batch of
+at least ``_MESH_SORT_MIN`` rays is sorted by a coherence key and put back
+in its order afterwards, bit for bit as if unsorted.
+
+Per bounce: closest hit over spheres, planar primitives and meshes, then
+stochastic volume scattering may preempt the surface hit; a miss records
+direction and throughput for the deferred miss shader; emission counts iff the
 allowLightHits bit is set; a lambertian hit samples one uniformly picked
 quad light (NEE) with a shadow ray, balance-heuristic MIS, x numLights and
 the firefly clamp at 20; scatter, and continue with allowLightHits = not
 (NEE was sampled this bounce).
 
-Not ported yet, each raising ``NotImplementedError``: meshes (ROADMAP.md
-A17), recording and replaying decisions (A18), environments and
+Not ported yet, each raising ``NotImplementedError``: recording and
+replaying decisions (ROADMAP.md A18, the replay tier), environments and
 ``sample_hdri_light`` (A15), noise (A13) and image textures (A16), and the
 megakernel modes 'split' / 'compact' (B11) and 'image' (A16).
 """
@@ -52,6 +60,7 @@ from ..geometry.scene import Scene
 from ..materials import tables as mats
 from ..materials import textures as tex
 from ..ops import cuda_intersect as ck
+from ..ops import cuda_mesh as cm
 from ..ops import cuda_wavefront as mega
 
 FIREFLY_CLAMP = 20.0
@@ -61,6 +70,7 @@ HIT_NONE = 0
 HIT_SPHERE = 1
 HIT_PLANAR = 2
 HIT_VOLUME = 3
+HIT_MESH_BASE = 4  # + mesh prototype index
 
 # Extra RNG purpose bases (see core/rng.py for the primary enumeration).
 PURPOSE_VOL_MAIN = 64      # + 32 * volume_index
@@ -107,6 +117,99 @@ def sweep_tables(scene: Scene, with_consts: bool = False) -> SweepTables:
     )
 
 
+# Sort the rays before a mesh sweep once a batch is large enough for the
+# coherence of a warp's rays to matter; smaller batches go in as they are.
+_MESH_SORT_MIN = 1 << 16
+
+_KEY_DEAD = 1 << 30
+# Sort-key quantization: entry-point cells per axis on the instance's local
+# root box, direction levels per axis.
+_KEY_CELLS = 8
+_KEY_DIRL = 8
+
+
+def _mesh_sort_key(proto, o: V3, d: V3, t_min, t_max):
+    """Reach test and ray-sort key in one pass.
+
+    Per instance, a local-space slab test of the root box (padded by 1e-3)
+    finds where the ray segment enters that instance.  ``reach`` is true if
+    any instance is entered; the key groups rays by (nearest entered
+    instance, local direction on 8 levels an axis, entry cell on an 8^3 grid
+    of the local root box), so that the rays of a warp enter the same
+    instance in the same region heading the same way.  Dead and unreaching
+    lanes get the largest key.  The same arithmetic as the JAX package's, in
+    float32."""
+    w2l = proto.inst_w2l.tolist()
+    lo, hi = proto.root_bbox_min, proto.root_bbox_max
+    eps = 1e-3
+    ext = torch.clamp_min(hi - lo, 1e-6)
+    nc, nd_ = _KEY_CELLS, _KEY_DIRL
+    best_t = torch.full_like(t_max, BIG)
+    best_key = torch.full(o.x.shape, _KEY_DEAD - 1, dtype=torch.int32,
+                          device=o.x.device)
+    for ii in range(len(w2l)):
+        olc, dlc = [], []
+        t_en = torch.full_like(t_max, t_min)
+        t_ex = torch.clamp_max(t_max, BIG)
+        for i in range(3):
+            m0, m1, m2, m3 = w2l[ii][i]
+            ol = m0 * o.x + m1 * o.y + m2 * o.z + m3
+            dl = m0 * d.x + m1 * d.y + m2 * d.z
+            olc.append(ol)
+            dlc.append(dl)
+            inv = 1.0 / torch.where(torch.abs(dl) < 1e-12,
+                                    torch.where(dl < 0, -1e-12, 1e-12), dl)
+            ta = (lo[i] - eps - ol) * inv
+            tb = (hi[i] + eps - ol) * inv
+            t_en = torch.maximum(t_en, torch.minimum(ta, tb))
+            t_ex = torch.minimum(t_ex, torch.maximum(ta, tb))
+        better = (t_ex >= t_en) & (t_en < best_t)
+        dn = torch.rsqrt(dlc[0] * dlc[0] + dlc[1] * dlc[1] + dlc[2] * dlc[2] + 1e-30)
+        cell = torch.zeros_like(best_key)
+        dirq = torch.zeros_like(best_key)
+        for i in range(3):
+            p = olc[i] + dlc[i] * t_en
+            q = torch.clamp(torch.floor((p - lo[i]) * (nc / ext[i])).to(torch.int32),
+                            0, nc - 1)
+            cell = cell * nc + q
+            dq = torch.clamp(torch.floor((dlc[i] * dn + 1.0) * (nd_ / 2.0)).to(torch.int32),
+                             0, nd_ - 1)
+            dirq = dirq * nd_ + dq
+        key_i = ((ii * nd_ ** 3 + dirq) * nc ** 3 + cell).to(torch.int32)
+        best_t = torch.where(better, t_en, best_t)
+        best_key = torch.where(better, key_i, best_key)
+    reach = best_t < BIG
+    key = torch.where(reach & (t_max > 0), best_key, _KEY_DEAD)
+    return reach, key
+
+
+def _mesh_intersect(proto, o: V3, d: V3, t_min, t_max, any_hit=False):
+    """Closest (or any) hit over one prototype's instances: the small-mesh
+    ladder for a prototype of at most ``cuda_mesh.MAX_KERNEL_TRIS``
+    triangles, the tile stream above.  Rays that reach no instance go in
+    with ``t_max = -1``; a batch of ``_MESH_SORT_MIN`` rays or more is sorted
+    by ``_mesh_sort_key`` and put back by the inverse permutation, so each
+    ray's result is the one the unsorted sweep gives.  Returns (t, tri,
+    inst, hit, overflow (always 0)); nothing carries a gradient."""
+    kern = (cm.intersect_mesh_kernel if cm.kernel_ok(proto)
+            else cm.intersect_mesh_stream)
+    with torch.no_grad():
+        o = V3(*(c.detach() for c in o))
+        d = V3(*(c.detach() for c in d))
+        t_max = torch.as_tensor(t_max, dtype=torch.float32,
+                                device=o.x.device).detach().expand(o.x.shape)
+        reach, key = _mesh_sort_key(proto, o, d, t_min, t_max)
+        t_max = torch.where(reach, t_max, -1.0)
+        if o.x.shape[0] < _MESH_SORT_MIN:
+            return kern(proto, o, d, t_min, t_max, any_hit=any_hit)
+        order = torch.argsort(key, stable=True)
+        t, tri, inst, hit, ovf = kern(proto, o.take(order), d.take(order), t_min,
+                                      t_max[order], any_hit=any_hit)
+        inv = torch.empty_like(order)
+        inv[order] = torch.arange(order.shape[0], device=order.device)
+        return t[inv], tri[inv], inst[inv], hit[inv], ovf
+
+
 def _no_hit(r, dev):
     return (torch.full((r,), BIG, device=dev),
             torch.zeros((r,), dtype=torch.int32, device=dev),
@@ -130,7 +233,8 @@ def _surface_intersects(scene: Scene, o: V3, d: V3, tm, t_min, t_max,
 def attr_path_ok(scene: Scene, differentiable: bool) -> bool:
     """Can this trace take the fast route (winner attributes from the
     kernels, no table lookup per ray)?  Not a gradient-bearing trace (the
-    attributes are detached constants), and no noise, image or mesh."""
+    attributes are detached constants), and no noise, image or mesh (the
+    mesh kernels return the winner, not its attributes)."""
     return (
         not differentiable
         and not scene.has_noise
@@ -275,16 +379,29 @@ def _attr_record_and_albedo(scene: Scene, o: V3, d: V3, t, which, attrs):
 
 def closest_hit(scene: Scene, o: V3, d: V3, tm, t_min, t_max, seed, stream,
                 bounce, tabs: Optional[SweepTables] = None):
-    """Closest surface hit, then stochastic volume preemption.
+    """Closest surface hit (spheres, planar primitives, meshes), then
+    stochastic volume preemption.
 
-    Returns (t [R], which [R] i32, idx [R], aux [R] (always 0: the mesh
-    instance id), overflow (always 0: dropped mesh-frontier pairs)).  The
-    surface ``t`` comes from the kernels and carries no gradient; a
-    volume's scatter distance is differentiable in o and d."""
+    Returns (t [R], which [R] i32, idx [R], aux [R] (the mesh instance id),
+    overflow (always 0: the mesh kernels drop nothing)).  The surface ``t``
+    comes from the kernels and carries no gradient; a volume's scatter
+    distance is differentiable in o and d."""
     (t_s, i_s, h_s), (t_p, i_p, h_p) = _surface_intersects(
         scene, o, d, tm, t_min, t_max, tabs)
     _, t_surf, which, idx, hit_surf = _merge_winners(h_s, t_s, i_s, h_p, t_p, i_p)
     aux = torch.zeros_like(idx)
+    overflow = 0
+
+    for mi, proto in enumerate(scene.meshes):
+        t_limit = torch.where(hit_surf, torch.minimum(t_surf, t_max), t_max)
+        t_m, tri_m, inst_m, h_m, ovf = _mesh_intersect(proto, o, d, t_min, t_limit)
+        mesh_wins = h_m & (~hit_surf | (t_m < t_surf))
+        t_surf = torch.where(mesh_wins, t_m, t_surf)
+        which = torch.where(mesh_wins, HIT_MESH_BASE + mi, which).to(torch.int32)
+        idx = torch.where(mesh_wins, tri_m, idx)
+        aux = torch.where(mesh_wins, inst_m, aux)
+        hit_surf = hit_surf | h_m
+        overflow += ovf
 
     if scene.n_volumes > 0:
         t_limit = torch.where(hit_surf, t_surf, BIG)
@@ -296,7 +413,7 @@ def closest_hit(scene: Scene, o: V3, d: V3, tm, t_min, t_max, seed, stream,
         which = torch.where(vol_wins, HIT_VOLUME, which).to(torch.int32)
         idx = torch.where(vol_wins, i_v, idx)
 
-    return t_surf, which, idx, aux, 0
+    return t_surf, which, idx, aux, overflow
 
 
 def _rows(idx, n):
@@ -369,6 +486,50 @@ def _planar_record(pack: packs.PlanarPack, idx, o: V3, d: V3, t):
     return p, normal, front, uu, vv, mat
 
 
+def _mesh_record(proto, tri, inst, o: V3, d: V3, t):
+    """Mesh hit record: two row lookups (the triangle's 9 floats, the
+    instance's 21) and Moller-Trumbore's barycentrics in instance-local
+    space; the normal is the face normal mapped by the instance's inverse
+    transpose.  Same arithmetic as the JAX package's ``_mesh_record``."""
+    tri = torch.clamp_min(tri, 0).long()
+    inst = torch.clamp_min(inst, 0).long()
+    tv = tex.take_rows(torch.cat([proto.tri_v0, proto.tri_e1, proto.tri_e2], dim=1), tri)
+    v0 = V3(tv[:, 0], tv[:, 1], tv[:, 2])
+    e1 = V3(tv[:, 3], tv[:, 4], tv[:, 5])
+    e2 = V3(tv[:, 6], tv[:, 7], tv[:, 8])
+    n_inst = proto.n_instances
+    iv = tex.take_rows(torch.cat([proto.inst_w2l.reshape(n_inst, 12),
+                                  proto.inst_nmat.reshape(n_inst, 9)], dim=1),
+                       inst).t()
+    o_l = V3(iv[0] * o.x + iv[1] * o.y + iv[2] * o.z + iv[3],
+             iv[4] * o.x + iv[5] * o.y + iv[6] * o.z + iv[7],
+             iv[8] * o.x + iv[9] * o.y + iv[10] * o.z + iv[11])
+    d_l = V3(iv[0] * d.x + iv[1] * d.y + iv[2] * d.z,
+             iv[4] * d.x + iv[5] * d.y + iv[6] * d.z,
+             iv[8] * d.x + iv[9] * d.y + iv[10] * d.z)
+
+    # Barycentric UV via Moller-Trumbore partials; the record's parallel
+    # guard is 1e-12 (the kernel's test is 1e-8)
+    h = d_l.cross(e2)
+    a = e1.dot(h)
+    f = 1.0 / torch.where(torch.abs(a) < 1e-12, 1.0, a)
+    s = o_l - v0
+    uu = f * s.dot(h)
+    q = s.cross(e1)
+    vv = f * d_l.dot(q)
+
+    n_local = e1.cross(e2)
+    n_world = V3(
+        iv[12] * n_local.x + iv[13] * n_local.y + iv[14] * n_local.z,
+        iv[15] * n_local.x + iv[16] * n_local.y + iv[17] * n_local.z,
+        iv[18] * n_local.x + iv[19] * n_local.y + iv[20] * n_local.z,
+    ).unit()
+    front = d.dot(n_world) < 0.0
+    normal = V3.select(front, n_world, -n_world)
+    p = o.at(d, t)
+    return p, normal, front, uu, vv, proto.inst_mat[inst]
+
+
 def extract_record(scene: Scene, o: V3, d: V3, tm, t, which, idx, aux=None):
     """Hit record of the winning primitive per ray, from the scene's
     tables by index (differentiable in o, d and t)."""
@@ -395,6 +556,9 @@ def extract_record(scene: Scene, o: V3, d: V3, tm, t, which, idx, aux=None):
               _sphere_record(scene.spheres, idx, o, d, tm, t))
     if scene.planar.d.shape[0] > 0:
         merge(which == HIT_PLANAR, _planar_record(scene.planar, idx, o, d, t))
+    for mi, proto in enumerate(scene.meshes):
+        merge(which == HIT_MESH_BASE + mi,
+              _mesh_record(proto, idx, aux, o, d, t))
     if scene.n_volumes > 0:
         m = which == HIT_VOLUME
         mat_id = torch.where(
@@ -409,21 +573,30 @@ def occluded(scene: Scene, o: V3, d: V3, tm, t_min, t_max, seed, stream, bounce,
     (t_min, t_max)?  Returns (blocked [R] bool, overflow (always 0)).
 
     ``active`` (optional bool mask): lanes whose answer the caller will
-    discard get t_max = -1, and the kernels skip their sweep."""
+    discard get t_max = -1, and the kernels skip their sweep.  Meshes are
+    swept in any-hit mode: a ray's sweep ends at its first hit, and its
+    ``t`` then means nothing, only ``hit``."""
     if active is not None:
         t_max = torch.where(active, t_max, -1.0)
     (t_s, _, h_s), (t_p, _, h_p) = _surface_intersects(
         scene, o, d, tm, t_min, t_max, tabs)
     blocked = h_s | h_p
+    t_surf = torch.minimum(torch.where(h_s, t_s, BIG),
+                           torch.where(h_p, t_p, BIG))
+    overflow = 0
+    for proto in scene.meshes:
+        _, _, _, h_m, ovf = _mesh_intersect(
+            proto, o, d, t_min, torch.minimum(t_surf, t_max), any_hit=True)
+        blocked = blocked | h_m
+        t_surf = torch.where(h_m, t_min, t_surf)
+        overflow += ovf
     if scene.n_volumes > 0:
-        t_surf = torch.minimum(torch.where(h_s, t_s, BIG),
-                               torch.where(h_p, t_p, BIG))
         u_vol = _volume_uniforms(seed, stream, bounce, purpose_base,
                                  scene.n_volumes)
         t_limit = torch.minimum(t_surf, t_max)
         _, _, h_v = packs.sample_volumes(scene.volumes, o, d, t_min, t_limit, u_vol)
         blocked = blocked | h_v
-    return blocked, 0
+    return blocked, overflow
 
 
 # -----------------------------------------------------------------------------
@@ -564,19 +737,21 @@ class PathState(NamedTuple):
 
 def bounce_step(scene: Scene, cam, state: PathState, tm, stream, seed,
                 bounce: int, *, fast: bool,
-                tabs: Optional[SweepTables] = None) -> PathState:
-    """One bounce of the standard integrator for the whole wavefront."""
+                tabs: Optional[SweepTables] = None):
+    """One bounce of the standard integrator for the whole wavefront.
+    Returns (the next ``PathState``, the mesh kernels' overflow (0))."""
     (o, d, throughput, radiance, alive, allow_light,
      miss_dir, miss_tp, miss_primary, missed) = state
     dev = alive.device
 
     # Dead lanes get t_max = -1: the kernels skip their sweep.
     t_cap = torch.where(alive, BIG, -1.0)
+    overflow = 0
     if fast:
         t, which, idx, attrs = _attr_closest_hit(
             scene, o, d, tm, EPS_HIT, t_cap, seed, stream, bounce, tabs)
     else:
-        t, which, idx, aux, _ = closest_hit(
+        t, which, idx, aux, overflow = closest_hit(
             scene, o, d, tm, EPS_HIT, t_cap, seed, stream, bounce, tabs)
     hit = (which != HIT_NONE) & alive
 
@@ -617,11 +792,12 @@ def bounce_step(scene: Scene, cam, state: PathState, tm, stream, seed,
     use_mis = torch.zeros_like(alive)
     if scene.n_lights > 0:
         use_mis = sc.can_use_nee & alive & hit
-        direct, _, _ = sample_area_light(
+        direct, ovf, _ = sample_area_light(
             scene, cam, p, normal, d, sc.attenuation, mat_id,
             seed, stream, bounce, mat_attrs=mat_attrs, active=use_mis,
             tabs=tabs)
         radiance = radiance + V3.select(use_mis, throughput * direct, zero)
+        overflow += ovf
 
     # --- continue the path ----------------------------------------------------
     alive = alive & hit & sc.scattered
@@ -630,14 +806,11 @@ def bounce_step(scene: Scene, cam, state: PathState, tm, stream, seed,
     d = V3.select(alive, sc.direction, d)
     allow_light = ~use_mis
     return PathState(o, d, throughput, radiance, alive, allow_light,
-                     miss_dir, miss_tp, miss_primary, missed)
+                     miss_dir, miss_tp, miss_primary, missed), overflow
 
 
 def _check_standard(scene: Scene):
     """Raise for what the standard integrator does not take yet."""
-    if scene.meshes:
-        raise NotImplementedError(
-            "triangle meshes are not ported yet (ROADMAP.md A17)")
     if scene.env is not None:
         raise NotImplementedError(
             "HDRI environments are not ported yet (ROADMAP.md A15)")
@@ -655,8 +828,9 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
     """Radiance for a ray megabatch, on the device the rays lie on.
 
     o/d: V3 (or [R,3] tensors, converted); tm/stream [R].  Returns V3, or
-    (V3, stats dict) when ``with_stats``; ``stats["mesh_overflow"]`` is 0
-    here since no ported scene has meshes.
+    (V3, stats dict) when ``with_stats``; ``stats["mesh_overflow"]`` sums
+    what the mesh kernels dropped, which is always 0 (they have no slot
+    cap; the JAX package's frontier traversal could drop pairs).
 
     ``mega_mode``: None picks 'single' (the megakernel) for a scene inside
     its gate when ``differentiable`` is false, else 'off' (the standard
@@ -720,17 +894,19 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
         V3.zeros((r,), device=dev), V3.zeros((r,), device=dev),
         false, false,                                 # miss_primary, missed
     )
+    overflow = 0
     for bounce in range(cam.max_depth):
         # Deep configurations kill most lanes within a few bounces: the
         # render stops when none survive.  A gradient-bearing trace runs
         # every bounce, so that its graph does not depend on the data.
         if not differentiable and bounce > 0 and not bool(state.alive.any()):
             break
-        state = bounce_step(scene, cam, state, tm, stream, seed, bounce,
-                            fast=fast, tabs=tabs)
+        state, ovf = bounce_step(scene, cam, state, tm, stream, seed, bounce,
+                                 fast=fast, tabs=tabs)
+        overflow += ovf
 
     rad = _add_miss(scene, cam, state.radiance, state.missed, state.miss_dir,
                     state.miss_tp, state.miss_primary)
     if with_stats:
-        return rad, dict(mesh_overflow=0)
+        return rad, dict(mesh_overflow=overflow)
     return rad

@@ -167,6 +167,11 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
             "render_grad(mesh=...) is not ported yet (ROADMAP.md A19)")
     spp = cam.samples_per_pixel if spp is None else spp
     max_depth = cam.max_depth if max_depth is None else max_depth
+    if scene.meshes:
+        raise NotImplementedError(
+            "render_grad of a mesh scene needs the replay tier, which is not "
+            "ported yet (ROADMAP.md A18); torch.autograd through "
+            "render(differentiable=True) gives its colour gradients")
     # the product tier wins where both gates hold: its stash is lighter
     pathwise = not mega.grad_applicable(scene, max_depth)
     if pathwise and not mega.grad_pathwise_applicable(scene, max_depth):

@@ -92,12 +92,13 @@ def _id_to_pixel(ids, w: int, h: int, tiled: bool):
 
 
 def scene_tiled(scene) -> bool:
-    """Tiled ray layout for sphere-heavy scenes (>= SPH_CULL_MIN spheres),
-    the same rule as the JAX package's, so that a ray has the same stream
-    id in both."""
+    """Tiled ray layout for mesh scenes and sphere-heavy scenes (>=
+    SPH_CULL_MIN spheres), the same rule as the JAX package's, so that a
+    ray has the same stream id in both."""
     from ..ops.cuda_wavefront import SPH_CULL_MIN
 
-    return int(scene.spheres.radius.shape[0]) >= SPH_CULL_MIN
+    return (len(scene.meshes) > 0
+            or int(scene.spheres.radius.shape[0]) >= SPH_CULL_MIN)
 
 
 def _chunk_rays(scene, cam: Camera, ray_start: int, seed, *, spp: int,
@@ -174,7 +175,8 @@ class RenderStats:
     rays_traced: int = 0
     wall_seconds: float = 0.0
     chunks: int = 0
-    # Dropped mesh-frontier pairs; always 0 on the megakernel path.
+    # Work the mesh kernels dropped, summed over chunks: always 0 (they
+    # have no slot cap; the JAX package's frontier traversal could drop).
     mesh_overflow: int = 0
 
     @property

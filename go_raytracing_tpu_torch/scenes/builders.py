@@ -4,18 +4,20 @@ Every constructor takes ``device`` (``None`` means "cuda") and returns
 ``(Scene, Camera)``.  The random sphere field in ``random_scene`` uses a
 seeded NumPy generator, so its layout is deterministic.  Scenes that need
 a feature the port does not have yet (marble noise, image textures, HDRI
-environments, meshes) raise ``NotImplementedError`` naming the ROADMAP.md
-item they wait for.
+environments) raise ``NotImplementedError`` naming the ROADMAP.md item
+they wait for.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Callable, Dict, Tuple
 
 import numpy as np
 
 from ..camera import Camera
 from ..geometry.scene import Affine, SceneBuilder
+from ..io import obj as obj_mod
 
 
 def _camera():
@@ -249,9 +251,62 @@ def cornell_box_glossy(device=None):
     return b.build(device=device), cam
 
 
-def cornell_box_lucy(device=None, **kwargs):
-    raise NotImplementedError(
-        "scene not ported yet: it needs triangle meshes (ROADMAP.md A17)")
+# Instancing of a shared mesh: (position, rotation about y in degrees)
+LUCY_POSITIONS = [
+    ((150, 0, 150), 45), ((400, 0, 150), 315), ((150, 0, 400), 135),
+    ((400, 0, 400), 225), ((278, 0, 278), 0), ((100, 0, 278), 90),
+    ((450, 0, 278), 270), ((278, 0, 100), 180), ((278, 0, 450), 0),
+    ((200, 0, 350), 60),
+]
+
+# The reference's statue, where a checkout holds it (a git-lfs stub does not
+# count); the procedural stand-ins of io/obj.py take its place otherwise.
+LUCY_OBJ = Path(__file__).resolve().parents[2] / "assets" / "models" / "lucy_low.obj"
+
+
+def cornell_box_lucy(device=None, n_instances: int = 10, mesh_detail=(48, 40),
+                     roughness=None, mesh_kind: str = "lathe"):
+    """Instances of one shared mesh in the Cornell box (the JAX package's
+    builder and arguments).
+
+    The statue is a procedural stand-in with Lucy's bounding box
+    (``io/obj.py``): ``mesh_detail = (segments, rings)`` sets its triangle
+    count (``(256, 220)`` gives 112,128), ``roughness > 0`` folds the lathe
+    like a scanned statue, and ``mesh_kind="statue"`` takes the multi-lobed
+    ``statue_standin`` with ``mesh_detail[0]`` as its detail.
+    """
+    b = SceneBuilder()
+    white = b.lambertian((0.73, 0.73, 0.73))
+    red = b.lambertian((0.65, 0.05, 0.05))
+    green = b.lambertian((0.12, 0.45, 0.15))
+    area = b.quad((213, 554, 227), (130, 0, 0), (0, 0, 105), b.diffuse_light((15, 15, 15)))
+    b.add_light(area)
+    _cornell_walls(b, white, red, green)
+
+    lucy_mat = b.lambertian((0.9, 0.9, 0.9))
+    if LUCY_OBJ.is_file() and not obj_mod.is_lfs_stub(str(LUCY_OBJ)):
+        verts, tris = obj_mod.load_obj(str(LUCY_OBJ))
+    elif mesh_kind == "statue":
+        # None -> the kind's default (0.0 is a valid smooth statue)
+        verts, tris = obj_mod.statue_standin(
+            mesh_detail[0], roughness=0.3 if roughness is None else roughness)
+    else:
+        verts, tris = obj_mod.lucy_standin(
+            *mesh_detail, roughness=0.0 if roughness is None else roughness)
+    proto = b.mesh(verts, tris)
+    for pos, rot in LUCY_POSITIONS[:n_instances]:
+        xf = Affine.trs(scale=(0.15, 0.15, 0.15), rotation_deg=(0, rot, 0), position=pos)
+        b.mesh_instance(proto, lucy_mat, xf)
+
+    cam = (
+        _camera()
+        .set_resolution(600, 1.0)
+        .set_quality(50, 5)
+        .set_position((278, 278, -800), (278, 278, 0), (0, 1, 0))
+        .set_lens(40, 0, 10)
+        .set_background((0, 0, 0))
+    )
+    return b.build(device=device), cam
 
 
 def cornell_smoke(device=None):

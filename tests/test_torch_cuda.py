@@ -15,10 +15,14 @@ import torch
 import go_raytracing_tpu_torch as grtt
 from go_raytracing_tpu_torch import camera as tcamera
 from go_raytracing_tpu_torch.core.vec3 import V3
+from go_raytracing_tpu_torch.geometry import mesh_bvh
+from go_raytracing_tpu_torch.io import obj as tobj
 from go_raytracing_tpu_torch.ops import cuda_intersect as ck
+from go_raytracing_tpu_torch.ops import cuda_mesh as cm
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
-from test_torch_helpers import (FOG_ROOM_CAM, MIXED_CAM, build_fog_room,
-                                build_mixed, build_random_prims, random_rays)
+from test_torch_helpers import (FOG_ROOM_CAM, LUCY_CAM, MIXED_CAM, build_fog_room,
+                                build_lucy, build_mixed, build_random_prims,
+                                lucy_instances, mesh_rays, random_rays)
 
 
 def _rays(cam, n, seed, device):
@@ -458,3 +462,76 @@ def test_cuda_intersect_wrappers_reject_what_the_kernels_do_not_take():
         ck.planar_closest_attrs_table(
             pgeo, ck._material_consts(scene.materials, scene.textures,
                                       scene.planar.mat), o, d, big, n_attr=11)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("kernel", ["sweep", "stream"])
+def test_cuda_mesh_kernels_match_plain_versions(kernel, any_hit):
+    """On a GPU: ``mesh_sweep`` on the 3,744-triangle statue and
+    ``mesh_stream`` on a 17,440-triangle one, 10 instances each, against
+    their plain versions on 16,384 rays, for t_max BIG, cut at a random
+    share of the hit distance, and -1 on every third ray.  Built without
+    fused multiply-add contraction, a kernel repeats its plain version's
+    rounding: hit, t, tri and inst are equal on every ray (in any-hit mode
+    only hit means anything)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    detail = (48, 40) if kernel == "sweep" else (80, 110)
+    proto = mesh_bvh.build_proto(*tobj.lucy_standin(*detail), lucy_instances(10),
+                                 torch.device("cuda"))
+    assert cm.kernel_ok(proto) == (kernel == "sweep") != cm.stream_ok(proto)
+    fn = cm.intersect_mesh_kernel if kernel == "sweep" else cm.intersect_mesh_stream
+    o, d = (V3.from_rows(torch.from_numpy(a).cuda()) for a in mesh_rays(16384, 4))
+    big = torch.full((16384,), ck.BIG, device="cuda")
+    t0, _, _, h0, _ = fn(proto, o, d, 1e-3, big)
+    scale = torch.rand(16384, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    third = torch.arange(16384, device="cuda") % 3 == 0
+    for t_max in (big, torch.where(h0, t0 * (0.5 + scale), big),
+                  torch.where(third, -1.0, big)):
+        before = cm.LAUNCHES_SWEEP, cm.LAUNCHES_STREAM
+        k = fn(proto, o, d, 1e-3, t_max, any_hit=any_hit)
+        torch.cuda.synchronize()
+        after = cm.LAUNCHES_SWEEP, cm.LAUNCHES_STREAM
+        assert after[0 if kernel == "sweep" else 1] == before[0 if kernel == "sweep" else 1] + 1
+        p = cm.plain(kernel, proto, o, d, 1e-3, t_max, any_hit=any_hit)
+        assert k[4] == 0 and k[3].dtype == torch.bool
+        assert torch.equal(k[3], p[3])
+        assert 0.05 < float(k[3].float().mean()) < 0.95
+        if not any_hit:
+            for a, b in zip(k[:3], p[:3]):
+                assert torch.equal(a, b)
+    assert not bool(k[3][third].any())
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_render_matches_cpu():
+    """On a GPU: ``cornell-lucy`` (216 triangles, 3 instances) renders
+    through ``mesh_sweep`` (closest hit and shadow rays), with no overflow,
+    and gives the picture the CPU gives."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    cam = dataclasses.replace(tcamera.Camera(**LUCY_CAM), image_width=32,
+                              samples_per_pixel=4)
+    stats = grtt.RenderStats()
+    before = cm.LAUNCHES_SWEEP
+    img = grtt.render_image(build_lucy(grtt), cam, seed=2, stats=stats)
+    assert img.is_cuda and torch.isfinite(img).all()
+    assert cm.LAUNCHES_SWEEP - before >= cam.max_depth and stats.mesh_overflow == 0
+    cpu = grtt.render_image(build_lucy(grtt, device="cpu"), cam, seed=2, device="cpu")
+    assert float((img.cpu() - cpu).abs().mean()) < 0.01 * float(cpu.mean())
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_wrappers_reject_what_the_kernels_do_not_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    proto = mesh_bvh.build_proto(*tobj.lucy_standin(12, 10), lucy_instances(2),
+                                 torch.device("cuda"))
+    o, d = (V3.from_rows(torch.from_numpy(a).cuda()) for a in mesh_rays(64))
+    big = torch.full((64,), ck.BIG, device="cuda")
+    with pytest.raises(ValueError):     # tables on the CPU
+        cpu = dataclasses.replace(proto, k_tri=proto.k_tri.cpu())
+        cm.intersect_mesh_kernel(cpu, o, d, 1e-3, big)
+    with pytest.raises(ValueError):     # too few rays' worth of t_max
+        cm.intersect_mesh_kernel(proto, o, d, 1e-3, big[:32])

@@ -9,6 +9,21 @@ import dataclasses
 import numpy as np
 
 
+def mesh_tree(proto):
+    """JAX ``MeshProto`` -> dict of numpy arrays (tuples of them for the
+    level boxes) and ints, the form ``mesh_bvh.proto_from_numpy`` takes."""
+    out = {}
+    for f in dataclasses.fields(proto):
+        v = getattr(proto, f.name)
+        if isinstance(v, tuple):
+            out[f.name] = tuple(np.asarray(a) for a in v)
+        elif isinstance(v, int):
+            out[f.name] = v
+        else:
+            out[f.name] = np.asarray(v)
+    return out
+
+
 def scene_tree(jscene):
     """JAX ``Scene`` -> nested dict of numpy arrays and flags, the form
     ``go_raytracing_tpu_torch.convert.scene_from_numpy`` takes."""
@@ -23,6 +38,8 @@ def scene_tree(jscene):
             tree[f.name] = pack(v)
         elif f.name.startswith("light_"):
             tree[f.name] = np.asarray(v)
+        elif f.name == "meshes":
+            tree[f.name] = [mesh_tree(p) for p in v]
         else:
             tree[f.name] = v
     return tree
@@ -248,6 +265,51 @@ FOG_ROOM_CAM = dict(
     image_width=16, aspect_ratio=1.0, samples_per_pixel=2, max_depth=4,
     look_from=(0, 3, 9), look_at=(0, 1.5, 0), vfov=45.0,
     background=(0.02, 0.01, 0.03),
+)
+
+
+def build_lucy(pkg, n_instances=3, mesh_detail=(12, 10), **build_kwargs):
+    """``cornell-lucy`` at a test size: the Cornell box with instances of the
+    procedural statue (``mesh_detail=(12, 10)``: 216 triangles, the
+    small-mesh kernel's tables).  ``pkg`` is either package; the port's
+    builder also takes ``device``."""
+    scene, _ = pkg.load_scene("cornell-lucy", n_instances=n_instances,
+                              mesh_detail=mesh_detail, **build_kwargs)
+    return scene
+
+
+def lucy_instances(n):
+    """The first ``n`` statue placements of ``cornell-lucy`` as (local->world
+    4x4, material 0) pairs, the form both packages' ``build_proto`` take."""
+    from go_raytracing_tpu_torch.geometry.scene import Affine
+    from go_raytracing_tpu_torch.scenes.builders import LUCY_POSITIONS
+
+    return [(Affine.trs(scale=(0.15, 0.15, 0.15), rotation_deg=(0, rot, 0),
+                        position=pos).m, 0)
+            for pos, rot in LUCY_POSITIONS[:n]]
+
+
+def mesh_rays(n, seed=0):
+    """Two thirds camera rays aimed at the instances of ``lucy_instances``
+    (unnormalized directions), one third bounce-like rays from inside the
+    box in random directions."""
+    r = np.random.default_rng(seed)
+    n_cam = 2 * n // 3
+    o = np.empty((n, 3), np.float32)
+    d = np.empty((n, 3), np.float32)
+    o[:n_cam] = np.array([278.0, 278.0, -800.0]) + r.normal(size=(n_cam, 3)) * 5
+    centres = np.array([[150, 120, 150], [400, 120, 150]], np.float64)
+    tgt = centres[r.integers(0, 2, n_cam)] + r.normal(size=(n_cam, 3)) * [70, 110, 45]
+    d[:n_cam] = tgt - o[:n_cam]
+    o[n_cam:] = r.uniform([50, 1, 50], [500, 300, 500], size=(n - n_cam, 3))
+    d[n_cam:] = r.normal(size=(n - n_cam, 3))
+    return o, d
+
+
+LUCY_CAM = dict(
+    image_width=16, aspect_ratio=1.0, samples_per_pixel=2, max_depth=3,
+    look_from=(278, 278, -800), look_at=(278, 278, 0), vfov=40.0,
+    background=(0.0, 0.0, 0.0),
 )
 
 

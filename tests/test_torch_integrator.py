@@ -177,7 +177,9 @@ def test_render_image_and_progressive_take_the_routes():
     (lambda ts, r: twf.trace(ts, *r, mega_mode="image"), "A16"),
     (lambda ts, r: twf.trace(dataclasses.replace(ts, has_noise=True), *r), "A13"),
     (lambda ts, r: twf.trace(dataclasses.replace(ts, has_image=True), *r), "A16"),
-    (lambda ts, r: twf.trace(dataclasses.replace(ts, meshes=(object(),)), *r), "A17"),
+    # meshes render; recording their decisions is the replay tier's
+    (lambda ts, r: twf.trace(dataclasses.replace(ts, meshes=(object(),)), *r,
+                             record=True), "A18"),
     (lambda ts, r: twf.trace(dataclasses.replace(ts, env=object()), *r), "A15"),
     (lambda ts, r: twf.sample_hdri_light(ts, *r), "A15"),
 ])

@@ -23,9 +23,8 @@ from test_torch_helpers import build_mixed, scene_tree
 torch.set_num_threads(2)
 
 PORTED = ["cornell", "cornell-smoke", "cornell-glossy", "simple", "quads",
-          "checkered", "glossy-metal", "primitives", "random"]
-NOT_PORTED = {"perlin": "A13", "earth": "A16", "hdri-test": "A15",
-              "cornell-lucy": "A17"}
+          "checkered", "glossy-metal", "primitives", "random", "cornell-lucy"]
+NOT_PORTED = {"perlin": "A13", "earth": "A16", "hdri-test": "A15"}
 
 
 def _both(name):
@@ -51,6 +50,17 @@ def _assert_scene_equal(ts, tree):
         np.testing.assert_array_equal(getattr(ts, k).numpy(), tree[k], err_msg=k)
     for k in ("has_noise", "has_image", "has_checker", "env_importance"):
         assert getattr(ts, k) == tree[k], k
+    assert len(ts.meshes) == len(tree["meshes"])
+    for proto, mtree in zip(ts.meshes, tree["meshes"]):
+        for k, v in mtree.items():
+            got = getattr(proto, k)
+            if isinstance(v, tuple):
+                for g, w in zip(got, v):
+                    np.testing.assert_array_equal(g.numpy(), w, err_msg=k)
+            elif isinstance(v, int):
+                assert got == v, k
+            else:
+                np.testing.assert_array_equal(got.numpy(), v, err_msg=k)
 
 
 @pytest.mark.parametrize("name", PORTED + ["mixed"])
@@ -60,7 +70,8 @@ def test_scene_tables_equal(name):
     _assert_scene_equal(ts, tree)
     _assert_scene_equal(convert.scene_from_numpy(tree, "cpu"), tree)
     assert ts.device.type == "cpu"
-    assert cw.applicable(ts)
+    # the megakernel takes every ported scene but the mesh scene, as in JAX
+    assert cw.applicable(ts) == (not ts.meshes)
 
 
 @pytest.mark.parametrize("name", ["cornell", "cornell-smoke", "mixed"])
@@ -116,11 +127,18 @@ def test_builder_gaps_and_errors():
         (lambda: b.noise(4.0), "A13"),
         (lambda: b.image(np.zeros((2, 2, 3))), "A16"),
         (lambda: b.set_environment(np.zeros((2, 4, 3))), "A15"),
-        (lambda: b.mesh(np.zeros((3, 3)), np.zeros((1, 3))), "A17"),
-        (lambda: b.mesh_instance(0, m), "A17"),
     ]:
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # meshes are ported: a prototype without triangles is refused at
+    # build, one without instances is left out
+    assert b.mesh(np.zeros((3, 3)), np.zeros((0, 3))) == 0
+    b.mesh_instance(0, m)
+    with pytest.raises(ValueError, match="triangle"):
+        b.build(device="cpu")
+    b2 = SceneBuilder()
+    b2.mesh(np.eye(3), np.array([[0, 1, 2]]))
+    assert b2.build(device="cpu").meshes == ()
     with pytest.raises(ValueError, match="uniform"):
         b.sphere((0, 0, 0), 1.0, m, Affine.trs(scale=(1, 2, 1)))
     q = b.triangle((0, 0, 0), (1, 0, 0), (0, 1, 0), m)
