@@ -143,13 +143,19 @@ PEAK_INT32_OPS = PEAK_FP32_FLOPS / 2
 #     and the compare                                                   = 25
 #   Moller-Trumbore: h (9), a (5), |a| test (2), f (2), s (3), u (6),
 #     q (9), v (6), t (6), accept tests (7)                             = 55
-#   Baldwin-Weber: den (5), num (6), |den| test (2), t (2), hit point (6),
-#     u (6), v (6), accept tests (6), tie compare (2)                   = 41
-# The box and triangle tests a chunk needs are counted by an instrumented
-# run of the plain version on a sample of its rays (``counts=``).
+#   Baldwin-Weber, every triangle: den (5), num (6), |den| test (2), t (2),
+#     t tests (2)                                                       = 17
+#   and a triangle whose t passes: hit point (6), u (6), v (6), u/v tests
+#     (4), tie compare (2)                                              = 24
+# The (ray, instance) pairs, box and triangle tests a chunk needs are
+# counted by an instrumented run of the plain version on a sample of its
+# rays (``counts=``): a ray whose t_max is not above t_min (dead, or
+# reaching no instance) needs none of them, and the kernels skip it.
 FLOPS_MESH_LOCAL_RAY, FLOPS_BOX_TEST = 42, 25
-FLOPS_MOLLER_TRUMBORE, FLOPS_BALDWIN_WEBER = 55, 41
-MESH_RAYS_IN, MESH_BYTES_OUT = 7 * 4, 4 + 4 + 4 + 1
+FLOPS_MOLLER_TRUMBORE, FLOPS_BW_PLANE, FLOPS_BW_UV = 55, 17, 24
+# A live ray reads o, d and t_max, a dead one t_max alone; each writes t,
+# tri, inst and hit.
+MESH_RAYS_IN, MESH_DEAD_IN, MESH_BYTES_OUT = 7 * 4, 4, 4 + 4 + 4 + 1
 
 
 def emit(phase, **fields):
@@ -1358,7 +1364,7 @@ def mesh_chunk_rays(scene, cam, n, seed, device):
         torch.zeros(r, dtype=torch.bool, device=device),
         torch.zeros(r, dtype=torch.bool, device=device))
     with torch.no_grad():
-        nxt, _ = wavefront.bounce_step(scene, cam2, state, tm, ids, 0, 0, fast=False)
+        nxt = wavefront.bounce_step(scene, cam2, state, tm, ids, 0, 0, fast=False)
     gen = torch.Generator(device=device).manual_seed(seed)
     cam_pick = torch.randint(0, r, (n // 2,), device=device, generator=gen)
     alive = torch.nonzero(nxt.alive).squeeze(1)
@@ -1582,14 +1588,18 @@ def mesh_kernel_timing(cases, checks):
         mm = mesh_mismatch(tuple(a[pick] if torch.is_tensor(a) else a for a in k), p,
                            False)
         scale = n / 16384
-        tri_flops = FLOPS_MOLLER_TRUMBORE if kind == "sweep" else FLOPS_BALDWIN_WEBER
-        flops = (n * proto.n_instances * FLOPS_MESH_LOCAL_RAY
-                 + scale * counts.get("box_tests", 0) * FLOPS_BOX_TEST
-                 + scale * counts.get("tri_tests", 0) * tri_flops)
+        tri_ops = (counts.get("tri_tests", 0) * FLOPS_MOLLER_TRUMBORE if kind == "sweep"
+                   else counts.get("tri_tests", 0) * FLOPS_BW_PLANE
+                   + counts.get("tri_t_pass", 0) * FLOPS_BW_UV)
+        flops = scale * (counts.get("local_rays", 0) * FLOPS_MESH_LOCAL_RAY
+                         + counts.get("box_tests", 0) * FLOPS_BOX_TEST + tri_ops)
         tables = ((proto.k_tri, proto.k_leafbox, proto.k_subtilebox, proto.k_tilebox,
-                   proto.k_coarsebox) if kind == "sweep" else (proto.s_tri, proto.s_tilebox))
+                   proto.k_coarsebox) if kind == "sweep"
+                  else (proto.s_tri, proto.s_tilebox, proto.s_segbox))
         table_bytes = sum(t.numel() * 4 for t in tables) + proto.inst_w2l.numel() * 4
-        moved = n * (MESH_RAYS_IN + MESH_BYTES_OUT) + table_bytes
+        n_live = int((t_max > cw.EPS_HIT).sum())
+        moved = (n_live * MESH_RAYS_IN + (n - n_live) * MESH_DEAD_IN + n * MESH_BYTES_OUT
+                 + table_bytes)
         bound = (moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3)
         emit("mesh_kernel_timing", kernel=kernel, triangles=proto.n_tris,
              instances=proto.n_instances, rays_per_launch=n, reach_share=reach,
@@ -1597,11 +1607,17 @@ def mesh_kernel_timing(cases, checks):
              launches_per_render=launches, render_chunks=chunks,
              plain_ms=plain_ms, plain_rays=16384,
              plain_note="the plain version timed on 16,384 of the chunk's rays",
+             live_rays=n_live,
+             local_rays_per_ray=counts.get("local_rays", 0) / 16384,
              box_tests_per_ray=counts.get("box_tests", 0) / 16384,
              tri_tests_per_ray=counts.get("tri_tests", 0) / 16384,
-             counted="box and triangle tests of the plain version on 16,384 of the "
-                     "chunk's rays, scaled to the chunk; x 25 / 55 (sweep) or 41 "
-                     "(stream) operations, + 42 a (ray, instance) local ray",
+             tri_t_pass_per_ray=counts.get("tri_t_pass", 0) / 16384,
+             counted="(ray, instance) pairs, box and triangle tests of the plain "
+                     "version on 16,384 of the chunk's rays, scaled to the chunk: "
+                     "x 42 a pair, 25 a box, 55 a Moller-Trumbore test (sweep) or "
+                     "17 a Baldwin-Weber plane test + 24 a triangle whose t passes "
+                     "(stream); bytes: 28 in a live ray, 4 a dead one, 13 out, "
+                     "the tables once",
              bytes_counted=moved, table_bytes=table_bytes, flops_counted=flops,
              bound_bytes_ms=bound[0], bound_ops_ms=bound[1],
              roofline_share=max(bound) / ms, sample_mismatch=mm)

@@ -26,14 +26,16 @@
 //       instance count is not limited.  The one limit left: the id travels
 //       as float32 in row 9, exact up to 2^24 triangles.
 //
-// What bounds them on this card: the work is data-dependent.  A ray reads 28
-// bytes and writes 13; the tables (at most 576 KB of triangles for the sweep,
-// 7.2 MB for the 112,128-triangle stream of cornell-lucy) sit in L2, so the
-// bytes are small beside the arithmetic: about 25 operations a box test, 55
-// a Moller-Trumbore and 41 a Baldwin-Weber test, times the tests each ray's
-// cull lets through (chip_smoke.py counts them).  So operations bound them, and divergence between the
-// rays of a warp (each walks its own boxes) is what keeps them from the
-// float32 peak.
+// What bounds them on this card: the work is data-dependent.  A live ray
+// reads 28 bytes, a dead one 4, and each writes 13; the tables (at most 576 KB
+// of triangles for the sweep, 7.2 MB for the 112,128-triangle stream of
+// cornell-lucy) sit in L2, so the bytes are small beside the arithmetic:
+// about 42 operations a local ray, 25 a box test, 55 a Moller-Trumbore test,
+// 17 a Baldwin-Weber plane test and 24 more for the barycentrics of a
+// triangle whose t passes, times what each ray's cull lets through
+// (chip_smoke.py counts them).  So operations bound them, and divergence
+// between the rays of a warp (each walks its own boxes) is what keeps them
+// from the float32 peak.
 //
 // What the design does about it:
 //   * the cull is exact per ray: a box is entered by the rays that hit it,
@@ -51,8 +53,10 @@
 //   * the clip of an instance's exit by the best hit so far ends most rays'
 //     later instances at the root test; in any-hit mode the first hit ends
 //     the ray's loop;
-//   * a ray whose t_max lies below t_min (dead lanes and inactive shadow rays
-//     come in with -1) fails every test at once;
+//   * a ray whose t_max is not above t_min can hit nothing (dead lanes,
+//     inactive shadow rays and rays that reach no instance come in with -1):
+//     its miss is written before the instance loop, its origin and direction
+//     unread;
 //   * boxes that hold padding alone are skipped by the triangle count: the
 //     TPU kernels' padding boxes (+-3e38, min above max) pass a min/max slab
 //     test, so those kernels enter them and test zero triangles, which
@@ -195,11 +199,15 @@ mesh_sweep_kernel(SweepMesh M, Rays R, float t_min, Out W) {
     const long long step = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < R.n;
          i += step) {
-        const float o[3] = {R.ox[i], R.oy[i], R.oz[i]};
-        const float d[3] = {R.dx[i], R.dy[i], R.dz[i]};
         float t_best = R.t_max[i];
         if (t_best >= BIG) t_best = BIG;
         int tri_best = -1, inst_best = -1;
+        if (!(t_best > t_min)) {   // every test would fail
+            write_out(W, i, BIG, -1, -1, ANY);
+            continue;
+        }
+        const float o[3] = {R.ox[i], R.oy[i], R.oz[i]};
+        const float d[3] = {R.dx[i], R.dy[i], R.dz[i]};
 
         for (int ii = 0; ii < M.n_inst; ++ii) {
             if (ANY && tri_best >= 0) break;   // t_best is 0: every test fails
@@ -289,12 +297,16 @@ mesh_stream_kernel(StreamMesh M, Rays R, float t_min, Out W) {
 
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < R.n;
          i += step) {
-        const float o[3] = {R.ox[i], R.oy[i], R.oz[i]};
-        const float d[3] = {R.dx[i], R.dy[i], R.dz[i]};
         float t_cap = R.t_max[i];
         if (t_cap >= BIG) t_cap = BIG;
         float acc_t = BIG;
         int acc_id = -1, acc_inst = -1;
+        if (!(t_cap > t_min)) {    // no t passes t_min <= t < t_cap
+            write_out(W, i, BIG, -1, -1, ANY);
+            continue;
+        }
+        const float o[3] = {R.ox[i], R.oy[i], R.oz[i]};
+        const float d[3] = {R.dx[i], R.dy[i], R.dz[i]};
 
         for (int ii = 0; ii < M.n_inst; ++ii) {
             const LocalRay L = local_ray(M.w2l, ii, o, d);

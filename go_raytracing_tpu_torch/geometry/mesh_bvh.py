@@ -27,7 +27,7 @@ stream carries triangle ids as float32), with any number of instances.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Tuple
 
 import numpy as np
@@ -75,6 +75,22 @@ class MeshProto:
     k_n_tiles: int = 0
     k_n_coarse: int = 0
     s_n_seg: int = 0
+    # Derived once from the fields above, for the kernels' wrappers and
+    # plain versions: the root box [6] (min xyz, max xyz), the stream's
+    # segment boxes [S, 6] (each the union of its slots; padding slots are
+    # +BIG/-BIG and vanish), and the world->local affines as host floats.
+    root_box: torch.Tensor = field(init=False, repr=False, compare=False)
+    s_segbox: torch.Tensor = field(init=False, repr=False, compare=False)
+    w2l_host: tuple = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        tb = self.s_tilebox
+        for name, value in (
+                ("root_box", torch.cat([self.root_bbox_min, self.root_bbox_max])),
+                ("s_segbox", torch.cat([tb[:, 0:3, :].amin(dim=2),
+                                        tb[:, 3:6, :].amax(dim=2)], dim=1).contiguous()),
+                ("w2l_host", tuple(tuple(map(tuple, m)) for m in self.inst_w2l.tolist()))):
+            object.__setattr__(self, name, value)
 
     @property
     def n_instances(self) -> int:

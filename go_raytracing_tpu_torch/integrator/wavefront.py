@@ -139,7 +139,7 @@ def _mesh_sort_key(proto, o: V3, d: V3, t_min, t_max):
     instance in the same region heading the same way.  Dead and unreaching
     lanes get the largest key.  The same arithmetic as the JAX package's, in
     float32."""
-    w2l = proto.inst_w2l.tolist()
+    w2l = proto.w2l_host
     lo, hi = proto.root_bbox_min, proto.root_bbox_max
     eps = 1e-3
     ext = torch.clamp_min(hi - lo, 1e-6)
@@ -390,18 +390,16 @@ def closest_hit(scene: Scene, o: V3, d: V3, tm, t_min, t_max, seed, stream,
         scene, o, d, tm, t_min, t_max, tabs)
     _, t_surf, which, idx, hit_surf = _merge_winners(h_s, t_s, i_s, h_p, t_p, i_p)
     aux = torch.zeros_like(idx)
-    overflow = 0
 
     for mi, proto in enumerate(scene.meshes):
         t_limit = torch.where(hit_surf, torch.minimum(t_surf, t_max), t_max)
-        t_m, tri_m, inst_m, h_m, ovf = _mesh_intersect(proto, o, d, t_min, t_limit)
+        t_m, tri_m, inst_m, h_m, _ = _mesh_intersect(proto, o, d, t_min, t_limit)
         mesh_wins = h_m & (~hit_surf | (t_m < t_surf))
         t_surf = torch.where(mesh_wins, t_m, t_surf)
         which = torch.where(mesh_wins, HIT_MESH_BASE + mi, which).to(torch.int32)
         idx = torch.where(mesh_wins, tri_m, idx)
         aux = torch.where(mesh_wins, inst_m, aux)
         hit_surf = hit_surf | h_m
-        overflow += ovf
 
     if scene.n_volumes > 0:
         t_limit = torch.where(hit_surf, t_surf, BIG)
@@ -413,7 +411,7 @@ def closest_hit(scene: Scene, o: V3, d: V3, tm, t_min, t_max, seed, stream,
         which = torch.where(vol_wins, HIT_VOLUME, which).to(torch.int32)
         idx = torch.where(vol_wins, i_v, idx)
 
-    return t_surf, which, idx, aux, overflow
+    return t_surf, which, idx, aux, 0
 
 
 def _rows(idx, n):
@@ -583,20 +581,18 @@ def occluded(scene: Scene, o: V3, d: V3, tm, t_min, t_max, seed, stream, bounce,
     blocked = h_s | h_p
     t_surf = torch.minimum(torch.where(h_s, t_s, BIG),
                            torch.where(h_p, t_p, BIG))
-    overflow = 0
     for proto in scene.meshes:
-        _, _, _, h_m, ovf = _mesh_intersect(
+        _, _, _, h_m, _ = _mesh_intersect(
             proto, o, d, t_min, torch.minimum(t_surf, t_max), any_hit=True)
         blocked = blocked | h_m
         t_surf = torch.where(h_m, t_min, t_surf)
-        overflow += ovf
     if scene.n_volumes > 0:
         u_vol = _volume_uniforms(seed, stream, bounce, purpose_base,
                                  scene.n_volumes)
         t_limit = torch.minimum(t_surf, t_max)
         _, _, h_v = packs.sample_volumes(scene.volumes, o, d, t_min, t_limit, u_vol)
         blocked = blocked | h_v
-    return blocked, overflow
+    return blocked, 0
 
 
 # -----------------------------------------------------------------------------
@@ -737,21 +733,19 @@ class PathState(NamedTuple):
 
 def bounce_step(scene: Scene, cam, state: PathState, tm, stream, seed,
                 bounce: int, *, fast: bool,
-                tabs: Optional[SweepTables] = None):
-    """One bounce of the standard integrator for the whole wavefront.
-    Returns (the next ``PathState``, the mesh kernels' overflow (0))."""
+                tabs: Optional[SweepTables] = None) -> PathState:
+    """One bounce of the standard integrator for the whole wavefront."""
     (o, d, throughput, radiance, alive, allow_light,
      miss_dir, miss_tp, miss_primary, missed) = state
     dev = alive.device
 
     # Dead lanes get t_max = -1: the kernels skip their sweep.
     t_cap = torch.where(alive, BIG, -1.0)
-    overflow = 0
     if fast:
         t, which, idx, attrs = _attr_closest_hit(
             scene, o, d, tm, EPS_HIT, t_cap, seed, stream, bounce, tabs)
     else:
-        t, which, idx, aux, overflow = closest_hit(
+        t, which, idx, aux, _ = closest_hit(
             scene, o, d, tm, EPS_HIT, t_cap, seed, stream, bounce, tabs)
     hit = (which != HIT_NONE) & alive
 
@@ -792,12 +786,11 @@ def bounce_step(scene: Scene, cam, state: PathState, tm, stream, seed,
     use_mis = torch.zeros_like(alive)
     if scene.n_lights > 0:
         use_mis = sc.can_use_nee & alive & hit
-        direct, ovf, _ = sample_area_light(
+        direct, _, _ = sample_area_light(
             scene, cam, p, normal, d, sc.attenuation, mat_id,
             seed, stream, bounce, mat_attrs=mat_attrs, active=use_mis,
             tabs=tabs)
         radiance = radiance + V3.select(use_mis, throughput * direct, zero)
-        overflow += ovf
 
     # --- continue the path ----------------------------------------------------
     alive = alive & hit & sc.scattered
@@ -806,7 +799,7 @@ def bounce_step(scene: Scene, cam, state: PathState, tm, stream, seed,
     d = V3.select(alive, sc.direction, d)
     allow_light = ~use_mis
     return PathState(o, d, throughput, radiance, alive, allow_light,
-                     miss_dir, miss_tp, miss_primary, missed), overflow
+                     miss_dir, miss_tp, miss_primary, missed)
 
 
 def _check_standard(scene: Scene):
@@ -828,9 +821,9 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
     """Radiance for a ray megabatch, on the device the rays lie on.
 
     o/d: V3 (or [R,3] tensors, converted); tm/stream [R].  Returns V3, or
-    (V3, stats dict) when ``with_stats``; ``stats["mesh_overflow"]`` sums
-    what the mesh kernels dropped, which is always 0 (they have no slot
-    cap; the JAX package's frontier traversal could drop pairs).
+    (V3, stats dict) when ``with_stats``; ``stats["mesh_overflow"]`` is
+    always 0: the mesh kernels have no slot cap and drop nothing (the JAX
+    package's frontier traversal could drop pairs).
 
     ``mega_mode``: None picks 'single' (the megakernel) for a scene inside
     its gate when ``differentiable`` is false, else 'off' (the standard
@@ -894,19 +887,17 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
         V3.zeros((r,), device=dev), V3.zeros((r,), device=dev),
         false, false,                                 # miss_primary, missed
     )
-    overflow = 0
     for bounce in range(cam.max_depth):
         # Deep configurations kill most lanes within a few bounces: the
         # render stops when none survive.  A gradient-bearing trace runs
         # every bounce, so that its graph does not depend on the data.
         if not differentiable and bounce > 0 and not bool(state.alive.any()):
             break
-        state, ovf = bounce_step(scene, cam, state, tm, stream, seed, bounce,
-                                 fast=fast, tabs=tabs)
-        overflow += ovf
+        state = bounce_step(scene, cam, state, tm, stream, seed, bounce,
+                            fast=fast, tabs=tabs)
 
     rad = _add_miss(scene, cam, state.radiance, state.missed, state.miss_dir,
                     state.miss_tp, state.miss_primary)
     if with_stats:
-        return rad, dict(mesh_overflow=overflow)
+        return rad, dict(mesh_overflow=0)
     return rad

@@ -260,13 +260,6 @@ def stream_ok(proto) -> bool:
     return proto.s_n_seg > 0
 
 
-def stream_segment_boxes(tilebox):
-    """[S, 6] box of each segment (the union of its slots) from the slot
-    boxes [S, 6, SEG_TILES]; padding slots are +BIG/-BIG and vanish."""
-    return torch.cat([tilebox[:, 0:3, :].amin(dim=2),
-                      tilebox[:, 3:6, :].amax(dim=2)], dim=1).contiguous()
-
-
 # -----------------------------------------------------------------------------
 # Plain PyTorch versions
 # -----------------------------------------------------------------------------
@@ -310,21 +303,26 @@ def _sweep_plain(proto, o, d, t_cap, t_min, any_hit, counts=None):
     on the 8 triangles of each leaf entered.  Vectorized over the rays that
     entered the parent box, one 128-triangle tile at a time; the boxes are
     taken in the kernel's order, so that each test sees the running best the
-    kernel's does.  Returns (t_best, tri_best, inst_best) with -1 ids on a
-    miss."""
+    kernel's does.  A ray whose ``t_cap`` is not above ``t_min`` hits
+    nothing and is left out from the start, as the kernel writes its miss
+    before the instance loop.  Returns (t_best, tri_best, inst_best) with
+    -1 ids on a miss."""
     r, dev = t_cap.shape[0], t_cap.device
     t_best = t_cap.clone()
     tri_best = torch.full((r,), -1, dtype=torch.int32, device=dev)
     inst_best = torch.full((r,), -1, dtype=torch.int32, device=dev)
-    w2l = proto.inst_w2l.detach().cpu().numpy().astype(np.float64).tolist()
-    root = (proto.root_bbox_min.tolist() + proto.root_bbox_max.tolist())
+    w2l = proto.w2l_host
+    root = proto.root_box.tolist()
     coarse, tiles = (b.detach().reshape(-1, 6).cpu().numpy().astype(np.float64).tolist()
                      for b in (proto.k_coarsebox, proto.k_tilebox))
     subs = proto.k_subtilebox.reshape(-1, TILE // SUB, 6)     # per tile
     leaves = proto.k_leafbox.reshape(-1, TILE // LEAF, 6)
-    all_rays = torch.arange(r, device=dev)
+    live = torch.nonzero(t_cap > t_min).squeeze(1)
 
     for ii in range(proto.n_instances):
+        if any_hit:
+            live = live[tri_best[live] < 0]   # the kernel stops at a hit
+        _count(counts, "local_rays", live.numel())
         ol, dl, inv = _local_rays(w2l[ii], o, d)
 
         def enter(idx, box):
@@ -335,7 +333,7 @@ def _sweep_plain(proto, o, d, t_cap, t_min, any_hit, counts=None):
                               t_best[idx])
             return idx[far > near]
 
-        idx0 = enter(all_rays, root)
+        idx0 = enter(live, root)
         for ci in range(proto.k_n_coarse if idx0.numel() else 0):
             idx1 = enter(idx0, coarse[ci])
             for k in range(COARSE if idx1.numel() else 0):
@@ -435,7 +433,8 @@ def _stream_plain(proto, o, d, t_cap, t_min, any_hit, counts=None):
     the instances before (``far0``); each segment whose box the ray meets
     within it (``far >= near``), each slot of such a segment likewise, and
     Baldwin-Weber on the triangles of each slot entered, accepting
-    ``t_min <= tc < t_cap``.  The culls of one instance do not depend on
+    ``t_min <= tc < t_cap`` (a ray whose ``t_cap`` is not above ``t_min``
+    is left out from the start, as in the kernel).  The culls of one instance do not depend on
     its own hits, so the (ray, slot) pairs are found first and swept in
     batches of ``[pairs, 128 * tps]``; within an instance the least t wins
     and, at equal t, the lowest leaf-order id, which makes the order of the
@@ -447,23 +446,28 @@ def _stream_plain(proto, o, d, t_cap, t_min, any_hit, counts=None):
     acc_t = torch.full((r,), big, device=dev)
     acc_id = torch.full((r,), -1, dtype=torch.int32, device=dev)
     acc_inst = torch.full((r,), -1, dtype=torch.int32, device=dev)
-    w2l = proto.inst_w2l.detach().cpu().numpy().astype(np.float64).tolist()
-    root = (proto.root_bbox_min.tolist() + proto.root_bbox_max.tolist())
+    w2l = proto.w2l_host
+    root = proto.root_box.tolist()
     tilebox = proto.s_tilebox
     n_seg = tilebox.shape[0]
-    segbox = stream_segment_boxes(tilebox).t()                     # [6, S]
+    segbox = proto.s_segbox.t()                                    # [6, S]
     slotbox = tilebox.permute(1, 0, 2).reshape(6, n_seg * SEG_TILES)  # [6, NSLOT]
     tps = proto.s_tri.shape[0] // (n_seg * SEG_TILES)
     s_tri = proto.s_tri
 
+    live = t_cap > t_min
     for ii in range(proto.n_instances):
+        if any_hit:
+            live = live & (acc_id < 0)        # the kernel stops at a hit
+        if counts is not None:
+            _count(counts, "local_rays", live.sum())
+            _count(counts, "box_tests", live.sum())
         ol, dl, inv = _local_rays(w2l[ii], o, d)
-        _count(counts, "box_tests", r)
         near0, t_ex = _slab(root, ol, inv, torch.full((r,), t_min, device=dev),
                             t_cap)
         far0 = torch.minimum(t_ex, acc_t)
         # every later slab test lies inside [near0, far0]
-        idx = torch.nonzero(far0 >= near0).squeeze(1)
+        idx = torch.nonzero(live & (far0 >= near0)).squeeze(1)
         if idx.numel() == 0:
             continue
         ol_i = [c[idx] for c in ol]
@@ -502,7 +506,7 @@ def _stream_plain(proto, o, d, t_cap, t_min, any_hit, counts=None):
             rows = s_tri[tiles].permute(2, 0, 1, 3).reshape(ROWS, tiles.shape[0], -1)
             t_p, id_p = _bw_pairs(rows, [c[pray][:, None] for c in ol_i],
                                   [c[pray][:, None] for c in dl_i],
-                                  cap[pray][:, None], t_min, int_max)
+                                  cap[pray][:, None], t_min, int_max, counts)
             # lexicographic (t, id) minimum per ray over the batch's pairs
             bt = torch.full_like(best_t, big).scatter_reduce(
                 0, pray, t_p, "amin")
@@ -523,16 +527,20 @@ def _stream_plain(proto, o, d, t_cap, t_min, any_hit, counts=None):
     return acc_t, acc_id, acc_inst
 
 
-def _bw_pairs(rows, o_, d_, cap, t_min, int_max):
+def _bw_pairs(rows, o_, d_, cap, t_min, int_max, counts=None):
     """Baldwin-Weber of each pair's ray ([B, 1] components) against its
     triangles (``rows`` [ROWS, B, L]).  Returns the pair's least accepted
-    t (BIG if none) and the lowest leaf-order id at that t."""
+    t (BIG if none) and the lowest leaf-order id at that t.  Counts the
+    triangles whose plane t passes (``tri_t_pass``): only those go on to
+    the barycentrics in the kernel."""
     nr, U, V = rows[0:3], rows[3:6], rows[6:9]
     d_p, Uo, Vo = rows[10], rows[11], rows[12]
     den = nr[0] * d_[0] + nr[1] * d_[1] + nr[2] * d_[2]
     num = d_p - (nr[0] * o_[0] + nr[1] * o_[1] + nr[2] * o_[2])
     parallel = torch.abs(den) < 1e-12
     tc = num / torch.where(parallel, 1.0, den)
+    if counts is not None:
+        _count(counts, "tri_t_pass", (~parallel & (tc >= t_min) & (tc < cap)).sum())
     px = o_[0] + tc * d_[0]
     py = o_[1] + tc * d_[1]
     pz = o_[2] + tc * d_[2]
@@ -608,22 +616,17 @@ def _outputs(r, dev):
             torch.empty((r,), dtype=torch.uint8, device=dev))
 
 
-def _root(proto):
-    return torch.cat([proto.root_bbox_min, proto.root_bbox_max]).contiguous()
-
-
 def _sweep_cuda(proto, o, d, t_max, t_min, any_hit):
     """Launch on PyTorch's current stream; does not synchronize."""
     global LAUNCHES_SWEEP
     r = t_max.shape[0]
-    _check(proto, ("inst_w2l", "root_bbox_min", "root_bbox_max", "k_coarsebox",
+    _check(proto, ("inst_w2l", "root_box", "k_coarsebox",
                    "k_tilebox", "k_subtilebox", "k_leafbox", "k_tri"),
            [*o, *d, t_max], r)
     t, tri, inst, hit = _outputs(r, t_max.device)
     if r:
-        root = _root(proto)
         _launch("mesh_sweep_launch", _SWEEP_ARGTYPES, t_max.device,
-                [proto.inst_w2l.data_ptr(), proto.n_instances, root.data_ptr(),
+                [proto.inst_w2l.data_ptr(), proto.n_instances, proto.root_box.data_ptr(),
                  proto.k_coarsebox.data_ptr(), proto.k_tilebox.data_ptr(),
                  proto.k_subtilebox.data_ptr(), proto.k_leafbox.data_ptr(),
                  proto.k_n_coarse, proto.k_tri.data_ptr(),
@@ -639,17 +642,15 @@ def _stream_cuda(proto, o, d, t_max, t_min, any_hit):
     """Launch on PyTorch's current stream; does not synchronize."""
     global LAUNCHES_STREAM
     r = t_max.shape[0]
-    _check(proto, ("inst_w2l", "root_bbox_min", "root_bbox_max", "s_tilebox",
-                   "s_tri"), [*o, *d, t_max], r)
+    _check(proto, ("inst_w2l", "root_box", "s_segbox", "s_tilebox", "s_tri"),
+           [*o, *d, t_max], r)
     t, tri, inst, hit = _outputs(r, t_max.device)
     if r:
-        root = _root(proto)
         n_seg = int(proto.s_tilebox.shape[0])
         tps = int(proto.s_tri.shape[0]) // (n_seg * SEG_TILES)
-        segbox = stream_segment_boxes(proto.s_tilebox)
         _launch("mesh_stream_launch", _STREAM_ARGTYPES, t_max.device,
-                [proto.inst_w2l.data_ptr(), proto.n_instances, root.data_ptr(),
-                 segbox.data_ptr(), proto.s_tilebox.data_ptr(), n_seg, tps,
+                [proto.inst_w2l.data_ptr(), proto.n_instances, proto.root_box.data_ptr(),
+                 proto.s_segbox.data_ptr(), proto.s_tilebox.data_ptr(), n_seg, tps,
                  proto.s_tri.data_ptr(), proto.n_tris,
                  *[a.data_ptr() for a in (*o, *d, t_max)], r, float(t_min),
                  int(any_hit), t.data_ptr(), tri.data_ptr(), inst.data_ptr(),
@@ -706,9 +707,11 @@ def intersect_mesh_stream(proto, o, d, t_min, t_max, any_hit=False):
 
 def plain(kind: str, proto, o, d, t_min, t_max, any_hit=False, counts=None):
     """The plain version of ``kind`` ("sweep" or "stream") on tensors of any
-    device: what the GPU check holds the kernel against.  Adds the box and
-    triangle tests it makes (the kernel makes the same) to ``counts``, a
-    dict, when one is given."""
+    device: what the GPU check holds the kernel against.  Adds the work it
+    does that the kernel does too to ``counts``, a dict, when one is given:
+    ``local_rays`` (ray, instance) pairs transformed, ``box_tests``,
+    ``tri_tests`` and, for the stream, ``tri_t_pass`` (triangles whose
+    plane t passes, so that the barycentrics follow)."""
     o_, d_, t_max_ = _rays(o, d, t_max)
     fn = _sweep_plain if kind == "sweep" else _stream_plain
     return (*_finish(*fn(proto, o_, d_, t_max_, float(np.float32(t_min)),

@@ -49,6 +49,8 @@ def _assert_proto_equal(jp, tp):
     """Every field of the port's MeshProto equals the JAX one's."""
     jt = mesh_tree(jp)
     for f in dataclasses.fields(tp):
+        if not f.init:
+            continue            # derived from the other fields
         v = getattr(tp, f.name)
         if isinstance(v, tuple):
             assert len(v) == len(jt[f.name]), f.name
