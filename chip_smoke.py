@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py [--out-dir DIR]
 
-Needs one NVIDIA GPU and ``nvcc``.  It builds the eleven CUDA kernels from
-the sources in this checkout (the forward megakernel, the stash-writing
-gradient forward and the reverse sweep of the product-chain tier, the
-same two of the pathwise tier, the four closest-hit kernels of the
-standard integrator, and the two mesh kernels), holds each against its plain
+Needs one NVIDIA GPU and ``nvcc``.  It builds the thirteen CUDA kernels
+from the sources in this checkout (the forward megakernel and its record
+variant, the stash-writing gradient forward and the reverse sweep of the
+product-chain tier, the same two of the pathwise tier, the four closest-hit
+kernels of the standard integrator, the two mesh kernels, and the row sums
+of ``take_rows``' backward pass), holds each against its plain
 PyTorch version on the GPU, renders the Cornell box at full size (600x338,
 100 spp, depth 5) through the public entry points, checks the image, times
 the forward kernel at the render's own shapes beside its roofline bound,
@@ -30,8 +31,19 @@ through ``render_image`` with a crop held against the plain versions on the
 CPU (``mesh_main_path``, ``mesh_stream``), the same at the scene's default
 3,744 triangles (``mesh_small_path``, ``mesh_sweep``), autograd through a
 mesh scene (``mesh_autograd``) and the two kernels alone
-(``mesh_kernel_timing``).  The earlier phases run at the sizes they always
-had.  It prints one JSON line per phase.
+(``mesh_kernel_timing``).  Then the replay tier of ``render_grad``: the
+record kernel against the forward kernel, its plain version and the
+standard integrator's record (``record_kernel_vs_plain``, early), ``random``
+(600x337, 25 spp, depth 10, recorded by the record kernel) and
+``cornell-lucy`` (600x600, 25 spp, depth 5, 112,128 triangles x 10,
+recorded through ``mesh_stream``) at full size (``replay_random_fwd_bwd``,
+``replay_lucy_fwd_bwd``), the record kernel alone (``record_kernel_timing``),
+both scenes at 32x32 against the CPU's plain versions and autograd
+(``replay_check``), the row-sum kernel of ``take_rows``' backward pass
+(``row_sums_kernel``; not a port of a TPU kernel, so not in the ``kernels``
+line) and the bits of repeated gradients (``grad_bit_stable``).  The
+earlier phases run at the sizes they always had.  It prints one JSON line
+per phase.
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failing phase raises: the exit code is then not 0 and no result line
@@ -79,6 +91,16 @@ The mesh kernels are held to equality too: hit, the bits of t, tri and inst
 (gate 0.5 %, 0.0 expected).  A mesh render's 32x32 crop at 1 spp, traced on
 the card and by the plain versions on the CPU, is held to rtol 1e-3 / atol
 2e-3 on the tonemapped pixels (gate 0.5 % of channels).
+
+The record kernel's radiance and flags must be the forward kernel's bits and
+its record its plain version's on every ray-bounce (gate 0.0); each field
+must equal the standard integrator's record on 99.9 % of ray-bounces (ties
+break otherwise between the two sweeps).  The replay tier's loss must be
+the loss of ``render``'s picture (rtol 1e-5), its gradients finite, the
+card's within 2e-3 of each key's largest entry of the CPU's, colour
+gradients within 2e-3 of autograd's, and the gradients of repeated calls
+(and of two autograd backward passes) the same bits.  The row-sum kernel
+agrees with its float64 plain version to 1e-4 of the largest entry.
 """
 
 import argparse
@@ -99,6 +121,7 @@ from go_raytracing_tpu_torch.core.vec3 import V3
 from go_raytracing_tpu_torch.ops import _build
 from go_raytracing_tpu_torch.ops import cuda_intersect as ck
 from go_raytracing_tpu_torch.ops import cuda_mesh as cm
+from go_raytracing_tpu_torch.ops import cuda_rows as cr
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from go_raytracing_tpu_torch.render import grad as gradmod
 from go_raytracing_tpu_torch.render import renderer
@@ -1149,27 +1172,37 @@ def standard_autograd(name, scene, cam):
     independent routes to the colour gradients.  fuzz and ior are not
     compared: the closest-hit kernels hand autograd a hit distance without
     a gradient, so its fuzz and ior gradients lack the terms that reach
-    later hits through that distance; ``render_grad``'s are the exact ones."""
+    later hits through that distance; ``render_grad``'s are the exact ones.
+    It runs twice: the two backward passes must give the same bits (every
+    table row is gathered by ``take_rows``, whose backward pass is the
+    row-sum kernel).  Returns whether they did."""
     spp = cam.samples_per_pixel
     target = grt.render(scene, cam, seed=1) / spp * 0.8
     loss_k, g_k = grt.render_grad(scene, cam, target, seed=0)
-    params = {k: v.clone().requires_grad_()
-              for k, v in grt.trainable_params(scene).items()}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_intersect_counts()
-    stats = grt.RenderStats()
+    runs = []
+    for _ in range(2):
+        params = {k: v.clone().requires_grad_()
+                  for k, v in grt.trainable_params(scene).items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_intersect_counts()
+        cr.LAUNCHES_ROW_SUMS = 0
+        stats = grt.RenderStats()
 
-    def run():
-        fb = grt.render(grt.apply_params(scene, params), cam, seed=0,
-                        differentiable=True, stats=stats)
-        loss = torch.mean((fb / spp - target) ** 2)
-        loss.backward()
-        return loss.detach()
+        def run():
+            fb = grt.render(grt.apply_params(scene, params), cam, seed=0,
+                            differentiable=True, stats=stats)
+            loss = torch.mean((fb / spp - target) ** 2)
+            loss.backward()
+            return loss.detach()
 
-    ms, loss = cuda_ms(run)
+        ms, loss = cuda_ms(run)
+        runs.append((ms, params, cr.LAUNCHES_ROW_SUMS))
     counts = intersect_counts()
     peak = torch.cuda.max_memory_allocated()
+    same_bits = all(torch.equal(runs[0][1][k].grad, runs[1][1][k].grad)
+                    for k in params if params[k].grad is not None)
+    ms = runs[0][0]
     big = float(g_k["color"].abs().max())
     diff = float((params["color"].grad - g_k["color"]).abs().max()) / big
     loss_diff = abs(float(loss) - float(loss_k)) / float(loss_k)
@@ -1179,6 +1212,8 @@ def standard_autograd(name, scene, cam):
          height=cam.image_height, spp=spp, depth=cam.max_depth,
          camera_rays=cam.image_width * cam.image_height * spp,
          chunks=stats.chunks, launches=counts, forward_backward_ms=ms,
+         forward_backward_ms_second_run=runs[1][0], row_sums_launches=runs[1][2],
+         gradients_same_bits_in_both_runs=same_bits,
          loss=float(loss), loss_rel_diff_to_render_grad=loss_diff,
          color_grad_diff_of_largest=diff, largest_color_grad=big,
          all_gradients_finite=finite, max_memory_allocated=peak,
@@ -1191,6 +1226,9 @@ def standard_autograd(name, scene, cam):
     if loss_diff > 1e-4 or not diff <= AUTOGRAD_RTOL_OF_LARGEST:
         raise RuntimeError(f"{name}: autograd against render_grad: loss off by "
                            f"{loss_diff}, colour gradients by {diff}")
+    if runs[1][2] < 1:
+        raise RuntimeError(f"{name}: the backward pass launched no row-sum kernel")
+    return same_bits
 
 
 def intersect_kernel_timing(cases, launches, small_checks):
@@ -1668,6 +1706,271 @@ def mesh_phases(dev):
         checks)
 
 
+# ---- the replay tier: the record kernel (B6), render_grad of scenes outside
+# both gradient kernel tiers, and the row sums of take_rows' backward -------
+
+# A decision written by the record kernel: 4 bytes of index, 1 of kind and
+# blocked bits.
+RECORD_BYTES_PER_DECISION = 5
+MIN_RECORD_SHARE = 0.999
+
+
+def reset_replay_counts():
+    cw.LAUNCHES = cw.LAUNCHES_RECORD = 0
+    cr.LAUNCHES_ROW_SUMS = 0
+    reset_intersect_counts()
+    reset_mesh_counts()
+
+
+def replay_counts():
+    return {"wavefront_fwd": cw.LAUNCHES, "wavefront_record": cw.LAUNCHES_RECORD,
+            "row_sums": cr.LAUNCHES_ROW_SUMS, **intersect_counts(), **mesh_counts()}
+
+
+def compare_record(name, scene, cam, o, d, tm, ids, seed):
+    """The record kernel on one ray set: its radiance and flags against the
+    forward kernel's (same bits), its record against its plain version's
+    (every ray-bounce), each field against the standard integrator's record
+    (``MIN_RECORD_SHARE``: ties may break otherwise between the sweeps).
+    Returns (decision mismatch share, largest radiance difference to the
+    plain version)."""
+    tb = cw.build_tables(scene)
+    sid = cw.stream_to_i32(ids)
+    args = (tb, o, d, tm, sid, seed, cam.max_depth)
+    k_out, k_flags, code, idx = cw.wavefront_record(*args)
+    f_out, f_flags = cw.wavefront_fwd(*args)
+    p_out, p_flags, p_code, p_idx = cw._wavefront_record_plain(*args)
+    torch.cuda.synchronize()
+    bits = bool(torch.equal(k_out, f_out) and torch.equal(k_flags, f_flags))
+    dec_mismatch = float(((code != p_code) | (idx != p_idx)).float().mean())
+    rad_err = float((k_out - p_out).abs().max())
+    flags_equal = bool(torch.equal(k_flags, p_flags))
+    which, widx, blk_a, blk_h = cw.unpack_record(code, idx)
+    _, dec = wavefront.trace(scene, cam, o, d, tm, ids, seed, mega_mode="off",
+                             record=True)
+    shares = {f: float((a == getattr(dec, f)).float().mean())
+              for f, a in (("which", which), ("idx", widx), ("blk_a", blk_a),
+                           ("blk_h", blk_h))}
+    emit("record_kernel_vs_plain", scene=name, rays=int(tm.shape[0]),
+         depth=cam.max_depth, radiance_and_flags_bits_equal_forward_kernel=bits,
+         decision_mismatch_share_vs_plain=dec_mismatch,
+         max_abs_err_radiance_vs_plain=rad_err, flags_equal_plain=flags_equal,
+         share_equal_standard_record=shares,
+         hit_share=float((which != 0).float().mean()),
+         blocked_share=float(blk_a.float().mean()))
+    if not bits:
+        raise RuntimeError(f"{name}: the record kernel's radiance is not the forward kernel's")
+    if dec_mismatch != 0.0 or rad_err >= ATOL or not flags_equal:
+        raise RuntimeError(f"{name}: record kernel against its plain version: "
+                           f"decisions {dec_mismatch}, radiance {rad_err}")
+    if min(shares.values()) < MIN_RECORD_SHARE:
+        raise RuntimeError(f"{name}: record kernel against the standard record: {shares}")
+    return dec_mismatch, rad_err
+
+
+def replay_chunk_rays(scene, cam):
+    """The first chunk of ``render_grad``'s replay tier for this job: its
+    rays, stream ids and size."""
+    kchunk, _, _, _ = gradmod._chunking(
+        scene, cam, cam.samples_per_pixel, None,
+        renderer.pick_chunk_size(scene, differentiable=True))
+    cam2, o, d, tm, ids, _, _ = renderer._chunk_rays(
+        scene, cam, 0, 0, spp=cam.samples_per_pixel, chunk=kchunk,
+        max_depth=cam.max_depth, device=scene.device)
+    return (cam2, V3(*(c.contiguous() for c in o)), V3(*(c.contiguous() for c in d)),
+            tm.contiguous(), cw.stream_to_i32(ids))
+
+
+def record_kernel_timing(cases, launches, checks, regs):
+    """The record kernel alone at ``render_grad``'s record chunk of
+    ``random`` (600x337, 25 spp, depth 10) and at the Cornell render's chunk,
+    beside the forward kernel on the same rays and its bound; its plain
+    version timed on ``random``'s chunk.  ``cases``: (name, scene, cam, rays).
+    Returns its entry of the ``kernels`` line (``random``'s chunk)."""
+    entry = None
+    for name, scene, cam, (o, d, tm, sid) in cases:
+        tb = cw.build_tables(scene)
+        depth = cam.max_depth
+        n = tm.shape[0]
+        args = (tb, o, d, tm, sid, 0, depth)
+        cw.wavefront_record(*args)
+        rec_rounds, k = rounds_ms(lambda: cw.wavefront_record(*args), rounds=3, repeats=3)
+        fwd_rounds, _ = rounds_ms(lambda: cw.wavefront_fwd(*args), rounds=3, repeats=3)
+        ms = median(rec_rounds)
+        entering = [n]
+        for b in range(1, depth):
+            _, f = cw.wavefront_fwd(tb, o, d, tm, sid, 0, b)
+            entering.append(int(((f & cw.FLAG_ALIVE) != 0).sum()))
+        per_bounce = (tb.n_planar * FLOPS_PLANAR + tb.n_sphere * FLOPS_SPHERE
+                      + tb.n_vol * FLOPS_VOLUME + FLOPS_SHADE)
+        table_bytes = 4 * sum(t.numel() for t in (tb.pt, tb.st, tb.vt, tb.lt))
+        moved = 18 * 4 * n + table_bytes + depth * n * RECORD_BYTES_PER_DECISION
+        bound = (moved / PEAK_BYTES_PER_S * 1e3,
+                 float(sum(entering)) * per_bounce / PEAK_FP32_FLOPS * 1e3)
+        fields = {}
+        if entry is None:
+            plain_ms, p = cuda_ms(lambda: cw._wavefront_record_plain(*args))
+            mismatch = float(((k[2] != p[2]) | (k[3] != p[3])).float().mean())
+            err = float((k[0] - p[0]).abs().max())
+            del p
+            if mismatch != 0.0:
+                raise RuntimeError(f"{name}: full chunk: {mismatch:.4%} of decisions "
+                                   "differ from the plain version's")
+            fields = dict(plain_ms=plain_ms, decision_mismatch_share_full_chunk=mismatch,
+                          max_abs_err_full_chunk=err)
+            entry = kernel_entry(
+                n, "wavefront_record", "go_raytracing_tpu_torch/csrc/wavefront.cu",
+                "go_raytracing_tpu/ops/pallas_wavefront.py:1822 (_call(rec_dec=True))",
+                launches, ms, plain_ms, bound, [err] + [c[1] for c in checks]) | {
+                    "mismatch_share": max([mismatch] + [c[0] for c in checks]),
+                    "scene": name, "depth": depth, "registers": regs[0],
+                    "spill_bytes": regs[1]}
+        emit("record_kernel_timing", scene=name, rays_per_launch=n, depth=depth,
+             record_ms=ms, record_ms_rounds=rec_rounds, forward_ms=median(fwd_rounds),
+             forward_ms_rounds=fwd_rounds, rays_entering_bounce=entering,
+             bytes_counted=moved, decision_bytes=depth * n * RECORD_BYTES_PER_DECISION,
+             flops_counted=float(sum(entering)) * per_bounce,
+             bound_bytes_ms=bound[0], bound_ops_ms=bound[1],
+             roofline_share=max(bound) / ms, registers=regs[0], spill_bytes=regs[1],
+             **fields)
+        del o, d, tm, sid, k
+    return entry
+
+
+def replay_main_path(phase, name, scene, cam, rounds):
+    """``render_grad`` of a scene on the replay tier at full size: one
+    warm-up, then ``rounds`` timed calls, the launch counts of the last (set
+    to 0 just before it, read just after), the loss against the loss of
+    ``render``'s picture, every gradient finite; all calls' gradients must
+    have the same bits.  Returns (counts, chunks, bits equal)."""
+    spp = cam.samples_per_pixel
+    n_rays = cam.image_width * cam.image_height * spp
+    if gradmod.grad_tier(scene, cam.max_depth) != "replay":
+        raise RuntimeError(f"{phase}: {name} is not on the replay tier")
+    target = torch.full((cam.image_height, cam.image_width, 3), 0.25, device=scene.device)
+    grt.render_grad(scene, cam, target, seed=0)   # warm-up
+    taken, results = [], []
+    for _ in range(rounds):
+        stats = grt.RenderStats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_replay_counts()
+        ms, (loss, grads) = cuda_ms(lambda: grt.render_grad(scene, cam, target, seed=0,
+                                                            stats=stats))
+        counts = replay_counts()
+        peak = torch.cuda.max_memory_allocated()
+        taken.append(ms)
+        results.append((float(loss), grads))
+    same_bits = all(r[0] == results[0][0]
+                    and all(torch.equal(r[1][k], results[0][1][k]) for k in r[1])
+                    for r in results[1:])
+    fb = grt.render(scene, cam, seed=0)
+    render_loss = float(torch.mean((fb / spp - target) ** 2))
+    loss_rel = abs(results[-1][0] - render_loss) / render_loss
+    finite = all(bool(torch.isfinite(v).all()) for v in grads.values())
+    dec_bytes = n_rays * gradmod.dec_bytes_per_ray(cam.max_depth)
+    ms = median(taken)
+    emit(phase, scene=name, width=cam.image_width, height=cam.image_height, spp=spp,
+         depth=cam.max_depth, camera_rays=n_rays, tier="replay",
+         records_kept=dec_bytes <= gradmod.DEC_BUDGET, decision_bytes=dec_bytes,
+         chunks=stats.chunks, launches=counts, fwd_bwd_ms_rounds=taken,
+         fwd_bwd_ms_median=ms, fwd_bwd_camera_mrays_per_s=n_rays / (ms * 1e-3) / 1e6,
+         max_memory_allocated=peak, loss=results[-1][0], render_loss=render_loss,
+         loss_rel_diff_to_render=loss_rel, all_gradients_finite=finite,
+         gradients_same_bits_every_call=same_bits,
+         largest_gradient={k: float(v.abs().max()) for k, v in grads.items()})
+    if not finite or loss_rel > 1e-5:
+        raise RuntimeError(f"{phase}: loss off the render's by {loss_rel}, finite {finite}")
+    if counts["row_sums"] < 1:
+        raise RuntimeError(f"{phase}: the replay launched no row-sum kernel")
+    return counts, stats.chunks, same_bits
+
+
+def replay_check(name, scene, cpu_scene, cam):
+    """``render_grad`` at a small size on the card against the same call on
+    the CPU through the plain versions (every key within 2e-3 of its largest
+    entry), colour gradients against ``torch.autograd`` through
+    ``render(differentiable=True)`` (2e-3), and ``dec_budget=0`` (records made
+    again in pass B) against records kept (the same bits)."""
+    spp = cam.samples_per_pixel
+    target = torch.full((cam.image_height, cam.image_width, 3), 0.25)
+    reset_replay_counts()
+    loss, g = grt.render_grad(scene, cam, target.cuda(), seed=1)
+    counts = replay_counts()
+    loss0, g0 = grt.render_grad(scene, cam, target.cuda(), seed=1, dec_budget=0)
+    ref_loss, ref = grt.render_grad(cpu_scene, cam, target, seed=1, device="cpu")
+    cpu_diff = {k: float((g[k].cpu() - ref[k]).abs().max())
+                / max(float(ref[k].abs().max()), 1e-12) for k in ref}
+    params = {k: v.clone().requires_grad_() for k, v in grt.trainable_params(scene).items()}
+    fb = grt.render(grt.apply_params(scene, params), cam, seed=1, differentiable=True)
+    torch.mean((fb / spp - target.cuda()) ** 2).backward()
+    big = max(float(g["color"].abs().max()), 1e-12)
+    autograd_diff = float((params["color"].grad - g["color"]).abs().max()) / big
+    over_budget_same = (float(loss0) == float(loss)
+                        and all(torch.equal(g0[k], g[k]) for k in g))
+    loss_cpu_rel = abs(float(loss) - float(ref_loss)) / float(ref_loss)
+    emit("replay_check", scene=name, width=cam.image_width, height=cam.image_height,
+         spp=spp, depth=cam.max_depth, loss=float(loss), loss_cpu=float(ref_loss),
+         loss_rel_diff_cpu=loss_cpu_rel, grad_diff_of_largest_vs_cpu=cpu_diff,
+         color_grad_diff_of_largest_vs_autograd=autograd_diff,
+         over_budget_same_bits=over_budget_same, launches=counts)
+    recorder = "mesh_sweep" if scene.meshes else "wavefront_record"
+    if counts[recorder] < 1:
+        raise RuntimeError(f"replay_check {name}: launches {counts}")
+    if max(cpu_diff.values()) > AUTOGRAD_RTOL_OF_LARGEST or loss_cpu_rel > 1e-4:
+        raise RuntimeError(f"replay_check {name}: card against CPU {cpu_diff}, "
+                           f"loss {loss_cpu_rel}")
+    if autograd_diff > AUTOGRAD_RTOL_OF_LARGEST or not over_budget_same:
+        raise RuntimeError(f"replay_check {name}: autograd {autograd_diff}, "
+                           f"over budget same {over_budget_same}")
+
+
+def sorted_row_sums(g, idx, n_rows):
+    """The other fixed-order route to take_rows' backward pass, timed beside
+    the kernel and used nowhere else: a stable sort of the indices, prefix
+    sums of the sorted rows in float64 along the innermost dimension, and
+    each row's sum as the difference of two prefix sums."""
+    key, order = torch.sort(idx.to(torch.int32), stable=True)
+    rows = g.index_select(0, order).reshape(idx.numel(), -1).t().to(torch.float64)
+    prefix = torch.nn.functional.pad(torch.cumsum(rows, dim=1), (1, 0))
+    cut = torch.searchsorted(key, torch.arange(n_rows + 1, dtype=torch.int32,
+                                               device=g.device))
+    return (prefix[:, cut[1:]] - prefix[:, cut[:-1]]).t().to(g.dtype)
+
+
+def row_sums_check():
+    """The row-sum kernel (take_rows' backward pass; not a port of a TPU
+    kernel) against its plain version at the shapes of the Cornell autograd
+    check (1,622,400 rows, 5 textures x 3 channels) and of ``random``'s
+    textures (364 x 3), and twice on the same input (the same bits); the
+    sort route (``sorted_row_sums``) timed beside it, for the record.
+    Returns its phase line's fields."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for n_rows, cols in ((5, 3), (364, 3), (364, 1)):
+        n = 1622400
+        idx = torch.randint(0, n_rows, (n,), device="cuda", generator=gen)
+        g = torch.randn((n, cols), device="cuda", generator=gen)
+        k1 = cr.row_sums(g, idx, n_rows)
+        rounds, k2 = rounds_ms(lambda: cr.row_sums(g, idx, n_rows), rounds=3, repeats=5)
+        plain_ms, p = cuda_ms(lambda: cr._row_sums_plain(g, idx, n_rows))
+        err = float((k1 - p).abs().max()) / float(p.abs().max())
+        same = bool(torch.equal(k1, k2))
+        s_rounds, s1 = rounds_ms(lambda: sorted_row_sums(g, idx, n_rows), rounds=3, repeats=5)
+        s_same = bool(torch.equal(s1, sorted_row_sums(g, idx, n_rows)))
+        bound_ms = (n * (8 + 4 * cols) + 4 * n_rows * cols) / PEAK_BYTES_PER_S * 1e3
+        out[f"{n_rows}x{cols}"] = dict(rows=n, ms=median(rounds), ms_rounds=rounds,
+                                       plain_ms=plain_ms, err_of_largest=err,
+                                       same_bits=same, bound_ms=bound_ms,
+                                       sort_route_ms=median(s_rounds),
+                                       sort_route_same_bits=s_same,
+                                       sort_route_err_of_largest=float(
+                                           (s1 - p).abs().max()) / float(p.abs().max()))
+        if err > REV_RTOL_OF_LARGEST or not same:
+            raise RuntimeError(f"row_sums {n_rows}x{cols}: off by {err}, same bits {same}")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out-dir", default=str(_build.BUILD_DIR),
@@ -1689,17 +1992,21 @@ def main():
 
     # ---- build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    built, built_fma, built_grad, built_pw, built_ix, built_mesh = _build.load_all(
+    (built, built_fma, built_grad, built_pw, built_ix, built_mesh,
+     built_rows) = _build.load_all(
         [("wavefront", False), ("wavefront", True), ("wavefront_grad", False),
-         ("wavefront_grad_pathwise", False), ("intersect", False), ("mesh", False)])
+         ("wavefront_grad_pathwise", False), ("intersect", False), ("mesh", False),
+         ("row_sums", False)])
 
     def kernel_stats(lib, tag):
         (stats,) = [v for name, v in lib.kernels.items() if tag in name]
         return stats
 
     # wavefront_kernel<0> is the forward, <1> the product-chain gradient
-    # forward, <2> the pathwise gradient forward
+    # forward, <2> the pathwise gradient forward, <3> the record
     fwd_regs, fwd_spill = kernel_stats(built, "wavefront_kernelILi0E")
+    rec_regs = kernel_stats(built, "wavefront_kernelILi3E")
+    rows_regs = kernel_stats(built_rows, "row_sums_kernel")
     gfwd_regs, gfwd_spill = kernel_stats(built, "wavefront_kernelILi1E")
     pfwd_regs, pfwd_spill = kernel_stats(built, "wavefront_kernelILi2E")
     grev_regs, grev_spill = kernel_stats(built_grad, "wavefront_grad_rev_kernel")
@@ -1718,11 +2025,15 @@ def main():
         ("mesh_sweep_any_hit", "mesh_sweep_kernelILb1E"),
         ("mesh_stream", "mesh_stream_kernelILb0E"),
         ("mesh_stream_any_hit", "mesh_stream_kernelILb1E"))}
-    emit("build", seconds=time.perf_counter() - t0, kernels=11,
+    emit("build", seconds=time.perf_counter() - t0, kernels=13,
+         kernels_note="twelve ports of TPU kernels and the row-sum kernel of "
+                      "take_rows' backward pass (not a port)",
          nvcc_seconds=[b.build_seconds for b in (built, built_fma, built_grad, built_pw,
-                                                 built_ix, built_mesh)],
+                                                 built_ix, built_mesh, built_rows)],
          libraries=[built.path.name, built_grad.path.name, built_pw.path.name,
-                    built_ix.path.name, built_mesh.path.name],
+                    built_ix.path.name, built_mesh.path.name, built_rows.path.name],
+         record_registers=rec_regs[0], record_spill_bytes=rec_regs[1],
+         row_sums_registers=rows_regs[0], row_sums_spill_bytes=rows_regs[1],
          intersect_registers={k: v[0] for k, v in ix_stats.items()},
          intersect_spill_bytes={k: v[1] for k, v in ix_stats.items()},
          mesh_registers={k: v[0] for k, v in mesh_stats.items()},
@@ -1735,7 +2046,7 @@ def main():
          grad_fwd_pathwise_spill_bytes=pfwd_spill,
          grad_rev_pathwise_registers=prev_regs,
          grad_rev_pathwise_spill_bytes=prev_spill,
-         ptxas=[l for b in (built, built_grad, built_pw, built_ix, built_mesh)
+         ptxas=[l for b in (built, built_grad, built_pw, built_ix, built_mesh, built_rows)
                 for l in b.log.splitlines()
                 if "ptxas info" in l and ("Used" in l or "spill" in l)])
 
@@ -1773,6 +2084,21 @@ def main():
     ix_scene, ix_cam = intersect_scene(dev)
     ix_checks = [compare_intersect(ix_scene, *scattered_rays(ix_cam, 16384, 11, dev),
                                    "mixed_four_planar_kinds")]
+
+    # ---- the record kernel against B1, its plain version, the standard record --
+    rec_checks = []
+    for name, sc, cm_, seed in (("mixed", m_scene, m_cam, 2), ("cornell", scene, c_cam, 3)):
+        o, d, tm, sid = chunk_rays(cm_, 16384, seed, dev)
+        rec_checks.append(compare_record(name, sc, cm_, o, d, tm, sid.long(), seed))
+    rr_scene, rr_cam = grt.load_scene("random")
+    rr_cam = dataclasses.replace(rr_cam, image_width=600, aspect_ratio=16 / 9,
+                                 samples_per_pixel=25, max_depth=10)
+    rr_cam2, o, d, tm, ids, _, _ = renderer._chunk_rays(
+        rr_scene, rr_cam, 0, 4, spp=25, chunk=16384, max_depth=10, device=dev)
+    rec_checks.append(compare_record(
+        "random_camera_rays", rr_scene, rr_cam2, V3(*(c.contiguous() for c in o)),
+        V3(*(c.contiguous() for c in d)), tm.contiguous(), ids, 4))
+    del o, d, tm, ids
 
     # ---- main path at full size ------------------------------------------------
     cam = dataclasses.replace(cam0, image_width=600, aspect_ratio=600 / 338,
@@ -1896,10 +2222,10 @@ def main():
     std_counts, std_ms, std_chunks = standard_main_path(scene, cam, img, render_ms)
     fog_counts = standard_outside_gate(dev)
     a_cam = dataclasses.replace(cam, samples_per_pixel=8)
-    standard_autograd("cornell", scene, a_cam)
-    standard_autograd("cornell-glossy", g_scene, dataclasses.replace(
-        g_cam0, image_width=600, aspect_ratio=600 / 338, samples_per_pixel=8,
-        max_depth=5))
+    autograd_bits = [standard_autograd("cornell", scene, a_cam),
+                     standard_autograd("cornell-glossy", g_scene, dataclasses.replace(
+                         g_cam0, image_width=600, aspect_ratio=600 / 338,
+                         samples_per_pixel=8, max_depth=5))]
 
     # ---- the four closest-hit kernels alone, at their main paths' chunks ---------
     o, d, tm, _ = chunk_rays(cam, chunk, 0, dev)
@@ -1935,6 +2261,44 @@ def main():
     # ---- instanced meshes: cornell-lucy through mesh_sweep and mesh_stream ------
     mesh_entries = mesh_phases(dev)
 
+    # ---- the replay tier: random and cornell-lucy at full size -----------------
+    rr_counts, rr_chunks, rr_bits = replay_main_path(
+        "replay_random_fwd_bwd", "random", rr_scene, rr_cam, rounds=3)
+    if rr_counts["wavefront_record"] != rr_chunks or rr_counts["wavefront_fwd"] != 0:
+        raise RuntimeError(f"replay_random_fwd_bwd: launches {rr_counts} for "
+                           f"{rr_chunks} chunks")
+    lucy, lucy_cam = lucy_scene((256, 220), dev)
+    lu_counts, lu_chunks, lu_bits = replay_main_path(
+        "replay_lucy_fwd_bwd", "cornell-lucy", lucy, lucy_cam, rounds=2)
+    if lu_counts["mesh_stream"] < 1 or lu_counts["planar_closest"] < 1 \
+            or lu_counts["wavefront_record"] != 0:
+        raise RuntimeError(f"replay_lucy_fwd_bwd: launches {lu_counts}")
+    del lucy
+    rc_cam, ro, rd, rtm, rsid = replay_chunk_rays(rr_scene, rr_cam)
+    rec_entry = record_kernel_timing(
+        [("random", rr_scene, rc_cam, (ro, rd, rtm, rsid)),
+         ("cornell", scene, cam, chunk_rays(cam, chunk, 0, dev))],
+        rr_counts["wavefront_record"], rec_checks, rec_regs)
+    del ro, rd, rtm, rsid
+    small = dict(image_width=32, aspect_ratio=1.0, samples_per_pixel=2, max_depth=3)
+    for name, make in (("cornell-lucy", lambda dv: lucy_scene((48, 40), dv)[0]),
+                       ("random", lambda dv: grt.load_scene("random", device=dv)[0])):
+        sc = make(dev)
+        sc_cam = dataclasses.replace(grt.load_scene(name, device="cpu")[1], **small)
+        replay_check(name, sc, make("cpu"), sc_cam)
+    rows = row_sums_check()
+    emit("row_sums_kernel", name="row_sums", route="cuda",
+         source="go_raytracing_tpu_torch/csrc/row_sums.cu", replaces=None,
+         note="take_rows' backward pass in a fixed order (ROADMAP C7); not a port "
+              "of a TPU kernel, so not in the kernels line",
+         launches_replay_random=rr_counts["row_sums"],
+         launches_replay_lucy=lu_counts["row_sums"], registers=rows_regs[0],
+         spill_bytes=rows_regs[1], shapes=rows)
+    emit("grad_bit_stable", autograd_same_bits=autograd_bits,
+         replay_render_grad_same_bits={"random": rr_bits, "cornell-lucy": lu_bits})
+    if not (all(autograd_bits) and rr_bits and lu_bits):
+        raise RuntimeError("gradients differ in their bits from run to run")
+
     print(json.dumps({"kernels": [{
         "name": "wavefront_fwd",
         "route": "cuda",
@@ -1951,7 +2315,7 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "library_ms": None,
-    }, *grad_entries, *pw_entries, *ix_entries, *mesh_entries]}), flush=True)
+    }, rec_entry, *grad_entries, *pw_entries, *ix_entries, *mesh_entries]}), flush=True)
     print(name_and_limit, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 // Wavefront megakernel for Hopper (sm_90a): the whole bounce loop of the
-// path tracer in one kernel, one thread per ray.  Three instantiations of
+// path tracer in one kernel, one thread per ray.  Four instantiations of
 // one template:
 //
 //   wavefront_kernel<FWD>       the forward render.  Replaces the forward
@@ -22,8 +22,14 @@
 //       the marble row.  It stores no NEE rows: the reverse sweep
 //       recomputes that chain, and of the shadow sweep only the outcome is
 //       kept, as a mask bit.
+//   wavefront_kernel<RECORD>    the forward, and per bounce the sweeps'
+//       discrete outcome: the winner's kind and index, and whether the area
+//       light's shadow ray was blocked.  Replaces make_kernel(rec_dec=True)
+//       of the same file (launched by _call(rec_dec=True), entry point
+//       trace_megakernel(record=True)).  The replay tier of the gradient
+//       (render/grad.py) keeps the record and replays it differentiably.
 //
-// The radiance of all three is the same by construction.
+// The radiance of all four is the same by construction.
 //
 // The forward first.
 //
@@ -55,6 +61,14 @@
 //   * built without --use_fast_math: log(max(u, 1e-38)) needs denormals,
 //     and division and sqrt stay IEEE; and with -fmad=false, so that the
 //     kernel rounds like its plain PyTorch version (ops/_build.py).
+//
+// The record writes 5 bytes a ray and bounce (the index, and a byte of
+// kind | blocked << 2), [depth, ray] with the ray innermost like the
+// stash, for every bounce: zeros for those a ray never enters, so a record
+// needs no length per ray.  It traces the shadow ray of every lambertian hit
+// that faces the light, grazing or not (the forward skips the grazing ones,
+// whose light sample counts for nothing), because the standard integrator
+// records that ray's outcome too and the replay reads it.
 //
 // The gradient forward moves five times the bytes: 15 stash rows a bounce
 // besides the forward's 18 and the 3 miss colour rows, 384 bytes a ray at
@@ -101,6 +115,7 @@ constexpr uint32_t VOL_SHADOW = 65;   // + 32 * volume index
 constexpr int FWD = 0;        // nothing
 constexpr int PRODUCT = 1;    // the product-chain stash and the miss colour
 constexpr int PATHWISE = 2;   // the pathwise stash and the miss colour
+constexpr int RECORD = 3;     // each bounce's outcome
 
 struct Tables {
     const float* pt;
@@ -119,6 +134,14 @@ struct Stash {
     int* i;          // [depth, 3, n]  slot, lslot or material id, mask
     long long n;     // rays (row stride)
 };
+
+// Output of the record only: [depth, n] each (ops/cuda_wavefront.py: DEC_*).
+struct Record {
+    unsigned char* code;  // winner kind | blocked area-light shadow ray << 2
+    int* idx;             // winner's primitive or volume index
+    long long n;          // rays (row stride)
+};
+constexpr int DEC_BLK_A = 4;
 
 // Mask bits of stash row 2 (ops/cuda_wavefront.py: MK_*)
 constexpr int MK_EMIT = 1;
@@ -305,13 +328,14 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
                                           int max_depth, float rad[3],
                                           float m_dir[3], float m_tp[3],
                                           int& flags, const Stash& Z,
-                                          long long ray) {
+                                          const Record& D, long long ray) {
     float tp[3] = {1.0f, 1.0f, 1.0f};
     bool alive = true, allow = true, missed = false, m_prim = false;
     const bool use_nee = S.n_lights > 0;
     constexpr bool STASH = MODE == PRODUCT;
+    constexpr bool GRAD = MODE == PRODUCT || MODE == PATHWISE;
     const float zero3[3] = {0.0f, 0.0f, 0.0f};
-    int stashed = 0;  // stash rows written so far
+    int stashed = 0;  // stash rows (or record rows) written so far
 
     int b = 0;
     for (; b < max_depth && alive; ++b) {
@@ -366,6 +390,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
                                    PW_LIT);
                 stashed = b + 1;
             }
+            // RECORD: the miss reads as no hit, like the bounces after it
             break;
         }
 
@@ -393,7 +418,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             fuzz = P[17 * pc];
             ior = P[18 * pc];
             inv_scale = P[28 * pc];
-            if constexpr (MODE != FWD) tex_id = P[29 * pc];
+            if constexpr (GRAD) tex_id = P[29 * pc];
             if constexpr (MODE == PATHWISE) mat_id = P[30 * pc];
         } else if (hitk == 1) {
             const float* Q = S.st + hidx;
@@ -412,7 +437,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             fuzz = Q[9 * sc];
             ior = Q[10 * sc];
             inv_scale = Q[20 * sc];
-            if constexpr (MODE != FWD) tex_id = Q[21 * sc];
+            if constexpr (GRAD) tex_id = Q[21 * sc];
             if constexpr (MODE == PATHWISE) {
                 mat_id = Q[22 * sc];
                 dndp = inv_rad;  // times flip, below
@@ -432,7 +457,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             fuzz = 0.0f;
             ior = 1.0f;
             inv_scale = 0.0f;
-            if constexpr (MODE != FWD) tex_id = V[24 * vc];
+            if constexpr (GRAD) tex_id = V[24 * vc];
         }
         ior = fmaxf(ior, 1e-3f);
 
@@ -529,23 +554,23 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
         int lslot = LSLOT_NONE, mk = 0;
         if (use_mis) {
             const int lc = S.lc;
-            const LightDir D = light_dir(S.lt, S.n_lights, lc, sid, seed, bu, p, nrm);
-            const float* L = D.L;
+            const LightDir light = light_dir(S.lt, S.n_lights, lc, sid, seed, bu, p, nrm);
+            const float* L = light.L;
             if constexpr (STASH) lslot = (int)(L[16 * lc] * 3.0f);
-            if (D.cos_th > 0.0f) {
-                bool dark = D.cos_l < 1e-3f;  // grazing the light's plane
-                if constexpr (MODE == PATHWISE) {
-                    // the shadow ray's outcome is stashed whatever the angle
-                    if (occluded(S, p, D.ld, D.dist - EPS_HIT, sid, seed, bu)) {
-                        mk |= PW_BLK_A;
+            if (light.cos_th > 0.0f) {
+                bool dark = light.cos_l < 1e-3f;  // grazing the light's plane
+                if constexpr (MODE == PATHWISE || MODE == RECORD) {
+                    // the shadow ray's outcome is kept whatever the angle
+                    if (occluded(S, p, light.ld, light.dist - EPS_HIT, sid, seed, bu)) {
+                        mk |= (MODE == PATHWISE) ? PW_BLK_A : DEC_BLK_A;
                         dark = true;
                     }
                 } else {
                     dark = dark ||
-                           occluded(S, p, D.ld, D.dist - EPS_HIT, sid, seed, bu);
+                           occluded(S, p, light.ld, light.dist - EPS_HIT, sid, seed, bu);
                 }
                 if (!dark) {
-                    const float scale = nee_scale(D, lc, S.n_lights).scale;
+                    const float scale = nee_scale(light, lc, S.n_lights).scale;
 #pragma unroll
                     for (int c = 0; c < 3; ++c) {
                         const float raw = L[(13 + c) * lc] * atten[c] * scale;
@@ -586,6 +611,12 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
                                flip * dndp, t, slot, (int)mat_id, mk);
             stashed = b + 1;
         }
+        if constexpr (MODE == RECORD) {
+            const size_t at = (size_t)b * D.n + ray;
+            D.code[at] = (unsigned char)(hitk | (mk & DEC_BLK_A));
+            D.idx[at] = hidx;
+            stashed = b + 1;
+        }
 
         // ---- state update -------------------------------------------------
         alive = scattered;
@@ -614,6 +645,13 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             stash_row_pathwise(Z, ray, k, zero3, zero3, zero3, zero3, zero3, 0.0f,
                                0.0f, 0.0f, 0.0f, SLOT_NONE, MSLOT_NONE, 0);
     }
+    if constexpr (MODE == RECORD) {
+        // the bounce of a miss and the bounces never entered: no hit
+        for (int k = stashed; k < max_depth; ++k) {
+            D.code[(size_t)k * D.n + ray] = 0;
+            D.idx[(size_t)k * D.n + ray] = 0;
+        }
+    }
 
     flags = (missed ? 1 : 0) | (m_prim ? 2 : 0) | (alive ? 4 : 0) | (allow ? 8 : 0);
 }
@@ -634,7 +672,7 @@ wavefront_kernel(Tables G, const float* __restrict__ ox,
                  const uint32_t* __restrict__ stream, float* __restrict__ out,
                  int* __restrict__ flags_out, long long n_rays, uint32_t seed,
                  int max_depth, int tables_in_smem, Stash Z, Miss M,
-                 float* __restrict__ miss_col) {
+                 float* __restrict__ miss_col, Record D) {
     extern __shared__ float smem[];
     Tables S = G;
     if (tables_in_smem) {
@@ -665,7 +703,7 @@ wavefront_kernel(Tables G, const float* __restrict__ ox,
         float m_tp[3] = {0.0f, 0.0f, 0.0f};
         int flags;
         trace_ray<MODE>(S, o, d, tm[i], stream[i], seed, max_depth, rad, m_dir,
-                        m_tp, flags, Z, i);
+                        m_tp, flags, Z, D, i);
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
             out[(0 + c) * n_rays + i] = rad[c];
@@ -673,7 +711,7 @@ wavefront_kernel(Tables G, const float* __restrict__ ox,
             out[(6 + c) * n_rays + i] = m_tp[c];
         }
         flags_out[i] = flags;
-        if constexpr (MODE != FWD) {
+        if constexpr (MODE == PRODUCT || MODE == PATHWISE) {
             float col[3] = {0.0f, 0.0f, 0.0f};
             if (flags & 1) {
                 if (M.use_sky) {
@@ -699,7 +737,8 @@ int launch(const float* pt, const float* st, const float* vt, const float* lt,
            const float* oy, const float* oz, const float* dx, const float* dy,
            const float* dz, const float* tm, const void* stream, float* out,
            int* flags, long long n_rays, unsigned int seed, int max_depth,
-           void* cuda_stream, Stash Z, Miss M, float* miss_col) {
+           void* cuda_stream, Stash Z, Miss M, float* miss_col,
+           Record D = Record{nullptr, nullptr, 0}) {
     Tables G;
     G.pt = pt;
     G.st = st;
@@ -734,13 +773,13 @@ int launch(const float* pt, const float* st, const float* vt, const float* lt,
                               in_smem ? table_bytes : (size_t)0,
                               (cudaStream_t)cuda_stream>>>(
         G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, out, flags,
-        n_rays, seed, max_depth, in_smem, Z, M, miss_col);
+        n_rays, seed, max_depth, in_smem, Z, M, miss_col, D);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// All three launch on the given stream, do not synchronize, allocate nothing and
+// All four launch on the given stream, do not synchronize, allocate nothing and
 // return cudaGetLastError() (0 on success).
 extern "C" int wavefront_fwd_launch(
     const float* pt, const float* st, const float* vt, const float* lt,
@@ -753,6 +792,21 @@ extern "C" int wavefront_fwd_launch(
                          oy, oz, dx, dy, dz, tm, stream, out, flags, n_rays, seed,
                          max_depth, cuda_stream, Stash{nullptr, nullptr, 0},
                          Miss{0, {0.0f, 0.0f, 0.0f}}, nullptr);
+}
+
+// code and idx [max_depth, n_rays] are written in full.
+extern "C" int wavefront_record_launch(
+    const float* pt, const float* st, const float* vt, const float* lt,
+    int n_planar, int n_sphere, int n_vol, int n_lights,
+    const float* ox, const float* oy, const float* oz,
+    const float* dx, const float* dy, const float* dz, const float* tm,
+    const void* stream, float* out, int* flags, unsigned char* code, int* idx,
+    long long n_rays, unsigned int seed, int max_depth, void* cuda_stream) {
+    return launch<RECORD>(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights,
+                          ox, oy, oz, dx, dy, dz, tm, stream, out, flags, n_rays,
+                          seed, max_depth, cuda_stream, Stash{nullptr, nullptr, 0},
+                          Miss{0, {0.0f, 0.0f, 0.0f}}, nullptr,
+                          Record{code, idx, n_rays});
 }
 
 // miss_col [3, n_rays], stash_f [max_depth, 12, n_rays] and stash_i

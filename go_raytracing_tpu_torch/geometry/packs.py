@@ -92,23 +92,14 @@ class VolumePack:
     planes: Optional[torch.Tensor] = None  # [N, K, 4] half-spaces or None
 
 
-def sample_volumes(pack: VolumePack, o: V3, d: V3, t_min, t_surface, u_flight):
-    """Free-flight sampling of every medium along each ray, component SoA.
-
-    ``u_flight``: [R, N] uniforms, one per (ray, volume); ``t_surface``:
-    [R] distance of the surface hit that bounds the flight (BIG for none).
-    Returns (t_vol [R], idx [R] i32, hit [R] bool): the nearest accepted
-    scatter distance and its volume.  Differentiable in o and d; every
-    clamp floor keeps the backward pass finite on the lanes it masks."""
+def volume_interval(pack: VolumePack, o: V3, d: V3):
+    """Where each ray's line enters and leaves each medium: (t0, t1), both
+    [R, N], in units of the ray parameter; t1 <= t0 where it misses.
+    Differentiable in o and d."""
     n = pack.neg_inv_density.shape[0]
     r_ = o.x.shape[0]
     dev = o.x.device
     big = float(BIG)
-    if n == 0:
-        return (torch.full((r_,), big, device=dev),
-                torch.zeros((r_,), dtype=torch.int32, device=dev),
-                torch.zeros((r_,), dtype=torch.bool, device=dev))
-
     m = pack.world_to_local  # [N, 3, 4]
 
     def to_local(v: V3, translate):
@@ -177,6 +168,26 @@ def sample_volumes(pack: VolumePack, o: V3, d: V3, t_min, t_surface, u_flight):
         is_pl = pack.kind[None, :] == VOL_PLANES
         t0 = torch.where(is_pl, torch.where(empty, big, p0), t0)
         t1 = torch.where(is_pl, torch.where(empty, -big, p1), t1)
+    return t0, t1
+
+
+def sample_volumes(pack: VolumePack, o: V3, d: V3, t_min, t_surface, u_flight):
+    """Free-flight sampling of every medium along each ray, component SoA.
+
+    ``u_flight``: [R, N] uniforms, one per (ray, volume); ``t_surface``:
+    [R] distance of the surface hit that bounds the flight (BIG for none).
+    Returns (t_vol [R], idx [R] i32, hit [R] bool): the nearest accepted
+    scatter distance and its volume.  Differentiable in o and d; every
+    clamp floor keeps the backward pass finite on the lanes it masks."""
+    n = pack.neg_inv_density.shape[0]
+    r_ = o.x.shape[0]
+    dev = o.x.device
+    big = float(BIG)
+    if n == 0:
+        return (torch.full((r_,), big, device=dev),
+                torch.zeros((r_,), dtype=torch.int32, device=dev),
+                torch.zeros((r_,), dtype=torch.bool, device=dev))
+    t0, t1 = volume_interval(pack, o, d)
     crosses = t1 > t0
 
     t0c = torch.clamp_min(t0, t_min)   # a ray that starts inside enters at t_min

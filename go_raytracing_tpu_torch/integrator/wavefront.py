@@ -38,10 +38,21 @@ quad light (NEE) with a shadow ray, balance-heuristic MIS, x numLights and
 the firefly clamp at 20; scatter, and continue with allowLightHits = not
 (NEE was sampled this bounce).
 
-Not ported yet, each raising ``NotImplementedError``: recording and
-replaying decisions (ROADMAP.md A18, the replay tier), environments and
-``sample_hdri_light`` (A15), noise (A13) and image textures (A16), and the
-megakernel modes 'split' / 'compact' (B11) and 'image' (A16).
+Replay (the gradient tier of ``render/grad`` for scenes outside the
+gradient kernels' gates): ``trace(record=True)`` also returns the discrete
+outcome of every bounce's sweeps (``Decisions``: the winner and whether the
+shadow ray was blocked), recorded by the megakernel (``mega_mode="single"``)
+or by the standard integrator; ``trace(decisions=...)`` then runs the
+differentiable gather route without a single closest-hit or shadow sweep:
+each bounce takes its winner from the record and recomputes only that
+winner's hit distance (``_winner_t``), so ``torch.autograd`` also reaches
+the terms through the hit distance.  Random draws, scatter and light
+choices are replayed from the rays' counters.
+
+Not ported yet, each raising ``NotImplementedError``: environments and
+``sample_hdri_light`` (ROADMAP.md A15), noise (A13) and image textures
+(A16), and the megakernel modes 'split' / 'compact' (B11) and 'image'
+(A16).
 """
 
 from __future__ import annotations
@@ -71,6 +82,21 @@ HIT_SPHERE = 1
 HIT_PLANAR = 2
 HIT_VOLUME = 3
 HIT_MESH_BASE = 4  # + mesh prototype index
+
+
+class Decisions(NamedTuple):
+    """Per-bounce discrete outcomes of the sweeps, recorded by
+    ``trace(record=True)`` and replayed by ``trace(decisions=...)``.  All
+    [D, R].  A ray that did not enter a bounce alive reads ``HIT_NONE``,
+    index 0, instance 0 and not blocked there.  Random draws, scatter and
+    light choices are replayed from the counters and not stored."""
+
+    which: torch.Tensor   # i32 HIT_* winner kind
+    idx: torch.Tensor     # i32 winner primitive, triangle or volume index
+    aux: torch.Tensor     # i32 mesh instance id
+    blk_a: torch.Tensor   # bool: the area-light shadow ray was blocked
+    blk_h: torch.Tensor   # bool: the HDRI shadow ray was blocked (no
+                          # environment is ported yet: always False)
 
 # Extra RNG purpose bases (see core/rng.py for the primary enumeration).
 PURPOSE_VOL_MAIN = 64      # + 32 * volume_index
@@ -565,6 +591,85 @@ def extract_record(scene: Scene, o: V3, d: V3, tm, t, which, idx, aux=None):
     return p, normal, front, uu, vv, mat_id
 
 
+def _winner_t(scene: Scene, o: V3, d: V3, tm, t_min, which, idx, aux,
+              seed, stream, bounce):
+    """Differentiable hit distance of a known winner (the replay).  The
+    record gave the winner; only its distance is computed again, so the
+    backward pass differentiates one primitive a ray and bounce, not a
+    sweep.  Gradients flow through o and d (the geometry is not a trainable
+    parameter).  The formulas are those of the sweeps: a sphere's stable
+    root, the plane solve of a planar primitive, Moller-Trumbore in the
+    instance's local space for a mesh (also for prototypes whose kernel
+    tests triangles another way: t is the same number), and a volume's free
+    flight from where the ray enters it with the same draw.  Every
+    ``.detach()`` and clamp floor is the JAX package's."""
+    r, dev = o.x.shape[0], o.x.device
+    t = torch.full((r,), BIG, dtype=o.x.dtype, device=dev)
+    safe_idx = torch.clamp_min(idx, 0)
+    take = tex.take_rows
+
+    sp = scene.spheres
+    if sp.radius.shape[0] > 0:
+        i = _rows(safe_idx, sp.radius.shape[0])
+        center = (V3.from_rows(take(sp.center, i))
+                  + V3.from_rows(take(sp.velocity, i)) * tm)
+        oc = center - o
+        a = torch.clamp_min(d.dot(d), 1e-30)
+        h = d.dot(oc)
+        rad = take(sp.radius, i)
+        disc = h * h - a * (oc.dot(oc) - rad * rad)
+        pos = disc.detach() > 0.0
+        sq = torch.where(pos, torch.sqrt(torch.where(pos, disc, 1.0)), 0.0)
+        r0 = (h - sq) / a
+        r1 = (h + sq) / a
+        t = torch.where(which == HIT_SPHERE,
+                        torch.where(r0.detach() > t_min, r0, r1), t)
+
+    pp = scene.planar
+    if pp.d.shape[0] > 0:
+        i = _rows(safe_idx, pp.d.shape[0])
+        nrm = V3.from_rows(take(pp.normal, i))
+        denom = nrm.dot(d)
+        safe = torch.where(torch.abs(denom.detach()) < vec.EPS_PARALLEL, 1.0, denom)
+        t = torch.where(which == HIT_PLANAR, (take(pp.d, i) - nrm.dot(o)) / safe, t)
+
+    for mi, proto in enumerate(scene.meshes):
+        i = _rows(safe_idx, proto.tri_v0.shape[0])
+        n_inst = proto.inst_w2l.shape[0]
+        m = take(proto.inst_w2l.reshape(n_inst, 12),
+                 _rows(torch.clamp_min(aux, 0), n_inst)).t()
+        ol = V3(m[0] * o.x + m[1] * o.y + m[2] * o.z + m[3],
+                m[4] * o.x + m[5] * o.y + m[6] * o.z + m[7],
+                m[8] * o.x + m[9] * o.y + m[10] * o.z + m[11])
+        dl = V3(m[0] * d.x + m[1] * d.y + m[2] * d.z,
+                m[4] * d.x + m[5] * d.y + m[6] * d.z,
+                m[8] * d.x + m[9] * d.y + m[10] * d.z)
+        tv = take(torch.cat([proto.tri_v0, proto.tri_e1, proto.tri_e2], dim=1), i)
+        v0 = V3(tv[:, 0], tv[:, 1], tv[:, 2])
+        e1 = V3(tv[:, 3], tv[:, 4], tv[:, 5])
+        e2 = V3(tv[:, 6], tv[:, 7], tv[:, 8])
+        av = e1.dot(dl.cross(e2))
+        fv = 1.0 / torch.where(torch.abs(av.detach()) < 1e-12, 1.0, av)
+        t = torch.where(which == HIT_MESH_BASE + mi,
+                        fv * e2.dot((ol - v0).cross(e1)), t)
+
+    if scene.n_volumes > 0:
+        vp = scene.volumes
+        u_vol = _volume_uniforms(seed, stream, bounce, PURPOSE_VOL_MAIN,
+                                 scene.n_volumes)
+        t0, _ = packs.volume_interval(vp, o, d)
+        ray_len = d.length()
+        t_v = torch.zeros((r,), dtype=o.x.dtype, device=dev)
+        for vi in range(scene.n_volumes):
+            lu = torch.log(torch.clamp_min(u_vol[:, vi], 1e-38))
+            tv = (torch.clamp_min(t0[:, vi], t_min)
+                  + vp.neg_inv_density[vi] * lu / ray_len)
+            t_v = torch.where(safe_idx == vi, tv, t_v)
+        t = torch.where(which == HIT_VOLUME, t_v, t)
+
+    return t
+
+
 def occluded(scene: Scene, o: V3, d: V3, tm, t_min, t_max, seed, stream, bounce,
              purpose_base, active=None, tabs: Optional[SweepTables] = None):
     """Shadow-ray test: anything (surface or stochastic medium) in
@@ -602,10 +707,11 @@ def occluded(scene: Scene, o: V3, d: V3, tm, t_min, t_max, seed, stream, bounce,
 def sample_area_light(scene: Scene, cam, p: V3, normal: V3, ray_d: V3,
                       attenuation: V3, mat_id, seed, stream, bounce,
                       mat_attrs=None, active=None,
-                      tabs: Optional[SweepTables] = None):
+                      tabs: Optional[SweepTables] = None, blocked=None):
     """NEE toward one uniformly chosen registered quad light.  Returns (V3
     contribution (without the throughput), overflow (always 0), blocked [R]
-    bool)."""
+    bool).  ``blocked``: the shadow sweep's recorded outcome (the replay);
+    given, no shadow ray is traced."""
     n_lights = scene.n_lights
     u_pick = rngmod.uniform(seed, stream, bounce, rngmod.LIGHT_PICK)
     li = torch.clamp_max((u_pick * n_lights).to(torch.int32), n_lights - 1).long()
@@ -626,11 +732,13 @@ def sample_area_light(scene: Scene, cam, p: V3, normal: V3, ray_d: V3,
     facing = cos_theta > 0.0
     shadow_active = facing if active is None else (facing & active)
 
-    blocked, overflow = occluded(
-        scene, p, light_dir, torch.zeros_like(dist), SHADOW_EPS,
-        dist - SHADOW_EPS, seed, stream, bounce, PURPOSE_VOL_SHADOW_AREA,
-        active=shadow_active, tabs=tabs,
-    )
+    overflow = 0
+    if blocked is None:
+        blocked, overflow = occluded(
+            scene, p, light_dir, torch.zeros_like(dist), SHADOW_EPS,
+            dist - SHADOW_EPS, seed, stream, bounce, PURPOSE_VOL_SHADOW_AREA,
+            active=shadow_active, tabs=tabs,
+        )
 
     # Emission at (u=0, v=0, light_point)
     emission = mats.emitted(
@@ -733,20 +841,34 @@ class PathState(NamedTuple):
 
 def bounce_step(scene: Scene, cam, state: PathState, tm, stream, seed,
                 bounce: int, *, fast: bool,
-                tabs: Optional[SweepTables] = None) -> PathState:
-    """One bounce of the standard integrator for the whole wavefront."""
+                tabs: Optional[SweepTables] = None, dec=None,
+                rec: Optional[list] = None) -> PathState:
+    """One bounce of the standard integrator for the whole wavefront.
+
+    ``dec``: this bounce's recorded (which, idx, aux, blk_a, blk_h) (the
+    replay): no sweep runs, the winner's distance comes from ``_winner_t``.
+    ``rec``: a list; this bounce's outcome is appended to it in the form
+    ``Decisions`` holds."""
     (o, d, throughput, radiance, alive, allow_light,
      miss_dir, miss_tp, miss_primary, missed) = state
     dev = alive.device
 
-    # Dead lanes get t_max = -1: the kernels skip their sweep.
-    t_cap = torch.where(alive, BIG, -1.0)
-    if fast:
-        t, which, idx, attrs = _attr_closest_hit(
-            scene, o, d, tm, EPS_HIT, t_cap, seed, stream, bounce, tabs)
+    aux = None
+    dec_blk_a = None
+    if dec is not None:
+        which, idx, aux, dec_blk_a, _ = dec
+        which = torch.where(alive, which, HIT_NONE)
+        t = _winner_t(scene, o, d, tm, EPS_HIT, which, idx, aux, seed, stream,
+                      bounce)
     else:
-        t, which, idx, aux, _ = closest_hit(
-            scene, o, d, tm, EPS_HIT, t_cap, seed, stream, bounce, tabs)
+        # Dead lanes get t_max = -1: the kernels skip their sweep.
+        t_cap = torch.where(alive, BIG, -1.0)
+        if fast:
+            t, which, idx, attrs = _attr_closest_hit(
+                scene, o, d, tm, EPS_HIT, t_cap, seed, stream, bounce, tabs)
+        else:
+            t, which, idx, aux, _ = closest_hit(
+                scene, o, d, tm, EPS_HIT, t_cap, seed, stream, bounce, tabs)
     hit = (which != HIT_NONE) & alive
 
     # --- miss: the environment is evaluated once, after the loop -----------
@@ -784,13 +906,23 @@ def bounce_step(scene: Scene, cam, state: PathState, tm, stream, seed,
 
     # --- NEE + MIS ------------------------------------------------------------
     use_mis = torch.zeros_like(alive)
+    blk_a = torch.zeros_like(alive)
     if scene.n_lights > 0:
         use_mis = sc.can_use_nee & alive & hit
-        direct, _, _ = sample_area_light(
+        direct, _, blk_a = sample_area_light(
             scene, cam, p, normal, d, sc.attenuation, mat_id,
             seed, stream, bounce, mat_attrs=mat_attrs, active=use_mis,
-            tabs=tabs)
+            tabs=tabs, blocked=dec_blk_a)
         radiance = radiance + V3.select(use_mis, throughput * direct, zero)
+
+    if rec is not None:
+        # lanes that did not enter the bounce alive read as no hit (the
+        # shadow sweep of a lane that sampled no light found nothing)
+        none = torch.zeros_like(idx, dtype=torch.int32)
+        rec.append((torch.where(hit, which, HIT_NONE).to(torch.int32),
+                    torch.where(hit, idx, none).to(torch.int32),
+                    none if aux is None else torch.where(hit, aux, none).to(torch.int32),
+                    blk_a, torch.zeros_like(alive)))
 
     # --- continue the path ----------------------------------------------------
     alive = alive & hit & sc.scattered
@@ -815,9 +947,22 @@ def _check_standard(scene: Scene):
             "image textures are not ported yet (ROADMAP.md A16)")
 
 
+def _stack_decisions(rows, depth: int, r: int, dev) -> Decisions:
+    """Per-bounce record tuples -> ``Decisions``; bounces never run (every
+    ray died before them) read as no hit."""
+    fields = []
+    for k, dtype in enumerate((torch.int32,) * 3 + (torch.bool,) * 2):
+        out = torch.zeros((depth, r), dtype=dtype, device=dev)
+        for b, row in enumerate(rows):
+            out[b] = row[k]
+        fields.append(out)
+    return Decisions(*fields)
+
+
 def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
           differentiable: bool = False, mega_mode=None,
-          with_stats: bool = False, record: bool = False, decisions=None):
+          with_stats: bool = False, record: bool = False,
+          decisions: Optional[Decisions] = None):
     """Radiance for a ray megabatch, on the device the rays lie on.
 
     o/d: V3 (or [R,3] tensors, converted); tm/stream [R].  Returns V3, or
@@ -836,15 +981,25 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
     so a surface hit's distance ``t`` and the winner carry no gradient.
     Colour and emission gradients are exact all the same (they flow through
     the records, not through ``t``); fuzz and IOR gradients lack the terms
-    that reach later hits through ``t``, and the exact ones are what
-    ``render/grad.render_grad``'s pathwise tier returns.  All ``max_depth``
-    bounces run; the non-differentiable route stops as soon as no ray is
-    alive.
+    that reach later hits through ``t``; the replay below has them.  All
+    ``max_depth`` bounces run; the non-differentiable route stops as soon as
+    no ray is alive.
+
+    The replay (``render/grad``'s tier for scenes outside the gradient
+    kernels' gates):
+      ``record=True`` also returns the ``Decisions`` of the trace, appended
+      to what it returns otherwise.  The radiance is that of the same call
+      without ``record``.  The megakernel records by its own kernel
+      (``mega_mode="single"``), the standard integrator as it goes.
+      ``decisions=...`` replays a record differentiably: no closest-hit and
+      no shadow sweep runs, each bounce takes its winner from the record and
+      recomputes that winner's distance (``_winner_t``), so gradients also
+      flow through the hit distance.  Gradients equal those of
+      ``differentiable=True`` plus those terms wherever the discrete
+      outcomes are stable.
     """
-    if record or decisions is not None:
-        raise NotImplementedError(
-            "recording and replaying sweep decisions is not ported yet "
-            "(ROADMAP.md A18)")
+    if record and decisions is not None:
+        raise ValueError("record=True and decisions= exclude each other")
     if not isinstance(o, V3):
         o = V3.from_rows(o)
     if not isinstance(d, V3):
@@ -852,6 +1007,9 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
     r = o.x.shape[0]
     dev = o.x.device
 
+    if decisions is not None:
+        differentiable = True
+        mega_mode = "off"   # the replay runs no sweep
     if mega_mode is None:
         mega_mode = choose_mega_mode(scene, cam, r, differentiable)
     if mega_mode in ("split", "compact"):
@@ -864,19 +1022,24 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
     if mega_mode not in ("off", "single"):
         raise ValueError(f"unknown mega_mode {mega_mode!r}")
 
+    stats = dict(mesh_overflow=0)
     if mega_mode == "single":
-        radiance, miss_dir, miss_tp, flags = mega.trace_megakernel(
+        res = mega.trace_megakernel(
             scene, cam, V3(*(c.contiguous() for c in o)),
-            V3(*(c.contiguous() for c in d)), tm.contiguous(), stream, seed)
+            V3(*(c.contiguous() for c in d)), tm.contiguous(), stream, seed,
+            record=record)
+        radiance, miss_dir, miss_tp, flags = res[:4]
         rad = _add_miss(scene, cam, radiance, (flags & mega.FLAG_MISSED) != 0,
                         miss_dir, miss_tp, (flags & mega.FLAG_PRIMARY) != 0)
-        if with_stats:
-            return rad, dict(mesh_overflow=0)
-        return rad
+        out = (rad,) + ((stats,) if with_stats else ())
+        if record:
+            which, idx, blk_a, blk_h = res[4]
+            out += (Decisions(which, idx, torch.zeros_like(idx), blk_a, blk_h),)
+        return out if len(out) > 1 else rad
 
     _check_standard(scene)
     fast = attr_path_ok(scene, differentiable)
-    tabs = sweep_tables(scene, with_consts=fast)
+    tabs = sweep_tables(scene, with_consts=fast) if decisions is None else None
     false = torch.zeros((r,), dtype=torch.bool, device=dev)
     true = torch.ones((r,), dtype=torch.bool, device=dev)
     state = PathState(
@@ -887,17 +1050,21 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
         V3.zeros((r,), device=dev), V3.zeros((r,), device=dev),
         false, false,                                 # miss_primary, missed
     )
+    rows = [] if record else None
     for bounce in range(cam.max_depth):
         # Deep configurations kill most lanes within a few bounces: the
         # render stops when none survive.  A gradient-bearing trace runs
         # every bounce, so that its graph does not depend on the data.
         if not differentiable and bounce > 0 and not bool(state.alive.any()):
             break
+        dec = (None if decisions is None
+               else tuple(field[bounce] for field in decisions))
         state = bounce_step(scene, cam, state, tm, stream, seed, bounce,
-                            fast=fast, tabs=tabs)
+                            fast=fast, tabs=tabs, dec=dec, rec=rows)
 
     rad = _add_miss(scene, cam, state.radiance, state.missed, state.miss_dir,
                     state.miss_tp, state.miss_primary)
-    if with_stats:
-        return rad, dict(mesh_overflow=0)
-    return rad
+    out = (rad,) + ((stats,) if with_stats else ())
+    if record:
+        out += (_stack_decisions(rows, cam.max_depth, r, dev),)
+    return out if len(out) > 1 else rad

@@ -14,6 +14,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core.vec3 import V3
+from ..ops import cuda_rows
 
 TEX_SOLID = 0
 TEX_CHECKER = 1
@@ -34,15 +35,33 @@ class TexturePack:
     atlas_wh: torch.Tensor     # [I, 2] i32 (width, height) of each image
 
 
+class _TakeRows(torch.autograd.Function):
+    """``index_select`` whose backward pass is ``ops/cuda_rows.row_sums``."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return torch.index_select(table, 0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return cuda_rows.row_sums(g, idx, ctx.n_rows), None
+
+
 def take_rows(table, idx):
-    """``table[idx]`` for a table a gradient may flow into.  On a GPU the
-    backward pass of ``index_select`` adds the rows with atomics; that of
-    advanced indexing sorts the indices and then walks every run of equal
-    indices in one thread, which for a few-row table indexed by millions of
-    rays takes seconds (on an H100 the backward pass of a 1.6 M-ray Cornell
-    render took 14 s that way and under 1 s this way; PERF.md).  The price:
-    the order of the sums, and so a gradient's last bits, change from run
-    to run."""
+    """``table[idx]`` for a table a gradient may flow into.  The backward
+    pass adds each row's cotangents in a fixed order
+    (``ops/cuda_rows.row_sums``), so a gradient has the same bits on every
+    run.  Neither of PyTorch's own gathers does both: the backward pass of
+    ``index_select`` adds the rows with atomics (the order of the sums, and
+    so a gradient's last bits, change from run to run), and that of
+    advanced indexing walks every run of equal indices in one thread, which
+    for a few-row table indexed by millions of rays takes seconds (14 s for
+    a 1.6 M-ray Cornell render on an H100; PERF.md)."""
+    if table.requires_grad and torch.is_grad_enabled():
+        return _TakeRows.apply(table, idx)
     return torch.index_select(table, 0, idx)
 
 

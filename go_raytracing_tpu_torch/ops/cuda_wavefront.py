@@ -10,6 +10,12 @@ picked quad light with a shadow sweep and balance-heuristic MIS.  The RNG
 is the PCG3D counter scheme of ``core/rng.py``, recomputed per ray inside
 the kernel.
 
+The record kernel (``wavefront_record``) is the forward once more, and it
+also writes each bounce's discrete outcome: the winner's kind and index and
+whether the area light's shadow ray was blocked.  The replay tier of
+``render/grad`` keeps that record and replays it differentiably on the
+standard integrator (``integrator/wavefront.trace(decisions=...)``).
+
 The gradient of a chunk's radiance with respect to the texture colours
 takes two kernels, for scenes inside ``grad_applicable`` (no scatter
 direction depends on a trainable parameter): the gradient forward is the
@@ -34,15 +40,17 @@ What lives here:
   * ``build_tables`` — scene -> PT/ST/VT/LT float tables, same row layout
     as the JAX package's (columns are the real primitive counts, with no
     padding);
-  * the kernel wrappers ``wavefront_fwd``, ``wavefront_grad_fwd``,
-    ``wavefront_grad_rev`` and ``wavefront_grad_rev_pathwise`` and, over
-    them, ``trace_megakernel``, ``grad_fwd_stash`` and ``grad_rev_stash``.
+  * the kernel wrappers ``wavefront_fwd``, ``wavefront_record``,
+    ``wavefront_grad_fwd``, ``wavefront_grad_rev`` and
+    ``wavefront_grad_rev_pathwise`` and, over them, ``trace_megakernel``
+    (``record=True`` for the record), ``grad_fwd_stash`` and
+    ``grad_rev_stash``.
     A CUDA tensor launches the kernel (``csrc/wavefront.cu``,
     ``csrc/wavefront_grad.cu``, ``csrc/wavefront_grad_pathwise.cu``, built
     at first use by ``ops/_build.py``) or raises; a CPU tensor runs the
     plain version, and only because it lies on the CPU.  There is no
     fallback from one to the other;
-  * the plain versions ``_wavefront_fwd_plain``,
+  * the plain versions ``_wavefront_fwd_plain``, ``_wavefront_record_plain``,
     ``_wavefront_grad_fwd_plain``, ``_wavefront_grad_rev_plain`` and
     ``_wavefront_grad_rev_pathwise_plain`` — the
     same functions of the same inputs written with ``[R]`` tensors and
@@ -55,9 +63,10 @@ What lives here:
 
 Not ported yet (``applicable`` is False or the caller raises): marble
 noise (and with it stash row 19 and the marble position adjoint of the
-pathwise tier), HDRI-NEE rows and the environment miss rows, decision
-recording, the resumable variant, the fused gradient variant, sphere
-segment culling (ROADMAP.md queue B).
+pathwise tier), HDRI-NEE rows and the environment miss rows (and with them
+the record's blocked bit of the HDRI shadow ray, always 0 here), the
+resumable variant, the fused gradient variant, sphere segment culling
+(ROADMAP.md queue B).
 """
 
 from __future__ import annotations
@@ -144,8 +153,16 @@ PW_MARBLE = 8192     # never set: no noise textures
 # shared memory (csrc/wavefront_grad_pathwise.cu, MAX_ACC).
 GRAD_PATHWISE_MAX_ACC = 1536
 
+# The record's code byte: winner kind (HIT_NONE 0, sphere 1, planar 2,
+# volume 3) in bits 0-1, the area light's shadow ray blocked in bit 2, the
+# HDRI's in bit 3.  The winner's index is a separate int32 row.
+DEC_KIND_MASK = 3
+DEC_BLK_A = 4
+DEC_BLK_H = 8
+
 # Kernel launches made by the wrappers (CUDA tensors only).
 LAUNCHES = 0                     # wavefront_fwd
+LAUNCHES_RECORD = 0              # wavefront_record
 LAUNCHES_GRAD_FWD = 0            # wavefront_grad_fwd, product rows
 LAUNCHES_GRAD_REV = 0            # wavefront_grad_rev
 LAUNCHES_GRAD_FWD_PATHWISE = 0   # wavefront_grad_fwd(pathwise=True)
@@ -423,9 +440,12 @@ def _occluded(tb, kinds, o, d, t_cap, seed, stream, bounce, purpose_base):
 
 
 def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
-                 pathwise=False):
+                 pathwise=False, record=None):
     """The bounce loop on component lists.  Returns ([9, R] f32 rows:
     radiance, miss direction, miss throughput; [R] i32 flag word).
+
+    ``record``: (code [D, R] u8, idx [D, R] i32) holding zeros; the outcome
+    of every bounce a ray enters is written into it (``DEC_*``).
 
     ``stash``: (stash_f [D, 12, R] f32, stash_i [D, 3, R] i32) holding inert
     rows; the rows of every bounce a ray enters are written into it.  With
@@ -640,6 +660,13 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
                 lslot = torch.where(use_mis, (lsel[16] * 3.0).to(torch.int32),
                                     LSLOT_NONE)
 
+        if record is not None:
+            hit_a = alive & hit
+            code = (torch.where(hit_a, hitk, 0)
+                    + (alive & blk_a).to(torch.int32) * DEC_BLK_A)
+            record[0][bounce] = code.to(torch.uint8)
+            record[1][bounce] = torch.where(hit_a, torch.where(is_vol, vwin, hidx), 0)
+
         if stash is not None and pathwise:
             # The reverse sweep recomputes the NEE chain and every random
             # draw; of the shadow sweep only the outcome is kept, as a bit.
@@ -718,6 +745,16 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
 def _wavefront_fwd_plain(tb: Tables, o, d, tm, stream, seed, max_depth):
     """Plain version of the forward kernel: ([9, R] f32, [R] i32)."""
     return _bounce_loop(tb, o, d, tm, stream, seed, max_depth)
+
+
+def _wavefront_record_plain(tb: Tables, o, d, tm, stream, seed, max_depth):
+    """Plain version of the record kernel: the forward's ([9, R] f32,
+    [R] i32) and the record (code [D, R] u8, idx [D, R] i32)."""
+    record = (torch.zeros((max_depth, tm.shape[0]), dtype=torch.uint8, device=tm.device),
+              torch.zeros((max_depth, tm.shape[0]), dtype=torch.int32, device=tm.device))
+    out, flags = _bounce_loop(tb, o, d, tm, stream, seed, max_depth,
+                              record=record)
+    return out, flags, record[0], record[1]
 
 
 def _miss_colour_rows(out, flags, miss):
@@ -1132,6 +1169,7 @@ _TABLES_AND_RAYS = (
 )
 _SIZES = [ctypes.c_longlong, ctypes.c_uint, _I]   # R, seed, depth
 _FWD_ARGTYPES = _TABLES_AND_RAYS + [_P, _P] + _SIZES + [_P]
+_RECORD_ARGTYPES = _TABLES_AND_RAYS + [_P] * 4 + _SIZES + [_P]
 _GRAD_FWD_ARGTYPES = (_TABLES_AND_RAYS + [_P] * 5 + _SIZES
                       + [_I, _F, _F, _F] + [_P])
 _GRAD_REV_ARGTYPES = [_P] * 5 + [ctypes.c_longlong, _I, _I, _P]
@@ -1210,6 +1248,33 @@ def _wavefront_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
         raise RuntimeError(f"wavefront_fwd kernel launch failed: CUDA error {err}")
     LAUNCHES += 1
     return out, flags
+
+
+def _wavefront_record_cuda(tb: Tables, o, d, tm, stream, seed, max_depth):
+    """Launch the record kernel on PyTorch's current stream; does not
+    synchronize.  Returns what ``_wavefront_record_plain`` returns."""
+    global LAUNCHES_RECORD
+    _check_rays(tb, o, d, tm, stream, max_depth)
+    r = tm.shape[0]
+    dev = tm.device
+    out = torch.empty((9, r), dtype=torch.float32, device=dev)
+    flags = torch.empty((r,), dtype=torch.int32, device=dev)
+    code = torch.empty((max_depth, r), dtype=torch.uint8, device=dev)
+    idx = torch.empty((max_depth, r), dtype=torch.int32, device=dev)
+    if r == 0:
+        return out, flags, code, idx
+    fn = _kernel("wavefront", "wavefront_record_launch", _RECORD_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(
+            *_table_and_ray_args(tb, o, d, tm, stream),
+            out.data_ptr(), flags.data_ptr(), code.data_ptr(), idx.data_ptr(),
+            r, int(seed) & 0xFFFFFFFF, int(max_depth),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"wavefront_record kernel launch failed: CUDA error {err}")
+    LAUNCHES_RECORD += 1
+    return out, flags, code, idx
 
 
 def _wavefront_grad_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
@@ -1370,6 +1435,23 @@ def wavefront_fwd(tb: Tables, o, d, tm, stream, seed, max_depth):
     return _wavefront_fwd_plain(tb, o, d, tm, stream, seed, max_depth)
 
 
+def wavefront_record(tb: Tables, o, d, tm, stream, seed, max_depth):
+    """The forward and the record of every bounce's outcome: ([9, R] f32,
+    [R] i32 as ``wavefront_fwd``'s, code [D, R] u8, idx [D, R] i32; see
+    ``DEC_*``).  CUDA rays launch the kernel (or raise); CPU rays run the
+    plain version."""
+    stream = stream_to_i32(stream)
+    impl = _wavefront_record_cuda if tm.is_cuda else _wavefront_record_plain
+    return impl(tb, o, d, tm, stream, seed, max_depth)
+
+
+def unpack_record(code, idx):
+    """The record kernel's code and index rows -> (which [D, R] i32, idx,
+    blk_a [D, R] bool, blk_h [D, R] bool)."""
+    return ((code & DEC_KIND_MASK).to(torch.int32), idx,
+            (code & DEC_BLK_A) != 0, (code & DEC_BLK_H) != 0)
+
+
 def wavefront_grad_fwd(tb: Tables, o, d, tm, stream, seed, max_depth, miss,
                        pathwise=False):
     """Gradient forward on prepared tables: the forward's outputs, the miss
@@ -1413,14 +1495,20 @@ def _check_scene(scene):
             "primitives): see ROADMAP.md queues A and B")
 
 
-def trace_megakernel(scene, cam, o: V3, d: V3, tm, stream, seed):
+def trace_megakernel(scene, cam, o: V3, d: V3, tm, stream, seed, record=False):
     """Full bounce loop for a ray megabatch.  Returns (radiance V3,
     miss_dir V3, miss_tp V3, flags [R] i32) where ``flags`` is
     ``missed | 2*miss_primary | 4*alive | 8*allowLightHits``; the caller
-    applies the deferred miss shader (integrator/wavefront.trace)."""
+    applies the deferred miss shader (integrator/wavefront.trace).
+    ``record=True`` runs the record kernel and appends its record to the
+    tuple as ``unpack_record`` gives it."""
     _check_scene(scene)
     tb = build_tables(scene)
-    return _unpack(*wavefront_fwd(tb, o, d, tm, stream, seed, cam.max_depth))
+    if not record:
+        return _unpack(*wavefront_fwd(tb, o, d, tm, stream, seed, cam.max_depth))
+    out, flags, code, idx = wavefront_record(tb, o, d, tm, stream, seed,
+                                             cam.max_depth)
+    return _unpack(out, flags) + (unpack_record(code, idx),)
 
 
 def trace_megakernel_plain(scene, cam, o: V3, d: V3, tm, stream, seed):

@@ -23,17 +23,31 @@ kernel in pass A (radiance only) and, in pass B, by the gradient forward
 followed at once by the reverse sweep: the same numbers for one more
 forward trace of those chunks, with one chunk's stash alive at a time.
 
-Two tiers of gradient kernels are ported, on one device.  Scenes inside
+Three tiers, on one device (``grad_tier`` picks).  Scenes inside
 ``cuda_wavefront.grad_applicable`` (lambertian, light and isotropic
 materials) take the product-chain tier: gradients of the texture colours.
 Scenes with metal or glass inside ``grad_pathwise_applicable`` take the
 pathwise tier: gradients of fuzz and IOR too, and of colours seen through a
 specular chain.  Its stash is heavier (22 rows a bounce against 15), and
 its pass B recomputes the rays' random draws, so it is given the chunk's
-stream ids (ids only: it reads no camera rays).  Not ported yet, each
-raising ``NotImplementedError``: environments (ROADMAP.md A15), the
-image-prefactor tier (A16), the replay tier for scenes outside the kernels'
-gates (A18) and ``mesh=`` (A19).
+stream ids (ids only: it reads no camera rays).
+
+Every other scene (meshes, non-box media, more than 1,024 primitives or 8
+lights, more textures and materials than the pathwise kernel's accumulator
+holds) takes the replay tier.  Pass A records each chunk: its radiance and
+its ``Decisions``, the outcome of every sweep (the record kernel of
+``ops/cuda_wavefront`` for scenes inside the megakernel's gate, the
+standard integrator for the others).  Pass B replays each chunk's record
+under ``torch.autograd`` (``integrator/wavefront.trace(decisions=...)``): no
+closest-hit or shadow sweep runs again, and the gradients of colours, fuzz
+and IOR include the terms through the hit distance.  A job whose records
+exceed ``dec_budget`` keeps none: pass A traces without recording, and pass
+B records each chunk again just before its replay.  Replay chunks hold at
+most ``renderer.MAX_CHUNK_RAYS_DIFFERENTIABLE`` rays: autograd keeps a few
+kilobytes a ray.
+
+Not ported yet, each raising ``NotImplementedError``: environments (ROADMAP.md
+A15), image textures (A16), noise textures (A13) and ``mesh=`` (A19).
 """
 
 from __future__ import annotations
@@ -48,7 +62,7 @@ from ..camera import Camera
 from ..geometry.scene import Scene
 from ..integrator import wavefront
 from ..ops import cuda_wavefront as mega
-from ..parallel.sharding import trainable_params
+from ..parallel.sharding import apply_params, trainable_params
 from ..utils.device import resolve_device
 from . import renderer as rmod
 
@@ -58,6 +72,26 @@ from . import renderer as rmod
 STASH_SHARE_OF_FREE_MEMORY = 0.5
 # On the CPU, where the plain versions run at test sizes.
 CPU_STASH_BUDGET = 2 << 30
+# Bytes the replay tier's records kept between its passes may take, the JAX
+# package's default (its GRT_DEC_BUDGET).
+DEC_BUDGET = 6_000_000_000
+
+
+def grad_tier(scene: Scene, max_depth: int) -> str:
+    """The tier ``render_grad`` takes: 'product', 'pathwise' or 'replay'.
+    The product tier wins where both kernel tiers' gates hold: its stash is
+    lighter."""
+    if mega.grad_applicable(scene, max_depth):
+        return "product"
+    if mega.grad_pathwise_applicable(scene, max_depth):
+        return "pathwise"
+    return "replay"
+
+
+def dec_bytes_per_ray(max_depth: int) -> int:
+    """Bytes the replay tier keeps a ray between its passes: ``Decisions``
+    holds three int32 and two bool fields a bounce."""
+    return max_depth * (3 * 4 + 2)
 
 
 def stash_bytes_per_ray(max_depth: int, pathwise: bool = False) -> int:
@@ -79,6 +113,43 @@ def _virtual_pixels(w: int, h: int, device):
     return pix, inb
 
 
+def _chunking(scene: Scene, cam: Camera, spp: int, chunk: Optional[int],
+              largest: int):
+    """(chunk size, chunks, ray ids of the job, virtual pixels a sample).
+    Chunks are whole samples; without a caller's size they are equalised,
+    so that no launch pays its fixed costs for a sliver of work."""
+    tiled = rmod.scene_tiled(scene)
+    _, _, n_virt = rmod.ray_layout(cam.image_width, cam.image_height, tiled)
+    total = n_virt * spp
+    kchunk = max(largest if chunk is None else chunk, 1024)
+    kchunk = min(kchunk, max(1024, -(-total // 1024) * 1024))
+    kchunk = max(kchunk // n_virt, 1) * n_virt
+    if chunk is None:
+        nch = max(-(-total // kchunk), 1)
+        kchunk = -(-(-(-total // nch)) // n_virt) * n_virt
+    return kchunk, -(-total // kchunk), total, n_virt
+
+
+def _loss_and_cotangent(flat_vs, target, w: int, h: int, spp: int, tiled: bool,
+                        dev):
+    """The framebuffer's loss and the per-virtual-pixel cotangent [n_virt, 3]
+    from the per-virtual-pixel radiance sums."""
+    target = torch.as_tensor(target, dtype=torch.float32, device=dev).reshape(h, w, 3)
+    if tiled:
+        pixv, inb = _virtual_pixels(w, h, dev)
+        fb = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
+        fb = fb.index_add_(0, pixv, flat_vs).reshape(h, w, 3)
+    else:
+        fb = flat_vs.reshape(h, w, 3)
+    resid = fb / spp - target
+    loss = torch.mean(resid * resid)
+    g_fb_flat = (2.0 / (w * h * 3 * spp)) * resid.reshape(w * h, 3)
+    # per-virtual-pixel cotangent: one gather for the tiled layout, the
+    # framebuffer's own for the untiled one
+    g_virt = torch.where(inb[:, None], g_fb_flat[pixv], 0.0) if tiled else g_fb_flat
+    return loss, g_virt
+
+
 def _twophase_fwd(scene: Scene, cam: Camera, ray_start: int, seed, *,
                   spp: int, chunk: int, max_depth: int, keep_stash: bool,
                   pathwise: bool = False):
@@ -92,10 +163,54 @@ def _twophase_fwd(scene: Scene, cam: Camera, ray_start: int, seed, *,
                                          pathwise=pathwise)
     else:
         rad, carry = wavefront.trace(scene, cam2, o, d, tm, stream, seed), None
+    return _virtual_sums(scene, cam, rad, valid, chunk), carry
+
+
+def _virtual_sums(scene: Scene, cam: Camera, rad, valid, chunk: int):
+    """A chunk's radiance (whole samples) -> [n_virt, 3] sums per virtual
+    pixel, in a fixed order."""
     rows = torch.where(valid, torch.stack(list(rad)), 0.0)   # [3, chunk]
     n_virt = rmod.ray_layout(cam.image_width, cam.image_height,
                              rmod.scene_tiled(scene))[2]
-    return rows.reshape(3, chunk // n_virt, n_virt).sum(dim=1).t(), carry
+    return rows.reshape(3, chunk // n_virt, n_virt).sum(dim=1).t()
+
+
+def _record_fwd(scene: Scene, cam: Camera, ray_start: int, seed, *, spp: int,
+                chunk: int, max_depth: int, keep: bool):
+    """Pass A of the replay tier for one chunk: ([n_virt, 3] sums of the
+    chunk's radiance per virtual pixel, its ``Decisions`` or None).  The
+    trace picks its recorder: the megakernel's record kernel inside its
+    gate, the standard integrator outside."""
+    cam2, o, d, tm, stream, _, valid = rmod._chunk_rays(
+        scene, cam, ray_start, seed, spp=spp, chunk=chunk,
+        max_depth=max_depth, device=scene.device)
+    if keep:
+        rad, dec = wavefront.trace(scene, cam2, o, d, tm, stream, seed, record=True)
+    else:
+        rad, dec = wavefront.trace(scene, cam2, o, d, tm, stream, seed), None
+    return _virtual_sums(scene, cam, rad, valid, chunk), dec
+
+
+def _replay_rev(scene: Scene, cam: Camera, g_virt, ray_start: int, seed, dec,
+                *, spp: int, chunk: int, max_depth: int):
+    """Pass B of the replay tier for one chunk: the gradients of
+    <radiance, cotangent> by ``torch.autograd`` through the replay of the
+    chunk's record (recorded here first when pass A kept none)."""
+    cam2, o, d, tm, stream, _, _ = rmod._chunk_rays(
+        scene, cam, ray_start, seed, spp=spp, chunk=chunk,
+        max_depth=max_depth, device=scene.device)
+    if dec is None:
+        _, dec = wavefront.trace(scene, cam2, o, d, tm, stream, seed, record=True)
+    g3 = _chunk_cotangent(g_virt, ray_start, chunk, g_virt.shape[0] * spp)
+    params = {k: v.detach().requires_grad_()
+              for k, v in trainable_params(scene).items()}
+    with torch.enable_grad():
+        rad = wavefront.trace(apply_params(scene, params), cam2, o, d, tm,
+                              stream, seed, decisions=dec)
+        inner = sum((rad[c] * g3[c]).sum() for c in range(3))
+        got = torch.autograd.grad(inner, list(params.values()), allow_unused=True)
+    return {k: torch.zeros_like(v) if g is None else g
+            for (k, v), g in zip(params.items(), got)}
 
 
 def _chunk_cotangent(g_virt, ray_start: int, chunk: int, total: int):
@@ -139,7 +254,8 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
                 max_depth: Optional[int] = None, seed: int = 0,
                 chunk: Optional[int] = None,
                 stats: Optional[rmod.RenderStats] = None, mesh=None,
-                stash_budget: Optional[int] = None, device=None):
+                stash_budget: Optional[int] = None,
+                dec_budget: Optional[int] = None, device=None):
     """Full-resolution loss + parameter gradients, chunked.
 
     target: [H, W, 3] image the render is being fit to.
@@ -149,14 +265,17 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
     (see the module docstring) and both passes use the same RNG streams.
     A scene without metal and glass goes through the product-chain kernels
     (``fuzz``, ``ior`` and ``atlas`` are then zero by structure), one with
-    them through the pathwise kernels (``atlas`` zero); a scene outside both
-    gates raises ``NotImplementedError``.
+    them through the pathwise kernels (``atlas`` zero), any other through
+    the replay tier (``grad_tier``).
 
     ``device=None`` means "cuda" (a machine without one raises); the scene
     must have been built on the same device.
     ``stash_budget``: bytes the stashes kept between the passes may take;
     by default half of the device memory that is free at the call.
-    ``stats.chunks`` counts ray chunks, once, whatever route they took.
+    ``dec_budget``: bytes the replay tier's records may take between its
+    passes (``DEC_BUDGET`` by default); a job over it records every chunk
+    twice.  ``stats.chunks`` counts ray chunks, once, whatever route they
+    took.
     """
     dev = resolve_device(device)
     if scene.device.type != dev.type:
@@ -167,34 +286,17 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
             "render_grad(mesh=...) is not ported yet (ROADMAP.md A19)")
     spp = cam.samples_per_pixel if spp is None else spp
     max_depth = cam.max_depth if max_depth is None else max_depth
-    if scene.meshes:
-        raise NotImplementedError(
-            "render_grad of a mesh scene needs the replay tier, which is not "
-            "ported yet (ROADMAP.md A18); torch.autograd through "
-            "render(differentiable=True) gives its colour gradients")
-    # the product tier wins where both gates hold: its stash is lighter
-    pathwise = not mega.grad_applicable(scene, max_depth)
-    if pathwise and not mega.grad_pathwise_applicable(scene, max_depth):
-        raise NotImplementedError(
-            "the scene is outside the gates of both ported gradient tiers "
-            "(product chain and pathwise): environments are ROADMAP.md A15, "
-            "image textures A16, and the replay tier for every other scene "
-            "(meshes, noise textures, non-box media, too many primitives, "
-            "textures or materials) A18")
+    tier = grad_tier(scene, max_depth)
+    if tier == "replay":
+        wavefront._check_standard(scene)   # environments, noise, images
+        return _render_grad_replay(scene, cam, target, spp=spp,
+                                   max_depth=max_depth, seed=seed, chunk=chunk,
+                                   stats=stats, dec_budget=dec_budget)
+    pathwise = tier == "pathwise"
     w, h = cam.image_width, cam.image_height
     tiled = rmod.scene_tiled(scene)
-    _, _, n_virt = rmod.ray_layout(w, h, tiled)
-    total = n_virt * spp
-
-    # Chunks are whole samples; without a caller's size they are equalised,
-    # so that no launch pays its fixed costs for a sliver of work.
-    kchunk = max(rmod.pick_chunk_size(scene) if chunk is None else chunk, 1024)
-    kchunk = min(kchunk, max(1024, -(-total // 1024) * 1024))
-    kchunk = max(kchunk // n_virt, 1) * n_virt
-    if chunk is None:
-        nch = max(-(-total // kchunk), 1)
-        kchunk = -(-(-(-total // nch)) // n_virt) * n_virt
-    n_chunks = -(-total // kchunk)
+    kchunk, n_chunks, total, n_virt = _chunking(
+        scene, cam, spp, chunk, rmod.pick_chunk_size(scene))
 
     if stash_budget is None:
         if dev.type == "cuda":
@@ -205,11 +307,7 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
     chunk_bytes = kchunk * stash_bytes_per_ray(max_depth, pathwise)
     n_stash = min(int(stash_budget) // chunk_bytes, n_chunks)
 
-    def _sync():
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-
-    _sync()
+    _sync(dev)
     t0 = time.perf_counter()
     args = dict(spp=spp, chunk=kchunk, max_depth=max_depth, pathwise=pathwise)
 
@@ -222,19 +320,7 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
         flat_vs += vs
         carries.append(carry)
 
-    target = torch.as_tensor(target, dtype=torch.float32, device=dev).reshape(h, w, 3)
-    if tiled:
-        pixv, inb = _virtual_pixels(w, h, dev)
-        fb = torch.zeros((w * h, 3), dtype=torch.float32, device=dev)
-        fb = fb.index_add_(0, pixv, flat_vs).reshape(h, w, 3)
-    else:
-        fb = flat_vs.reshape(h, w, 3)
-    resid = fb / spp - target
-    loss = torch.mean(resid * resid)
-    g_fb_flat = (2.0 / (w * h * 3 * spp)) * resid.reshape(w * h, 3)
-    # per-virtual-pixel cotangent: one gather for the tiled layout, the
-    # framebuffer's own for the untiled one
-    g_virt = torch.where(inb[:, None], g_fb_flat[pixv], 0.0) if tiled else g_fb_flat
+    loss, g_virt = _loss_and_cotangent(flat_vs, target, w, h, spp, tiled, dev)
 
     # ---- pass B: reverse sweeps; each stash is dropped as soon as it is used
     grads = {k: torch.zeros_like(v) for k, v in trainable_params(scene).items()}
@@ -244,7 +330,59 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
         del carry
         for k, v in g.items():
             grads[k] += v
-    _sync()
+    _sync(dev)
+
+    if stats is not None:
+        stats.rays_traced += total
+        stats.wall_seconds += time.perf_counter() - t0
+        stats.chunks += n_chunks
+    return loss, grads
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _render_grad_replay(scene: Scene, cam: Camera, target, *, spp: int,
+                        max_depth: int, seed: int, chunk: Optional[int],
+                        stats: Optional[rmod.RenderStats],
+                        dec_budget: Optional[int]):
+    """``render_grad``'s replay tier (see the module docstring).  The last
+    chunk holds only the samples left, so no ray is traced twice in a pass."""
+    dev = scene.device
+    w, h = cam.image_width, cam.image_height
+    tiled = rmod.scene_tiled(scene)
+    kchunk, n_chunks, total, n_virt = _chunking(
+        scene, cam, spp, chunk, rmod.pick_chunk_size(scene, differentiable=True))
+    starts = [i * kchunk for i in range(n_chunks)]
+    sizes = [min(kchunk, total - s0) for s0 in starts]
+    budget = DEC_BUDGET if dec_budget is None else int(dec_budget)
+    keep = total * dec_bytes_per_ray(max_depth) <= budget
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    args = dict(spp=spp, max_depth=max_depth)
+
+    # ---- pass A: framebuffer, and every chunk's record if they all fit
+    flat_vs = torch.zeros((n_virt, 3), dtype=torch.float32, device=dev)
+    decs = []
+    for s0, size in zip(starts, sizes):
+        vs, dec = _record_fwd(scene, cam, s0, seed, chunk=size, keep=keep, **args)
+        flat_vs += vs
+        decs.append(dec)
+
+    loss, g_virt = _loss_and_cotangent(flat_vs, target, w, h, spp, tiled, dev)
+
+    # ---- pass B: replays; each record is dropped as soon as it is used
+    grads = {k: torch.zeros_like(v) for k, v in trainable_params(scene).items()}
+    for i, (s0, size) in enumerate(zip(starts, sizes)):
+        dec, decs[i] = decs[i], None
+        g = _replay_rev(scene, cam, g_virt, s0, seed, dec, chunk=size, **args)
+        del dec
+        for k, v in g.items():
+            grads[k] += v
+    _sync(dev)
 
     if stats is not None:
         stats.rays_traced += total

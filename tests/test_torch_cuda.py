@@ -535,3 +535,107 @@ def test_cuda_mesh_wrappers_reject_what_the_kernels_do_not_take():
         cm.intersect_mesh_kernel(cpu, o, d, 1e-3, big)
     with pytest.raises(ValueError):     # too few rays' worth of t_max
         cm.intersect_mesh_kernel(proto, o, d, 1e-3, big[:32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene_name", ["mixed", "cornell", "random-700"])
+def test_cuda_record_kernel_matches_plain_version(scene_name):
+    """On a GPU: the record kernel (B6) against its plain version, and its
+    radiance against the forward kernel's (B1): the same bits, and the same
+    decisions on every ray-bounce (both built without fused multiply-adds)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    if scene_name == "mixed":
+        scene = build_mixed(grtt, device="cuda")
+        cam = tcamera.Camera(**MIXED_CAM)
+    elif scene_name == "cornell":
+        scene, cam = grtt.load_scene("cornell", device="cuda")
+    else:
+        scene, cam = grtt.load_scene("random", device="cuda", grid=(-14, 14, -14, 14))
+        cam = dataclasses.replace(cam, max_depth=4)
+    cam = dataclasses.replace(cam, image_width=64, aspect_ratio=1.0)
+    n = 64 * 64 * (1 if scene_name == "random-700" else 4)
+    o, d, tm, ids = _rays(cam, n, 5, "cuda")
+    tb = cw.build_tables(scene)
+    args = (tb, o, d, tm, cw.stream_to_i32(ids), 5, cam.max_depth)
+    before = cw.LAUNCHES_RECORD
+    out, flags, code, idx = cw.wavefront_record(*args)
+    torch.cuda.synchronize()
+    assert cw.LAUNCHES_RECORD == before + 1
+    f_out, f_flags = cw.wavefront_fwd(*args)
+    assert torch.equal(out, f_out) and torch.equal(flags, f_flags)
+    p_out, p_flags, p_code, p_idx = cw._wavefront_record_plain(*args)
+    assert torch.equal(code, p_code) and torch.equal(idx, p_idx)
+    assert float((out - p_out).abs().max()) == 0.0 and torch.equal(flags, p_flags)
+    # and the standard integrator records the same outcomes, but for ties
+    from go_raytracing_tpu_torch.integrator import wavefront as twf
+
+    which, widx, blk_a, _ = cw.unpack_record(code, idx)
+    _, dec = twf.trace(scene, cam, o, d, tm, ids, 5, mega_mode="off", record=True)
+    for a, b in ((which, dec.which), (widx, dec.idx), (blk_a, dec.blk_a)):
+        assert float((a == b).float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
+def test_cuda_gradients_have_the_same_bits_every_run():
+    """C7 on a GPU: two ``torch.autograd`` backward passes, and two replay
+    ``render_grad`` calls, give identical bits; the row-sum kernel equals
+    its plain version to float32 rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    from go_raytracing_tpu_torch.ops import cuda_rows
+
+    scene, cam = grtt.load_scene("cornell")
+    cam = dataclasses.replace(cam, image_width=32, aspect_ratio=1.0,
+                              samples_per_pixel=4)
+    target = grtt.render(scene, cam, seed=1) / 4 * 0.8
+
+    def autograd():
+        params = {k: v.clone().requires_grad_()
+                  for k, v in grtt.trainable_params(scene).items()}
+        fb = grtt.render(grtt.apply_params(scene, params), cam, seed=0,
+                         differentiable=True)
+        torch.mean((fb / 4 - target) ** 2).backward()
+        return params["color"].grad
+
+    before = cuda_rows.LAUNCHES_ROW_SUMS
+    a, b = autograd(), autograd()
+    assert cuda_rows.LAUNCHES_ROW_SUMS > before and torch.equal(a, b)
+    lucy = build_lucy(grtt, device="cuda")
+    lcam = tcamera.Camera(**LUCY_CAM)
+    lt = torch.zeros((lcam.image_height, lcam.image_width, 3), device="cuda")
+    (l1, g1), (l2, g2) = (grtt.render_grad(lucy, lcam, lt, seed=2) for _ in range(2))
+    assert float(l1) == float(l2)
+    assert all(torch.equal(g1[k], g2[k]) for k in g1)
+    g = torch.randn((100000, 3), device="cuda")
+    i = torch.randint(0, 7, (100000,), device="cuda")
+    k = cuda_rows.row_sums(g, i, 7)
+    p = cuda_rows._row_sums_plain(g, i, 7)
+    assert float((k - p).abs().max()) <= 1e-5 * float(p.abs().max())
+    assert torch.equal(k, cuda_rows.row_sums(g, i, 7))
+
+
+@pytest.mark.cuda
+def test_cuda_render_grad_replay_goes_through_the_record_kernel():
+    """On a GPU: ``render_grad`` of a scene inside the megakernel's gate and
+    outside both gradient kernel tiers records each chunk once with the
+    record kernel, and matches the same call on the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    from go_raytracing_tpu_torch.render import grad as tgrad
+
+    scene, cam = grtt.load_scene("random", grid=(-7, 7, -7, 7))
+    cam = dataclasses.replace(cam, image_width=32, aspect_ratio=1.0,
+                              samples_per_pixel=2, max_depth=3)
+    assert tgrad.grad_tier(scene, 3) == "replay"
+    target = torch.full((32, 32, 3), 0.3, device="cuda")
+    stats = grtt.RenderStats()
+    before = cw.LAUNCHES_RECORD
+    loss, g = grtt.render_grad(scene, cam, target, seed=1, stats=stats)
+    assert cw.LAUNCHES_RECORD == before + stats.chunks
+    cpu_scene, _ = grtt.load_scene("random", grid=(-7, 7, -7, 7), device="cpu")
+    ref_loss, ref = grtt.render_grad(cpu_scene, cam, target.cpu(), seed=1, device="cpu")
+    assert abs(float(loss) - float(ref_loss)) <= 1e-4 * float(ref_loss)
+    for k in ref:
+        big = max(float(ref[k].abs().max()), 1e-12)
+        assert float((g[k].cpu() - ref[k]).abs().max()) <= 2e-3 * big, k

@@ -142,7 +142,8 @@ def test_pathwise_render_grad_budget_and_chunks():
 def test_pathwise_gates():
     """The pathwise gate: the reverse kernel's accumulator (9 a texture and
     2 a material in 1,536 floats), no environment, no noise.  Outside both
-    gates ``render_grad`` raises and names the ROADMAP items."""
+    gates ``render_grad`` takes the replay tier, or raises and names the
+    ROADMAP item of what is not ported."""
     scene, cam = _glossy(spp=1)
     target = torch.zeros((16, 16, 3))
     assert cw.grad_pathwise_applicable(scene, 3) and not cw.grad_applicable(scene, 3)
@@ -154,8 +155,10 @@ def test_pathwise_gates():
         many = dataclasses.replace(scene, textures=dataclasses.replace(
             scene.textures, color=torch.zeros((n_tex, 3))))
         assert cw.grad_pathwise_applicable(many, 3) == ok
-    with pytest.raises(NotImplementedError, match="A18"):
-        grtt.render_grad(many, cam, target, device="cpu")
+    assert tgrad.grad_tier(many, 3) == "replay"
+    loss, g = grtt.render_grad(many, cam, target, device="cpu")
+    assert np.isfinite(float(loss)) and tuple(g["color"].shape) == (fits + 1, 3)
+    assert all(bool(torch.isfinite(v).all()) for v in g.values())
     with pytest.raises(NotImplementedError, match="A15"):
         grtt.render_grad(dataclasses.replace(scene, env=object()), cam, target,
                          device="cpu")

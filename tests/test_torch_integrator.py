@@ -23,8 +23,8 @@ from go_raytracing_tpu_torch.integrator import wavefront as twf
 from go_raytracing_tpu_torch.ops import cuda_intersect as ck
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from go_raytracing_tpu_torch.render import renderer as trenderer
-from test_torch_helpers import (FOG_ROOM_CAM, MIXED_CAM, build_fog_room,
-                                build_mixed, port_and_jax, scene_tree)
+from test_torch_helpers import (FOG_ROOM_CAM, MIXED_CAM, build_fog_room, build_lucy,
+                                build_mixed, mesh_rays, port_and_jax, scene_tree)
 
 torch.set_num_threads(2)
 
@@ -169,25 +169,53 @@ def test_render_image_and_progressive_take_the_routes():
     assert names == ["preview", "refining", "final"]
 
 
+def _recorded(ts, r):
+    """The replay tier (ROADMAP.md A18) is ported: a record keeps the
+    radiance and holds [depth, rays] decisions."""
+    rad, dec = twf.trace(ts, *r, record=True)
+    assert torch.equal(rad.rows(), twf.trace(ts, *r).rows())
+    assert tuple(dec.which.shape) == (r[0].max_depth, r[1].x.shape[0])
+
+
+def _replayed(ts, r):
+    """... and its replay gives the recorded radiance."""
+    rad, dec = twf.trace(ts, *r, record=True)
+    rep = twf.trace(ts, *r, decisions=dec)
+    torch.testing.assert_close(rep.rows().detach(), rad.rows(), rtol=1e-5, atol=1e-6)
+
+
+def _mesh_recorded(ts, r):
+    """... and the standard integrator records a mesh scene's triangles."""
+    lucy = build_lucy(grtt, n_instances=2, device="cpu")
+    o, d = (torch.from_numpy(a) for a in mesh_rays(64))
+    ids = torch.arange(64)
+    _, dec = twf.trace(lucy, r[0], o, d, torch.zeros(64), ids, 0, record=True)
+    assert bool((dec.which[0] >= twf.HIT_MESH_BASE).any())
+
+
 @pytest.mark.parametrize("call, item", [
-    (lambda ts, r: twf.trace(ts, *r, record=True), "A18"),
-    (lambda ts, r: twf.trace(ts, *r, decisions=()), "A18"),
+    (_recorded, "A18"),
+    (_replayed, "A18"),
     (lambda ts, r: twf.trace(ts, *r, mega_mode="split"), "B11"),
     (lambda ts, r: twf.trace(ts, *r, mega_mode="compact"), "B11"),
     (lambda ts, r: twf.trace(ts, *r, mega_mode="image"), "A16"),
     (lambda ts, r: twf.trace(dataclasses.replace(ts, has_noise=True), *r), "A13"),
     (lambda ts, r: twf.trace(dataclasses.replace(ts, has_image=True), *r), "A16"),
-    # meshes render; recording their decisions is the replay tier's
-    (lambda ts, r: twf.trace(dataclasses.replace(ts, meshes=(object(),)), *r,
-                             record=True), "A18"),
+    # meshes render, and the standard integrator records their decisions
+    (_mesh_recorded, "A18"),
     (lambda ts, r: twf.trace(dataclasses.replace(ts, env=object()), *r), "A15"),
     (lambda ts, r: twf.sample_hdri_light(ts, *r), "A15"),
 ])
 def test_what_remains_names_its_roadmap_item(call, item):
+    """Each part still to port raises and names its ROADMAP item; the replay
+    tier's calls (A18) are ported and run their own checks."""
     ts, cam = grtt.load_scene("quads", device="cpu")
     cam = dataclasses.replace(cam, image_width=8, max_depth=2)
     o, d, tm, ids = _rays(cam, 16, 0)
-    with pytest.raises(NotImplementedError, match=item):
+    if item == "A18":
         call(ts, (cam, o, d, tm, ids, 0))
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            call(ts, (cam, o, d, tm, ids, 0))
     with pytest.raises(ValueError, match="mega_mode"):
         twf.trace(ts, cam, o, d, tm, ids, 0, mega_mode="sideways")
