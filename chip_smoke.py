@@ -37,7 +37,8 @@ standard integrator's record (``record_kernel_vs_plain``, early), ``random``
 (600x337, 25 spp, depth 10, recorded by the record kernel) and
 ``cornell-lucy`` (600x600, 25 spp, depth 5, 112,128 triangles x 10,
 recorded through ``mesh_stream``) at full size (``replay_random_fwd_bwd``,
-``replay_lucy_fwd_bwd``), the record kernel alone (``record_kernel_timing``),
+``replay_lucy_fwd_bwd``), a ``torch.profiler`` split of one replay chunk
+(``replay_profile``), the record kernel alone (``record_kernel_timing``),
 both scenes at 32x32 against the CPU's plain versions and autograd
 (``replay_check``), the row-sum kernel of ``take_rows``' backward pass
 (``row_sums_kernel``; not a port of a TPU kernel, so not in the ``kernels``
@@ -1285,6 +1286,19 @@ def intersect_kernel_timing(cases, launches, small_checks):
     return [entries[k] for k in sources]
 
 
+def device_rows(prof):
+    """(kernel name, device ms, launches) of a profile, longest first."""
+    rows = [(e.key, getattr(e, "device_time_total", 0.0) / 1e3, e.count)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and "cuda" in str(e.device_type).lower()]
+    if not rows:
+        rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
+                for e in prof.key_averages()
+                if getattr(e, "self_device_time_total", 0.0) > 0]
+    return sorted(rows, key=lambda r: -r[1])
+
+
 def profile_standard_chunk(scene, cam):
     """Device time by kernel over one chunk of the Cornell job on the fast
     route, from ``torch.profiler``, beside the same render's time without the
@@ -1304,15 +1318,7 @@ def profile_standard_chunk(scene, cam):
             grt.render(scene, cam, spp=one, seed=0, mega_mode="off")
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = [(e.key, getattr(e, "device_time_total", 0.0) / 1e3, e.count)
-                for e in prof.key_averages()
-                if getattr(e, "device_type", None) is not None
-                and "cuda" in str(e.device_type).lower()]
-        if not rows:
-            rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3, e.count)
-                    for e in prof.key_averages()
-                    if getattr(e, "self_device_time_total", 0.0) > 0]
-        rows.sort(key=lambda r: -r[1])
+        rows = device_rows(prof)
         device_ms = sum(r[1] for r in rows)
         ours = sum(r[1] for r in rows if "planar_kernel" in r[0] or "sphere_kernel" in r[0])
         int64 = [r for r in rows if "<long" in r[0] or " long" in r[0]]   # the PCG3D hash
@@ -1886,6 +1892,44 @@ def replay_main_path(phase, name, scene, cam, rounds):
     return counts, stats.chunks, same_bits
 
 
+def profile_replay_chunk(scene, cam):
+    """The first chunk of ``random``'s replay tier: pass A (the record)
+    and pass B (the replay under autograd, forward and backward) timed
+    without the profiler, then pass B under ``torch.profiler``: the device's
+    busy share and device time by kernel.  For the record only: a profiler
+    that does not work on this machine is reported and fails nothing."""
+    kchunk, _, _, n_virt = gradmod._chunking(
+        scene, cam, cam.samples_per_pixel, None,
+        renderer.pick_chunk_size(scene, differentiable=True))
+    g_virt = torch.full((n_virt, 3), 1e-6, device=scene.device)
+    args = dict(spp=cam.samples_per_pixel, chunk=kchunk, max_depth=cam.max_depth)
+    try:
+        from torch.profiler import ProfilerActivity, profile
+
+        _, dec = gradmod._record_fwd(scene, cam, 0, 0, keep=True, **args)
+        record_ms, (_, dec) = cuda_ms(
+            lambda: gradmod._record_fwd(scene, cam, 0, 0, keep=True, **args))
+        gradmod._replay_rev(scene, cam, g_virt, 0, 0, dec, **args)
+        replay_ms, _ = cuda_ms(
+            lambda: gradmod._replay_rev(scene, cam, g_virt, 0, 0, dec, **args))
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            gradmod._replay_rev(scene, cam, g_virt, 0, 0, dec, **args)
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        device_ms = sum(r[1] for r in rows)
+        row_sums = [r for r in rows if "row_sums_kernel" in r[0]]
+        emit("replay_profile", scene="random", rays=kchunk, depth=cam.max_depth,
+             record_ms=record_ms, replay_ms_without_profiler=replay_ms,
+             replay_device_ms=device_ms, replay_device_busy_share=device_ms / replay_ms,
+             replay_device_idle_share=1.0 - device_ms / replay_ms,
+             replay_device_kernel_launches=sum(r[2] for r in rows),
+             row_sums_ms=sum(r[1] for r in row_sums),
+             row_sums_launches=sum(r[2] for r in row_sums),
+             top=[dict(name=r[0][:80], ms=r[1], calls=r[2]) for r in rows[:12]])
+    except Exception as exc:  # the profiler is optional on this machine
+        emit("replay_profile", error=repr(exc)[:300])
+
+
 def replay_check(name, scene, cpu_scene, cam):
     """``render_grad`` at a small size on the card against the same call on
     the CPU through the plain versions (every key within 2e-3 of its largest
@@ -2267,6 +2311,7 @@ def main():
     if rr_counts["wavefront_record"] != rr_chunks or rr_counts["wavefront_fwd"] != 0:
         raise RuntimeError(f"replay_random_fwd_bwd: launches {rr_counts} for "
                            f"{rr_chunks} chunks")
+    profile_replay_chunk(rr_scene, rr_cam)
     lucy, lucy_cam = lucy_scene((256, 220), dev)
     lu_counts, lu_chunks, lu_bits = replay_main_path(
         "replay_lucy_fwd_bwd", "cornell-lucy", lucy, lucy_cam, rounds=2)
