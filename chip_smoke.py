@@ -1303,37 +1303,32 @@ def profile_standard_chunk(scene, cam):
     """Device time by kernel over one chunk of the Cornell job on the fast
     route, from ``torch.profiler``, beside the same render's time without the
     profiler (which slows the host many times over): the device's busy share
-    is the kernels' summed time over that.  For the record only: a profiler
-    that does not work on this machine is reported and fails nothing."""
+    is the kernels' summed time over that."""
+    from torch.profiler import ProfilerActivity, profile
+
     n_virt = cam.image_width * cam.image_height
     one = renderer.pick_chunk_size(scene) // n_virt
-    try:
-        from torch.profiler import ProfilerActivity, profile
-
+    grt.render(scene, cam, spp=one, seed=0, mega_mode="off")
+    plain_ms, _ = cuda_ms(lambda: grt.render(scene, cam, spp=one, seed=0, mega_mode="off"))
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         grt.render(scene, cam, spp=one, seed=0, mega_mode="off")
-        plain_ms, _ = cuda_ms(
-            lambda: grt.render(scene, cam, spp=one, seed=0, mega_mode="off"))
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            grt.render(scene, cam, spp=one, seed=0, mega_mode="off")
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = device_rows(prof)
-        device_ms = sum(r[1] for r in rows)
-        ours = sum(r[1] for r in rows if "planar_kernel" in r[0] or "sphere_kernel" in r[0])
-        int64 = [r for r in rows if "<long" in r[0] or " long" in r[0]]   # the PCG3D hash
-        emit("standard_profile", scene="cornell", rays=one * n_virt, spp=one,
-             render_ms_without_profiler=plain_ms,
-             wall_ms_under_profiler=wall_ms, device_ms=device_ms,
-             device_busy_share=device_ms / plain_ms,
-             device_idle_share=1.0 - device_ms / plain_ms,
-             device_kernel_launches=sum(r[2] for r in rows),
-             closest_hit_kernels_ms=ours,
-             int64_kernels_ms=sum(r[1] for r in int64),
-             int64_kernel_launches=sum(r[2] for r in int64),
-             top=[dict(name=r[0][:80], ms=r[1], calls=r[2]) for r in rows[:12]])
-    except Exception as exc:  # the profiler is optional on this machine
-        emit("standard_profile", error=repr(exc)[:300])
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = device_rows(prof)
+    device_ms = sum(r[1] for r in rows)
+    ours = sum(r[1] for r in rows if "planar_kernel" in r[0] or "sphere_kernel" in r[0])
+    int64 = [r for r in rows if "<long" in r[0] or " long" in r[0]]   # the PCG3D hash
+    emit("standard_profile", scene="cornell", rays=one * n_virt, spp=one,
+         render_ms_without_profiler=plain_ms,
+         wall_ms_under_profiler=wall_ms, device_ms=device_ms,
+         device_busy_share=device_ms / plain_ms,
+         device_idle_share=1.0 - device_ms / plain_ms,
+         device_kernel_launches=sum(r[2] for r in rows),
+         closest_hit_kernels_ms=ours,
+         int64_kernels_ms=sum(r[1] for r in int64),
+         int64_kernel_launches=sum(r[2] for r in int64),
+         top=[dict(name=r[0][:80], ms=r[1], calls=r[2]) for r in rows[:12]])
 
 
 # ---- instanced triangle meshes: cornell-lucy through the two mesh kernels ----
@@ -1751,12 +1746,11 @@ def compare_record(name, scene, cam, o, d, tm, ids, seed):
     dec_mismatch = float(((code != p_code) | (idx != p_idx)).float().mean())
     rad_err = float((k_out - p_out).abs().max())
     flags_equal = bool(torch.equal(k_flags, p_flags))
-    which, widx, blk_a, blk_h = cw.unpack_record(code, idx)
+    which, widx, blk_a = cw.unpack_record(code, idx)
     _, dec = wavefront.trace(scene, cam, o, d, tm, ids, seed, mega_mode="off",
                              record=True)
     shares = {f: float((a == getattr(dec, f)).float().mean())
-              for f, a in (("which", which), ("idx", widx), ("blk_a", blk_a),
-                           ("blk_h", blk_h))}
+              for f, a in (("which", which), ("idx", widx), ("blk_a", blk_a))}
     emit("record_kernel_vs_plain", scene=name, rays=int(tm.shape[0]),
          depth=cam.max_depth, radiance_and_flags_bits_equal_forward_kernel=bits,
          decision_mismatch_share_vs_plain=dec_mismatch,
@@ -1874,7 +1868,7 @@ def replay_main_path(phase, name, scene, cam, rounds):
     render_loss = float(torch.mean((fb / spp - target) ** 2))
     loss_rel = abs(results[-1][0] - render_loss) / render_loss
     finite = all(bool(torch.isfinite(v).all()) for v in grads.values())
-    dec_bytes = n_rays * gradmod.dec_bytes_per_ray(cam.max_depth)
+    dec_bytes = n_rays * gradmod.dec_bytes_per_ray(scene, cam.max_depth)
     ms = median(taken)
     emit(phase, scene=name, width=cam.image_width, height=cam.image_height, spp=spp,
          depth=cam.max_depth, camera_rays=n_rays, tier="replay",
@@ -1896,38 +1890,33 @@ def profile_replay_chunk(scene, cam):
     """The first chunk of ``random``'s replay tier: pass A (the record)
     and pass B (the replay under autograd, forward and backward) timed
     without the profiler, then pass B under ``torch.profiler``: the device's
-    busy share and device time by kernel.  For the record only: a profiler
-    that does not work on this machine is reported and fails nothing."""
+    busy share and device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
     kchunk, _, _, n_virt = gradmod._chunking(
         scene, cam, cam.samples_per_pixel, None,
         renderer.pick_chunk_size(scene, differentiable=True))
     g_virt = torch.full((n_virt, 3), 1e-6, device=scene.device)
     args = dict(spp=cam.samples_per_pixel, chunk=kchunk, max_depth=cam.max_depth)
-    try:
-        from torch.profiler import ProfilerActivity, profile
-
-        _, dec = gradmod._record_fwd(scene, cam, 0, 0, keep=True, **args)
-        record_ms, (_, dec) = cuda_ms(
-            lambda: gradmod._record_fwd(scene, cam, 0, 0, keep=True, **args))
+    _, dec = gradmod._record_fwd(scene, cam, 0, 0, keep=True, **args)
+    record_ms, (_, dec) = cuda_ms(
+        lambda: gradmod._record_fwd(scene, cam, 0, 0, keep=True, **args))
+    gradmod._replay_rev(scene, cam, g_virt, 0, 0, dec, **args)
+    replay_ms, _ = cuda_ms(lambda: gradmod._replay_rev(scene, cam, g_virt, 0, 0, dec, **args))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         gradmod._replay_rev(scene, cam, g_virt, 0, 0, dec, **args)
-        replay_ms, _ = cuda_ms(
-            lambda: gradmod._replay_rev(scene, cam, g_virt, 0, 0, dec, **args))
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            gradmod._replay_rev(scene, cam, g_virt, 0, 0, dec, **args)
-            torch.cuda.synchronize()
-        rows = device_rows(prof)
-        device_ms = sum(r[1] for r in rows)
-        row_sums = [r for r in rows if "row_sums_kernel" in r[0]]
-        emit("replay_profile", scene="random", rays=kchunk, depth=cam.max_depth,
-             record_ms=record_ms, replay_ms_without_profiler=replay_ms,
-             replay_device_ms=device_ms, replay_device_busy_share=device_ms / replay_ms,
-             replay_device_idle_share=1.0 - device_ms / replay_ms,
-             replay_device_kernel_launches=sum(r[2] for r in rows),
-             row_sums_ms=sum(r[1] for r in row_sums),
-             row_sums_launches=sum(r[2] for r in row_sums),
-             top=[dict(name=r[0][:80], ms=r[1], calls=r[2]) for r in rows[:12]])
-    except Exception as exc:  # the profiler is optional on this machine
-        emit("replay_profile", error=repr(exc)[:300])
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    device_ms = sum(r[1] for r in rows)
+    row_sums = [r for r in rows if "row_sums_kernel" in r[0]]
+    emit("replay_profile", scene="random", rays=kchunk, depth=cam.max_depth,
+         record_ms=record_ms, replay_ms_without_profiler=replay_ms,
+         replay_device_ms=device_ms, replay_device_busy_share=device_ms / replay_ms,
+         replay_device_idle_share=1.0 - device_ms / replay_ms,
+         replay_device_kernel_launches=sum(r[2] for r in rows),
+         row_sums_ms=sum(r[1] for r in row_sums),
+         row_sums_launches=sum(r[2] for r in row_sums),
+         top=[dict(name=r[0][:80], ms=r[1], calls=r[2]) for r in rows[:12]])
 
 
 def replay_check(name, scene, cpu_scene, cam):
@@ -1969,25 +1958,11 @@ def replay_check(name, scene, cpu_scene, cam):
                            f"over budget same {over_budget_same}")
 
 
-def sorted_row_sums(g, idx, n_rows):
-    """The other fixed-order route to take_rows' backward pass, timed beside
-    the kernel and used nowhere else: a stable sort of the indices, prefix
-    sums of the sorted rows in float64 along the innermost dimension, and
-    each row's sum as the difference of two prefix sums."""
-    key, order = torch.sort(idx.to(torch.int32), stable=True)
-    rows = g.index_select(0, order).reshape(idx.numel(), -1).t().to(torch.float64)
-    prefix = torch.nn.functional.pad(torch.cumsum(rows, dim=1), (1, 0))
-    cut = torch.searchsorted(key, torch.arange(n_rows + 1, dtype=torch.int32,
-                                               device=g.device))
-    return (prefix[:, cut[1:]] - prefix[:, cut[:-1]]).t().to(g.dtype)
-
-
 def row_sums_check():
     """The row-sum kernel (take_rows' backward pass; not a port of a TPU
     kernel) against its plain version at the shapes of the Cornell autograd
     check (1,622,400 rows, 5 textures x 3 channels) and of ``random``'s
-    textures (364 x 3), and twice on the same input (the same bits); the
-    sort route (``sorted_row_sums``) timed beside it, for the record.
+    textures (364 x 3), and twice on the same input (the same bits).
     Returns its phase line's fields."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     out = {}
@@ -2000,16 +1975,10 @@ def row_sums_check():
         plain_ms, p = cuda_ms(lambda: cr._row_sums_plain(g, idx, n_rows))
         err = float((k1 - p).abs().max()) / float(p.abs().max())
         same = bool(torch.equal(k1, k2))
-        s_rounds, s1 = rounds_ms(lambda: sorted_row_sums(g, idx, n_rows), rounds=3, repeats=5)
-        s_same = bool(torch.equal(s1, sorted_row_sums(g, idx, n_rows)))
         bound_ms = (n * (8 + 4 * cols) + 4 * n_rows * cols) / PEAK_BYTES_PER_S * 1e3
         out[f"{n_rows}x{cols}"] = dict(rows=n, ms=median(rounds), ms_rounds=rounds,
                                        plain_ms=plain_ms, err_of_largest=err,
-                                       same_bits=same, bound_ms=bound_ms,
-                                       sort_route_ms=median(s_rounds),
-                                       sort_route_same_bits=s_same,
-                                       sort_route_err_of_largest=float(
-                                           (s1 - p).abs().max()) / float(p.abs().max()))
+                                       same_bits=same, bound_ms=bound_ms)
         if err > REV_RTOL_OF_LARGEST or not same:
             raise RuntimeError(f"row_sums {n_rows}x{cols}: off by {err}, same bits {same}")
     return out

@@ -89,14 +89,34 @@ class Decisions(NamedTuple):
     ``trace(record=True)`` and replayed by ``trace(decisions=...)``.  All
     [D, R].  A ray that did not enter a bounce alive reads ``HIT_NONE``,
     index 0, instance 0 and not blocked there.  Random draws, scatter and
-    light choices are replayed from the counters and not stored."""
+    light choices are replayed from the counters and not stored.  A field
+    that is 0 everywhere (``aux`` without meshes, ``blk_h`` always) is a
+    broadcast view of one zero, so the record holds ``decision_bytes`` a
+    ray and bounce."""
 
-    which: torch.Tensor   # i32 HIT_* winner kind
+    which: torch.Tensor   # u8 HIT_* winner kind (i32 past 255 kinds)
     idx: torch.Tensor     # i32 winner primitive, triangle or volume index
     aux: torch.Tensor     # i32 mesh instance id
     blk_a: torch.Tensor   # bool: the area-light shadow ray was blocked
     blk_h: torch.Tensor   # bool: the HDRI shadow ray was blocked (no
                           # environment is ported yet: always False)
+
+
+def _which_dtype(scene: Scene):
+    return torch.uint8 if HIT_MESH_BASE + len(scene.meshes) <= 255 else torch.int32
+
+
+def decision_bytes(scene: Scene) -> int:
+    """Bytes ``Decisions`` holds a ray and bounce for this scene: ``which``,
+    ``idx``, ``blk_a`` and, with meshes, ``aux``."""
+    which = torch.empty((), dtype=_which_dtype(scene)).element_size()
+    return which + 4 + 1 + (4 if scene.meshes else 0)
+
+
+def _zero_rows(depth: int, r: int, dtype, dev):
+    """A [depth, r] field that is 0 everywhere, as a view of one element."""
+    return torch.zeros((1, 1), dtype=dtype, device=dev).expand(depth, r)
+
 
 # Extra RNG purpose bases (see core/rng.py for the primary enumeration).
 PURPOSE_VOL_MAIN = 64      # + 32 * volume_index
@@ -847,8 +867,8 @@ def bounce_step(scene: Scene, cam, state: PathState, tm, stream, seed,
 
     ``dec``: this bounce's recorded (which, idx, aux, blk_a, blk_h) (the
     replay): no sweep runs, the winner's distance comes from ``_winner_t``.
-    ``rec``: a list; this bounce's outcome is appended to it in the form
-    ``Decisions`` holds."""
+    ``rec``: a list; this bounce's (which, idx, aux or None, blk_a) is
+    appended to it."""
     (o, d, throughput, radiance, alive, allow_light,
      miss_dir, miss_tp, miss_primary, missed) = state
     dev = alive.device
@@ -919,10 +939,10 @@ def bounce_step(scene: Scene, cam, state: PathState, tm, stream, seed,
         # lanes that did not enter the bounce alive read as no hit (the
         # shadow sweep of a lane that sampled no light found nothing)
         none = torch.zeros_like(idx, dtype=torch.int32)
-        rec.append((torch.where(hit, which, HIT_NONE).to(torch.int32),
-                    torch.where(hit, idx, none).to(torch.int32),
-                    none if aux is None else torch.where(hit, aux, none).to(torch.int32),
-                    blk_a, torch.zeros_like(alive)))
+        rec.append((torch.where(hit, which, HIT_NONE),
+                    torch.where(hit, idx, none),
+                    None if aux is None else torch.where(hit, aux, none),
+                    blk_a))
 
     # --- continue the path ----------------------------------------------------
     alive = alive & hit & sc.scattered
@@ -947,16 +967,19 @@ def _check_standard(scene: Scene):
             "image textures are not ported yet (ROADMAP.md A16)")
 
 
-def _stack_decisions(rows, depth: int, r: int, dev) -> Decisions:
+def _stack_decisions(scene: Scene, rows, depth: int, r: int, dev) -> Decisions:
     """Per-bounce record tuples -> ``Decisions``; bounces never run (every
     ray died before them) read as no hit."""
-    fields = []
-    for k, dtype in enumerate((torch.int32,) * 3 + (torch.bool,) * 2):
+    def stack(k, dtype):
         out = torch.zeros((depth, r), dtype=dtype, device=dev)
         for b, row in enumerate(rows):
             out[b] = row[k]
-        fields.append(out)
-    return Decisions(*fields)
+        return out
+
+    aux = (stack(2, torch.int32) if scene.meshes
+           else _zero_rows(depth, r, torch.int32, dev))
+    return Decisions(stack(0, _which_dtype(scene)), stack(1, torch.int32), aux,
+                     stack(3, torch.bool), _zero_rows(depth, r, torch.bool, dev))
 
 
 def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
@@ -1033,8 +1056,10 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
                         miss_dir, miss_tp, (flags & mega.FLAG_PRIMARY) != 0)
         out = (rad,) + ((stats,) if with_stats else ())
         if record:
-            which, idx, blk_a, blk_h = res[4]
-            out += (Decisions(which, idx, torch.zeros_like(idx), blk_a, blk_h),)
+            which, idx, blk_a = res[4]
+            depth = idx.shape[0]
+            out += (Decisions(which, idx, _zero_rows(depth, r, torch.int32, dev), blk_a,
+                              _zero_rows(depth, r, torch.bool, dev)),)
         return out if len(out) > 1 else rad
 
     _check_standard(scene)
@@ -1066,5 +1091,5 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
                     state.miss_tp, state.miss_primary)
     out = (rad,) + ((stats,) if with_stats else ())
     if record:
-        out += (_stack_decisions(rows, cam.max_depth, r, dev),)
+        out += (_stack_decisions(scene, rows, cam.max_depth, r, dev),)
     return out if len(out) > 1 else rad

@@ -154,11 +154,11 @@ PW_MARBLE = 8192     # never set: no noise textures
 GRAD_PATHWISE_MAX_ACC = 1536
 
 # The record's code byte: winner kind (HIT_NONE 0, sphere 1, planar 2,
-# volume 3) in bits 0-1, the area light's shadow ray blocked in bit 2, the
-# HDRI's in bit 3.  The winner's index is a separate int32 row.
+# volume 3) in bits 0-1, the area light's shadow ray blocked in bit 2 (no
+# HDRI bit: environments are not ported yet).  The winner's index is a
+# separate int32 row.
 DEC_KIND_MASK = 3
 DEC_BLK_A = 4
-DEC_BLK_H = 8
 
 # Kernel launches made by the wrappers (CUDA tensors only).
 LAUNCHES = 0                     # wavefront_fwd
@@ -1446,10 +1446,9 @@ def wavefront_record(tb: Tables, o, d, tm, stream, seed, max_depth):
 
 
 def unpack_record(code, idx):
-    """The record kernel's code and index rows -> (which [D, R] i32, idx,
-    blk_a [D, R] bool, blk_h [D, R] bool)."""
-    return ((code & DEC_KIND_MASK).to(torch.int32), idx,
-            (code & DEC_BLK_A) != 0, (code & DEC_BLK_H) != 0)
+    """The record kernel's code and index rows -> (which [D, R] u8, idx,
+    blk_a [D, R] bool)."""
+    return (code & DEC_KIND_MASK), idx, (code & DEC_BLK_A) != 0
 
 
 def wavefront_grad_fwd(tb: Tables, o, d, tm, stream, seed, max_depth, miss,

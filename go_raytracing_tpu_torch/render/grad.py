@@ -88,10 +88,10 @@ def grad_tier(scene: Scene, max_depth: int) -> str:
     return "replay"
 
 
-def dec_bytes_per_ray(max_depth: int) -> int:
-    """Bytes the replay tier keeps a ray between its passes: ``Decisions``
-    holds three int32 and two bool fields a bounce."""
-    return max_depth * (3 * 4 + 2)
+def dec_bytes_per_ray(scene: Scene, max_depth: int) -> int:
+    """Bytes the replay tier keeps a ray between its passes: its
+    ``Decisions`` of every bounce."""
+    return max_depth * wavefront.decision_bytes(scene)
 
 
 def stash_bytes_per_ray(max_depth: int, pathwise: bool = False) -> int:
@@ -358,7 +358,7 @@ def _render_grad_replay(scene: Scene, cam: Camera, target, *, spp: int,
     starts = [i * kchunk for i in range(n_chunks)]
     sizes = [min(kchunk, total - s0) for s0 in starts]
     budget = DEC_BUDGET if dec_budget is None else int(dec_budget)
-    keep = total * dec_bytes_per_ray(max_depth) <= budget
+    keep = total * dec_bytes_per_ray(scene, max_depth) <= budget
 
     _sync(dev)
     t0 = time.perf_counter()

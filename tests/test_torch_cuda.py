@@ -570,7 +570,7 @@ def test_cuda_record_kernel_matches_plain_version(scene_name):
     # and the standard integrator records the same outcomes, but for ties
     from go_raytracing_tpu_torch.integrator import wavefront as twf
 
-    which, widx, blk_a, _ = cw.unpack_record(code, idx)
+    which, widx, blk_a = cw.unpack_record(code, idx)
     _, dec = twf.trace(scene, cam, o, d, tm, ids, 5, mega_mode="off", record=True)
     for a, b in ((which, dec.which), (widx, dec.idx), (blk_a, dec.blk_a)):
         assert float((a == b).float().mean()) >= 0.999

@@ -145,7 +145,7 @@ def test_standard_record_keeps_the_radiance():
     plain = twf.trace(ts, tcam, o, d, tm, ids, 0, mega_mode="off")
     rad, dec = twf.trace(ts, tcam, o, d, tm, ids, 0, mega_mode="off", record=True)
     assert torch.equal(plain.rows(), rad.rows())
-    for f, dtype in zip(FIELDS, (torch.int32,) * 3 + (torch.bool,) * 2):
+    for f, dtype in zip(FIELDS, (torch.uint8,) + (torch.int32,) * 2 + (torch.bool,) * 2):
         assert getattr(dec, f).shape == (tcam.max_depth, N_RAYS)
         assert getattr(dec, f).dtype == dtype
     assert not dec.blk_h.any()
@@ -154,6 +154,32 @@ def test_standard_record_keeps_the_radiance():
                         differentiable=True)
     for f in FIELDS:
         assert torch.equal(getattr(dec, f), getattr(dec2, f)), f
+
+
+def held_bytes(dec):
+    """Bytes the tensors of a record hold (a broadcast field holds one
+    element)."""
+    return sum(getattr(dec, f).untyped_storage().nbytes() for f in FIELDS)
+
+
+@pytest.mark.parametrize("mega_mode", ["single", "off"])
+def test_records_hold_what_the_budget_charges(mega_mode):
+    """Both recorders keep ``decision_bytes`` a ray-bounce (6 B without
+    meshes: which, idx, blk_a), which is what ``render_grad``'s
+    ``dec_budget`` test charges; fields that are 0 everywhere (aux without
+    meshes, blk_h) are one element each."""
+    from go_raytracing_tpu_torch.render import grad as tgrad
+
+    ts, tcam = grtt.load_scene("cornell", device="cpu")
+    tcam = dataclasses.replace(tcam, max_depth=3)
+    r = 256
+    ids = torch.arange(r)
+    o, d, tm = tcamera.generate_rays(tcam, ids % 16, ids // 16, ids, SEED)
+    _, dec = twf.trace(ts, tcam, o, d, tm, ids, SEED, mega_mode=mega_mode, record=True)
+    charged = r * tgrad.dec_bytes_per_ray(ts, tcam.max_depth)
+    assert twf.decision_bytes(ts) == 6
+    assert charged <= held_bytes(dec) <= charged + 8
+    assert dec.aux.stride() == (0, 0) and dec.blk_h.stride() == (0, 0)
 
 
 def check_record_shares(name, dec, j_dec):

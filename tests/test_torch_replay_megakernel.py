@@ -109,7 +109,9 @@ def combined():
     _, dec = twf.trace(ts, tcam, o, d, tm, ids, SEED, mega_mode="single", record=True)
     g_fb = np.random.default_rng(SEED + 1).normal(
         size=(jcam.image_width * jcam.image_height, 3)).astype(np.float32)
-    j_dec = jwf.Decisions(*(jnp.asarray(getattr(dec, f).numpy()) for f in dec._fields))
+    # the JAX package's record holds int32 and bool fields
+    j_dec = jwf.Decisions(*(jnp.asarray(a if a.dtype == bool else a.astype(np.int32))
+                            for a in (getattr(dec, f).numpy() for f in dec._fields)))
     j_vjp = jgrad._chunk_vjp(js, jcam, jnp.asarray(g_fb), jnp.uint32(0), SEED,
                              spp=jcam.samples_per_pixel, chunk=chunk,
                              max_depth=jcam.max_depth, dec=j_dec)

@@ -28,7 +28,7 @@ from go_raytracing_tpu_torch.core.vec3 import V3
 from go_raytracing_tpu_torch.integrator import wavefront as twf
 from go_raytracing_tpu_torch.render import grad as tgrad
 from test_torch_helpers import LUCY_CAM, build_lucy, grads_to_numpy, port_and_jax
-from test_torch_replay import _canonical, check_record_shares
+from test_torch_replay import _canonical, check_record_shares, held_bytes
 
 torch.set_num_threads(2)
 
@@ -117,6 +117,10 @@ def test_standard_record_of_a_mesh_scene_matches_the_jax_package(lucy):
     _, dec = twf.trace(ts, tcam, o, d, tm, ids, SEED, mega_mode="off", record=True)
     check_record_shares("cornell-lucy", dec, j_dec)
     assert int((dec.which >= twf.HIT_MESH_BASE).sum()) >= 20   # statues recorded
+    # a mesh scene's record keeps the instance ids too: 10 B a ray-bounce
+    charged = tm.shape[0] * tgrad.dec_bytes_per_ray(ts, tcam.max_depth)
+    assert twf.decision_bytes(ts) == 10
+    assert charged <= held_bytes(dec) <= charged + 1
 
 
 def test_render_grad_replay_matches_the_jax_package(lucy):
