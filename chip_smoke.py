@@ -3,12 +3,14 @@
 
     python3 chip_smoke.py [--out-dir DIR]
 
-Needs one NVIDIA GPU and ``nvcc``.  It builds the thirteen CUDA kernels
+Needs one NVIDIA GPU and ``nvcc``.  It builds the fourteen CUDA kernels
 from the sources in this checkout (the forward megakernel and its record
 variant, the stash-writing gradient forward and the reverse sweep of the
-product-chain tier, the same two of the pathwise tier, the four closest-hit
-kernels of the standard integrator, the two mesh kernels, and the row sums
-of ``take_rows``' backward pass), holds each against its plain
+product-chain tier, the same two of the pathwise tier, the fused gradient
+kernel of environment + light scenes, the four closest-hit kernels of the
+standard integrator, the two mesh kernels, and the row sums of
+``take_rows``' backward pass, whose file also holds the sorted segment sums
+of an environment's texels), holds each against its plain
 PyTorch version on the GPU, renders the Cornell box at full size (600x338,
 100 spp, depth 5) through the public entry points, checks the image, times
 the forward kernel at the render's own shapes beside its roofline bound,
@@ -42,7 +44,17 @@ recorded through ``mesh_stream``) at full size (``replay_random_fwd_bwd``,
 both scenes at 32x32 against the CPU's plain versions and autograd
 (``replay_check``), the row-sum kernel of ``take_rows``' backward pass
 (``row_sums_kernel``; not a port of a TPU kernel, so not in the ``kernels``
-line) and the bits of repeated gradients (``grad_bit_stable``).  The
+line) and the bits of repeated gradients (``grad_bit_stable``).  Then
+environments (ROADMAP A15) at the JAX bench's ``hdri-test`` size (800x450,
+25 spp, depth 10, under a synthetic 1024x512 sky from a fixed seed, the
+reference's asset not being in the repository): the environment kernels
+against their plain versions on 16,384 rays (B1 and B6 with the HDRI NEE
+rows, B5b with the environment's miss rows, the fused kernel B4, and B4
+against autograd on a 32x32 crop), ``hdri-test`` forward by the megakernel
+and by the standard integrator (``hdri_main_path``), its ``render_grad`` on
+the pathwise two-phase tier (``hdri_fwd_bwd``), the same two with a quad
+light added (``env_nee_main_path``, ``env_nee_fwd_bwd``: HDRI NEE, the fused
+tier), and the kernels alone (``env_kernel_timing``).  The
 earlier phases run at the sizes they always had.  It prints one JSON line
 per phase.
 The last line is
@@ -93,6 +105,15 @@ The mesh kernels are held to equality too: hit, the bits of t, tri and inst
 the card and by the plain versions on the CPU, is held to rtol 1e-3 / atol
 2e-3 on the tonemapped pixels (gate 0.5 % of channels).
 
+The environment phases hold B1 and B6 with the HDRI rows to their plain
+versions by equality, B5b with the environment's rows and the fused kernel
+B4 to theirs within 1e-4 of each key's largest entry (B4's radiance the
+forward's bits plus the miss term, its texel rows within 1e-4 of their
+largest), both with the same bits on two launches, B4's colour and texel
+gradients to autograd through the standard integrator within 2e-3, each
+``render_grad``'s loss to that of ``render``'s picture (rtol 1e-5) and two
+calls' gradients to each other's bits.
+
 The record kernel's radiance and flags must be the forward kernel's bits and
 its record its plain version's on every ray-bounce (gate 0.0); each field
 must equal the standard integrator's record on 99.9 % of ray-bounces (ties
@@ -113,10 +134,12 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 import go_raytracing_tpu_torch as grt
 from go_raytracing_tpu_torch.camera import Camera, generate_rays
+from go_raytracing_tpu_torch.core import segsum
 from go_raytracing_tpu_torch.integrator import wavefront
 from go_raytracing_tpu_torch.core.vec3 import V3
 from go_raytracing_tpu_torch.ops import _build
@@ -1746,7 +1769,7 @@ def compare_record(name, scene, cam, o, d, tm, ids, seed):
     dec_mismatch = float(((code != p_code) | (idx != p_idx)).float().mean())
     rad_err = float((k_out - p_out).abs().max())
     flags_equal = bool(torch.equal(k_flags, p_flags))
-    which, widx, blk_a = cw.unpack_record(code, idx)
+    which, widx, blk_a, _ = cw.unpack_record(code, idx)
     _, dec = wavefront.trace(scene, cam, o, d, tm, ids, seed, mega_mode="off",
                              record=True)
     shares = {f: float((a == getattr(dec, f)).float().mean())
@@ -1984,6 +2007,415 @@ def row_sums_check():
     return out
 
 
+# -----------------------------------------------------------------------------
+# Environments (ROADMAP A15): hdri-test and hdri-test-nee
+# -----------------------------------------------------------------------------
+
+# The sun of the synthetic sky: texels within this many of its centre, at
+# about SUN_GAIN times the map's mean radiance.
+SUN_RADIUS, SUN_GAIN = 4, 100.0
+# Fused kernel (B4): float32 operations of the HDRI NEE block in the forward
+# (the sample's cosine, pdfs, weight, contribution: about 25) and in the
+# reverse (recompute and partials: about 45), per entered bounce.
+FLOPS_HDRI_NEE = 25 + 45
+
+
+def synthetic_sky(seed=7, h=512, w=1024):
+    """An [h, w, 3] equirect environment from a fixed numpy seed, at the
+    resolution of a "1k" map (the reference's asset is not in the
+    repository): a smooth sky gradient over a darker ground, a little
+    seeded noise, and a small sun."""
+    rng = np.random.default_rng(seed)
+    v = (np.arange(h) + 0.5) / h
+    elev = (0.5 - v) * np.pi
+    up = np.clip(np.sin(elev), 0.0, 1.0)[:, None, None]
+    horizon = np.array([1.0, 0.92, 0.82], np.float32)
+    zenith = np.array([0.25, 0.45, 1.0], np.float32)
+    ground = np.array([0.30, 0.26, 0.22], np.float32)
+    sky = horizon * (1.0 - up) + zenith * up
+    data = np.where((elev > 0)[:, None, None], sky, ground).astype(np.float32)
+    data = np.broadcast_to(data, (h, w, 3)) * rng.uniform(0.95, 1.05, (h, w, 1))
+    data = data.astype(np.float32)
+    cy, cx = h // 4, (3 * w) // 8
+    yy, xx = np.mgrid[0:h, 0:w]
+    sun = (yy - cy) ** 2 + (xx - cx) ** 2 <= SUN_RADIUS ** 2
+    data[sun] = SUN_GAIN * float(data.mean()) * np.array([1.0, 0.95, 0.85], np.float32)
+    return data, int(sun.sum())
+
+
+def hdri_scene(device, nee, env):
+    """The geometry of ``scenes/builders.hdri_test_scene`` under the
+    synthetic sky, at the JAX bench's size (800x450, 25 spp, depth 10);
+    ``nee`` adds the quad light of the JAX package's environment + NEE
+    gradient test (emission 9), so lambertian hits sample both."""
+    b = grt.SceneBuilder()
+    glass = b.dielectric(1.5)
+    mirror = b.metal((1.0, 1.0, 1.0), 0.0)
+    gold = b.metal((1.0, 0.84, 0.0), 0.1)
+    ground = b.lambertian(b.checker(0.5, (0.1, 0.1, 0.1), (0.9, 0.9, 0.9)))
+    b.plane((0, 0, 0), (0, 1, 0), ground)
+    b.sphere((0, 1, 0), 1.0, glass)
+    b.sphere((-2.5, 1, 0), 1.0, mirror)
+    b.sphere((2.5, 1, 0), 1.0, gold)
+    b.sphere((-1.2, 0.4, 2), 0.4, glass)
+    b.sphere((1.2, 0.4, 2), 0.4, glass)
+    if nee:
+        q = b.quad((-1.5, 6, -1.5), (3, 0, 0), (0, 0, 3), b.diffuse_light((9, 9, 9)))
+        b.add_light(q)
+    b.set_environment(env, 0.0)
+    cam = (Camera().set_resolution(800, 16.0 / 9.0).set_quality(25, 10)
+           .set_position((0, 2.5, 8), (0, 1, 0), (0, 1, 0)).set_lens(40, 0, 10)
+           .set_phantom_hdri(True))
+    return b.build(device=device), cam
+
+
+def env_counts():
+    return {"wavefront_fwd": cw.LAUNCHES, "wavefront_record": cw.LAUNCHES_RECORD,
+            "wavefront_grad_fwd_pathwise": cw.LAUNCHES_GRAD_FWD_PATHWISE,
+            "wavefront_grad_rev_pathwise": cw.LAUNCHES_GRAD_REV_PATHWISE,
+            "wavefront_grad_fused": cw.LAUNCHES_GRAD_FUSED,
+            "sorted_segment_sums": cr.LAUNCHES_SEGMENT_SUMS,
+            **intersect_counts()}
+
+
+def reset_env_counts():
+    cw.LAUNCHES = cw.LAUNCHES_RECORD = 0
+    cw.LAUNCHES_GRAD_FWD_PATHWISE = cw.LAUNCHES_GRAD_REV_PATHWISE = 0
+    cw.LAUNCHES_GRAD_FUSED = cr.LAUNCHES_SEGMENT_SUMS = 0
+    reset_intersect_counts()
+
+
+def env_main_path(phase, name, scene, cam, out_dir):
+    """The forward at full size through ``render_image``: by the megakernel
+    (B1; with HDRI NEE rows when the scene has a light) and by the standard
+    integrator, pictures held to each other as the Cornell phases hold
+    theirs.  Returns the megakernel run's counts."""
+    n_rays = cam.image_width * cam.image_height * cam.samples_per_pixel
+    grt.render_image(scene, cam, seed=0)   # warm-up
+    stats = grt.RenderStats()
+    reset_env_counts()
+    ms, img = cuda_ms(lambda: grt.render_image(scene, cam, seed=0, stats=stats))
+    counts = env_counts()
+    std_stats = grt.RenderStats()
+    reset_env_counts()
+    std_ms, std_img = cuda_ms(lambda: grt.render_image(scene, cam, seed=0, mega_mode="off",
+                                                       stats=std_stats))
+    std_counts = env_counts()
+    share = image_share_outside(std_img, img)
+    mean = float(img.mean())
+    png = pathlib.Path(out_dir) / f"chip_smoke_{name}.png"
+    grt.film.write_png(str(png), grt.film.to_uint8(img))
+    emit(phase, scene=name, width=cam.image_width, height=cam.image_height,
+         spp=cam.samples_per_pixel, depth=cam.max_depth, camera_rays=n_rays,
+         hdri_nee=cw.uses_hdri_nee(scene), chunks=stats.chunks, launches=counts,
+         render_ms_cuda_events=ms, camera_mrays_per_s=n_rays / (ms * 1e-3) / 1e6,
+         standard_render_ms=std_ms, standard_launches=std_counts,
+         standard_camera_mrays_per_s=n_rays / (std_ms * 1e-3) / 1e6,
+         pixel_share_outside_tolerance=share, image_mean=mean, png=str(png))
+    if not torch.isfinite(img).all() or not 0.02 < mean < 0.98:
+        raise RuntimeError(f"{name}: image mean {mean}")
+    if counts["wavefront_fwd"] != stats.chunks or std_counts["wavefront_fwd"] != 0 \
+            or std_counts["sphere_closest_attrs"] < 1:
+        raise RuntimeError(f"{name}: launches {counts}, standard {std_counts}")
+    if share >= MAX_PIXEL_SHARE_OUTSIDE:
+        raise RuntimeError(f"{name}: {share:.4%} of pixel channels differ between "
+                           "the megakernel and the standard integrator")
+    return counts
+
+
+def env_fwd_bwd(phase, name, scene, cam, tier):
+    """``render_grad`` at full size on the tier the scene takes (pathwise
+    two-phase without a light, the fused kernel with one), twice: the loss
+    equals that of ``render``'s picture (rtol 1e-5), every gradient is
+    finite, ``env_data`` among them, and the two calls' gradients have the
+    same bits.  Returns (the second call's counts, its chunks, its ms)."""
+    spp = cam.samples_per_pixel
+    n_rays = cam.image_width * cam.image_height * spp
+    fb = grt.render(scene, cam, seed=0)
+    target = fb / spp * 0.8
+    loss_ref = float(torch.mean((fb / spp - target) ** 2))
+    del fb
+    if gradmod.grad_tier(scene, cam.max_depth) != tier:
+        raise RuntimeError(f"{name}: tier {gradmod.grad_tier(scene, cam.max_depth)}")
+    first_loss, first = grt.render_grad(scene, cam, target, seed=0)   # also the warm-up
+    stats = grt.RenderStats()
+    reset_env_counts()
+    torch.cuda.reset_peak_memory_stats()
+    ms, (loss, grads) = cuda_ms(lambda: grt.render_grad(scene, cam, target, seed=0,
+                                                        stats=stats))
+    counts = env_counts()
+    peak = torch.cuda.max_memory_allocated()
+    nch = stats.chunks
+    if tier == "pathwise":
+        want = {"wavefront_fwd": 0, "wavefront_grad_fwd_pathwise": nch,
+                "wavefront_grad_rev_pathwise": nch, "wavefront_grad_fused": 0}
+    else:   # pass A renders, pass B takes the miss records, then the fused kernel
+        want = {"wavefront_fwd": 2 * nch, "wavefront_grad_fwd_pathwise": 0,
+                "wavefront_grad_rev_pathwise": 0, "wavefront_grad_fused": nch}
+    if any(counts[k] != v for k, v in want.items()) or counts["sorted_segment_sums"] < 1:
+        raise RuntimeError(f"{name}: launches {counts} for {nch} chunks")
+    loss_f = float(loss)
+    if not loss_f == loss_f or abs(loss_f - loss_ref) > 1e-5 * loss_ref:
+        raise RuntimeError(f"{name}: loss {loss_f} against {loss_ref} from render()")
+    for key, g in grads.items():
+        if not torch.isfinite(g).all():
+            raise RuntimeError(f"{name}: gradient {key} is not finite")
+    for key in ("color", "fuzz", "ior", "env_data"):
+        if float(grads[key].abs().max()) == 0.0:
+            raise RuntimeError(f"{name}: gradient {key} is zero")
+    same = {k: bool(torch.equal(grads[k], first[k])) for k in grads}
+    same["loss"] = float(first_loss) == loss_f
+    env = grads["env_data"]
+    emit(phase, scene=name, width=cam.image_width, height=cam.image_height, spp=spp,
+         depth=cam.max_depth, camera_rays=n_rays, tier=tier, chunks=nch,
+         launches=counts, render_grad_ms_cuda_events=ms,
+         fwd_bwd_camera_mrays_per_s=n_rays / (ms * 1e-3) / 1e6, loss=loss_f,
+         loss_from_render=loss_ref, same_bits_two_calls=same,
+         fuzz_grad=grads["fuzz"].tolist(), ior_grad=grads["ior"].tolist(),
+         env_data_grad_abs_sum=float(env.abs().sum()),
+         env_data_texels_nonzero=int((env.abs().amax(dim=2) > 0).sum()),
+         stash_bytes_per_ray=(gradmod.stash_bytes_per_ray(cam.max_depth, True, True)
+                              if tier == "pathwise" else None),
+         max_memory_allocated=peak)
+    if not all(same.values()):
+        raise RuntimeError(f"{name}: two render_grad calls differ: {same}")
+    return counts, nch, ms
+
+
+def env_small_checks(hdri, nee, cam, dev, n=16384, seed=12):
+    """The kernels of the environment paths against their plain versions on
+    ``n`` camera rays: B1 and B6 with the HDRI rows (equality expected),
+    B5b with the environment's miss rows, B4 (sums within 1e-4 of each key's
+    largest entry, radiance the forward's bits plus the miss term, the same
+    bits on two launches), and B4 against ``torch.autograd`` through the
+    standard integrator on a 32x32 crop.  Returns their fields."""
+    out = {}
+    depth = cam.max_depth
+    # camera rays of n pixels drawn across the frame (its first rows are sky)
+    w, h = cam.image_width, cam.image_height
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pix = torch.randperm(w * h, device=dev, generator=gen)[:n].sort().values
+    o, d, tm = generate_rays(cam, pix % w, pix // w, pix, seed)
+    o, d = V3(*(c.contiguous() for c in o)), V3(*(c.contiguous() for c in d))
+    tm, sid = tm.contiguous(), cw.stream_to_i32(pix)
+    tb = cw.build_tables(nee)
+    rows = cw.hdri_rows_for(nee, sid, seed, depth)
+    args = (tb, o, d, tm, sid, seed, depth)
+    k_out, k_flags = cw.wavefront_fwd(*args, rows)
+    p_out, p_flags = cw._wavefront_fwd_plain(*args, rows)
+    good = (k_out == p_out).all(dim=0) & (k_flags == p_flags)
+    out["b1_hdri_mismatch_share"] = 1.0 - float(good.float().mean())
+    out["b1_hdri_max_abs_err"] = float((k_out - p_out).abs().max())
+    r_out, r_flags, code, idx = cw.wavefront_record(*args, rows)
+    _, _, p_code, p_idx = cw._wavefront_record_plain(*args, rows)
+    out["b6_hdri_radiance_is_b1s"] = bool(torch.equal(r_out, k_out))
+    out["b6_hdri_record_mismatch_share"] = 1.0 - float(
+        ((code == p_code) & (idx == p_idx)).float().mean())
+    out["b6_hdri_blocked_share"] = float(((code & cw.DEC_BLK_H) != 0).float().mean())
+    if out["b1_hdri_mismatch_share"] >= MAX_MISMATCH_SHARE or not out["b6_hdri_radiance_is_b1s"] \
+            or out["b6_hdri_record_mismatch_share"] > 0.0:
+        raise RuntimeError(f"B1 / B6 with HDRI rows against their plain versions: {out}")
+
+    g3 = torch.rand((3, n), device=dev, generator=gen) * 1e-3
+    n_tex = int(nee.textures.color.shape[0])
+    n_mat = int(nee.materials.kind.shape[0])
+    # B5b, the environment's miss rows (hdri-test: no light)
+    _, carry = cw.grad_fwd_stash(hdri, cam, o, d, tm, sid, seed, pathwise=True)
+    mc, lmd, _ = cw._env_miss_terms(hdri, cam, carry[3], g3, want_lmd=True)
+    rev = (cw.build_tables(hdri), carry[1], carry[2], g3, mc, sid, seed, cw.MISS_STREAM,
+           int(hdri.textures.color.shape[0]), int(hdri.materials.kind.shape[0]), lmd)
+    gk = cw.wavefront_grad_rev_pathwise(*rev)
+    gk2 = cw.wavefront_grad_rev_pathwise(*rev)
+    gp = cw._wavefront_grad_rev_pathwise_plain(*rev)
+    out["b5b_stream_err_of_largest"] = pathwise_rev_err(gk, gp)[1]
+    out["b5b_stream_max_abs_err"] = pathwise_rev_err(gk, gp)[0]
+    out["b5b_stream_same_bits"] = all(bool(torch.equal(a, b)) for a, b in zip(gk, gk2))
+    if not out["b5b_stream_err_of_largest"] <= REV_RTOL_OF_LARGEST \
+            or not out["b5b_stream_same_bits"]:
+        raise RuntimeError(f"B5b with the environment's miss rows: {out}")
+    del carry
+
+    # B4 (hdri-test-nee)
+    mc, lmd, _ = cw._env_miss_terms(nee, cam, cw._env_carry(nee, k_out, k_flags), g3,
+                                    want_lmd=True)
+    fused = (tb, o, d, tm, sid, seed, depth, g3, (cw.MISS_STREAM, (0.0, 0.0, 0.0)),
+             torch.cat([mc, lmd]).contiguous(), rows, n_tex, n_mat)
+    k = cw.wavefront_grad_fused(*fused)
+    k2 = cw.wavefront_grad_fused(*fused)
+    plain_ms, p = cuda_ms(lambda: cw._wavefront_grad_fused_plain(*fused))
+    want_rad = torch.stack([k_out[c] + k_out[6 + c] * mc[c] for c in range(3)])
+    out["b4_radiance_is_b1s_plus_miss"] = bool(torch.equal(k[0], want_rad))
+    out["b4_radiance_is_plains"] = bool(torch.equal(k[0], p[0]))
+    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+            for a, b in zip(k[1:4], p[1:4])]
+    out["b4_err_of_largest"] = max(errs)
+    out["b4_max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(k[1:4], p[1:4]))
+    out["b4_eout_largest"] = float(p[4].abs().max())
+    out["b4_eout_err_of_largest"] = (float((k[4] - p[4]).abs().max())
+                                     / max(out["b4_eout_largest"], 1e-30))
+    out["b4_same_bits"] = all(bool(torch.equal(a, b)) for a, b in zip(k, k2))
+    out["b4_plain_ms"] = plain_ms
+    if not (out["b4_radiance_is_b1s_plus_miss"] and out["b4_radiance_is_plains"]
+            and out["b4_err_of_largest"] <= REV_RTOL_OF_LARGEST
+            and out["b4_eout_largest"] > 0.0
+            and out["b4_eout_err_of_largest"] <= REV_RTOL_OF_LARGEST
+            and out["b4_same_bits"]):
+        raise RuntimeError(f"B4 against its plain version: {out}")
+
+    # B4 against torch.autograd through the standard integrator, 32x32 crop
+    size, x0, y0 = 32, 400, 260
+    ys, xs = torch.meshgrid(torch.arange(y0, y0 + size, device=dev),
+                            torch.arange(x0, x0 + size, device=dev), indexing="ij")
+    px, py = xs.reshape(-1), ys.reshape(-1)
+    ids = py * cam.image_width + px
+    co, cd, ctm = generate_rays(cam, px, py, ids, seed)
+    co, cd = V3(*(c.contiguous() for c in co)), V3(*(c.contiguous() for c in cd))
+    g3c = torch.rand((3, size * size), device=dev, generator=gen) * 1e-3
+    _, gf = cw.grad_megakernel(nee, cam, co, cd, ctm.contiguous(), ids, seed, g3c)
+    params = {kk: v.detach().clone().requires_grad_()
+              for kk, v in grt.trainable_params(nee).items()}
+    keys = ("color", "even_color", "odd_color", "env_data")
+    with torch.enable_grad():
+        rad = wavefront.trace(grt.apply_params(nee, params), cam, co, cd, ctm, ids, seed,
+                              differentiable=True)
+        inner = sum((rad[c] * g3c[c]).sum() for c in range(3))
+        ga = torch.autograd.grad(inner, [params[kk] for kk in keys])
+    out["b4_vs_autograd_err_of_largest"] = {
+        kk: float((gf[kk] - a).abs().max()) / max(float(a.abs().max()), 1e-30)
+        for kk, a in zip(keys, ga)}
+    if max(out["b4_vs_autograd_err_of_largest"].values()) > AUTOGRAD_RTOL_OF_LARGEST:
+        raise RuntimeError(f"B4 against autograd on a 32x32 crop: {out}")
+    return out
+
+
+def env_kernel_timing(hdri, nee, cam, chunks, launches, small):
+    """B4, B1 with and without the HDRI rows and B5b with the miss rows,
+    each alone at its main path's chunk (one launch after a warm-up each
+    round), beside its bound.  Returns B4's entry of the ``kernels`` line
+    and the fields of the others."""
+    dev = nee.device
+    depth = cam.max_depth
+    n_all = cam.image_width * cam.image_height * cam.samples_per_pixel
+    n = n_all // chunks["env_nee"]
+    _, o, d, tm, ids, _, _ = renderer._chunk_rays(nee, cam, 0, 0, spp=cam.samples_per_pixel,
+                                                  chunk=n, max_depth=depth, device=dev)
+    o, d, tm = V3(*(c.contiguous() for c in o)), V3(*(c.contiguous() for c in d)), tm.contiguous()
+    sid = cw.stream_to_i32(ids)
+    tb = cw.build_tables(nee)
+    # the parts of the fused tier's pass B (grad_megakernel), one at a time
+    rows_ms, (rows, texels) = cuda_ms(lambda: cw.hdri_rows_for(nee, sid, 0, depth,
+                                                               texel_ids=True))
+    args = (tb, o, d, tm, sid, 0, depth)
+    cw.wavefront_fwd(*args, rows)
+    b1h_rounds, (f_out, f_flags) = rounds_ms(lambda: cw.wavefront_fwd(*args, rows),
+                                             rounds=3, repeats=2)
+    b1_rounds, _ = rounds_ms(lambda: cw.wavefront_fwd(*args), rounds=3, repeats=2)
+    entering = [n]
+    for k in range(1, depth):
+        _, f = cw.wavefront_fwd(*args[:-1], k)
+        entering.append(int(((f & cw.FLAG_ALIVE) != 0).sum()))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g3 = torch.rand((3, n), device=dev, generator=gen) * 1e-6
+    terms_ms, (mc, lmd, _) = cuda_ms(lambda: cw._env_miss_terms(
+        nee, cam, cw._env_carry(nee, f_out, f_flags), g3, want_lmd=True))
+    del f_out, f_flags
+    n_tex = int(nee.textures.color.shape[0])
+    n_mat = int(nee.materials.kind.shape[0])
+    fused = (tb, o, d, tm, sid, 0, depth, g3, (cw.MISS_STREAM, (0.0, 0.0, 0.0)),
+             torch.cat([mc, lmd]).contiguous(), rows, n_tex, n_mat)
+    cw.wavefront_grad_fused(*fused)
+    b4_rounds, k = rounds_ms(lambda: cw.wavefront_grad_fused(*fused), rounds=3, repeats=2)
+    b4_ms = median(b4_rounds)
+    h, w = nee.env.data.shape[:2]
+    texel_sum_ms, _ = cuda_ms(lambda: segsum.cols_segment_sum(
+        texels.reshape(-1), [k[4][:, c].reshape(-1) for c in range(3)], h * w))
+    del fused, mc, lmd, rows, texels, k
+
+    table_bytes = 4 * sum(t.numel() for t in (tb.pt, tb.st, tb.vt, tb.lt))
+    per_bounce = (tb.n_planar * FLOPS_PLANAR + tb.n_sphere * FLOPS_SPHERE
+                  + tb.n_vol * FLOPS_VOLUME + FLOPS_SHADE)
+    entered = float(sum(entering))
+    b1h_bytes = (18 + cw.HDRI_ROWS * depth) * 4 * n + table_bytes
+    b1h_bound = (b1h_bytes / PEAK_BYTES_PER_S * 1e3,
+                 entered * per_bounce / PEAK_FP32_FLOPS * 1e3)
+    block_rays = _build.load("wavefront_grad_fused").lib.wavefront_grad_fused_block_rays()
+    n_acc = 9 * n_tex + 2 * n_mat
+    # in: rays (8), cotangent (3), environment rows (6), HDRI rows (7 a
+    # bounce); out: radiance (3), eout (3 a bounce), one partial row a block
+    b4_bytes = ((8 + 3 + 6 + 3 + (cw.HDRI_ROWS + 3) * depth) * 4 * n
+                + 4 * n_acc * -(-n // block_rays) + table_bytes)
+    b4_bound = (b4_bytes / PEAK_BYTES_PER_S * 1e3,
+                entered * ((per_bounce + FLOPS_REVERSE_PATHWISE + FLOPS_HDRI_NEE)
+                           / PEAK_FP32_FLOPS
+                           + INT_OPS_REVERSE_PATHWISE / PEAK_INT32_OPS) * 1e3)
+
+    # B5b with the environment's miss rows, at hdri-test's chunk
+    n_h = n_all // chunks["hdri"]
+    _, o, d, tm, ids, _, _ = renderer._chunk_rays(hdri, cam, 0, 0, spp=cam.samples_per_pixel,
+                                                  chunk=n_h, max_depth=depth, device=dev)
+    o, d, tm = V3(*(c.contiguous() for c in o)), V3(*(c.contiguous() for c in d)), tm.contiguous()
+    sid = cw.stream_to_i32(ids)
+    _, carry = cw.grad_fwd_stash(hdri, cam, o, d, tm, sid, 0, pathwise=True)
+    g3 = torch.rand((3, n_h), device=dev, generator=gen) * 1e-6
+    mc, lmd, _ = cw._env_miss_terms(hdri, cam, carry[3], g3, want_lmd=True)
+    rev = (cw.build_tables(hdri), carry[1], carry[2], g3, mc, sid, 0, cw.MISS_STREAM,
+           int(hdri.textures.color.shape[0]), int(hdri.materials.kind.shape[0]), lmd)
+    cw.wavefront_grad_rev_pathwise(*rev)
+    b5b_rounds, _ = rounds_ms(lambda: cw.wavefront_grad_rev_pathwise(*rev), rounds=3,
+                              repeats=2)
+    del rev, carry, mc, lmd, g3
+
+    emit("env_kernel_timing", rays_per_launch=n, depth=depth,
+         rays_entering_bounce=entering,
+         fused_pass_b_parts_ms=dict(hdri_rows_and_texel_ids=rows_ms,
+                                    miss_terms=terms_ms, b4=b4_ms,
+                                    texel_sums=texel_sum_ms),
+         b4_ms=b4_ms, b4_ms_rounds=b4_rounds, b4_plain_ms_16384_rays=small["b4_plain_ms"],
+         b4_bytes_counted=b4_bytes, b4_bound_bytes_ms=b4_bound[0],
+         b4_bound_ops_ms=b4_bound[1], b4_roofline_share=max(b4_bound) / b4_ms,
+         b1_hdri_ms=median(b1h_rounds), b1_hdri_ms_rounds=b1h_rounds,
+         b1_no_hdri_ms=median(b1_rounds), b1_no_hdri_ms_rounds=b1_rounds,
+         b1_hdri_bound_bytes_ms=b1h_bound[0], b1_hdri_bound_ops_ms=b1h_bound[1],
+         b5b_stream_rays_per_launch=n_h, b5b_stream_ms=median(b5b_rounds),
+         b5b_stream_ms_rounds=b5b_rounds, small_checks=small)
+    entry = kernel_entry(n, "wavefront_grad_fused",
+                         "go_raytracing_tpu_torch/csrc/wavefront_grad_fused.cu",
+                         "go_raytracing_tpu/ops/pallas_wavefront.py:2005 (_call_grad, "
+                         "pathwise=True, use_hdri=True, miss_cfg=('stream',))",
+                         launches, b4_ms, small["b4_plain_ms"], b4_bound,
+                         [small["b4_max_abs_err"]])
+    entry["plain_rays"] = 16384
+    return entry, dict(hdri_rays_per_launch=n, hdri_ms=median(b1h_rounds),
+                       no_hdri_ms_same_rays=median(b1_rounds),
+                       hdri_bound_ms=max(b1h_bound)), dict(
+        stream_rays_per_launch=n_h, stream_ms=median(b5b_rounds))
+
+
+def env_phases(dev, out_dir):
+    """hdri-test and hdri-test-nee, forward and fwd+bwd at the JAX bench's
+    size, and the environment kernels alone.  Returns (B4's ``kernels``
+    entry, fields for B1's entry, fields for B5b's entry, launches)."""
+    env, sun_texels = synthetic_sky()
+    emit("env_map", height=env.shape[0], width=env.shape[1], seed=7,
+         sun_texels=sun_texels, mean=float(env.mean()), max=float(env.max()))
+    hdri, cam = hdri_scene(dev, False, env)
+    nee, _ = hdri_scene(dev, True, env)
+    small = env_small_checks(hdri, nee, cam, dev)
+    main_h = env_main_path("hdri_main_path", "hdri-test", hdri, cam, out_dir)
+    fb_h, ch_h, _ = env_fwd_bwd("hdri_fwd_bwd", "hdri-test", hdri, cam, "pathwise")
+    main_n = env_main_path("env_nee_main_path", "hdri-test-nee", nee, cam, out_dir)
+    fb_n, ch_n, _ = env_fwd_bwd("env_nee_fwd_bwd", "hdri-test-nee", nee, cam, "fused")
+    b4_entry, b1_fields, b5b_fields = env_kernel_timing(
+        hdri, nee, cam, {"hdri": ch_h, "env_nee": ch_n}, fb_n["wavefront_grad_fused"], small)
+    b1_fields["launches_env_paths"] = {
+        "hdri_main_path": main_h["wavefront_fwd"], "env_nee_main_path": main_n["wavefront_fwd"],
+        "env_nee_fwd_bwd": fb_n["wavefront_fwd"]}
+    b1_fields["max_abs_err_hdri"] = small["b1_hdri_max_abs_err"]
+    b5b_fields["launches_hdri_fwd_bwd"] = fb_h["wavefront_grad_rev_pathwise"]
+    b5b_fields["stream_err_of_largest"] = small["b5b_stream_err_of_largest"]
+    return b4_entry, b1_fields, b5b_fields, fb_h
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out-dir", default=str(_build.BUILD_DIR),
@@ -2006,10 +2438,10 @@ def main():
     # ---- build ---------------------------------------------------------------
     t0 = time.perf_counter()
     (built, built_fma, built_grad, built_pw, built_ix, built_mesh,
-     built_rows) = _build.load_all(
+     built_rows, built_fused) = _build.load_all(
         [("wavefront", False), ("wavefront", True), ("wavefront_grad", False),
          ("wavefront_grad_pathwise", False), ("intersect", False), ("mesh", False),
-         ("row_sums", False)])
+         ("row_sums", False), ("wavefront_grad_fused", False)])
 
     def kernel_stats(lib, tag):
         (stats,) = [v for name, v in lib.kernels.items() if tag in name]
@@ -2024,6 +2456,10 @@ def main():
     pfwd_regs, pfwd_spill = kernel_stats(built, "wavefront_kernelILi2E")
     grev_regs, grev_spill = kernel_stats(built_grad, "wavefront_grad_rev_kernel")
     prev_regs, prev_spill = kernel_stats(built_pw, "wavefront_grad_rev_pathwise_kernel")
+    # wavefront_grad_fused_kernel<16> and <50>: the local stash's depth cap
+    fused_stats = {cap: kernel_stats(built_fused, f"wavefront_grad_fused_kernelILi{cap}E")
+                   for cap in (16, 50)}
+    seg_regs = kernel_stats(built_rows, "sorted_segment_sums_kernel")
     # planar_kernel<false> / <true> and sphere_kernel<false> / <true>: closest
     # hit alone, and with the winner's attributes
     ix_stats = {name: kernel_stats(built_ix, tag) for name, tag in (
@@ -2038,13 +2474,19 @@ def main():
         ("mesh_sweep_any_hit", "mesh_sweep_kernelILb1E"),
         ("mesh_stream", "mesh_stream_kernelILb0E"),
         ("mesh_stream_any_hit", "mesh_stream_kernelILb1E"))}
-    emit("build", seconds=time.perf_counter() - t0, kernels=13,
-         kernels_note="twelve ports of TPU kernels and the row-sum kernel of "
-                      "take_rows' backward pass (not a port)",
+    emit("build", seconds=time.perf_counter() - t0, kernels=14,
+         kernels_note="thirteen ports of TPU kernels and the row-sum kernel of "
+                      "take_rows' backward pass (not a port; its file also holds "
+                      "the sorted segment sums of the environment's texels)",
          nvcc_seconds=[b.build_seconds for b in (built, built_fma, built_grad, built_pw,
-                                                 built_ix, built_mesh, built_rows)],
+                                                 built_ix, built_mesh, built_rows,
+                                                 built_fused)],
          libraries=[built.path.name, built_grad.path.name, built_pw.path.name,
-                    built_ix.path.name, built_mesh.path.name, built_rows.path.name],
+                    built_ix.path.name, built_mesh.path.name, built_rows.path.name,
+                    built_fused.path.name],
+         fused_registers={cap: v[0] for cap, v in fused_stats.items()},
+         fused_spill_bytes={cap: v[1] for cap, v in fused_stats.items()},
+         segment_sums_registers=seg_regs[0], segment_sums_spill_bytes=seg_regs[1],
          record_registers=rec_regs[0], record_spill_bytes=rec_regs[1],
          row_sums_registers=rows_regs[0], row_sums_spill_bytes=rows_regs[1],
          intersect_registers={k: v[0] for k, v in ix_stats.items()},
@@ -2059,7 +2501,8 @@ def main():
          grad_fwd_pathwise_spill_bytes=pfwd_spill,
          grad_rev_pathwise_registers=prev_regs,
          grad_rev_pathwise_spill_bytes=prev_spill,
-         ptxas=[l for b in (built, built_grad, built_pw, built_ix, built_mesh, built_rows)
+         ptxas=[l for b in (built, built_grad, built_pw, built_ix, built_mesh, built_rows,
+                           built_fused)
                 for l in b.log.splitlines()
                 if "ptxas info" in l and ("Used" in l or "spill" in l)])
 
@@ -2308,6 +2751,9 @@ def main():
          launches_replay_random=rr_counts["row_sums"],
          launches_replay_lucy=lu_counts["row_sums"], registers=rows_regs[0],
          spill_bytes=rows_regs[1], shapes=rows)
+    # ---- environments: hdri-test and hdri-test-nee at the JAX bench's size ------
+    b4_entry, b1_env, b5b_env, _ = env_phases(dev, out_dir)
+
     emit("grad_bit_stable", autograd_same_bits=autograd_bits,
          replay_render_grad_same_bits={"random": rr_bits, "cornell-lucy": lu_bits})
     if not (all(autograd_bits) and rr_bits and lu_bits):
@@ -2329,7 +2775,9 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "library_ms": None,
-    }, rec_entry, *grad_entries, *pw_entries, *ix_entries, *mesh_entries]}), flush=True)
+        **b1_env,
+    }, rec_entry, *grad_entries, pw_entries[0], pw_entries[1] | b5b_env, *ix_entries,
+        *mesh_entries, b4_entry]}), flush=True)
     print(name_and_limit, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

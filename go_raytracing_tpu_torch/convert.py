@@ -10,7 +10,8 @@ Expected tree: a dict with the ``Scene`` field names.  ``spheres``,
 pack's field names; ``light_*`` are arrays; ``has_noise``, ``has_image``,
 ``has_checker`` and ``env_importance`` are bools.  ``meshes`` is a list of
 dicts of the ``MeshProto`` field names (``geometry/mesh_bvh.proto_from_numpy``).
-``env`` must be None: environments are not ported yet.
+``env`` is None or a dict of the ``lights/hdri.Environment`` field names
+(its tables are taken as given, not rebuilt).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 from .camera import Camera
 from .geometry import mesh_bvh, packs
 from .geometry.scene import Scene
+from .lights import hdri as hdri_mod
 from .materials import tables as mats
 from .materials import textures as tex
 from .utils.device import resolve_device
@@ -49,9 +51,9 @@ def scene_from_numpy(tree: dict, device=None) -> Scene:
     """Dict of numpy arrays and flags -> ``Scene`` on ``device``
     (``None`` means "cuda")."""
     dev = resolve_device(device)
-    if tree.get("env") is not None:
-        raise NotImplementedError(
-            "HDRI environments are not ported yet (ROADMAP.md A15)")
+    env = tree.get("env")
+    if env is not None:
+        env = hdri_mod.environment_from_numpy(env, dev)
 
     def arr(name, dtype):
         return torch.from_numpy(
@@ -69,6 +71,7 @@ def scene_from_numpy(tree: dict, device=None) -> Scene:
         light_normal=arr("light_normal", np.float32),
         light_area=arr("light_area", np.float32),
         light_mat=arr("light_mat", np.int32),
+        env=env,
         meshes=tuple(mesh_bvh.proto_from_numpy(m, dev)
                      for m in tree.get("meshes", ())),
         has_noise=bool(tree.get("has_noise", False)),

@@ -23,6 +23,14 @@
 // What bounds it: bytes.  An input row is read once (4 bytes of index, 4 a
 // column); the tables are small, and a warp's rays mostly share a row, so the
 // loop over a warp's distinct rows is short.
+//
+// A second kernel serves tables too large for a block's shared memory (an
+// environment map's texels: core/segsum.py).  Its rows come sorted by key
+// (a stable sort, in torch), so each key's rows are one run of the input:
+// one warp a key, each lane adding every 32nd row of the run in float64,
+// then a butterfly of shuffles in a fixed order.  The order of the sums
+// depends on the run's length alone, so the sums have the same bits on every
+// run; no atomics, and each key is written once (0 for an empty run).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -81,6 +89,39 @@ row_sums_kernel(const float* __restrict__ g, const long long* __restrict__ idx,
     }
 }
 
+// Most columns sorted_segment_sums_kernel takes.
+constexpr int SEG_MAX_COLS = 16;
+
+__global__ void __launch_bounds__(THREADS)
+sorted_segment_sums_kernel(const float* __restrict__ vals,
+                           const long long* __restrict__ starts,
+                           float* __restrict__ out, long long n, int cols,
+                           long long n_keys) {
+    const int lane = threadIdx.x & 31;
+    const long long n_warps = (long long)gridDim.x * (THREADS / 32);
+    for (long long key = ((long long)blockIdx.x * THREADS + threadIdx.x) >> 5;
+         key < n_keys; key += n_warps) {
+        const long long s = starts[key], e = starts[key + 1];
+        double acc[SEG_MAX_COLS];
+#pragma unroll
+        for (int c = 0; c < SEG_MAX_COLS; ++c) acc[c] = 0.0;
+        for (long long r = s + lane; r < e; r += 32) {
+#pragma unroll
+            for (int c = 0; c < SEG_MAX_COLS; ++c)
+                if (c < cols) acc[c] += (double)vals[(size_t)c * n + r];
+        }
+#pragma unroll
+        for (int c = 0; c < SEG_MAX_COLS; ++c) {
+            if (c >= cols) break;
+            double x = acc[c];
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+                x += __shfl_xor_sync(FULL, x, off);
+            if (lane == 0) out[(size_t)key * cols + c] = (float)x;
+        }
+    }
+}
+
 }  // namespace
 
 extern "C" int row_sums_block_rows() { return BLOCK_ROWS; }
@@ -100,5 +141,30 @@ extern "C" int row_sums_launch(const float* g, const long long* idx, float* part
     const size_t smem = sizeof(float) * (size_t)WARPS * n_keys * cols;
     row_sums_kernel<<<(unsigned int)blocks, THREADS, smem, (cudaStream_t)cuda_stream>>>(
         g, idx, partial, n, cols, key0, n_keys);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int sorted_segment_sums_max_cols() { return SEG_MAX_COLS; }
+
+// vals [cols, n] f32 (the rows in key order), starts [n_keys + 1] i64 (key k's
+// rows are starts[k] .. starts[k + 1] - 1) in; out [n_keys, cols] f32, written
+// in full.  Launches on the given stream, does not synchronize, allocates
+// nothing, and returns cudaGetLastError().
+extern "C" int sorted_segment_sums_launch(const float* vals, const long long* starts,
+                                          float* out, long long n, int cols,
+                                          long long n_keys, void* cuda_stream) {
+    if (cols < 1 || cols > SEG_MAX_COLS || n_keys < 1 || n < 0)
+        return (int)cudaErrorInvalidValue;
+    int device = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err != cudaSuccess) return (int)err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return (int)err;
+    long long blocks = (n_keys * 32 + THREADS - 1) / THREADS;
+    const long long cap = (long long)sms * 16;
+    if (blocks > cap) blocks = cap;
+    sorted_segment_sums_kernel<<<(unsigned int)blocks, THREADS, 0,
+                                 (cudaStream_t)cuda_stream>>>(vals, starts, out, n,
+                                                              cols, n_keys);
     return (int)cudaGetLastError();
 }

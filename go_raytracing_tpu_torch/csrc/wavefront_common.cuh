@@ -17,6 +17,7 @@
 
 namespace wf {
 
+constexpr float BIG = 3.0e38f;
 constexpr float EPS_HIT = 1e-3f;
 constexpr float FIREFLY = 20.0f;
 constexpr float TWO_PI = 6.283185307179586f;
@@ -39,6 +40,7 @@ constexpr int PW_METAL = 32;
 constexpr int PW_DIELECTRIC = 64;
 constexpr int PW_HIT = 128;
 constexpr int PW_USE_MIS = 256;
+constexpr int PW_BLK_H = 512;
 constexpr int PW_VOLUME = 1024;
 constexpr int PW_VOL_SHIFT = 11;
 constexpr int PW_F_ROWS = 19;

@@ -20,6 +20,9 @@ import numpy as np
 import torch
 
 from . import mesh_bvh, packs
+from ..io import assets as assets_mod
+from ..io import hdr as hdr_mod
+from ..lights import hdri as hdri_mod
 from ..materials import tables as mats
 from ..materials import textures as tex
 from ..utils.device import resolve_device
@@ -108,9 +111,8 @@ class Scene:
     light_normal: torch.Tensor  # [L, 3]
     light_area: torch.Tensor    # [L]
     light_mat: torch.Tensor     # [L] i32
-    # HDRI environment: not ported yet, always None (ROADMAP.md A15); the
-    # field keeps the scene's shape stable.
-    env: None = None
+    # HDRI environment (lights/hdri.py), or None
+    env: Optional[hdri_mod.Environment] = None
     # Instanced triangle meshes: one mesh_bvh.MeshProto per prototype
     meshes: tuple = ()
     # --- static metadata ---
@@ -149,6 +151,7 @@ class SceneBuilder:
         self._lights: list = []    # planar indices
         self._protos: list = []    # (verts [V,3] f64, tris [T,3] i64)
         self._instances: list = []  # (proto id, local->world 4x4, mat)
+        self._env: Optional[tuple] = None   # (numpy data, rotation_deg)
         self._env_importance = True
 
     # --- textures ---------------------------------------------------------
@@ -396,8 +399,15 @@ class SceneBuilder:
         self._lights.append(planar_index)
 
     def set_environment(self, path_or_array, rotation_degrees: float = 0.0):
-        raise NotImplementedError(
-            "HDRI environments are not ported yet (ROADMAP.md A15)")
+        """An HDRI environment: a path to a Radiance .hdr file (found by
+        ``io/assets.find_asset``; a missing file raises
+        ``FileNotFoundError``) or an [H, W, 3] array of linear radiance."""
+        if isinstance(path_or_array, str):
+            path = assets_mod.find_asset(path_or_array, "hdri")
+            arr = hdr_mod.load_hdr(path)
+        else:
+            arr = np.asarray(path_or_array, np.float32)
+        self._env = (arr, rotation_degrees)
 
     def disable_env_importance_sampling(self):
         self._env_importance = False
@@ -485,6 +495,10 @@ class SceneBuilder:
             if insts:
                 meshes.append(mesh_bvh.build_proto(verts, tris, insts, dev))
 
+        env = None
+        if self._env is not None:
+            env = hdri_mod.build_environment(self._env[0], self._env[1], device=dev)
+
         return Scene(
             spheres=spheres,
             planar=planar,
@@ -497,6 +511,7 @@ class SceneBuilder:
             light_normal=dv(ln, f32),
             light_area=dv(la, f32),
             light_mat=dv(lm, i32),
+            env=env,
             meshes=tuple(meshes),
             has_checker=bool((kind == tex.TEX_CHECKER).any()),
             env_importance=self._env_importance,

@@ -32,11 +32,14 @@ in its order afterwards, bit for bit as if unsorted.
 
 Per bounce: closest hit over spheres, planar primitives and meshes, then
 stochastic volume scattering may preempt the surface hit; a miss records
-direction and throughput for the deferred miss shader; emission counts iff the
+direction and throughput for the deferred miss shader (an HDRI environment,
+the sky gradient or the background); emission counts iff the
 allowLightHits bit is set; a lambertian hit samples one uniformly picked
 quad light (NEE) with a shadow ray, balance-heuristic MIS, x numLights and
-the firefly clamp at 20; scatter, and continue with allowLightHits = not
-(NEE was sampled this bounce).
+the firefly clamp at 20, and, in a scene with quad lights and an
+importance-sampled environment, one direction of the environment the same
+way (``sample_hdri_light``); scatter, and continue with allowLightHits =
+not (NEE was sampled this bounce).
 
 Replay (the gradient tier of ``render/grad`` for scenes outside the
 gradient kernels' gates): ``trace(record=True)`` also returns the discrete
@@ -49,10 +52,9 @@ winner's hit distance (``_winner_t``), so ``torch.autograd`` also reaches
 the terms through the hit distance.  Random draws, scatter and light
 choices are replayed from the rays' counters.
 
-Not ported yet, each raising ``NotImplementedError``: environments and
-``sample_hdri_light`` (ROADMAP.md A15), noise (A13) and image textures
-(A16), and the megakernel modes 'split' / 'compact' (B11) and 'image'
-(A16).
+Not ported yet, each raising ``NotImplementedError``: noise (ROADMAP.md
+A13) and image textures (A16), and the megakernel modes 'split' /
+'compact' (B11) and 'image' (A16).
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ from ..core import vec
 from ..core.vec3 import V3
 from ..geometry import packs
 from ..geometry.scene import Scene
+from ..lights import hdri as hdri_mod
 from ..materials import tables as mats
 from ..materials import textures as tex
 from ..ops import cuda_intersect as ck
@@ -90,16 +93,15 @@ class Decisions(NamedTuple):
     [D, R].  A ray that did not enter a bounce alive reads ``HIT_NONE``,
     index 0, instance 0 and not blocked there.  Random draws, scatter and
     light choices are replayed from the counters and not stored.  A field
-    that is 0 everywhere (``aux`` without meshes, ``blk_h`` always) is a
-    broadcast view of one zero, so the record holds ``decision_bytes`` a
-    ray and bounce."""
+    that is 0 everywhere (``aux`` without meshes, ``blk_h`` without HDRI
+    NEE) is a broadcast view of one zero, so the record holds
+    ``decision_bytes`` a ray and bounce."""
 
     which: torch.Tensor   # u8 HIT_* winner kind (i32 past 255 kinds)
     idx: torch.Tensor     # i32 winner primitive, triangle or volume index
     aux: torch.Tensor     # i32 mesh instance id
     blk_a: torch.Tensor   # bool: the area-light shadow ray was blocked
-    blk_h: torch.Tensor   # bool: the HDRI shadow ray was blocked (no
-                          # environment is ported yet: always False)
+    blk_h: torch.Tensor   # bool: the HDRI shadow ray was blocked
 
 
 def _which_dtype(scene: Scene):
@@ -108,9 +110,10 @@ def _which_dtype(scene: Scene):
 
 def decision_bytes(scene: Scene) -> int:
     """Bytes ``Decisions`` holds a ray and bounce for this scene: ``which``,
-    ``idx``, ``blk_a`` and, with meshes, ``aux``."""
+    ``idx``, ``blk_a``, with meshes ``aux`` and with HDRI NEE ``blk_h``."""
     which = torch.empty((), dtype=_which_dtype(scene)).element_size()
-    return which + 4 + 1 + (4 if scene.meshes else 0)
+    return (which + 4 + 1 + (4 if scene.meshes else 0)
+            + (1 if mega.uses_hdri_nee(scene) else 0))
 
 
 def _zero_rows(depth: int, r: int, dtype, dev):
@@ -797,19 +800,57 @@ def sample_area_light(scene: Scene, cam, p: V3, normal: V3, ray_d: V3,
             overflow, blocked)
 
 
-def sample_hdri_light(*args, **kwargs):
-    raise NotImplementedError(
-        "NEE toward an HDRI environment is not ported yet (ROADMAP.md A15)")
+def sample_hdri_light(scene: Scene, cam, p: V3, normal: V3, ray_d: V3,
+                      attenuation: V3, mat_id, seed, stream, bounce,
+                      mat_attrs=None, active=None,
+                      tabs: Optional[SweepTables] = None, blocked=None):
+    """NEE toward the HDRI environment by importance sampling.  Returns (V3
+    contribution, overflow (always 0), blocked [R] bool); ``blocked`` as in
+    :func:`sample_area_light`."""
+    xi1 = rngmod.uniform(seed, stream, bounce, rngmod.HDRI_ROW)
+    xi2 = rngmod.uniform(seed, stream, bounce, rngmod.HDRI_COL)
+    light_dir, emission, pdf_h = hdri_mod.sample_direction_soa(scene.env, xi1, xi2)
+
+    cos_theta = normal.dot(light_dir)
+    facing = cos_theta > 0.0
+    shadow_active = facing if active is None else (facing & active)
+
+    overflow = 0
+    if blocked is None:
+        r = p.x.shape[0]
+        blocked, overflow = occluded(
+            scene, p, light_dir, torch.zeros((r,), device=p.x.device), SHADOW_EPS,
+            torch.full((r,), BIG, device=p.x.device), seed, stream, bounce,
+            PURPOSE_VOL_SHADOW_HDRI, active=shadow_active, tabs=tabs,
+        )
+
+    wi = (-ray_d).unit()
+    if mat_attrs is not None:
+        pdf_b = mats.brdf_pdf_from_attrs(
+            mat_attrs[0], mat_attrs[1], wi, light_dir, normal)
+    else:
+        pdf_b = mats.brdf_pdf(scene.materials, mat_id, wi, light_dir, normal)
+    # Floor 1e-15: (1e-20)^2 underflows float32 in the division's backward.
+    weight = pdf_h / torch.clamp_min(pdf_h + pdf_b, 1e-15)
+    scale = cos_theta / torch.clamp_min(pdf_h, 1e-12) * weight
+    contrib = (emission * attenuation * scale).minimum(FIREFLY_CLAMP)
+    ok = facing & ~blocked
+    return (V3.select(ok, contrib, V3.zeros(ok.shape, device=ok.device)),
+            overflow, blocked)
 
 
 def _miss_radiance(scene: Scene, cam: Camera, d: V3, primary) -> V3:
-    """Sky gradient / flat background for rays that left the scene.
+    """Environment / sky gradient / flat background for rays that left the
+    scene.
 
-    ``primary``: bool mask — the lane's miss happened on the first segment
-    (used by the phantom-HDRI rule once environments are ported)."""
+    ``primary``: bool mask, the lane's miss happened on the first segment
+    (the reference's phantom-HDRI rule hides the environment from camera
+    rays when ``cam.phantom_hdri``)."""
     if scene.env is not None:
-        raise NotImplementedError(
-            "HDRI environments are not ported yet (ROADMAP.md A15)")
+        col = hdri_mod.sample_soa(scene.env, d)
+        if cam.phantom_hdri:
+            col = V3.select(primary, V3.zeros(col.x.shape, device=col.x.device), col)
+        return col
     if cam.use_sky_gradient:
         unit_d = d.unit()
         a = 0.5 * (unit_d.y + 1.0)
@@ -867,16 +908,16 @@ def bounce_step(scene: Scene, cam, state: PathState, tm, stream, seed,
 
     ``dec``: this bounce's recorded (which, idx, aux, blk_a, blk_h) (the
     replay): no sweep runs, the winner's distance comes from ``_winner_t``.
-    ``rec``: a list; this bounce's (which, idx, aux or None, blk_a) is
-    appended to it."""
+    ``rec``: a list; this bounce's (which, idx, aux or None, blk_a, blk_h)
+    is appended to it."""
     (o, d, throughput, radiance, alive, allow_light,
      miss_dir, miss_tp, miss_primary, missed) = state
     dev = alive.device
 
     aux = None
-    dec_blk_a = None
+    dec_blk_a = dec_blk_h = None
     if dec is not None:
-        which, idx, aux, dec_blk_a, _ = dec
+        which, idx, aux, dec_blk_a, dec_blk_h = dec
         which = torch.where(alive, which, HIT_NONE)
         t = _winner_t(scene, o, d, tm, EPS_HIT, which, idx, aux, seed, stream,
                       bounce)
@@ -926,13 +967,19 @@ def bounce_step(scene: Scene, cam, state: PathState, tm, stream, seed,
 
     # --- NEE + MIS ------------------------------------------------------------
     use_mis = torch.zeros_like(alive)
-    blk_a = torch.zeros_like(alive)
+    blk_a = blk_h = torch.zeros_like(alive)
     if scene.n_lights > 0:
         use_mis = sc.can_use_nee & alive & hit
         direct, _, blk_a = sample_area_light(
             scene, cam, p, normal, d, sc.attenuation, mat_id,
             seed, stream, bounce, mat_attrs=mat_attrs, active=use_mis,
             tabs=tabs, blocked=dec_blk_a)
+        if mega.uses_hdri_nee(scene):
+            hdri_direct, _, blk_h = sample_hdri_light(
+                scene, cam, p, normal, d, sc.attenuation, mat_id,
+                seed, stream, bounce, mat_attrs=mat_attrs, active=use_mis,
+                tabs=tabs, blocked=dec_blk_h)
+            direct = direct + hdri_direct
         radiance = radiance + V3.select(use_mis, throughput * direct, zero)
 
     if rec is not None:
@@ -942,7 +989,7 @@ def bounce_step(scene: Scene, cam, state: PathState, tm, stream, seed,
         rec.append((torch.where(hit, which, HIT_NONE),
                     torch.where(hit, idx, none),
                     None if aux is None else torch.where(hit, aux, none),
-                    blk_a))
+                    blk_a, blk_h))
 
     # --- continue the path ----------------------------------------------------
     alive = alive & hit & sc.scattered
@@ -956,9 +1003,6 @@ def bounce_step(scene: Scene, cam, state: PathState, tm, stream, seed,
 
 def _check_standard(scene: Scene):
     """Raise for what the standard integrator does not take yet."""
-    if scene.env is not None:
-        raise NotImplementedError(
-            "HDRI environments are not ported yet (ROADMAP.md A15)")
     if scene.has_noise:
         raise NotImplementedError(
             "marble noise textures are not ported yet (ROADMAP.md A13)")
@@ -978,8 +1022,10 @@ def _stack_decisions(scene: Scene, rows, depth: int, r: int, dev) -> Decisions:
 
     aux = (stack(2, torch.int32) if scene.meshes
            else _zero_rows(depth, r, torch.int32, dev))
+    blk_h = (stack(4, torch.bool) if mega.uses_hdri_nee(scene)
+             else _zero_rows(depth, r, torch.bool, dev))
     return Decisions(stack(0, _which_dtype(scene)), stack(1, torch.int32), aux,
-                     stack(3, torch.bool), _zero_rows(depth, r, torch.bool, dev))
+                     stack(3, torch.bool), blk_h)
 
 
 def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
@@ -1056,10 +1102,12 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
                         miss_dir, miss_tp, (flags & mega.FLAG_PRIMARY) != 0)
         out = (rad,) + ((stats,) if with_stats else ())
         if record:
-            which, idx, blk_a = res[4]
+            which, idx, blk_a, blk_h = res[4]
             depth = idx.shape[0]
-            out += (Decisions(which, idx, _zero_rows(depth, r, torch.int32, dev), blk_a,
-                              _zero_rows(depth, r, torch.bool, dev)),)
+            if not mega.uses_hdri_nee(scene):
+                blk_h = _zero_rows(depth, r, torch.bool, dev)
+            out += (Decisions(which, idx, _zero_rows(depth, r, torch.int32, dev),
+                              blk_a, blk_h),)
         return out if len(out) > 1 else rad
 
     _check_standard(scene)

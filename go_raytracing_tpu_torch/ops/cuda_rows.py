@@ -9,6 +9,11 @@ row after another), and only because it lies on the CPU.
 Not a port of a TPU kernel: it gives the port's ``torch.autograd`` route
 what the JAX package's gathers have on every backend, gradients that do not
 change from run to run (ROADMAP.md C7).
+
+``sorted_segment_sums(sorted_ids, vals, n_keys)`` sums rows that come sorted
+by key, for tables too large for ``row_sums``' shared memory (an environment
+map's texels, ``core/segsum``): a second kernel of the same file, one warp a
+key; its plain version is ``_sorted_segment_sums_plain``.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ import ctypes
 import torch
 
 LAUNCHES_ROW_SUMS = 0   # row_sums kernel launches (CUDA tensors only)
+LAUNCHES_SEGMENT_SUMS = 0   # sorted_segment_sums kernel launches
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
@@ -84,3 +90,52 @@ def row_sums(g, idx, n_rows: int):
     if g.is_cuda:
         return _row_sums_cuda(g, idx, n_rows)
     return _row_sums_plain(g, idx, n_rows)
+
+
+_SEG_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, _P]
+
+
+def _sorted_segment_sums_plain(sorted_ids, vals, n_keys: int):
+    """Plain version: each key's rows added in float64, in input order."""
+    keep = (sorted_ids >= 0) & (sorted_ids < n_keys)
+    out = torch.zeros((n_keys, vals.shape[0]), dtype=torch.float64,
+                      device=vals.device)
+    out.index_add_(0, sorted_ids[keep], vals[:, keep].t().to(torch.float64))
+    return out.to(torch.float32)
+
+
+def _sorted_segment_sums_cuda(sorted_ids, vals, n_keys: int):
+    """Launch the kernel on PyTorch's current stream; does not synchronize."""
+    global LAUNCHES_SEGMENT_SUMS
+    dev = vals.device
+    cols, n = vals.shape
+    max_cols = _kernel("sorted_segment_sums_max_cols", [])()
+    if not 0 < cols <= max_cols:
+        raise ValueError(f"sorted_segment_sums takes 1 to {max_cols} columns, got {cols}")
+    if sorted_ids.device != dev or sorted_ids.shape != (n,):
+        raise ValueError("ids must be an [n] tensor on the values' device")
+    out = torch.empty((n_keys, cols), dtype=torch.float32, device=dev)
+    if n_keys == 0:
+        return out
+    # the first row of each key's run (ids outside [0, n_keys) fall before
+    # the first run or after the last)
+    keys = torch.arange(n_keys + 1, dtype=torch.int64, device=dev)
+    starts = torch.searchsorted(sorted_ids.to(torch.int64).contiguous(), keys)
+    vals = vals.to(torch.float32).contiguous()
+    fn = _kernel("sorted_segment_sums_launch", _SEG_ARGTYPES)
+    with torch.cuda.device(dev):
+        err = fn(vals.data_ptr(), starts.data_ptr(), out.data_ptr(), n, cols,
+                 n_keys, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sorted_segment_sums kernel launch failed: CUDA error {err}")
+    LAUNCHES_SEGMENT_SUMS += 1
+    return out
+
+
+def sorted_segment_sums(sorted_ids, vals, n_keys: int):
+    """Per-key sums of the columns ``vals`` [C, n] whose rows come sorted by
+    ``sorted_ids`` [n] (ascending int64) -> [n_keys, C] float32, in an order
+    fixed by the keys' run lengths.  Ids outside [0, n_keys) are dropped."""
+    if vals.is_cuda:
+        return _sorted_segment_sums_cuda(sorted_ids, vals, n_keys)
+    return _sorted_segment_sums_plain(sorted_ids, vals, n_keys)

@@ -12,7 +12,16 @@ the kernel.
 
 The record kernel (``wavefront_record``) is the forward once more, and it
 also writes each bounce's discrete outcome: the winner's kind and index and
-whether the area light's shadow ray was blocked.  The replay tier of
+whether the shadow rays (toward the area light, toward the environment)
+were blocked.
+
+Environments (``lights/hdri``): the miss shader runs outside the kernels,
+once per ray, from the miss records (direction, throughput, flags).  In a
+scene with quad lights and an importance-sampled environment a lambertian
+hit also samples the environment (HDRI NEE): the sample depends on the
+ray's counter alone, so it is drawn in torch (``hdri_rows_for``: alias
+table) and streamed into the forward and record kernels as 7 rows a
+bounce, and the kernels trace its shadow ray and weigh it.  The replay tier of
 ``render/grad`` keeps that record and replays it differentiably on the
 standard integrator (``integrator/wavefront.trace(decisions=...)``).
 
@@ -28,7 +37,17 @@ Scenes with metal or dielectric materials take the pathwise tier
 (``grad_pathwise_applicable``; ``pathwise=True`` on both wrappers,
 ``PathwiseTrace`` for ``torch.autograd``): their scatter directions depend
 on fuzz and IOR, and an albedo behind a specular chain is also reached
-through hit positions.  The gradient forward then stashes, per bounce, the
+through hit positions.  Under an environment map the two-phase tiers get
+the miss colour, and the pathwise reverse sweep the cotangent of the miss
+direction, as per-ray rows computed in torch between the passes
+(``MISS_STREAM``); the texel gradients are summed per texel in torch
+(``lights/hdri.miss_texel_grad``).
+
+A scene with both an environment and quad lights takes the fused kernel
+(``grad_megakernel``, ``wavefront_grad_fused``): forward and pathwise
+reverse in one launch, the stash in each thread's local memory, the HDRI
+rows in and the cotangent of every bounce's environment sample out
+(``eout``), summed per texel in torch.  The gradient forward then stashes, per bounce, the
 hit point, the incoming direction, the normal and the material constants
 (19 float + 3 int rows); the reverse sweep carries three adjoints (of the
 throughput, the origin and the direction) from the last bounce to the
@@ -41,18 +60,20 @@ What lives here:
     as the JAX package's (columns are the real primitive counts, with no
     padding);
   * the kernel wrappers ``wavefront_fwd``, ``wavefront_record``,
-    ``wavefront_grad_fwd``, ``wavefront_grad_rev`` and
-    ``wavefront_grad_rev_pathwise`` and, over them, ``trace_megakernel``
-    (``record=True`` for the record), ``grad_fwd_stash`` and
-    ``grad_rev_stash``.
+    ``wavefront_grad_fwd``, ``wavefront_grad_rev``,
+    ``wavefront_grad_rev_pathwise`` and ``wavefront_grad_fused`` and, over
+    them, ``trace_megakernel`` (``record=True`` for the record),
+    ``grad_fwd_stash``, ``grad_rev_stash`` and ``grad_megakernel``.
     A CUDA tensor launches the kernel (``csrc/wavefront.cu``,
-    ``csrc/wavefront_grad.cu``, ``csrc/wavefront_grad_pathwise.cu``, built
-    at first use by ``ops/_build.py``) or raises; a CPU tensor runs the
-    plain version, and only because it lies on the CPU.  There is no
-    fallback from one to the other;
+    ``csrc/wavefront_grad.cu``, ``csrc/wavefront_grad_pathwise.cu``,
+    ``csrc/wavefront_grad_fused.cu``, built at first use by
+    ``ops/_build.py``) or raises; a CPU tensor runs the plain version, and
+    only because it lies on the CPU.  There is no fallback from one to the
+    other;
   * the plain versions ``_wavefront_fwd_plain``, ``_wavefront_record_plain``,
-    ``_wavefront_grad_fwd_plain``, ``_wavefront_grad_rev_plain`` and
-    ``_wavefront_grad_rev_pathwise_plain`` — the
+    ``_wavefront_grad_fwd_plain``, ``_wavefront_grad_rev_plain``,
+    ``_wavefront_grad_rev_pathwise_plain`` and ``_wavefront_grad_fused_plain``
+    — the
     same functions of the same inputs written with ``[R]`` tensors and
     Python loops over primitives and bounces.  The tests use them and the
     chip check holds the kernels against them; nothing on the render path
@@ -63,10 +84,8 @@ What lives here:
 
 Not ported yet (``applicable`` is False or the caller raises): marble
 noise (and with it stash row 19 and the marble position adjoint of the
-pathwise tier), HDRI-NEE rows and the environment miss rows (and with them
-the record's blocked bit of the HDRI shadow ray, always 0 here), the
-resumable variant, the fused gradient variant, sphere segment culling
-(ROADMAP.md queue B).
+pathwise tier), the resumable variant, sphere segment culling (ROADMAP.md
+queue B).
 """
 
 from __future__ import annotations
@@ -80,8 +99,10 @@ import torch
 
 from ..core import rng as rngmod
 from ..core import vec as vec_consts
+from ..core.segsum import cols_segment_sum
 from ..core.vec3 import V3
 from ..geometry import packs
+from ..lights import hdri as hdri_mod
 
 BIG = float(packs.BIG)
 EPS_HIT = float(np.float32(vec_consts.EPS_HIT))
@@ -143,7 +164,7 @@ PW_METAL = 32
 PW_DIELECTRIC = 64
 PW_HIT = 128
 PW_USE_MIS = 256     # lambertian hit in a scene with lights: NEE was sampled
-PW_BLK_H = 512       # environment shadow ray blocked (never set: no HDRI rows)
+PW_BLK_H = 512       # the shadow ray toward the environment sample was blocked
 PW_VOLUME = 1024     # a volume won; its index sits in bits 11-12
 PW_VOL_SHIFT = 11
 PW_MARBLE = 8192     # never set: no noise textures
@@ -154,11 +175,24 @@ PW_MARBLE = 8192     # never set: no noise textures
 GRAD_PATHWISE_MAX_ACC = 1536
 
 # The record's code byte: winner kind (HIT_NONE 0, sphere 1, planar 2,
-# volume 3) in bits 0-1, the area light's shadow ray blocked in bit 2 (no
-# HDRI bit: environments are not ported yet).  The winner's index is a
+# volume 3) in bits 0-1, the area light's shadow ray blocked in bit 2, the
+# environment sample's shadow ray blocked in bit 3.  The winner's index is a
 # separate int32 row.
 DEC_KIND_MASK = 3
 DEC_BLK_A = 4
+DEC_BLK_H = 8
+
+# HDRI NEE rows a bounce: direction (3), emission (3), solid-angle pdf.
+HDRI_ROWS = 7
+# The miss shader of the gradient kernels: the flat background, the sky
+# gradient, or a per-ray colour (an environment map) computed in torch.
+MISS_FLAT, MISS_SKY, MISS_STREAM = 0, 1, 2
+# Deepest path the fused gradient kernel takes (its stash is a local array
+# of this many bounces; the JAX package's GRAD_DEPTH_MAX).
+FUSED_MAX_DEPTH = 50
+# Accumulators the fused kernel's shared memory holds (9 a texture, 2 a
+# material), as the pathwise reverse kernel's.
+GRAD_FUSED_MAX_ACC = 1536
 
 # Kernel launches made by the wrappers (CUDA tensors only).
 LAUNCHES = 0                     # wavefront_fwd
@@ -167,6 +201,7 @@ LAUNCHES_GRAD_FWD = 0            # wavefront_grad_fwd, product rows
 LAUNCHES_GRAD_REV = 0            # wavefront_grad_rev
 LAUNCHES_GRAD_FWD_PATHWISE = 0   # wavefront_grad_fwd(pathwise=True)
 LAUNCHES_GRAD_REV_PATHWISE = 0   # wavefront_grad_rev_pathwise
+LAUNCHES_GRAD_FUSED = 0          # wavefront_grad_fused
 
 
 class Tables(NamedTuple):
@@ -181,10 +216,10 @@ class Tables(NamedTuple):
 
 
 def applicable(scene, max_prims: int = 1024) -> bool:
-    """Can this scene run through the megakernel?"""
+    """Can this scene run through the megakernel?  Environments are
+    admitted: the miss shader runs outside, HDRI NEE comes in as rows."""
     return (
         not scene.meshes
-        and scene.env is None
         and not scene.has_image
         and not scene.has_noise
         and scene.planar.d.shape[0] <= max_prims
@@ -207,6 +242,8 @@ def grad_applicable(scene, max_depth: int) -> bool:
     bounded by memory alone (``render/grad.render_grad`` budgets it)."""
     if not applicable(scene) or max_depth < 1:
         return False
+    if scene.env is not None and scene.n_lights > 0:
+        return False   # HDRI NEE's texel cotangents: the fused kernel
     kinds = scene.materials.kind
     if bool(((kinds == 1) | (kinds == 2)).any()):   # metal / dielectric
         return False
@@ -215,11 +252,13 @@ def grad_applicable(scene, max_depth: int) -> bool:
 
 def grad_pathwise_applicable(scene, max_depth: int) -> bool:
     """Can the pathwise gradient kernels take this scene?  ``applicable``
-    (which leaves out environments and noise textures), at least one
-    bounce, and 9 accumulators a texture plus 2 a material within the
-    reverse kernel's shared memory.  Metal, dielectric and volumes are
-    admitted.  Where ``grad_applicable`` holds too, the product-chain tier
-    is the one to use: its stash is lighter."""
+    (which leaves out noise textures), at least one bounce, and 9
+    accumulators a texture plus 2 a material within the reverse kernel's
+    shared memory.  Metal, dielectric, volumes and environments are
+    admitted; a scene with an environment and quad lights takes the fused
+    kernel (``grad_fused_applicable``), not the two-phase route.  Where
+    ``grad_applicable`` holds too, the product-chain tier is the one to
+    use: its stash is lighter."""
     if not applicable(scene) or max_depth < 1:
         return False
     n_tex = int(scene.textures.color.shape[0])
@@ -229,9 +268,20 @@ def grad_pathwise_applicable(scene, max_depth: int) -> bool:
 
 def grad_two_phase_ok(scene, max_depth: int) -> bool:
     """Can the gradient run as stash-writing forward, then reverse sweep?
-    Every scene either tier of gradient kernels takes can."""
+    Every scene either tier of gradient kernels takes, except one with an
+    environment and quad lights: the texel cotangents of its environment
+    samples come out of the fused kernel (``grad_megakernel``)."""
+    if scene.env is not None and scene.n_lights > 0:
+        return False
     return (grad_applicable(scene, max_depth)
             or grad_pathwise_applicable(scene, max_depth))
+
+
+def grad_fused_applicable(scene, max_depth: int) -> bool:
+    """Can the fused gradient kernel take this scene?  The pathwise gate,
+    and at most ``FUSED_MAX_DEPTH`` bounces (its stash is a local array)."""
+    return (grad_pathwise_applicable(scene, max_depth)
+            and max_depth <= FUSED_MAX_DEPTH)
 
 
 # -----------------------------------------------------------------------------
@@ -440,9 +490,12 @@ def _occluded(tb, kinds, o, d, t_cap, seed, stream, bounce, purpose_base):
 
 
 def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
-                 pathwise=False, record=None):
+                 pathwise=False, record=None, hdri=None):
     """The bounce loop on component lists.  Returns ([9, R] f32 rows:
     radiance, miss direction, miss throughput; [R] i32 flag word).
+
+    ``hdri``: [max_depth * 7, R] rows of HDRI NEE (``hdri_rows_for``), or
+    None.
 
     ``record``: (code [D, R] u8, idx [D, R] i32) holding zeros; the outcome
     of every bounce a ray enters is written into it (``DEC_*``).
@@ -615,7 +668,7 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
             rad[c] = rad[c] + torch.where(emit_mask, tp[c] * albedo[c], 0.0)
 
         use_mis = (alive & hit & is_lam) if use_nee else torch.zeros_like(alive)
-        blk_a = torch.zeros_like(alive)
+        blk_a = blk_h = torch.zeros_like(alive)
         if stash is not None and not pathwise:
             em_su = [zero, zero, zero]
             alb_su = [zero, zero, zero]
@@ -660,10 +713,30 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
                 lslot = torch.where(use_mis, (lsel[16] * 3.0).to(torch.int32),
                                     LSLOT_NONE)
 
+        if hdri is not None and use_nee:
+            # NEE toward the environment: the sample comes in as rows; the
+            # shadow ray is capped at 3e38 (inactive lanes at 0 find nothing)
+            hrow = [hdri[bounce * HDRI_ROWS + c] for c in range(HDRI_ROWS)]
+            hd, hem, pdf_h = hrow[0:3], hrow[3:6], hrow[6]
+            cos_h = _dot3(nrm, hd)
+            facing_h = cos_h > 0.0
+            shadow_cap_h = torch.where(use_mis & facing_h, 3.0e38, zero)
+            blocked_h = _occluded(tb, kinds, p, hd, shadow_cap_h, seed, stream,
+                                  bounce, 66)
+            blk_h = blocked_h
+            pdf_bh = torch.clamp_min(cos_h, 0.0) * inv_pi
+            weight_h = pdf_h / torch.clamp_min(pdf_h + pdf_bh, 1e-20)
+            scale_h = cos_h / torch.clamp_min(pdf_h, 1e-12) * weight_h
+            ok_h = facing_h & ~blocked_h & use_mis
+            for c in range(3):
+                contrib = torch.clamp_max(hem[c] * atten[c] * scale_h, FIREFLY)
+                rad[c] = rad[c] + torch.where(ok_h, tp[c] * contrib, 0.0)
+
         if record is not None:
             hit_a = alive & hit
             code = (torch.where(hit_a, hitk, 0)
-                    + (alive & blk_a).to(torch.int32) * DEC_BLK_A)
+                    + (alive & blk_a).to(torch.int32) * DEC_BLK_A
+                    + (alive & blk_h).to(torch.int32) * DEC_BLK_H)
             record[0][bounce] = code.to(torch.uint8)
             record[1][bounce] = torch.where(hit_a, torch.where(is_vol, vwin, hidx), 0)
 
@@ -698,6 +771,7 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
                   + (hit_a & is_die).to(i32) * PW_DIELECTRIC
                   + hit_a.to(i32) * PW_HIT
                   + use_mis.to(i32) * PW_USE_MIS
+                  + (alive & blk_h).to(i32) * PW_BLK_H
                   + (hit_a & is_vol).to(i32) * PW_VOLUME
                   + torch.where(hit_a & is_vol, vwin, 0).to(i32) * (1 << PW_VOL_SHIFT))
             stash_i[bounce, 0] = slot
@@ -742,28 +816,34 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
     return out, flags
 
 
-def _wavefront_fwd_plain(tb: Tables, o, d, tm, stream, seed, max_depth):
+def _wavefront_fwd_plain(tb: Tables, o, d, tm, stream, seed, max_depth,
+                        hdri=None):
     """Plain version of the forward kernel: ([9, R] f32, [R] i32)."""
-    return _bounce_loop(tb, o, d, tm, stream, seed, max_depth)
+    return _bounce_loop(tb, o, d, tm, stream, seed, max_depth, hdri=hdri)
 
 
-def _wavefront_record_plain(tb: Tables, o, d, tm, stream, seed, max_depth):
+def _wavefront_record_plain(tb: Tables, o, d, tm, stream, seed, max_depth,
+                            hdri=None):
     """Plain version of the record kernel: the forward's ([9, R] f32,
     [R] i32) and the record (code [D, R] u8, idx [D, R] i32)."""
     record = (torch.zeros((max_depth, tm.shape[0]), dtype=torch.uint8, device=tm.device),
               torch.zeros((max_depth, tm.shape[0]), dtype=torch.int32, device=tm.device))
     out, flags = _bounce_loop(tb, o, d, tm, stream, seed, max_depth,
-                              record=record)
+                              record=record, hdri=hdri)
     return out, flags, record[0], record[1]
 
 
 def _miss_colour_rows(out, flags, miss):
     """[3, R] miss colour, zero where the ray did not leave the scene:
     the flat background, or the sky gradient of the miss direction.
-    ``miss`` = (use_sky, (r, g, b))."""
-    use_sky, bg = miss
+    ``miss`` = (mode, (r, g, b)): ``MISS_FLAT``, ``MISS_SKY`` (a bool
+    use_sky reads as one of the two) or ``MISS_STREAM`` (an environment,
+    applied outside: 0 here)."""
+    mode, bg = miss
     missed = (flags & FLAG_MISSED) != 0
-    if use_sky:
+    if int(mode) == MISS_STREAM:
+        return torch.zeros_like(out[:3])
+    if int(mode) == MISS_SKY:
         m_dir = [out[3], out[4], out[5]]
         dl = torch.sqrt(torch.clamp_min(_dot3(m_dir, m_dir), 1e-20))
         aa = 0.5 * (m_dir[1] / dl + 1.0)
@@ -784,7 +864,7 @@ def _empty_stash(r, max_depth, device, pathwise=False):
 
 
 def _wavefront_grad_fwd_plain(tb: Tables, o, d, tm, stream, seed, max_depth,
-                              miss, pathwise=False):
+                              miss, pathwise=False, hdri=None):
     """Plain version of the gradient forward.  Returns (out [9, R] f32 and
     flags [R] i32 as the forward's, miss colour [3, R] f32, stash_f
     [D, 12, R] f32 (19 rows with ``pathwise``), stash_i [D, 3, R] i32).
@@ -796,7 +876,8 @@ def _wavefront_grad_fwd_plain(tb: Tables, o, d, tm, stream, seed, max_depth,
     stash_i[:, 1] = LSLOT_NONE   # == MSLOT_NONE
     stash_i[:, 2] = 0
     out, flags = _bounce_loop(tb, o, d, tm, stream, seed, max_depth,
-                              stash=(stash_f, stash_i), pathwise=pathwise)
+                              stash=(stash_f, stash_i), pathwise=pathwise,
+                              hdri=hdri)
     return out, flags, _miss_colour_rows(out, flags, miss), stash_f, stash_i
 
 
@@ -878,8 +959,16 @@ def _volume_entry(tb, o, d, vi):
 
 
 def _wavefront_grad_rev_pathwise_plain(tb: Tables, stash_f, stash_i, g3,
-                                       miss_col, stream, seed, use_sky,
-                                       n_tex, n_mat):
+                                       miss_col, stream, seed, miss_mode,
+                                       n_tex, n_mat, lmd=None):
+    """Plain version of the pathwise reverse kernel: see
+    ``_pathwise_reverse_plain``, without HDRI rows."""
+    return _pathwise_reverse_plain(tb, stash_f, stash_i, g3, miss_col, stream,
+                                   seed, miss_mode, n_tex, n_mat, lmd)[:3]
+
+
+def _pathwise_reverse_plain(tb: Tables, stash_f, stash_i, g3, miss_col, stream,
+                            seed, miss_mode, n_tex, n_mat, lmd=None, hdri=None):
     """Plain version of the pathwise reverse sweep: the pathwise kernel's
     arithmetic step by step on ``[R]`` tensors (not ``torch.autograd`` of
     the forward).  From the last bounce to the first it carries the adjoints
@@ -893,7 +982,12 @@ def _wavefront_grad_rev_pathwise_plain(tb: Tables, stash_f, stash_i, g3,
       * reverses the scatter: lambertian (normal + draw), metal (reflect,
         normalise, + fuzz * draw -> d(fuzz)), dielectric (reflect or
         refract on the unit direction, the branch recomputed -> d(ior));
-      * takes the derivative of the miss colour by the miss direction (sky);
+      * takes the derivative of the miss colour by the miss direction (sky),
+        or adds the cotangent of the miss direction ``lmd`` [3, R] (an
+        environment, ``miss_mode`` ``MISS_STREAM``);
+      * with ``hdri`` rows (the fused kernel's), recomputes the HDRI NEE
+        term: its albedo and clamp parts, the normal's adjoint, and the
+        cotangent of each bounce's environment sample (``eout``);
       * sends the hit point's adjoint back through the hit distance by the
         implicit rule dt/do = -n / (n . d), dt/dd = t dt/do (surfaces), or
         through the entry slab and the free-flight length (volumes);
@@ -902,8 +996,8 @@ def _wavefront_grad_rev_pathwise_plain(tb: Tables, stash_f, stash_i, g3,
 
     ``g3`` [3, R] is the cotangent of the rays' radiance, ``miss_col``
     [3, R] the gradient forward's.  Returns ([n_tex, 3 variants, 3 channels],
-    fuzz [n_mat], ior [n_mat]) f32.  Per-ray terms are float32 as in the
-    kernel; they are summed in float64."""
+    fuzz [n_mat], ior [n_mat], eout [D, 3, R] or None) f32.  Per-ray terms
+    are float32 as in the kernel; they are summed in float64."""
     depth = stash_f.shape[0]
     n_col = 9 * n_tex
     null = n_col + 2 * n_mat          # bin of the rows without a slot
@@ -917,6 +1011,10 @@ def _wavefront_grad_rev_pathwise_plain(tb: Tables, stash_f, stash_i, g3,
     inv_pi = float(np.float32(1.0 / np.pi))
     sky_s = (0.5, 0.7, 1.0)
     use_nee = tb.n_lights > 0
+    use_sky = int(miss_mode) == MISS_SKY
+    stream_miss = int(miss_mode) == MISS_STREAM
+    eout = (torch.zeros((depth, 3) + tuple(g3[0].shape), dtype=torch.float32,
+                        device=g3.device) if hdri is not None else None)
 
     def fl(cond):
         return cond.to(torch.float32)
@@ -1024,6 +1122,41 @@ def _wavefront_grad_rev_pathwise_plain(tb: Tables, stash_f, stash_i, g3,
                       + c_dist * dist_act * ldir[c] for c in range(3)]
             lp_nee = [-lam_tl[c] for c in range(3)]
 
+        # ---- HDRI NEE: the sample comes in as rows and the shadow outcome
+        # as a bit; no hit-point term (a solid-angle pdf), the normal's, and
+        # the cotangent of the sample's texel (eout).  Its albedo and clamp
+        # parts fold into em_su and clampf, which treat both NEE terms alike.
+        if hdri is not None and use_nee:
+            hrow = [hdri[k * HDRI_ROWS + c] for c in range(HDRI_ROWS)]
+            hdv, hemr, pdf_h = hrow[0:3], hrow[3:6], hrow[6]
+            cos_h = _dot3(nv, hdv)
+            blkh_b = (mk & PW_BLK_H) > 0
+            ok_h = (cos_h > 0.0) & ~blkh_b & misb
+            okf_h = fl(ok_h)
+            pdf_bh = torch.clamp_min(cos_h, 0.0) * inv_pi
+            qh = torch.clamp_min(pdf_h, 1e-12)
+            rh = torch.clamp_min(pdf_h + pdf_bh, 1e-20)
+            scale_h = cos_h / qh * (pdf_h / rh)
+            W_h = zero
+            for c in range(3):
+                uf_h = torch.where(hemr[c] * alb[c] * scale_h < FIREFLY, okf_h, zero)
+                em_su[c] = em_su[c] + hemr[c] * scale_h * uf_h
+                clampf[c] = clampf[c] + (okf_h - uf_h)
+                eout[k, c] = g[c] * T[c] * alb[c] * scale_h * uf_h
+                W_h = W_h + g[c] * T[c] * hemr[c] * alb[c] * uf_h
+            # lanes that are not ok set to 1 first (0 * inf is NaN)
+            one = torch.ones_like(zero)
+            pdf_hs = torch.where(ok_h, pdf_h, one)
+            qh_s = torch.where(ok_h, qh, one)
+            rh_s = torch.where(ok_h, rh, one)
+            r_act_h = fl(pdf_h + pdf_bh > 1e-20)
+            inv_qr_h = 1.0 / (qh_s * rh_s)
+            ds_dcos_h = pdf_hs * inv_qr_h
+            ds_dpbh = -cos_h * pdf_hs * r_act_h * inv_qr_h / rh_s
+            dpbh_dcos = torch.where(cos_h > 0.0, inv_pi, 0.0)
+            c_cos_h = W_h * (ds_dcos_h + ds_dpbh * dpbh_dcos)
+            ln_nee = [ln_nee[c] + c_cos_h * hdv[c] for c in range(3)]
+
         # ---- scatter Jacobians, reversed (u = adjoint of the next direction)
         u = ldv
         lamf = (1.0 - metf) * (1.0 - dief)
@@ -1097,6 +1230,8 @@ def _wavefront_grad_rev_pathwise_plain(tb: Tables, stash_f, stash_i, g3,
             l_d_sky = [litf * w_sky * 0.5
                        * ((1.0 if c == 1 else 0.0) / dlm - din[1] * din[c] / (dl2 * dlm))
                        for c in range(3)]
+        elif stream_miss:
+            l_d_sky = [litf * lmd[c] for c in range(3)]
         else:
             l_d_sky = [zero, zero, zero]
         ltp = [ltp[c] * (Af * alb[c] + (1.0 - Af))
@@ -1153,8 +1288,8 @@ def _wavefront_grad_rev_pathwise_plain(tb: Tables, stash_f, stash_i, g3,
         acc.index_add_(0, m_bin + 1, cot_ior.double())
     out = acc[:null].to(torch.float32)
     mats = out[n_col:].reshape(n_mat, 2)
-    return out[:n_col].reshape(n_tex, 3, 3), mats[:, 0].contiguous(), \
-        mats[:, 1].contiguous()
+    return (out[:n_col].reshape(n_tex, 3, 3), mats[:, 0].contiguous(),
+            mats[:, 1].contiguous(), eout)
 
 
 # -----------------------------------------------------------------------------
@@ -1168,15 +1303,20 @@ _TABLES_AND_RAYS = (
     + [_P] * 8                           # ox oy oz dx dy dz tm stream
 )
 _SIZES = [ctypes.c_longlong, ctypes.c_uint, _I]   # R, seed, depth
-_FWD_ARGTYPES = _TABLES_AND_RAYS + [_P, _P] + _SIZES + [_P]
-_RECORD_ARGTYPES = _TABLES_AND_RAYS + [_P] * 4 + _SIZES + [_P]
+_FWD_ARGTYPES = _TABLES_AND_RAYS + [_P] * 3 + _SIZES + [_P]      # hdri out flags
+_RECORD_ARGTYPES = _TABLES_AND_RAYS + [_P] * 5 + _SIZES + [_P]   # + code idx
 _GRAD_FWD_ARGTYPES = (_TABLES_AND_RAYS + [_P] * 5 + _SIZES
                       + [_I, _F, _F, _F] + [_P])
 _GRAD_REV_ARGTYPES = [_P] * 5 + [ctypes.c_longlong, _I, _I, _P]
 _GRAD_REV_PATHWISE_ARGTYPES = (
     [_P, _I, _P, _I]                     # light table, volume table, counts
-    + [_P] * 6                           # stash_f stash_i g3 miss_col stream partial
+    + [_P] * 7                           # stash_f stash_i g3 miss_col lmd stream partial
     + [ctypes.c_longlong, ctypes.c_uint, _I, _I, _I, _I, _P])
+_GRAD_FUSED_ARGTYPES = (
+    _TABLES_AND_RAYS + [_P] * 3          # g3 env_rows hdri
+    + [_I, _F, _F, _F]                   # miss mode, background
+    + [_P] * 3                           # rad eout partial
+    + [ctypes.c_longlong, ctypes.c_uint, _I, _I, _I, _P])
 
 
 def _kernel(library: str, function: str, argtypes, fmad: bool = False):
@@ -1188,8 +1328,24 @@ def _kernel(library: str, function: str, argtypes, fmad: bool = False):
     return fn
 
 
+def _check_hdri(hdri, tb: Tables, max_depth, r, dev):
+    """Raise unless ``hdri`` is None or [max_depth * 7, R] float32 rows on
+    the rays' device, in a scene with lights."""
+    if hdri is None:
+        return
+    if hdri.device != dev or hdri.dtype != torch.float32 \
+            or tuple(hdri.shape) != (max_depth * HDRI_ROWS, r) \
+            or not hdri.is_contiguous():
+        raise ValueError(
+            f"HDRI rows must be a contiguous float32 [{max_depth * HDRI_ROWS}, "
+            f"{r}] tensor on {dev}, got {hdri.dtype} {tuple(hdri.shape)} on "
+            f"{hdri.device}")
+    if tb.n_lights < 1:
+        raise ValueError("HDRI NEE rows in a scene without quad lights")
+
+
 def _check_rays(tb: Tables, o, d, tm, stream, max_depth):
-    """Raise on what the two tracing kernels do not take."""
+    """Raise on what the tracing kernels do not take."""
     r = tm.shape[0]
     dev = tm.device
     for a in list(o) + list(d) + [tm]:
@@ -1222,7 +1378,7 @@ def _table_and_ray_args(tb: Tables, o, d, tm, stream):
 
 
 def _wavefront_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
-                        fmad: bool = False):
+                        hdri=None, fmad: bool = False):
     """Launch the kernel on PyTorch's current stream.  Does not
     synchronize.  Returns ([9, R] f32, [R] i32).
 
@@ -1232,6 +1388,7 @@ def _wavefront_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
     _check_rays(tb, o, d, tm, stream, max_depth)
     r = tm.shape[0]
     dev = tm.device
+    _check_hdri(hdri, tb, max_depth, r, dev)
     out = torch.empty((9, r), dtype=torch.float32, device=dev)
     flags = torch.empty((r,), dtype=torch.int32, device=dev)
     if r == 0:
@@ -1240,6 +1397,7 @@ def _wavefront_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
     with torch.cuda.device(dev):
         err = fn(
             *_table_and_ray_args(tb, o, d, tm, stream),
+            None if hdri is None else hdri.data_ptr(),
             out.data_ptr(), flags.data_ptr(),
             r, int(seed) & 0xFFFFFFFF, int(max_depth),
             torch.cuda.current_stream(dev).cuda_stream,
@@ -1250,13 +1408,15 @@ def _wavefront_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
     return out, flags
 
 
-def _wavefront_record_cuda(tb: Tables, o, d, tm, stream, seed, max_depth):
+def _wavefront_record_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
+                           hdri=None):
     """Launch the record kernel on PyTorch's current stream; does not
     synchronize.  Returns what ``_wavefront_record_plain`` returns."""
     global LAUNCHES_RECORD
     _check_rays(tb, o, d, tm, stream, max_depth)
     r = tm.shape[0]
     dev = tm.device
+    _check_hdri(hdri, tb, max_depth, r, dev)
     out = torch.empty((9, r), dtype=torch.float32, device=dev)
     flags = torch.empty((r,), dtype=torch.int32, device=dev)
     code = torch.empty((max_depth, r), dtype=torch.uint8, device=dev)
@@ -1267,6 +1427,7 @@ def _wavefront_record_cuda(tb: Tables, o, d, tm, stream, seed, max_depth):
     with torch.cuda.device(dev):
         err = fn(
             *_table_and_ray_args(tb, o, d, tm, stream),
+            None if hdri is None else hdri.data_ptr(),
             out.data_ptr(), flags.data_ptr(), code.data_ptr(), idx.data_ptr(),
             r, int(seed) & 0xFFFFFFFF, int(max_depth),
             torch.cuda.current_stream(dev).cuda_stream,
@@ -1291,7 +1452,7 @@ def _wavefront_grad_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
     stash_f, stash_i = _empty_stash(r, max_depth, dev, pathwise)
     if r == 0:
         return out, flags, miss_col, stash_f, stash_i
-    use_sky, bg = miss
+    mode, bg = miss
     fn = _kernel("wavefront",
                  "wavefront_grad_fwd_pathwise_launch" if pathwise
                  else "wavefront_grad_fwd_launch", _GRAD_FWD_ARGTYPES)
@@ -1301,7 +1462,7 @@ def _wavefront_grad_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
             out.data_ptr(), flags.data_ptr(), miss_col.data_ptr(),
             stash_f.data_ptr(), stash_i.data_ptr(),
             r, int(seed) & 0xFFFFFFFF, int(max_depth),
-            int(bool(use_sky)), float(bg[0]), float(bg[1]), float(bg[2]),
+            int(mode), float(bg[0]), float(bg[1]), float(bg[2]),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -1363,8 +1524,8 @@ def _wavefront_grad_rev_cuda(stash_f, stash_i, g3, miss_col, n_tex):
 
 
 def _wavefront_grad_rev_pathwise_cuda(tb: Tables, stash_f, stash_i, g3,
-                                      miss_col, stream, seed, use_sky, n_tex,
-                                      n_mat):
+                                      miss_col, stream, seed, miss_mode, n_tex,
+                                      n_mat, lmd=None):
     """Launch the pathwise reverse sweep on PyTorch's current stream; does
     not synchronize.  Returns what ``_wavefront_grad_rev_pathwise_plain``
     returns.  As in the product reverse, the kernel writes one row of
@@ -1384,6 +1545,13 @@ def _wavefront_grad_rev_pathwise_cuda(tb: Tables, stash_f, stash_i, g3,
             raise ValueError("tables must be contiguous float32 on the stash's device")
     if tb.n_vol > 4 or tb.n_lights > 8:
         raise ValueError("the kernel takes at most 4 volumes and 8 lights")
+    miss_mode = int(miss_mode)
+    if (miss_mode == MISS_STREAM) != (lmd is not None):
+        raise ValueError("the cotangent of the miss direction (lmd) comes with "
+                         "miss_mode MISS_STREAM, and only with it")
+    if lmd is not None and (lmd.device != dev or lmd.dtype != torch.float32
+                            or tuple(lmd.shape) != (3, r) or not lmd.is_contiguous()):
+        raise ValueError(f"lmd must be a contiguous float32 [3, {r}] tensor on {dev}")
     n_col = 9 * n_tex
     n_acc = n_col + 2 * n_mat
     if n_tex < 1 or n_mat < 1 or n_acc > GRAD_PATHWISE_MAX_ACC:
@@ -1403,9 +1571,9 @@ def _wavefront_grad_rev_pathwise_cuda(tb: Tables, stash_f, stash_i, g3,
         with torch.cuda.device(dev):
             err = fn(tb.lt.data_ptr(), tb.n_lights, tb.vt.data_ptr(), tb.n_vol,
                      stash_f.data_ptr(), stash_i.data_ptr(), g3.data_ptr(),
-                     miss_col.data_ptr(), stream.data_ptr(), partial.data_ptr(),
-                     r, int(seed) & 0xFFFFFFFF, depth, n_col, n_acc,
-                     int(bool(use_sky)),
+                     miss_col.data_ptr(), None if lmd is None else lmd.data_ptr(),
+                     stream.data_ptr(), partial.data_ptr(),
+                     r, int(seed) & 0xFFFFFFFF, depth, n_col, n_acc, miss_mode,
                      torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(
@@ -1417,6 +1585,86 @@ def _wavefront_grad_rev_pathwise_cuda(tb: Tables, stash_f, stash_i, g3,
             mats[:, 1].contiguous())
 
 
+def _wavefront_grad_fused_plain(tb: Tables, o, d, tm, stream, seed, max_depth,
+                                g3, miss, env_rows, hdri, n_tex, n_mat):
+    """Plain version of the fused gradient kernel: the pathwise gradient
+    forward (with the HDRI rows), the miss term, then the pathwise reverse
+    sweep over its stash.  ``miss`` = (mode, background); ``env_rows``
+    [6, R]: with ``MISS_STREAM`` the per-ray miss colour and the cotangent
+    of the miss direction, else None.  Returns (radiance [3, R] with the
+    miss term, [n_tex, 3, 3], fuzz [n_mat], ior [n_mat], eout [D, 3, R] or
+    None)."""
+    out, flags, mc, stash_f, stash_i = _wavefront_grad_fwd_plain(
+        tb, o, d, tm, stream, seed, max_depth, miss, pathwise=True, hdri=hdri)
+    lmd = None
+    if int(miss[0]) == MISS_STREAM:
+        missed = (flags & FLAG_MISSED) != 0
+        mc = torch.where(missed, env_rows[:3], 0.0)
+        lmd = env_rows[3:6]
+    rad = torch.stack([out[c] + out[6 + c] * mc[c] for c in range(3)])
+    grads, fuzz, ior, eout = _pathwise_reverse_plain(
+        tb, stash_f, stash_i, g3, mc, stream, seed, miss[0], n_tex, n_mat,
+        lmd=lmd, hdri=hdri)
+    return rad, grads, fuzz, ior, eout
+
+
+def _wavefront_grad_fused_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
+                               g3, miss, env_rows, hdri, n_tex, n_mat):
+    """Launch the fused gradient kernel on PyTorch's current stream; does
+    not synchronize.  Returns what ``_wavefront_grad_fused_plain`` returns.
+    The kernel writes one row of partial sums a block, in an order fixed by
+    the ray count, and the rows are added here: the same bits every run."""
+    global LAUNCHES_GRAD_FUSED
+    _check_rays(tb, o, d, tm, stream, max_depth)
+    r = tm.shape[0]
+    dev = tm.device
+    _check_hdri(hdri, tb, max_depth, r, dev)
+    mode, bg = int(miss[0]), miss[1]
+    if max_depth > FUSED_MAX_DEPTH:
+        raise ValueError(f"the fused kernel takes at most {FUSED_MAX_DEPTH} bounces")
+    for a, rows in ((g3, 3), (env_rows, 6)):
+        if a is None:
+            continue
+        if a.device != dev or a.dtype != torch.float32 or tuple(a.shape) != (rows, r) \
+                or not a.is_contiguous():
+            raise ValueError(f"expected a contiguous float32 [{rows}, {r}] tensor on {dev}")
+    if (mode == MISS_STREAM) != (env_rows is not None):
+        raise ValueError("env_rows come with miss mode MISS_STREAM, and only with it")
+    n_col = 9 * n_tex
+    n_acc = n_col + 2 * n_mat
+    if n_tex < 1 or n_mat < 1 or n_acc > GRAD_FUSED_MAX_ACC:
+        raise ValueError(
+            f"the fused kernel holds {GRAD_FUSED_MAX_ACC} accumulators (9 a "
+            f"texture, 2 a material), got {n_tex} textures and {n_mat} materials")
+    rad = torch.empty((3, r), dtype=torch.float32, device=dev)
+    eout = (torch.empty((max_depth, 3, r), dtype=torch.float32, device=dev)
+            if hdri is not None else None)
+    if r == 0:
+        sums = torch.zeros(n_acc, dtype=torch.float32, device=dev)
+    else:
+        lib = "wavefront_grad_fused"
+        block_rays = _kernel(lib, "wavefront_grad_fused_block_rays", [])()
+        partial = torch.empty((-(-r // block_rays), n_acc), dtype=torch.float32,
+                              device=dev)
+        fn = _kernel(lib, "wavefront_grad_fused_launch", _GRAD_FUSED_ARGTYPES)
+        with torch.cuda.device(dev):
+            err = fn(*_table_and_ray_args(tb, o, d, tm, stream), g3.data_ptr(),
+                     None if env_rows is None else env_rows.data_ptr(),
+                     None if hdri is None else hdri.data_ptr(),
+                     mode, float(bg[0]), float(bg[1]), float(bg[2]),
+                     rad.data_ptr(), None if eout is None else eout.data_ptr(),
+                     partial.data_ptr(), r, int(seed) & 0xFFFFFFFF, int(max_depth),
+                     n_col, n_acc, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"wavefront_grad_fused kernel launch failed: CUDA error {err}")
+        LAUNCHES_GRAD_FUSED += 1
+        sums = partial.sum(dim=0)
+    mats = sums[n_col:].reshape(n_mat, 2)
+    return (rad, sums[:n_col].reshape(n_tex, 3, 3), mats[:, 0].contiguous(),
+            mats[:, 1].contiguous(), eout)
+
+
 def stream_to_i32(stream):
     """Ray counter (any integer dtype, values mod 2**32) -> the int32
     tensor with the same 32-bit pattern, which is what the kernel reads."""
@@ -1426,29 +1674,31 @@ def stream_to_i32(stream):
     return (s - ((s >> 31) << 32)).to(torch.int32).contiguous()
 
 
-def wavefront_fwd(tb: Tables, o, d, tm, stream, seed, max_depth):
-    """Forward bounce loop on prepared tables.  CUDA rays launch the
-    kernel (or raise); CPU rays run the plain version."""
+def wavefront_fwd(tb: Tables, o, d, tm, stream, seed, max_depth, hdri=None):
+    """Forward bounce loop on prepared tables (``hdri``: the HDRI NEE rows
+    of ``hdri_rows_for``, or None).  CUDA rays launch the kernel (or raise);
+    CPU rays run the plain version."""
     stream = stream_to_i32(stream)
     if tm.is_cuda:
-        return _wavefront_fwd_cuda(tb, o, d, tm, stream, seed, max_depth)
-    return _wavefront_fwd_plain(tb, o, d, tm, stream, seed, max_depth)
+        return _wavefront_fwd_cuda(tb, o, d, tm, stream, seed, max_depth, hdri)
+    return _wavefront_fwd_plain(tb, o, d, tm, stream, seed, max_depth, hdri)
 
 
-def wavefront_record(tb: Tables, o, d, tm, stream, seed, max_depth):
+def wavefront_record(tb: Tables, o, d, tm, stream, seed, max_depth, hdri=None):
     """The forward and the record of every bounce's outcome: ([9, R] f32,
     [R] i32 as ``wavefront_fwd``'s, code [D, R] u8, idx [D, R] i32; see
     ``DEC_*``).  CUDA rays launch the kernel (or raise); CPU rays run the
     plain version."""
     stream = stream_to_i32(stream)
     impl = _wavefront_record_cuda if tm.is_cuda else _wavefront_record_plain
-    return impl(tb, o, d, tm, stream, seed, max_depth)
+    return impl(tb, o, d, tm, stream, seed, max_depth, hdri)
 
 
 def unpack_record(code, idx):
     """The record kernel's code and index rows -> (which [D, R] u8, idx,
-    blk_a [D, R] bool)."""
-    return (code & DEC_KIND_MASK), idx, (code & DEC_BLK_A) != 0
+    blk_a [D, R] bool, blk_h [D, R] bool)."""
+    return ((code & DEC_KIND_MASK), idx, (code & DEC_BLK_A) != 0,
+            (code & DEC_BLK_H) != 0)
 
 
 def wavefront_grad_fwd(tb: Tables, o, d, tm, stream, seed, max_depth, miss,
@@ -1471,14 +1721,30 @@ def wavefront_grad_rev(stash_f, stash_i, g3, miss_col, n_tex):
 
 
 def wavefront_grad_rev_pathwise(tb: Tables, stash_f, stash_i, g3, miss_col,
-                                stream, seed, use_sky, n_tex, n_mat):
+                                stream, seed, miss_mode, n_tex, n_mat, lmd=None):
     """Pathwise reverse sweep over a pathwise stash -> ([n_tex, 3 variants,
-    3 channels], fuzz [n_mat], ior [n_mat]) cotangents.  A CUDA stash
-    launches the kernel (or raises); a CPU stash runs the plain version."""
+    3 channels], fuzz [n_mat], ior [n_mat]) cotangents.  ``miss_mode``:
+    ``MISS_FLAT`` or ``MISS_SKY`` (a bool use_sky reads as one of them), or
+    ``MISS_STREAM`` with ``lmd`` [3, R], the cotangent of the miss
+    direction under an environment.  A CUDA stash launches the kernel (or
+    raises); a CPU stash runs the plain version."""
     impl = (_wavefront_grad_rev_pathwise_cuda if stash_f.is_cuda
             else _wavefront_grad_rev_pathwise_plain)
     return impl(tb, stash_f, stash_i, g3, miss_col, stream_to_i32(stream),
-                seed, use_sky, n_tex, n_mat)
+                seed, int(miss_mode), n_tex, n_mat, lmd)
+
+
+def wavefront_grad_fused(tb: Tables, o, d, tm, stream, seed, max_depth, g3,
+                         miss, env_rows, hdri, n_tex, n_mat):
+    """The fused gradient kernel on prepared tables: a chunk's pathwise
+    gradient forward and reverse sweep in one launch.  Returns (radiance
+    [3, R] with the miss term, [n_tex, 3 variants, 3 channels], fuzz
+    [n_mat], ior [n_mat], eout [D, 3, R] (with ``hdri``) or None).  CUDA
+    rays launch the kernel (or raise); CPU rays run the plain version."""
+    stream = stream_to_i32(stream)
+    impl = _wavefront_grad_fused_cuda if tm.is_cuda else _wavefront_grad_fused_plain
+    return impl(tb, o, d, tm, stream, seed, max_depth, g3, miss, env_rows,
+                hdri, n_tex, n_mat)
 
 
 def _unpack(out, flags):
@@ -1490,8 +1756,35 @@ def _check_scene(scene):
     if not applicable(scene):
         raise NotImplementedError(
             "scene is outside the forward megakernel's gate (meshes, image "
-            "or noise textures, environments, non-box media, or too many "
-            "primitives): see ROADMAP.md queues A and B")
+            "or noise textures, non-box media, or too many primitives): see "
+            "ROADMAP.md queues A and B")
+
+
+def uses_hdri_nee(scene) -> bool:
+    """Does a lambertian hit sample the environment too (a scene with quad
+    lights and an importance-sampled environment)?"""
+    return (scene.n_lights > 0 and scene.env is not None
+            and scene.env_importance)
+
+
+def hdri_rows_for(scene, stream, seed, max_depth, texel_ids=False):
+    """The HDRI NEE rows of a ray chunk: per bounce the environment sample
+    (direction 3, emission 3, solid-angle pdf) of each ray, drawn from its
+    counter (purposes HDRI_ROW, HDRI_COL) by the alias table, as a
+    [max_depth * 7, R] float32 tensor on the rays' device.  With
+    ``texel_ids`` also the [max_depth, R] flat texel id of each sample (the
+    fused kernel's ``eout`` rows are summed by it)."""
+    env = scene.env._replace(data=scene.env.data.detach())
+    rows, ids = [], []
+    for b in range(max_depth):
+        xi1 = rngmod.uniform(seed, stream, b, rngmod.HDRI_ROW)
+        xi2 = rngmod.uniform(seed, stream, b, rngmod.HDRI_COL)
+        ld, em, pdf_h = hdri_mod.sample_direction_soa(env, xi1, xi2)
+        rows += [ld.x, ld.y, ld.z, em.x, em.y, em.z, pdf_h]
+        if texel_ids:
+            ids.append(hdri_mod.texel_ids(env, xi1, xi2))
+    out = torch.stack(rows).contiguous()
+    return (out, torch.stack(ids)) if texel_ids else out
 
 
 def trace_megakernel(scene, cam, o: V3, d: V3, tm, stream, seed, record=False):
@@ -1500,13 +1793,17 @@ def trace_megakernel(scene, cam, o: V3, d: V3, tm, stream, seed, record=False):
     ``missed | 2*miss_primary | 4*alive | 8*allowLightHits``; the caller
     applies the deferred miss shader (integrator/wavefront.trace).
     ``record=True`` runs the record kernel and appends its record to the
-    tuple as ``unpack_record`` gives it."""
+    tuple as ``unpack_record`` gives it.  A scene with HDRI NEE streams its
+    rows (``hdri_rows_for``) into the kernel."""
     _check_scene(scene)
     tb = build_tables(scene)
+    hdri = (hdri_rows_for(scene, stream, seed, cam.max_depth)
+            if uses_hdri_nee(scene) else None)
     if not record:
-        return _unpack(*wavefront_fwd(tb, o, d, tm, stream, seed, cam.max_depth))
+        return _unpack(*wavefront_fwd(tb, o, d, tm, stream, seed, cam.max_depth,
+                                      hdri))
     out, flags, code, idx = wavefront_record(tb, o, d, tm, stream, seed,
-                                             cam.max_depth)
+                                             cam.max_depth, hdri)
     return _unpack(out, flags) + (unpack_record(code, idx),)
 
 
@@ -1515,8 +1812,10 @@ def trace_megakernel_plain(scene, cam, o: V3, d: V3, tm, stream, seed):
     device the rays lie."""
     _check_scene(scene)
     tb = build_tables(scene)
+    hdri = (hdri_rows_for(scene, stream, seed, cam.max_depth)
+            if uses_hdri_nee(scene) else None)
     return _unpack(*_wavefront_fwd_plain(
-        tb, o, d, tm, stream_to_i32(stream), seed, cam.max_depth))
+        tb, o, d, tm, stream_to_i32(stream), seed, cam.max_depth, hdri))
 
 
 # -----------------------------------------------------------------------------
@@ -1530,9 +1829,9 @@ def _check_grad_scene(scene, max_depth, pathwise=False):
             raise NotImplementedError(
                 "scene is outside the pathwise gradient kernels' gate (more "
                 f"than {GRAD_PATHWISE_MAX_ACC} accumulators at 9 a texture "
-                "and 2 a material: the replay tier, ROADMAP.md A18; an "
-                "environment, A15; noise textures, A13; or otherwise outside "
-                "the forward megakernel's gate): see ROADMAP.md queues A and B")
+                "and 2 a material: the replay tier, ROADMAP.md A18; noise "
+                "textures, A13; or otherwise outside the forward "
+                "megakernel's gate): see ROADMAP.md queues A and B")
     elif not grad_applicable(scene, max_depth):
         raise NotImplementedError(
             "scene is outside the product-chain gradient kernels' gate "
@@ -1543,22 +1842,102 @@ def _check_grad_scene(scene, max_depth, pathwise=False):
 
 
 def miss_config(cam):
-    """Camera -> the ``miss`` argument of the gradient forward."""
-    return bool(cam.use_sky_gradient), tuple(float(x) for x in cam.background)
+    """Camera -> the ``miss`` argument of the gradient kernels: (mode,
+    background) with mode ``MISS_SKY`` or ``MISS_FLAT``.  (A scene with an
+    environment uses ``MISS_STREAM`` instead.)"""
+    return (MISS_SKY if cam.use_sky_gradient else MISS_FLAT,
+            tuple(float(x) for x in cam.background))
+
+
+class EnvCarry(NamedTuple):
+    """What a chunk of an environment scene keeps between the two passes
+    of a two-phase tier, 19 rows a ray: the 12 texel values of each ray's
+    bilinear miss footprint, and its miss records."""
+
+    qcols: torch.Tensor   # [12, R] c00 c10 c01 c11 x rgb of the footprint
+    m_dir: torch.Tensor   # [3, R] miss direction
+    m_tp: torch.Tensor    # [3, R] throughput at the miss
+    flags: torch.Tensor   # [R] i32 flag word (FLAG_*)
+
+
+def _env_safe_dir(m_dir, missed):
+    """The miss direction where the ray missed, +z elsewhere (the miss
+    shader's input is then defined on every ray)."""
+    return V3(torch.where(missed, m_dir[0], 0.0), torch.where(missed, m_dir[1], 0.0),
+              torch.where(missed, m_dir[2], 1.0))
+
+
+def _env_carry(scene, out, flags) -> EnvCarry:
+    """Pass A of an environment scene: the footprint texels of each ray's
+    miss and its miss records, from the forward's [9, R] rows."""
+    env = scene.env._replace(data=scene.env.data.detach())
+    missed = (flags & FLAG_MISSED) != 0
+    _, _, base = hdri_mod.miss_footprint(env, _env_safe_dir(out[3:6], missed))
+    return EnvCarry(hdri_mod.quad_rows(env, base).contiguous(),
+                    out[3:6].contiguous(), out[6:9].contiguous(), flags)
+
+
+def _env_colour(scene, cam, carry: EnvCarry, d: V3):
+    """The miss colour [3, R] of the carry's footprint texels seen from the
+    directions ``d`` (the bilinear weights carry a gradient to ``d``), the
+    phantom rule applied, 0 where the ray did not miss."""
+    fx, fy, _ = hdri_mod.miss_footprint(scene.env, d)
+    col = torch.stack(list(hdri_mod.blend_quad(
+        [carry.qcols[j] for j in range(12)], fx, fy)))
+    if cam.phantom_hdri:
+        col = torch.where((carry.flags & FLAG_PRIMARY) != 0, 0.0, col)
+    return torch.where((carry.flags & FLAG_MISSED) != 0, col, 0.0)
+
+
+def _env_miss_terms(scene, cam, carry: EnvCarry, g3, want_lmd: bool):
+    """The environment's miss term of a chunk, between the passes: (miss
+    colour mc [3, R] (phantom rule applied, 0 where the ray did not miss),
+    the cotangent of the miss direction [3, R] or None, the texels'
+    cotangent [H, W, 3]).  The texel values are constants of the footprint
+    (a gather's index has no derivative), so the direction's cotangent is
+    ``torch.autograd`` of the bilinear weights alone, and the texels' the
+    per-texel sum of ``lights/hdri.miss_texel_grad``."""
+    env = scene.env._replace(data=scene.env.data.detach())
+    missed = (carry.flags & FLAG_MISSED) != 0
+    safe = _env_safe_dir(carry.m_dir, missed)
+    lam = torch.where(missed, g3 * carry.m_tp, 0.0)
+    if cam.phantom_hdri:
+        lam = torch.where((carry.flags & FLAG_PRIMARY) != 0, 0.0, lam)
+    env_grad = hdri_mod.miss_texel_grad(env, safe, V3(*lam))
+    lmd = None
+    with torch.enable_grad():
+        sd = V3(*(x.detach().requires_grad_(want_lmd) for x in safe))
+        mc = _env_colour(scene, cam, carry, sd)
+        if want_lmd:
+            lmd = torch.stack(torch.autograd.grad((lam * mc).sum(), list(sd)))
+    return mc.detach().contiguous(), lmd, env_grad
 
 
 def grad_fwd_stash(scene, cam, o: V3, d: V3, tm, stream, seed, pathwise=False):
     """Gradient forward for one ray chunk.  Returns (radiance V3 with the
     miss colour applied, the chunk's contribution to the framebuffer; carry
-    for ``grad_rev_stash``: miss colour [3, R], stash_f, stash_i).
+    for ``grad_rev_stash``: miss colour [3, R], stash_f, stash_i; under an
+    environment (None, stash_f, stash_i, ``EnvCarry``): the kernel leaves
+    the miss term out, and it is applied here from the footprint).
     ``pathwise`` picks the tier: the stash rows differ, the radiance does
     not."""
     _check_grad_scene(scene, cam.max_depth, pathwise)
+    if scene.env is not None and scene.n_lights > 0:
+        raise NotImplementedError(
+            "a scene with an environment and quad lights takes the fused "
+            "kernel (grad_megakernel), not the two-phase route")
     tb = build_tables(scene)
-    out, _, miss_col, stash_f, stash_i = wavefront_grad_fwd(
-        tb, o, d, tm, stream, seed, cam.max_depth, miss_config(cam), pathwise)
-    rad = V3(*(out[c] + out[6 + c] * miss_col[c] for c in range(3)))
-    return rad, (miss_col, stash_f, stash_i)
+    miss = miss_config(cam) if scene.env is None else (MISS_STREAM, (0.0, 0.0, 0.0))
+    out, flags, miss_col, stash_f, stash_i = wavefront_grad_fwd(
+        tb, o, d, tm, stream, seed, cam.max_depth, miss, pathwise)
+    if scene.env is None:
+        rad = V3(*(out[c] + out[6 + c] * miss_col[c] for c in range(3)))
+        return rad, (miss_col, stash_f, stash_i)
+    env_carry = _env_carry(scene, out, flags)
+    missed = (flags & FLAG_MISSED) != 0
+    mc = _env_colour(scene, cam, env_carry, _env_safe_dir(env_carry.m_dir, missed))
+    rad = V3(*(out[c] + out[6 + c] * mc[c] for c in range(3)))
+    return rad, (None, stash_f, stash_i, env_carry)
 
 
 def grad_rev_stash(scene, cam, g3, carry, pathwise=False, stream=None, seed=0):
@@ -1566,27 +1945,94 @@ def grad_rev_stash(scene, cam, g3, carry, pathwise=False, stream=None, seed=0):
     ``grad_fwd_stash``.  ``g3``: [3, R] cotangent of the chunk's radiance
     (or three [R] rows).  Returns dict(color, even_color, odd_color), each
     [n_tex, 3]: the cotangents of the scene's texture colour tables; with
-    ``pathwise`` also fuzz and ior, each [n_mat].  The pathwise sweep
-    recomputes the rays' random draws, so it also takes the chunk's
-    ``stream`` ids and the ``seed`` the forward was given."""
+    ``pathwise`` also fuzz and ior, each [n_mat]; under an environment also
+    env_data [H, W, 3].  The pathwise sweep recomputes the rays' random
+    draws, so it also takes the chunk's ``stream`` ids and the ``seed`` the
+    forward was given."""
     _check_grad_scene(scene, cam.max_depth, pathwise)
-    miss_col, stash_f, stash_i = carry
+    miss_col, stash_f, stash_i = carry[:3]
     if not isinstance(g3, torch.Tensor):
         g3 = torch.stack(list(g3))
+    g3 = g3.contiguous()
     n_tex = int(scene.textures.color.shape[0])
+    lmd = env_grad = None
+    miss_mode = miss_config(cam)[0]
+    if scene.env is not None:
+        miss_col, lmd, env_grad = _env_miss_terms(scene, cam, carry[3], g3,
+                                                  want_lmd=pathwise)
+        miss_mode = MISS_STREAM
     if not pathwise:
-        grads = wavefront_grad_rev(stash_f, stash_i, g3.contiguous(), miss_col,
-                                   n_tex)
-        return dict(color=grads[:, 0], even_color=grads[:, 1],
-                    odd_color=grads[:, 2])
-    if stream is None:
-        raise ValueError("the pathwise reverse sweep needs the chunk's stream ids")
-    grads, fuzz, ior = wavefront_grad_rev_pathwise(
-        build_tables(scene), stash_f, stash_i, g3.contiguous(), miss_col,
-        stream, seed, bool(cam.use_sky_gradient), n_tex,
-        int(scene.materials.kind.shape[0]))
-    return dict(color=grads[:, 0], even_color=grads[:, 1],
-                odd_color=grads[:, 2], fuzz=fuzz, ior=ior)
+        grads = wavefront_grad_rev(stash_f, stash_i, g3, miss_col, n_tex)
+        out = dict(color=grads[:, 0], even_color=grads[:, 1],
+                   odd_color=grads[:, 2])
+    else:
+        if stream is None:
+            raise ValueError("the pathwise reverse sweep needs the chunk's stream ids")
+        grads, fuzz, ior = wavefront_grad_rev_pathwise(
+            build_tables(scene), stash_f, stash_i, g3, miss_col, stream, seed,
+            miss_mode, n_tex, int(scene.materials.kind.shape[0]), lmd)
+        out = dict(color=grads[:, 0], even_color=grads[:, 1],
+                   odd_color=grads[:, 2], fuzz=fuzz, ior=ior)
+    if env_grad is not None:
+        out["env_data"] = env_grad
+    return out
+
+
+def grad_megakernel(scene, cam, o: V3, d: V3, tm, stream, seed, g3,
+                    pathwise=True):
+    """The gradient of one ray chunk by the fused kernel (forward and
+    pathwise reverse sweep in one launch; the route of a scene with an
+    environment and quad lights).  ``g3``: [3, R] cotangent of the chunk's
+    radiance.  Returns (radiance V3 with the miss term, dict of the
+    gradients: color, even_color, odd_color [n_tex, 3], fuzz, ior [n_mat],
+    and under an environment env_data [H, W, 3]).
+
+    Under an environment a forward launch first gives the miss records; the
+    miss colour and the cotangents of the miss direction and of the texels
+    are computed from them in torch (as between the passes of the two-phase
+    tiers), and the first two go into the kernel as rows.  With HDRI NEE
+    the kernel also takes the environment samples (``hdri_rows_for``) and
+    gives back the cotangent of each bounce's sample's texel (``eout``),
+    summed here per texel by the same draws' texel ids."""
+    if not pathwise:
+        raise NotImplementedError(
+            "the fused kernel is the pathwise tier's: pass pathwise=True")
+    if not grad_fused_applicable(scene, cam.max_depth):
+        raise NotImplementedError(
+            "scene is outside the fused gradient kernel's gate (the pathwise "
+            f"gate and at most {FUSED_MAX_DEPTH} bounces): see ROADMAP.md "
+            "queues A and B")
+    if not isinstance(g3, torch.Tensor):
+        g3 = torch.stack(list(g3))
+    g3 = g3.contiguous()
+    tb = build_tables(scene)
+    depth = cam.max_depth
+    hdri = ids = None
+    if uses_hdri_nee(scene):
+        hdri, ids = hdri_rows_for(scene, stream, seed, depth, texel_ids=True)
+    n_tex = int(scene.textures.color.shape[0])
+    n_mat = int(scene.materials.kind.shape[0])
+    env_rows = env_grad = None
+    miss = miss_config(cam)
+    if scene.env is not None:
+        out, flags = wavefront_fwd(tb, o, d, tm, stream, seed, depth, hdri)
+        mc, lmd, env_grad = _env_miss_terms(scene, cam, _env_carry(scene, out, flags),
+                                            g3, want_lmd=True)
+        env_rows = torch.cat([mc, lmd]).contiguous()
+        miss = (MISS_STREAM, (0.0, 0.0, 0.0))
+        del out, flags
+    rad, grads, fuzz, ior, eout = wavefront_grad_fused(
+        tb, o, d, tm, stream, seed, depth, g3, miss, env_rows, hdri, n_tex, n_mat)
+    gd = dict(color=grads[:, 0], even_color=grads[:, 1], odd_color=grads[:, 2],
+              fuzz=fuzz, ior=ior)
+    if env_grad is not None:
+        if eout is not None:
+            h, w = scene.env.data.shape[:2]
+            env_grad = env_grad + cols_segment_sum(
+                ids.reshape(-1), [eout[:, c].reshape(-1) for c in range(3)],
+                h * w).reshape(h, w, 3)
+        gd["env_data"] = env_grad
+    return V3(rad[0], rad[1], rad[2]), gd
 
 
 def _with_colours(scene, color, even_color, odd_color):

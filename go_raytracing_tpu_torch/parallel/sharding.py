@@ -15,9 +15,10 @@ from ..geometry.scene import Scene
 
 def trainable_params(scene: Scene) -> dict:
     """The parameter dict gradients are taken for: material fuzz / IOR,
-    texture colours (albedo and emission) and texture image maps.  The
-    values are the scene's own tensors, not copies."""
-    return dict(
+    texture colours (albedo and emission), texture image maps and, in a
+    scene with an environment, its texels (``env_data``).  The values are
+    the scene's own tensors, not copies."""
+    p = dict(
         fuzz=scene.materials.fuzz,
         ior=scene.materials.ior,
         color=scene.textures.color,
@@ -25,11 +26,20 @@ def trainable_params(scene: Scene) -> dict:
         odd_color=scene.textures.odd_color,
         atlas=scene.textures.atlas,
     )
+    if scene.env is not None:
+        p["env_data"] = scene.env.data
+    return p
 
 
 def apply_params(scene: Scene, params: dict) -> Scene:
+    """``scene`` with the parameters of ``params`` put in; the environment's
+    alias tables stay (they are constants of the sampler)."""
+    env = scene.env
+    if env is not None and "env_data" in params:
+        env = env._replace(data=params["env_data"])
     return dataclasses.replace(
         scene,
+        env=env,
         materials=dataclasses.replace(
             scene.materials, fuzz=params["fuzz"], ior=params["ior"]),
         textures=dataclasses.replace(

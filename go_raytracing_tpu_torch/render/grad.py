@@ -23,18 +23,33 @@ kernel in pass A (radiance only) and, in pass B, by the gradient forward
 followed at once by the reverse sweep: the same numbers for one more
 forward trace of those chunks, with one chunk's stash alive at a time.
 
-Three tiers, on one device (``grad_tier`` picks).  Scenes inside
+Four tiers, on one device (``grad_tier`` picks).  Scenes inside
 ``cuda_wavefront.grad_applicable`` (lambertian, light and isotropic
 materials) take the product-chain tier: gradients of the texture colours.
 Scenes with metal or glass inside ``grad_pathwise_applicable`` take the
 pathwise tier: gradients of fuzz and IOR too, and of colours seen through a
 specular chain.  Its stash is heavier (22 rows a bounce against 15), and
 its pass B recomputes the rays' random draws, so it is given the chunk's
-stream ids (ids only: it reads no camera rays).
+stream ids (ids only: it reads no camera rays).  Under an environment map
+(and no quad lights) either tier also keeps each ray's miss footprint (12
+texel values) and miss records between the passes (19 rows a ray), and pass
+B computes the miss colour and the cotangents of the miss direction and of
+the texels from them (``cuda_wavefront.grad_rev_stash``): ``env_data`` is
+then among the gradients.  Environment chunks grow to the stash budget, as
+the JAX package's do: their per-chunk costs (the texel sums) are large.
+
+A scene with an environment and quad lights inside the pathwise gate takes
+the fused tier, the route of chunks over budget for every chunk: pass A
+renders each chunk (``wavefront.trace``), pass B runs the fused kernel on it
+(``cuda_wavefront.grad_megakernel``: a forward launch for the miss records,
+then forward and reverse in one launch, the environment samples' texel
+cotangents summed per texel).  Nothing is kept between the passes; a chunk
+holds as many rays as ``stash_budget`` allows the kernel's working set
+(``fused_bytes_per_ray``).
 
 Every other scene (meshes, non-box media, more than 1,024 primitives or 8
 lights, more textures and materials than the pathwise kernel's accumulator
-holds) takes the replay tier.  Pass A records each chunk: its radiance and
+holds, environments among them) takes the replay tier.  Pass A records each chunk: its radiance and
 its ``Decisions``, the outcome of every sweep (the record kernel of
 ``ops/cuda_wavefront`` for scenes inside the megakernel's gate, the
 standard integrator for the others).  Pass B replays each chunk's record
@@ -46,8 +61,8 @@ B records each chunk again just before its replay.  Replay chunks hold at
 most ``renderer.MAX_CHUNK_RAYS_DIFFERENTIABLE`` rays: autograd keeps a few
 kilobytes a ray.
 
-Not ported yet, each raising ``NotImplementedError``: environments (ROADMAP.md
-A15), image textures (A16), noise textures (A13) and ``mesh=`` (A19).
+Not ported yet, each raising ``NotImplementedError``: image textures
+(ROADMAP.md A16), noise textures (A13) and ``mesh=`` (A19).
 """
 
 from __future__ import annotations
@@ -59,6 +74,7 @@ from typing import Optional
 import torch
 
 from ..camera import Camera
+from ..core.vec3 import V3
 from ..geometry.scene import Scene
 from ..integrator import wavefront
 from ..ops import cuda_wavefront as mega
@@ -78,13 +94,17 @@ DEC_BUDGET = 6_000_000_000
 
 
 def grad_tier(scene: Scene, max_depth: int) -> str:
-    """The tier ``render_grad`` takes: 'product', 'pathwise' or 'replay'.
-    The product tier wins where both kernel tiers' gates hold: its stash is
-    lighter."""
+    """The tier ``render_grad`` takes: 'product', 'pathwise', 'fused' or
+    'replay'.  The product tier wins where both two-phase tiers' gates hold:
+    its stash is lighter.  'fused' serves the pathwise gate's scenes that
+    cannot run two-phase (an environment and quad lights)."""
     if mega.grad_applicable(scene, max_depth):
         return "product"
     if mega.grad_pathwise_applicable(scene, max_depth):
-        return "pathwise"
+        if mega.grad_two_phase_ok(scene, max_depth):
+            return "pathwise"
+        if mega.grad_fused_applicable(scene, max_depth):
+            return "fused"
     return "replay"
 
 
@@ -94,13 +114,22 @@ def dec_bytes_per_ray(scene: Scene, max_depth: int) -> int:
     return max_depth * wavefront.decision_bytes(scene)
 
 
-def stash_bytes_per_ray(max_depth: int, pathwise: bool = False) -> int:
+def stash_bytes_per_ray(max_depth: int, pathwise: bool = False,
+                        env: bool = False) -> int:
     """Bytes a ray keeps between the passes: the stash rows of every bounce
     (15 in the product tier, 22 in the pathwise tier) and the 3 miss colour
-    rows."""
+    rows, or under an environment the 19 rows of ``EnvCarry``."""
     rows = ((mega.PW_STASH_F_ROWS + mega.PW_STASH_I_ROWS) if pathwise
             else (mega.STASH_F_ROWS + mega.STASH_I_ROWS))
-    return (max_depth * rows + 3) * 4
+    return (max_depth * rows + (19 if env else 3)) * 4
+
+
+def fused_bytes_per_ray(max_depth: int, hdri: bool) -> int:
+    """Bytes a ray of a fused-tier chunk takes while its gradient runs: the
+    rays, cotangent, outputs and environment rows (about 40 rows), and with
+    HDRI NEE per bounce 7 sample rows, 3 ``eout`` rows, the texel id and
+    what the per-texel sum sorts and gathers (8 + 8 + 12 bytes)."""
+    return 40 * 4 + (max_depth * (10 * 4 + 8 + 28) if hdri else 0)
 
 
 def _virtual_pixels(w: int, h: int, device):
@@ -227,16 +256,22 @@ def _chunk_cotangent(g_virt, ray_start: int, chunk: int, total: int):
 
 def _twophase_rev(scene: Scene, cam: Camera, g_virt, ray_start: int, seed,
                   carry, *, spp: int, chunk: int, max_depth: int,
-                  pathwise: bool = False):
+                  pathwise: bool = False, fused: bool = False):
     """Pass B for one chunk: the reverse sweep over the chunk's stash.  A
-    chunk without one (over budget in pass A) is traced again first."""
+    chunk without one (over budget in pass A) is traced again first, or,
+    on the fused tier, run through the fused kernel."""
     cam2 = dataclasses.replace(cam, max_depth=max_depth)
     total = g_virt.shape[0] * spp
     stream = None
+    g3 = _chunk_cotangent(g_virt, ray_start, chunk, total)
     if carry is None:
         _, o, d, tm, stream, _, _ = rmod._chunk_rays(
             scene, cam, ray_start, seed, spp=spp, chunk=chunk,
             max_depth=max_depth, device=scene.device)
+        o, d, tm = V3(*(c.contiguous() for c in o)), V3(*(c.contiguous() for c in d)), \
+            tm.contiguous()
+        if fused:
+            return mega.grad_megakernel(scene, cam2, o, d, tm, stream, seed, g3)[1]
         _, carry = mega.grad_fwd_stash(scene, cam2, o, d, tm, stream, seed,
                                        pathwise=pathwise)
     elif pathwise:
@@ -244,7 +279,6 @@ def _twophase_rev(scene: Scene, cam: Camera, g_virt, ray_start: int, seed,
         stream = torch.clamp_max(
             ray_start + torch.arange(chunk, dtype=torch.int64,
                                      device=scene.device), total - 1)
-    g3 = _chunk_cotangent(g_virt, ray_start, chunk, total)
     return mega.grad_rev_stash(scene, cam2, g3, carry, pathwise=pathwise,
                                stream=stream, seed=seed)
 
@@ -265,13 +299,16 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
     (see the module docstring) and both passes use the same RNG streams.
     A scene without metal and glass goes through the product-chain kernels
     (``fuzz``, ``ior`` and ``atlas`` are then zero by structure), one with
-    them through the pathwise kernels (``atlas`` zero), any other through
-    the replay tier (``grad_tier``).
+    them through the pathwise kernels (``atlas`` zero), one with an
+    environment and quad lights through the fused kernel, any other through
+    the replay tier (``grad_tier``).  A scene with an environment also has
+    ``env_data``, the gradient of its texels.
 
     ``device=None`` means "cuda" (a machine without one raises); the scene
     must have been built on the same device.
-    ``stash_budget``: bytes the stashes kept between the passes may take;
-    by default half of the device memory that is free at the call.
+    ``stash_budget``: bytes the stashes kept between the passes may take
+    (the fused tier: a chunk's working set); by default half of the device
+    memory that is free at the call.
     ``dec_budget``: bytes the replay tier's records may take between its
     passes (``DEC_BUDGET`` by default); a job over it records every chunk
     twice.  ``stats.chunks`` counts ray chunks, once, whatever route they
@@ -288,24 +325,31 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
     max_depth = cam.max_depth if max_depth is None else max_depth
     tier = grad_tier(scene, max_depth)
     if tier == "replay":
-        wavefront._check_standard(scene)   # environments, noise, images
+        wavefront._check_standard(scene)   # noise, images
         return _render_grad_replay(scene, cam, target, spp=spp,
                                    max_depth=max_depth, seed=seed, chunk=chunk,
                                    stats=stats, dec_budget=dec_budget)
-    pathwise = tier == "pathwise"
-    w, h = cam.image_width, cam.image_height
-    tiled = rmod.scene_tiled(scene)
-    kchunk, n_chunks, total, n_virt = _chunking(
-        scene, cam, spp, chunk, rmod.pick_chunk_size(scene))
-
     if stash_budget is None:
         if dev.type == "cuda":
             free, _ = torch.cuda.mem_get_info(dev)
             stash_budget = int(STASH_SHARE_OF_FREE_MEMORY * free)
         else:
             stash_budget = CPU_STASH_BUDGET
-    chunk_bytes = kchunk * stash_bytes_per_ray(max_depth, pathwise)
-    n_stash = min(int(stash_budget) // chunk_bytes, n_chunks)
+    # the fused tier is the route of chunks over budget, for every chunk:
+    # pass A renders, pass B runs the fused kernel
+    fused = tier == "fused"
+    pathwise = tier in ("pathwise", "fused")
+    w, h = cam.image_width, cam.image_height
+    tiled = rmod.scene_tiled(scene)
+    per_ray = (fused_bytes_per_ray(max_depth, mega.uses_hdri_nee(scene)) if fused
+               else stash_bytes_per_ray(max_depth, pathwise, scene.env is not None))
+    largest = rmod.pick_chunk_size(scene)
+    if scene.env is not None and chunk is None:
+        # an environment chunk pays large fixed costs (the per-texel sums):
+        # grow it to the budget
+        largest = max(largest, int(stash_budget) // per_ray)
+    kchunk, n_chunks, total, n_virt = _chunking(scene, cam, spp, chunk, largest)
+    n_stash = 0 if fused else min(int(stash_budget) // (kchunk * per_ray), n_chunks)
 
     _sync(dev)
     t0 = time.perf_counter()
@@ -326,7 +370,8 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
     grads = {k: torch.zeros_like(v) for k, v in trainable_params(scene).items()}
     for i in range(n_chunks):
         carry, carries[i] = carries[i], None
-        g = _twophase_rev(scene, cam, g_virt, i * kchunk, seed, carry, **args)
+        g = _twophase_rev(scene, cam, g_virt, i * kchunk, seed, carry, fused=fused,
+                          **args)
         del carry
         for k, v in g.items():
             grads[k] += v

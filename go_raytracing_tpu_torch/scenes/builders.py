@@ -166,9 +166,28 @@ def primitives_scene(device=None):
     return b.build(device=device), cam
 
 
-def hdri_test_scene(device=None, **kwargs):
-    raise NotImplementedError(
-        "scene not ported yet: it needs HDRI environments (ROADMAP.md A15)")
+def hdri_test_scene(device=None):
+    b = SceneBuilder()
+    glass = b.dielectric(1.5)
+    mirror = b.metal((1.0, 1.0, 1.0), 0.0)
+    gold = b.metal((1.0, 0.84, 0.0), 0.1)
+    ground = b.lambertian(b.checker(0.5, (0.1, 0.1, 0.1), (0.9, 0.9, 0.9)))
+    b.plane((0, 0, 0), (0, 1, 0), ground)
+    b.sphere((0, 1, 0), 1.0, glass)
+    b.sphere((-2.5, 1, 0), 1.0, mirror)
+    b.sphere((2.5, 1, 0), 1.0, gold)
+    b.sphere((-1.2, 0.4, 2), 0.4, glass)
+    b.sphere((1.2, 0.4, 2), 0.4, glass)
+    b.set_environment("assets/hdri/abandoned_hall_01_1k.hdr", 0.0)
+    cam = (
+        _camera()
+        .set_resolution(800, 16.0 / 9.0)
+        .set_quality(200, 20)
+        .set_position((0, 2.5, 8), (0, 1, 0), (0, 1, 0))
+        .set_lens(40, 0, 10)
+        .set_phantom_hdri(True)
+    )
+    return b.build(device=device), cam
 
 
 def _cornell_walls(b: SceneBuilder, white, red, green):

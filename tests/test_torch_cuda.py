@@ -20,9 +20,11 @@ from go_raytracing_tpu_torch.io import obj as tobj
 from go_raytracing_tpu_torch.ops import cuda_intersect as ck
 from go_raytracing_tpu_torch.ops import cuda_mesh as cm
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
-from test_torch_helpers import (FOG_ROOM_CAM, LUCY_CAM, MIXED_CAM, build_fog_room,
-                                build_lucy, build_mixed, build_random_prims,
-                                lucy_instances, mesh_rays, random_rays)
+from test_torch_helpers import (ENV_NEE_CAM, FOG_ROOM_CAM, LUCY_CAM, MINI_HDRI_CAM,
+                                MIXED_CAM, build_env_nee, build_fog_room,
+                                build_lucy, build_mini_hdri, build_mixed,
+                                build_random_prims, lucy_instances, mesh_rays,
+                                random_rays)
 
 
 def _rays(cam, n, seed, device):
@@ -570,7 +572,7 @@ def test_cuda_record_kernel_matches_plain_version(scene_name):
     # and the standard integrator records the same outcomes, but for ties
     from go_raytracing_tpu_torch.integrator import wavefront as twf
 
-    which, widx, blk_a = cw.unpack_record(code, idx)
+    which, widx, blk_a, _ = cw.unpack_record(code, idx)
     _, dec = twf.trace(scene, cam, o, d, tm, ids, 5, mega_mode="off", record=True)
     for a, b in ((which, dec.which), (widx, dec.idx), (blk_a, dec.blk_a)):
         assert float((a == b).float().mean()) >= 0.999
@@ -639,3 +641,179 @@ def test_cuda_render_grad_replay_goes_through_the_record_kernel():
     for k in ref:
         big = max(float(ref[k].abs().max()), 1e-12)
         assert float((g[k].cpu() - ref[k]).abs().max()) <= 2e-3 * big, k
+
+
+# -----------------------------------------------------------------------------
+# Environments: HDRI NEE in the forward and record kernels, the pathwise
+# reverse's environment miss rows, the fused kernel, the per-texel sums
+# -----------------------------------------------------------------------------
+
+def _env_case(name, width=64, spp=4):
+    build, fields = ((build_env_nee, ENV_NEE_CAM) if name == "env-nee"
+                     else (build_mini_hdri, MINI_HDRI_CAM))
+    scene = build(grtt, device="cuda")
+    cam = dataclasses.replace(tcamera.Camera(**fields), image_width=width,
+                              samples_per_pixel=spp)
+    o, d, tm, ids = _rays(cam, width * width * spp, 3, "cuda")
+    return scene, cam, (o, d, tm, cw.stream_to_i32(ids))
+
+
+@pytest.mark.cuda
+def test_cuda_hdri_rows_in_forward_and_record_kernels():
+    """HDRI NEE (B1 and B6 with the 7 rows a bounce): each kernel equals its
+    plain version on every ray (radiance, flags, record), the record's
+    radiance is the forward's, and the environment's shadow bit is set."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene, cam, (o, d, tm, sid) = _env_case("env-nee")
+    tb = cw.build_tables(scene)
+    hdri = cw.hdri_rows_for(scene, sid, 3, cam.max_depth)
+    args = (tb, o, d, tm, sid, 3, cam.max_depth)
+    out, flags = cw.wavefront_fwd(*args, hdri)
+    p_out, p_flags = cw._wavefront_fwd_plain(*args, hdri)
+    assert torch.equal(flags, p_flags) and float((out - p_out).abs().max()) == 0.0
+    plain_no_hdri, _ = cw.wavefront_fwd(*args)
+    assert float((out[:3] - plain_no_hdri[:3]).abs().max()) > 0   # the rows count
+    r_out, r_flags, code, idx = cw.wavefront_record(*args, hdri)
+    assert torch.equal(r_out, out) and torch.equal(r_flags, flags)
+    _, _, p_code, p_idx = cw._wavefront_record_plain(*args, hdri)
+    assert torch.equal(code, p_code) and torch.equal(idx, p_idx)
+    assert bool(((code & cw.DEC_BLK_H) != 0).any())
+
+
+@pytest.mark.cuda
+def test_cuda_pathwise_stream_branch_matches_plain_version():
+    """Under an environment (no light): the pathwise forward leaves the miss
+    term out (miss mode MISS_STREAM), and the reverse kernel with the miss
+    colour and the miss direction's cotangent as rows equals its plain
+    version within 1e-4 of each key's largest entry, with the same bits on
+    two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene, cam, (o, d, tm, sid) = _env_case("mini-hdri")
+    rad, carry = cw.grad_fwd_stash(scene, cam, o, d, tm, sid, 3, pathwise=True)
+    g3 = torch.rand((3, sid.shape[0]), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0)) * 1e-3
+    mc, lmd, _ = cw._env_miss_terms(scene, cam, carry[3], g3, want_lmd=True)
+    n_tex = int(scene.textures.color.shape[0])
+    n_mat = int(scene.materials.kind.shape[0])
+    args = (cw.build_tables(scene), carry[1], carry[2], g3, mc, sid, 3,
+            cw.MISS_STREAM, n_tex, n_mat, lmd)
+    before = cw.LAUNCHES_GRAD_REV_PATHWISE
+    gk = cw.wavefront_grad_rev_pathwise(*args)
+    assert cw.LAUNCHES_GRAD_REV_PATHWISE == before + 1
+    gp = cw._wavefront_grad_rev_pathwise_plain(*args)
+    for a, b in zip(gk, gp):
+        assert float(b.abs().max()) > 1e-6
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    for a, b in zip(gk, cw.wavefront_grad_rev_pathwise(*args)):
+        assert torch.equal(a, b)
+    # the direction's cotangent reaches fuzz and ior: without it they move
+    no_lmd = cw._wavefront_grad_rev_pathwise_plain(*args[:7], cw.MISS_FLAT, n_tex, n_mat)
+    assert float((no_lmd[1] - gp[1]).abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_fused_kernel_matches_plain_version():
+    """The fused kernel (B4) on the environment + light scene: radiance bit
+    for bit the forward kernel's with the same HDRI rows plus the miss term,
+    the sums within 1e-4 of each key's largest entry of the plain version's,
+    the texel cotangent rows (eout) within float32 rounding, and the same
+    bits on two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene, cam, (o, d, tm, sid) = _env_case("env-nee")
+    tb = cw.build_tables(scene)
+    depth = cam.max_depth
+    hdri = cw.hdri_rows_for(scene, sid, 3, depth)
+    out, flags = cw.wavefront_fwd(tb, o, d, tm, sid, 3, depth, hdri)
+    g3 = torch.rand((3, sid.shape[0]), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1)) * 1e-3
+    mc, lmd, _ = cw._env_miss_terms(scene, cam, cw._env_carry(scene, out, flags),
+                                    g3, want_lmd=True)
+    env_rows = torch.cat([mc, lmd]).contiguous()
+    n_tex = int(scene.textures.color.shape[0])
+    n_mat = int(scene.materials.kind.shape[0])
+    args = (tb, o, d, tm, sid, 3, depth, g3, (cw.MISS_STREAM, (0.0, 0.0, 0.0)),
+            env_rows, hdri, n_tex, n_mat)
+    before = cw.LAUNCHES_GRAD_FUSED
+    k = cw.wavefront_grad_fused(*args)
+    assert cw.LAUNCHES_GRAD_FUSED == before + 1
+    want = torch.stack([out[c] + out[6 + c] * mc[c] for c in range(3)])
+    assert torch.equal(k[0], want)
+    p = cw._wavefront_grad_fused_plain(*args)
+    assert torch.equal(k[0], p[0])
+    for a, b in zip(k[1:4], p[1:4]):
+        assert float(b.abs().max()) > 1e-6
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    assert float(p[4].abs().max()) > 0
+    assert float((k[4] - p[4]).abs().max()) <= 1e-6 * float(p[4].abs().max())
+    for a, b in zip(k, cw.wavefront_grad_fused(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["mini-hdri", "env-nee"])
+def test_cuda_render_grad_of_environments(name):
+    """``render_grad`` of an environment scene on a GPU: the pathwise
+    two-phase tier (no light) or the fused tier (with one), through their
+    kernels, the per-texel sums through their kernel, the CPU's numbers
+    within 2e-3 of each key's largest entry, and the same bits twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    from go_raytracing_tpu_torch.ops import cuda_rows
+    from go_raytracing_tpu_torch.render import grad as tgrad
+
+    scene, cam, _ = _env_case(name, width=32, spp=2)
+    tier = tgrad.grad_tier(scene, cam.max_depth)
+    assert tier == ("fused" if name == "env-nee" else "pathwise")
+    target = torch.full((32, 32, 3), 0.3, device="cuda")
+    before = (cw.LAUNCHES_GRAD_FUSED, cw.LAUNCHES_GRAD_REV_PATHWISE,
+              cuda_rows.LAUNCHES_SEGMENT_SUMS)
+    loss, g = grtt.render_grad(scene, cam, target, seed=1)
+    after = (cw.LAUNCHES_GRAD_FUSED, cw.LAUNCHES_GRAD_REV_PATHWISE,
+             cuda_rows.LAUNCHES_SEGMENT_SUMS)
+    assert after[0] - before[0] == (1 if tier == "fused" else 0)
+    assert after[1] - before[1] == (0 if tier == "fused" else 1)
+    assert after[2] > before[2]
+    loss2, g2 = grtt.render_grad(scene, cam, target, seed=1)
+    assert float(loss) == float(loss2)
+    assert all(torch.equal(g[k], g2[k]) for k in g)
+    cpu_scene = (build_env_nee if name == "env-nee" else build_mini_hdri)(
+        grtt, device="cpu")
+    ref_loss, ref = grtt.render_grad(cpu_scene, cam, target.cpu(), seed=1, device="cpu")
+    assert abs(float(loss) - float(ref_loss)) <= 1e-4 * float(ref_loss)
+    for k in ("color", "fuzz", "ior", "env_data"):
+        big = float(ref[k].abs().max())
+        assert big > 0, k
+        assert float((g[k].cpu() - ref[k]).abs().max()) <= 2e-3 * big, k
+
+
+@pytest.mark.cuda
+def test_cuda_segment_sums_match_plain_version():
+    """The sorted per-key sums (``cuda_rows.sorted_segment_sums``, the sums
+    of an environment's texel cotangents): the float64 plain version's
+    numbers to float32 rounding, ids outside [0, n) dropped, same bits
+    twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    from go_raytracing_tpu_torch.core import segsum
+    from go_raytracing_tpu_torch.ops import cuda_rows
+
+    gen = torch.Generator("cuda").manual_seed(2)
+    ids = torch.randint(-5, 5000, (200000,), device="cuda", generator=gen)
+    ids[:50000] = 17          # one key with a long run
+    vals = torch.randn((200000, 12), device="cuda", generator=gen)
+    k = segsum.rows_segment_sum(ids, vals, 4096)
+    keep = (ids >= 0) & (ids < 4096)
+    p = torch.zeros((4096, 12), dtype=torch.float64, device="cuda")
+    p.index_add_(0, ids[keep], vals[keep].double())
+    assert float((k.double() - p).abs().max()) <= 1e-5 * float(p.abs().max())
+    assert torch.equal(k, segsum.rows_segment_sum(ids, vals, 4096))
+    sid, perm = torch.sort(ids, stable=True)
+    cols = vals[perm].t().contiguous()
+    before = cuda_rows.LAUNCHES_SEGMENT_SUMS
+    kk = cuda_rows.sorted_segment_sums(sid, cols, 4096)
+    assert cuda_rows.LAUNCHES_SEGMENT_SUMS == before + 1
+    pp = cuda_rows._sorted_segment_sums_plain(sid, cols, 4096)
+    assert float((kk - pp).abs().max()) <= 1e-5 * float(pp.abs().max())

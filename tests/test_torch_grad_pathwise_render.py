@@ -21,8 +21,10 @@ from go_raytracing_tpu.render.grad import render_grad as jrender_grad
 from go_raytracing_tpu_torch import convert
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from go_raytracing_tpu_torch.render import grad as tgrad
+from go_raytracing_tpu_torch.lights import hdri
 from test_torch_helpers import (MINI_GLOSSY_CAM, SKY_CAM, build_mini_glossy,
-                                build_sky_diffuse, grads_to_numpy, scene_tree)
+                                build_sky_diffuse, grads_to_numpy, mini_env,
+                                scene_tree)
 
 torch.set_num_threads(2)
 
@@ -141,8 +143,9 @@ def test_pathwise_render_grad_budget_and_chunks():
 
 def test_pathwise_gates():
     """The pathwise gate: the reverse kernel's accumulator (9 a texture and
-    2 a material in 1,536 floats), no environment, no noise.  Outside both
-    gates ``render_grad`` takes the replay tier, or raises and names the
+    2 a material in 1,536 floats), no noise.  An environment is admitted; with
+    quad lights it takes the fused kernel, not the two-phase route.  Outside
+    both gates ``render_grad`` takes the replay tier, or raises and names the
     ROADMAP item of what is not ported."""
     scene, cam = _glossy(spp=1)
     target = torch.zeros((16, 16, 3))
@@ -159,9 +162,16 @@ def test_pathwise_gates():
     loss, g = grtt.render_grad(many, cam, target, device="cpu")
     assert np.isfinite(float(loss)) and tuple(g["color"].shape) == (fits + 1, 3)
     assert all(bool(torch.isfinite(v).all()) for v in g.values())
-    with pytest.raises(NotImplementedError, match="A15"):
-        grtt.render_grad(dataclasses.replace(scene, env=object()), cam, target,
-                         device="cpu")
+    # an environment: a scene with quad lights takes the fused kernel
+    lit_env = dataclasses.replace(scene, env=hdri.build_environment(mini_env()))
+    assert cw.grad_pathwise_applicable(lit_env, 3)
+    assert not cw.grad_two_phase_ok(lit_env, 3)
+    assert tgrad.grad_tier(lit_env, 3) == "fused"
+    assert tgrad.grad_tier(lit_env, cw.FUSED_MAX_DEPTH + 1) == "replay"
+    with pytest.raises(NotImplementedError, match="fused"):
+        cw.grad_fwd_stash(lit_env, cam, *grtt.camera.generate_rays(
+            cam, torch.arange(4), torch.zeros(4, dtype=torch.int64),
+            torch.arange(4), 0), torch.arange(4), 0, pathwise=True)
     for outside in (dataclasses.replace(scene, has_noise=True),
                     dataclasses.replace(scene, has_image=True)):
         assert not cw.grad_pathwise_applicable(outside, 3)

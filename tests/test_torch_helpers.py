@@ -40,6 +40,8 @@ def scene_tree(jscene):
             tree[f.name] = np.asarray(v)
         elif f.name == "meshes":
             tree[f.name] = [mesh_tree(p) for p in v]
+        elif f.name == "env" and v is not None:
+            tree[f.name] = {k: np.asarray(x) for k, x in v._asdict().items()}
         else:
             tree[f.name] = v
     return tree
@@ -194,6 +196,59 @@ def build_mini_volume_glossy(pkg, **build_kwargs):
     b.sphere((0.8, 1.0, 1.2), 1.0, glass)
     b.volume_box((-4, 0.05, -4), (4, 4, 4), 0.18, (0.85, 0.9, 0.95))
     return b.build(**build_kwargs)
+
+
+def mini_env(seed=7):
+    """The 8x16 environment of tests/test_grad_pathwise.py: uniform noise
+    and one bright texel (a small sun)."""
+    rng = np.random.default_rng(seed)
+    env = rng.uniform(0.05, 1.0, size=(8, 16, 3)).astype(np.float32)
+    env[2, 4] = (9.0, 8.0, 7.0)
+    return env
+
+
+def build_mini_hdri(pkg, **build_kwargs):
+    """hdri-test in miniature (``_mini_hdri`` of tests/test_grad_pathwise.py):
+    a checker plane, glass, mirror and gold spheres under an environment,
+    no quad light, so the environment is seen through the miss shader
+    only."""
+    b = pkg.SceneBuilder()
+    checker = b.lambertian(b.checker(0.5, (0.1, 0.1, 0.1), (0.9, 0.9, 0.9)))
+    b.plane((0, 0, 0), (0, 1, 0), checker)
+    b.sphere((0, 1, 0), 1.0, b.dielectric(1.5))
+    b.sphere((-2.5, 1, 0), 1.0, b.metal((1.0, 1.0, 1.0), 0.0))
+    b.sphere((2.5, 1, 0), 1.0, b.metal((1.0, 0.84, 0.0), 0.1))
+    b.set_environment(mini_env())
+    return b.build(**build_kwargs)
+
+
+MINI_HDRI_CAM = dict(
+    image_width=16, aspect_ratio=1.0, samples_per_pixel=4, max_depth=5,
+    look_from=(0, 2.5, 8), look_at=(0, 1, 0), vfov=40.0,
+)
+
+
+def build_env_nee(pkg, **build_kwargs):
+    """The environment + quad light scene of
+    ``test_env_nee_grad_kernel_matches_autodiff`` (tests/test_grad_pathwise.py):
+    a lambertian hit samples the light and the environment (HDRI NEE)."""
+    b = pkg.SceneBuilder()
+    checker = b.lambertian(b.checker(0.5, (0.1, 0.1, 0.1), (0.9, 0.9, 0.9)))
+    b.quad((-6, 0, -6), (12, 0, 0), (0, 0, 12), checker)
+    b.sphere((0, 1, 0), 1.0, b.dielectric(1.5))
+    b.sphere((-2.5, 1, 0), 1.0, b.metal((1.0, 1.0, 1.0), 0.0))
+    b.sphere((2.5, 1, 0), 1.0, b.metal((1.0, 0.84, 0.0), 0.1))
+    b.sphere((0.0, 1.0, 2.2), 0.8, b.lambertian((0.2, 0.4, 0.7)))
+    q = b.quad((-1.5, 6, -1.5), (3, 0, 0), (0, 0, 3), b.diffuse_light((9, 9, 9)))
+    b.add_light(q)
+    b.set_environment(mini_env())
+    return b.build(**build_kwargs)
+
+
+ENV_NEE_CAM = dict(
+    image_width=16, aspect_ratio=1.0, samples_per_pixel=4, max_depth=4,
+    look_from=(0, 2.5, 8), look_at=(0, 1, 0), vfov=45.0,
+)
 
 
 MINI_GLOSSY_CAM = dict(

@@ -19,7 +19,9 @@ from go_raytracing_tpu import camera as jcamera
 from go_raytracing_tpu.ops import pallas_intersect as pk
 from go_raytracing_tpu_torch import camera as tcamera
 from go_raytracing_tpu_torch import convert
+from go_raytracing_tpu_torch.core.vec3 import V3
 from go_raytracing_tpu_torch.integrator import wavefront as twf
+from go_raytracing_tpu_torch.lights import hdri as hdri_mod
 from go_raytracing_tpu_torch.ops import cuda_intersect as ck
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from go_raytracing_tpu_torch.render import renderer as trenderer
@@ -193,6 +195,36 @@ def _mesh_recorded(ts, r):
     assert bool((dec.which[0] >= twf.HIT_MESH_BASE).any())
 
 
+def _env_traced(ts, r):
+    """An environment scene traces on both routes: the standard
+    integrator's picture is the megakernel's (plain versions here)."""
+    cam, o, d, tm, ids, seed = r
+    env = hdri_mod.build_environment(np.full((4, 8, 3), 0.5, np.float32))
+    lit = dataclasses.replace(ts, env=env)
+    a = twf.trace(lit, cam, o, d, tm, ids, seed)
+    b = twf.trace(lit, cam, o, d, tm, ids, seed, mega_mode="off")
+    np.testing.assert_allclose(torch.stack(list(a)).numpy(),
+                               torch.stack(list(b)).numpy(), rtol=1e-4, atol=1e-5)
+
+
+def _hdri_light_sampled(ts, r):
+    """``sample_hdri_light`` returns a contribution, a zero overflow and
+    the shadow outcome (given a recorded one, no shadow ray is traced)."""
+    cam, o, d, tm, ids, seed = r
+    lit = dataclasses.replace(ts, env=hdri_mod.build_environment(
+        np.full((4, 8, 3), 0.5, np.float32)))
+    n = V3(torch.zeros_like(tm), torch.ones_like(tm), torch.zeros_like(tm))
+    att = V3(*(torch.full_like(tm, 0.5) for _ in range(3)))
+    mat = torch.zeros_like(ids, dtype=torch.int32)
+    contrib, overflow, blocked = twf.sample_hdri_light(
+        lit, cam, o, n, d, att, mat, seed, ids, 0)
+    assert overflow == 0 and blocked.dtype == torch.bool
+    again, _, same = twf.sample_hdri_light(lit, cam, o, n, d, att, mat, seed, ids, 0,
+                                           blocked=blocked)
+    assert torch.equal(same, blocked)
+    assert all(torch.equal(a, b) for a, b in zip(contrib, again))
+
+
 @pytest.mark.parametrize("call, item", [
     (_recorded, "A18"),
     (_replayed, "A18"),
@@ -203,16 +235,18 @@ def _mesh_recorded(ts, r):
     (lambda ts, r: twf.trace(dataclasses.replace(ts, has_image=True), *r), "A16"),
     # meshes render, and the standard integrator records their decisions
     (_mesh_recorded, "A18"),
-    (lambda ts, r: twf.trace(dataclasses.replace(ts, env=object()), *r), "A15"),
-    (lambda ts, r: twf.sample_hdri_light(ts, *r), "A15"),
+    # environments are ported: the miss shader, and NEE toward the HDRI
+    (lambda ts, r: _env_traced(ts, r), "A15"),
+    (lambda ts, r: _hdri_light_sampled(ts, r), "A15"),
 ])
 def test_what_remains_names_its_roadmap_item(call, item):
     """Each part still to port raises and names its ROADMAP item; the replay
-    tier's calls (A18) are ported and run their own checks."""
+    tier's calls (A18) and environments (A15) are ported and run their own
+    checks."""
     ts, cam = grtt.load_scene("quads", device="cpu")
     cam = dataclasses.replace(cam, image_width=8, max_depth=2)
     o, d, tm, ids = _rays(cam, 16, 0)
-    if item == "A18":
+    if item in ("A18", "A15"):
         call(ts, (cam, o, d, tm, ids, 0))
     else:
         with pytest.raises(NotImplementedError, match=item):
