@@ -49,8 +49,8 @@ environments (ROADMAP A15) at the JAX bench's ``hdri-test`` size (800x450,
 25 spp, depth 10, under a synthetic 1024x512 sky from a fixed seed, the
 reference's asset not being in the repository): the environment kernels
 against their plain versions on 16,384 rays (B1 and B6 with the HDRI NEE
-rows, B5b with the environment's miss rows, the fused kernel B4, and B4
-against autograd on a 32x32 crop), ``hdri-test`` forward by the megakernel
+rows, B5b with the environment's miss rows, the fused kernel B4, also on
+4,096 of them at depth 20, and B4 against autograd on a 32x32 crop), ``hdri-test`` forward by the megakernel
 and by the standard integrator (``hdri_main_path``), its ``render_grad`` on
 the pathwise two-phase tier (``hdri_fwd_bwd``), the same two with a quad
 light added (``env_nee_main_path``, ``env_nee_fwd_bwd``: HDRI NEE, the fused
@@ -149,6 +149,7 @@ from go_raytracing_tpu_torch.ops import cuda_rows as cr
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from go_raytracing_tpu_torch.render import grad as gradmod
 from go_raytracing_tpu_torch.render import renderer
+from go_raytracing_tpu_torch.scenes import builders
 
 RTOL = ATOL = 1e-3
 MAX_MISMATCH_SHARE = 0.005
@@ -2014,9 +2015,13 @@ def row_sums_check():
 # The sun of the synthetic sky: texels within this many of its centre, at
 # about SUN_GAIN times the map's mean radiance.
 SUN_RADIUS, SUN_GAIN = 4, 100.0
+# A depth past the JAX package's two-phase cap of 16 at which B4 is also held
+# to its plain version (the fused tier serves env + light scenes to depth 50).
+DEEP_DEPTH = 20
 # Fused kernel (B4): float32 operations of the HDRI NEE block in the forward
 # (the sample's cosine, pdfs, weight, contribution: about 25) and in the
-# reverse (recompute and partials: about 45), per entered bounce.
+# reverse (recompute and partials: about 45), per ray-bounce that samples
+# the environment.
 FLOPS_HDRI_NEE = 25 + 45
 
 
@@ -2044,28 +2049,16 @@ def synthetic_sky(seed=7, h=512, w=1024):
 
 
 def hdri_scene(device, nee, env):
-    """The geometry of ``scenes/builders.hdri_test_scene`` under the
+    """``scenes/builders.hdri_test_scene``'s geometry and camera under the
     synthetic sky, at the JAX bench's size (800x450, 25 spp, depth 10);
     ``nee`` adds the quad light of the JAX package's environment + NEE
     gradient test (emission 9), so lambertian hits sample both."""
     b = grt.SceneBuilder()
-    glass = b.dielectric(1.5)
-    mirror = b.metal((1.0, 1.0, 1.0), 0.0)
-    gold = b.metal((1.0, 0.84, 0.0), 0.1)
-    ground = b.lambertian(b.checker(0.5, (0.1, 0.1, 0.1), (0.9, 0.9, 0.9)))
-    b.plane((0, 0, 0), (0, 1, 0), ground)
-    b.sphere((0, 1, 0), 1.0, glass)
-    b.sphere((-2.5, 1, 0), 1.0, mirror)
-    b.sphere((2.5, 1, 0), 1.0, gold)
-    b.sphere((-1.2, 0.4, 2), 0.4, glass)
-    b.sphere((1.2, 0.4, 2), 0.4, glass)
+    cam = builders.hdri_test_objects(b).set_quality(25, 10)
     if nee:
         q = b.quad((-1.5, 6, -1.5), (3, 0, 0), (0, 0, 3), b.diffuse_light((9, 9, 9)))
         b.add_light(q)
     b.set_environment(env, 0.0)
-    cam = (Camera().set_resolution(800, 16.0 / 9.0).set_quality(25, 10)
-           .set_position((0, 2.5, 8), (0, 1, 0), (0, 1, 0)).set_lens(40, 0, 10)
-           .set_phantom_hdri(True))
     return b.build(device=device), cam
 
 
@@ -2182,6 +2175,38 @@ def env_fwd_bwd(phase, name, scene, cam, tier):
     return counts, nch, ms
 
 
+def b4_against_plain(nee, cam, tb, rays, seed, depth, g3):
+    """B4 (the fused kernel) against its plain version on ``rays`` at
+    ``depth``, with the HDRI rows and the miss rows its pass B gives it:
+    radiance the forward kernel's bits plus the miss term and the plain
+    version's bits, the sums' and the eout rows' error over their largest
+    entry, the same bits on two launches, the plain version's time."""
+    o, d, tm, sid = rays
+    rows = cw.hdri_rows_for(nee, sid, seed, depth)
+    k_out, k_flags = cw.wavefront_fwd(tb, o, d, tm, sid, seed, depth, rows)
+    mc, lmd, _ = cw._env_miss_terms(nee, cam, cw._env_carry(nee, k_out, k_flags), g3,
+                                    want_lmd=True)
+    fused = (tb, o, d, tm, sid, seed, depth, g3, (cw.MISS_STREAM, (0.0, 0.0, 0.0)),
+             torch.cat([mc, lmd]).contiguous(), rows, int(nee.textures.color.shape[0]),
+             int(nee.materials.kind.shape[0]))
+    k = cw.wavefront_grad_fused(*fused)
+    k2 = cw.wavefront_grad_fused(*fused)
+    plain_ms, p = cuda_ms(lambda: cw._wavefront_grad_fused_plain(*fused))
+    want_rad = torch.stack([k_out[c] + k_out[6 + c] * mc[c] for c in range(3)])
+    eout_largest = float(p[4].abs().max())
+    return dict(
+        rays=int(tm.shape[0]), depth=depth,
+        radiance_is_b1s_plus_miss=bool(torch.equal(k[0], want_rad)),
+        radiance_is_plains=bool(torch.equal(k[0], p[0])),
+        err_of_largest=max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                           for a, b in zip(k[1:4], p[1:4])),
+        max_abs_err=max(float((a - b).abs().max()) for a, b in zip(k[1:4], p[1:4])),
+        eout_largest=eout_largest,
+        eout_err_of_largest=float((k[4] - p[4]).abs().max()) / max(eout_largest, 1e-30),
+        same_bits=all(bool(torch.equal(a, b)) for a, b in zip(k, k2)),
+        plain_ms=plain_ms)
+
+
 def env_small_checks(hdri, nee, cam, dev, n=16384, seed=12):
     """The kernels of the environment paths against their plain versions on
     ``n`` camera rays: B1 and B6 with the HDRI rows (equality expected),
@@ -2235,32 +2260,20 @@ def env_small_checks(hdri, nee, cam, dev, n=16384, seed=12):
         raise RuntimeError(f"B5b with the environment's miss rows: {out}")
     del carry
 
-    # B4 (hdri-test-nee)
-    mc, lmd, _ = cw._env_miss_terms(nee, cam, cw._env_carry(nee, k_out, k_flags), g3,
-                                    want_lmd=True)
-    fused = (tb, o, d, tm, sid, seed, depth, g3, (cw.MISS_STREAM, (0.0, 0.0, 0.0)),
-             torch.cat([mc, lmd]).contiguous(), rows, n_tex, n_mat)
-    k = cw.wavefront_grad_fused(*fused)
-    k2 = cw.wavefront_grad_fused(*fused)
-    plain_ms, p = cuda_ms(lambda: cw._wavefront_grad_fused_plain(*fused))
-    want_rad = torch.stack([k_out[c] + k_out[6 + c] * mc[c] for c in range(3)])
-    out["b4_radiance_is_b1s_plus_miss"] = bool(torch.equal(k[0], want_rad))
-    out["b4_radiance_is_plains"] = bool(torch.equal(k[0], p[0]))
-    errs = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
-            for a, b in zip(k[1:4], p[1:4])]
-    out["b4_err_of_largest"] = max(errs)
-    out["b4_max_abs_err"] = max(float((a - b).abs().max()) for a, b in zip(k[1:4], p[1:4]))
-    out["b4_eout_largest"] = float(p[4].abs().max())
-    out["b4_eout_err_of_largest"] = (float((k[4] - p[4]).abs().max())
-                                     / max(out["b4_eout_largest"], 1e-30))
-    out["b4_same_bits"] = all(bool(torch.equal(a, b)) for a, b in zip(k, k2))
-    out["b4_plain_ms"] = plain_ms
-    if not (out["b4_radiance_is_b1s_plus_miss"] and out["b4_radiance_is_plains"]
-            and out["b4_err_of_largest"] <= REV_RTOL_OF_LARGEST
-            and out["b4_eout_largest"] > 0.0
-            and out["b4_eout_err_of_largest"] <= REV_RTOL_OF_LARGEST
-            and out["b4_same_bits"]):
-        raise RuntimeError(f"B4 against its plain version: {out}")
+    # B4 (hdri-test-nee) at the main path's depth, and on a quarter of the
+    # rays at DEEP_DEPTH (its stash array holds FUSED_MAX_DEPTH bounces)
+    b4 = b4_against_plain(nee, cam, tb, (o, d, tm, sid), seed, depth, g3)
+    out.update({f"b4_{k}": v for k, v in b4.items()})
+    q = n // 4
+    deep = b4_against_plain(nee, cam, tb, (V3(*(c[:q] for c in o)), V3(*(c[:q] for c in d)),
+                                           tm[:q], sid[:q]),
+                            seed, DEEP_DEPTH, g3[:, :q].contiguous())
+    out.update({f"b4_depth{DEEP_DEPTH}_{k}": v for k, v in deep.items()})
+    for f in (b4, deep):
+        if not (f["radiance_is_b1s_plus_miss"] and f["radiance_is_plains"]
+                and f["err_of_largest"] <= REV_RTOL_OF_LARGEST and f["eout_largest"] > 0.0
+                and f["eout_err_of_largest"] <= REV_RTOL_OF_LARGEST and f["same_bits"]):
+            raise RuntimeError(f"B4 against its plain version: {out}")
 
     # B4 against torch.autograd through the standard integrator, 32x32 crop
     size, x0, y0 = 32, 400, 260
@@ -2314,6 +2327,13 @@ def env_kernel_timing(hdri, nee, cam, chunks, launches, small):
     for k in range(1, depth):
         _, f = cw.wavefront_fwd(*args[:-1], k)
         entering.append(int(((f & cw.FLAG_ALIVE) != 0).sum()))
+    # B1 and B4 read a bounce's HDRI rows only where a lambertian hit sampled
+    # the lights (PW_USE_MIS); the pathwise stash forward marks those
+    # ray-bounces (the HDRI sample alters no path, so its stash needs no rows)
+    _, _, _, _, s_i = cw.wavefront_grad_fwd(*args, (cw.MISS_STREAM, (0.0, 0.0, 0.0)),
+                                           pathwise=True)
+    mis_bounces = int(((s_i[:, 2] & cw.PW_USE_MIS) != 0).sum())
+    del s_i
     gen = torch.Generator(device=dev).manual_seed(0)
     g3 = torch.rand((3, n), device=dev, generator=gen) * 1e-6
     terms_ms, (mc, lmd, _) = cuda_ms(lambda: cw._env_miss_terms(
@@ -2335,19 +2355,22 @@ def env_kernel_timing(hdri, nee, cam, chunks, launches, small):
     per_bounce = (tb.n_planar * FLOPS_PLANAR + tb.n_sphere * FLOPS_SPHERE
                   + tb.n_vol * FLOPS_VOLUME + FLOPS_SHADE)
     entered = float(sum(entering))
-    b1h_bytes = (18 + cw.HDRI_ROWS * depth) * 4 * n + table_bytes
+    hdri_bytes = cw.HDRI_ROWS * 4 * mis_bounces
+    b1h_bytes = 18 * 4 * n + hdri_bytes + table_bytes
     b1h_bound = (b1h_bytes / PEAK_BYTES_PER_S * 1e3,
-                 entered * per_bounce / PEAK_FP32_FLOPS * 1e3)
+                 (entered * per_bounce + mis_bounces * FLOPS_HDRI_NEE)
+                 / PEAK_FP32_FLOPS * 1e3)
     block_rays = _build.load("wavefront_grad_fused").lib.wavefront_grad_fused_block_rays()
     n_acc = 9 * n_tex + 2 * n_mat
     # in: rays (8), cotangent (3), environment rows (6), HDRI rows (7 a
-    # bounce); out: radiance (3), eout (3 a bounce), one partial row a block
-    b4_bytes = ((8 + 3 + 6 + 3 + (cw.HDRI_ROWS + 3) * depth) * 4 * n
+    # sampling bounce); out: radiance (3), eout (3 a bounce, all written),
+    # one partial row a block
+    b4_bytes = ((8 + 3 + 6 + 3 + 3 * depth) * 4 * n + hdri_bytes
                 + 4 * n_acc * -(-n // block_rays) + table_bytes)
     b4_bound = (b4_bytes / PEAK_BYTES_PER_S * 1e3,
-                entered * ((per_bounce + FLOPS_REVERSE_PATHWISE + FLOPS_HDRI_NEE)
-                           / PEAK_FP32_FLOPS
-                           + INT_OPS_REVERSE_PATHWISE / PEAK_INT32_OPS) * 1e3)
+                (entered * ((per_bounce + FLOPS_REVERSE_PATHWISE) / PEAK_FP32_FLOPS
+                            + INT_OPS_REVERSE_PATHWISE / PEAK_INT32_OPS)
+                 + mis_bounces * FLOPS_HDRI_NEE / PEAK_FP32_FLOPS) * 1e3)
 
     # B5b with the environment's miss rows, at hdri-test's chunk
     n_h = n_all // chunks["hdri"]
@@ -2366,7 +2389,7 @@ def env_kernel_timing(hdri, nee, cam, chunks, launches, small):
     del rev, carry, mc, lmd, g3
 
     emit("env_kernel_timing", rays_per_launch=n, depth=depth,
-         rays_entering_bounce=entering,
+         rays_entering_bounce=entering, hdri_sampling_ray_bounces=mis_bounces,
          fused_pass_b_parts_ms=dict(hdri_rows_and_texel_ids=rows_ms,
                                     miss_terms=terms_ms, b4=b4_ms,
                                     texel_sums=texel_sum_ms),
@@ -2456,9 +2479,7 @@ def main():
     pfwd_regs, pfwd_spill = kernel_stats(built, "wavefront_kernelILi2E")
     grev_regs, grev_spill = kernel_stats(built_grad, "wavefront_grad_rev_kernel")
     prev_regs, prev_spill = kernel_stats(built_pw, "wavefront_grad_rev_pathwise_kernel")
-    # wavefront_grad_fused_kernel<16> and <50>: the local stash's depth cap
-    fused_stats = {cap: kernel_stats(built_fused, f"wavefront_grad_fused_kernelILi{cap}E")
-                   for cap in (16, 50)}
+    fused_regs = kernel_stats(built_fused, "wavefront_grad_fused_kernel")
     seg_regs = kernel_stats(built_rows, "sorted_segment_sums_kernel")
     # planar_kernel<false> / <true> and sphere_kernel<false> / <true>: closest
     # hit alone, and with the winner's attributes
@@ -2484,8 +2505,7 @@ def main():
          libraries=[built.path.name, built_grad.path.name, built_pw.path.name,
                     built_ix.path.name, built_mesh.path.name, built_rows.path.name,
                     built_fused.path.name],
-         fused_registers={cap: v[0] for cap, v in fused_stats.items()},
-         fused_spill_bytes={cap: v[1] for cap, v in fused_stats.items()},
+         fused_registers=fused_regs[0], fused_spill_bytes=fused_regs[1],
          segment_sums_registers=seg_regs[0], segment_sums_spill_bytes=seg_regs[1],
          record_registers=rec_regs[0], record_spill_bytes=rec_regs[1],
          row_sums_registers=rows_regs[0], row_sums_spill_bytes=rows_regs[1],

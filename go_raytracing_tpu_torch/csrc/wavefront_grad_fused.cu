@@ -32,9 +32,10 @@
 // the forward's sweeps and the reverse's dependent chain, as in B1 and B5b.
 // A simple design, not a fast one: the TPU kernel's block layout (a block of
 // rays stepping through every bounce with masks) is not carried over.
-//   * Local arrays sized by a compile-time depth cap (16 or 50, the JAX
-//     package's GRAD_DEPTH_MAX); the local memory CUDA sets aside scales
-//     with the cap, so the smaller one serves depths up to 16.
+//   * Local arrays sized by one compile-time depth cap, FUSED_MAX_DEPTH (50,
+//     the JAX package's GRAD_DEPTH_MAX).  A thread touches only the first
+//     `depth` bounces of them, and local memory is interleaved by thread, so
+//     a shallow path moves the same bytes as it would with a smaller cap.
 //   * The sums are those of wavefront_grad_pathwise.cu: warp butterflies in a
 //     fixed order, one accumulator row a warp in shared memory, one row of
 //     partial sums a block, added in the wrapper.  The scene tables sit in
@@ -56,10 +57,8 @@ constexpr int FUSED_BLOCK_RAYS = FUSED_THREADS * FUSED_RAYS_PER_THREAD;
 constexpr size_t FUSED_SMEM_LIMIT = 48 * 1024;
 constexpr int FUSED_MAX_ACC =
     (int)(FUSED_SMEM_LIMIT / (FUSED_WARPS * sizeof(float)));
-constexpr int DEPTH_SMALL = 16;
-constexpr int DEPTH_LARGE = 50;
+constexpr int FUSED_MAX_DEPTH = 50;
 
-template <int MAXD>
 __global__ void __launch_bounds__(FUSED_THREADS)
 wavefront_grad_fused_kernel(Tables G, const float* __restrict__ ox,
                             const float* __restrict__ oy, const float* __restrict__ oz,
@@ -101,8 +100,8 @@ wavefront_grad_fused_kernel(Tables G, const float* __restrict__ ox,
                      M.mode};
     const long long base = (long long)blockIdx.x * FUSED_BLOCK_RAYS + threadIdx.x;
 
-    float sf[MAXD * PW_F_ROWS];
-    int si[MAXD * 3];
+    float sf[FUSED_MAX_DEPTH * PW_F_ROWS];
+    int si[FUSED_MAX_DEPTH * 3];
     const Stash Z{sf, si, 1};
 
     for (int it = 0; it < FUSED_RAYS_PER_THREAD; ++it) {
@@ -160,7 +159,7 @@ wavefront_grad_fused_kernel(Tables G, const float* __restrict__ ox,
 extern "C" int wavefront_grad_fused_block_rays() { return FUSED_BLOCK_RAYS; }
 
 // Deepest path the kernel takes.
-extern "C" int wavefront_grad_fused_max_depth() { return DEPTH_LARGE; }
+extern "C" int wavefront_grad_fused_max_depth() { return FUSED_MAX_DEPTH; }
 
 // The tables of ops/cuda_wavefront.build_tables and the rays (as
 // wavefront_fwd_launch), g3 [3, n_rays] f32 the cotangent of the radiance,
@@ -182,7 +181,7 @@ extern "C" int wavefront_grad_fused_launch(
     int miss_mode, float bg_r, float bg_g, float bg_b, float* rad, float* eout,
     float* partial, long long n_rays, unsigned int seed, int depth, int n_col,
     int n_acc, void* cuda_stream) {
-    if (n_rays < 1 || depth < 1 || depth > DEPTH_LARGE || n_col < 0 ||
+    if (n_rays < 1 || depth < 1 || depth > FUSED_MAX_DEPTH || n_col < 0 ||
         n_acc < n_col || n_acc < 1 || n_acc > FUSED_MAX_ACC || n_lights < 0 ||
         n_lights > 8 || n_vol < 0 || n_vol > 4 || miss_mode < 0 || miss_mode > 2 ||
         (miss_mode == MISS_STREAM) != (env_rows != nullptr) ||
@@ -210,16 +209,9 @@ extern "C" int wavefront_grad_fused_launch(
     const long long blocks = (n_rays + FUSED_BLOCK_RAYS - 1) / FUSED_BLOCK_RAYS;
     if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
     const Miss M{miss_mode, {bg_r, bg_g, bg_b}};
-    if (depth <= DEPTH_SMALL) {
-        wavefront_grad_fused_kernel<DEPTH_SMALL>
-            <<<(unsigned int)blocks, FUSED_THREADS, smem, (cudaStream_t)cuda_stream>>>(
-                G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, g3, env_rows,
-                hdri, M, rad, eout, partial, n_rays, seed, depth, n_col, n_acc, in_smem);
-    } else {
-        wavefront_grad_fused_kernel<DEPTH_LARGE>
-            <<<(unsigned int)blocks, FUSED_THREADS, smem, (cudaStream_t)cuda_stream>>>(
-                G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, g3, env_rows,
-                hdri, M, rad, eout, partial, n_rays, seed, depth, n_col, n_acc, in_smem);
-    }
+    wavefront_grad_fused_kernel<<<(unsigned int)blocks, FUSED_THREADS, smem,
+                                  (cudaStream_t)cuda_stream>>>(
+        G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, g3, env_rows, hdri, M,
+        rad, eout, partial, n_rays, seed, depth, n_col, n_acc, in_smem);
     return (int)cudaGetLastError();
 }

@@ -1,11 +1,11 @@
 """Asset path resolution (the reference's FindAsset).
 
-Copy of the JAX package's ``io/assets.py``: the working directory,
-``assets/<type>/``, the parent directory and the checkout's own
-``assets/<type>/`` are searched.  The JAX package also searches a
-reference checkout outside the repository; the port reads nothing outside
-its checkout, so a missing asset raises ``FileNotFoundError`` here as it
-does there.
+Copy of the JAX package's ``io/assets.py``, cut to the paths inside the
+checkout: the working directory, ``<type>/`` and ``assets/<type>/`` under
+it, and the checkout's own ``assets/<type>/``.  The JAX package also
+searches the parent directory and a reference checkout outside the
+repository; the port reads nothing outside its checkout, so a missing asset
+raises ``FileNotFoundError`` here as it does there.
 """
 
 from __future__ import annotations
@@ -23,8 +23,6 @@ def find_asset(filename: str, asset_type: str) -> str:
         filename,
         os.path.join(asset_type, filename),
         os.path.join("assets", asset_type, filename),
-        os.path.join("..", asset_type, filename),
-        os.path.join("..", "assets", asset_type, filename),
         os.path.join(_REPO_ASSETS, asset_type, base),
     ]
     # Scene paths read like "assets/hdri/foo.hdr": also try the basename

@@ -166,8 +166,9 @@ def primitives_scene(device=None):
     return b.build(device=device), cam
 
 
-def hdri_test_scene(device=None):
-    b = SceneBuilder()
+def hdri_test_objects(b: SceneBuilder) -> Camera:
+    """hdri-test's geometry into ``b``, and its camera at the builder's
+    quality; the environment (and any light) is the caller's."""
     glass = b.dielectric(1.5)
     mirror = b.metal((1.0, 1.0, 1.0), 0.0)
     gold = b.metal((1.0, 0.84, 0.0), 0.1)
@@ -178,8 +179,7 @@ def hdri_test_scene(device=None):
     b.sphere((2.5, 1, 0), 1.0, gold)
     b.sphere((-1.2, 0.4, 2), 0.4, glass)
     b.sphere((1.2, 0.4, 2), 0.4, glass)
-    b.set_environment("assets/hdri/abandoned_hall_01_1k.hdr", 0.0)
-    cam = (
+    return (
         _camera()
         .set_resolution(800, 16.0 / 9.0)
         .set_quality(200, 20)
@@ -187,6 +187,12 @@ def hdri_test_scene(device=None):
         .set_lens(40, 0, 10)
         .set_phantom_hdri(True)
     )
+
+
+def hdri_test_scene(device=None):
+    b = SceneBuilder()
+    cam = hdri_test_objects(b)
+    b.set_environment("assets/hdri/abandoned_hall_01_1k.hdr", 0.0)
     return b.build(device=device), cam
 
 

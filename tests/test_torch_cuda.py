@@ -713,18 +713,12 @@ def test_cuda_pathwise_stream_branch_matches_plain_version():
     assert float((no_lmd[1] - gp[1]).abs().max()) > 0
 
 
-@pytest.mark.cuda
-def test_cuda_fused_kernel_matches_plain_version():
-    """The fused kernel (B4) on the environment + light scene: radiance bit
-    for bit the forward kernel's with the same HDRI rows plus the miss term,
-    the sums within 1e-4 of each key's largest entry of the plain version's,
-    the texel cotangent rows (eout) within float32 rounding, and the same
-    bits on two launches."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
-    scene, cam, (o, d, tm, sid) = _env_case("env-nee")
+def _fused_against_plain(depth=None, width=64):
+    """B4 on the environment + light scene against the forward kernel and
+    its plain version (see the tests below)."""
+    scene, cam, (o, d, tm, sid) = _env_case("env-nee", width=width)
+    depth = cam.max_depth if depth is None else depth
     tb = cw.build_tables(scene)
-    depth = cam.max_depth
     hdri = cw.hdri_rows_for(scene, sid, 3, depth)
     out, flags = cw.wavefront_fwd(tb, o, d, tm, sid, 3, depth, hdri)
     g3 = torch.rand((3, sid.shape[0]), device="cuda",
@@ -750,6 +744,28 @@ def test_cuda_fused_kernel_matches_plain_version():
     assert float((k[4] - p[4]).abs().max()) <= 1e-6 * float(p[4].abs().max())
     for a, b in zip(k, cw.wavefront_grad_fused(*args)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_fused_kernel_matches_plain_version():
+    """The fused kernel (B4) on the environment + light scene: radiance bit
+    for bit the forward kernel's with the same HDRI rows plus the miss term,
+    the sums within 1e-4 of each key's largest entry of the plain version's,
+    the texel cotangent rows (eout) within float32 rounding, and the same
+    bits on two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    _fused_against_plain()
+
+
+@pytest.mark.cuda
+def test_cuda_fused_kernel_matches_plain_version_past_depth_16():
+    """The same at depth 20, 16x16 at 4 spp: the fused tier serves
+    environment + light scenes to FUSED_MAX_DEPTH (50), past the two-phase
+    tiers' 16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    _fused_against_plain(depth=20, width=16)
 
 
 @pytest.mark.cuda
