@@ -2439,6 +2439,455 @@ def env_phases(dev, out_dir):
     return b4_entry, b1_fields, b5b_fields, fb_h
 
 
+# ---- marble textures and the resumable kernel (B11) --------------------------
+
+# Operations of one marble evaluation (csrc/wavefront_common.cuh: marble),
+# counted from the code.  A lattice corner: the PCG3D hash (3 multiply-adds,
+# 3 products added, 3 xor-shifts, 3 products added: 24 integer operations),
+# its cube sample (3 x shift, convert, 2 multiplies, subtract: 15), the
+# normalization (3 squares, 2 adds, max, sqrt, divide, 3 multiplies: 11),
+# the offset dot product (3 subtracts, 3 multiplies, 2 adds: 8) and its
+# weight and sum (3 subtracts, 3 multiplies, add: 7).  An octave: 8 corners,
+# the floors, fractions and conversions (9) and the octave's scaling (5).
+# The marble: 7 octaves, the scale and the sine (about 30).
+INT_OPS_MARBLE = 7 * 8 * 24
+FLOPS_MARBLE = 7 * (8 * (15 + 11 + 8 + 7) + 14) + 30
+# The resumable kernel moves 21 rows of 4 bytes in and 19 out a ray.
+RESUME_BYTES_PER_RAY = (21 + 19) * 4
+PERLIN_BENCH = dict(width=400, spp=25, depth=10)        # bench.py:58
+RANDOM_CUT_SPP = 25                                      # random's own: 500
+
+
+def marble_scene(device):
+    """A marble floor and sphere beside a solid sphere under a quad light
+    and the sky gradient: the noise + solid scene whose colour and emission
+    gradients the product tier takes (perlin's own are zero by structure)."""
+    b = grt.SceneBuilder()
+    perl = b.lambertian(b.noise(4.0))
+    b.plane((0, 0, 0), (0, 1, 0), perl)
+    b.sphere((0, 1, 0), 1.0, perl)
+    b.sphere((2.1, 0.8, 0.4), 0.8, b.lambertian((0.7, 0.3, 0.2)))
+    q = b.quad((-1.5, 5, -1.5), (3, 0, 0), (0, 0, 3), b.diffuse_light((6, 6, 6)))
+    b.add_light(q)
+    cam = Camera(image_width=64, aspect_ratio=1.0, samples_per_pixel=4, max_depth=5,
+                 look_from=(0, 2.5, 7), look_at=(0, 0.8, 0), vfov=45.0,
+                 use_sky_gradient=True)
+    return b.build(device=device), cam
+
+
+def resume_counts():
+    return {"wavefront_fwd": cw.LAUNCHES, "wavefront_resume": cw.LAUNCHES_RESUME,
+            "wavefront_record": cw.LAUNCHES_RECORD,
+            "wavefront_grad_fwd": cw.LAUNCHES_GRAD_FWD,
+            "wavefront_grad_rev": cw.LAUNCHES_GRAD_REV, **intersect_counts()}
+
+
+def reset_resume_counts():
+    cw.LAUNCHES = cw.LAUNCHES_RESUME = cw.LAUNCHES_RECORD = 0
+    cw.LAUNCHES_GRAD_FWD = cw.LAUNCHES_GRAD_REV = 0
+    reset_intersect_counts()
+
+
+def rows_of(res):
+    """A tuple of [R] tensors (float32, or int32 by their bits) -> one
+    [len, R] float32 tensor."""
+    return torch.stack([a if a.dtype == torch.float32 else a.view(torch.float32)
+                        for a in res])
+
+
+def per_ray(k, p):
+    """(share of rays outside rtol / atol 1e-3 on any row, share of rays not
+    bit for bit equal, largest absolute difference) of two [rows, R]
+    tensors whose flag rows compare by their bits."""
+    differ = (k.view(torch.int32) != p.view(torch.int32)).any(dim=0)
+    outside = ~torch.isclose(k, p, rtol=RTOL, atol=ATOL).all(dim=0)
+    return (float(outside.float().mean()), float(differ.float().mean()),
+            float((k - p).abs().max()))
+
+
+def noise_small_checks(dev):
+    """B1, B6 and B2 with marble against their plain versions and B1 on
+    16,384 perlin camera rays at depth 10.  Returns (mismatch share, max
+    abs err) of B1."""
+    scene, cam0 = grt.load_scene("perlin", device=dev)
+    cam = dataclasses.replace(cam0, image_width=128, samples_per_pixel=2, max_depth=10)
+    o, d, tm, sid = chunk_rays(cam, 16384, 14, dev)
+    args = (cw.build_tables(scene), o, d, tm, sid, 14, cam.max_depth)
+    k_rows, k_flags = cw.wavefront_fwd(*args)
+    p_rows, p_flags = cw._wavefront_fwd_plain(*args)
+    k, p = torch.cat([k_rows, k_flags.view(torch.float32)[None]]), \
+        torch.cat([p_rows, p_flags.view(torch.float32)[None]])
+    outside, differ, err = per_ray(k, p)
+    r_rows, r_flags, code, idx = cw.wavefront_record(*args)
+    _, _, p_code, p_idx = cw._wavefront_record_plain(*args)
+    record_same = torch.equal(r_rows, k_rows) and torch.equal(r_flags, k_flags)
+    record_plain = torch.equal(code, p_code) and torch.equal(idx, p_idx)
+    g = cw.wavefront_grad_fwd(*args, cw.miss_config(cam))
+    grad_same = torch.equal(g[0], k_rows) and torch.equal(g[1], k_flags)
+    hits = int(((code & cw.DEC_KIND_MASK) != 0).sum())
+    emit("noise_kernels_vs_plain", scene="perlin", rays=16384, depth=cam.max_depth,
+         b1_mismatch_share=outside, b1_share_not_bit_equal=differ, b1_max_abs_err=err,
+         marble_hits=hits, b6_radiance_equals_b1=record_same,
+         b6_record_equals_plain=record_plain, b2_radiance_equals_b1=grad_same,
+         rtol=RTOL, atol=ATOL)
+    if outside >= MAX_MISMATCH_SHARE or not torch.isfinite(k_rows).all() \
+            or hits * 10 < tm.shape[0]:
+        raise RuntimeError(f"perlin: B1 {outside:.4%} of rays outside the gate, {hits} hits")
+    if not (record_same and record_plain and grad_same):
+        raise RuntimeError("perlin: B6 or B2 differs from B1 or from its plain version")
+    return outside, err
+
+
+def resume_small_checks(cases):
+    """B11 against its plain version on 16,384 rays: both launches of an
+    explicit split (bounces [0, SPLIT_AT), the survivors sorted, then the
+    rest), all 19 outputs; and the split's outputs against one B1 launch,
+    bit for bit.  ``cases``: (name, scene, cam).  Returns (worst mismatch
+    share, largest abs err)."""
+    worst = (0.0, 0.0)
+    for name, scene, cam in cases:
+        o, d, tm, sid = chunk_rays(cam, 16384, 15, scene.device)
+        tb = cw.build_tables(scene)
+        depth, k_at = cam.max_depth, cw.SPLIT_AT
+
+        def rows(st, b0, b1):
+            return (cw.hdri_rows_for(scene, st, 15, b1, b_start=b0)
+                    if cw.uses_hdri_nee(scene) else None)
+
+        flat = cw._start_state(o, d, tm, sid)
+        h1 = rows(flat[7], 0, k_at)
+        k1 = cw.wavefront_resume(tb, flat, 15, 0, k_at, h1)
+        p1 = cw._wavefront_resume_plain(tb, flat, 15, 0, k_at, h1)
+        flat2, _ = cw._phase_state_sort(cw._resumed_state(flat, k1),
+                                        (k1[9] & cw.FLAG_ALIVE) != 0)
+        h2 = rows(flat2[7], k_at, depth)
+        k2 = cw.wavefront_resume(tb, flat2, 15, k_at, depth, h2)
+        p2 = cw._wavefront_resume_plain(tb, flat2, 15, k_at, depth, h2)
+        c1, c2 = per_ray(rows_of(k1), rows_of(p1)), per_ray(rows_of(k2), rows_of(p2))
+        single = cw.trace_megakernel(scene, cam, o, d, tm, sid, 15)
+        split = cw.trace_megakernel(scene, cam, o, d, tm, sid, 15, split=True)
+        same = all(torch.equal(torch.stack(list(a)) if isinstance(a, tuple) else a,
+                               torch.stack(list(b)) if isinstance(b, tuple) else b)
+                   for a, b in zip(single, split))
+        alive = int(((k1[9] & cw.FLAG_ALIVE) != 0).sum())
+        emit("resume_kernel_vs_plain", scene=name, rays=16384, depth=depth,
+             split_at=k_at, hdri_nee=cw.uses_hdri_nee(scene), alive_after_phase_1=alive,
+             phase_1_mismatch_share=c1[0], phase_1_share_not_bit_equal=c1[1],
+             phase_1_max_abs_err=c1[2], phase_2_mismatch_share=c2[0],
+             phase_2_share_not_bit_equal=c2[1], phase_2_max_abs_err=c2[2],
+             split_equals_single_launch=same)
+        if max(c1[0], c2[0]) >= MAX_MISMATCH_SHARE or not same or alive < 1:
+            raise RuntimeError(f"{name}: B11 against its plain version {c1}, {c2}, "
+                               f"split equals one launch: {same}, alive {alive}")
+        worst = (max(worst[0], c1[0], c2[0]), max(worst[1], c1[2], c2[2]))
+    return worst
+
+
+def noise_main_path(dev, out_dir):
+    """perlin at the JAX bench's size (bench.py:58: 400x225, 25 spp, depth
+    10; one phase at this depth) by the megakernel and by the standard
+    integrator, pictures held to each other.  Returns B1's launches."""
+    scene, cam0 = grt.load_scene("perlin", device=dev)
+    cam = dataclasses.replace(cam0, image_width=PERLIN_BENCH["width"],
+                              samples_per_pixel=PERLIN_BENCH["spp"],
+                              max_depth=PERLIN_BENCH["depth"])
+    n_rays = cam.image_width * cam.image_height * cam.samples_per_pixel
+    grt.render_image(scene, cam, seed=0)   # warm-up
+    stats = grt.RenderStats()
+    reset_resume_counts()
+    ms, img = cuda_ms(lambda: grt.render_image(scene, cam, seed=0, stats=stats))
+    counts = resume_counts()
+    std_stats = grt.RenderStats()
+    reset_resume_counts()
+    std_ms, std_img = cuda_ms(lambda: grt.render_image(scene, cam, seed=0,
+                                                       mega_mode="off", stats=std_stats))
+    std_counts = resume_counts()
+    share = image_share_outside(std_img, img)
+    mean = float(img.mean())
+    png = pathlib.Path(out_dir) / "chip_smoke_perlin.png"
+    grt.film.write_png(str(png), grt.film.to_uint8(img))
+    emit("noise_main_path", scene="perlin", width=cam.image_width,
+         height=cam.image_height, spp=cam.samples_per_pixel, depth=cam.max_depth,
+         camera_rays=n_rays, chunks=stats.chunks, launches=counts,
+         render_ms_cuda_events=ms, camera_mrays_per_s=n_rays / (ms * 1e-3) / 1e6,
+         standard_render_ms=std_ms, standard_launches=std_counts,
+         standard_camera_mrays_per_s=n_rays / (std_ms * 1e-3) / 1e6,
+         pixel_share_outside_tolerance=share,
+         max_abs_diff=float((img - std_img).abs().max()), image_mean=mean, png=str(png))
+    if not torch.isfinite(img).all() or not 0.05 < mean < 0.98:
+        raise RuntimeError(f"perlin: image mean {mean}")
+    if counts["wavefront_fwd"] != stats.chunks or counts["wavefront_resume"] != 0 \
+            or std_counts["wavefront_fwd"] != 0 or std_counts["planar_closest"] < 1:
+        raise RuntimeError(f"perlin: launches {counts}, standard {std_counts}")
+    if share >= MAX_PIXEL_SHARE_OUTSIDE:
+        raise RuntimeError(f"perlin: {share:.4%} of pixel channels differ between "
+                           "the megakernel and the standard integrator")
+    return counts["wavefront_fwd"]
+
+
+def noise_fwd_bwd(dev):
+    """``perlin-fwd-bwd`` (bench.py:225-227: 400x225, 25 spp, depth 10) on
+    the product tier, twice: the loss is that of ``render``'s picture, the
+    gradients are zero by structure (one marble texture, no light) and have
+    the same bits twice.  Returns (B2 launches, B3 launches)."""
+    scene, cam0 = grt.load_scene("perlin", device=dev)
+    cam = dataclasses.replace(cam0, image_width=PERLIN_BENCH["width"],
+                              samples_per_pixel=PERLIN_BENCH["spp"],
+                              max_depth=PERLIN_BENCH["depth"])
+    spp = cam.samples_per_pixel
+    n_rays = cam.image_width * cam.image_height * spp
+    if gradmod.grad_tier(scene, cam.max_depth) != "product":
+        raise RuntimeError(f"perlin: tier {gradmod.grad_tier(scene, cam.max_depth)}")
+    fb = grt.render(scene, cam, seed=0)
+    target = fb / spp * 0.8
+    loss_ref = float(torch.mean((fb / spp - target) ** 2))
+    del fb
+    first_loss, first = grt.render_grad(scene, cam, target, seed=0)   # also the warm-up
+    stats = grt.RenderStats()
+    reset_resume_counts()
+    ms, (loss, grads) = cuda_ms(lambda: grt.render_grad(scene, cam, target, seed=0,
+                                                        stats=stats))
+    counts = resume_counts()
+    loss_f = float(loss)
+    same = all(torch.equal(grads[k], first[k]) for k in grads) and \
+        float(first_loss) == loss_f
+    zero = all(float(g.abs().max()) == 0.0 for g in grads.values())
+    emit("noise_fwd_bwd", scene="perlin", width=cam.image_width,
+         height=cam.image_height, spp=spp, depth=cam.max_depth, camera_rays=n_rays,
+         tier="product", chunks=stats.chunks, launches=counts,
+         render_grad_ms_cuda_events=ms,
+         fwd_bwd_camera_mrays_per_s=n_rays / (ms * 1e-3) / 1e6, loss=loss_f,
+         loss_from_render=loss_ref, gradients_zero_by_structure=zero,
+         same_bits_two_calls=same)
+    if counts["wavefront_grad_fwd"] != stats.chunks \
+            or counts["wavefront_grad_rev"] != stats.chunks or stats.chunks < 1:
+        raise RuntimeError(f"perlin fwd+bwd: launches {counts} for {stats.chunks} chunks")
+    if not loss_f == loss_f or abs(loss_f - loss_ref) > 1e-5 * loss_ref:
+        raise RuntimeError(f"perlin fwd+bwd: loss {loss_f} against {loss_ref}")
+    if not (zero and same):
+        raise RuntimeError(f"perlin fwd+bwd: zero {zero}, same bits {same}")
+    return counts["wavefront_grad_fwd"], counts["wavefront_grad_rev"]
+
+
+def two_phase_path(phase, name, scene, cam, mode, out_dir, rounds=2):
+    """A render at full size by ``mode`` ('split', which ``choose_mega_mode``
+    must pick by itself, or 'compact') against ``mega_mode="single"`` on the
+    same seed, timed in turns (single, two-phase, two-phase, single, ...)
+    after one warm-up of each: the pictures must be the same bits.  The
+    launch counts are those of the last two-phase render (set to 0 just
+    before it, read just after).  Returns (those counts, chunks)."""
+    n_rays = cam.image_width * cam.image_height * cam.samples_per_pixel
+    chunk = renderer.pick_chunk_size(scene)
+    n_virt = renderer.ray_layout(cam.image_width, cam.image_height,
+                                 renderer.scene_tiled(scene))[2]
+    chunk = min(chunk // n_virt, cam.samples_per_pixel) * n_virt
+    picked = wavefront.choose_mega_mode(scene, cam, chunk, False)
+    if mode == "split" and picked != "split":
+        raise RuntimeError(f"{name}: choose_mega_mode picked {picked!r} at {chunk} rays")
+    two_kw = {} if mode == "split" else {"mega_mode": mode}
+    single_img = grt.render_image(scene, cam, seed=0, mega_mode="single")
+    grt.render_image(scene, cam, seed=0, **two_kw)
+    taken = {"single": [], mode: []}
+    for r in range(rounds):
+        for which in (("single", mode) if r % 2 == 0 else (mode, "single")):
+            kw = {"mega_mode": "single"} if which == "single" else two_kw
+            stats = grt.RenderStats()
+            reset_resume_counts()
+            ms, img = cuda_ms(lambda: grt.render_image(scene, cam, seed=0, stats=stats, **kw))
+            counts = resume_counts()
+            taken[which].append(ms)
+            if which == "single":
+                single_img, single_counts = img, counts
+            else:
+                two_img, two_counts, two_stats = img, counts, stats
+    same = torch.equal(two_img, single_img)
+    mean = float(two_img.mean())
+    png = pathlib.Path(out_dir) / f"chip_smoke_{name}_{mode}.png"
+    grt.film.write_png(str(png), grt.film.to_uint8(two_img))
+    emit(phase, scene=name, mode=mode, width=cam.image_width, height=cam.image_height,
+         spp=cam.samples_per_pixel, depth=cam.max_depth, camera_rays=n_rays,
+         chunks=two_stats.chunks, rays_per_chunk=chunk, launches=two_counts,
+         launches_single=single_counts, render_ms_rounds=taken,
+         render_ms_median={k: median(v) for k, v in taken.items()},
+         camera_mrays_per_s={k: n_rays / (median(v) * 1e-3) / 1e6
+                             for k, v in taken.items()},
+         pictures_bit_equal=same, image_mean=mean, png=str(png))
+    nch = two_stats.chunks
+    if two_counts["wavefront_resume"] != 2 * nch or two_counts["wavefront_fwd"] != 0 \
+            or single_counts["wavefront_fwd"] != nch or single_counts["wavefront_resume"]:
+        raise RuntimeError(f"{name}: launches {two_counts}, single {single_counts}")
+    if not same or not torch.isfinite(two_img).all() or not 0.02 < mean < 0.98:
+        raise RuntimeError(f"{name}: {mode} picture differs from single's "
+                           f"(equal {same}, mean {mean})")
+    return two_counts, nch
+
+
+def resume_kernel_timing(scene, cam, launches, small):
+    """B11 alone at a chunk of perlin's own job (600x337, depth 50): phase 1
+    (bounces [0, SPLIT_AT) on the rays in their order) and phase 2 (the rest,
+    on the sorted survivors), each timed in rounds beside its plain version
+    and its bound; the sort and the gather back; the rays entering each
+    bounce and the marble hits, counted by chaining one-bounce launches (whose
+    result must be one launch's, bit for bit).  Returns B11's entry of the
+    ``kernels`` line."""
+    dev = scene.device
+    n_virt = cam.image_width * cam.image_height
+    n = min(renderer.pick_chunk_size(scene) // n_virt, cam.samples_per_pixel) * n_virt
+    depth, k_at = cam.max_depth, cw.SPLIT_AT
+    tb = cw.build_tables(scene)
+    o, d, tm, sid = chunk_rays(cam, n, 0, dev)
+    flat = cw._start_state(o, d, tm, sid)
+
+    # entered ray-bounces and marble hits (perlin: every hit is marble)
+    entering, hits = [], []
+    st = flat
+    for b in range(depth):
+        alive = (st[14] & cw.FLAG_ALIVE) != 0
+        missed = (st[14] & cw.FLAG_MISSED) != 0
+        out = cw.wavefront_resume(tb, st, 0, b, b + 1)
+        entering.append(int(alive.sum()))
+        hits.append(entering[-1] - int((((out[9] & cw.FLAG_MISSED) != 0) & ~missed).sum()))
+        st = cw._resumed_state(st, out)
+    one_rows, one_flags = cw.wavefront_fwd(tb, o, d, tm, sid, 0, depth)
+    chained = (torch.equal(torch.stack(st[11:14] + st[15:21]), one_rows)
+               and torch.equal(st[14], one_flags))
+    del one_rows, one_flags
+
+    out1 = cw.wavefront_resume(tb, flat, 0, 0, k_at)
+    r1, out1 = rounds_ms(lambda: cw.wavefront_resume(tb, flat, 0, 0, k_at),
+                         rounds=3, repeats=3)
+    alive1 = (out1[9] & cw.FLAG_ALIVE) != 0
+    state2 = cw._resumed_state(flat, out1)
+    sort_ms, (flat2, back) = cuda_ms(lambda: cw._phase_state_sort(state2, alive1))
+    cw.wavefront_resume(tb, flat2, 0, k_at, depth)
+    r2, out2 = rounds_ms(lambda: cw.wavefront_resume(tb, flat2, 0, k_at, depth),
+                         rounds=3, repeats=3)
+    gather_ms, _ = cuda_ms(lambda: cw._packed_gather(out2[0:10], back))
+    plain1_ms, p1 = cuda_ms(lambda: cw._wavefront_resume_plain(tb, flat, 0, 0, k_at))
+    c1 = per_ray(rows_of(out1), rows_of(p1))
+    del p1
+    plain2_ms, p2 = cuda_ms(lambda: cw._wavefront_resume_plain(tb, flat2, 0, k_at, depth))
+    c2 = per_ray(rows_of(out2), rows_of(p2))
+    del p2
+
+    table_bytes = 4 * sum(t.numel() for t in (tb.pt, tb.st, tb.vt, tb.lt))
+    per_bounce = (tb.n_planar * FLOPS_PLANAR + tb.n_sphere * FLOPS_SPHERE
+                  + tb.n_vol * FLOPS_VOLUME + FLOPS_SHADE)
+
+    def bound(b0, b1):
+        flops = (float(sum(entering[b0:b1])) * per_bounce
+                 + float(sum(hits[b0:b1])) * FLOPS_MARBLE)
+        int_ops = float(sum(hits[b0:b1])) * INT_OPS_MARBLE
+        return (((RESUME_BYTES_PER_RAY * n + table_bytes) / PEAK_BYTES_PER_S) * 1e3,
+                (flops / PEAK_FP32_FLOPS + int_ops / PEAK_INT32_OPS) * 1e3)
+
+    b1, b2 = bound(0, k_at), bound(k_at, depth)
+    ms1, ms2 = median(r1), median(r2)
+    emit("resume_kernel_timing", scene="perlin", rays_per_launch=n, depth=depth,
+         split_at=k_at, phase_1_ms=ms1, phase_1_ms_rounds=r1, phase_2_ms=ms2,
+         phase_2_ms_rounds=r2, launches_per_chunk=2, sort_ms=sort_ms,
+         gather_back_ms=gather_ms, phase_1_plain_ms=plain1_ms,
+         phase_2_plain_ms=plain2_ms, alive_after_phase_1=int(alive1.sum()),
+         rays_entering_bounce=entering, marble_hits_by_bounce=hits,
+         chained_one_bounce_launches_equal_one_launch=chained,
+         phase_1_bound_bytes_ms=b1[0], phase_1_bound_ops_ms=b1[1],
+         phase_2_bound_bytes_ms=b2[0], phase_2_bound_ops_ms=b2[1],
+         phase_1_roofline_share=max(b1) / ms1, phase_2_roofline_share=max(b2) / ms2,
+         phase_1_mismatch_share=c1[0], phase_1_share_not_bit_equal=c1[1],
+         phase_2_mismatch_share=c2[0], phase_2_share_not_bit_equal=c2[1],
+         flops_marble=FLOPS_MARBLE, int_ops_marble=INT_OPS_MARBLE)
+    if not chained or max(c1[0], c2[0]) >= MAX_MISMATCH_SHARE:
+        raise RuntimeError(f"B11 at the chunk: chained {chained}, against plain {c1} {c2}")
+    # one entry for the kernel: a chunk's two launches, their mean
+    bound_pair = ((b1[0] + b2[0]) / 2, (b1[1] + b2[1]) / 2)
+    return kernel_entry(
+        n, "wavefront_resume", "go_raytracing_tpu_torch/csrc/wavefront.cu",
+        "go_raytracing_tpu/ops/pallas_wavefront.py:2514 (_call_resume)",
+        launches, (ms1 + ms2) / 2, (plain1_ms + plain2_ms) / 2, bound_pair,
+        [c1[2], c2[2], small[1]]) | {
+            "mismatch_share": max(c1[0], c2[0], small[0]),
+            "ms_phase_1": ms1, "ms_phase_2": ms2, "bound_ms_phase_1": max(b1),
+            "bound_ms_phase_2": max(b2), "sort_ms": sort_ms, "gather_back_ms": gather_ms,
+            "scene": "perlin", "depth": depth}
+
+
+def profile_split_chunk(scene, cam):
+    """Device time by kernel over one chunk of perlin's own job rendered
+    through 'split' (``torch.profiler``), beside the same render's time
+    without the profiler: where the split's time goes (ray generation, the
+    two B11 launches, the sort and the row gathers of the glue)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n_virt = cam.image_width * cam.image_height
+    one = min(renderer.pick_chunk_size(scene) // n_virt, cam.samples_per_pixel)
+    grt.render(scene, cam, spp=one, seed=0)
+    plain_ms, _ = cuda_ms(lambda: grt.render(scene, cam, spp=one, seed=0))
+    single_ms, _ = cuda_ms(lambda: grt.render(scene, cam, spp=one, seed=0,
+                                              mega_mode="single"))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        grt.render(scene, cam, spp=one, seed=0)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    device_ms = sum(r[1] for r in rows)
+
+    def total(*words):
+        return sum(r[1] for r in rows if any(w in r[0].lower() for w in words))
+
+    emit("split_profile", scene="perlin", rays=one * n_virt, spp=one,
+         render_ms_without_profiler=plain_ms, single_render_ms=single_ms,
+         device_ms=device_ms, device_busy_share=device_ms / plain_ms,
+         device_idle_share=1.0 - device_ms / plain_ms,
+         device_kernel_launches=sum(r[2] for r in rows),
+         resume_kernel_ms=total("wavefront_resume"),
+         sort_kernels_ms=total("sort", "radix"),
+         gather_and_index_kernels_ms=total("index", "gather", "scatter"),
+         copy_and_cat_kernels_ms=total("copy", "cat"),
+         top=[dict(name=r[0][:80], ms=r[1], calls=r[2]) for r in rows[:14]])
+    if device_ms <= 0.0 or total("wavefront_resume") <= 0.0:
+        raise RuntimeError("split_profile: the profiler saw no B11 launch on the device")
+
+
+def marble_and_split_phases(dev, out_dir, env):
+    """Marble textures (A13) and the resumable kernel (B11): the small
+    checks, perlin forward and fwd+bwd at the JAX bench's size, perlin at
+    its own depth 50 and ``random`` at its own 1200x675 and depth 50 (spp
+    cut) through 'split', ``random`` through 'compact', and B11 alone.
+    Returns (B11's entry, fields for B1's entry, B2 / B3 launches)."""
+    b1_marble = noise_small_checks(dev)
+    perlin, p_cam = grt.load_scene("perlin", device=dev)
+    smoke, s_cam = grt.load_scene("cornell-smoke", device=dev)
+    nee, h_cam = hdri_scene(dev, True, env)
+    small = resume_small_checks([
+        ("perlin", perlin, dataclasses.replace(p_cam, image_width=128,
+                                               samples_per_pixel=2)),
+        ("cornell-smoke", smoke, dataclasses.replace(
+            s_cam, image_width=64, aspect_ratio=1.0, samples_per_pixel=4,
+            max_depth=DEEP_DEPTH)),
+        ("hdri-test-nee", nee, dataclasses.replace(
+            h_cam, image_width=128, samples_per_pixel=2, max_depth=DEEP_DEPTH)),
+    ])
+    del smoke, nee
+    b1_noise = noise_main_path(dev, out_dir)
+    grad_launches = noise_fwd_bwd(dev)
+    split_counts, _ = two_phase_path("split_main_path", "perlin", perlin, p_cam,
+                                     "split", out_dir)
+    rnd, r_cam = grt.load_scene("random", device=dev)
+    two_phase_path("split_random", "random", rnd,
+                   dataclasses.replace(r_cam, samples_per_pixel=RANDOM_CUT_SPP),
+                   "split", out_dir)
+    two_phase_path("compact_check", "random", rnd,
+                   dataclasses.replace(r_cam, image_width=600, samples_per_pixel=25,
+                                       max_depth=10),
+                   "compact", out_dir, rounds=1)
+    del rnd
+    entry = resume_kernel_timing(perlin, p_cam, split_counts["wavefront_resume"], small)
+    profile_split_chunk(perlin, p_cam)
+    b1_fields = {"mismatch_share_marble": b1_marble[0],
+                 "max_abs_err_marble": b1_marble[1],
+                 "launches_noise_main_path": b1_noise}
+    return entry, b1_fields, grad_launches
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out-dir", default=str(_build.BUILD_DIR),
@@ -2480,6 +2929,7 @@ def main():
     grev_regs, grev_spill = kernel_stats(built_grad, "wavefront_grad_rev_kernel")
     prev_regs, prev_spill = kernel_stats(built_pw, "wavefront_grad_rev_pathwise_kernel")
     fused_regs = kernel_stats(built_fused, "wavefront_grad_fused_kernel")
+    resume_regs = kernel_stats(built, "wavefront_resume_kernel")
     seg_regs = kernel_stats(built_rows, "sorted_segment_sums_kernel")
     # planar_kernel<false> / <true> and sphere_kernel<false> / <true>: closest
     # hit alone, and with the winner's attributes
@@ -2495,8 +2945,8 @@ def main():
         ("mesh_sweep_any_hit", "mesh_sweep_kernelILb1E"),
         ("mesh_stream", "mesh_stream_kernelILb0E"),
         ("mesh_stream_any_hit", "mesh_stream_kernelILb1E"))}
-    emit("build", seconds=time.perf_counter() - t0, kernels=14,
-         kernels_note="thirteen ports of TPU kernels and the row-sum kernel of "
+    emit("build", seconds=time.perf_counter() - t0, kernels=15,
+         kernels_note="fourteen ports of TPU kernels and the row-sum kernel of "
                       "take_rows' backward pass (not a port; its file also holds "
                       "the sorted segment sums of the environment's texels)",
          nvcc_seconds=[b.build_seconds for b in (built, built_fma, built_grad, built_pw,
@@ -2506,6 +2956,7 @@ def main():
                     built_ix.path.name, built_mesh.path.name, built_rows.path.name,
                     built_fused.path.name],
          fused_registers=fused_regs[0], fused_spill_bytes=fused_regs[1],
+         resume_registers=resume_regs[0], resume_spill_bytes=resume_regs[1],
          segment_sums_registers=seg_regs[0], segment_sums_spill_bytes=seg_regs[1],
          record_registers=rec_regs[0], record_spill_bytes=rec_regs[1],
          row_sums_registers=rows_regs[0], row_sums_spill_bytes=rows_regs[1],
@@ -2547,6 +2998,9 @@ def main():
                                 samples_per_pixel=4, max_depth=5)
     grad_checks.append(compare_grad(s_scene, s_cam, 5, "cornell-smoke"))
     grad_checks.append(compare_grad(*checker_sky_scene(dev), 6, "checker_sky"))
+    # marble (no gradient of its own: its winners take the null slot) beside a
+    # solid sphere and a light, against autograd
+    grad_checks.append(compare_grad(*marble_scene(dev), 13, "marble_solid"))
 
     # ---- the pathwise gradient kernels against their plain versions ----------------
     g_scene, g_cam0 = grt.load_scene("cornell-glossy")
@@ -2774,6 +3228,12 @@ def main():
     # ---- environments: hdri-test and hdri-test-nee at the JAX bench's size ------
     b4_entry, b1_env, b5b_env, _ = env_phases(dev, out_dir)
 
+    # ---- marble textures and the resumable kernel: perlin, split, compact --------
+    b11_entry, b1_marble, (b2_noise, b3_noise) = marble_and_split_phases(
+        dev, out_dir, synthetic_sky()[0])
+    grad_entries[0]["launches_noise_fwd_bwd"] = b2_noise
+    grad_entries[1]["launches_noise_fwd_bwd"] = b3_noise
+
     emit("grad_bit_stable", autograd_same_bits=autograd_bits,
          replay_render_grad_same_bits={"random": rr_bits, "cornell-lucy": lu_bits})
     if not (all(autograd_bits) and rr_bits and lu_bits):
@@ -2796,8 +3256,9 @@ def main():
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "library_ms": None,
         **b1_env,
+        **b1_marble,
     }, rec_entry, *grad_entries, pw_entries[0], pw_entries[1] | b5b_env, *ix_entries,
-        *mesh_entries, b4_entry]}), flush=True)
+        *mesh_entries, b4_entry, b11_entry]}), flush=True)
     print(name_and_limit, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 // Wavefront megakernel for Hopper (sm_90a): the whole bounce loop of the
 // path tracer in one kernel, one thread per ray.  Four instantiations of
-// one template:
+// one template, and the resumable kernel (wavefront_resume_kernel, below):
 //
 //   wavefront_kernel<FWD>       the forward render.  Replaces the forward
 //       specialization of make_kernel in the JAX package's
@@ -29,9 +29,18 @@
 //       trace_megakernel(record=True)).  The replay tier of the gradient
 //       (render/grad.py) keeps the record and replays it differentiably.
 //
-// The radiance of all four is the same by construction.  The bounce loop
+// The radiance of all five is the same by construction.  The bounce loop
 // itself (trace_ray and the sweeps) lives in wavefront_trace.cuh, which the
 // fused gradient kernel (wavefront_grad_fused.cu) includes too.
+//
+// Marble textures are evaluated in the bounce loop (wf::marble in
+// wavefront_common.cuh, the in-kernel marble of the JAX kernel's has_noise
+// branch): 7 octaves of 8 lattice corners, each a PCG3D hash, a normalized
+// gradient and a dot product, about 3,300 operations a marble hit, so a
+// scene of marble surfaces (perlin: one sphere, one plane) is bound by the
+// marble's arithmetic, not by its sweeps.  The gradient forwards take marble
+// only on the product tier, where a marble winner's albedo slot is the null
+// slot.
 //
 // In a scene with quad lights and an importance-sampled environment the
 // forward and the record also read 7 rows a bounce, the ray's environment
@@ -104,18 +113,10 @@
 
 namespace {
 
-template <int MODE>
-__global__ void __launch_bounds__(THREADS)
-wavefront_kernel(Tables G, const float* __restrict__ ox,
-                 const float* __restrict__ oy, const float* __restrict__ oz,
-                 const float* __restrict__ dx, const float* __restrict__ dy,
-                 const float* __restrict__ dz, const float* __restrict__ tm,
-                 const uint32_t* __restrict__ stream, float* __restrict__ out,
-                 int* __restrict__ flags_out, long long n_rays, uint32_t seed,
-                 int max_depth, int tables_in_smem, Stash Z, Miss M,
-                 float* __restrict__ miss_col, Record D,
-                 const float* __restrict__ hdri) {
-    extern __shared__ float smem[];
+// The block's copy of the scalar tables in shared memory (when they fit),
+// or the tables in device memory.
+__device__ __forceinline__ Tables stage_tables(const Tables& G, int tables_in_smem,
+                                               float* smem) {
     Tables S = G;
     if (tables_in_smem) {
         const int n_pt = PT_ROWS * G.pc, n_st = ST_ROWS * G.sc;
@@ -134,18 +135,35 @@ wavefront_kernel(Tables G, const float* __restrict__ ox,
         S.lt = s_lt;
         __syncthreads();
     }
+    return S;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS)
+wavefront_kernel(Tables G, const float* __restrict__ ox,
+                 const float* __restrict__ oy, const float* __restrict__ oz,
+                 const float* __restrict__ dx, const float* __restrict__ dy,
+                 const float* __restrict__ dz, const float* __restrict__ tm,
+                 const uint32_t* __restrict__ stream, float* __restrict__ out,
+                 int* __restrict__ flags_out, long long n_rays, uint32_t seed,
+                 int max_depth, int tables_in_smem, Stash Z, Miss M,
+                 float* __restrict__ miss_col, Record D,
+                 const float* __restrict__ hdri) {
+    extern __shared__ float smem[];
+    const Tables S = stage_tables(G, tables_in_smem, smem);
 
     const long long step = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n_rays;
          i += step) {
         float o[3] = {ox[i], oy[i], oz[i]};
         float d[3] = {dx[i], dy[i], dz[i]};
+        float tp[3] = {1.0f, 1.0f, 1.0f};
         float rad[3] = {0.0f, 0.0f, 0.0f};
         float m_dir[3] = {0.0f, 0.0f, 0.0f};
         float m_tp[3] = {0.0f, 0.0f, 0.0f};
-        int flags;
-        trace_ray<MODE>(S, o, d, tm[i], stream[i], seed, max_depth, rad, m_dir,
-                        m_tp, flags, Z, D, i,
+        int flags = FLAG_ALIVE | FLAG_ALLOW;
+        trace_ray<MODE>(S, o, d, tp, tm[i], stream[i], seed, 0, max_depth, rad,
+                        m_dir, m_tp, flags, Z, D, i,
                         Hdri{hdri != nullptr ? hdri + i : nullptr, n_rays});
 #pragma unroll
         for (int c = 0; c < 3; ++c) {
@@ -163,15 +181,90 @@ wavefront_kernel(Tables G, const float* __restrict__ ox,
     }
 }
 
-template <int MODE>
-int launch(const float* pt, const float* st, const float* vt, const float* lt,
-           int n_planar, int n_sphere, int n_vol, int n_lights, const float* ox,
-           const float* oy, const float* oz, const float* dx, const float* dy,
-           const float* dz, const float* tm, const void* stream, float* out,
-           int* flags, long long n_rays, unsigned int seed, int max_depth,
-           void* cuda_stream, Stash Z, Miss M, float* miss_col,
-           Record D = Record{nullptr, nullptr, 0}, const float* hdri = nullptr) {
+// The resumable kernel: bounces [b_start, b_end) of a path state carried in
+// and out.  Replaces make_kernel(resume=True) of the JAX package's
+// go_raytracing_tpu/ops/pallas_wavefront.py (launched by _call_resume
+// through pl.pallas_call, for the 'split' and 'compact' modes of
+// trace_megakernel).  The bounce loop is trace_ray's, from the state it is
+// handed: a ray's radiance over [0, k) then [k, depth) is the forward
+// kernel's over [0, depth), bit for bit.
+//
+// What bounds it: the forward's work for the bounces it runs, plus the
+// state it moves, 21 rows in and 19 out (160 bytes a ray against the
+// forward's 72).  One thread a ray, as the forward.  Between its two
+// launches the caller moves the survivors (a sort or a partition in torch),
+// so that the second launch's warps hold live rays together.
+struct ResumeIn {
+    const float* o[3];
+    const float* d[3];
+    const float* tm;
+    const uint32_t* stream;
+    const float* tp[3];
+    const float* rad[3];
+    const int* flags;
+    const float* m_dir[3];
+    const float* m_tp[3];
+};
+
+struct ResumeOut {
+    float* rad[3];
+    float* m_dir[3];
+    float* m_tp[3];
+    int* flags;
+    float* o[3];
+    float* d[3];
+    float* tp[3];
+};
+
+__global__ void __launch_bounds__(THREADS)
+wavefront_resume_kernel(Tables G, ResumeIn I, ResumeOut O, long long n_rays,
+                        uint32_t seed, int b_start, int b_end, int tables_in_smem,
+                        const float* __restrict__ hdri) {
+    extern __shared__ float smem[];
+    const Tables S = stage_tables(G, tables_in_smem, smem);
+    const long long step = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n_rays;
+         i += step) {
+        float o[3], d[3], tp[3], rad[3], m_dir[3], m_tp[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            o[c] = I.o[c][i];
+            d[c] = I.d[c][i];
+            tp[c] = I.tp[c][i];
+            rad[c] = I.rad[c][i];
+            m_dir[c] = I.m_dir[c][i];
+            m_tp[c] = I.m_tp[c][i];
+        }
+        int flags = I.flags[i];
+        trace_ray<FWD>(S, o, d, tp, I.tm[i], I.stream[i], seed, b_start, b_end, rad,
+                       m_dir, m_tp, flags, Stash{nullptr, nullptr, 0},
+                       Record{nullptr, nullptr, 0}, i,
+                       Hdri{hdri != nullptr ? hdri + i : nullptr, n_rays});
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            O.rad[c][i] = rad[c];
+            O.m_dir[c][i] = m_dir[c];
+            O.m_tp[c][i] = m_tp[c];
+            O.o[c][i] = o[c];
+            O.d[c][i] = d[c];
+            O.tp[c][i] = tp[c];
+        }
+        O.flags[i] = flags;
+    }
+}
+
+// Tables, shared memory and grid of one launch: one thread a ray, at most
+// BLOCKS_PER_SM blocks an SM (a grid-stride loop takes the rest).
+struct Setup {
     Tables G;
+    size_t smem_bytes;  // 0: the tables stay in device memory
+    unsigned int blocks;
+};
+
+int setup(const float* pt, const float* st, const float* vt, const float* lt,
+          int n_planar, int n_sphere, int n_vol, int n_lights, long long n_rays,
+          Setup& L) {
+    Tables& G = L.G;
     G.pt = pt;
     G.st = st;
     G.vt = vt;
@@ -188,7 +281,7 @@ int launch(const float* pt, const float* st, const float* vt, const float* lt,
     const size_t table_bytes =
         sizeof(float) * ((size_t)PT_ROWS * G.pc + (size_t)ST_ROWS * G.sc +
                          (size_t)VT_ROWS * G.vc + (size_t)LT_ROWS * G.lc);
-    const int in_smem = table_bytes <= SMEM_TABLE_LIMIT;
+    L.smem_bytes = table_bytes <= SMEM_TABLE_LIMIT ? table_bytes : 0;
 
     int device = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&device);
@@ -200,18 +293,32 @@ int launch(const float* pt, const float* st, const float* vt, const float* lt,
     const long long cap = (long long)sms * BLOCKS_PER_SM;
     if (blocks > cap) blocks = cap;
     if (blocks < 1) blocks = 1;
+    L.blocks = (unsigned int)blocks;
+    return 0;
+}
 
-    wavefront_kernel<MODE><<<(unsigned int)blocks, THREADS,
-                              in_smem ? table_bytes : (size_t)0,
+template <int MODE>
+int launch(const float* pt, const float* st, const float* vt, const float* lt,
+           int n_planar, int n_sphere, int n_vol, int n_lights, const float* ox,
+           const float* oy, const float* oz, const float* dx, const float* dy,
+           const float* dz, const float* tm, const void* stream, float* out,
+           int* flags, long long n_rays, unsigned int seed, int max_depth,
+           void* cuda_stream, Stash Z, Miss M, float* miss_col,
+           Record D = Record{nullptr, nullptr, 0}, const float* hdri = nullptr) {
+    Setup L;
+    const int err = setup(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights,
+                          n_rays, L);
+    if (err != 0) return err;
+    wavefront_kernel<MODE><<<L.blocks, THREADS, L.smem_bytes,
                               (cudaStream_t)cuda_stream>>>(
-        G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, out, flags,
-        n_rays, seed, max_depth, in_smem, Z, M, miss_col, D, hdri);
+        L.G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, out, flags,
+        n_rays, seed, max_depth, L.smem_bytes > 0, Z, M, miss_col, D, hdri);
     return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// All four launch on the given stream, do not synchronize, allocate nothing and
+// All five launch on the given stream, do not synchronize, allocate nothing and
 // return cudaGetLastError() (0 on success).  `hdri`: the [max_depth * 7,
 // n_rays] rows of HDRI next-event estimation, or null (no environment
 // sampling: a scene without quad lights or without an importance-sampled
@@ -280,4 +387,45 @@ extern "C" int wavefront_grad_fwd_pathwise_launch(
                             n_rays, seed, max_depth, cuda_stream,
                             Stash{stash_f, stash_i, n_rays},
                             Miss{miss_mode, {bg_r, bg_g, bg_b}}, miss_col);
+}
+
+// The resumable kernel.  `in`: the addresses of the 21 [n_rays] rows of the
+// path state (origin 3, direction 3, time, stream, throughput 3, radiance 3,
+// flag word, miss direction 3, miss throughput 3); `out`: those of the 19
+// rows it writes (radiance 3, miss direction 3, miss throughput 3, flag word,
+// origin 3, direction 3, throughput 3); both arrays live in host memory.
+// `hdri`: the [(b_end - b_start) * 7, n_rays] rows of HDRI NEE, or null.
+extern "C" int wavefront_resume_launch(
+    const float* pt, const float* st, const float* vt, const float* lt,
+    int n_planar, int n_sphere, int n_vol, int n_lights, void* const* in,
+    void* const* out, const float* hdri, long long n_rays, unsigned int seed,
+    int b_start, int b_end, void* cuda_stream) {
+    Setup L;
+    const int err = setup(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights,
+                          n_rays, L);
+    if (err != 0) return err;
+    ResumeIn I;
+    ResumeOut O;
+    for (int c = 0; c < 3; ++c) {
+        I.o[c] = (const float*)in[c];
+        I.d[c] = (const float*)in[3 + c];
+        I.tp[c] = (const float*)in[8 + c];
+        I.rad[c] = (const float*)in[11 + c];
+        I.m_dir[c] = (const float*)in[15 + c];
+        I.m_tp[c] = (const float*)in[18 + c];
+        O.rad[c] = (float*)out[c];
+        O.m_dir[c] = (float*)out[3 + c];
+        O.m_tp[c] = (float*)out[6 + c];
+        O.o[c] = (float*)out[10 + c];
+        O.d[c] = (float*)out[13 + c];
+        O.tp[c] = (float*)out[16 + c];
+    }
+    I.tm = (const float*)in[6];
+    I.stream = (const uint32_t*)in[7];
+    I.flags = (const int*)in[14];
+    O.flags = (int*)out[9];
+    wavefront_resume_kernel<<<L.blocks, THREADS, L.smem_bytes,
+                              (cudaStream_t)cuda_stream>>>(
+        L.G, I, O, n_rays, seed, b_start, b_end, L.smem_bytes > 0, hdri);
+    return (int)cudaGetLastError();
 }

@@ -1,5 +1,6 @@
 // Device functions shared by the tracing kernels (wavefront.cu) and the
-// pathwise reverse sweep (wavefront_grad_pathwise.cu).
+// pathwise reverse sweep (wavefront_grad_pathwise.cu): the counter hash, the
+// random draws, the marble texture, the Fresnel decision, the light sample.
 //
 // The pathwise reverse sweep stashes no branch outcome of a bounce but the
 // shadow ray's: it recomputes the random draws from the ray's counter and
@@ -51,12 +52,8 @@ struct U3 {
     float x, y, z;
 };
 
-// PCG3D counter hash -> three uniforms in [0, 1) (core/rng.py).
-__device__ __forceinline__ U3 uniform3(uint32_t stream, uint32_t seed,
-                                       uint32_t bounce, uint32_t purpose) {
-    uint32_t x = stream ^ (seed * 0x9E3779B9u);
-    uint32_t y = (bounce * 0x85EBCA6Bu) ^ seed;
-    uint32_t z = purpose * 0xC2B2AE35u + 0x27D4EB2Fu;
+// PCG3D hash of three words (core/rng.py: _pcg3d), in place.
+__device__ __forceinline__ void pcg3d(uint32_t& x, uint32_t& y, uint32_t& z) {
     x = x * 1664525u + 1013904223u;
     y = y * 1664525u + 1013904223u;
     z = z * 1664525u + 1013904223u;
@@ -69,6 +66,15 @@ __device__ __forceinline__ U3 uniform3(uint32_t stream, uint32_t seed,
     x += y * z;
     y += z * x;
     z += x * y;
+}
+
+// PCG3D counter hash -> three uniforms in [0, 1) (core/rng.py).
+__device__ __forceinline__ U3 uniform3(uint32_t stream, uint32_t seed,
+                                       uint32_t bounce, uint32_t purpose) {
+    uint32_t x = stream ^ (seed * 0x9E3779B9u);
+    uint32_t y = (bounce * 0x85EBCA6Bu) ^ seed;
+    uint32_t z = purpose * 0xC2B2AE35u + 0x27D4EB2Fu;
+    pcg3d(x, y, z);
     U3 r;
     r.x = (float)(x >> 8) * F24;
     r.y = (float)(y >> 8) * F24;
@@ -90,6 +96,61 @@ __device__ __forceinline__ void unit_sphere_draw(uint32_t sid, uint32_t seed,
     ru[0] = rrr * cosf(phi);
     ru[1] = rrr * sinf(phi);
     ru[2] = zr;
+}
+
+// Marble texture (materials/textures.py: marble), the operations of its
+// torch version in the same order: 0.5 * (1 + sin(scale * z + 10 * |fBm|))
+// over 7 octaves of gradient noise at p * scale, each a plain trilinear
+// blend of the 8 lattice corners' gradient . offset.  A corner's gradient is
+// the PCG3D hash of its integer coordinates read as a cube sample, normalized
+// by 1 / sqrt(...) (a division, not rsqrtf: the torch version divides).  The
+// lattice coordinate is floor(p) converted with saturation
+// (__float2int_rd), as the torch version's _floor_i32 and XLA convert.
+__device__ __forceinline__ float noise_corner(int i, int j, int k, float u, float v,
+                                              float w) {
+    uint32_t x = (uint32_t)i, y = (uint32_t)j, z = (uint32_t)k;
+    pcg3d(x, y, z);
+    const float gx = 2.0f * ((float)(x >> 8) * F24) - 1.0f;
+    const float gy = 2.0f * ((float)(y >> 8) * F24) - 1.0f;
+    const float gz = 2.0f * ((float)(z >> 8) * F24) - 1.0f;
+    const float ginv = 1.0f / sqrtf(fmaxf(gx * gx + gy * gy + gz * gz, 1e-12f));
+    return (gx * ginv) * u + (gy * ginv) * v + (gz * ginv) * w;
+}
+
+__device__ __forceinline__ float noise1(float px, float py, float pz) {
+    const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
+    const float u = px - fx, v = py - fy, w = pz - fz;
+    const int i = __float2int_rd(px), j = __float2int_rd(py), k = __float2int_rd(pz);
+    float acc = 0.0f;
+#pragma unroll
+    for (int di = 0; di < 2; ++di) {
+#pragma unroll
+        for (int dj = 0; dj < 2; ++dj) {
+#pragma unroll
+            for (int dk = 0; dk < 2; ++dk) {
+                const float dot = noise_corner(i + di, j + dj, k + dk, u - (float)di,
+                                               v - (float)dj, w - (float)dk);
+                const float wu = di ? u : 1.0f - u;
+                const float wv = dj ? v : 1.0f - v;
+                const float ww = dk ? w : 1.0f - w;
+                acc = acc + wu * wv * ww * dot;
+            }
+        }
+    }
+    return acc;
+}
+
+__device__ __forceinline__ float marble(const float p[3], float scale) {
+    float px = p[0] * scale, py = p[1] * scale, pz = p[2] * scale;
+    float acc = 0.0f, weight = 1.0f;
+    for (int oct = 0; oct < 7; ++oct) {
+        acc = acc + weight * noise1(px, py, pz);
+        weight *= 0.5f;
+        px = px * 2.0f;
+        py = py * 2.0f;
+        pz = pz * 2.0f;
+    }
+    return 0.5f * (1.0f + sinf(scale * p[2] + 10.0f * fabsf(acc)));
 }
 
 // Dielectric: the unit incoming direction and the reflect-or-refract

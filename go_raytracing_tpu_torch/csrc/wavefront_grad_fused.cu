@@ -117,11 +117,12 @@ wavefront_grad_fused_kernel(Tables G, const float* __restrict__ ox,
             float rad[3] = {0.0f, 0.0f, 0.0f};
             float m_dir[3] = {0.0f, 0.0f, 0.0f};
             float m_tp[3] = {0.0f, 0.0f, 0.0f};
-            int flags;
+            float tp[3] = {1.0f, 1.0f, 1.0f};
+            int flags = FLAG_ALIVE | FLAG_ALLOW;
             sid = stream[i];
             hd = hdri != nullptr ? hdri + i : nullptr;
-            trace_ray<PATHWISE>(S, o, d, tm[i], sid, seed, depth, rad, m_dir, m_tp,
-                                flags, Z, Record{nullptr, nullptr, 0}, 0,
+            trace_ray<PATHWISE>(S, o, d, tp, tm[i], sid, seed, 0, depth, rad, m_dir,
+                                m_tp, flags, Z, Record{nullptr, nullptr, 0}, 0,
                                 Hdri{hd, n_rays});
             if (flags & 1) {
                 if (M.mode == MISS_STREAM) {

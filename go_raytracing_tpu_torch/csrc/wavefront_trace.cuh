@@ -1,7 +1,9 @@
 // The bounce loop of the wavefront megakernel, shared by the tracing kernels
-// of wavefront.cu (forward, product and pathwise gradient forwards, record)
-// and by the fused gradient kernel of wavefront_grad_fused.cu, which runs the
-// pathwise gradient forward into a stash in the thread's local memory.  See
+// of wavefront.cu (forward, product and pathwise gradient forwards, record,
+// and the resumable kernel, which runs a range of bounces from a carried
+// path state) and by the fused gradient kernel of wavefront_grad_fused.cu,
+// which runs the pathwise gradient forward into a stash in the thread's
+// local memory.  See
 // wavefront.cu for what it computes and why it is laid out so.
 //
 // Table layouts (row-major [rows, columns], one column per primitive) are
@@ -257,24 +259,37 @@ __device__ __forceinline__ bool occluded(const Tables& S, const float o[3],
     return false;
 }
 
+// Flag word of a path state (ops/cuda_wavefront.py: FLAG_*).
+constexpr int FLAG_MISSED = 1;
+constexpr int FLAG_PRIMARY = 2;
+constexpr int FLAG_ALIVE = 4;
+constexpr int FLAG_ALLOW = 8;
+
+// Bounces [b_start, b_end) of one ray from the path state in o, d, tp, rad,
+// m_dir, m_tp and flags (FLAG_*), which it leaves updated.  A camera ray
+// starts at bounce 0 with tp 1, rad, m_dir, m_tp 0 and flags alive | allow;
+// the resumable kernel hands in the state a launch over [0, b_start) left.
+// Every random draw is keyed on the absolute bounce, so the result does not
+// depend on where the loop was cut.  The stash and the record (b_start 0
+// only) are [b_end, ...]; the HDRI rows [(b_end - b_start) * 7, ...].
 template <int MODE>
 __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3],
-                                          float tmv, uint32_t sid, uint32_t seed,
-                                          int max_depth, float rad[3],
-                                          float m_dir[3], float m_tp[3],
-                                          int& flags, const Stash& Z,
-                                          const Record& D, long long ray,
-                                          const Hdri& H) {
-    float tp[3] = {1.0f, 1.0f, 1.0f};
-    bool alive = true, allow = true, missed = false, m_prim = false;
+                                          float tp[3], float tmv, uint32_t sid,
+                                          uint32_t seed, int b_start, int b_end,
+                                          float rad[3], float m_dir[3],
+                                          float m_tp[3], int& flags,
+                                          const Stash& Z, const Record& D,
+                                          long long ray, const Hdri& H) {
+    bool alive = flags & FLAG_ALIVE, allow = flags & FLAG_ALLOW;
+    bool missed = flags & FLAG_MISSED, m_prim = flags & FLAG_PRIMARY;
     const bool use_nee = S.n_lights > 0;
     constexpr bool STASH = MODE == PRODUCT;
     constexpr bool GRAD = MODE == PRODUCT || MODE == PATHWISE;
     const float zero3[3] = {0.0f, 0.0f, 0.0f};
-    int stashed = 0;  // stash rows (or record rows) written so far
+    int stashed = b_start;  // stash rows (or record rows) written so far
 
-    int b = 0;
-    for (; b < max_depth && alive; ++b) {
+    int b = b_start;
+    for (; b < b_end && alive; ++b) {
         const uint32_t bu = (uint32_t)b;
 
         // ---- closest hit -------------------------------------------------
@@ -306,7 +321,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
                 m_dir[c] = d[c];
                 m_tp[c] = tp[c];
             }
-            m_prim = (b == 0);
+            m_prim = m_prim || (b == 0);
             missed = true;
             alive = false;
             allow = true;
@@ -420,6 +435,11 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
 #pragma unroll
             for (int c = 0; c < 3; ++c) albedo[c] = is_even ? even[c] : odd[c];
             variant = is_even ? 1.0f : 2.0f;
+        } else if (texkind == 2.0f) {
+            // marble: its scale sits in the checker's scale row
+            const float m = marble(p, inv_scale);
+#pragma unroll
+            for (int c = 0; c < 3; ++c) albedo[c] = m;
         }
 
         // ---- scatter ----------------------------------------------------
@@ -531,7 +551,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
         // ray is capped at 3e38, the MIS weight is the balance heuristic with
         // the lambertian pdf, and the firefly clamp applies as above.
         if (H.rows != nullptr && use_mis) {
-            const float* hr = H.rows + (size_t)b * 7 * H.n;
+            const float* hr = H.rows + (size_t)(b - b_start) * 7 * H.n;
             const float hd[3] = {hr[0], hr[H.n], hr[2 * H.n]};
             const float cos_h = dot3(nrm, hd);
             if (cos_h > 0.0f) {
@@ -596,28 +616,29 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
     }
     // A ray that died before the last bounce would have allowLightHits set
     // again by the next bounce of a masked wavefront loop.
-    if (!alive && b < max_depth) allow = true;
+    if (!alive && b < b_end) allow = true;
 
     if constexpr (STASH) {
         // bounces never entered: inert rows
-        for (int k = stashed; k < max_depth; ++k)
+        for (int k = stashed; k < b_end; ++k)
             stash_row(Z, ray, k, zero3, zero3, zero3, zero3, SLOT_NONE,
                       LSLOT_NONE, 0);
     }
     if constexpr (MODE == PATHWISE) {
-        for (int k = stashed; k < max_depth; ++k)
+        for (int k = stashed; k < b_end; ++k)
             stash_row_pathwise(Z, ray, k, zero3, zero3, zero3, zero3, zero3, 0.0f,
                                0.0f, 0.0f, 0.0f, SLOT_NONE, MSLOT_NONE, 0);
     }
     if constexpr (MODE == RECORD) {
         // the bounce of a miss and the bounces never entered: no hit
-        for (int k = stashed; k < max_depth; ++k) {
+        for (int k = stashed; k < b_end; ++k) {
             D.code[(size_t)k * D.n + ray] = 0;
             D.idx[(size_t)k * D.n + ray] = 0;
         }
     }
 
-    flags = (missed ? 1 : 0) | (m_prim ? 2 : 0) | (alive ? 4 : 0) | (allow ? 8 : 0);
+    flags = (missed ? FLAG_MISSED : 0) | (m_prim ? FLAG_PRIMARY : 0) |
+            (alive ? FLAG_ALIVE : 0) | (allow ? FLAG_ALLOW : 0);
 }
 
 // Miss shader of the gradient forwards: the flat background (mode 0), the

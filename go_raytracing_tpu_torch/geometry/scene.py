@@ -167,8 +167,8 @@ class SceneBuilder:
         return len(self._tex) - 1
 
     def noise(self, scale) -> int:
-        raise NotImplementedError(
-            "marble noise textures are not ported yet (ROADMAP.md A13)")
+        self._tex.append(dict(kind=tex.TEX_NOISE, noise_scale=float(scale)))
+        return len(self._tex) - 1
 
     def image(self, path_or_array) -> int:
         raise NotImplementedError(
@@ -469,6 +469,8 @@ class SceneBuilder:
             odd[i] = tx.get("odd", (0, 0, 0))
             inv_scale[i] = tx.get("inv_scale", 1.0)
             noise_scale[i] = tx.get("noise_scale", 1.0)
+        # the marble's value only multiplies white (rt/texture.go:81-85)
+        color[kind == tex.TEX_NOISE] = (1.0, 1.0, 1.0)
         textures = tex.TexturePack(
             dv(kind, i32), dv(color, f32), dv(even, f32), dv(odd, f32),
             dv(inv_scale, f32), dv(noise_scale, f32), dv(np.zeros(t), i32),
@@ -513,6 +515,7 @@ class SceneBuilder:
             light_mat=dv(lm, i32),
             env=env,
             meshes=tuple(meshes),
+            has_noise=bool((kind == tex.TEX_NOISE).any()),
             has_checker=bool((kind == tex.TEX_CHECKER).any()),
             env_importance=self._env_importance,
         )

@@ -52,9 +52,13 @@ winner's hit distance (``_winner_t``), so ``torch.autograd`` also reaches
 the terms through the hit distance.  Random draws, scatter and light
 choices are replayed from the rays' counters.
 
-Not ported yet, each raising ``NotImplementedError``: noise (ROADMAP.md
-A13) and image textures (A16), and the megakernel modes 'split' /
-'compact' (B11) and 'image' (A16).
+The megakernel also runs in two phases (``mega_mode="split"``, picked by
+``choose_mega_mode`` for deep paths of large chunks, and ``"compact"``):
+two launches of its resumable kernel with the survivors moved between them
+(``ops/cuda_wavefront.trace_megakernel``).
+
+Not ported yet, each raising ``NotImplementedError``: image textures and
+the megakernel mode 'image' (ROADMAP.md A16).
 """
 
 from __future__ import annotations
@@ -874,14 +878,21 @@ def _add_miss(scene, cam, radiance: V3, missed, miss_dir: V3, miss_tp: V3,
 
 
 def choose_mega_mode(scene: Scene, cam, r: int, differentiable: bool) -> str:
-    """Dispatch decision: 'off' (the standard integrator) | 'single' (the
-    megakernel).
-
-    The JAX package also has 'split', 'compact' (both need the resumable
-    kernel, ROADMAP.md B11) and 'image' (ROADMAP.md A16); the port picks
-    'single' wherever the kernel applies."""
+    """Dispatch decision for a trace of ``r`` rays: 'off' (the standard
+    integrator) | 'single' (one megakernel launch) | 'split' (two launches
+    of the resumable kernel, the survivors of the first ``SPLIT_AT`` bounces
+    re-sorted between them), as the JAX package decides: 'split' from
+    ``mega.SPLIT_DEPTH_MIN`` bounces and ``mega.SPLIT_R_MIN`` rays on (read
+    at call time), unless the scene has an importance-sampled environment
+    (its HDRI NEE rows would be drawn and streamed once a phase; the JAX
+    package measured split 5.8 times slower there).  'compact' is never
+    picked by itself; 'image' comes with image textures (ROADMAP.md A16)."""
     if differentiable or not mega.applicable(scene):
         return "off"
+    use_hdri = scene.env is not None and scene.env_importance
+    if (cam.max_depth >= mega.SPLIT_DEPTH_MIN and r >= mega.SPLIT_R_MIN
+            and not use_hdri):
+        return "split"
     return "single"
 
 
@@ -1003,9 +1014,6 @@ def bounce_step(scene: Scene, cam, state: PathState, tm, stream, seed,
 
 def _check_standard(scene: Scene):
     """Raise for what the standard integrator does not take yet."""
-    if scene.has_noise:
-        raise NotImplementedError(
-            "marble noise textures are not ported yet (ROADMAP.md A13)")
     if scene.has_image:
         raise NotImplementedError(
             "image textures are not ported yet (ROADMAP.md A16)")
@@ -1039,9 +1047,12 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
     always 0: the mesh kernels have no slot cap and drop nothing (the JAX
     package's frontier traversal could drop pairs).
 
-    ``mega_mode``: None picks 'single' (the megakernel) for a scene inside
-    its gate when ``differentiable`` is false, else 'off' (the standard
-    integrator); either can be forced.
+    ``mega_mode``: None lets ``choose_mega_mode`` pick 'single' or 'split'
+    (the megakernel, in one or two phases) for a scene inside its gate when
+    ``differentiable`` is false, else 'off' (the standard integrator); any
+    of them, and 'compact', can be forced.  The three megakernel modes give
+    the same radiance: 'split' bit for bit, 'compact' to the rounding of
+    one sum where both of its phases add light.
 
     ``differentiable=True`` (standard integrator only) keeps the path
     differentiable by ``torch.autograd`` with respect to the texture
@@ -1058,8 +1069,11 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
     kernels' gates):
       ``record=True`` also returns the ``Decisions`` of the trace, appended
       to what it returns otherwise.  The radiance is that of the same call
-      without ``record``.  The megakernel records by its own kernel
-      (``mega_mode="single"``), the standard integrator as it goes.
+      without ``record``.  The megakernel records by its own kernel, in one
+      phase whatever the mode ('split' and 'compact' record as 'single';
+      the JAX package records 'split' on its standard integrator, only
+      because its record kernel has no two-phase form either), the standard
+      integrator as it goes.
       ``decisions=...`` replays a record differentiably: no closest-hit and
       no shadow sweep runs, each bounce takes its winner from the record and
       recomputes that winner's distance (``_winner_t``), so gradients also
@@ -1081,22 +1095,21 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
         mega_mode = "off"   # the replay runs no sweep
     if mega_mode is None:
         mega_mode = choose_mega_mode(scene, cam, r, differentiable)
-    if mega_mode in ("split", "compact"):
-        raise NotImplementedError(
-            f"mega_mode {mega_mode!r} needs the resumable megakernel, which "
-            "is not ported yet (ROADMAP.md B11)")
     if mega_mode == "image":
         raise NotImplementedError(
             "mega_mode 'image' comes with image textures (ROADMAP.md A16)")
-    if mega_mode not in ("off", "single"):
+    if mega_mode not in ("off", "single", "split", "compact"):
         raise ValueError(f"unknown mega_mode {mega_mode!r}")
+    if record and mega_mode != "off":
+        mega_mode = "single"   # the record kernel runs one phase
 
     stats = dict(mesh_overflow=0)
-    if mega_mode == "single":
+    if mega_mode != "off":
         res = mega.trace_megakernel(
             scene, cam, V3(*(c.contiguous() for c in o)),
             V3(*(c.contiguous() for c in d)), tm.contiguous(), stream, seed,
-            record=record)
+            record=record, split=mega_mode == "split",
+            compact=mega_mode == "compact")
         radiance, miss_dir, miss_tp, flags = res[:4]
         rad = _add_miss(scene, cam, radiance, (flags & mega.FLAG_MISSED) != 0,
                         miss_dir, miss_tp, (flags & mega.FLAG_PRIMARY) != 0)

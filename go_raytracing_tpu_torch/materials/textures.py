@@ -1,10 +1,23 @@
-"""Texture tables: solid / checker (noise and image ids reserved).
+"""Texture tables: solid / checker / Perlin marble (image ids reserved).
 
-A dense SoA pack evaluated branchlessly per ray.  Checker is the 3D
-lattice parity of floor(p/scale + 1e-4).  Marble noise (ROADMAP.md A13)
-and image textures (ROADMAP.md A16) keep their kind ids and table columns
-so the tables stay comparable with the JAX package's, but cannot be built
-yet; ``evaluate`` raises for a scene that claims to hold one.
+A dense SoA pack evaluated branchlessly per ray.
+
+  - Checker: the 3D lattice parity of floor(p/scale + 1e-4).
+  - Marble: 0.5 * (1 + sin(scale * z + 10 * turb(p * scale, 7))), the
+    reference's Perlin with plain trilinear interpolation of the corner
+    gradients' dot products (no Hermite smoothing) and gradients that are
+    normalized cube samples, both quirks kept as the JAX package keeps them.
+    As there, a lattice point's gradient comes from the PCG3D hash of its
+    coordinates (``core/rng._pcg3d``, uint32 arithmetic held in int64), not
+    from the reference's permutation tables.  ``marble`` is the one torch
+    function of it: ``evaluate`` (the standard integrator) and the plain
+    version of the megakernel (``ops/cuda_wavefront._bounce_loop``) both
+    call it, and the kernel's device code (``csrc/wavefront_common.cuh``)
+    repeats its operations in the same order.
+
+Image textures (ROADMAP.md A16) keep their kind id and table columns so the
+tables stay comparable with the JAX package's, but cannot be built yet;
+``evaluate`` raises for a scene that claims to hold one.
 """
 
 from __future__ import annotations
@@ -13,6 +26,7 @@ from dataclasses import dataclass
 
 import torch
 
+from ..core import rng as rngmod
 from ..core.vec3 import V3
 from ..ops import cuda_rows
 
@@ -65,17 +79,91 @@ def take_rows(table, idx):
     return torch.index_select(table, 0, idx)
 
 
+def _floor_i32(x):
+    """floor(x) as int32, saturating at the int32 range as the card's and
+    XLA's conversions do (NaN gives 0); PyTorch's own conversion on the CPU
+    gives INT_MIN for every value out of range."""
+    f = torch.floor(x)
+    i = torch.clamp(f, -2147483648.0, 2147483520.0).to(torch.int32)
+    i = torch.where(f >= 2147483648.0, torch.full_like(i, 2147483647), i)
+    return torch.where(torch.isnan(f), torch.zeros_like(i), i)
+
+
+def _lattice_grad(i, j, k):
+    """Gradient at integer lattice point (i, j, k), int32 tensors of one
+    shape: the PCG3D hash of the three coordinates read as a cube sample in
+    [-1, 1)^3, normalized.  Returns three float32 tensors."""
+    mask = 0xFFFFFFFF
+    x, y, z = rngmod._pcg3d(i.to(torch.int64) & mask, j.to(torch.int64) & mask,
+                            k.to(torch.int64) & mask)
+
+    def cube(v):
+        return 2.0 * rngmod._to_unit_float(v) - 1.0
+
+    gx, gy, gz = cube(x), cube(y), cube(z)
+    inv = 1.0 / torch.sqrt(torch.clamp_min(gx * gx + gy * gy + gz * gz, 1e-12))
+    return gx * inv, gy * inv, gz * inv
+
+
+def perlin_noise_soa(p: V3):
+    """Gradient noise, roughly in [-1, 1], at points p (a V3 of [R]
+    tensors): plain trilinear interpolation of the 8 corners' gradient
+    dot products."""
+    fx, fy, fz = torch.floor(p.x), torch.floor(p.y), torch.floor(p.z)
+    u, v, w = p.x - fx, p.y - fy, p.z - fz
+    i, j, k = _floor_i32(p.x), _floor_i32(p.y), _floor_i32(p.z)
+    accum = torch.zeros_like(p.x)
+    for di in range(2):
+        for dj in range(2):
+            for dk in range(2):
+                gx, gy, gz = _lattice_grad(i + di, j + dj, k + dk)
+                dot = gx * (u - di) + gy * (v - dj) + gz * (w - dk)
+                wu = u if di else 1.0 - u
+                wv = v if dj else 1.0 - v
+                ww = w if dk else 1.0 - w
+                accum = accum + wu * wv * ww * dot
+    return accum
+
+
+def perlin_turb_soa(p: V3, depth: int = 7):
+    """|fBm| turbulence: ``depth`` octaves of ``perlin_noise_soa``, each at
+    twice the frequency and half the weight of the one before."""
+    accum = torch.zeros_like(p.x)
+    weight = 1.0
+    pt = p
+    for _ in range(depth):
+        accum = accum + weight * perlin_noise_soa(pt)
+        weight *= 0.5
+        pt = pt * 2.0
+    return torch.abs(accum)
+
+
+def perlin_noise(p):
+    """``perlin_noise_soa`` for points p [..., 3]."""
+    return perlin_noise_soa(V3(p[..., 0], p[..., 1], p[..., 2]))
+
+
+def perlin_turb(p, depth: int = 7):
+    """``perlin_turb_soa`` for points p [..., 3]."""
+    return perlin_turb_soa(V3(p[..., 0], p[..., 1], p[..., 2]), depth)
+
+
+def marble(p: V3, scale):
+    """The marble texture's value at p (scale: [R] or a number):
+    0.5 * (1 + sin(scale * z + 10 * turb(p * scale, 7)))."""
+    s = scale * p.z + 10.0 * perlin_turb_soa(p * scale, 7)
+    return 0.5 * (1.0 + torch.sin(s))
+
+
 def evaluate(pack: TexturePack, tex_id, u, v, p: V3, *, has_noise=False,
              has_image=False) -> V3:
     """Texture value for each ray: tex_id [R] integer, u/v [R], p: V3 -> V3.
 
     Differentiable in the colour tables (the rows are picked by indexing)
-    and, nowhere, in ``p``: a checker's parity is piecewise constant.
-    ``has_noise`` / ``has_image`` are the scene's static flags; both kinds
-    are still to be ported."""
-    if has_noise:
-        raise NotImplementedError(
-            "marble noise textures are not ported yet (ROADMAP.md A13)")
+    and in ``p`` through the marble (a checker's parity is piecewise
+    constant).  ``has_noise`` / ``has_image`` are the scene's static flags:
+    a scene without noise textures skips the marble; image textures are
+    still to be ported."""
     if has_image:
         raise NotImplementedError(
             "image textures are not ported yet (ROADMAP.md A16)")
@@ -89,4 +177,8 @@ def evaluate(pack: TexturePack, tex_id, u, v, p: V3, *, has_noise=False,
     is_even = (lx + ly + lz) % 2 == 0
     checker = V3.select(is_even, V3.from_rows(take_rows(pack.even_color, tex_id)),
                         V3.from_rows(take_rows(pack.odd_color, tex_id)))
-    return V3.select(kind == TEX_CHECKER, checker, out)
+    out = V3.select(kind == TEX_CHECKER, checker, out)
+    if has_noise:
+        m = marble(p, take_rows(pack.noise_scale, tex_id))
+        out = V3.select(kind == TEX_NOISE, V3(m, m, m), out)
+    return out

@@ -5,10 +5,17 @@ Counterpart of the JAX package's ``ops/pallas_wavefront.py``.  One launch
 of the forward kernel traces a chunk of camera rays through every bounce:
 planar + sphere closest hit, box-volume free flight, miss capture for the
 deferred miss shader, emission with the allowLightHits bit, scatter for
-the five material kinds, checker texture, and NEE toward a uniformly
-picked quad light with a shadow sweep and balance-heuristic MIS.  The RNG
-is the PCG3D counter scheme of ``core/rng.py``, recomputed per ray inside
-the kernel.
+the five material kinds, checker and marble textures, and NEE toward a
+uniformly picked quad light with a shadow sweep and balance-heuristic MIS.
+The RNG is the PCG3D counter scheme of ``core/rng.py``, recomputed per ray
+inside the kernel.
+
+The resumable kernel (``wavefront_resume``) runs bounces [b_start, b_end)
+of a path state carried in and out (21 rows in, 19 out).  It serves the
+two-phase modes of ``trace_megakernel``: 'split' re-sorts the survivors of
+the first bounces into coherent blocks (``_phase_state_sort``) before the
+rest of the loop, 'compact' packs them to the front in their order
+(``_compact_partition``).
 
 The record kernel (``wavefront_record``) is the forward once more, and it
 also writes each bounce's discrete outcome: the winner's kind and index and
@@ -60,9 +67,10 @@ What lives here:
     as the JAX package's (columns are the real primitive counts, with no
     padding);
   * the kernel wrappers ``wavefront_fwd``, ``wavefront_record``,
-    ``wavefront_grad_fwd``, ``wavefront_grad_rev``,
+    ``wavefront_resume``, ``wavefront_grad_fwd``, ``wavefront_grad_rev``,
     ``wavefront_grad_rev_pathwise`` and ``wavefront_grad_fused`` and, over
-    them, ``trace_megakernel`` (``record=True`` for the record),
+    them, ``trace_megakernel`` (``record=True`` for the record,
+    ``split=True`` / ``compact=True`` for the two-phase modes),
     ``grad_fwd_stash``, ``grad_rev_stash`` and ``grad_megakernel``.
     A CUDA tensor launches the kernel (``csrc/wavefront.cu``,
     ``csrc/wavefront_grad.cu``, ``csrc/wavefront_grad_pathwise.cu``,
@@ -71,7 +79,7 @@ What lives here:
     only because it lies on the CPU.  There is no fallback from one to the
     other;
   * the plain versions ``_wavefront_fwd_plain``, ``_wavefront_record_plain``,
-    ``_wavefront_grad_fwd_plain``, ``_wavefront_grad_rev_plain``,
+    ``_wavefront_resume_plain``, ``_wavefront_grad_fwd_plain``, ``_wavefront_grad_rev_plain``,
     ``_wavefront_grad_rev_pathwise_plain`` and ``_wavefront_grad_fused_plain``
     — the
     same functions of the same inputs written with ``[R]`` tensors and
@@ -82,10 +90,10 @@ What lives here:
     the plain forward with the geometry detached (not an oracle of the
     pathwise tier, where colour gradients also flow through positions).
 
-Not ported yet (``applicable`` is False or the caller raises): marble
-noise (and with it stash row 19 and the marble position adjoint of the
-pathwise tier), the resumable variant, sphere segment culling (ROADMAP.md
-queue B).
+Not ported yet: the marble's derivative with respect to the hit point in
+the pathwise and fused kernels (their stash row 19; ``grad_pathwise_applicable``
+and ``grad_fused_applicable`` leave marble out, ROADMAP.md A13b), and sphere
+segment culling (ROADMAP.md queue B).
 """
 
 from __future__ import annotations
@@ -103,6 +111,7 @@ from ..core.segsum import cols_segment_sum
 from ..core.vec3 import V3
 from ..geometry import packs
 from ..lights import hdri as hdri_mod
+from ..materials import textures
 
 BIG = float(packs.BIG)
 EPS_HIT = float(np.float32(vec_consts.EPS_HIT))
@@ -150,8 +159,8 @@ GRAD_MAX_TEX = 170
 # dndp = flip / radius for a sphere winner else 0, hit distance t) and 3 int
 # rows (albedo slot, material id, mask).  Same rows as the JAX package's
 # pathwise stash.  Its row 19 (marble scale) and mask bit 8192 come with
-# noise textures: ``applicable`` excludes them, so the stash always has 19
-# rows here.
+# the marble's derivative (ROADMAP.md A13b): ``grad_pathwise_applicable``
+# excludes marble, so the stash always has 19 rows here.
 PW_STASH_F_ROWS = 19
 PW_STASH_I_ROWS = 3
 MSLOT_NONE = -9      # material slot of a row without fuzz / ior (miss, volume)
@@ -167,7 +176,7 @@ PW_USE_MIS = 256     # lambertian hit in a scene with lights: NEE was sampled
 PW_BLK_H = 512       # the shadow ray toward the environment sample was blocked
 PW_VOLUME = 1024     # a volume won; its index sits in bits 11-12
 PW_VOL_SHIFT = 11
-PW_MARBLE = 8192     # never set: no noise textures
+PW_MARBLE = 8192     # never set: no marble in the pathwise tier (A13b)
 
 # Most accumulators of the pathwise reverse kernel: 9 a texture and 2 a
 # material (fuzz, ior), one row for each of a block's 8 warps in 48 KB of
@@ -194,9 +203,28 @@ FUSED_MAX_DEPTH = 50
 # material), as the pathwise reverse kernel's.
 GRAD_FUSED_MAX_ACC = 1536
 
+# The resumable kernel's path state: 21 rows in (origin 3, direction 3,
+# time, stream, throughput 3, radiance 3, flag word, miss direction 3, miss
+# throughput 3), 19 out (radiance 3, miss direction 3, miss throughput 3,
+# flag word, origin 3, direction 3, throughput 3), the JAX package's order.
+RESUME_IN_ROWS = 21
+RESUME_OUT_ROWS = 19
+# The megakernel's two-phase modes (``trace_megakernel``).  'split' runs
+# bounces [0, SPLIT_AT), re-sorts the survivors by origin cell and direction
+# octant, and finishes the loop; ``integrator/wavefront.choose_mega_mode``
+# picks it from SPLIT_DEPTH_MIN bounces and SPLIT_R_MIN rays on, the JAX
+# package's thresholds.  'compact' (never picked by itself) moves the
+# survivors of bounces [0, COMPACT_AT) to the front in their order.  Read at
+# call time, so a test may change them.
+SPLIT_DEPTH_MIN = 16
+SPLIT_R_MIN = 1 << 18
+SPLIT_AT = 4
+COMPACT_AT = 3
+
 # Kernel launches made by the wrappers (CUDA tensors only).
 LAUNCHES = 0                     # wavefront_fwd
 LAUNCHES_RECORD = 0              # wavefront_record
+LAUNCHES_RESUME = 0              # wavefront_resume
 LAUNCHES_GRAD_FWD = 0            # wavefront_grad_fwd, product rows
 LAUNCHES_GRAD_REV = 0            # wavefront_grad_rev
 LAUNCHES_GRAD_FWD_PATHWISE = 0   # wavefront_grad_fwd(pathwise=True)
@@ -217,11 +245,11 @@ class Tables(NamedTuple):
 
 def applicable(scene, max_prims: int = 1024) -> bool:
     """Can this scene run through the megakernel?  Environments are
-    admitted: the miss shader runs outside, HDRI NEE comes in as rows."""
+    admitted: the miss shader runs outside, HDRI NEE comes in as rows; so
+    are marble textures, which the kernels evaluate themselves."""
     return (
         not scene.meshes
         and not scene.has_image
-        and not scene.has_noise
         and scene.planar.d.shape[0] <= max_prims
         and scene.spheres.radius.shape[0] <= max_prims
         and scene.n_volumes <= 4
@@ -237,7 +265,10 @@ def grad_applicable(scene, max_depth: int) -> bool:
     ``applicable``: no metal and no dielectric material, so that no scatter
     direction depends on a trainable parameter (fuzz, IOR); the gradients
     of fuzz, ior and atlas are then zero by structure and the adjoint of
-    the path is an exact product-chain reverse sweep.  The number of
+    the path is an exact product-chain reverse sweep.  Marble textures are
+    admitted, as in the JAX package: they have no trainable parameter and,
+    with every hit point fixed, their value is a constant of the path (a
+    marble winner's albedo slot is the null slot).  The number of
     textures is bounded by the reverse kernel's accumulator; the depth is
     bounded by memory alone (``render/grad.render_grad`` budgets it)."""
     if not applicable(scene) or max_depth < 1:
@@ -251,15 +282,21 @@ def grad_applicable(scene, max_depth: int) -> bool:
 
 
 def grad_pathwise_applicable(scene, max_depth: int) -> bool:
-    """Can the pathwise gradient kernels take this scene?  ``applicable``
-    (which leaves out noise textures), at least one bounce, and 9
-    accumulators a texture plus 2 a material within the reverse kernel's
-    shared memory.  Metal, dielectric, volumes and environments are
-    admitted; a scene with an environment and quad lights takes the fused
-    kernel (``grad_fused_applicable``), not the two-phase route.  Where
+    """Can the pathwise gradient kernels take this scene?  ``applicable``,
+    no marble texture, at least one bounce, and 9 accumulators a texture
+    plus 2 a material within the reverse kernel's shared memory.  Metal,
+    dielectric, volumes and environments are admitted; a scene with an
+    environment and quad lights takes the fused kernel
+    (``grad_fused_applicable``), not the two-phase route.  Where
     ``grad_applicable`` holds too, the product-chain tier is the one to
-    use: its stash is lighter."""
-    if not applicable(scene) or max_depth < 1:
+    use: its stash is lighter.
+
+    Behind metal or glass a marble's value moves with the hit point, and
+    these kernels lack its derivative (the JAX kernels' stash row 19, mask
+    bit 8192 and dmarble/dp: ROADMAP.md A13b), so a scene with marble and
+    metal or glass takes the replay tier, whose record and replay both
+    evaluate the marble; the JAX package takes its pathwise kernels there."""
+    if not applicable(scene) or scene.has_noise or max_depth < 1:
         return False
     n_tex = int(scene.textures.color.shape[0])
     n_mat = int(scene.materials.kind.shape[0])
@@ -279,8 +316,10 @@ def grad_two_phase_ok(scene, max_depth: int) -> bool:
 
 def grad_fused_applicable(scene, max_depth: int) -> bool:
     """Can the fused gradient kernel take this scene?  The pathwise gate,
+    no marble texture (dmarble/dp is missing here too, ROADMAP.md A13b),
     and at most ``FUSED_MAX_DEPTH`` bounces (its stash is a local array)."""
     return (grad_pathwise_applicable(scene, max_depth)
+            and not scene.has_noise
             and max_depth <= FUSED_MAX_DEPTH)
 
 
@@ -489,13 +528,26 @@ def _occluded(tb, kinds, o, d, t_cap, seed, stream, bounce, purpose_base):
     return blocked
 
 
+def _has_noise(tb: Tables) -> bool:
+    """Does a primitive or volume of the tables carry a marble texture?"""
+    return bool((tb.pt[16, :tb.n_planar] == 2.0).any()
+                or (tb.st[8, :tb.n_sphere] == 2.0).any()
+                or (tb.vt[20, :tb.n_vol] == 2.0).any())
+
+
 def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
-                 pathwise=False, record=None, hdri=None):
+                 pathwise=False, record=None, hdri=None, start=None):
     """The bounce loop on component lists.  Returns ([9, R] f32 rows:
     radiance, miss direction, miss throughput; [R] i32 flag word).
 
-    ``hdri``: [max_depth * 7, R] rows of HDRI NEE (``hdri_rows_for``), or
-    None.
+    ``start``: (b_start, throughput, radiance, flags, miss direction, miss
+    throughput), a path state carried in (``wavefront_resume``): the loop
+    then runs bounces [b_start, max_depth) from it and also returns the
+    rays' origin, direction and throughput after them, (o, d, tp) lists.
+    Every random draw is keyed on the absolute bounce.
+
+    ``hdri``: [(max_depth - b_start) * 7, R] rows of HDRI NEE
+    (``hdri_rows_for``), or None.
 
     ``record``: (code [D, R] u8, idx [D, R] i32) holding zeros; the outcome
     of every bounce a ray enters is written into it (``DEC_*``).
@@ -508,22 +560,29 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
     zero = torch.zeros_like(tm)
     one = torch.ones_like(tm)
     o, d = list(o), list(d)
-    tp = [one.clone(), one.clone(), one.clone()]
-    rad = [zero.clone(), zero.clone(), zero.clone()]
-    m_dir = [zero.clone(), zero.clone(), zero.clone()]
-    m_tp = [zero.clone(), zero.clone(), zero.clone()]
-    alive = torch.ones_like(tm, dtype=torch.bool)
-    allow = alive.clone()
-    missed = torch.zeros_like(alive)
-    m_prim = torch.zeros_like(alive)
+    if start is None:
+        b_start = 0
+        tp = [one.clone(), one.clone(), one.clone()]
+        rad = [zero.clone(), zero.clone(), zero.clone()]
+        m_dir = [zero.clone(), zero.clone(), zero.clone()]
+        m_tp = [zero.clone(), zero.clone(), zero.clone()]
+        flags0 = torch.full_like(stream, FLAG_ALIVE | FLAG_ALLOW, dtype=torch.int32)
+    else:
+        b_start, tp, rad, flags0, m_dir, m_tp = start
+        tp, rad, m_dir, m_tp = list(tp), list(rad), list(m_dir), list(m_tp)
+    alive = (flags0 & FLAG_ALIVE) != 0
+    allow = (flags0 & FLAG_ALLOW) != 0
+    missed = (flags0 & FLAG_MISSED) != 0
+    m_prim = (flags0 & FLAG_PRIMARY) != 0
     zero_i = torch.zeros_like(stream, dtype=torch.int32)
     use_nee = tb.n_lights > 0
+    noise = _has_noise(tb)
     two_pi = float(np.float32(2.0 * np.pi))
     inv_pi = float(np.float32(1.0 / np.pi))
     # planar kinds as host ints: one read, not one per primitive and sweep
     kinds = [int(k) for k in tb.pt[14, :tb.n_planar].tolist()]
 
-    for bounce in range(max_depth):
+    for bounce in range(b_start, max_depth):
         if not bool(alive.any()):
             # every ray died before the last bounce: a further bounce would
             # leave allowLightHits set on all of them
@@ -553,7 +612,7 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
             m_dir[c] = torch.where(lit, d[c], m_dir[c])
             m_tp[c] = torch.where(lit, tp[c], m_tp[c])
         if bounce == 0:
-            m_prim = lit
+            m_prim = m_prim | lit
         missed = missed | lit
 
         t_rec = torch.where(hit, t, 1.0)
@@ -612,6 +671,10 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
             torch.where(is_checker, torch.where(is_even, even[c], odd[c]), col[c])
             for c in range(3)
         ]
+        if noise:
+            # the marble's scale sits in the checker's scale row
+            marble = textures.marble(V3(*p), inv_scale)
+            albedo = [torch.where(texkind == 2.0, marble, albedo[c]) for c in range(3)]
 
         su1, su2, _ = rngmod.uniform3(seed, stream, bounce, rngmod.SCATTER_U)
         zr = 1.0 - 2.0 * su1
@@ -716,7 +779,7 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
         if hdri is not None and use_nee:
             # NEE toward the environment: the sample comes in as rows; the
             # shadow ray is capped at 3e38 (inactive lanes at 0 find nothing)
-            hrow = [hdri[bounce * HDRI_ROWS + c] for c in range(HDRI_ROWS)]
+            hrow = [hdri[(bounce - b_start) * HDRI_ROWS + c] for c in range(HDRI_ROWS)]
             hd, hem, pdf_h = hrow[0:3], hrow[3:6], hrow[6]
             cos_h = _dot3(nrm, hd)
             facing_h = cos_h > 0.0
@@ -813,6 +876,8 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
              + m_prim.to(torch.int32) * FLAG_PRIMARY
              + alive.to(torch.int32) * FLAG_ALIVE
              + allow.to(torch.int32) * FLAG_ALLOW)
+    if start is not None:
+        return out, flags, (o, d, tp)
     return out, flags
 
 
@@ -831,6 +896,18 @@ def _wavefront_record_plain(tb: Tables, o, d, tm, stream, seed, max_depth,
     out, flags = _bounce_loop(tb, o, d, tm, stream, seed, max_depth,
                               record=record, hdri=hdri)
     return out, flags, record[0], record[1]
+
+
+def _wavefront_resume_plain(tb: Tables, flat, seed, b_start, b_end, hdri=None):
+    """Plain version of the resumable kernel: bounces [b_start, b_end) of
+    the 21-row path state ``flat`` (``wavefront_resume``).  Returns the
+    19-tuple of [R] tensors (radiance 3, miss direction 3, miss throughput
+    3, flags, origin 3, direction 3, throughput 3)."""
+    o, d, tm, stream = flat[0:3], flat[3:6], flat[6], flat[7]
+    start = (b_start, flat[8:11], flat[11:14], flat[14], flat[15:18], flat[18:21])
+    out, flags, (o2, d2, tp) = _bounce_loop(tb, o, d, tm, stream, seed, b_end,
+                                            hdri=hdri, start=start)
+    return tuple(out) + (flags,) + tuple(o2) + tuple(d2) + tuple(tp)
 
 
 def _miss_colour_rows(out, flags, miss):
@@ -1307,6 +1384,8 @@ _FWD_ARGTYPES = _TABLES_AND_RAYS + [_P] * 3 + _SIZES + [_P]      # hdri out flag
 _RECORD_ARGTYPES = _TABLES_AND_RAYS + [_P] * 5 + _SIZES + [_P]   # + code idx
 _GRAD_FWD_ARGTYPES = (_TABLES_AND_RAYS + [_P] * 5 + _SIZES
                       + [_I, _F, _F, _F] + [_P])
+_RESUME_ARGTYPES = ([_P] * 4 + [_I] * 4 + [_P] * 3     # tables, counts, in out hdri
+                    + [ctypes.c_longlong, ctypes.c_uint, _I, _I, _P])
 _GRAD_REV_ARGTYPES = [_P] * 5 + [ctypes.c_longlong, _I, _I, _P]
 _GRAD_REV_PATHWISE_ARGTYPES = (
     [_P, _I, _P, _I]                     # light table, volume table, counts
@@ -1436,6 +1515,55 @@ def _wavefront_record_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
         raise RuntimeError(f"wavefront_record kernel launch failed: CUDA error {err}")
     LAUNCHES_RECORD += 1
     return out, flags, code, idx
+
+
+def _check_state(flat):
+    """Raise unless ``flat`` is the resumable kernel's 21-row path state:
+    contiguous [R] tensors on one device, float32 but for the stream and
+    the flag word (int32)."""
+    if len(flat) != RESUME_IN_ROWS:
+        raise ValueError(f"the path state has {RESUME_IN_ROWS} rows, got {len(flat)}")
+    r, dev = flat[0].shape[0], flat[0].device
+    for i, a in enumerate(flat):
+        want = torch.int32 if i in (7, 14) else torch.float32
+        if a.device != dev or a.dtype != want or a.shape != (r,) \
+                or not a.is_contiguous():
+            raise ValueError(
+                f"path state row {i} must be a contiguous {want} [{r}] tensor on "
+                f"{dev}, got {a.dtype} {tuple(a.shape)} on {a.device}")
+
+
+def _wavefront_resume_cuda(tb: Tables, flat, seed, b_start, b_end, hdri=None):
+    """Launch the resumable kernel on PyTorch's current stream; does not
+    synchronize.  Returns what ``_wavefront_resume_plain`` returns (views
+    of one [18, R] float32 tensor, and the [R] int32 flag word)."""
+    global LAUNCHES_RESUME
+    _check_state(flat)
+    o, d, tm, stream = flat[0:3], flat[3:6], flat[6], flat[7]
+    if not 0 <= b_start <= b_end:
+        raise ValueError(f"bounces [{b_start}, {b_end}) are not a range")
+    _check_rays(tb, o, d, tm, stream, max(b_end, 1))
+    r, dev = tm.shape[0], tm.device
+    _check_hdri(hdri, tb, b_end - b_start, r, dev)
+    out = torch.empty((18, r), dtype=torch.float32, device=dev)
+    flags = torch.empty((r,), dtype=torch.int32, device=dev)
+    # the 19 outputs in the order of the JAX package's _call_resume
+    res = tuple(out[0:9]) + (flags,) + tuple(out[9:18])
+    if r == 0:
+        return res
+    fn = _kernel("wavefront", "wavefront_resume_launch", _RESUME_ARGTYPES)
+    ins = (ctypes.c_void_p * RESUME_IN_ROWS)(*[a.data_ptr() for a in flat])
+    outs = (ctypes.c_void_p * RESUME_OUT_ROWS)(*[a.data_ptr() for a in res])
+    with torch.cuda.device(dev):
+        err = fn(tb.pt.data_ptr(), tb.st.data_ptr(), tb.vt.data_ptr(),
+                 tb.lt.data_ptr(), tb.n_planar, tb.n_sphere, tb.n_vol, tb.n_lights,
+                 ins, outs, None if hdri is None else hdri.data_ptr(), r,
+                 int(seed) & 0xFFFFFFFF, int(b_start), int(b_end),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wavefront_resume kernel launch failed: CUDA error {err}")
+    LAUNCHES_RESUME += 1
+    return res
 
 
 def _wavefront_grad_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
@@ -1694,6 +1822,20 @@ def wavefront_record(tb: Tables, o, d, tm, stream, seed, max_depth, hdri=None):
     return impl(tb, o, d, tm, stream, seed, max_depth, hdri)
 
 
+def wavefront_resume(tb: Tables, flat, seed, b_start, b_end, hdri=None):
+    """Bounces [b_start, b_end) of a carried path state (the resumable
+    kernel): ``flat`` is the 21-tuple of [R] tensors (``RESUME_IN_ROWS``;
+    the stream and the flag word ``missed | 2 primary | 4 alive | 8 allow``
+    int32, the rest float32); returns the 19-tuple (``RESUME_OUT_ROWS``).
+    Every random draw is keyed on the absolute bounce, so a ray's result
+    over [0, k) then [k, depth) is the forward kernel's over [0, depth).
+    ``hdri``: the HDRI NEE rows of bounces [b_start, b_end), or None.  CUDA
+    rays launch the kernel (or raise); CPU rays run the plain version."""
+    flat = tuple(flat[:7]) + (stream_to_i32(flat[7]),) + tuple(flat[8:])
+    impl = _wavefront_resume_cuda if flat[0].is_cuda else _wavefront_resume_plain
+    return impl(tb, flat, seed, b_start, b_end, hdri)
+
+
 def unpack_record(code, idx):
     """The record kernel's code and index rows -> (which [D, R] u8, idx,
     blk_a [D, R] bool, blk_h [D, R] bool)."""
@@ -1756,7 +1898,7 @@ def _check_scene(scene):
     if not applicable(scene):
         raise NotImplementedError(
             "scene is outside the forward megakernel's gate (meshes, image "
-            "or noise textures, non-box media, or too many primitives): see "
+            "textures, non-box media, or too many primitives): see "
             "ROADMAP.md queues A and B")
 
 
@@ -1767,16 +1909,20 @@ def uses_hdri_nee(scene) -> bool:
             and scene.env_importance)
 
 
-def hdri_rows_for(scene, stream, seed, max_depth, texel_ids=False):
-    """The HDRI NEE rows of a ray chunk: per bounce the environment sample
-    (direction 3, emission 3, solid-angle pdf) of each ray, drawn from its
-    counter (purposes HDRI_ROW, HDRI_COL) by the alias table, as a
-    [max_depth * 7, R] float32 tensor on the rays' device.  With
-    ``texel_ids`` also the [max_depth, R] flat texel id of each sample (the
-    fused kernel's ``eout`` rows are summed by it)."""
+def hdri_rows_for(scene, stream, seed, max_depth, texel_ids=False, b_start=0):
+    """The HDRI NEE rows of a ray chunk: per bounce of [b_start, max_depth)
+    the environment sample (direction 3, emission 3, solid-angle pdf) of
+    each ray, drawn from its counter (purposes HDRI_ROW, HDRI_COL) by the
+    alias table, as a [(max_depth - b_start) * 7, R] float32 tensor on the
+    rays' device.  With ``texel_ids`` also the [max_depth - b_start, R] flat
+    texel id of each sample (the fused kernel's ``eout`` rows are summed by
+    it)."""
+    if b_start >= max_depth and not texel_ids:
+        return torch.empty((0, stream.shape[0]), dtype=torch.float32,
+                           device=stream.device)
     env = scene.env._replace(data=scene.env.data.detach())
     rows, ids = [], []
-    for b in range(max_depth):
+    for b in range(b_start, max_depth):
         xi1 = rngmod.uniform(seed, stream, b, rngmod.HDRI_ROW)
         xi2 = rngmod.uniform(seed, stream, b, rngmod.HDRI_COL)
         ld, em, pdf_h = hdri_mod.sample_direction_soa(env, xi1, xi2)
@@ -1787,24 +1933,158 @@ def hdri_rows_for(scene, stream, seed, max_depth, texel_ids=False):
     return (out, torch.stack(ids)) if texel_ids else out
 
 
-def trace_megakernel(scene, cam, o: V3, d: V3, tm, stream, seed, record=False):
+def _packed_gather(rows, order):
+    """The [R] rows ``rows`` (int32 ones by their bits) stacked [len, R] and
+    gathered along the rays by ``order`` in one launch -> [len, R] float32,
+    each row contiguous.  The JAX package moves the rows as one [R, 24] row
+    gather, a TPU layout: on the card, building and taking apart that
+    layout cost ten times the two kernels of a chunk (PERF.md), the gather
+    along [len, R] next to nothing."""
+    packed = torch.stack([a if a.dtype == torch.float32 else a.view(torch.float32)
+                          for a in rows])
+    return packed.index_select(1, order)
+
+
+def _phase_state_sort(flat, alive):
+    """Sort the 21-row path state so that the live rays pack into dense
+    blocks, ordered by (origin cell of an 8x8x8 grid over all rays' origins,
+    direction octant) for coherent sweeps; dead rays sink to the back, where
+    whole blocks find nothing to do.  A stable argsort of a 13-bit key, one
+    gather of the stacked rows.  Returns (the sorted 21-tuple, the inverse
+    permutation: ray i's slot)."""
+    ox, oy, oz, dx, dy, dz = flat[0:6]
+    mn = [torch.min(c) for c in (ox, oy, oz)]
+    mx = [torch.max(c) for c in (ox, oy, oz)]
+
+    def cell(c, i):
+        scale = 8.0 / torch.clamp_min(mx[i] - mn[i], 1e-6)
+        return torch.clamp(torch.floor((c - mn[i]) * scale).to(torch.int32), 0, 7)
+
+    octant = ((dx > 0).to(torch.int32) + 2 * (dy > 0).to(torch.int32)
+              + 4 * (dz > 0).to(torch.int32))
+    key = ((cell(ox, 0) * 8 + cell(oy, 1)) * 8 + cell(oz, 2)) * 8 + octant
+    key = torch.where(alive, key, 1 << 13)
+    order = torch.argsort(key, stable=True)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], dtype=order.dtype, device=order.device)
+    rows = _packed_gather(flat, order)
+    out = tuple(rows[i] if a.dtype == torch.float32 else rows[i].view(a.dtype)
+                for i, a in enumerate(flat))
+    return out, inv
+
+
+def _compact_partition(rows12, alive):
+    """Stable partition of the live rays: the survivors move to the front in
+    their order (two cumsums, no sort), the dead to the back.  Only the 12
+    rows a live ray needs move (``rows12`` = origin 3, direction 3, time,
+    stream, throughput 3, flag word); radiance and miss rows restart at zero
+    and the caller merges them back.  The missed and primary bits are
+    stripped first: a live ray never has them, and a dead ray in the tail
+    must not report its miss again from a slot whose miss rows are zero.
+    Returns (the 21-tuple for ``wavefront_resume``, pos: ray i's slot)."""
+    r = rows12[0].shape[0]
+    al = alive.to(torch.int64)
+    cl = torch.cumsum(al, 0)
+    n_live = cl[-1] if r else cl.sum()
+    cd = torch.cumsum(1 - al, 0)
+    pos = torch.where(alive, cl - 1, n_live + cd - 1)
+    order = torch.empty_like(pos)
+    order[pos] = torch.arange(r, dtype=pos.dtype, device=pos.device)
+    rows12 = tuple(rows12[:11]) + (rows12[11] & (FLAG_ALIVE | FLAG_ALLOW),)
+    m = _packed_gather(rows12, order)
+    zero = torch.zeros_like(m[0])
+    flat2 = (tuple(m[0:7]) + (m[7].view(torch.int32),) + tuple(m[8:11])
+             + (zero, zero.clone(), zero.clone(), m[11].view(torch.int32))
+             + tuple(zero.clone() for _ in range(6)))
+    return flat2, pos
+
+
+def _start_state(o: V3, d: V3, tm, stream):
+    """The 21-row path state of camera rays before their first bounce."""
+    zero = torch.zeros_like(tm)
+    one = torch.ones_like(tm)
+    flags0 = torch.full_like(tm, FLAG_ALIVE | FLAG_ALLOW, dtype=torch.int32)
+    return (tuple(o) + tuple(d) + (tm, stream_to_i32(stream))
+            + (one, one.clone(), one.clone(), zero, zero.clone(), zero.clone(), flags0)
+            + tuple(zero.clone() for _ in range(6)))
+
+
+def _resumed_state(flat, out):
+    """The 21-row state that continues ``flat`` after a ``wavefront_resume``
+    launch returned ``out`` (its 19 rows; time and stream carry over)."""
+    return (out[10:16] + (flat[6], flat[7]) + out[16:19] + out[0:3] + (out[9],)
+            + out[3:9])
+
+
+def trace_megakernel(scene, cam, o: V3, d: V3, tm, stream, seed, record=False,
+                     split=False, compact=False):
     """Full bounce loop for a ray megabatch.  Returns (radiance V3,
     miss_dir V3, miss_tp V3, flags [R] i32) where ``flags`` is
     ``missed | 2*miss_primary | 4*alive | 8*allowLightHits``; the caller
     applies the deferred miss shader (integrator/wavefront.trace).
     ``record=True`` runs the record kernel and appends its record to the
     tuple as ``unpack_record`` gives it.  A scene with HDRI NEE streams its
-    rows (``hdri_rows_for``) into the kernel."""
+    rows (``hdri_rows_for``) into the kernels.
+
+    ``split=True`` runs two launches of the resumable kernel: bounces [0,
+    SPLIT_AT) in the rays' own order, then, after ``_phase_state_sort``,
+    the rest; one gather puts the results back in order.  The
+    radiance is that of one forward launch, bit for bit.
+    ``compact=True`` runs bounces [0, COMPACT_AT) (at most depth - 1), then
+    the rest on the survivors packed to the front by
+    ``_compact_partition``; phase 2's radiance starts at zero and is added
+    to phase 1's, so the sum may round otherwise than one launch's where
+    both phases add light.  Under HDRI NEE the second launch's rows are
+    drawn for the moved rays' streams.  The JAX package decides
+    ``split=None`` from the SPLIT_* thresholds here; the port takes the
+    decision from ``integrator/wavefront.choose_mega_mode`` alone."""
     _check_scene(scene)
+    if record and (split or compact):
+        raise ValueError("the record kernel runs one phase: record=True takes "
+                         "neither split nor compact")
+    if split and compact:
+        raise ValueError("split and compact exclude each other")
     tb = build_tables(scene)
-    hdri = (hdri_rows_for(scene, stream, seed, cam.max_depth)
-            if uses_hdri_nee(scene) else None)
-    if not record:
-        return _unpack(*wavefront_fwd(tb, o, d, tm, stream, seed, cam.max_depth,
-                                      hdri))
-    out, flags, code, idx = wavefront_record(tb, o, d, tm, stream, seed,
-                                             cam.max_depth, hdri)
-    return _unpack(out, flags) + (unpack_record(code, idx),)
+    depth = cam.max_depth
+    use_hdri = uses_hdri_nee(scene)
+
+    def rows(sid, b0, b1):
+        return hdri_rows_for(scene, sid, seed, b1, b_start=b0) if use_hdri else None
+
+    if record:
+        out, flags, code, idx = wavefront_record(tb, o, d, tm, stream, seed, depth,
+                                                 rows(stream, 0, depth))
+        return _unpack(out, flags) + (unpack_record(code, idx),)
+    if not (split or compact):
+        return _unpack(*wavefront_fwd(tb, o, d, tm, stream, seed, depth,
+                                      rows(stream, 0, depth)))
+
+    flat = _start_state(o, d, tm, stream)
+    k = min(SPLIT_AT, depth) if split else min(COMPACT_AT, depth - 1)
+    out1 = wavefront_resume(tb, flat, seed, 0, k, rows(flat[7], 0, k))
+    rad1, mdir1, mtp1, flg1 = out1[0:3], out1[3:6], out1[6:9], out1[9]
+    state = _resumed_state(flat, out1)
+    alive1 = (flg1 & FLAG_ALIVE) != 0
+    if split:
+        flat2, back = _phase_state_sort(state, alive1)
+    else:
+        flat2, back = _compact_partition(state[0:11] + (flg1,), alive1)
+    out2 = wavefront_resume(tb, flat2, seed, k, depth, rows(flat2[7], k, depth))
+    # ray i's phase-2 results sit at slot back[i]: one gather puts them back
+    res = _packed_gather(out2[0:10], back)
+    flg2 = res[9].view(torch.int32)
+    if split:
+        return (V3(res[0], res[1], res[2]), V3(res[3], res[4], res[5]),
+                V3(res[6], res[7], res[8]), flg2)
+    # a ray misses at most once, and a phase-1 miss ends it before the
+    # partition: the two miss sets are disjoint
+    missed2 = (flg2 & FLAG_MISSED) != 0
+    rad = V3(*(rad1[c] + res[c] for c in range(3)))
+    m_dir = V3(*(torch.where(missed2, res[3 + c], mdir1[c]) for c in range(3)))
+    m_tp = V3(*(torch.where(missed2, res[6 + c], mtp1[c]) for c in range(3)))
+    flags = ((flg1 | flg2) & (FLAG_MISSED | FLAG_PRIMARY)) \
+        | (flg2 & (FLAG_ALIVE | FLAG_ALLOW))
+    return rad, m_dir, m_tp, flags
 
 
 def trace_megakernel_plain(scene, cam, o: V3, d: V3, tm, stream, seed):
@@ -1829,8 +2109,8 @@ def _check_grad_scene(scene, max_depth, pathwise=False):
             raise NotImplementedError(
                 "scene is outside the pathwise gradient kernels' gate (more "
                 f"than {GRAD_PATHWISE_MAX_ACC} accumulators at 9 a texture "
-                "and 2 a material: the replay tier, ROADMAP.md A18; noise "
-                "textures, A13; or otherwise outside the forward "
+                "and 2 a material: the replay tier, ROADMAP.md A18; marble "
+                "textures, A13b; or otherwise outside the forward "
                 "megakernel's gate): see ROADMAP.md queues A and B")
     elif not grad_applicable(scene, max_depth):
         raise NotImplementedError(

@@ -25,7 +25,8 @@ forward trace of those chunks, with one chunk's stash alive at a time.
 
 Four tiers, on one device (``grad_tier`` picks).  Scenes inside
 ``cuda_wavefront.grad_applicable`` (lambertian, light and isotropic
-materials) take the product-chain tier: gradients of the texture colours.
+materials, marble textures among them) take the product-chain tier:
+gradients of the texture colours.
 Scenes with metal or glass inside ``grad_pathwise_applicable`` take the
 pathwise tier: gradients of fuzz and IOR too, and of colours seen through a
 specular chain.  Its stash is heavier (22 rows a bounce against 15), and
@@ -49,7 +50,9 @@ holds as many rays as ``stash_budget`` allows the kernel's working set
 
 Every other scene (meshes, non-box media, more than 1,024 primitives or 8
 lights, more textures and materials than the pathwise kernel's accumulator
-holds, environments among them) takes the replay tier.  Pass A records each chunk: its radiance and
+holds, environments among them, and marble textures with metal or glass,
+whose marble moves with the hit point: the pathwise and fused kernels lack
+its derivative, ROADMAP.md A13b) takes the replay tier.  Pass A records each chunk: its radiance and
 its ``Decisions``, the outcome of every sweep (the record kernel of
 ``ops/cuda_wavefront`` for scenes inside the megakernel's gate, the
 standard integrator for the others).  Pass B replays each chunk's record
@@ -62,7 +65,7 @@ most ``renderer.MAX_CHUNK_RAYS_DIFFERENTIABLE`` rays: autograd keeps a few
 kilobytes a ray.
 
 Not ported yet, each raising ``NotImplementedError``: image textures
-(ROADMAP.md A16), noise textures (A13) and ``mesh=`` (A19).
+(ROADMAP.md A16) and ``mesh=`` (A19).
 """
 
 from __future__ import annotations
@@ -325,7 +328,7 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
     max_depth = cam.max_depth if max_depth is None else max_depth
     tier = grad_tier(scene, max_depth)
     if tier == "replay":
-        wavefront._check_standard(scene)   # noise, images
+        wavefront._check_standard(scene)   # image textures
         return _render_grad_replay(scene, cam, target, spp=spp,
                                    max_depth=max_depth, seed=seed, chunk=chunk,
                                    stats=stats, dec_budget=dec_budget)

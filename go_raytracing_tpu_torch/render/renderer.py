@@ -204,8 +204,10 @@ def render(scene: Scene, cam: Camera, *, spp: Optional[int] = None,
     ``differentiable=True`` renders through the standard integrator's
     gather route and, where autograd is enabled, records the render: the
     returned buffer then has a ``grad_fn`` (see ``wavefront.trace`` for what
-    the gradients hold).  ``mega_mode`` forces 'off' (standard integrator)
-    or 'single' (megakernel); None picks by scene.
+    the gradients hold).  ``mega_mode`` forces 'off' (standard integrator),
+    'single', 'split' or 'compact' (the megakernel in one or two phases);
+    None picks by scene, depth and chunk size (``wavefront.choose_mega_mode``:
+    'split' for paths of 16 bounces or more in chunks of 2^18 rays or more).
     """
     record_graph = differentiable and torch.is_grad_enabled()
     with torch.set_grad_enabled(record_graph):

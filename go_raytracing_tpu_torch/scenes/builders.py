@@ -2,10 +2,9 @@
 
 Every constructor takes ``device`` (``None`` means "cuda") and returns
 ``(Scene, Camera)``.  The random sphere field in ``random_scene`` uses a
-seeded NumPy generator, so its layout is deterministic.  Scenes that need
-a feature the port does not have yet (marble noise, image textures, HDRI
-environments) raise ``NotImplementedError`` naming the ROADMAP.md item
-they wait for.
+seeded NumPy generator, so its layout is deterministic.  A scene that needs
+a feature the port does not have yet (``earth``: image textures) raises
+``NotImplementedError`` naming the ROADMAP.md item it waits for.
 """
 
 from __future__ import annotations
@@ -114,9 +113,21 @@ def earth_scene(device=None, **kwargs):
         "scene not ported yet: it needs image textures (ROADMAP.md A16)")
 
 
-def perlin_spheres_scene(device=None, **kwargs):
-    raise NotImplementedError(
-        "scene not ported yet: it needs marble noise textures (ROADMAP.md A13)")
+# rt/scenes.go:242-273
+def perlin_spheres_scene(device=None):
+    b = SceneBuilder()
+    perl = b.lambertian(b.noise(4.0))
+    b.sphere((0, 2, 0), 2, perl)
+    b.plane((0, 0, -1), (0, 1, 0), perl)
+    cam = (
+        _camera()
+        .set_resolution(600, 16.0 / 9.0)
+        .set_quality(100, 50)
+        .set_position((13, 2, -10), (0, 1.5, 0), (0, 1, 0))
+        .set_lens(20, 0, 10)
+        .enable_sky_gradient(True)
+    )
+    return b.build(device=device), cam
 
 
 def quads_scene(device=None):

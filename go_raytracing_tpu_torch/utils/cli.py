@@ -5,7 +5,9 @@ Usage:
         [-width 600] [-depth 5] [-out image.png] [-progressive]
         [-seed 0] [-device {cuda,cpu}]
 
-Same ``-scene`` registry and aliases as the JAX package's CLI.  The
+Same ``-scene`` registry and aliases as the JAX package's CLI, at each
+scene's own settings unless flags say otherwise (``-scene perlin``: 600x337,
+100 spp, depth 50, so its chunks take the megakernel's 'split' mode).  The
 render runs on the GPU unless ``-device cpu`` is given.  ``-interactive``,
 ``-profile-dir`` and ``-mem-stats`` are not ported yet (ROADMAP.md A20).
 """

@@ -20,11 +20,11 @@ from go_raytracing_tpu_torch.io import obj as tobj
 from go_raytracing_tpu_torch.ops import cuda_intersect as ck
 from go_raytracing_tpu_torch.ops import cuda_mesh as cm
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
-from test_torch_helpers import (ENV_NEE_CAM, FOG_ROOM_CAM, LUCY_CAM, MINI_HDRI_CAM,
-                                MIXED_CAM, build_env_nee, build_fog_room,
-                                build_lucy, build_mini_hdri, build_mixed,
-                                build_random_prims, lucy_instances, mesh_rays,
-                                random_rays)
+from test_torch_helpers import (ENV_NEE_CAM, FOG_ROOM_CAM, LUCY_CAM, MARBLE_CAM,
+                                MINI_HDRI_CAM, MIXED_CAM, build_env_nee,
+                                build_fog_room, build_lucy, build_marble,
+                                build_mini_hdri, build_mixed, build_random_prims,
+                                lucy_instances, mesh_rays, random_rays)
 
 
 def _rays(cam, n, seed, device):
@@ -833,3 +833,141 @@ def test_cuda_segment_sums_match_plain_version():
     assert cuda_rows.LAUNCHES_SEGMENT_SUMS == before + 1
     pp = cuda_rows._sorted_segment_sums_plain(sid, cols, 4096)
     assert float((kk - pp).abs().max()) <= 1e-5 * float(pp.abs().max())
+
+
+# -----------------------------------------------------------------------------
+# Marble textures in the tracing kernels; the resumable kernel (B11) and the
+# megakernel's two-phase modes
+# -----------------------------------------------------------------------------
+
+def _per_ray_mismatch(a_rows, a_flags, b_rows, b_flags):
+    """Share of rays outside rtol / atol 1e-3 on any row, or with another
+    flag word."""
+    good = (torch.isclose(a_rows, b_rows, rtol=1e-3, atol=1e-3).all(dim=0)
+            & (a_flags == b_flags))
+    return 1.0 - float(good.float().mean())
+
+
+def _resume_case(name, width=64, spp=4, depth=8):
+    if name == "marble":
+        scene = build_marble(grtt, device="cuda")
+        cam = tcamera.Camera(**MARBLE_CAM)
+    elif name == "env-nee":
+        scene = build_env_nee(grtt, device="cuda")
+        cam = tcamera.Camera(**ENV_NEE_CAM)
+    else:
+        scene, cam = grtt.load_scene("cornell-smoke", device="cuda")
+    cam = dataclasses.replace(cam, image_width=width, aspect_ratio=1.0,
+                              samples_per_pixel=spp, max_depth=depth)
+    o, d, tm, ids = _rays(cam, width * width * spp, 4, "cuda")
+    return scene, cam, (o, d, tm, cw.stream_to_i32(ids))
+
+
+@pytest.mark.cuda
+def test_cuda_marble_in_forward_record_and_product_kernels():
+    """Marble textures in B1, B6 and B2: B1 against its plain version per
+    ray (fewer than 0.5 % of rays outside 1e-3, the gate of every tracing
+    kernel; the marble's sine is the card's sinf in both), B6 and B2 give
+    B1's radiance bit for bit and B6 its plain version's record."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene, cam, (o, d, tm, sid) = _resume_case("marble", depth=4)
+    assert scene.has_noise and cw.applicable(scene)
+    args = (cw.build_tables(scene), o, d, tm, sid, 4, cam.max_depth)
+    out, flags = cw.wavefront_fwd(*args)
+    p_out, p_flags = cw._wavefront_fwd_plain(*args)
+    assert _per_ray_mismatch(out, flags, p_out, p_flags) < 0.005
+    r_out, r_flags, code, idx = cw.wavefront_record(*args)
+    assert torch.equal(r_out, out) and torch.equal(r_flags, flags)
+    _, _, p_code, p_idx = cw._wavefront_record_plain(*args)
+    assert torch.equal(code, p_code) and torch.equal(idx, p_idx)
+    g_out, g_flags = cw.wavefront_grad_fwd(*args, cw.miss_config(cam))[:2]
+    assert torch.equal(g_out, out) and torch.equal(g_flags, flags)
+
+
+@pytest.mark.cuda
+def test_cuda_render_grad_of_marble_on_the_product_tier():
+    """``render_grad`` of the noise + solid scene runs the product-chain
+    kernels on the card and matches the same call on the CPU (plain
+    versions) within 2e-3 of each key's largest entry."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    from go_raytracing_tpu_torch.render import grad as tgrad
+
+    scene = build_marble(grtt, device="cuda")
+    cam = dataclasses.replace(tcamera.Camera(**MARBLE_CAM), image_width=32)
+    assert tgrad.grad_tier(scene, cam.max_depth) == "product"
+    target = torch.full((32, 32, 3), 0.3, device="cuda")
+    before = (cw.LAUNCHES_GRAD_FWD, cw.LAUNCHES_GRAD_REV)
+    loss, g = grtt.render_grad(scene, cam, target, seed=1)
+    assert cw.LAUNCHES_GRAD_FWD > before[0] and cw.LAUNCHES_GRAD_REV > before[1]
+    ref_loss, ref = grtt.render_grad(build_marble(grtt, device="cpu"), cam,
+                                     target.cpu(), seed=1, device="cpu")
+    assert abs(float(loss) - float(ref_loss)) <= 1e-4 * float(ref_loss)
+    for k in ref:
+        big = max(float(ref[k].abs().max()), 1e-12)
+        assert float((g[k].cpu() - ref[k]).abs().max()) <= 2e-3 * big, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["marble", "cornell-smoke", "env-nee"])
+def test_cuda_resume_kernel_matches_plain_version(name):
+    """B11, both launches of an explicit split (bounces [0, 4), the
+    survivors sorted, then [4, 8)), against its plain version on the same
+    state: all 19 outputs, bit for bit (marble: the per-ray gate); and the
+    split's radiance, flags and miss rows are the forward kernel's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene, cam, (o, d, tm, sid) = _resume_case(name)
+    tb = cw.build_tables(scene)
+
+    def rows(s, b0, b1):
+        return (cw.hdri_rows_for(scene, s, 4, b1, b_start=b0)
+                if cw.uses_hdri_nee(scene) else None)
+
+    def same(k, p):
+        kr = torch.stack([a.view(torch.float32) for a in k])
+        pr = torch.stack([a.view(torch.float32) for a in p])
+        if name == "marble":
+            assert _per_ray_mismatch(kr, k[9], pr, p[9]) < 0.005
+        else:
+            assert torch.equal(kr, pr)
+
+    flat = cw._start_state(o, d, tm, sid)
+    before = cw.LAUNCHES_RESUME
+    k1 = cw.wavefront_resume(tb, flat, 4, 0, 4, rows(flat[7], 0, 4))
+    same(k1, cw._wavefront_resume_plain(tb, flat, 4, 0, 4, rows(flat[7], 0, 4)))
+    flat2, _ = cw._phase_state_sort(cw._resumed_state(flat, k1),
+                                    (k1[9] & cw.FLAG_ALIVE) != 0)
+    k2 = cw.wavefront_resume(tb, flat2, 4, 4, 8, rows(flat2[7], 4, 8))
+    same(k2, cw._wavefront_resume_plain(tb, flat2, 4, 4, 8, rows(flat2[7], 4, 8)))
+    torch.cuda.synchronize()
+    assert cw.LAUNCHES_RESUME == before + 2
+    single = cw.trace_megakernel(scene, cam, o, d, tm, sid, 4)
+    split = cw.trace_megakernel(scene, cam, o, d, tm, sid, 4, split=True)
+    assert all(torch.equal(torch.stack(list(a)) if isinstance(a, tuple) else a,
+                           torch.stack(list(b)) if isinstance(b, tuple) else b)
+               for a, b in zip(single, split))
+
+
+@pytest.mark.cuda
+def test_cuda_split_and_compact_renders_equal_single(monkeypatch):
+    """``render_image`` of perlin (no light) picks 'split' once the
+    thresholds are met, launches B11 twice a chunk and no forward kernel,
+    and gives the single-phase picture bit for bit; so does 'compact'."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    from go_raytracing_tpu_torch.integrator import wavefront as twf
+
+    scene, cam = grtt.load_scene("perlin")
+    cam = dataclasses.replace(cam, image_width=96, samples_per_pixel=4, max_depth=12)
+    single = grtt.render_image(scene, cam, seed=2, mega_mode="single")
+    monkeypatch.setattr(cw, "SPLIT_DEPTH_MIN", 8)
+    monkeypatch.setattr(cw, "SPLIT_R_MIN", 1024)
+    assert twf.choose_mega_mode(scene, cam, 4096, False) == "split"
+    stats = grtt.RenderStats()
+    before = (cw.LAUNCHES, cw.LAUNCHES_RESUME)
+    split = grtt.render_image(scene, cam, seed=2, stats=stats)
+    assert (cw.LAUNCHES, cw.LAUNCHES_RESUME) == (before[0], before[1] + 2 * stats.chunks)
+    assert torch.equal(split, single)
+    assert torch.equal(grtt.render_image(scene, cam, seed=2, mega_mode="compact"), single)

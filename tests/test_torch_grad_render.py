@@ -153,13 +153,14 @@ def test_render_grad_descends():
 
 
 def test_render_grad_raises_outside_the_ported_tier():
-    # metal and dielectric are inside the pathwise tier; a noise texture is
-    # outside both tiers' gates
-    marbled = dataclasses.replace(build_mixed(grtt, device="cpu"), has_noise=True)
+    # metal and dielectric are inside the pathwise tier, marble textures in
+    # the product and replay tiers (tests/test_torch_noise_grad.py); an image
+    # texture is outside every tier
+    imaged = dataclasses.replace(build_mixed(grtt, device="cpu"), has_image=True)
     scene, cam = _sky(spp=1)
     target = torch.zeros((16, 16, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        grtt.render_grad(marbled, cam, target, device="cpu")
+    with pytest.raises(NotImplementedError, match="A16"):
+        grtt.render_grad(imaged, cam, target, device="cpu")
     with pytest.raises(NotImplementedError, match="A19"):
         grtt.render_grad(scene, cam, target, device="cpu", mesh=object())
     if not torch.cuda.is_available():

@@ -251,6 +251,30 @@ ENV_NEE_CAM = dict(
 )
 
 
+def build_marble(pkg, metal=False, **build_kwargs):
+    """A marble floor and sphere beside a solid sphere under a quad light and
+    the sky gradient: the noise + solid scene of the marble tests (product
+    tier; the solid sphere and the light's colour have gradients, the
+    marble none).  ``metal`` adds a fuzzy metal sphere, which sends a scene
+    with marble to the replay tier."""
+    b = pkg.SceneBuilder()
+    perl = b.lambertian(b.noise(4.0))
+    b.plane((0, 0, 0), (0, 1, 0), perl)
+    b.sphere((0, 1, 0), 1.0, perl)
+    b.sphere((2.1, 0.8, 0.4), 0.8, b.lambertian((0.7, 0.3, 0.2)))
+    if metal:
+        b.sphere((-2.1, 0.8, 0.4), 0.8, b.metal((0.8, 0.8, 0.9), 0.3))
+    q = b.quad((-1.5, 5, -1.5), (3, 0, 0), (0, 0, 3), b.diffuse_light((6, 6, 6)))
+    b.add_light(q)
+    return b.build(**build_kwargs)
+
+
+MARBLE_CAM = dict(
+    image_width=16, aspect_ratio=1.0, samples_per_pixel=2, max_depth=4,
+    look_from=(0, 2.5, 7), look_at=(0, 0.8, 0), vfov=45.0, use_sky_gradient=True,
+)
+
+
 MINI_GLOSSY_CAM = dict(
     image_width=16, aspect_ratio=1.0, samples_per_pixel=4, max_depth=4,
     look_from=(0, 3, 9), look_at=(0, 1.5, 0), vfov=45.0,

@@ -228,10 +228,7 @@ def _hdri_light_sampled(ts, r):
 @pytest.mark.parametrize("call, item", [
     (_recorded, "A18"),
     (_replayed, "A18"),
-    (lambda ts, r: twf.trace(ts, *r, mega_mode="split"), "B11"),
-    (lambda ts, r: twf.trace(ts, *r, mega_mode="compact"), "B11"),
     (lambda ts, r: twf.trace(ts, *r, mega_mode="image"), "A16"),
-    (lambda ts, r: twf.trace(dataclasses.replace(ts, has_noise=True), *r), "A13"),
     (lambda ts, r: twf.trace(dataclasses.replace(ts, has_image=True), *r), "A16"),
     # meshes render, and the standard integrator records their decisions
     (_mesh_recorded, "A18"),

@@ -421,7 +421,7 @@ def test_brdf_pdf_emitted_and_evaluate_match_jax(shading):
                                   np.asarray(jmats.can_use_nee_table(js.materials)))
 
 
-@pytest.mark.parametrize("flag, item", [("has_noise", "A13"), ("has_image", "A16")])
+@pytest.mark.parametrize("flag, item", [("has_image", "A16")])
 def test_evaluate_names_the_roadmap_item(shading, flag, item):
     ts = shading["ts"]
     z = torch.zeros(3)

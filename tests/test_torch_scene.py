@@ -23,11 +23,11 @@ from test_torch_helpers import build_mixed, scene_tree
 torch.set_num_threads(2)
 
 PORTED = ["cornell", "cornell-smoke", "cornell-glossy", "simple", "quads",
-          "checkered", "glossy-metal", "primitives", "random", "cornell-lucy"]
+          "checkered", "glossy-metal", "primitives", "random", "cornell-lucy",
+          "perlin"]
 # what loading the scene raises, and the message names: a ROADMAP item, or
 # (hdri-test) the missing asset, as the JAX package's builder raises it
-NOT_PORTED = {"perlin": (NotImplementedError, "A13"),
-              "earth": (NotImplementedError, "A16"),
+NOT_PORTED = {"earth": (NotImplementedError, "A16"),
               "hdri-test": (FileNotFoundError, "abandoned_hall_01_1k.hdr")}
 
 
@@ -129,11 +129,12 @@ def test_builder_gaps_and_errors():
     b = SceneBuilder()
     m = b.lambertian((0.5, 0.5, 0.5))
     for call, item in [
-        (lambda: b.noise(4.0), "A13"),
         (lambda: b.image(np.zeros((2, 2, 3))), "A16"),
     ]:
         with pytest.raises(NotImplementedError, match=item):
             call()
+    # marble textures are ported (A13): a texture id like any other
+    assert b.noise(4.0) == len(b._tex) - 1
     # environments are ported (A15): an array, or a path that must exist
     with pytest.raises(FileNotFoundError):
         b.set_environment("assets/hdri/not-there.hdr")
@@ -210,7 +211,7 @@ def test_applicable_gate():
     ts, _ = grtt.load_scene("cornell", device="cpu")
     assert cw.applicable(ts)
     assert not cw.applicable(ts, max_prims=4)
-    assert not cw.applicable(dataclasses.replace(ts, has_noise=True))
+    assert cw.applicable(dataclasses.replace(ts, has_noise=True))   # the kernels' marble
     assert not cw.applicable(dataclasses.replace(ts, has_image=True))
     vols = dataclasses.replace(ts.volumes, kind=torch.ones_like(ts.volumes.kind))
     assert not cw.applicable(dataclasses.replace(ts, volumes=vols))
