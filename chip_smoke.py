@@ -3,14 +3,15 @@
 
     python3 chip_smoke.py [--out-dir DIR]
 
-Needs one NVIDIA GPU and ``nvcc``.  It builds the fourteen CUDA kernels
-from the sources in this checkout (the forward megakernel and its record
-variant, the stash-writing gradient forward and the reverse sweep of the
-product-chain tier, the same two of the pathwise tier, the fused gradient
-kernel of environment + light scenes, the four closest-hit kernels of the
-standard integrator, the two mesh kernels, and the row sums of
-``take_rows``' backward pass, whose file also holds the sorted segment sums
-of an environment's texels), holds each against its plain
+Needs one NVIDIA GPU and ``nvcc``.  It builds the sixteen CUDA kernels
+from the sources in this checkout (the forward megakernel, its record
+variant and its resumable variant, the stash-writing gradient forward and
+the reverse sweep of the product-chain tier, the same two of the pathwise
+tier, the fused gradient kernel of environment + light scenes, the four
+closest-hit kernels of the standard integrator, the two mesh kernels, the
+tile-sweep probe of the mesh stream, and the row sums of ``take_rows``'
+backward pass, whose file also holds the sorted segment sums of an
+environment's texels), holds each against its plain
 PyTorch version on the GPU, renders the Cornell box at full size (600x338,
 100 spp, depth 5) through the public entry points, checks the image, times
 the forward kernel at the render's own shapes beside its roofline bound,
@@ -54,9 +55,22 @@ rows, B5b with the environment's miss rows, the fused kernel B4, also on
 and by the standard integrator (``hdri_main_path``), its ``render_grad`` on
 the pathwise two-phase tier (``hdri_fwd_bwd``), the same two with a quad
 light added (``env_nee_main_path``, ``env_nee_fwd_bwd``: HDRI NEE, the fused
-tier), and the kernels alone (``env_kernel_timing``).  The
-earlier phases run at the sizes they always had.  It prints one JSON line
-per phase.
+tier), and the kernels alone (``env_kernel_timing``).  Then marble
+(``noise_kernels_vs_plain`` ... ``split_profile``: B1 / B6 / B2 with marble,
+perlin, the resumable kernel B11), then marble behind metal and glass
+(ROADMAP A13b): B5a, B5b and B4 with dmarble/dp against their plain versions
+and the pathwise and fused tiers against the replay tier on 16,384 rays
+(``marble_kernels_vs_plain``), ``marble-glossy`` (the JAX package's noise +
+glossy test scene at 600x600, 100 spp, depth 5) fwd+bwd on the pathwise
+tier all stashed and over budget, ``marble-glossy-nee`` (the same under the
+synthetic sky with its quad light, 800x450, 25 spp, depth 10) on the fused
+tier, each beside the same job through the replay tier (``marble-glossy``
+cut to 25 spp there), and the three kernels alone
+(``marble_kernel_timing``).  Last, the tile-sweep probe of the mesh stream
+(``probe_stream_micro``: its five variants against their plain versions,
+then its command line's run at 512 blocks x 512 sweeps).  The earlier
+phases run at the sizes they always had.  It prints one JSON line per
+phase.
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failing phase raises: the exit code is then not 0 and no result line
@@ -81,7 +95,8 @@ of the largest entry of each colour table, the tolerance of the JAX
 package's own test of its gradient kernel.
 
 The pathwise gradient forward is held to the same per-ray gate (19 + 3 stash
-rows) and its radiance must be the forward kernel's bit for bit.  The
+rows, 20 + 3 with marble, whose rows and mask words must equal the plain
+version's bits) and its radiance must be the forward kernel's bit for bit.  The
 pathwise reverse kernel is held against its plain version on the kernel's
 own stash: each key of the gradients dict (three colour tables, fuzz, ior)
 within 1e-4 of the key's largest entry; and two launches on one stash must
@@ -122,7 +137,10 @@ the loss of ``render``'s picture (rtol 1e-5), its gradients finite, the
 card's within 2e-3 of each key's largest entry of the CPU's, colour
 gradients within 2e-3 of autograd's, and the gradients of repeated calls
 (and of two autograd backward passes) the same bits.  The row-sum kernel
-agrees with its float64 plain version to 1e-4 of the largest entry.
+agrees with its float64 plain version to 1e-4 of the largest entry.  The
+pathwise and fused tiers with marble agree with the replay tier within 2e-3
+of each key's largest entry on the same rays, and the probe's five variants
+equal their plain versions (t and id).
 """
 
 import argparse
@@ -150,6 +168,7 @@ from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from go_raytracing_tpu_torch.render import grad as gradmod
 from go_raytracing_tpu_torch.render import renderer
 from go_raytracing_tpu_torch.scenes import builders
+from go_raytracing_tpu_torch.utils import stream_micro as sm
 
 RTOL = ATOL = 1e-3
 MAX_MISMATCH_SHARE = 0.005
@@ -2888,6 +2907,493 @@ def marble_and_split_phases(dev, out_dir, env):
     return entry, b1_fields, grad_launches
 
 
+# ---- marble behind metal and glass (A13b): B5a, B5b and B4 with dmarble/dp ----
+
+# Operations of dmarble/dp (csrc/wavefront_common.cuh: marble_grad), counted
+# from the code as FLOPS_MARBLE is.  A corner: marble's (hash, 24 integer
+# operations; cube sample 15, normalization 11, offset dot product 8, weight
+# and sum 7) and the gradient's three components (sign-weight product 3,
+# weight times the corner's gradient 1, two adds: 6 each).  An octave: 8
+# corners, the floors, fractions and conversions (9), the scaling (5) and the
+# three gradient sums (9).  The tail: the argument, the sign, the cosine and
+# the three components (15), the albedo's summed cotangent and its three
+# products (5), the three adds into the hit point's adjoint.
+FLOPS_MARBLE_GRAD = 7 * (8 * (15 + 11 + 8 + 7 + 18) + 9 + 5 + 9) + 15 + 5 + 3
+INT_OPS_MARBLE_GRAD = INT_OPS_MARBLE
+# The scenes' sizes: cornell-glossy's bench size (bench.py:210) and
+# hdri-test's (bench.py, the JAX bench's environment cell).
+MARBLE_GLOSSY = dict(width=600, aspect=1.0, spp=100, depth=5)
+MARBLE_GLOSSY_NEE = dict(width=800, aspect=16 / 9, spp=25, depth=10)
+# The replay tier's runs of marble-glossy are cut to this many spp (the tier
+# traces 1 to 4 million camera rays a second).
+REPLAY_CUT_SPP = 25
+
+
+def marble_glossy_scene(device, env=None, solid_floor=False):
+    """The JAX package's noise + glossy gradient scene
+    (tests/test_grad_pathwise.py: ``_mini_noise_glossy``): a marble floor at
+    scale 0.4, a back wall, a quad light, a gold sphere with fuzz 0.2, a
+    glass sphere with IOR 1.5 and a mirror; camera from (0, 3, 9) toward
+    (0, 1.5, 0), vfov 45.  No reference scene puts marble behind metal or
+    glass.  ``env``: under that environment with the same quad light (HDRI
+    NEE, the fused tier), at hdri-test's size; else at cornell-glossy's.
+    ``solid_floor``: a plain lambertian floor in place of the marble (a
+    control)."""
+    b = grt.SceneBuilder()
+    marble = b.lambertian((0.5, 0.45, 0.4) if solid_floor else b.noise(0.4))
+    b.quad((-6, 0, -6), (12, 0, 0), (0, 0, 12), marble)
+    b.quad((-6, 0, -6), (0, 8, 0), (12, 0, 0), b.lambertian((0.6, 0.65, 0.7)))
+    b.add_light(b.quad((-1.5, 7.9, -1.5), (3, 0, 0), (0, 0, 3),
+                       b.diffuse_light((13.0, 12.0, 11.0))))
+    b.sphere((-1.8, 1.2, 0.0), 1.2, b.metal((0.8, 0.6, 0.2), 0.2))
+    b.sphere((0.8, 1.0, 1.2), 1.0, b.dielectric(1.5))
+    b.sphere((2.5, 0.8, -1.0), 0.8, b.metal((0.9, 0.9, 0.9), 0.0))
+    size = MARBLE_GLOSSY if env is None else MARBLE_GLOSSY_NEE
+    if env is not None:
+        b.set_environment(env, 0.0)
+    cam = Camera(image_width=size["width"], aspect_ratio=size["aspect"],
+                 samples_per_pixel=size["spp"], max_depth=size["depth"],
+                 look_from=(0, 3, 9), look_at=(0, 1.5, 0), vfov=45.0,
+                 background=(0.02, 0.01, 0.03))
+    return b.build(device=device), cam
+
+
+def frame_rays(cam, n, seed, dev):
+    """Camera rays of ``n`` pixels drawn across the frame (sorted), sample 0:
+    (o, d, tm, stream as int32, ray ids)."""
+    w, h = cam.image_width, cam.image_height
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pix = torch.randperm(w * h, device=dev, generator=gen)[:n].sort().values
+    o, d, tm = generate_rays(cam, pix % w, pix // w, pix, seed)
+    o, d = V3(*(c.contiguous() for c in o)), V3(*(c.contiguous() for c in d))
+    return o, d, tm.contiguous(), cw.stream_to_i32(pix), pix
+
+
+def replay_grads(scene, cam, rays, seed, g3):
+    """The replay tier's gradients of <radiance, g3> on given rays (its pass
+    B: the record, then ``torch.autograd`` through the replay)."""
+    o, d, tm, ids = rays
+    _, dec = wavefront.trace(scene, cam, o, d, tm, ids, seed, record=True)
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in grt.trainable_params(scene).items()}
+    with torch.enable_grad():
+        rad = wavefront.trace(grt.apply_params(scene, params), cam, o, d, tm, ids, seed,
+                              decisions=dec)
+        inner = sum((rad[c] * g3[c]).sum() for c in range(3))
+        got = torch.autograd.grad(inner, list(params.values()), allow_unused=True)
+    return {k: torch.zeros_like(v) if g is None else g
+            for (k, v), g in zip(params.items(), got)}
+
+
+def err_of_largest(got, ref, keys):
+    return {k: float((got[k] - ref[k]).abs().max()) / max(float(ref[k].abs().max()), 1e-30)
+            for k in keys}
+
+
+def marble_small_checks(glossy, cam, nee, nee_cam, env, dev, n=16384, seed=16):
+    """B5a, B5b and B4 with marble against their plain versions on ``n``
+    camera rays drawn across each frame: B5a's stash rows and mask words and
+    its radiance (B1's bits) equal; B5b's and B4's sums within 1e-4 of each
+    key's largest entry, the same bits on two launches; and the pathwise and
+    fused tiers against the replay tier on those rays, within 2e-3 of each
+    key's largest entry: every key of the pathwise tier, the colours and
+    texels of the fused tier.  Under the synthetic sky fuzz and IOR reach
+    the miss shader through the miss direction, whose derivative jumps at
+    texel edges (the sun's above all); the standard integrator's hit points
+    round apart from the megakernel's, so a few rays' miss directions land
+    across an edge from each other.  The fused tier's fuzz and IOR against
+    the replay are printed, beside the same scene's with a solid floor in
+    place of the marble (the control: the gap is the sky's, not the
+    marble's), as ``env_small_checks`` leaves them out of its comparison
+    with autograd.  Returns the fields."""
+    out = {}
+    o, d, tm, sid, ids = frame_rays(cam, n, seed, dev)
+    tb = cw.build_tables(glossy)
+    args = (tb, o, d, tm, sid, seed, cam.max_depth, cw.miss_config(cam))
+    k = cw.wavefront_grad_fwd(*args, pathwise=True)
+    p = cw._wavefront_grad_fwd_plain(*args, pathwise=True)
+    b1_rows, b1_flags = cw.wavefront_fwd(*args[:-1])
+    mk = k[4][:, 2]
+    # equal values (a zero's sign may differ: the kernel writes +0 where the
+    # plain version's masked rows give -0 times a flip)
+    not_equal = ((k[3] != p[3]).any(dim=1) | (k[4] != p[4]).any(dim=1)).any(dim=0)
+    out["b5a_stash_rows"] = int(k[3].shape[1])
+    out["b5a_share_of_rays_not_equal"] = float(not_equal.float().mean())
+    out["b5a_mismatch_share"], out["b5a_max_abs_err"] = grad_fwd_mismatch(k, p)
+    out["b5a_radiance_is_b1s"] = bool(torch.equal(k[0], b1_rows) and torch.equal(k[1], b1_flags))
+    out["marble_rows"] = int(((mk & cw.PW_MARBLE) != 0).sum())
+    out["entered_rows"] = int(((mk & (cw.PW_HIT | cw.PW_LIT)) != 0).sum())
+    if out["b5a_stash_rows"] != cw.PW_STASH_F_ROWS_MARBLE or not out["b5a_radiance_is_b1s"] \
+            or out["b5a_share_of_rays_not_equal"] > 0.0 or out["marble_rows"] < n // 10:
+        raise RuntimeError(f"B5a with marble against its plain version: {out}")
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g3 = torch.rand((3, n), device=dev, generator=gen) * 1e-3
+    n_tex, n_mat = int(glossy.textures.color.shape[0]), int(glossy.materials.kind.shape[0])
+    rev = (tb, k[3], k[4], g3, k[2], sid, seed, bool(cam.use_sky_gradient), n_tex, n_mat)
+    gk, gk2 = cw.wavefront_grad_rev_pathwise(*rev), cw.wavefront_grad_rev_pathwise(*rev)
+    gp = cw._wavefront_grad_rev_pathwise_plain(*rev)
+    out["b5b_max_abs_err"], out["b5b_err_of_largest"] = pathwise_rev_err(gk, gp)
+    out["b5b_same_bits"] = all(bool(torch.equal(a, b)) for a, b in zip(gk, gk2))
+    if not out["b5b_err_of_largest"] <= REV_RTOL_OF_LARGEST or not out["b5b_same_bits"]:
+        raise RuntimeError(f"B5b with marble against its plain version: {out}")
+    tier = cw.grad_rev_stash(glossy, cam, g3, k[2:], pathwise=True, stream=sid, seed=seed)
+    rep = replay_grads(glossy, cam, (o, d, tm, ids), seed, g3)
+    out["pathwise_vs_replay_err_of_largest"] = err_of_largest(tier, rep, ("color", "fuzz", "ior"))
+    del k, p
+
+    o2, d2, tm2, sid2, ids2 = frame_rays(nee_cam, n, seed, dev)
+    b4 = b4_against_plain(nee, nee_cam, cw.build_tables(nee), (o2, d2, tm2, sid2), seed,
+                          nee_cam.max_depth, g3)
+    out.update({f"b4_{kk}": v for kk, v in b4.items()})
+    if not (b4["radiance_is_b1s_plus_miss"] and b4["radiance_is_plains"]
+            and b4["err_of_largest"] <= REV_RTOL_OF_LARGEST and b4["eout_largest"] > 0.0
+            and b4["eout_err_of_largest"] <= REV_RTOL_OF_LARGEST and b4["same_bits"]):
+        raise RuntimeError(f"B4 with marble against its plain version: {out}")
+    keys = ("color", "fuzz", "ior", "env_data")
+    for name, scene in (("", nee), ("_solid_floor", marble_glossy_scene(
+            dev, env, solid_floor=True)[0])):
+        _, fused = cw.grad_megakernel(scene, nee_cam, o2, d2, tm2, ids2, seed, g3)
+        rep2 = replay_grads(scene, nee_cam, (o2, d2, tm2, ids2), seed, g3)
+        out[f"fused_vs_replay_err_of_largest{name}"] = err_of_largest(fused, rep2, keys)
+    emit("marble_kernels_vs_plain", scene="marble-glossy", scene_nee="marble-glossy-nee",
+         rays=n, depth=cam.max_depth, depth_nee=nee_cam.max_depth, **out)
+    gated = list(out["pathwise_vs_replay_err_of_largest"].values()) + [
+        out["fused_vs_replay_err_of_largest"][k] for k in ("color", "env_data")]
+    if max(gated) > AUTOGRAD_RTOL_OF_LARGEST:
+        raise RuntimeError(f"the kernel tiers against the replay tier: {out}")
+    return out
+
+
+def marble_fwd_bwd(phase, name, scene, cam, tier, rounds=3, **kw):
+    """``render_grad`` at full size on ``tier``: one warm-up, then the
+    median of ``rounds`` calls, the launch counts of each call set to 0
+    just before it and read just after.  The loss must be that of
+    ``render``'s picture (rtol 1e-5), every gradient finite, colour, fuzz
+    and ior not zero, every call's gradients the same bits.  Returns
+    (counts, chunks, ms, grads, loss, target)."""
+    spp = cam.samples_per_pixel
+    n_rays = cam.image_width * cam.image_height * spp
+    if gradmod.grad_tier(scene, cam.max_depth) != tier:
+        raise RuntimeError(f"{name}: tier {gradmod.grad_tier(scene, cam.max_depth)}")
+    fb = grt.render(scene, cam, seed=0)
+    target = fb / spp * 0.8
+    loss_ref = float(torch.mean((fb / spp - target) ** 2))
+    del fb
+    first_loss, first = grt.render_grad(scene, cam, target, seed=0, **kw)   # warm-up
+    free_before = torch.cuda.mem_get_info()[0]
+    taken = []
+    for _ in range(rounds):
+        stats = grt.RenderStats()
+        reset_env_counts()
+        torch.cuda.reset_peak_memory_stats()
+        ms, (loss, grads) = cuda_ms(lambda: grt.render_grad(scene, cam, target, seed=0,
+                                                            stats=stats, **kw))
+        counts = env_counts()
+        taken.append(ms)
+        same = all(torch.equal(grads[k], first[k]) for k in grads) \
+            and float(loss) == float(first_loss)
+        if not same:
+            raise RuntimeError(f"{name}: two render_grad calls differ in their bits")
+    peak = torch.cuda.max_memory_allocated()
+    nch = stats.chunks
+    ms = median(taken)
+    per_ray = (gradmod.stash_bytes_per_ray(cam.max_depth, True, scene.env is not None, True)
+               if tier == "pathwise" else None)
+    budget = kw.get("stash_budget")
+    if tier == "pathwise":
+        # every chunk stashed, or as many as a given budget holds; a chunk
+        # without a stash is traced by the forward kernel in pass A
+        n_stash = nch if budget is None else min(budget // (n_rays // nch * per_ray), nch)
+        want = {"wavefront_fwd": nch - n_stash, "wavefront_grad_fwd_pathwise": nch,
+                "wavefront_grad_rev_pathwise": nch, "wavefront_grad_fused": 0}
+    else:
+        n_stash = 0
+        want = {"wavefront_fwd": 2 * nch, "wavefront_grad_fwd_pathwise": 0,
+                "wavefront_grad_rev_pathwise": 0, "wavefront_grad_fused": nch}
+    loss_f = float(loss)
+    emit(phase, scene=name, width=cam.image_width, height=cam.image_height, spp=spp,
+         depth=cam.max_depth, camera_rays=n_rays, tier=tier, chunks=nch, n_stash=n_stash,
+         stash_budget=budget, launches=counts, render_grad_ms_rounds=taken,
+         render_grad_ms_median=ms, fwd_bwd_camera_mrays_per_s=n_rays / (ms * 1e-3) / 1e6,
+         loss=loss_f, loss_from_render=loss_ref, stash_bytes_per_ray=per_ray,
+         fuzz_grad=grads["fuzz"].tolist(), ior_grad=grads["ior"].tolist(),
+         free_memory_before=free_before, max_memory_allocated=peak)
+    if any(counts[k] != v for k, v in want.items()) or nch < 1:
+        raise RuntimeError(f"{name}: launches {counts}, expected {want} for {nch} chunks")
+    if not loss_f == loss_f or abs(loss_f - loss_ref) > 1e-5 * loss_ref:
+        raise RuntimeError(f"{name}: loss {loss_f} against {loss_ref} from render()")
+    for key, g in grads.items():
+        if not torch.isfinite(g).all():
+            raise RuntimeError(f"{name}: gradient {key} is not finite")
+    for key in ("color", "fuzz", "ior") + (("env_data",) if scene.env is not None else ()):
+        if float(grads[key].abs().max()) == 0.0:
+            raise RuntimeError(f"{name}: gradient {key} is zero")
+    return counts, nch, ms, grads, loss_f, target
+
+
+def replay_against(phase, name, scene, cam, tier_ms, tier_grads, tier_loss, target):
+    """The same job forced through the replay tier (the route the parent
+    commit took for marble behind metal or glass), on the same card: one
+    warm-up, one timed call; its loss against the kernel tier's and each
+    gradient key's difference from it over its largest entry."""
+    spp = cam.samples_per_pixel
+    n_rays = cam.image_width * cam.image_height * spp
+    kw = dict(spp=spp, max_depth=cam.max_depth, seed=0, chunk=None, dec_budget=None)
+    gradmod._render_grad_replay(scene, cam, target, stats=None, **kw)
+    stats = grt.RenderStats()
+    ms, (loss, grads) = cuda_ms(lambda: gradmod._render_grad_replay(
+        scene, cam, target, stats=stats, **kw))
+    keys = ("color", "fuzz", "ior") + (("env_data",) if scene.env is not None else ())
+    emit(phase, scene=name, width=cam.image_width, height=cam.image_height, spp=spp,
+         depth=cam.max_depth, camera_rays=n_rays, chunks=stats.chunks,
+         render_grad_ms=ms, fwd_bwd_camera_mrays_per_s=n_rays / (ms * 1e-3) / 1e6,
+         kernel_tier_ms=tier_ms,
+         kernel_tier_camera_mrays_per_s=n_rays / (tier_ms * 1e-3) / 1e6,
+         speedup_of_kernel_tier=ms / tier_ms,
+         loss_rel_diff=abs(float(loss) - tier_loss) / tier_loss,
+         grad_diff_of_largest=err_of_largest(tier_grads, grads, keys))
+    return ms
+
+
+def marble_kernel_timing(glossy, cam, nee, nee_cam, chunks, launches, small):
+    """B5a and B5b at a chunk of marble-glossy's job and B4 at one of
+    marble-glossy-nee's, each alone in rounds beside its bound (the stash's
+    20th row in the bytes; the marble and its derivative, per marble row,
+    in the operations); B5a and B5b beside their plain versions at the
+    chunk, B4 beside its plain version's time on the small check's rays.
+    Returns the marble fields of the three entries of the ``kernels``
+    line."""
+    dev = glossy.device
+    depth = cam.max_depth
+    n = cam.image_width * cam.image_height * cam.samples_per_pixel // chunks["glossy"]
+    o, d, tm, sid = chunk_rays(cam, n, 0, dev)
+    tb = cw.build_tables(glossy)
+    args = (tb, o, d, tm, sid, 0, depth, cw.miss_config(cam))
+    cw.wavefront_grad_fwd(*args, pathwise=True)
+    fwd_rounds, k = rounds_ms(lambda: cw.wavefront_grad_fwd(*args, pathwise=True),
+                              rounds=3, repeats=2)
+    plain_fwd_ms, p = cuda_ms(lambda: cw._wavefront_grad_fwd_plain(*args, pathwise=True))
+    fwd_mismatch, fwd_err = grad_fwd_mismatch(k, p)
+    del p
+    mk = k[4][:, 2]
+    entered = float(((mk & (cw.PW_HIT | cw.PW_LIT)) != 0).sum())
+    marble = float(((mk & cw.PW_MARBLE) != 0).sum())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g3 = torch.rand((3, n), device=dev, generator=gen) * 1e-6
+    n_tex, n_mat = int(glossy.textures.color.shape[0]), int(glossy.materials.kind.shape[0])
+    rev = (tb, k[3], k[4], g3, k[2], sid, 0, bool(cam.use_sky_gradient), n_tex, n_mat)
+    cw.wavefront_grad_rev_pathwise(*rev)
+    rev_rounds, gk = rounds_ms(lambda: cw.wavefront_grad_rev_pathwise(*rev),
+                               rounds=3, repeats=2)
+    plain_rev_ms, gp = cuda_ms(lambda: cw._wavefront_grad_rev_pathwise_plain(*rev))
+    rev_err, rev_rel = pathwise_rev_err(gk, gp)
+    del rev, k, gp
+    if fwd_mismatch >= MAX_MISMATCH_SHARE or not rev_rel <= REV_RTOL_OF_LARGEST:
+        raise RuntimeError(f"marble-glossy chunk: B5a {fwd_mismatch:.4%} of rays off, "
+                           f"B5b off by {rev_rel:.2e}")
+    table_bytes = 4 * sum(t.numel() for t in (tb.pt, tb.st, tb.vt, tb.lt))
+    per_bounce = (tb.n_planar * FLOPS_PLANAR + tb.n_sphere * FLOPS_SPHERE
+                  + tb.n_vol * FLOPS_VOLUME + FLOPS_SHADE)
+    stash_rows = (cw.PW_STASH_F_ROWS_MARBLE + cw.PW_STASH_I_ROWS) * depth
+    fwd_bound = (((8 + 10 + 3 + stash_rows) * 4 * n + table_bytes) / PEAK_BYTES_PER_S * 1e3,
+                 ((entered * per_bounce + marble * FLOPS_MARBLE) / PEAK_FP32_FLOPS
+                  + marble * INT_OPS_MARBLE / PEAK_INT32_OPS) * 1e3)
+    block_rays = _build.load(
+        "wavefront_grad_pathwise").lib.wavefront_grad_rev_pathwise_block_rays()
+    n_acc = 9 * n_tex + 2 * n_mat
+    rev_bound = (((stash_rows + 3 + 3 + 1) * 4 * n + 4 * n_acc * -(-n // block_rays)
+                  + 4 * (tb.vt.numel() + tb.lt.numel())) / PEAK_BYTES_PER_S * 1e3,
+                 ((entered * FLOPS_REVERSE_PATHWISE + marble * FLOPS_MARBLE_GRAD)
+                  / PEAK_FP32_FLOPS
+                  + (entered * INT_OPS_REVERSE_PATHWISE + marble * INT_OPS_MARBLE_GRAD)
+                  / PEAK_INT32_OPS) * 1e3)
+    fwd_ms, rev_ms = median(fwd_rounds), median(rev_rounds)
+
+    # B4 at a chunk of marble-glossy-nee
+    n4 = (nee_cam.image_width * nee_cam.image_height * nee_cam.samples_per_pixel
+          // chunks["nee"])
+    depth4 = nee_cam.max_depth
+    _, o, d, tm, ids, _, _ = renderer._chunk_rays(nee, nee_cam, 0, 0,
+                                                  spp=nee_cam.samples_per_pixel, chunk=n4,
+                                                  max_depth=depth4, device=dev)
+    o, d, tm = V3(*(c.contiguous() for c in o)), V3(*(c.contiguous() for c in d)), tm.contiguous()
+    sid = cw.stream_to_i32(ids)
+    tb4 = cw.build_tables(nee)
+    rows = cw.hdri_rows_for(nee, sid, 0, depth4)
+    f_out, f_flags = cw.wavefront_fwd(tb4, o, d, tm, sid, 0, depth4, rows)
+    _, _, _, _, s_i = cw.wavefront_grad_fwd(tb4, o, d, tm, sid, 0, depth4,
+                                           (cw.MISS_STREAM, (0.0, 0.0, 0.0)), pathwise=True)
+    mk4 = s_i[:, 2]
+    entered4 = float(((mk4 & (cw.PW_HIT | cw.PW_LIT)) != 0).sum())
+    marble4 = float(((mk4 & cw.PW_MARBLE) != 0).sum())
+    mis4 = int(((mk4 & cw.PW_USE_MIS) != 0).sum())
+    del s_i
+    g3 = torch.rand((3, n4), device=dev, generator=gen) * 1e-6
+    mc, lmd, _ = cw._env_miss_terms(nee, nee_cam, cw._env_carry(nee, f_out, f_flags), g3,
+                                    want_lmd=True)
+    del f_out, f_flags
+    n_tex4, n_mat4 = int(nee.textures.color.shape[0]), int(nee.materials.kind.shape[0])
+    fused = (tb4, o, d, tm, sid, 0, depth4, g3, (cw.MISS_STREAM, (0.0, 0.0, 0.0)),
+             torch.cat([mc, lmd]).contiguous(), rows, n_tex4, n_mat4)
+    cw.wavefront_grad_fused(*fused)
+    b4_rounds, _ = rounds_ms(lambda: cw.wavefront_grad_fused(*fused), rounds=3, repeats=2)
+    b4_ms = median(b4_rounds)
+    del fused, mc, lmd, rows
+    table_bytes4 = 4 * sum(t.numel() for t in (tb4.pt, tb4.st, tb4.vt, tb4.lt))
+    per_bounce4 = (tb4.n_planar * FLOPS_PLANAR + tb4.n_sphere * FLOPS_SPHERE
+                   + tb4.n_vol * FLOPS_VOLUME + FLOPS_SHADE)
+    block4 = _build.load("wavefront_grad_fused").lib.wavefront_grad_fused_block_rays()
+    n_acc4 = 9 * n_tex4 + 2 * n_mat4
+    b4_bound = (((8 + 3 + 6 + 3 + 3 * depth4) * 4 * n4 + cw.HDRI_ROWS * 4 * mis4
+                 + 4 * n_acc4 * -(-n4 // block4) + table_bytes4) / PEAK_BYTES_PER_S * 1e3,
+                ((entered4 * (per_bounce4 + FLOPS_REVERSE_PATHWISE)
+                  + mis4 * FLOPS_HDRI_NEE + marble4 * (FLOPS_MARBLE + FLOPS_MARBLE_GRAD))
+                 / PEAK_FP32_FLOPS
+                 + (entered4 * INT_OPS_REVERSE_PATHWISE
+                    + marble4 * (INT_OPS_MARBLE + INT_OPS_MARBLE_GRAD)) / PEAK_INT32_OPS)
+                * 1e3)
+    emit("marble_kernel_timing", scene="marble-glossy", rays_per_launch=n, depth=depth,
+         entered_rows=entered, marble_rows=marble,
+         b5a_ms=fwd_ms, b5a_ms_rounds=fwd_rounds, b5a_plain_ms=plain_fwd_ms,
+         b5a_bound_bytes_ms=fwd_bound[0], b5a_bound_ops_ms=fwd_bound[1],
+         b5a_roofline_share=max(fwd_bound) / fwd_ms, b5a_mismatch_share=fwd_mismatch,
+         b5b_ms=rev_ms, b5b_ms_rounds=rev_rounds, b5b_plain_ms=plain_rev_ms,
+         b5b_bound_bytes_ms=rev_bound[0], b5b_bound_ops_ms=rev_bound[1],
+         b5b_roofline_share=max(rev_bound) / rev_ms, b5b_err_of_largest=rev_rel,
+         scene_nee="marble-glossy-nee", b4_rays_per_launch=n4, b4_depth=depth4,
+         b4_entered_rows=entered4, b4_marble_rows=marble4, b4_hdri_sampling_rows=mis4,
+         b4_ms=b4_ms, b4_ms_rounds=b4_rounds,
+         b4_plain_ms_16384_rays=small["b4_plain_ms"],
+         b4_bound_bytes_ms=b4_bound[0], b4_bound_ops_ms=b4_bound[1],
+         b4_roofline_share=max(b4_bound) / b4_ms,
+         flops_marble_grad=FLOPS_MARBLE_GRAD, int_ops_marble_grad=INT_OPS_MARBLE_GRAD)
+
+    def fields(ms, plain, bound, launches_, err, rays):
+        return {"ms_marble": ms, "plain_ms_marble": plain, "bound_ms_marble": max(bound),
+                "bound_by_marble": "bytes" if bound[0] >= bound[1] else "operations",
+                "launches_marble": launches_, "max_abs_err_marble": err,
+                "rays_per_launch_marble": rays}
+
+    return (fields(fwd_ms, plain_fwd_ms, fwd_bound, launches["b5a"],
+                   max(fwd_err, small["b5a_max_abs_err"]), n),
+            fields(rev_ms, plain_rev_ms, rev_bound, launches["b5b"],
+                   max(rev_err, small["b5b_max_abs_err"]), n),
+            fields(b4_ms, small["b4_plain_ms"], b4_bound, launches["b4"],
+                   small["b4_max_abs_err"], n4) | {"plain_rays_marble": 16384})
+
+
+def marble_grad_phases(dev, env, regs):
+    """Marble behind metal and glass on the kernel tiers (A13b): the small
+    checks, ``marble-glossy`` (600x600, 100 spp, depth 5) fwd+bwd on the
+    pathwise tier all stashed and over budget, ``marble-glossy-nee``
+    (800x450, 25 spp, depth 10) on the fused tier, each beside the same job
+    through the replay tier, and the three kernels alone.  Returns the
+    marble fields of B5a's, B5b's and B4's entries."""
+    glossy, cam = marble_glossy_scene(dev)
+    nee, nee_cam = marble_glossy_scene(dev, env)
+    small = marble_small_checks(glossy, cam, nee, nee_cam, env, dev)
+    counts, nch, ms, grads, loss, _ = marble_fwd_bwd(
+        "marble_glossy_fwd_bwd", "marble-glossy", glossy, cam, "pathwise")
+    per_ray = gradmod.stash_bytes_per_ray(cam.max_depth, True, False, True)
+    budget = 2 * (cam.image_width * cam.image_height * cam.samples_per_pixel // nch
+                  * per_ray) + 1
+    _, _, _, grads2, loss2, _ = marble_fwd_bwd(
+        "marble_glossy_fwd_bwd_over_budget", "marble-glossy", glossy, cam, "pathwise",
+        rounds=1, stash_budget=budget)
+    diff = err_of_largest(grads2, grads, ("color", "fuzz", "ior"))
+    if abs(loss2 - loss) > 1e-6 * loss or max(diff.values()) > 1e-5:
+        raise RuntimeError(f"marble-glossy over budget: loss {loss2} against {loss}, {diff}")
+    cut = dataclasses.replace(cam, samples_per_pixel=REPLAY_CUT_SPP)
+    _, _, cut_ms, cut_grads, cut_loss, cut_target = marble_fwd_bwd(
+        "marble_glossy_fwd_bwd_25spp", "marble-glossy", glossy, cut, "pathwise")
+    replay_against("marble_glossy_replay_tier", "marble-glossy", glossy, cut, cut_ms,
+                   cut_grads, cut_loss, cut_target)
+    n_counts, n_nch, n_ms, n_grads, n_loss, n_target = marble_fwd_bwd(
+        "marble_glossy_nee_fwd_bwd", "marble-glossy-nee", nee, nee_cam, "fused")
+    replay_against("marble_glossy_nee_replay_tier", "marble-glossy-nee", nee, nee_cam,
+                   n_ms, n_grads, n_loss, n_target)
+    b5a, b5b, b4 = marble_kernel_timing(
+        glossy, cam, nee, nee_cam, {"glossy": nch, "nee": n_nch},
+        {"b5a": counts["wavefront_grad_fwd_pathwise"],
+         "b5b": counts["wavefront_grad_rev_pathwise"],
+         "b4": n_counts["wavefront_grad_fused"]}, small)
+    b5a["registers_marble"], b5a["spill_bytes_marble"] = regs["b5a"]
+    b5b["registers_marble"], b5b["spill_bytes_marble"] = regs["b5b"]
+    b4["registers_marble"], b4["spill_bytes_marble"] = regs["b4"]
+    return b5a, b5b, b4
+
+
+# ---- the tile-sweep probe of the mesh stream (scripts/stream_micro.py) --------
+
+PROBE_BLOCKS, PROBE_SWEEPS = 512, 512        # scripts/stream_micro.py's defaults
+
+
+def probe_phase(regs):
+    """The probe's five variants: each against its plain version at 8
+    blocks and at the defaults (t and id equal), then the CLI's own run
+    (``stream_micro.run``, every variant at the defaults: one warm-up and
+    three launches each) with its launches counted, and each variant's time
+    beside its bound (55 float32 operations a test, 1,024 tests a block and
+    sweep; the bytes: the rays, the tile rows the variant reads, the
+    outputs; sweeponly: one test an output, then a compare and a select a
+    sweep) and its plain version's.  Returns the probe's entry of the
+    ``kernels`` line."""
+    checks = {}
+    for n_blocks in (8, PROBE_BLOCKS):
+        rays, tri = sm.probe_inputs(n_blocks, "cuda")
+        for variant in sm.VARIANTS:
+            t, ids = sm.stream_micro(rays, tri, PROBE_SWEEPS, variant)
+            plain_ms, (pt, pids) = cuda_ms(
+                lambda: sm._stream_micro_plain(rays, tri, PROBE_SWEEPS, variant))
+            equal = bool(torch.equal(t, pt) and torch.equal(ids, pids))
+            checks[(n_blocks, variant)] = dict(
+                equal=equal, hits=int((ids >= 0).sum()), plain_ms=plain_ms,
+                max_abs_err=float(torch.where(t < 1e38, (t - pt).abs(), 0.0).max()))
+            if not equal:
+                raise RuntimeError(f"probe {variant} at {n_blocks} blocks differs from "
+                                   "its plain version")
+    sm.LAUNCHES = 0
+    res = sm.run(PROBE_BLOCKS, PROBE_SWEEPS, "cuda")
+    launches = sm.LAUNCHES
+    variants = {}
+    outputs = PROBE_BLOCKS * sm.GROUP * sm.LANES
+    for variant, r in res.items():
+        roll, dyn_tri, _ = sm.VARIANTS[variant]
+        # sweeponly tests one ray against one triangle again and again: the
+        # function needs that test once an output, then a compare and a
+        # select a sweep (what the compiler makes of the loop-invariant test)
+        per_output = r["sweeps"] // PROBE_BLOCKS
+        ops = (float(outputs) * per_output * FLOPS_MOLLER_TRUMBORE if dyn_tri or roll
+               else float(outputs) * (FLOPS_MOLLER_TRUMBORE + 2 * (per_output - 1)))
+        moved = (PROBE_BLOCKS * sm.RAY_ROWS * sm.GROUP * sm.LANES * 4
+                 + (sm.N_TILES if dyn_tri else 1) * 9 * sm.TILE * 4 + outputs * 8)
+        bound = (moved / PEAK_BYTES_PER_S * 1e3, ops / PEAK_FP32_FLOPS * 1e3)
+        variants[variant] = dict(
+            ms=r["ms"], ns_per_sweep=r["ns_per_sweep"], sweeps=r["sweeps"],
+            plain_ms=checks[(PROBE_BLOCKS, variant)]["plain_ms"],
+            bound_ms=max(bound), bound_bytes_ms=bound[0], bound_ops_ms=bound[1],
+            bound_by="bytes" if bound[0] >= bound[1] else "operations",
+            roofline_share=max(bound) / r["ms"],
+            hits=checks[(PROBE_BLOCKS, variant)]["hits"],
+            registers=regs[variant][0], spill_bytes=regs[variant][1])
+    emit("probe_stream_micro", blocks=PROBE_BLOCKS, sweeps=PROBE_SWEEPS,
+         launches=launches, variants=variants,
+         equal_to_plain={f"{v}@{b}": c["equal"] for (b, v), c in checks.items()})
+    if launches != 4 * len(sm.VARIANTS):
+        raise RuntimeError(f"probe: {launches} launches, expected {4 * len(sm.VARIANTS)}")
+    full = variants["full"]
+    return {"name": "stream_micro", "route": "cuda",
+            "source": "go_raytracing_tpu_torch/csrc/stream_micro.cu",
+            "replaces": "scripts/stream_micro.py:126 (pl.pallas_call in run)",
+            "launches": launches,
+            "max_abs_err": max(c["max_abs_err"] for c in checks.values()),
+            "ms": full["ms"], "ms_per_launch": full["ms"], "plain_ms": full["plain_ms"],
+            "bound_ms": full["bound_ms"], "bound_by": full["bound_by"],
+            "library_ms": None, "entry_variant": "full", "blocks": PROBE_BLOCKS,
+            "sweeps": PROBE_SWEEPS, "variants": variants}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out-dir", default=str(_build.BUILD_DIR),
@@ -2910,10 +3416,10 @@ def main():
     # ---- build ---------------------------------------------------------------
     t0 = time.perf_counter()
     (built, built_fma, built_grad, built_pw, built_ix, built_mesh,
-     built_rows, built_fused) = _build.load_all(
+     built_rows, built_fused, built_probe) = _build.load_all(
         [("wavefront", False), ("wavefront", True), ("wavefront_grad", False),
          ("wavefront_grad_pathwise", False), ("intersect", False), ("mesh", False),
-         ("row_sums", False), ("wavefront_grad_fused", False)])
+         ("row_sums", False), ("wavefront_grad_fused", False), ("stream_micro", False)])
 
     def kernel_stats(lib, tag):
         (stats,) = [v for name, v in lib.kernels.items() if tag in name]
@@ -2926,9 +3432,19 @@ def main():
     rows_regs = kernel_stats(built_rows, "row_sums_kernel")
     gfwd_regs, gfwd_spill = kernel_stats(built, "wavefront_kernelILi1E")
     pfwd_regs, pfwd_spill = kernel_stats(built, "wavefront_kernelILi2E")
+    # <4>: the pathwise gradient forward of a scene with marble (20 rows)
+    pfwd_marble = kernel_stats(built, "wavefront_kernelILi4E")
     grev_regs, grev_spill = kernel_stats(built_grad, "wavefront_grad_rev_kernel")
-    prev_regs, prev_spill = kernel_stats(built_pw, "wavefront_grad_rev_pathwise_kernel")
-    fused_regs = kernel_stats(built_fused, "wavefront_grad_fused_kernel")
+    # the pathwise reverse and fused kernels: <19> a stash of 19 float rows a
+    # bounce, <20> of a scene with marble (dmarble/dp compiled in)
+    prev_regs, prev_spill = kernel_stats(built_pw,
+                                         "wavefront_grad_rev_pathwise_kernelILi19E")
+    prev_marble = kernel_stats(built_pw, "wavefront_grad_rev_pathwise_kernelILi20E")
+    fused_regs = kernel_stats(built_fused, "wavefront_grad_fused_kernelILi19E")
+    fused_marble = kernel_stats(built_fused, "wavefront_grad_fused_kernelILi20E")
+    # stream_micro_kernel<roll, dynamic tile, bit scan>: the probe's variants
+    probe_regs = {v: kernel_stats(built_probe, "stream_micro_kernelILb{}ELb{}ELb{}E".format(
+        *(int(f) for f in flags))) for v, flags in sm.VARIANTS.items()}
     resume_regs = kernel_stats(built, "wavefront_resume_kernel")
     seg_regs = kernel_stats(built_rows, "sorted_segment_sums_kernel")
     # planar_kernel<false> / <true> and sphere_kernel<false> / <true>: closest
@@ -2945,17 +3461,25 @@ def main():
         ("mesh_sweep_any_hit", "mesh_sweep_kernelILb1E"),
         ("mesh_stream", "mesh_stream_kernelILb0E"),
         ("mesh_stream_any_hit", "mesh_stream_kernelILb1E"))}
-    emit("build", seconds=time.perf_counter() - t0, kernels=15,
-         kernels_note="fourteen ports of TPU kernels and the row-sum kernel of "
-                      "take_rows' backward pass (not a port; its file also holds "
-                      "the sorted segment sums of the environment's texels)",
+    emit("build", seconds=time.perf_counter() - t0, kernels=16,
+         kernels_note="fifteen ports of TPU kernels (the probe of the mesh stream "
+                      "among them) and the row-sum kernel of take_rows' backward "
+                      "pass (not a port; its file also holds the sorted segment "
+                      "sums of the environment's texels)",
          nvcc_seconds=[b.build_seconds for b in (built, built_fma, built_grad, built_pw,
                                                  built_ix, built_mesh, built_rows,
-                                                 built_fused)],
+                                                 built_fused, built_probe)],
          libraries=[built.path.name, built_grad.path.name, built_pw.path.name,
                     built_ix.path.name, built_mesh.path.name, built_rows.path.name,
-                    built_fused.path.name],
+                    built_fused.path.name, built_probe.path.name],
          fused_registers=fused_regs[0], fused_spill_bytes=fused_regs[1],
+         fused_marble_registers=fused_marble[0], fused_marble_spill_bytes=fused_marble[1],
+         grad_fwd_pathwise_marble_registers=pfwd_marble[0],
+         grad_fwd_pathwise_marble_spill_bytes=pfwd_marble[1],
+         grad_rev_pathwise_marble_registers=prev_marble[0],
+         grad_rev_pathwise_marble_spill_bytes=prev_marble[1],
+         probe_registers={k: v[0] for k, v in probe_regs.items()},
+         probe_spill_bytes={k: v[1] for k, v in probe_regs.items()},
          resume_registers=resume_regs[0], resume_spill_bytes=resume_regs[1],
          segment_sums_registers=seg_regs[0], segment_sums_spill_bytes=seg_regs[1],
          record_registers=rec_regs[0], record_spill_bytes=rec_regs[1],
@@ -2973,7 +3497,7 @@ def main():
          grad_rev_pathwise_registers=prev_regs,
          grad_rev_pathwise_spill_bytes=prev_spill,
          ptxas=[l for b in (built, built_grad, built_pw, built_ix, built_mesh, built_rows,
-                           built_fused)
+                           built_fused, built_probe)
                 for l in b.log.splitlines()
                 if "ptxas info" in l and ("Used" in l or "spill" in l)])
 
@@ -3234,6 +3758,15 @@ def main():
     grad_entries[0]["launches_noise_fwd_bwd"] = b2_noise
     grad_entries[1]["launches_noise_fwd_bwd"] = b3_noise
 
+    # ---- marble behind metal and glass: the pathwise and fused tiers ----------
+    b5a_marble, b5b_marble, b4_marble = marble_grad_phases(
+        dev, synthetic_sky()[0], {"b5a": pfwd_marble, "b5b": prev_marble,
+                                  "b4": fused_marble})
+    b4_entry["registers"], b4_entry["spill_bytes"] = fused_regs
+
+    # ---- the tile-sweep probe of the mesh stream --------------------------------
+    probe_entry = probe_phase(probe_regs)
+
     emit("grad_bit_stable", autograd_same_bits=autograd_bits,
          replay_render_grad_same_bits={"random": rr_bits, "cornell-lucy": lu_bits})
     if not (all(autograd_bits) and rr_bits and lu_bits):
@@ -3257,8 +3790,9 @@ def main():
         "library_ms": None,
         **b1_env,
         **b1_marble,
-    }, rec_entry, *grad_entries, pw_entries[0], pw_entries[1] | b5b_env, *ix_entries,
-        *mesh_entries, b4_entry, b11_entry]}), flush=True)
+    }, rec_entry, *grad_entries, pw_entries[0] | b5a_marble,
+        pw_entries[1] | b5b_env | b5b_marble, *ix_entries, *mesh_entries,
+        b4_entry | b4_marble, b11_entry, probe_entry]}), flush=True)
     print(name_and_limit, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

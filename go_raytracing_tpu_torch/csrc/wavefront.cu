@@ -1,5 +1,5 @@
 // Wavefront megakernel for Hopper (sm_90a): the whole bounce loop of the
-// path tracer in one kernel, one thread per ray.  Four instantiations of
+// path tracer in one kernel, one thread per ray.  Five instantiations of
 // one template, and the resumable kernel (wavefront_resume_kernel, below):
 //
 //   wavefront_kernel<FWD>       the forward render.  Replaces the forward
@@ -18,8 +18,10 @@
 //       (wavefront_grad_pathwise.cu) reads: throughput, attenuation, hit
 //       point, incoming direction, normal, fuzz, IOR, d(normal)/d(point),
 //       hit distance; albedo slot, material id, mask.  Replaces
-//       make_kernel(grad_mode=True, pathwise=True, phase="fwd"), without
-//       the marble row.  It stores no NEE rows: the reverse sweep
+//       make_kernel(grad_mode=True, pathwise=True, phase="fwd"); in a
+//       scene with marble wavefront_kernel<PATHWISE_MARBLE>, the same with
+//       a 20th row, the winner's marble scale (mask bit 8192 marks a marble
+//       winner in both).  It stores no NEE rows: the reverse sweep
 //       recomputes that chain, and of the shadow sweep only the outcome is
 //       kept, as a mask bit.
 //   wavefront_kernel<RECORD>    the forward, and per bounce the sweeps'
@@ -38,9 +40,9 @@
 // branch): 7 octaves of 8 lattice corners, each a PCG3D hash, a normalized
 // gradient and a dot product, about 3,300 operations a marble hit, so a
 // scene of marble surfaces (perlin: one sphere, one plane) is bound by the
-// marble's arithmetic, not by its sweeps.  The gradient forwards take marble
-// only on the product tier, where a marble winner's albedo slot is the null
-// slot.
+// marble's arithmetic, not by its sweeps.  On the product tier a marble
+// winner's albedo slot is the null slot; the pathwise forward also stashes
+// the winner's marble scale for the reverse sweep's dmarble/dp.
 //
 // In a scene with quad lights and an importance-sampled environment the
 // forward and the record also read 7 rows a bounce, the ray's environment
@@ -91,7 +93,7 @@
 //
 // The gradient forward moves five times the bytes: 15 stash rows a bounce
 // besides the forward's 18 and the 3 miss colour rows, 384 bytes a ray at
-// depth 5 (the pathwise rows: 22 a bounce, 524 bytes a ray), so the stash
+// depth 5 (the pathwise rows: 22 a bounce, 23 with marble), so the stash
 // writes bound it.  The design: the stash is
 // [depth, row, ray] with the ray innermost, so the 32 stores of a warp to
 // one row are one 128-byte line; a thread writes the rows of the bounces it
@@ -172,7 +174,7 @@ wavefront_kernel(Tables G, const float* __restrict__ ox,
             out[(6 + c) * n_rays + i] = m_tp[c];
         }
         flags_out[i] = flags;
-        if constexpr (MODE == PRODUCT || MODE == PATHWISE) {
+        if constexpr (MODE == PRODUCT || MODE == PATHWISE || MODE == PATHWISE_MARBLE) {
             float col[3] = {0.0f, 0.0f, 0.0f};
             if (flags & 1) miss_colour(M, m_dir, col);
 #pragma unroll
@@ -372,7 +374,8 @@ extern "C" int wavefront_grad_fwd_launch(
                            Miss{miss_mode, {bg_r, bg_g, bg_b}}, miss_col);
 }
 
-// The pathwise tier's: as above with stash_f [max_depth, 19, n_rays].
+// The pathwise tier's: as above with stash_f [max_depth, f_rows, n_rays],
+// f_rows 19, or 20 in a scene with marble (row 19: the winner's marble scale).
 extern "C" int wavefront_grad_fwd_pathwise_launch(
     const float* pt, const float* st, const float* vt, const float* lt,
     int n_planar, int n_sphere, int n_vol, int n_lights,
@@ -381,12 +384,18 @@ extern "C" int wavefront_grad_fwd_pathwise_launch(
     const void* stream, float* out, int* flags, float* miss_col,
     float* stash_f, int* stash_i, long long n_rays, unsigned int seed,
     int max_depth, int miss_mode, float bg_r, float bg_g, float bg_b,
-    void* cuda_stream) {
+    int f_rows, void* cuda_stream) {
+    const Stash Z{stash_f, stash_i, n_rays};
+    const Miss M{miss_mode, {bg_r, bg_g, bg_b}};
+    if (f_rows == PW_F_ROWS_MARBLE)
+        return launch<PATHWISE_MARBLE>(pt, st, vt, lt, n_planar, n_sphere, n_vol,
+                                       n_lights, ox, oy, oz, dx, dy, dz, tm, stream,
+                                       out, flags, n_rays, seed, max_depth, cuda_stream,
+                                       Z, M, miss_col);
+    if (f_rows != PW_F_ROWS) return (int)cudaErrorInvalidValue;
     return launch<PATHWISE>(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights,
                             ox, oy, oz, dx, dy, dz, tm, stream, out, flags,
-                            n_rays, seed, max_depth, cuda_stream,
-                            Stash{stash_f, stash_i, n_rays},
-                            Miss{miss_mode, {bg_r, bg_g, bg_b}}, miss_col);
+                            n_rays, seed, max_depth, cuda_stream, Z, M, miss_col);
 }
 
 // The resumable kernel.  `in`: the addresses of the 21 [n_rays] rows of the

@@ -1,6 +1,7 @@
 // Device functions shared by the tracing kernels (wavefront.cu) and the
 // pathwise reverse sweep (wavefront_grad_pathwise.cu): the counter hash, the
-// random draws, the marble texture, the Fresnel decision, the light sample.
+// random draws, the marble texture and its gradient, the Fresnel decision,
+// the light sample.
 //
 // The pathwise reverse sweep stashes no branch outcome of a bounce but the
 // shadow ray's: it recomputes the random draws from the ray's counter and
@@ -44,7 +45,11 @@ constexpr int PW_USE_MIS = 256;
 constexpr int PW_BLK_H = 512;
 constexpr int PW_VOLUME = 1024;
 constexpr int PW_VOL_SHIFT = 11;
+constexpr int PW_MARBLE = 8192;
+// Float rows of a pathwise stash bounce: 19, and a 20th (the winner's marble
+// scale) in a scene with marble textures.
 constexpr int PW_F_ROWS = 19;
+constexpr int PW_F_ROWS_MARBLE = 20;
 constexpr int SLOT_NONE = -3;
 constexpr int MSLOT_NONE = -9;
 
@@ -106,15 +111,23 @@ __device__ __forceinline__ void unit_sphere_draw(uint32_t sid, uint32_t seed,
 // by 1 / sqrt(...) (a division, not rsqrtf: the torch version divides).  The
 // lattice coordinate is floor(p) converted with saturation
 // (__float2int_rd), as the torch version's _floor_i32 and XLA convert.
-__device__ __forceinline__ float noise_corner(int i, int j, int k, float u, float v,
-                                              float w) {
+__device__ __forceinline__ void lattice_grad(int i, int j, int k, float g[3]) {
     uint32_t x = (uint32_t)i, y = (uint32_t)j, z = (uint32_t)k;
     pcg3d(x, y, z);
     const float gx = 2.0f * ((float)(x >> 8) * F24) - 1.0f;
     const float gy = 2.0f * ((float)(y >> 8) * F24) - 1.0f;
     const float gz = 2.0f * ((float)(z >> 8) * F24) - 1.0f;
     const float ginv = 1.0f / sqrtf(fmaxf(gx * gx + gy * gy + gz * gz, 1e-12f));
-    return (gx * ginv) * u + (gy * ginv) * v + (gz * ginv) * w;
+    g[0] = gx * ginv;
+    g[1] = gy * ginv;
+    g[2] = gz * ginv;
+}
+
+__device__ __forceinline__ float noise_corner(int i, int j, int k, float u, float v,
+                                              float w) {
+    float g[3];
+    lattice_grad(i, j, k, g);
+    return g[0] * u + g[1] * v + g[2] * w;
 }
 
 __device__ __forceinline__ float noise1(float px, float py, float pz) {
@@ -151,6 +164,73 @@ __device__ __forceinline__ float marble(const float p[3], float scale) {
         pz = pz * 2.0f;
     }
     return 0.5f * (1.0f + sinf(scale * p[2] + 10.0f * fabsf(acc)));
+}
+
+// noise1 and its gradient in (px, py, pz) (materials/textures.py:
+// perlin_noise_soa(with_grad=True)): the product rule over the 8 corner weights, the
+// lattice cell held fixed.  The value is noise1's, the same operations in
+// the same order.
+__device__ __forceinline__ float noise1_grad(float px, float py, float pz,
+                                             float grad[3]) {
+    const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
+    const float u = px - fx, v = py - fy, w = pz - fz;
+    const int i = __float2int_rd(px), j = __float2int_rd(py), k = __float2int_rd(pz);
+    float acc = 0.0f;
+    grad[0] = grad[1] = grad[2] = 0.0f;
+#pragma unroll
+    for (int di = 0; di < 2; ++di) {
+#pragma unroll
+        for (int dj = 0; dj < 2; ++dj) {
+#pragma unroll
+            for (int dk = 0; dk < 2; ++dk) {
+                float g[3];
+                lattice_grad(i + di, j + dj, k + dk, g);
+                const float dot = g[0] * (u - (float)di) + g[1] * (v - (float)dj) +
+                                  g[2] * (w - (float)dk);
+                const float wu = di ? u : 1.0f - u;
+                const float wv = dj ? v : 1.0f - v;
+                const float ww = dk ? w : 1.0f - w;
+                acc = acc + wu * wv * ww * dot;
+                const float su = di ? 1.0f : -1.0f;
+                const float sv = dj ? 1.0f : -1.0f;
+                const float sw = dk ? 1.0f : -1.0f;
+                grad[0] = grad[0] + (su * wv * ww * dot + wu * wv * ww * g[0]);
+                grad[1] = grad[1] + (wu * sv * ww * dot + wu * wv * ww * g[1]);
+                grad[2] = grad[2] + (wu * wv * sw * dot + wu * wv * ww * g[2]);
+            }
+        }
+    }
+    return acc;
+}
+
+// The marble's value and its gradient in p (materials/textures.py:
+// marble_grad): 0.5 cos(arg) (10 sign(turb) sum_o w_o s 2^o grad noise
+// + s z_hat), arg = s z + 10 |turb|, sign(0) = 0 as in the JAX kernel.
+__device__ __forceinline__ float marble_grad(const float p[3], float scale,
+                                             float grad[3]) {
+    float px = p[0] * scale, py = p[1] * scale, pz = p[2] * scale;
+    float acc = 0.0f, weight = 1.0f, osc = scale;
+    float da[3] = {0.0f, 0.0f, 0.0f};
+    for (int oct = 0; oct < 7; ++oct) {
+        float nd[3];
+        const float nv = noise1_grad(px, py, pz, nd);
+        acc = acc + weight * nv;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) da[c] = da[c] + weight * osc * nd[c];
+        weight *= 0.5f;
+        osc = osc * 2.0f;
+        px = px * 2.0f;
+        py = py * 2.0f;
+        pz = pz * 2.0f;
+    }
+    const float arg = scale * p[2] + 10.0f * fabsf(acc);
+    const float sgn = acc > 0.0f ? 1.0f : (acc < 0.0f ? -1.0f : 0.0f);
+    const float half_cos = 0.5f * cosf(arg);
+    const float ten_sgn = 10.0f * sgn;
+    grad[0] = half_cos * (ten_sgn * da[0]);
+    grad[1] = half_cos * (ten_sgn * da[1]);
+    grad[2] = half_cos * (ten_sgn * da[2] + scale);
+    return 0.5f * (1.0f + sinf(arg));
 }
 
 // Dielectric: the unit incoming direction and the reflect-or-refract

@@ -5,19 +5,21 @@
 // Replaces: make_kernel(grad_mode=True, pathwise=True, use_hdri=True,
 // miss_cfg=("stream",)) in the JAX package's
 // go_raytracing_tpu/ops/pallas_wavefront.py (launched by _call_grad through
-// pl.pallas_call, entry point grad_megakernel), without its marble block.
-// Its use: scenes with an HDRI environment and quad lights, whose lambertian
-// hits sample the environment as well as a light (HDRI next-event
-// estimation).  Those scenes never take the two-phase route (stash-writing
-// forward, then reverse sweep): the environment's texel cotangents of every
-// bounce come out of the reverse sweep here, as `eout` rows, and are summed
-// per texel outside the kernel (core/segsum.py).
+// pl.pallas_call, entry point grad_megakernel), its marble block included
+// (two instantiations: a stash of 19 float rows a bounce, and of 20 in a
+// scene with marble, whose reverse sweep adds dmarble/dp).  Its use: scenes
+// with an HDRI environment and quad lights, whose lambertian hits sample the
+// environment as well as a light (HDRI next-event estimation).  Those
+// scenes never take the two-phase route (stash-writing forward, then reverse
+// sweep): the environment's texel cotangents of every bounce come out of the
+// reverse sweep here, as `eout` rows, and are summed per texel outside the
+// kernel (core/segsum.py).
 //
 // Per ray the thread
 //   * runs the pathwise gradient forward (wavefront_trace.cuh, the bounce
 //     loop of wavefront_kernel<PATHWISE>, with the HDRI rows) and writes its
-//     stash rows (19 float + 3 int a bounce) into a local array: the radiance
-//     is the forward kernel's with the same HDRI rows, bit for bit;
+//     stash rows (19 or 20 float + 3 int a bounce) into a local array: the
+//     radiance is the forward kernel's with the same HDRI rows, bit for bit;
 //   * adds the miss term: the per-ray environment colour mc (or the sky or
 //     the background), times the miss throughput;
 //   * runs the pathwise reverse sweep (wavefront_reverse.cuh) over that
@@ -27,8 +29,8 @@
 //
 // What bounds it: by the count, the bytes of the inputs (18 ray and
 // cotangent rows, 6 environment rows, 7 HDRI rows a bounce) and the 3 eout
-// rows a bounce; the stash, 22 rows a bounce (880 bytes a ray at depth 10),
-// never leaves the SM's caches unless they overflow.  What it waits for is
+// rows a bounce; the stash, 22 or 23 rows a bounce (880 or 920 bytes a ray
+// at depth 10), never leaves the SM's caches unless they overflow.  What it waits for is
 // the forward's sweeps and the reverse's dependent chain, as in B1 and B5b.
 // A simple design, not a fast one: the TPU kernel's block layout (a block of
 // rays stepping through every bounce with masks) is not carried over.
@@ -59,6 +61,7 @@ constexpr int FUSED_MAX_ACC =
     (int)(FUSED_SMEM_LIMIT / (FUSED_WARPS * sizeof(float)));
 constexpr int FUSED_MAX_DEPTH = 50;
 
+template <int F_ROWS>
 __global__ void __launch_bounds__(FUSED_THREADS)
 wavefront_grad_fused_kernel(Tables G, const float* __restrict__ ox,
                             const float* __restrict__ oy, const float* __restrict__ oz,
@@ -100,9 +103,10 @@ wavefront_grad_fused_kernel(Tables G, const float* __restrict__ ox,
                      M.mode};
     const long long base = (long long)blockIdx.x * FUSED_BLOCK_RAYS + threadIdx.x;
 
-    float sf[FUSED_MAX_DEPTH * PW_F_ROWS];
+    float sf[FUSED_MAX_DEPTH * F_ROWS];
     int si[FUSED_MAX_DEPTH * 3];
     const Stash Z{sf, si, 1};
+    constexpr int MODE = F_ROWS == PW_F_ROWS_MARBLE ? PATHWISE_MARBLE : PATHWISE;
 
     for (int it = 0; it < FUSED_RAYS_PER_THREAD; ++it) {
         const long long i = base + (long long)it * FUSED_THREADS;
@@ -121,7 +125,7 @@ wavefront_grad_fused_kernel(Tables G, const float* __restrict__ ox,
             int flags = FLAG_ALIVE | FLAG_ALLOW;
             sid = stream[i];
             hd = hdri != nullptr ? hdri + i : nullptr;
-            trace_ray<PATHWISE>(S, o, d, tp, tm[i], sid, seed, 0, depth, rad, m_dir,
+            trace_ray<MODE>(S, o, d, tp, tm[i], sid, seed, 0, depth, rad, m_dir,
                                 m_tp, flags, Z, Record{nullptr, nullptr, 0}, 0,
                                 Hdri{hd, n_rays});
             if (flags & 1) {
@@ -140,8 +144,9 @@ wavefront_grad_fused_kernel(Tables G, const float* __restrict__ ox,
             }
         }
         // an invalid lane reads no stash (mask 0 at every bounce)
-        reverse_ray(R, valid, sf, si, 1, depth, g, mc, lmd, sid, seed, hd, n_rays,
-                    eout != nullptr && valid ? eout + i : nullptr, n_rays, acc, lane);
+        reverse_ray<F_ROWS>(R, valid, sf, si, 1, depth, g, mc, lmd, sid, seed, hd,
+                            n_rays, eout != nullptr && valid ? eout + i : nullptr,
+                            n_rays, acc, lane);
     }
 
     __syncthreads();
@@ -169,8 +174,9 @@ extern "C" int wavefront_grad_fused_max_depth() { return FUSED_MAX_DEPTH; }
 // n_rays] f32 or null; out: rad [3, n_rays] f32 (the radiance with the miss
 // term), eout [depth * 3, n_rays] f32 (with hdri, else null: the cotangent of
 // each bounce's environment sample's texel), partial [ceil(n_rays /
-// FUSED_BLOCK_RAYS), n_acc] f32, all written in full.  Launches on the given
-// stream, does not synchronize, allocates nothing.  Returns
+// FUSED_BLOCK_RAYS), n_acc] f32, all written in full; noise: the scene has
+// marble textures (the stash keeps their scale, the sweep their derivative).
+// Launches on the given stream, does not synchronize, allocates nothing.  Returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for sizes the
 // kernel does not take.
 extern "C" int wavefront_grad_fused_launch(
@@ -181,7 +187,7 @@ extern "C" int wavefront_grad_fused_launch(
     const void* stream, const float* g3, const float* env_rows, const float* hdri,
     int miss_mode, float bg_r, float bg_g, float bg_b, float* rad, float* eout,
     float* partial, long long n_rays, unsigned int seed, int depth, int n_col,
-    int n_acc, void* cuda_stream) {
+    int n_acc, int noise, void* cuda_stream) {
     if (n_rays < 1 || depth < 1 || depth > FUSED_MAX_DEPTH || n_col < 0 ||
         n_acc < n_col || n_acc < 1 || n_acc > FUSED_MAX_ACC || n_lights < 0 ||
         n_lights > 8 || n_vol < 0 || n_vol > 4 || miss_mode < 0 || miss_mode > 2 ||
@@ -210,9 +216,15 @@ extern "C" int wavefront_grad_fused_launch(
     const long long blocks = (n_rays + FUSED_BLOCK_RAYS - 1) / FUSED_BLOCK_RAYS;
     if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
     const Miss M{miss_mode, {bg_r, bg_g, bg_b}};
-    wavefront_grad_fused_kernel<<<(unsigned int)blocks, FUSED_THREADS, smem,
-                                  (cudaStream_t)cuda_stream>>>(
-        G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, g3, env_rows, hdri, M,
-        rad, eout, partial, n_rays, seed, depth, n_col, n_acc, in_smem);
+    if (noise)
+        wavefront_grad_fused_kernel<PW_F_ROWS_MARBLE>
+            <<<(unsigned int)blocks, FUSED_THREADS, smem, (cudaStream_t)cuda_stream>>>(
+                G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, g3, env_rows,
+                hdri, M, rad, eout, partial, n_rays, seed, depth, n_col, n_acc, in_smem);
+    else
+        wavefront_grad_fused_kernel<PW_F_ROWS>
+            <<<(unsigned int)blocks, FUSED_THREADS, smem, (cudaStream_t)cuda_stream>>>(
+                G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, g3, env_rows,
+                hdri, M, rad, eout, partial, n_rays, seed, depth, n_col, n_acc, in_smem);
     return (int)cudaGetLastError();
 }

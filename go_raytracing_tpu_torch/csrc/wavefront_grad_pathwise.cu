@@ -6,9 +6,11 @@
 // Replaces: make_kernel(grad_mode=True, pathwise=True, phase="rev") in the
 // JAX package's go_raytracing_tpu/ops/pallas_wavefront.py (launched by
 // _call_grad_rev through pl.pallas_call, entry point
-// grad_rev_stash(pathwise=True)), without its marble block.  Its HDRI block
-// runs only in the fused kernel (wavefront_grad_fused.cu): a scene with an
-// environment and quad lights never takes the two-phase route.
+// grad_rev_stash(pathwise=True)), its marble block (dmarble/dp) included:
+// two instantiations, the stash's 19 float rows a bounce and the 20 of a
+// scene with marble, so a scene without marble runs no code of it.  Its
+// HDRI block runs only in the fused kernel (wavefront_grad_fused.cu): a
+// scene with an environment and quad lights never takes the two-phase route.
 //
 // It reads what the pathwise gradient forward (wavefront.cu,
 // wavefront_kernel<PATHWISE>) stashed per ray and bounce, the loss cotangent
@@ -26,6 +28,9 @@
 //   * differentiates the sky colour by the miss direction, or, under an
 //     environment map, adds the miss direction's cotangent, which comes in
 //     as a row (miss_cfg ("stream",) of the JAX kernel);
+//   * on a marble winner, adds the marble's derivative by the hit point
+//     (7 octaves of the noise's analytic gradient, wf::marble_grad) times
+//     the albedo's summed cotangent into the hit point's adjoint;
 //   * sends the hit point's adjoint through the hit distance by the implicit
 //     rule dt/do = -n / (n.d), dt/dd = t dt/do, or, for a volume, through
 //     the entry slab and the free-flight length;
@@ -35,8 +40,10 @@
 //
 // What bounds it: bytes by the count (22 rows a bounce and 7 rows once, 468
 // bytes a ray at depth 5, against a few hundred operations an entered
-// bounce), but the dependent chain of divisions and square roots, four PCG3D
-// hashes a bounce and the keyed reduction are what it waits for; see PERF.md
+// bounce; a marble winner adds one row and about 4,800 operations, 7
+// octaves of 8 hashed corners with their gradient), but the dependent chain
+// of divisions and square roots, four PCG3D hashes a bounce and the keyed
+// reduction are what it waits for; see PERF.md
 // for the measured time.  The design: one thread per ray, rows with the ray
 // innermost (a warp's load of a row is one 128-byte line); a row a ray never
 // entered (mask 0) is skipped, which changes nothing since such rows only
@@ -67,6 +74,7 @@ constexpr size_t SMEM_LIMIT = 48 * 1024;
 // holds (ops/cuda_wavefront.py: GRAD_PATHWISE_MAX_ACC).
 constexpr int MAX_ACC = (int)(SMEM_LIMIT / (WARPS * sizeof(float)));
 
+template <int F_ROWS>
 __global__ void __launch_bounds__(THREADS)
 wavefront_grad_rev_pathwise_kernel(
     RevScene R, const float* __restrict__ stash_f, const int* __restrict__ stash_i,
@@ -99,8 +107,8 @@ wavefront_grad_rev_pathwise_kernel(
             }
             sid = stream[i];
         }
-        reverse_ray(R, valid, stash_f + at, stash_i + at, n_rays, depth, g, mc, lm,
-                    sid, seed, nullptr, 0, nullptr, 0, acc, lane);
+        reverse_ray<F_ROWS>(R, valid, stash_f + at, stash_i + at, n_rays, depth, g,
+                            mc, lm, sid, seed, nullptr, 0, nullptr, 0, acc, lane);
     }
 
     __syncthreads();
@@ -119,7 +127,8 @@ wavefront_grad_rev_pathwise_kernel(
 extern "C" int wavefront_grad_rev_pathwise_block_rays() { return BLOCK_RAYS; }
 
 // lt [17, max(n_lights, 1)] and vt [25, max(n_vol, 1)] f32 (the tables of
-// ops/cuda_wavefront.build_tables), stash_f [depth, 19, n_rays] f32, stash_i
+// ops/cuda_wavefront.build_tables), stash_f [depth, f_rows, n_rays] f32 (f_rows
+// 19, or 20 in a scene with marble: the winner's marble scale), stash_i
 // [depth, 3, n_rays] i32, g3 and miss_col [3, n_rays] f32, stream [n_rays]
 // u32 in; miss_mode 0 flat, 1 sky, 2 environment, with lmd [3, n_rays] f32
 // the cotangent of the miss direction (null otherwise); partial
@@ -133,19 +142,26 @@ extern "C" int wavefront_grad_rev_pathwise_launch(
     const float* stash_f, const int* stash_i, const float* g3,
     const float* miss_col, const float* lmd, const void* stream, float* partial,
     long long n_rays, unsigned int seed, int depth, int n_col, int n_acc,
-    int miss_mode, void* cuda_stream) {
+    int miss_mode, int f_rows, void* cuda_stream) {
     if (n_rays < 1 || depth < 1 || n_col < 0 || n_acc < n_col || n_acc < 1 ||
         n_acc > MAX_ACC || n_lights < 0 || n_lights > 8 || n_vol < 0 || n_vol > 4 ||
-        miss_mode < 0 || miss_mode > 2 || (miss_mode == 2) != (lmd != nullptr))
+        miss_mode < 0 || miss_mode > 2 || (miss_mode == 2) != (lmd != nullptr) ||
+        (f_rows != PW_F_ROWS && f_rows != PW_F_ROWS_MARBLE))
         return (int)cudaErrorInvalidValue;
     const long long blocks = (n_rays + BLOCK_RAYS - 1) / BLOCK_RAYS;
     if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
     const RevScene R{lt, n_lights, n_lights > 0 ? n_lights : 1,
                      vt, n_vol, n_vol > 0 ? n_vol : 1, n_col, n_acc, miss_mode};
-    wavefront_grad_rev_pathwise_kernel<<<(unsigned int)blocks, THREADS,
-                                         (size_t)WARPS * n_acc * sizeof(float),
-                                         (cudaStream_t)cuda_stream>>>(
-        R, stash_f, stash_i, g3, miss_col, lmd, (const uint32_t*)stream, partial,
-        n_rays, seed, depth);
+    const size_t smem = (size_t)WARPS * n_acc * sizeof(float);
+    if (f_rows == PW_F_ROWS_MARBLE)
+        wavefront_grad_rev_pathwise_kernel<PW_F_ROWS_MARBLE>
+            <<<(unsigned int)blocks, THREADS, smem, (cudaStream_t)cuda_stream>>>(
+                R, stash_f, stash_i, g3, miss_col, lmd, (const uint32_t*)stream,
+                partial, n_rays, seed, depth);
+    else
+        wavefront_grad_rev_pathwise_kernel<PW_F_ROWS>
+            <<<(unsigned int)blocks, THREADS, smem, (cudaStream_t)cuda_stream>>>(
+                R, stash_f, stash_i, g3, miss_col, lmd, (const uint32_t*)stream,
+                partial, n_rays, seed, depth);
     return (int)cudaGetLastError();
 }

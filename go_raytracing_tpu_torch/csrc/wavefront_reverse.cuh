@@ -99,15 +99,18 @@ constexpr int REV_MISS_SKY = 1;
 constexpr int REV_MISS_STREAM = 2;
 
 // One ray's reverse sweep, from the last bounce to the first; every lane of
-// a warp calls it with the same depth (warp_add is collective).
+// a warp calls it with the same depth (warp_add is collective).  F_ROWS is
+// the stash's float rows a bounce: PW_F_ROWS, or PW_F_ROWS_MARBLE in a scene
+// with marble, whose winners' dmarble/dp joins the hit point's adjoint.
 //   f, q, zs: the ray's pathwise stash, float row r of bounce k at
-//             f[(k * PW_F_ROWS + r) * zs], int row r at q[(k * 3 + r) * zs];
+//             f[(k * F_ROWS + r) * zs], int row r at q[(k * 3 + r) * zs];
 //   g, mc:    the cotangent of the ray's radiance, its miss colour (0 if it
 //             did not leave the scene);
 //   lmd:      miss mode 2, the cotangent of its miss direction;
 //   hd, hs:   the ray's HDRI rows (7 a bounce, stride hs) or null;
 //   eout, es: with hd, the cotangent of each bounce's environment sample's
 //             texel (3 a bounce, stride es), written for every bounce.
+template <int F_ROWS>
 __device__ __forceinline__ void reverse_ray(
     const RevScene& R, bool valid, const float* f, const int* q, long long zs,
     int depth, const float g[3], const float mc[3], const float lmd[3],
@@ -130,7 +133,7 @@ __device__ __forceinline__ void reverse_ray(
         // mask 0: a bounce the ray never entered.  Such rows only trail, the
         // adjoints are 0 there and stay 0.
         if (mk != 0) {
-            const float* fk = f + (size_t)k * PW_F_ROWS * zs;
+            const float* fk = f + (size_t)k * F_ROWS * zs;
             float T[3], alb[3], pv[3], din[3], nv[3];
 #pragma unroll
             for (int c = 0; c < 3; ++c) {
@@ -366,6 +369,18 @@ __device__ __forceinline__ void reverse_ray(
 #pragma unroll
             for (int c = 0; c < 3; ++c)
                 lam_p[c] = Af * lo[c] + lp_nee[c] + dndp * (l_n_s[c] + ln_nee[c]);
+            if constexpr (F_ROWS == PW_F_ROWS_MARBLE) {
+                if (mk & PW_MARBLE) {
+                    // a marble winner: the marble is grayscale, so its
+                    // value's cotangent is the sum of the albedo's three, and
+                    // it moves with the hit point (dmarble/dp)
+                    float dm[3];
+                    marble_grad(pv, fk[19 * zs], dm);
+                    const float cotm = cot_alb[0] + cot_alb[1] + cot_alb[2];
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) lam_p[c] = lam_p[c] + cotm * dm[c];
+                }
+            }
             const float dlp = dot3(din, lam_p);
             if (mk & PW_VOLUME) {
                 // t = max(near, eps) + K / |d|, K from the draw alone: the

@@ -40,6 +40,7 @@ constexpr int FWD = 0;        // nothing
 constexpr int PRODUCT = 1;    // the product-chain stash and the miss colour
 constexpr int PATHWISE = 2;   // the pathwise stash and the miss colour
 constexpr int RECORD = 3;     // each bounce's outcome
+constexpr int PATHWISE_MARBLE = 4;  // PATHWISE, and the marble's scale (row 19)
 
 struct Tables {
     const float* pt;
@@ -54,7 +55,8 @@ struct Tables {
 struct Stash {
     float* f;        // product:  [depth, 12, n] T(3) alb(3) em_su(3) alb_su(3)
                      // pathwise: [depth, 19, n] T(3) alb(3) p(3) d(3) n(3)
-                     //           fuzz ior dndp t
+                     //           fuzz ior dndp t; PATHWISE_MARBLE: [depth,
+                     //           20, n], and the winner's marble scale
     int* i;          // [depth, 3, n]  slot, lslot or material id, mask
     long long n;     // rays (row stride)
 };
@@ -106,12 +108,14 @@ __device__ __forceinline__ void stash_row(const Stash& Z, long long ray, int k,
     q[2 * Z.n] = mk;
 }
 
-// One row of the pathwise stash.
+// One row of the pathwise stash (F_ROWS float rows a bounce); row 19, the
+// marble scale, only in a stash of a scene with marble.
+template <int F_ROWS>
 __device__ __forceinline__ void stash_row_pathwise(
     const Stash& Z, long long ray, int k, const float T[3], const float alb[3],
     const float p[3], const float d[3], const float nrm[3], float fuzz,
-    float ior, float dndp, float t, int slot, int mslot, int mk) {
-    float* f = Z.f + (size_t)k * PW_F_ROWS * Z.n + ray;
+    float ior, float dndp, float t, float mscale, int slot, int mslot, int mk) {
+    float* f = Z.f + (size_t)k * F_ROWS * Z.n + ray;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
         f[(0 + c) * Z.n] = T[c];
@@ -124,6 +128,7 @@ __device__ __forceinline__ void stash_row_pathwise(
     f[16 * Z.n] = ior;
     f[17 * Z.n] = dndp;
     f[18 * Z.n] = t;
+    if constexpr (F_ROWS == PW_F_ROWS_MARBLE) f[19 * Z.n] = mscale;
     int* q = Z.i + (size_t)k * 3 * Z.n + ray;
     q[0] = slot;
     q[Z.n] = mslot;
@@ -284,7 +289,9 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
     bool missed = flags & FLAG_MISSED, m_prim = flags & FLAG_PRIMARY;
     const bool use_nee = S.n_lights > 0;
     constexpr bool STASH = MODE == PRODUCT;
-    constexpr bool GRAD = MODE == PRODUCT || MODE == PATHWISE;
+    constexpr bool PW = MODE == PATHWISE || MODE == PATHWISE_MARBLE;
+    constexpr int F_ROWS = MODE == PATHWISE_MARBLE ? PW_F_ROWS_MARBLE : PW_F_ROWS;
+    constexpr bool GRAD = MODE == PRODUCT || PW;
     const float zero3[3] = {0.0f, 0.0f, 0.0f};
     int stashed = b_start;  // stash rows (or record rows) written so far
 
@@ -331,14 +338,14 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
                           LSLOT_NONE, MK_LIT);
                 stashed = b + 1;
             }
-            if constexpr (MODE == PATHWISE) {
+            if constexpr (PW) {
                 // the rows a masked loop would leave on a lane without a
                 // hit: the reverse sweep reads T and d (the miss direction)
                 const float pm[3] = {o[0] + 1.0f * d[0], o[1] + 1.0f * d[1],
                                      o[2] + 1.0f * d[2]};
-                stash_row_pathwise(Z, ray, b, tp, zero3, pm, d, zero3, 0.0f,
-                                   1e-3f, 0.0f, 1.0f, SLOT_NONE, MSLOT_NONE,
-                                   PW_LIT);
+                stash_row_pathwise<F_ROWS>(Z, ray, b, tp, zero3, pm, d, zero3,
+                                           0.0f, 1e-3f, 0.0f, 1.0f, 0.0f, SLOT_NONE,
+                                           MSLOT_NONE, PW_LIT);
                 stashed = b + 1;
             }
             // RECORD: the miss reads as no hit, like the bounces after it
@@ -370,7 +377,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             ior = P[18 * pc];
             inv_scale = P[28 * pc];
             if constexpr (GRAD) tex_id = P[29 * pc];
-            if constexpr (MODE == PATHWISE) mat_id = P[30 * pc];
+            if constexpr (PW) mat_id = P[30 * pc];
         } else if (hitk == 1) {
             const float* Q = S.st + hidx;
             const int sc = S.sc;
@@ -389,7 +396,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             ior = Q[10 * sc];
             inv_scale = Q[20 * sc];
             if constexpr (GRAD) tex_id = Q[21 * sc];
-            if constexpr (MODE == PATHWISE) {
+            if constexpr (PW) {
                 mat_id = Q[22 * sc];
                 dndp = inv_rad;  // times flip, below
             }
@@ -515,11 +522,11 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             if constexpr (STASH) lslot = (int)(L[16 * lc] * 3.0f);
             if (light.cos_th > 0.0f) {
                 bool dark = light.cos_l < 1e-3f;  // grazing the light's plane
-                if constexpr (MODE == PATHWISE || MODE == RECORD) {
+                if constexpr (PW || MODE == RECORD) {
                     // the shadow ray's outcome is kept whatever the angle
                     if (occluded(S, p, light.ld, light.dist - EPS_HIT, sid, seed, bu,
                                  VOL_SHADOW)) {
-                        mk |= (MODE == PATHWISE) ? PW_BLK_A : DEC_BLK_A;
+                        mk |= PW ? PW_BLK_A : DEC_BLK_A;
                         dark = true;
                     }
                 } else {
@@ -556,7 +563,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             const float cos_h = dot3(nrm, hd);
             if (cos_h > 0.0f) {
                 if (occluded(S, p, hd, 3.0e38f, sid, seed, bu, VOL_SHADOW_HDRI)) {
-                    if constexpr (MODE == PATHWISE) mk |= PW_BLK_H;
+                    if constexpr (PW) mk |= PW_BLK_H;
                     if constexpr (MODE == RECORD) mk |= DEC_BLK_H;
                 } else {
                     const float pdf_h = hr[6 * H.n];
@@ -581,7 +588,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             stash_row(Z, ray, b, tp, atten, em_su, alb_su, slot, lslot, mk);
             stashed = b + 1;
         }
-        if constexpr (MODE == PATHWISE) {
+        if constexpr (PW) {
             // a dielectric's albedo never enters (atten = 1) and a noise
             // texture has no trainable colour
             const int slot = (!is_die && texkind != 2.0f)
@@ -590,9 +597,12 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
                   (front ? PW_FRONT : 0) | (is_met ? PW_METAL : 0) |
                   (is_die ? PW_DIELECTRIC : 0) | PW_HIT |
                   (use_mis ? PW_USE_MIS : 0) |
-                  (is_vol ? (PW_VOLUME | (hidx << PW_VOL_SHIFT)) : 0);
-            stash_row_pathwise(Z, ray, b, tp, atten, p, d, nrm, fuzz, ior,
-                               flip * dndp, t, slot, (int)mat_id, mk);
+                  (is_vol ? (PW_VOLUME | (hidx << PW_VOL_SHIFT)) : 0) |
+                  // the reverse sweep's dmarble/dp (dielectrics: atten 1)
+                  ((!is_die && texkind == 2.0f) ? PW_MARBLE : 0);
+            stash_row_pathwise<F_ROWS>(Z, ray, b, tp, atten, p, d, nrm, fuzz, ior,
+                                       flip * dndp, t, inv_scale, slot, (int)mat_id,
+                                       mk);
             stashed = b + 1;
         }
         if constexpr (MODE == RECORD) {
@@ -624,10 +634,11 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             stash_row(Z, ray, k, zero3, zero3, zero3, zero3, SLOT_NONE,
                       LSLOT_NONE, 0);
     }
-    if constexpr (MODE == PATHWISE) {
+    if constexpr (PW) {
         for (int k = stashed; k < b_end; ++k)
-            stash_row_pathwise(Z, ray, k, zero3, zero3, zero3, zero3, zero3, 0.0f,
-                               0.0f, 0.0f, 0.0f, SLOT_NONE, MSLOT_NONE, 0);
+            stash_row_pathwise<F_ROWS>(Z, ray, k, zero3, zero3, zero3, zero3, zero3,
+                                       0.0f, 0.0f, 0.0f, 0.0f, 0.0f, SLOT_NONE,
+                                       MSLOT_NONE, 0);
     }
     if constexpr (MODE == RECORD) {
         // the bounce of a miss and the bounces never entered: no hit

@@ -105,14 +105,18 @@ def _lattice_grad(i, j, k):
     return gx * inv, gy * inv, gz * inv
 
 
-def perlin_noise_soa(p: V3):
+def perlin_noise_soa(p: V3, with_grad: bool = False):
     """Gradient noise, roughly in [-1, 1], at points p (a V3 of [R]
     tensors): plain trilinear interpolation of the 8 corners' gradient
-    dot products."""
+    dot products.  ``with_grad`` also returns its analytic gradient in p, a
+    V3: the product rule over the 8 corner weights, sum of (d weight) *
+    (g . offset) + weight * g, with the lattice cell held fixed (one-sided
+    at a cell's faces), as the JAX kernel's ``noise1(with_grad=True)``."""
     fx, fy, fz = torch.floor(p.x), torch.floor(p.y), torch.floor(p.z)
     u, v, w = p.x - fx, p.y - fy, p.z - fz
     i, j, k = _floor_i32(p.x), _floor_i32(p.y), _floor_i32(p.z)
     accum = torch.zeros_like(p.x)
+    dx, dy, dz = accum, accum, accum
     for di in range(2):
         for dj in range(2):
             for dk in range(2):
@@ -122,7 +126,12 @@ def perlin_noise_soa(p: V3):
                 wv = v if dj else 1.0 - v
                 ww = w if dk else 1.0 - w
                 accum = accum + wu * wv * ww * dot
-    return accum
+                if with_grad:
+                    su, sv, sw = float(2 * di - 1), float(2 * dj - 1), float(2 * dk - 1)
+                    dx = dx + (su * wv * ww * dot + wu * wv * ww * gx)
+                    dy = dy + (wu * sv * ww * dot + wu * wv * ww * gy)
+                    dz = dz + (wu * wv * sw * dot + wu * wv * ww * gz)
+    return (accum, V3(dx, dy, dz)) if with_grad else accum
 
 
 def perlin_turb_soa(p: V3, depth: int = 7):
@@ -153,6 +162,39 @@ def marble(p: V3, scale):
     0.5 * (1 + sin(scale * z + 10 * turb(p * scale, 7)))."""
     s = scale * p.z + 10.0 * perlin_turb_soa(p * scale, 7)
     return 0.5 * (1.0 + torch.sin(s))
+
+
+def marble_grad(p: V3, scale):
+    """The marble's value at p and its gradient in p: (value [R], V3).
+
+    turb = sum_o w_o noise(p s 2^o) over 7 octaves (w_o = 2^-o), so
+    d turb/dp = sum_o w_o s 2^o grad noise, and with arg = s z + 10 |turb|
+
+        d marble/dp = 0.5 cos(arg) (10 sign(turb) d turb/dp + s z_hat),
+
+    sign(0) = 0, as the JAX kernel's reverse sweep takes it.  The octave
+    loop repeats that kernel's operations and order; the pathwise and fused
+    reverse sweeps (``ops/cuda_wavefront``) and ``csrc/wavefront_common.cuh``
+    (``marble_grad``) compute the same."""
+    mt = p * scale
+    tacc = torch.zeros_like(p.x)
+    da = [tacc, tacc, tacc]
+    twt = 1.0
+    osc = scale * 1.0
+    for _ in range(7):
+        nval, nd = perlin_noise_soa(mt, with_grad=True)
+        tacc = tacc + twt * nval
+        da = [da[c] + twt * osc * nd[c] for c in range(3)]
+        twt *= 0.5
+        osc = osc * 2.0
+        mt = mt * 2.0
+    arg = scale * p.z + 10.0 * torch.abs(tacc)
+    sgn = torch.sign(tacc)
+    half_cos = 0.5 * torch.cos(arg)
+    ten_sgn = 10.0 * sgn
+    return (0.5 * (1.0 + torch.sin(arg)),
+            V3(half_cos * (ten_sgn * da[0]), half_cos * (ten_sgn * da[1]),
+               half_cos * (ten_sgn * da[2] + scale)))
 
 
 def evaluate(pack: TexturePack, tex_id, u, v, p: V3, *, has_noise=False,

@@ -56,10 +56,12 @@ reverse in one launch, the stash in each thread's local memory, the HDRI
 rows in and the cotangent of every bounce's environment sample out
 (``eout``), summed per texel in torch.  The gradient forward then stashes, per bounce, the
 hit point, the incoming direction, the normal and the material constants
-(19 float + 3 int rows); the reverse sweep carries three adjoints (of the
+(19 float + 3 int rows, and in a scene with marble a 20th float row, the
+winner's marble scale); the reverse sweep carries three adjoints (of the
 throughput, the origin and the direction) from the last bounce to the
 first, recomputes the random draws and the light sample from the ray's
-counter, and also returns the cotangents of fuzz and IOR per material.
+counter, adds a marble winner's dmarble/dp to the hit point's adjoint, and
+also returns the cotangents of fuzz and IOR per material.
 
 What lives here:
 
@@ -90,10 +92,8 @@ What lives here:
     the plain forward with the geometry detached (not an oracle of the
     pathwise tier, where colour gradients also flow through positions).
 
-Not ported yet: the marble's derivative with respect to the hit point in
-the pathwise and fused kernels (their stash row 19; ``grad_pathwise_applicable``
-and ``grad_fused_applicable`` leave marble out, ROADMAP.md A13b), and sphere
-segment culling (ROADMAP.md queue B).
+Not ported: sphere segment culling (a design choice of the forward sweep,
+which changes no result; ROADMAP.md's performance queue).
 """
 
 from __future__ import annotations
@@ -157,11 +157,11 @@ GRAD_MAX_TEX = 170
 # Pathwise stash: per bounce 19 float rows (throughput at entry T, atten,
 # hit point p, incoming direction d, flipped normal n, 3 each; fuzz, ior,
 # dndp = flip / radius for a sphere winner else 0, hit distance t) and 3 int
-# rows (albedo slot, material id, mask).  Same rows as the JAX package's
-# pathwise stash.  Its row 19 (marble scale) and mask bit 8192 come with
-# the marble's derivative (ROADMAP.md A13b): ``grad_pathwise_applicable``
-# excludes marble, so the stash always has 19 rows here.
+# rows (albedo slot, material id, mask); in a scene with marble textures a
+# 20th float row, the winner's marble scale, which the reverse sweep needs
+# for dmarble/dp.  Same rows as the JAX package's pathwise stash.
 PW_STASH_F_ROWS = 19
+PW_STASH_F_ROWS_MARBLE = 20
 PW_STASH_I_ROWS = 3
 MSLOT_NONE = -9      # material slot of a row without fuzz / ior (miss, volume)
 PW_EMIT = 1          # the ray hit a light and its emission counted
@@ -176,7 +176,7 @@ PW_USE_MIS = 256     # lambertian hit in a scene with lights: NEE was sampled
 PW_BLK_H = 512       # the shadow ray toward the environment sample was blocked
 PW_VOLUME = 1024     # a volume won; its index sits in bits 11-12
 PW_VOL_SHIFT = 11
-PW_MARBLE = 8192     # never set: no marble in the pathwise tier (A13b)
+PW_MARBLE = 8192     # a marble winner (not a dielectric): dmarble/dp enters
 
 # Most accumulators of the pathwise reverse kernel: 9 a texture and 2 a
 # material (fuzz, ior), one row for each of a block's 8 warps in 48 KB of
@@ -283,20 +283,19 @@ def grad_applicable(scene, max_depth: int) -> bool:
 
 def grad_pathwise_applicable(scene, max_depth: int) -> bool:
     """Can the pathwise gradient kernels take this scene?  ``applicable``,
-    no marble texture, at least one bounce, and 9 accumulators a texture
-    plus 2 a material within the reverse kernel's shared memory.  Metal,
-    dielectric, volumes and environments are admitted; a scene with an
+    at least one bounce, and 9 accumulators a texture plus 2 a material
+    within the reverse kernel's shared memory.  Metal, dielectric, volumes,
+    environments and marble textures are admitted; a scene with an
     environment and quad lights takes the fused kernel
     (``grad_fused_applicable``), not the two-phase route.  Where
     ``grad_applicable`` holds too, the product-chain tier is the one to
     use: its stash is lighter.
 
-    Behind metal or glass a marble's value moves with the hit point, and
-    these kernels lack its derivative (the JAX kernels' stash row 19, mask
-    bit 8192 and dmarble/dp: ROADMAP.md A13b), so a scene with marble and
-    metal or glass takes the replay tier, whose record and replay both
-    evaluate the marble; the JAX package takes its pathwise kernels there."""
-    if not applicable(scene) or scene.has_noise or max_depth < 1:
+    Behind metal or glass a marble's value moves with the hit point: the
+    stash then keeps the winner's marble scale (row 19, mask bit
+    ``PW_MARBLE``) and the reverse sweep carries dmarble/dp into the hit
+    point's adjoint, as the JAX package's pathwise kernels do."""
+    if not applicable(scene) or max_depth < 1:
         return False
     n_tex = int(scene.textures.color.shape[0])
     n_mat = int(scene.materials.kind.shape[0])
@@ -315,11 +314,11 @@ def grad_two_phase_ok(scene, max_depth: int) -> bool:
 
 
 def grad_fused_applicable(scene, max_depth: int) -> bool:
-    """Can the fused gradient kernel take this scene?  The pathwise gate,
-    no marble texture (dmarble/dp is missing here too, ROADMAP.md A13b),
-    and at most ``FUSED_MAX_DEPTH`` bounces (its stash is a local array)."""
+    """Can the fused gradient kernel take this scene?  The pathwise gate
+    (marble textures among it: the fused kernel's reverse sweep is the
+    pathwise one) and at most ``FUSED_MAX_DEPTH`` bounces (its stash is a
+    local array)."""
     return (grad_pathwise_applicable(scene, max_depth)
-            and not scene.has_noise
             and max_depth <= FUSED_MAX_DEPTH)
 
 
@@ -554,8 +553,8 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
 
     ``stash``: (stash_f [D, 12, R] f32, stash_i [D, 3, R] i32) holding inert
     rows; the rows of every bounce a ray enters are written into it.  With
-    ``pathwise`` the stash is [D, 19, R] and [D, 3, R] in the pathwise
-    layout.  The radiance does not depend on either."""
+    ``pathwise`` the stash is [D, 19 or 20, R] and [D, 3, R] in the pathwise
+    layout (``pathwise_stash_rows``).  The radiance does not depend on either."""
     f32 = torch.float32
     zero = torch.zeros_like(tm)
     one = torch.ones_like(tm)
@@ -817,6 +816,8 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
                        torch.where(is_sphere & hit_a, flip * inv_rad, zero)
                        if tb.n_sphere else zero,
                        t_rec])
+            if stash_f.shape[1] == PW_STASH_F_ROWS_MARBLE:
+                rows.append(inv_scale)   # the marble's scale
             for r_, v in enumerate(rows):
                 stash_f[bounce, r_] = torch.where(alive, v, 0.0)
             # a dielectric's albedo never enters (atten = 1) and a noise
@@ -836,7 +837,8 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
                   + use_mis.to(i32) * PW_USE_MIS
                   + (alive & blk_h).to(i32) * PW_BLK_H
                   + (hit_a & is_vol).to(i32) * PW_VOLUME
-                  + torch.where(hit_a & is_vol, vwin, 0).to(i32) * (1 << PW_VOL_SHIFT))
+                  + torch.where(hit_a & is_vol, vwin, 0).to(i32) * (1 << PW_VOL_SHIFT)
+                  + (hit_a & ~is_die & (texkind == 2.0)).to(i32) * PW_MARBLE)
             stash_i[bounce, 0] = slot
             stash_i[bounce, 1] = mslot
             stash_i[bounce, 2] = mk
@@ -931,10 +933,15 @@ def _miss_colour_rows(out, flags, miss):
     return torch.stack([torch.where(missed, cols[c], 0.0) for c in range(3)])
 
 
-def _empty_stash(r, max_depth, device, pathwise=False):
-    stash_f = torch.empty(
-        (max_depth, PW_STASH_F_ROWS if pathwise else STASH_F_ROWS, r),
-        dtype=torch.float32, device=device)
+def pathwise_stash_rows(tb: Tables) -> int:
+    """Float rows a bounce of the pathwise stash of this scene: 20 with a
+    marble texture on a primitive or volume, else 19."""
+    return PW_STASH_F_ROWS_MARBLE if _has_noise(tb) else PW_STASH_F_ROWS
+
+
+def _empty_stash(r, max_depth, device, f_rows=STASH_F_ROWS):
+    stash_f = torch.empty((max_depth, f_rows, r), dtype=torch.float32,
+                          device=device)
     stash_i = torch.empty((max_depth, STASH_I_ROWS, r), dtype=torch.int32,
                           device=device)
     return stash_f, stash_i
@@ -944,10 +951,13 @@ def _wavefront_grad_fwd_plain(tb: Tables, o, d, tm, stream, seed, max_depth,
                               miss, pathwise=False, hdri=None):
     """Plain version of the gradient forward.  Returns (out [9, R] f32 and
     flags [R] i32 as the forward's, miss colour [3, R] f32, stash_f
-    [D, 12, R] f32 (19 rows with ``pathwise``), stash_i [D, 3, R] i32).
+    [D, 12, R] f32 (with ``pathwise`` [D, 19, R], or [D, 20, R] in a scene
+    with marble: ``pathwise_stash_rows``), stash_i [D, 3, R] i32).
     Lanes that never enter a bounce keep inert rows there: floats 0, slot
     -3, light or material slot -9, mask 0."""
-    stash_f, stash_i = _empty_stash(tm.shape[0], max_depth, tm.device, pathwise)
+    stash_f, stash_i = _empty_stash(
+        tm.shape[0], max_depth, tm.device,
+        pathwise_stash_rows(tb) if pathwise else STASH_F_ROWS)
     stash_f.zero_()
     stash_i[:, 0] = SLOT_NONE
     stash_i[:, 1] = LSLOT_NONE   # == MSLOT_NONE
@@ -1040,6 +1050,10 @@ def _wavefront_grad_rev_pathwise_plain(tb: Tables, stash_f, stash_i, g3,
                                        n_tex, n_mat, lmd=None):
     """Plain version of the pathwise reverse kernel: see
     ``_pathwise_reverse_plain``, without HDRI rows."""
+    f_rows = pathwise_stash_rows(tb)
+    if stash_f.shape[1] != f_rows:
+        raise ValueError(f"this scene's pathwise stash has {f_rows} float rows a "
+                         f"bounce, got {stash_f.shape[1]}")
     return _pathwise_reverse_plain(tb, stash_f, stash_i, g3, miss_col, stream,
                                    seed, miss_mode, n_tex, n_mat, lmd)[:3]
 
@@ -1068,6 +1082,9 @@ def _pathwise_reverse_plain(tb: Tables, stash_f, stash_i, g3, miss_col, stream,
       * sends the hit point's adjoint back through the hit distance by the
         implicit rule dt/do = -n / (n . d), dt/dd = t dt/do (surfaces), or
         through the entry slab and the free-flight length (volumes);
+      * on a marble winner (a stash of 20 rows, mask bit ``PW_MARBLE``),
+        adds the marble's derivative by the hit point times the albedo's
+        summed cotangent to the hit point's adjoint;
       * adds the cotangents of the albedo (per texture slot), of the light's
         emission (per light slot) and of fuzz and ior (per material).
 
@@ -1319,6 +1336,13 @@ def _pathwise_reverse_plain(tb: Tables, stash_f, stash_i, g3, miss_col, stream,
         # hit distance
         lam_n = [l_n_s[c] + ln_nee[c] for c in range(3)]
         lam_p = [Af * lo_[c] + lp_nee[c] + dndp * lam_n[c] for c in range(3)]
+        if stash_f.shape[1] == PW_STASH_F_ROWS_MARBLE:
+            # a marble winner: the marble is grayscale, so its value's
+            # cotangent is the sum of the albedo's three, and it moves with
+            # the hit point (dmarble/dp, ``textures.marble_grad``)
+            _, dm = textures.marble_grad(V3(*pv), sf[19])
+            cotm = fl((mk & PW_MARBLE) > 0) * (cot_alb[0] + cot_alb[1] + cot_alb[2])
+            lam_p = [lam_p[c] + cotm * dm[c] for c in range(3)]
         den = _dot3(nv, din)
         dsafe = torch.where(torch.abs(den) > 1e-20, den, 1.0)
         dlp = _dot3(din, lam_p)
@@ -1384,18 +1408,19 @@ _FWD_ARGTYPES = _TABLES_AND_RAYS + [_P] * 3 + _SIZES + [_P]      # hdri out flag
 _RECORD_ARGTYPES = _TABLES_AND_RAYS + [_P] * 5 + _SIZES + [_P]   # + code idx
 _GRAD_FWD_ARGTYPES = (_TABLES_AND_RAYS + [_P] * 5 + _SIZES
                       + [_I, _F, _F, _F] + [_P])
+_GRAD_FWD_PATHWISE_ARGTYPES = _GRAD_FWD_ARGTYPES[:-1] + [_I, _P]   # + f_rows
 _RESUME_ARGTYPES = ([_P] * 4 + [_I] * 4 + [_P] * 3     # tables, counts, in out hdri
                     + [ctypes.c_longlong, ctypes.c_uint, _I, _I, _P])
 _GRAD_REV_ARGTYPES = [_P] * 5 + [ctypes.c_longlong, _I, _I, _P]
 _GRAD_REV_PATHWISE_ARGTYPES = (
     [_P, _I, _P, _I]                     # light table, volume table, counts
     + [_P] * 7                           # stash_f stash_i g3 miss_col lmd stream partial
-    + [ctypes.c_longlong, ctypes.c_uint, _I, _I, _I, _I, _P])
+    + [ctypes.c_longlong, ctypes.c_uint, _I, _I, _I, _I, _I, _P])   # ... f_rows
 _GRAD_FUSED_ARGTYPES = (
     _TABLES_AND_RAYS + [_P] * 3          # g3 env_rows hdri
     + [_I, _F, _F, _F]                   # miss mode, background
     + [_P] * 3                           # rad eout partial
-    + [ctypes.c_longlong, ctypes.c_uint, _I, _I, _I, _P])
+    + [ctypes.c_longlong, ctypes.c_uint, _I, _I, _I, _I, _P])   # ... noise
 
 
 def _kernel(library: str, function: str, argtypes, fmad: bool = False):
@@ -1577,13 +1602,14 @@ def _wavefront_grad_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
     out = torch.empty((9, r), dtype=torch.float32, device=dev)
     flags = torch.empty((r,), dtype=torch.int32, device=dev)
     miss_col = torch.empty((3, r), dtype=torch.float32, device=dev)
-    stash_f, stash_i = _empty_stash(r, max_depth, dev, pathwise)
+    f_rows = pathwise_stash_rows(tb) if pathwise else STASH_F_ROWS
+    stash_f, stash_i = _empty_stash(r, max_depth, dev, f_rows)
     if r == 0:
         return out, flags, miss_col, stash_f, stash_i
     mode, bg = miss
-    fn = _kernel("wavefront",
-                 "wavefront_grad_fwd_pathwise_launch" if pathwise
-                 else "wavefront_grad_fwd_launch", _GRAD_FWD_ARGTYPES)
+    fn = (_kernel("wavefront", "wavefront_grad_fwd_pathwise_launch",
+                  _GRAD_FWD_PATHWISE_ARGTYPES) if pathwise
+          else _kernel("wavefront", "wavefront_grad_fwd_launch", _GRAD_FWD_ARGTYPES))
     with torch.cuda.device(dev):
         err = fn(
             *_table_and_ray_args(tb, o, d, tm, stream),
@@ -1591,6 +1617,7 @@ def _wavefront_grad_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
             stash_f.data_ptr(), stash_i.data_ptr(),
             r, int(seed) & 0xFFFFFFFF, int(max_depth),
             int(mode), float(bg[0]), float(bg[1]), float(bg[2]),
+            *((f_rows,) if pathwise else ()),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -1662,7 +1689,7 @@ def _wavefront_grad_rev_pathwise_cuda(tb: Tables, stash_f, stash_i, g3,
     global LAUNCHES_GRAD_REV_PATHWISE
     dev = stash_f.device
     depth, r = stash_f.shape[0], stash_f.shape[2]
-    _check_rev_inputs(stash_f, stash_i, g3, miss_col, PW_STASH_F_ROWS)
+    _check_rev_inputs(stash_f, stash_i, g3, miss_col, pathwise_stash_rows(tb))
     if stream.device != dev or stream.dtype != torch.int32 \
             or stream.shape != (r,) or not stream.is_contiguous():
         raise ValueError("stream must be a contiguous int32 [R] tensor on "
@@ -1702,7 +1729,7 @@ def _wavefront_grad_rev_pathwise_cuda(tb: Tables, stash_f, stash_i, g3,
                      miss_col.data_ptr(), None if lmd is None else lmd.data_ptr(),
                      stream.data_ptr(), partial.data_ptr(),
                      r, int(seed) & 0xFFFFFFFF, depth, n_col, n_acc, miss_mode,
-                     torch.cuda.current_stream(dev).cuda_stream)
+                     stash_f.shape[1], torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(
                 f"wavefront_grad_rev_pathwise kernel launch failed: CUDA error {err}")
@@ -1782,7 +1809,8 @@ def _wavefront_grad_fused_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
                      mode, float(bg[0]), float(bg[1]), float(bg[2]),
                      rad.data_ptr(), None if eout is None else eout.data_ptr(),
                      partial.data_ptr(), r, int(seed) & 0xFFFFFFFF, int(max_depth),
-                     n_col, n_acc, torch.cuda.current_stream(dev).cuda_stream)
+                     n_col, n_acc, int(_has_noise(tb)),
+                     torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(
                 f"wavefront_grad_fused kernel launch failed: CUDA error {err}")
@@ -2109,9 +2137,9 @@ def _check_grad_scene(scene, max_depth, pathwise=False):
             raise NotImplementedError(
                 "scene is outside the pathwise gradient kernels' gate (more "
                 f"than {GRAD_PATHWISE_MAX_ACC} accumulators at 9 a texture "
-                "and 2 a material: the replay tier, ROADMAP.md A18; marble "
-                "textures, A13b; or otherwise outside the forward "
-                "megakernel's gate): see ROADMAP.md queues A and B")
+                "and 2 a material: the replay tier, ROADMAP.md A18; or "
+                "otherwise outside the forward megakernel's gate): see "
+                "ROADMAP.md queues A and B")
     elif not grad_applicable(scene, max_depth):
         raise NotImplementedError(
             "scene is outside the product-chain gradient kernels' gate "

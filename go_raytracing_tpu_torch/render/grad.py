@@ -29,7 +29,8 @@ materials, marble textures among them) take the product-chain tier:
 gradients of the texture colours.
 Scenes with metal or glass inside ``grad_pathwise_applicable`` take the
 pathwise tier: gradients of fuzz and IOR too, and of colours seen through a
-specular chain.  Its stash is heavier (22 rows a bounce against 15), and
+specular chain.  Its stash is heavier (22 rows a bounce against 15, 23
+with marble), and
 its pass B recomputes the rays' random draws, so it is given the chunk's
 stream ids (ids only: it reads no camera rays).  Under an environment map
 (and no quad lights) either tier also keeps each ray's miss footprint (12
@@ -48,11 +49,14 @@ cotangents summed per texel).  Nothing is kept between the passes; a chunk
 holds as many rays as ``stash_budget`` allows the kernel's working set
 (``fused_bytes_per_ray``).
 
+Marble textures ride the tier their materials pick: with metal or glass
+(or under an environment with quad lights) the marble moves with the hit
+point, and the pathwise and fused kernels carry its derivative by the hit
+point (their stash keeps the winner's marble scale, one more row a bounce).
+
 Every other scene (meshes, non-box media, more than 1,024 primitives or 8
 lights, more textures and materials than the pathwise kernel's accumulator
-holds, environments among them, and marble textures with metal or glass,
-whose marble moves with the hit point: the pathwise and fused kernels lack
-its derivative, ROADMAP.md A13b) takes the replay tier.  Pass A records each chunk: its radiance and
+holds, environments among them) takes the replay tier.  Pass A records each chunk: its radiance and
 its ``Decisions``, the outcome of every sweep (the record kernel of
 ``ops/cuda_wavefront`` for scenes inside the megakernel's gate, the
 standard integrator for the others).  Pass B replays each chunk's record
@@ -118,12 +122,16 @@ def dec_bytes_per_ray(scene: Scene, max_depth: int) -> int:
 
 
 def stash_bytes_per_ray(max_depth: int, pathwise: bool = False,
-                        env: bool = False) -> int:
+                        env: bool = False, noise: bool = False) -> int:
     """Bytes a ray keeps between the passes: the stash rows of every bounce
-    (15 in the product tier, 22 in the pathwise tier) and the 3 miss colour
-    rows, or under an environment the 19 rows of ``EnvCarry``."""
-    rows = ((mega.PW_STASH_F_ROWS + mega.PW_STASH_I_ROWS) if pathwise
-            else (mega.STASH_F_ROWS + mega.STASH_I_ROWS))
+    (15 in the product tier, 22 in the pathwise tier, 23 there in a scene
+    with marble) and the 3 miss colour rows, or under an environment the 19
+    rows of ``EnvCarry``."""
+    if pathwise:
+        f_rows = mega.PW_STASH_F_ROWS_MARBLE if noise else mega.PW_STASH_F_ROWS
+        rows = f_rows + mega.PW_STASH_I_ROWS
+    else:
+        rows = mega.STASH_F_ROWS + mega.STASH_I_ROWS
     return (max_depth * rows + (19 if env else 3)) * 4
 
 
@@ -131,7 +139,10 @@ def fused_bytes_per_ray(max_depth: int, hdri: bool) -> int:
     """Bytes a ray of a fused-tier chunk takes while its gradient runs: the
     rays, cotangent, outputs and environment rows (about 40 rows), and with
     HDRI NEE per bounce 7 sample rows, 3 ``eout`` rows, the texel id and
-    what the per-texel sum sorts and gathers (8 + 8 + 12 bytes)."""
+    what the per-texel sum sorts and gathers (8 + 8 + 12 bytes).  The
+    stash (19 or, with marble, 20 float rows a bounce) is not among them:
+    it lives in the local memory of the threads resident on the card, a
+    size set by the card and ``FUSED_MAX_DEPTH``, not by the chunk."""
     return 40 * 4 + (max_depth * (10 * 4 + 8 + 28) if hdri else 0)
 
 
@@ -345,7 +356,8 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
     w, h = cam.image_width, cam.image_height
     tiled = rmod.scene_tiled(scene)
     per_ray = (fused_bytes_per_ray(max_depth, mega.uses_hdri_nee(scene)) if fused
-               else stash_bytes_per_ray(max_depth, pathwise, scene.env is not None))
+               else stash_bytes_per_ray(max_depth, pathwise, scene.env is not None,
+                                        scene.has_noise))
     largest = rmod.pick_chunk_size(scene)
     if scene.env is not None and chunk is None:
         # an environment chunk pays large fixed costs (the per-texel sums):

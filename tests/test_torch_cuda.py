@@ -20,11 +20,13 @@ from go_raytracing_tpu_torch.io import obj as tobj
 from go_raytracing_tpu_torch.ops import cuda_intersect as ck
 from go_raytracing_tpu_torch.ops import cuda_mesh as cm
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
+from go_raytracing_tpu_torch.utils import stream_micro as sm
 from test_torch_helpers import (ENV_NEE_CAM, FOG_ROOM_CAM, LUCY_CAM, MARBLE_CAM,
-                                MINI_HDRI_CAM, MIXED_CAM, build_env_nee,
-                                build_fog_room, build_lucy, build_marble,
-                                build_mini_hdri, build_mixed, build_random_prims,
-                                lucy_instances, mesh_rays, random_rays)
+                                MINI_HDRI_CAM, MIXED_CAM, NOISE_GLOSSY_CAM,
+                                build_env_nee, build_fog_room, build_lucy,
+                                build_marble, build_mini_hdri, build_mixed,
+                                build_noise_glossy, build_random_prims,
+                                lucy_instances, mesh_rays, mini_env, random_rays)
 
 
 def _rays(cam, n, seed, device):
@@ -209,13 +211,17 @@ def _pathwise_scene(name):
         scene, cam = grtt.load_scene("cornell-glossy", device="cuda")
         return scene, dataclasses.replace(cam, image_width=64, aspect_ratio=1.0,
                                           samples_per_pixel=4, max_depth=5)
+    if name == "noise-glossy":
+        # a marble floor seen directly and through metal and glass
+        return build_noise_glossy(grtt, device="cuda"), dataclasses.replace(
+            tcamera.Camera(**NOISE_GLOSSY_CAM), image_width=64, max_depth=5)
     # checker plane, metal, glass, a moving sphere, quad light, fog box
     return build_mixed(grtt, device="cuda"), dataclasses.replace(
         tcamera.Camera(**MIXED_CAM), image_width=64, use_sky_gradient=True)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("scene_name", ["cornell-glossy", "mixed-sky"])
+@pytest.mark.parametrize("scene_name", ["cornell-glossy", "mixed-sky", "noise-glossy"])
 def test_cuda_pathwise_kernels_match_plain_versions(scene_name):
     """On a GPU: the pathwise stash-writing forward and the pathwise reverse
     sweep against their plain versions.  The forward agrees per ray (fewer
@@ -238,7 +244,10 @@ def test_cuda_pathwise_kernels_match_plain_versions(scene_name):
     k = cw.wavefront_grad_fwd(*args, pathwise=True)
     torch.cuda.synchronize()
     p = cw._wavefront_grad_fwd_plain(*args, pathwise=True)
-    assert k[3].shape == (cam.max_depth, cw.PW_STASH_F_ROWS, n)
+    assert k[3].shape == (cam.max_depth, cw.pathwise_stash_rows(tb), n)
+    # a marble scene stashes the winner's scale (row 19) and marks the row
+    marble = bool((k[4][:, 2] & cw.PW_MARBLE).any())
+    assert marble == scene.has_noise == (k[3].shape[1] == cw.PW_STASH_F_ROWS_MARBLE)
     good = (torch.isclose(k[0], p[0], rtol=1e-3, atol=1e-3).all(dim=0)
             & (k[1] == p[1])
             & torch.isclose(k[2], p[2], rtol=1e-3, atol=1e-3).all(dim=0)
@@ -756,6 +765,59 @@ def test_cuda_fused_kernel_matches_plain_version():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
     _fused_against_plain()
+
+
+@pytest.mark.cuda
+def test_cuda_fused_kernel_with_marble_matches_plain_version():
+    """B4 on the noise + glossy scene under an environment with its quad
+    light: the marble's scale in the local stash and dmarble/dp in the
+    reverse sweep; the sums within 1e-4 of each key's largest entry, the
+    radiance the plain version's bits, the same bits on two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene = build_noise_glossy(grtt, env=mini_env(), device="cuda")
+    cam = dataclasses.replace(tcamera.Camera(**NOISE_GLOSSY_CAM), image_width=64,
+                              max_depth=5)
+    assert cw.grad_fused_applicable(scene, cam.max_depth) and scene.has_noise
+    o, d, tm, ids = _rays(cam, 64 * 64 * 4, 3, "cuda")
+    sid = cw.stream_to_i32(ids)
+    tb = cw.build_tables(scene)
+    hdri = cw.hdri_rows_for(scene, sid, 3, cam.max_depth)
+    out, flags = cw.wavefront_fwd(tb, o, d, tm, sid, 3, cam.max_depth, hdri)
+    g3 = torch.rand((3, sid.shape[0]), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1)) * 1e-3
+    mc, lmd, _ = cw._env_miss_terms(scene, cam, cw._env_carry(scene, out, flags),
+                                    g3, want_lmd=True)
+    args = (tb, o, d, tm, sid, 3, cam.max_depth, g3, (cw.MISS_STREAM, (0.0, 0.0, 0.0)),
+            torch.cat([mc, lmd]).contiguous(), hdri,
+            int(scene.textures.color.shape[0]), int(scene.materials.kind.shape[0]))
+    before = cw.LAUNCHES_GRAD_FUSED
+    k = cw.wavefront_grad_fused(*args)
+    assert cw.LAUNCHES_GRAD_FUSED == before + 1
+    p = cw._wavefront_grad_fused_plain(*args)
+    assert torch.equal(k[0], p[0])
+    for a, b in zip(k[1:4], p[1:4]):
+        assert float(b.abs().max()) > 1e-6
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    assert float((k[4] - p[4]).abs().max()) <= 1e-6 * float(p[4].abs().max())
+    for a, b in zip(k, cw.wavefront_grad_fused(*args)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(sm.VARIANTS))
+def test_cuda_probe_matches_plain_version(variant):
+    """The tile-sweep probe (B10's sweep alone) on the card equals its plain
+    version, t and id, at 8 blocks x 96 sweeps (the bit scan: 96 of them)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    rays, tri = sm.probe_inputs(8, "cuda")
+    before = sm.LAUNCHES
+    t, ids = sm.stream_micro(rays, tri, 96, variant)
+    assert sm.LAUNCHES == before + 1
+    pt, pids = sm._stream_micro_plain(rays, tri, 96, variant)
+    assert torch.equal(t, pt) and torch.equal(ids, pids)
+    assert int((ids >= 0).sum()) >= 10
 
 
 @pytest.mark.cuda

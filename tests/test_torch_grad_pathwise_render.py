@@ -143,7 +143,8 @@ def test_pathwise_render_grad_budget_and_chunks():
 
 def test_pathwise_gates():
     """The pathwise gate: the reverse kernel's accumulator (9 a texture and
-    2 a material in 1,536 floats), no noise.  An environment is admitted; with
+    2 a material in 1,536 floats), no image texture; marble is admitted (its
+    stash has a 20th row).  An environment is admitted; with
     quad lights it takes the fused kernel, not the two-phase route.  Outside
     both gates ``render_grad`` takes the replay tier, or raises and names the
     ROADMAP item of what is not ported."""
@@ -172,9 +173,8 @@ def test_pathwise_gates():
         cw.grad_fwd_stash(lit_env, cam, *grtt.camera.generate_rays(
             cam, torch.arange(4), torch.zeros(4, dtype=torch.int64),
             torch.arange(4), 0), torch.arange(4), 0, pathwise=True)
-    for outside in (dataclasses.replace(scene, has_noise=True),
-                    dataclasses.replace(scene, has_image=True)):
-        assert not cw.grad_pathwise_applicable(outside, 3)
+    assert cw.grad_pathwise_applicable(dataclasses.replace(scene, has_noise=True), 3)
+    assert not cw.grad_pathwise_applicable(dataclasses.replace(scene, has_image=True), 3)
     # the wrappers hold the gate of the tier they are asked for
     ids = torch.arange(64)
     o, d, tm = grtt.camera.generate_rays(cam, ids % 16, ids // 16, ids, 0)

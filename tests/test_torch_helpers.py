@@ -282,6 +282,38 @@ MINI_GLOSSY_CAM = dict(
 )
 
 
+def build_noise_glossy(pkg, env=None, **build_kwargs):
+    """The noise + glossy scene of tests/test_grad_pathwise.py
+    (``_mini_noise_glossy``): a marble floor at scale 0.4 seen directly and
+    through a fuzzy gold sphere, a glass sphere and a mirror, a back wall
+    and a quad light, so that fuzz and IOR gradients flow through the
+    marble's derivative by the hit point.  ``env``: an [H, W, 3] environment
+    map to put it under (with the quad light: HDRI NEE, the fused tier)."""
+    b = pkg.SceneBuilder()
+    marble = b.lambertian(b.noise(0.4))
+    gold = b.metal((0.8, 0.6, 0.2), fuzz=0.2)
+    glass = b.dielectric(1.5)
+    light = b.diffuse_light((13.0, 12.0, 11.0))
+    b.quad((-6, 0, -6), (12, 0, 0), (0, 0, 12), marble)    # marble floor
+    b.quad((-6, 0, -6), (0, 8, 0), (12, 0, 0),
+           b.lambertian((0.6, 0.65, 0.7)))                 # back wall
+    q = b.quad((-1.5, 7.9, -1.5), (3, 0, 0), (0, 0, 3), light)
+    b.add_light(q)
+    b.sphere((-1.8, 1.2, 0.0), 1.2, gold)
+    b.sphere((0.8, 1.0, 1.2), 1.0, glass)
+    b.sphere((2.5, 0.8, -1.0), 0.8, b.metal((0.9, 0.9, 0.9), 0.0))
+    if env is not None:
+        b.set_environment(env)
+    return b.build(**build_kwargs)
+
+
+NOISE_GLOSSY_CAM = dict(
+    image_width=10, aspect_ratio=1.0, samples_per_pixel=4, max_depth=3,
+    look_from=(0, 3, 9), look_at=(0, 1.5, 0), vfov=45.0,
+    background=(0.02, 0.01, 0.03),
+)
+
+
 def build_random_prims(pkg, n_spheres=40, n_planar=True, seed=0, **build_kwargs):
     """The random scene of tests/test_pallas.py's intersection tests
     (spheres, three in ten of them moving, and one or two of each planar
@@ -409,14 +441,16 @@ def jax_stash_to_numpy(carry, n_rays):
             si.reshape(si.shape[0], si.shape[1], -1)[:, :, :n_rays])
 
 
-def pathwise_case(build, cam_fields):
+def pathwise_case(build, cam_fields, jax_reverse=True):
     """One chunk of the scene's camera rays through the pathwise gradient
     forward and reverse sweep of both packages, with a seeded cotangent.
     The JAX package runs its Pallas kernels in interpret mode (``INTERPRET``
     and ``BLOCK_ROWS`` are restored afterwards).  Also: the port's reverse
     sweep on the JAX kernel's own stash, the port's plain forward, and the
     port's reverse with a cotangent of zeros.  Callers cache the result: the
-    JAX reverse call alone takes most of a minute on a CPU."""
+    JAX reverse call alone takes most of a minute on a CPU.  With
+    ``jax_reverse=False`` the JAX side runs its forward only (no
+    ``j_grads``; the port's reverse on the JAX stash is still there)."""
     import jax.numpy as jnp
     import torch
 
@@ -453,7 +487,7 @@ def pathwise_case(build, cam_fields):
         j_stash = jax_stash_to_numpy(j_carry, n)  # before the reverse donates it
         j_grads = grads_to_numpy(jmega.grad_rev_stash(
             js, jcam, jids, seed, tuple(jnp.asarray(r) for r in g3), j_carry,
-            pathwise=True))
+            pathwise=True)) if jax_reverse else None
     finally:
         jmega.INTERPRET, jmega.BLOCK_ROWS = old
 
@@ -491,7 +525,7 @@ def pathwise_case(build, cam_fields):
 PATHWISE_KEYS = ("color", "even_color", "odd_color", "fuzz", "ior")
 
 
-def check_pathwise_forward(c, cw):
+def check_pathwise_forward(c, cw, min_live=1000):
     """Radiance and stash of the pathwise gradient forward, port (plain
     version) against the JAX kernel.  ``cw`` is the port's
     ``ops.cuda_wavefront``.
@@ -506,10 +540,12 @@ def check_pathwise_forward(c, cw):
     words differ took another branch and differs wholly: at most 1 % of rays
     may, and the rest of the comparison leaves them out.  On all other rays
     the int rows are equal wherever the port's ray entered the bounce (the
-    JAX kernel leaves arbitrary rows where a ray was dead)."""
+    JAX kernel leaves arbitrary rows where a ray was dead), and more than
+    ``min_live`` such ray-bounces are compared."""
     j_mc, j_sf, j_si = c["j_stash"]
     t_mc, t_sf, t_si = (x.numpy() for x in c["t_carry"])
-    assert t_sf.shape == j_sf.shape and t_sf.shape[1] == cw.PW_STASH_F_ROWS
+    assert t_sf.shape == j_sf.shape
+    assert t_sf.shape[1] == cw.pathwise_stash_rows(cw.build_tables(c["ts"]))
     assert t_si.shape == j_si.shape
     assert np.isfinite(c["t_rad"]).all() and np.isfinite(t_sf).all()
     t_mk, j_mk = t_si[:, 2], j_si[:, 2]
@@ -524,10 +560,10 @@ def check_pathwise_forward(c, cw):
     np.testing.assert_allclose(t_mc[:, same_path], j_mc[:, same_path], **loose)
 
     live = entered & same_path[None]
-    assert live.sum() > 1000
+    assert live.sum() > min_live
     for row in (0, 1):
         np.testing.assert_array_equal(t_si[:, row][live], j_si[:, row][live])
-    for row in range(cw.PW_STASH_F_ROWS):
+    for row in range(t_sf.shape[1]):
         a, b = t_sf[:, row][live], j_sf[:, row][live]
         assert (~np.isclose(a, b, **tight)).mean() < 0.05, row
         np.testing.assert_allclose(a, b, err_msg=f"row {row}", **loose)

@@ -12,13 +12,13 @@ textures (ROADMAP.md A13).
   fused multiply-adds put a hit point an ulp away, the marble moves by up
   to 1e-3, and the residual against a target of 0.8 x render magnifies
   that in the loss to 3e-5 here.)
-* Behind metal or glass a marble moves with the hit point.  The port's
-  pathwise and fused kernels lack dmarble/dp (ROADMAP.md A13b), so such a
-  scene takes the replay tier (the JAX package takes its pathwise kernels,
-  whose interpret-mode test costs 772 s): held against ``torch.autograd``
-  through ``render(differentiable=True)`` (colour keys within 2e-3 of the
-  largest entry; fuzz there lacks the terms through the hit distance, which
-  the replay has).
+* Behind metal or glass a marble moves with the hit point: such a scene
+  takes the pathwise tier, whose reverse sweep carries dmarble/dp, as the
+  JAX package's does (whose interpret-mode test costs 772 s; the port's
+  tier is held to ``jax.grad`` in tests/test_torch_marble_grad.py).  Here,
+  at scale 4, held against ``torch.autograd`` through the megakernel's
+  plain forward and, for the colours, through ``render(differentiable=True)``
+  and the replay tier.
 * The gates, pure Python.
 """
 
@@ -36,6 +36,7 @@ from go_raytracing_tpu.render.grad import render_grad as jrender_grad
 from go_raytracing_tpu_torch import convert
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from go_raytracing_tpu_torch.render import grad as tgrad
+from go_raytracing_tpu_torch.render import renderer
 from test_torch_helpers import (MARBLE_CAM, build_marble, grads_to_numpy,
                                 mini_env, scene_tree)
 
@@ -77,15 +78,44 @@ def test_render_grad_of_marble_matches_jax():
 
 
 def test_marble_behind_metal_takes_the_replay_tier():
-    """Marble and a fuzzy metal: the replay tier's colour gradients are
-    autograd's through the standard integrator, its fuzz gradient finite and
-    not zero."""
+    """Marble (scale 4) and a fuzzy metal now take the pathwise tier.  Its
+    gradients are held to ``torch.autograd`` through the plain forward of
+    the megakernel on one chunk (the exact derivative of what the kernels
+    compute, dmarble/dp and the hit distance included: every key within
+    1e-4 of its largest entry), and ``render_grad``'s colour gradients to
+    autograd through ``render(differentiable=True)`` and to the replay tier
+    within 2e-3 of each key's largest entry.  (Their fuzz gradients differ
+    more: the standard integrator's hit points round apart from the
+    megakernel's, and at scale 4 the marble moves 140 times as much as the
+    hit point.)"""
     ts = build_marble(grtt, metal=True, device="cpu")
     cam = grtt.Camera(**{**MARBLE_CAM, "max_depth": 3})
-    assert tgrad.grad_tier(ts, 3) == "replay"
+    assert tgrad.grad_tier(ts, 3) == "pathwise"
+
+    # one chunk: the reverse sweep against autograd of the plain forward
+    n = cam.image_width * cam.image_height * cam.samples_per_pixel
+    _, o, d, tm, ids, _, _ = renderer._chunk_rays(ts, cam, 0, 0, spp=2, chunk=n,
+                                                  max_depth=3, device="cpu")
+    g3 = torch.from_numpy((np.random.default_rng(3).uniform(size=(3, n))
+                           * 1e-3).astype(np.float32))
+    _, carry = cw.grad_fwd_stash(ts, cam, o, d, tm, ids, 0, pathwise=True)
+    kern = cw.grad_rev_stash(ts, cam, g3, carry, pathwise=True, stream=ids, seed=0)
+    leaves = {k: v.clone().requires_grad_() for k, v in grtt.trainable_params(ts).items()}
+    with torch.enable_grad():
+        tb = cw.build_tables(grtt.apply_params(ts, leaves))
+        out, flags = cw._wavefront_fwd_plain(tb, list(o), list(d), tm,
+                                             cw.stream_to_i32(ids), 0, 3)
+        mc = cw._miss_colour_rows(out.detach(), flags, cw.miss_config(cam))
+        rad = torch.stack([out[c] + out[6 + c] * mc[c] for c in range(3)])
+        (rad * g3).sum().backward()
+    for k in ("color", "fuzz"):
+        big = float(leaves[k].grad.abs().max())
+        assert big > 0, k
+        np.testing.assert_allclose(kern[k].numpy(), leaves[k].grad.numpy(), rtol=0.0,
+                                   atol=1e-4 * big, err_msg=k)
+
     target = grtt.render(ts, cam, seed=9, device="cpu") / 2 * 0.8
     loss, grads = grtt.render_grad(ts, cam, target, seed=0, device="cpu")
-
     params = {k: v.clone().requires_grad_()
               for k, v in grtt.trainable_params(ts).items()}
     fb = grtt.render(grtt.apply_params(ts, params), cam, seed=0, device="cpu",
@@ -93,20 +123,26 @@ def test_marble_behind_metal_takes_the_replay_tier():
     auto_loss = torch.mean((fb / 2 - target) ** 2)
     auto_loss.backward()
     np.testing.assert_allclose(float(loss), float(auto_loss.detach()), rtol=1e-5)
+    _, replay = tgrad._render_grad_replay(ts, cam, target, spp=2, max_depth=3, seed=0,
+                                          chunk=None, stats=None, dec_budget=None)
     for k in COLOUR_KEYS:
         big = max(float(params[k].grad.abs().max()), 1e-12)
         np.testing.assert_allclose(grads[k].numpy(), params[k].grad.numpy(),
+                                   rtol=0.0, atol=2e-3 * big, err_msg=k)
+        np.testing.assert_allclose(grads[k].numpy(), replay[k].numpy(),
                                    rtol=0.0, atol=2e-3 * big, err_msg=k)
     assert torch.isfinite(grads["fuzz"]).all() and float(grads["fuzz"].abs().max()) > 0
 
 
 @pytest.mark.parametrize("case, tier", [
-    ("marble", "product"), ("marble-metal", "replay"),
-    ("marble-metal-env-light", "replay"),
+    ("marble", "product"), ("marble-metal", "pathwise"),
+    ("marble-metal-env-light", "fused"),
 ])
 def test_marble_gates(case, tier):
-    """Marble rides the megakernel and the product tier; with metal or glass
-    it leaves the pathwise and fused tiers, each gate saying so itself."""
+    """Marble rides the megakernel and every kernel tier, as in the JAX
+    package: the product tier with lambertian materials, the pathwise tier
+    with metal or glass, the fused tier with an environment and quad
+    lights; without the marble each scene takes the same tier."""
     ts = build_marble(grtt, metal=case != "marble", device="cpu")
     if case.endswith("env-light"):
         b = grtt.SceneBuilder()
@@ -120,11 +156,10 @@ def test_marble_gates(case, tier):
         assert cw.uses_hdri_nee(ts)
     assert ts.has_noise and cw.applicable(ts)
     assert cw.grad_applicable(ts, 3) == (tier == "product")
-    assert not cw.grad_pathwise_applicable(ts, 3)
-    assert not cw.grad_fused_applicable(ts, 3)
+    # both kernel gates admit marble (the product tier wins where it applies)
+    assert cw.grad_pathwise_applicable(ts, 3) and cw.grad_fused_applicable(ts, 3)
     assert tgrad.grad_tier(ts, 3) == tier
-    # without the marble the same scene is a kernel tier's
+    assert cw.pathwise_stash_rows(cw.build_tables(ts)) == cw.PW_STASH_F_ROWS_MARBLE
+    assert tgrad.stash_bytes_per_ray(3, pathwise=True, noise=True) == (3 * 23 + 3) * 4
     plain = dataclasses.replace(ts, has_noise=False)
-    assert tgrad.grad_tier(plain, 3) == {"marble": "product",
-                                         "marble-metal": "pathwise",
-                                         "marble-metal-env-light": "fused"}[case]
+    assert tgrad.grad_tier(plain, 3) == tier
