@@ -34,7 +34,11 @@ through ``render_image`` with a crop held against the plain versions on the
 CPU (``mesh_main_path``, ``mesh_stream``), the same at the scene's default
 3,744 triangles (``mesh_small_path``, ``mesh_sweep``), autograd through a
 mesh scene (``mesh_autograd``) and the two kernels alone
-(``mesh_kernel_timing``).  Then the replay tier of ``render_grad``: the
+(``mesh_kernel_timing``; ``mesh_stream`` also in its any-hit instantiation
+on the same chunk and on the rays that leave the chunk's first hits, as a
+render's launches are), then the card's speed (``card_yardstick``: three
+kernels beside their times in PERF.md, so that a slow card does not read as
+a redesign's loss).  Then the replay tier of ``render_grad``: the
 record kernel against the forward kernel, its plain version and the
 standard integrator's record (``record_kernel_vs_plain``, early), ``random``
 (600x337, 25 spp, depth 10, recorded by the record kernel) and
@@ -223,6 +227,10 @@ FLOPS_MOLLER_TRUMBORE, FLOPS_BW_PLANE, FLOPS_BW_UV = 55, 17, 24
 # A live ray reads o, d and t_max, a dead one t_max alone; each writes t,
 # tri, inst and hit.
 MESH_RAYS_IN, MESH_DEAD_IN, MESH_BYTES_OUT = 7 * 4, 4, 4 + 4 + 4 + 1
+# Times of three kernels recorded in PERF.md section 6 on an NVIDIA H100 80GB
+# HBM3 at 700 W (B1 and B7a at a Cornell chunk, B9 at cornell-lucy's (48, 40)
+# chunk): a run that reads them slower is on a slower card.
+CARD_YARDSTICK = {"wavefront_fwd": 2.718, "mesh_sweep": 0.9187, "planar_closest": 0.2383}
 
 
 def emit(phase, **fields):
@@ -1432,10 +1440,10 @@ def mesh_mixed_rays(n, seed, device):
             V3(*(d[:, i].contiguous() for i in range(3))))
 
 
-def mesh_chunk_rays(scene, cam, n, seed, device):
-    """``n`` rays drawn from the render's first chunk: half camera rays, half
-    the first-bounce rays that leave their hits (the standard integrator's
-    bounce 0 on the whole chunk)."""
+def first_bounce(scene, cam, device):
+    """The render's first chunk of camera rays and the rays that leave their
+    hits (the standard integrator's bounce 0 on the whole chunk): (camera o,
+    camera d, next path state)."""
     cam2, o, d, tm, ids = lucy_chunk(scene, cam, device)
     r = tm.shape[0]
     state = wavefront.PathState(
@@ -1447,6 +1455,14 @@ def mesh_chunk_rays(scene, cam, n, seed, device):
         torch.zeros(r, dtype=torch.bool, device=device))
     with torch.no_grad():
         nxt = wavefront.bounce_step(scene, cam2, state, tm, ids, 0, 0, fast=False)
+    return o, d, nxt
+
+
+def mesh_chunk_rays(scene, cam, n, seed, device):
+    """``n`` rays drawn from the render's first chunk: half camera rays, half
+    the first-bounce rays that leave their hits."""
+    o, d, nxt = first_bounce(scene, cam, device)
+    r = o.x.shape[0]
     gen = torch.Generator(device=device).manual_seed(seed)
     cam_pick = torch.randint(0, r, (n // 2,), device=device, generator=gen)
     alive = torch.nonzero(nxt.alive).squeeze(1)
@@ -1627,101 +1643,138 @@ def mesh_autograd(device):
                            f"finite {finite}, launches {mesh_counts()}")
 
 
-def sorted_like_the_integrator(proto, o, d):
-    """The chunk's rays as ``_mesh_intersect`` hands them to a kernel at
-    the first bounce: unreaching rays with t_max = -1, sorted by the key."""
+def sorted_like_the_integrator(proto, o, d, t_max=None):
+    """Rays as ``_mesh_intersect`` hands them to a kernel: those that reach
+    no instance with t_max = -1, sorted by the key.  ``t_max`` (default BIG)
+    is -1 on rays that are not alive."""
     big = torch.full_like(o.x, ck.BIG)
-    reach, key = wavefront._mesh_sort_key(proto, o, d, cw.EPS_HIT, big)
-    t_max = torch.where(reach, big, -1.0)
+    t_max = big if t_max is None else t_max
+    reach, key = wavefront._mesh_sort_key(proto, o, d, cw.EPS_HIT, t_max)
+    t_max = torch.where(reach, t_max, -1.0)
     order = torch.argsort(key, stable=True)
     return (V3(*(c[order].contiguous() for c in o)),
             V3(*(c[order].contiguous() for c in d)), t_max[order].contiguous(),
             float(reach.float().mean()))
 
 
-def mesh_kernel_timing(cases, checks):
+def mesh_timing_case(kind, proto, o, d, t_max, any_hit):
+    """One mesh kernel alone on one set of rays (as the integrator hands them
+    over): its time, and its plain version's on 16,384 of the rays with the
+    (ray, instance) pairs, box and triangle tests they need, scaled to the
+    set, and the bound those make.  Returns (fields, mismatch on the
+    sample)."""
+    fn = cm.intersect_mesh_kernel if kind == "sweep" else cm.intersect_mesh_stream
+    dev = t_max.device
+    n = t_max.shape[0]
+    fn(proto, o, d, cw.EPS_HIT, t_max, any_hit=any_hit)
+    rounds, k = rounds_ms(lambda: fn(proto, o, d, cw.EPS_HIT, t_max, any_hit=any_hit),
+                          rounds=3, repeats=3)
+    ms = median(rounds)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    pick = torch.randint(0, n, (16384,), device=dev, generator=gen)
+    so, sd = V3(*(c[pick] for c in o)), V3(*(c[pick] for c in d))
+    counts = {}
+    plain_ms, p = cuda_ms(lambda: cm.plain(kind, proto, so, sd, cw.EPS_HIT, t_max[pick],
+                                           any_hit=any_hit, counts=counts))
+    mm = mesh_mismatch(tuple(a[pick] if torch.is_tensor(a) else a for a in k), p, any_hit)
+    scale = n / 16384
+    tri_ops = (counts.get("tri_tests", 0) * FLOPS_MOLLER_TRUMBORE if kind == "sweep"
+               else counts.get("tri_tests", 0) * FLOPS_BW_PLANE
+               + counts.get("tri_t_pass", 0) * FLOPS_BW_UV)
+    flops = scale * (counts.get("local_rays", 0) * FLOPS_MESH_LOCAL_RAY
+                     + counts.get("box_tests", 0) * FLOPS_BOX_TEST + tri_ops)
+    tables = ((proto.k_tri, proto.k_leafbox, proto.k_subtilebox, proto.k_tilebox,
+               proto.k_coarsebox) if kind == "sweep"
+              else (proto.s_tri, proto.s_tilebox, proto.s_segbox))
+    table_bytes = sum(t.numel() * 4 for t in tables) + proto.inst_w2l.numel() * 4
+    n_live = int((t_max > cw.EPS_HIT).sum())
+    moved = (n_live * MESH_RAYS_IN + (n - n_live) * MESH_DEAD_IN + n * MESH_BYTES_OUT
+             + table_bytes)
+    bound = (moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3)
+    if mm["any"] >= MAX_MISMATCH_SHARE:
+        raise RuntimeError(f"{kind}: a sample of {n} rays differs from the plain "
+                           f"version on {mm['any']:.4%} of rays")
+    return dict(
+        rays_per_launch=n, any_hit=any_hit, live_rays=n_live,
+        hit_share=float(k[3].float().mean()), ms=ms, ms_rounds=rounds,
+        plain_ms=plain_ms, plain_rays=16384,
+        local_rays_per_ray=counts.get("local_rays", 0) / 16384,
+        box_tests_per_ray=counts.get("box_tests", 0) / 16384,
+        tri_tests_per_ray=counts.get("tri_tests", 0) / 16384,
+        tri_t_pass_per_ray=counts.get("tri_t_pass", 0) / 16384,
+        bytes_counted=moved, table_bytes=table_bytes, flops_counted=flops,
+        bound_bytes_ms=bound[0], bound_ops_ms=bound[1], bound_ms=max(bound),
+        roofline_share=max(bound) / ms, sample_mismatch=mm), mm
+
+
+def mesh_kernel_timing(cases, checks, regs):
     """Each mesh kernel alone at its main path's first-bounce chunk (camera
     rays, sorted and filtered as the integrator does), beside its bound, and
-    its plain version's time on 16,384 of those rays.  ``cases``: kernel ->
-    (scene, cam, launches per render, renders' chunks).  Returns the
-    kernels' entries of the ``kernels`` line."""
+    its plain version's time on 16,384 of those rays; ``mesh_stream`` also
+    in its any-hit instantiation on the same rays and, closest hit, on the
+    rays that leave the chunk's first hits (sorted as the integrator sorts
+    them): a render's launches are closest-hit and shadow calls over five
+    bounces.  ``cases``: kernel -> (scene, cam, launches per render,
+    renders' chunks); ``regs``: kernel -> registers, spills, resident warps.
+    Returns the kernels' entries of the ``kernels`` line."""
     entries = []
     for kernel, (scene, cam, launches, chunks) in cases.items():
         kind = MESH_KERNELS[kernel]
         proto = scene.meshes[0]
-        fn = cm.intersect_mesh_kernel if kind == "sweep" else cm.intersect_mesh_stream
         o_dev = scene.device
         _, o, d, _, _ = lucy_chunk(scene, cam, o_dev)
         o, d, t_max, reach = sorted_like_the_integrator(proto, o, d)
-        n = t_max.shape[0]
-        fn(proto, o, d, cw.EPS_HIT, t_max)
-        rounds, k = rounds_ms(lambda: fn(proto, o, d, cw.EPS_HIT, t_max), rounds=3,
-                              repeats=3)
-        ms = median(rounds)
-        # a sample of 16,384 of the chunk's rays: the plain version's time,
-        # its box and triangle tests (scaled to the chunk), and one more
-        # comparison
-        gen = torch.Generator(device=o_dev).manual_seed(21)
-        pick = torch.randint(0, n, (16384,), device=o_dev, generator=gen)
-        so, sd = V3(*(c[pick] for c in o)), V3(*(c[pick] for c in d))
-        counts = {}
-        plain_ms, p = cuda_ms(lambda: cm.plain(kind, proto, so, sd, cw.EPS_HIT,
-                                               t_max[pick], counts=counts))
-        mm = mesh_mismatch(tuple(a[pick] if torch.is_tensor(a) else a for a in k), p,
-                           False)
-        scale = n / 16384
-        tri_ops = (counts.get("tri_tests", 0) * FLOPS_MOLLER_TRUMBORE if kind == "sweep"
-                   else counts.get("tri_tests", 0) * FLOPS_BW_PLANE
-                   + counts.get("tri_t_pass", 0) * FLOPS_BW_UV)
-        flops = scale * (counts.get("local_rays", 0) * FLOPS_MESH_LOCAL_RAY
-                         + counts.get("box_tests", 0) * FLOPS_BOX_TEST + tri_ops)
-        tables = ((proto.k_tri, proto.k_leafbox, proto.k_subtilebox, proto.k_tilebox,
-                   proto.k_coarsebox) if kind == "sweep"
-                  else (proto.s_tri, proto.s_tilebox, proto.s_segbox))
-        table_bytes = sum(t.numel() * 4 for t in tables) + proto.inst_w2l.numel() * 4
-        n_live = int((t_max > cw.EPS_HIT).sum())
-        moved = (n_live * MESH_RAYS_IN + (n - n_live) * MESH_DEAD_IN + n * MESH_BYTES_OUT
-                 + table_bytes)
-        bound = (moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3)
-        emit("mesh_kernel_timing", kernel=kernel, triangles=proto.n_tris,
-             instances=proto.n_instances, rays_per_launch=n, reach_share=reach,
-             hit_share=float(k[3].float().mean()), ms=ms, ms_rounds=rounds,
-             launches_per_render=launches, render_chunks=chunks,
-             plain_ms=plain_ms, plain_rays=16384,
-             plain_note="the plain version timed on 16,384 of the chunk's rays",
-             live_rays=n_live,
-             local_rays_per_ray=counts.get("local_rays", 0) / 16384,
-             box_tests_per_ray=counts.get("box_tests", 0) / 16384,
-             tri_tests_per_ray=counts.get("tri_tests", 0) / 16384,
-             tri_t_pass_per_ray=counts.get("tri_t_pass", 0) / 16384,
-             counted="(ray, instance) pairs, box and triangle tests of the plain "
-                     "version on 16,384 of the chunk's rays, scaled to the chunk: "
-                     "x 42 a pair, 25 a box, 55 a Moller-Trumbore test (sweep) or "
-                     "17 a Baldwin-Weber plane test + 24 a triangle whose t passes "
-                     "(stream); bytes: 28 in a live ray, 4 a dead one, 13 out, "
-                     "the tables once",
-             bytes_counted=moved, table_bytes=table_bytes, flops_counted=flops,
-             bound_bytes_ms=bound[0], bound_ops_ms=bound[1],
-             roofline_share=max(bound) / ms, sample_mismatch=mm)
-        if mm["any"] >= MAX_MISMATCH_SHARE:
-            raise RuntimeError(f"{kernel}: the chunk's sample differs from the plain "
-                               f"version on {mm['any']:.4%} of rays")
+        shapes = {"camera": (o, d, t_max, False)}
+        if kind == "stream":
+            shapes["camera_any_hit"] = (o, d, t_max, True)
+            _, _, nxt = first_bounce(scene, cam, o_dev)
+            bo, bd, bt, b_reach = sorted_like_the_integrator(
+                proto, nxt.o, nxt.d, torch.where(nxt.alive, ck.BIG, -1.0))
+            shapes["bounce_1"] = (bo, bd, bt, False)
+            del nxt
+        timed = {}
+        for shape, (o_, d_, t_, any_hit) in shapes.items():
+            fields, mm = mesh_timing_case(kind, proto, o_, d_, t_, any_hit)
+            timed[shape] = (fields, mm)
+            emit("mesh_kernel_timing", kernel=kernel, rays=shape,
+                 triangles=proto.n_tris, instances=proto.n_instances,
+                 reach_share=reach if shape != "bounce_1" else b_reach,
+                 launches_per_render=launches, render_chunks=chunks,
+                 counted="(ray, instance) pairs, box and triangle tests of the plain "
+                         "version on 16,384 of the rays, scaled to the set: x 42 a "
+                         "pair, 25 a box, 55 a Moller-Trumbore test (sweep) or 17 a "
+                         "Baldwin-Weber plane test + 24 a triangle whose t passes "
+                         "(stream; any hit: up to the first slot with a hit); bytes: "
+                         "28 in a live ray, 4 a dead one, 13 out, the tables once",
+                 **regs[kernel], **fields)
+        cam_fields = timed["camera"][0]
         line = ("312 (_call of intersect_mesh_kernel)" if kind == "sweep"
                 else "791 (_call of intersect_mesh_stream)")
         src = "pallas_mesh.py" if kind == "sweep" else "pallas_mesh_stream.py"
         small = checks[kernel]
+        extra = {f"{shape}_{key}": f[key] for shape, (f, _) in timed.items()
+                 if shape != "camera"
+                 for key in ("ms", "bound_ms", "roofline_share", "box_tests_per_ray",
+                             "tri_tests_per_ray", "rays_per_launch")}
         entries.append(kernel_entry(
-            n, kernel, "go_raytracing_tpu_torch/csrc/mesh.cu",
-            f"go_raytracing_tpu/ops/{src}:{line}", launches, ms, plain_ms, bound,
-            [mm.get("max_abs_dt", 0.0)] + [c[1] for c in small]) | {
-                "mismatch_share": max([mm["any"]] + [c[0] for c in small]),
+            cam_fields["rays_per_launch"], kernel, "go_raytracing_tpu_torch/csrc/mesh.cu",
+            f"go_raytracing_tpu/ops/{src}:{line}", launches, cam_fields["ms"],
+            cam_fields["plain_ms"],
+            (cam_fields["bound_bytes_ms"], cam_fields["bound_ops_ms"]),
+            [mm.get("max_abs_dt", 0.0) for _, mm in timed.values()]
+            + [c[1] for c in small]) | {
+                "mismatch_share": max([mm["any"] for _, mm in timed.values()]
+                                      + [c[0] for c in small]),
                 "plain_rays": 16384, "triangles": proto.n_tris,
-                "instances": proto.n_instances, "scene": "cornell-lucy"})
-        del o, d, t_max, k, p
+                "instances": proto.n_instances, "scene": "cornell-lucy",
+                "box_tests_per_ray": cam_fields["box_tests_per_ray"],
+                "tri_tests_per_ray": cam_fields["tri_tests_per_ray"],
+                **regs[kernel], **extra})
+        del o, d, t_max, shapes, timed
     return entries
 
 
-def mesh_phases(dev):
+def mesh_phases(dev, regs):
     """Every mesh phase: both kernels against their plain versions, the
     main path (112,128 triangles x 10, mesh_stream), the small path (3,744 x
     10, mesh_sweep), autograd, and the two kernels alone.  Returns their
@@ -1747,7 +1800,7 @@ def mesh_phases(dev):
     return mesh_kernel_timing(
         {"mesh_sweep": (small_scene, small_cam, sweep_launches, sweep_chunks),
          "mesh_stream": (main_scene, main_cam, stream_launches, stream_chunks)},
-        checks)
+        checks, regs)
 
 
 # ---- the replay tier: the record kernel (B6), render_grad of scenes outside
@@ -3394,6 +3447,17 @@ def probe_phase(regs):
             "sweeps": PROBE_SWEEPS, "variants": variants}
 
 
+def resident_warps():
+    """Warps an SM holds at once of ``mesh_stream`` and of the sphere kernels
+    ({False: closest hit, True: any hit / with the attributes}), from the
+    registers and shared memory of the build, and ``mesh_stream``'s shared
+    bytes a block."""
+    stream = {a: cm.stream_occupancy(a) for a in (False, True)}
+    sphere = {a: ck.sphere_occupancy(a) for a in (False, True)}
+    return ({a: b * t // 32 for a, (b, t, _) in stream.items()},
+            {a: b * t // 32 for a, (b, t) in sphere.items()}, stream[False][2])
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out-dir", default=str(_build.BUILD_DIR),
@@ -3461,6 +3525,7 @@ def main():
         ("mesh_sweep_any_hit", "mesh_sweep_kernelILb1E"),
         ("mesh_stream", "mesh_stream_kernelILb0E"),
         ("mesh_stream_any_hit", "mesh_stream_kernelILb1E"))}
+    stream_warps, sphere_warps, stream_smem = resident_warps()
     emit("build", seconds=time.perf_counter() - t0, kernels=16,
          kernels_note="fifteen ports of TPU kernels (the probe of the mesh stream "
                       "among them) and the row-sum kernel of take_rows' backward "
@@ -3488,6 +3553,11 @@ def main():
          intersect_spill_bytes={k: v[1] for k, v in ix_stats.items()},
          mesh_registers={k: v[0] for k, v in mesh_stats.items()},
          mesh_spill_bytes={k: v[1] for k, v in mesh_stats.items()},
+         mesh_stream_resident_warps_per_sm=stream_warps[False],
+         mesh_stream_any_hit_resident_warps_per_sm=stream_warps[True],
+         mesh_stream_shared_bytes_per_block=stream_smem,
+         sphere_resident_warps_per_sm=sphere_warps[False],
+         sphere_attrs_resident_warps_per_sm=sphere_warps[True],
          registers=fwd_regs, spill_bytes=fwd_spill,
          registers_with_fma=kernel_stats(built_fma, "wavefront_kernelILi0E")[0],
          grad_fwd_registers=gfwd_regs, grad_fwd_spill_bytes=gfwd_spill,
@@ -3702,6 +3772,10 @@ def main():
          "sphere_closest_attrs": fog_counts["sphere_closest_attrs"]},
         ix_checks)
     del o, d, tm, ro, rd, rtm
+    for e in ix_entries:
+        e["registers"], e["spill_bytes"] = ix_stats[e["name"]]
+        if e["name"].startswith("sphere"):
+            e["resident_warps_per_sm"] = sphere_warps[e["name"].endswith("attrs")]
     by_name = {e["name"]: e for e in ix_entries}
     kernels_ms = (by_name["planar_closest_attrs"]["ms"] * std_counts["planar_closest_attrs"]
                   + by_name["planar_closest"]["ms"] * std_counts["planar_closest"])
@@ -3713,7 +3787,26 @@ def main():
     profile_standard_chunk(scene, cam)
 
     # ---- instanced meshes: cornell-lucy through mesh_sweep and mesh_stream ------
-    mesh_entries = mesh_phases(dev)
+    mesh_entries = mesh_phases(dev, {
+        "mesh_sweep": {"registers": mesh_stats["mesh_sweep"][0],
+                       "spill_bytes": mesh_stats["mesh_sweep"][1]},
+        "mesh_stream": {"registers": mesh_stats["mesh_stream"][0],
+                        "spill_bytes": mesh_stats["mesh_stream"][1],
+                        "any_hit_registers": mesh_stats["mesh_stream_any_hit"][0],
+                        "any_hit_spill_bytes": mesh_stats["mesh_stream_any_hit"][1],
+                        "resident_warps_per_sm": stream_warps[False]}})
+    # the card's speed: three kernels beside the times PERF.md section 6
+    # gives them
+    mesh_by_name = {e["name"]: e for e in mesh_entries}
+    yard = {name: (ms, ref) for name, ms, ref in (
+        ("wavefront_fwd", median(fwd_rounds), CARD_YARDSTICK["wavefront_fwd"]),
+        ("mesh_sweep", mesh_by_name["mesh_sweep"]["ms"], CARD_YARDSTICK["mesh_sweep"]),
+        ("planar_closest", by_name["planar_closest"]["ms"],
+         CARD_YARDSTICK["planar_closest"]))}
+    emit("card_yardstick", note="ms of three kernels at the shapes of PERF.md "
+         "section 6, beside the times recorded there",
+         **{name: {"ms": ms, "perf_md_ms": ref, "ratio": ms / ref}
+            for name, (ms, ref) in yard.items()})
 
     # ---- the replay tier: random and cornell-lucy at full size -----------------
     rr_counts, rr_chunks, rr_bits = replay_main_path(

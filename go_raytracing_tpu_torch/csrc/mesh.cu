@@ -1,10 +1,10 @@
 // Closest-hit and any-hit kernels over an instanced triangle mesh, for
-// Hopper (sm_90a): one thread a ray, a loop over the instances.  Two kernels,
-// one per size class of the prototype (geometry/mesh_bvh.py builds the tables
-// of one), each with a closest-hit and an any-hit instantiation:
+// Hopper (sm_90a), a loop over the instances.  Two kernels, one per size
+// class of the prototype (geometry/mesh_bvh.py builds the tables of one),
+// each with a closest-hit and an any-hit instantiation:
 //
-//   mesh_sweep   prototypes of at most 16,384 triangles.  Replaces
-//       _kernel / intersect_mesh_kernel of the JAX package's
+//   mesh_sweep   prototypes of at most 16,384 triangles, one thread a ray.
+//       Replaces _kernel / intersect_mesh_kernel of the JAX package's
 //       go_raytracing_tpu/ops/pallas_mesh.py (its pallas_call in _call).
 //       Per instance: the local ray, then a slab-test ladder of root, coarse
 //       (2,048 triangles), tile (128), subtile (32) and leaf (8) boxes in
@@ -12,8 +12,9 @@
 //       Moller-Trumbore (|a| < 1e-8 parallel) on the 8 triangles of each leaf
 //       entered, accepting t_min <= t < t_best.  The first triangle and the
 //       earlier instance win a tie.
-//   mesh_stream  larger prototypes.  Replaces _kernel / intersect_mesh_stream
-//       of go_raytracing_tpu/ops/pallas_mesh_stream.py (its pallas_call in
+//   mesh_stream  larger prototypes, one warp a run of 32 rays.  Replaces
+//       _kernel / intersect_mesh_stream of
+//       go_raytracing_tpu/ops/pallas_mesh_stream.py (its pallas_call in
 //       _call).  Per instance: the local ray and its root-box interval
 //       [t_en, t_ex], the exit clipped by the best hit of the instances
 //       before; a gate per 2,048-triangle segment and a test per cull slot
@@ -23,8 +24,9 @@
 //       equal t, the lowest leaf-order id wins; across instances the earlier.
 //       The TPU kernel packs (id << 5 | instance) into one word and so takes
 //       at most 31 instances; here tri and inst are two words and the
-//       instance count is not limited.  The one limit left: the id travels
-//       as float32 in row 9, exact up to 2^24 triangles.
+//       instance count is not limited.  The limits left: the id travels as
+//       float32 in row 9, exact up to 2^24 triangles, and a lane keeps its
+//       segments in 64 bits (the tables have at most 56 segments: 896 slots).
 //
 // What bounds them on this card: the work is data-dependent.  A live ray
 // reads 28 bytes, a dead one 4, and each writes 13; the tables (at most 576 KB
@@ -33,9 +35,12 @@
 // about 42 operations a local ray, 25 a box test, 55 a Moller-Trumbore test,
 // 17 a Baldwin-Weber plane test and 24 more for the barycentrics of a
 // triangle whose t passes, times what each ray's cull lets through
-// (chip_smoke.py counts them).  So operations bound them, and divergence
-// between the rays of a warp (each walks its own boxes) is what keeps them
-// from the float32 peak.
+// (chip_smoke.py counts them).  So operations bound them.  Built with
+// -fmad=false, a multiply and an add are two instructions: a kernel bound by
+// operations reaches at most about half of a bound that counts a fused
+// multiply-add as two operations at 67 TFLOP/s.  What kept them further off
+// was the rays of a warp walking different boxes: lanes idle while others
+// test.
 //
 // What the design does about it:
 //   * the cull is exact per ray: a box is entered by the rays that hit it,
@@ -46,17 +51,38 @@
 //     8 coarse, 128 tile, 512 subtile and 2,048 leaf boxes, 64.7 KB) into
 //     shared memory once per block, and each block then walks a grid-stride
 //     run of rays; triangles are read through the read-only cache;
-//   * mesh_stream reads its tile rows (tile-major, 13 rows of 128 triangles)
-//     through the read-only cache: the rays of a warp come sorted by the
-//     instance they enter, where and heading where (the integrator's
-//     _mesh_sort_key), so they mostly read the same tile at the same time;
+//   * mesh_stream is warp-cooperative.  Each lane tests its own ray's root
+//     box and segment gates (every gate of an instance in one unrolled loop,
+//     no vote between them).  The warp then walks, in table order, the union
+//     of what its lanes entered, and turns the roles round wherever lanes
+//     would otherwise idle: a slot test puts the 16 slot boxes of a segment
+//     on the lanes of each half-warp and broadcasts two rays at a time
+//     (shuffles), and a tile's sweep puts 4 of its 128 triangles on each
+//     lane, all 13 rows in registers, and broadcasts each ray that entered
+//     the slot in turn.  So a tile costs the warp four tests for each ray
+//     that entered it, not 128 a lane whatever its lanes entered (with one
+//     lane a ray, the lanes that had not entered a slot would idle through
+//     its 128-triangle loop).  The lanes' winners meet in
+//     warp reductions (__reduce_min_sync on t's bits made monotone, then on
+//     the id); the rays' sort (the integrator's _mesh_sort_key) still keeps
+//     the union of a warp's slots small;
+//   * the tiles come through shared memory: each warp stages the 13 used
+//     rows of a tile (6.5 KB) with cp.async into one of its two buffers while
+//     it sweeps the other; 2 warps a block and 8 blocks an SM (16 warps,
+//     213 KB of shared memory, at most 128 registers a thread);
+//   * a quotient of zero or of numbers of opposite signs fails t >= t_min
+//     (> 0) however it rounds, so its division is skipped; the division that
+//     remains is IEEE's, so t keeps its bits;
+//   * one warp a run of 32 rays and one block a run of 64, no grid-stride
+//     loop: the sorted rays put hits and misses in runs, and the hardware
+//     hands the next block to whichever SM frees up first;
 //   * the clip of an instance's exit by the best hit so far ends most rays'
-//     later instances at the root test; in any-hit mode the first hit ends
-//     the ray's loop;
+//     later instances at the root test; in any-hit mode a lane's first hit
+//     ends its tests, and the warp leaves an instance when no lane is left;
 //   * a ray whose t_max is not above t_min can hit nothing (dead lanes,
 //     inactive shadow rays and rays that reach no instance come in with -1):
 //     its miss is written before the instance loop, its origin and direction
-//     unread;
+//     unread, and a warp of such rays does nothing else;
 //   * boxes that hold padding alone are skipped by the triangle count: the
 //     TPU kernels' padding boxes (+-3e38, min above max) pass a min/max slab
 //     test, so those kernels enter them and test zero triangles, which
@@ -72,6 +98,7 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <climits>
 
 namespace {
 
@@ -287,106 +314,319 @@ struct StreamMesh {
     int n_tris;             // slots past it hold padding alone
 };
 
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int STREAM_WARPS = 2;                     // warps a block
+constexpr int STREAM_THREADS = 32 * STREAM_WARPS;
+constexpr int STREAM_MIN_BLOCKS = 8;                // resident blocks an SM
+constexpr int USED_ROWS = 13;                       // rows 0-12 of a tile are read
+constexpr int STAGE_FLOATS = USED_ROWS * TILE;      // one staged tile, 6,656 B
+constexpr int STAGES = 2;                           // a warp's buffers
+constexpr int MAX_SEGMENTS = 64;                    // a lane's segment bits
+constexpr size_t STREAM_SMEM = (size_t)STREAM_WARPS * STAGES * STAGE_FLOATS * sizeof(float);
+
+// Copy the used rows of one tile into a warp's buffer: 13 rows of 512 B, one
+// 16-byte cp.async a lane and row, then one commit group.
+__device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__ tri,
+                                           long long tile, int lane) {
+    const float* src = tri + tile * (ROWS * TILE) + lane * 4;
+    float* to = dst + lane * 4;
+#pragma unroll
+    for (int r = 0; r < USED_ROWS; ++r) {
+        const unsigned s = (unsigned)__cvta_generic_to_shared(to + r * TILE);
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                     :: "r"(s), "l"(src + r * TILE) : "memory");
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wait_staged() {
+    asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+    __syncwarp();   // the other lanes' copies are visible from here on
+}
+
+// The slots of segment `seg` that each ray of `rays` (a mask of the warp's
+// lanes, each of which entered the segment) enters, the roles turned round as
+// in the sweep: lane k of each half-warp holds slot k's box, and two rays at
+// a time are broadcast to the halves.  Returns this lane's own slot bits.
+__device__ __forceinline__ unsigned slots_entered(const StreamMesh& M, int seg, unsigned rays,
+                                                  const LocalRay& L, float near0,
+                                                  float far0, int lane) {
+    const int k = lane & (SEG_TILES - 1);
+    const float* tb = M.slotbox + (long long)seg * 6 * SEG_TILES;
+    const bool real = ((long long)seg * SEG_TILES + k) * M.tps * TILE < M.n_tris;
+    const float lo[3] = {__ldg(tb + k), __ldg(tb + SEG_TILES + k), __ldg(tb + 2 * SEG_TILES + k)};
+    const float hi[3] = {__ldg(tb + 3 * SEG_TILES + k), __ldg(tb + 4 * SEG_TILES + k),
+                         __ldg(tb + 5 * SEG_TILES + k)};
+    unsigned mine = 0;
+    while (rays) {
+        const int r0 = __ffs(rays) - 1;
+        rays &= rays - 1;
+        const bool two = rays != 0;
+        const int r1 = two ? __ffs(rays) - 1 : r0;
+        if (two) rays &= rays - 1;
+        const int src = lane < SEG_TILES ? r0 : r1;
+        LocalRay R;
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+            R.o[i] = __shfl_sync(FULL, L.o[i], src);
+            R.inv[i] = __shfl_sync(FULL, L.inv[i], src);
+        }
+        float near = __shfl_sync(FULL, near0, src), far = __shfl_sync(FULL, far0, src);
+        slab(lo, hi, R, near, far);
+        const unsigned got =
+            __ballot_sync(FULL, real && (lane < SEG_TILES || two) && far >= near);
+        if (lane == r0) mine = got & 0xffffu;
+        if (two && lane == r1) mine = got >> SEG_TILES;
+    }
+    return mine;
+}
+
+// The tiles a warp sweeps for one instance: those of every slot that some
+// lane of the warp entered, segment by segment and slot by slot in table
+// order.  Everything but `segs`, `mine` and `in` is the same in every lane.
+struct SlotWalk {
+    unsigned long long segs;   // segments this lane entered
+    unsigned long long todo;   // segments some lane entered, not yet walked
+    unsigned pending;          // slots of the segment walked, not handed out
+    unsigned mine;             // slots of that segment this lane entered
+    int seg;                   // the segment walked
+    int slot, dt;              // the slot being handed out and its next tile
+    bool in;                   // this lane entered `slot`
+};
+
+// Starts the walk of one instance: each lane's gates of all segments (at most
+// 64), from [near0, far0]; a lane with `want` clear enters none.
+__device__ __forceinline__ SlotWalk start_walk(const StreamMesh& M, const LocalRay& L,
+                                               float near0, float far0, bool want) {
+    SlotWalk w{0ull, 0ull, 0u, 0u, 0, 0, M.tps, false};
+    if (want) {
+#pragma unroll 4
+        for (int s = 0; s < M.n_seg; ++s) {
+            const float* sb = M.segbox + s * 6;
+            const float lo[3] = {__ldg(sb), __ldg(sb + 1), __ldg(sb + 2)};
+            const float hi[3] = {__ldg(sb + 3), __ldg(sb + 4), __ldg(sb + 5)};
+            float s_near = near0, s_far = far0;
+            slab(lo, hi, L, s_near, s_far);
+            if (s_far >= s_near) w.segs |= 1ull << s;
+        }
+    }
+    w.todo = (unsigned long long)__reduce_or_sync(FULL, (unsigned)w.segs) |
+             (unsigned long long)__reduce_or_sync(FULL, (unsigned)(w.segs >> 32)) << 32;
+    return w;
+}
+
+// Hands out the next tile (and whether this lane entered its slot); false
+// when the instance has no tile left.  A lane with `want` clear (any hit:
+// its ray has hit) enters no further slot.  Called by the whole warp.
+__device__ __forceinline__ bool next_tile(SlotWalk& w, const StreamMesh& M,
+                                          const LocalRay& L, float near0, float far0,
+                                          bool want, int lane, long long& tile, bool& in) {
+    if (w.dt < M.tps) {
+        tile = (long long)w.slot * M.tps + w.dt++;
+        in = w.in;
+        return true;
+    }
+    while (w.pending == 0) {
+        if (w.todo == 0) return false;
+        w.seg = __ffsll((long long)w.todo) - 1;
+        w.todo &= w.todo - 1;
+        const unsigned rays = __ballot_sync(FULL, want && ((w.segs >> w.seg) & 1ull));
+        if (rays == 0) continue;
+        w.mine = slots_entered(M, w.seg, rays, L, near0, far0, lane);
+        w.pending = __reduce_or_sync(FULL, w.mine);
+    }
+    const int k = __ffs(w.pending) - 1;
+    w.pending &= w.pending - 1;
+    w.slot = w.seg * SEG_TILES + k;
+    w.in = (w.mine >> k) & 1u;
+    w.dt = 1;
+    tile = (long long)w.slot * M.tps;
+    in = w.in;
+    return true;
+}
+
+// Baldwin-Weber of the rays in `rays` (a mask of the warp's lanes) against a
+// staged tile, the roles turned round: each lane holds four triangles of the
+// tile (l = lane + 32 q), each ray in turn is broadcast from its lane, and
+// the warp tests it against all 128 triangles at once, so a tile costs the
+// warp four tests a ray that entered it, not 128 a lane.  The lanes' own
+// winners meet in a warp reduction: the least t (its float bits, made
+// monotone, by __reduce_min_sync), then the lowest id at that t.  Any hit:
+// a ray takes the first lane's hit.  The owning lane keeps the result.
 template <bool ANY>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void sweep_tile(const float* __restrict__ T, int lane, unsigned rays,
+                                           const LocalRay& L, float t_cap, float t_min,
+                                           bool pos_t_min, float& best_t, int& best_id) {
+    // this lane's four triangles, all 13 rows, in registers for the tile
+    float n0[4], n1[4], n2[4], dp[4], U[3][4], V[3][4], Uo[4], Vo[4];
+    int id[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+        const int l = lane + 32 * q;
+        n0[q] = T[l];
+        n1[q] = T[TILE + l];
+        n2[q] = T[2 * TILE + l];
+        dp[q] = T[10 * TILE + l];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            U[k][q] = T[(3 + k) * TILE + l];
+            V[k][q] = T[(6 + k) * TILE + l];
+        }
+        Uo[q] = T[11 * TILE + l];
+        Vo[q] = T[12 * TILE + l];
+        id[q] = (int)T[9 * TILE + l];
+    }
+    while (rays) {
+        const int r = __ffs(rays) - 1;
+        rays &= rays - 1;
+        float o[3], d[3];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+            o[k] = __shfl_sync(FULL, L.o[k], r);
+            d[k] = __shfl_sync(FULL, L.d[k], r);
+        }
+        const float cap = __shfl_sync(FULL, t_cap, r);
+        float lt = __int_as_float(0x7f800000);   // +inf: no hit yet
+        int lid = INT_MAX;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            // operation for operation as the TPU kernel and the plain version
+            const float den = n0[q] * d[0] + n1[q] * d[1] + n2[q] * d[2];
+            const float num = dp[q] - (n0[q] * o[0] + n1[q] * o[1] + n2[q] * o[2]);
+            const bool parallel = fabsf(den) < 1e-12f;
+            // with t_min > 0 a quotient of zero or of numbers of opposite
+            // signs fails t >= t_min however it rounds: skip its division
+            const bool same_sign = num != 0.0f && ((num > 0.0f) == (den > 0.0f));
+            if (parallel || (pos_t_min && !same_sign)) continue;
+            const float tc = num / den;
+            if (!(tc >= t_min) || !(tc < cap)) continue;
+            const float px = o[0] + tc * d[0];
+            const float py = o[1] + tc * d[1];
+            const float pz = o[2] + tc * d[2];
+            const float u = U[0][q] * px + U[1][q] * py + U[2][q] * pz + Uo[q];
+            const float v = V[0][q] * px + V[1][q] * py + V[2][q] * pz + Vo[q];
+            if (!(u >= 0.0f && v >= 0.0f && u + v <= 1.0f)) continue;
+            if (tc < lt || (tc == lt && id[q] < lid)) {
+                lt = tc;
+                lid = id[q];
+            }
+        }
+        if (ANY) {
+            const unsigned hits = __ballot_sync(FULL, lid != INT_MAX);
+            if (hits) {
+                const int first = __shfl_sync(FULL, lid, __ffs(hits) - 1);
+                if (lane == r) best_id = first;
+            }
+        } else {
+            // float order as int order (an accepted t is never NaN; -0 and +0
+            // are one key, as they are one t); INT_MAX: no hit
+            const int bits = __float_as_int(lt);
+            const int key = lid == INT_MAX ? INT_MAX
+                            : lt == 0.0f  ? 0
+                            : bits >= 0   ? bits
+                                          : bits ^ 0x7fffffff;
+            const int kmin = __reduce_min_sync(FULL, key);
+            if (kmin != INT_MAX) {
+                const int idmin = __reduce_min_sync(FULL, key == kmin ? lid : INT_MAX);
+                const unsigned won = __ballot_sync(FULL, key == kmin && lid == idmin);
+                const float tw = __shfl_sync(FULL, lt, __ffs(won) - 1);
+                if (lane == r && (tw < best_t || (tw == best_t && idmin < best_id))) {
+                    best_t = tw;
+                    best_id = idmin;
+                }
+            }
+        }
+    }
+}
+
+// One warp a run of 32 rays, one lane a ray.  Per instance each lane finds
+// its local ray and root interval; the warp then walks the union of the
+// slots its lanes entered (SlotWalk), staging each tile's rows into its own
+// buffers with cp.async, the next tile in flight while the current one is
+// swept, and sweeps each tile for the lanes that entered its slot.
+template <bool ANY>
+__global__ void __launch_bounds__(STREAM_THREADS, STREAM_MIN_BLOCKS)
 mesh_stream_kernel(StreamMesh M, Rays R, float t_min, Out W) {
-    const long long step = (long long)gridDim.x * blockDim.x;
+    extern __shared__ float4 staged[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    float* buf = reinterpret_cast<float*>(staged) + warp * STAGES * STAGE_FLOATS;
+    const long long i = ((long long)blockIdx.x * STREAM_WARPS + warp) * 32 + lane;
+    const bool live = i < R.n;
+    float t_cap = live ? R.t_max[i] : -1.0f;
+    if (t_cap >= BIG) t_cap = BIG;
+    const bool alive = live && t_cap > t_min;
+    if (live && !alive) write_out(W, i, BIG, -1, -1, ANY);   // no t passes
+    if (!__any_sync(FULL, alive)) return;
+    float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 1.0f};
+    if (alive) {
+        o[0] = R.ox[i]; o[1] = R.oy[i]; o[2] = R.oz[i];
+        d[0] = R.dx[i]; d[1] = R.dy[i]; d[2] = R.dz[i];
+    }
     float root[6];
 #pragma unroll
     for (int k = 0; k < 6; ++k) root[k] = __ldg(M.root + k);
+    const bool pos_t_min = t_min > 0.0f;
 
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < R.n;
-         i += step) {
-        float t_cap = R.t_max[i];
-        if (t_cap >= BIG) t_cap = BIG;
-        float acc_t = BIG;
-        int acc_id = -1, acc_inst = -1;
-        if (!(t_cap > t_min)) {    // no t passes t_min <= t < t_cap
-            write_out(W, i, BIG, -1, -1, ANY);
-            continue;
-        }
-        const float o[3] = {R.ox[i], R.oy[i], R.oz[i]};
-        const float d[3] = {R.dx[i], R.dy[i], R.dz[i]};
-
-        for (int ii = 0; ii < M.n_inst; ++ii) {
-            const LocalRay L = local_ray(M.w2l, ii, o, d);
-            float near0 = t_min, t_ex = t_cap;
-            slab(root, root + 3, L, near0, t_ex);
-            const float far0 = fminf(t_ex, acc_t);
-            // every later test clips inside [near0, far0]
-            if (!(far0 >= near0)) continue;
-            float best_t = BIG;
-            int best_id = -1;
-            for (int s = 0; s < M.n_seg; ++s) {
-                const float* sb = M.segbox + s * 6;
-                float s_near = near0, s_far = far0;
-                {
-                    const float lo[3] = {__ldg(sb), __ldg(sb + 1), __ldg(sb + 2)};
-                    const float hi[3] = {__ldg(sb + 3), __ldg(sb + 4), __ldg(sb + 5)};
-                    slab(lo, hi, L, s_near, s_far);
-                }
-                if (!(s_far >= s_near)) continue;
-                const float* tb = M.slotbox + (long long)s * 6 * SEG_TILES;
-                for (int k = 0; k < SEG_TILES; ++k) {
-                    if (((long long)s * SEG_TILES + k) * M.tps * TILE >= M.n_tris) break;
-                    const float lo[3] = {__ldg(tb + k), __ldg(tb + SEG_TILES + k),
-                                         __ldg(tb + 2 * SEG_TILES + k)};
-                    const float hi[3] = {__ldg(tb + 3 * SEG_TILES + k),
-                                         __ldg(tb + 4 * SEG_TILES + k),
-                                         __ldg(tb + 5 * SEG_TILES + k)};
-                    float near = near0, far = far0;
-                    slab(lo, hi, L, near, far);
-                    if (!(far >= near)) continue;
-                    const long long slot = (long long)s * SEG_TILES + k;
-                    for (int dt = 0; dt < M.tps; ++dt) {
-                        const float* __restrict__ T =
-                            M.tri + (slot * M.tps + dt) * (ROWS * TILE);
-                        for (int l = 0; l < TILE; ++l) {
-                            const float n0 = __ldg(T + l);
-                            const float n1 = __ldg(T + TILE + l);
-                            const float n2 = __ldg(T + 2 * TILE + l);
-                            // Baldwin-Weber, operation for operation as the
-                            // TPU kernel and the plain version
-                            const float den = n0 * L.d[0] + n1 * L.d[1] + n2 * L.d[2];
-                            const float num = __ldg(T + 10 * TILE + l) -
-                                              (n0 * L.o[0] + n1 * L.o[1] + n2 * L.o[2]);
-                            const bool parallel = fabsf(den) < 1e-12f;
-                            const float tc = num / (parallel ? 1.0f : den);
-                            if (parallel || !(tc >= t_min) || !(tc < t_cap)) continue;
-                            const float px = L.o[0] + tc * L.d[0];
-                            const float py = L.o[1] + tc * L.d[1];
-                            const float pz = L.o[2] + tc * L.d[2];
-                            const float u = __ldg(T + 3 * TILE + l) * px +
-                                            __ldg(T + 4 * TILE + l) * py +
-                                            __ldg(T + 5 * TILE + l) * pz +
-                                            __ldg(T + 11 * TILE + l);
-                            const float v = __ldg(T + 6 * TILE + l) * px +
-                                            __ldg(T + 7 * TILE + l) * py +
-                                            __ldg(T + 8 * TILE + l) * pz +
-                                            __ldg(T + 12 * TILE + l);
-                            if (!(u >= 0.0f && v >= 0.0f && u + v <= 1.0f)) continue;
-                            const int oid = (int)__ldg(T + 9 * TILE + l);
-                            if (ANY) {
-                                write_out(W, i, 0.0f, oid, ii, true);
-                                goto next_ray;
-                            }
-                            if (tc < best_t || (tc == best_t && oid < best_id)) {
-                                best_t = tc;
-                                best_id = oid;
-                            }
-                        }
-                    }
+    float acc_t = BIG;
+    int acc_id = -1, acc_inst = -1;
+    for (int ii = 0; ii < M.n_inst; ++ii) {
+        const bool open = alive && !(ANY && acc_id >= 0);
+        if (ANY && !__any_sync(FULL, open)) break;
+        const LocalRay L = local_ray(M.w2l, ii, o, d);
+        float near0 = t_min, t_ex = t_cap;
+        slab(root, root + 3, L, near0, t_ex);
+        const float far0 = fminf(t_ex, acc_t);
+        // every later test clips inside [near0, far0]
+        bool want = open && far0 >= near0;
+        if (!__any_sync(FULL, want)) continue;
+        float best_t = BIG;
+        int best_id = -1;
+        SlotWalk w = start_walk(M, L, near0, far0, want);
+        long long cur = 0;
+        bool cur_in = false;
+        bool have = next_tile(w, M, L, near0, far0, want, lane, cur, cur_in);
+        int b = 0;
+        if (have) stage_tile(buf, M.tri, cur, lane);
+        while (have) {
+            long long nxt = 0;
+            bool nxt_in = false;
+            const bool more = next_tile(w, M, L, near0, far0, want, lane, nxt, nxt_in);
+            if (more) {
+                stage_tile(buf + (b ^ 1) * STAGE_FLOATS, M.tri, nxt, lane);
+                wait_staged<1>();
+            } else {
+                wait_staged<0>();
+            }
+            const unsigned rays = __ballot_sync(FULL, cur_in && want);
+            if (rays)
+                sweep_tile<ANY>(buf + b * STAGE_FLOATS, lane, rays, L, t_cap, t_min,
+                                pos_t_min, best_t, best_id);
+            __syncwarp();   // every lane is done with buf[b] before it is refilled
+            if (ANY) {
+                want = want && best_id < 0;
+                if (!__any_sync(FULL, want)) {
+                    wait_staged<0>();
+                    break;
                 }
             }
-            if (best_t < acc_t) {
-                acc_t = best_t;
+            cur = nxt;
+            cur_in = nxt_in;
+            have = more;
+            b ^= 1;
+        }
+        if (ANY) {
+            if (best_id >= 0) {
                 acc_id = best_id;
                 acc_inst = ii;
             }
+        } else if (best_t < acc_t) {
+            acc_t = best_t;
+            acc_id = best_id;
+            acc_inst = ii;
         }
-        write_out(W, i, acc_t, acc_id, acc_inst, ANY);
-    next_ray:;
     }
+    if (alive) write_out(W, i, acc_t, acc_id, acc_inst, ANY);
 }
 
 int grid_size(long long n_rays, unsigned int* blocks_out) {
@@ -422,12 +662,31 @@ int launch_sweep(SweepMesh M, Rays R, float t_min, Out W, cudaStream_t stream) {
     return (int)cudaGetLastError();
 }
 
+// STREAM_MIN_BLOCKS blocks of STREAM_SMEM bytes fit an SM only when its
+// carve-out favours shared memory: ask for that (and allow a block all of
+// STREAM_SMEM, which the 48 KB a block gets unasked would cap).
+template <bool ANY>
+int stream_attributes() {
+    const int err = (int)cudaFuncSetAttribute(mesh_stream_kernel<ANY>,
+                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                              (int)STREAM_SMEM);
+    if (err != 0) return err;
+    return (int)cudaFuncSetAttribute(mesh_stream_kernel<ANY>,
+                                     cudaFuncAttributePreferredSharedMemoryCarveout,
+                                     (int)cudaSharedmemCarveoutMaxShared);
+}
+
 template <bool ANY>
 int launch_stream(StreamMesh M, Rays R, float t_min, Out W, cudaStream_t stream) {
-    unsigned int blocks = 1;
-    const int err = grid_size(R.n, &blocks);
+    // one warp a run of 32 rays and no grid-stride loop: the hardware hands
+    // blocks to the SMs as they free up, which evens out the rays' unequal
+    // work (sorted rays put the statue's hits and the misses in runs)
+    const long long blocks = (R.n + STREAM_THREADS - 1) / STREAM_THREADS;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    const int err = stream_attributes<ANY>();
     if (err != 0) return err;
-    mesh_stream_kernel<ANY><<<blocks, THREADS, 0, stream>>>(M, R, t_min, W);
+    mesh_stream_kernel<ANY><<<(unsigned int)blocks, STREAM_THREADS, STREAM_SMEM, stream>>>(
+        M, R, t_min, W);
     return (int)cudaGetLastError();
 }
 
@@ -461,11 +720,26 @@ extern "C" int mesh_stream_launch(
     const float* dz, const float* t_max, long long n_rays, float t_min,
     int any_hit, float* t_out, int* tri_out, int* inst_out, uint8_t* hit_out,
     void* cuda_stream) {
-    if (n_seg < 1 || tps < 1) return (int)cudaErrorInvalidValue;
+    if (n_seg < 1 || n_seg > MAX_SEGMENTS || tps < 1) return (int)cudaErrorInvalidValue;
     const StreamMesh M{w2l, n_inst, root, segbox, slotbox, n_seg, tps, tri, n_tris};
     const Rays R{ox, oy, oz, dx, dy, dz, t_max, n_rays};
     const Out W{t_out, tri_out, inst_out, hit_out};
     const cudaStream_t s = (cudaStream_t)cuda_stream;
     return any_hit ? launch_stream<true>(M, R, t_min, W, s)
                    : launch_stream<false>(M, R, t_min, W, s);
+}
+
+// Blocks of mesh_stream (closest hit, or any hit) that an SM holds at once,
+// from its registers and shared memory; and its threads and shared memory a
+// block.  Returns a CUDA error code (0 on success).
+extern "C" int mesh_stream_occupancy(int any_hit, int* blocks_per_sm, int* threads,
+                                     int* smem_bytes) {
+    *threads = STREAM_THREADS;
+    *smem_bytes = (int)STREAM_SMEM;
+    const int err = any_hit ? stream_attributes<true>() : stream_attributes<false>();
+    if (err != 0) return err;
+    const void* fn = any_hit ? (const void*)mesh_stream_kernel<true>
+                             : (const void*)mesh_stream_kernel<false>;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
+                                                              STREAM_THREADS, STREAM_SMEM);
 }

@@ -287,6 +287,18 @@ def _launch(function, argtypes, dev, args):
         raise RuntimeError(f"{function} failed: CUDA error {err}")
 
 
+def sphere_occupancy(attrs=False):
+    """(blocks an SM holds at once, threads a block) of the sphere kernel
+    (``attrs``: the one that writes the winner's attributes) on the current
+    CUDA device, from its registers and shared memory."""
+    fn = _kernel("sphere_occupancy", [_I] + [ctypes.POINTER(ctypes.c_int)] * 2)
+    out = [ctypes.c_int() for _ in range(2)]
+    err = fn(int(attrs), *(ctypes.byref(c) for c in out))
+    if err != 0:
+        raise RuntimeError(f"sphere_occupancy failed: CUDA error {err}")
+    return tuple(c.value for c in out)
+
+
 def _ptrs(*tensors):
     return [a.data_ptr() for a in tensors]
 

@@ -439,7 +439,13 @@ def _stream_plain(proto, o, d, t_cap, t_min, any_hit, counts=None):
     batches of ``[pairs, 128 * tps]``; within an instance the least t wins
     and, at equal t, the lowest leaf-order id, which makes the order of the
     sweep immaterial.  Returns (t_best, tri_best, inst_best), -1 ids on a
-    miss."""
+    miss.
+
+    ``counts`` gets the tests the kernel needs.  In any-hit mode a ray stops
+    at its first slot with a hit, in the kernel's order (segment by segment,
+    slot by slot): its triangle tests end with that slot, its segment gates
+    and slot tests with that slot's segment (counted a slot at a time: exact
+    while a slot is one tile, ``tps`` = 1)."""
     r, dev = t_cap.shape[0], t_cap.device
     big = float(BIG)
     int_max = torch.iinfo(torch.int32).max
@@ -476,7 +482,6 @@ def _stream_plain(proto, o, d, t_cap, t_min, any_hit, counts=None):
         near_i, far_i = near0[idx], far0[idx]
 
         # segment gate: [n, S]
-        _count(counts, "box_tests", idx.numel() * n_seg)
         s_near, s_far = _slab(segbox[:, None, :], [c[:, None] for c in ol_i],
                               [c[:, None] for c in inv_i], near_i[:, None],
                               far_i[:, None])
@@ -485,8 +490,6 @@ def _stream_plain(proto, o, d, t_cap, t_min, any_hit, counts=None):
         # skipped): [P, 16]
         slots = ps[:, None] * SEG_TILES + torch.arange(SEG_TILES, device=dev)
         real = slots * (tps * TILE) < proto.n_tris
-        if counts is not None:
-            _count(counts, "box_tests", real.sum())
         b = slotbox[:, slots]                                        # [6, P, 16]
         t_near, t_far = _slab(b, [c[pr][:, None] for c in ol_i],
                               [c[pr][:, None] for c in inv_i],
@@ -494,7 +497,9 @@ def _stream_plain(proto, o, d, t_cap, t_min, any_hit, counts=None):
         hit_p, hit_k = torch.nonzero((t_far >= t_near) & real, as_tuple=True)
         pair_ray = pr[hit_p]                       # into idx
         pair_slot = slots[hit_p, hit_k]
-        _count(counts, "tri_tests", pair_ray.numel() * TILE * tps)
+        n_pairs = pair_ray.numel()
+        found_p = torch.zeros(n_pairs, dtype=torch.bool, device=dev)
+        t_pass_p = torch.zeros(n_pairs, dtype=torch.int64, device=dev)
 
         best_t = torch.full((idx.numel(),), big, device=dev)
         best_id = torch.full((idx.numel(),), int_max, dtype=torch.int32, device=dev)
@@ -504,9 +509,11 @@ def _stream_plain(proto, o, d, t_cap, t_min, any_hit, counts=None):
             pray = pair_ray[p0:p0 + _PAIR_BATCH]
             tiles = pair_slot[p0:p0 + _PAIR_BATCH, None] * tps + lanes  # [B, tps]
             rows = s_tri[tiles].permute(2, 0, 1, 3).reshape(ROWS, tiles.shape[0], -1)
-            t_p, id_p = _bw_pairs(rows, [c[pray][:, None] for c in ol_i],
-                                  [c[pray][:, None] for c in dl_i],
-                                  cap[pray][:, None], t_min, int_max, counts)
+            t_p, id_p, t_pass = _bw_pairs(rows, [c[pray][:, None] for c in ol_i],
+                                          [c[pray][:, None] for c in dl_i],
+                                          cap[pray][:, None], t_min, int_max)
+            found_p[p0:p0 + _PAIR_BATCH] = t_p < big
+            t_pass_p[p0:p0 + _PAIR_BATCH] = t_pass
             # lexicographic (t, id) minimum per ray over the batch's pairs
             bt = torch.full_like(best_t, big).scatter_reduce(
                 0, pray, t_p, "amin")
@@ -517,6 +524,9 @@ def _stream_plain(proto, o, d, t_cap, t_min, any_hit, counts=None):
             best_t = torch.where(take, bt, best_t)
             best_id = torch.where(take, bid, best_id)
 
+        if counts is not None:
+            _count_stream_tests(counts, any_hit, n_seg, tps, pr, ps, real, pair_ray,
+                                pair_slot, found_p, t_pass_p, idx.numel())
         found = best_t < big
         if any_hit:
             best_t = torch.where(found, 0.0, best_t)
@@ -527,20 +537,47 @@ def _stream_plain(proto, o, d, t_cap, t_min, any_hit, counts=None):
     return acc_t, acc_id, acc_inst
 
 
-def _bw_pairs(rows, o_, d_, cap, t_min, int_max, counts=None):
+def _count_stream_tests(counts, any_hit, n_seg, tps, pr, ps, real, pair_ray, pair_slot,
+                        found_p, t_pass_p, n):
+    """The box and triangle tests of one instance for its ``n`` rays that
+    entered the root box: (ray, segment) pairs ``pr``, ``ps`` entered, their
+    slots' ``real`` mask, (ray, slot) pairs entered (ordered by ray, then
+    slot) with their hit and plane-t-pass counts.  Any hit: up to each
+    ray's first slot with a hit (see ``_stream_plain``)."""
+    dev = pr.device
+    n_pairs = pair_ray.numel()
+    need = torch.ones(n_pairs, dtype=torch.bool, device=dev)
+    seg_need = torch.ones(pr.numel(), dtype=torch.bool, device=dev)
+    gates = torch.full((n,), n_seg, dtype=torch.int64, device=dev)
+    if any_hit:
+        pos = torch.arange(n_pairs, device=dev)
+        first = torch.full((n,), n_pairs, dtype=torch.int64, device=dev).scatter_reduce(
+            0, pair_ray[found_p], pos[found_p], "amin")
+        need = pos <= first[pair_ray]
+        has = first < n_pairs
+        s_hit = torch.full((n,), n_seg - 1, dtype=torch.int64, device=dev)
+        s_hit[has] = pair_slot[first[has]] // SEG_TILES
+        gates = s_hit + 1
+        seg_need = ps <= s_hit[pr]
+    _count(counts, "box_tests", gates.sum())
+    _count(counts, "box_tests", real[seg_need].sum())
+    _count(counts, "tri_tests", need.sum() * TILE * tps)
+    _count(counts, "tri_t_pass", t_pass_p[need].sum())
+
+
+def _bw_pairs(rows, o_, d_, cap, t_min, int_max):
     """Baldwin-Weber of each pair's ray ([B, 1] components) against its
     triangles (``rows`` [ROWS, B, L]).  Returns the pair's least accepted
-    t (BIG if none) and the lowest leaf-order id at that t.  Counts the
-    triangles whose plane t passes (``tri_t_pass``): only those go on to
-    the barycentrics in the kernel."""
+    t (BIG if none), the lowest leaf-order id at that t, and the count of
+    its triangles whose plane t passes (only those go on to the
+    barycentrics in the kernel)."""
     nr, U, V = rows[0:3], rows[3:6], rows[6:9]
     d_p, Uo, Vo = rows[10], rows[11], rows[12]
     den = nr[0] * d_[0] + nr[1] * d_[1] + nr[2] * d_[2]
     num = d_p - (nr[0] * o_[0] + nr[1] * o_[1] + nr[2] * o_[2])
     parallel = torch.abs(den) < 1e-12
     tc = num / torch.where(parallel, 1.0, den)
-    if counts is not None:
-        _count(counts, "tri_t_pass", (~parallel & (tc >= t_min) & (tc < cap)).sum())
+    t_pass = (~parallel & (tc >= t_min) & (tc < cap)).sum(dim=1)
     px = o_[0] + tc * d_[0]
     py = o_[1] + tc * d_[1]
     pz = o_[2] + tc * d_[2]
@@ -552,7 +589,7 @@ def _bw_pairs(rows, o_, d_, cap, t_min, int_max, counts=None):
     t_p = tcm.amin(dim=1)
     oid = rows[9].to(torch.int32)
     id_p = torch.where(ok & (tcm == t_p[:, None]), oid, int_max).amin(dim=1)
-    return t_p, id_p
+    return t_p, id_p, t_pass
 
 
 def _finish(t_best, tri_best, inst_best, any_hit):
@@ -657,6 +694,22 @@ def _stream_cuda(proto, o, d, t_max, t_min, any_hit):
                  hit.data_ptr()])
         LAUNCHES_STREAM += 1
     return t, tri, inst, hit.view(torch.bool)
+
+
+def stream_occupancy(any_hit=False):
+    """(blocks an SM holds at once, threads a block, shared-memory bytes a
+    block) of ``mesh_stream``'s closest-hit (or any-hit) kernel on the
+    current CUDA device, from its registers and shared memory."""
+    from . import _build
+
+    fn = _build.load("mesh").lib.mesh_stream_occupancy
+    fn.argtypes = [_I] + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int() for _ in range(3)]
+    err = fn(int(any_hit), *(ctypes.byref(c) for c in out))
+    if err != 0:
+        raise RuntimeError(f"mesh_stream_occupancy failed: CUDA error {err}")
+    return tuple(c.value for c in out)
 
 
 def _rays(o, d, t_max):

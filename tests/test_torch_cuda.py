@@ -8,7 +8,9 @@ file imports the port only, so it also runs where JAX is not installed:
 """
 
 import dataclasses
+import functools
 
+import numpy as np
 import pytest
 import torch
 
@@ -513,6 +515,201 @@ def test_cuda_mesh_kernels_match_plain_versions(kernel, any_hit):
             for a, b in zip(k[:3], p[:3]):
                 assert torch.equal(a, b)
     assert not bool(k[3][third].any())
+
+
+# ---- the edges of mesh_stream's warp-wide tile sweep and of the sphere sweep's
+# rays blocked in registers: each case equals the plain version bit for bit ----
+
+_NO_CARD = "needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode"
+
+
+@functools.lru_cache(maxsize=None)
+def _stream_proto():
+    """The 17,440-triangle statue, 10 instances: mesh_stream's tables."""
+    proto = mesh_bvh.build_proto(*tobj.lucy_standin(80, 110), lucy_instances(10),
+                                 torch.device("cuda"))
+    assert cm.stream_ok(proto)
+    return proto
+
+
+def _stream_equals_plain(proto, o, d, t_max, any_hit=False):
+    """mesh_stream against its plain version: hit, and (closest hit) the bits
+    of t, tri and inst, on every ray.  Returns the kernel's outputs."""
+    k = cm.intersect_mesh_stream(proto, o, d, 1e-3, t_max, any_hit=any_hit)
+    torch.cuda.synchronize()
+    p = cm.plain("stream", proto, o, d, 1e-3, t_max, any_hit=any_hit)
+    assert torch.equal(k[3], p[3])
+    if not any_hit:
+        assert torch.equal(k[0].view(torch.int32), p[0].view(torch.int32))
+        assert torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])
+    return k
+
+
+def _spheres_equal_plain(scene, o, d, tm, t_max):
+    """Both sphere kernels (alone, and with the winner's attributes) against
+    their plain versions: hit, index, the bits of t and every attribute row.
+    Returns the attribute kernel's outputs."""
+    sgeo = ck.sphere_table(scene.spheres)
+    scon = ck._material_consts(scene.materials, scene.textures, scene.spheres.mat)
+    n_attr = ck.SPHERE_ATTRS + (ck.CHECKER_EXTRA if scene.has_checker else 0)
+    ol, dl = list(o), list(d)
+    pairs = [(ck.sphere_closest_table(sgeo, o, d, tm, t_max),
+              ck._sphere_closest_plain(sgeo, ol, dl, tm, t_max, 1e-3)),
+             (ck.sphere_closest_attrs_table(sgeo, scon, o, d, tm, t_max, n_attr=n_attr),
+              ck._sphere_closest_attrs_plain(sgeo, scon, ol, dl, tm, t_max, 1e-3, n_attr))]
+    torch.cuda.synchronize()
+    for k, p in pairs:
+        assert torch.equal(k[0].view(torch.int32), p[0].view(torch.int32))
+        for a, b in zip(k[1:], p[1:]):
+            assert a.shape == b.shape and torch.equal(a, b)
+    return pairs[1][0]
+
+
+def _cuda_rays(o, d, *rest):
+    return (V3.from_rows(torch.from_numpy(o).cuda()), V3.from_rows(torch.from_numpy(d).cuda()),
+            *(torch.from_numpy(a).cuda() for a in rest))
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_stream_warp_over_disjoint_slots_and_instances():
+    """On a GPU: unsorted rays, lane j of every warp aimed at statue j % 10
+    at a height of its own, so the lanes of a warp enter different
+    instances and different slots; the warp sweeps the union of their slots
+    and each lane counts only its own: closest and any hit equal the plain
+    version's."""
+    if not torch.cuda.is_available():
+        pytest.skip(_NO_CARD)
+    from go_raytracing_tpu_torch.scenes.builders import LUCY_POSITIONS
+
+    proto = _stream_proto()
+    r = np.random.default_rng(7)
+    n = 32 * 16
+    lane = np.arange(n) % 32
+    o = np.array([278.0, 278.0, -800.0]) + r.normal(size=(n, 3))
+    centres = np.array([p for p, _ in LUCY_POSITIONS], np.float64)[lane % 10]
+    tgt = centres + np.stack([r.normal(size=n) * 8, 20 + lane * 7.0, r.normal(size=n) * 8], 1)
+    o, d = _cuda_rays(o.astype(np.float32), (tgt - o).astype(np.float32))
+    big = torch.full((n,), ck.BIG, device="cuda")
+    k = _stream_equals_plain(proto, o, d, big)
+    _stream_equals_plain(proto, o, d, big, any_hit=True)
+    first = k[2][:32][k[3][:32]]
+    assert float(k[3].float().mean()) > 0.3 and first.unique().numel() >= 4
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_stream_breaks_equal_t_ties_by_id_and_instance():
+    """On a GPU: a floor of 16,900 triangles, every one of them twice (the
+    same rows, two leaf-order ids), in two instances at the same place and
+    a third below: every hit is a tie at equal t between two ids and two
+    instances.  The lowest id and the earlier instance win, as in the plain
+    version."""
+    if not torch.cuda.is_available():
+        pytest.skip(_NO_CARD)
+    g = 65
+    xs, zs = np.meshgrid(np.arange(g + 1, dtype=np.float64), np.arange(g + 1, dtype=np.float64),
+                         indexing="ij")
+    verts = np.stack([xs.ravel(), np.zeros(xs.size), zs.ravel()], 1)
+    a = (np.arange(g)[:, None] * (g + 1) + np.arange(g)[None, :]).ravel()
+    quads = np.concatenate([np.stack([a, a + 1, a + g + 2], 1), np.stack([a, a + g + 2, a + g + 1], 1)])
+    tris = np.concatenate([quads, quads])
+    assert len(tris) > cm.MAX_KERNEL_TRIS
+
+    def at(y):
+        m = np.eye(4)
+        m[1, 3] = y
+        return (m, 0)
+
+    proto = mesh_bvh.build_proto(verts, tris, [at(-1.0), at(0.0), at(0.0)], torch.device("cuda"))
+    assert cm.stream_ok(proto)
+    r = np.random.default_rng(8)
+    n = 4096
+    o = np.stack([r.uniform(4, g - 4, n), np.full(n, 10.0), r.uniform(4, g - 4, n)], 1)
+    d = np.stack([r.normal(size=n) * 0.05, -np.ones(n), r.normal(size=n) * 0.05], 1)
+    o, d = _cuda_rays(o.astype(np.float32), d.astype(np.float32))
+    k = _stream_equals_plain(proto, o, d, torch.full((n,), ck.BIG, device="cuda"))
+    # a ray through a shared edge may miss both triangles in float32: the
+    # plain version says so too
+    assert float(k[3].float().mean()) > 0.99 and bool((k[2][k[3]] == 1).all())
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_stream_any_hit_below_the_nearest_hit():
+    """On a GPU: any-hit rays whose t_max is the nearest hit's t (accepted
+    t < t_max, so none is left) or its half hit nothing, and those cut at
+    1.5 times it hit as the plain version says."""
+    if not torch.cuda.is_available():
+        pytest.skip(_NO_CARD)
+    proto = _stream_proto()
+    o, d = _cuda_rays(*mesh_rays(8192, 9))
+    big = torch.full((8192,), ck.BIG, device="cuda")
+    t0, _, _, h0, _ = cm.intersect_mesh_stream(proto, o, d, 1e-3, big)
+    assert float(h0.float().mean()) > 0.3
+    for scale in (1.0, 0.5, 1.5):
+        k = _stream_equals_plain(proto, o, d, torch.where(h0, t0 * scale, big), any_hit=True)
+        if scale <= 1.0:
+            assert not bool(k[3][h0].any())
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_stream_and_sphere_kernels_skip_dead_warps():
+    """On a GPU: t_max = -1 on whole warps, on a whole block of each kernel
+    and on every third ray elsewhere: those rays are written as misses (t
+    BIG, ids 0, attributes 0), the others as the plain versions say."""
+    if not torch.cuda.is_available():
+        pytest.skip(_NO_CARD)
+    n = 4096
+    dead = torch.zeros(n, dtype=torch.bool, device="cuda")
+    dead[0:32] = dead[96:160] = dead[1024:1536] = True
+    dead[2048:] = torch.arange(n - 2048, device="cuda") % 3 == 0
+    proto = _stream_proto()
+    o, d = _cuda_rays(*mesh_rays(n, 10))
+    t_max = torch.where(dead, -1.0, torch.full((n,), ck.BIG, device="cuda"))
+    for any_hit in (False, True):
+        k = _stream_equals_plain(proto, o, d, t_max, any_hit=any_hit)
+        assert not bool(k[3][dead].any()) and bool(k[3][~dead].any())
+        assert bool((k[0][dead] == ck.BIG).all()) and bool((k[1][dead] == 0).all())
+    scene = build_random_prims(grtt, n_spheres=363, n_planar=False, device="cuda")
+    so, sd, tm = _cuda_rays(*random_rays(n, 11))
+    k = _spheres_equal_plain(scene, so, sd, tm, t_max)
+    assert not bool(k[2][dead].any()) and bool(k[2][~dead].any())
+    assert bool((k[3][:, dead] == 0).all()) and bool((k[0][dead] == ck.BIG).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 129, 511, 513])
+def test_cuda_mesh_stream_and_sphere_kernels_at_ragged_ray_counts(n):
+    """On a GPU: ray counts that do not fill a warp, a block of mesh_stream
+    (128 rays) or a block of the sphere kernels (4 rays a thread, 512):
+    every ray equals the plain versions, closest and any hit."""
+    if not torch.cuda.is_available():
+        pytest.skip(_NO_CARD)
+    o, d = _cuda_rays(*mesh_rays(n, 12))
+    big = torch.full((n,), ck.BIG, device="cuda")
+    _stream_equals_plain(_stream_proto(), o, d, big)
+    _stream_equals_plain(_stream_proto(), o, d, big, any_hit=True)
+    scene = build_random_prims(grtt, n_spheres=129, n_planar=False, device="cuda")
+    _spheres_equal_plain(scene, *_cuda_rays(*random_rays(n, 13)), big)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_spheres", [1, 127, 128, 129, 363])
+def test_cuda_sphere_kernels_at_table_edges(n_spheres):
+    """On a GPU: sphere tables of one entry, one short of a staged tile of
+    128, a tile, one over and ``random``'s 363 (three tiles), three in ten
+    spheres moving, rays at times 0 and 1 in turn: both sphere kernels equal
+    their plain versions on every ray, with t_max BIG and cut at half the
+    nearest hit."""
+    if not torch.cuda.is_available():
+        pytest.skip(_NO_CARD)
+    scene = build_random_prims(grtt, n_spheres=n_spheres, n_planar=False, seed=n_spheres,
+                               device="cuda")
+    o, d, tm = random_rays(2048, 14)
+    tm = (np.arange(2048) % 2).astype(np.float32)
+    o, d, tm = _cuda_rays(o, d, tm)
+    big = torch.full_like(tm, ck.BIG)
+    k = _spheres_equal_plain(scene, o, d, tm, big)
+    assert bool(k[2].any())
+    _spheres_equal_plain(scene, o, d, tm, torch.where(k[2], k[0] * 0.5, big))
 
 
 @pytest.mark.cuda

@@ -153,3 +153,20 @@ def test_plain_counts_leave_dead_rays_out(case, kernel):
         assert 0 < full["tri_t_pass"] < full["tri_tests"]
     else:
         assert "tri_t_pass" not in full
+
+
+def test_plain_any_hit_counts_stop_at_the_first_slot_with_a_hit(case):
+    """The work counts of the stream's any-hit bound: a ray's tests end with
+    its first slot (segment by segment, slot by slot) that holds a hit, as
+    the kernel's do, so any hit counts fewer triangle tests than closest hit
+    on the same rays, and at least one slot of 128 a ray that hits."""
+    tp = case["protos"]["stream"][1]
+    o, d = torch.from_numpy(case["o"]), torch.from_numpy(case["d"])
+    t_max = torch.from_numpy(case["t_max"]["big"])
+    closest, first = {}, {}
+    cm.plain("stream", tp, o, d, T_MIN, t_max, counts=closest)
+    hit = cm.plain("stream", tp, o, d, T_MIN, t_max, any_hit=True, counts=first)[3]
+    assert int(hit.sum()) > 0
+    assert int(hit.sum()) * cm.TILE <= first["tri_tests"] < closest["tri_tests"]
+    assert first["tri_t_pass"] < closest["tri_t_pass"]
+    assert first["box_tests"] <= closest["box_tests"]
