@@ -152,6 +152,7 @@ import dataclasses
 import functools
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -231,6 +232,16 @@ MESH_RAYS_IN, MESH_DEAD_IN, MESH_BYTES_OUT = 7 * 4, 4, 4 + 4 + 4 + 1
 # HBM3 at 700 W (B1 and B7a at a Cornell chunk, B9 at cornell-lucy's (48, 40)
 # chunk): a run that reads them slower is on a slower card.
 CARD_YARDSTICK = {"wavefront_fwd": 2.718, "mesh_sweep": 0.9187, "planar_closest": 0.2383}
+# Registers and spill bytes (ptxas) of the kernels that share device code
+# with the redesigned B4 and B5a but keep their own design: B1, B2, B6, B11
+# and B5b's two instantiations, as recorded in PERF.md section 6.  A build
+# that changes them changed code it must not change (and the card yardstick,
+# whose first kernel is B1).
+UNCHANGED_KERNELS = {
+    "wavefront_kernelILi0E": (96, 0), "wavefront_kernelILi1E": (114, 0),
+    "wavefront_kernelILi3E": (96, 0), "wavefront_resume_kernel": (96, 84),
+    "wavefront_grad_rev_pathwise_kernelILi19E": (110, 0),
+    "wavefront_grad_rev_pathwise_kernelILi20E": (118, 0)}
 
 
 def emit(phase, **fields):
@@ -875,6 +886,7 @@ def pathwise_kernel_timing(scene, cam, launches, small_checks):
                  * 1e3)
     emit("pathwise_kernel_timing", scene="cornell-glossy", rays_per_launch=n,
          depth=depth, rows_entered_by_bounce=entered,
+         entered_share=sum(entered) / (n * depth),
          grad_fwd_ms=fwd_ms, grad_fwd_ms_rounds=fwd_rounds,
          grad_fwd_plain_ms=plain_fwd_ms,
          grad_fwd_bytes_counted=fwd_bytes, grad_fwd_bound_bytes_ms=fwd_bound[0],
@@ -2462,6 +2474,7 @@ def env_kernel_timing(hdri, nee, cam, chunks, launches, small):
 
     emit("env_kernel_timing", rays_per_launch=n, depth=depth,
          rays_entering_bounce=entering, hdri_sampling_ray_bounces=mis_bounces,
+         entered_share=entered / (n * depth),
          fused_pass_b_parts_ms=dict(hdri_rows_and_texel_ids=rows_ms,
                                     miss_terms=terms_ms, b4=b4_ms,
                                     texel_sums=texel_sum_ms),
@@ -3209,6 +3222,68 @@ def replay_against(phase, name, scene, cam, tier_ms, tier_grads, tier_loss, targ
     return ms
 
 
+def grad_fwd_marble_instantiation(tb, rays, depth, miss):
+    """B5a's instantiation of a scene with marble (``wavefront_pathwise_kernel
+    <4>``: 20 stash rows, the marble's turns across the warp compiled in) on
+    rays of any scene, through the launcher the wrapper calls (not counted:
+    a timing, not the main path).  Returns what ``wavefront_grad_fwd``
+    returns."""
+    o, d, tm, sid = rays
+    r, dev = tm.shape[0], tm.device
+    out = torch.empty((9, r), dtype=torch.float32, device=dev)
+    flags = torch.empty((r,), dtype=torch.int32, device=dev)
+    miss_col = torch.empty((3, r), dtype=torch.float32, device=dev)
+    stash_f, stash_i = cw._empty_stash(r, depth, dev, cw.PW_STASH_F_ROWS_MARBLE)
+    fn = cw._kernel("wavefront", "wavefront_grad_fwd_pathwise_launch",
+                    cw._GRAD_FWD_PATHWISE_ARGTYPES)
+    mode, bg = miss
+    err = fn(*cw._table_and_ray_args(tb, o, d, tm, sid), out.data_ptr(), flags.data_ptr(),
+             miss_col.data_ptr(), stash_f.data_ptr(), stash_i.data_ptr(), r, 0, depth,
+             int(mode), float(bg[0]), float(bg[1]), float(bg[2]),
+             cw.PW_STASH_F_ROWS_MARBLE, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wavefront_grad_fwd_pathwise_launch (20 rows) failed: {err}")
+    return out, flags, miss_col, stash_f, stash_i
+
+
+def instantiation_cost(scene, cam, n):
+    """B5a's two instantiations in turns (<2>, <4>, <4>, <2>) at a chunk of
+    ``scene``, which has no marble: what the marble's instantiation costs
+    where no ray hits marble.  Its outputs and its first 19 stash rows must
+    be <2>'s (the 20th holds each winner's texture scale).  Returns (ms <2>,
+    ms <4>, share of ray-bounces entered, the rounds)."""
+    depth = cam.max_depth
+    rays = chunk_rays(cam, n, 0, scene.device)
+    tb = cw.build_tables(scene)
+    miss = cw.miss_config(cam)
+    plain = lambda: cw.wavefront_grad_fwd(tb, *rays, 0, depth, miss, pathwise=True)
+    marble = lambda: grad_fwd_marble_instantiation(tb, rays, depth, miss)
+    a, b = plain(), marble()
+    same = all(torch.equal(x, y) for x, y in zip(a[:3], b[:3])) \
+        and torch.equal(a[4], b[4]) and torch.equal(a[3], b[3][:, :cw.PW_STASH_F_ROWS])
+    entered = float(((a[4][:, 2] & (cw.PW_HIT | cw.PW_LIT)) != 0).sum())
+    del a, b
+    if not same:
+        raise RuntimeError("B5a <4> on rays without marble differs from <2>")
+    taken = {"2": [], "4": []}
+    for key, fn in (("2", plain), ("4", marble), ("4", marble), ("2", plain)):
+        ms, _ = rounds_ms(fn, rounds=2, repeats=2)
+        taken[key].extend(ms)
+    return median(taken["2"]), median(taken["4"]), entered / (n * depth), taken
+
+
+def resident(occupancy):
+    blocks, threads = occupancy
+    return blocks * threads // 32
+
+
+def smem_of_tables(tb):
+    """Shared bytes a tracing launch stages for these tables (0: they stay
+    in device memory)."""
+    size = 4 * sum(t.numel() for t in (tb.pt, tb.st, tb.vt, tb.lt))
+    return size if size <= 48 * 1024 else 0
+
+
 def marble_kernel_timing(glossy, cam, nee, nee_cam, chunks, launches, small):
     """B5a and B5b at a chunk of marble-glossy's job and B4 at one of
     marble-glossy-nee's, each alone in rounds beside its bound (the stash's
@@ -3280,6 +3355,8 @@ def marble_kernel_timing(glossy, cam, nee, nee_cam, chunks, launches, small):
     mk4 = s_i[:, 2]
     entered4 = float(((mk4 & (cw.PW_HIT | cw.PW_LIT)) != 0).sum())
     marble4 = float(((mk4 & cw.PW_MARBLE) != 0).sum())
+    # the bounces a ray entered: the fused kernel's stash rows and sweep
+    entered_by_ray4 = ((mk4 != 0).sum(dim=0)).float()
     mis4 = int(((mk4 & cw.PW_USE_MIS) != 0).sum())
     del s_i
     g3 = torch.rand((3, n4), device=dev, generator=gen) * 1e-6
@@ -3298,16 +3375,25 @@ def marble_kernel_timing(glossy, cam, nee, nee_cam, chunks, launches, small):
                    + tb4.n_vol * FLOPS_VOLUME + FLOPS_SHADE)
     block4 = _build.load("wavefront_grad_fused").lib.wavefront_grad_fused_block_rays()
     n_acc4 = 9 * n_tex4 + 2 * n_mat4
+    # the marble and its derivative once a marble hit: marble_grad's
+    # operations give both (the first design evaluated the value twice)
     b4_bound = (((8 + 3 + 6 + 3 + 3 * depth4) * 4 * n4 + cw.HDRI_ROWS * 4 * mis4
                  + 4 * n_acc4 * -(-n4 // block4) + table_bytes4) / PEAK_BYTES_PER_S * 1e3,
                 ((entered4 * (per_bounce4 + FLOPS_REVERSE_PATHWISE)
-                  + mis4 * FLOPS_HDRI_NEE + marble4 * (FLOPS_MARBLE + FLOPS_MARBLE_GRAD))
+                  + mis4 * FLOPS_HDRI_NEE + marble4 * FLOPS_MARBLE_GRAD)
                  / PEAK_FP32_FLOPS
                  + (entered4 * INT_OPS_REVERSE_PATHWISE
-                    + marble4 * (INT_OPS_MARBLE + INT_OPS_MARBLE_GRAD)) / PEAK_INT32_OPS)
+                    + marble4 * INT_OPS_MARBLE_GRAD) / PEAK_INT32_OPS)
                 * 1e3)
+    # where the B5a and B4 redesigns act: ray-bounces entered, marble hits a
+    # ray, and warps (of consecutive rays) by their deepest path
+    warps4 = entered_by_ray4[: n4 // 32 * 32].reshape(-1, 32).max(dim=1).values
     emit("marble_kernel_timing", scene="marble-glossy", rays_per_launch=n, depth=depth,
          entered_rows=entered, marble_rows=marble,
+         b5a_entered_share=entered / (n * depth), b5a_marble_hits_per_ray=marble / n,
+         b4_entered_share=entered4 / (n4 * depth4), b4_marble_hits_per_ray=marble4 / n4,
+         b4_bounces_entered_per_ray=float(entered_by_ray4.mean()),
+         b4_warp_deepest_bounces_mean=float(warps4.mean()),
          b5a_ms=fwd_ms, b5a_ms_rounds=fwd_rounds, b5a_plain_ms=plain_fwd_ms,
          b5a_bound_bytes_ms=fwd_bound[0], b5a_bound_ops_ms=fwd_bound[1],
          b5a_roofline_share=max(fwd_bound) / fwd_ms, b5a_mismatch_share=fwd_mismatch,
@@ -3336,13 +3422,17 @@ def marble_kernel_timing(glossy, cam, nee, nee_cam, chunks, launches, small):
                    small["b4_max_abs_err"], n4) | {"plain_rays_marble": 16384})
 
 
-def marble_grad_phases(dev, env, regs):
+def marble_grad_phases(dev, env, regs, glossy_plain):
     """Marble behind metal and glass on the kernel tiers (A13b): the small
     checks, ``marble-glossy`` (600x600, 100 spp, depth 5) fwd+bwd on the
     pathwise tier all stashed and over budget, ``marble-glossy-nee``
     (800x450, 25 spp, depth 10) on the fused tier, each beside the same job
-    through the replay tier, and the three kernels alone.  Returns the
-    marble fields of B5a's, B5b's and B4's entries."""
+    through the replay tier, and the three kernels alone; then the
+    redesigned kernels' registers, spills and resident warps (B4 and B5a,
+    both instantiations each) and B5a's marble instantiation on
+    ``glossy_plain``'s chunk (cornell-glossy: no marble).  Returns the marble
+    fields of B5a's, B5b's and B4's entries, and the resident warps of B5a
+    <2> and B4 <19>."""
     glossy, cam = marble_glossy_scene(dev)
     nee, nee_cam = marble_glossy_scene(dev, env)
     small = marble_small_checks(glossy, cam, nee, nee_cam, env, dev)
@@ -3374,7 +3464,40 @@ def marble_grad_phases(dev, env, regs):
     b5a["registers_marble"], b5a["spill_bytes_marble"] = regs["b5a"]
     b5b["registers_marble"], b5b["spill_bytes_marble"] = regs["b5b"]
     b4["registers_marble"], b4["spill_bytes_marble"] = regs["b4"]
-    return b5a, b5b, b4
+
+    g_scene, g_cam = glossy_plain
+    n = g_cam.image_width * g_cam.image_height * g_cam.samples_per_pixel // nch
+    ms2, ms4, share, taken = instantiation_cost(g_scene, g_cam, n)
+    hdri_nee, _ = hdri_scene(dev, True, env)
+    warps = _build.load("wavefront_grad_fused").lib.wavefront_grad_fused_block_rays() // 32
+
+    def fused_smem(scene):
+        tb = cw.build_tables(scene)
+        n_acc = 9 * int(scene.textures.color.shape[0]) + 2 * int(scene.materials.kind.shape[0])
+        acc, tables = 4 * warps * n_acc, smem_of_tables(tb)
+        return acc + (tables if 0 < tables and acc + tables <= 48 * 1024 else 0)
+
+    stats = {
+        "b5a_2": (regs["b5a_2"], resident(cw.pathwise_occupancy(
+            False, smem_of_tables(cw.build_tables(g_scene))))),
+        "b5a_4": (regs["b5a"], resident(cw.pathwise_occupancy(
+            True, smem_of_tables(cw.build_tables(glossy))))),
+        "b4_19": (regs["b4_19"], resident(cw.fused_occupancy(False, fused_smem(hdri_nee)))),
+        "b4_22": (regs["b4"], resident(cw.fused_occupancy(True, fused_smem(nee))))}
+    emit("redesigned_kernels",
+         note="registers and spill bytes from the build; resident warps an SM at the "
+              "shared memory of the timed launches (B5a <2> at cornell-glossy, <4> at "
+              "marble-glossy, B4 <19> at hdri-test-nee, <22> at marble-glossy-nee)",
+         **{k: {"registers": r[0], "spill_bytes": r[1], "resident_warps_per_sm": w}
+            for k, (r, w) in stats.items()},
+         instantiation_scene="cornell-glossy", instantiation_rays=n,
+         instantiation_entered_share=share, b5a_2_ms=ms2, b5a_4_ms_no_marble_hits=ms4,
+         instantiation_ms_rounds=taken)
+    b5a["resident_warps_per_sm_marble"] = stats["b5a_4"][1]
+    b5a["ms_marble_instantiation_cornell_glossy"] = ms4
+    b5a["ms_plain_instantiation_cornell_glossy"] = ms2
+    b4["resident_warps_per_sm_marble"] = stats["b4_22"][1]
+    return b5a, b5b, b4, stats["b5a_2"][1], stats["b4_19"][1]
 
 
 # ---- the tile-sweep probe of the mesh stream (scripts/stream_micro.py) --------
@@ -3458,11 +3581,330 @@ def resident_warps():
             {a: b * t // 32 for a, (b, t) in sphere.items()}, stream[False][2])
 
 
+# ---- kernel variants (--variants): B5a and B4 built from other sources --------
+#
+# ``python3 chip_smoke.py --variants attribution --base DIR`` and
+# ``--variants designs --base DIR`` (DIR: an earlier checkout's
+# go_raytracing_tpu_torch/csrc, e.g. unpacked by ``git archive``) build
+# copies of a source tree with text substitutions, each with the flags of
+# ops/_build.py, load each in place of the library the wrappers call, and
+# time them against each other in turns on the same chunks (each variant,
+# then all again in reverse order; 3 rounds of 2 launches a turn; the median).
+# ``attribution`` takes the earlier tree apart: its marble replaced by a
+# constant (the marble's share), one ray a thread in blocks of 128 (the block
+# drain), a register target, no reverse sweep (the forward's share).
+# ``designs`` holds this checkout's B5a and B4 against the earlier ones, bit
+# for bit where the results must be equal, times this checkout's block
+# shapes and register targets against others, and both marble jobs' fwd+bwd
+# with the two trees' kernels in turns.  Nothing of this runs without the
+# flag.
+
+_M_CONST = ("const float m = marble(p, inv_scale);",
+            "const float m = 0.5f + 0.0f * inv_scale;")
+_REV_M_CONST = ("marble_grad(pv, fk[19 * zs], dm);",
+                "dm[0] = 0.0f; dm[1] = 0.0f; dm[2] = fk[19 * zs];")
+_OLD_LB = ("template <int MODE>\n__global__ void __launch_bounds__(THREADS)",
+           "template <int MODE>\n__global__ void __launch_bounds__(THREADS, 6)")
+_OLD_FUSED_128 = [("constexpr int FUSED_THREADS = 256;", "constexpr int FUSED_THREADS = 128;"),
+                  ("constexpr int FUSED_RAYS_PER_THREAD = 4;",
+                   "constexpr int FUSED_RAYS_PER_THREAD = 1;")]
+_OLD_FUSED_LB4 = ("__global__ void __launch_bounds__(FUSED_THREADS)",
+                  "__global__ void __launch_bounds__(FUSED_THREADS, 4)")
+_OLD_NO_REVERSE = ("reverse_ray<F_ROWS>(R, valid, sf, si, 1, depth,",
+                   "reverse_ray<F_ROWS>(R, valid, sf, si, 1, 0,")
+
+
+def _set(name, value):
+    return {"PW_BLOCKS_PER_SM": ("wavefront.cu", "constexpr int PW_BLOCKS_PER_SM = 6;"),
+            "PW_MARBLE_BLOCKS_PER_SM": ("wavefront.cu",
+                                        "constexpr int PW_MARBLE_BLOCKS_PER_SM = 4;"),
+            "FUSED_MIN_BLOCKS": ("wavefront_grad_fused.cu",
+                                 "constexpr int FUSED_MIN_BLOCKS = 4;"),
+            "FUSED_THREADS": ("wavefront_grad_fused.cu",
+                              "constexpr int FUSED_THREADS = 128;")}[name] + (value,)
+
+
+def _subs(*rules):
+    """{file: [(old, new)]} from (file, old, new) triples; a (file, old,
+    value) of ``_set`` sets that constant."""
+    out = {}
+    for f, old, new in rules:
+        if not isinstance(new, str):
+            new = old.rsplit("=", 1)[0] + f"= {new};"
+        out.setdefault(f, []).append((old, new))
+    return out
+
+
+W, F = "wavefront", "wavefront_grad_fused"
+# set -> {(library, variant): (tree, substitutions)}; tree "base" (--base)
+# or "this" (this checkout)
+VARIANT_SETS = {
+    "attribution": {
+        (W, "first"): ("base", {}),
+        (W, "marble_constant"): ("base", _subs(("wavefront_trace.cuh", *_M_CONST))),
+        (W, "six_blocks"): ("base", _subs(("wavefront.cu", *_OLD_LB))),
+        (F, "first"): ("base", {}),
+        (F, "one_ray_128"): ("base", _subs(*(("wavefront_grad_fused.cu", *r)
+                                               for r in _OLD_FUSED_128))),
+        (F, "one_ray_128_four_blocks"): ("base", _subs(
+            *(("wavefront_grad_fused.cu", *r) for r in _OLD_FUSED_128 + [_OLD_FUSED_LB4]))),
+        (F, "marble_constant"): ("base", _subs(("wavefront_trace.cuh", *_M_CONST),
+                                               ("wavefront_reverse.cuh", *_REV_M_CONST))),
+        (F, "marble_constant_one_ray_128_four_blocks"): ("base", _subs(
+            ("wavefront_trace.cuh", *_M_CONST), ("wavefront_reverse.cuh", *_REV_M_CONST),
+            *(("wavefront_grad_fused.cu", *r) for r in _OLD_FUSED_128 + [_OLD_FUSED_LB4]))),
+        (F, "no_reverse"): ("base", _subs(("wavefront_grad_fused.cu", *_OLD_NO_REVERSE))),
+    },
+    "designs": {
+        (W, "first"): ("base", {}),
+        (W, "this"): ("this", {}),
+        (W, "pathwise_4_blocks"): ("this", _subs(_set("PW_BLOCKS_PER_SM", 4))),
+        (W, "pathwise_5_blocks"): ("this", _subs(_set("PW_BLOCKS_PER_SM", 5))),
+        (W, "marble_5_blocks"): ("this", _subs(_set("PW_MARBLE_BLOCKS_PER_SM", 5))),
+        (W, "marble_6_blocks"): ("this", _subs(_set("PW_MARBLE_BLOCKS_PER_SM", 6))),
+        (F, "first"): ("base", {}),
+        (F, "this"): ("this", {}),
+        (F, "three_blocks"): ("this", _subs(_set("FUSED_MIN_BLOCKS", 3))),
+        (F, "five_blocks"): ("this", _subs(_set("FUSED_MIN_BLOCKS", 5))),
+        (F, "threads_64"): ("this", _subs(_set("FUSED_THREADS", 64),
+                                          _set("FUSED_MIN_BLOCKS", 8))),
+        (F, "threads_256"): ("this", _subs(_set("FUSED_THREADS", 256),
+                                           _set("FUSED_MIN_BLOCKS", 2))),
+    },
+}
+# the chunks each set times: (B5a runs, B4 runs), each (tag, variants)
+VARIANT_RUNS = {
+    "attribution": (
+        [("b5a_2_cornell_glossy", ["first", "six_blocks"]),
+         ("b5a_4_cornell_glossy", ["first", "six_blocks"]),
+         ("b5a_4_marble_glossy", ["first", "marble_constant", "six_blocks"])],
+        [("b4_22_marble_glossy_nee", ["first", "one_ray_128", "one_ray_128_four_blocks",
+                                      "marble_constant",
+                                      "marble_constant_one_ray_128_four_blocks",
+                                      "no_reverse"]),
+         ("b4_19_hdri_test_nee", ["first", "one_ray_128", "one_ray_128_four_blocks",
+                                  "no_reverse"])]),
+    "designs": (
+        [("b5a_2_cornell_glossy", ["first", "this", "pathwise_4_blocks",
+                                   "pathwise_5_blocks"]),
+         ("b5a_4_cornell_glossy", ["first", "this", "marble_5_blocks", "marble_6_blocks"]),
+         ("b5a_4_marble_glossy", ["first", "this", "marble_5_blocks", "marble_6_blocks"])],
+        [("b4_22_marble_glossy_nee", ["first", "this", "three_blocks", "five_blocks",
+                                      "threads_64", "threads_256"]),
+         ("b4_19_hdri_test_nee", ["first", "this", "three_blocks", "five_blocks",
+                                  "threads_64", "threads_256"])]),
+}
+
+
+def build_variant(key, tree, subs, base, root):
+    import ctypes
+    import shutil
+
+    lib, name = key
+    d = root / f"{lib}_{name}"
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(base if tree == "base" else _build.CSRC_DIR, d)
+    for f, rules in subs.items():
+        text = (d / f).read_text()
+        for old, new in rules:
+            if old not in text:
+                raise RuntimeError(f"{key}: {old!r} is not in {f}")
+            text = text.replace(old, new)
+        (d / f).write_text(text)
+    so = d / f"lib{lib}.so"
+    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-fmad=false", "-o",
+                           str(so), str(d / f"{lib}.cu")], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {key}:\n{proc.stdout}{proc.stderr}")
+    kernels = _build._ptxas_stats(proc.stdout + proc.stderr)
+    return key, _build.Built(ctypes.CDLL(str(so)), so, 0.0,
+                             max(r for r, _ in kernels.values()),
+                             sum(s for _, s in kernels.values()), kernels, "")
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def variants_main(which, base, out_dir):
+    """The ``--variants`` mode: see the comment above VARIANT_SETS."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke --variants: no CUDA device")
+    dev = torch.device("cuda", 0)
+    specs = VARIANT_SETS[which]
+    root = _build.BUILD_DIR / f"variants_{which}"
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(specs)) as pool:
+        built = dict(pool.map(lambda kv: build_variant(kv[0], *kv[1], base, root),
+                              specs.items()))
+    def tag(mangled):
+        m = re.search(r"\d+([a-z_]*kernel)(ILi\d+E)?", mangled)
+        return m.group(1) + (m.group(2) or "") if m else mangled
+
+    stats = {f"{lib}:{name}": {tag(k): v for k, v in b.kernels.items()}
+             for (lib, name), b in built.items()}
+    emit("variants_built", set=which, seconds=time.perf_counter() - t0,
+         nvidia_smi=smi("name,power.limit"), registers_and_spills=stats)
+    res = {"set": which, "nvidia_smi": smi("name,power.limit"), "stats": stats}
+
+    def use(lib, name):
+        _build._loaded[(lib, False)] = built[(lib, name)]
+
+    def turns(tag, lib, names, fn):
+        taken = {}
+        for nm in names + names[::-1]:
+            use(lib, nm)
+            fn()
+            ms, _ = rounds_ms(fn, rounds=3, repeats=2)
+            taken.setdefault(nm, []).extend(ms)
+        res[tag] = {nm: median(v) for nm, v in taken.items()}
+        res[tag + "_rounds"] = taken
+        emit("variants_" + tag, **res[tag])
+
+    b5a_runs, b4_runs = VARIANT_RUNS[which]
+    glossy, gcam = grt.load_scene("cornell-glossy")
+    gcam = dataclasses.replace(gcam, image_width=600, aspect_ratio=1.0,
+                               samples_per_pixel=100, max_depth=5)
+    mg, mcam = marble_glossy_scene(dev)
+    scenes = {"cornell_glossy": (glossy, gcam), "marble_glossy": (mg, mcam)}
+    n = 3_600_000   # a chunk of both jobs' main paths (10 chunks of 600x600x100)
+    for tag, names in b5a_runs:
+        sc, cam = scenes[tag.split("_", 2)[2]]
+        rays = chunk_rays(cam, n, 0, dev)
+        tb = cw.build_tables(sc)
+        miss = cw.miss_config(cam)
+        if tag.startswith("b5a_4") and not sc.has_noise:
+            fn = lambda: grad_fwd_marble_instantiation(tb, rays, cam.max_depth, miss)
+        else:
+            fn = lambda: cw.wavefront_grad_fwd(tb, *rays, 0, cam.max_depth, miss,
+                                               pathwise=True)
+        use(W, names[0])
+        ref = fn()
+        mk = ref[4][:, 2]
+        marble = (mk & cw.PW_MARBLE) != 0
+        lanes = marble[:, : n // 32 * 32].reshape(cam.max_depth, -1, 32).sum(dim=2)
+        res[tag + "_counts"] = dict(
+            rays=n, depth=cam.max_depth,
+            entered_share=float(((mk & (cw.PW_HIT | cw.PW_LIT)) != 0).sum())
+            / (n * cam.max_depth),
+            marble_hits_per_ray=float(marble.sum()) / n,
+            marble_rows_by_bounce=marble.sum(dim=1).tolist(),
+            warps_with_marble_by_bounce=(lanes > 0).sum(dim=1).tolist(),
+            marble_lanes_of_such_warps=[float(lanes[b][lanes[b] > 0].float().mean())
+                                        if bool((lanes[b] > 0).any()) else 0.0
+                                        for b in range(cam.max_depth)])
+        mismatches = {}
+        for nm in names[1:]:
+            if "constant" in nm:
+                continue
+            use(W, nm)
+            mismatches[nm] = [int((_bits(a) != _bits(b)).sum()) for a, b in zip(ref, fn())]
+        res[tag + "_counts"]["words_unlike_" + names[0]] = mismatches
+        emit("variants_" + tag + "_counts", **res[tag + "_counts"])
+        del ref, mk, marble, lanes
+        turns(tag, W, names, fn)
+        del rays
+        torch.cuda.empty_cache()
+
+    env = synthetic_sky()[0]
+    nee_m, ncam = marble_glossy_scene(dev, env)
+    nee_h, hcam = hdri_scene(dev, True, env)
+    scenes = {"marble_glossy_nee": (nee_m, ncam), "hdri_test_nee": (nee_h, hcam)}
+    for tag, names in b4_runs:
+        sc, cam = scenes[tag.split("_", 2)[2]]
+        use(W, "first")
+        n4 = cam.image_width * cam.image_height * cam.samples_per_pixel   # one chunk
+        depth = cam.max_depth
+        _, o, d, tm, ids, _, _ = renderer._chunk_rays(sc, cam, 0, 0, spp=cam.samples_per_pixel,
+                                                      chunk=n4, max_depth=depth, device=dev)
+        o, d = V3(*(c.contiguous() for c in o)), V3(*(c.contiguous() for c in d))
+        tm, sid = tm.contiguous(), cw.stream_to_i32(ids)
+        tb = cw.build_tables(sc)
+        rows = cw.hdri_rows_for(sc, sid, 0, depth)
+        out, flags = cw.wavefront_fwd(tb, o, d, tm, sid, 0, depth, rows)
+        miss = (cw.MISS_STREAM, (0.0, 0.0, 0.0))
+        mk = cw.wavefront_grad_fwd(tb, o, d, tm, sid, 0, depth, miss, pathwise=True)[4][:, 2]
+        length = (mk != 0).sum(dim=0).float()
+        res[tag + "_counts"] = dict(
+            rays=n4, depth=depth,
+            entered_share=float(((mk & (cw.PW_HIT | cw.PW_LIT)) != 0).sum()) / (n4 * depth),
+            marble_hits_per_ray=float(((mk & cw.PW_MARBLE) != 0).sum()) / n4,
+            bounces_entered_per_ray=float(length.mean()),
+            warp_deepest_mean=float(length[: n4 // 32 * 32].reshape(-1, 32).max(dim=1)
+                                    .values.mean()),
+            block_1024_deepest_mean=float(length[: n4 // 1024 * 1024].reshape(-1, 1024)
+                                          .max(dim=1).values.mean()))
+        del mk, length
+        g3 = torch.rand((3, n4), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0)) * 1e-6
+        mc, lmd, _ = cw._env_miss_terms(sc, cam, cw._env_carry(sc, out, flags), g3,
+                                        want_lmd=True)
+        args = (tb, o, d, tm, sid, 0, depth, g3, miss, torch.cat([mc, lmd]).contiguous(),
+                rows, int(sc.textures.color.shape[0]), int(sc.materials.kind.shape[0]))
+        want = torch.stack([out[c] + out[6 + c] * torch.where((flags & 1) != 0, mc[c], 0.0)
+                            for c in range(3)])
+        del out, flags
+        use(F, names[0])
+        ref = cw.wavefront_grad_fused(*args)
+        against = {names[0]: {"radiance_is_b1_plus_miss": bool(torch.equal(
+            _bits(ref[0]), _bits(want)))}}
+        for nm in names[1:]:
+            if "constant" in nm or nm == "no_reverse":
+                continue
+            use(F, nm)
+            a, b = cw.wavefront_grad_fused(*args), cw.wavefront_grad_fused(*args)
+            against[nm] = dict(
+                radiance_words_unlike=int((_bits(a[0]) != _bits(ref[0])).sum()),
+                same_bits_twice=all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b)),
+                err_of_largest={k: float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                                    1e-30)
+                                for k, x, y in zip(("color", "fuzz", "ior", "eout"),
+                                                   a[1:], ref[1:])})
+            del a, b
+        res[tag + "_counts"]["against_" + names[0]] = against
+        emit("variants_" + tag + "_counts", **res[tag + "_counts"])
+        del ref
+        turns(tag, F, names, lambda: cw.wavefront_grad_fused(*args))
+        del args, rows, o, d, tm, sid, mc, lmd, want
+        torch.cuda.empty_cache()
+    if which == "designs":
+        # end to end: render_grad of both marble jobs with the earlier and
+        # this checkout's kernels swapped in turns, the rest of the program
+        # the same (first, this, this, first; two calls a turn)
+        jobs = {"marble_glossy_fwd_bwd": (mg, mcam), "marble_glossy_nee_fwd_bwd": (nee_m, ncam)}
+        for tag, (sc, cam) in jobs.items():
+            target = grt.render(sc, cam, seed=0) / cam.samples_per_pixel * 0.8
+            taken = {}
+            for nm in ("first", "this", "this", "first"):
+                use(W, nm)
+                use(F, nm)
+                grt.render_grad(sc, cam, target, seed=0)
+                for _ in range(2):
+                    ms, _ = cuda_ms(lambda: grt.render_grad(sc, cam, target, seed=0))
+                    taken.setdefault(nm, []).append(ms)
+            res[tag] = {nm: median(v) for nm, v in taken.items()}
+            res[tag + "_rounds"] = taken
+            emit("variants_" + tag, **res[tag], rounds=taken)
+    emit("variants_done", set=which, seconds=time.perf_counter() - t0)
+    (out_dir / f"variants_{which}.json").write_text(json.dumps(res, indent=1))
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out-dir", default=str(_build.BUILD_DIR),
                     help="where the rendered PNG goes")
+    ap.add_argument("--variants", choices=sorted(VARIANT_SETS),
+                    help="only build and time B5a and B4 variants (see VARIANT_SETS)")
+    ap.add_argument("--base", help="with --variants: an earlier tree's csrc directory")
     args = ap.parse_args()
+    if args.variants:
+        if not args.base:
+            raise SystemExit("chip_smoke --variants needs --base")
+        out_dir = pathlib.Path(args.out_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        return variants_main(args.variants, pathlib.Path(args.base), out_dir)
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device: this check runs on a GPU only")
@@ -3490,22 +3932,26 @@ def main():
         return stats
 
     # wavefront_kernel<0> is the forward, <1> the product-chain gradient
-    # forward, <2> the pathwise gradient forward, <3> the record
+    # forward, <3> the record; wavefront_pathwise_kernel<2> the pathwise
+    # gradient forward
     fwd_regs, fwd_spill = kernel_stats(built, "wavefront_kernelILi0E")
     rec_regs = kernel_stats(built, "wavefront_kernelILi3E")
     rows_regs = kernel_stats(built_rows, "row_sums_kernel")
     gfwd_regs, gfwd_spill = kernel_stats(built, "wavefront_kernelILi1E")
-    pfwd_regs, pfwd_spill = kernel_stats(built, "wavefront_kernelILi2E")
+    pfwd_regs, pfwd_spill = kernel_stats(built, "wavefront_pathwise_kernelILi2E")
     # <4>: the pathwise gradient forward of a scene with marble (20 rows)
-    pfwd_marble = kernel_stats(built, "wavefront_kernelILi4E")
+    pfwd_marble = kernel_stats(built, "wavefront_pathwise_kernelILi4E")
     grev_regs, grev_spill = kernel_stats(built_grad, "wavefront_grad_rev_kernel")
-    # the pathwise reverse and fused kernels: <19> a stash of 19 float rows a
-    # bounce, <20> of a scene with marble (dmarble/dp compiled in)
+    # the pathwise reverse kernel: <19> a stash of 19 float rows a bounce,
+    # <20> of a scene with marble (dmarble/dp compiled in); the fused
+    # kernel: <19>, and <22> in a scene with marble (dmarble/dp stashed)
     prev_regs, prev_spill = kernel_stats(built_pw,
                                          "wavefront_grad_rev_pathwise_kernelILi19E")
     prev_marble = kernel_stats(built_pw, "wavefront_grad_rev_pathwise_kernelILi20E")
     fused_regs = kernel_stats(built_fused, "wavefront_grad_fused_kernelILi19E")
-    fused_marble = kernel_stats(built_fused, "wavefront_grad_fused_kernelILi20E")
+    fused_marble = kernel_stats(built_fused, "wavefront_grad_fused_kernelILi22E")
+    unchanged = {tag: kernel_stats(built_pw if "pathwise" in tag else built, tag)
+                 for tag in UNCHANGED_KERNELS}
     # stream_micro_kernel<roll, dynamic tile, bit scan>: the probe's variants
     probe_regs = {v: kernel_stats(built_probe, "stream_micro_kernelILb{}ELb{}ELb{}E".format(
         *(int(f) for f in flags))) for v, flags in sm.VARIANTS.items()}
@@ -3566,10 +4012,17 @@ def main():
          grad_fwd_pathwise_spill_bytes=pfwd_spill,
          grad_rev_pathwise_registers=prev_regs,
          grad_rev_pathwise_spill_bytes=prev_spill,
+         unchanged_kernels={tag: {"registers": v[0], "spill_bytes": v[1],
+                                  "perf_md": UNCHANGED_KERNELS[tag]}
+                            for tag, v in unchanged.items()},
          ptxas=[l for b in (built, built_grad, built_pw, built_ix, built_mesh, built_rows,
                            built_fused, built_probe)
                 for l in b.log.splitlines()
                 if "ptxas info" in l and ("Used" in l or "spill" in l)])
+    moved = {tag: v for tag, v in unchanged.items() if v != UNCHANGED_KERNELS[tag]}
+    if moved:
+        raise RuntimeError(f"kernels that must not change report other registers or "
+                           f"spills than PERF.md's: {moved}")
 
     # ---- kernel against plain version -----------------------------------------
     m_scene, m_cam = mixed_scene(dev)
@@ -3852,10 +4305,14 @@ def main():
     grad_entries[1]["launches_noise_fwd_bwd"] = b3_noise
 
     # ---- marble behind metal and glass: the pathwise and fused tiers ----------
-    b5a_marble, b5b_marble, b4_marble = marble_grad_phases(
+    b5a_marble, b5b_marble, b4_marble, b5a_warps, b4_warps = marble_grad_phases(
         dev, synthetic_sky()[0], {"b5a": pfwd_marble, "b5b": prev_marble,
-                                  "b4": fused_marble})
+                                  "b4": fused_marble, "b5a_2": (pfwd_regs, pfwd_spill),
+                                  "b4_19": fused_regs}, (g_scene, g_cam))
     b4_entry["registers"], b4_entry["spill_bytes"] = fused_regs
+    b4_entry["resident_warps_per_sm"] = b4_warps
+    pw_entries[0]["registers"], pw_entries[0]["spill_bytes"] = pfwd_regs, pfwd_spill
+    pw_entries[0]["resident_warps_per_sm"] = b5a_warps
 
     # ---- the tile-sweep probe of the mesh stream --------------------------------
     probe_entry = probe_phase(probe_regs)

@@ -50,6 +50,10 @@ constexpr int PW_MARBLE = 8192;
 // scale) in a scene with marble textures.
 constexpr int PW_F_ROWS = 19;
 constexpr int PW_F_ROWS_MARBLE = 20;
+// The fused kernel's own stash (wavefront_grad_fused.cu) in a scene with
+// marble: the 19 rows and the winner's dmarble/dp (3), which its forward
+// takes from the one evaluation of the marble and its gradient a hit.
+constexpr int PW_F_ROWS_FUSED_MARBLE = 22;
 constexpr int SLOT_NONE = -3;
 constexpr int MSLOT_NONE = -9;
 
@@ -206,6 +210,8 @@ __device__ __forceinline__ float noise1_grad(float px, float py, float pz,
 // The marble's value and its gradient in p (materials/textures.py:
 // marble_grad): 0.5 cos(arg) (10 sign(turb) sum_o w_o s 2^o grad noise
 // + s z_hat), arg = s z + 10 |turb|, sign(0) = 0 as in the JAX kernel.
+// The value has marble()'s bits: the same operations in the same order,
+// so the fused kernel's forward takes its albedo from here.
 __device__ __forceinline__ float marble_grad(const float p[3], float scale,
                                              float grad[3]) {
     float px = p[0] * scale, py = p[1] * scale, pz = p[2] * scale;
@@ -231,6 +237,107 @@ __device__ __forceinline__ float marble_grad(const float p[3], float scale,
     grad[1] = half_cos * (ten_sgn * da[1]);
     grad[2] = half_cos * (ten_sgn * da[2] + scale);
     return 0.5f * (1.0f + sinf(arg));
+}
+
+// The marble (GRAD: marble_grad) of the lanes of a warp that need one, in
+// turns across the warp: called by all 32 lanes together.  One lane a ray
+// pays a whole evaluation (56 lattice corners in one dependent chain)
+// wherever one lane of its warp hits marble, while the others wait; here the
+// warp takes the points of the lanes that need one one at a time: lane
+// L < 28 evaluates corners 2 (L % 4) and 2 (L % 4) + 1 of octave L / 4, lane
+// o < 7 adds octave o's eight corner terms in marble's corner order, and the
+// octaves are added in order.  Every term is the same operations on the
+// same bits as in marble / marble_grad (p * scale * 2^o is exact: a power of
+// two), added in the same order, so the value and gradient are theirs bit
+// for bit.  Measured on the H100, the turns beat one lane a ray even where
+// all 32 lanes need a marble (PERF.md), so there is no other path.
+template <bool GRAD>
+__device__ __forceinline__ float marble_warp(bool need, const float p[3],
+                                             float scale, float grad[3],
+                                             int lane) {
+    constexpr unsigned ALL = 0xFFFFFFFFu;
+    unsigned todo = __ballot_sync(ALL, need);
+    float val = 0.0f;
+    const int oct = lane >> 2;      // this lane's octave (lanes 28-31: none)
+    const int j0 = 2 * (lane & 3);  // its first corner of the octave
+    const float f_oct = (float)(1 << (oct < 7 ? oct : 0));
+    while (todo) {
+        const int src = __ffs(todo) - 1;
+        todo &= todo - 1;
+        const float px = __shfl_sync(ALL, p[0] * scale, src);
+        const float py = __shfl_sync(ALL, p[1] * scale, src);
+        const float pz = __shfl_sync(ALL, p[2] * scale, src);
+        // this lane's two corner terms (and, GRAD, their gradient terms)
+        float t[2] = {0.0f, 0.0f}, tg[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+        if (lane < 28) {
+            const float x = px * f_oct, y = py * f_oct, z = pz * f_oct;
+            const float fx = floorf(x), fy = floorf(y), fz = floorf(z);
+            const float u = x - fx, v = y - fy, w = z - fz;
+            const int i = __float2int_rd(x), j = __float2int_rd(y), k = __float2int_rd(z);
+#pragma unroll
+            for (int s = 0; s < 2; ++s) {
+                const int c = j0 + s;
+                const int di = c >> 2, dj = (c >> 1) & 1, dk = c & 1;
+                float g[3];
+                lattice_grad(i + di, j + dj, k + dk, g);
+                const float dot = g[0] * (u - (float)di) + g[1] * (v - (float)dj) +
+                                  g[2] * (w - (float)dk);
+                const float wu = di ? u : 1.0f - u;
+                const float wv = dj ? v : 1.0f - v;
+                const float ww = dk ? w : 1.0f - w;
+                t[s] = wu * wv * ww * dot;
+                if constexpr (GRAD) {
+                    const float su = di ? 1.0f : -1.0f;
+                    const float sv = dj ? 1.0f : -1.0f;
+                    const float sw = dk ? 1.0f : -1.0f;
+                    tg[s][0] = su * wv * ww * dot + wu * wv * ww * g[0];
+                    tg[s][1] = wu * sv * ww * dot + wu * wv * ww * g[1];
+                    tg[s][2] = wu * wv * sw * dot + wu * wv * ww * g[2];
+                }
+            }
+        }
+        // lane o < 7: octave o's noise (and gradient), its corners in order
+        float nv = 0.0f, nd[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+            const int from = 4 * lane + (c >> 1);  // lanes >= 7 read a dummy
+            nv = nv + __shfl_sync(ALL, t[c & 1], from);
+            if constexpr (GRAD) {
+#pragma unroll
+                for (int q = 0; q < 3; ++q)
+                    nd[q] = nd[q] + __shfl_sync(ALL, tg[c & 1][q], from);
+            }
+        }
+        // the octaves in order (every lane; lane src keeps its own)
+        float acc = 0.0f, weight = 1.0f, osc = scale;
+        float da[3] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int o = 0; o < 7; ++o) {
+            acc = acc + weight * __shfl_sync(ALL, nv, o);
+            if constexpr (GRAD) {
+#pragma unroll
+                for (int q = 0; q < 3; ++q)
+                    da[q] = da[q] + weight * osc * __shfl_sync(ALL, nd[q], o);
+            }
+            weight *= 0.5f;
+            osc = osc * 2.0f;
+        }
+        if (lane == src) {
+            if constexpr (GRAD) {
+                const float arg = scale * p[2] + 10.0f * fabsf(acc);
+                const float sgn = acc > 0.0f ? 1.0f : (acc < 0.0f ? -1.0f : 0.0f);
+                const float half_cos = 0.5f * cosf(arg);
+                const float ten_sgn = 10.0f * sgn;
+                grad[0] = half_cos * (ten_sgn * da[0]);
+                grad[1] = half_cos * (ten_sgn * da[1]);
+                grad[2] = half_cos * (ten_sgn * da[2] + scale);
+                val = 0.5f * (1.0f + sinf(arg));
+            } else {
+                val = 0.5f * (1.0f + sinf(scale * p[2] + 10.0f * fabsf(acc)));
+            }
+        }
+    }
+    return val;
 }
 
 // Dielectric: the unit incoming direction and the reflect-or-refract

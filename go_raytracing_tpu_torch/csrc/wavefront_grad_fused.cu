@@ -6,7 +6,7 @@
 // miss_cfg=("stream",)) in the JAX package's
 // go_raytracing_tpu/ops/pallas_wavefront.py (launched by _call_grad through
 // pl.pallas_call, entry point grad_megakernel), its marble block included
-// (two instantiations: a stash of 19 float rows a bounce, and of 20 in a
+// (two instantiations: a stash of 19 float rows a bounce, and of 22 in a
 // scene with marble, whose reverse sweep adds dmarble/dp).  Its use: scenes
 // with an HDRI environment and quad lights, whose lambertian hits sample the
 // environment as well as a light (HDRI next-event estimation).  Those
@@ -17,9 +17,10 @@
 //
 // Per ray the thread
 //   * runs the pathwise gradient forward (wavefront_trace.cuh, the bounce
-//     loop of wavefront_kernel<PATHWISE>, with the HDRI rows) and writes its
-//     stash rows (19 or 20 float + 3 int a bounce) into a local array: the
-//     radiance is the forward kernel's with the same HDRI rows, bit for bit;
+//     loop of wavefront_kernel<PATHWISE>, with the HDRI rows, in its FUSED
+//     modes) and writes its stash rows (19 or 22 float + 3 int a bounce) for
+//     the bounces it enters into a local array: the radiance is the forward
+//     kernel's with the same HDRI rows, bit for bit;
 //   * adds the miss term: the per-ray environment colour mc (or the sky or
 //     the background), times the miss throughput;
 //   * runs the pathwise reverse sweep (wavefront_reverse.cuh) over that
@@ -27,22 +28,47 @@
 //     direction (both computed in torch from the miss records of a forward
 //     launch), and writes the per-bounce texel cotangents.
 //
-// What bounds it: by the count, the bytes of the inputs (18 ray and
-// cotangent rows, 6 environment rows, 7 HDRI rows a bounce) and the 3 eout
-// rows a bounce; the stash, 22 or 23 rows a bounce (880 or 920 bytes a ray
-// at depth 10), never leaves the SM's caches unless they overflow.  What it waits for is
-// the forward's sweeps and the reverse's dependent chain, as in B1 and B5b.
-// A simple design, not a fast one: the TPU kernel's block layout (a block of
-// rays stepping through every bounce with masks) is not carried over.
+// What bounds it: by the count, the operations of both sweeps (the marble's
+// above all: 7 octaves of 8 hashed lattice corners, a square root and a
+// division each) and the bytes of the inputs (18 ray and cotangent rows, 6
+// environment rows, 7 HDRI rows a sampling bounce) and of the 3 eout rows a
+// bounce.  What it waits for is the forward's sweeps and the reverse's
+// dependent chain, as in B1 and B5b, with the stash in local memory between
+// them, and what the first design lost beside that: a block of 256 threads
+// of 4 rays each that held 183 to 199 registers a thread with marble, so
+// one block (8 warps) an SM, which drained to the warps of its longest
+// paths before the next could start; the marble evaluated twice a hit
+// (marble in the forward, marble_grad on the same point in the reverse);
+// and every bounce after a ray's death written as an inert row and swept.
+//
+// The design:
+//   * one ray a thread, blocks of FUSED_THREADS (128), and a register target
+//     of FUSED_MIN_BLOCKS blocks an SM (16 warps, no spill; 3 blocks measured
+//     slower, 5 blocks (with spills) and blocks of 64 or 256 within a few per
+//     cent either way, PERF.md): a finished block is replaced at once, and no
+//     block waits on another's long paths;
+//   * the marble once: the forward's FUSED_MARBLE mode evaluates a marble
+//     winner's value and dmarble/dp together (marble_warp<true>: marble_grad
+//     in turns across the warp, as B5a takes the marble; its value has
+//     marble's bits), takes the albedo from it and stashes dmarble/dp in
+//     three rows of its own, which the reverse sweep reads (no marble code
+//     in the sweep);
+//   * no inert bounces: the forward writes the rows of the bounces the ray
+//     entered only, and the sweep starts at the deepest bounce a lane of the
+//     warp entered (a warp maximum, so the collective adds stay collective).
+//     The rows it skips had mask 0 and added nothing, so every sum is added
+//     in the order it was; eout rows of bounces not entered are zeros.
 //   * Local arrays sized by one compile-time depth cap, FUSED_MAX_DEPTH (50,
-//     the JAX package's GRAD_DEPTH_MAX).  A thread touches only the first
-//     `depth` bounces of them, and local memory is interleaved by thread, so
+//     the JAX package's GRAD_DEPTH_MAX).  A thread touches only the rows of
+//     the bounces it entered, and local memory is interleaved by thread, so
 //     a shallow path moves the same bytes as it would with a smaller cap.
 //   * The sums are those of wavefront_grad_pathwise.cu: warp butterflies in a
 //     fixed order, one accumulator row a warp in shared memory, one row of
-//     partial sums a block, added in the wrapper.  The scene tables sit in
-//     shared memory after the accumulators when both fit in 48 KB, else in
-//     device memory.
+//     partial sums a block, added in the wrapper in a fixed order (the same
+//     bits every launch; a block shape other than the first design's adds the
+//     partial rows in another grouping).  The scene tables sit in shared
+//     memory after the accumulators when both fit in 48 KB, else in device
+//     memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -52,17 +78,16 @@
 
 namespace {
 
-constexpr int FUSED_THREADS = 256;
+constexpr int FUSED_THREADS = 128;
 constexpr int FUSED_WARPS = FUSED_THREADS / 32;
-constexpr int FUSED_RAYS_PER_THREAD = 4;
-constexpr int FUSED_BLOCK_RAYS = FUSED_THREADS * FUSED_RAYS_PER_THREAD;
+constexpr int FUSED_MIN_BLOCKS = 4;  // 16 warps an SM: at most 128 registers
 constexpr size_t FUSED_SMEM_LIMIT = 48 * 1024;
 constexpr int FUSED_MAX_ACC =
     (int)(FUSED_SMEM_LIMIT / (FUSED_WARPS * sizeof(float)));
 constexpr int FUSED_MAX_DEPTH = 50;
 
 template <int F_ROWS>
-__global__ void __launch_bounds__(FUSED_THREADS)
+__global__ void __launch_bounds__(FUSED_THREADS, FUSED_MIN_BLOCKS)
 wavefront_grad_fused_kernel(Tables G, const float* __restrict__ ox,
                             const float* __restrict__ oy, const float* __restrict__ oz,
                             const float* __restrict__ dx, const float* __restrict__ dy,
@@ -101,53 +126,61 @@ wavefront_grad_fused_kernel(Tables G, const float* __restrict__ ox,
     const size_t n = (size_t)n_rays;
     const RevScene R{S.lt, S.n_lights, S.lc, S.vt, S.n_vol, S.vc, n_col, n_acc,
                      M.mode};
-    const long long base = (long long)blockIdx.x * FUSED_BLOCK_RAYS + threadIdx.x;
+    const long long i = (long long)blockIdx.x * FUSED_THREADS + threadIdx.x;
+    const bool valid = i < n_rays;  // the warp's lanes stay together
 
     float sf[FUSED_MAX_DEPTH * F_ROWS];
     int si[FUSED_MAX_DEPTH * 3];
     const Stash Z{sf, si, 1};
-    constexpr int MODE = F_ROWS == PW_F_ROWS_MARBLE ? PATHWISE_MARBLE : PATHWISE;
+    constexpr int MODE = F_ROWS == PW_F_ROWS_FUSED_MARBLE ? FUSED_MARBLE : FUSED;
 
-    for (int it = 0; it < FUSED_RAYS_PER_THREAD; ++it) {
-        const long long i = base + (long long)it * FUSED_THREADS;
-        const bool valid = i < n_rays;  // the warp's lanes stay together
-        float g[3] = {0.0f, 0.0f, 0.0f}, mc[3] = {0.0f, 0.0f, 0.0f};
-        float lmd[3] = {0.0f, 0.0f, 0.0f};
-        uint32_t sid = 0;
-        const float* hd = nullptr;
-        if (valid) {
-            float o[3] = {ox[i], oy[i], oz[i]};
-            float d[3] = {dx[i], dy[i], dz[i]};
-            float rad[3] = {0.0f, 0.0f, 0.0f};
-            float m_dir[3] = {0.0f, 0.0f, 0.0f};
-            float m_tp[3] = {0.0f, 0.0f, 0.0f};
-            float tp[3] = {1.0f, 1.0f, 1.0f};
-            int flags = FLAG_ALIVE | FLAG_ALLOW;
-            sid = stream[i];
-            hd = hdri != nullptr ? hdri + i : nullptr;
-            trace_ray<MODE>(S, o, d, tp, tm[i], sid, seed, 0, depth, rad, m_dir,
-                                m_tp, flags, Z, Record{nullptr, nullptr, 0}, 0,
-                                Hdri{hd, n_rays});
-            if (flags & 1) {
-                if (M.mode == MISS_STREAM) {
+    float g[3] = {0.0f, 0.0f, 0.0f}, mc[3] = {0.0f, 0.0f, 0.0f};
+    float lmd[3] = {0.0f, 0.0f, 0.0f};
+    float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 0.0f};
+    float tmv = 0.0f;
+    uint32_t sid = 0;
+    const float* hd = nullptr;
+    if (valid) {
+        o[0] = ox[i];
+        o[1] = oy[i];
+        o[2] = oz[i];
+        d[0] = dx[i];
+        d[1] = dy[i];
+        d[2] = dz[i];
+        tmv = tm[i];
+        sid = stream[i];
+        hd = hdri != nullptr ? hdri + i : nullptr;
+    }
+    float rad[3] = {0.0f, 0.0f, 0.0f};
+    float m_dir[3] = {0.0f, 0.0f, 0.0f};
+    float m_tp[3] = {0.0f, 0.0f, 0.0f};
+    float tp[3] = {1.0f, 1.0f, 1.0f};
+    // every lane runs the forward (a lane past the ray count with no ray),
+    // so that the marble's turns across the warp find all 32 lanes
+    int flags = valid ? FLAG_ALIVE | FLAG_ALLOW : 0;
+    const int len = trace_ray<MODE>(S, o, d, tp, tmv, sid, seed, 0, depth, rad, m_dir,
+                                    m_tp, flags, Z, Record{nullptr, nullptr, 0}, 0,
+                                    Hdri{hd, n_rays});  // bounces entered
+    if (valid) {
+        if (flags & 1) {
+            if (M.mode == MISS_STREAM) {
 #pragma unroll
-                    for (int c = 0; c < 3; ++c) mc[c] = env_rows[c * n + i];
-                } else {
-                    miss_colour(M, m_dir, mc);
-                }
-            }
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-                rad_out[c * n + i] = rad[c] + m_tp[c] * mc[c];
-                g[c] = g3[c * n + i];
-                if (M.mode == MISS_STREAM) lmd[c] = env_rows[(3 + c) * n + i];
+                for (int c = 0; c < 3; ++c) mc[c] = env_rows[c * n + i];
+            } else {
+                miss_colour(M, m_dir, mc);
             }
         }
-        // an invalid lane reads no stash (mask 0 at every bounce)
-        reverse_ray<F_ROWS>(R, valid, sf, si, 1, depth, g, mc, lmd, sid, seed, hd,
-                            n_rays, eout != nullptr && valid ? eout + i : nullptr,
-                            n_rays, acc, lane);
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            rad_out[c * n + i] = rad[c] + m_tp[c] * mc[c];
+            g[c] = g3[c * n + i];
+            if (M.mode == MISS_STREAM) lmd[c] = env_rows[(3 + c) * n + i];
+        }
     }
+    // an invalid lane reads no stash (mask 0 at every bounce)
+    reverse_ray<F_ROWS, true>(R, valid, sf, si, 1, depth, g, mc, lmd, sid, seed, hd,
+                              n_rays, eout != nullptr && valid ? eout + i : nullptr,
+                              n_rays, acc, lane, len);
 
     __syncthreads();
     for (int j = threadIdx.x; j < n_acc; j += FUSED_THREADS) {
@@ -162,7 +195,7 @@ wavefront_grad_fused_kernel(Tables G, const float* __restrict__ ox,
 
 // Rays one block traces: the wrapper sizes `partial` as
 // [ceil(n_rays / this), n_acc].
-extern "C" int wavefront_grad_fused_block_rays() { return FUSED_BLOCK_RAYS; }
+extern "C" int wavefront_grad_fused_block_rays() { return FUSED_THREADS; }
 
 // Deepest path the kernel takes.
 extern "C" int wavefront_grad_fused_max_depth() { return FUSED_MAX_DEPTH; }
@@ -174,8 +207,8 @@ extern "C" int wavefront_grad_fused_max_depth() { return FUSED_MAX_DEPTH; }
 // n_rays] f32 or null; out: rad [3, n_rays] f32 (the radiance with the miss
 // term), eout [depth * 3, n_rays] f32 (with hdri, else null: the cotangent of
 // each bounce's environment sample's texel), partial [ceil(n_rays /
-// FUSED_BLOCK_RAYS), n_acc] f32, all written in full; noise: the scene has
-// marble textures (the stash keeps their scale, the sweep their derivative).
+// FUSED_THREADS), n_acc] f32, all written in full; noise: the scene has
+// marble textures (the stash keeps their derivative by the hit point).
 // Launches on the given stream, does not synchronize, allocates nothing.  Returns
 // cudaGetLastError() (0 on success), or cudaErrorInvalidValue for sizes the
 // kernel does not take.
@@ -213,11 +246,11 @@ extern "C" int wavefront_grad_fused_launch(
                          (size_t)VT_ROWS * G.vc + (size_t)LT_ROWS * G.lc);
     const int in_smem = acc_bytes + table_bytes <= FUSED_SMEM_LIMIT;
     const size_t smem = acc_bytes + (in_smem ? table_bytes : 0);
-    const long long blocks = (n_rays + FUSED_BLOCK_RAYS - 1) / FUSED_BLOCK_RAYS;
+    const long long blocks = (n_rays + FUSED_THREADS - 1) / FUSED_THREADS;
     if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
     const Miss M{miss_mode, {bg_r, bg_g, bg_b}};
     if (noise)
-        wavefront_grad_fused_kernel<PW_F_ROWS_MARBLE>
+        wavefront_grad_fused_kernel<PW_F_ROWS_FUSED_MARBLE>
             <<<(unsigned int)blocks, FUSED_THREADS, smem, (cudaStream_t)cuda_stream>>>(
                 G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, g3, env_rows,
                 hdri, M, rad, eout, partial, n_rays, seed, depth, n_col, n_acc, in_smem);
@@ -227,4 +260,19 @@ extern "C" int wavefront_grad_fused_launch(
                 G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, g3, env_rows,
                 hdri, M, rad, eout, partial, n_rays, seed, depth, n_col, n_acc, in_smem);
     return (int)cudaGetLastError();
+}
+
+// Blocks an SM holds at once of the fused kernel (marble: its instantiation
+// of a scene with marble) with `smem_bytes` of shared memory a block (the
+// accumulators and the tables a launch stages), from its registers, and its
+// threads a block.  Returns a CUDA error code (0 on success).
+extern "C" int wavefront_grad_fused_occupancy(int marble, int smem_bytes,
+                                              int* blocks_per_sm, int* threads) {
+    *threads = FUSED_THREADS;
+    const void* fn =
+        marble ? (const void*)wavefront_grad_fused_kernel<PW_F_ROWS_FUSED_MARBLE>
+               : (const void*)wavefront_grad_fused_kernel<PW_F_ROWS>;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
+                                                              FUSED_THREADS,
+                                                              (size_t)smem_bytes);
 }

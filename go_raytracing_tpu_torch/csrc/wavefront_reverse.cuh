@@ -1,7 +1,8 @@
 // The pathwise reverse sweep of one ray, shared by the pathwise reverse
 // kernel (wavefront_grad_pathwise.cu, B5b: the stash comes from device
 // memory) and the fused gradient kernel (wavefront_grad_fused.cu, B4: the
-// stash is the thread's own, in local memory).  See
+// stash is the thread's own, in local memory, rows of entered bounces
+// only).  See
 // wavefront_grad_pathwise.cu for what it computes and how the sums are kept
 // in a fixed order.
 
@@ -101,7 +102,11 @@ constexpr int REV_MISS_STREAM = 2;
 // One ray's reverse sweep, from the last bounce to the first; every lane of
 // a warp calls it with the same depth (warp_add is collective).  F_ROWS is
 // the stash's float rows a bounce: PW_F_ROWS, or PW_F_ROWS_MARBLE in a scene
-// with marble, whose winners' dmarble/dp joins the hit point's adjoint.
+// with marble, whose winners' dmarble/dp (marble_grad at the stashed point
+// and scale) joins the hit point's adjoint.  FUSED: the fused kernel's own
+// stash, which holds the `len` bounces the ray entered and nothing after
+// them (PW_F_ROWS, or PW_F_ROWS_FUSED_MARBLE with dmarble/dp as rows 19-21);
+// the sweep starts at the deepest bounce a lane of the warp entered.
 //   f, q, zs: the ray's pathwise stash, float row r of bounce k at
 //             f[(k * F_ROWS + r) * zs], int row r at q[(k * 3 + r) * zs];
 //   g, mc:    the cotangent of the ray's radiance, its miss colour (0 if it
@@ -110,20 +115,34 @@ constexpr int REV_MISS_STREAM = 2;
 //   hd, hs:   the ray's HDRI rows (7 a bounce, stride hs) or null;
 //   eout, es: with hd, the cotangent of each bounce's environment sample's
 //             texel (3 a bounce, stride es), written for every bounce.
-template <int F_ROWS>
+template <int F_ROWS, bool FUSED = false>
 __device__ __forceinline__ void reverse_ray(
     const RevScene& R, bool valid, const float* f, const int* q, long long zs,
     int depth, const float g[3], const float mc[3], const float lmd[3],
     uint32_t sid, uint32_t seed, const float* hd, long long hs, float* eout,
-    long long es, float* acc, int lane) {
+    long long es, float* acc, int lane, int len = 0) {
     const float nl = (float)R.n_lights;
     const float sky_s[3] = {0.5f, 0.7f, 1.0f};
     float lo[3] = {0.0f, 0.0f, 0.0f};
     float ldv[3] = {0.0f, 0.0f, 0.0f};
     float ltp[3] = {0.0f, 0.0f, 0.0f};
 
-    for (int k = depth - 1; k >= 0; --k) {
-        const int mk = valid ? q[((size_t)k * 3 + 2) * zs] : 0;
+    int top = depth;
+    if constexpr (FUSED) {
+        // bounces no lane of the warp entered add nothing: their eout rows
+        // are zeros
+        top = __reduce_max_sync(FULL_MASK, valid ? len : 0);
+        if (eout != nullptr && valid) {
+            for (int k = top; k < depth; ++k) {
+#pragma unroll
+                for (int c = 0; c < 3; ++c) eout[((size_t)k * 3 + c) * es] = 0.0f;
+            }
+        }
+    }
+    for (int k = top - 1; k >= 0; --k) {
+        int mk;
+        if constexpr (FUSED) mk = valid && k < len ? q[((size_t)k * 3 + 2) * zs] : 0;
+        else mk = valid ? q[((size_t)k * 3 + 2) * zs] : 0;
         float cot_alb[3] = {0.0f, 0.0f, 0.0f};
         float cot_lem[3] = {0.0f, 0.0f, 0.0f};
         float cot_mat[2] = {0.0f, 0.0f};  // fuzz, ior
@@ -369,13 +388,19 @@ __device__ __forceinline__ void reverse_ray(
 #pragma unroll
             for (int c = 0; c < 3; ++c)
                 lam_p[c] = Af * lo[c] + lp_nee[c] + dndp * (l_n_s[c] + ln_nee[c]);
-            if constexpr (F_ROWS == PW_F_ROWS_MARBLE) {
+            if constexpr (F_ROWS == PW_F_ROWS_MARBLE ||
+                          F_ROWS == PW_F_ROWS_FUSED_MARBLE) {
                 if (mk & PW_MARBLE) {
                     // a marble winner: the marble is grayscale, so its
                     // value's cotangent is the sum of the albedo's three, and
                     // it moves with the hit point (dmarble/dp)
                     float dm[3];
-                    marble_grad(pv, fk[19 * zs], dm);
+                    if constexpr (F_ROWS == PW_F_ROWS_MARBLE) {
+                        marble_grad(pv, fk[19 * zs], dm);
+                    } else {
+#pragma unroll
+                        for (int c = 0; c < 3; ++c) dm[c] = fk[(19 + c) * zs];
+                    }
                     const float cotm = cot_alb[0] + cot_alb[1] + cot_alb[2];
 #pragma unroll
                     for (int c = 0; c < 3; ++c) lam_p[c] = lam_p[c] + cotm * dm[c];

@@ -41,6 +41,12 @@ constexpr int PRODUCT = 1;    // the product-chain stash and the miss colour
 constexpr int PATHWISE = 2;   // the pathwise stash and the miss colour
 constexpr int RECORD = 3;     // each bounce's outcome
 constexpr int PATHWISE_MARBLE = 4;  // PATHWISE, and the marble's scale (row 19)
+// The fused kernel's forward (wavefront_grad_fused.cu): the pathwise rows
+// into the thread's own stash, for the bounces the ray entered only (no
+// inert rows); FUSED_MARBLE stashes the winner's dmarble/dp (rows 19-21)
+// from the one marble_grad evaluation that also gives its albedo.
+constexpr int FUSED = 5;
+constexpr int FUSED_MARBLE = 6;
 
 struct Tables {
     const float* pt;
@@ -56,7 +62,9 @@ struct Stash {
     float* f;        // product:  [depth, 12, n] T(3) alb(3) em_su(3) alb_su(3)
                      // pathwise: [depth, 19, n] T(3) alb(3) p(3) d(3) n(3)
                      //           fuzz ior dndp t; PATHWISE_MARBLE: [depth,
-                     //           20, n], and the winner's marble scale
+                     //           20, n], and the winner's marble scale;
+                     //           FUSED_MARBLE: [depth, 22, n], and the
+                     //           winner's dmarble/dp
     int* i;          // [depth, 3, n]  slot, lslot or material id, mask
     long long n;     // rays (row stride)
 };
@@ -109,12 +117,14 @@ __device__ __forceinline__ void stash_row(const Stash& Z, long long ray, int k,
 }
 
 // One row of the pathwise stash (F_ROWS float rows a bounce); row 19, the
-// marble scale, only in a stash of a scene with marble.
+// marble scale, only in a stash of a scene with marble, rows 19-21 (dm, the
+// marble's dmarble/dp) only in the fused kernel's of a scene with marble.
 template <int F_ROWS>
 __device__ __forceinline__ void stash_row_pathwise(
     const Stash& Z, long long ray, int k, const float T[3], const float alb[3],
     const float p[3], const float d[3], const float nrm[3], float fuzz,
-    float ior, float dndp, float t, float mscale, int slot, int mslot, int mk) {
+    float ior, float dndp, float t, float mscale, int slot, int mslot, int mk,
+    const float* dm) {
     float* f = Z.f + (size_t)k * F_ROWS * Z.n + ray;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -129,6 +139,10 @@ __device__ __forceinline__ void stash_row_pathwise(
     f[17 * Z.n] = dndp;
     f[18 * Z.n] = t;
     if constexpr (F_ROWS == PW_F_ROWS_MARBLE) f[19 * Z.n] = mscale;
+    if constexpr (F_ROWS == PW_F_ROWS_FUSED_MARBLE) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) f[(19 + c) * Z.n] = dm[c];
+    }
     int* q = Z.i + (size_t)k * 3 * Z.n + ray;
     q[0] = slot;
     q[Z.n] = mslot;
@@ -277,8 +291,10 @@ constexpr int FLAG_ALLOW = 8;
 // Every random draw is keyed on the absolute bounce, so the result does not
 // depend on where the loop was cut.  The stash and the record (b_start 0
 // only) are [b_end, ...]; the HDRI rows [(b_end - b_start) * 7, ...].
+// Returns the stash (or record) rows written in the loop: the bounces the
+// ray entered, which are all the fused modes write.
 template <int MODE>
-__device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3],
+__device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3],
                                           float tp[3], float tmv, uint32_t sid,
                                           uint32_t seed, int b_start, int b_end,
                                           float rad[3], float m_dir[3],
@@ -289,40 +305,58 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
     bool missed = flags & FLAG_MISSED, m_prim = flags & FLAG_PRIMARY;
     const bool use_nee = S.n_lights > 0;
     constexpr bool STASH = MODE == PRODUCT;
-    constexpr bool PW = MODE == PATHWISE || MODE == PATHWISE_MARBLE;
-    constexpr int F_ROWS = MODE == PATHWISE_MARBLE ? PW_F_ROWS_MARBLE : PW_F_ROWS;
+    // B5a's modes (every stash row written) and the fused kernel's
+    constexpr bool PW_ALL = MODE == PATHWISE || MODE == PATHWISE_MARBLE;
+    constexpr bool PW = PW_ALL || MODE == FUSED || MODE == FUSED_MARBLE;
+    constexpr int F_ROWS = MODE == PATHWISE_MARBLE ? PW_F_ROWS_MARBLE
+                           : MODE == FUSED_MARBLE  ? PW_F_ROWS_FUSED_MARBLE
+                                                   : PW_F_ROWS;
     constexpr bool GRAD = MODE == PRODUCT || PW;
+    // The marble modes evaluate the marble across the warp (marble_warp):
+    // every lane of the warp stays in the loop until its last ray is done,
+    // lanes whose ray died (or that hold none: `started` false) idle through
+    // the bounce but for the marble's turns.  In the other modes `live` and
+    // `shade` are true wherever they are read.
+    constexpr bool COOP = MODE == PATHWISE_MARBLE || MODE == FUSED_MARBLE;
+    const bool started = alive;
+    int b_own = b_end;  // COOP: where this lane's own loop would have stopped
     const float zero3[3] = {0.0f, 0.0f, 0.0f};
     int stashed = b_start;  // stash rows (or record rows) written so far
 
     int b = b_start;
-    for (; b < b_end && alive; ++b) {
+    for (; b < b_end && (COOP || alive); ++b) {
+        if constexpr (COOP) {
+            if (!__any_sync(0xFFFFFFFFu, alive)) break;
+        }
+        const bool live = !COOP || alive;
         const uint32_t bu = (uint32_t)b;
 
         // ---- closest hit -------------------------------------------------
         float t = BIG;
         int hitk = 0, hidx = 0;
-        if (planar_sweep<false>(S, o, d, t, hidx)) hitk = 2;
-        if (sphere_sweep<false>(S, o, d, tmv, t, hidx)) hitk = 1;
-        bool hit = hitk > 0;
+        bool hit = false, is_vol = false;
+        if (live) {
+            if (planar_sweep<false>(S, o, d, t, hidx)) hitk = 2;
+            if (sphere_sweep<false>(S, o, d, tmv, t, hidx)) hitk = 1;
+            hit = hitk > 0;
 
-        bool is_vol = false;
-        for (int vi = 0; vi < S.n_vol; ++vi) {
-            const float u = uniform3(sid, seed, bu, VOL_FLIGHT + 32u * vi).x;
-            const float t_limit = hit ? t : BIG;
-            float t_v;
-            const bool acc = volume_scatter(S, o, d, t_limit, vi, u, t_v);
-            if (acc && (!hit || t_v < t)) {
-                t = t_v;
-                hit = true;
-                is_vol = true;
-                hidx = vi;
-                hitk = 3;
+            for (int vi = 0; vi < S.n_vol; ++vi) {
+                const float u = uniform3(sid, seed, bu, VOL_FLIGHT + 32u * vi).x;
+                const float t_limit = hit ? t : BIG;
+                float t_v;
+                const bool acc = volume_scatter(S, o, d, t_limit, vi, u, t_v);
+                if (acc && (!hit || t_v < t)) {
+                    t = t_v;
+                    hit = true;
+                    is_vol = true;
+                    hidx = vi;
+                    hitk = 3;
+                }
             }
         }
 
         // ---- miss: record for the deferred miss shader and stop ----------
-        if (!hit) {
+        if (live && !hit) {
 #pragma unroll
             for (int c = 0; c < 3; ++c) {
                 m_dir[c] = d[c];
@@ -345,12 +379,14 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
                                      o[2] + 1.0f * d[2]};
                 stash_row_pathwise<F_ROWS>(Z, ray, b, tp, zero3, pm, d, zero3,
                                            0.0f, 1e-3f, 0.0f, 1.0f, 0.0f, SLOT_NONE,
-                                           MSLOT_NONE, PW_LIT);
+                                           MSLOT_NONE, PW_LIT, zero3);
                 stashed = b + 1;
             }
             // RECORD: the miss reads as no hit, like the bounces after it
-            break;
+            if constexpr (COOP) b_own = b;
+            else break;
         }
+        const bool shade = live && hit;
 
         float p[3];
 #pragma unroll
@@ -434,6 +470,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
         // ---- texture ----------------------------------------------------
         float albedo[3] = {col[0], col[1], col[2]};
         float variant = 0.0f;  // 0 solid, 1 checker even, 2 checker odd
+        float dm[3] = {0.0f, 0.0f, 0.0f};  // FUSED_MARBLE: dmarble/dp
         if (texkind == 1.0f) {
             const float lat = floorf(inv_scale * p[0] + 1e-4f) +
                               floorf(inv_scale * p[1] + 1e-4f) +
@@ -444,9 +481,24 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             variant = is_even ? 1.0f : 2.0f;
         } else if (texkind == 2.0f) {
             // marble: its scale sits in the checker's scale row
-            const float m = marble(p, inv_scale);
+            if constexpr (!COOP) {
+                const float m = marble(p, inv_scale);
 #pragma unroll
-            for (int c = 0; c < 3; ++c) albedo[c] = m;
+                for (int c = 0; c < 3; ++c) albedo[c] = m;
+            }
+        }
+        if constexpr (COOP) {
+            // every lane, in the warp's turns; FUSED_MARBLE: with dmarble/dp
+            const bool need = shade && texkind == 2.0f;
+            const float m = marble_warp<MODE == FUSED_MARBLE>(need, p, inv_scale, dm,
+                                                              threadIdx.x & 31);
+            if (need) {
+#pragma unroll
+                for (int c = 0; c < 3; ++c) albedo[c] = m;
+            }
+        }
+        if constexpr (COOP) {
+            if (!shade) continue;  // a lane without a hit this bounce
         }
 
         // ---- scatter ----------------------------------------------------
@@ -602,7 +654,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
                   ((!is_die && texkind == 2.0f) ? PW_MARBLE : 0);
             stash_row_pathwise<F_ROWS>(Z, ray, b, tp, atten, p, d, nrm, fuzz, ior,
                                        flip * dndp, t, inv_scale, slot, (int)mat_id,
-                                       mk);
+                                       mk, dm);
             stashed = b + 1;
         }
         if constexpr (MODE == RECORD) {
@@ -614,6 +666,9 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
 
         // ---- state update -------------------------------------------------
         alive = scattered;
+        if constexpr (COOP) {
+            if (!alive) b_own = b + 1;
+        }
         if (alive) {
 #pragma unroll
             for (int c = 0; c < 3; ++c) {
@@ -626,7 +681,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
     }
     // A ray that died before the last bounce would have allowLightHits set
     // again by the next bounce of a masked wavefront loop.
-    if (!alive && b < b_end) allow = true;
+    if (!alive && (COOP ? b_own : b) < b_end) allow = true;
 
     if constexpr (STASH) {
         // bounces never entered: inert rows
@@ -634,11 +689,11 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
             stash_row(Z, ray, k, zero3, zero3, zero3, zero3, SLOT_NONE,
                       LSLOT_NONE, 0);
     }
-    if constexpr (PW) {
-        for (int k = stashed; k < b_end; ++k)
+    if constexpr (PW_ALL) {
+        for (int k = stashed; k < b_end && (!COOP || started); ++k)
             stash_row_pathwise<F_ROWS>(Z, ray, k, zero3, zero3, zero3, zero3, zero3,
                                        0.0f, 0.0f, 0.0f, 0.0f, 0.0f, SLOT_NONE,
-                                       MSLOT_NONE, 0);
+                                       MSLOT_NONE, 0, zero3);
     }
     if constexpr (MODE == RECORD) {
         // the bounce of a miss and the bounces never entered: no hit
@@ -650,6 +705,7 @@ __device__ __forceinline__ void trace_ray(const Tables& S, float o[3], float d[3
 
     flags = (missed ? FLAG_MISSED : 0) | (m_prim ? FLAG_PRIMARY : 0) |
             (alive ? FLAG_ALIVE : 0) | (allow ? FLAG_ALLOW : 0);
+    return stashed;
 }
 
 // Miss shader of the gradient forwards: the flat background (mode 0), the

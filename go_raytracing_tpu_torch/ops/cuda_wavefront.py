@@ -1821,6 +1821,30 @@ def _wavefront_grad_fused_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
             mats[:, 1].contiguous(), eout)
 
 
+def _occupancy(library: str, function: str, marble: bool, smem_bytes: int):
+    fn = _kernel(library, function, [_I, _I] + [ctypes.POINTER(ctypes.c_int)] * 2)
+    out = [ctypes.c_int() for _ in range(2)]
+    err = fn(int(marble), int(smem_bytes), *(ctypes.byref(c) for c in out))
+    if err != 0:
+        raise RuntimeError(f"{function} failed: CUDA error {err}")
+    return tuple(c.value for c in out)
+
+
+def pathwise_occupancy(marble: bool, smem_bytes: int = 0):
+    """(blocks an SM holds at once, threads a block) of the pathwise
+    gradient forward (``marble``: its instantiation of a scene with marble)
+    with ``smem_bytes`` of tables in shared memory, on the current CUDA
+    device, from its registers."""
+    return _occupancy("wavefront", "wavefront_pathwise_occupancy", marble, smem_bytes)
+
+
+def fused_occupancy(marble: bool, smem_bytes: int):
+    """The same for the fused gradient kernel, ``smem_bytes`` a block (its
+    accumulators, and the tables where they fit)."""
+    return _occupancy("wavefront_grad_fused", "wavefront_grad_fused_occupancy", marble,
+                      smem_bytes)
+
+
 def stream_to_i32(stream):
     """Ray counter (any integer dtype, values mod 2**32) -> the int32
     tensor with the same 32-bit pattern, which is what the kernel reads."""

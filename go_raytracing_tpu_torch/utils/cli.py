@@ -1,12 +1,13 @@
 """Command-line renderer.
 
 Usage:
-    python -m go_raytracing_tpu_torch.utils.cli -scene cornell [-spp 100]
+    python -m go_raytracing_tpu_torch.utils.cli [-scene hdri-test] [-spp 100]
         [-width 600] [-depth 5] [-out image.png] [-progressive]
         [-seed 0] [-device {cuda,cpu}]
 
-Same ``-scene`` registry and aliases as the JAX package's CLI, at each
-scene's own settings unless flags say otherwise (``-scene perlin``: 600x337,
+Same ``-scene`` registry, aliases and default (``hdri-test``, whose HDRI
+asset must be present, else ``FileNotFoundError``) as the JAX package's CLI,
+at each scene's own settings unless flags say otherwise (``-scene perlin``: 600x337,
 100 spp, depth 50, so its chunks take the megakernel's 'split' mode).  The
 render runs on the GPU unless ``-device cpu`` is given.  ``-interactive``,
 ``-profile-dir`` and ``-mem-stats`` are not ported yet (ROADMAP.md A20).
@@ -21,7 +22,7 @@ import time
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description="PyTorch/CUDA path tracer")
-    ap.add_argument("-scene", default="cornell", help="scene name")
+    ap.add_argument("-scene", default="hdri-test", help="scene name (the JAX CLI's default)")
     ap.add_argument("-spp", type=int, default=None)
     ap.add_argument("-width", type=int, default=None)
     ap.add_argument("-depth", type=int, default=None)

@@ -967,9 +967,10 @@ def test_cuda_fused_kernel_matches_plain_version():
 @pytest.mark.cuda
 def test_cuda_fused_kernel_with_marble_matches_plain_version():
     """B4 on the noise + glossy scene under an environment with its quad
-    light: the marble's scale in the local stash and dmarble/dp in the
-    reverse sweep; the sums within 1e-4 of each key's largest entry, the
-    radiance the plain version's bits, the same bits on two launches."""
+    light: the marble evaluated once a hit (with its derivative, in turns
+    across the warp) and dmarble/dp in the local stash, read by the reverse
+    sweep; the sums within 1e-4 of each key's largest entry, the radiance
+    the plain version's bits, the same bits on two launches."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
     scene = build_noise_glossy(grtt, env=mini_env(), device="cuda")
@@ -1230,3 +1231,170 @@ def test_cuda_split_and_compact_renders_equal_single(monkeypatch):
     assert (cw.LAUNCHES, cw.LAUNCHES_RESUME) == (before[0], before[1] + 2 * stats.chunks)
     assert torch.equal(split, single)
     assert torch.equal(grtt.render_image(scene, cam, seed=2, mega_mode="compact"), single)
+
+
+# ---- B5a and B4 as redesigned: the marble in turns across the warp, whole
+# warps in the bounce loop, B4's blocks of 128 rays and its stash of entered
+# bounces only.  Each case is held to the plain version: B5a's outputs and
+# stash and B4's radiance equal (a zero's sign aside: the kernel writes +0
+# where the plain version's masked rows give -0), B4's sums within 1e-4 of
+# each key's largest entry and its eout rows within 1e-6, and two launches
+# give the same bits.
+
+def _marble_edge_scene(env):
+    """The noise + glossy scene with a metal sphere and a glass sphere of
+    marble (scale 4) besides; under ``env`` with its quad light (B4), or
+    without (B5a).  The builder gives glass a white texture, so the marble
+    glass is added by hand: its hits evaluate the marble, and their mask has
+    no PW_MARBLE bit (a dielectric's albedo never enters)."""
+    from go_raytracing_tpu_torch.materials import tables as mats
+
+    b = grtt.SceneBuilder()
+    b.quad((-6, 0, -6), (12, 0, 0), (0, 0, 12), b.lambertian(b.noise(0.4)))
+    b.quad((-6, 0, -6), (0, 8, 0), (12, 0, 0), b.lambertian((0.6, 0.65, 0.7)))
+    b.add_light(b.quad((-1.5, 7.9, -1.5), (3, 0, 0), (0, 0, 3),
+                       b.diffuse_light((13.0, 12.0, 11.0))))
+    b.sphere((-1.8, 1.2, 0.0), 1.2, b.metal((0.8, 0.6, 0.2), 0.2))
+    b.sphere((0.8, 1.0, 1.2), 1.0, b.dielectric(1.5))
+    b.sphere((2.5, 0.8, -1.0), 0.8, b.metal(b.noise(4.0), 0.1))
+    b._mat.append((mats.MAT_DIELECTRIC, b.noise(4.0), 0.0, 1.5))
+    b.sphere((-3.2, 0.7, 2.2), 0.7, len(b._mat) - 1)
+    if env is not None:
+        b.set_environment(env)
+    return b.build(device="cuda"), len(b._mat) - 1
+
+
+def _frame_rays(cam, n, seed):
+    """Camera rays of ``n`` pixels drawn across the frame (sample 0)."""
+    w, h = cam.image_width, cam.image_height
+    pix = torch.randperm(w * h, device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(seed))[:n]
+    o, d, tm = tcamera.generate_rays(cam, pix % w, pix // w, pix, seed)
+    return (V3(*(c.contiguous() for c in o)), V3(*(c.contiguous() for c in d)),
+            tm.contiguous(), cw.stream_to_i32(pix))
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _b5a_equals_plain(scene, cam, rays, depth):
+    """B5a against its plain version: every output and stash word; returns
+    the stash's int rows."""
+    tb = cw.build_tables(scene)
+    args = (tb, *rays, 3, depth, cw.miss_config(cam))
+    before = cw.LAUNCHES_GRAD_FWD_PATHWISE
+    k = cw.wavefront_grad_fwd(*args, pathwise=True)
+    assert cw.LAUNCHES_GRAD_FWD_PATHWISE == before + 1
+    assert k[3].shape[1] == cw.PW_STASH_F_ROWS_MARBLE
+    p = cw._wavefront_grad_fwd_plain(*args, pathwise=True)
+    for i in (1, 3, 4):   # flags, stash rows, stash words
+        assert torch.equal(k[i], p[i])
+    assert torch.equal(k[0][:3], p[0][:3])   # radiance
+    for a, b in ((k[0][3:], p[0][3:]), (k[2], p[2])):   # miss records, miss colour
+        assert torch.allclose(a, b, rtol=1e-6, atol=1e-7)
+    for a, b in zip(k, cw.wavefront_grad_fwd(*args, pathwise=True)):
+        assert torch.equal(_bits(a), _bits(b))
+    return k[4]
+
+
+def _b4_equals_plain(scene, cam, rays, depth):
+    """B4 against its plain version (radiance bits, sums, eout, two
+    launches); returns the pathwise stash's int rows of the same rays."""
+    tb = cw.build_tables(scene)
+    o, d, tm, sid = rays
+    hdri = cw.hdri_rows_for(scene, sid, 3, depth)
+    out, flags = cw.wavefront_fwd(tb, o, d, tm, sid, 3, depth, hdri)
+    g3 = torch.rand((3, sid.shape[0]), device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(1)) * 1e-3
+    mc, lmd, _ = cw._env_miss_terms(scene, cam, cw._env_carry(scene, out, flags),
+                                    g3, want_lmd=True)
+    miss = (cw.MISS_STREAM, (0.0, 0.0, 0.0))
+    args = (tb, o, d, tm, sid, 3, depth, g3, miss, torch.cat([mc, lmd]).contiguous(),
+            hdri, int(scene.textures.color.shape[0]), int(scene.materials.kind.shape[0]))
+    before = cw.LAUNCHES_GRAD_FUSED
+    k = cw.wavefront_grad_fused(*args)
+    assert cw.LAUNCHES_GRAD_FUSED == before + 1
+    p = cw._wavefront_grad_fused_plain(*args)
+    assert torch.equal(k[0], p[0])
+    for a, b in zip(k[1:4], p[1:4]):
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+    assert float((k[4] - p[4]).abs().max()) <= 1e-6 * float(p[4].abs().max())
+    for a, b in zip(k, cw.wavefront_grad_fused(*args)):
+        assert torch.equal(_bits(a), _bits(b))
+    return cw._wavefront_grad_fwd_plain(tb, *rays, 3, depth, miss, pathwise=True)[4]
+
+
+def _edge_case(fused):
+    scene, glass = _marble_edge_scene(mini_env() if fused else None)
+    cam = dataclasses.replace(tcamera.Camera(**NOISE_GLOSSY_CAM), image_width=64)
+    return scene, cam, glass, _b4_equals_plain if fused else _b5a_equals_plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 127, 129])
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_b5a_and_b4_at_ragged_ray_counts(fused, n):
+    """Ray counts around a warp and around B4's block of 128 rays (and B5a's
+    blocks of 128 threads): the lanes past the count take the marble's turns
+    with no ray and write nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene, cam, _, check = _edge_case(fused)
+    check(scene, cam, _frame_rays(cam, n, 5), 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", [1, 10, 20, 50])
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_b5a_and_b4_at_depths(fused, depth):
+    """Depth 1 to B4's cap of 50: B4's stash holds the bounces entered and
+    its sweep starts at the warp's deepest."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene, cam, _, check = _edge_case(fused)
+    mk = check(scene, cam, _frame_rays(cam, 2048, 6), depth)[:, 2]
+    assert bool(((mk[0] & cw.PW_MARBLE) != 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_b5a_and_b4_marble_at_first_and_last_bounce(fused):
+    """Marble winners at bounce 0 and at the last bounce (depth 3), on the
+    floor, on a metal sphere and on a glass sphere of marble (its mask
+    without PW_MARBLE)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene, cam, glass, check = _edge_case(fused)
+    si = check(scene, cam, _frame_rays(cam, 4096, 7), 3)
+    mk = si[:, 2]
+    marble = (mk & cw.PW_MARBLE) != 0
+    assert bool(marble[0].any()) and bool(marble[2].any())
+    assert bool((marble & ((mk & cw.PW_METAL) != 0)).any())
+    glass_hits = (si[:, 1] == glass) & ((mk & cw.PW_HIT) != 0)
+    assert bool(glass_hits.any()) and not bool((marble & glass_hits).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [False, True])
+def test_cuda_b5a_and_b4_warps_of_all_one_and_no_marble_lanes(fused):
+    """Three warps built by hand from the camera's origin: 32 rays onto the
+    marble floor, 31 onto the back wall with one onto the floor, and 32 into
+    the sky, which all die at bounce 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene, cam, _, check = _edge_case(fused)
+    x = torch.linspace(-3.0, 3.0, 32, device="cuda")
+    floor = torch.stack([x, torch.full_like(x, -3.0), torch.full_like(x, -5.0)])
+    wall = torch.stack([x, torch.full_like(x, 3.0), torch.full_like(x, -15.0)])
+    wall[:, 17] = floor[:, 17]
+    sky = torch.stack([x * 0.1, torch.ones_like(x), torch.full_like(x, 0.5)])
+    d = torch.cat([floor, wall, sky], dim=1)
+    n = d.shape[1]
+    o = [torch.full((n,), float(v), device="cuda") for v in cam.look_from]
+    rays = (V3(*o), V3(*(c.contiguous() for c in d)), torch.zeros(n, device="cuda"),
+            cw.stream_to_i32(torch.arange(n, device="cuda")))
+    mk = check(scene, cam, rays, 4)[:, 2]
+    first = ((mk[0] & cw.PW_MARBLE) != 0).reshape(3, 32).sum(dim=1).tolist()
+    assert first == [32, 1, 0]
+    assert bool(((mk[0, 64:] & cw.PW_LIT) != 0).all()) and not bool(mk[1:, 64:].any())

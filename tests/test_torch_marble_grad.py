@@ -116,6 +116,19 @@ def test_marble_gradient_matches_jax_and_autograd(scale):
     np.testing.assert_allclose(grad[edge], j_grad[edge], rtol=1e-4, atol=1e-5 * big)
 
 
+@pytest.mark.parametrize("scale", [0.4, 4.0])
+def test_marble_grad_value_has_marbles_bits(scale):
+    """The premise of the fused kernel's one marble evaluation a hit (its
+    forward takes a marble winner's albedo from ``marble_grad``): the value
+    ``marble_grad`` returns is ``marble``'s bit for bit, compared as int32
+    (so -0 and +0 differ), on the seeded points."""
+    p, _ = _points(scale)
+    pv = V3(*torch.from_numpy(p.T.copy()))
+    s = torch.full((4096,), scale)
+    val, _ = ttex.marble_grad(pv, s)
+    assert torch.equal(val.view(torch.int32), ttex.marble(pv, s).view(torch.int32))
+
+
 @functools.lru_cache(maxsize=None)
 def _case():
     """The noise + glossy chunk through both packages (module docstring)."""

@@ -120,6 +120,18 @@ def test_cli_writes_png(tmp_path, capsys):
         tcli.main(["-scene", "not-a-scene", "-device", "cpu"])
 
 
+def test_cli_default_scene_is_the_jax_clis(tmp_path):
+    """With no ``-scene`` the port's CLI renders ``hdri-test``, as the JAX
+    package's does; its asset is missing here (ROADMAP C1), so both raise
+    FileNotFoundError naming it before any rendering."""
+    from go_raytracing_tpu.utils import cli as jcli
+
+    out = str(tmp_path / "default.png")
+    for main in (tcli.main, jcli.main):
+        with pytest.raises(FileNotFoundError, match="abandoned_hall_01_1k.hdr"):
+            main(["-spp", "1", "-width", "8", "-out", out])
+
+
 def test_render_without_device_raises_and_names_cuda():
     if torch.cuda.is_available():
         pytest.skip("this machine has a CUDA device")
