@@ -152,7 +152,6 @@ import dataclasses
 import functools
 import json
 import pathlib
-import re
 import subprocess
 import sys
 import time
@@ -233,12 +232,13 @@ MESH_RAYS_IN, MESH_DEAD_IN, MESH_BYTES_OUT = 7 * 4, 4, 4 + 4 + 4 + 1
 # chunk): a run that reads them slower is on a slower card.
 CARD_YARDSTICK = {"wavefront_fwd": 2.718, "mesh_sweep": 0.9187, "planar_closest": 0.2383}
 # Registers and spill bytes (ptxas) of the kernels that share device code
-# with the redesigned B4 and B5a but keep their own design: B1, B2, B6, B11
-# and B5b's two instantiations, as recorded in PERF.md section 6.  A build
-# that changes them changed code it must not change (and the card yardstick,
-# whose first kernel is B1).
+# with the redesigned B4 and B5a <4> but keep their own design: B1, B2, B6,
+# B11, B5a <2> and B5b's two instantiations, as recorded in PERF.md section
+# 6.  A build that changes them changed code it must not change (and the
+# card yardstick, whose first kernel is B1).
 UNCHANGED_KERNELS = {
     "wavefront_kernelILi0E": (96, 0), "wavefront_kernelILi1E": (114, 0),
+    "wavefront_kernelILi2E": (120, 0),
     "wavefront_kernelILi3E": (96, 0), "wavefront_resume_kernel": (96, 84),
     "wavefront_grad_rev_pathwise_kernelILi19E": (110, 0),
     "wavefront_grad_rev_pathwise_kernelILi20E": (118, 0)}
@@ -3223,8 +3223,8 @@ def replay_against(phase, name, scene, cam, tier_ms, tier_grads, tier_loss, targ
 
 
 def grad_fwd_marble_instantiation(tb, rays, depth, miss):
-    """B5a's instantiation of a scene with marble (``wavefront_pathwise_kernel
-    <4>``: 20 stash rows, the marble's turns across the warp compiled in) on
+    """B5a's instantiation of a scene with marble (``wavefront_kernel<4>``:
+    20 stash rows, the marble's turns across the warp compiled in) on
     rays of any scene, through the launcher the wrapper calls (not counted:
     a timing, not the main path).  Returns what ``wavefront_grad_fwd``
     returns."""
@@ -3581,331 +3581,11 @@ def resident_warps():
             {a: b * t // 32 for a, (b, t) in sphere.items()}, stream[False][2])
 
 
-# ---- kernel variants (--variants): B5a and B4 built from other sources --------
-#
-# ``python3 chip_smoke.py --variants attribution --base DIR`` and
-# ``--variants designs --base DIR`` (DIR: an earlier checkout's
-# go_raytracing_tpu_torch/csrc, e.g. unpacked by ``git archive``) build
-# copies of a source tree with text substitutions, each with the flags of
-# ops/_build.py, load each in place of the library the wrappers call, and
-# time them against each other in turns on the same chunks (each variant,
-# then all again in reverse order; 3 rounds of 2 launches a turn; the median).
-# ``attribution`` takes the earlier tree apart: its marble replaced by a
-# constant (the marble's share), one ray a thread in blocks of 128 (the block
-# drain), a register target, no reverse sweep (the forward's share).
-# ``designs`` holds this checkout's B5a and B4 against the earlier ones, bit
-# for bit where the results must be equal, times this checkout's block
-# shapes and register targets against others, and both marble jobs' fwd+bwd
-# with the two trees' kernels in turns.  Nothing of this runs without the
-# flag.
-
-_M_CONST = ("const float m = marble(p, inv_scale);",
-            "const float m = 0.5f + 0.0f * inv_scale;")
-_REV_M_CONST = ("marble_grad(pv, fk[19 * zs], dm);",
-                "dm[0] = 0.0f; dm[1] = 0.0f; dm[2] = fk[19 * zs];")
-_OLD_LB = ("template <int MODE>\n__global__ void __launch_bounds__(THREADS)",
-           "template <int MODE>\n__global__ void __launch_bounds__(THREADS, 6)")
-_OLD_FUSED_128 = [("constexpr int FUSED_THREADS = 256;", "constexpr int FUSED_THREADS = 128;"),
-                  ("constexpr int FUSED_RAYS_PER_THREAD = 4;",
-                   "constexpr int FUSED_RAYS_PER_THREAD = 1;")]
-_OLD_FUSED_LB4 = ("__global__ void __launch_bounds__(FUSED_THREADS)",
-                  "__global__ void __launch_bounds__(FUSED_THREADS, 4)")
-_OLD_NO_REVERSE = ("reverse_ray<F_ROWS>(R, valid, sf, si, 1, depth,",
-                   "reverse_ray<F_ROWS>(R, valid, sf, si, 1, 0,")
-
-
-def _set(name, value):
-    return {"PW_BLOCKS_PER_SM": ("wavefront.cu", "constexpr int PW_BLOCKS_PER_SM = 6;"),
-            "PW_MARBLE_BLOCKS_PER_SM": ("wavefront.cu",
-                                        "constexpr int PW_MARBLE_BLOCKS_PER_SM = 4;"),
-            "FUSED_MIN_BLOCKS": ("wavefront_grad_fused.cu",
-                                 "constexpr int FUSED_MIN_BLOCKS = 4;"),
-            "FUSED_THREADS": ("wavefront_grad_fused.cu",
-                              "constexpr int FUSED_THREADS = 128;")}[name] + (value,)
-
-
-def _subs(*rules):
-    """{file: [(old, new)]} from (file, old, new) triples; a (file, old,
-    value) of ``_set`` sets that constant."""
-    out = {}
-    for f, old, new in rules:
-        if not isinstance(new, str):
-            new = old.rsplit("=", 1)[0] + f"= {new};"
-        out.setdefault(f, []).append((old, new))
-    return out
-
-
-W, F = "wavefront", "wavefront_grad_fused"
-# set -> {(library, variant): (tree, substitutions)}; tree "base" (--base)
-# or "this" (this checkout)
-VARIANT_SETS = {
-    "attribution": {
-        (W, "first"): ("base", {}),
-        (W, "marble_constant"): ("base", _subs(("wavefront_trace.cuh", *_M_CONST))),
-        (W, "six_blocks"): ("base", _subs(("wavefront.cu", *_OLD_LB))),
-        (F, "first"): ("base", {}),
-        (F, "one_ray_128"): ("base", _subs(*(("wavefront_grad_fused.cu", *r)
-                                               for r in _OLD_FUSED_128))),
-        (F, "one_ray_128_four_blocks"): ("base", _subs(
-            *(("wavefront_grad_fused.cu", *r) for r in _OLD_FUSED_128 + [_OLD_FUSED_LB4]))),
-        (F, "marble_constant"): ("base", _subs(("wavefront_trace.cuh", *_M_CONST),
-                                               ("wavefront_reverse.cuh", *_REV_M_CONST))),
-        (F, "marble_constant_one_ray_128_four_blocks"): ("base", _subs(
-            ("wavefront_trace.cuh", *_M_CONST), ("wavefront_reverse.cuh", *_REV_M_CONST),
-            *(("wavefront_grad_fused.cu", *r) for r in _OLD_FUSED_128 + [_OLD_FUSED_LB4]))),
-        (F, "no_reverse"): ("base", _subs(("wavefront_grad_fused.cu", *_OLD_NO_REVERSE))),
-    },
-    "designs": {
-        (W, "first"): ("base", {}),
-        (W, "this"): ("this", {}),
-        (W, "pathwise_4_blocks"): ("this", _subs(_set("PW_BLOCKS_PER_SM", 4))),
-        (W, "pathwise_5_blocks"): ("this", _subs(_set("PW_BLOCKS_PER_SM", 5))),
-        (W, "marble_5_blocks"): ("this", _subs(_set("PW_MARBLE_BLOCKS_PER_SM", 5))),
-        (W, "marble_6_blocks"): ("this", _subs(_set("PW_MARBLE_BLOCKS_PER_SM", 6))),
-        (F, "first"): ("base", {}),
-        (F, "this"): ("this", {}),
-        (F, "three_blocks"): ("this", _subs(_set("FUSED_MIN_BLOCKS", 3))),
-        (F, "five_blocks"): ("this", _subs(_set("FUSED_MIN_BLOCKS", 5))),
-        (F, "threads_64"): ("this", _subs(_set("FUSED_THREADS", 64),
-                                          _set("FUSED_MIN_BLOCKS", 8))),
-        (F, "threads_256"): ("this", _subs(_set("FUSED_THREADS", 256),
-                                           _set("FUSED_MIN_BLOCKS", 2))),
-    },
-}
-# the chunks each set times: (B5a runs, B4 runs), each (tag, variants)
-VARIANT_RUNS = {
-    "attribution": (
-        [("b5a_2_cornell_glossy", ["first", "six_blocks"]),
-         ("b5a_4_cornell_glossy", ["first", "six_blocks"]),
-         ("b5a_4_marble_glossy", ["first", "marble_constant", "six_blocks"])],
-        [("b4_22_marble_glossy_nee", ["first", "one_ray_128", "one_ray_128_four_blocks",
-                                      "marble_constant",
-                                      "marble_constant_one_ray_128_four_blocks",
-                                      "no_reverse"]),
-         ("b4_19_hdri_test_nee", ["first", "one_ray_128", "one_ray_128_four_blocks",
-                                  "no_reverse"])]),
-    "designs": (
-        [("b5a_2_cornell_glossy", ["first", "this", "pathwise_4_blocks",
-                                   "pathwise_5_blocks"]),
-         ("b5a_4_cornell_glossy", ["first", "this", "marble_5_blocks", "marble_6_blocks"]),
-         ("b5a_4_marble_glossy", ["first", "this", "marble_5_blocks", "marble_6_blocks"])],
-        [("b4_22_marble_glossy_nee", ["first", "this", "three_blocks", "five_blocks",
-                                      "threads_64", "threads_256"]),
-         ("b4_19_hdri_test_nee", ["first", "this", "three_blocks", "five_blocks",
-                                  "threads_64", "threads_256"])]),
-}
-
-
-def build_variant(key, tree, subs, base, root):
-    import ctypes
-    import shutil
-
-    lib, name = key
-    d = root / f"{lib}_{name}"
-    shutil.rmtree(d, ignore_errors=True)
-    shutil.copytree(base if tree == "base" else _build.CSRC_DIR, d)
-    for f, rules in subs.items():
-        text = (d / f).read_text()
-        for old, new in rules:
-            if old not in text:
-                raise RuntimeError(f"{key}: {old!r} is not in {f}")
-            text = text.replace(old, new)
-        (d / f).write_text(text)
-    so = d / f"lib{lib}.so"
-    proc = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-fmad=false", "-o",
-                           str(so), str(d / f"{lib}.cu")], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {key}:\n{proc.stdout}{proc.stderr}")
-    kernels = _build._ptxas_stats(proc.stdout + proc.stderr)
-    return key, _build.Built(ctypes.CDLL(str(so)), so, 0.0,
-                             max(r for r, _ in kernels.values()),
-                             sum(s for _, s in kernels.values()), kernels, "")
-
-
-def _bits(x):
-    return x.view(torch.int32) if x.dtype == torch.float32 else x
-
-
-def variants_main(which, base, out_dir):
-    """The ``--variants`` mode: see the comment above VARIANT_SETS."""
-    from concurrent.futures import ThreadPoolExecutor
-
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke --variants: no CUDA device")
-    dev = torch.device("cuda", 0)
-    specs = VARIANT_SETS[which]
-    root = _build.BUILD_DIR / f"variants_{which}"
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(specs)) as pool:
-        built = dict(pool.map(lambda kv: build_variant(kv[0], *kv[1], base, root),
-                              specs.items()))
-    def tag(mangled):
-        m = re.search(r"\d+([a-z_]*kernel)(ILi\d+E)?", mangled)
-        return m.group(1) + (m.group(2) or "") if m else mangled
-
-    stats = {f"{lib}:{name}": {tag(k): v for k, v in b.kernels.items()}
-             for (lib, name), b in built.items()}
-    emit("variants_built", set=which, seconds=time.perf_counter() - t0,
-         nvidia_smi=smi("name,power.limit"), registers_and_spills=stats)
-    res = {"set": which, "nvidia_smi": smi("name,power.limit"), "stats": stats}
-
-    def use(lib, name):
-        _build._loaded[(lib, False)] = built[(lib, name)]
-
-    def turns(tag, lib, names, fn):
-        taken = {}
-        for nm in names + names[::-1]:
-            use(lib, nm)
-            fn()
-            ms, _ = rounds_ms(fn, rounds=3, repeats=2)
-            taken.setdefault(nm, []).extend(ms)
-        res[tag] = {nm: median(v) for nm, v in taken.items()}
-        res[tag + "_rounds"] = taken
-        emit("variants_" + tag, **res[tag])
-
-    b5a_runs, b4_runs = VARIANT_RUNS[which]
-    glossy, gcam = grt.load_scene("cornell-glossy")
-    gcam = dataclasses.replace(gcam, image_width=600, aspect_ratio=1.0,
-                               samples_per_pixel=100, max_depth=5)
-    mg, mcam = marble_glossy_scene(dev)
-    scenes = {"cornell_glossy": (glossy, gcam), "marble_glossy": (mg, mcam)}
-    n = 3_600_000   # a chunk of both jobs' main paths (10 chunks of 600x600x100)
-    for tag, names in b5a_runs:
-        sc, cam = scenes[tag.split("_", 2)[2]]
-        rays = chunk_rays(cam, n, 0, dev)
-        tb = cw.build_tables(sc)
-        miss = cw.miss_config(cam)
-        if tag.startswith("b5a_4") and not sc.has_noise:
-            fn = lambda: grad_fwd_marble_instantiation(tb, rays, cam.max_depth, miss)
-        else:
-            fn = lambda: cw.wavefront_grad_fwd(tb, *rays, 0, cam.max_depth, miss,
-                                               pathwise=True)
-        use(W, names[0])
-        ref = fn()
-        mk = ref[4][:, 2]
-        marble = (mk & cw.PW_MARBLE) != 0
-        lanes = marble[:, : n // 32 * 32].reshape(cam.max_depth, -1, 32).sum(dim=2)
-        res[tag + "_counts"] = dict(
-            rays=n, depth=cam.max_depth,
-            entered_share=float(((mk & (cw.PW_HIT | cw.PW_LIT)) != 0).sum())
-            / (n * cam.max_depth),
-            marble_hits_per_ray=float(marble.sum()) / n,
-            marble_rows_by_bounce=marble.sum(dim=1).tolist(),
-            warps_with_marble_by_bounce=(lanes > 0).sum(dim=1).tolist(),
-            marble_lanes_of_such_warps=[float(lanes[b][lanes[b] > 0].float().mean())
-                                        if bool((lanes[b] > 0).any()) else 0.0
-                                        for b in range(cam.max_depth)])
-        mismatches = {}
-        for nm in names[1:]:
-            if "constant" in nm:
-                continue
-            use(W, nm)
-            mismatches[nm] = [int((_bits(a) != _bits(b)).sum()) for a, b in zip(ref, fn())]
-        res[tag + "_counts"]["words_unlike_" + names[0]] = mismatches
-        emit("variants_" + tag + "_counts", **res[tag + "_counts"])
-        del ref, mk, marble, lanes
-        turns(tag, W, names, fn)
-        del rays
-        torch.cuda.empty_cache()
-
-    env = synthetic_sky()[0]
-    nee_m, ncam = marble_glossy_scene(dev, env)
-    nee_h, hcam = hdri_scene(dev, True, env)
-    scenes = {"marble_glossy_nee": (nee_m, ncam), "hdri_test_nee": (nee_h, hcam)}
-    for tag, names in b4_runs:
-        sc, cam = scenes[tag.split("_", 2)[2]]
-        use(W, "first")
-        n4 = cam.image_width * cam.image_height * cam.samples_per_pixel   # one chunk
-        depth = cam.max_depth
-        _, o, d, tm, ids, _, _ = renderer._chunk_rays(sc, cam, 0, 0, spp=cam.samples_per_pixel,
-                                                      chunk=n4, max_depth=depth, device=dev)
-        o, d = V3(*(c.contiguous() for c in o)), V3(*(c.contiguous() for c in d))
-        tm, sid = tm.contiguous(), cw.stream_to_i32(ids)
-        tb = cw.build_tables(sc)
-        rows = cw.hdri_rows_for(sc, sid, 0, depth)
-        out, flags = cw.wavefront_fwd(tb, o, d, tm, sid, 0, depth, rows)
-        miss = (cw.MISS_STREAM, (0.0, 0.0, 0.0))
-        mk = cw.wavefront_grad_fwd(tb, o, d, tm, sid, 0, depth, miss, pathwise=True)[4][:, 2]
-        length = (mk != 0).sum(dim=0).float()
-        res[tag + "_counts"] = dict(
-            rays=n4, depth=depth,
-            entered_share=float(((mk & (cw.PW_HIT | cw.PW_LIT)) != 0).sum()) / (n4 * depth),
-            marble_hits_per_ray=float(((mk & cw.PW_MARBLE) != 0).sum()) / n4,
-            bounces_entered_per_ray=float(length.mean()),
-            warp_deepest_mean=float(length[: n4 // 32 * 32].reshape(-1, 32).max(dim=1)
-                                    .values.mean()),
-            block_1024_deepest_mean=float(length[: n4 // 1024 * 1024].reshape(-1, 1024)
-                                          .max(dim=1).values.mean()))
-        del mk, length
-        g3 = torch.rand((3, n4), device=dev,
-                        generator=torch.Generator(device=dev).manual_seed(0)) * 1e-6
-        mc, lmd, _ = cw._env_miss_terms(sc, cam, cw._env_carry(sc, out, flags), g3,
-                                        want_lmd=True)
-        args = (tb, o, d, tm, sid, 0, depth, g3, miss, torch.cat([mc, lmd]).contiguous(),
-                rows, int(sc.textures.color.shape[0]), int(sc.materials.kind.shape[0]))
-        want = torch.stack([out[c] + out[6 + c] * torch.where((flags & 1) != 0, mc[c], 0.0)
-                            for c in range(3)])
-        del out, flags
-        use(F, names[0])
-        ref = cw.wavefront_grad_fused(*args)
-        against = {names[0]: {"radiance_is_b1_plus_miss": bool(torch.equal(
-            _bits(ref[0]), _bits(want)))}}
-        for nm in names[1:]:
-            if "constant" in nm or nm == "no_reverse":
-                continue
-            use(F, nm)
-            a, b = cw.wavefront_grad_fused(*args), cw.wavefront_grad_fused(*args)
-            against[nm] = dict(
-                radiance_words_unlike=int((_bits(a[0]) != _bits(ref[0])).sum()),
-                same_bits_twice=all(torch.equal(_bits(x), _bits(y)) for x, y in zip(a, b)),
-                err_of_largest={k: float((x - y).abs().max()) / max(float(y.abs().max()),
-                                                                    1e-30)
-                                for k, x, y in zip(("color", "fuzz", "ior", "eout"),
-                                                   a[1:], ref[1:])})
-            del a, b
-        res[tag + "_counts"]["against_" + names[0]] = against
-        emit("variants_" + tag + "_counts", **res[tag + "_counts"])
-        del ref
-        turns(tag, F, names, lambda: cw.wavefront_grad_fused(*args))
-        del args, rows, o, d, tm, sid, mc, lmd, want
-        torch.cuda.empty_cache()
-    if which == "designs":
-        # end to end: render_grad of both marble jobs with the earlier and
-        # this checkout's kernels swapped in turns, the rest of the program
-        # the same (first, this, this, first; two calls a turn)
-        jobs = {"marble_glossy_fwd_bwd": (mg, mcam), "marble_glossy_nee_fwd_bwd": (nee_m, ncam)}
-        for tag, (sc, cam) in jobs.items():
-            target = grt.render(sc, cam, seed=0) / cam.samples_per_pixel * 0.8
-            taken = {}
-            for nm in ("first", "this", "this", "first"):
-                use(W, nm)
-                use(F, nm)
-                grt.render_grad(sc, cam, target, seed=0)
-                for _ in range(2):
-                    ms, _ = cuda_ms(lambda: grt.render_grad(sc, cam, target, seed=0))
-                    taken.setdefault(nm, []).append(ms)
-            res[tag] = {nm: median(v) for nm, v in taken.items()}
-            res[tag + "_rounds"] = taken
-            emit("variants_" + tag, **res[tag], rounds=taken)
-    emit("variants_done", set=which, seconds=time.perf_counter() - t0)
-    (out_dir / f"variants_{which}.json").write_text(json.dumps(res, indent=1))
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out-dir", default=str(_build.BUILD_DIR),
                     help="where the rendered PNG goes")
-    ap.add_argument("--variants", choices=sorted(VARIANT_SETS),
-                    help="only build and time B5a and B4 variants (see VARIANT_SETS)")
-    ap.add_argument("--base", help="with --variants: an earlier tree's csrc directory")
     args = ap.parse_args()
-    if args.variants:
-        if not args.base:
-            raise SystemExit("chip_smoke --variants needs --base")
-        out_dir = pathlib.Path(args.out_dir)
-        out_dir.mkdir(parents=True, exist_ok=True)
-        return variants_main(args.variants, pathlib.Path(args.base), out_dir)
-
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device: this check runs on a GPU only")
     dev = torch.device("cuda", 0)
@@ -3932,15 +3612,15 @@ def main():
         return stats
 
     # wavefront_kernel<0> is the forward, <1> the product-chain gradient
-    # forward, <3> the record; wavefront_pathwise_kernel<2> the pathwise
+    # forward, <3> the record, <2> the pathwise
     # gradient forward
     fwd_regs, fwd_spill = kernel_stats(built, "wavefront_kernelILi0E")
     rec_regs = kernel_stats(built, "wavefront_kernelILi3E")
     rows_regs = kernel_stats(built_rows, "row_sums_kernel")
     gfwd_regs, gfwd_spill = kernel_stats(built, "wavefront_kernelILi1E")
-    pfwd_regs, pfwd_spill = kernel_stats(built, "wavefront_pathwise_kernelILi2E")
+    pfwd_regs, pfwd_spill = kernel_stats(built, "wavefront_kernelILi2E")
     # <4>: the pathwise gradient forward of a scene with marble (20 rows)
-    pfwd_marble = kernel_stats(built, "wavefront_pathwise_kernelILi4E")
+    pfwd_marble = kernel_stats(built, "wavefront_kernelILi4E")
     grev_regs, grev_spill = kernel_stats(built_grad, "wavefront_grad_rev_kernel")
     # the pathwise reverse kernel: <19> a stash of 19 float rows a bounce,
     # <20> of a scene with marble (dmarble/dp compiled in); the fused

@@ -1,7 +1,6 @@
 // Wavefront megakernel for Hopper (sm_90a): the whole bounce loop of the
 // path tracer in one kernel, one thread per ray.  Five instantiations of
-// one loop (wavefront_kernel, and wavefront_pathwise_kernel for the two
-// pathwise ones), and the resumable kernel (wavefront_resume_kernel, below):
+// one template, and the resumable kernel (wavefront_resume_kernel, below):
 //
 //   wavefront_kernel<FWD>       the forward render.  Replaces the forward
 //       specialization of make_kernel in the JAX package's
@@ -13,14 +12,14 @@
 //       the miss colour.  Replaces make_kernel(grad_mode=True, phase="fwd")
 //       of the same file (launched by _call_grad_fwd, entry point
 //       grad_fwd_stash), product rows.
-//   wavefront_pathwise_kernel<PATHWISE>  the gradient forward of the pathwise tier
+//   wavefront_kernel<PATHWISE>  the gradient forward of the pathwise tier
 //       (scenes with metal or glass): the same bounce loop, and per bounce
 //       the 19 float + 3 int rows that the pathwise reverse sweep
 //       (wavefront_grad_pathwise.cu) reads: throughput, attenuation, hit
 //       point, incoming direction, normal, fuzz, IOR, d(normal)/d(point),
 //       hit distance; albedo slot, material id, mask.  Replaces
 //       make_kernel(grad_mode=True, pathwise=True, phase="fwd"); in a
-//       scene with marble wavefront_pathwise_kernel<PATHWISE_MARBLE>, the same with
+//       scene with marble wavefront_kernel<PATHWISE_MARBLE>, the same with
 //       a 20th row, the winner's marble scale (mask bit 8192 marks a marble
 //       winner in both).  It stores no NEE rows: the reverse sweep
 //       recomputes that chain, and of the shadow sweep only the outcome is
@@ -106,20 +105,22 @@
 // What the pathwise reverse sweep recomputes (random draws, the Fresnel
 // decision, the light sample) comes from wavefront_common.cuh in both.
 //
-// The pathwise gradient forwards (B5a) run in a kernel of their own.  What
-// held them back on this card, measured (PERF.md): in a scene with marble
-// the marble itself, half the launch on marble-glossy: one lane a ray runs
-// 56 hashed lattice corners in one dependent chain wherever one lane of its
-// warp hits marble, and after the first bounce that is 2 to 8 lanes of a
-// warp; then occupancy (120 registers, 16 warps an SM).  The design:
+// The pathwise gradient forward of a scene with marble (B5a <4>).  What
+// held it back on this card, measured (PERF.md): the marble itself, half
+// the launch on marble-glossy: one lane a ray runs 56 hashed lattice
+// corners in one dependent chain wherever one lane of its warp hits
+// marble, and after the first bounce that is 2 to 8 lanes of a warp.  The
+// design, behind `if constexpr` so that the other instantiations compile
+// as before:
 //   * the marble across the warp (marble_warp, wavefront_common.cuh): the
-//     lanes of a warp stay in the bounce loop until its last ray is done,
-//     and at each bounce the warp takes the marble points of its lanes one
-//     at a time, 28 lanes evaluating a point's 56 corners together, added
-//     in the marble's own order, so every stash row keeps its bits;
-//   * a register target of their own: six blocks an SM without marble (24
-//     warps), four with it (no spill); B1's THREADS and BLOCKS_PER_SM, and
-//     the other instantiations' code, are as they were.
+//     lanes of a warp take the same turns of the grid-stride loop and stay
+//     in the bounce loop until its last ray is done, and at each bounce the
+//     warp takes the marble points of its lanes one at a time, 28 lanes
+//     evaluating a point's 56 corners together, added in the marble's own
+//     order, so every stash row keeps its bits;
+//   * four blocks an SM as its register target (16 warps, no spill).
+// B5a without marble (<2>) keeps its first design: no register target
+// measured faster (PERF.md).
 //
 // Table layouts (row-major [rows, columns], one column per primitive) are
 // those of ops/cuda_wavefront.build_tables.
@@ -131,13 +132,13 @@
 
 namespace {
 
-// Blocks of THREADS an SM the pathwise gradient forwards are built for
-// (B5a), each measured on the H100 against the other counts (PERF.md):
-// without marble six, 24 warps at 80 registers a thread; with marble four,
-// 16 warps at up to 128 registers with no spill (at five or six, rays that
-// hit no marble lost 2 to 8 %).
-constexpr int PW_BLOCKS_PER_SM = 6;
+// Blocks of THREADS an SM the instantiations are built for: B5a's with
+// marble four, 16 warps at up to 128 registers with no spill (measured on
+// the H100 against five and six, PERF.md); the others MIN_BLOCKS_UNSET,
+// which sets no minimum and leaves their registers to the compiler as
+// before (a minimum of 1 is not the same: it took B1 from 96 to 122).
 constexpr int PW_MARBLE_BLOCKS_PER_SM = 4;
+constexpr int MIN_BLOCKS_UNSET = 0;
 
 // The block's copy of the scalar tables in shared memory (when they fit),
 // or the tables in device memory.
@@ -165,7 +166,8 @@ __device__ __forceinline__ Tables stage_tables(const Tables& G, int tables_in_sm
 }
 
 template <int MODE>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MODE == PATHWISE_MARBLE ? PW_MARBLE_BLOCKS_PER_SM
+                                                                   : MIN_BLOCKS_UNSET)
 wavefront_kernel(Tables G, const float* __restrict__ ox,
                  const float* __restrict__ oy, const float* __restrict__ oz,
                  const float* __restrict__ dx, const float* __restrict__ dy,
@@ -175,65 +177,17 @@ wavefront_kernel(Tables G, const float* __restrict__ ox,
                  int max_depth, int tables_in_smem, Stash Z, Miss M,
                  float* __restrict__ miss_col, Record D,
                  const float* __restrict__ hdri) {
-    extern __shared__ float smem[];
-    const Tables S = stage_tables(G, tables_in_smem, smem);
-
-    const long long step = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n_rays;
-         i += step) {
-        float o[3] = {ox[i], oy[i], oz[i]};
-        float d[3] = {dx[i], dy[i], dz[i]};
-        float tp[3] = {1.0f, 1.0f, 1.0f};
-        float rad[3] = {0.0f, 0.0f, 0.0f};
-        float m_dir[3] = {0.0f, 0.0f, 0.0f};
-        float m_tp[3] = {0.0f, 0.0f, 0.0f};
-        int flags = FLAG_ALIVE | FLAG_ALLOW;
-        trace_ray<MODE>(S, o, d, tp, tm[i], stream[i], seed, 0, max_depth, rad,
-                        m_dir, m_tp, flags, Z, D, i,
-                        Hdri{hdri != nullptr ? hdri + i : nullptr, n_rays});
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-            out[(0 + c) * n_rays + i] = rad[c];
-            out[(3 + c) * n_rays + i] = m_dir[c];
-            out[(6 + c) * n_rays + i] = m_tp[c];
-        }
-        flags_out[i] = flags;
-        if constexpr (MODE == PRODUCT || MODE == PATHWISE || MODE == PATHWISE_MARBLE) {
-            float col[3] = {0.0f, 0.0f, 0.0f};
-            if (flags & 1) miss_colour(M, m_dir, col);
-#pragma unroll
-            for (int c = 0; c < 3; ++c) miss_col[c * n_rays + i] = col[c];
-        }
-    }
-}
-
-// The pathwise gradient forwards (B5a: PATHWISE, PATHWISE_MARBLE): the loop
-// of wavefront_kernel with a register target of their own, and whole warps:
-// every lane of a warp takes the same turns of the grid-stride loop, those
-// past the ray count with no ray, so that the marble's turns across the
-// warp (marble_warp) find all 32 lanes.
-template <int MODE>
-__global__ void __launch_bounds__(THREADS, MODE == PATHWISE_MARBLE
-                                               ? PW_MARBLE_BLOCKS_PER_SM
-                                               : PW_BLOCKS_PER_SM)
-wavefront_pathwise_kernel(Tables G, const float* __restrict__ ox,
-                          const float* __restrict__ oy, const float* __restrict__ oz,
-                          const float* __restrict__ dx, const float* __restrict__ dy,
-                          const float* __restrict__ dz, const float* __restrict__ tm,
-                          const uint32_t* __restrict__ stream, float* __restrict__ out,
-                          int* __restrict__ flags_out, long long n_rays, uint32_t seed,
-                          int max_depth, int tables_in_smem, Stash Z, Miss M,
-                          float* __restrict__ miss_col, Record D,
-                          const float* __restrict__ hdri) {
-    constexpr bool COOP = MODE == PATHWISE_MARBLE;
+    // With marble every lane of a warp takes the same turns of the
+    // grid-stride loop, those past the ray count with no ray, so that the
+    // marble's turns across the warp (marble_warp) find all 32 lanes.
+    constexpr bool WHOLE_WARPS = MODE == PATHWISE_MARBLE;
     extern __shared__ float smem[];
     const Tables S = stage_tables(G, tables_in_smem, smem);
 
     const long long step = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         i - (threadIdx.x & 31) < n_rays; i += step) {
-        const bool valid = i < n_rays;
-        if (!COOP && !valid) break;
+         (WHOLE_WARPS ? i - (threadIdx.x & 31) : i) < n_rays; i += step) {
+        const bool valid = !WHOLE_WARPS || i < n_rays;
         float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 0.0f};
         float tmv = 0.0f;
         uint32_t sid = 0;
@@ -263,10 +217,12 @@ wavefront_pathwise_kernel(Tables G, const float* __restrict__ ox,
             out[(6 + c) * n_rays + i] = m_tp[c];
         }
         flags_out[i] = flags;
-        float col[3] = {0.0f, 0.0f, 0.0f};
-        if (flags & 1) miss_colour(M, m_dir, col);
+        if constexpr (MODE == PRODUCT || MODE == PATHWISE || MODE == PATHWISE_MARBLE) {
+            float col[3] = {0.0f, 0.0f, 0.0f};
+            if (flags & 1) miss_colour(M, m_dir, col);
 #pragma unroll
-        for (int c = 0; c < 3; ++c) miss_col[c * n_rays + i] = col[c];
+            for (int c = 0; c < 3; ++c) miss_col[c * n_rays + i] = col[c];
+        }
     }
 }
 
@@ -398,16 +354,10 @@ int launch(const float* pt, const float* st, const float* vt, const float* lt,
     const int err = setup(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights,
                           n_rays, L);
     if (err != 0) return err;
-    if constexpr (MODE == PATHWISE || MODE == PATHWISE_MARBLE)
-        wavefront_pathwise_kernel<MODE><<<L.blocks, THREADS, L.smem_bytes,
-                                           (cudaStream_t)cuda_stream>>>(
-            L.G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, out, flags,
-            n_rays, seed, max_depth, L.smem_bytes > 0, Z, M, miss_col, D, hdri);
-    else
-        wavefront_kernel<MODE><<<L.blocks, THREADS, L.smem_bytes,
-                                  (cudaStream_t)cuda_stream>>>(
-            L.G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, out, flags,
-            n_rays, seed, max_depth, L.smem_bytes > 0, Z, M, miss_col, D, hdri);
+    wavefront_kernel<MODE><<<L.blocks, THREADS, L.smem_bytes,
+                              (cudaStream_t)cuda_stream>>>(
+        L.G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, out, flags,
+        n_rays, seed, max_depth, L.smem_bytes > 0, Z, M, miss_col, D, hdri);
     return (int)cudaGetLastError();
 }
 
@@ -539,8 +489,8 @@ extern "C" int wavefront_resume_launch(
 extern "C" int wavefront_pathwise_occupancy(int marble, int smem_bytes,
                                             int* blocks_per_sm, int* threads) {
     *threads = THREADS;
-    const void* fn = marble ? (const void*)wavefront_pathwise_kernel<PATHWISE_MARBLE>
-                            : (const void*)wavefront_pathwise_kernel<PATHWISE>;
+    const void* fn = marble ? (const void*)wavefront_kernel<PATHWISE_MARBLE>
+                            : (const void*)wavefront_kernel<PATHWISE>;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, THREADS,
                                                               (size_t)smem_bytes);
 }
