@@ -40,12 +40,18 @@ render's launches are), then the card's speed (``card_yardstick``: three
 kernels beside their times in PERF.md, so that a slow card does not read as
 a redesign's loss).  Then the replay tier of ``render_grad``: the
 record kernel against the forward kernel, its plain version and the
-standard integrator's record (``record_kernel_vs_plain``, early), ``random``
+standard integrator's record (``record_kernel_vs_plain``, early; its
+segment-culled sphere sweep on the test sets of rays at box corners,
+edges and axes, ties, a ground sphere and 63 / 64 / 65 spheres,
+``record_cull_sets``), ``random``
 (600x337, 25 spp, depth 10, recorded by the record kernel) and
 ``cornell-lucy`` (600x600, 25 spp, depth 5, 112,128 triangles x 10,
 recorded through ``mesh_stream``) at full size (``replay_random_fwd_bwd``,
 ``replay_lucy_fwd_bwd``), a ``torch.profiler`` split of one replay chunk
-(``replay_profile``), the record kernel alone (``record_kernel_timing``),
+(``replay_profile``), the record kernel alone beside B1 on the same rays,
+with the box and sphere tests its culled sweep needs (counted by the
+sweep's plain mirror on the whole chunk) and both bounds, the culled and
+the brute sweep's (``record_kernel_timing``),
 both scenes at 32x32 against the CPU's plain versions and autograd
 (``replay_check``), the row-sum kernel of ``take_rows``' backward pass
 (``row_sums_kernel``; not a port of a TPU kernel, so not in the ``kernels``
@@ -104,7 +110,9 @@ version's bits) and its radiance must be the forward kernel's bit for bit.  The
 pathwise reverse kernel is held against its plain version on the kernel's
 own stash: each key of the gradients dict (three colour tables, fuzz, ior)
 within 1e-4 of the key's largest entry; and two launches on one stash must
-give the same bits.  Autograd is no oracle of this tier (behind a fuzzy
+give the same bits; with marble also on stashes whose marble rows are set
+warp by warp (0, 1 or 32 marble lanes; a ray's first and last bounce),
+depth 1 to 50 (``b5b_marble_lanes``).  Autograd is no oracle of this tier (behind a fuzzy
 metal a colour's gradient also flows through positions): the plain version
 is held against the JAX kernel, and that against ``jax.grad``, by the tests.
 
@@ -134,7 +142,9 @@ gradients to autograd through the standard integrator within 2e-3, each
 calls' gradients to each other's bits.
 
 The record kernel's radiance and flags must be the forward kernel's bits and
-its record its plain version's on every ray-bounce (gate 0.0); each field
+its record its plain version's on every ray-bounce (gate 0.0; with 64
+spheres and more the kernel's sweep is culled, the plain version's brute:
+the least (t, scene index) makes them the same bits); each field
 must equal the standard integrator's record on 99.9 % of ray-bounces (ties
 break otherwise between the two sweeps).  The replay tier's loss must be
 the loss of ``render``'s picture (rtol 1e-5), its gradients finite, the
@@ -174,6 +184,11 @@ from go_raytracing_tpu_torch.render import renderer
 from go_raytracing_tpu_torch.scenes import builders
 from go_raytracing_tpu_torch.utils import stream_micro as sm
 
+# the shared scene and ray builders of the port's tests (culled-sweep sets,
+# marble lane patterns)
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+import test_torch_helpers as th  # noqa: E402
+
 RTOL = ATOL = 1e-3
 MAX_MISMATCH_SHARE = 0.005
 MAX_MEAN_REL_DIFF = 0.01
@@ -211,7 +226,7 @@ PEAK_INT32_OPS = PEAK_FP32_FLOPS / 2
 # Float32 operations of the mesh kernels (csrc/mesh.cu), per test:
 #   local ray, per (ray, instance): origin (18), direction (15), 1/d (9) = 42
 #   slab test of a box: per axis 2 sub, 2 mul, min, max, 2 clips (8) x 3
-#     and the compare                                                   = 25
+#     and the compare (the record kernel's sphere segments' too)        = 25
 #   Moller-Trumbore: h (9), a (5), |a| test (2), f (2), s (3), u (6),
 #     q (9), v (6), t (6), accept tests (7)                             = 55
 #   Baldwin-Weber, every triangle: den (5), num (6), |den| test (2), t (2),
@@ -232,16 +247,14 @@ MESH_RAYS_IN, MESH_DEAD_IN, MESH_BYTES_OUT = 7 * 4, 4, 4 + 4 + 4 + 1
 # chunk): a run that reads them slower is on a slower card.
 CARD_YARDSTICK = {"wavefront_fwd": 2.718, "mesh_sweep": 0.9187, "planar_closest": 0.2383}
 # Registers and spill bytes (ptxas) of the kernels that share device code
-# with the redesigned B4 and B5a <4> but keep their own design: B1, B2, B6,
-# B11, B5a <2> and B5b's two instantiations, as recorded in PERF.md section
-# 6.  A build that changes them changed code it must not change (and the
-# card yardstick, whose first kernel is B1).
+# with the redesigned B4, B5a <4>, B5b <20> and B6 but keep their own
+# design: B1, B2, B11, B5a <2> and B5b without marble, as recorded in
+# PERF.md section 6.  A build that changes them changed code it must not
+# change (and the card yardstick, whose first kernel is B1).
 UNCHANGED_KERNELS = {
     "wavefront_kernelILi0E": (96, 0), "wavefront_kernelILi1E": (114, 0),
-    "wavefront_kernelILi2E": (120, 0),
-    "wavefront_kernelILi3E": (96, 0), "wavefront_resume_kernel": (96, 84),
-    "wavefront_grad_rev_pathwise_kernelILi19E": (110, 0),
-    "wavefront_grad_rev_pathwise_kernelILi20E": (118, 0)}
+    "wavefront_kernelILi2E": (120, 0), "wavefront_resume_kernel": (96, 84),
+    "wavefront_grad_rev_pathwise_kernelILi19E": (110, 0)}
 
 
 def emit(phase, **fields):
@@ -1892,9 +1905,14 @@ def replay_chunk_rays(scene, cam):
 def record_kernel_timing(cases, launches, checks, regs):
     """The record kernel alone at ``render_grad``'s record chunk of
     ``random`` (600x337, 25 spp, depth 10) and at the Cornell render's chunk,
-    beside the forward kernel on the same rays and its bound; its plain
-    version timed on ``random``'s chunk.  ``cases``: (name, scene, cam, rays).
-    Returns its entry of the ``kernels`` line (``random``'s chunk)."""
+    beside the forward kernel on the same rays and its bounds; its plain
+    version timed on ``random``'s chunk, and its culled sphere sweep's
+    mirror run on the whole chunk (``record_sweep_counts``: the same record,
+    and the box and sphere tests it needs).  Two bounds: the brute sweep's
+    (every sphere a ray-bounce, as before the culled sweep), and the culled
+    sweep's (its box tests x FLOPS_BOX_TEST + sphere tests x FLOPS_SPHERE in
+    place of the spheres).  ``cases``: (name, scene, cam, rays).  Returns its
+    entry of the ``kernels`` line (``random``'s chunk)."""
     entry = None
     for name, scene, cam, (o, d, tm, sid) in cases:
         tb = cw.build_tables(scene)
@@ -1909,21 +1927,31 @@ def record_kernel_timing(cases, launches, checks, regs):
         for b in range(1, depth):
             _, f = cw.wavefront_fwd(tb, o, d, tm, sid, 0, b)
             entering.append(int(((f & cw.FLAG_ALIVE) != 0).sum()))
-        per_bounce = (tb.n_planar * FLOPS_PLANAR + tb.n_sphere * FLOPS_SPHERE
-                      + tb.n_vol * FLOPS_VOLUME + FLOPS_SHADE)
+        rest = tb.n_planar * FLOPS_PLANAR + tb.n_vol * FLOPS_VOLUME + FLOPS_SHADE
+        flops_brute = float(sum(entering)) * (rest + tb.n_sphere * FLOPS_SPHERE)
         table_bytes = 4 * sum(t.numel() for t in (tb.pt, tb.st, tb.vt, tb.lt))
+        counts, flops = {}, flops_brute
+        if tb.n_seg > 0:
+            table_bytes += 4 * sum(t.numel() for t in (tb.seg_order, tb.seg_start, tb.seg_box))
+            *mirror, counts = cw.record_sweep_counts(*args)
+            if not all(bool(torch.equal(a, b)) for a, b in zip(mirror, k)):
+                raise RuntimeError(f"{name}: the culled sweep's mirror gives another record "
+                                   "than the kernel")
+            del mirror
+            flops = (float(sum(entering)) * rest + counts["closest_box_tests"] * FLOPS_BOX_TEST
+                     + counts["closest_sphere_tests"] * FLOPS_SPHERE)
         moved = 18 * 4 * n + table_bytes + depth * n * RECORD_BYTES_PER_DECISION
-        bound = (moved / PEAK_BYTES_PER_S * 1e3,
-                 float(sum(entering)) * per_bounce / PEAK_FP32_FLOPS * 1e3)
+        bound = (moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3)
+        bound_brute = max(bound[0], flops_brute / PEAK_FP32_FLOPS * 1e3)
         fields = {}
         if entry is None:
             plain_ms, p = cuda_ms(lambda: cw._wavefront_record_plain(*args))
             mismatch = float(((k[2] != p[2]) | (k[3] != p[3])).float().mean())
             err = float((k[0] - p[0]).abs().max())
             del p
-            if mismatch != 0.0:
+            if mismatch != 0.0 or err != 0.0:
                 raise RuntimeError(f"{name}: full chunk: {mismatch:.4%} of decisions "
-                                   "differ from the plain version's")
+                                   f"differ from the plain version's, radiance by {err}")
             fields = dict(plain_ms=plain_ms, decision_mismatch_share_full_chunk=mismatch,
                           max_abs_err_full_chunk=err)
             entry = kernel_entry(
@@ -1932,17 +1960,98 @@ def record_kernel_timing(cases, launches, checks, regs):
                 launches, ms, plain_ms, bound, [err] + [c[1] for c in checks]) | {
                     "mismatch_share": max([mismatch] + [c[0] for c in checks]),
                     "scene": name, "depth": depth, "registers": regs[0],
-                    "spill_bytes": regs[1]}
+                    "spill_bytes": regs[1], "bound_ms_brute_sweep": bound_brute,
+                    "forward_ms_same_rays": median(fwd_rounds)}
+        ray_bounces = float(sum(entering))
         emit("record_kernel_timing", scene=name, rays_per_launch=n, depth=depth,
              record_ms=ms, record_ms_rounds=rec_rounds, forward_ms=median(fwd_rounds),
-             forward_ms_rounds=fwd_rounds, rays_entering_bounce=entering,
+             forward_ms_rounds=fwd_rounds, record_over_forward=ms / median(fwd_rounds),
+             rays_entering_bounce=entering, spheres=tb.n_sphere, segments=tb.n_seg,
+             sweep_counts=counts,
+             box_tests_per_ray_bounce=counts.get("closest_box_tests", 0) / ray_bounces,
+             sphere_tests_per_ray_bounce=(counts["closest_sphere_tests"] / ray_bounces
+                                          if counts else float(tb.n_sphere)),
+             warp_sphere_tests_per_ray_bounce=(
+                 counts["closest_warp_sphere_tests"] / ray_bounces if counts
+                 else float(tb.n_sphere)),
              bytes_counted=moved, decision_bytes=depth * n * RECORD_BYTES_PER_DECISION,
-             flops_counted=float(sum(entering)) * per_bounce,
+             flops_counted=flops, flops_counted_brute_sweep=flops_brute,
              bound_bytes_ms=bound[0], bound_ops_ms=bound[1],
-             roofline_share=max(bound) / ms, registers=regs[0], spill_bytes=regs[1],
-             **fields)
+             bound_ops_ms_brute_sweep=flops_brute / PEAK_FP32_FLOPS * 1e3,
+             roofline_share=max(bound) / ms, roofline_share_brute_sweep=bound_brute / ms,
+             registers=regs[0], spill_bytes=regs[1], **fields)
         del o, d, tm, sid, k
     return entry
+
+
+def record_cull_sets(dev):
+    """The record kernel's culled sweep against its plain version (the
+    brute sweep) on the sets of tests/test_torch_cuda.py (``CULL_CASES``):
+    rays aimed at segment boxes' corners and edges and along the axes,
+    duplicated spheres swept in either order, moving spheres, a ground
+    sphere, shadow rays, 63 / 64 / 65 spheres; at each set's ray count and
+    at 1, 31 and 33 rays.  Code, index, radiance and flags must be the same
+    bits, and the radiance the forward kernel's."""
+    out = {}
+    for name in th.CULL_CASES:
+        _, tb, o, d, tm, ids = th.cull_case(grt, cw, name, dev)
+        sid = cw.stream_to_i32(ids)
+        res = []
+        for n in (tm.shape[0], 1, 31, 33):
+            args = (tb, V3(*(c[:n].contiguous() for c in o)),
+                    V3(*(c[:n].contiguous() for c in d)), tm[:n].contiguous(),
+                    sid[:n].contiguous(), 5, 3)
+            k = cw.wavefront_record(*args)
+            p = cw._wavefront_record_plain(*args)
+            f = cw.wavefront_fwd(*args)
+            res.append(all(bool(torch.equal(a, b)) for a, b in zip(k, p))
+                       and bool(torch.equal(k[0], f[0]) and torch.equal(k[1], f[1])))
+        out[name] = {"segments": tb.n_seg, "rays": int(tm.shape[0]), "equal": res,
+                     "sphere_hit_share": float(((k[2] & cw.DEC_KIND_MASK) == 1).float().mean())}
+    emit("record_cull_sets", sets=out)
+    bad = {k: v for k, v in out.items() if not all(v["equal"])}
+    if bad:
+        raise RuntimeError(f"record kernel (culled sweep) against its plain version: {bad}")
+
+
+def b5b_marble_lanes(dev):
+    """B5b with marble against its plain version on stashes whose marble
+    rows are set by warp (tests/test_torch_cuda.py): warps of 0, 1 and 32
+    marble lanes at depth 1, 5 and 50, marble at each ray's first and last
+    bounce at depth 50, on 2 x 2,048 + 37 rays: each key within 1e-4 of its
+    largest entry, the same bits on two launches."""
+    scene = th.build_noise_glossy(grt, device=dev)
+    out = {}
+    for depth, pattern in ((1, "warps"), (5, "warps"), (50, "warps"), (50, "ends")):
+        cam = dataclasses.replace(Camera(**th.NOISE_GLOSSY_CAM), image_width=64,
+                                  max_depth=depth)
+        n = 2 * 2048 + 37
+        ids = torch.arange(n, dtype=torch.int64, device=dev)
+        o, d, tm = generate_rays(cam, ids % 64, (ids // 64) % cam.image_height, ids, 3)
+        sid = cw.stream_to_i32(ids)
+        tb = cw.build_tables(scene)
+        k = cw.wavefront_grad_fwd(tb, o, d, tm, sid, 3, depth, cw.miss_config(cam),
+                                  pathwise=True)
+        si = th.marble_lane_stash(k[4], pattern, cw.PW_MARBLE)
+        lanes = ((si[0, 2] & cw.PW_MARBLE) != 0)[: n // 32 * 32].reshape(-1, 32).sum(dim=1)
+        g3 = torch.rand((3, n), device=dev,
+                        generator=torch.Generator(device=dev).manual_seed(0)) * 1e-3
+        rev = (tb, k[3], si, g3, k[2], sid, 3, bool(cam.use_sky_gradient),
+               int(scene.textures.color.shape[0]), int(scene.materials.kind.shape[0]))
+        gk, gk2 = cw.wavefront_grad_rev_pathwise(*rev), cw.wavefront_grad_rev_pathwise(*rev)
+        gp = cw._wavefront_grad_rev_pathwise_plain(*rev)
+        _, rel = pathwise_rev_err(gk, gp)
+        out[f"{pattern}_depth{depth}"] = {
+            "marble_rows": int(((si[:, 2] & cw.PW_MARBLE) != 0).sum()),
+            "warps_by_marble_lanes_at_bounce_0": {
+                str(v): int((lanes == v).sum()) for v in (0, 1, 32)},
+            "err_of_largest": rel,
+            "same_bits": all(bool(torch.equal(a, b)) for a, b in zip(gk, gk2))}
+    emit("b5b_marble_lanes", rays=n, cases=out)
+    if not all(v["err_of_largest"] <= REV_RTOL_OF_LARGEST and v["same_bits"]
+               for v in out.values()):
+        raise RuntimeError(f"B5b with marble against its plain version: {out}")
+    return max(v["err_of_largest"] for v in out.values())
 
 
 def replay_main_path(phase, name, scene, cam, rounds):
@@ -3279,8 +3388,11 @@ def resident(occupancy):
 
 def smem_of_tables(tb):
     """Shared bytes a tracing launch stages for these tables (0: they stay
-    in device memory)."""
+    in device memory); the record kernel's, with the culled sweep's
+    segments where the tables have them."""
     size = 4 * sum(t.numel() for t in (tb.pt, tb.st, tb.vt, tb.lt))
+    if tb.n_seg > 0:
+        size += 4 * sum(t.numel() for t in (tb.seg_order, tb.seg_start, tb.seg_box))
     return size if size <= 48 * 1024 else 0
 
 
@@ -3422,17 +3534,17 @@ def marble_kernel_timing(glossy, cam, nee, nee_cam, chunks, launches, small):
                    small["b4_max_abs_err"], n4) | {"plain_rays_marble": 16384})
 
 
-def marble_grad_phases(dev, env, regs, glossy_plain):
+def marble_grad_phases(dev, env, regs, glossy_plain, record_scene):
     """Marble behind metal and glass on the kernel tiers (A13b): the small
     checks, ``marble-glossy`` (600x600, 100 spp, depth 5) fwd+bwd on the
     pathwise tier all stashed and over budget, ``marble-glossy-nee``
     (800x450, 25 spp, depth 10) on the fused tier, each beside the same job
     through the replay tier, and the three kernels alone; then the
-    redesigned kernels' registers, spills and resident warps (B4 and B5a,
-    both instantiations each) and B5a's marble instantiation on
-    ``glossy_plain``'s chunk (cornell-glossy: no marble).  Returns the marble
-    fields of B5a's, B5b's and B4's entries, and the resident warps of B5a
-    <2> and B4 <19>."""
+    redesigned kernels' registers, spills and resident warps (B4, B5a and
+    B5b, both instantiations each, and B6 at ``record_scene``'s tables) and
+    B5a's marble instantiation on ``glossy_plain``'s chunk (cornell-glossy:
+    no marble).  Returns the marble fields of B5a's, B5b's and B4's entries,
+    and the resident warps of B5a <2>, B4 <19>, B5b <19> and B6."""
     glossy, cam = marble_glossy_scene(dev)
     nee, nee_cam = marble_glossy_scene(dev, env)
     small = marble_small_checks(glossy, cam, nee, nee_cam, env, dev)
@@ -3477,7 +3589,15 @@ def marble_grad_phases(dev, env, regs, glossy_plain):
         acc, tables = 4 * warps * n_acc, smem_of_tables(tb)
         return acc + (tables if 0 < tables and acc + tables <= 48 * 1024 else 0)
 
+    def rev_smem(scene):
+        n_acc = 9 * int(scene.textures.color.shape[0]) + 2 * int(scene.materials.kind.shape[0])
+        return 4 * 8 * n_acc      # 8 warps a block, one row of accumulators each
+
     stats = {
+        "b5b_19": (regs["b5b_19"], resident(cw.pathwise_rev_occupancy(False, rev_smem(g_scene)))),
+        "b5b_20": (regs["b5b"], resident(cw.pathwise_rev_occupancy(True, rev_smem(glossy)))),
+        "b6": (regs["b6"], resident(cw.record_occupancy(smem_of_tables(
+            cw.build_tables(record_scene))))),
         "b5a_2": (regs["b5a_2"], resident(cw.pathwise_occupancy(
             False, smem_of_tables(cw.build_tables(g_scene))))),
         "b5a_4": (regs["b5a"], resident(cw.pathwise_occupancy(
@@ -3486,8 +3606,9 @@ def marble_grad_phases(dev, env, regs, glossy_plain):
         "b4_22": (regs["b4"], resident(cw.fused_occupancy(True, fused_smem(nee))))}
     emit("redesigned_kernels",
          note="registers and spill bytes from the build; resident warps an SM at the "
-              "shared memory of the timed launches (B5a <2> at cornell-glossy, <4> at "
-              "marble-glossy, B4 <19> at hdri-test-nee, <22> at marble-glossy-nee)",
+              "shared memory of the timed launches (B5a <2> and B5b <19> at cornell-glossy, "
+              "<4> and <20> at marble-glossy, B4 <19> at hdri-test-nee, <22> at "
+              "marble-glossy-nee, B6 at random)",
          **{k: {"registers": r[0], "spill_bytes": r[1], "resident_warps_per_sm": w}
             for k, (r, w) in stats.items()},
          instantiation_scene="cornell-glossy", instantiation_rays=n,
@@ -3497,7 +3618,8 @@ def marble_grad_phases(dev, env, regs, glossy_plain):
     b5a["ms_marble_instantiation_cornell_glossy"] = ms4
     b5a["ms_plain_instantiation_cornell_glossy"] = ms2
     b4["resident_warps_per_sm_marble"] = stats["b4_22"][1]
-    return b5a, b5b, b4, stats["b5a_2"][1], stats["b4_19"][1]
+    b5b["resident_warps_per_sm_marble"] = stats["b5b_20"][1]
+    return (b5a, b5b, b4, {k: stats[k][1] for k in ("b5a_2", "b4_19", "b5b_19", "b6")})
 
 
 # ---- the tile-sweep probe of the mesh stream (scripts/stream_micro.py) --------
@@ -3736,6 +3858,7 @@ def main():
     pw_checks = [compare_pathwise(g_scene, g_small, 7, "cornell-glossy"),
                  compare_pathwise(*glossy_sky_scene(dev), 8, "glossy_sky_volume"),
                  compare_pathwise(m_scene, m_cam, 9, "mixed")]
+    b5b_lanes_err = b5b_marble_lanes(dev)
 
     # ---- the closest-hit kernels against their plain versions ----------------------
     ix_scene, ix_cam = intersect_scene(dev)
@@ -3756,6 +3879,7 @@ def main():
         "random_camera_rays", rr_scene, rr_cam2, V3(*(c.contiguous() for c in o)),
         V3(*(c.contiguous() for c in d)), tm.contiguous(), ids, 4))
     del o, d, tm, ids
+    record_cull_sets(dev)
 
     # ---- main path at full size ------------------------------------------------
     cam = dataclasses.replace(cam0, image_width=600, aspect_ratio=600 / 338,
@@ -3985,14 +4109,19 @@ def main():
     grad_entries[1]["launches_noise_fwd_bwd"] = b3_noise
 
     # ---- marble behind metal and glass: the pathwise and fused tiers ----------
-    b5a_marble, b5b_marble, b4_marble, b5a_warps, b4_warps = marble_grad_phases(
+    b5a_marble, b5b_marble, b4_marble, warps = marble_grad_phases(
         dev, synthetic_sky()[0], {"b5a": pfwd_marble, "b5b": prev_marble,
                                   "b4": fused_marble, "b5a_2": (pfwd_regs, pfwd_spill),
-                                  "b4_19": fused_regs}, (g_scene, g_cam))
+                                  "b4_19": fused_regs, "b5b_19": (prev_regs, prev_spill),
+                                  "b6": rec_regs}, (g_scene, g_cam), rr_scene)
     b4_entry["registers"], b4_entry["spill_bytes"] = fused_regs
-    b4_entry["resident_warps_per_sm"] = b4_warps
+    b4_entry["resident_warps_per_sm"] = warps["b4_19"]
     pw_entries[0]["registers"], pw_entries[0]["spill_bytes"] = pfwd_regs, pfwd_spill
-    pw_entries[0]["resident_warps_per_sm"] = b5a_warps
+    pw_entries[0]["resident_warps_per_sm"] = warps["b5a_2"]
+    pw_entries[1]["registers"], pw_entries[1]["spill_bytes"] = prev_regs, prev_spill
+    pw_entries[1]["resident_warps_per_sm"] = warps["b5b_19"]
+    pw_entries[1]["err_of_largest_marble_lanes"] = b5b_lanes_err
+    rec_entry["resident_warps_per_sm"] = warps["b6"]
 
     # ---- the tile-sweep probe of the mesh stream --------------------------------
     probe_entry = probe_phase(probe_regs)

@@ -91,6 +91,19 @@
 // whose light sample counts for nothing), because the standard integrator
 // records that ray's outcome too and the replay reads it.
 //
+// What held the record back on this card, measured on `random` (363
+// spheres, PERF.md): the sphere sweep itself, every sphere's quadratic for
+// every ray-bounce and shadow ray in one dependent chain, some 8,400
+// counted operations against 60 of shading.  In a scene of SPH_CULL_MIN
+// spheres and more it sweeps them segment-culled, as the JAX kernel does
+// (sphere_sweep_culled, wavefront_trace.cuh): the spheres in spatial order,
+// in segments under a padded box each (ops/cuda_wavefront.build_tables;
+// very large spheres alone), a segment swept only by the rays that reach
+// its box within their current t; the winner is the least
+// (t, scene index), so t, index and radiance are the brute sweep's bits.
+// The segment tables go to shared memory with the others.  Below
+// SPH_CULL_MIN spheres, and in every other instantiation, the brute sweep.
+//
 // The gradient forward moves five times the bytes: 15 stash rows a bounce
 // besides the forward's 18 and the 3 miss colour rows, 384 bytes a ray at
 // depth 5 (the pathwise rows: 22 a bounce, 23 with marble), so the stash
@@ -141,7 +154,9 @@ constexpr int PW_MARBLE_BLOCKS_PER_SM = 4;
 constexpr int MIN_BLOCKS_UNSET = 0;
 
 // The block's copy of the scalar tables in shared memory (when they fit),
-// or the tables in device memory.
+// or the tables in device memory.  SEGMENTS: the culled sweep's segment
+// tables too (the record kernel).
+template <bool SEGMENTS = false>
 __device__ __forceinline__ Tables stage_tables(const Tables& G, int tables_in_smem,
                                                float* smem) {
     Tables S = G;
@@ -160,6 +175,22 @@ __device__ __forceinline__ Tables stage_tables(const Tables& G, int tables_in_sm
         S.st = s_st;
         S.vt = s_vt;
         S.lt = s_lt;
+        if constexpr (SEGMENTS) {
+            if (G.n_seg > 0) {
+                const int n_box = 6 * G.n_seg, n_start = G.n_seg + 1;
+                float* s_box = s_lt + n_lt;
+                int* s_start = (int*)(s_box + n_box);
+                int* s_order = s_start + n_start;
+                for (int k = threadIdx.x; k < n_box; k += blockDim.x) s_box[k] = G.seg_box[k];
+                for (int k = threadIdx.x; k < n_start; k += blockDim.x)
+                    s_start[k] = G.seg_start[k];
+                for (int k = threadIdx.x; k < G.n_sphere; k += blockDim.x)
+                    s_order[k] = G.seg_order[k];
+                S.seg_box = s_box;
+                S.seg_start = s_start;
+                S.seg_order = s_order;
+            }
+        }
         __syncthreads();
     }
     return S;
@@ -182,7 +213,7 @@ wavefront_kernel(Tables G, const float* __restrict__ ox,
     // marble's turns across the warp (marble_warp) find all 32 lanes.
     constexpr bool WHOLE_WARPS = MODE == PATHWISE_MARBLE;
     extern __shared__ float smem[];
-    const Tables S = stage_tables(G, tables_in_smem, smem);
+    const Tables S = stage_tables<(MODE == RECORD)>(G, tables_in_smem, smem);
 
     const long long step = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -306,10 +337,20 @@ struct Setup {
     unsigned int blocks;
 };
 
+// `seg`: the record kernel's segment tables (seg_order, seg_start, seg_box
+// and n_seg; nullptr for the other launches), staged with the others.
 int setup(const float* pt, const float* st, const float* vt, const float* lt,
           int n_planar, int n_sphere, int n_vol, int n_lights, long long n_rays,
-          Setup& L) {
+          Setup& L, const Tables* seg = nullptr) {
     Tables& G = L.G;
+    if (seg != nullptr) {
+        G.seg_order = seg->seg_order;
+        G.seg_start = seg->seg_start;
+        G.seg_box = seg->seg_box;
+        G.n_seg = seg->n_seg;
+        G.seg_c = seg->seg_c;
+        G.seg_inv_r = seg->seg_inv_r;
+    }
     G.pt = pt;
     G.st = st;
     G.vt = vt;
@@ -323,9 +364,11 @@ int setup(const float* pt, const float* st, const float* vt, const float* lt,
     G.vc = n_vol > 0 ? n_vol : 1;
     G.lc = n_lights > 0 ? n_lights : 1;
 
+    const size_t seg_words =
+        G.n_seg > 0 ? (size_t)6 * G.n_seg + G.n_seg + 1 + n_sphere : 0;
     const size_t table_bytes =
         sizeof(float) * ((size_t)PT_ROWS * G.pc + (size_t)ST_ROWS * G.sc +
-                         (size_t)VT_ROWS * G.vc + (size_t)LT_ROWS * G.lc);
+                         (size_t)VT_ROWS * G.vc + (size_t)LT_ROWS * G.lc + seg_words);
     L.smem_bytes = table_bytes <= SMEM_TABLE_LIMIT ? table_bytes : 0;
 
     int device = 0, sms = 0;
@@ -349,10 +392,11 @@ int launch(const float* pt, const float* st, const float* vt, const float* lt,
            const float* dz, const float* tm, const void* stream, float* out,
            int* flags, long long n_rays, unsigned int seed, int max_depth,
            void* cuda_stream, Stash Z, Miss M, float* miss_col,
-           Record D = Record{nullptr, nullptr, 0}, const float* hdri = nullptr) {
+           Record D = Record{nullptr, nullptr, 0}, const float* hdri = nullptr,
+           const Tables* seg = nullptr) {
     Setup L;
     const int err = setup(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights,
-                          n_rays, L);
+                          n_rays, L, seg);
     if (err != 0) return err;
     wavefront_kernel<MODE><<<L.blocks, THREADS, L.smem_bytes,
                               (cudaStream_t)cuda_stream>>>(
@@ -382,20 +426,35 @@ extern "C" int wavefront_fwd_launch(
                          Record{nullptr, nullptr, 0}, hdri);
 }
 
-// code and idx [max_depth, n_rays] are written in full.
+// code and idx [max_depth, n_rays] are written in full.  seg_order
+// [n_sphere] i32, seg_start [n_seg + 1] i32, seg_box [6, n_seg] f32, seg_c
+// and seg_inv_r: the culled sweep's segments and the scale of their padding
+// (ops/cuda_wavefront.build_tables), or null with n_seg 0 (the brute sweep).
 extern "C" int wavefront_record_launch(
     const float* pt, const float* st, const float* vt, const float* lt,
     int n_planar, int n_sphere, int n_vol, int n_lights,
     const float* ox, const float* oy, const float* oz,
     const float* dx, const float* dy, const float* dz, const float* tm,
-    const void* stream, const float* hdri, float* out, int* flags,
+    const void* stream, const float* hdri, const int* seg_order,
+    const int* seg_start, const float* seg_box, int n_seg, float seg_c, float seg_inv_r,
+    float* out, int* flags,
     unsigned char* code, int* idx, long long n_rays, unsigned int seed,
     int max_depth, void* cuda_stream) {
+    if (n_seg < 0 || n_seg > n_sphere ||
+        (n_seg > 0 && (seg_order == nullptr || seg_start == nullptr || seg_box == nullptr)))
+        return (int)cudaErrorInvalidValue;
+    Tables seg;
+    seg.seg_order = seg_order;
+    seg.seg_start = seg_start;
+    seg.seg_box = seg_box;
+    seg.n_seg = n_seg;
+    seg.seg_c = seg_c;
+    seg.seg_inv_r = seg_inv_r;
     return launch<RECORD>(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights,
                           ox, oy, oz, dx, dy, dz, tm, stream, out, flags, n_rays,
                           seed, max_depth, cuda_stream, Stash{nullptr, nullptr, 0},
                           Miss{MISS_FLAT, {0.0f, 0.0f, 0.0f}}, nullptr,
-                          Record{code, idx, n_rays}, hdri);
+                          Record{code, idx, n_rays}, hdri, &seg);
 }
 
 // miss_col [3, n_rays], stash_f [max_depth, 12, n_rays] and stash_i
@@ -483,9 +542,9 @@ extern "C" int wavefront_resume_launch(
 }
 
 // Blocks an SM holds at once of the pathwise gradient forward (marble: its
-// instantiation of a scene with marble) with `smem_bytes` of tables in
-// shared memory, from its registers, and its threads a block.  Returns a
-// CUDA error code (0 on success).
+// instantiation of a scene with marble), and of the record kernel,
+// with `smem_bytes` of tables in shared memory, from its registers, and its
+// threads a block.  Returns a CUDA error code (0 on success).
 extern "C" int wavefront_pathwise_occupancy(int marble, int smem_bytes,
                                             int* blocks_per_sm, int* threads) {
     *threads = THREADS;
@@ -493,4 +552,11 @@ extern "C" int wavefront_pathwise_occupancy(int marble, int smem_bytes,
                             : (const void*)wavefront_kernel<PATHWISE>;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, THREADS,
                                                               (size_t)smem_bytes);
+}
+
+extern "C" int wavefront_record_occupancy(int smem_bytes, int* blocks_per_sm,
+                                          int* threads) {
+    *threads = THREADS;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, (const void*)wavefront_kernel<RECORD>, THREADS, (size_t)smem_bytes);
 }

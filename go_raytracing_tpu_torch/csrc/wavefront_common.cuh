@@ -170,87 +170,24 @@ __device__ __forceinline__ float marble(const float p[3], float scale) {
     return 0.5f * (1.0f + sinf(scale * p[2] + 10.0f * fabsf(acc)));
 }
 
-// noise1 and its gradient in (px, py, pz) (materials/textures.py:
-// perlin_noise_soa(with_grad=True)): the product rule over the 8 corner weights, the
-// lattice cell held fixed.  The value is noise1's, the same operations in
-// the same order.
-__device__ __forceinline__ float noise1_grad(float px, float py, float pz,
-                                             float grad[3]) {
-    const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
-    const float u = px - fx, v = py - fy, w = pz - fz;
-    const int i = __float2int_rd(px), j = __float2int_rd(py), k = __float2int_rd(pz);
-    float acc = 0.0f;
-    grad[0] = grad[1] = grad[2] = 0.0f;
-#pragma unroll
-    for (int di = 0; di < 2; ++di) {
-#pragma unroll
-        for (int dj = 0; dj < 2; ++dj) {
-#pragma unroll
-            for (int dk = 0; dk < 2; ++dk) {
-                float g[3];
-                lattice_grad(i + di, j + dj, k + dk, g);
-                const float dot = g[0] * (u - (float)di) + g[1] * (v - (float)dj) +
-                                  g[2] * (w - (float)dk);
-                const float wu = di ? u : 1.0f - u;
-                const float wv = dj ? v : 1.0f - v;
-                const float ww = dk ? w : 1.0f - w;
-                acc = acc + wu * wv * ww * dot;
-                const float su = di ? 1.0f : -1.0f;
-                const float sv = dj ? 1.0f : -1.0f;
-                const float sw = dk ? 1.0f : -1.0f;
-                grad[0] = grad[0] + (su * wv * ww * dot + wu * wv * ww * g[0]);
-                grad[1] = grad[1] + (wu * sv * ww * dot + wu * wv * ww * g[1]);
-                grad[2] = grad[2] + (wu * wv * sw * dot + wu * wv * ww * g[2]);
-            }
-        }
-    }
-    return acc;
-}
-
-// The marble's value and its gradient in p (materials/textures.py:
-// marble_grad): 0.5 cos(arg) (10 sign(turb) sum_o w_o s 2^o grad noise
-// + s z_hat), arg = s z + 10 |turb|, sign(0) = 0 as in the JAX kernel.
-// The value has marble()'s bits: the same operations in the same order,
-// so the fused kernel's forward takes its albedo from here.
-__device__ __forceinline__ float marble_grad(const float p[3], float scale,
-                                             float grad[3]) {
-    float px = p[0] * scale, py = p[1] * scale, pz = p[2] * scale;
-    float acc = 0.0f, weight = 1.0f, osc = scale;
-    float da[3] = {0.0f, 0.0f, 0.0f};
-    for (int oct = 0; oct < 7; ++oct) {
-        float nd[3];
-        const float nv = noise1_grad(px, py, pz, nd);
-        acc = acc + weight * nv;
-#pragma unroll
-        for (int c = 0; c < 3; ++c) da[c] = da[c] + weight * osc * nd[c];
-        weight *= 0.5f;
-        osc = osc * 2.0f;
-        px = px * 2.0f;
-        py = py * 2.0f;
-        pz = pz * 2.0f;
-    }
-    const float arg = scale * p[2] + 10.0f * fabsf(acc);
-    const float sgn = acc > 0.0f ? 1.0f : (acc < 0.0f ? -1.0f : 0.0f);
-    const float half_cos = 0.5f * cosf(arg);
-    const float ten_sgn = 10.0f * sgn;
-    grad[0] = half_cos * (ten_sgn * da[0]);
-    grad[1] = half_cos * (ten_sgn * da[1]);
-    grad[2] = half_cos * (ten_sgn * da[2] + scale);
-    return 0.5f * (1.0f + sinf(arg));
-}
-
-// The marble (GRAD: marble_grad) of the lanes of a warp that need one, in
-// turns across the warp: called by all 32 lanes together.  One lane a ray
-// pays a whole evaluation (56 lattice corners in one dependent chain)
-// wherever one lane of its warp hits marble, while the others wait; here the
-// warp takes the points of the lanes that need one one at a time: lane
-// L < 28 evaluates corners 2 (L % 4) and 2 (L % 4) + 1 of octave L / 4, lane
-// o < 7 adds octave o's eight corner terms in marble's corner order, and the
-// octaves are added in order.  Every term is the same operations on the
-// same bits as in marble / marble_grad (p * scale * 2^o is exact: a power of
-// two), added in the same order, so the value and gradient are theirs bit
-// for bit.  Measured on the H100, the turns beat one lane a ray even where
-// all 32 lanes need a marble (PERF.md), so there is no other path.
+// The marble (GRAD: and its gradient in p, materials/textures.py:
+// marble_grad: 0.5 cos(arg) (10 sign(turb) sum_o w_o s 2^o grad noise
+// + s z_hat), arg = s z + 10 |turb|, sign(0) = 0 as in the JAX kernel) of
+// the lanes of a warp that need one, in turns across the warp: called by
+// all 32 lanes together.  One lane a ray pays a whole evaluation (56
+// lattice corners in one dependent chain) wherever one lane of its warp
+// hits marble, while the others wait; here the warp takes the points of the
+// lanes that need one one at a time: lane L < 28 evaluates corners 2 (L % 4)
+// and 2 (L % 4) + 1 of octave L / 4, lane o < 7 adds octave o's eight corner
+// terms in marble's corner order, and the octaves are added in order.  Every
+// term is the same operations on the same bits as in marble (p * scale *
+// 2^o is exact: a power of two), added in the same order, so the value is
+// marble's bit for bit; the gradient takes each corner's term by the product
+// rule over its weights (the lattice cell held fixed) and sums the terms
+// over corners, then octaves, in the torch version's order.  Measured on the H100, the
+// turns beat one lane a ray even where all 32 lanes need a marble (PERF.md),
+// so there is no other path.  Every marble kernel takes it: B5a and B4's
+// forwards for the value (B4 with dmarble/dp), B5b for dmarble/dp.
 template <bool GRAD>
 __device__ __forceinline__ float marble_warp(bool need, const float p[3],
                                              float scale, float grad[3],

@@ -38,7 +38,7 @@
 // of 4 rays each that held 183 to 199 registers a thread with marble, so
 // one block (8 warps) an SM, which drained to the warps of its longest
 // paths before the next could start; the marble evaluated twice a hit
-// (marble in the forward, marble_grad on the same point in the reverse);
+// (marble in the forward, its gradient on the same point in the reverse);
 // and every bounce after a ray's death written as an inert row and swept.
 //
 // The design:
@@ -48,8 +48,8 @@
 //     cent either way, PERF.md): a finished block is replaced at once, and no
 //     block waits on another's long paths;
 //   * the marble once: the forward's FUSED_MARBLE mode evaluates a marble
-//     winner's value and dmarble/dp together (marble_warp<true>: marble_grad
-//     in turns across the warp, as B5a takes the marble; its value has
+//     winner's value and dmarble/dp together (marble_warp<true>: both in
+//     turns across the warp, as B5a takes the marble; its value has
 //     marble's bits), takes the albedo from it and stashes dmarble/dp in
 //     three rows of its own, which the reverse sweep reads (no marble code
 //     in the sweep);

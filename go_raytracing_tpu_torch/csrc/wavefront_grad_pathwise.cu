@@ -29,8 +29,8 @@
 //     environment map, adds the miss direction's cotangent, which comes in
 //     as a row (miss_cfg ("stream",) of the JAX kernel);
 //   * on a marble winner, adds the marble's derivative by the hit point
-//     (7 octaves of the noise's analytic gradient, wf::marble_grad) times
-//     the albedo's summed cotangent into the hit point's adjoint;
+//     (7 octaves of the noise's analytic gradient, textures.marble_grad)
+//     times the albedo's summed cotangent into the hit point's adjoint;
 //   * sends the hit point's adjoint through the hit distance by the implicit
 //     rule dt/do = -n / (n.d), dt/dd = t dt/do, or, for a volume, through
 //     the entry slab and the free-flight length;
@@ -43,12 +43,18 @@
 // bounce; a marble winner adds one row and about 4,800 operations, 7
 // octaves of 8 hashed corners with their gradient), but the dependent chain
 // of divisions and square roots, four PCG3D hashes a bounce and the keyed
-// reduction are what it waits for; see PERF.md
-// for the measured time.  The design: one thread per ray, rows with the ray
-// innermost (a warp's load of a row is one 128-byte line); a row a ray never
-// entered (mask 0) is skipped, which changes nothing since such rows only
-// trail and the adjoints are still 0 there; the tables are small and read
-// through the cache.  The sums use the scheme of wavefront_grad.cu: inside a
+// reduction are what it waits for; see PERF.md for the measured time.
+// The design: blocks of 256 threads, a thread sweeping 8 rays one after the
+// other (a block's 2,048 rays give one row of partial sums), the rays of a
+// warp's 32 lanes side by side, rows with the ray innermost (a warp's load
+// of a row is one 128-byte line); a row a ray never entered (mask 0) is
+// skipped, which changes nothing since such rows only trail and the adjoints
+// are still 0 there; the tables are small and read through the cache.  With
+// marble, one lane a ray held the whole warp for a lane's marble derivative
+// (56 hashed corners in one dependent chain): the warp takes its marble
+// lanes' points in turns, 28 lanes a point (marble_warp, wavefront_common.cuh,
+// the same bits), so the partial sums are those of one lane a ray, bit for
+// bit.  The sums use the scheme of wavefront_grad.cu: inside a
 // warp the lanes that share a key are added by a butterfly of shuffles in a
 // fixed order, lane 0 adds the warp's sum to the warp's own accumulator row
 // in shared memory, the block adds its warps' rows in order and writes one
@@ -125,6 +131,18 @@ wavefront_grad_rev_pathwise_kernel(
 // Rays one block sweeps: the wrapper sizes `partial` as
 // [ceil(n_rays / this), n_acc].
 extern "C" int wavefront_grad_rev_pathwise_block_rays() { return BLOCK_RAYS; }
+
+// Blocks an SM holds at once (marble: the instantiation of a scene with
+// marble) with `smem_bytes` of accumulators a block, and its threads a
+// block.  Returns a CUDA error code (0 on success).
+extern "C" int wavefront_grad_rev_pathwise_occupancy(int marble, int smem_bytes,
+                                                     int* blocks_per_sm, int* threads) {
+    *threads = THREADS;
+    const void* fn = marble ? (const void*)wavefront_grad_rev_pathwise_kernel<PW_F_ROWS_MARBLE>
+                            : (const void*)wavefront_grad_rev_pathwise_kernel<PW_F_ROWS>;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, THREADS,
+                                                              (size_t)smem_bytes);
+}
 
 // lt [17, max(n_lights, 1)] and vt [25, max(n_vol, 1)] f32 (the tables of
 // ops/cuda_wavefront.build_tables), stash_f [depth, f_rows, n_rays] f32 (f_rows

@@ -102,9 +102,12 @@ constexpr int REV_MISS_STREAM = 2;
 // One ray's reverse sweep, from the last bounce to the first; every lane of
 // a warp calls it with the same depth (warp_add is collective).  F_ROWS is
 // the stash's float rows a bounce: PW_F_ROWS, or PW_F_ROWS_MARBLE in a scene
-// with marble, whose winners' dmarble/dp (marble_grad at the stashed point
-// and scale) joins the hit point's adjoint.  FUSED: the fused kernel's own
-// stash, which holds the `len` bounces the ray entered and nothing after
+// with marble, whose winners' dmarble/dp (textures.marble_grad, at the
+// stashed point and scale) joins the hit point's adjoint: at the top of each
+// bounce the warp takes its lanes' marble points in turns (marble_warp, the
+// bits one lane alone computes), so a bounce costs one evaluation a marble
+// lane shared by 28 lanes, not a whole evaluation wherever one lane of the
+// warp met marble.  FUSED: the fused kernel's own stash, which holds the `len` bounces the ray entered and nothing after
 // them (PW_F_ROWS, or PW_F_ROWS_FUSED_MARBLE with dmarble/dp as rows 19-21);
 // the sweep starts at the deepest bounce a lane of the warp entered.
 //   f, q, zs: the ray's pathwise stash, float row r of bounce k at
@@ -143,6 +146,20 @@ __device__ __forceinline__ void reverse_ray(
         int mk;
         if constexpr (FUSED) mk = valid && k < len ? q[((size_t)k * 3 + 2) * zs] : 0;
         else mk = valid ? q[((size_t)k * 3 + 2) * zs] : 0;
+        // PW_F_ROWS_MARBLE: a marble winner's dmarble/dp, in the warp's
+        // turns; all 32 lanes are here (mk is 0 on a lane without a ray)
+        float dm[3] = {0.0f, 0.0f, 0.0f};
+        if constexpr (F_ROWS == PW_F_ROWS_MARBLE) {
+            const bool need = (mk & PW_MARBLE) != 0;
+            float pm[3] = {0.0f, 0.0f, 0.0f}, sm = 0.0f;
+            if (need) {
+                const float* fk = f + (size_t)k * F_ROWS * zs;
+#pragma unroll
+                for (int c = 0; c < 3; ++c) pm[c] = fk[(6 + c) * zs];
+                sm = fk[19 * zs];
+            }
+            marble_warp<true>(need, pm, sm, dm, lane);
+        }
         float cot_alb[3] = {0.0f, 0.0f, 0.0f};
         float cot_lem[3] = {0.0f, 0.0f, 0.0f};
         float cot_mat[2] = {0.0f, 0.0f};  // fuzz, ior
@@ -393,11 +410,9 @@ __device__ __forceinline__ void reverse_ray(
                 if (mk & PW_MARBLE) {
                     // a marble winner: the marble is grayscale, so its
                     // value's cotangent is the sum of the albedo's three, and
-                    // it moves with the hit point (dmarble/dp)
-                    float dm[3];
-                    if constexpr (F_ROWS == PW_F_ROWS_MARBLE) {
-                        marble_grad(pv, fk[19 * zs], dm);
-                    } else {
+                    // it moves with the hit point (dmarble/dp: from the
+                    // warp's turns above, or the fused kernel's stash)
+                    if constexpr (F_ROWS == PW_F_ROWS_FUSED_MARBLE) {
 #pragma unroll
                         for (int c = 0; c < 3; ++c) dm[c] = fk[(19 + c) * zs];
                     }

@@ -44,7 +44,7 @@ constexpr int PATHWISE_MARBLE = 4;  // PATHWISE, and the marble's scale (row 19)
 // The fused kernel's forward (wavefront_grad_fused.cu): the pathwise rows
 // into the thread's own stash, for the bounces the ray entered only (no
 // inert rows); FUSED_MARBLE stashes the winner's dmarble/dp (rows 19-21)
-// from the one marble_grad evaluation that also gives its albedo.
+// from the one marble_warp<true> evaluation that also gives its albedo.
 constexpr int FUSED = 5;
 constexpr int FUSED_MARBLE = 6;
 
@@ -55,6 +55,16 @@ struct Tables {
     const float* lt;
     int n_planar, n_sphere, n_vol, n_lights;
     int pc, sc, vc, lc;  // column counts (row strides), at least 1
+    // The segments of the record kernel's culled sphere sweep
+    // (ops/cuda_wavefront.build_tables, scenes of SPH_CULL_MIN spheres and
+    // more; n_seg 0 otherwise, and in every other launch).
+    const int* seg_order = nullptr;  // [n_sphere] scene indices in spatial order
+    const int* seg_start = nullptr;  // [n_seg + 1] segment s: seg_order[start[s], start[s + 1])
+    const float* seg_box = nullptr;  // [6, n_seg] lo xyz, hi xyz (+-inf: always swept)
+    int n_seg = 0;
+    // the padding's scale: the largest |centre| + radius and 1 / the least
+    // radius of the spheres in boxes
+    float seg_c = 0.0f, seg_inv_r = 0.0f;
 };
 
 // Outputs of the gradient forwards only.
@@ -227,6 +237,94 @@ __device__ __forceinline__ bool sphere_sweep(const Tables& S, const float o[3],
     return found;
 }
 
+// The record kernel's sphere sweep in a scene with segments: the spheres in
+// spatial order (a Morton key of the motion midpoint), cut into segments of
+// a few spheres under a box that holds each sphere over the whole motion
+// sweep (very large spheres alone, under an infinite box).  A ray sweeps a
+// segment when it reaches the segment's box within (EPS_HIT, t_best] (a
+// warp's vote, all lanes sweeping a segment one of them reaches, measured
+// 2 % slower on the H100, PERF.md).  The box grows by a padding that keeps
+// the float slab test from dropping a sphere the quadratic would hit: a
+// grazing ray's computed root can put its hit point outside the exact
+// sphere by about 4 ulp |o - c|^2 / r (h^2 - a c cancels), and the slab
+// test rounds by a few ulp of |o| + |box|; SEG_PAD D (D / r_min + 1), D =
+// |o| + max(|c| + r), bounds both for every origin.  Each sphere's
+// arithmetic is sphere_sweep's, and a sphere's candidate root (r0 past
+// EPS_HIT, else r1) does not depend on t_best, so taking the least (t,
+// scene index) gives the brute sweep's winner, t and index bit for bit,
+// whatever the order: strictly below a planar t_best, and on a tie between
+// spheres the lower index.
+constexpr float SEG_PAD = 8.0f * 1.1920929e-7f;  // 8 float32 ulps of 1
+
+template <bool ANY>
+__device__ __forceinline__ bool sphere_sweep_culled(const Tables& S, const float o[3],
+                                                    const float d[3], float tmv,
+                                                    float& t_best, int& hidx) {
+    bool found = false;
+    const int sc = S.sc, ns = S.n_seg;
+    const float a_coef = dot3(d, d);
+    const float inv_a = 1.0f / a_coef;
+    // the boxes grown by pad: lo - pad - o = lo - o_lo, hi + pad - o = hi - o_hi
+    const float dist = sqrtf(dot3(o, o)) + S.seg_c;
+    const float pad = SEG_PAD * dist * (dist * S.seg_inv_r + 1.0f);
+    float inv_d[3], o_lo[3], o_hi[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        const float safe = fabsf(d[i]) < 1e-12f ? (d[i] < 0.0f ? -1e-12f : 1e-12f) : d[i];
+        inv_d[i] = 1.0f / safe;
+        o_lo[i] = o[i] + pad;
+        o_hi[i] = o[i] - pad;
+    }
+    for (int s = 0; s < ns; ++s) {
+        const float* B = S.seg_box + s;
+        float near = EPS_HIT, far = t_best;
+#pragma unroll
+        for (int i = 0; i < 3; ++i) {
+            const float ta = (B[i * ns] - o_lo[i]) * inv_d[i];
+            const float tb = (B[(3 + i) * ns] - o_hi[i]) * inv_d[i];
+            near = fmaxf(near, fminf(ta, tb));
+            far = fminf(far, fmaxf(ta, tb));
+        }
+        if (!(near <= far)) continue;
+        const int m_end = S.seg_start[s + 1];
+        for (int m = S.seg_start[s]; m < m_end; ++m) {
+            const int j = S.seg_order[m];
+            const float* Q = S.st + j;
+            const float ocx = (Q[0] + tmv * Q[3 * sc]) - o[0];
+            const float ocy = (Q[sc] + tmv * Q[4 * sc]) - o[1];
+            const float ocz = (Q[2 * sc] + tmv * Q[5 * sc]) - o[2];
+            const float h = d[0] * ocx + d[1] * ocy + d[2] * ocz;
+            const float c = ocx * ocx + ocy * ocy + ocz * ocz - Q[6 * sc];
+            const float disc = h * h - a_coef * c;
+            if (!(disc >= 0.0f)) continue;
+            const float sq = sqrtf(fmaxf(disc, 0.0f));
+            const float r0 = (h - sq) * inv_a;
+            const float r1 = (h + sq) * inv_a;
+            const float cand = r0 > EPS_HIT ? r0 : r1;
+            if (!(cand > EPS_HIT &&
+                  (cand < t_best || (found && cand == t_best && j < hidx))))
+                continue;
+            t_best = cand;
+            hidx = j;
+            found = true;
+            if (ANY) return true;
+        }
+    }
+    return found;
+}
+
+// The sphere sweep of a mode: CULL (the record kernel) takes the culled
+// sweep in a scene with segments, every other mode the brute sweep.
+template <bool CULL, bool ANY>
+__device__ __forceinline__ bool spheres_hit(const Tables& S, const float o[3],
+                                            const float d[3], float tmv, float& t_best,
+                                            int& hidx) {
+    if constexpr (CULL) {
+        if (S.n_seg > 0) return sphere_sweep_culled<ANY>(S, o, d, tmv, t_best, hidx);
+    }
+    return sphere_sweep<ANY>(S, o, d, tmv, t_best, hidx);
+}
+
 // Free-flight sample inside box volume vi, limited to t_cap.
 __device__ __forceinline__ bool volume_scatter(const Tables& S, const float o[3],
                                                const float d[3], float t_cap,
@@ -262,6 +360,8 @@ __device__ __forceinline__ bool volume_scatter(const Tables& S, const float o[3]
 
 // Shadow ray: any surface within t_cap (spheres at time 0), or a volume
 // scatter event on the way (its draw keyed on `purpose` + 32 * volume).
+// CULL: the record kernel's sphere sweep (spheres_hit).
+template <bool CULL = false>
 __device__ __forceinline__ bool occluded(const Tables& S, const float o[3],
                                          const float d[3], float t_cap,
                                          uint32_t sid, uint32_t seed,
@@ -269,7 +369,7 @@ __device__ __forceinline__ bool occluded(const Tables& S, const float o[3],
     float t_best = t_cap;
     int dummy = 0;
     if (planar_sweep<true>(S, o, d, t_best, dummy)) return true;
-    if (sphere_sweep<true>(S, o, d, 0.0f, t_best, dummy)) return true;
+    if (spheres_hit<CULL, true>(S, o, d, 0.0f, t_best, dummy)) return true;
     for (int vi = 0; vi < S.n_vol; ++vi) {
         const float u = uniform3(sid, seed, bounce, purpose + 32u * vi).x;
         float t_v;
@@ -318,6 +418,8 @@ __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3]
     // the bounce but for the marble's turns.  In the other modes `live` and
     // `shade` are true wherever they are read.
     constexpr bool COOP = MODE == PATHWISE_MARBLE || MODE == FUSED_MARBLE;
+    // the record kernel sweeps the spheres of a scene with segments culled
+    constexpr bool CULL = MODE == RECORD;
     const bool started = alive;
     int b_own = b_end;  // COOP: where this lane's own loop would have stopped
     const float zero3[3] = {0.0f, 0.0f, 0.0f};
@@ -337,7 +439,7 @@ __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3]
         bool hit = false, is_vol = false;
         if (live) {
             if (planar_sweep<false>(S, o, d, t, hidx)) hitk = 2;
-            if (sphere_sweep<false>(S, o, d, tmv, t, hidx)) hitk = 1;
+            if (spheres_hit<CULL, false>(S, o, d, tmv, t, hidx)) hitk = 1;
             hit = hitk > 0;
 
             for (int vi = 0; vi < S.n_vol; ++vi) {
@@ -576,8 +678,8 @@ __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3]
                 bool dark = light.cos_l < 1e-3f;  // grazing the light's plane
                 if constexpr (PW || MODE == RECORD) {
                     // the shadow ray's outcome is kept whatever the angle
-                    if (occluded(S, p, light.ld, light.dist - EPS_HIT, sid, seed, bu,
-                                 VOL_SHADOW)) {
+                    if (occluded<CULL>(S, p, light.ld, light.dist - EPS_HIT, sid, seed,
+                                       bu, VOL_SHADOW)) {
                         mk |= PW ? PW_BLK_A : DEC_BLK_A;
                         dark = true;
                     }
@@ -614,7 +716,7 @@ __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3]
             const float hd[3] = {hr[0], hr[H.n], hr[2 * H.n]};
             const float cos_h = dot3(nrm, hd);
             if (cos_h > 0.0f) {
-                if (occluded(S, p, hd, 3.0e38f, sid, seed, bu, VOL_SHADOW_HDRI)) {
+                if (occluded<CULL>(S, p, hd, 3.0e38f, sid, seed, bu, VOL_SHADOW_HDRI)) {
                     if constexpr (PW) mk |= PW_BLK_H;
                     if constexpr (MODE == RECORD) mk |= DEC_BLK_H;
                 } else {

@@ -20,7 +20,8 @@ rest of the loop, 'compact' packs them to the front in their order
 The record kernel (``wavefront_record``) is the forward once more, and it
 also writes each bounce's discrete outcome: the winner's kind and index and
 whether the shadow rays (toward the area light, toward the environment)
-were blocked.
+were blocked.  In a scene of SPH_CULL_MIN spheres and more it sweeps the
+spheres segment-culled, with the brute sweep's winners.
 
 Environments (``lights/hdri``): the miss shader runs outside the kernels,
 once per ray, from the miss records (direction, throughput, flags).  In a
@@ -92,8 +93,10 @@ What lives here:
     the plain forward with the geometry detached (not an oracle of the
     pathwise tier, where colour gradients also flow through positions).
 
-Not ported: sphere segment culling (a design choice of the forward sweep,
-which changes no result; ROADMAP.md's performance queue).
+Sphere segment culling, the JAX kernel's sweep from SPH_CULL_MIN spheres
+on, is the record kernel's alone (``build_tables`` makes the segments,
+``record_sweep_counts`` mirrors and counts the culled sweep); the other
+kernels sweep every sphere (ROADMAP.md's performance queue).
 """
 
 from __future__ import annotations
@@ -125,10 +128,22 @@ VT_ROWS = 25  # volume: w2l(12) bmin(3) bmax(3) nid mat tex col(3) + tex id
 LT_ROWS = 17  # light: q(3) u(3) v(3) n(3) area em(3) + tex id
 
 # From this many spheres on, the renderer orders rays in 32x32 pixel
-# buckets (render/renderer.scene_tiled).  The JAX package also switches
-# its sphere sweep to Morton-sorted culled segments there; the port keeps
-# the threshold so both packages give a ray the same stream id.
+# buckets (render/renderer.scene_tiled) and the record kernel sweeps the
+# spheres segment-culled, both as the JAX package does from there on (so
+# both packages give a ray the same stream id).
 SPH_CULL_MIN = 64
+# The culled sweep's segments (``build_tables``): spheres a segment; a
+# sphere whose radius exceeds SEG_LARGE times the median radius takes a
+# segment of its own under an infinite box, swept by every ray (a ground
+# sphere would widen its neighbours' boxes to the whole scene); and the
+# padding of the other boxes, a ray's own: a grazing ray's computed root can
+# put its hit point outside the exact sphere by about 4 ulp |o - c|^2 / r
+# (h^2 - a c cancels), and the slab test rounds by a few ulp of |o| + |box|,
+# so a box grows by SEG_PAD_ULPS float32 ulps of D (D / r_min + 1), D = |o|
+# + max(|c| + r) (``seg_c``, ``seg_inv_r``), for every origin.
+SPH_SEG = 8
+SEG_LARGE = 8.0
+SEG_PAD = float(np.float32(8 * 2.0 ** -23))     # SEG_PAD_ULPS = 8
 
 # Output flag word bits
 FLAG_MISSED = 1
@@ -241,6 +256,16 @@ class Tables(NamedTuple):
     n_sphere: int
     n_vol: int
     n_lights: int
+    # The record kernel's culled sphere sweep (SPH_CULL_MIN spheres and
+    # more; None and 0 below): the scene indices of the spheres in spatial
+    # order, segment s holding seg_order[seg_start[s]:seg_start[s + 1]]
+    # under the padded box seg_box[:, s] (lo xyz, hi xyz over tm in [0, 1]).
+    seg_order: torch.Tensor | None = None   # [n_sphere] i32
+    seg_start: torch.Tensor | None = None   # [n_seg + 1] i32
+    seg_box: torch.Tensor | None = None     # [6, n_seg] f32
+    n_seg: int = 0
+    seg_c: float = 0.0       # the padding's scale: max |centre| + radius of
+    seg_inv_r: float = 0.0   # the boxed spheres, 1 / their least radius
 
 
 def applicable(scene, max_prims: int = 1024) -> bool:
@@ -350,9 +375,65 @@ def _mat_rows(materials, textures, mat_ids):
     ]
 
 
+def _spread_bits(v, bits):
+    """Integer tensor -> its low ``bits`` bits at every third position."""
+    out = torch.zeros_like(v)
+    for b in range(bits):
+        out = out | (((v >> b) & 1) << (3 * b))
+    return out
+
+
+def sphere_segments(spheres, seg: int = SPH_SEG):
+    """The culled sweep's segment tables of a sphere pack, on its device:
+    (seg_order [n] i32, seg_start [n_seg + 1] i32, seg_box [6, n_seg] f32,
+    seg_c, seg_inv_r).  Large spheres (radius over SEG_LARGE times the
+    median) come first, a segment each under an infinite box; the others
+    follow in the order of a 10-bit-an-axis Morton key of their motion
+    midpoint, ``seg`` to a segment under a box that holds them over the
+    whole motion sweep (tm in [0, 1]).  seg_c and seg_inv_r scale the
+    padding a ray gives the boxes (SEG_PAD)."""
+    r = spheres.radius.to(torch.float32)
+    n = int(r.shape[0])
+    c0 = spheres.center.to(torch.float32)
+    c1 = c0 + spheres.velocity.to(torch.float32)
+    large = r > SEG_LARGE * r.median()
+    small = ~large
+    inf = torch.full_like(c0, float("inf"))
+    lo = torch.where(large[:, None], -inf, torch.minimum(c0, c1) - r[:, None])
+    hi = torch.where(large[:, None], inf, torch.maximum(c0, c1) + r[:, None])
+    reach = torch.maximum(torch.linalg.vector_norm(c0, dim=1),
+                          torch.linalg.vector_norm(c1, dim=1)) + r
+    seg_c = float(reach[small].max())
+    seg_inv_r = float(1.0 / r[small].min())
+
+    mid = c0 + 0.5 * spheres.velocity.to(torch.float32)
+    mn = mid[small].min(dim=0).values
+    span = torch.clamp_min(mid[small].max(dim=0).values - mn, 1e-6)
+    q = torch.clamp(((mid - mn) / span * 1023.999).long(), 0, 1023)
+    key = (_spread_bits(q[:, 0], 10) | (_spread_bits(q[:, 1], 10) << 1)
+           | (_spread_bits(q[:, 2], 10) << 2))
+    key = torch.where(large, -1, key)           # large spheres first
+    order = torch.sort(key, stable=True).indices
+    n_large = int(large.sum())
+    n_small = n - n_large
+    sizes = [1] * n_large + [seg] * (n_small // seg) + ([n_small % seg] if n_small % seg else [])
+    start = torch.tensor([0] + sizes, dtype=torch.int64, device=r.device).cumsum(0)
+    seg_id = torch.repeat_interleave(torch.arange(len(sizes), device=r.device),
+                                     torch.tensor(sizes, device=r.device))
+    box = torch.empty((6, len(sizes)), dtype=torch.float32, device=r.device)
+    for i in range(3):
+        box[i] = torch.full_like(box[i], float("inf")).scatter_reduce(
+            0, seg_id, lo[order, i], "amin")
+        box[3 + i] = torch.full_like(box[i], -float("inf")).scatter_reduce(
+            0, seg_id, hi[order, i], "amax")
+    return order.to(torch.int32), start.to(torch.int32), box.contiguous(), seg_c, seg_inv_r
+
+
 def build_tables(scene) -> Tables:
-    """Scene -> (PT, ST, VT, LT) tables + counts, on the scene's device.
-    Spheres keep the order they were built in."""
+    """Scene -> (PT, ST, VT, LT) tables + counts, on the scene's device,
+    and in a scene of SPH_CULL_MIN spheres and more the culled sweep's
+    segments (``sphere_segments``).  Spheres keep the order they were built
+    in."""
     dev = scene.device
     p = scene.planar
     n_planar = int(p.d.shape[0])
@@ -412,7 +493,12 @@ def build_tables(scene) -> Tables:
             + [ltex]
         )
     lt = _stack_rows(rows, LT_ROWS, n_lights, dev)
-    return Tables(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights)
+    tb = Tables(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights)
+    if n_sphere >= SPH_CULL_MIN:
+        order, start, box, seg_c, seg_inv_r = sphere_segments(s)
+        tb = tb._replace(seg_order=order, seg_start=start, seg_box=box,
+                         n_seg=int(box.shape[1]), seg_c=seg_c, seg_inv_r=seg_inv_r)
+    return tb
 
 
 # -----------------------------------------------------------------------------
@@ -486,6 +572,72 @@ def _sphere_sweep(tb, o, d, tmv, t_best, hitk, hidx):
     return t_best, hitk, hidx
 
 
+def _sphere_sweep_culled(tb, o, d, tmv, t_best, hitk, hidx, counts, kind,
+                         any_hit=False):
+    """The record kernel's culled sphere sweep (``sphere_sweep_culled`` in
+    csrc/wavefront_trace.cuh), a mirror that counts its work: segments in
+    order, a segment's box (grown by the ray's padding) tested by every ray
+    that sweeps (a ray with t_best above EPS_HIT: dead and inactive lanes
+    sweep with 0), its spheres by the rays that reach the box within
+    (EPS_HIT, t_best], in segment order, the least (t, scene index) winning.
+    The winners are the brute sweep's (``_sphere_sweep``).  Adds to
+    ``counts``: ``<kind>_box_tests``, ``<kind>_sphere_tests`` (each ray's
+    own: what the inputs need) and ``<kind>_warp_sphere_tests`` (32 a warp
+    of consecutive rays with a lane that reaches the segment: the lane slots
+    a warp spends, its lanes running the loop together).  ``any_hit``: a ray
+    stops at its first hit (the shadow sweep)."""
+    st = tb.st
+    a_coef = _dot3(d, d)
+    inv_a = 1.0 / a_coef
+    inv_d = [1.0 / torch.where(torch.abs(d[i]) < 1e-12,
+                               torch.where(d[i] < 0, -1e-12, 1e-12), d[i])
+             for i in range(3)]
+    dist = torch.sqrt(_dot3(o, o)) + tb.seg_c
+    pad = SEG_PAD * dist * (dist * tb.seg_inv_r + 1.0)
+    box = tb.seg_box.tolist()
+    start = tb.seg_start.tolist()
+    order = tb.seg_order.tolist()
+    sweeps = t_best > EPS_HIT
+    found = torch.zeros_like(sweeps)
+    r = sweeps.shape[0]
+    warp_pad = -r % 32
+    for sg in range(tb.n_seg):
+        active = sweeps & ~found if any_hit else sweeps
+        near = torch.full_like(t_best, EPS_HIT)
+        far = t_best
+        for i in range(3):
+            ta = (box[i][sg] - (o[i] + pad)) * inv_d[i]
+            tb_ = (box[3 + i][sg] - (o[i] - pad)) * inv_d[i]
+            near = torch.maximum(near, torch.minimum(ta, tb_))
+            far = torch.minimum(far, torch.maximum(ta, tb_))
+        reach = active & (near <= far)
+        size = start[sg + 1] - start[sg]
+        counts[f"{kind}_box_tests"] += int(active.sum())
+        counts[f"{kind}_sphere_tests"] += int(reach.sum()) * size
+        warps = torch.nn.functional.pad(reach, (0, warp_pad)).reshape(-1, 32).any(dim=1)
+        counts[f"{kind}_warp_sphere_tests"] += int(warps.sum()) * 32 * size
+        if not bool(reach.any()):
+            continue
+        for j in order[start[sg]:start[sg + 1]]:
+            ocx = (st[0, j] + tmv * st[3, j]) - o[0]
+            ocy = (st[1, j] + tmv * st[4, j]) - o[1]
+            ocz = (st[2, j] + tmv * st[5, j]) - o[2]
+            h = d[0] * ocx + d[1] * ocy + d[2] * ocz
+            c = ocx * ocx + ocy * ocy + ocz * ocz - st[6, j]
+            disc = h * h - a_coef * c
+            sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+            r0 = (h - sq) * inv_a
+            r1 = (h + sq) * inv_a
+            cand = torch.where(r0 > EPS_HIT, r0, r1)
+            upd = (reach & (disc >= 0.0) & (cand > EPS_HIT)
+                   & ((cand < t_best) | (found & (cand == t_best) & (hidx > j))))
+            t_best = torch.where(upd, cand, t_best)
+            hitk = torch.where(upd, 1, hitk)
+            hidx = torch.where(upd, j, hidx)
+            found = found | upd
+    return t_best, hitk, hidx
+
+
 def _volume_scatter(tb, o, d, t_cap, vi, u):
     vt = tb.vt
     near = torch.full_like(t_cap, -BIG)
@@ -514,11 +666,17 @@ def _volume_scatter(tb, o, d, t_cap, vi, u):
     return accept, t0c + hit_dist / ray_len
 
 
-def _occluded(tb, kinds, o, d, t_cap, seed, stream, bounce, purpose_base):
+def _occluded(tb, kinds, o, d, t_cap, seed, stream, bounce, purpose_base,
+              counts=None):
+    """``counts``: sweep the spheres culled and count (``_sphere_sweep_culled``)."""
     zero_i = torch.zeros_like(stream, dtype=torch.int32)
     t_best, hitk, _ = _planar_sweep(tb, kinds, o, d, t_cap, zero_i, zero_i)
-    t_best, hitk, _ = _sphere_sweep(tb, o, d, torch.zeros_like(t_cap),
-                                    t_best, hitk, zero_i)
+    if counts is None:
+        t_best, hitk, _ = _sphere_sweep(tb, o, d, torch.zeros_like(t_cap),
+                                        t_best, hitk, zero_i)
+    else:
+        t_best, hitk, _ = _sphere_sweep_culled(tb, o, d, torch.zeros_like(t_cap), t_best,
+                                               hitk, zero_i, counts, "shadow", any_hit=True)
     blocked = hitk > 0
     for vi in range(tb.n_vol):
         u = rngmod.uniform(seed, stream, bounce, purpose_base + 32 * vi)
@@ -535,7 +693,7 @@ def _has_noise(tb: Tables) -> bool:
 
 
 def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
-                 pathwise=False, record=None, hdri=None, start=None):
+                 pathwise=False, record=None, hdri=None, start=None, counts=None):
     """The bounce loop on component lists.  Returns ([9, R] f32 rows:
     radiance, miss direction, miss throughput; [R] i32 flag word).
 
@@ -554,7 +712,11 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
     ``stash``: (stash_f [D, 12, R] f32, stash_i [D, 3, R] i32) holding inert
     rows; the rows of every bounce a ray enters are written into it.  With
     ``pathwise`` the stash is [D, 19 or 20, R] and [D, 3, R] in the pathwise
-    layout (``pathwise_stash_rows``).  The radiance does not depend on either."""
+    layout (``pathwise_stash_rows``).  The radiance does not depend on either.
+
+    ``counts``: a dict of zeros; the sphere sweeps (closest hit and shadow)
+    are then the record kernel's culled sweep, which counts its tests into
+    it (``_sphere_sweep_culled``; tables with segments only)."""
     f32 = torch.float32
     zero = torch.zeros_like(tm)
     one = torch.ones_like(tm)
@@ -590,7 +752,11 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
         # dead lanes sweep with t_cap = 0 and so find nothing
         t = torch.where(alive, BIG, 0.0).to(f32)
         t, hitk, hidx = _planar_sweep(tb, kinds, o, d, t, zero_i, zero_i)
-        t, hitk, hidx = _sphere_sweep(tb, o, d, tm, t, hitk, hidx)
+        if counts is None:
+            t, hitk, hidx = _sphere_sweep(tb, o, d, tm, t, hitk, hidx)
+        else:
+            t, hitk, hidx = _sphere_sweep_culled(tb, o, d, tm, t, hitk, hidx, counts,
+                                                 "closest")
         hit = (hitk > 0) & alive
 
         is_vol = torch.zeros_like(alive)
@@ -753,7 +919,7 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
             # inactive shadow lanes sweep with t_cap = 0 and find nothing
             shadow_cap = torch.where(use_mis & facing, dist - EPS_HIT, zero)
             blocked = _occluded(tb, kinds, p, ld, shadow_cap, seed, stream,
-                                bounce, 65)
+                                bounce, 65, counts)
             blk_a = blocked
             cos_l = torch.abs(-(lsel[9] * ld[0] + lsel[10] * ld[1] + lsel[11] * ld[2]))
             grazing = cos_l < 1e-3
@@ -784,7 +950,7 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
             facing_h = cos_h > 0.0
             shadow_cap_h = torch.where(use_mis & facing_h, 3.0e38, zero)
             blocked_h = _occluded(tb, kinds, p, hd, shadow_cap_h, seed, stream,
-                                  bounce, 66)
+                                  bounce, 66, counts)
             blk_h = blocked_h
             pdf_bh = torch.clamp_min(cos_h, 0.0) * inv_pi
             weight_h = pdf_h / torch.clamp_min(pdf_h + pdf_bh, 1e-20)
@@ -890,14 +1056,34 @@ def _wavefront_fwd_plain(tb: Tables, o, d, tm, stream, seed, max_depth,
 
 
 def _wavefront_record_plain(tb: Tables, o, d, tm, stream, seed, max_depth,
-                            hdri=None):
+                            hdri=None, counts=None):
     """Plain version of the record kernel: the forward's ([9, R] f32,
-    [R] i32) and the record (code [D, R] u8, idx [D, R] i32)."""
+    [R] i32) and the record (code [D, R] u8, idx [D, R] i32).  Its sphere
+    sweeps are the brute sweep in table order, the specification of the
+    kernel's culled one; ``counts`` (see ``record_sweep_counts``) takes the
+    culled sweep's mirror instead."""
     record = (torch.zeros((max_depth, tm.shape[0]), dtype=torch.uint8, device=tm.device),
               torch.zeros((max_depth, tm.shape[0]), dtype=torch.int32, device=tm.device))
     out, flags = _bounce_loop(tb, o, d, tm, stream, seed, max_depth,
-                              record=record, hdri=hdri)
+                              record=record, hdri=hdri, counts=counts)
     return out, flags, record[0], record[1]
+
+
+SWEEP_COUNTS = tuple(f"{kind}_{what}" for kind in ("closest", "shadow")
+                     for what in ("box_tests", "sphere_tests", "warp_sphere_tests"))
+
+
+def record_sweep_counts(tb: Tables, o, d, tm, stream, seed, max_depth, hdri=None):
+    """The record kernel's plain version with its culled sphere sweep
+    mirrored (tables with segments only): what ``_wavefront_record_plain``
+    returns, and the box and sphere tests of its closest-hit and shadow
+    sweeps (``SWEEP_COUNTS``; see ``_sphere_sweep_culled``)."""
+    if tb.n_seg < 1:
+        raise ValueError("the tables have no segments (fewer than SPH_CULL_MIN spheres)")
+    counts = dict.fromkeys(SWEEP_COUNTS, 0)
+    out = _wavefront_record_plain(tb, o, d, tm, stream_to_i32(stream), seed, max_depth,
+                                  hdri, counts)
+    return out + (counts,)
 
 
 def _wavefront_resume_plain(tb: Tables, flat, seed, b_start, b_end, hdri=None):
@@ -1405,7 +1591,8 @@ _TABLES_AND_RAYS = (
 )
 _SIZES = [ctypes.c_longlong, ctypes.c_uint, _I]   # R, seed, depth
 _FWD_ARGTYPES = _TABLES_AND_RAYS + [_P] * 3 + _SIZES + [_P]      # hdri out flags
-_RECORD_ARGTYPES = _TABLES_AND_RAYS + [_P] * 5 + _SIZES + [_P]   # + code idx
+_RECORD_ARGTYPES = (_TABLES_AND_RAYS + [_P] * 4 + [_I, _F, _F]   # hdri, segments
+                    + [_P] * 4 + _SIZES + [_P])                     # out flags code idx
 _GRAD_FWD_ARGTYPES = (_TABLES_AND_RAYS + [_P] * 5 + _SIZES
                       + [_I, _F, _F, _F] + [_P])
 _GRAD_FWD_PATHWISE_ARGTYPES = _GRAD_FWD_ARGTYPES[:-1] + [_I, _P]   # + f_rows
@@ -1527,11 +1714,22 @@ def _wavefront_record_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
     idx = torch.empty((max_depth, r), dtype=torch.int32, device=dev)
     if r == 0:
         return out, flags, code, idx
+    seg = [None, None, None]
+    if tb.n_seg > 0:
+        for t, dtype, shape in ((tb.seg_order, torch.int32, (tb.n_sphere,)),
+                                (tb.seg_start, torch.int32, (tb.n_seg + 1,)),
+                                (tb.seg_box, torch.float32, (6, tb.n_seg))):
+            if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                    or not t.is_contiguous():
+                raise ValueError(f"segment tables must be contiguous {dtype} {shape} "
+                                 f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        seg = [tb.seg_order.data_ptr(), tb.seg_start.data_ptr(), tb.seg_box.data_ptr()]
     fn = _kernel("wavefront", "wavefront_record_launch", _RECORD_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(
             *_table_and_ray_args(tb, o, d, tm, stream),
-            None if hdri is None else hdri.data_ptr(),
+            None if hdri is None else hdri.data_ptr(), *seg, tb.n_seg, tb.seg_c,
+            tb.seg_inv_r,
             out.data_ptr(), flags.data_ptr(), code.data_ptr(), idx.data_ptr(),
             r, int(seed) & 0xFFFFFFFF, int(max_depth),
             torch.cuda.current_stream(dev).cuda_stream,
@@ -1821,10 +2019,10 @@ def _wavefront_grad_fused_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
             mats[:, 1].contiguous(), eout)
 
 
-def _occupancy(library: str, function: str, marble: bool, smem_bytes: int):
-    fn = _kernel(library, function, [_I, _I] + [ctypes.POINTER(ctypes.c_int)] * 2)
+def _occupancy(library: str, function: str, *ints):
+    fn = _kernel(library, function, [_I] * len(ints) + [ctypes.POINTER(ctypes.c_int)] * 2)
     out = [ctypes.c_int() for _ in range(2)]
-    err = fn(int(marble), int(smem_bytes), *(ctypes.byref(c) for c in out))
+    err = fn(*(int(i) for i in ints), *(ctypes.byref(c) for c in out))
     if err != 0:
         raise RuntimeError(f"{function} failed: CUDA error {err}")
     return tuple(c.value for c in out)
@@ -1836,6 +2034,18 @@ def pathwise_occupancy(marble: bool, smem_bytes: int = 0):
     with ``smem_bytes`` of tables in shared memory, on the current CUDA
     device, from its registers."""
     return _occupancy("wavefront", "wavefront_pathwise_occupancy", marble, smem_bytes)
+
+
+def record_occupancy(smem_bytes: int):
+    """The same for the record kernel."""
+    return _occupancy("wavefront", "wavefront_record_occupancy", smem_bytes)
+
+
+def pathwise_rev_occupancy(marble: bool, smem_bytes: int):
+    """The same for the pathwise reverse sweep, ``smem_bytes`` of
+    accumulators a block."""
+    return _occupancy("wavefront_grad_pathwise", "wavefront_grad_rev_pathwise_occupancy",
+                      marble, smem_bytes)
 
 
 def fused_occupancy(marble: bool, smem_bytes: int):

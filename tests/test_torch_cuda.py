@@ -23,12 +23,13 @@ from go_raytracing_tpu_torch.ops import cuda_intersect as ck
 from go_raytracing_tpu_torch.ops import cuda_mesh as cm
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from go_raytracing_tpu_torch.utils import stream_micro as sm
-from test_torch_helpers import (ENV_NEE_CAM, FOG_ROOM_CAM, LUCY_CAM, MARBLE_CAM,
-                                MINI_HDRI_CAM, MIXED_CAM, NOISE_GLOSSY_CAM,
+from test_torch_helpers import (CULL_CASES, ENV_NEE_CAM, FOG_ROOM_CAM, LUCY_CAM,
+                                MARBLE_CAM, MINI_HDRI_CAM, MIXED_CAM, NOISE_GLOSSY_CAM,
                                 build_env_nee, build_fog_room, build_lucy,
                                 build_marble, build_mini_hdri, build_mixed,
-                                build_noise_glossy, build_random_prims,
-                                lucy_instances, mesh_rays, mini_env, random_rays)
+                                build_noise_glossy, build_random_prims, cull_case,
+                                lucy_instances, marble_lane_stash, mesh_rays, mini_env,
+                                random_rays)
 
 
 def _rays(cam, n, seed, device):
@@ -782,6 +783,75 @@ def test_cuda_record_kernel_matches_plain_version(scene_name):
     _, dec = twf.trace(scene, cam, o, d, tm, ids, 5, mega_mode="off", record=True)
     for a, b in ((which, dec.which), (widx, dec.idx), (blk_a, dec.blk_a)):
         assert float((a == b).float().mean()) >= 0.999
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CULL_CASES)
+def test_cuda_record_kernel_culled_sweep_matches_plain_version(name):
+    """B6's segment-culled sphere sweep (64 spheres and more; 63: the brute
+    sweep) against its plain version, whose sweep is the brute one in table
+    order: code and index bytes, radiance and flags the same bits, and the
+    radiance the forward kernel's, on rays aimed at the segment boxes'
+    corners and edges and along the axes, with duplicated spheres swept in
+    either order, moving spheres, a ground sphere and shadow rays; at the
+    set's ray count and at 1, 31 and 33 rays."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    _, tb, o, d, tm, ids = cull_case(grtt, cw, name, "cuda")
+    assert (tb.n_seg > 0) == (name != "63")
+    sid = cw.stream_to_i32(ids)
+    for n in (tm.shape[0], 1, 31, 33):
+        args = (tb, V3(*(c[:n].contiguous() for c in o)), V3(*(c[:n].contiguous() for c in d)),
+                tm[:n].contiguous(), sid[:n].contiguous(), 5, 3)
+        before = cw.LAUNCHES_RECORD
+        k = cw.wavefront_record(*args)
+        torch.cuda.synchronize()
+        assert cw.LAUNCHES_RECORD == before + 1
+        for a, b in zip(k, cw._wavefront_record_plain(*args)):
+            assert torch.equal(a, b)
+        f_out, f_flags = cw.wavefront_fwd(*args)
+        assert torch.equal(k[0], f_out) and torch.equal(k[1], f_flags)
+        if n == tm.shape[0]:
+            assert float(((k[2] & cw.DEC_KIND_MASK) == 1).float().mean()) > 0.05
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth, pattern", [(1, "warps"), (5, "warps"), (50, "warps"),
+                                            (50, "ends")])
+def test_cuda_pathwise_reverse_takes_the_marble_in_turns(depth, pattern):
+    """B5b with marble (<20>): each bounce's dmarble/dp in turns across the
+    warp, against its plain version within 1e-4 of each key's largest entry
+    and the same bits on two launches, with warps of 0, 1 and 32 marble
+    lanes, or marble at each ray's first and last bounce, at depth 1, 5 and
+    50, on 2 x 2,048 + 37 rays (neither a multiple of 32 nor of a block's
+    2,048)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene = build_noise_glossy(grtt, device="cuda")
+    cam = dataclasses.replace(tcamera.Camera(**NOISE_GLOSSY_CAM), image_width=64,
+                              max_depth=depth)
+    n = 2 * 2048 + 37
+    o, d, tm, ids = _rays(cam, n, 3, "cuda")
+    sid = cw.stream_to_i32(ids)
+    tb = cw.build_tables(scene)
+    k = cw.wavefront_grad_fwd(tb, o, d, tm, sid, 3, depth, cw.miss_config(cam), pathwise=True)
+    assert k[3].shape[1] == cw.PW_STASH_F_ROWS_MARBLE
+    si = marble_lane_stash(k[4], pattern, cw.PW_MARBLE)
+    lanes = ((si[0, 2] & cw.PW_MARBLE) != 0)[: n // 32 * 32].reshape(-1, 32).sum(dim=1)
+    if pattern == "warps":
+        assert {0, 1, 32} <= set(lanes.tolist())
+    g3 = torch.rand((3, n), device="cuda", generator=torch.Generator("cuda").manual_seed(0)) * 1e-3
+    rev = (tb, k[3], si, g3, k[2], sid, 3, bool(cam.use_sky_gradient),
+           int(scene.textures.color.shape[0]), int(scene.materials.kind.shape[0]))
+    before = cw.LAUNCHES_GRAD_REV_PATHWISE
+    gk, gk2 = cw.wavefront_grad_rev_pathwise(*rev), cw.wavefront_grad_rev_pathwise(*rev)
+    torch.cuda.synchronize()
+    assert cw.LAUNCHES_GRAD_REV_PATHWISE == before + 2
+    gp = cw._wavefront_grad_rev_pathwise_plain(*rev)
+    assert float(gp[0].abs().max()) > 0.0
+    for a, b, c in zip(gk, gk2, gp):
+        assert torch.equal(a, b)
+        assert float((a - c).abs().max()) <= 1e-4 * max(float(c.abs().max()), 1e-30)
 
 
 @pytest.mark.cuda

@@ -351,6 +351,136 @@ def random_rays(n=700, seed=1):
     return o, d, tm
 
 
+def build_sphere_cloud(pkg, n_spheres=90, seed=0, duplicates=4, ground_sphere=False,
+                       **build_kwargs):
+    """A scene for the record kernel's culled sphere sweep: small spheres
+    (radius 0.15 to 0.6) over a 12 x 12 patch under a quad light, every
+    third one moving up, the first ``duplicates`` repeated exactly at the end
+    (equal t: the lower index must win), on a ground plane or, with
+    ``ground_sphere``, on a radius-1000 sphere (a segment of its own).
+    Materials in turn: lambertian, metal, glass."""
+    r = np.random.default_rng(seed)
+    b = pkg.SceneBuilder()
+    mats = [b.lambertian((0.7, 0.4, 0.3)), b.metal((0.8, 0.8, 0.8), 0.1),
+            b.dielectric(1.5)]
+    ground = b.lambertian(b.checker(0.5, (0.2, 0.3, 0.1), (0.9, 0.9, 0.9)))
+    specs = []
+    for i in range(n_spheres - duplicates - int(ground_sphere)):
+        c = (r.uniform(-6, 6), r.uniform(0.2, 2.0), r.uniform(-6, 6))
+        specs.append((c, r.uniform(0.15, 0.6), i % 3, r.uniform(0.1, 0.5) if i % 3 == 0 else 0.0))
+    for c, rad, m, up in specs + specs[:duplicates]:
+        if up:
+            b.moving_sphere(c, (c[0], c[1] + up, c[2]), rad, mats[m])
+        else:
+            b.sphere(c, rad, mats[m])
+    if ground_sphere:
+        b.sphere((0, -1000, 0), 1000, ground)
+    else:
+        b.plane((0, 0, 0), (0, 1, 0), ground)
+    b.add_light(b.quad((-2, 6, -2), (4, 0, 0), (0, 0, 4), b.diffuse_light((8, 8, 8))))
+    return b.build(**build_kwargs)
+
+
+def cull_rays(seg_box, n_random=256, seed=0):
+    """Rays that test the culled sweep's slab test (``seg_box`` [6, n_seg],
+    numpy): from origins over and around the spheres toward random points,
+    toward every finite segment box's 8 corners and the midpoints of its 12
+    edges, and, for a sixth of them, along an axis (direction components
+    exactly 0); times in [0, 1).  Returns float32 numpy (o [n, 3], d [n, 3],
+    tm [n])."""
+    r = np.random.default_rng(seed)
+    seg_box = seg_box[:, np.isfinite(seg_box).all(axis=0)]   # not the large spheres'
+    lo, hi = seg_box[:3].T, seg_box[3:].T
+    targets = [r.uniform((-7, -0.5, -7), (7, 3, 7), size=(n_random, 3))]
+    for k in range(8):
+        targets.append(np.where([(k >> a) & 1 for a in range(3)], hi, lo))
+    for a in range(3):
+        for k in range(4):
+            e = np.where([(k >> (b - (b > a))) & 1 if b != a else 0 for b in range(3)], hi, lo)
+            e[:, a] = 0.5 * (lo[:, a] + hi[:, a])
+            targets.append(e)
+    t = np.concatenate(targets).astype(np.float32)
+    n = t.shape[0]
+    o = r.uniform((-10, 0.5, -10), (10, 6, 10), size=(n, 3)).astype(np.float32)
+    axis = r.integers(0, 3, n)
+    along = r.random(n) < 1 / 6
+    o[along] = t[along]
+    o[along, axis[along]] += np.where(r.random(along.sum()) < 0.5, -9.0, 9.0)
+    d = (t - o).astype(np.float32)
+    d[along] = np.where(np.arange(3) == axis[along, None], d[along], 0.0)
+    return o, d, r.random(n).astype(np.float32)
+
+
+def reverse_within_segments(order, start):
+    """A segment table's sphere order with each segment's spheres reversed:
+    the same segments and boxes, another sweep order (ties then meet the
+    higher index first)."""
+    out = order.clone()
+    bounds = start.tolist()
+    for s0, s1 in zip(bounds[:-1], bounds[1:]):
+        out[s0:s1] = order[s0:s1].flip(0)
+    return out
+
+
+CULL_CASES = ("random", "cloud", "cloud_reversed", "ground_sphere", "63", "64", "65")
+
+
+def cull_case(pkg, cw, name, device, n_random=256, seed=0):
+    """One set of the culled sphere sweep's checks, on ``device``: (scene,
+    tables, o, d, tm, stream ids), rays from ``cull_rays`` aimed at the
+    scene's segment boxes.  ``random``: the ``random`` scene at grid (-5, 5,
+    -5, 5) (92 spheres); ``cloud``: ``build_sphere_cloud`` (duplicates,
+    moving spheres, a quad light: shadow sweeps); ``cloud_reversed``: the
+    same with each segment swept in reversed order (ties meet the higher
+    index first); ``ground_sphere``: on a radius-1000 sphere; ``63``,
+    ``64``, ``65``: clouds of that many spheres (63: the brute sweep)."""
+    import torch
+
+    from go_raytracing_tpu_torch.core.vec3 import V3
+
+    if name == "random":
+        scene = pkg.load_scene("random", grid=(-5, 5, -5, 5), device=device)[0]
+    elif name in ("63", "64", "65"):
+        scene = build_sphere_cloud(pkg, n_spheres=int(name), seed=int(name), device=device)
+    else:
+        scene = build_sphere_cloud(pkg, ground_sphere=name == "ground_sphere", device=device)
+    tb = cw.build_tables(scene)
+    if name == "cloud_reversed":
+        tb = tb._replace(seg_order=reverse_within_segments(tb.seg_order, tb.seg_start))
+    box = cw.sphere_segments(scene.spheres)[2].cpu().numpy()
+    o, d, tm = cull_rays(box, n_random=n_random, seed=seed)
+    o, d, tm = (torch.from_numpy(a).to(device) for a in (o, d, tm))
+    return (scene, tb, V3(*o.T.contiguous()), V3(*d.T.contiguous()), tm,
+            torch.arange(tm.shape[0], device=device))
+
+
+def marble_lane_stash(stash_i, pattern, marble_bit):
+    """A pathwise stash's int rows ([depth, 3, n]) with the marble bit set on
+    chosen rows the rays entered (mask not 0) and cleared on the others:
+    ``warps``: warps of 32 consecutive rays in turn with no marble lane, one
+    (lane w % 32 of warp w) and all 32; ``ends``: each ray's first and last
+    entered bounce.  The reverse sweep reads a row's marble bit, point and
+    scale as they come, so any pattern is a valid input."""
+    import torch
+
+    si = stash_i.clone()
+    mk = si[:, 2]
+    entered = mk != 0
+    n = mk.shape[1]
+    ray = torch.arange(n, device=mk.device)
+    lane, warp = ray % 32, ray // 32
+    if pattern == "warps":
+        kind = warp % 3
+        want = ((kind == 2) | ((kind == 1) & (lane == warp % 32)))[None, :] & entered
+    else:
+        want = torch.zeros_like(entered)
+        want[0] = entered[0]
+        last = (entered.sum(dim=0) - 1).clamp_min(0)
+        want[last, ray] = entered[last, ray]
+    si[:, 2] = torch.where(want, mk | marble_bit, mk & ~marble_bit)
+    return si
+
+
 def build_fog_room(pkg, **build_kwargs):
     """A scene outside the megakernel's gate: a round fog and a pyramid fog
     in a small room with a checker floor, a red wall, a quad light, a fuzzy
