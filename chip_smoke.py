@@ -1990,14 +1990,14 @@ def record_cull_sets(dev):
     rays aimed at segment boxes' corners and edges and along the axes,
     duplicated spheres swept in either order, moving spheres, a ground
     sphere, shadow rays, 63 / 64 / 65 spheres; at each set's ray count and
-    at 1, 31 and 33 rays.  Code, index, radiance and flags must be the same
-    bits, and the radiance the forward kernel's."""
+    at 33 rays (the tests take 1 and 31 too).  Code, index, radiance and
+    flags must be the same bits, and the radiance the forward kernel's."""
     out = {}
     for name in th.CULL_CASES:
         _, tb, o, d, tm, ids = th.cull_case(grt, cw, name, dev)
         sid = cw.stream_to_i32(ids)
         res = []
-        for n in (tm.shape[0], 1, 31, 33):
+        for n in (tm.shape[0], 33):
             args = (tb, V3(*(c[:n].contiguous() for c in o)),
                     V3(*(c[:n].contiguous() for c in d)), tm[:n].contiguous(),
                     sid[:n].contiguous(), 5, 3)

@@ -933,10 +933,10 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
                 contrib = torch.clamp_max(raw, FIREFLY)
                 rad[c] = rad[c] + torch.where(ok, tp[c] * contrib, 0.0)
                 if stash is not None and not pathwise:
-                    counts = ok & (raw < FIREFLY)
-                    em_su[c] = torch.where(counts, lsel[13 + c] * scale, 0.0)
-                    alb_su[c] = torch.where(counts, atten[c] * scale, 0.0)
-                    clamped[c] = ok & ~counts
+                    kept = ok & (raw < FIREFLY)
+                    em_su[c] = torch.where(kept, lsel[13 + c] * scale, 0.0)
+                    alb_su[c] = torch.where(kept, atten[c] * scale, 0.0)
+                    clamped[c] = ok & ~kept
             if stash is not None and not pathwise:
                 lslot = torch.where(use_mis, (lsel[16] * 3.0).to(torch.int32),
                                     LSLOT_NONE)

@@ -27,7 +27,7 @@ copies of the two trees' ``csrc/`` with one edit each:
 and times them in turns (``chip_smoke.rounds_ms``) at the main paths'
 chunks: B5b at ``marble-glossy``'s and ``cornell-glossy``'s 3,600,000 rays
 (partial rows against the parent's, bit for bit), B6 at ``random``'s record
-chunk of 856,064 rays with segments of 4 to 16 spheres (records against the
+chunk of 856,064 rays with segments of 4 to 32 spheres (records against the
 parent's, bit for bit) beside B1 on the same rays, the culled sweep's
 tests counted on a sample of the chunk, and end to end ``marble-glossy``
 fwd+bwd with either tree's B5b and ``random``'s replay fwd+bwd with the
@@ -314,7 +314,7 @@ def main():
         rr_cam = dataclasses.replace(rr_cam, image_width=600, aspect_ratio=16 / 9,
                                      samples_per_pixel=25, max_depth=10)
         rc_cam, *rays = cs.replay_chunk_rays(rr_scene, rr_cam)
-        ab.b6(rr_scene, tuple(rays), rc_cam.max_depth, (4, 6, 8, 12, 16))
+        ab.b6(rr_scene, tuple(rays), rc_cam.max_depth, (4, 6, 8, 12, 16, 32))
         ab.end_to_end(glossy, gcam, rr_scene, rr_cam)
         ab.emit("done", nvidia_smi=cs.smi("name,power.limit"))
 
