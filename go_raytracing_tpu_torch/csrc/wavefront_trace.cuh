@@ -243,7 +243,7 @@ __device__ __forceinline__ bool sphere_sweep(const Tables& S, const float o[3],
 // sweep (very large spheres alone, under an infinite box).  A ray sweeps a
 // segment when it reaches the segment's box within (EPS_HIT, t_best] (a
 // warp's vote, all lanes sweeping a segment one of them reaches, measured
-// 2 % slower on the H100, PERF.md).  The box grows by a padding that keeps
+// no faster on the H100, PERF.md).  The box grows by a padding that keeps
 // the float slab test from dropping a sphere the quadratic would hit: a
 // grazing ray's computed root can put its hit point outside the exact
 // sphere by about 4 ulp |o - c|^2 / r (h^2 - a c cancels), and the slab

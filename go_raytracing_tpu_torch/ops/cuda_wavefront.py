@@ -132,18 +132,19 @@ LT_ROWS = 17  # light: q(3) u(3) v(3) n(3) area em(3) + tex id
 # spheres segment-culled, both as the JAX package does from there on (so
 # both packages give a ray the same stream id).
 SPH_CULL_MIN = 64
-# The culled sweep's segments (``build_tables``): spheres a segment; a
-# sphere whose radius exceeds SEG_LARGE times the median radius takes a
-# segment of its own under an infinite box, swept by every ray (a ground
-# sphere would widen its neighbours' boxes to the whole scene); and the
-# padding of the other boxes, a ray's own: a grazing ray's computed root can
-# put its hit point outside the exact sphere by about 4 ulp |o - c|^2 / r
-# (h^2 - a c cancels), and the slab test rounds by a few ulp of |o| + |box|,
-# so a box grows by SEG_PAD_ULPS float32 ulps of D (D / r_min + 1), D = |o|
-# + max(|c| + r) (``seg_c``, ``seg_inv_r``), for every origin.
+# The culled sweep's segments (``build_tables``): SPH_SEG spheres a segment
+# (8 measured fastest of 4 to 32 on ``random``, PERF.md; the JAX kernel's 16
+# was chosen on the TPU); a sphere whose radius exceeds SEG_LARGE times the
+# median takes a segment of its own under an infinite box, swept by every
+# ray (a ground sphere would widen its neighbours' boxes to the whole
+# scene); and SEG_PAD, the padding a ray gives the other boxes: a grazing
+# ray's computed root can put its hit point outside the exact sphere by
+# about 4 ulp |o - c|^2 / r (h^2 - a c cancels), and the slab test rounds by
+# a few ulp of |o| + |box|, so a box grows by 8 float32 ulps of D (D / r_min
+# + 1), D = |o| + max(|c| + r) (``seg_c``, ``seg_inv_r``), for every origin.
 SPH_SEG = 8
 SEG_LARGE = 8.0
-SEG_PAD = float(np.float32(8 * 2.0 ** -23))     # SEG_PAD_ULPS = 8
+SEG_PAD = float(np.float32(8 * 2.0 ** -23))
 
 # Output flag word bits
 FLAG_MISSED = 1
@@ -383,13 +384,13 @@ def _spread_bits(v, bits):
     return out
 
 
-def sphere_segments(spheres, seg: int = SPH_SEG):
+def sphere_segments(spheres):
     """The culled sweep's segment tables of a sphere pack, on its device:
     (seg_order [n] i32, seg_start [n_seg + 1] i32, seg_box [6, n_seg] f32,
     seg_c, seg_inv_r).  Large spheres (radius over SEG_LARGE times the
     median) come first, a segment each under an infinite box; the others
     follow in the order of a 10-bit-an-axis Morton key of their motion
-    midpoint, ``seg`` to a segment under a box that holds them over the
+    midpoint, SPH_SEG to a segment under a box that holds them over the
     whole motion sweep (tm in [0, 1]).  seg_c and seg_inv_r scale the
     padding a ray gives the boxes (SEG_PAD)."""
     r = spheres.radius.to(torch.float32)
@@ -416,7 +417,8 @@ def sphere_segments(spheres, seg: int = SPH_SEG):
     order = torch.sort(key, stable=True).indices
     n_large = int(large.sum())
     n_small = n - n_large
-    sizes = [1] * n_large + [seg] * (n_small // seg) + ([n_small % seg] if n_small % seg else [])
+    full, rest = divmod(n_small, SPH_SEG)
+    sizes = [1] * n_large + [SPH_SEG] * full + ([rest] if rest else [])
     start = torch.tensor([0] + sizes, dtype=torch.int64, device=r.device).cumsum(0)
     seg_id = torch.repeat_interleave(torch.arange(len(sizes), device=r.device),
                                      torch.tensor(sizes, device=r.device))
