@@ -97,9 +97,9 @@
 // counted operations against 60 of shading.  In a scene of SPH_CULL_MIN
 // spheres and more it sweeps them segment-culled, as the JAX kernel does
 // (sphere_sweep_culled, wavefront_trace.cuh): the spheres in spatial order,
-// in segments under a padded box each (ops/cuda_wavefront.build_tables;
-// very large spheres alone), a segment swept only by the rays that reach
-// its box within their current t; the winner is the least
+// in segments under a box each (ops/cuda_wavefront.build_tables; very large
+// spheres alone), a segment swept only by the rays that reach its box,
+// padded for the ray, within their current t; the winner is the least
 // (t, scene index), so t, index and radiance are the brute sweep's bits.
 // The segment tables go to shared memory with the others.  Below
 // SPH_CULL_MIN spheres, and in every other instantiation, the brute sweep.
@@ -542,9 +542,9 @@ extern "C" int wavefront_resume_launch(
 }
 
 // Blocks an SM holds at once of the pathwise gradient forward (marble: its
-// instantiation of a scene with marble), and of the record kernel,
-// with `smem_bytes` of tables in shared memory, from its registers, and its
-// threads a block.  Returns a CUDA error code (0 on success).
+// instantiation of a scene with marble) with `smem_bytes` of tables in
+// shared memory, from its registers, and its threads a block.  Returns a
+// CUDA error code (0 on success).
 extern "C" int wavefront_pathwise_occupancy(int marble, int smem_bytes,
                                             int* blocks_per_sm, int* threads) {
     *threads = THREADS;
@@ -554,6 +554,7 @@ extern "C" int wavefront_pathwise_occupancy(int marble, int smem_bytes,
                                                               (size_t)smem_bytes);
 }
 
+// The same for the record kernel.
 extern "C" int wavefront_record_occupancy(int smem_bytes, int* blocks_per_sm,
                                           int* threads) {
     *threads = THREADS;

@@ -184,10 +184,11 @@ __device__ __forceinline__ float marble(const float p[3], float scale) {
 // 2^o is exact: a power of two), added in the same order, so the value is
 // marble's bit for bit; the gradient takes each corner's term by the product
 // rule over its weights (the lattice cell held fixed) and sums the terms
-// over corners, then octaves, in the torch version's order.  Measured on the H100, the
-// turns beat one lane a ray even where all 32 lanes need a marble (PERF.md),
-// so there is no other path.  Every marble kernel takes it: B5a and B4's
-// forwards for the value (B4 with dmarble/dp), B5b for dmarble/dp.
+// over corners, then octaves, in the torch version's order.  Measured on the
+// H100, the turns beat one lane a ray even where 30 of 32 lanes need a
+// marble (PERF.md), so there is no other path.  Every marble kernel takes
+// it: B5a and B4's forwards for the value (B4 with dmarble/dp), B5b for
+// dmarble/dp.
 template <bool GRAD>
 __device__ __forceinline__ float marble_warp(bool need, const float p[3],
                                              float scale, float grad[3],

@@ -107,9 +107,10 @@ constexpr int REV_MISS_STREAM = 2;
 // bounce the warp takes its lanes' marble points in turns (marble_warp, the
 // bits one lane alone computes), so a bounce costs one evaluation a marble
 // lane shared by 28 lanes, not a whole evaluation wherever one lane of the
-// warp met marble.  FUSED: the fused kernel's own stash, which holds the `len` bounces the ray entered and nothing after
-// them (PW_F_ROWS, or PW_F_ROWS_FUSED_MARBLE with dmarble/dp as rows 19-21);
-// the sweep starts at the deepest bounce a lane of the warp entered.
+// warp met marble.  FUSED: the fused kernel's own stash, which holds the
+// `len` bounces the ray entered and nothing after them (PW_F_ROWS, or
+// PW_F_ROWS_FUSED_MARBLE with dmarble/dp as rows 19-21); the sweep starts at
+// the deepest bounce a lane of the warp entered.
 //   f, q, zs: the ray's pathwise stash, float row r of bounce k at
 //             f[(k * F_ROWS + r) * zs], int row r at q[(k * 3 + r) * zs];
 //   g, mc:    the cotangent of the ray's radiance, its miss colour (0 if it

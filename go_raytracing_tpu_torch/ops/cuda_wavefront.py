@@ -260,7 +260,8 @@ class Tables(NamedTuple):
     # The record kernel's culled sphere sweep (SPH_CULL_MIN spheres and
     # more; None and 0 below): the scene indices of the spheres in spatial
     # order, segment s holding seg_order[seg_start[s]:seg_start[s + 1]]
-    # under the padded box seg_box[:, s] (lo xyz, hi xyz over tm in [0, 1]).
+    # under the box seg_box[:, s] (lo xyz, hi xyz over tm in [0, 1]; +-inf
+    # for a large sphere), which each ray pads (SEG_PAD).
     seg_order: torch.Tensor | None = None   # [n_sphere] i32
     seg_start: torch.Tensor | None = None   # [n_seg + 1] i32
     seg_box: torch.Tensor | None = None     # [6, n_seg] f32
