@@ -40,10 +40,10 @@ render's launches are), then the card's speed (``card_yardstick``: three
 kernels beside their times in PERF.md, so that a slow card does not read as
 a redesign's loss).  Then the replay tier of ``render_grad``: the
 record kernel against the forward kernel, its plain version and the
-standard integrator's record (``record_kernel_vs_plain``, early; its
-segment-culled sphere sweep on the test sets of rays at box corners,
-edges and axes, ties, a ground sphere and 63 / 64 / 65 spheres,
-``record_cull_sets``), ``random``
+standard integrator's record (``record_kernel_vs_plain``, early; the
+culled sphere sweep of B6, B1 and B11 against their plain versions on the
+test sets of rays at segment and group box corners, edges and axes, ties, a
+ground sphere and 63 / 64 / 65 spheres, ``culled_sweep_sets``), ``random``
 (600x337, 25 spp, depth 10, recorded by the record kernel) and
 ``cornell-lucy`` (600x600, 25 spp, depth 5, 112,128 triangles x 10,
 recorded through ``mesh_stream``) at full size (``replay_random_fwd_bwd``,
@@ -51,7 +51,9 @@ recorded through ``mesh_stream``) at full size (``replay_random_fwd_bwd``,
 (``replay_profile``), the record kernel alone beside B1 on the same rays,
 with the box and sphere tests its culled sweep needs (counted by the
 sweep's plain mirror on the whole chunk) and both bounds, the culled and
-the brute sweep's (``record_kernel_timing``),
+the brute sweep's (``record_kernel_timing``), B1 alone at ``random``'s
+render chunk (4,066,304 rays, depth 10) held to its plain version bit for
+bit, with its sweep's tests and both bounds (``forward_random_timing``),
 both scenes at 32x32 against the CPU's plain versions and autograd
 (``replay_check``), the row-sum kernel of ``take_rows``' backward pass
 (``row_sums_kernel``; not a port of a TPU kernel, so not in the ``kernels``
@@ -67,7 +69,8 @@ the pathwise two-phase tier (``hdri_fwd_bwd``), the same two with a quad
 light added (``env_nee_main_path``, ``env_nee_fwd_bwd``: HDRI NEE, the fused
 tier), and the kernels alone (``env_kernel_timing``).  Then marble
 (``noise_kernels_vs_plain`` ... ``split_profile``: B1 / B6 / B2 with marble,
-perlin, the resumable kernel B11), then marble behind metal and glass
+perlin, the resumable kernel B11, also on ``random`` at depth 50 with its
+culled sweep's tests and both bounds), then marble behind metal and glass
 (ROADMAP A13b): B5a, B5b and B4 with dmarble/dp against their plain versions
 and the pathwise and fused tiers against the replay tier on 16,384 rays
 (``marble_kernels_vs_plain``), ``marble-glossy`` (the JAX package's noise +
@@ -247,13 +250,14 @@ MESH_RAYS_IN, MESH_DEAD_IN, MESH_BYTES_OUT = 7 * 4, 4, 4 + 4 + 4 + 1
 # chunk): a run that reads them slower is on a slower card.
 CARD_YARDSTICK = {"wavefront_fwd": 2.718, "mesh_sweep": 0.9187, "planar_closest": 0.2383}
 # Registers and spill bytes (ptxas) of the kernels that share device code
-# with the redesigned B4, B5a <4>, B5b <20> and B6 but keep their own
-# design: B1, B2, B11, B5a <2> and B5b without marble, as recorded in
-# PERF.md section 6.  A build that changes them changed code it must not
-# change (and the card yardstick, whose first kernel is B1).
+# with the redesigned B1, B4, B5a <4>, B5b <20>, B6 and B11 but keep their
+# own design: B2, B5a <2>, B5b without marble, and the brute (not culled)
+# instantiations of B1 and B11 (scenes under SPH_CULL_MIN spheres), as
+# recorded in PERF.md section 6.  A build that changes them changed code it
+# must not change (and the card yardstick, whose first kernel is B1).
 UNCHANGED_KERNELS = {
-    "wavefront_kernelILi0E": (96, 0), "wavefront_kernelILi1E": (114, 0),
-    "wavefront_kernelILi2E": (120, 0), "wavefront_resume_kernel": (96, 84),
+    "wavefront_kernelILi0ELb0E": (96, 0), "wavefront_kernelILi1ELb0E": (114, 0),
+    "wavefront_kernelILi2ELb0E": (120, 0), "wavefront_resume_kernelILb0E": (96, 84),
     "wavefront_grad_rev_pathwise_kernelILi19E": (110, 0)}
 
 
@@ -1902,17 +1906,43 @@ def replay_chunk_rays(scene, cam):
             tm.contiguous(), cw.stream_to_i32(ids))
 
 
+def table_bytes_of(tb):
+    """Bytes of the scalar tables a tracing launch reads, with the culled
+    sweep's segment and group tables where the tables have them."""
+    tables = [tb.pt, tb.st, tb.vt, tb.lt]
+    if tb.n_seg > 0:
+        tables += [tb.seg_order, tb.seg_start, tb.seg_box, tb.grp_start, tb.grp_box]
+    return sum(t.numel() * t.element_size() for t in tables)
+
+
+def sweep_flops(tb, ray_bounces, counts, marble_hits=0.0):
+    """Counted float operations of ``ray_bounces`` entered ray-bounces with
+    the culled sweep's tests ``counts`` (``cw.culled_sweep_counts``; empty:
+    the brute sweep), and those of the brute sweep: (culled, brute).  The
+    culled sweep's box tests (both levels) x FLOPS_BOX_TEST and sphere tests
+    x FLOPS_SPHERE stand in place of every sphere's FLOPS_SPHERE; marble
+    hits add FLOPS_MARBLE each."""
+    rest = tb.n_planar * FLOPS_PLANAR + tb.n_vol * FLOPS_VOLUME + FLOPS_SHADE
+    brute = ray_bounces * (rest + tb.n_sphere * FLOPS_SPHERE) + marble_hits * FLOPS_MARBLE
+    if not counts:
+        return brute, brute
+    culled = (ray_bounces * rest + marble_hits * FLOPS_MARBLE
+              + (counts["closest_group_box_tests"] + counts["closest_box_tests"]) * FLOPS_BOX_TEST
+              + counts["closest_sphere_tests"] * FLOPS_SPHERE)
+    return culled, brute
+
+
 def record_kernel_timing(cases, launches, checks, regs):
     """The record kernel alone at ``render_grad``'s record chunk of
     ``random`` (600x337, 25 spp, depth 10) and at the Cornell render's chunk,
     beside the forward kernel on the same rays and its bounds; its plain
     version timed on ``random``'s chunk, and its culled sphere sweep's
-    mirror run on the whole chunk (``record_sweep_counts``: the same record,
-    and the box and sphere tests it needs).  Two bounds: the brute sweep's
-    (every sphere a ray-bounce, as before the culled sweep), and the culled
-    sweep's (its box tests x FLOPS_BOX_TEST + sphere tests x FLOPS_SPHERE in
-    place of the spheres).  ``cases``: (name, scene, cam, rays).  Returns its
-    entry of the ``kernels`` line (``random``'s chunk)."""
+    mirror run on the whole chunk (``cw.culled_sweep_counts``: the same
+    record, and the group box, segment box and sphere tests it needs).  Two
+    bounds: the brute sweep's (every sphere a ray-bounce, as before the
+    culled sweep), and the culled sweep's (``sweep_flops``).  ``cases``:
+    (name, scene, cam, rays).  Returns its entry of the ``kernels`` line
+    (``random``'s chunk)."""
     entry = None
     for name, scene, cam, (o, d, tm, sid) in cases:
         tb = cw.build_tables(scene)
@@ -1927,20 +1957,15 @@ def record_kernel_timing(cases, launches, checks, regs):
         for b in range(1, depth):
             _, f = cw.wavefront_fwd(tb, o, d, tm, sid, 0, b)
             entering.append(int(((f & cw.FLAG_ALIVE) != 0).sum()))
-        rest = tb.n_planar * FLOPS_PLANAR + tb.n_vol * FLOPS_VOLUME + FLOPS_SHADE
-        flops_brute = float(sum(entering)) * (rest + tb.n_sphere * FLOPS_SPHERE)
-        table_bytes = 4 * sum(t.numel() for t in (tb.pt, tb.st, tb.vt, tb.lt))
-        counts, flops = {}, flops_brute
+        counts = {}
         if tb.n_seg > 0:
-            table_bytes += 4 * sum(t.numel() for t in (tb.seg_order, tb.seg_start, tb.seg_box))
-            *mirror, counts = cw.record_sweep_counts(*args)
+            mirror, counts = cw.culled_sweep_counts(cw._wavefront_record_plain, *args)
             if not all(bool(torch.equal(a, b)) for a, b in zip(mirror, k)):
                 raise RuntimeError(f"{name}: the culled sweep's mirror gives another record "
                                    "than the kernel")
             del mirror
-            flops = (float(sum(entering)) * rest + counts["closest_box_tests"] * FLOPS_BOX_TEST
-                     + counts["closest_sphere_tests"] * FLOPS_SPHERE)
-        moved = 18 * 4 * n + table_bytes + depth * n * RECORD_BYTES_PER_DECISION
+        flops, flops_brute = sweep_flops(tb, float(sum(entering)), counts)
+        moved = 18 * 4 * n + table_bytes_of(tb) + depth * n * RECORD_BYTES_PER_DECISION
         bound = (moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3)
         bound_brute = max(bound[0], flops_brute / PEAK_FP32_FLOPS * 1e3)
         fields = {}
@@ -1968,6 +1993,8 @@ def record_kernel_timing(cases, launches, checks, regs):
              forward_ms_rounds=fwd_rounds, record_over_forward=ms / median(fwd_rounds),
              rays_entering_bounce=entering, spheres=tb.n_sphere, segments=tb.n_seg,
              sweep_counts=counts,
+             group_box_tests_per_ray_bounce=(
+                 counts.get("closest_group_box_tests", 0) / ray_bounces),
              box_tests_per_ray_bounce=counts.get("closest_box_tests", 0) / ray_bounces,
              sphere_tests_per_ray_bounce=(counts["closest_sphere_tests"] / ray_bounces
                                           if counts else float(tb.n_sphere)),
@@ -1984,34 +2011,122 @@ def record_kernel_timing(cases, launches, checks, regs):
     return entry
 
 
-def record_cull_sets(dev):
-    """The record kernel's culled sweep against its plain version (the
-    brute sweep) on the sets of tests/test_torch_cuda.py (``CULL_CASES``):
-    rays aimed at segment boxes' corners and edges and along the axes,
-    duplicated spheres swept in either order, moving spheres, a ground
-    sphere, shadow rays, 63 / 64 / 65 spheres; at each set's ray count and
-    at 33 rays (the tests take 1 and 31 too).  Code, index, radiance and
-    flags must be the same bits, and the radiance the forward kernel's."""
+def culled_sweep_sets(dev):
+    """The culled sphere sweep of B6, B1 and B11 against their plain versions
+    (the brute sweep) on the sets of tests/test_torch_cuda.py
+    (``CULL_CASES``): rays aimed at segment and group boxes' corners and
+    edges and along the axes, duplicated spheres swept in either order,
+    moving spheres, a ground sphere, shadow rays, 63 / 64 / 65 spheres; at
+    each set's ray count and at 33 rays (the tests take 1 and 31 too).  B6
+    at depth 3: code, index, radiance and flags the same bits, and the
+    radiance B1's; B1 at depth 3: rows and flags the same bits; B11: both
+    launches of an explicit split at depth 6 (bounces [0, SPLIT_AT), the
+    survivors sorted, then the rest), all 19 outputs the same bits."""
     out = {}
     for name in th.CULL_CASES:
         _, tb, o, d, tm, ids = th.cull_case(grt, cw, name, dev)
         sid = cw.stream_to_i32(ids)
-        res = []
+        res = {"record": [], "fwd": [], "resume": []}
         for n in (tm.shape[0], 33):
-            args = (tb, V3(*(c[:n].contiguous() for c in o)),
-                    V3(*(c[:n].contiguous() for c in d)), tm[:n].contiguous(),
-                    sid[:n].contiguous(), 5, 3)
+            rays = (V3(*(c[:n].contiguous() for c in o)), V3(*(c[:n].contiguous() for c in d)),
+                    tm[:n].contiguous(), sid[:n].contiguous())
+            args = (tb, *rays, 5, 3)
             k = cw.wavefront_record(*args)
             p = cw._wavefront_record_plain(*args)
             f = cw.wavefront_fwd(*args)
-            res.append(all(bool(torch.equal(a, b)) for a, b in zip(k, p))
-                       and bool(torch.equal(k[0], f[0]) and torch.equal(k[1], f[1])))
-        out[name] = {"segments": tb.n_seg, "rays": int(tm.shape[0]), "equal": res,
+            pf = cw._wavefront_fwd_plain(*args)
+            res["record"].append(all(bool(torch.equal(a, b)) for a, b in zip(k, p))
+                                 and bool(torch.equal(k[0], f[0]) and torch.equal(k[1], f[1])))
+            res["fwd"].append(all(bool(torch.equal(a, b)) for a, b in zip(f, pf)))
+            flat = cw._start_state(*rays)
+            k1 = cw.wavefront_resume(tb, flat, 5, 0, cw.SPLIT_AT)
+            p1 = cw._wavefront_resume_plain(tb, flat, 5, 0, cw.SPLIT_AT)
+            flat2, _ = cw._phase_state_sort(cw._resumed_state(flat, k1),
+                                            (k1[9] & cw.FLAG_ALIVE) != 0)
+            k2 = cw.wavefront_resume(tb, flat2, 5, cw.SPLIT_AT, 6)
+            p2 = cw._wavefront_resume_plain(tb, flat2, 5, cw.SPLIT_AT, 6)
+            res["resume"].append(all(bool(torch.equal(a, b))
+                                     for a, b in zip(k1 + k2, p1 + p2)))
+        out[name] = {"segments": tb.n_seg, "groups": tb.n_grp, "rays": int(tm.shape[0]),
+                     "equal": res,
                      "sphere_hit_share": float(((k[2] & cw.DEC_KIND_MASK) == 1).float().mean())}
-    emit("record_cull_sets", sets=out)
-    bad = {k: v for k, v in out.items() if not all(v["equal"])}
+    emit("culled_sweep_sets", sets=out)
+    bad = {k: v for k, v in out.items() if not all(all(r) for r in v["equal"].values())}
     if bad:
-        raise RuntimeError(f"record kernel (culled sweep) against its plain version: {bad}")
+        raise RuntimeError(f"B6, B1 or B11 (culled sweep) against its plain version: {bad}")
+
+
+def forward_random_timing(scene, cam, launches, regs):
+    """B1 alone at ``random``'s render chunk (600x337, 25 spp, depth 10:
+    4,066,304 rays, the bench's shape): its rows and flags against its plain
+    version (the brute sweep) bit for bit, both timed, the culled sweep's
+    mirror on the whole chunk (the same bits, and the group box, segment box
+    and sphere tests it needs), the culled and the brute sweep's bounds,
+    registers, spills and resident warps.  ``launches``: B1's launches in
+    the render of that job.  Returns the fields for B1's entry of the
+    ``kernels`` line."""
+    dev = scene.device
+    tb = cw.build_tables(scene)
+    rays = render_chunk(scene, cam)
+    n, depth = rays[2].shape[0], cam.max_depth
+    args = (tb, *rays, 0, depth)
+    cw.wavefront_fwd(*args)
+    taken, k = rounds_ms(lambda: cw.wavefront_fwd(*args), rounds=3, repeats=3)
+    plain_ms, p = cuda_ms(lambda: cw._wavefront_fwd_plain(*args))
+    equal = all(bool(torch.equal(a, b)) for a, b in zip(k, p))
+    del p
+    mirror, counts = cw.culled_sweep_counts(cw._wavefront_fwd_plain, *args)
+    mirror_equal = all(bool(torch.equal(a, b)) for a, b in zip(k, mirror))
+    del mirror
+    entering = [n]
+    for b in range(1, depth):
+        _, f = cw.wavefront_fwd(tb, *rays, 0, b)
+        entering.append(int(((f & cw.FLAG_ALIVE) != 0).sum()))
+    ray_bounces = float(sum(entering))
+    flops, flops_brute = sweep_flops(tb, ray_bounces, counts)
+    moved = 18 * 4 * n + table_bytes_of(tb)
+    bound = (moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3)
+    bound_brute = max(bound[0], flops_brute / PEAK_FP32_FLOPS * 1e3)
+    ms = median(taken)
+    warps = resident(cw.tracing_occupancy("fwd", tb.n_seg > 0, smem_of_tables(tb)))
+    emit("forward_random_timing", scene="random", rays_per_launch=n, depth=depth,
+         launches_render=launches, ms=ms, ms_rounds=taken, plain_ms=plain_ms,
+         rows_and_flags_bit_equal_plain=equal, mirror_bit_equal_kernel=mirror_equal,
+         rays_entering_bounce=entering, spheres=tb.n_sphere, segments=tb.n_seg,
+         groups=tb.n_grp, sweep_counts=counts,
+         group_box_tests_per_ray_bounce=counts["closest_group_box_tests"] / ray_bounces,
+         box_tests_per_ray_bounce=counts["closest_box_tests"] / ray_bounces,
+         sphere_tests_per_ray_bounce=counts["closest_sphere_tests"] / ray_bounces,
+         warp_box_tests_per_ray_bounce=counts["closest_warp_box_tests"] / ray_bounces,
+         warp_sphere_tests_per_ray_bounce=counts["closest_warp_sphere_tests"] / ray_bounces,
+         bytes_counted=moved, flops_counted=flops, flops_counted_brute_sweep=flops_brute,
+         bound_bytes_ms=bound[0], bound_ops_ms=bound[1], bound_ms_brute_sweep=bound_brute,
+         roofline_share=max(bound) / ms, roofline_share_brute_sweep=bound_brute / ms,
+         registers=regs[0], spill_bytes=regs[1], resident_warps_per_sm=warps)
+    if not (equal and mirror_equal):
+        raise RuntimeError(f"random: B1 on the full chunk against its plain version: "
+                           f"equal {equal}, mirror equal {mirror_equal}")
+    return {"ms_random": ms, "rays_per_launch_random": n, "launches_random": launches,
+            "plain_ms_random": plain_ms, "bound_ms_random": max(bound),
+            "bound_by_random": "bytes" if bound[0] >= bound[1] else "operations",
+            "bound_ms_random_brute_sweep": bound_brute,
+            "mismatch_share_random_full_chunk": 0.0, "max_abs_err_random_full_chunk": 0.0,
+            "registers_random": regs[0], "spill_bytes_random": regs[1],
+            "resident_warps_per_sm_random": warps}
+
+
+def render_chunk(scene, cam):
+    """The rays of the first chunk of a render of ``cam``'s job, as
+    ``render_image`` makes them (the scene's ray layout): (o, d, tm,
+    stream)."""
+    _, _, n_virt = renderer.ray_layout(cam.image_width, cam.image_height,
+                                       renderer.scene_tiled(scene))
+    n = min(renderer.pick_chunk_size(scene) // n_virt, cam.samples_per_pixel) * n_virt
+    _, o, d, tm, ids, _, _ = renderer._chunk_rays(
+        scene, cam, 0, 0, spp=cam.samples_per_pixel, chunk=n, max_depth=cam.max_depth,
+        device=scene.device)
+    return (V3(*(c.contiguous() for c in o)), V3(*(c.contiguous() for c in d)),
+            tm.contiguous(), cw.stream_to_i32(ids))
 
 
 def b5b_marble_lanes(dev):
@@ -2735,8 +2850,9 @@ def noise_small_checks(dev):
 def resume_small_checks(cases):
     """B11 against its plain version on 16,384 rays: both launches of an
     explicit split (bounces [0, SPLIT_AT), the survivors sorted, then the
-    rest), all 19 outputs; and the split's outputs against one B1 launch,
-    bit for bit.  ``cases``: (name, scene, cam).  Returns (worst mismatch
+    rest), all 19 outputs (bit for bit where the sweep is culled:
+    ``random``); and the split's outputs against one B1 launch, bit for
+    bit.  ``cases``: (name, scene, cam).  Returns (worst mismatch
     share, largest abs err)."""
     worst = (0.0, 0.0)
     for name, scene, cam in cases:
@@ -2773,6 +2889,9 @@ def resume_small_checks(cases):
         if max(c1[0], c2[0]) >= MAX_MISMATCH_SHARE or not same or alive < 1:
             raise RuntimeError(f"{name}: B11 against its plain version {c1}, {c2}, "
                                f"split equals one launch: {same}, alive {alive}")
+        if tb.n_seg > 0 and (c1[1] or c2[1]):   # the culled sweep: the brute sweep's bits
+            raise RuntimeError(f"{name}: B11 (culled sweep) differs from its plain "
+                               f"version's bits: {c1}, {c2}")
         worst = (max(worst[0], c1[0], c2[0]), max(worst[1], c1[2], c2[2]))
     return worst
 
@@ -2916,23 +3035,28 @@ def two_phase_path(phase, name, scene, cam, mode, out_dir, rounds=2):
     return two_counts, nch
 
 
-def resume_kernel_timing(scene, cam, launches, small):
-    """B11 alone at a chunk of perlin's own job (600x337, depth 50): phase 1
-    (bounces [0, SPLIT_AT) on the rays in their order) and phase 2 (the rest,
-    on the sorted survivors), each timed in rounds beside its plain version
-    and its bound; the sort and the gather back; the rays entering each
-    bounce and the marble hits, counted by chaining one-bounce launches (whose
-    result must be one launch's, bit for bit).  Returns B11's entry of the
-    ``kernels`` line."""
+def resume_kernel_timing(name, scene, cam, launches, small, regs):
+    """B11 alone at a chunk of a job through 'split' (perlin's own 600x337,
+    depth 50; ``random``'s 1200x675, depth 50): phase 1 (bounces [0,
+    SPLIT_AT) on the rays in their order) and phase 2 (the rest, on the
+    sorted survivors), each timed in rounds beside its plain version and its
+    bound; the sort and the gather back; the rays entering each bounce and
+    the hits, counted by chaining one-bounce launches (whose result must be
+    one launch's, bit for bit).  In a scene with segments (``random``) each
+    phase's outputs must be its plain version's bits, and the culled sweep's
+    mirror counts each phase's tests on the whole chunk: its bound by
+    operations (``sweep_flops``) beside the brute sweep's.  ``regs``: B11's
+    (registers, spill bytes).  Returns B11's entry of the ``kernels``
+    line."""
     dev = scene.device
-    n_virt = cam.image_width * cam.image_height
-    n = min(renderer.pick_chunk_size(scene) // n_virt, cam.samples_per_pixel) * n_virt
     depth, k_at = cam.max_depth, cw.SPLIT_AT
     tb = cw.build_tables(scene)
-    o, d, tm, sid = chunk_rays(cam, n, 0, dev)
+    o, d, tm, sid = render_chunk(scene, cam)
+    n = tm.shape[0]
     flat = cw._start_state(o, d, tm, sid)
+    marble = cw._has_noise(tb)
 
-    # entered ray-bounces and marble hits (perlin: every hit is marble)
+    # entered ray-bounces and hits (perlin: every hit is marble)
     entering, hits = [], []
     st = flat
     for b in range(depth):
@@ -2945,7 +3069,7 @@ def resume_kernel_timing(scene, cam, launches, small):
     one_rows, one_flags = cw.wavefront_fwd(tb, o, d, tm, sid, 0, depth)
     chained = (torch.equal(torch.stack(st[11:14] + st[15:21]), one_rows)
                and torch.equal(st[14], one_flags))
-    del one_rows, one_flags
+    del one_rows, one_flags, st
 
     out1 = cw.wavefront_resume(tb, flat, 0, 0, k_at)
     r1, out1 = rounds_ms(lambda: cw.wavefront_resume(tb, flat, 0, 0, k_at),
@@ -2963,35 +3087,59 @@ def resume_kernel_timing(scene, cam, launches, small):
     plain2_ms, p2 = cuda_ms(lambda: cw._wavefront_resume_plain(tb, flat2, 0, k_at, depth))
     c2 = per_ray(rows_of(out2), rows_of(p2))
     del p2
+    counts1 = counts2 = {}
+    mirror_equal = True
+    if tb.n_seg > 0:
+        m1, counts1 = cw.culled_sweep_counts(cw._wavefront_resume_plain, tb, flat, 0, 0, k_at)
+        m2, counts2 = cw.culled_sweep_counts(cw._wavefront_resume_plain, tb, flat2, 0, k_at,
+                                             depth)
+        mirror_equal = per_ray(rows_of(out1), rows_of(m1))[1] == 0.0 and \
+            per_ray(rows_of(out2), rows_of(m2))[1] == 0.0
+        del m1, m2
 
-    table_bytes = 4 * sum(t.numel() for t in (tb.pt, tb.st, tb.vt, tb.lt))
-    per_bounce = (tb.n_planar * FLOPS_PLANAR + tb.n_sphere * FLOPS_SPHERE
-                  + tb.n_vol * FLOPS_VOLUME + FLOPS_SHADE)
+    def bound(b0, b1, counts):
+        marble_hits = float(sum(hits[b0:b1])) if marble else 0.0
+        flops, flops_brute = sweep_flops(tb, float(sum(entering[b0:b1])), counts, marble_hits)
+        int_ops = marble_hits * INT_OPS_MARBLE
+        by_bytes = (RESUME_BYTES_PER_RAY * n + table_bytes_of(tb)) / PEAK_BYTES_PER_S * 1e3
+        return ((by_bytes, (flops / PEAK_FP32_FLOPS + int_ops / PEAK_INT32_OPS) * 1e3),
+                max(by_bytes, (flops_brute / PEAK_FP32_FLOPS + int_ops / PEAK_INT32_OPS) * 1e3))
 
-    def bound(b0, b1):
-        flops = (float(sum(entering[b0:b1])) * per_bounce
-                 + float(sum(hits[b0:b1])) * FLOPS_MARBLE)
-        int_ops = float(sum(hits[b0:b1])) * INT_OPS_MARBLE
-        return (((RESUME_BYTES_PER_RAY * n + table_bytes) / PEAK_BYTES_PER_S) * 1e3,
-                (flops / PEAK_FP32_FLOPS + int_ops / PEAK_INT32_OPS) * 1e3)
-
-    b1, b2 = bound(0, k_at), bound(k_at, depth)
+    (b1, b1_brute), (b2, b2_brute) = bound(0, k_at, counts1), bound(k_at, depth, counts2)
     ms1, ms2 = median(r1), median(r2)
-    emit("resume_kernel_timing", scene="perlin", rays_per_launch=n, depth=depth,
+    warps = resident(cw.tracing_occupancy("resume", tb.n_seg > 0, smem_of_tables(tb)))
+
+    def per_ray_bounce(counts, b0, b1):
+        rb = float(sum(entering[b0:b1]))
+        return {k[len("closest_"):]: v / rb for k, v in counts.items()
+                if k.startswith("closest_")}
+
+    emit("resume_kernel_timing", scene=name, rays_per_launch=n, depth=depth,
          split_at=k_at, phase_1_ms=ms1, phase_1_ms_rounds=r1, phase_2_ms=ms2,
          phase_2_ms_rounds=r2, launches_per_chunk=2, sort_ms=sort_ms,
          gather_back_ms=gather_ms, phase_1_plain_ms=plain1_ms,
          phase_2_plain_ms=plain2_ms, alive_after_phase_1=int(alive1.sum()),
-         rays_entering_bounce=entering, marble_hits_by_bounce=hits,
+         rays_entering_bounce=entering, hits_by_bounce=hits, marble=marble,
          chained_one_bounce_launches_equal_one_launch=chained,
+         segments=tb.n_seg, groups=tb.n_grp, sweep_counts_phase_1=counts1,
+         sweep_counts_phase_2=counts2,
+         tests_per_ray_bounce_phase_1=per_ray_bounce(counts1, 0, k_at) if counts1 else None,
+         tests_per_ray_bounce_phase_2=(per_ray_bounce(counts2, k_at, depth) if counts2
+                                       else None),
+         mirror_bit_equal_kernel=mirror_equal,
          phase_1_bound_bytes_ms=b1[0], phase_1_bound_ops_ms=b1[1],
          phase_2_bound_bytes_ms=b2[0], phase_2_bound_ops_ms=b2[1],
+         phase_1_bound_ms_brute_sweep=b1_brute, phase_2_bound_ms_brute_sweep=b2_brute,
          phase_1_roofline_share=max(b1) / ms1, phase_2_roofline_share=max(b2) / ms2,
          phase_1_mismatch_share=c1[0], phase_1_share_not_bit_equal=c1[1],
          phase_2_mismatch_share=c2[0], phase_2_share_not_bit_equal=c2[1],
+         registers=regs[0], spill_bytes=regs[1], resident_warps_per_sm=warps,
          flops_marble=FLOPS_MARBLE, int_ops_marble=INT_OPS_MARBLE)
     if not chained or max(c1[0], c2[0]) >= MAX_MISMATCH_SHARE:
         raise RuntimeError(f"B11 at the chunk: chained {chained}, against plain {c1} {c2}")
+    if tb.n_seg > 0 and not (c1[1] == 0.0 and c2[1] == 0.0 and mirror_equal):
+        raise RuntimeError(f"{name}: B11 with the culled sweep differs from its plain "
+                           f"version ({c1}, {c2}) or from its mirror ({mirror_equal})")
     # one entry for the kernel: a chunk's two launches, their mean
     bound_pair = ((b1[0] + b2[0]) / 2, (b1[1] + b2[1]) / 2)
     return kernel_entry(
@@ -3001,8 +3149,10 @@ def resume_kernel_timing(scene, cam, launches, small):
         [c1[2], c2[2], small[1]]) | {
             "mismatch_share": max(c1[0], c2[0], small[0]),
             "ms_phase_1": ms1, "ms_phase_2": ms2, "bound_ms_phase_1": max(b1),
-            "bound_ms_phase_2": max(b2), "sort_ms": sort_ms, "gather_back_ms": gather_ms,
-            "scene": "perlin", "depth": depth}
+            "bound_ms_phase_2": max(b2), "bound_ms_brute_sweep": (b1_brute + b2_brute) / 2,
+            "sort_ms": sort_ms, "gather_back_ms": gather_ms,
+            "scene": name, "depth": depth, "registers": regs[0], "spill_bytes": regs[1],
+            "resident_warps_per_sm": warps}
 
 
 def profile_split_chunk(scene, cam):
@@ -3041,16 +3191,19 @@ def profile_split_chunk(scene, cam):
         raise RuntimeError("split_profile: the profiler saw no B11 launch on the device")
 
 
-def marble_and_split_phases(dev, out_dir, env):
+def marble_and_split_phases(dev, out_dir, env, resume_regs, resume_cull_regs):
     """Marble textures (A13) and the resumable kernel (B11): the small
     checks, perlin forward and fwd+bwd at the JAX bench's size, perlin at
     its own depth 50 and ``random`` at its own 1200x675 and depth 50 (spp
-    cut) through 'split', ``random`` through 'compact', and B11 alone.
-    Returns (B11's entry, fields for B1's entry, B2 / B3 launches)."""
+    cut) through 'split', ``random`` through 'compact', and B11 alone at a
+    chunk of each of the two split jobs.  Returns (B11's entry, fields for
+    B1's entry, B2 / B3 launches)."""
     b1_marble = noise_small_checks(dev)
     perlin, p_cam = grt.load_scene("perlin", device=dev)
     smoke, s_cam = grt.load_scene("cornell-smoke", device=dev)
     nee, h_cam = hdri_scene(dev, True, env)
+    rnd, r_cam = grt.load_scene("random", device=dev)
+    deep_random = dataclasses.replace(r_cam, samples_per_pixel=RANDOM_CUT_SPP)
     small = resume_small_checks([
         ("perlin", perlin, dataclasses.replace(p_cam, image_width=128,
                                                samples_per_pixel=2)),
@@ -3059,22 +3212,30 @@ def marble_and_split_phases(dev, out_dir, env):
             max_depth=DEEP_DEPTH)),
         ("hdri-test-nee", nee, dataclasses.replace(
             h_cam, image_width=128, samples_per_pixel=2, max_depth=DEEP_DEPTH)),
+        ("random", rnd, dataclasses.replace(r_cam, image_width=128, samples_per_pixel=2)),
     ])
     del smoke, nee
     b1_noise = noise_main_path(dev, out_dir)
     grad_launches = noise_fwd_bwd(dev)
     split_counts, _ = two_phase_path("split_main_path", "perlin", perlin, p_cam,
                                      "split", out_dir)
-    rnd, r_cam = grt.load_scene("random", device=dev)
-    two_phase_path("split_random", "random", rnd,
-                   dataclasses.replace(r_cam, samples_per_pixel=RANDOM_CUT_SPP),
-                   "split", out_dir)
+    random_counts, _ = two_phase_path("split_random", "random", rnd, deep_random, "split",
+                                      out_dir)
     two_phase_path("compact_check", "random", rnd,
                    dataclasses.replace(r_cam, image_width=600, samples_per_pixel=25,
                                        max_depth=10),
                    "compact", out_dir, rounds=1)
+    entry = resume_kernel_timing("perlin", perlin, p_cam, split_counts["wavefront_resume"],
+                                 small, resume_regs)
+    on_random = resume_kernel_timing("random", rnd, deep_random,
+                                     random_counts["wavefront_resume"], small, resume_cull_regs)
     del rnd
-    entry = resume_kernel_timing(perlin, p_cam, split_counts["wavefront_resume"], small)
+    entry |= {f"{k}_random": on_random[k] for k in (
+        "launches", "ms", "ms_phase_1", "ms_phase_2", "plain_ms", "bound_ms", "bound_by",
+        "bound_ms_phase_1", "bound_ms_phase_2", "bound_ms_brute_sweep", "rays_per_launch",
+        "registers", "spill_bytes", "resident_warps_per_sm")}
+    entry["mismatch_share"] = max(entry["mismatch_share"], on_random["mismatch_share"])
+    entry["max_abs_err"] = max(entry["max_abs_err"], on_random["max_abs_err"])
     profile_split_chunk(perlin, p_cam)
     b1_fields = {"mismatch_share_marble": b1_marble[0],
                  "max_abs_err_marble": b1_marble[1],
@@ -3388,11 +3549,9 @@ def resident(occupancy):
 
 def smem_of_tables(tb):
     """Shared bytes a tracing launch stages for these tables (0: they stay
-    in device memory); the record kernel's, with the culled sweep's
-    segments where the tables have them."""
-    size = 4 * sum(t.numel() for t in (tb.pt, tb.st, tb.vt, tb.lt))
-    if tb.n_seg > 0:
-        size += 4 * sum(t.numel() for t in (tb.seg_order, tb.seg_start, tb.seg_box))
+    in device memory); the forward, record and resumable kernels', with the
+    culled sweep's segments and groups where the tables have them."""
+    size = table_bytes_of(tb)
     return size if size <= 48 * 1024 else 0
 
 
@@ -3596,7 +3755,7 @@ def marble_grad_phases(dev, env, regs, glossy_plain, record_scene):
     stats = {
         "b5b_19": (regs["b5b_19"], resident(cw.pathwise_rev_occupancy(False, rev_smem(g_scene)))),
         "b5b_20": (regs["b5b"], resident(cw.pathwise_rev_occupancy(True, rev_smem(glossy)))),
-        "b6": (regs["b6"], resident(cw.record_occupancy(smem_of_tables(
+        "b6": (regs["b6"], resident(cw.tracing_occupancy("record", True, smem_of_tables(
             cw.build_tables(record_scene))))),
         "b5a_2": (regs["b5a_2"], resident(cw.pathwise_occupancy(
             False, smem_of_tables(cw.build_tables(g_scene))))),
@@ -3733,16 +3892,18 @@ def main():
         (stats,) = [v for name, v in lib.kernels.items() if tag in name]
         return stats
 
-    # wavefront_kernel<0> is the forward, <1> the product-chain gradient
-    # forward, <3> the record, <2> the pathwise
+    # wavefront_kernel<0, false> is the forward, <0, true> its culled
+    # instantiation (64 spheres and more), <1, false> the product-chain
+    # gradient forward, <3, true> the culled record, <2, false> the pathwise
     # gradient forward
-    fwd_regs, fwd_spill = kernel_stats(built, "wavefront_kernelILi0E")
-    rec_regs = kernel_stats(built, "wavefront_kernelILi3E")
+    fwd_regs, fwd_spill = kernel_stats(built, "wavefront_kernelILi0ELb0E")
+    fwd_cull_regs = kernel_stats(built, "wavefront_kernelILi0ELb1E")
+    rec_regs = kernel_stats(built, "wavefront_kernelILi3ELb1E")
     rows_regs = kernel_stats(built_rows, "row_sums_kernel")
-    gfwd_regs, gfwd_spill = kernel_stats(built, "wavefront_kernelILi1E")
-    pfwd_regs, pfwd_spill = kernel_stats(built, "wavefront_kernelILi2E")
+    gfwd_regs, gfwd_spill = kernel_stats(built, "wavefront_kernelILi1ELb0E")
+    pfwd_regs, pfwd_spill = kernel_stats(built, "wavefront_kernelILi2ELb0E")
     # <4>: the pathwise gradient forward of a scene with marble (20 rows)
-    pfwd_marble = kernel_stats(built, "wavefront_kernelILi4E")
+    pfwd_marble = kernel_stats(built, "wavefront_kernelILi4ELb0E")
     grev_regs, grev_spill = kernel_stats(built_grad, "wavefront_grad_rev_kernel")
     # the pathwise reverse kernel: <19> a stash of 19 float rows a bounce,
     # <20> of a scene with marble (dmarble/dp compiled in); the fused
@@ -3757,7 +3918,8 @@ def main():
     # stream_micro_kernel<roll, dynamic tile, bit scan>: the probe's variants
     probe_regs = {v: kernel_stats(built_probe, "stream_micro_kernelILb{}ELb{}ELb{}E".format(
         *(int(f) for f in flags))) for v, flags in sm.VARIANTS.items()}
-    resume_regs = kernel_stats(built, "wavefront_resume_kernel")
+    resume_regs = kernel_stats(built, "wavefront_resume_kernelILb0E")
+    resume_cull_regs = kernel_stats(built, "wavefront_resume_kernelILb1E")
     seg_regs = kernel_stats(built_rows, "sorted_segment_sums_kernel")
     # planar_kernel<false> / <true> and sphere_kernel<false> / <true>: closest
     # hit alone, and with the winner's attributes
@@ -3794,6 +3956,9 @@ def main():
          probe_registers={k: v[0] for k, v in probe_regs.items()},
          probe_spill_bytes={k: v[1] for k, v in probe_regs.items()},
          resume_registers=resume_regs[0], resume_spill_bytes=resume_regs[1],
+         resume_culled_registers=resume_cull_regs[0],
+         resume_culled_spill_bytes=resume_cull_regs[1],
+         culled_registers=fwd_cull_regs[0], culled_spill_bytes=fwd_cull_regs[1],
          segment_sums_registers=seg_regs[0], segment_sums_spill_bytes=seg_regs[1],
          record_registers=rec_regs[0], record_spill_bytes=rec_regs[1],
          row_sums_registers=rows_regs[0], row_sums_spill_bytes=rows_regs[1],
@@ -3807,7 +3972,7 @@ def main():
          sphere_resident_warps_per_sm=sphere_warps[False],
          sphere_attrs_resident_warps_per_sm=sphere_warps[True],
          registers=fwd_regs, spill_bytes=fwd_spill,
-         registers_with_fma=kernel_stats(built_fma, "wavefront_kernelILi0E")[0],
+         registers_with_fma=kernel_stats(built_fma, "wavefront_kernelILi0ELb0E")[0],
          grad_fwd_registers=gfwd_regs, grad_fwd_spill_bytes=gfwd_spill,
          grad_rev_registers=grev_regs, grad_rev_spill_bytes=grev_spill,
          grad_fwd_pathwise_registers=pfwd_regs,
@@ -3879,7 +4044,7 @@ def main():
         "random_camera_rays", rr_scene, rr_cam2, V3(*(c.contiguous() for c in o)),
         V3(*(c.contiguous() for c in d)), tm.contiguous(), ids, 4))
     del o, d, tm, ids
-    record_cull_sets(dev)
+    culled_sweep_sets(dev)
 
     # ---- main path at full size ------------------------------------------------
     cam = dataclasses.replace(cam0, image_width=600, aspect_ratio=600 / 338,
@@ -3961,6 +4126,7 @@ def main():
          mismatch_share_full_chunk=mismatch_full)
 
     # ---- the other ported scenes of the JAX package's bench, for the record ----
+    other_launches = {}
     for name, width, aspect, spp, depth in (("simple", 400, 16 / 9, 10, 10),
                                             ("random", 600, 16 / 9, 25, 10),
                                             ("cornell-smoke", 600, 1.0, 25, 5)):
@@ -3969,12 +4135,18 @@ def main():
                                  samples_per_pixel=spp, max_depth=depth)
         grt.render_image(sc, cm, seed=0)
         st = grt.RenderStats()
+        cw.LAUNCHES = 0
         ms, im = cuda_ms(lambda: grt.render_image(sc, cm, seed=0, stats=st))
+        other_launches[name] = cw.LAUNCHES
         if not torch.isfinite(im).all() or not 0.02 < float(im.mean()) < 0.98:
             raise RuntimeError(f"{name}: image mean {float(im.mean())}")
+        if other_launches[name] != st.chunks:
+            raise RuntimeError(f"{name}: {other_launches[name]} B1 launches for "
+                               f"{st.chunks} chunks")
         n = cm.image_width * cm.image_height * spp
         emit("other_scene", scene=name, width=width, height=cm.image_height,
              spp=spp, depth=depth, camera_rays=n, chunks=st.chunks,
+             launches=other_launches[name],
              tiled=renderer.scene_tiled(sc), render_ms_cuda_events=ms,
              camera_mrays_per_s=n / (ms * 1e-3) / 1e6, image_mean=float(im.mean()))
 
@@ -4085,6 +4257,8 @@ def main():
          ("cornell", scene, cam, chunk_rays(cam, chunk, 0, dev))],
         rr_counts["wavefront_record"], rec_checks, rec_regs)
     del ro, rd, rtm, rsid
+    b1_random = forward_random_timing(rr_scene, rr_cam, other_launches["random"],
+                                      fwd_cull_regs)
     small = dict(image_width=32, aspect_ratio=1.0, samples_per_pixel=2, max_depth=3)
     for name, make in (("cornell-lucy", lambda dv: lucy_scene((48, 40), dv)[0]),
                        ("random", lambda dv: grt.load_scene("random", device=dv)[0])):
@@ -4104,7 +4278,7 @@ def main():
 
     # ---- marble textures and the resumable kernel: perlin, split, compact --------
     b11_entry, b1_marble, (b2_noise, b3_noise) = marble_and_split_phases(
-        dev, out_dir, synthetic_sky()[0])
+        dev, out_dir, synthetic_sky()[0], resume_regs, resume_cull_regs)
     grad_entries[0]["launches_noise_fwd_bwd"] = b2_noise
     grad_entries[1]["launches_noise_fwd_bwd"] = b3_noise
 
@@ -4147,8 +4321,11 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms else "operations",
         "library_ms": None,
+        "registers": fwd_regs,
+        "spill_bytes": fwd_spill,
         **b1_env,
         **b1_marble,
+        **b1_random,
     }, rec_entry, *grad_entries, pw_entries[0] | b5a_marble,
         pw_entries[1] | b5b_env | b5b_marble, *ix_entries, *mesh_entries,
         b4_entry | b4_marble, b11_entry, probe_entry]}), flush=True)

@@ -1,6 +1,8 @@
 // Wavefront megakernel for Hopper (sm_90a): the whole bounce loop of the
-// path tracer in one kernel, one thread per ray.  Five instantiations of
-// one template, and the resumable kernel (wavefront_resume_kernel, below):
+// path tracer in one kernel, one thread per ray.  Five modes of one
+// template, and the resumable kernel (wavefront_resume_kernel, below); the
+// forward, the record and the resumable kernel each have a second, culled
+// instantiation for scenes with sphere segments (CULL, below):
 //
 //   wavefront_kernel<FWD>       the forward render.  Replaces the forward
 //       specialization of make_kernel in the JAX package's
@@ -94,14 +96,17 @@
 // What held the record back on this card, measured on `random` (363
 // spheres, PERF.md): the sphere sweep itself, every sphere's quadratic for
 // every ray-bounce and shadow ray in one dependent chain, some 8,400
-// counted operations against 60 of shading.  In a scene of SPH_CULL_MIN
-// spheres and more it sweeps them segment-culled, as the JAX kernel does
-// (sphere_sweep_culled, wavefront_trace.cuh): the spheres in spatial order,
-// in segments under a box each (ops/cuda_wavefront.build_tables; very large
-// spheres alone), a segment swept only by the rays that reach its box,
-// padded for the ray, within their current t; the winner is the least
-// (t, scene index), so t, index and radiance are the brute sweep's bits.
-// The segment tables go to shared memory with the others.  Below
+// counted operations against 60 of shading.  The forward (B1) and the
+// resumable kernel (B11) run the same sweep on the same scenes.  In a scene
+// of SPH_CULL_MIN spheres and more all three sweep them culled, as the JAX
+// kernel does (sphere_sweep_culled, wavefront_trace.cuh): the spheres in
+// spatial order, in segments under a box each and the segments in groups
+// under a box each (ops/cuda_wavefront.build_tables; very large spheres
+// alone), a group's segment boxes tested only by the rays that reach the
+// group's box, a segment swept only by the rays that reach its box, padded
+// for the ray, within their current t; the winner is the least (t, scene
+// index), so t, index and radiance are the brute sweep's bits.  The
+// segment and group tables go to shared memory with the others.  Below
 // SPH_CULL_MIN spheres, and in every other instantiation, the brute sweep.
 //
 // The gradient forward moves five times the bytes: 15 stash rows a bounce
@@ -147,15 +152,22 @@ namespace {
 
 // Blocks of THREADS an SM the instantiations are built for: B5a's with
 // marble four, 16 warps at up to 128 registers with no spill (measured on
-// the H100 against five and six, PERF.md); the others MIN_BLOCKS_UNSET,
-// which sets no minimum and leaves their registers to the compiler as
-// before (a minimum of 1 is not the same: it took B1 from 96 to 122).
+// the H100 against five and six, PERF.md); the culled instantiations of
+// the forward, the record and the resumable kernel (CULL: a scene with
+// segments) six, 24 warps at up to 85 registers, which random's tables in
+// shared memory also allow (measured against no target, five and, for B11,
+// four, PERF.md); the others MIN_BLOCKS_UNSET, which sets no minimum and
+// leaves their registers to the compiler as before (a minimum of 1 is not
+// the same: it took B1 from 96 to 122).  The forward's brute instantiation
+// keeps that: six blocks took it from 1.82 to 2.14 ms on hdri-test's glass
+// and metal (PERF.md).
 constexpr int PW_MARBLE_BLOCKS_PER_SM = 4;
+constexpr int CULL_BLOCKS_PER_SM = 6;
 constexpr int MIN_BLOCKS_UNSET = 0;
 
 // The block's copy of the scalar tables in shared memory (when they fit),
 // or the tables in device memory.  SEGMENTS: the culled sweep's segment
-// tables too (the record kernel).
+// and group tables too (the culled instantiations).
 template <bool SEGMENTS = false>
 __device__ __forceinline__ Tables stage_tables(const Tables& G, int tables_in_smem,
                                                float* smem) {
@@ -178,16 +190,25 @@ __device__ __forceinline__ Tables stage_tables(const Tables& G, int tables_in_sm
         if constexpr (SEGMENTS) {
             if (G.n_seg > 0) {
                 const int n_box = 6 * G.n_seg, n_start = G.n_seg + 1;
+                const int n_gbox = 6 * G.n_grp, n_gstart = G.n_grp + 1;
                 float* s_box = s_lt + n_lt;
-                int* s_start = (int*)(s_box + n_box);
-                int* s_order = s_start + n_start;
+                float* s_gbox = s_box + n_box;
+                int* s_start = (int*)(s_gbox + n_gbox);
+                int* s_gstart = s_start + n_start;
+                short* s_order = (short*)(s_gstart + n_gstart);
                 for (int k = threadIdx.x; k < n_box; k += blockDim.x) s_box[k] = G.seg_box[k];
+                for (int k = threadIdx.x; k < n_gbox; k += blockDim.x)
+                    s_gbox[k] = G.grp_box[k];
                 for (int k = threadIdx.x; k < n_start; k += blockDim.x)
                     s_start[k] = G.seg_start[k];
+                for (int k = threadIdx.x; k < n_gstart; k += blockDim.x)
+                    s_gstart[k] = G.grp_start[k];
                 for (int k = threadIdx.x; k < G.n_sphere; k += blockDim.x)
                     s_order[k] = G.seg_order[k];
                 S.seg_box = s_box;
+                S.grp_box = s_gbox;
                 S.seg_start = s_start;
+                S.grp_start = s_gstart;
                 S.seg_order = s_order;
             }
         }
@@ -196,9 +217,12 @@ __device__ __forceinline__ Tables stage_tables(const Tables& G, int tables_in_sm
     return S;
 }
 
-template <int MODE>
-__global__ void __launch_bounds__(THREADS, MODE == PATHWISE_MARBLE ? PW_MARBLE_BLOCKS_PER_SM
-                                                                   : MIN_BLOCKS_UNSET)
+// CULL: the culled instantiation of the forward and the record, launched
+// for tables with segments (launch()); the others sweep every sphere.
+template <int MODE, bool CULL>
+__global__ void __launch_bounds__(THREADS, CULL ? CULL_BLOCKS_PER_SM
+                                           : MODE == PATHWISE_MARBLE ? PW_MARBLE_BLOCKS_PER_SM
+                                                                     : MIN_BLOCKS_UNSET)
 wavefront_kernel(Tables G, const float* __restrict__ ox,
                  const float* __restrict__ oy, const float* __restrict__ oz,
                  const float* __restrict__ dx, const float* __restrict__ dy,
@@ -213,7 +237,7 @@ wavefront_kernel(Tables G, const float* __restrict__ ox,
     // marble's turns across the warp (marble_warp) find all 32 lanes.
     constexpr bool WHOLE_WARPS = MODE == PATHWISE_MARBLE;
     extern __shared__ float smem[];
-    const Tables S = stage_tables<(MODE == RECORD)>(G, tables_in_smem, smem);
+    const Tables S = stage_tables<CULL>(G, tables_in_smem, smem);
 
     const long long step = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -237,7 +261,7 @@ wavefront_kernel(Tables G, const float* __restrict__ ox,
         float m_dir[3] = {0.0f, 0.0f, 0.0f};
         float m_tp[3] = {0.0f, 0.0f, 0.0f};
         int flags = valid ? FLAG_ALIVE | FLAG_ALLOW : 0;
-        trace_ray<MODE>(S, o, d, tp, tmv, sid, seed, 0, max_depth, rad, m_dir, m_tp,
+        trace_ray<MODE, CULL>(S, o, d, tp, tmv, sid, seed, 0, max_depth, rad, m_dir, m_tp,
                         flags, Z, D, i,
                         Hdri{hdri != nullptr && valid ? hdri + i : nullptr, n_rays});
         if (!valid) continue;
@@ -292,12 +316,13 @@ struct ResumeOut {
     float* tp[3];
 };
 
-__global__ void __launch_bounds__(THREADS)
+template <bool CULL>
+__global__ void __launch_bounds__(THREADS, CULL ? CULL_BLOCKS_PER_SM : MIN_BLOCKS_UNSET)
 wavefront_resume_kernel(Tables G, ResumeIn I, ResumeOut O, long long n_rays,
                         uint32_t seed, int b_start, int b_end, int tables_in_smem,
                         const float* __restrict__ hdri) {
     extern __shared__ float smem[];
-    const Tables S = stage_tables(G, tables_in_smem, smem);
+    const Tables S = stage_tables<CULL>(G, tables_in_smem, smem);
     const long long step = (long long)gridDim.x * blockDim.x;
     for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n_rays;
          i += step) {
@@ -312,7 +337,7 @@ wavefront_resume_kernel(Tables G, ResumeIn I, ResumeOut O, long long n_rays,
             m_tp[c] = I.m_tp[c][i];
         }
         int flags = I.flags[i];
-        trace_ray<FWD>(S, o, d, tp, I.tm[i], I.stream[i], seed, b_start, b_end, rad,
+        trace_ray<FWD, CULL>(S, o, d, tp, I.tm[i], I.stream[i], seed, b_start, b_end, rad,
                        m_dir, m_tp, flags, Stash{nullptr, nullptr, 0},
                        Record{nullptr, nullptr, 0}, i,
                        Hdri{hdri != nullptr ? hdri + i : nullptr, n_rays});
@@ -337,8 +362,8 @@ struct Setup {
     unsigned int blocks;
 };
 
-// `seg`: the record kernel's segment tables (seg_order, seg_start, seg_box
-// and n_seg; nullptr for the other launches), staged with the others.
+// `seg`: the culled sweep's segment and group tables (segments()) of the
+// forward, record and resumable kernels; nullptr for the other launches.
 int setup(const float* pt, const float* st, const float* vt, const float* lt,
           int n_planar, int n_sphere, int n_vol, int n_lights, long long n_rays,
           Setup& L, const Tables* seg = nullptr) {
@@ -347,7 +372,10 @@ int setup(const float* pt, const float* st, const float* vt, const float* lt,
         G.seg_order = seg->seg_order;
         G.seg_start = seg->seg_start;
         G.seg_box = seg->seg_box;
+        G.grp_start = seg->grp_start;
+        G.grp_box = seg->grp_box;
         G.n_seg = seg->n_seg;
+        G.n_grp = seg->n_grp;
         G.seg_c = seg->seg_c;
         G.seg_inv_r = seg->seg_inv_r;
     }
@@ -364,11 +392,13 @@ int setup(const float* pt, const float* st, const float* vt, const float* lt,
     G.vc = n_vol > 0 ? n_vol : 1;
     G.lc = n_lights > 0 ? n_lights : 1;
 
-    const size_t seg_words =
-        G.n_seg > 0 ? (size_t)6 * G.n_seg + G.n_seg + 1 + n_sphere : 0;
+    const size_t seg_bytes =
+        G.n_seg > 0 ? sizeof(float) * ((size_t)7 * G.n_seg + 1 + 7 * G.n_grp + 1) +
+                          sizeof(short) * n_sphere
+                    : 0;
     const size_t table_bytes =
         sizeof(float) * ((size_t)PT_ROWS * G.pc + (size_t)ST_ROWS * G.sc +
-                         (size_t)VT_ROWS * G.vc + (size_t)LT_ROWS * G.lc + seg_words);
+                         (size_t)VT_ROWS * G.vc + (size_t)LT_ROWS * G.lc) + seg_bytes;
     L.smem_bytes = table_bytes <= SMEM_TABLE_LIMIT ? table_bytes : 0;
 
     int device = 0, sms = 0;
@@ -398,58 +428,87 @@ int launch(const float* pt, const float* st, const float* vt, const float* lt,
     const int err = setup(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights,
                           n_rays, L, seg);
     if (err != 0) return err;
-    wavefront_kernel<MODE><<<L.blocks, THREADS, L.smem_bytes,
-                              (cudaStream_t)cuda_stream>>>(
+    auto kernel = wavefront_kernel<MODE, false>;
+    if constexpr (MODE == FWD || MODE == RECORD) {
+        if (L.G.n_seg > 0) kernel = wavefront_kernel<MODE, true>;
+    }
+    kernel<<<L.blocks, THREADS, L.smem_bytes, (cudaStream_t)cuda_stream>>>(
         L.G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, out, flags,
         n_rays, seed, max_depth, L.smem_bytes > 0, Z, M, miss_col, D, hdri);
     return (int)cudaGetLastError();
 }
 
+// The culled sweep's tables as ops/cuda_wavefront.build_tables makes them:
+// seg_order [n_sphere] i16, seg_start [n_seg + 1] i32, seg_box [6, n_seg]
+// f32, grp_start [n_grp + 1] i32, grp_box [6, n_grp] f32, and the scale of
+// the padding (seg_c, seg_inv_r); or null with n_seg and n_grp 0 (the brute
+// sweep).  Returns cudaErrorInvalidValue for counts or pointers that do not
+// fit together.
+int segments(const short* seg_order, const int* seg_start, const float* seg_box, int n_seg,
+             const int* grp_start, const float* grp_box, int n_grp, float seg_c,
+             float seg_inv_r, int n_sphere, Tables& seg) {
+    const bool none = n_seg == 0 && n_grp == 0;
+    const bool some = n_seg > 0 && n_seg <= n_sphere && n_sphere <= 32767 && n_grp > 0 &&
+                      n_grp <= n_seg &&
+                      seg_order != nullptr && seg_start != nullptr && seg_box != nullptr &&
+                      grp_start != nullptr && grp_box != nullptr;
+    if (!(none || some)) return (int)cudaErrorInvalidValue;
+    seg.seg_order = seg_order;
+    seg.seg_start = seg_start;
+    seg.seg_box = seg_box;
+    seg.grp_start = grp_start;
+    seg.grp_box = grp_box;
+    seg.n_seg = n_seg;
+    seg.n_grp = n_grp;
+    seg.seg_c = seg_c;
+    seg.seg_inv_r = seg_inv_r;
+    return 0;
+}
+
 }  // namespace
 
-// All five launch on the given stream, do not synchronize, allocate nothing and
+// All six launch on the given stream, do not synchronize, allocate nothing and
 // return cudaGetLastError() (0 on success).  `hdri`: the [max_depth * 7,
 // n_rays] rows of HDRI next-event estimation, or null (no environment
 // sampling: a scene without quad lights or without an importance-sampled
-// environment).
+// environment).  The forward, the record and the resumable kernel take the
+// culled sweep's tables (segments(): seg_order ... seg_inv_r), or nulls and
+// zeros.
 extern "C" int wavefront_fwd_launch(
     const float* pt, const float* st, const float* vt, const float* lt,
     int n_planar, int n_sphere, int n_vol, int n_lights,
     const float* ox, const float* oy, const float* oz,
     const float* dx, const float* dy, const float* dz, const float* tm,
-    const void* stream, const float* hdri, float* out, int* flags,
+    const void* stream, const float* hdri, const short* seg_order, const int* seg_start,
+    const float* seg_box, int n_seg, const int* grp_start, const float* grp_box, int n_grp,
+    float seg_c, float seg_inv_r, float* out, int* flags,
     long long n_rays, unsigned int seed, int max_depth, void* cuda_stream) {
+    Tables seg;
+    const int err = segments(seg_order, seg_start, seg_box, n_seg, grp_start, grp_box, n_grp,
+                             seg_c, seg_inv_r, n_sphere, seg);
+    if (err != 0) return err;
     return launch<FWD>(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights, ox,
                          oy, oz, dx, dy, dz, tm, stream, out, flags, n_rays, seed,
                          max_depth, cuda_stream, Stash{nullptr, nullptr, 0},
                          Miss{MISS_FLAT, {0.0f, 0.0f, 0.0f}}, nullptr,
-                         Record{nullptr, nullptr, 0}, hdri);
+                         Record{nullptr, nullptr, 0}, hdri, &seg);
 }
 
-// code and idx [max_depth, n_rays] are written in full.  seg_order
-// [n_sphere] i32, seg_start [n_seg + 1] i32, seg_box [6, n_seg] f32, seg_c
-// and seg_inv_r: the culled sweep's segments and the scale of their padding
-// (ops/cuda_wavefront.build_tables), or null with n_seg 0 (the brute sweep).
+// code and idx [max_depth, n_rays] are written in full.
 extern "C" int wavefront_record_launch(
     const float* pt, const float* st, const float* vt, const float* lt,
     int n_planar, int n_sphere, int n_vol, int n_lights,
     const float* ox, const float* oy, const float* oz,
     const float* dx, const float* dy, const float* dz, const float* tm,
-    const void* stream, const float* hdri, const int* seg_order,
-    const int* seg_start, const float* seg_box, int n_seg, float seg_c, float seg_inv_r,
-    float* out, int* flags,
+    const void* stream, const float* hdri, const short* seg_order, const int* seg_start,
+    const float* seg_box, int n_seg, const int* grp_start, const float* grp_box, int n_grp,
+    float seg_c, float seg_inv_r, float* out, int* flags,
     unsigned char* code, int* idx, long long n_rays, unsigned int seed,
     int max_depth, void* cuda_stream) {
-    if (n_seg < 0 || n_seg > n_sphere ||
-        (n_seg > 0 && (seg_order == nullptr || seg_start == nullptr || seg_box == nullptr)))
-        return (int)cudaErrorInvalidValue;
     Tables seg;
-    seg.seg_order = seg_order;
-    seg.seg_start = seg_start;
-    seg.seg_box = seg_box;
-    seg.n_seg = n_seg;
-    seg.seg_c = seg_c;
-    seg.seg_inv_r = seg_inv_r;
+    const int err = segments(seg_order, seg_start, seg_box, n_seg, grp_start, grp_box, n_grp,
+                             seg_c, seg_inv_r, n_sphere, seg);
+    if (err != 0) return err;
     return launch<RECORD>(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights,
                           ox, oy, oz, dx, dy, dz, tm, stream, out, flags, n_rays,
                           seed, max_depth, cuda_stream, Stash{nullptr, nullptr, 0},
@@ -505,15 +564,21 @@ extern "C" int wavefront_grad_fwd_pathwise_launch(
 // flag word, miss direction 3, miss throughput 3); `out`: those of the 19
 // rows it writes (radiance 3, miss direction 3, miss throughput 3, flag word,
 // origin 3, direction 3, throughput 3); both arrays live in host memory.
-// `hdri`: the [(b_end - b_start) * 7, n_rays] rows of HDRI NEE, or null.
+// `hdri`: the [(b_end - b_start) * 7, n_rays] rows of HDRI NEE, or null;
+// seg_order ... seg_inv_r: the culled sweep's tables, as the forward's.
 extern "C" int wavefront_resume_launch(
     const float* pt, const float* st, const float* vt, const float* lt,
     int n_planar, int n_sphere, int n_vol, int n_lights, void* const* in,
-    void* const* out, const float* hdri, long long n_rays, unsigned int seed,
+    void* const* out, const float* hdri, const short* seg_order, const int* seg_start,
+    const float* seg_box, int n_seg, const int* grp_start, const float* grp_box, int n_grp,
+    float seg_c, float seg_inv_r, long long n_rays, unsigned int seed,
     int b_start, int b_end, void* cuda_stream) {
+    Tables seg;
+    int err = segments(seg_order, seg_start, seg_box, n_seg, grp_start, grp_box, n_grp, seg_c,
+                       seg_inv_r, n_sphere, seg);
+    if (err != 0) return err;
     Setup L;
-    const int err = setup(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights,
-                          n_rays, L);
+    err = setup(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights, n_rays, L, &seg);
     if (err != 0) return err;
     ResumeIn I;
     ResumeOut O;
@@ -535,8 +600,8 @@ extern "C" int wavefront_resume_launch(
     I.stream = (const uint32_t*)in[7];
     I.flags = (const int*)in[14];
     O.flags = (int*)out[9];
-    wavefront_resume_kernel<<<L.blocks, THREADS, L.smem_bytes,
-                              (cudaStream_t)cuda_stream>>>(
+    auto kernel = L.G.n_seg > 0 ? wavefront_resume_kernel<true> : wavefront_resume_kernel<false>;
+    kernel<<<L.blocks, THREADS, L.smem_bytes, (cudaStream_t)cuda_stream>>>(
         L.G, I, O, n_rays, seed, b_start, b_end, L.smem_bytes > 0, hdri);
     return (int)cudaGetLastError();
 }
@@ -548,16 +613,31 @@ extern "C" int wavefront_resume_launch(
 extern "C" int wavefront_pathwise_occupancy(int marble, int smem_bytes,
                                             int* blocks_per_sm, int* threads) {
     *threads = THREADS;
-    const void* fn = marble ? (const void*)wavefront_kernel<PATHWISE_MARBLE>
-                            : (const void*)wavefront_kernel<PATHWISE>;
+    const void* fn = marble ? (const void*)wavefront_kernel<PATHWISE_MARBLE, false>
+                            : (const void*)wavefront_kernel<PATHWISE, false>;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, THREADS,
                                                               (size_t)smem_bytes);
 }
 
-// The same for the record kernel.
-extern "C" int wavefront_record_occupancy(int smem_bytes, int* blocks_per_sm,
-                                          int* threads) {
+// The same for the forward, the record and the resumable kernel: `kernel`
+// FWD (0), RECORD (3) or RESUME_KERNEL; `culled` their culled
+// instantiations.
+constexpr int RESUME_KERNEL = 7;
+
+extern "C" int wavefront_tracing_occupancy(int kernel, int culled, int smem_bytes,
+                                           int* blocks_per_sm, int* threads) {
     *threads = THREADS;
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, (const void*)wavefront_kernel<RECORD>, THREADS, (size_t)smem_bytes);
+    const void* fn = nullptr;
+    if (kernel == FWD)
+        fn = culled ? (const void*)wavefront_kernel<FWD, true>
+                    : (const void*)wavefront_kernel<FWD, false>;
+    else if (kernel == RECORD)
+        fn = culled ? (const void*)wavefront_kernel<RECORD, true>
+                    : (const void*)wavefront_kernel<RECORD, false>;
+    else if (kernel == RESUME_KERNEL)
+        fn = culled ? (const void*)wavefront_resume_kernel<true>
+                    : (const void*)wavefront_resume_kernel<false>;
+    if (fn == nullptr) return (int)cudaErrorInvalidValue;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, THREADS,
+                                                              (size_t)smem_bytes);
 }

@@ -55,13 +55,16 @@ struct Tables {
     const float* lt;
     int n_planar, n_sphere, n_vol, n_lights;
     int pc, sc, vc, lc;  // column counts (row strides), at least 1
-    // The segments of the record kernel's culled sphere sweep
-    // (ops/cuda_wavefront.build_tables, scenes of SPH_CULL_MIN spheres and
-    // more; n_seg 0 otherwise, and in every other launch).
-    const int* seg_order = nullptr;  // [n_sphere] scene indices in spatial order
+    // The segments and groups of the culled sphere sweep of the forward,
+    // record and resumable kernels (ops/cuda_wavefront.build_tables,
+    // scenes of SPH_CULL_MIN spheres and more; n_seg 0 otherwise, and in
+    // every other launch).
+    const short* seg_order = nullptr;  // [n_sphere] scene indices in spatial order
     const int* seg_start = nullptr;  // [n_seg + 1] segment s: seg_order[start[s], start[s + 1])
     const float* seg_box = nullptr;  // [6, n_seg] lo xyz, hi xyz (+-inf: always swept)
-    int n_seg = 0;
+    const int* grp_start = nullptr;  // [n_grp + 1] group g: segments [start[g], start[g + 1])
+    const float* grp_box = nullptr;  // [6, n_grp] the union of its segments' boxes
+    int n_seg = 0, n_grp = 0;
     // the padding's scale: the largest |centre| + radius and 1 / the least
     // radius of the spheres in boxes
     float seg_c = 0.0f, seg_inv_r = 0.0f;
@@ -237,18 +240,24 @@ __device__ __forceinline__ bool sphere_sweep(const Tables& S, const float o[3],
     return found;
 }
 
-// The record kernel's sphere sweep in a scene with segments: the spheres in
-// spatial order (a Morton key of the motion midpoint), cut into segments of
-// a few spheres under a box that holds each sphere over the whole motion
-// sweep (very large spheres alone, under an infinite box).  A ray sweeps a
-// segment when it reaches the segment's box within (EPS_HIT, t_best] (a
-// warp's vote, all lanes sweeping a segment one of them reaches, measured
-// no faster on the H100, PERF.md).  The box grows by a padding that keeps
-// the float slab test from dropping a sphere the quadratic would hit: a
-// grazing ray's computed root can put its hit point outside the exact
-// sphere by about 4 ulp |o - c|^2 / r (h^2 - a c cancels), and the slab
-// test rounds by a few ulp of |o| + |box|; SEG_PAD D (D / r_min + 1), D =
-// |o| + max(|c| + r), bounds both for every origin.  Each sphere's
+// The culled sphere sweep of the forward, record and resumable kernels in
+// a scene with segments: the spheres in spatial order (a Morton key of the
+// motion midpoint), cut into segments of a few spheres under a box that
+// holds each sphere over the whole motion sweep (very large spheres alone,
+// under an infinite box), and the segments, in the same order, into groups
+// of a few under the union of their boxes (the large spheres' segments a
+// group of their own).  A ray tests a group's segment boxes only when it
+// reaches the group's box, and sweeps a segment's spheres only when it
+// reaches the segment's box, within (EPS_HIT, t_best] (a warp's vote, all
+// lanes sweeping a segment one of them reaches, measured no faster on the
+// H100, PERF.md).  Every box grows by a padding that keeps the float slab
+// test from dropping a sphere the quadratic would hit: a grazing ray's
+// computed root can put its hit point outside the exact sphere by about 4
+// ulp |o - c|^2 / r (h^2 - a c cancels), and the slab test rounds by a few
+// ulp of |o| + |box|; SEG_PAD D (D / r_min + 1), D = |o| + max(|c| + r),
+// bounds both for every origin.  A group's box holds its segments' boxes,
+// and the slab test's rounding is monotone in the box's faces, so a ray
+// that reaches a segment's box reaches its group's.  Each sphere's
 // arithmetic is sphere_sweep's, and a sphere's candidate root (r0 past
 // EPS_HIT, else r1) does not depend on t_best, so taking the least (t,
 // scene index) gives the brute sweep's winner, t and index bit for bit,
@@ -256,15 +265,32 @@ __device__ __forceinline__ bool sphere_sweep(const Tables& S, const float o[3],
 // spheres the lower index.
 constexpr float SEG_PAD = 8.0f * 1.1920929e-7f;  // 8 float32 ulps of 1
 
+// Does the ray reach box k of a [6, n] table (grown by the ray's padding:
+// lo - pad - o = lo - o_lo, hi + pad - o = hi - o_hi) within (EPS_HIT,
+// t_best]?
+__device__ __forceinline__ bool box_reached(const float* box, int n, int k,
+                                            const float o_lo[3], const float o_hi[3],
+                                            const float inv_d[3], float t_best) {
+    const float* B = box + k;
+    float near = EPS_HIT, far = t_best;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+        const float ta = (B[i * n] - o_lo[i]) * inv_d[i];
+        const float tb = (B[(3 + i) * n] - o_hi[i]) * inv_d[i];
+        near = fmaxf(near, fminf(ta, tb));
+        far = fminf(far, fmaxf(ta, tb));
+    }
+    return near <= far;
+}
+
 template <bool ANY>
 __device__ __forceinline__ bool sphere_sweep_culled(const Tables& S, const float o[3],
                                                     const float d[3], float tmv,
                                                     float& t_best, int& hidx) {
     bool found = false;
-    const int sc = S.sc, ns = S.n_seg;
+    const int sc = S.sc, ns = S.n_seg, ng = S.n_grp;
     const float a_coef = dot3(d, d);
     const float inv_a = 1.0f / a_coef;
-    // the boxes grown by pad: lo - pad - o = lo - o_lo, hi + pad - o = hi - o_hi
     const float dist = sqrtf(dot3(o, o)) + S.seg_c;
     const float pad = SEG_PAD * dist * (dist * S.seg_inv_r + 1.0f);
     float inv_d[3], o_lo[3], o_hi[3];
@@ -275,46 +301,42 @@ __device__ __forceinline__ bool sphere_sweep_culled(const Tables& S, const float
         o_lo[i] = o[i] + pad;
         o_hi[i] = o[i] - pad;
     }
-    for (int s = 0; s < ns; ++s) {
-        const float* B = S.seg_box + s;
-        float near = EPS_HIT, far = t_best;
-#pragma unroll
-        for (int i = 0; i < 3; ++i) {
-            const float ta = (B[i * ns] - o_lo[i]) * inv_d[i];
-            const float tb = (B[(3 + i) * ns] - o_hi[i]) * inv_d[i];
-            near = fmaxf(near, fminf(ta, tb));
-            far = fminf(far, fmaxf(ta, tb));
-        }
-        if (!(near <= far)) continue;
-        const int m_end = S.seg_start[s + 1];
-        for (int m = S.seg_start[s]; m < m_end; ++m) {
-            const int j = S.seg_order[m];
-            const float* Q = S.st + j;
-            const float ocx = (Q[0] + tmv * Q[3 * sc]) - o[0];
-            const float ocy = (Q[sc] + tmv * Q[4 * sc]) - o[1];
-            const float ocz = (Q[2 * sc] + tmv * Q[5 * sc]) - o[2];
-            const float h = d[0] * ocx + d[1] * ocy + d[2] * ocz;
-            const float c = ocx * ocx + ocy * ocy + ocz * ocz - Q[6 * sc];
-            const float disc = h * h - a_coef * c;
-            if (!(disc >= 0.0f)) continue;
-            const float sq = sqrtf(fmaxf(disc, 0.0f));
-            const float r0 = (h - sq) * inv_a;
-            const float r1 = (h + sq) * inv_a;
-            const float cand = r0 > EPS_HIT ? r0 : r1;
-            if (!(cand > EPS_HIT &&
-                  (cand < t_best || (found && cand == t_best && j < hidx))))
-                continue;
-            t_best = cand;
-            hidx = j;
-            found = true;
-            if (ANY) return true;
+    for (int g = 0; g < ng; ++g) {
+        if (!box_reached(S.grp_box, ng, g, o_lo, o_hi, inv_d, t_best)) continue;
+        const int s_end = S.grp_start[g + 1];
+        for (int s = S.grp_start[g]; s < s_end; ++s) {
+            if (!box_reached(S.seg_box, ns, s, o_lo, o_hi, inv_d, t_best)) continue;
+            const int m_end = S.seg_start[s + 1];
+            for (int m = S.seg_start[s]; m < m_end; ++m) {
+                const int j = S.seg_order[m];
+                const float* Q = S.st + j;
+                const float ocx = (Q[0] + tmv * Q[3 * sc]) - o[0];
+                const float ocy = (Q[sc] + tmv * Q[4 * sc]) - o[1];
+                const float ocz = (Q[2 * sc] + tmv * Q[5 * sc]) - o[2];
+                const float h = d[0] * ocx + d[1] * ocy + d[2] * ocz;
+                const float c = ocx * ocx + ocy * ocy + ocz * ocz - Q[6 * sc];
+                const float disc = h * h - a_coef * c;
+                if (!(disc >= 0.0f)) continue;
+                const float sq = sqrtf(fmaxf(disc, 0.0f));
+                const float r0 = (h - sq) * inv_a;
+                const float r1 = (h + sq) * inv_a;
+                const float cand = r0 > EPS_HIT ? r0 : r1;
+                if (!(cand > EPS_HIT &&
+                      (cand < t_best || (found && cand == t_best && j < hidx))))
+                    continue;
+                t_best = cand;
+                hidx = j;
+                found = true;
+                if (ANY) return true;
+            }
         }
     }
     return found;
 }
 
-// The sphere sweep of a mode: CULL (the record kernel) takes the culled
-// sweep in a scene with segments, every other mode the brute sweep.
+// The sphere sweep of a mode: CULL (the forward, the record and the
+// resumable kernel) takes the culled sweep in a scene with segments, every
+// other mode the brute sweep.
 template <bool CULL, bool ANY>
 __device__ __forceinline__ bool spheres_hit(const Tables& S, const float o[3],
                                             const float d[3], float tmv, float& t_best,
@@ -360,8 +382,8 @@ __device__ __forceinline__ bool volume_scatter(const Tables& S, const float o[3]
 
 // Shadow ray: any surface within t_cap (spheres at time 0), or a volume
 // scatter event on the way (its draw keyed on `purpose` + 32 * volume).
-// CULL: the record kernel's sphere sweep (spheres_hit).
-template <bool CULL = false>
+// CULL: the culled sphere sweep in a scene with segments (spheres_hit).
+template <bool CULL>
 __device__ __forceinline__ bool occluded(const Tables& S, const float o[3],
                                          const float d[3], float t_cap,
                                          uint32_t sid, uint32_t seed,
@@ -392,8 +414,10 @@ constexpr int FLAG_ALLOW = 8;
 // depend on where the loop was cut.  The stash and the record (b_start 0
 // only) are [b_end, ...]; the HDRI rows [(b_end - b_start) * 7, ...].
 // Returns the stash (or record) rows written in the loop: the bounces the
-// ray entered, which are all the fused modes write.
-template <int MODE>
+// ray entered, which are all the fused modes write.  CULL (the forward, the
+// record and the resumable kernel, in a scene with segments): the sphere
+// sweeps are the culled sweep's (spheres_hit).
+template <int MODE, bool CULL = false>
 __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3],
                                           float tp[3], float tmv, uint32_t sid,
                                           uint32_t seed, int b_start, int b_end,
@@ -418,8 +442,8 @@ __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3]
     // the bounce but for the marble's turns.  In the other modes `live` and
     // `shade` are true wherever they are read.
     constexpr bool COOP = MODE == PATHWISE_MARBLE || MODE == FUSED_MARBLE;
-    // the record kernel sweeps the spheres of a scene with segments culled
-    constexpr bool CULL = MODE == RECORD;
+    static_assert(!CULL || MODE == FWD || MODE == RECORD,
+                  "the culled sweep is the forward's and the record's");
     const bool started = alive;
     int b_own = b_end;  // COOP: where this lane's own loop would have stopped
     const float zero3[3] = {0.0f, 0.0f, 0.0f};
@@ -684,8 +708,8 @@ __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3]
                         dark = true;
                     }
                 } else {
-                    dark = dark || occluded(S, p, light.ld, light.dist - EPS_HIT,
-                                            sid, seed, bu, VOL_SHADOW);
+                    dark = dark || occluded<CULL>(S, p, light.ld, light.dist - EPS_HIT,
+                                                  sid, seed, bu, VOL_SHADOW);
                 }
                 if (!dark) {
                     const float scale = nee_scale(light, lc, S.n_lights).scale;

@@ -20,8 +20,7 @@ rest of the loop, 'compact' packs them to the front in their order
 The record kernel (``wavefront_record``) is the forward once more, and it
 also writes each bounce's discrete outcome: the winner's kind and index and
 whether the shadow rays (toward the area light, toward the environment)
-were blocked.  In a scene of SPH_CULL_MIN spheres and more it sweeps the
-spheres segment-culled, with the brute sweep's winners.
+were blocked.
 
 Environments (``lights/hdri``): the miss shader runs outside the kernels,
 once per ray, from the miss records (direction, throughput, flags).  In a
@@ -93,10 +92,12 @@ What lives here:
     the plain forward with the geometry detached (not an oracle of the
     pathwise tier, where colour gradients also flow through positions).
 
-Sphere segment culling, the JAX kernel's sweep from SPH_CULL_MIN spheres
-on, is the record kernel's alone (``build_tables`` makes the segments,
-``record_sweep_counts`` mirrors and counts the culled sweep); the other
-kernels sweep every sphere (ROADMAP.md's performance queue).
+Sphere culling, the JAX kernel's sweep from SPH_CULL_MIN spheres on: the
+forward, record and resumable kernels sweep the spheres of such a scene by
+segments under boxes, the segments in groups under boxes, with the brute
+sweep's winners (``build_tables`` makes the segments and groups,
+``culled_sweep_counts`` mirrors the culled sweep and counts its tests); the
+gradient kernels sweep every sphere.
 """
 
 from __future__ import annotations
@@ -128,21 +129,26 @@ VT_ROWS = 25  # volume: w2l(12) bmin(3) bmax(3) nid mat tex col(3) + tex id
 LT_ROWS = 17  # light: q(3) u(3) v(3) n(3) area em(3) + tex id
 
 # From this many spheres on, the renderer orders rays in 32x32 pixel
-# buckets (render/renderer.scene_tiled) and the record kernel sweeps the
-# spheres segment-culled, both as the JAX package does from there on (so
-# both packages give a ray the same stream id).
+# buckets (render/renderer.scene_tiled) and the forward, record and
+# resumable kernels sweep the spheres culled, both as the JAX package does
+# from there on (so both packages give a ray the same stream id).
 SPH_CULL_MIN = 64
-# The culled sweep's segments (``build_tables``): SPH_SEG spheres a segment
-# (8 measured fastest of 4 to 32 on ``random``, PERF.md; the JAX kernel's 16
-# was chosen on the TPU); a sphere whose radius exceeds SEG_LARGE times the
-# median takes a segment of its own under an infinite box, swept by every
-# ray (a ground sphere would widen its neighbours' boxes to the whole
-# scene); and SEG_PAD, the padding a ray gives the other boxes: a grazing
-# ray's computed root can put its hit point outside the exact sphere by
-# about 4 ulp |o - c|^2 / r (h^2 - a c cancels), and the slab test rounds by
-# a few ulp of |o| + |box|, so a box grows by 8 float32 ulps of D (D / r_min
-# + 1), D = |o| + max(|c| + r) (``seg_c``, ``seg_inv_r``), for every origin.
-SPH_SEG = 8
+# The culled sweep's segments and groups (``sphere_segments``): SPH_SEG
+# spheres a segment and SEG_GROUP segments a group under the union of their
+# boxes (a ray tests a group's segment boxes only when it reaches the
+# group's box; 4 and 8 measured fastest of 4 / 6 / 8 and 4 / 8 / 16 on
+# ``random`` in B1, B6 and B11, PERF.md; the JAX kernel's 16, one level, was
+# chosen on the TPU); a sphere whose radius exceeds SEG_LARGE
+# times the median takes a segment of its own under an infinite box, swept
+# by every ray (a ground sphere would widen its neighbours' boxes to the
+# whole scene), those segments a group of their own; and SEG_PAD, the
+# padding a ray gives the other boxes: a grazing ray's computed root can put
+# its hit point outside the exact sphere by about 4 ulp |o - c|^2 / r (h^2 -
+# a c cancels), and the slab test rounds by a few ulp of |o| + |box|, so a
+# box grows by 8 float32 ulps of D (D / r_min + 1), D = |o| + max(|c| + r)
+# (``seg_c``, ``seg_inv_r``), for every origin.
+SPH_SEG = 4
+SEG_GROUP = 8
 SEG_LARGE = 8.0
 SEG_PAD = float(np.float32(8 * 2.0 ** -23))
 
@@ -257,15 +263,20 @@ class Tables(NamedTuple):
     n_sphere: int
     n_vol: int
     n_lights: int
-    # The record kernel's culled sphere sweep (SPH_CULL_MIN spheres and
-    # more; None and 0 below): the scene indices of the spheres in spatial
-    # order, segment s holding seg_order[seg_start[s]:seg_start[s + 1]]
-    # under the box seg_box[:, s] (lo xyz, hi xyz over tm in [0, 1]; +-inf
-    # for a large sphere), which each ray pads (SEG_PAD).
-    seg_order: torch.Tensor | None = None   # [n_sphere] i32
+    # The culled sphere sweep of the forward, record and resumable kernels
+    # (SPH_CULL_MIN spheres and more; None and 0 below): the scene indices
+    # of the spheres in spatial order, segment s holding
+    # seg_order[seg_start[s]:seg_start[s + 1]] under the box seg_box[:, s]
+    # (lo xyz, hi xyz over tm in [0, 1]; +-inf for a large sphere), group g
+    # holding segments [grp_start[g], grp_start[g + 1]) under the union of
+    # their boxes grp_box[:, g]; each ray pads the boxes (SEG_PAD).
+    seg_order: torch.Tensor | None = None   # [n_sphere] i16
     seg_start: torch.Tensor | None = None   # [n_seg + 1] i32
     seg_box: torch.Tensor | None = None     # [6, n_seg] f32
+    grp_start: torch.Tensor | None = None   # [n_grp + 1] i32
+    grp_box: torch.Tensor | None = None     # [6, n_grp] f32
     n_seg: int = 0
+    n_grp: int = 0
     seg_c: float = 0.0       # the padding's scale: max |centre| + radius of
     seg_inv_r: float = 0.0   # the boxed spheres, 1 / their least radius
 
@@ -385,15 +396,39 @@ def _spread_bits(v, bits):
     return out
 
 
+def _boxes(seg_id, n, lo, hi):
+    """[6, n] boxes: lo xyz, hi xyz of the rows of ``lo`` / ``hi`` [m, 3] by
+    their segment ``seg_id`` [m]."""
+    box = torch.empty((6, n), dtype=torch.float32, device=lo.device)
+    for i in range(3):
+        box[i] = torch.full_like(box[i], float("inf")).scatter_reduce(
+            0, seg_id, lo[:, i], "amin")
+        box[3 + i] = torch.full_like(box[i], -float("inf")).scatter_reduce(
+            0, seg_id, hi[:, i], "amax")
+    return box.contiguous()
+
+
+def _runs(sizes, device):
+    """Run lengths -> (starts [len + 1] i32, each element's run id)."""
+    start = torch.tensor([0] + sizes, dtype=torch.int64, device=device).cumsum(0)
+    ids = torch.repeat_interleave(torch.arange(len(sizes), device=device),
+                                  torch.tensor(sizes, device=device))
+    return start.to(torch.int32), ids
+
+
 def sphere_segments(spheres):
-    """The culled sweep's segment tables of a sphere pack, on its device:
-    (seg_order [n] i32, seg_start [n_seg + 1] i32, seg_box [6, n_seg] f32,
-    seg_c, seg_inv_r).  Large spheres (radius over SEG_LARGE times the
-    median) come first, a segment each under an infinite box; the others
-    follow in the order of a 10-bit-an-axis Morton key of their motion
-    midpoint, SPH_SEG to a segment under a box that holds them over the
-    whole motion sweep (tm in [0, 1]).  seg_c and seg_inv_r scale the
-    padding a ray gives the boxes (SEG_PAD)."""
+    """The culled sweep's tables of a sphere pack, on its device: the
+    ``Tables`` fields seg_order, seg_start, seg_box, grp_start, grp_box,
+    n_seg, n_grp, seg_c and seg_inv_r, as a dict.  Large spheres (radius
+    over SEG_LARGE times the median) come first, a segment each under an
+    infinite box, those segments one group; the others follow in the order
+    of a 10-bit-an-axis Morton key of their motion midpoint, SPH_SEG to a
+    segment under a box that holds them over the whole motion sweep (tm in
+    [0, 1]), SEG_GROUP segments in order to a group under the union of their
+    boxes.  seg_c and seg_inv_r scale the padding a ray gives the boxes
+    (SEG_PAD).  seg_order is int16 (the kernels' gate takes 1,024 spheres):
+    two bytes a sphere keep ``random``'s tables in shared memory small
+    enough for six blocks an SM."""
     r = spheres.radius.to(torch.float32)
     n = int(r.shape[0])
     c0 = spheres.center.to(torch.float32)
@@ -417,25 +452,23 @@ def sphere_segments(spheres):
     key = torch.where(large, -1, key)           # large spheres first
     order = torch.sort(key, stable=True).indices
     n_large = int(large.sum())
-    n_small = n - n_large
-    full, rest = divmod(n_small, SPH_SEG)
+    full, rest = divmod(n - n_large, SPH_SEG)
     sizes = [1] * n_large + [SPH_SEG] * full + ([rest] if rest else [])
-    start = torch.tensor([0] + sizes, dtype=torch.int64, device=r.device).cumsum(0)
-    seg_id = torch.repeat_interleave(torch.arange(len(sizes), device=r.device),
-                                     torch.tensor(sizes, device=r.device))
-    box = torch.empty((6, len(sizes)), dtype=torch.float32, device=r.device)
-    for i in range(3):
-        box[i] = torch.full_like(box[i], float("inf")).scatter_reduce(
-            0, seg_id, lo[order, i], "amin")
-        box[3 + i] = torch.full_like(box[i], -float("inf")).scatter_reduce(
-            0, seg_id, hi[order, i], "amax")
-    return order.to(torch.int32), start.to(torch.int32), box.contiguous(), seg_c, seg_inv_r
+    seg_start, seg_id = _runs(sizes, r.device)
+    seg_box = _boxes(seg_id, len(sizes), lo[order], hi[order])
+    full, rest = divmod(len(sizes) - n_large, SEG_GROUP)
+    groups = [n_large] * (n_large > 0) + [SEG_GROUP] * full + ([rest] if rest else [])
+    grp_start, grp_id = _runs(groups, r.device)
+    grp_box = _boxes(grp_id, len(groups), seg_box[:3].T, seg_box[3:].T)
+    return dict(seg_order=order.to(torch.int16), seg_start=seg_start, seg_box=seg_box,
+                grp_start=grp_start, grp_box=grp_box, n_seg=len(sizes), n_grp=len(groups),
+                seg_c=seg_c, seg_inv_r=seg_inv_r)
 
 
 def build_tables(scene) -> Tables:
     """Scene -> (PT, ST, VT, LT) tables + counts, on the scene's device,
     and in a scene of SPH_CULL_MIN spheres and more the culled sweep's
-    segments (``sphere_segments``).  Spheres keep the order they were built
+    segments and groups (``sphere_segments``).  Spheres keep the order they were built
     in."""
     dev = scene.device
     p = scene.planar
@@ -498,9 +531,7 @@ def build_tables(scene) -> Tables:
     lt = _stack_rows(rows, LT_ROWS, n_lights, dev)
     tb = Tables(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights)
     if n_sphere >= SPH_CULL_MIN:
-        order, start, box, seg_c, seg_inv_r = sphere_segments(s)
-        tb = tb._replace(seg_order=order, seg_start=start, seg_box=box,
-                         n_seg=int(box.shape[1]), seg_c=seg_c, seg_inv_r=seg_inv_r)
+        tb = tb._replace(**sphere_segments(s))
     return tb
 
 
@@ -575,20 +606,45 @@ def _sphere_sweep(tb, o, d, tmv, t_best, hitk, hidx):
     return t_best, hitk, hidx
 
 
+def _box_reached(box, k, o_lo, o_hi, inv_d, t_best):
+    """Do the rays reach box k of a [6, n] table (nested lists), grown by
+    their padding, within (EPS_HIT, t_best]?  ``box_reached`` in
+    csrc/wavefront_trace.cuh."""
+    near = torch.full_like(t_best, EPS_HIT)
+    far = t_best
+    for i in range(3):
+        ta = (box[i][k] - o_lo[i]) * inv_d[i]
+        tb_ = (box[3 + i][k] - o_hi[i]) * inv_d[i]
+        near = torch.maximum(near, torch.minimum(ta, tb_))
+        far = torch.minimum(far, torch.maximum(ta, tb_))
+    return near <= far
+
+
+def _warp_lanes(mask):
+    """32 for each warp of 32 consecutive rays with a lane set in ``mask``:
+    the lane slots a warp spends when one of its lanes takes a branch."""
+    warps = torch.nn.functional.pad(mask, (0, -mask.shape[0] % 32)).reshape(-1, 32)
+    return int(warps.any(dim=1).sum()) * 32
+
+
 def _sphere_sweep_culled(tb, o, d, tmv, t_best, hitk, hidx, counts, kind,
                          any_hit=False):
-    """The record kernel's culled sphere sweep (``sphere_sweep_culled`` in
-    csrc/wavefront_trace.cuh), a mirror that counts its work: segments in
-    order, a segment's box (grown by the ray's padding) tested by every ray
-    that sweeps (a ray with t_best above EPS_HIT: dead and inactive lanes
-    sweep with 0), its spheres by the rays that reach the box within
-    (EPS_HIT, t_best], in segment order, the least (t, scene index) winning.
-    The winners are the brute sweep's (``_sphere_sweep``).  Adds to
-    ``counts``: ``<kind>_box_tests``, ``<kind>_sphere_tests`` (each ray's
-    own: what the inputs need) and ``<kind>_warp_sphere_tests`` (32 a warp
-    of consecutive rays with a lane that reaches the segment: the lane slots
-    a warp spends, its lanes running the loop together).  ``any_hit``: a ray
-    stops at its first hit (the shadow sweep)."""
+    """The culled sphere sweep of the forward, record and resumable kernels
+    (``sphere_sweep_culled`` in csrc/wavefront_trace.cuh), a mirror that
+    counts its work: groups in order, a group's box (grown by the ray's
+    padding) tested by every ray that sweeps (a ray with t_best above
+    EPS_HIT: dead and inactive lanes sweep with 0), its segments' boxes by
+    the rays that reach it, a segment's spheres by the rays that reach the
+    segment's box, each within (EPS_HIT, t_best], the least (t, scene index)
+    winning.  The winners are the brute sweep's (``_sphere_sweep``).  Adds to
+    ``counts`` (``SWEEP_COUNTS``) each ray's own tests, what the inputs need:
+    ``<kind>_group_box_tests``, ``<kind>_box_tests`` (segment boxes),
+    ``<kind>_sphere_tests``; and the lane slots a warp of 32 consecutive rays
+    spends, its lanes running the loop together: ``<kind>_warp_box_tests``
+    (32 a segment box of a group one lane reaches) and
+    ``<kind>_warp_sphere_tests`` (32 a sphere of a segment one lane
+    reaches).  ``any_hit``: a ray stops at its first hit (the shadow
+    sweep)."""
     st = tb.st
     a_coef = _dot3(d, d)
     inv_a = 1.0 / a_coef
@@ -597,47 +653,47 @@ def _sphere_sweep_culled(tb, o, d, tmv, t_best, hitk, hidx, counts, kind,
              for i in range(3)]
     dist = torch.sqrt(_dot3(o, o)) + tb.seg_c
     pad = SEG_PAD * dist * (dist * tb.seg_inv_r + 1.0)
-    box = tb.seg_box.tolist()
-    start = tb.seg_start.tolist()
+    o_lo = [o[i] + pad for i in range(3)]
+    o_hi = [o[i] - pad for i in range(3)]
+    seg_box, grp_box = tb.seg_box.tolist(), tb.grp_box.tolist()
+    start, grp_start = tb.seg_start.tolist(), tb.grp_start.tolist()
     order = tb.seg_order.tolist()
     sweeps = t_best > EPS_HIT
     found = torch.zeros_like(sweeps)
-    r = sweeps.shape[0]
-    warp_pad = -r % 32
-    for sg in range(tb.n_seg):
+    for g in range(tb.n_grp):
         active = sweeps & ~found if any_hit else sweeps
-        near = torch.full_like(t_best, EPS_HIT)
-        far = t_best
-        for i in range(3):
-            ta = (box[i][sg] - (o[i] + pad)) * inv_d[i]
-            tb_ = (box[3 + i][sg] - (o[i] - pad)) * inv_d[i]
-            near = torch.maximum(near, torch.minimum(ta, tb_))
-            far = torch.minimum(far, torch.maximum(ta, tb_))
-        reach = active & (near <= far)
-        size = start[sg + 1] - start[sg]
-        counts[f"{kind}_box_tests"] += int(active.sum())
-        counts[f"{kind}_sphere_tests"] += int(reach.sum()) * size
-        warps = torch.nn.functional.pad(reach, (0, warp_pad)).reshape(-1, 32).any(dim=1)
-        counts[f"{kind}_warp_sphere_tests"] += int(warps.sum()) * 32 * size
-        if not bool(reach.any()):
+        greach = active & _box_reached(grp_box, g, o_lo, o_hi, inv_d, t_best)
+        counts[f"{kind}_group_box_tests"] += int(active.sum())
+        if not bool(greach.any()):
             continue
-        for j in order[start[sg]:start[sg + 1]]:
-            ocx = (st[0, j] + tmv * st[3, j]) - o[0]
-            ocy = (st[1, j] + tmv * st[4, j]) - o[1]
-            ocz = (st[2, j] + tmv * st[5, j]) - o[2]
-            h = d[0] * ocx + d[1] * ocy + d[2] * ocz
-            c = ocx * ocx + ocy * ocy + ocz * ocz - st[6, j]
-            disc = h * h - a_coef * c
-            sq = torch.sqrt(torch.clamp_min(disc, 0.0))
-            r0 = (h - sq) * inv_a
-            r1 = (h + sq) * inv_a
-            cand = torch.where(r0 > EPS_HIT, r0, r1)
-            upd = (reach & (disc >= 0.0) & (cand > EPS_HIT)
-                   & ((cand < t_best) | (found & (cand == t_best) & (hidx > j))))
-            t_best = torch.where(upd, cand, t_best)
-            hitk = torch.where(upd, 1, hitk)
-            hidx = torch.where(upd, j, hidx)
-            found = found | upd
+        g_lanes = _warp_lanes(greach)
+        for sg in range(grp_start[g], grp_start[g + 1]):
+            active = greach & ~found if any_hit else greach
+            reach = active & _box_reached(seg_box, sg, o_lo, o_hi, inv_d, t_best)
+            size = start[sg + 1] - start[sg]
+            counts[f"{kind}_box_tests"] += int(active.sum())
+            counts[f"{kind}_warp_box_tests"] += g_lanes
+            counts[f"{kind}_sphere_tests"] += int(reach.sum()) * size
+            counts[f"{kind}_warp_sphere_tests"] += _warp_lanes(reach) * size
+            if not bool(reach.any()):
+                continue
+            for j in order[start[sg]:start[sg + 1]]:
+                ocx = (st[0, j] + tmv * st[3, j]) - o[0]
+                ocy = (st[1, j] + tmv * st[4, j]) - o[1]
+                ocz = (st[2, j] + tmv * st[5, j]) - o[2]
+                h = d[0] * ocx + d[1] * ocy + d[2] * ocz
+                c = ocx * ocx + ocy * ocy + ocz * ocz - st[6, j]
+                disc = h * h - a_coef * c
+                sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+                r0 = (h - sq) * inv_a
+                r1 = (h + sq) * inv_a
+                cand = torch.where(r0 > EPS_HIT, r0, r1)
+                upd = (reach & (disc >= 0.0) & (cand > EPS_HIT)
+                       & ((cand < t_best) | (found & (cand == t_best) & (hidx > j))))
+                t_best = torch.where(upd, cand, t_best)
+                hitk = torch.where(upd, 1, hitk)
+                hidx = torch.where(upd, j, hidx)
+                found = found | upd
     return t_best, hitk, hidx
 
 
@@ -718,8 +774,9 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
     layout (``pathwise_stash_rows``).  The radiance does not depend on either.
 
     ``counts``: a dict of zeros; the sphere sweeps (closest hit and shadow)
-    are then the record kernel's culled sweep, which counts its tests into
-    it (``_sphere_sweep_culled``; tables with segments only)."""
+    are then the culled sweep of the forward, record and resumable kernels,
+    which counts its tests into it (``_sphere_sweep_culled``; tables with
+    segments only)."""
     f32 = torch.float32
     zero = torch.zeros_like(tm)
     one = torch.ones_like(tm)
@@ -1053,18 +1110,19 @@ def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
 
 
 def _wavefront_fwd_plain(tb: Tables, o, d, tm, stream, seed, max_depth,
-                        hdri=None):
-    """Plain version of the forward kernel: ([9, R] f32, [R] i32)."""
-    return _bounce_loop(tb, o, d, tm, stream, seed, max_depth, hdri=hdri)
+                        hdri=None, counts=None):
+    """Plain version of the forward kernel: ([9, R] f32, [R] i32).  Its
+    sphere sweeps are the brute sweep in table order, the specification of
+    the kernel's culled one; ``counts`` (see ``culled_sweep_counts``) takes
+    the culled sweep's mirror instead.  So do the record's and the resumable
+    kernel's plain versions."""
+    return _bounce_loop(tb, o, d, tm, stream, seed, max_depth, hdri=hdri, counts=counts)
 
 
 def _wavefront_record_plain(tb: Tables, o, d, tm, stream, seed, max_depth,
                             hdri=None, counts=None):
     """Plain version of the record kernel: the forward's ([9, R] f32,
-    [R] i32) and the record (code [D, R] u8, idx [D, R] i32).  Its sphere
-    sweeps are the brute sweep in table order, the specification of the
-    kernel's culled one; ``counts`` (see ``record_sweep_counts``) takes the
-    culled sweep's mirror instead."""
+    [R] i32) and the record (code [D, R] u8, idx [D, R] i32)."""
     record = (torch.zeros((max_depth, tm.shape[0]), dtype=torch.uint8, device=tm.device),
               torch.zeros((max_depth, tm.shape[0]), dtype=torch.int32, device=tm.device))
     out, flags = _bounce_loop(tb, o, d, tm, stream, seed, max_depth,
@@ -1072,24 +1130,8 @@ def _wavefront_record_plain(tb: Tables, o, d, tm, stream, seed, max_depth,
     return out, flags, record[0], record[1]
 
 
-SWEEP_COUNTS = tuple(f"{kind}_{what}" for kind in ("closest", "shadow")
-                     for what in ("box_tests", "sphere_tests", "warp_sphere_tests"))
-
-
-def record_sweep_counts(tb: Tables, o, d, tm, stream, seed, max_depth, hdri=None):
-    """The record kernel's plain version with its culled sphere sweep
-    mirrored (tables with segments only): what ``_wavefront_record_plain``
-    returns, and the box and sphere tests of its closest-hit and shadow
-    sweeps (``SWEEP_COUNTS``; see ``_sphere_sweep_culled``)."""
-    if tb.n_seg < 1:
-        raise ValueError("the tables have no segments (fewer than SPH_CULL_MIN spheres)")
-    counts = dict.fromkeys(SWEEP_COUNTS, 0)
-    out = _wavefront_record_plain(tb, o, d, tm, stream_to_i32(stream), seed, max_depth,
-                                  hdri, counts)
-    return out + (counts,)
-
-
-def _wavefront_resume_plain(tb: Tables, flat, seed, b_start, b_end, hdri=None):
+def _wavefront_resume_plain(tb: Tables, flat, seed, b_start, b_end, hdri=None,
+                            counts=None):
     """Plain version of the resumable kernel: bounces [b_start, b_end) of
     the 21-row path state ``flat`` (``wavefront_resume``).  Returns the
     19-tuple of [R] tensors (radiance 3, miss direction 3, miss throughput
@@ -1097,8 +1139,29 @@ def _wavefront_resume_plain(tb: Tables, flat, seed, b_start, b_end, hdri=None):
     o, d, tm, stream = flat[0:3], flat[3:6], flat[6], flat[7]
     start = (b_start, flat[8:11], flat[11:14], flat[14], flat[15:18], flat[18:21])
     out, flags, (o2, d2, tp) = _bounce_loop(tb, o, d, tm, stream, seed, b_end,
-                                            hdri=hdri, start=start)
+                                            hdri=hdri, start=start, counts=counts)
     return tuple(out) + (flags,) + tuple(o2) + tuple(d2) + tuple(tp)
+
+
+SWEEP_COUNTS = tuple(f"{kind}_{what}" for kind in ("closest", "shadow")
+                     for what in ("group_box_tests", "box_tests", "sphere_tests",
+                                  "warp_box_tests", "warp_sphere_tests"))
+
+
+def culled_sweep_counts(plain, tb: Tables, *args, **kwargs):
+    """The plain version ``plain`` (``_wavefront_fwd_plain``,
+    ``_wavefront_record_plain`` or ``_wavefront_resume_plain``, called with
+    ``args`` and ``kwargs``) with its sphere sweeps the culled sweep's mirror
+    (tables with segments only): what it returns (the same bits as the brute
+    sweep's), and the group box, segment box and sphere tests of its
+    closest-hit and shadow sweeps (``SWEEP_COUNTS``; see
+    ``_sphere_sweep_culled``).  The mirror of B1, B6 and B11 on the same
+    inputs."""
+    if tb.n_seg < 1:
+        raise ValueError("the tables have no segments (fewer than SPH_CULL_MIN spheres)")
+    counts = dict.fromkeys(SWEEP_COUNTS, 0)
+    out = plain(tb, *args, **kwargs, counts=counts)
+    return out, counts
 
 
 def _miss_colour_rows(out, flags, miss):
@@ -1593,13 +1656,16 @@ _TABLES_AND_RAYS = (
     + [_P] * 8                           # ox oy oz dx dy dz tm stream
 )
 _SIZES = [ctypes.c_longlong, ctypes.c_uint, _I]   # R, seed, depth
-_FWD_ARGTYPES = _TABLES_AND_RAYS + [_P] * 3 + _SIZES + [_P]      # hdri out flags
-_RECORD_ARGTYPES = (_TABLES_AND_RAYS + [_P] * 4 + [_I, _F, _F]   # hdri, segments
+# the culled sweep's tables: seg_order seg_start seg_box n_seg grp_start
+# grp_box n_grp seg_c seg_inv_r
+_SEG = [_P] * 3 + [_I] + [_P] * 2 + [_I, _F, _F]
+_FWD_ARGTYPES = _TABLES_AND_RAYS + [_P] + _SEG + [_P] * 2 + _SIZES + [_P]  # hdri out flags
+_RECORD_ARGTYPES = (_TABLES_AND_RAYS + [_P] + _SEG                   # hdri
                     + [_P] * 4 + _SIZES + [_P])                     # out flags code idx
 _GRAD_FWD_ARGTYPES = (_TABLES_AND_RAYS + [_P] * 5 + _SIZES
                       + [_I, _F, _F, _F] + [_P])
 _GRAD_FWD_PATHWISE_ARGTYPES = _GRAD_FWD_ARGTYPES[:-1] + [_I, _P]   # + f_rows
-_RESUME_ARGTYPES = ([_P] * 4 + [_I] * 4 + [_P] * 3     # tables, counts, in out hdri
+_RESUME_ARGTYPES = ([_P] * 4 + [_I] * 4 + [_P] * 3 + _SEG   # tables, counts, in out hdri
                     + [ctypes.c_longlong, ctypes.c_uint, _I, _I, _P])
 _GRAD_REV_ARGTYPES = [_P] * 5 + [ctypes.c_longlong, _I, _I, _P]
 _GRAD_REV_PATHWISE_ARGTYPES = (
@@ -1671,6 +1737,26 @@ def _table_and_ray_args(tb: Tables, o, d, tm, stream):
     )
 
 
+def _segment_args(tb: Tables, dev):
+    """The culled sweep's arguments of the forward, record and resumable
+    kernels (``_SEG``): the tables' segments and groups, checked, or nulls
+    and zeros (the brute sweep) in a scene without them."""
+    if tb.n_seg < 1:
+        return [None] * 3 + [0] + [None] * 2 + [0, 0.0, 0.0]
+    for t, dtype, shape in ((tb.seg_order, torch.int16, (tb.n_sphere,)),
+                            (tb.seg_start, torch.int32, (tb.n_seg + 1,)),
+                            (tb.seg_box, torch.float32, (6, tb.n_seg)),
+                            (tb.grp_start, torch.int32, (tb.n_grp + 1,)),
+                            (tb.grp_box, torch.float32, (6, tb.n_grp))):
+        if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"segment tables must be contiguous {dtype} {shape} "
+                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+    return [tb.seg_order.data_ptr(), tb.seg_start.data_ptr(), tb.seg_box.data_ptr(),
+            tb.n_seg, tb.grp_start.data_ptr(), tb.grp_box.data_ptr(), tb.n_grp,
+            tb.seg_c, tb.seg_inv_r]
+
+
 def _wavefront_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
                         hdri=None, fmad: bool = False):
     """Launch the kernel on PyTorch's current stream.  Does not
@@ -1687,11 +1773,12 @@ def _wavefront_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
     flags = torch.empty((r,), dtype=torch.int32, device=dev)
     if r == 0:
         return out, flags
+    seg = _segment_args(tb, dev)
     fn = _kernel("wavefront", "wavefront_fwd_launch", _FWD_ARGTYPES, fmad)
     with torch.cuda.device(dev):
         err = fn(
             *_table_and_ray_args(tb, o, d, tm, stream),
-            None if hdri is None else hdri.data_ptr(),
+            None if hdri is None else hdri.data_ptr(), *seg,
             out.data_ptr(), flags.data_ptr(),
             r, int(seed) & 0xFFFFFFFF, int(max_depth),
             torch.cuda.current_stream(dev).cuda_stream,
@@ -1717,22 +1804,12 @@ def _wavefront_record_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
     idx = torch.empty((max_depth, r), dtype=torch.int32, device=dev)
     if r == 0:
         return out, flags, code, idx
-    seg = [None, None, None]
-    if tb.n_seg > 0:
-        for t, dtype, shape in ((tb.seg_order, torch.int32, (tb.n_sphere,)),
-                                (tb.seg_start, torch.int32, (tb.n_seg + 1,)),
-                                (tb.seg_box, torch.float32, (6, tb.n_seg))):
-            if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape \
-                    or not t.is_contiguous():
-                raise ValueError(f"segment tables must be contiguous {dtype} {shape} "
-                                 f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-        seg = [tb.seg_order.data_ptr(), tb.seg_start.data_ptr(), tb.seg_box.data_ptr()]
+    seg = _segment_args(tb, dev)
     fn = _kernel("wavefront", "wavefront_record_launch", _RECORD_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(
             *_table_and_ray_args(tb, o, d, tm, stream),
-            None if hdri is None else hdri.data_ptr(), *seg, tb.n_seg, tb.seg_c,
-            tb.seg_inv_r,
+            None if hdri is None else hdri.data_ptr(), *seg,
             out.data_ptr(), flags.data_ptr(), code.data_ptr(), idx.data_ptr(),
             r, int(seed) & 0xFFFFFFFF, int(max_depth),
             torch.cuda.current_stream(dev).cuda_stream,
@@ -1777,13 +1854,14 @@ def _wavefront_resume_cuda(tb: Tables, flat, seed, b_start, b_end, hdri=None):
     res = tuple(out[0:9]) + (flags,) + tuple(out[9:18])
     if r == 0:
         return res
+    seg = _segment_args(tb, dev)
     fn = _kernel("wavefront", "wavefront_resume_launch", _RESUME_ARGTYPES)
     ins = (ctypes.c_void_p * RESUME_IN_ROWS)(*[a.data_ptr() for a in flat])
     outs = (ctypes.c_void_p * RESUME_OUT_ROWS)(*[a.data_ptr() for a in res])
     with torch.cuda.device(dev):
         err = fn(tb.pt.data_ptr(), tb.st.data_ptr(), tb.vt.data_ptr(),
                  tb.lt.data_ptr(), tb.n_planar, tb.n_sphere, tb.n_vol, tb.n_lights,
-                 ins, outs, None if hdri is None else hdri.data_ptr(), r,
+                 ins, outs, None if hdri is None else hdri.data_ptr(), *seg, r,
                  int(seed) & 0xFFFFFFFF, int(b_start), int(b_end),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -2039,9 +2117,14 @@ def pathwise_occupancy(marble: bool, smem_bytes: int = 0):
     return _occupancy("wavefront", "wavefront_pathwise_occupancy", marble, smem_bytes)
 
 
-def record_occupancy(smem_bytes: int):
-    """The same for the record kernel."""
-    return _occupancy("wavefront", "wavefront_record_occupancy", smem_bytes)
+TRACING_KERNELS = {"fwd": 0, "record": 3, "resume": 7}   # wavefront_tracing_occupancy
+
+
+def tracing_occupancy(kernel: str, culled: bool, smem_bytes: int):
+    """The same for ``kernel`` "fwd" (B1), "record" (B6) or "resume" (B11):
+    ``culled`` its instantiation for tables with segments."""
+    return _occupancy("wavefront", "wavefront_tracing_occupancy", TRACING_KERNELS[kernel],
+                      culled, smem_bytes)
 
 
 def pathwise_rev_occupancy(marble: bool, smem_bytes: int):

@@ -27,9 +27,9 @@ from test_torch_helpers import (CULL_CASES, ENV_NEE_CAM, FOG_ROOM_CAM, LUCY_CAM,
                                 MARBLE_CAM, MINI_HDRI_CAM, MIXED_CAM, NOISE_GLOSSY_CAM,
                                 build_env_nee, build_fog_room, build_lucy,
                                 build_marble, build_mini_hdri, build_mixed,
-                                build_noise_glossy, build_random_prims, cull_case,
-                                lucy_instances, marble_lane_stash, mesh_rays, mini_env,
-                                random_rays)
+                                build_noise_glossy, build_random_prims, build_sphere_cloud,
+                                cull_case, lucy_instances, marble_lane_stash, mesh_rays,
+                                mini_env, random_rays)
 
 
 def _rays(cam, n, seed, device):
@@ -104,6 +104,12 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take():
         cw._wavefront_fwd_cuda(tb, o, d, tm, ids, 0, 3)  # int64 stream
     with pytest.raises(ValueError):
         cw._wavefront_fwd_cuda(tb, o, d, tm[::2], cw.stream_to_i32(ids), 0, 3)
+    # the culled sweep's tables: on the rays' device, of their own shapes
+    cloud = cw.build_tables(build_sphere_cloud(grtt, device="cuda"))
+    for bad in (cloud._replace(grp_box=cloud.grp_box.cpu()),
+                cloud._replace(grp_start=cloud.grp_start[:-1].contiguous())):
+        with pytest.raises(ValueError):
+            cw._wavefront_fwd_cuda(bad, o, d, tm, cw.stream_to_i32(ids), 0, 3)
 
 
 def _grad_scene(name):
@@ -786,15 +792,19 @@ def test_cuda_record_kernel_matches_plain_version(scene_name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", CULL_CASES)
-def test_cuda_record_kernel_culled_sweep_matches_plain_version(name):
-    """B6's segment-culled sphere sweep (64 spheres and more; 63: the brute
-    sweep) against its plain version, whose sweep is the brute one in table
-    order: code and index bytes, radiance and flags the same bits, and the
-    radiance the forward kernel's, on rays aimed at the segment boxes'
-    corners and edges and along the axes, with duplicated spheres swept in
-    either order, moving spheres, a ground sphere and shadow rays; at the
-    set's ray count and at 1, 31 and 33 rays."""
+@pytest.mark.parametrize("name, kernel", [
+    pytest.param(name, kernel, id=name if kernel == "record" else f"{name}-{kernel}")
+    for kernel in ("record", "fwd", "resume") for name in CULL_CASES])
+def test_cuda_record_kernel_culled_sweep_matches_plain_version(name, kernel):
+    """The culled sphere sweep (64 spheres and more; 63: the brute sweep) of
+    B6 (``record``), B1 (``fwd``) and B11 (``resume``: bounces [0, 2), then
+    [2, 3) of the state it left) against their plain versions, whose sweep
+    is the brute one in table order: every output the same bits (B6's code
+    and index bytes, radiance and flags the forward kernel's), on rays aimed
+    at the segment and group boxes' corners and edges and along the axes,
+    with duplicated spheres swept in either order, moving spheres, a ground
+    sphere and shadow rays; at the set's ray count and at 1, 31 and 33
+    rays."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
     _, tb, o, d, tm, ids = cull_case(grtt, cw, name, "cuda")
@@ -803,6 +813,25 @@ def test_cuda_record_kernel_culled_sweep_matches_plain_version(name):
     for n in (tm.shape[0], 1, 31, 33):
         args = (tb, V3(*(c[:n].contiguous() for c in o)), V3(*(c[:n].contiguous() for c in d)),
                 tm[:n].contiguous(), sid[:n].contiguous(), 5, 3)
+        if kernel == "resume":
+            flat = cw._start_state(*args[1:5])
+            before = cw.LAUNCHES_RESUME
+            k1 = cw.wavefront_resume(tb, flat, 5, 0, 2)
+            state = cw._resumed_state(flat, k1)
+            k2 = cw.wavefront_resume(tb, state, 5, 2, 3)
+            torch.cuda.synchronize()
+            assert cw.LAUNCHES_RESUME == before + 2
+            for k, p in ((k1, cw._wavefront_resume_plain(tb, flat, 5, 0, 2)),
+                         (k2, cw._wavefront_resume_plain(tb, state, 5, 2, 3))):
+                assert all(torch.equal(a, b) for a, b in zip(k, p))
+            continue
+        if kernel == "fwd":
+            before = cw.LAUNCHES
+            k = cw.wavefront_fwd(*args)
+            torch.cuda.synchronize()
+            assert cw.LAUNCHES == before + 1
+            assert all(torch.equal(a, b) for a, b in zip(k, cw._wavefront_fwd_plain(*args)))
+            continue
         before = cw.LAUNCHES_RECORD
         k = cw.wavefront_record(*args)
         torch.cuda.synchronize()

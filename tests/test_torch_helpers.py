@@ -382,12 +382,12 @@ def build_sphere_cloud(pkg, n_spheres=90, seed=0, duplicates=4, ground_sphere=Fa
 
 
 def cull_rays(seg_box, n_random=256, seed=0):
-    """Rays that test the culled sweep's slab test (``seg_box`` [6, n_seg],
-    numpy): from origins over and around the spheres toward random points,
-    toward every finite segment box's 8 corners and the midpoints of its 12
-    edges, and, for a sixth of them, along an axis (direction components
-    exactly 0); times in [0, 1).  Returns float32 numpy (o [n, 3], d [n, 3],
-    tm [n])."""
+    """Rays that test the culled sweep's slab tests (``seg_box`` [6, n]
+    numpy boxes: the segments' and the groups'): from origins over and
+    around the spheres toward random points, toward every finite box's 8
+    corners and the midpoints of its 12 edges, and, for a sixth of them,
+    along an axis (direction components exactly 0); times in [0, 1).
+    Returns float32 numpy (o [n, 3], d [n, 3], tm [n])."""
     r = np.random.default_rng(seed)
     seg_box = seg_box[:, np.isfinite(seg_box).all(axis=0)]   # not the large spheres'
     lo, hi = seg_box[:3].T, seg_box[3:].T
@@ -411,6 +411,14 @@ def cull_rays(seg_box, n_random=256, seed=0):
     return o, d, r.random(n).astype(np.float32)
 
 
+def culled_boxes(seg_box, grp_box):
+    """The culled sweep's segment and group boxes side by side, [6, n_seg
+    + n_grp] numpy, for ``cull_rays``."""
+    import torch
+
+    return torch.cat([seg_box, grp_box], dim=1).cpu().numpy()
+
+
 def reverse_within_segments(order, start):
     """A segment table's sphere order with each segment's spheres reversed:
     the same segments and boxes, another sweep order (ties then meet the
@@ -428,7 +436,7 @@ CULL_CASES = ("random", "cloud", "cloud_reversed", "ground_sphere", "63", "64", 
 def cull_case(pkg, cw, name, device, n_random=256, seed=0):
     """One set of the culled sphere sweep's checks, on ``device``: (scene,
     tables, o, d, tm, stream ids), rays from ``cull_rays`` aimed at the
-    scene's segment boxes.  ``random``: the ``random`` scene at grid (-5, 5,
+    scene's segment and group boxes.  ``random``: the ``random`` scene at grid (-5, 5,
     -5, 5) (92 spheres); ``cloud``: ``build_sphere_cloud`` (duplicates,
     moving spheres, a quad light: shadow sweeps); ``cloud_reversed``: the
     same with each segment swept in reversed order (ties meet the higher
@@ -447,8 +455,9 @@ def cull_case(pkg, cw, name, device, n_random=256, seed=0):
     tb = cw.build_tables(scene)
     if name == "cloud_reversed":
         tb = tb._replace(seg_order=reverse_within_segments(tb.seg_order, tb.seg_start))
-    box = cw.sphere_segments(scene.spheres)[2].cpu().numpy()
-    o, d, tm = cull_rays(box, n_random=n_random, seed=seed)
+    segs = cw.sphere_segments(scene.spheres)
+    o, d, tm = cull_rays(culled_boxes(segs["seg_box"], segs["grp_box"]),
+                         n_random=n_random, seed=seed)
     o, d, tm = (torch.from_numpy(a).to(device) for a in (o, d, tm))
     return (scene, tb, V3(*o.T.contiguous()), V3(*d.T.contiguous()), tm,
             torch.arange(tm.shape[0], device=device))
