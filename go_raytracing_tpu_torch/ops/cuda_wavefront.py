@@ -138,10 +138,10 @@ SPH_CULL_MIN = 64
 # boxes (a ray tests a group's segment boxes only when it reaches the
 # group's box; 4 and 8 measured fastest of 4 / 6 / 8 and 4 / 8 / 16 on
 # ``random`` in B1, B6 and B11, PERF.md; the JAX kernel's 16, one level, was
-# chosen on the TPU); a sphere whose radius exceeds SEG_LARGE
-# times the median takes a segment of its own under an infinite box, swept
-# by every ray (a ground sphere would widen its neighbours' boxes to the
-# whole scene), those segments a group of their own; and SEG_PAD, the
+# chosen on the TPU); a sphere whose radius exceeds SEG_LARGE times the
+# median takes a segment of its own under an infinite box, swept by every
+# ray (a ground sphere would widen its neighbours' boxes to the whole
+# scene), those segments a group of their own; and SEG_PAD, the
 # padding a ray gives the other boxes: a grazing ray's computed root can put
 # its hit point outside the exact sphere by about 4 ulp |o - c|^2 / r (h^2 -
 # a c cancels), and the slab test rounds by a few ulp of |o| + |box|, so a
@@ -468,8 +468,8 @@ def sphere_segments(spheres):
 def build_tables(scene) -> Tables:
     """Scene -> (PT, ST, VT, LT) tables + counts, on the scene's device,
     and in a scene of SPH_CULL_MIN spheres and more the culled sweep's
-    segments and groups (``sphere_segments``).  Spheres keep the order they were built
-    in."""
+    segments and groups (``sphere_segments``).  Spheres keep the order they
+    were built in."""
     dev = scene.device
     p = scene.planar
     n_planar = int(p.d.shape[0])
