@@ -2065,7 +2065,6 @@ def forward_random_timing(scene, cam, launches, regs):
     registers, spills and resident warps.  ``launches``: B1's launches in
     the render of that job.  Returns the fields for B1's entry of the
     ``kernels`` line."""
-    dev = scene.device
     tb = cw.build_tables(scene)
     rays = render_chunk(scene, cam)
     n, depth = rays[2].shape[0], cam.max_depth
@@ -3048,7 +3047,6 @@ def resume_kernel_timing(name, scene, cam, launches, small, regs):
     operations (``sweep_flops``) beside the brute sweep's.  ``regs``: B11's
     (registers, spill bytes).  Returns B11's entry of the ``kernels``
     line."""
-    dev = scene.device
     depth, k_at = cam.max_depth, cw.SPLIT_AT
     tb = cw.build_tables(scene)
     o, d, tm, sid = render_chunk(scene, cam)
