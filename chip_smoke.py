@@ -34,11 +34,12 @@ through ``render_image`` with a crop held against the plain versions on the
 CPU (``mesh_main_path``, ``mesh_stream``), the same at the scene's default
 3,744 triangles (``mesh_small_path``, ``mesh_sweep``), autograd through a
 mesh scene (``mesh_autograd``) and the two kernels alone
-(``mesh_kernel_timing``; ``mesh_stream`` also in its any-hit instantiation
-on the same chunk and on the rays that leave the chunk's first hits, as a
-render's launches are), then the card's speed (``card_yardstick``: three
-kernels beside their times in PERF.md, so that a slow card does not read as
-a redesign's loss).  Then the replay tier of ``render_grad``: the
+(``mesh_kernel_timing``; each also in its any-hit instantiation on the same
+chunk and on the rays that leave the chunk's first hits, as a render's
+launches are, ``mesh_sweep`` on each of its four sets held to its plain
+version on every ray), then the card's speed (``card_yardstick``: three
+kernels that keep their design, B1, B2 and B7a, beside their times in
+PERF.md, so that a slow card does not read as a redesign's loss).  Then the replay tier of ``render_grad``: the
 record kernel against the forward kernel, its plain version and the
 standard integrator's record (``record_kernel_vs_plain``, early; the
 culled sphere sweep of B6, B1 and B11 against their plain versions on the
@@ -109,7 +110,10 @@ package's own test of its gradient kernel.
 
 The pathwise gradient forward is held to the same per-ray gate (19 + 3 stash
 rows, 20 + 3 with marble, whose rows and mask words must equal the plain
-version's bits) and its radiance must be the forward kernel's bit for bit.  The
+version's bits) and its radiance must be the forward kernel's bit for bit;
+without marble (B5a <2>, tiles of 128 rays a bounce at a time) every output
+and stash row must equal the plain version's bits, on the 16,384-ray sets and
+on ``cornell-glossy``'s full chunk.  The
 pathwise reverse kernel is held against its plain version on the kernel's
 own stash: each key of the gradients dict (three colour tables, fuzz, ior)
 within 1e-4 of the key's largest entry; and two launches on one stash must
@@ -245,19 +249,20 @@ FLOPS_MOLLER_TRUMBORE, FLOPS_BW_PLANE, FLOPS_BW_UV = 55, 17, 24
 # A live ray reads o, d and t_max, a dead one t_max alone; each writes t,
 # tri, inst and hit.
 MESH_RAYS_IN, MESH_DEAD_IN, MESH_BYTES_OUT = 7 * 4, 4, 4 + 4 + 4 + 1
-# Times of three kernels recorded in PERF.md section 6 on an NVIDIA H100 80GB
-# HBM3 at 700 W (B1 and B7a at a Cornell chunk, B9 at cornell-lucy's (48, 40)
-# chunk): a run that reads them slower is on a slower card.
-CARD_YARDSTICK = {"wavefront_fwd": 2.718, "mesh_sweep": 0.9187, "planar_closest": 0.2383}
+# Times of three kernels that keep their design, recorded in PERF.md section 6
+# on an NVIDIA H100 80GB HBM3 at 700 W (B1, B2 and B7a at a Cornell chunk): a
+# run that reads them slower is on a slower card.
+CARD_YARDSTICK = {"wavefront_fwd": 2.718, "wavefront_grad_fwd": 3.057,
+                  "planar_closest": 0.2383}
 # Registers and spill bytes (ptxas) of the kernels that share device code
-# with the redesigned B1, B4, B5a <4>, B5b <20>, B6 and B11 but keep their
-# own design: B2, B5a <2>, B5b without marble, and the brute (not culled)
-# instantiations of B1 and B11 (scenes under SPH_CULL_MIN spheres), as
-# recorded in PERF.md section 6.  A build that changes them changed code it
-# must not change (and the card yardstick, whose first kernel is B1).
+# with the redesigned B1, B4, B5a, B5b <20>, B6 and B11 but keep their own
+# design: B2, B5b without marble, and the brute (not culled) instantiations
+# of B1 and B11 (scenes under SPH_CULL_MIN spheres), as recorded in PERF.md
+# section 6.  A build that changes them changed code it must not change (and
+# the card yardstick, whose first two kernels are B1 and B2).
 UNCHANGED_KERNELS = {
     "wavefront_kernelILi0ELb0E": (96, 0), "wavefront_kernelILi1ELb0E": (114, 0),
-    "wavefront_kernelILi2ELb0E": (120, 0), "wavefront_resume_kernelILb0E": (96, 84),
+    "wavefront_resume_kernelILb0E": (96, 84),
     "wavefront_grad_rev_pathwise_kernelILi19E": (110, 0)}
 
 
@@ -683,6 +688,8 @@ def compare_pathwise(scene, cam, seed, name):
     torch.cuda.synchronize()
     p = cw._wavefront_grad_fwd_plain(*args, pathwise=True)
     mismatch, fwd_err = grad_fwd_mismatch(k, p)
+    # B5a without marble (path regeneration): every output the plain version's bits
+    bit_equal = all(torch.equal(a, b) for a, b in zip(k, p))
     same_as_fwd = torch.equal(k[0], cw.wavefront_fwd(*args[:-1])[0])
 
     gen = torch.Generator(device=scene.device).manual_seed(seed)
@@ -715,7 +722,7 @@ def compare_pathwise(scene, cam, seed, name):
         border = float(on_border.sum() / vol_rows.sum())
     emit("pathwise_kernels_vs_plain", scene=name, rays=n, depth=cam.max_depth,
          textures=n_tex, materials=n_mat, fwd_mismatch_share=mismatch,
-         fwd_max_abs_err_agreeing_rays=fwd_err,
+         fwd_max_abs_err_agreeing_rays=fwd_err, fwd_bit_equal_plain=bit_equal,
          radiance_equals_forward_kernel=same_as_fwd,
          rev_max_abs_err=rev_err, rev_err_of_largest=rev_rel,
          rev_two_launches_same_bits=same_bits,
@@ -729,6 +736,8 @@ def compare_pathwise(scene, cam, seed, name):
         raise RuntimeError(f"{name}: pathwise forward output is not finite")
     if mismatch >= MAX_MISMATCH_SHARE:
         raise RuntimeError(f"{name}: {mismatch:.4%} of rays' stash rows disagree")
+    if not bit_equal and not scene.has_noise:
+        raise RuntimeError(f"{name}: B5a's outputs are not the plain version's bits")
     if not same_as_fwd:
         raise RuntimeError(f"{name}: pathwise forward's radiance is not the forward's")
     if not rev_rel <= REV_RTOL_OF_LARGEST:
@@ -854,10 +863,14 @@ def pathwise_kernel_timing(scene, cam, launches, small_checks):
     plain_fwd_ms, p = cuda_ms(
         lambda: cw._wavefront_grad_fwd_plain(*args, pathwise=True))
     mismatch, fwd_err = grad_fwd_mismatch(k, p)
+    bit_equal = all(torch.equal(a, b) for a, b in zip(k, p))
     del p
     if mismatch >= MAX_MISMATCH_SHARE:
         raise RuntimeError(f"full-size chunk: {mismatch:.4%} of rays' pathwise "
                            "stash rows disagree")
+    if not bit_equal:
+        raise RuntimeError("full-size chunk: B5a's outputs (radiance, flags, miss colour, "
+                           "stash rows) are not the plain version's bits")
     same_as_fwd = torch.equal(k[0], cw.wavefront_fwd(*args[:-1])[0])
     if not same_as_fwd:
         raise RuntimeError("full-size chunk: pathwise forward's radiance is not "
@@ -904,6 +917,7 @@ def pathwise_kernel_timing(scene, cam, launches, small_checks):
     emit("pathwise_kernel_timing", scene="cornell-glossy", rays_per_launch=n,
          depth=depth, rows_entered_by_bounce=entered,
          entered_share=sum(entered) / (n * depth),
+         grad_fwd_bit_equal_plain_full_chunk=bit_equal,
          grad_fwd_ms=fwd_ms, grad_fwd_ms_rounds=fwd_rounds,
          grad_fwd_plain_ms=plain_fwd_ms,
          grad_fwd_bytes_counted=fwd_bytes, grad_fwd_bound_bytes_ms=fwd_bound[0],
@@ -1688,10 +1702,12 @@ def sorted_like_the_integrator(proto, o, d, t_max=None):
 
 def mesh_timing_case(kind, proto, o, d, t_max, any_hit):
     """One mesh kernel alone on one set of rays (as the integrator hands them
-    over): its time, and its plain version's on 16,384 of the rays with the
-    (ray, instance) pairs, box and triangle tests they need, scaled to the
-    set, and the bound those make.  Returns (fields, mismatch on the
-    sample)."""
+    over): its time, and its plain version's on 16,384 of the rays (512 runs
+    of 32, a warp's rays, spread over the set) with the (ray, instance)
+    pairs, box and triangle tests they need, scaled to the set, and the
+    bound those make; the sweep's outputs also against the plain version's
+    on the whole set, to equality (t, tri, inst and hit, any hit too).
+    Returns (fields, mismatch on the sample)."""
     fn = cm.intersect_mesh_kernel if kind == "sweep" else cm.intersect_mesh_stream
     dev = t_max.device
     n = t_max.shape[0]
@@ -1699,8 +1715,16 @@ def mesh_timing_case(kind, proto, o, d, t_max, any_hit):
     rounds, k = rounds_ms(lambda: fn(proto, o, d, cw.EPS_HIT, t_max, any_hit=any_hit),
                           rounds=3, repeats=3)
     ms = median(rounds)
-    gen = torch.Generator(device=dev).manual_seed(21)
-    pick = torch.randint(0, n, (16384,), device=dev, generator=gen)
+    whole = {}
+    if kind == "sweep":
+        p = cm.plain(kind, proto, o, d, cw.EPS_HIT, t_max, any_hit=any_hit)
+        whole = {"whole_set_equal": all(bool(torch.equal(a, b)) for a, b in zip(k[:4], p[:4]))}
+        del p
+        if not whole["whole_set_equal"]:
+            raise RuntimeError(f"sweep: the kernel's outputs on {n} rays (any hit "
+                               f"{any_hit}) are not the plain version's")
+    runs = torch.linspace(0, n // 32 - 1, 512, device=dev).long()
+    pick = (runs[:, None] * 32 + torch.arange(32, device=dev)).reshape(-1)
     so, sd = V3(*(c[pick] for c in o)), V3(*(c[pick] for c in d))
     counts = {}
     plain_ms, p = cuda_ms(lambda: cm.plain(kind, proto, so, sd, cw.EPS_HIT, t_max[pick],
@@ -1731,6 +1755,11 @@ def mesh_timing_case(kind, proto, o, d, t_max, any_hit):
         box_tests_per_ray=counts.get("box_tests", 0) / 16384,
         tri_tests_per_ray=counts.get("tri_tests", 0) / 16384,
         tri_t_pass_per_ray=counts.get("tri_t_pass", 0) / 16384,
+        **({"sweep_pairs_per_ray": counts.get("sweep_pairs", 0) / 16384,
+            "sweep_rounds_per_warp": counts.get("sweep_rounds", 0) / 512,
+            "sweep_warp_tiles_per_warp": counts.get("sweep_warp_tiles", 0) / 512,
+            "sweep_walk_tiles_per_warp": counts.get("sweep_walk_tiles", 0) / 512}
+           if kind == "sweep" else {}), **whole,
         bytes_counted=moved, table_bytes=table_bytes, flops_counted=flops,
         bound_bytes_ms=bound[0], bound_ops_ms=bound[1], bound_ms=max(bound),
         roofline_share=max(bound) / ms, sample_mismatch=mm), mm
@@ -1739,11 +1768,11 @@ def mesh_timing_case(kind, proto, o, d, t_max, any_hit):
 def mesh_kernel_timing(cases, checks, regs):
     """Each mesh kernel alone at its main path's first-bounce chunk (camera
     rays, sorted and filtered as the integrator does), beside its bound, and
-    its plain version's time on 16,384 of those rays; ``mesh_stream`` also
-    in its any-hit instantiation on the same rays and, closest hit, on the
-    rays that leave the chunk's first hits (sorted as the integrator sorts
-    them): a render's launches are closest-hit and shadow calls over five
-    bounces.  ``cases``: kernel -> (scene, cam, launches per render,
+    its plain version's time on 16,384 of those rays; also in its any-hit
+    instantiation on the same rays and, closest hit (the sweep: and any
+    hit), on the rays that leave the chunk's first hits (sorted as the
+    integrator sorts them): a render's launches are closest-hit and shadow
+    calls over five bounces.  ``cases``: kernel -> (scene, cam, launches per render,
     renders' chunks); ``regs``: kernel -> registers, spills, resident warps.
     Returns the kernels' entries of the ``kernels`` line."""
     entries = []
@@ -1753,21 +1782,21 @@ def mesh_kernel_timing(cases, checks, regs):
         o_dev = scene.device
         _, o, d, _, _ = lucy_chunk(scene, cam, o_dev)
         o, d, t_max, reach = sorted_like_the_integrator(proto, o, d)
-        shapes = {"camera": (o, d, t_max, False)}
-        if kind == "stream":
-            shapes["camera_any_hit"] = (o, d, t_max, True)
-            _, _, nxt = first_bounce(scene, cam, o_dev)
-            bo, bd, bt, b_reach = sorted_like_the_integrator(
-                proto, nxt.o, nxt.d, torch.where(nxt.alive, ck.BIG, -1.0))
-            shapes["bounce_1"] = (bo, bd, bt, False)
-            del nxt
+        shapes = {"camera": (o, d, t_max, False), "camera_any_hit": (o, d, t_max, True)}
+        _, _, nxt = first_bounce(scene, cam, o_dev)
+        bo, bd, bt, b_reach = sorted_like_the_integrator(
+            proto, nxt.o, nxt.d, torch.where(nxt.alive, ck.BIG, -1.0))
+        shapes["bounce_1"] = (bo, bd, bt, False)
+        if kind == "sweep":
+            shapes["bounce_1_any_hit"] = (bo, bd, bt, True)
+        del nxt
         timed = {}
         for shape, (o_, d_, t_, any_hit) in shapes.items():
             fields, mm = mesh_timing_case(kind, proto, o_, d_, t_, any_hit)
             timed[shape] = (fields, mm)
             emit("mesh_kernel_timing", kernel=kernel, rays=shape,
                  triangles=proto.n_tris, instances=proto.n_instances,
-                 reach_share=reach if shape != "bounce_1" else b_reach,
+                 reach_share=b_reach if shape.startswith("bounce_1") else reach,
                  launches_per_render=launches, render_chunks=chunks,
                  counted="(ray, instance) pairs, box and triangle tests of the plain "
                          "version on 16,384 of the rays, scaled to the set: x 42 a "
@@ -1826,6 +1855,9 @@ def mesh_phases(dev, regs):
     sweep_launches, sweep_chunks, small_scene, small_cam = mesh_main_path(
         "mesh_small_path", (48, 40), "mesh_sweep", dev)
     mesh_autograd(dev)
+    blocks, threads, smem = cm.sweep_occupancy(small_scene.meshes[0])
+    regs["mesh_sweep"] = regs["mesh_sweep"] | {
+        "resident_warps_per_sm": blocks * threads // 32, "shared_bytes_per_block": smem}
     return mesh_kernel_timing(
         {"mesh_sweep": (small_scene, small_cam, sweep_launches, sweep_chunks),
          "mesh_stream": (main_scene, main_cam, stream_launches, stream_chunks)},
@@ -4216,7 +4248,9 @@ def main():
     # ---- instanced meshes: cornell-lucy through mesh_sweep and mesh_stream ------
     mesh_entries = mesh_phases(dev, {
         "mesh_sweep": {"registers": mesh_stats["mesh_sweep"][0],
-                       "spill_bytes": mesh_stats["mesh_sweep"][1]},
+                       "spill_bytes": mesh_stats["mesh_sweep"][1],
+                       "any_hit_registers": mesh_stats["mesh_sweep_any_hit"][0],
+                       "any_hit_spill_bytes": mesh_stats["mesh_sweep_any_hit"][1]},
         "mesh_stream": {"registers": mesh_stats["mesh_stream"][0],
                         "spill_bytes": mesh_stats["mesh_stream"][1],
                         "any_hit_registers": mesh_stats["mesh_stream_any_hit"][0],
@@ -4224,10 +4258,11 @@ def main():
                         "resident_warps_per_sm": stream_warps[False]}})
     # the card's speed: three kernels beside the times PERF.md section 6
     # gives them
-    mesh_by_name = {e["name"]: e for e in mesh_entries}
+    grad_by_name = {e["name"]: e for e in grad_entries}
     yard = {name: (ms, ref) for name, ms, ref in (
         ("wavefront_fwd", median(fwd_rounds), CARD_YARDSTICK["wavefront_fwd"]),
-        ("mesh_sweep", mesh_by_name["mesh_sweep"]["ms"], CARD_YARDSTICK["mesh_sweep"]),
+        ("wavefront_grad_fwd", grad_by_name["wavefront_grad_fwd"]["ms"],
+         CARD_YARDSTICK["wavefront_grad_fwd"]),
         ("planar_closest", by_name["planar_closest"]["ms"],
          CARD_YARDSTICK["planar_closest"]))}
     emit("card_yardstick", note="ms of three kernels at the shapes of PERF.md "

@@ -3,15 +3,15 @@
 // class of the prototype (geometry/mesh_bvh.py builds the tables of one),
 // each with a closest-hit and an any-hit instantiation:
 //
-//   mesh_sweep   prototypes of at most 16,384 triangles, one thread a ray.
-//       Replaces _kernel / intersect_mesh_kernel of the JAX package's
-//       go_raytracing_tpu/ops/pallas_mesh.py (its pallas_call in _call).
-//       Per instance: the local ray, then a slab-test ladder of root, coarse
-//       (2,048 triangles), tile (128), subtile (32) and leaf (8) boxes in
-//       leaf order, each clipped by the running best (far > near), and
-//       Moller-Trumbore (|a| < 1e-8 parallel) on the 8 triangles of each leaf
-//       entered, accepting t_min <= t < t_best.  The first triangle and the
-//       earlier instance win a tie.
+//   mesh_sweep   prototypes of at most 16,384 triangles, one warp a run of
+//       32 rays.  Replaces _kernel / intersect_mesh_kernel of the JAX
+//       package's go_raytracing_tpu/ops/pallas_mesh.py (its pallas_call in
+//       _call).  Per instance: the local ray, then a slab-test ladder of
+//       root, coarse (2,048 triangles), tile (128), subtile (32) and leaf (8)
+//       boxes in leaf order, each clipped by the running best (far > near),
+//       and Moller-Trumbore (|a| < 1e-8 parallel) on the 8 triangles of each
+//       leaf entered, accepting t_min <= t < t_best.  The first triangle and
+//       the earlier instance win a tie.
 //   mesh_stream  larger prototypes, one warp a run of 32 rays.  Replaces
 //       _kernel / intersect_mesh_stream of
 //       go_raytracing_tpu/ops/pallas_mesh_stream.py (its pallas_call in
@@ -49,8 +49,16 @@
 //     has already ruled out;
 //   * mesh_sweep stages the whole box hierarchy of the prototype (at most
 //     8 coarse, 128 tile, 512 subtile and 2,048 leaf boxes, 64.7 KB) into
-//     shared memory once per block, and each block then walks a grid-stride
-//     run of rays; triangles are read through the read-only cache;
+//     shared memory once per block, and each warp then walks a grid-stride
+//     run of 32-ray runs; triangles are read through the read-only cache.
+//     Each lane runs its own ray's ladder down to the tiles, in order; below
+//     a tile some lane entered, the warp turns the roles round where its
+//     rays' leaves differ: it tests the (ray, leaf) pairs four at a time,
+//     8 lanes a pair and one triangle a lane, and each ray then takes its
+//     pairs' results in leaf order, so the winner is the one-ray ladder's
+//     bit for bit (sweep_tile); where the warp's rays share their leaves
+//     (coherent camera rays) each lane walks their union for its own ray;
+//     built for four blocks an SM (80 registers, no spill);
 //   * mesh_stream is warp-cooperative.  Each lane tests its own ray's root
 //     box and segment gates (every gate of an instance in one unrolled loop,
 //     no vote between them).  The warp then walks, in table order, the union
@@ -202,99 +210,281 @@ struct SweepMesh {
     int n_tris;             // boxes past it hold padding alone
 };
 
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int SUB = TILE / TILE_SUBS;            // triangles per subtile
+constexpr int TILE_LEAVES = TILE / LEAF;          // 16 leaves a tile
+constexpr int SWEEP_WARPS = THREADS / 32;        // warps a block
+// A warp's scratch in shared memory: each lane's subtile and leaf nears of
+// the tile swept (+inf where the box is missed whatever the running best),
+// and the tile's (ray, leaf) pairs, (lane << 4 | leaf) as 16 bits.
+constexpr int NEAR_FLOATS = TILE_SUBS + TILE_LEAVES;   // 20 a lane
+constexpr int MAX_PAIRS = 32 * TILE_LEAVES;
+constexpr int SWEEP_WARP_FLOATS = 32 * NEAR_FLOATS + MAX_PAIRS / 2;
+// A tile whose (ray, leaf) pairs number at least this many times the
+// leaves any of the warp's rays enters is walked one lane a ray (sweep_tile).
+constexpr int WALK_PER_LANE = 8;
+// Blocks an SM the sweep is built for (its register target).
+constexpr int SWEEP_BLOCKS_PER_SM = 4;
+
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+// The box hierarchy's floats in shared memory (root, coarse, tile, subtile
+// and leaf boxes, 6 floats each).
+__host__ __device__ __forceinline__ int sweep_box_floats(int n_coarse) {
+    const int n_tiles = n_coarse * COARSE;
+    return (1 + n_coarse + n_tiles * (1 + TILE_SUBS + TILE_SUBS * SUB_LEAVES)) * 6;
+}
+
+// Moller-Trumbore of triangle j (|a| < 1e-8 parallel), operation for
+// operation as the TPU kernel and the plain version: does the ray hit it at
+// t_min <= t (t in tc)?
+__device__ __forceinline__ bool moller_trumbore(const float* __restrict__ kt, int t_pad, int j,
+                                                const float o[3], const float d[3],
+                                                float t_min, float& tc) {
+    const float v0x = __ldg(kt + j);
+    const float v0y = __ldg(kt + t_pad + j);
+    const float v0z = __ldg(kt + 2 * t_pad + j);
+    const float e1x = __ldg(kt + 3 * t_pad + j);
+    const float e1y = __ldg(kt + 4 * t_pad + j);
+    const float e1z = __ldg(kt + 5 * t_pad + j);
+    const float e2x = __ldg(kt + 6 * t_pad + j);
+    const float e2y = __ldg(kt + 7 * t_pad + j);
+    const float e2z = __ldg(kt + 8 * t_pad + j);
+    const float hx = d[1] * e2z - d[2] * e2y;
+    const float hy = d[2] * e2x - d[0] * e2z;
+    const float hz = d[0] * e2y - d[1] * e2x;
+    const float a = e1x * hx + e1y * hy + e1z * hz;
+    const bool parallel = fabsf(a) < 1e-8f;
+    const float f = 1.0f / (parallel ? 1.0f : a);
+    const float sx = o[0] - v0x;
+    const float sy = o[1] - v0y;
+    const float sz = o[2] - v0z;
+    const float u = f * (sx * hx + sy * hy + sz * hz);
+    const float qx = sy * e1z - sz * e1y;
+    const float qy = sz * e1x - sx * e1z;
+    const float qz = sx * e1y - sy * e1x;
+    const float v = f * (d[0] * qx + d[1] * qy + d[2] * qz);
+    tc = f * (e2x * qx + e2y * qy + e2z * qz);
+    return !parallel && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f && tc >= t_min;
+}
+
+// One tile of one instance for the lanes whose ray entered it (`in_t`),
+// each lane's running best (tb, tri_best, inst_best) updated exactly as a
+// one-ray ladder (the plain version's) updates it.  The ladder below a tile is a scan
+// in leaf order: a subtile is entered when the running best at its start
+// lies past its near end (and the box is met at all), a leaf of an entered
+// subtile when the running best at its start lies past its own, and a
+// leaf entered moves the best to its least t (the first triangle at that
+// t) if that is below the best.  The slab intervals and the triangle tests
+// do not depend on the running best, only the scan's decisions do, and the
+// best only falls: so
+//   1. each lane finds, from its best at the tile's start, the leaves its
+//      scan could enter (the others it will not) and keeps its subtile and
+//      leaf nears in shared memory;
+//   2. the warp tests those (ray, leaf) pairs with the roles turned round:
+//      four pairs a round, 8 lanes a pair, one triangle a lane, the ray's
+//      local origin and direction shuffled from its lane, and the pair's
+//      least (t, leaf-order index) met in 3 shuffles (any hit: the first
+//      hit of the leaf);
+//   3. each pair's owner takes the pair's result in its scan, pairs coming
+//      in leaf order, so every decision sees the running best the ladder's
+//      does and the winner is its bits.
+// With one lane a ray the lanes of a warp stand in different leaves, each
+// idling through the others' 8-triangle loops; here a tile costs the warp a
+// round for every four leaves its rays enter.
 template <bool ANY>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void sweep_tile(const SweepMesh& M, const float* s_sub,
+                                           const float* s_leaf, int ti, bool in_t,
+                                           const LocalRay& L, float t_min, int ii, int lane,
+                                           float* nears, unsigned short* pairs, float& tb,
+                                           int& tri_best, int& inst_best) {
+    const float* __restrict__ kt = M.ktri;
+    // 1. this lane's leaves that its best at the tile's start lets in
+    unsigned mask = 0;
+    float* mine = nears + lane * NEAR_FLOATS;
+    if (in_t) {
+        for (int kk = 0; kk < TILE_SUBS; ++kk) {
+            const int si = ti * TILE_SUBS + kk;
+            float sn = t_min, sf = inf_f();
+            if (si * SUB < M.n_tris) slab(s_sub + si * 6, s_sub + si * 6 + 3, L, sn, sf);
+            const bool sub_met = si * SUB < M.n_tris && sf > sn;
+            mine[kk] = sub_met ? sn : inf_f();
+            if (!(sub_met && tb > sn)) continue;
+            for (int ll = 0; ll < SUB_LEAVES; ++ll) {
+                const int li = si * SUB_LEAVES + ll;
+                if (li * LEAF >= M.n_tris) break;
+                float ln = t_min, lf = inf_f();
+                slab(s_leaf + li * 6, s_leaf + li * 6 + 3, L, ln, lf);
+                const int l = kk * SUB_LEAVES + ll;
+                mine[TILE_SUBS + l] = lf > ln ? ln : inf_f();
+                if (lf > ln && tb > ln) mask |= 1u << l;
+            }
+        }
+    }
+    const int cnt = __popc(mask);
+    const unsigned any_leaf = __reduce_or_sync(FULL, mask);
+    const int n_pairs_all = __reduce_add_sync(FULL, (unsigned)cnt);
+    if (WALK_PER_LANE * __popc(any_leaf) <= n_pairs_all) {
+        // coherent rays (they share most leaves): each lane walks the union
+        // of the warp's leaves for its own ray, one leaf after another, the
+        // lanes whose ray skips a leaf idling through it; the exact scan as
+        // below
+        int cur = -1;
+        bool in_sub = false;
+        for (unsigned u = any_leaf; u; u &= u - 1) {
+            const int l = __ffs(u) - 1;
+            if (!((mask >> l) & 1u)) continue;
+            if ((l >> 2) != cur) {
+                cur = l >> 2;
+                in_sub = tb > mine[cur];
+            }
+            if (!(in_sub && tb > mine[TILE_SUBS + l])) continue;
+            for (int jj = 0; jj < LEAF; ++jj) {
+                const int j = ti * TILE + l * LEAF + jj;
+                float tc;
+                if (moller_trumbore(kt, M.t_pad, j, L.o, L.d, t_min, tc) && tc < tb) {
+                    tb = ANY ? 0.0f : tc;
+                    tri_best = j;
+                    inst_best = ii;
+                    if (ANY) break;
+                }
+            }
+        }
+        return;
+    }
+    // the pair list: this lane's pairs at the warp's prefix of pair counts
+    int at = cnt;
+#pragma unroll
+    for (int s = 1; s < 32; s <<= 1) {
+        const int up = __shfl_up_sync(FULL, at, s);
+        if (lane >= s) at += up;
+    }
+    const int n_pairs = __shfl_sync(FULL, at, 31);
+    at -= cnt;
+    for (unsigned m = mask; m; m &= m - 1) pairs[at++] = (unsigned short)(lane << 4 | (__ffs(m) - 1));
+    __syncwarp();
+
+    // 2. and 3. four pairs a round
+    const float tb_start = tb;
+    int cur_sub = -1;
+    bool sub_in = false;
+    for (int base = 0; base < n_pairs; base += 4) {
+        const int p = base + (lane >> 3);
+        const int e = p < n_pairs ? pairs[p] : (lane << 4);
+        const int owner = e >> 4;
+        const int j = ti * TILE + (e & 15) * LEAF + (lane & 7);
+        float o[3], d[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            o[c] = __shfl_sync(FULL, L.o[c], owner);
+            d[c] = __shfl_sync(FULL, L.d[c], owner);
+        }
+        float tc;
+        const bool hit = moller_trumbore(kt, M.t_pad, j, o, d, t_min, tc);
+        // the pair's result: its leaf's least t and, at that t, the first
+        // triangle; any hit: the first hit below the owner's best, which
+        // before its first hit is its best at the tile's start
+        const float cap = ANY ? __shfl_sync(FULL, tb_start, owner) : inf_f();
+        const bool ok = p < n_pairs && hit && (!ANY || tc < cap);
+        float rt = ok ? tc : inf_f();
+        int ri = ok ? j : INT_MAX;
+#pragma unroll
+        for (int s = 1; s < 8; s <<= 1) {
+            const float ot = __shfl_xor_sync(FULL, rt, s);
+            const int oi = __shfl_xor_sync(FULL, ri, s);
+            if (ANY ? oi < ri : (ot < rt || (ot == rt && oi < ri))) {
+                rt = ot;
+                ri = oi;
+            }
+        }
+        // each owner takes its pairs of the round in leaf order
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            const int e_q = __shfl_sync(FULL, e, 8 * q);
+            const float t_q = __shfl_sync(FULL, rt, 8 * q);
+            const int i_q = __shfl_sync(FULL, ri, 8 * q);
+            if (base + q < n_pairs && lane == (e_q >> 4)) {
+                const int l = e_q & 15;
+                if ((l >> 2) != cur_sub) {   // the subtile's test, at its start
+                    cur_sub = l >> 2;
+                    sub_in = tb > mine[cur_sub];
+                }
+                if (sub_in && tb > mine[TILE_SUBS + l] && i_q != INT_MAX && t_q < tb) {
+                    tb = ANY ? 0.0f : t_q;
+                    tri_best = i_q;
+                    inst_best = ii;
+                }
+            }
+        }
+    }
+    __syncwarp();   // the pair list is refilled by the next tile
+}
+
+// One warp a run of 32 rays (the integrator sorts them, so a run holds rays
+// that enter the same instance in the same region heading the same way),
+// one lane a ray for the ladder above the tiles: per instance the local ray
+// and the root box, per coarse segment its box, per tile its box, each
+// clipped by the lane's running best, in the ladder's order; each tile that
+// some lane enters is swept by the whole warp (sweep_tile).
+template <bool ANY>
+__global__ void __launch_bounds__(THREADS, SWEEP_BLOCKS_PER_SM)
 mesh_sweep_kernel(SweepMesh M, Rays R, float t_min, Out W) {
     extern __shared__ float boxes[];
     const int n_tiles = M.n_coarse * COARSE;
     const int n_subs = n_tiles * TILE_SUBS;
     const int n_leaves = n_subs * SUB_LEAVES;
-    float* s_coarse = boxes;
+    float* s_root = boxes;
+    float* s_coarse = s_root + 6;
     float* s_tile = s_coarse + M.n_coarse * 6;
     float* s_sub = s_tile + n_tiles * 6;
     float* s_leaf = s_sub + n_subs * 6;
+    if (threadIdx.x < 6) s_root[threadIdx.x] = M.root[threadIdx.x];
     for (int k = threadIdx.x; k < M.n_coarse * 6; k += blockDim.x) s_coarse[k] = M.coarse[k];
     for (int k = threadIdx.x; k < n_tiles * 6; k += blockDim.x) s_tile[k] = M.tile[k];
     for (int k = threadIdx.x; k < n_subs * 6; k += blockDim.x) s_sub[k] = M.sub[k];
     for (int k = threadIdx.x; k < n_leaves * 6; k += blockDim.x) s_leaf[k] = M.leaf[k];
-    float root[6];
-#pragma unroll
-    for (int k = 0; k < 6; ++k) root[k] = __ldg(M.root + k);
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    float* nears = boxes + sweep_box_floats(M.n_coarse) + warp * SWEEP_WARP_FLOATS;
+    unsigned short* pairs = reinterpret_cast<unsigned short*>(nears + 32 * NEAR_FLOATS);
     __syncthreads();
 
-    const float* __restrict__ kt = M.ktri;
-    const long long step = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < R.n;
-         i += step) {
-        float t_best = R.t_max[i];
-        if (t_best >= BIG) t_best = BIG;
-        int tri_best = -1, inst_best = -1;
-        if (!(t_best > t_min)) {   // every test would fail
-            write_out(W, i, BIG, -1, -1, ANY);
-            continue;
+    const long long runs = (R.n + 31) / 32;
+    for (long long run = (long long)blockIdx.x * SWEEP_WARPS + warp; run < runs;
+         run += (long long)gridDim.x * SWEEP_WARPS) {
+        const long long i = run * 32 + lane;
+        const bool live = i < R.n;
+        float tb = live ? R.t_max[i] : -1.0f;
+        if (tb >= BIG) tb = BIG;
+        const bool alive = live && tb > t_min;
+        if (live && !alive) write_out(W, i, BIG, -1, -1, ANY);   // every test would fail
+        if (!__any_sync(FULL, alive)) continue;
+        float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 1.0f};
+        if (alive) {
+            o[0] = R.ox[i]; o[1] = R.oy[i]; o[2] = R.oz[i];
+            d[0] = R.dx[i]; d[1] = R.dy[i]; d[2] = R.dz[i];
         }
-        const float o[3] = {R.ox[i], R.oy[i], R.oz[i]};
-        const float d[3] = {R.dx[i], R.dy[i], R.dz[i]};
-
+        int tri_best = -1, inst_best = -1;
         for (int ii = 0; ii < M.n_inst; ++ii) {
-            if (ANY && tri_best >= 0) break;   // t_best is 0: every test fails
+            // any hit: a lane's best is 0 after its hit, and every test fails
+            const bool open = alive && !(ANY && tri_best >= 0);
+            if (!__any_sync(FULL, open)) break;
             const LocalRay L = local_ray(M.w2l, ii, o, d);
-            if (!enters(root, L, t_min, t_best)) continue;
+            const bool in_root = open && enters(s_root, L, t_min, tb);
+            if (!__any_sync(FULL, in_root)) continue;
             for (int ci = 0; ci < M.n_coarse; ++ci) {
-                if (!enters(s_coarse + ci * 6, L, t_min, t_best)) continue;
+                const bool in_c = in_root && enters(s_coarse + ci * 6, L, t_min, tb);
+                if (!__any_sync(FULL, in_c)) continue;
                 for (int k = 0; k < COARSE; ++k) {
                     const int ti = ci * COARSE + k;
                     if (ti * TILE >= M.n_tris) break;
-                    if (!enters(s_tile + ti * 6, L, t_min, t_best)) continue;
-                    for (int kk = 0; kk < TILE_SUBS; ++kk) {
-                        const int si = ti * TILE_SUBS + kk;
-                        if (si * (TILE / TILE_SUBS) >= M.n_tris) break;
-                        if (!enters(s_sub + si * 6, L, t_min, t_best)) continue;
-                        for (int ll = 0; ll < SUB_LEAVES; ++ll) {
-                            const int li = si * SUB_LEAVES + ll;
-                            if (li * LEAF >= M.n_tris) break;
-                            if (!enters(s_leaf + li * 6, L, t_min, t_best)) continue;
-                            for (int jj = 0; jj < LEAF; ++jj) {
-                                const int j = li * LEAF + jj;
-                                const float v0x = __ldg(kt + j);
-                                const float v0y = __ldg(kt + M.t_pad + j);
-                                const float v0z = __ldg(kt + 2 * M.t_pad + j);
-                                const float e1x = __ldg(kt + 3 * M.t_pad + j);
-                                const float e1y = __ldg(kt + 4 * M.t_pad + j);
-                                const float e1z = __ldg(kt + 5 * M.t_pad + j);
-                                const float e2x = __ldg(kt + 6 * M.t_pad + j);
-                                const float e2y = __ldg(kt + 7 * M.t_pad + j);
-                                const float e2z = __ldg(kt + 8 * M.t_pad + j);
-                                // Moller-Trumbore, operation for operation as
-                                // the TPU kernel and the plain version
-                                const float hx = L.d[1] * e2z - L.d[2] * e2y;
-                                const float hy = L.d[2] * e2x - L.d[0] * e2z;
-                                const float hz = L.d[0] * e2y - L.d[1] * e2x;
-                                const float a = e1x * hx + e1y * hy + e1z * hz;
-                                const bool parallel = fabsf(a) < 1e-8f;
-                                const float f = 1.0f / (parallel ? 1.0f : a);
-                                const float sx = L.o[0] - v0x;
-                                const float sy = L.o[1] - v0y;
-                                const float sz = L.o[2] - v0z;
-                                const float u = f * (sx * hx + sy * hy + sz * hz);
-                                const float qx = sy * e1z - sz * e1y;
-                                const float qy = sz * e1x - sx * e1z;
-                                const float qz = sx * e1y - sy * e1x;
-                                const float v = f * (L.d[0] * qx + L.d[1] * qy + L.d[2] * qz);
-                                const float tc = f * (e2x * qx + e2y * qy + e2z * qz);
-                                if (!parallel && u >= 0.0f && u <= 1.0f && v >= 0.0f &&
-                                    u + v <= 1.0f && tc >= t_min && tc < t_best) {
-                                    t_best = ANY ? 0.0f : tc;
-                                    tri_best = j;
-                                    inst_best = ii;
-                                }
-                            }
-                        }
-                    }
+                    const bool in_t = in_c && enters(s_tile + ti * 6, L, t_min, tb);
+                    if (!__any_sync(FULL, in_t)) continue;
+                    sweep_tile<ANY>(M, s_sub, s_leaf, ti, in_t, L, t_min, ii, lane, nears,
+                                    pairs, tb, tri_best, inst_best);
                 }
             }
         }
-        write_out(W, i, t_best, tri_best, inst_best, ANY);
+        if (alive) write_out(W, i, tb, tri_best, inst_best, ANY);
     }
 }
 
@@ -314,7 +504,6 @@ struct StreamMesh {
     int n_tris;             // slots past it hold padding alone
 };
 
-constexpr unsigned FULL = 0xffffffffu;
 constexpr int STREAM_WARPS = 2;                     // warps a block
 constexpr int STREAM_THREADS = 32 * STREAM_WARPS;
 constexpr int STREAM_MIN_BLOCKS = 8;                // resident blocks an SM
@@ -643,21 +832,28 @@ int grid_size(long long n_rays, unsigned int* blocks_out) {
     return 0;
 }
 
+// Shared memory of a mesh_sweep block: the box hierarchy and each warp's
+// scratch.
+size_t sweep_smem(int n_coarse) {
+    return ((size_t)sweep_box_floats(n_coarse) + (size_t)SWEEP_WARPS * SWEEP_WARP_FLOATS) *
+           sizeof(float);
+}
+
+template <bool ANY>
+int sweep_attributes(size_t smem) {
+    if (smem <= 48 * 1024) return 0;
+    return (int)cudaFuncSetAttribute(mesh_sweep_kernel<ANY>,
+                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 template <bool ANY>
 int launch_sweep(SweepMesh M, Rays R, float t_min, Out W, cudaStream_t stream) {
     unsigned int blocks = 1;
     int err = grid_size(R.n, &blocks);
     if (err != 0) return err;
-    const int n_tiles = M.n_coarse * COARSE;
-    const size_t smem =
-        (size_t)(M.n_coarse + n_tiles * (1 + TILE_SUBS + TILE_SUBS * SUB_LEAVES)) * 6 *
-        sizeof(float);
-    if (smem > 48 * 1024) {
-        err = (int)cudaFuncSetAttribute(mesh_sweep_kernel<ANY>,
-                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                        (int)smem);
-        if (err != 0) return err;
-    }
+    const size_t smem = sweep_smem(M.n_coarse);
+    err = sweep_attributes<ANY>(smem);
+    if (err != 0) return err;
     mesh_sweep_kernel<ANY><<<blocks, THREADS, smem, stream>>>(M, R, t_min, W);
     return (int)cudaGetLastError();
 }
@@ -742,4 +938,22 @@ extern "C" int mesh_stream_occupancy(int any_hit, int* blocks_per_sm, int* threa
                              : (const void*)mesh_stream_kernel<false>;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
                                                               STREAM_THREADS, STREAM_SMEM);
+}
+
+// Blocks of mesh_sweep (closest hit, or any hit) that an SM holds at once
+// for a prototype of n_coarse coarse segments, from its registers and
+// shared memory; and its threads and shared memory a block.  Returns a CUDA
+// error code (0 on success).
+extern "C" int mesh_sweep_occupancy(int any_hit, int n_coarse, int* blocks_per_sm,
+                                    int* threads, int* smem_bytes) {
+    if (n_coarse < 1 || n_coarse > 8) return (int)cudaErrorInvalidValue;
+    const size_t smem = sweep_smem(n_coarse);
+    *threads = THREADS;
+    *smem_bytes = (int)smem;
+    const int err = any_hit ? sweep_attributes<true>(smem) : sweep_attributes<false>(smem);
+    if (err != 0) return err;
+    const void* fn = any_hit ? (const void*)mesh_sweep_kernel<true>
+                             : (const void*)mesh_sweep_kernel<false>;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn,
+                                                              THREADS, smem);
 }

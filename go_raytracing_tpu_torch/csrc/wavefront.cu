@@ -137,8 +137,24 @@
 //     evaluating a point's 56 corners together, added in the marble's own
 //     order, so every stash row keeps its bits;
 //   * four blocks an SM as its register target (16 warps, no spill).
-// B5a without marble (<2>) keeps its first design: no register target
-// measured faster (PERF.md).
+// The pathwise gradient forward without marble (B5a <2>).  What held it
+// back on this card, measured (PERF.md): a third of the launch went to
+// lanes waiting on their warp's longest path (the same rays in order of
+// their path length took 31 % less), a fifth to the stash's stores, 9 % to
+// the planar sweeps' divisions; a register target measured nothing.  A
+// lane that takes the next ray as soon as its path ends measured 2.2 times
+// slower: its stores then go to as many sectors as lanes.  The design,
+// behind `if constexpr` so that the other instantiations compile as before:
+//   * tiles of THREADS rays, a bounce at a time (pathwise_tiles): after each
+//     bounce the block moves the rays still alive to its first slots, in
+//     order, through shared memory, so a warp whose slots hold no live ray
+//     skips the bounce;
+//   * the block's stash rows of a bounce are set in shared memory (inert
+//     rows for every slot, each live ray overwriting its own) and written
+//     whole, THREADS consecutive words a row, as the one-ray-a-thread
+//     loop's coalesced stores were;
+//   * the planar sweeps skip the division of a candidate whose signs
+//     already fail (planar_sweep's GATE).
 //
 // Table layouts (row-major [rows, columns], one column per primitive) are
 // those of ops/cuda_wavefront.build_tables.
@@ -217,12 +233,155 @@ __device__ __forceinline__ Tables stage_tables(const Tables& G, int tables_in_sm
     return S;
 }
 
+// B5a without marble: a block's rows in shared memory, after its tables:
+// one bounce's stash rows of its THREADS slots, and the path state that
+// moves between slots (origin, direction, throughput, radiance, time,
+// stream, allow, slot).
+constexpr int PW_I_ROWS = 3;
+// Blocks an SM B5a <2> is built for (at most 102 registers: 87, no spill;
+// five blocks read within 2 % of no target, PERF.md).
+constexpr int PW_BLOCKS_PER_SM = 5;
+constexpr int PW_STATE_ROWS = 16;
+constexpr size_t PW_BLOCK_BYTES =
+    sizeof(float) * (size_t)(PW_F_ROWS + PW_I_ROWS + PW_STATE_ROWS) * THREADS +
+    sizeof(int) * (THREADS / 32);
+
+// B5a without marble: the rays in tiles of THREADS, a bounce at a time.
+// Each bounce every live ray runs trace_ray over that bounce alone (its
+// draws keyed on the absolute bounce, so the path is the one-ray loop's bit
+// for bit) into the block's rows; a ray whose path is over writes its
+// outputs with the flag rule the one-ray loop applies after it; the rows go
+// out whole; the rays still alive move to the first slots.
+__device__ __forceinline__ void pathwise_tiles(
+    const Tables& S, float* rows, const float* __restrict__ ox, const float* __restrict__ oy,
+    const float* __restrict__ oz, const float* __restrict__ dx, const float* __restrict__ dy,
+    const float* __restrict__ dz, const float* __restrict__ tm,
+    const uint32_t* __restrict__ stream, float* __restrict__ out, int* __restrict__ flags_out,
+    long long n_rays, uint32_t seed, int max_depth, const Stash& Z, const Miss& M,
+    float* __restrict__ miss_col) {
+    float* stage_f = rows;
+    int* stage_i = reinterpret_cast<int*>(stage_f + PW_F_ROWS * THREADS);
+    float* state = reinterpret_cast<float*>(stage_i + PW_I_ROWS * THREADS);
+    int* warp_live = reinterpret_cast<int*>(state + PW_STATE_ROWS * THREADS);
+    const Stash B{stage_f, stage_i, THREADS};   // one bounce's rows of the block
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    for (long long base = (long long)blockIdx.x * THREADS; base < n_rays;
+         base += (long long)gridDim.x * THREADS) {
+        const int len = n_rays - base < THREADS ? (int)(n_rays - base) : THREADS;
+        int live_n = len, slot = t;
+        float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 0.0f};
+        float tp[3] = {1.0f, 1.0f, 1.0f}, rad[3] = {0.0f, 0.0f, 0.0f};
+        float tmv = 0.0f;
+        uint32_t sid = 0;
+        bool allow = true;
+        if (t < len) {
+            const long long i = base + t;
+            o[0] = ox[i];
+            o[1] = oy[i];
+            o[2] = oz[i];
+            d[0] = dx[i];
+            d[1] = dy[i];
+            d[2] = dz[i];
+            tmv = tm[i];
+            sid = stream[i];
+        }
+        for (int b = 0; b < max_depth; ++b) {
+            // inert rows for every slot
+#pragma unroll
+            for (int r = 0; r < PW_F_ROWS; ++r) stage_f[r * THREADS + t] = 0.0f;
+            stage_i[t] = SLOT_NONE;
+            stage_i[THREADS + t] = MSLOT_NONE;
+            stage_i[2 * THREADS + t] = 0;
+            __syncthreads();
+            bool alive = false;
+            if (t < live_n) {
+                float m_dir[3] = {0.0f, 0.0f, 0.0f}, m_tp[3] = {0.0f, 0.0f, 0.0f};
+                int flags = FLAG_ALIVE | (allow ? FLAG_ALLOW : 0);
+                trace_ray<PATHWISE>(S, o, d, tp, tmv, sid, seed, b, b + 1, rad, m_dir, m_tp,
+                                    flags, B, Record{nullptr, nullptr, 0}, slot,
+                                    Hdri{nullptr, n_rays});
+                alive = flags & FLAG_ALIVE;
+                allow = flags & FLAG_ALLOW;
+                if (!alive || b + 1 == max_depth) {
+                    // the path is over: a ray that died before the last
+                    // bounce would have allow set again by the next one
+                    if (!alive && b + 1 < max_depth) flags |= FLAG_ALLOW;
+                    const long long i = base + slot;
+                    float col[3] = {0.0f, 0.0f, 0.0f};
+                    if (flags & FLAG_MISSED) miss_colour(M, m_dir, col);
+#pragma unroll
+                    for (int c = 0; c < 3; ++c) {
+                        out[(0 + c) * n_rays + i] = rad[c];
+                        out[(3 + c) * n_rays + i] = m_dir[c];
+                        out[(6 + c) * n_rays + i] = m_tp[c];
+                        miss_col[c * n_rays + i] = col[c];
+                    }
+                    flags_out[i] = flags;
+                    alive = false;
+                }
+            }
+            __syncthreads();
+            if (t < len) {
+                float* f = Z.f + (size_t)b * PW_F_ROWS * Z.n + base + t;
+                int* q = Z.i + (size_t)b * PW_I_ROWS * Z.n + base + t;
+#pragma unroll
+                for (int r = 0; r < PW_F_ROWS; ++r) f[r * Z.n] = stage_f[r * THREADS + t];
+#pragma unroll
+                for (int r = 0; r < PW_I_ROWS; ++r) q[r * Z.n] = stage_i[r * THREADS + t];
+            }
+            if (b + 1 == max_depth) break;
+            // the rays still alive to the first slots, in order
+            const unsigned live = __ballot_sync(0xFFFFFFFFu, alive);
+            if (lane == 0) warp_live[warp] = __popc(live);
+            __syncthreads();
+            int at = __popc(live & ((1u << lane) - 1u)), total = 0;
+            for (int w = 0; w < THREADS / 32; ++w) {
+                if (w < warp) at += warp_live[w];
+                total += warp_live[w];
+            }
+            if (alive) {
+                float* s = state + at;
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    s[c * THREADS] = o[c];
+                    s[(3 + c) * THREADS] = d[c];
+                    s[(6 + c) * THREADS] = tp[c];
+                    s[(9 + c) * THREADS] = rad[c];
+                }
+                s[12 * THREADS] = tmv;
+                s[13 * THREADS] = __uint_as_float(sid);
+                s[14 * THREADS] = allow ? 1.0f : 0.0f;
+                s[15 * THREADS] = __int_as_float(slot);
+            }
+            __syncthreads();
+            live_n = total;
+            if (t < live_n) {
+                const float* s = state + t;
+#pragma unroll
+                for (int c = 0; c < 3; ++c) {
+                    o[c] = s[c * THREADS];
+                    d[c] = s[(3 + c) * THREADS];
+                    tp[c] = s[(6 + c) * THREADS];
+                    rad[c] = s[(9 + c) * THREADS];
+                }
+                tmv = s[12 * THREADS];
+                sid = __float_as_uint(s[13 * THREADS]);
+                allow = s[14 * THREADS] != 0.0f;
+                slot = __float_as_int(s[15 * THREADS]);
+            }
+        }
+        __syncthreads();   // the rows and the state are refilled by the next tile
+    }
+}
+
 // CULL: the culled instantiation of the forward and the record, launched
 // for tables with segments (launch()); the others sweep every sphere.
 template <int MODE, bool CULL>
-__global__ void __launch_bounds__(THREADS, CULL ? CULL_BLOCKS_PER_SM
-                                           : MODE == PATHWISE_MARBLE ? PW_MARBLE_BLOCKS_PER_SM
-                                                                     : MIN_BLOCKS_UNSET)
+__global__ void __launch_bounds__(THREADS,
+                                  CULL                      ? CULL_BLOCKS_PER_SM
+                                  : MODE == PATHWISE_MARBLE ? PW_MARBLE_BLOCKS_PER_SM
+                                  : MODE == PATHWISE        ? PW_BLOCKS_PER_SM
+                                                            : MIN_BLOCKS_UNSET)
 wavefront_kernel(Tables G, const float* __restrict__ ox,
                  const float* __restrict__ oy, const float* __restrict__ oz,
                  const float* __restrict__ dx, const float* __restrict__ dy,
@@ -238,45 +397,53 @@ wavefront_kernel(Tables G, const float* __restrict__ ox,
     constexpr bool WHOLE_WARPS = MODE == PATHWISE_MARBLE;
     extern __shared__ float smem[];
     const Tables S = stage_tables<CULL>(G, tables_in_smem, smem);
-
-    const long long step = (long long)gridDim.x * blockDim.x;
-    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         (WHOLE_WARPS ? i - (threadIdx.x & 31) : i) < n_rays; i += step) {
-        const bool valid = !WHOLE_WARPS || i < n_rays;
-        float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 0.0f};
-        float tmv = 0.0f;
-        uint32_t sid = 0;
-        if (valid) {
-            o[0] = ox[i];
-            o[1] = oy[i];
-            o[2] = oz[i];
-            d[0] = dx[i];
-            d[1] = dy[i];
-            d[2] = dz[i];
-            tmv = tm[i];
-            sid = stream[i];
-        }
-        float tp[3] = {1.0f, 1.0f, 1.0f};
-        float rad[3] = {0.0f, 0.0f, 0.0f};
-        float m_dir[3] = {0.0f, 0.0f, 0.0f};
-        float m_tp[3] = {0.0f, 0.0f, 0.0f};
-        int flags = valid ? FLAG_ALIVE | FLAG_ALLOW : 0;
-        trace_ray<MODE, CULL>(S, o, d, tp, tmv, sid, seed, 0, max_depth, rad, m_dir, m_tp,
-                        flags, Z, D, i,
-                        Hdri{hdri != nullptr && valid ? hdri + i : nullptr, n_rays});
-        if (!valid) continue;
+    if constexpr (MODE == PATHWISE) {
+        // the block's rows follow its tables (PW_BLOCK_BYTES)
+        const int tables = tables_in_smem ? PT_ROWS * G.pc + ST_ROWS * G.sc + VT_ROWS * G.vc +
+                                                LT_ROWS * G.lc
+                                          : 0;
+        pathwise_tiles(S, smem + tables, ox, oy, oz, dx, dy, dz, tm, stream, out, flags_out,
+                       n_rays, seed, max_depth, Z, M, miss_col);
+    } else {
+        const long long step = (long long)gridDim.x * blockDim.x;
+        for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+             (WHOLE_WARPS ? i - (threadIdx.x & 31) : i) < n_rays; i += step) {
+            const bool valid = !WHOLE_WARPS || i < n_rays;
+            float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 0.0f};
+            float tmv = 0.0f;
+            uint32_t sid = 0;
+            if (valid) {
+                o[0] = ox[i];
+                o[1] = oy[i];
+                o[2] = oz[i];
+                d[0] = dx[i];
+                d[1] = dy[i];
+                d[2] = dz[i];
+                tmv = tm[i];
+                sid = stream[i];
+            }
+            float tp[3] = {1.0f, 1.0f, 1.0f};
+            float rad[3] = {0.0f, 0.0f, 0.0f};
+            float m_dir[3] = {0.0f, 0.0f, 0.0f};
+            float m_tp[3] = {0.0f, 0.0f, 0.0f};
+            int flags = valid ? FLAG_ALIVE | FLAG_ALLOW : 0;
+            trace_ray<MODE, CULL>(S, o, d, tp, tmv, sid, seed, 0, max_depth, rad, m_dir, m_tp,
+                            flags, Z, D, i,
+                            Hdri{hdri != nullptr && valid ? hdri + i : nullptr, n_rays});
+            if (!valid) continue;
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-            out[(0 + c) * n_rays + i] = rad[c];
-            out[(3 + c) * n_rays + i] = m_dir[c];
-            out[(6 + c) * n_rays + i] = m_tp[c];
-        }
-        flags_out[i] = flags;
-        if constexpr (MODE == PRODUCT || MODE == PATHWISE || MODE == PATHWISE_MARBLE) {
-            float col[3] = {0.0f, 0.0f, 0.0f};
-            if (flags & 1) miss_colour(M, m_dir, col);
+            for (int c = 0; c < 3; ++c) {
+                out[(0 + c) * n_rays + i] = rad[c];
+                out[(3 + c) * n_rays + i] = m_dir[c];
+                out[(6 + c) * n_rays + i] = m_tp[c];
+            }
+            flags_out[i] = flags;
+            if constexpr (MODE == PRODUCT || MODE == PATHWISE_MARBLE) {
+                float col[3] = {0.0f, 0.0f, 0.0f};
+                if (flags & 1) miss_colour(M, m_dir, col);
 #pragma unroll
-            for (int c = 0; c < 3; ++c) miss_col[c * n_rays + i] = col[c];
+                for (int c = 0; c < 3; ++c) miss_col[c * n_rays + i] = col[c];
+            }
         }
     }
 }
@@ -415,6 +582,14 @@ int setup(const float* pt, const float* st, const float* vt, const float* lt,
     return 0;
 }
 
+// Shared memory of a B5a <2> block: its tables (table_bytes, 0 when they
+// stay in device memory) and its rows (PW_BLOCK_BYTES), within the 48 KB a
+// block gets unasked; tables that would take it past stay in device memory.
+size_t pathwise_smem(size_t table_bytes, int& tables_in_smem) {
+    tables_in_smem = table_bytes > 0 && table_bytes + PW_BLOCK_BYTES <= SMEM_TABLE_LIMIT;
+    return (tables_in_smem ? table_bytes : 0) + PW_BLOCK_BYTES;
+}
+
 template <int MODE>
 int launch(const float* pt, const float* st, const float* vt, const float* lt,
            int n_planar, int n_sphere, int n_vol, int n_lights, const float* ox,
@@ -432,9 +607,12 @@ int launch(const float* pt, const float* st, const float* vt, const float* lt,
     if constexpr (MODE == FWD || MODE == RECORD) {
         if (L.G.n_seg > 0) kernel = wavefront_kernel<MODE, true>;
     }
-    kernel<<<L.blocks, THREADS, L.smem_bytes, (cudaStream_t)cuda_stream>>>(
+    size_t smem = L.smem_bytes;
+    int tables_in_smem = smem > 0;
+    if constexpr (MODE == PATHWISE) smem = pathwise_smem(smem, tables_in_smem);
+    kernel<<<L.blocks, THREADS, smem, (cudaStream_t)cuda_stream>>>(
         L.G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, out, flags,
-        n_rays, seed, max_depth, L.smem_bytes > 0, Z, M, miss_col, D, hdri);
+        n_rays, seed, max_depth, tables_in_smem, Z, M, miss_col, D, hdri);
     return (int)cudaGetLastError();
 }
 
@@ -608,15 +786,17 @@ extern "C" int wavefront_resume_launch(
 
 // Blocks an SM holds at once of the pathwise gradient forward (marble: its
 // instantiation of a scene with marble) with `smem_bytes` of tables in
-// shared memory, from its registers, and its threads a block.  Returns a
+// shared memory (and, without marble, its rows), from its registers, and
+// its threads a block.  Returns a
 // CUDA error code (0 on success).
 extern "C" int wavefront_pathwise_occupancy(int marble, int smem_bytes,
                                             int* blocks_per_sm, int* threads) {
     *threads = THREADS;
     const void* fn = marble ? (const void*)wavefront_kernel<PATHWISE_MARBLE, false>
                             : (const void*)wavefront_kernel<PATHWISE, false>;
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, THREADS,
-                                                              (size_t)smem_bytes);
+    int tables_in_smem = 0;
+    const size_t smem = marble ? (size_t)smem_bytes : pathwise_smem(smem_bytes, tables_in_smem);
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, THREADS, smem);
 }
 
 // The same for the forward, the record and the resumable kernel: `kernel`

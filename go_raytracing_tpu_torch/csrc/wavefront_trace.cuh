@@ -165,7 +165,11 @@ __device__ __forceinline__ void stash_row_pathwise(
 // Planar sweep in table order.  Plane kind: strict t > eps, t < best; the
 // other kinds take >= and <=, so on an exact tie the later primitive wins.
 // ANY: return at the first hit (shadow rays).  Returns whether t_best moved.
-template <bool ANY>
+// GATE (B5a without marble): a candidate whose numerator and denominator
+// are not of one strict sign gives t <= 0 (or NaN), which fails t >= EPS_HIT
+// however it rounds, so its division is skipped; the quotient that is
+// taken is the same IEEE quotient.
+template <bool ANY, bool GATE = false>
 __device__ __forceinline__ bool planar_sweep(const Tables& S, const float o[3],
                                              const float d[3], float& t_best,
                                              int& hidx) {
@@ -176,8 +180,15 @@ __device__ __forceinline__ bool planar_sweep(const Tables& S, const float o[3],
         const float nx = P[0], ny = P[pc], nz = P[2 * pc];
         const float denom = d[0] * nx + d[1] * ny + d[2] * nz;
         const bool not_par = fabsf(denom) >= EPS_PARALLEL;
-        const float t = (P[3 * pc] - (o[0] * nx + o[1] * ny + o[2] * nz)) /
-                        (not_par ? denom : 1.0f);
+        float t;
+        if constexpr (GATE) {
+            const float num = P[3 * pc] - (o[0] * nx + o[1] * ny + o[2] * nz);
+            if (!(not_par && ((num > 0.0f && denom > 0.0f) || (num < 0.0f && denom < 0.0f))))
+                continue;
+            t = num / denom;
+        } else {
+            t = (P[3 * pc] - (o[0] * nx + o[1] * ny + o[2] * nz)) / (not_par ? denom : 1.0f);
+        }
         const float kind = P[14 * pc];
         const bool t_ok = (kind == 3.0f) ? (t > EPS_HIT && t < t_best)
                                          : (t >= EPS_HIT && t <= t_best);
@@ -382,15 +393,16 @@ __device__ __forceinline__ bool volume_scatter(const Tables& S, const float o[3]
 
 // Shadow ray: any surface within t_cap (spheres at time 0), or a volume
 // scatter event on the way (its draw keyed on `purpose` + 32 * volume).
-// CULL: the culled sphere sweep in a scene with segments (spheres_hit).
-template <bool CULL>
+// CULL: the culled sphere sweep in a scene with segments (spheres_hit);
+// GATE: planar_sweep's.
+template <bool CULL, bool GATE = false>
 __device__ __forceinline__ bool occluded(const Tables& S, const float o[3],
                                          const float d[3], float t_cap,
                                          uint32_t sid, uint32_t seed,
                                          uint32_t bounce, uint32_t purpose) {
     float t_best = t_cap;
     int dummy = 0;
-    if (planar_sweep<true>(S, o, d, t_best, dummy)) return true;
+    if (planar_sweep<true, GATE>(S, o, d, t_best, dummy)) return true;
     if (spheres_hit<CULL, true>(S, o, d, 0.0f, t_best, dummy)) return true;
     for (int vi = 0; vi < S.n_vol; ++vi) {
         const float u = uniform3(sid, seed, bounce, purpose + 32u * vi).x;
@@ -414,7 +426,10 @@ constexpr int FLAG_ALLOW = 8;
 // depend on where the loop was cut.  The stash and the record (b_start 0
 // only) are [b_end, ...]; the HDRI rows [(b_end - b_start) * 7, ...].
 // Returns the stash (or record) rows written in the loop: the bounces the
-// ray entered, which are all the fused modes write.  CULL (the forward, the
+// ray entered, which are all the fused modes write.  The pathwise rows of
+// bounce b go to the stash's row b - b_start (the pathwise forward traces
+// one bounce a call, into its block's rows of that bounce; the other
+// pathwise modes start at 0).  CULL (the forward, the
 // record and the resumable kernel, in a scene with segments): the sphere
 // sweeps are the culled sweep's (spheres_hit).
 template <int MODE, bool CULL = false>
@@ -442,6 +457,8 @@ __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3]
     // the bounce but for the marble's turns.  In the other modes `live` and
     // `shade` are true wherever they are read.
     constexpr bool COOP = MODE == PATHWISE_MARBLE || MODE == FUSED_MARBLE;
+    // B5a without marble: the planar sweeps' sign gate
+    constexpr bool GATE = MODE == PATHWISE;
     static_assert(!CULL || MODE == FWD || MODE == RECORD,
                   "the culled sweep is the forward's and the record's");
     const bool started = alive;
@@ -462,7 +479,7 @@ __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3]
         int hitk = 0, hidx = 0;
         bool hit = false, is_vol = false;
         if (live) {
-            if (planar_sweep<false>(S, o, d, t, hidx)) hitk = 2;
+            if (planar_sweep<false, GATE>(S, o, d, t, hidx)) hitk = 2;
             if (spheres_hit<CULL, false>(S, o, d, tmv, t, hidx)) hitk = 1;
             hit = hitk > 0;
 
@@ -503,7 +520,7 @@ __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3]
                 // hit: the reverse sweep reads T and d (the miss direction)
                 const float pm[3] = {o[0] + 1.0f * d[0], o[1] + 1.0f * d[1],
                                      o[2] + 1.0f * d[2]};
-                stash_row_pathwise<F_ROWS>(Z, ray, b, tp, zero3, pm, d, zero3,
+                stash_row_pathwise<F_ROWS>(Z, ray, b - b_start, tp, zero3, pm, d, zero3,
                                            0.0f, 1e-3f, 0.0f, 1.0f, 0.0f, SLOT_NONE,
                                            MSLOT_NONE, PW_LIT, zero3);
                 stashed = b + 1;
@@ -702,8 +719,8 @@ __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3]
                 bool dark = light.cos_l < 1e-3f;  // grazing the light's plane
                 if constexpr (PW || MODE == RECORD) {
                     // the shadow ray's outcome is kept whatever the angle
-                    if (occluded<CULL>(S, p, light.ld, light.dist - EPS_HIT, sid, seed,
-                                       bu, VOL_SHADOW)) {
+                    if (occluded<CULL, GATE>(S, p, light.ld, light.dist - EPS_HIT, sid,
+                                             seed, bu, VOL_SHADOW)) {
                         mk |= PW ? PW_BLK_A : DEC_BLK_A;
                         dark = true;
                     }
@@ -778,7 +795,7 @@ __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3]
                   (is_vol ? (PW_VOLUME | (hidx << PW_VOL_SHIFT)) : 0) |
                   // the reverse sweep's dmarble/dp (dielectrics: atten 1)
                   ((!is_die && texkind == 2.0f) ? PW_MARBLE : 0);
-            stash_row_pathwise<F_ROWS>(Z, ray, b, tp, atten, p, d, nrm, fuzz, ior,
+            stash_row_pathwise<F_ROWS>(Z, ray, b - b_start, tp, atten, p, d, nrm, fuzz, ior,
                                        flip * dndp, t, inv_scale, slot, (int)mat_id,
                                        mk, dm);
             stashed = b + 1;
@@ -817,7 +834,7 @@ __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3]
     }
     if constexpr (PW_ALL) {
         for (int k = stashed; k < b_end && (!COOP || started); ++k)
-            stash_row_pathwise<F_ROWS>(Z, ray, k, zero3, zero3, zero3, zero3, zero3,
+            stash_row_pathwise<F_ROWS>(Z, ray, k - b_start, zero3, zero3, zero3, zero3, zero3,
                                        0.0f, 0.0f, 0.0f, 0.0f, 0.0f, SLOT_NONE,
                                        MSLOT_NONE, 0, zero3);
     }

@@ -80,6 +80,11 @@ MAX_STREAM_TRIS = 1 << 24
 LAUNCHES_SWEEP = 0    # intersect_mesh_kernel
 LAUNCHES_STREAM = 0   # intersect_mesh_stream
 
+# mesh_sweep takes a tile one lane a ray where its warp's (ray, leaf) pairs
+# number at least this many times the union of its rays' leaves, else by
+# pairs (csrc/mesh.cu: WALK_PER_LANE).
+WALK_PER_LANE = 8
+
 # Pairs of (ray, slot) swept at a time by the stream's plain version.
 _PAIR_BATCH = 1 << 14
 
@@ -393,6 +398,8 @@ def _tile_sweep(ktri, ti, subs, leaves, idx, ol, dl, inv, t_min, t_best,
     tc = tc.reshape(n, TILE // LEAF, LEAF)
 
     tb = t_best[idx]
+    if counts is not None:
+        _count_pairs(counts, idx, tb, s_near, s_far, l_near, l_far, ti, n_tris)
     if any_hit:
         # before its first hit a ray's running best is its t_max
         ok = ok & (tc < tb[:, None, None])
@@ -425,6 +432,36 @@ def _tile_sweep(ktri, ti, subs, leaves, idx, ol, dl, inv, t_min, t_best,
     t_best[idx] = tb
     tri_best[idx] = tri
     inst_best[idx] = inst
+
+
+def _count_pairs(counts, idx, tb, s_near, s_far, l_near, l_far, ti, n_tris):
+    """The kernel's work on one tile (``csrc/mesh.cu``, ``sweep_tile``),
+    with rays ``idx`` in warps of 32 as the kernel takes them: the (ray,
+    leaf) pairs (the leaves each ray's running best at the tile's start lets
+    in, 8 triangles each), the warps that sweep the tile, and how each does:
+    one lane a ray over the union of its rays' leaves where the pairs number
+    at least ``WALK_PER_LANE`` times that union (``sweep_walk_tiles``), else
+    in rounds of four pairs (``sweep_rounds``)."""
+    sub_ok = (s_far > s_near) & (tb[:, None] > s_near)              # [n, 4]
+    sub_ok &= (ti * TILE + torch.arange(TILE // SUB, device=idx.device) * SUB
+               < n_tris)[None]
+    leaf_ok = ((l_far > l_near) & (tb[:, None] > l_near)
+               & sub_ok.repeat_interleave(SUB // LEAF, dim=1))      # [n, 16]
+    leaf_ok &= (ti * TILE + torch.arange(TILE // LEAF, device=idx.device) * LEAF
+                < n_tris)[None]
+    per_ray = leaf_ok.sum(dim=1)
+    warps, at = torch.unique(idx // 32, return_inverse=True)
+    per_warp = torch.zeros(warps.numel(), dtype=per_ray.dtype,
+                           device=idx.device).index_add_(0, at, per_ray)
+    # the leaves some ray of the warp lets in
+    union = torch.zeros((warps.numel(), TILE // LEAF), dtype=per_ray.dtype,
+                        device=idx.device).index_add_(0, at, leaf_ok.to(per_ray.dtype))
+    union = (union > 0).sum(dim=1)
+    walk = (union > 0) & (WALK_PER_LANE * union <= per_warp)
+    _count(counts, "sweep_pairs", per_ray.sum())
+    _count(counts, "sweep_warp_tiles", warps.numel())
+    _count(counts, "sweep_walk_tiles", walk.sum())
+    _count(counts, "sweep_rounds", torch.where(walk, 0, (per_warp + 3) // 4).sum())
 
 
 def _stream_plain(proto, o, d, t_cap, t_min, any_hit, counts=None):
@@ -696,6 +733,22 @@ def _stream_cuda(proto, o, d, t_max, t_min, any_hit):
     return t, tri, inst, hit.view(torch.bool)
 
 
+def sweep_occupancy(proto, any_hit=False):
+    """(blocks an SM holds at once, threads a block, shared-memory bytes a
+    block) of ``mesh_sweep``'s closest-hit (or any-hit) kernel for
+    ``proto``'s box hierarchy on the current CUDA device."""
+    from . import _build
+
+    fn = _build.load("mesh").lib.mesh_sweep_occupancy
+    fn.argtypes = [_I, _I] + [ctypes.POINTER(ctypes.c_int)] * 3
+    fn.restype = ctypes.c_int
+    out = [ctypes.c_int() for _ in range(3)]
+    err = fn(int(any_hit), int(proto.k_n_coarse), *(ctypes.byref(c) for c in out))
+    if err != 0:
+        raise RuntimeError(f"mesh_sweep_occupancy failed: CUDA error {err}")
+    return tuple(c.value for c in out)
+
+
 def stream_occupancy(any_hit=False):
     """(blocks an SM holds at once, threads a block, shared-memory bytes a
     block) of ``mesh_stream``'s closest-hit (or any-hit) kernel on the
@@ -764,7 +817,10 @@ def plain(kind: str, proto, o, d, t_min, t_max, any_hit=False, counts=None):
     does that the kernel does too to ``counts``, a dict, when one is given:
     ``local_rays`` (ray, instance) pairs transformed, ``box_tests``,
     ``tri_tests`` and, for the stream, ``tri_t_pass`` (triangles whose
-    plane t passes, so that the barycentrics follow)."""
+    plane t passes, so that the barycentrics follow); for the sweep also
+    what its warps do below a tile (``_count_pairs``: ``sweep_pairs``,
+    ``sweep_warp_tiles``, ``sweep_rounds``, the rays taken in warps of 32 in
+    the order given)."""
     o_, d_, t_max_ = _rays(o, d, t_max)
     fn = _sweep_plain if kind == "sweep" else _stream_plain
     return (*_finish(*fn(proto, o_, d_, t_max_, float(np.float32(t_min)),

@@ -18,6 +18,7 @@ import go_raytracing_tpu_torch as grtt
 from go_raytracing_tpu_torch import camera as tcamera
 from go_raytracing_tpu_torch.core.vec3 import V3
 from go_raytracing_tpu_torch.geometry import mesh_bvh
+from go_raytracing_tpu_torch.integrator import wavefront
 from go_raytracing_tpu_torch.io import obj as tobj
 from go_raytracing_tpu_torch.ops import cuda_intersect as ck
 from go_raytracing_tpu_torch.ops import cuda_mesh as cm
@@ -235,7 +236,8 @@ def test_cuda_pathwise_kernels_match_plain_versions(scene_name):
     """On a GPU: the pathwise stash-writing forward and the pathwise reverse
     sweep against their plain versions.  The forward agrees per ray (fewer
     than 0.5 % of rays outside rtol/atol 1e-3) and its radiance is the
-    forward kernel's bit for bit.  The reverse kernel sums in float32 in a
+    forward kernel's bit for bit; without marble every output is the plain
+    version's bit for bit.  The reverse kernel sums in float32 in a
     fixed tree, its plain version in float64: each key within 1e-4 of its
     largest entry, on the same stash, and the same bits on every launch."""
     if not torch.cuda.is_available():
@@ -263,6 +265,9 @@ def test_cuda_pathwise_kernels_match_plain_versions(scene_name):
             & torch.isclose(k[3], p[3], rtol=1e-3, atol=1e-3).all(dim=(0, 1))
             & (k[4] == p[4]).all(dim=(0, 1)))
     assert float((~good).float().mean()) < 0.005
+    if not marble:   # B5a <2>: the plain version's bits
+        for a, b in zip(k, p):
+            assert torch.equal(a, b)
     f_rows, _ = cw.wavefront_fwd(*args[:-1])
     assert torch.equal(f_rows, k[0])  # one bounce loop, three instantiations
 
@@ -286,6 +291,42 @@ def test_cuda_pathwise_kernels_match_plain_versions(scene_name):
     # the same launch again gives the same bits: no atomics on device memory
     for a, b in zip(gk, cw.wavefront_grad_rev_pathwise(*rev_args)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n, depth, order", [
+    (1, 5, "render"), (33, 5, "render"), (4097, 3, "shuffled"), (16384, 1, "render"),
+    (16384, 5, "render"), (16384, 5, "shuffled")])
+def test_cuda_pathwise_forward_compacts_paths_bit_for_bit(n, depth, order):
+    """On a GPU: the pathwise gradient forward without marble (B5a <2>) runs
+    tiles of 128 rays a bounce at a time, moving the rays still alive to a
+    block's first slots after each bounce and writing each bounce's stash
+    rows from shared memory.  On cornell-glossy, whose paths end at 1 to
+    ``depth`` bounces (out through the open front, at the light, metal
+    scattered under its surface), in the render's order and shuffled (the
+    lanes of a warp end at different bounces) and at ray counts off the
+    tile's 128: the radiance, flags, miss colour and every float and int
+    stash row (the inert rows of the bounces a ray never entered among them)
+    equal the plain version's bit for bit, and the paths did end at
+    different bounces."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene, cam = _pathwise_scene("cornell-glossy")
+    o, d, tm, ids = _rays(dataclasses.replace(cam, max_depth=depth), n, 5, "cuda")
+    if order == "shuffled":
+        perm = torch.randperm(n, device="cuda", generator=torch.Generator("cuda").manual_seed(1))
+        o, d = (V3(*(c[perm].contiguous() for c in v)) for v in (o, d))
+        tm, ids = tm[perm].contiguous(), ids[perm].contiguous()
+    args = (cw.build_tables(scene), o, d, tm, cw.stream_to_i32(ids), 5, depth,
+            cw.miss_config(cam))
+    k = cw.wavefront_grad_fwd(*args, pathwise=True)
+    torch.cuda.synchronize()
+    p = cw._wavefront_grad_fwd_plain(*args, pathwise=True)
+    for a, b in zip(k, p):
+        assert a.shape == b.shape and torch.equal(a, b)
+    entered = ((k[4][:, 2] & (cw.PW_HIT | cw.PW_LIT)) != 0).sum(dim=0)
+    if n > 1000 and depth > 1:
+        assert entered.unique().numel() == depth
 
 
 @pytest.mark.cuda
@@ -575,6 +616,100 @@ def _spheres_equal_plain(scene, o, d, tm, t_max):
 def _cuda_rays(o, d, *rest):
     return (V3.from_rows(torch.from_numpy(o).cuda()), V3.from_rows(torch.from_numpy(d).cuda()),
             *(torch.from_numpy(a).cuda() for a in rest))
+
+
+def _sweep_equals_plain(proto, o, d, t_max, any_hit=False):
+    """mesh_sweep against its plain version: hit and the bits of t, tri and
+    inst on every ray (any hit too: the first hit in the ladder's order).
+    Returns the kernel's outputs."""
+    k = cm.intersect_mesh_kernel(proto, o, d, 1e-3, t_max, any_hit=any_hit)
+    torch.cuda.synchronize()
+    p = cm.plain("sweep", proto, o, d, 1e-3, t_max, any_hit=any_hit)
+    assert torch.equal(k[3], p[3])
+    assert torch.equal(k[0].view(torch.int32), p[0].view(torch.int32))
+    assert torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])
+    return k
+
+
+def _floor(g):
+    """A g x g grid of unit quads on y = 0, two triangles each (a diagonal
+    edge shared): (vertices, triangles)."""
+    xs, zs = np.meshgrid(np.arange(g + 1, dtype=np.float64), np.arange(g + 1, dtype=np.float64),
+                         indexing="ij")
+    verts = np.stack([xs.ravel(), np.zeros(xs.size), zs.ravel()], 1)
+    a = (np.arange(g)[:, None] * (g + 1) + np.arange(g)[None, :]).ravel()
+    return verts, np.concatenate([np.stack([a, a + 1, a + g + 2], 1),
+                                  np.stack([a, a + g + 2, a + g + 1], 1)])
+
+
+def _at(y):
+    m = np.eye(4)
+    m[1, 3] = y
+    return (m, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("coherent", [False, True])
+def test_cuda_mesh_sweep_breaks_equal_t_ties_by_instance_and_leaf_order(coherent):
+    """On a GPU: a floor of 7,200 triangles in two instances at the same
+    place and a third below, so every hit is a tie at equal t between two
+    instances, and half the rays aimed at the diagonal edge two coplanar
+    triangles of a quad share: the earlier instance and, at equal t, the
+    first triangle in leaf order win, as in the plain version, closest and
+    any hit.  Coherent: each warp's rays aimed at one small patch (the warp
+    walks a tile one lane a ray); else scattered (the warp tests its rays'
+    leaves in pairs)."""
+    if not torch.cuda.is_available():
+        pytest.skip(_NO_CARD)
+    g = 60
+    proto = mesh_bvh.build_proto(*_floor(g), [_at(-1.0), _at(0.0), _at(0.0)],
+                                 torch.device("cuda"))
+    assert cm.kernel_ok(proto) and proto.n_tris == 2 * g * g
+    r = np.random.default_rng(11)
+    n = 4096
+    if coherent:
+        centre = np.repeat(r.uniform(6, g - 6, size=(n // 32, 2)), 32, axis=0)
+        xz = centre + r.normal(size=(n, 2)) * 0.7
+    else:
+        xz = r.uniform(4, g - 4, size=(n, 2))
+    # every other ray through the shared diagonal of its quad
+    diag = np.arange(n) % 2 == 0
+    xz[diag, 1] = np.floor(xz[diag, 1]) + (xz[diag, 0] - np.floor(xz[diag, 0]))
+    o = np.stack([xz[:, 0], np.full(n, 10.0), xz[:, 1]], 1) + r.normal(size=(n, 3)) * [2, 0, 2]
+    d = np.stack([xz[:, 0], np.zeros(n), xz[:, 1]], 1) - o
+    o, d = _cuda_rays(o.astype(np.float32), d.astype(np.float32))
+    big = torch.full((n,), ck.BIG, device="cuda")
+    k = _sweep_equals_plain(proto, o, d, big)
+    _sweep_equals_plain(proto, o, d, big, any_hit=True)
+    # instance 2 repeats instance 1's arithmetic: it never wins the tie (a
+    # ray through a shared edge may miss both in float32 and hit instance 0,
+    # and the plain version says so too)
+    assert float(k[3].float().mean()) > 0.99 and not bool((k[2][k[3]] == 2).any())
+    assert float((k[2][k[3]] == 1).float().mean()) > 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 4097])
+def test_cuda_mesh_sweep_mixed_warps_and_ragged_counts(n):
+    """On a GPU: the 3,744-triangle statue, 10 instances, unsorted rays
+    (lanes of a warp in different instances and leaves), sorted as the
+    integrator sorts them, and with every third ray dead, at ray counts off
+    the warp's 32: closest and any hit equal the plain version's bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip(_NO_CARD)
+    proto = mesh_bvh.build_proto(*tobj.lucy_standin(48, 40), lucy_instances(10),
+                                 torch.device("cuda"))
+    o, d = _cuda_rays(*mesh_rays(n, 12))
+    big = torch.full((n,), ck.BIG, device="cuda")
+    dead = torch.where(torch.arange(n, device="cuda") % 3 == 0, -1.0, big)
+    key = wavefront._mesh_sort_key(proto, o, d, 1e-3, big)[1]
+    order = torch.argsort(key, stable=True)
+    so, sd = (V3(*(c[order].contiguous() for c in v)) for v in (o, d))
+    for rays in ((o, d), (so, sd)):
+        for t_max in (big, dead):
+            for any_hit in (False, True):
+                _sweep_equals_plain(proto, *rays, t_max, any_hit)
 
 
 @pytest.mark.cuda

@@ -153,6 +153,14 @@ def test_plain_counts_leave_dead_rays_out(case, kernel):
         assert 0 < full["tri_t_pass"] < full["tri_tests"]
     else:
         assert "tri_t_pass" not in full
+        # what the sweep's warps do below a tile (``_count_pairs``): the (ray,
+        # leaf) pairs hold every leaf the ladder enters, a warp walks a tile
+        # or sweeps it in rounds of four pairs
+        for c in (full, half):
+            assert c["tri_tests"] < cm.LEAF * c["sweep_pairs"]
+            assert c["sweep_walk_tiles"] <= c["sweep_warp_tiles"]
+            assert 4 * c["sweep_rounds"] < c["sweep_pairs"] + 4 * c["sweep_warp_tiles"]
+        assert 0.3 * full["sweep_pairs"] < half["sweep_pairs"] < 0.7 * full["sweep_pairs"]
 
 
 def test_plain_any_hit_counts_stop_at_the_first_slot_with_a_hit(case):
@@ -170,3 +178,27 @@ def test_plain_any_hit_counts_stop_at_the_first_slot_with_a_hit(case):
     assert int(hit.sum()) * cm.TILE <= first["tri_tests"] < closest["tri_tests"]
     assert first["tri_t_pass"] < closest["tri_t_pass"]
     assert first["box_tests"] <= closest["box_tests"]
+
+
+def test_sweep_pair_counts_follow_the_walk_rule(case, monkeypatch):
+    """How ``cuda_mesh._count_pairs`` splits a warp's tiles between the
+    one-lane-a-ray walk and rounds of four pairs follows ``WALK_PER_LANE``:
+    a rule never met sweeps every tile with a pair in rounds, at least a
+    round for each four pairs; one always met walks them all; the default
+    lies between (a quarter of the rays, every t_max BIG)."""
+    tp = case["protos"]["sweep"][1]
+    n = N_RAYS // 4
+    o, d = torch.from_numpy(case["o"][:n]), torch.from_numpy(case["d"][:n])
+
+    def counts(walk):
+        monkeypatch.setattr(cm, "WALK_PER_LANE", walk)
+        c = {}
+        cm.plain("sweep", tp, o, d, T_MIN, torch.from_numpy(case["t_max"]["big"][:n]), counts=c)
+        return c
+
+    default, pairs, walks = counts(cm.WALK_PER_LANE), counts(1 << 30), counts(0)
+    assert pairs["sweep_walk_tiles"] == 0 and walks["sweep_rounds"] == 0
+    assert 0 < walks["sweep_walk_tiles"] <= walks["sweep_warp_tiles"] == default["sweep_warp_tiles"]
+    assert default["sweep_pairs"] <= 4 * pairs["sweep_rounds"]
+    assert 4 * pairs["sweep_rounds"] < default["sweep_pairs"] + 4 * default["sweep_warp_tiles"]
+    assert default["sweep_rounds"] <= pairs["sweep_rounds"]
