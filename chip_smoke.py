@@ -688,7 +688,7 @@ def compare_pathwise(scene, cam, seed, name):
     torch.cuda.synchronize()
     p = cw._wavefront_grad_fwd_plain(*args, pathwise=True)
     mismatch, fwd_err = grad_fwd_mismatch(k, p)
-    # B5a without marble (path regeneration): every output the plain version's bits
+    # B5a without marble (tiles a bounce at a time): every output the plain version's bits
     bit_equal = all(torch.equal(a, b) for a, b in zip(k, p))
     same_as_fwd = torch.equal(k[0], cw.wavefront_fwd(*args[:-1])[0])
 
