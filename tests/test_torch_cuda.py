@@ -330,6 +330,34 @@ def test_cuda_pathwise_forward_compacts_paths_bit_for_bit(n, depth, order):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_spheres", [200, 330])
+def test_cuda_pathwise_forward_with_tables_beside_its_rows(n_spheres):
+    """On a GPU: B5a <2> keeps a scene's tables in shared memory beside its
+    rows of a bounce only while both fit the 48 KB a block gets unasked (200
+    spheres: 18 KB of tables); past that (330 spheres: 30 KB) the tables stay
+    in device memory.  Either way every output equals the plain version's
+    bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene = build_sphere_cloud(grtt, n_spheres=n_spheres, device="cuda")
+    assert cw.grad_pathwise_applicable(scene, 5)
+    tb = cw.build_tables(scene)
+    table_bytes = 4 * sum(t.numel() for t in (tb.pt, tb.st, tb.vt, tb.lt))
+    rows_bytes = (cw.PW_STASH_F_ROWS + cw.PW_STASH_I_ROWS + 16) * 128 * 4 + 16
+    assert (table_bytes + rows_bytes <= 48 * 1024) == (n_spheres == 200)
+    cam = tcamera.Camera(image_width=64, aspect_ratio=1.0, samples_per_pixel=4, max_depth=5,
+                         look_from=(0, 6, 12), look_at=(0, 0.5, 0), vfov=45.0)
+    o, d, tm, ids = _rays(cam, 64 * 64 * 4, 6, "cuda")
+    args = (tb, o, d, tm, cw.stream_to_i32(ids), 6, 5, cw.miss_config(cam))
+    k = cw.wavefront_grad_fwd(*args, pathwise=True)
+    torch.cuda.synchronize()
+    p = cw._wavefront_grad_fwd_plain(*args, pathwise=True)
+    for a, b in zip(k, p):
+        assert a.shape == b.shape and torch.equal(a, b)
+    assert bool((k[4][:, 2] & cw.PW_METAL).any()) and bool((k[4][:, 2] & cw.PW_DIELECTRIC).any())
+
+
+@pytest.mark.cuda
 def test_cuda_render_grad_goes_through_the_pathwise_kernels():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
@@ -710,6 +738,33 @@ def test_cuda_mesh_sweep_mixed_warps_and_ragged_counts(n):
         for t_max in (big, dead):
             for any_hit in (False, True):
                 _sweep_equals_plain(proto, *rays, t_max, any_hit)
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_sweep_at_the_top_of_its_range():
+    """On a GPU: a floor of 16,200 triangles, near the sweep's 16,384, in two
+    instances: 8 coarse segments, whose boxes and the warps' scratch take a
+    block past the 48 KB of shared memory it gets unasked.  Closest and any
+    hit equal the plain version's bit for bit on scattered rays and on rays
+    in coherent warps."""
+    if not torch.cuda.is_available():
+        pytest.skip(_NO_CARD)
+    g = 90
+    proto = mesh_bvh.build_proto(*_floor(g), [_at(0.0), _at(-1.0)], torch.device("cuda"))
+    assert cm.kernel_ok(proto) and proto.n_tris == 2 * g * g and proto.k_n_coarse == 8
+    assert cm.sweep_occupancy(proto)[2] > 48 * 1024
+    r = np.random.default_rng(13)
+    n = 4096
+    centre = np.repeat(r.uniform(5, g - 5, size=(n // 64, 2)), 32, axis=0)
+    xz = np.concatenate([centre + r.normal(size=(n // 2, 2)) * 0.7,
+                         r.uniform(2, g - 2, size=(n // 2, 2))])
+    o = np.stack([xz[:, 0], np.full(n, 8.0), xz[:, 1]], 1) + r.normal(size=(n, 3)) * [3, 0, 3]
+    d = np.stack([xz[:, 0], np.zeros(n), xz[:, 1]], 1) - o
+    o, d = _cuda_rays(o.astype(np.float32), d.astype(np.float32))
+    big = torch.full((n,), ck.BIG, device="cuda")
+    k = _sweep_equals_plain(proto, o, d, big)
+    _sweep_equals_plain(proto, o, d, big, any_hit=True)
+    assert float(k[3].float().mean()) > 0.99
 
 
 @pytest.mark.cuda
