@@ -250,20 +250,25 @@ FLOPS_MOLLER_TRUMBORE, FLOPS_BW_PLANE, FLOPS_BW_UV = 55, 17, 24
 # tri, inst and hit.
 MESH_RAYS_IN, MESH_DEAD_IN, MESH_BYTES_OUT = 7 * 4, 4, 4 + 4 + 4 + 1
 # Times of three kernels that keep their design, recorded in PERF.md section 6
-# on an NVIDIA H100 80GB HBM3 at 700 W (B1, B2 and B7a at a Cornell chunk): a
+# on an NVIDIA H100 80GB HBM3 at 700 W (B1, B3 and B7a at a Cornell chunk): a
 # run that reads them slower is on a slower card.
-CARD_YARDSTICK = {"wavefront_fwd": 2.718, "wavefront_grad_fwd": 3.057,
+CARD_YARDSTICK = {"wavefront_fwd": 2.718, "wavefront_grad_rev": 0.503,
                   "planar_closest": 0.2383}
 # Registers and spill bytes (ptxas) of the kernels that share device code
-# with the redesigned B1, B4, B5a, B5b <20>, B6 and B11 but keep their own
-# design: B2, B5b without marble, and the brute (not culled) instantiations
-# of B1 and B11 (scenes under SPH_CULL_MIN spheres), as recorded in PERF.md
-# section 6.  A build that changes them changed code it must not change (and
-# the card yardstick, whose first two kernels are B1 and B2).
-UNCHANGED_KERNELS = {
-    "wavefront_kernelILi0ELb0E": (96, 0), "wavefront_kernelILi1ELb0E": (114, 0),
-    "wavefront_resume_kernelILb0E": (96, 84),
-    "wavefront_grad_rev_pathwise_kernelILi19E": (110, 0)}
+# with the redesigned B1, B4, B5a, B5b, B6 and B11 but keep their own design:
+# the brute (not culled) instantiations of B1 and B11 (scenes under
+# SPH_CULL_MIN spheres), as recorded in PERF.md section 6.  A build that
+# changes them changed code it must not change (and the card yardstick,
+# whose first kernel is B1).
+UNCHANGED_KERNELS = {"wavefront_kernelILi0ELb0E": (96, 0),
+                     "wavefront_resume_kernelILb0E": (96, 84)}
+# The pathwise reverse sweep without marble: its instantiations by route
+# (wavefront_grad_pathwise.cu), a column of sums a lane and a row a warp.
+B5B_LANE_TAG = "wavefront_grad_rev_pathwise_tiles_kernelILi2E"
+B5B_WARP_TAG = "wavefront_grad_rev_pathwise_tiles_kernelILi1E"
+# The times of the two kernels last redesigned, in their previous design
+# (PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W), printed beside the new.
+PREVIOUS_DESIGN_MS = {"wavefront_grad_fwd": 3.088, "wavefront_grad_rev_pathwise": 1.806}
 
 
 def emit(phase, **fields):
@@ -426,6 +431,8 @@ def compare_grad(scene, cam, seed, name):
     torch.cuda.synchronize()
     p = cw._wavefront_grad_fwd_plain(*args)
     mismatch, fwd_err = grad_fwd_mismatch(k, p)
+    # B2: every output the plain version's bits (radiance, flags, miss colour, stash)
+    bit_equal = all(torch.equal(a, b) for a, b in zip(k, p))
     same_as_fwd = torch.equal(k[0], cw.wavefront_fwd(*args[:-1])[0])
 
     gen = torch.Generator(device=scene.device).manual_seed(seed)
@@ -449,7 +456,7 @@ def compare_grad(scene, cam, seed, name):
     clamped = float(((k[4][:, 2] & (7 * cw.MK_CLAMPED)) != 0).any(dim=0).float().mean())
     emit("grad_kernels_vs_plain", scene=name, rays=n, depth=cam.max_depth,
          textures=n_tex, fwd_mismatch_share=mismatch,
-         fwd_max_abs_err_agreeing_rays=fwd_err,
+         fwd_max_abs_err_agreeing_rays=fwd_err, fwd_bit_equal_plain=bit_equal,
          radiance_equals_forward_kernel=same_as_fwd,
          rev_max_abs_err=rev_err, rev_err_of_largest=rev_rel,
          autograd_err_of_largest=auto_rel, share_of_rays_clamped=clamped,
@@ -458,6 +465,8 @@ def compare_grad(scene, cam, seed, name):
         raise RuntimeError(f"{name}: gradient forward output is not finite")
     if mismatch >= MAX_MISMATCH_SHARE:
         raise RuntimeError(f"{name}: {mismatch:.4%} of rays' stash rows disagree")
+    if not bit_equal:
+        raise RuntimeError(f"{name}: B2's outputs are not the plain version's bits")
     if not same_as_fwd:
         raise RuntimeError(f"{name}: gradient forward's radiance is not the forward's")
     if not rev_rel <= REV_RTOL_OF_LARGEST:
@@ -577,9 +586,27 @@ def grad_kernel_timing(scene, rays, cam, entering, render_grad_launches,
     fwd_ms = median(fwd_rounds)
     plain_fwd_ms, p = cuda_ms(lambda: cw._wavefront_grad_fwd_plain(*args))
     mismatch, fwd_err = grad_fwd_mismatch(k, p)
+    bit_equal = all(torch.equal(a, b) for a, b in zip(k, p))
     del p
     if mismatch >= MAX_MISMATCH_SHARE:
         raise RuntimeError(f"full-size chunk: {mismatch:.4%} of rays' stash rows disagree")
+    if not bit_equal:
+        raise RuntimeError("full-size chunk: B2's outputs (radiance, flags, miss colour, "
+                           "stash rows) are not the plain version's bits")
+    # the chunk's rays in turns of path length: every warp's lanes end at
+    # every bounce (entering[k]: rays alive after k bounces)
+    length = torch.ones_like(tm, dtype=torch.int64)
+    for b in range(1, depth):
+        length += (cw.wavefront_fwd(tb, o, d, tm, sid, 0, b)[1] & cw.FLAG_ALIVE) != 0
+    idx = th.lengths_in_turn(length, depth)
+    t_args = (tb, V3(*(c[idx].contiguous() for c in o)), V3(*(c[idx].contiguous() for c in d)),
+              tm[idx].contiguous(), sid[idx].contiguous(), 0, depth, cw.miss_config(cam))
+    turns_equal = all(torch.equal(a, b) for a, b in zip(cw.wavefront_grad_fwd(*t_args),
+                                                         cw._wavefront_grad_fwd_plain(*t_args)))
+    del t_args
+    if not turns_equal:
+        raise RuntimeError("full-size chunk in turns of path length: B2's outputs are not "
+                           "the plain version's bits")
 
     gen = torch.Generator(device=tm.device).manual_seed(0)
     g3 = torch.rand((3, n), device=tm.device, generator=gen) * 1e-6
@@ -614,6 +641,10 @@ def grad_kernel_timing(scene, rays, cam, entering, render_grad_launches,
          grad_fwd_bound_ops_ms=fwd_bound[1],
          grad_fwd_roofline_share=max(fwd_bound) / fwd_ms,
          grad_fwd_mismatch_share_full_chunk=mismatch,
+         grad_fwd_bit_equal_plain_full_chunk=bit_equal,
+         grad_fwd_bit_equal_plain_lengths_in_turn=turns_equal,
+         grad_fwd_rays_by_path_length=torch.bincount(length, minlength=depth + 1).tolist(),
+         grad_fwd_previous_design_ms_perf_md=PREVIOUS_DESIGN_MS["wavefront_grad_fwd"],
          grad_rev_ms=rev_ms, grad_rev_ms_rounds=rev_rounds,
          grad_rev_plain_ms=plain_rev_ms,
          grad_rev_bytes_counted=rev_bytes, grad_rev_bound_bytes_ms=rev_bound[0],
@@ -627,7 +658,8 @@ def grad_kernel_timing(scene, rays, cam, entering, render_grad_launches,
               "go_raytracing_tpu/ops/pallas_wavefront.py:2087 (_call_grad_fwd)",
               render_grad_launches[0], fwd_ms, plain_fwd_ms, fwd_bound,
               [fwd_err] + [c[1] for c in small_checks])
-        | {"mismatch_share": max([mismatch] + [c[0] for c in small_checks])},
+        | {"mismatch_share": max([mismatch] + [c[0] for c in small_checks]),
+           "previous_design_ms_perf_md": PREVIOUS_DESIGN_MS["wavefront_grad_fwd"]},
         entry("wavefront_grad_rev", "go_raytracing_tpu_torch/csrc/wavefront_grad.cu",
               "go_raytracing_tpu/ops/pallas_wavefront.py:2162 (_call_grad_rev)",
               render_grad_launches[1], rev_ms, plain_rev_ms, rev_bound,
@@ -704,6 +736,9 @@ def compare_pathwise(scene, cam, seed, name):
     same_bits = all(torch.equal(a, b) for a, b in zip(gk, gk2))
     gp = cw._wavefront_grad_rev_pathwise_plain(*rev_args)
     rev_err, rev_rel = pathwise_rev_err(gk, gp)
+    lane_sums = cw.pathwise_rev_lane_sums(9 * n_tex + 2 * n_mat)
+    # the rays in turns of path length: every warp's lanes end at every depth
+    turns = b5b_in_turns(rev_args, cam.max_depth)
     mk = k[4][:, 2]
     # The volume adjoint's entry term is on or off by near >= EPS_HIT, with
     # near recomputed from o = p - t d: the share of volume rows whose near
@@ -725,7 +760,8 @@ def compare_pathwise(scene, cam, seed, name):
          fwd_max_abs_err_agreeing_rays=fwd_err, fwd_bit_equal_plain=bit_equal,
          radiance_equals_forward_kernel=same_as_fwd,
          rev_max_abs_err=rev_err, rev_err_of_largest=rev_rel,
-         rev_two_launches_same_bits=same_bits,
+         rev_two_launches_same_bits=same_bits, rev_lane_sums=lane_sums,
+         rev_lengths_in_turn=turns,
          largest_colour_gradient=float(gp[0].abs().max()),
          fuzz_grad=gk[1].tolist(), ior_grad=gk[2].tolist(),
          share_of_rows_volume=float(vol_rows.float().mean()),
@@ -744,9 +780,31 @@ def compare_pathwise(scene, cam, seed, name):
         raise RuntimeError(f"{name}: pathwise reverse kernel off by {rev_rel:.2e}")
     if not same_bits:
         raise RuntimeError(f"{name}: two launches of the reverse kernel differ")
+    if not (turns["err_of_largest"] <= REV_RTOL_OF_LARGEST and turns["same_bits_twice"]):
+        raise RuntimeError(f"{name}: the reverse kernel on rays in turns of length: {turns}")
     if float(gk[1].abs().max()) == 0.0 or float(gk[2].abs().max()) == 0.0:
         raise RuntimeError(f"{name}: no fuzz or no ior gradient")
-    return mismatch, fwd_err, rev_err
+    return mismatch, fwd_err, rev_err, lane_sums
+
+
+def b5b_in_turns(rev_args, depth):
+    """B5b against its plain version, twice, on a stash whose rays stand in
+    turns of path length 1, 2, ..., depth (``th.lengths_in_turn``): the
+    lanes of every warp end at every depth.  ``rev_args`` are
+    ``wavefront_grad_rev_pathwise``'s; returns the check's fields."""
+    tb, sf, si, g3, mc, sid, *rest = rev_args
+    length = ((si[:, 2] & (cw.PW_HIT | cw.PW_LIT)) != 0).sum(dim=0)
+    idx = th.lengths_in_turn(length, depth)
+    args = (tb, sf[:, :, idx].contiguous(), si[:, :, idx].contiguous(),
+            g3[:, idx].contiguous(), mc[:, idx].contiguous(), sid[idx].contiguous(), *rest)
+    gk, gk2 = cw.wavefront_grad_rev_pathwise(*args), cw.wavefront_grad_rev_pathwise(*args)
+    gp = cw._wavefront_grad_rev_pathwise_plain(*args)
+    lanes = length[idx][: idx.numel() // 32 * 32].reshape(-1, 32)
+    every = bool((lanes.amin(dim=1)[0] == 1) and (lanes.amax(dim=1)[0] == depth)) \
+        if depth > 1 and lanes.shape[0] else True
+    return {"rays": int(idx.numel()), "first_warp_ends_at_every_depth": every,
+            "err_of_largest": pathwise_rev_err(gk, gp)[1],
+            "same_bits_twice": all(bool(torch.equal(a, b)) for a, b in zip(gk, gk2))}
 
 
 def pathwise_main_path(scene, cam):
@@ -893,6 +951,10 @@ def pathwise_kernel_timing(scene, cam, launches, small_checks):
         raise RuntimeError(f"full-size chunk: pathwise reverse kernel off by {rev_rel:.2e}")
     if not same_bits:
         raise RuntimeError("full-size chunk: two launches of the reverse kernel differ")
+    turns = b5b_in_turns(rev_args, depth)
+    if not (turns["err_of_largest"] <= REV_RTOL_OF_LARGEST and turns["same_bits_twice"]
+            and turns["first_warp_ends_at_every_depth"]):
+        raise RuntimeError(f"full-size chunk: the reverse kernel on rays in turns: {turns}")
 
     # rows of the stash a ray entered, bounce by bounce: the data-dependent
     # work of both kernels
@@ -904,8 +966,7 @@ def pathwise_kernel_timing(scene, cam, launches, small_checks):
                   + tb.n_vol * FLOPS_VOLUME + FLOPS_SHADE)
     fwd_bound = (fwd_bytes / PEAK_BYTES_PER_S * 1e3,
                  float(sum(entered)) * per_bounce / PEAK_FP32_FLOPS * 1e3)
-    block_rays = _build.load(
-        "wavefront_grad_pathwise").lib.wavefront_grad_rev_pathwise_block_rays()
+    block_rays = cw.pathwise_rev_block_rays(cw.PW_STASH_F_ROWS)
     n_acc = 9 * n_tex + 2 * n_mat
     rev_bytes = ((stash_rows + 3 + 3 + 1) * 4 * n
                  + 4 * n_acc * -(-n // block_rays)
@@ -930,7 +991,10 @@ def pathwise_kernel_timing(scene, cam, launches, small_checks):
          grad_rev_bound_ops_ms=rev_bound[1],
          grad_rev_roofline_share=max(rev_bound) / rev_ms,
          grad_rev_err_of_largest_full_chunk=rev_rel,
-         grad_rev_two_launches_same_bits=same_bits)
+         grad_rev_two_launches_same_bits=same_bits,
+         grad_rev_lengths_in_turn_full_chunk=turns,
+         grad_rev_lane_sums=cw.pathwise_rev_lane_sums(n_acc), grad_rev_accumulators=n_acc,
+         grad_rev_previous_design_ms_perf_md=PREVIOUS_DESIGN_MS["wavefront_grad_rev_pathwise"])
 
     entry = functools.partial(kernel_entry, n)
     return (
@@ -946,7 +1010,9 @@ def pathwise_kernel_timing(scene, cam, launches, small_checks):
               "go_raytracing_tpu/ops/pallas_wavefront.py:2162 "
               "(_call_grad_rev, pathwise=True)",
               launches[1], rev_ms, plain_rev_ms, rev_bound,
-              [rev_err] + [c[2] for c in small_checks]),
+              [rev_err] + [c[2] for c in small_checks])
+        | {"previous_design_ms_perf_md": PREVIOUS_DESIGN_MS["wavefront_grad_rev_pathwise"],
+           "routes_checked": sorted({"lane" if c[3] else "warp" for c in small_checks})},
     )
 
 
@@ -2864,16 +2930,19 @@ def noise_small_checks(dev):
     record_plain = torch.equal(code, p_code) and torch.equal(idx, p_idx)
     g = cw.wavefront_grad_fwd(*args, cw.miss_config(cam))
     grad_same = torch.equal(g[0], k_rows) and torch.equal(g[1], k_flags)
+    grad_plain = all(torch.equal(a, b) for a, b in zip(
+        g, cw._wavefront_grad_fwd_plain(*args, cw.miss_config(cam))))
     hits = int(((code & cw.DEC_KIND_MASK) != 0).sum())
     emit("noise_kernels_vs_plain", scene="perlin", rays=16384, depth=cam.max_depth,
          b1_mismatch_share=outside, b1_share_not_bit_equal=differ, b1_max_abs_err=err,
          marble_hits=hits, b6_radiance_equals_b1=record_same,
          b6_record_equals_plain=record_plain, b2_radiance_equals_b1=grad_same,
+         b2_bit_equal_plain=grad_plain,
          rtol=RTOL, atol=ATOL)
     if outside >= MAX_MISMATCH_SHARE or not torch.isfinite(k_rows).all() \
             or hits * 10 < tm.shape[0]:
         raise RuntimeError(f"perlin: B1 {outside:.4%} of rays outside the gate, {hits} hits")
-    if not (record_same and record_plain and grad_same):
+    if not (record_same and record_plain and grad_same and grad_plain):
         raise RuntimeError("perlin: B6 or B2 differs from B1 or from its plain version")
     return outside, err
 
@@ -3628,8 +3697,7 @@ def marble_kernel_timing(glossy, cam, nee, nee_cam, chunks, launches, small):
     fwd_bound = (((8 + 10 + 3 + stash_rows) * 4 * n + table_bytes) / PEAK_BYTES_PER_S * 1e3,
                  ((entered * per_bounce + marble * FLOPS_MARBLE) / PEAK_FP32_FLOPS
                   + marble * INT_OPS_MARBLE / PEAK_INT32_OPS) * 1e3)
-    block_rays = _build.load(
-        "wavefront_grad_pathwise").lib.wavefront_grad_rev_pathwise_block_rays()
+    block_rays = cw.pathwise_rev_block_rays(cw.PW_STASH_F_ROWS_MARBLE)
     n_acc = 9 * n_tex + 2 * n_mat
     rev_bound = (((stash_rows + 3 + 3 + 1) * 4 * n + 4 * n_acc * -(-n // block_rays)
                   + 4 * (tb.vt.numel() + tb.lt.numel())) / PEAK_BYTES_PER_S * 1e3,
@@ -3723,7 +3791,7 @@ def marble_kernel_timing(glossy, cam, nee, nee_cam, chunks, launches, small):
                    small["b4_max_abs_err"], n4) | {"plain_rays_marble": 16384})
 
 
-def marble_grad_phases(dev, env, regs, glossy_plain, record_scene):
+def marble_grad_phases(dev, env, regs, glossy_plain, record_scene, product_scene):
     """Marble behind metal and glass on the kernel tiers (A13b): the small
     checks, ``marble-glossy`` (600x600, 100 spp, depth 5) fwd+bwd on the
     pathwise tier all stashed and over budget, ``marble-glossy-nee``
@@ -3732,8 +3800,9 @@ def marble_grad_phases(dev, env, regs, glossy_plain, record_scene):
     redesigned kernels' registers, spills and resident warps (B4, B5a and
     B5b, both instantiations each, and B6 at ``record_scene``'s tables) and
     B5a's marble instantiation on ``glossy_plain``'s chunk (cornell-glossy:
-    no marble).  Returns the marble fields of B5a's, B5b's and B4's entries,
-    and the resident warps of B5a <2>, B4 <19>, B5b <19> and B6."""
+    no marble); B2 at ``product_scene``'s tables.  Returns the marble fields
+    of B5a's, B5b's and B4's entries, and the resident warps of B2, B5a <2>,
+    B4 <19>, B5b <19> and B6."""
     glossy, cam = marble_glossy_scene(dev)
     nee, nee_cam = marble_glossy_scene(dev, env)
     small = marble_small_checks(glossy, cam, nee, nee_cam, env, dev)
@@ -3778,13 +3847,19 @@ def marble_grad_phases(dev, env, regs, glossy_plain, record_scene):
         acc, tables = 4 * warps * n_acc, smem_of_tables(tb)
         return acc + (tables if 0 < tables and acc + tables <= 48 * 1024 else 0)
 
-    def rev_smem(scene):
+    def rev_occupancy(marble, scene):
         n_acc = 9 * int(scene.textures.color.shape[0]) + 2 * int(scene.materials.kind.shape[0])
-        return 4 * 8 * n_acc      # 8 warps a block, one row of accumulators each
+        return cw.pathwise_rev_occupancy(marble, n_acc)
 
+    many = th.build_many_textures(grt, device=dev)
+    occ = {"b5b_19": rev_occupancy(False, g_scene), "b5b_19_warp_sums": rev_occupancy(
+        False, many), "b5b_20": rev_occupancy(True, glossy)}
     stats = {
-        "b5b_19": (regs["b5b_19"], resident(cw.pathwise_rev_occupancy(False, rev_smem(g_scene)))),
-        "b5b_20": (regs["b5b"], resident(cw.pathwise_rev_occupancy(True, rev_smem(glossy)))),
+        "b5b_19": (regs["b5b_19"], resident(occ["b5b_19"][:2])),
+        "b5b_19_warp_sums": (regs["b5b_19_warp"], resident(occ["b5b_19_warp_sums"][:2])),
+        "b5b_20": (regs["b5b"], resident(occ["b5b_20"][:2])),
+        "b2": (regs["b2"], resident(cw.tracing_occupancy("grad_fwd", False, smem_of_tables(
+            cw.build_tables(product_scene))))),
         "b6": (regs["b6"], resident(cw.tracing_occupancy("record", True, smem_of_tables(
             cw.build_tables(record_scene))))),
         "b5a_2": (regs["b5a_2"], resident(cw.pathwise_occupancy(
@@ -3795,10 +3870,14 @@ def marble_grad_phases(dev, env, regs, glossy_plain, record_scene):
         "b4_22": (regs["b4"], resident(cw.fused_occupancy(True, fused_smem(nee))))}
     emit("redesigned_kernels",
          note="registers and spill bytes from the build; resident warps an SM at the "
-              "shared memory of the timed launches (B5a <2> and B5b <19> at cornell-glossy, "
+              "shared memory of the timed launches (B2 at cornell, B5a <2> and B5b <19> at "
+              "cornell-glossy, "
               "<4> and <20> at marble-glossy, B4 <19> at hdri-test-nee, <22> at "
-              "marble-glossy-nee, B6 at random)",
+              "marble-glossy-nee, B6 at random; B5b <19>'s warp sums at a scene of 418 "
+              "accumulators); shared bytes a block of B5b",
          **{k: {"registers": r[0], "spill_bytes": r[1], "resident_warps_per_sm": w}
+            | ({"shared_bytes_per_block": occ[k][2], "threads_per_block": occ[k][1]}
+               if k in occ else {})
             for k, (r, w) in stats.items()},
          instantiation_scene="cornell-glossy", instantiation_rays=n,
          instantiation_entered_share=share, b5a_2_ms=ms2, b5a_4_ms_no_marble_hits=ms4,
@@ -3808,7 +3887,10 @@ def marble_grad_phases(dev, env, regs, glossy_plain, record_scene):
     b5a["ms_plain_instantiation_cornell_glossy"] = ms2
     b4["resident_warps_per_sm_marble"] = stats["b4_22"][1]
     b5b["resident_warps_per_sm_marble"] = stats["b5b_20"][1]
-    return (b5a, b5b, b4, {k: stats[k][1] for k in ("b5a_2", "b4_19", "b5b_19", "b6")})
+    b5b["shared_bytes_per_block"] = occ["b5b_19"][2]
+    b5b["resident_warps_per_sm_warp_sums"] = stats["b5b_19_warp_sums"][1]
+    b5b["shared_bytes_per_block_warp_sums"] = occ["b5b_19_warp_sums"][2]
+    return (b5a, b5b, b4, {k: stats[k][1] for k in ("b2", "b5a_2", "b4_19", "b5b_19", "b6")})
 
 
 # ---- the tile-sweep probe of the mesh stream (scripts/stream_micro.py) --------
@@ -3938,13 +4020,14 @@ def main():
     # the pathwise reverse kernel: <19> a stash of 19 float rows a bounce,
     # <20> of a scene with marble (dmarble/dp compiled in); the fused
     # kernel: <19>, and <22> in a scene with marble (dmarble/dp stashed)
-    prev_regs, prev_spill = kernel_stats(built_pw,
-                                         "wavefront_grad_rev_pathwise_kernelILi19E")
+    # <19> without marble: the tiles, a column of sums a lane (and, above
+    # the accumulators that fit, a row a warp)
+    prev_regs, prev_spill = kernel_stats(built_pw, B5B_LANE_TAG)
+    prev_warp = kernel_stats(built_pw, B5B_WARP_TAG)
     prev_marble = kernel_stats(built_pw, "wavefront_grad_rev_pathwise_kernelILi20E")
     fused_regs = kernel_stats(built_fused, "wavefront_grad_fused_kernelILi19E")
     fused_marble = kernel_stats(built_fused, "wavefront_grad_fused_kernelILi22E")
-    unchanged = {tag: kernel_stats(built_pw if "pathwise" in tag else built, tag)
-                 for tag in UNCHANGED_KERNELS}
+    unchanged = {tag: kernel_stats(built, tag) for tag in UNCHANGED_KERNELS}
     # stream_micro_kernel<roll, dynamic tile, bit scan>: the probe's variants
     probe_regs = {v: kernel_stats(built_probe, "stream_micro_kernelILb{}ELb{}ELb{}E".format(
         *(int(f) for f in flags))) for v, flags in sm.VARIANTS.items()}
@@ -3983,6 +4066,8 @@ def main():
          grad_fwd_pathwise_marble_spill_bytes=pfwd_marble[1],
          grad_rev_pathwise_marble_registers=prev_marble[0],
          grad_rev_pathwise_marble_spill_bytes=prev_marble[1],
+         grad_rev_pathwise_warp_sums_registers=prev_warp[0],
+         grad_rev_pathwise_warp_sums_spill_bytes=prev_warp[1],
          probe_registers={k: v[0] for k, v in probe_regs.items()},
          probe_spill_bytes={k: v[1] for k, v in probe_regs.items()},
          resume_registers=resume_regs[0], resume_spill_bytes=resume_regs[1],
@@ -4052,7 +4137,12 @@ def main():
                                   samples_per_pixel=4, max_depth=5)
     pw_checks = [compare_pathwise(g_scene, g_small, 7, "cornell-glossy"),
                  compare_pathwise(*glossy_sky_scene(dev), 8, "glossy_sky_volume"),
-                 compare_pathwise(m_scene, m_cam, 9, "mixed")]
+                 compare_pathwise(m_scene, m_cam, 9, "mixed"),
+                 # more accumulators than B5b <19> sums a column a lane: its warp sums
+                 compare_pathwise(th.build_many_textures(grt, device=dev), dataclasses.replace(
+                     Camera(**th.MANY_TEXTURES_CAM), image_width=64), 10, "many_textures")]
+    if {c[3] for c in pw_checks} != {True, False}:
+        raise RuntimeError("B5b <19>'s two routes did not both run in the pathwise checks")
     b5b_lanes_err = b5b_marble_lanes(dev)
 
     # ---- the closest-hit kernels against their plain versions ----------------------
@@ -4261,8 +4351,8 @@ def main():
     grad_by_name = {e["name"]: e for e in grad_entries}
     yard = {name: (ms, ref) for name, ms, ref in (
         ("wavefront_fwd", median(fwd_rounds), CARD_YARDSTICK["wavefront_fwd"]),
-        ("wavefront_grad_fwd", grad_by_name["wavefront_grad_fwd"]["ms"],
-         CARD_YARDSTICK["wavefront_grad_fwd"]),
+        ("wavefront_grad_rev", grad_by_name["wavefront_grad_rev"]["ms"],
+         CARD_YARDSTICK["wavefront_grad_rev"]),
         ("planar_closest", by_name["planar_closest"]["ms"],
          CARD_YARDSTICK["planar_closest"]))}
     emit("card_yardstick", note="ms of three kernels at the shapes of PERF.md "
@@ -4320,15 +4410,22 @@ def main():
         dev, synthetic_sky()[0], {"b5a": pfwd_marble, "b5b": prev_marble,
                                   "b4": fused_marble, "b5a_2": (pfwd_regs, pfwd_spill),
                                   "b4_19": fused_regs, "b5b_19": (prev_regs, prev_spill),
-                                  "b6": rec_regs}, (g_scene, g_cam), rr_scene)
+                                  "b5b_19_warp": prev_warp, "b2": (gfwd_regs, gfwd_spill),
+                                  "b6": rec_regs}, (g_scene, g_cam), rr_scene, scene)
     b4_entry["registers"], b4_entry["spill_bytes"] = fused_regs
     b4_entry["resident_warps_per_sm"] = warps["b4_19"]
     pw_entries[0]["registers"], pw_entries[0]["spill_bytes"] = pfwd_regs, pfwd_spill
     pw_entries[0]["resident_warps_per_sm"] = warps["b5a_2"]
     pw_entries[1]["registers"], pw_entries[1]["spill_bytes"] = prev_regs, prev_spill
+    pw_entries[1]["registers_warp_sums"], pw_entries[1]["spill_bytes_warp_sums"] = prev_warp
     pw_entries[1]["resident_warps_per_sm"] = warps["b5b_19"]
     pw_entries[1]["err_of_largest_marble_lanes"] = b5b_lanes_err
     rec_entry["resident_warps_per_sm"] = warps["b6"]
+    grad_entries[0]["registers"], grad_entries[0]["spill_bytes"] = gfwd_regs, gfwd_spill
+    grad_entries[0]["resident_warps_per_sm"] = warps["b2"]
+    grad_entries[1]["registers"], grad_entries[1]["spill_bytes"] = grev_regs, grev_spill
+    grad_entries[1]["resident_warps_per_sm"] = resident(cw.grad_rev_occupancy(
+        9 * int(scene.textures.color.shape[0])))
 
     # ---- the tile-sweep probe of the mesh stream --------------------------------
     probe_entry = probe_phase(probe_regs)

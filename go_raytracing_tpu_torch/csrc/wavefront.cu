@@ -123,6 +123,18 @@
 // What the pathwise reverse sweep recomputes (random draws, the Fresnel
 // decision, the light sample) comes from wavefront_common.cuh in both.
 //
+// The product-chain gradient forward (B2).  What held it back on this card,
+// measured on the Cornell job's rays (PERF.md): not its bytes (its stores
+// are 5 % of the launch) but latency: a warp waits on dependent divides and
+// hashes, and on its lanes' longest path (the same rays in order of path
+// length took 31 % less).  B5a's tiles a bounce at a time took 10 % more
+// here: a block's bounce lasts as long as its slowest warp whatever the
+// compaction saves, and half of Cornell's rays leave the box at once, in
+// whole warps.  The design keeps one ray a thread and hides the latency
+// with warps: six blocks an SM (24 warps at 80 registers, was 16 at 114;
+// a few spilled words are cheaper than the warps they buy), and the planar
+// sweeps' sign gate in the closest-hit and the shadow sweeps.
+//
 // The pathwise gradient forward of a scene with marble (B5a <4>).  What
 // held it back on this card, measured (PERF.md): the marble itself, half
 // the launch on marble-glossy: one lane a ray runs 56 hashed lattice
@@ -168,16 +180,18 @@ namespace {
 
 // Blocks of THREADS an SM the instantiations are built for: B5a's with
 // marble four, 16 warps at up to 128 registers with no spill (measured on
-// the H100 against five and six, PERF.md); the culled instantiations of
-// the forward, the record and the resumable kernel (CULL: a scene with
-// segments) six, 24 warps at up to 85 registers, which random's tables in
-// shared memory also allow (measured against no target, five and, for B11,
+// the H100 against five and six, PERF.md); B2 six, 24 warps at up to 85
+// registers (measured against no target, five, seven and eight, PERF.md);
+// the culled instantiations of the forward, the record and the resumable
+// kernel (CULL: a scene with segments) six, 24 warps at up to 85
+// registers, which random's tables in shared memory also allow (measured against no target, five and, for B11,
 // four, PERF.md); the others MIN_BLOCKS_UNSET, which sets no minimum and
 // leaves their registers to the compiler as before (a minimum of 1 is not
 // the same: it took B1 from 96 to 122).  The forward's brute instantiation
 // keeps that: six blocks took it from 1.82 to 2.14 ms on hdri-test's glass
 // and metal (PERF.md).
 constexpr int PW_MARBLE_BLOCKS_PER_SM = 4;
+constexpr int PRODUCT_BLOCKS_PER_SM = 6;
 constexpr int CULL_BLOCKS_PER_SM = 6;
 constexpr int MIN_BLOCKS_UNSET = 0;
 
@@ -381,6 +395,7 @@ __global__ void __launch_bounds__(THREADS,
                                   CULL                      ? CULL_BLOCKS_PER_SM
                                   : MODE == PATHWISE_MARBLE ? PW_MARBLE_BLOCKS_PER_SM
                                   : MODE == PATHWISE        ? PW_BLOCKS_PER_SM
+                                  : MODE == PRODUCT         ? PRODUCT_BLOCKS_PER_SM
                                                             : MIN_BLOCKS_UNSET)
 wavefront_kernel(Tables G, const float* __restrict__ ox,
                  const float* __restrict__ oy, const float* __restrict__ oz,
@@ -799,9 +814,9 @@ extern "C" int wavefront_pathwise_occupancy(int marble, int smem_bytes,
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, THREADS, smem);
 }
 
-// The same for the forward, the record and the resumable kernel: `kernel`
-// FWD (0), RECORD (3) or RESUME_KERNEL; `culled` their culled
-// instantiations.
+// The same for the forward, the product-chain gradient forward, the record
+// and the resumable kernel: `kernel` FWD (0), PRODUCT (1), RECORD (3) or
+// RESUME_KERNEL; `culled` their culled instantiations (none for PRODUCT).
 constexpr int RESUME_KERNEL = 7;
 
 extern "C" int wavefront_tracing_occupancy(int kernel, int culled, int smem_bytes,
@@ -811,6 +826,8 @@ extern "C" int wavefront_tracing_occupancy(int kernel, int culled, int smem_byte
     if (kernel == FWD)
         fn = culled ? (const void*)wavefront_kernel<FWD, true>
                     : (const void*)wavefront_kernel<FWD, false>;
+    else if (kernel == PRODUCT && !culled)
+        fn = (const void*)wavefront_kernel<PRODUCT, false>;
     else if (kernel == RECORD)
         fn = culled ? (const void*)wavefront_kernel<RECORD, true>
                     : (const void*)wavefront_kernel<RECORD, false>;

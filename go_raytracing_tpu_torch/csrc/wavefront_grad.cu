@@ -155,6 +155,15 @@ wavefront_grad_rev_kernel(const float* __restrict__ stash_f,
 // [ceil(n_rays / this), n_acc].
 extern "C" int wavefront_grad_rev_block_rays() { return BLOCK_RAYS; }
 
+// Blocks an SM holds at once at n_acc accumulators, and its threads a block.
+// Returns a CUDA error code (0 on success).
+extern "C" int wavefront_grad_rev_occupancy(int n_acc, int* blocks_per_sm, int* threads) {
+    *threads = THREADS;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, (const void*)wavefront_grad_rev_kernel, THREADS,
+        (size_t)WARPS * n_acc * sizeof(float));
+}
+
 // stash_f [depth, 12, n_rays] f32, stash_i [depth, 3, n_rays] i32, g3 and
 // miss_col [3, n_rays] f32 in; partial [ceil(n_rays / BLOCK_RAYS), n_acc] f32
 // out, written in full.  Launches on the given stream, does not synchronize,

@@ -42,6 +42,16 @@ __device__ __forceinline__ void warp_add(float* acc, int key, const float* v,
     }
 }
 
+// B5b's tiles, summing lane by lane: adds v[0..N-1] to acc[(key + c) *
+// STRIDE] where key >= 0; acc is the lane's own column of the block's
+// [n_acc, STRIDE] accumulators, so its adds are in the lane's program order.
+template <int N, int STRIDE>
+__device__ __forceinline__ void lane_add(float* acc, int key, const float* v) {
+    if (key < 0) return;
+#pragma unroll
+    for (int c = 0; c < N; ++c) acc[(key + c) * STRIDE] += v[c];
+}
+
 // Entry slab of box volume vi for a ray (o, d): near = max_i min(ta, tb),
 // the world-to-local row ne of the axis that gives it, inv_e = 1 / (ne.d)
 // with the window's 1e-12 guard, act_e whether the guard was idle.
@@ -94,6 +104,18 @@ struct RevScene {
     int miss_mode;     // 0 flat, 1 sky, 2 per-ray colour and direction cotangent
 };
 
+// How reverse_ray sums and where a lane starts.  SUMS_WARP: every lane of
+// the warp from the top bounce (depth, or the fused kernel's deepest
+// entered), warp_add into the warp's row.  The tiles of B5b without marble,
+// whose rays stand in order of path length (`len` the ray's): SUMS_TILE_WARP
+// from the deepest bounce a lane of the warp entered, warp_add;
+// SUMS_TILE_LANE each lane from its own ray's deepest bounce, lane_add into
+// its column of [n_acc, REV_TILE].
+constexpr int SUMS_WARP = 0;
+constexpr int SUMS_TILE_WARP = 1;
+constexpr int SUMS_TILE_LANE = 2;
+constexpr int REV_TILE = 128;   // threads (and rays) of a tile of B5b's
+
 // The miss mode of a sweep whose miss colour came from an environment map:
 // the colour (mc) and the cotangent of the miss direction (lmd) are rows.
 constexpr int REV_MISS_SKY = 1;
@@ -118,13 +140,18 @@ constexpr int REV_MISS_STREAM = 2;
 //   lmd:      miss mode 2, the cotangent of its miss direction;
 //   hd, hs:   the ray's HDRI rows (7 a bounce, stride hs) or null;
 //   eout, es: with hd, the cotangent of each bounce's environment sample's
-//             texel (3 a bounce, stride es), written for every bounce.
-template <int F_ROWS, bool FUSED = false>
+//             texel (3 a bounce, stride es), written for every bounce;
+//   acc:      the warp's row of accumulators, or with SUMS_TILE_LANE the
+//             lane's column;
+//   len:      FUSED and the tiles: the bounces the ray entered.
+template <int F_ROWS, bool FUSED = false, int SUMS = SUMS_WARP>
 __device__ __forceinline__ void reverse_ray(
     const RevScene& R, bool valid, const float* f, const int* q, long long zs,
     int depth, const float g[3], const float mc[3], const float lmd[3],
     uint32_t sid, uint32_t seed, const float* hd, long long hs, float* eout,
     long long es, float* acc, int lane, int len = 0) {
+    static_assert(SUMS == SUMS_WARP || (F_ROWS == PW_F_ROWS && !FUSED),
+                  "the tiles' routes are B5b's without marble");
     const float nl = (float)R.n_lights;
     const float sky_s[3] = {0.5f, 0.7f, 1.0f};
     float lo[3] = {0.0f, 0.0f, 0.0f};
@@ -132,6 +159,8 @@ __device__ __forceinline__ void reverse_ray(
     float ltp[3] = {0.0f, 0.0f, 0.0f};
 
     int top = depth;
+    if constexpr (SUMS == SUMS_TILE_WARP) top = __reduce_max_sync(FULL_MASK, valid ? len : 0);
+    if constexpr (SUMS == SUMS_TILE_LANE) top = valid ? len : 0;
     if constexpr (FUSED) {
         // bounces no lane of the warp entered add nothing: their eout rows
         // are zeros
@@ -463,9 +492,15 @@ __device__ __forceinline__ void reverse_ray(
 #pragma unroll
             for (int c = 0; c < 3; ++c) eout[((size_t)k * 3 + c) * es] = cot_env[c];
         }
-        warp_add<3>(acc, akey, cot_alb, lane);
-        warp_add<3>(acc, lkey, cot_lem, lane);
-        warp_add<2>(acc, mkey, cot_mat, lane);
+        if constexpr (SUMS == SUMS_TILE_LANE) {
+            lane_add<3, REV_TILE>(acc, akey, cot_alb);
+            lane_add<3, REV_TILE>(acc, lkey, cot_lem);
+            lane_add<2, REV_TILE>(acc, mkey, cot_mat);
+        } else {
+            warp_add<3>(acc, akey, cot_alb, lane);
+            warp_add<3>(acc, lkey, cot_lem, lane);
+            warp_add<2>(acc, mkey, cot_mat, lane);
+        }
     }
 }
 

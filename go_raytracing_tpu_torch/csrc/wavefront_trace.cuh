@@ -165,7 +165,7 @@ __device__ __forceinline__ void stash_row_pathwise(
 // Planar sweep in table order.  Plane kind: strict t > eps, t < best; the
 // other kinds take >= and <=, so on an exact tie the later primitive wins.
 // ANY: return at the first hit (shadow rays).  Returns whether t_best moved.
-// GATE (B5a without marble): a candidate whose numerator and denominator
+// GATE (B2, and B5a without marble): a candidate whose numerator and denominator
 // are not of one strict sign gives t <= 0 (or NaN), which fails t >= EPS_HIT
 // however it rounds, so its division is skipped; the quotient that is
 // taken is the same IEEE quotient.
@@ -457,8 +457,8 @@ __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3]
     // the bounce but for the marble's turns.  In the other modes `live` and
     // `shade` are true wherever they are read.
     constexpr bool COOP = MODE == PATHWISE_MARBLE || MODE == FUSED_MARBLE;
-    // B5a without marble: the planar sweeps' sign gate
-    constexpr bool GATE = MODE == PATHWISE;
+    // B2 and B5a without marble: the planar sweeps' sign gate
+    constexpr bool GATE = MODE == PATHWISE || MODE == PRODUCT;
     static_assert(!CULL || MODE == FWD || MODE == RECORD,
                   "the culled sweep is the forward's and the record's");
     const bool started = alive;
@@ -725,8 +725,9 @@ __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3]
                         dark = true;
                     }
                 } else {
-                    dark = dark || occluded<CULL>(S, p, light.ld, light.dist - EPS_HIT,
-                                                  sid, seed, bu, VOL_SHADOW);
+                    dark = dark || occluded<CULL, GATE>(S, p, light.ld,
+                                                        light.dist - EPS_HIT, sid, seed,
+                                                        bu, VOL_SHADOW);
                 }
                 if (!dark) {
                     const float scale = nee_scale(light, lc, S.n_lights).scale;

@@ -1997,7 +1997,7 @@ def _wavefront_grad_rev_pathwise_cuda(tb: Tables, stash_f, stash_i, g3,
         sums = torch.zeros(n_acc, dtype=torch.float32, device=dev)
     else:
         lib = "wavefront_grad_pathwise"
-        block_rays = _kernel(lib, "wavefront_grad_rev_pathwise_block_rays", [])()
+        block_rays = pathwise_rev_block_rays(stash_f.shape[1])
         partial = torch.empty((-(-r // block_rays), n_acc), dtype=torch.float32,
                               device=dev)
         fn = _kernel(lib, "wavefront_grad_rev_pathwise_launch",
@@ -2117,21 +2117,48 @@ def pathwise_occupancy(marble: bool, smem_bytes: int = 0):
     return _occupancy("wavefront", "wavefront_pathwise_occupancy", marble, smem_bytes)
 
 
-TRACING_KERNELS = {"fwd": 0, "record": 3, "resume": 7}   # wavefront_tracing_occupancy
+# wavefront_tracing_occupancy
+TRACING_KERNELS = {"fwd": 0, "grad_fwd": 1, "record": 3, "resume": 7}
 
 
 def tracing_occupancy(kernel: str, culled: bool, smem_bytes: int):
-    """The same for ``kernel`` "fwd" (B1), "record" (B6) or "resume" (B11):
-    ``culled`` its instantiation for tables with segments."""
+    """The same for ``kernel`` "fwd" (B1), "grad_fwd" (B2), "record" (B6)
+    or "resume" (B11): ``culled`` its instantiation for tables with
+    segments."""
     return _occupancy("wavefront", "wavefront_tracing_occupancy", TRACING_KERNELS[kernel],
                       culled, smem_bytes)
 
 
-def pathwise_rev_occupancy(marble: bool, smem_bytes: int):
-    """The same for the pathwise reverse sweep, ``smem_bytes`` of
-    accumulators a block."""
-    return _occupancy("wavefront_grad_pathwise", "wavefront_grad_rev_pathwise_occupancy",
-                      marble, smem_bytes)
+def grad_rev_occupancy(n_acc: int):
+    """The same for the product-chain reverse sweep at ``n_acc``
+    accumulators."""
+    return _occupancy("wavefront_grad", "wavefront_grad_rev_occupancy", n_acc)
+
+
+def pathwise_rev_occupancy(marble: bool, n_acc: int):
+    """(blocks an SM holds at once, threads a block, shared bytes a block)
+    of the pathwise reverse sweep at ``n_acc`` accumulators."""
+    fn = _kernel("wavefront_grad_pathwise", "wavefront_grad_rev_pathwise_occupancy",
+                 [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3)
+    out = [ctypes.c_int() for _ in range(3)]
+    err = fn(int(marble), int(n_acc), *(ctypes.byref(c) for c in out))
+    if err != 0:
+        raise RuntimeError(f"wavefront_grad_rev_pathwise_occupancy failed: CUDA error {err}")
+    return tuple(c.value for c in out)
+
+
+def pathwise_rev_block_rays(f_rows: int) -> int:
+    """Rays a block of the pathwise reverse sweep takes (one row of partial
+    sums each) for a stash of ``f_rows`` float rows a bounce."""
+    return _kernel("wavefront_grad_pathwise", "wavefront_grad_rev_pathwise_block_rays",
+                   [_I])(int(f_rows))
+
+
+def pathwise_rev_lane_sums(n_acc: int) -> bool:
+    """Does the pathwise reverse sweep without marble sum ``n_acc``
+    accumulators a column a lane (True), or a row a warp?"""
+    return bool(_kernel("wavefront_grad_pathwise", "wavefront_grad_rev_pathwise_lane_sums",
+                        [_I])(int(n_acc)))
 
 
 def fused_occupancy(marble: bool, smem_bytes: int):

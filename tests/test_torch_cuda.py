@@ -25,12 +25,12 @@ from go_raytracing_tpu_torch.ops import cuda_mesh as cm
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from go_raytracing_tpu_torch.utils import stream_micro as sm
 from test_torch_helpers import (CULL_CASES, ENV_NEE_CAM, FOG_ROOM_CAM, LUCY_CAM,
-                                MARBLE_CAM, MINI_HDRI_CAM, MIXED_CAM, NOISE_GLOSSY_CAM,
-                                build_env_nee, build_fog_room, build_lucy,
-                                build_marble, build_mini_hdri, build_mixed,
-                                build_noise_glossy, build_random_prims, build_sphere_cloud,
-                                cull_case, lucy_instances, marble_lane_stash, mesh_rays,
-                                mini_env, random_rays)
+                                MANY_TEXTURES_CAM, MARBLE_CAM, MINI_HDRI_CAM, MIXED_CAM,
+                                NOISE_GLOSSY_CAM, build_env_nee, build_fog_room, build_lucy,
+                                build_many_textures, build_marble, build_mini_hdri,
+                                build_mixed, build_noise_glossy, build_random_prims,
+                                build_sphere_cloud, cull_case, lengths_in_turn, lucy_instances,
+                                marble_lane_stash, mesh_rays, mini_env, random_rays)
 
 
 def _rays(cam, n, seed, device):
@@ -200,6 +200,64 @@ def test_cuda_render_grad_goes_through_the_kernels():
     assert float((grads["color"].cpu() - ref["color"]).abs().max()) < 0.05 * big
 
 
+def _path_lengths(tb, o, d, tm, sid, seed, depth):
+    """The bounces each ray enters: 1 + the forward's rays still alive after
+    1, ..., depth - 1 bounces."""
+    length = torch.ones_like(tm, dtype=torch.int64)
+    for k in range(1, depth):
+        _, flags = cw.wavefront_fwd(tb, o, d, tm, sid, seed, k)
+        length += (flags & cw.FLAG_ALIVE) != 0
+    return length
+
+
+def _in_turns(idx, o, d, tm, ids):
+    return (V3(*(c[idx].contiguous() for c in o)), V3(*(c[idx].contiguous() for c in d)),
+            tm[idx].contiguous(), ids[idx].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene_name, n, order", [
+    ("cornell", 16384, "render"), ("cornell", 16384, "lengths-in-turn"), ("cornell", 33, "render"),
+    ("cornell-smoke", 4097, "lengths-in-turn"), ("checker-sky", 16384, "lengths-in-turn"),
+    ("marble", 4096, "lengths-in-turn")])
+def test_cuda_grad_forward_bit_for_bit(scene_name, n, order):
+    """On a GPU: the product-chain gradient forward (B2) against its plain
+    version bit for bit: radiance, flags, miss colour and every float and
+    int stash row (the inert rows of the bounces a ray never entered among
+    them).  In the render's order and with the rays in turns of path length
+    (the lanes of a warp end at every bounce), at a ray count off a block's,
+    in the Cornell box (a box of fog), cornell-smoke (two), the checker and
+    sky scene (fog, firefly clamp) and a marble scene (marble winners take
+    the null slot)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    if scene_name == "marble":
+        scene = build_marble(grtt, device="cuda")
+        cam = dataclasses.replace(tcamera.Camera(**MARBLE_CAM), image_width=64, max_depth=5)
+    elif scene_name == "cornell-smoke":
+        scene, cam = grtt.load_scene("cornell-smoke", device="cuda")
+        cam = dataclasses.replace(cam, image_width=64, aspect_ratio=1.0, samples_per_pixel=4,
+                                  max_depth=5)
+    else:
+        scene, cam = _grad_scene(scene_name)
+    assert cw.grad_applicable(scene, cam.max_depth)
+    depth = cam.max_depth
+    tb = cw.build_tables(scene)
+    o, d, tm, ids = _rays(cam, n, 5, "cuda")
+    if order == "lengths-in-turn":
+        length = _path_lengths(tb, o, d, tm, cw.stream_to_i32(ids), 5, depth)
+        o, d, tm, ids = _in_turns(lengths_in_turn(length, depth), o, d, tm, ids)
+    args = (tb, o, d, tm, cw.stream_to_i32(ids), 5, depth, cw.miss_config(cam))
+    k = cw.wavefront_grad_fwd(*args)
+    torch.cuda.synchronize()
+    p = cw._wavefront_grad_fwd_plain(*args)
+    for a, b in zip(k, p):
+        assert a.shape == b.shape and torch.equal(a, b)
+    if order == "lengths-in-turn":
+        first = _path_lengths(*args[:6], depth)[:32]
+        assert int(first.min()) == 1 and int(first.max()) == depth
+
+
 @pytest.mark.cuda
 def test_cuda_grad_wrappers_reject_what_the_kernels_do_not_take():
     if not torch.cuda.is_available():
@@ -355,6 +413,61 @@ def test_cuda_pathwise_forward_with_tables_beside_its_rows(n_spheres):
     for a, b in zip(k, p):
         assert a.shape == b.shape and torch.equal(a, b)
     assert bool((k[4][:, 2] & cw.PW_METAL).any()) and bool((k[4][:, 2] & cw.PW_DIELECTRIC).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene_name, miss_mode, lane_sums", [
+    ("cornell-glossy", cw.MISS_FLAT, True), ("mixed-sky", cw.MISS_SKY, True),
+    ("hdri", cw.MISS_STREAM, True), ("many-textures", cw.MISS_SKY, False)])
+def test_cuda_pathwise_reverse_tiles_on_lanes_ending_at_every_depth(scene_name, miss_mode,
+                                                                    lane_sums):
+    """On a GPU: the pathwise reverse sweep without marble (B5b <19>) sorts
+    each tile of 128 rays by path length and sums a column of accumulators a
+    lane where they fit (else a row a warp).  On rays in turns of path
+    length (the lanes of every warp end at every depth, so the sort has
+    work), with the flat background, the sky and an environment's miss rows
+    (the cotangent of the miss direction as a row), and on both routes:
+    each key within 1e-4 of its plain version's largest entry, and the same
+    bits on two launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    if scene_name == "hdri":
+        scene = build_mini_hdri(grtt, device="cuda")
+        cam = dataclasses.replace(tcamera.Camera(**MINI_HDRI_CAM), image_width=64)
+    elif scene_name == "many-textures":
+        scene = build_many_textures(grtt, device="cuda")
+        cam = dataclasses.replace(tcamera.Camera(**MANY_TEXTURES_CAM), image_width=64)
+    else:
+        scene, cam = _pathwise_scene(scene_name)
+    depth, n = cam.max_depth, 16384
+    n_tex = int(scene.textures.color.shape[0])
+    n_mat = int(scene.materials.kind.shape[0])
+    assert cw.pathwise_rev_lane_sums(9 * n_tex + 2 * n_mat) == lane_sums
+    tb = cw.build_tables(scene)
+    o, d, tm, ids = _rays(cam, n, 7, "cuda")
+    sid = cw.stream_to_i32(ids)
+    g3 = torch.rand((3, n), device="cuda", generator=torch.Generator("cuda").manual_seed(2)) * 1e-3
+    _, carry = cw.grad_fwd_stash(scene, cam, o, d, tm, sid, 7, pathwise=True)
+    if miss_mode == cw.MISS_STREAM:
+        mc, lmd, _ = cw._env_miss_terms(scene, cam, carry[3], g3, want_lmd=True)
+    else:
+        mc, lmd = carry[0], None
+        assert int(cw.miss_config(cam)[0]) == miss_mode
+    sf, si = carry[1], carry[2]
+    length = ((si[:, 2] & (cw.PW_HIT | cw.PW_LIT)) != 0).sum(dim=0)
+    idx = lengths_in_turn(length, depth)
+    assert int(length[idx[:32]].min()) == 1 and int(length[idx[:32]].max()) == depth
+    rev = (tb, sf[:, :, idx].contiguous(), si[:, :, idx].contiguous(), g3[:, idx].contiguous(),
+           mc[:, idx].contiguous(), sid[idx].contiguous(), 7, miss_mode, n_tex, n_mat,
+           None if lmd is None else lmd[:, idx].contiguous())
+    before = cw.LAUNCHES_GRAD_REV_PATHWISE
+    gk, gk2 = cw.wavefront_grad_rev_pathwise(*rev), cw.wavefront_grad_rev_pathwise(*rev)
+    assert cw.LAUNCHES_GRAD_REV_PATHWISE == before + 2
+    gp = cw._wavefront_grad_rev_pathwise_plain(*rev)
+    for a, a2, b in zip(gk, gk2, gp):
+        assert torch.equal(a, a2)
+        assert torch.isfinite(a).all() and float(b.abs().max()) > 1e-5
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
 @pytest.mark.cuda

@@ -314,6 +314,44 @@ NOISE_GLOSSY_CAM = dict(
 )
 
 
+def build_many_textures(pkg, n_spheres=12, **build_kwargs):
+    """A checker floor under a quad light and a row of ``n_spheres`` spheres
+    that take metal, glass and lambertian in turn, each with a colour of its
+    own: 9 accumulators a texture and 2 a material, 418 at 12 spheres, more
+    than the pathwise reverse sweep without marble sums a column a lane
+    (the route of its warp sums)."""
+    b = pkg.SceneBuilder()
+    b.plane((0, 0, 0), (0, 1, 0),
+            b.lambertian(b.checker(0.7, (0.2, 0.3, 0.1), (0.9, 0.9, 0.8))))
+    for j in range(n_spheres):
+        col = (0.3 + 0.05 * j, 0.9 - 0.05 * j, 0.2 + 0.03 * j)
+        mat = (b.metal(col, 0.05 * j), b.dielectric(1.3 + 0.02 * j), b.lambertian(col))[j % 3]
+        b.sphere((-5.5 + j, 0.45, (j % 2) * 0.8), 0.45, mat)
+    b.add_light(b.quad((-2, 5, -2), (4, 0, 0), (0, 0, 4), b.diffuse_light((10, 10, 10))))
+    return b.build(**build_kwargs)
+
+
+MANY_TEXTURES_CAM = dict(
+    image_width=16, aspect_ratio=1.0, samples_per_pixel=4, max_depth=5,
+    look_from=(0, 3, 9), look_at=(0, 0.5, 0), vfov=60.0, use_sky_gradient=True,
+)
+
+
+def lengths_in_turn(length, depth):
+    """Indices that set rays in turns of path length 1, 2, ..., ``depth``, 1,
+    2, ... (``length``: [R] the bounces each ray enters), as long as every
+    length lasts, then the rest in their order: a warp's 32 lanes then end
+    at every depth."""
+    import torch
+
+    groups = [torch.nonzero(length == n).flatten() for n in range(1, depth + 1)]
+    m = min(g.numel() for g in groups)
+    head = torch.stack([g[:m] for g in groups], dim=1).flatten()
+    taken = torch.zeros(length.shape[0], dtype=torch.bool, device=length.device)
+    taken[head] = True
+    return torch.cat([head, torch.nonzero(~taken).flatten()])
+
+
 def build_random_prims(pkg, n_spheres=40, n_planar=True, seed=0, **build_kwargs):
     """The random scene of tests/test_pallas.py's intersection tests
     (spheres, three in ten of them moving, and one or two of each planar
