@@ -184,8 +184,9 @@ namespace {
 // registers (measured against no target, five, seven and eight, PERF.md);
 // the culled instantiations of the forward, the record and the resumable
 // kernel (CULL: a scene with segments) six, 24 warps at up to 85
-// registers, which random's tables in shared memory also allow (measured against no target, five and, for B11,
-// four, PERF.md); the others MIN_BLOCKS_UNSET, which sets no minimum and
+// registers, which random's tables in shared memory also allow (measured
+// against no target, five and, for B11, four, PERF.md); the others
+// MIN_BLOCKS_UNSET, which sets no minimum and
 // leaves their registers to the compiler as before (a minimum of 1 is not
 // the same: it took B1 from 96 to 122).  The forward's brute instantiation
 // keeps that: six blocks took it from 1.82 to 2.14 ms on hdri-test's glass

@@ -2100,9 +2100,9 @@ def _wavefront_grad_fused_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
             mats[:, 1].contiguous(), eout)
 
 
-def _occupancy(library: str, function: str, *ints):
-    fn = _kernel(library, function, [_I] * len(ints) + [ctypes.POINTER(ctypes.c_int)] * 2)
-    out = [ctypes.c_int() for _ in range(2)]
+def _occupancy(library: str, function: str, *ints, outputs: int = 2):
+    fn = _kernel(library, function, [_I] * len(ints) + [ctypes.POINTER(ctypes.c_int)] * outputs)
+    out = [ctypes.c_int() for _ in range(outputs)]
     err = fn(*(int(i) for i in ints), *(ctypes.byref(c) for c in out))
     if err != 0:
         raise RuntimeError(f"{function} failed: CUDA error {err}")
@@ -2138,13 +2138,8 @@ def grad_rev_occupancy(n_acc: int):
 def pathwise_rev_occupancy(marble: bool, n_acc: int):
     """(blocks an SM holds at once, threads a block, shared bytes a block)
     of the pathwise reverse sweep at ``n_acc`` accumulators."""
-    fn = _kernel("wavefront_grad_pathwise", "wavefront_grad_rev_pathwise_occupancy",
-                 [_I] * 2 + [ctypes.POINTER(ctypes.c_int)] * 3)
-    out = [ctypes.c_int() for _ in range(3)]
-    err = fn(int(marble), int(n_acc), *(ctypes.byref(c) for c in out))
-    if err != 0:
-        raise RuntimeError(f"wavefront_grad_rev_pathwise_occupancy failed: CUDA error {err}")
-    return tuple(c.value for c in out)
+    return _occupancy("wavefront_grad_pathwise", "wavefront_grad_rev_pathwise_occupancy",
+                      marble, n_acc, outputs=3)
 
 
 def pathwise_rev_block_rays(f_rows: int) -> int:
