@@ -262,12 +262,14 @@ CARD_YARDSTICK = {"wavefront_fwd": 2.718, "wavefront_grad_rev": 0.503,
 # whose first kernel is B1).
 UNCHANGED_KERNELS = {"wavefront_kernelILi0ELb0E": (96, 0),
                      "wavefront_resume_kernelILb0E": (96, 84)}
-# The pathwise reverse sweep without marble: its instantiations by route
-# (wavefront_grad_pathwise.cu), a column of sums a lane and a row a warp.
-B5B_LANE_TAG = "wavefront_grad_rev_pathwise_tiles_kernelILi2E"
-B5B_WARP_TAG = "wavefront_grad_rev_pathwise_tiles_kernelILi1E"
+# The pathwise reverse sweep without marble: its kernels by route
+# (wavefront_grad_pathwise.cu), the tiles summing a column a lane and, above
+# 93 accumulators, the design it shares with the marble stash (a row a warp).
+B5B_LANE_TAG = "wavefront_grad_rev_pathwise_tiles_kernel"
+B5B_WARP_TAG = "wavefront_grad_rev_pathwise_kernelILi19E"
 # The times of the two kernels last redesigned, in their previous design
-# (PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W), printed beside the new.
+# (PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W), printed in their phase
+# lines beside the new.
 PREVIOUS_DESIGN_MS = {"wavefront_grad_fwd": 3.088, "wavefront_grad_rev_pathwise": 1.806}
 
 
@@ -658,8 +660,7 @@ def grad_kernel_timing(scene, rays, cam, entering, render_grad_launches,
               "go_raytracing_tpu/ops/pallas_wavefront.py:2087 (_call_grad_fwd)",
               render_grad_launches[0], fwd_ms, plain_fwd_ms, fwd_bound,
               [fwd_err] + [c[1] for c in small_checks])
-        | {"mismatch_share": max([mismatch] + [c[0] for c in small_checks]),
-           "previous_design_ms_perf_md": PREVIOUS_DESIGN_MS["wavefront_grad_fwd"]},
+        | {"mismatch_share": max([mismatch] + [c[0] for c in small_checks])},
         entry("wavefront_grad_rev", "go_raytracing_tpu_torch/csrc/wavefront_grad.cu",
               "go_raytracing_tpu/ops/pallas_wavefront.py:2162 (_call_grad_rev)",
               render_grad_launches[1], rev_ms, plain_rev_ms, rev_bound,
@@ -780,7 +781,8 @@ def compare_pathwise(scene, cam, seed, name):
         raise RuntimeError(f"{name}: pathwise reverse kernel off by {rev_rel:.2e}")
     if not same_bits:
         raise RuntimeError(f"{name}: two launches of the reverse kernel differ")
-    if not (turns["err_of_largest"] <= REV_RTOL_OF_LARGEST and turns["same_bits_twice"]):
+    if not (turns["err_of_largest"] <= REV_RTOL_OF_LARGEST and turns["same_bits_twice"]
+            and turns["first_warp_ends_at_every_depth"]):
         raise RuntimeError(f"{name}: the reverse kernel on rays in turns of length: {turns}")
     if float(gk[1].abs().max()) == 0.0 or float(gk[2].abs().max()) == 0.0:
         raise RuntimeError(f"{name}: no fuzz or no ior gradient")
@@ -966,8 +968,8 @@ def pathwise_kernel_timing(scene, cam, launches, small_checks):
                   + tb.n_vol * FLOPS_VOLUME + FLOPS_SHADE)
     fwd_bound = (fwd_bytes / PEAK_BYTES_PER_S * 1e3,
                  float(sum(entered)) * per_bounce / PEAK_FP32_FLOPS * 1e3)
-    block_rays = cw.pathwise_rev_block_rays(cw.PW_STASH_F_ROWS)
     n_acc = 9 * n_tex + 2 * n_mat
+    block_rays = cw.pathwise_rev_block_rays(cw.PW_STASH_F_ROWS, n_acc)
     rev_bytes = ((stash_rows + 3 + 3 + 1) * 4 * n
                  + 4 * n_acc * -(-n // block_rays)
                  + 4 * (tb.vt.numel() + tb.lt.numel()))
@@ -1011,8 +1013,7 @@ def pathwise_kernel_timing(scene, cam, launches, small_checks):
               "(_call_grad_rev, pathwise=True)",
               launches[1], rev_ms, plain_rev_ms, rev_bound,
               [rev_err] + [c[2] for c in small_checks])
-        | {"previous_design_ms_perf_md": PREVIOUS_DESIGN_MS["wavefront_grad_rev_pathwise"],
-           "routes_checked": sorted({"lane" if c[3] else "warp" for c in small_checks})},
+        | {"routes_checked": sorted({"lane" if c[3] else "warp" for c in small_checks})},
     )
 
 
@@ -2788,10 +2789,15 @@ def env_kernel_timing(hdri, nee, cam, chunks, launches, small):
     mc, lmd, _ = cw._env_miss_terms(hdri, cam, carry[3], g3, want_lmd=True)
     rev = (cw.build_tables(hdri), carry[1], carry[2], g3, mc, sid, 0, cw.MISS_STREAM,
            int(hdri.textures.color.shape[0]), int(hdri.materials.kind.shape[0]), lmd)
-    cw.wavefront_grad_rev_pathwise(*rev)
-    b5b_rounds, _ = rounds_ms(lambda: cw.wavefront_grad_rev_pathwise(*rev), rounds=3,
-                              repeats=2)
-    del rev, carry, mc, lmd, g3
+    first = cw.wavefront_grad_rev_pathwise(*rev)
+    b5b_rounds, gk = rounds_ms(lambda: cw.wavefront_grad_rev_pathwise(*rev), rounds=3,
+                               repeats=2)
+    b5b_same_bits = all(bool(torch.equal(x, y)) for x, y in zip(first, gk))
+    b5b_err, b5b_rel = pathwise_rev_err(gk, cw._wavefront_grad_rev_pathwise_plain(*rev))
+    del rev, carry, mc, lmd, g3, first, gk
+    if not (b5b_rel <= REV_RTOL_OF_LARGEST and b5b_same_bits):
+        raise RuntimeError(f"hdri-test chunk: B5b with the environment's rows off by "
+                           f"{b5b_rel:.2e} of the plain version, same bits {b5b_same_bits}")
 
     emit("env_kernel_timing", rays_per_launch=n, depth=depth,
          rays_entering_bounce=entering, hdri_sampling_ray_bounces=mis_bounces,
@@ -2806,7 +2812,9 @@ def env_kernel_timing(hdri, nee, cam, chunks, launches, small):
          b1_no_hdri_ms=median(b1_rounds), b1_no_hdri_ms_rounds=b1_rounds,
          b1_hdri_bound_bytes_ms=b1h_bound[0], b1_hdri_bound_ops_ms=b1h_bound[1],
          b5b_stream_rays_per_launch=n_h, b5b_stream_ms=median(b5b_rounds),
-         b5b_stream_ms_rounds=b5b_rounds, small_checks=small)
+         b5b_stream_ms_rounds=b5b_rounds, b5b_stream_max_abs_err=b5b_err,
+         b5b_stream_err_of_largest=b5b_rel, b5b_stream_two_launches_same_bits=b5b_same_bits,
+         small_checks=small)
     entry = kernel_entry(n, "wavefront_grad_fused",
                          "go_raytracing_tpu_torch/csrc/wavefront_grad_fused.cu",
                          "go_raytracing_tpu/ops/pallas_wavefront.py:2005 (_call_grad, "
@@ -2817,7 +2825,7 @@ def env_kernel_timing(hdri, nee, cam, chunks, launches, small):
     return entry, dict(hdri_rays_per_launch=n, hdri_ms=median(b1h_rounds),
                        no_hdri_ms_same_rays=median(b1_rounds),
                        hdri_bound_ms=max(b1h_bound)), dict(
-        stream_rays_per_launch=n_h, stream_ms=median(b5b_rounds))
+        stream_rays_per_launch=n_h, stream_ms=median(b5b_rounds), stream_max_abs_err=b5b_err)
 
 
 def env_phases(dev, out_dir):
@@ -3697,8 +3705,8 @@ def marble_kernel_timing(glossy, cam, nee, nee_cam, chunks, launches, small):
     fwd_bound = (((8 + 10 + 3 + stash_rows) * 4 * n + table_bytes) / PEAK_BYTES_PER_S * 1e3,
                  ((entered * per_bounce + marble * FLOPS_MARBLE) / PEAK_FP32_FLOPS
                   + marble * INT_OPS_MARBLE / PEAK_INT32_OPS) * 1e3)
-    block_rays = cw.pathwise_rev_block_rays(cw.PW_STASH_F_ROWS_MARBLE)
     n_acc = 9 * n_tex + 2 * n_mat
+    block_rays = cw.pathwise_rev_block_rays(cw.PW_STASH_F_ROWS_MARBLE, n_acc)
     rev_bound = (((stash_rows + 3 + 3 + 1) * 4 * n + 4 * n_acc * -(-n // block_rays)
                   + 4 * (tb.vt.numel() + tb.lt.numel())) / PEAK_BYTES_PER_S * 1e3,
                  ((entered * FLOPS_REVERSE_PATHWISE + marble * FLOPS_MARBLE_GRAD)
@@ -4021,7 +4029,7 @@ def main():
     # <20> of a scene with marble (dmarble/dp compiled in); the fused
     # kernel: <19>, and <22> in a scene with marble (dmarble/dp stashed)
     # <19> without marble: the tiles, a column of sums a lane (and, above
-    # the accumulators that fit, a row a warp)
+    # the accumulators that fit, the design it shares with <20>, a row a warp)
     prev_regs, prev_spill = kernel_stats(built_pw, B5B_LANE_TAG)
     prev_warp = kernel_stats(built_pw, B5B_WARP_TAG)
     prev_marble = kernel_stats(built_pw, "wavefront_grad_rev_pathwise_kernelILi20E")

@@ -64,8 +64,9 @@
 // costs one pass per distinct key present in the warp.  The per-ray sweep
 // lives in wavefront_reverse.cuh, which the fused kernel shares.
 //
-// Without marble (B5b <19>) the kernel is a design of its own
-// (wavefront_grad_rev_pathwise_tiles_kernel).  What held the design above
+// Without marble (B5b <19>), where its accumulators fit a column a lane, the
+// kernel is a design of its own (wavefront_grad_rev_pathwise_tiles_kernel).
+// What held the design above
 // back on this card, measured on cornell-glossy's rays (PERF.md): the keyed
 // sums, which loop over the keys a warp's lanes hold, a ballot and 5
 // shuffles a channel each, three times a bounce (a column of sums a lane
@@ -78,15 +79,16 @@
 //     shared memory gives slot t the tile's t-th longest ray, so a warp's
 //     lanes hold rays of one length wherever the tile has them, and a lane
 //     sweeps its own ray's bounces only;
-//   * where [n_acc, REV_TILE] floats fit the 48 KB of a block (n_acc up to
-//     93), each lane adds its cotangents to its own column of accumulators,
-//     in its program order (no key loop, no shuffle, no bank conflict: lane
-//     t's column word of key j is at j * REV_TILE + t), and the block adds
-//     its lanes' columns in a fixed order; above that, warp_add into a row a
-//     warp as before, each warp from its longest ray's last bounce;
+//   * [n_acc, REV_TILE] floats in the 48 KB of a block (n_acc up to 93):
+//     each lane adds its cotangents to its own column of accumulators, in
+//     its program order (no key loop, no shuffle, no bank conflict: lane t's
+//     column word of key j is at j * REV_TILE + t), and the block adds its
+//     lanes' columns in a fixed order;
 //   * the order of every sum depends on the ray count and the stash alone,
 //     so a launch gives the same bits every run (not the warp sums' of the
 //     render's order: the sums run in another order).
+// Above 93 accumulators a scene without marble runs the design of the top
+// (wavefront_grad_rev_pathwise_kernel<PW_F_ROWS>).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -106,8 +108,8 @@ constexpr int MAX_ACC = (int)(SMEM_LIMIT / (WARPS * sizeof(float)));
 
 // B5b without marble: tiles of REV_TILE rays (see above).  LEN_KEYS sort
 // keys (path lengths 0 .. LEN_KEYS - 1, longer paths share the last); after
-// the accumulators a block holds the keys' counts a warp, the counts of the
-// longer keys, the tile's order and its rays' lengths.
+// the [n_acc, REV_TILE] accumulators a block holds the keys' counts a warp,
+// the counts of the longer keys, the tile's order and its rays' lengths.
 constexpr int TILE_WARPS = REV_TILE / 32;
 constexpr int TILE_RAYS_PER_THREAD = 8;
 constexpr int TILE_BLOCK_RAYS = REV_TILE * TILE_RAYS_PER_THREAD;
@@ -115,32 +117,28 @@ constexpr int TILE_BLOCKS_PER_SM = 4;
 constexpr int LEN_KEYS = 16;
 constexpr size_t TILE_INT_BYTES = sizeof(int) * (TILE_WARPS * LEN_KEYS + LEN_KEYS + 2 * REV_TILE);
 
-size_t tile_smem(int n_acc, bool lane_sums) {
-    return sizeof(float) * (lane_sums ? (size_t)n_acc * REV_TILE : (size_t)TILE_WARPS * n_acc) +
-           TILE_INT_BYTES;
-}
+size_t tile_smem(int n_acc) { return sizeof(float) * (size_t)n_acc * REV_TILE + TILE_INT_BYTES; }
 
-// The route of B5b <19> by its accumulators: a column a lane where they fit.
-bool tile_lane_sums(int n_acc) { return tile_smem(n_acc, true) <= SMEM_LIMIT; }
+// The route of B5b <19> by its accumulators: the tiles where a column a lane
+// fits, else the design of the top.
+bool tile_lane_sums(int n_acc) { return tile_smem(n_acc) <= SMEM_LIMIT; }
 
-template <int SUMS>
 __global__ void __launch_bounds__(REV_TILE, TILE_BLOCKS_PER_SM)
 wavefront_grad_rev_pathwise_tiles_kernel(
     RevScene R, const float* __restrict__ stash_f, const int* __restrict__ stash_i,
     const float* __restrict__ g3, const float* __restrict__ miss_col,
     const float* __restrict__ lmd, const uint32_t* __restrict__ stream,
     float* __restrict__ partial, long long n_rays, uint32_t seed, int depth) {
-    constexpr bool LANE = SUMS == SUMS_TILE_LANE;
-    extern __shared__ float smem[];  // LANE: [n_acc, REV_TILE], else [TILE_WARPS, n_acc]
+    extern __shared__ float smem[];  // [n_acc, REV_TILE]
     const int n_acc = R.n_acc;
-    const int n_floats = LANE ? n_acc * REV_TILE : TILE_WARPS * n_acc;
+    const int n_floats = n_acc * REV_TILE;
     int* counts = reinterpret_cast<int*>(smem + n_floats);  // [TILE_WARPS, LEN_KEYS]
     int* above = counts + TILE_WARPS * LEN_KEYS;              // [LEN_KEYS]
     int* order = above + LEN_KEYS;                            // [REV_TILE]
     int* lens = order + REV_TILE;                             // [REV_TILE]
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
     for (int j = t; j < n_floats; j += REV_TILE) smem[j] = 0.0f;
-    float* acc = LANE ? smem + t : smem + warp * n_acc;
+    float* acc = smem + t;
     const size_t n = (size_t)n_rays;
 
     for (int it = 0; it < TILE_RAYS_PER_THREAD; ++it) {
@@ -189,35 +187,27 @@ wavefront_grad_rev_pathwise_tiles_kernel(
             }
             sid = stream[i];
         }
-        reverse_ray<PW_F_ROWS, false, SUMS>(R, valid, stash_f + at, stash_i + at, n_rays,
+        reverse_ray<PW_F_ROWS, false, true>(R, valid, stash_f + at, stash_i + at, n_rays,
                                              depth, g, mc, lm, sid, seed, nullptr, 0, nullptr,
                                              0, acc, lane, lens[t]);
     }
 
     __syncthreads();
-    if constexpr (LANE) {
-        // a warp a key at a time: lane l adds words l, l + 32, ... of the
-        // key's row, then the warp's butterfly; fixed order
-        for (int j = warp; j < n_acc; j += TILE_WARPS) {
-            const float* row = smem + (size_t)j * REV_TILE;
-            float x = 0.0f;
+    // a warp a key at a time: lane l adds words l, l + 32, ... of the key's
+    // row, then the warp's butterfly; fixed order
+    for (int j = warp; j < n_acc; j += TILE_WARPS) {
+        const float* row = smem + (size_t)j * REV_TILE;
+        float x = 0.0f;
 #pragma unroll
-            for (int m = 0; m < REV_TILE / 32; ++m) x += row[m * 32 + lane];
+        for (int m = 0; m < REV_TILE / 32; ++m) x += row[m * 32 + lane];
 #pragma unroll
-            for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(FULL_MASK, x, off);
-            if (lane == 0) partial[(size_t)blockIdx.x * n_acc + j] = x;
-        }
-    } else {
-        for (int j = t; j < n_acc; j += REV_TILE) {
-            float x = 0.0f;
-#pragma unroll
-            for (int w = 0; w < TILE_WARPS; ++w) x += smem[w * n_acc + j];
-            partial[(size_t)blockIdx.x * n_acc + j] = x;
-        }
+        for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(FULL_MASK, x, off);
+        if (lane == 0) partial[(size_t)blockIdx.x * n_acc + j] = x;
     }
 }
 
-// B5b with marble (F_ROWS PW_F_ROWS_MARBLE): the design of the top.
+// B5b with marble (F_ROWS PW_F_ROWS_MARBLE), and without it above 93
+// accumulators (PW_F_ROWS): the design of the top.
 template <int F_ROWS>
 __global__ void __launch_bounds__(THREADS)
 wavefront_grad_rev_pathwise_kernel(
@@ -266,16 +256,16 @@ wavefront_grad_rev_pathwise_kernel(
 
 }  // namespace
 
-// Rays one block sweeps, of a stash of f_rows float rows a bounce: the
-// wrapper sizes `partial` as [ceil(n_rays / this), n_acc].
-extern "C" int wavefront_grad_rev_pathwise_block_rays(int f_rows) {
-    return f_rows == PW_F_ROWS ? TILE_BLOCK_RAYS : BLOCK_RAYS;
-}
-
 // Without marble: 1 where the kernel sums a column a lane (n_acc
-// accumulators fit), 0 where it sums a row a warp.
+// accumulators fit: the tiles), 0 where it sums a row a warp.
 extern "C" int wavefront_grad_rev_pathwise_lane_sums(int n_acc) {
     return tile_lane_sums(n_acc) ? 1 : 0;
+}
+
+// Rays one block sweeps, of a stash of f_rows float rows a bounce at n_acc
+// accumulators: the wrapper sizes `partial` as [ceil(n_rays / this), n_acc].
+extern "C" int wavefront_grad_rev_pathwise_block_rays(int f_rows, int n_acc) {
+    return f_rows == PW_F_ROWS && tile_lane_sums(n_acc) ? TILE_BLOCK_RAYS : BLOCK_RAYS;
 }
 
 // Blocks an SM holds at once (marble: the instantiation of a scene with
@@ -285,16 +275,15 @@ extern "C" int wavefront_grad_rev_pathwise_occupancy(int marble, int n_acc, int*
                                                      int* threads, int* smem_bytes) {
     const void* fn;
     size_t smem;
-    if (marble) {
-        fn = (const void*)wavefront_grad_rev_pathwise_kernel<PW_F_ROWS_MARBLE>;
+    if (!marble && tile_lane_sums(n_acc)) {
+        fn = (const void*)wavefront_grad_rev_pathwise_tiles_kernel;
+        smem = tile_smem(n_acc);
+        *threads = REV_TILE;
+    } else {
+        fn = marble ? (const void*)wavefront_grad_rev_pathwise_kernel<PW_F_ROWS_MARBLE>
+                    : (const void*)wavefront_grad_rev_pathwise_kernel<PW_F_ROWS>;
         smem = (size_t)WARPS * n_acc * sizeof(float);
         *threads = THREADS;
-    } else {
-        const bool lane = tile_lane_sums(n_acc);
-        fn = lane ? (const void*)wavefront_grad_rev_pathwise_tiles_kernel<SUMS_TILE_LANE>
-                  : (const void*)wavefront_grad_rev_pathwise_tiles_kernel<SUMS_TILE_WARP>;
-        smem = tile_smem(n_acc, lane);
-        *threads = REV_TILE;
     }
     *smem_bytes = (int)smem;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, *threads, smem);
@@ -322,24 +311,27 @@ extern "C" int wavefront_grad_rev_pathwise_launch(
         miss_mode < 0 || miss_mode > 2 || (miss_mode == 2) != (lmd != nullptr) ||
         (f_rows != PW_F_ROWS && f_rows != PW_F_ROWS_MARBLE))
         return (int)cudaErrorInvalidValue;
-    const long long block_rays = wavefront_grad_rev_pathwise_block_rays(f_rows);
+    const long long block_rays = wavefront_grad_rev_pathwise_block_rays(f_rows, n_acc);
     const long long blocks = (n_rays + block_rays - 1) / block_rays;
     if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
     const RevScene R{lt, n_lights, n_lights > 0 ? n_lights : 1,
                      vt, n_vol, n_vol > 0 ? n_vol : 1, n_col, n_acc, miss_mode};
     const cudaStream_t cs = (cudaStream_t)cuda_stream;
-    if (f_rows == PW_F_ROWS_MARBLE) {
+    const size_t smem = (size_t)WARPS * n_acc * sizeof(float);
+    if (f_rows == PW_F_ROWS_MARBLE)
         wavefront_grad_rev_pathwise_kernel<PW_F_ROWS_MARBLE>
-            <<<(unsigned int)blocks, THREADS, (size_t)WARPS * n_acc * sizeof(float), cs>>>(
+            <<<(unsigned int)blocks, THREADS, smem, cs>>>(
                 R, stash_f, stash_i, g3, miss_col, lmd, (const uint32_t*)stream,
                 partial, n_rays, seed, depth);
-    } else {
-        const bool lane = tile_lane_sums(n_acc);
-        auto kernel = lane ? wavefront_grad_rev_pathwise_tiles_kernel<SUMS_TILE_LANE>
-                           : wavefront_grad_rev_pathwise_tiles_kernel<SUMS_TILE_WARP>;
-        kernel<<<(unsigned int)blocks, REV_TILE, tile_smem(n_acc, lane), cs>>>(
+    else if (tile_lane_sums(n_acc))
+        wavefront_grad_rev_pathwise_tiles_kernel<<<(unsigned int)blocks, REV_TILE,
+                                                   tile_smem(n_acc), cs>>>(
             R, stash_f, stash_i, g3, miss_col, lmd, (const uint32_t*)stream, partial,
             n_rays, seed, depth);
-    }
+    else
+        wavefront_grad_rev_pathwise_kernel<PW_F_ROWS>
+            <<<(unsigned int)blocks, THREADS, smem, cs>>>(
+                R, stash_f, stash_i, g3, miss_col, lmd, (const uint32_t*)stream,
+                partial, n_rays, seed, depth);
     return (int)cudaGetLastError();
 }

@@ -104,16 +104,6 @@ struct RevScene {
     int miss_mode;     // 0 flat, 1 sky, 2 per-ray colour and direction cotangent
 };
 
-// How reverse_ray sums and where a lane starts.  SUMS_WARP: every lane of
-// the warp from the top bounce (depth, or the fused kernel's deepest
-// entered), warp_add into the warp's row.  The tiles of B5b without marble,
-// whose rays stand in order of path length (`len` the ray's): SUMS_TILE_WARP
-// from the deepest bounce a lane of the warp entered, warp_add;
-// SUMS_TILE_LANE each lane from its own ray's deepest bounce, lane_add into
-// its column of [n_acc, REV_TILE].
-constexpr int SUMS_WARP = 0;
-constexpr int SUMS_TILE_WARP = 1;
-constexpr int SUMS_TILE_LANE = 2;
 constexpr int REV_TILE = 128;   // threads (and rays) of a tile of B5b's
 
 // The miss mode of a sweep whose miss colour came from an environment map:
@@ -132,7 +122,10 @@ constexpr int REV_MISS_STREAM = 2;
 // warp met marble.  FUSED: the fused kernel's own stash, which holds the
 // `len` bounces the ray entered and nothing after them (PW_F_ROWS, or
 // PW_F_ROWS_FUSED_MARBLE with dmarble/dp as rows 19-21); the sweep starts at
-// the deepest bounce a lane of the warp entered.
+// the deepest bounce a lane of the warp entered.  LANE_SUMS: the tiles of
+// B5b without marble, whose rays stand in order of path length; each lane
+// starts at its own ray's deepest bounce (`len`) and adds with lane_add into
+// its own column of [n_acc, REV_TILE], not with the warp's warp_add.
 //   f, q, zs: the ray's pathwise stash, float row r of bounce k at
 //             f[(k * F_ROWS + r) * zs], int row r at q[(k * 3 + r) * zs];
 //   g, mc:    the cotangent of the ray's radiance, its miss colour (0 if it
@@ -141,17 +134,17 @@ constexpr int REV_MISS_STREAM = 2;
 //   hd, hs:   the ray's HDRI rows (7 a bounce, stride hs) or null;
 //   eout, es: with hd, the cotangent of each bounce's environment sample's
 //             texel (3 a bounce, stride es), written for every bounce;
-//   acc:      the warp's row of accumulators, or with SUMS_TILE_LANE the
-//             lane's column;
-//   len:      FUSED and the tiles: the bounces the ray entered.
-template <int F_ROWS, bool FUSED = false, int SUMS = SUMS_WARP>
+//   acc:      the warp's row of accumulators, or with LANE_SUMS the lane's
+//             column;
+//   len:      FUSED and LANE_SUMS: the bounces the ray entered.
+template <int F_ROWS, bool FUSED = false, bool LANE_SUMS = false>
 __device__ __forceinline__ void reverse_ray(
     const RevScene& R, bool valid, const float* f, const int* q, long long zs,
     int depth, const float g[3], const float mc[3], const float lmd[3],
     uint32_t sid, uint32_t seed, const float* hd, long long hs, float* eout,
     long long es, float* acc, int lane, int len = 0) {
-    static_assert(SUMS == SUMS_WARP || (F_ROWS == PW_F_ROWS && !FUSED),
-                  "the tiles' routes are B5b's without marble");
+    static_assert(!LANE_SUMS || (F_ROWS == PW_F_ROWS && !FUSED),
+                  "the lane sums are B5b's without marble");
     const float nl = (float)R.n_lights;
     const float sky_s[3] = {0.5f, 0.7f, 1.0f};
     float lo[3] = {0.0f, 0.0f, 0.0f};
@@ -159,8 +152,7 @@ __device__ __forceinline__ void reverse_ray(
     float ltp[3] = {0.0f, 0.0f, 0.0f};
 
     int top = depth;
-    if constexpr (SUMS == SUMS_TILE_WARP) top = __reduce_max_sync(FULL_MASK, valid ? len : 0);
-    if constexpr (SUMS == SUMS_TILE_LANE) top = valid ? len : 0;
+    if constexpr (LANE_SUMS) top = valid ? len : 0;
     if constexpr (FUSED) {
         // bounces no lane of the warp entered add nothing: their eout rows
         // are zeros
@@ -492,7 +484,7 @@ __device__ __forceinline__ void reverse_ray(
 #pragma unroll
             for (int c = 0; c < 3; ++c) eout[((size_t)k * 3 + c) * es] = cot_env[c];
         }
-        if constexpr (SUMS == SUMS_TILE_LANE) {
+        if constexpr (LANE_SUMS) {
             lane_add<3, REV_TILE>(acc, akey, cot_alb);
             lane_add<3, REV_TILE>(acc, lkey, cot_lem);
             lane_add<2, REV_TILE>(acc, mkey, cot_mat);

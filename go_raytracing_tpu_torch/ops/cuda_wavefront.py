@@ -1997,7 +1997,7 @@ def _wavefront_grad_rev_pathwise_cuda(tb: Tables, stash_f, stash_i, g3,
         sums = torch.zeros(n_acc, dtype=torch.float32, device=dev)
     else:
         lib = "wavefront_grad_pathwise"
-        block_rays = pathwise_rev_block_rays(stash_f.shape[1])
+        block_rays = pathwise_rev_block_rays(stash_f.shape[1], n_acc)
         partial = torch.empty((-(-r // block_rays), n_acc), dtype=torch.float32,
                               device=dev)
         fn = _kernel(lib, "wavefront_grad_rev_pathwise_launch",
@@ -2142,16 +2142,18 @@ def pathwise_rev_occupancy(marble: bool, n_acc: int):
                       marble, n_acc, outputs=3)
 
 
-def pathwise_rev_block_rays(f_rows: int) -> int:
+def pathwise_rev_block_rays(f_rows: int, n_acc: int) -> int:
     """Rays a block of the pathwise reverse sweep takes (one row of partial
-    sums each) for a stash of ``f_rows`` float rows a bounce."""
+    sums each) for a stash of ``f_rows`` float rows a bounce at ``n_acc``
+    accumulators."""
     return _kernel("wavefront_grad_pathwise", "wavefront_grad_rev_pathwise_block_rays",
-                   [_I])(int(f_rows))
+                   [_I, _I])(int(f_rows), int(n_acc))
 
 
 def pathwise_rev_lane_sums(n_acc: int) -> bool:
     """Does the pathwise reverse sweep without marble sum ``n_acc``
-    accumulators a column a lane (True), or a row a warp?"""
+    accumulators a column a lane in tiles sorted by path length (True), or
+    a row a warp in the design it shares with the marble stash?"""
     return bool(_kernel("wavefront_grad_pathwise", "wavefront_grad_rev_pathwise_lane_sums",
                         [_I])(int(n_acc)))
 

@@ -428,7 +428,9 @@ def test_cuda_pathwise_reverse_tiles_on_lanes_ending_at_every_depth(scene_name, 
     work), with the flat background, the sky and an environment's miss rows
     (the cotangent of the miss direction as a row), and on both routes:
     each key within 1e-4 of its plain version's largest entry, and the same
-    bits on two launches."""
+    bits on two launches.  The order itself (``lengths_in_turn``) is a
+    permutation whose head takes the lengths in turns, and the plain sweep
+    gives the render order's sums on it."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
     if scene_name == "hdri":
@@ -456,6 +458,8 @@ def test_cuda_pathwise_reverse_tiles_on_lanes_ending_at_every_depth(scene_name, 
     sf, si = carry[1], carry[2]
     length = ((si[:, 2] & (cw.PW_HIT | cw.PW_LIT)) != 0).sum(dim=0)
     idx = lengths_in_turn(length, depth)
+    assert torch.equal(torch.sort(idx).values, torch.arange(n, device=idx.device))
+    assert length[idx[:2 * depth]].tolist() == list(range(1, depth + 1)) * 2
     assert int(length[idx[:32]].min()) == 1 and int(length[idx[:32]].max()) == depth
     rev = (tb, sf[:, :, idx].contiguous(), si[:, :, idx].contiguous(), g3[:, idx].contiguous(),
            mc[:, idx].contiguous(), sid[idx].contiguous(), 7, miss_mode, n_tex, n_mat,
@@ -464,10 +468,13 @@ def test_cuda_pathwise_reverse_tiles_on_lanes_ending_at_every_depth(scene_name, 
     gk, gk2 = cw.wavefront_grad_rev_pathwise(*rev), cw.wavefront_grad_rev_pathwise(*rev)
     assert cw.LAUNCHES_GRAD_REV_PATHWISE == before + 2
     gp = cw._wavefront_grad_rev_pathwise_plain(*rev)
-    for a, a2, b in zip(gk, gk2, gp):
+    in_order = cw._wavefront_grad_rev_pathwise_plain(tb, sf, si, g3, mc, sid, 7, miss_mode,
+                                                     n_tex, n_mat, lmd)
+    for a, a2, b, c in zip(gk, gk2, gp, in_order):
         assert torch.equal(a, a2)
         assert torch.isfinite(a).all() and float(b.abs().max()) > 1e-5
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+        assert float((b - c).abs().max()) <= 1e-6 * float(c.abs().max())
 
 
 @pytest.mark.cuda

@@ -20,7 +20,7 @@ import go_raytracing_tpu_torch as grtt
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from test_torch_helpers import (MINI_GLOSSY_CAM, PATHWISE_KEYS,
                                 build_mini_glossy, check_pathwise_forward,
-                                check_pathwise_reverse, lengths_in_turn, pathwise_case)
+                                check_pathwise_reverse, pathwise_case)
 
 torch.set_num_threads(2)
 
@@ -101,29 +101,3 @@ def test_pathwise_rev_is_linear_in_the_cotangent(key):
                               c["t_carry"], pathwise=True, stream=ids,
                               seed=c["seed"])
     np.testing.assert_array_equal(twice[key].numpy(), 2.0 * c["t_grads"][key])
-
-
-def test_pathwise_rev_of_rays_in_turns_of_length():
-    """The reverse sweep's sums do not depend on the rays' order: the same
-    stash, its rays in turns of path length (``lengths_in_turn``, the order
-    the GPU tests give the CUDA kernel so that each warp's lanes end at every
-    depth), gives the render order's gradients up to the rounding of the
-    order of the sums."""
-    c = _case()
-    miss_col, sf, si = c["t_carry"][:3]
-    ids = c["rays"][3]
-    depth = c["tcam"].max_depth
-    length = ((si[:, 2] & (cw.PW_HIT | cw.PW_LIT)) != 0).sum(dim=0)
-    idx = lengths_in_turn(length, depth)
-    assert sorted(idx.tolist()) == list(range(ids.shape[0]))
-    assert length[idx][:2 * depth].tolist() == list(range(1, depth + 1)) * 2
-    g3 = torch.from_numpy(c["g3"])
-    turned = cw.grad_rev_stash(
-        c["ts"], c["tcam"], g3[:, idx].contiguous(),
-        (miss_col[:, idx].contiguous(), sf[:, :, idx].contiguous(),
-         si[:, :, idx].contiguous()),
-        pathwise=True, stream=ids[idx].contiguous(), seed=c["seed"])
-    for key in PATHWISE_KEYS:
-        want = c["t_grads"][key]
-        np.testing.assert_allclose(turned[key].numpy(), want, rtol=1e-6,
-                                   atol=1e-6 * float(np.abs(want).max()), err_msg=key)

@@ -341,11 +341,14 @@ def lengths_in_turn(length, depth):
     """Indices that set rays in turns of path length 1, 2, ..., ``depth``, 1,
     2, ... (``length``: [R] the bounces each ray enters), as long as every
     length lasts, then the rest in their order: a warp's 32 lanes then end
-    at every depth."""
+    at every depth.  Raises ValueError where a length has no ray."""
     import torch
 
     groups = [torch.nonzero(length == n).flatten() for n in range(1, depth + 1)]
     m = min(g.numel() for g in groups)
+    if m == 0:
+        raise ValueError(f"no ray of every path length 1 to {depth}: "
+                         f"{[g.numel() for g in groups]}")
     head = torch.stack([g[:m] for g in groups], dim=1).flatten()
     taken = torch.zeros(length.shape[0], dtype=torch.bool, device=length.device)
     taken[head] = True
