@@ -267,6 +267,11 @@ UNCHANGED_KERNELS = {"wavefront_kernelILi0ELb0E": (96, 0),
 # 93 accumulators, the design it shares with the marble stash (a row a warp).
 B5B_LANE_TAG = "wavefront_grad_rev_pathwise_tiles_kernel"
 B5B_WARP_TAG = "wavefront_grad_rev_pathwise_kernelILi19E"
+# The product-chain gradient forward (B2): its instantiations
+# (wavefront.cu), built for six blocks an SM, and for a scene with marble at
+# the registers the compiler chooses.
+B2_TAG = "wavefront_kernelILi1ELb0ELi6E"
+B2_MARBLE_TAG = "wavefront_kernelILi1ELb0ELi0E"
 # The times of the two kernels last redesigned, in their previous design
 # (PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W), printed in their phase
 # lines beside the new.
@@ -3612,7 +3617,7 @@ def grad_fwd_marble_instantiation(tb, rays, depth, miss):
     miss_col = torch.empty((3, r), dtype=torch.float32, device=dev)
     stash_f, stash_i = cw._empty_stash(r, depth, dev, cw.PW_STASH_F_ROWS_MARBLE)
     fn = cw._kernel("wavefront", "wavefront_grad_fwd_pathwise_launch",
-                    cw._GRAD_FWD_PATHWISE_ARGTYPES)
+                    cw._GRAD_FWD_ARGTYPES)
     mode, bg = miss
     err = fn(*cw._table_and_ray_args(tb, o, d, tm, sid), out.data_ptr(), flags.data_ptr(),
              miss_col.data_ptr(), stash_f.data_ptr(), stash_i.data_ptr(), r, 0, depth,
@@ -3808,7 +3813,8 @@ def marble_grad_phases(dev, env, regs, glossy_plain, record_scene, product_scene
     redesigned kernels' registers, spills and resident warps (B4, B5a and
     B5b, both instantiations each, and B6 at ``record_scene``'s tables) and
     B5a's marble instantiation on ``glossy_plain``'s chunk (cornell-glossy:
-    no marble); B2 at ``product_scene``'s tables.  Returns the marble fields
+    no marble); B2 at ``product_scene``'s tables, and its marble
+    instantiation at perlin's.  Returns the marble fields
     of B5a's, B5b's and B4's entries, and the resident warps of B2, B5a <2>,
     B4 <19>, B5b <19> and B6."""
     glossy, cam = marble_glossy_scene(dev)
@@ -3868,6 +3874,9 @@ def marble_grad_phases(dev, env, regs, glossy_plain, record_scene, product_scene
         "b5b_20": (regs["b5b"], resident(occ["b5b_20"][:2])),
         "b2": (regs["b2"], resident(cw.tracing_occupancy("grad_fwd", False, smem_of_tables(
             cw.build_tables(product_scene))))),
+        "b2_marble": (regs["b2_marble"], resident(cw.tracing_occupancy(
+            "grad_fwd_marble", False, smem_of_tables(cw.build_tables(
+                grt.load_scene("perlin", device=dev)[0]))))),
         "b6": (regs["b6"], resident(cw.tracing_occupancy("record", True, smem_of_tables(
             cw.build_tables(record_scene))))),
         "b5a_2": (regs["b5a_2"], resident(cw.pathwise_occupancy(
@@ -3878,7 +3887,8 @@ def marble_grad_phases(dev, env, regs, glossy_plain, record_scene, product_scene
         "b4_22": (regs["b4"], resident(cw.fused_occupancy(True, fused_smem(nee))))}
     emit("redesigned_kernels",
          note="registers and spill bytes from the build; resident warps an SM at the "
-              "shared memory of the timed launches (B2 at cornell, B5a <2> and B5b <19> at "
+              "shared memory of the timed launches (B2 at cornell, its marble instantiation "
+              "at perlin, B5a <2> and B5b <19> at "
               "cornell-glossy, "
               "<4> and <20> at marble-glossy, B4 <19> at hdri-test-nee, <22> at "
               "marble-glossy-nee, B6 at random; B5b <19>'s warp sums at a scene of 418 "
@@ -3898,7 +3908,8 @@ def marble_grad_phases(dev, env, regs, glossy_plain, record_scene, product_scene
     b5b["shared_bytes_per_block"] = occ["b5b_19"][2]
     b5b["resident_warps_per_sm_warp_sums"] = stats["b5b_19_warp_sums"][1]
     b5b["shared_bytes_per_block_warp_sums"] = occ["b5b_19_warp_sums"][2]
-    return (b5a, b5b, b4, {k: stats[k][1] for k in ("b2", "b5a_2", "b4_19", "b5b_19", "b6")})
+    return (b5a, b5b, b4, {k: stats[k][1] for k in ("b2", "b2_marble", "b5a_2", "b4_19",
+                                                    "b5b_19", "b6")})
 
 
 # ---- the tile-sweep probe of the mesh stream (scripts/stream_micro.py) --------
@@ -4020,7 +4031,8 @@ def main():
     fwd_cull_regs = kernel_stats(built, "wavefront_kernelILi0ELb1E")
     rec_regs = kernel_stats(built, "wavefront_kernelILi3ELb1E")
     rows_regs = kernel_stats(built_rows, "row_sums_kernel")
-    gfwd_regs, gfwd_spill = kernel_stats(built, "wavefront_kernelILi1ELb0E")
+    gfwd_regs, gfwd_spill = kernel_stats(built, B2_TAG)
+    gfwd_marble = kernel_stats(built, B2_MARBLE_TAG)
     pfwd_regs, pfwd_spill = kernel_stats(built, "wavefront_kernelILi2ELb0E")
     # <4>: the pathwise gradient forward of a scene with marble (20 rows)
     pfwd_marble = kernel_stats(built, "wavefront_kernelILi4ELb0E")
@@ -4419,7 +4431,8 @@ def main():
                                   "b4": fused_marble, "b5a_2": (pfwd_regs, pfwd_spill),
                                   "b4_19": fused_regs, "b5b_19": (prev_regs, prev_spill),
                                   "b5b_19_warp": prev_warp, "b2": (gfwd_regs, gfwd_spill),
-                                  "b6": rec_regs}, (g_scene, g_cam), rr_scene, scene)
+                                  "b2_marble": gfwd_marble, "b6": rec_regs},
+        (g_scene, g_cam), rr_scene, scene)
     b4_entry["registers"], b4_entry["spill_bytes"] = fused_regs
     b4_entry["resident_warps_per_sm"] = warps["b4_19"]
     pw_entries[0]["registers"], pw_entries[0]["spill_bytes"] = pfwd_regs, pfwd_spill
@@ -4431,6 +4444,8 @@ def main():
     rec_entry["resident_warps_per_sm"] = warps["b6"]
     grad_entries[0]["registers"], grad_entries[0]["spill_bytes"] = gfwd_regs, gfwd_spill
     grad_entries[0]["resident_warps_per_sm"] = warps["b2"]
+    grad_entries[0]["registers_marble"], grad_entries[0]["spill_bytes_marble"] = gfwd_marble
+    grad_entries[0]["resident_warps_per_sm_marble"] = warps["b2_marble"]
     grad_entries[1]["registers"], grad_entries[1]["spill_bytes"] = grev_regs, grev_spill
     grad_entries[1]["resident_warps_per_sm"] = resident(cw.grad_rev_occupancy(
         9 * int(scene.textures.color.shape[0])))

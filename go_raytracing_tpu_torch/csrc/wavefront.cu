@@ -133,7 +133,10 @@
 // whole warps.  The design keeps one ray a thread and hides the latency
 // with warps: six blocks an SM (24 warps at 80 registers, was 16 at 114;
 // a few spilled words are cheaper than the warps they buy), and the planar
-// sweeps' sign gate in the closest-hit and the shadow sweeps.
+// sweeps' sign gate in the closest-hit and the shadow sweeps.  A scene with
+// marble takes an instantiation of its own at the registers the compiler
+// chooses: at 80 the marble's 56 hashed corners spill, and perlin's chunk
+// took 12 % more than the parent's (PERF.md).
 //
 // The pathwise gradient forward of a scene with marble (B5a <4>).  What
 // held it back on this card, measured (PERF.md): the marble itself, half
@@ -181,7 +184,9 @@ namespace {
 // Blocks of THREADS an SM the instantiations are built for: B5a's with
 // marble four, 16 warps at up to 128 registers with no spill (measured on
 // the H100 against five and six, PERF.md); B2 six, 24 warps at up to 85
-// registers (measured against no target, five, seven and eight, PERF.md);
+// registers (measured against no target, five, seven and eight, PERF.md),
+// and in a scene with marble PRODUCT_MARBLE_BLOCKS_PER_SM (its own
+// instantiation, wavefront_kernel<PRODUCT, false, that>);
 // the culled instantiations of the forward, the record and the resumable
 // kernel (CULL: a scene with segments) six, 24 warps at up to 85
 // registers, which random's tables in shared memory also allow (measured
@@ -195,6 +200,15 @@ constexpr int PW_MARBLE_BLOCKS_PER_SM = 4;
 constexpr int PRODUCT_BLOCKS_PER_SM = 6;
 constexpr int CULL_BLOCKS_PER_SM = 6;
 constexpr int MIN_BLOCKS_UNSET = 0;
+constexpr int PRODUCT_MARBLE_BLOCKS_PER_SM = MIN_BLOCKS_UNSET;
+
+constexpr int kernel_min_blocks(int mode, bool cull) {
+    return cull                      ? CULL_BLOCKS_PER_SM
+           : mode == PATHWISE_MARBLE ? PW_MARBLE_BLOCKS_PER_SM
+           : mode == PATHWISE        ? PW_BLOCKS_PER_SM
+           : mode == PRODUCT         ? PRODUCT_BLOCKS_PER_SM
+                                     : MIN_BLOCKS_UNSET;
+}
 
 // The block's copy of the scalar tables in shared memory (when they fit),
 // or the tables in device memory.  SEGMENTS: the culled sweep's segment
@@ -391,13 +405,10 @@ __device__ __forceinline__ void pathwise_tiles(
 
 // CULL: the culled instantiation of the forward and the record, launched
 // for tables with segments (launch()); the others sweep every sphere.
-template <int MODE, bool CULL>
-__global__ void __launch_bounds__(THREADS,
-                                  CULL                      ? CULL_BLOCKS_PER_SM
-                                  : MODE == PATHWISE_MARBLE ? PW_MARBLE_BLOCKS_PER_SM
-                                  : MODE == PATHWISE        ? PW_BLOCKS_PER_SM
-                                  : MODE == PRODUCT         ? PRODUCT_BLOCKS_PER_SM
-                                                            : MIN_BLOCKS_UNSET)
+// MIN_BLOCKS: the blocks an SM it is built for (B2 in a scene with marble:
+// PRODUCT_MARBLE_BLOCKS_PER_SM).
+template <int MODE, bool CULL, int MIN_BLOCKS = kernel_min_blocks(MODE, CULL)>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 wavefront_kernel(Tables G, const float* __restrict__ ox,
                  const float* __restrict__ oy, const float* __restrict__ oz,
                  const float* __restrict__ dx, const float* __restrict__ dy,
@@ -614,7 +625,7 @@ int launch(const float* pt, const float* st, const float* vt, const float* lt,
            int* flags, long long n_rays, unsigned int seed, int max_depth,
            void* cuda_stream, Stash Z, Miss M, float* miss_col,
            Record D = Record{nullptr, nullptr, 0}, const float* hdri = nullptr,
-           const Tables* seg = nullptr) {
+           const Tables* seg = nullptr, bool marble = false) {
     Setup L;
     const int err = setup(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights,
                           n_rays, L, seg);
@@ -622,6 +633,9 @@ int launch(const float* pt, const float* st, const float* vt, const float* lt,
     auto kernel = wavefront_kernel<MODE, false>;
     if constexpr (MODE == FWD || MODE == RECORD) {
         if (L.G.n_seg > 0) kernel = wavefront_kernel<MODE, true>;
+    }
+    if constexpr (MODE == PRODUCT) {
+        if (marble) kernel = wavefront_kernel<PRODUCT, false, PRODUCT_MARBLE_BLOCKS_PER_SM>;
     }
     size_t smem = L.smem_bytes;
     int tables_in_smem = smem > 0;
@@ -712,7 +726,8 @@ extern "C" int wavefront_record_launch(
 
 // miss_col [3, n_rays], stash_f [max_depth, 12, n_rays] and stash_i
 // [max_depth, 3, n_rays] are written in full; miss_mode 0 flat (bg), 1 sky,
-// 2 an environment (miss_col 0: the caller applies it).
+// 2 an environment (miss_col 0: the caller applies it); marble 1 where the
+// scene has a marble texture (its instantiation: the same outputs).
 extern "C" int wavefront_grad_fwd_launch(
     const float* pt, const float* st, const float* vt, const float* lt,
     int n_planar, int n_sphere, int n_vol, int n_lights,
@@ -721,12 +736,13 @@ extern "C" int wavefront_grad_fwd_launch(
     const void* stream, float* out, int* flags, float* miss_col,
     float* stash_f, int* stash_i, long long n_rays, unsigned int seed,
     int max_depth, int miss_mode, float bg_r, float bg_g, float bg_b,
-    void* cuda_stream) {
+    int marble, void* cuda_stream) {
     return launch<PRODUCT>(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights,
                            ox, oy, oz, dx, dy, dz, tm, stream, out, flags, n_rays,
                            seed, max_depth, cuda_stream,
                            Stash{stash_f, stash_i, n_rays},
-                           Miss{miss_mode, {bg_r, bg_g, bg_b}}, miss_col);
+                           Miss{miss_mode, {bg_r, bg_g, bg_b}}, miss_col,
+                           Record{nullptr, nullptr, 0}, nullptr, nullptr, marble != 0);
 }
 
 // The pathwise tier's: as above with stash_f [max_depth, f_rows, n_rays],
@@ -816,9 +832,11 @@ extern "C" int wavefront_pathwise_occupancy(int marble, int smem_bytes,
 }
 
 // The same for the forward, the product-chain gradient forward, the record
-// and the resumable kernel: `kernel` FWD (0), PRODUCT (1), RECORD (3) or
-// RESUME_KERNEL; `culled` their culled instantiations (none for PRODUCT).
+// and the resumable kernel: `kernel` FWD (0), PRODUCT (1), RECORD (3),
+// RESUME_KERNEL or PRODUCT_MARBLE_KERNEL (B2 in a scene with marble);
+// `culled` their culled instantiations (none for PRODUCT).
 constexpr int RESUME_KERNEL = 7;
+constexpr int PRODUCT_MARBLE_KERNEL = 8;
 
 extern "C" int wavefront_tracing_occupancy(int kernel, int culled, int smem_bytes,
                                            int* blocks_per_sm, int* threads) {
@@ -829,6 +847,8 @@ extern "C" int wavefront_tracing_occupancy(int kernel, int culled, int smem_byte
                     : (const void*)wavefront_kernel<FWD, false>;
     else if (kernel == PRODUCT && !culled)
         fn = (const void*)wavefront_kernel<PRODUCT, false>;
+    else if (kernel == PRODUCT_MARBLE_KERNEL && !culled)
+        fn = (const void*)wavefront_kernel<PRODUCT, false, PRODUCT_MARBLE_BLOCKS_PER_SM>;
     else if (kernel == RECORD)
         fn = culled ? (const void*)wavefront_kernel<RECORD, true>
                     : (const void*)wavefront_kernel<RECORD, false>;

@@ -1662,9 +1662,9 @@ _SEG = [_P] * 3 + [_I] + [_P] * 2 + [_I, _F, _F]
 _FWD_ARGTYPES = _TABLES_AND_RAYS + [_P] + _SEG + [_P] * 2 + _SIZES + [_P]  # hdri out flags
 _RECORD_ARGTYPES = (_TABLES_AND_RAYS + [_P] + _SEG                   # hdri
                     + [_P] * 4 + _SIZES + [_P])                     # out flags code idx
+# + marble (the product-chain tier's) or f_rows (the pathwise tier's)
 _GRAD_FWD_ARGTYPES = (_TABLES_AND_RAYS + [_P] * 5 + _SIZES
-                      + [_I, _F, _F, _F] + [_P])
-_GRAD_FWD_PATHWISE_ARGTYPES = _GRAD_FWD_ARGTYPES[:-1] + [_I, _P]   # + f_rows
+                      + [_I, _F, _F, _F] + [_I, _P])
 _RESUME_ARGTYPES = ([_P] * 4 + [_I] * 4 + [_P] * 3 + _SEG   # tables, counts, in out hdri
                     + [ctypes.c_longlong, ctypes.c_uint, _I, _I, _P])
 _GRAD_REV_ARGTYPES = [_P] * 5 + [ctypes.c_longlong, _I, _I, _P]
@@ -1886,9 +1886,8 @@ def _wavefront_grad_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
     if r == 0:
         return out, flags, miss_col, stash_f, stash_i
     mode, bg = miss
-    fn = (_kernel("wavefront", "wavefront_grad_fwd_pathwise_launch",
-                  _GRAD_FWD_PATHWISE_ARGTYPES) if pathwise
-          else _kernel("wavefront", "wavefront_grad_fwd_launch", _GRAD_FWD_ARGTYPES))
+    fn = _kernel("wavefront", "wavefront_grad_fwd_pathwise_launch" if pathwise
+                 else "wavefront_grad_fwd_launch", _GRAD_FWD_ARGTYPES)
     with torch.cuda.device(dev):
         err = fn(
             *_table_and_ray_args(tb, o, d, tm, stream),
@@ -1896,7 +1895,7 @@ def _wavefront_grad_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
             stash_f.data_ptr(), stash_i.data_ptr(),
             r, int(seed) & 0xFFFFFFFF, int(max_depth),
             int(mode), float(bg[0]), float(bg[1]), float(bg[2]),
-            *((f_rows,) if pathwise else ()),
+            f_rows if pathwise else int(_has_noise(tb)),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -2118,13 +2117,13 @@ def pathwise_occupancy(marble: bool, smem_bytes: int = 0):
 
 
 # wavefront_tracing_occupancy
-TRACING_KERNELS = {"fwd": 0, "grad_fwd": 1, "record": 3, "resume": 7}
+TRACING_KERNELS = {"fwd": 0, "grad_fwd": 1, "record": 3, "resume": 7, "grad_fwd_marble": 8}
 
 
 def tracing_occupancy(kernel: str, culled: bool, smem_bytes: int):
-    """The same for ``kernel`` "fwd" (B1), "grad_fwd" (B2), "record" (B6)
-    or "resume" (B11): ``culled`` its instantiation for tables with
-    segments."""
+    """The same for ``kernel`` "fwd" (B1), "grad_fwd" (B2), "grad_fwd_marble"
+    (B2's instantiation for a scene with marble), "record" (B6) or "resume"
+    (B11): ``culled`` its instantiation for tables with segments."""
     return _occupancy("wavefront", "wavefront_tracing_occupancy", TRACING_KERNELS[kernel],
                       culled, smem_bytes)
 

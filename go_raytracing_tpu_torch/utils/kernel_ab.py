@@ -17,10 +17,11 @@ other one).  It times them in turns (``chip_smoke.rounds_ms``) at the main
 paths' chunks:
 
 * B2 at the Cornell job's chunk (600x338, 100 spp, depth 5: 4,056,000 rays)
-  and at ``perlin-fwd-bwd``'s (400x225, 25 spp, depth 10: marble), in the
+  and at ``perlin-fwd-bwd``'s (400x225, 25 spp, depth 10: marble, with its
+  marble instantiation also built for five and four blocks an SM), in the
   render's order and in stable order of the bounces a ray enters, beside B1
-  on the same rays; every variant that keeps the bits held to the parent's
-  outputs, ``N`` to the plain version's;
+  on the same rays; every variant held to the parent's outputs, ``N`` to
+  the plain version's;
 * B5b at a chunk of ``cornell-glossy``'s 600x600, 100 spp, depth-5 job
   (3,600,000 rays) over B5a's stash, in the render's order and with the
   rays (stash columns, cotangent, miss colour, counter) in stable order of
@@ -59,21 +60,16 @@ HERE = Path(__file__).resolve().parent.parent / "csrc"
 WF, PW = "wavefront", "wavefront_grad_pathwise"
 
 # (variant, the tree it edits, the library it builds, [(file, text, its replacement)])
-def blocks(n):
-    return ("wavefront.cu", "constexpr int PRODUCT_BLOCKS_PER_SM = 6;",
-            f"constexpr int PRODUCT_BLOCKS_PER_SM = {n};")
+def marble_blocks(n):
+    return [("wavefront.cu",
+             "constexpr int PRODUCT_MARBLE_BLOCKS_PER_SM = MIN_BLOCKS_UNSET;",
+             f"constexpr int PRODUCT_MARBLE_BLOCKS_PER_SM = {n};")]
 
 
-def tile(threads, per_sm):
-    return [("wavefront_reverse.cuh", "constexpr int REV_TILE = 128;",
-             f"constexpr int REV_TILE = {threads};"),
-            ("wavefront_grad_pathwise.cu", "constexpr int TILE_BLOCKS_PER_SM = 4;",
-             f"constexpr int TILE_BLOCKS_PER_SM = {per_sm};")]
-
-
-EDITS = []
+# B2's marble instantiation built for five and for four blocks an SM
+EDITS = [("M5", "N", WF, marble_blocks(5)), ("M4", "N", WF, marble_blocks(4))]
 B2_VARIANTS = ["P", "N"]
-B2_EXACT = {"N"}
+B2_MARBLE_VARIANTS = ["P", "N", "M5", "M4"]
 B5B_VARIANTS = ["P", "N"]
 # depths of the B2 sweep (each bounce's marginal time, parent against design)
 DEPTH_SWEEP = (1, 2, 3, 4)
@@ -96,6 +92,31 @@ def variant_sources(parent: Path, work: Path):
     return dirs, builds
 
 
+class ParentLib:
+    """The parent's ``wavefront`` library, whose
+    ``wavefront_grad_fwd_launch`` takes no marble flag: the wrapper's call
+    reaches it without that argument."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name != "wavefront_grad_fwd_launch":
+            return fn
+        fn.argtypes = cw._GRAD_FWD_ARGTYPES[:-2] + cw._GRAD_FWD_ARGTYPES[-1:]
+        fn.restype = ctypes.c_int
+        return _DropMarble(fn)
+
+
+class _DropMarble:
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __call__(self, *args):
+        return self.fn(*args[:-2], args[-1])
+
+
 def build(dirs, work, v, lib):
     so = work / f"lib{lib}_{v}.so"
     cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-fmad=false", "-o", str(so),
@@ -105,8 +126,9 @@ def build(dirs, work, v, lib):
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"{v} {lib}: {log}")
-    return (v, lib), _build.Built(ctypes.CDLL(str(so)), so, time.perf_counter() - t0, 0, 0,
-                                  _build._ptxas_stats(log), log)
+    dll = ctypes.CDLL(str(so))
+    return (v, lib), _build.Built(ParentLib(dll) if (v, lib) == ("P", WF) else dll, so,
+                                  time.perf_counter() - t0, 0, 0, _build._ptxas_stats(log), log)
 
 
 class AB:
@@ -130,7 +152,7 @@ class AB:
             taken[k].extend(cs.rounds_ms(cases[k], rounds, repeats)[0])
         return taken, {k: cs.median(t) for k, t in taken.items() if t}
 
-    def b2(self, name, scene, cam, depth_sweep=()):
+    def b2(self, name, scene, cam, variants, depth_sweep=()):
         tb = cw.build_tables(scene)
         n_virt = cam.image_width * cam.image_height
         n = min(renderer.pick_chunk_size(scene) // n_virt, cam.samples_per_pixel) * n_virt
@@ -152,12 +174,12 @@ class AB:
             def call(v, o_=o_, d_=d_, tm_=tm_, sid_=sid_):
                 return lambda: (self.use(v), cw.wavefront_grad_fwd(
                     tb, o_, d_, tm_, sid_, 0, depth, miss))[1]
-            cases = {v: call(v) for v in B2_VARIANTS}
+            cases = {v: call(v) for v in variants}
             cases["B1"] = lambda o_=o_, d_=d_, tm_=tm_, sid_=sid_: (
                 self.use("P"), cw.wavefront_fwd(tb, o_, d_, tm_, sid_, 0, depth))[1]
             ref = cases["P"]()
             equal = {v: all(bool(torch.equal(a, b)) for a, b in zip(cases[v](), ref))
-                     for v in B2_EXACT}
+                     for v in variants if v != "P"}
             del ref
             if sname == "render":
                 self.use("N")
@@ -166,7 +188,7 @@ class AB:
                                                  depth, miss, False)
                 equal["N_vs_plain"] = all(bool(torch.equal(a, b)) for a, b in zip(k, p))
                 del k, p
-            keys = B2_VARIANTS + ["B1"]
+            keys = variants + ["B1"]
             taken, med = self.turns(cases, keys + keys[::-1])
             res[sname] = {"equal_parent": equal, "ms_rounds": taken, "ms_median": med}
         sweep = {}
@@ -181,7 +203,8 @@ class AB:
         self.emit(name, rays=n, depth=depth,
                   rays_by_path_length=torch.bincount(length, minlength=depth + 1).tolist(),
                   occupancy_blocks_threads=cw.tracing_occupancy(
-                      "grad_fwd", False, cs.smem_of_tables(tb)), **res)
+                      "grad_fwd_marble" if scene.has_noise else "grad_fwd", False,
+                      cs.smem_of_tables(tb)), **res)
 
     def b5b(self, scene, cam):
         tb = cw.build_tables(scene)
@@ -310,12 +333,12 @@ def main():
         cornell, c0 = grt.load_scene("cornell")
         ccam = dataclasses.replace(c0, image_width=600, aspect_ratio=600 / 338,
                                    samples_per_pixel=100, max_depth=5)
-        ab.b2("b2", cornell, ccam, DEPTH_SWEEP)
+        ab.b2("b2", cornell, ccam, B2_VARIANTS, DEPTH_SWEEP)
         perlin, p0 = grt.load_scene("perlin")
         pcam = dataclasses.replace(p0, image_width=cs.PERLIN_BENCH["width"],
                                    samples_per_pixel=cs.PERLIN_BENCH["spp"],
                                    max_depth=cs.PERLIN_BENCH["depth"])
-        ab.b2("b2_perlin", perlin, pcam)
+        ab.b2("b2_perlin", perlin, pcam, B2_MARBLE_VARIANTS)
         glossy, g0 = grt.load_scene("cornell-glossy")
         gcam = dataclasses.replace(g0, image_width=600, aspect_ratio=1.0,
                                    samples_per_pixel=100, max_depth=5)
