@@ -202,14 +202,6 @@ constexpr int CULL_BLOCKS_PER_SM = 6;
 constexpr int MIN_BLOCKS_UNSET = 0;
 constexpr int PRODUCT_MARBLE_BLOCKS_PER_SM = MIN_BLOCKS_UNSET;
 
-constexpr int kernel_min_blocks(int mode, bool cull) {
-    return cull                      ? CULL_BLOCKS_PER_SM
-           : mode == PATHWISE_MARBLE ? PW_MARBLE_BLOCKS_PER_SM
-           : mode == PATHWISE        ? PW_BLOCKS_PER_SM
-           : mode == PRODUCT         ? PRODUCT_BLOCKS_PER_SM
-                                     : MIN_BLOCKS_UNSET;
-}
-
 // The block's copy of the scalar tables in shared memory (when they fit),
 // or the tables in device memory.  SEGMENTS: the culled sweep's segment
 // and group tables too (the culled instantiations).
@@ -401,6 +393,14 @@ __device__ __forceinline__ void pathwise_tiles(
         }
         __syncthreads();   // the rows and the state are refilled by the next tile
     }
+}
+
+constexpr int kernel_min_blocks(int mode, bool cull) {
+    return cull                      ? CULL_BLOCKS_PER_SM
+           : mode == PATHWISE_MARBLE ? PW_MARBLE_BLOCKS_PER_SM
+           : mode == PATHWISE        ? PW_BLOCKS_PER_SM
+           : mode == PRODUCT         ? PRODUCT_BLOCKS_PER_SM
+                                     : MIN_BLOCKS_UNSET;
 }
 
 // CULL: the culled instantiation of the forward and the record, launched
