@@ -38,7 +38,7 @@ mesh scene (``mesh_autograd``) and the two kernels alone
 chunk and on the rays that leave the chunk's first hits, as a render's
 launches are, ``mesh_sweep`` on each of its four sets held to its plain
 version on every ray), then the card's speed (``card_yardstick``: three
-kernels that keep their design, B1, B2 and B7a, beside their times in
+kernels that keep their design, B3, B7a and B7b, beside their times in
 PERF.md, so that a slow card does not read as a redesign's loss).  Then the replay tier of ``render_grad``: the
 record kernel against the forward kernel, its plain version and the
 standard integrator's record (``record_kernel_vs_plain``, early; the
@@ -71,7 +71,10 @@ light added (``env_nee_main_path``, ``env_nee_fwd_bwd``: HDRI NEE, the fused
 tier), and the kernels alone (``env_kernel_timing``).  Then marble
 (``noise_kernels_vs_plain`` ... ``split_profile``: B1 / B6 / B2 with marble,
 perlin, the resumable kernel B11, also on ``random`` at depth 50 with its
-culled sweep's tests and both bounds), then marble behind metal and glass
+culled sweep's tests and both bounds), then B1 below 64 spheres alone
+by depth and on the same rays in order of path length, at Cornell's chunk,
+``hdri-test-nee``'s with its rows and perlin's, each held to its plain
+version bit for bit (``b1_brute_timing``), then marble behind metal and glass
 (ROADMAP A13b): B5a, B5b and B4 with dmarble/dp against their plain versions
 and the pathwise and fused tiers against the replay tier on 16,384 rays
 (``marble_kernels_vs_plain``), ``marble-glossy`` (the JAX package's noise +
@@ -97,7 +100,9 @@ such a ray differs wholly, so the comparison is per ray: fewer than 0.5 %
 of rays outside rtol 1e-3 / atol 1e-3 (or with another flag word), and
 mean radiance within 1 %.  The kernel is built without fused multiply-add
 contraction and is expected to agree on every ray; the contracted build is
-compared and timed beside it, for the record only.
+compared and timed beside it, for the record only.  B1 and B11 below 64
+spheres (both of their routes, with marble and without) are held to their
+plain versions bit for bit on every set, Cornell's full chunk among them.
 
 The gradient forward is the same bounce loop, so its radiance, flags, miss
 colour and stash are held to the same per-ray gate.  The reverse kernel adds
@@ -250,18 +255,35 @@ FLOPS_MOLLER_TRUMBORE, FLOPS_BW_PLANE, FLOPS_BW_UV = 55, 17, 24
 # tri, inst and hit.
 MESH_RAYS_IN, MESH_DEAD_IN, MESH_BYTES_OUT = 7 * 4, 4, 4 + 4 + 4 + 1
 # Times of three kernels that keep their design, recorded in PERF.md section 6
-# on an NVIDIA H100 80GB HBM3 at 700 W (B1, B3 and B7a at a Cornell chunk): a
-# run that reads them slower is on a slower card.
-CARD_YARDSTICK = {"wavefront_fwd": 2.718, "wavefront_grad_rev": 0.503,
+# on an NVIDIA H100 80GB HBM3 at 700 W (B3 and B7a at a Cornell chunk, B7b at
+# random's): a run that reads them slower is on a slower card.  B1, which
+# PR 16 redesigned, is no longer among them; B7a leaves when it is redesigned.
+CARD_YARDSTICK = {"sphere_closest": 1.472, "wavefront_grad_rev": 0.503,
                   "planar_closest": 0.2383}
-# Registers and spill bytes (ptxas) of the kernels that share device code
-# with the redesigned B1, B4, B5a, B5b, B6 and B11 but keep their own design:
-# the brute (not culled) instantiations of B1 and B11 (scenes under
-# SPH_CULL_MIN spheres), as recorded in PERF.md section 6.  A build that
-# changes them changed code it must not change (and the card yardstick,
-# whose first kernel is B1).
-UNCHANGED_KERNELS = {"wavefront_kernelILi0ELb0E": (96, 0),
-                     "wavefront_resume_kernelILb0E": (96, 84)}
+# Registers and spill bytes (ptxas) of the instantiations that include the
+# bounce loop (trace_ray, csrc/wavefront_trace.cuh) but keep their own design
+# while B1's and B11's brute instantiations change, as recorded in PERF.md
+# section 6 (B6 brute's from the parent of PR 16): the culled B1, B6 and
+# B11, B6 brute, B2 and its marble instantiation, B5a <2> and <4>, B4 <19>
+# and <22>.  A build that changes them changed code it must not change.
+UNCHANGED_KERNELS = {"wavefront_kernelILi0ELb1E": (80, 8),
+                     "wavefront_kernelILi3ELb1E": (80, 24),
+                     "wavefront_kernelILi3ELb0E": (96, 0),
+                     "wavefront_resume_kernelILb1E": (80, 92),
+                     "wavefront_kernelILi1ELb0ELi6E": (80, 172),
+                     "wavefront_kernelILi1ELb0ELi0E": (118, 0),
+                     "wavefront_kernelILi2ELb0E": (87, 0),
+                     "wavefront_kernelILi4ELb0E": (126, 0),
+                     "wavefront_grad_fused_kernelILi19E": (118, 0),
+                     "wavefront_grad_fused_kernelILi22E": (128, 0)}
+# B1 and B11 below SPH_CULL_MIN spheres (csrc/wavefront.cu: forward_brute,
+# resume_brute), each with an instantiation for a scene without marble and
+# one for a scene with it (cuda_wavefront.brute_route), whose first template
+# argument is its FWD_MARBLE_TURNS / RESUME_MARBLE_TURNS (csrc/wavefront.cu).
+B1_BRUTE_TAG = "forward_brute_kernelILi0E"
+B1_MARBLE_TAG = "forward_brute_kernelILi16E"
+B11_BRUTE_TAG = "resume_brute_kernelILi0E"
+B11_MARBLE_TAG = "resume_brute_kernelILi12E"
 # The pathwise reverse sweep without marble: its kernels by route
 # (wavefront_grad_pathwise.cu), the tiles summing a column a lane and, above
 # 93 accumulators, the design it shares with the marble stash (a row a warp).
@@ -273,9 +295,11 @@ B5B_WARP_TAG = "wavefront_grad_rev_pathwise_kernelILi19E"
 B2_TAG = "wavefront_kernelILi1ELb0ELi6E"
 B2_MARBLE_TAG = "wavefront_kernelILi1ELb0ELi0E"
 # The times of the two kernels last redesigned, in their previous design
-# (PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W), printed in their phase
-# lines beside the new.
-PREVIOUS_DESIGN_MS = {"wavefront_grad_fwd": 3.088, "wavefront_grad_rev_pathwise": 1.806}
+# (PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W; B1 brute at Cornell's
+# chunk, B11 brute's two phases at perlin's), printed in their phase lines
+# beside the new.
+PREVIOUS_DESIGN_MS = {"wavefront_fwd": 2.733, "wavefront_resume_phase_1": 1.525,
+                      "wavefront_resume_phase_2": 0.855}
 
 
 def emit(phase, **fields):
@@ -377,10 +401,13 @@ def compare(scene, cam, seed, name):
 
     mismatch, max_err = share(k_rows, k_flags)
     mismatch_fma, _ = share(fma_rows, fma_flags)
+    not_bit_equal = 1.0 - float(((k_rows == p_rows).all(dim=0)
+                                 & (k_flags == p_flags)).float().mean())
     k_mean = float(final_radiance(scene, cam, k_rows, k_flags).mean())
     p_mean = float(final_radiance(scene, cam, p_rows, p_flags).mean())
     rel = abs(k_mean - p_mean) / max(abs(p_mean), 1e-12)
     emit("kernel_vs_plain", scene=name, rays=n, depth=cam.max_depth,
+         route=cw.brute_route(tb), share_not_bit_equal=not_bit_equal,
          mismatch_share=mismatch, mismatch_share_with_fma=mismatch_fma,
          max_abs_err_agreeing_rays=max_err, mean_kernel=k_mean,
          mean_plain=p_mean, mean_rel_diff=rel, rtol=RTOL, atol=ATOL)
@@ -388,6 +415,8 @@ def compare(scene, cam, seed, name):
         raise RuntimeError(f"{name}: kernel output is not finite")
     if mismatch >= MAX_MISMATCH_SHARE:
         raise RuntimeError(f"{name}: {mismatch:.4%} of rays disagree with the plain version")
+    if tb.n_seg == 0 and not_bit_equal != 0.0:   # B1 brute: its plain version's bits
+        raise RuntimeError(f"{name}: {not_bit_equal:.4%} of rays differ in their bits")
     if rel >= MAX_MEAN_REL_DIFF:
         raise RuntimeError(f"{name}: mean radiance differs by {rel:.3%}")
     return mismatch, max_err
@@ -651,7 +680,6 @@ def grad_kernel_timing(scene, rays, cam, entering, render_grad_launches,
          grad_fwd_bit_equal_plain_full_chunk=bit_equal,
          grad_fwd_bit_equal_plain_lengths_in_turn=turns_equal,
          grad_fwd_rays_by_path_length=torch.bincount(length, minlength=depth + 1).tolist(),
-         grad_fwd_previous_design_ms_perf_md=PREVIOUS_DESIGN_MS["wavefront_grad_fwd"],
          grad_rev_ms=rev_ms, grad_rev_ms_rounds=rev_rounds,
          grad_rev_plain_ms=plain_rev_ms,
          grad_rev_bytes_counted=rev_bytes, grad_rev_bound_bytes_ms=rev_bound[0],
@@ -1000,8 +1028,7 @@ def pathwise_kernel_timing(scene, cam, launches, small_checks):
          grad_rev_err_of_largest_full_chunk=rev_rel,
          grad_rev_two_launches_same_bits=same_bits,
          grad_rev_lengths_in_turn_full_chunk=turns,
-         grad_rev_lane_sums=cw.pathwise_rev_lane_sums(n_acc), grad_rev_accumulators=n_acc,
-         grad_rev_previous_design_ms_perf_md=PREVIOUS_DESIGN_MS["wavefront_grad_rev_pathwise"])
+         grad_rev_lane_sums=cw.pathwise_rev_lane_sums(n_acc), grad_rev_accumulators=n_acc)
 
     entry = functools.partial(kernel_entry, n)
     return (
@@ -2648,7 +2675,7 @@ def env_small_checks(hdri, nee, cam, dev, n=16384, seed=12):
     out["b6_hdri_record_mismatch_share"] = 1.0 - float(
         ((code == p_code) & (idx == p_idx)).float().mean())
     out["b6_hdri_blocked_share"] = float(((code & cw.DEC_BLK_H) != 0).float().mean())
-    if out["b1_hdri_mismatch_share"] >= MAX_MISMATCH_SHARE or not out["b6_hdri_radiance_is_b1s"] \
+    if out["b1_hdri_mismatch_share"] != 0.0 or not out["b6_hdri_radiance_is_b1s"] \
             or out["b6_hdri_record_mismatch_share"] > 0.0:
         raise RuntimeError(f"B1 / B6 with HDRI rows against their plain versions: {out}")
 
@@ -2952,9 +2979,9 @@ def noise_small_checks(dev):
          b6_record_equals_plain=record_plain, b2_radiance_equals_b1=grad_same,
          b2_bit_equal_plain=grad_plain,
          rtol=RTOL, atol=ATOL)
-    if outside >= MAX_MISMATCH_SHARE or not torch.isfinite(k_rows).all() \
-            or hits * 10 < tm.shape[0]:
-        raise RuntimeError(f"perlin: B1 {outside:.4%} of rays outside the gate, {hits} hits")
+    if differ != 0.0 or not torch.isfinite(k_rows).all() or hits * 10 < tm.shape[0]:
+        raise RuntimeError(f"perlin: B1 ({cw.brute_route(args[0])}) {differ:.4%} of rays not "
+                           f"its plain version's bits, {hits} hits")
     if not (record_same and record_plain and grad_same and grad_plain):
         raise RuntimeError("perlin: B6 or B2 differs from B1 or from its plain version")
     return outside, err
@@ -2994,7 +3021,8 @@ def resume_small_checks(cases):
                    for a, b in zip(single, split))
         alive = int(((k1[9] & cw.FLAG_ALIVE) != 0).sum())
         emit("resume_kernel_vs_plain", scene=name, rays=16384, depth=depth,
-             split_at=k_at, hdri_nee=cw.uses_hdri_nee(scene), alive_after_phase_1=alive,
+             split_at=k_at, hdri_nee=cw.uses_hdri_nee(scene), route=cw.brute_route(tb),
+         alive_after_phase_1=alive,
              phase_1_mismatch_share=c1[0], phase_1_share_not_bit_equal=c1[1],
              phase_1_max_abs_err=c1[2], phase_2_mismatch_share=c2[0],
              phase_2_share_not_bit_equal=c2[1], phase_2_max_abs_err=c2[2],
@@ -3002,8 +3030,8 @@ def resume_small_checks(cases):
         if max(c1[0], c2[0]) >= MAX_MISMATCH_SHARE or not same or alive < 1:
             raise RuntimeError(f"{name}: B11 against its plain version {c1}, {c2}, "
                                f"split equals one launch: {same}, alive {alive}")
-        if tb.n_seg > 0 and (c1[1] or c2[1]):   # the culled sweep: the brute sweep's bits
-            raise RuntimeError(f"{name}: B11 (culled sweep) differs from its plain "
+        if c1[1] or c2[1]:   # every route of B11 gives its plain version's bits
+            raise RuntimeError(f"{name}: B11 ({cw.brute_route(tb)}) differs from its plain "
                                f"version's bits: {c1}, {c2}")
         worst = (max(worst[0], c1[0], c2[0]), max(worst[1], c1[2], c2[2]))
     return worst
@@ -3219,7 +3247,9 @@ def resume_kernel_timing(name, scene, cam, launches, small, regs):
 
     (b1, b1_brute), (b2, b2_brute) = bound(0, k_at, counts1), bound(k_at, depth, counts2)
     ms1, ms2 = median(r1), median(r2)
-    warps = resident(cw.tracing_occupancy("resume", tb.n_seg > 0, smem_of_tables(tb)))
+    warps = resident(cw.tracing_occupancy(
+        "resume_marble" if cw.brute_route(tb) == "marble" else "resume", tb.n_seg > 0,
+        smem_of_tables(tb)))
 
     def per_ray_bounce(counts, b0, b1):
         rb = float(sum(entering[b0:b1]))
@@ -3227,7 +3257,10 @@ def resume_kernel_timing(name, scene, cam, launches, small, regs):
                 if k.startswith("closest_")}
 
     emit("resume_kernel_timing", scene=name, rays_per_launch=n, depth=depth,
-         split_at=k_at, phase_1_ms=ms1, phase_1_ms_rounds=r1, phase_2_ms=ms2,
+         route=cw.brute_route(tb), split_at=k_at, phase_1_ms=ms1, phase_1_ms_rounds=r1,
+         phase_2_ms=ms2, previous_design_ms_perf_md=(
+             [PREVIOUS_DESIGN_MS["wavefront_resume_phase_1"],
+              PREVIOUS_DESIGN_MS["wavefront_resume_phase_2"]] if tb.n_seg == 0 else None),
          phase_2_ms_rounds=r2, launches_per_chunk=2, sort_ms=sort_ms,
          gather_back_ms=gather_ms, phase_1_plain_ms=plain1_ms,
          phase_2_plain_ms=plain2_ms, alive_after_phase_1=int(alive1.sum()),
@@ -3249,9 +3282,9 @@ def resume_kernel_timing(name, scene, cam, launches, small, regs):
          flops_marble=FLOPS_MARBLE, int_ops_marble=INT_OPS_MARBLE)
     if not chained or max(c1[0], c2[0]) >= MAX_MISMATCH_SHARE:
         raise RuntimeError(f"B11 at the chunk: chained {chained}, against plain {c1} {c2}")
-    if tb.n_seg > 0 and not (c1[1] == 0.0 and c2[1] == 0.0 and mirror_equal):
-        raise RuntimeError(f"{name}: B11 with the culled sweep differs from its plain "
-                           f"version ({c1}, {c2}) or from its mirror ({mirror_equal})")
+    if not (c1[1] == 0.0 and c2[1] == 0.0 and mirror_equal):
+        raise RuntimeError(f"{name}: B11 ({cw.brute_route(tb)}) differs from its plain "
+                           f"version's bits ({c1}, {c2}) or from its mirror ({mirror_equal})")
     # one entry for the kernel: a chunk's two launches, their mean
     bound_pair = ((b1[0] + b2[0]) / 2, (b1[1] + b2[1]) / 2)
     return kernel_entry(
@@ -3294,12 +3327,12 @@ def profile_split_chunk(scene, cam):
          device_ms=device_ms, device_busy_share=device_ms / plain_ms,
          device_idle_share=1.0 - device_ms / plain_ms,
          device_kernel_launches=sum(r[2] for r in rows),
-         resume_kernel_ms=total("wavefront_resume"),
+         resume_kernel_ms=total("wavefront_resume", "resume_brute"),
          sort_kernels_ms=total("sort", "radix"),
          gather_and_index_kernels_ms=total("index", "gather", "scatter"),
          copy_and_cat_kernels_ms=total("copy", "cat"),
          top=[dict(name=r[0][:80], ms=r[1], calls=r[2]) for r in rows[:14]])
-    if device_ms <= 0.0 or total("wavefront_resume") <= 0.0:
+    if device_ms <= 0.0 or total("wavefront_resume", "resume_brute") <= 0.0:
         raise RuntimeError("split_profile: the profiler saw no B11 launch on the device")
 
 
@@ -3993,6 +4026,114 @@ def resident_warps():
             {a: b * t // 32 for a, (b, t) in sphere.items()}, stream[False][2])
 
 
+def all_rays(scene, cam):
+    """Every camera ray of ``cam``'s job as one chunk (hdri-test's 9,000,000,
+    as ``env_kernel_timing`` times B1 with the HDRI rows): (o, d, tm,
+    stream)."""
+    n = cam.image_width * cam.image_height * cam.samples_per_pixel
+    _, o, d, tm, ids, _, _ = renderer._chunk_rays(
+        scene, cam, 0, 0, spp=cam.samples_per_pixel, chunk=n, max_depth=cam.max_depth,
+        device=scene.device)
+    return (V3(*(c.contiguous() for c in o)), V3(*(c.contiguous() for c in d)),
+            tm.contiguous(), cw.stream_to_i32(ids))
+
+
+def brute_forward_timing(dev, env):
+    """B1 below 64 spheres alone, by depth (1, 2, ... bounces) and on the
+    same rays in stable order of path length, beside the render's order: at
+    Cornell's chunk (600x338, 100 spp, depth 5) and at ``hdri-test-nee``'s
+    9,000,000 rays (800x450, 25 spp, depth 10, its HDRI rows taken along), the route
+    without marble; at perlin's forward chunk (400x225, 25 spp, depth 10),
+    the route with marble.  Every launch's outputs are held to the plain
+    version's bits (in path-length order: the render order's outputs taken
+    in that order; by depth on Cornell and perlin).  Returns fields for
+    B1's entry of the ``kernels`` line."""
+    cornell, c0 = grt.load_scene("cornell", device=dev)
+    ccam = dataclasses.replace(c0, image_width=600, aspect_ratio=600 / 338,
+                               samples_per_pixel=100, max_depth=5)
+    n = min(renderer.pick_chunk_size(cornell) // (600 * 338), 100) * 600 * 338
+    nee, hcam = hdri_scene(dev, True, env)
+    perlin, p0 = grt.load_scene("perlin", device=dev)
+    pcam = dataclasses.replace(p0, image_width=PERLIN_BENCH["width"],
+                               samples_per_pixel=PERLIN_BENCH["spp"],
+                               max_depth=PERLIN_BENCH["depth"])
+    fields = {}
+    for name, scene, cam, rays, by_depth in (
+            ("cornell", cornell, ccam, lambda: chunk_rays(ccam, n, 0, dev), True),
+            ("hdri_test_nee", nee, hcam, lambda: all_rays(nee, hcam), False),
+            ("perlin", perlin, pcam, lambda: render_chunk(perlin, pcam), True)):
+        tb = cw.build_tables(scene)
+        depth = cam.max_depth
+        o, d, tm, sid = rays()
+        rows = cw.hdri_rows_for(scene, sid, 0, depth) if cw.uses_hdri_nee(scene) else None
+
+        def launch(k, o=o, d=d, tm=tm, sid=sid, rows=rows):
+            return cw.wavefront_fwd(tb, o, d, tm, sid, 0, k,
+                                    None if rows is None else rows[:k * cw.HDRI_ROWS])
+
+        def plain_equal(k, out):
+            p = cw._wavefront_fwd_plain(tb, o, d, tm, sid, 0, k,
+                                        None if rows is None else rows[:k * cw.HDRI_ROWS])
+            return all(bool(torch.equal(a, b)) for a, b in zip(out, p))
+
+        launch(depth)
+        render_rounds, out = rounds_ms(lambda: launch(depth), rounds=3, repeats=3)
+        equal = plain_equal(depth, out)
+        length = torch.ones_like(tm, dtype=torch.int64)
+        ms_by_depth = []
+        for k in range(1, depth + 1):
+            ms, f = rounds_ms(lambda k=k: launch(k), rounds=3, repeats=2)
+            ms_by_depth.append(median(ms))
+            if by_depth:
+                equal = equal and plain_equal(k, f)
+            if k < depth:
+                length += (f[1] & cw.FLAG_ALIVE) != 0
+        order = torch.argsort(length, stable=True)
+        o2, d2 = V3(*(c[order].contiguous() for c in o)), V3(*(c[order].contiguous() for c in d))
+        tm2, sid2 = tm[order].contiguous(), sid[order].contiguous()
+        rows2 = None if rows is None else rows[:, order].contiguous()
+        len_rounds, out2 = rounds_ms(lambda: launch(depth, o2, d2, tm2, sid2, rows2),
+                                     rounds=3, repeats=3)
+        equal = equal and torch.equal(out2[0], out[0][:, order]) \
+            and torch.equal(out2[1], out[1][order])
+        route = cw.brute_route(tb)
+        fields[name] = dict(
+            route=route, rays=int(tm.shape[0]), depth=depth, hdri_rows=rows is not None,
+            ms=median(render_rounds), ms_rounds=render_rounds, ms_by_depth=ms_by_depth,
+            ms_path_length_order=median(len_rounds), ms_path_length_order_rounds=len_rounds,
+            rays_by_path_length=torch.bincount(length, minlength=depth + 1).tolist(),
+            bit_equal_plain=equal, resident_warps_per_sm=resident(cw.tracing_occupancy(
+                "fwd_marble" if route == "marble" else "fwd", False, smem_of_tables(tb))))
+        del o, d, tm, sid, rows, o2, d2, tm2, sid2, rows2, out, out2
+        if not equal:
+            raise RuntimeError(f"B1 ({route}) at {name}'s chunk differs from its plain "
+                               f"version's bits")
+    emit("b1_brute_timing", previous_design_ms_perf_md=PREVIOUS_DESIGN_MS["wavefront_fwd"],
+         **fields)
+    return {f"brute_{k}": {"route": v["route"], "ms": v["ms"], "ms_by_depth": v["ms_by_depth"],
+                           "ms_path_length_order": v["ms_path_length_order"]}
+            for k, v in fields.items()}
+
+
+def brute_routes(regs, dev):
+    """The brute instantiations of B1 and B11 (``regs``: name -> (registers,
+    spill bytes)), each with the warps an SM holds at once and the shared
+    bytes a block takes at the tables of the scene that launches it in
+    ``chip_smoke.py``'s timing (Cornell without marble, perlin with)."""
+    tables = {False: cw.build_tables(grt.load_scene("cornell", device=dev)[0]),
+              True: cw.build_tables(grt.load_scene("perlin", device=dev)[0])}
+    out = {}
+    for name, (r, spill) in regs.items():
+        marble = name.endswith("marble")
+        kernel = ("fwd" if name.startswith("b1") else "resume") + ("_marble" if marble else "")
+        smem = smem_of_tables(tables[marble])
+        out[name] = {"registers": r, "spill_bytes": spill, "scene": "perlin" if marble else
+                     "cornell", "resident_warps_per_sm": resident(
+                         cw.tracing_occupancy(kernel, False, smem)),
+                     "shared_bytes_per_block": smem}
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out-dir", default=str(_build.BUILD_DIR),
@@ -4023,11 +4164,13 @@ def main():
         (stats,) = [v for name, v in lib.kernels.items() if tag in name]
         return stats
 
-    # wavefront_kernel<0, false> is the forward, <0, true> its culled
-    # instantiation (64 spheres and more), <1, false> the product-chain
-    # gradient forward, <3, true> the culled record, <2, false> the pathwise
-    # gradient forward
-    fwd_regs, fwd_spill = kernel_stats(built, "wavefront_kernelILi0ELb0E")
+    # forward_brute_kernel is the forward below 64 spheres (B1_BRUTE_TAG, and
+    # B1_MARBLE_TAG in a scene with marble), wavefront_kernel<0, true> its
+    # culled instantiation (64 spheres and more), <1, false> the
+    # product-chain gradient forward, <3, true> the culled record, <2, false>
+    # the pathwise gradient forward
+    fwd_regs, fwd_spill = kernel_stats(built, B1_BRUTE_TAG)
+    fwd_marble = kernel_stats(built, B1_MARBLE_TAG)
     fwd_cull_regs = kernel_stats(built, "wavefront_kernelILi0ELb1E")
     rec_regs = kernel_stats(built, "wavefront_kernelILi3ELb1E")
     rows_regs = kernel_stats(built_rows, "row_sums_kernel")
@@ -4047,11 +4190,13 @@ def main():
     prev_marble = kernel_stats(built_pw, "wavefront_grad_rev_pathwise_kernelILi20E")
     fused_regs = kernel_stats(built_fused, "wavefront_grad_fused_kernelILi19E")
     fused_marble = kernel_stats(built_fused, "wavefront_grad_fused_kernelILi22E")
-    unchanged = {tag: kernel_stats(built, tag) for tag in UNCHANGED_KERNELS}
+    unchanged = {tag: kernel_stats(built_fused if "grad_fused" in tag else built, tag)
+                 for tag in UNCHANGED_KERNELS}
     # stream_micro_kernel<roll, dynamic tile, bit scan>: the probe's variants
     probe_regs = {v: kernel_stats(built_probe, "stream_micro_kernelILb{}ELb{}ELb{}E".format(
         *(int(f) for f in flags))) for v, flags in sm.VARIANTS.items()}
-    resume_regs = kernel_stats(built, "wavefront_resume_kernelILb0E")
+    resume_brute = kernel_stats(built, B11_BRUTE_TAG)
+    resume_regs = kernel_stats(built, B11_MARBLE_TAG)   # perlin's split: marble
     resume_cull_regs = kernel_stats(built, "wavefront_resume_kernelILb1E")
     seg_regs = kernel_stats(built_rows, "sorted_segment_sums_kernel")
     # planar_kernel<false> / <true> and sphere_kernel<false> / <true>: closest
@@ -4069,6 +4214,8 @@ def main():
         ("mesh_stream", "mesh_stream_kernelILb0E"),
         ("mesh_stream_any_hit", "mesh_stream_kernelILb1E"))}
     stream_warps, sphere_warps, stream_smem = resident_warps()
+    routes = brute_routes({"b1_brute": (fwd_regs, fwd_spill), "b1_brute_marble": fwd_marble,
+                           "b11_brute": resume_brute, "b11_brute_marble": resume_regs}, dev)
     emit("build", seconds=time.perf_counter() - t0, kernels=16,
          kernels_note="fifteen ports of TPU kernels (the probe of the mesh stream "
                       "among them) and the row-sum kernel of take_rows' backward "
@@ -4107,7 +4254,8 @@ def main():
          sphere_resident_warps_per_sm=sphere_warps[False],
          sphere_attrs_resident_warps_per_sm=sphere_warps[True],
          registers=fwd_regs, spill_bytes=fwd_spill,
-         registers_with_fma=kernel_stats(built_fma, "wavefront_kernelILi0ELb0E")[0],
+         registers_with_fma=kernel_stats(built_fma, B1_BRUTE_TAG)[0],
+         brute_routes=routes,
          grad_fwd_registers=gfwd_regs, grad_fwd_spill_bytes=gfwd_spill,
          grad_rev_registers=grev_regs, grad_rev_spill_bytes=grev_spill,
          grad_fwd_pathwise_registers=pfwd_regs,
@@ -4234,12 +4382,12 @@ def main():
     fma_ms, _ = cuda_ms(lambda: cw._wavefront_fwd_cuda(*kargs, fmad=True), repeats=5)
     kernel_ms2, _ = cuda_ms(lambda: cw.wavefront_fwd(*kargs), repeats=5)
     plain_ms, (p_rows, p_flags) = cuda_ms(lambda: cw._wavefront_fwd_plain(*kargs))
-    good = (torch.isclose(k_rows, p_rows, rtol=RTOL, atol=ATOL).all(dim=0)
-            & (k_flags == p_flags))
+    # B1 brute is held to its plain version bit for bit on the whole chunk
+    good = (k_rows == p_rows).all(dim=0) & (k_flags == p_flags)
     mismatch_full = 1.0 - float(good.float().mean())
-    max_err_full = float((k_rows - p_rows).abs().max(dim=0).values[good].max())
-    if mismatch_full >= MAX_MISMATCH_SHARE:
-        raise RuntimeError(f"full-size chunk: {mismatch_full:.4%} of rays disagree")
+    max_err_full = float((k_rows - p_rows).abs().max())
+    if mismatch_full != 0.0:
+        raise RuntimeError(f"full-size chunk: {mismatch_full:.4%} of rays differ in their bits")
     del p_rows, p_flags, k_rows, k_flags
 
     # rays entering bounce k = rays still alive after k bounces (depth-k launch)
@@ -4366,15 +4514,13 @@ def main():
                         "any_hit_registers": mesh_stats["mesh_stream_any_hit"][0],
                         "any_hit_spill_bytes": mesh_stats["mesh_stream_any_hit"][1],
                         "resident_warps_per_sm": stream_warps[False]}})
-    # the card's speed: three kernels beside the times PERF.md section 6
-    # gives them
+    # the card's speed: three kernels that keep their design beside the
+    # times PERF.md section 6 gives them
     grad_by_name = {e["name"]: e for e in grad_entries}
-    yard = {name: (ms, ref) for name, ms, ref in (
-        ("wavefront_fwd", median(fwd_rounds), CARD_YARDSTICK["wavefront_fwd"]),
-        ("wavefront_grad_rev", grad_by_name["wavefront_grad_rev"]["ms"],
-         CARD_YARDSTICK["wavefront_grad_rev"]),
-        ("planar_closest", by_name["planar_closest"]["ms"],
-         CARD_YARDSTICK["planar_closest"]))}
+    yard = {name: (ms, CARD_YARDSTICK[name]) for name, ms in (
+        ("sphere_closest", by_name["sphere_closest"]["ms"]),
+        ("wavefront_grad_rev", grad_by_name["wavefront_grad_rev"]["ms"]),
+        ("planar_closest", by_name["planar_closest"]["ms"]))}
     emit("card_yardstick", note="ms of three kernels at the shapes of PERF.md "
          "section 6, beside the times recorded there",
          **{name: {"ms": ms, "perf_md_ms": ref, "ratio": ms / ref}
@@ -4422,8 +4568,13 @@ def main():
     # ---- marble textures and the resumable kernel: perlin, split, compact --------
     b11_entry, b1_marble, (b2_noise, b3_noise) = marble_and_split_phases(
         dev, out_dir, synthetic_sky()[0], resume_regs, resume_cull_regs)
+    # B11's entry is perlin's (its marble instantiation); without marble:
+    b11_entry["registers_no_marble"], b11_entry["spill_bytes_no_marble"] = resume_brute
     grad_entries[0]["launches_noise_fwd_bwd"] = b2_noise
     grad_entries[1]["launches_noise_fwd_bwd"] = b3_noise
+
+    # ---- B1 below 64 spheres alone: by depth, in path-length order, each route --
+    b1_brute = brute_forward_timing(dev, synthetic_sky()[0])
 
     # ---- marble behind metal and glass: the pathwise and fused tiers ----------
     b5a_marble, b5b_marble, b4_marble, warps = marble_grad_phases(
@@ -4479,6 +4630,9 @@ def main():
         **b1_env,
         **b1_marble,
         **b1_random,
+        **b1_brute,
+        "registers_marble": fwd_marble[0],
+        "spill_bytes_marble": fwd_marble[1],
     }, rec_entry, *grad_entries, pw_entries[0] | b5a_marble,
         pw_entries[1] | b5b_env | b5b_marble, *ix_entries, *mesh_entries,
         b4_entry | b4_marble, b11_entry, probe_entry]}), flush=True)

@@ -1,10 +1,13 @@
 // Wavefront megakernel for Hopper (sm_90a): the whole bounce loop of the
 // path tracer in one kernel, one thread per ray.  Five modes of one
 // template, and the resumable kernel (wavefront_resume_kernel, below); the
-// forward, the record and the resumable kernel each have a second, culled
-// instantiation for scenes with sphere segments (CULL, below):
+// forward, the record and the resumable kernel each have a culled
+// instantiation for scenes with sphere segments (CULL, below), and the
+// forward and the resumable kernel their own kernels for scenes without
+// (forward_brute_kernel, resume_brute_kernel, below):
 //
-//   wavefront_kernel<FWD>       the forward render.  Replaces the forward
+//   wavefront_kernel<FWD>       the forward render (forward_brute_kernel
+//       below SPH_CULL_MIN spheres).  Replaces the forward
 //       specialization of make_kernel in the JAX package's
 //       go_raytracing_tpu/ops/pallas_wavefront.py (launched by _call
 //       through pl.pallas_call, entry point trace_megakernel).
@@ -109,6 +112,29 @@
 // segment and group tables go to shared memory with the others.  Below
 // SPH_CULL_MIN spheres, and in every other instantiation, the brute sweep.
 //
+// The forward and the resumable kernel below SPH_CULL_MIN spheres (B1 <0,
+// false>, B11 <false>: forward_brute_kernel, resume_brute_kernel).  What
+// held them back on this card, measured on the Cornell job's rays and on
+// perlin's (PERF.md): latency, and lanes waiting on their warp's longest
+// path (the same rays in order of path length took 31 % less on Cornell,
+// 63 % less on perlin, whose marble is most of a bounce).  A lane that
+// takes the next ray of its warp's batches when its own ends measured no
+// better: it mixes camera rays with bounced ones, and the camera rays'
+// coherence (one branch in every lane, the sign gate's skipped divisions)
+// was worth more than the waiting it saved.  The design:
+//   * without marble one ray a thread at six blocks an SM (24 warps at up
+//     to 85 registers, no spill; was 20 at 96) and the planar sign gate in
+//     the closest-hit and both shadow sweeps (trace_ray's GATE_ALL), as B2;
+//   * with marble (brute_route, its own instantiation) the grid-stride
+//     loop's turns taken by whole warps, every lane in the bounce loop
+//     until its warp's last ray is done, and at each bounce the marble of
+//     the lanes that hit it evaluated lane by lane where many do and in
+//     turns across the warp (marble_warp, 28 lanes a point) where at most
+//     FWD_MARBLE_TURNS / RESUME_MARBLE_TURNS do: after the first bounce
+//     few lanes of a warp are still alive, and a lane's whole marble in one
+//     dependent chain was what their warp waited on;
+// every output is the parent's and the plain version's, bit for bit.
+//
 // The gradient forward moves five times the bytes: 15 stash rows a bounce
 // besides the forward's 18 and the 3 miss colour rows, 384 bytes a ray at
 // depth 5 (the pathwise rows: 22 a bounce, 23 with marble), so the stash
@@ -193,14 +219,26 @@ namespace {
 // against no target, five and, for B11, four, PERF.md); the others
 // MIN_BLOCKS_UNSET, which sets no minimum and
 // leaves their registers to the compiler as before (a minimum of 1 is not
-// the same: it took B1 from 96 to 122).  The forward's brute instantiation
-// keeps that: six blocks took it from 1.82 to 2.14 ms on hdri-test's glass
-// and metal (PERF.md).
+// the same: it took B1 from 96 to 122).
 constexpr int PW_MARBLE_BLOCKS_PER_SM = 4;
 constexpr int PRODUCT_BLOCKS_PER_SM = 6;
 constexpr int CULL_BLOCKS_PER_SM = 6;
 constexpr int MIN_BLOCKS_UNSET = 0;
 constexpr int PRODUCT_MARBLE_BLOCKS_PER_SM = MIN_BLOCKS_UNSET;
+
+// The brute instantiations of the forward and the resumable kernel (B1
+// <0, false>, B11 <false>; forward_brute_kernel, resume_brute_kernel), one
+// for scenes without marble and one for scenes with it: the blocks an SM
+// each is built for (measured against five and seven, and with marble
+// against four to six, PERF.md), and with marble the most lanes of a warp
+// whose marble it takes in turns (trace_ray's MARBLE_TURNS; measured
+// against 4 to 32).
+constexpr int FWD_BRUTE_BLOCKS_PER_SM = 6;
+constexpr int RESUME_BRUTE_BLOCKS_PER_SM = 6;
+constexpr int FWD_MARBLE_TURNS = 16;
+constexpr int FWD_MARBLE_BLOCKS_PER_SM = 5;
+constexpr int RESUME_MARBLE_TURNS = 12;
+constexpr int RESUME_MARBLE_BLOCKS_PER_SM = 5;
 
 // The block's copy of the scalar tables in shared memory (when they fit),
 // or the tables in device memory.  SEGMENTS: the culled sweep's segment
@@ -404,7 +442,8 @@ constexpr int kernel_min_blocks(int mode, bool cull) {
 }
 
 // CULL: the culled instantiation of the forward and the record, launched
-// for tables with segments (launch()); the others sweep every sphere.
+// for tables with segments (launch(); the forward has no other); the others
+// sweep every sphere.
 // MIN_BLOCKS: the blocks an SM it is built for (B2 in a scene with marble:
 // PRODUCT_MARBLE_BLOCKS_PER_SM).
 template <int MODE, bool CULL, int MIN_BLOCKS = kernel_min_blocks(MODE, CULL)>
@@ -510,6 +549,8 @@ struct ResumeOut {
     float* tp[3];
 };
 
+// Launched culled (CULL, tables with segments) only; below SPH_CULL_MIN
+// spheres resume_brute_kernel takes the same state.
 template <bool CULL>
 __global__ void __launch_bounds__(THREADS, CULL ? CULL_BLOCKS_PER_SM : MIN_BLOCKS_UNSET)
 wavefront_resume_kernel(Tables G, ResumeIn I, ResumeOut O, long long n_rays,
@@ -546,6 +587,127 @@ wavefront_resume_kernel(Tables G, ResumeIn I, ResumeOut O, long long n_rays,
         }
         O.flags[i] = flags;
     }
+}
+
+// The forward below SPH_CULL_MIN spheres (B1 <0, false>): one ray a thread
+// in a grid-stride loop, the planar sign gate in every sweep.  TURNS > 0:
+// the marble across the warp (trace_ray's MARBLE_TURNS), every lane in the
+// bounce loop until its warp's last ray is done, the loop's turns taken by
+// whole warps (lanes past the ray count hold none).
+template <int TURNS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+forward_brute_kernel(Tables G, const float* __restrict__ ox, const float* __restrict__ oy,
+                     const float* __restrict__ oz, const float* __restrict__ dx,
+                     const float* __restrict__ dy, const float* __restrict__ dz,
+                     const float* __restrict__ tm, const uint32_t* __restrict__ stream,
+                     float* __restrict__ out, int* __restrict__ flags_out, long long n_rays,
+                     uint32_t seed, int max_depth, int tables_in_smem,
+                     const float* __restrict__ hdri) {
+    extern __shared__ float smem[];
+    const Tables S = stage_tables(G, tables_in_smem, smem);
+    const long long step = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         (TURNS > 0 ? i - (threadIdx.x & 31) : i) < n_rays; i += step) {
+        const bool valid = TURNS == 0 || i < n_rays;
+        float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 0.0f};
+        float tmv = 0.0f;
+        uint32_t sid = 0;
+        if (valid) {
+            o[0] = ox[i];
+            o[1] = oy[i];
+            o[2] = oz[i];
+            d[0] = dx[i];
+            d[1] = dy[i];
+            d[2] = dz[i];
+            tmv = tm[i];
+            sid = stream[i];
+        }
+        float tp[3] = {1.0f, 1.0f, 1.0f};
+        float rad[3] = {0.0f, 0.0f, 0.0f};
+        float m_dir[3] = {0.0f, 0.0f, 0.0f};
+        float m_tp[3] = {0.0f, 0.0f, 0.0f};
+        int flags = valid ? FLAG_ALIVE | FLAG_ALLOW : 0;
+        trace_ray<FWD, false, true, TURNS>(
+            S, o, d, tp, tmv, sid, seed, 0, max_depth, rad, m_dir, m_tp, flags,
+            Stash{nullptr, nullptr, 0}, Record{nullptr, nullptr, 0}, i,
+            Hdri{hdri != nullptr && valid ? hdri + i : nullptr, n_rays});
+        if (!valid) continue;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            out[(0 + c) * n_rays + i] = rad[c];
+            out[(3 + c) * n_rays + i] = m_dir[c];
+            out[(6 + c) * n_rays + i] = m_tp[c];
+        }
+        flags_out[i] = flags;
+    }
+}
+
+// The resumable kernel below SPH_CULL_MIN spheres (B11 <false>), as
+// forward_brute_kernel: bounces [b_start, b_end) of the carried state.
+template <int TURNS, int MIN_BLOCKS>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+resume_brute_kernel(Tables G, ResumeIn I, ResumeOut O, long long n_rays, uint32_t seed,
+                    int b_start, int b_end, int tables_in_smem,
+                    const float* __restrict__ hdri) {
+    extern __shared__ float smem[];
+    const Tables S = stage_tables(G, tables_in_smem, smem);
+    const long long step = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         (TURNS > 0 ? i - (threadIdx.x & 31) : i) < n_rays; i += step) {
+        const bool valid = TURNS == 0 || i < n_rays;
+        float o[3] = {0.0f, 0.0f, 0.0f}, d[3] = {0.0f, 0.0f, 0.0f};
+        float tp[3] = {0.0f, 0.0f, 0.0f}, rad[3] = {0.0f, 0.0f, 0.0f};
+        float m_dir[3] = {0.0f, 0.0f, 0.0f}, m_tp[3] = {0.0f, 0.0f, 0.0f};
+        float tmv = 0.0f;
+        uint32_t sid = 0;
+        int flags = 0;   // a lane past the ray count: no ray, dead
+        if (valid) {
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+                o[c] = I.o[c][i];
+                d[c] = I.d[c][i];
+                tp[c] = I.tp[c][i];
+                rad[c] = I.rad[c][i];
+                m_dir[c] = I.m_dir[c][i];
+                m_tp[c] = I.m_tp[c][i];
+            }
+            tmv = I.tm[i];
+            sid = I.stream[i];
+            flags = I.flags[i];
+        }
+        trace_ray<FWD, false, true, TURNS>(
+            S, o, d, tp, tmv, sid, seed, b_start, b_end, rad, m_dir, m_tp, flags,
+            Stash{nullptr, nullptr, 0}, Record{nullptr, nullptr, 0}, i,
+            Hdri{hdri != nullptr && valid ? hdri + i : nullptr, n_rays});
+        if (!valid) continue;
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+            O.rad[c][i] = rad[c];
+            O.m_dir[c][i] = m_dir[c];
+            O.m_tp[c][i] = m_tp[c];
+            O.o[c][i] = o[c];
+            O.d[c][i] = d[c];
+            O.tp[c][i] = tp[c];
+        }
+        O.flags[i] = flags;
+    }
+}
+
+// The brute instantiations as built: for a scene without marble and with it.
+using BruteForward = void (*)(Tables, const float*, const float*, const float*, const float*,
+                              const float*, const float*, const float*, const uint32_t*, float*,
+                              int*, long long, uint32_t, int, int, const float*);
+using BruteResume = void (*)(Tables, ResumeIn, ResumeOut, long long, uint32_t, int, int, int,
+                             const float*);
+
+BruteForward forward_brute(bool marble) {
+    return marble ? forward_brute_kernel<FWD_MARBLE_TURNS, FWD_MARBLE_BLOCKS_PER_SM>
+                  : forward_brute_kernel<0, FWD_BRUTE_BLOCKS_PER_SM>;
+}
+
+BruteResume resume_brute(bool marble) {
+    return marble ? resume_brute_kernel<RESUME_MARBLE_TURNS, RESUME_MARBLE_BLOCKS_PER_SM>
+                  : resume_brute_kernel<0, RESUME_BRUTE_BLOCKS_PER_SM>;
 }
 
 // Tables, shared memory and grid of one launch: one thread a ray, at most
@@ -609,6 +771,7 @@ int setup(const float* pt, const float* st, const float* vt, const float* lt,
     return 0;
 }
 
+
 // Shared memory of a B5a <2> block: its tables (table_bytes, 0 when they
 // stay in device memory) and its rows (PW_BLOCK_BYTES), within the 48 KB a
 // block gets unasked; tables that would take it past stay in device memory.
@@ -630,8 +793,9 @@ int launch(const float* pt, const float* st, const float* vt, const float* lt,
     const int err = setup(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights,
                           n_rays, L, seg);
     if (err != 0) return err;
-    auto kernel = wavefront_kernel<MODE, false>;
-    if constexpr (MODE == FWD || MODE == RECORD) {
+    // the forward comes here with segments only (forward_brute otherwise)
+    auto kernel = wavefront_kernel<MODE, MODE == FWD>;
+    if constexpr (MODE == RECORD) {
         if (L.G.n_seg > 0) kernel = wavefront_kernel<MODE, true>;
     }
     if constexpr (MODE == PRODUCT) {
@@ -681,7 +845,8 @@ int segments(const short* seg_order, const int* seg_start, const float* seg_box,
 // sampling: a scene without quad lights or without an importance-sampled
 // environment).  The forward, the record and the resumable kernel take the
 // culled sweep's tables (segments(): seg_order ... seg_inv_r), or nulls and
-// zeros.
+// zeros; the forward and the resumable kernel `marble` 1 where the scene
+// has a marble texture (without segments: its brute instantiation).
 extern "C" int wavefront_fwd_launch(
     const float* pt, const float* st, const float* vt, const float* lt,
     int n_planar, int n_sphere, int n_vol, int n_lights,
@@ -690,11 +855,21 @@ extern "C" int wavefront_fwd_launch(
     const void* stream, const float* hdri, const short* seg_order, const int* seg_start,
     const float* seg_box, int n_seg, const int* grp_start, const float* grp_box, int n_grp,
     float seg_c, float seg_inv_r, float* out, int* flags,
-    long long n_rays, unsigned int seed, int max_depth, void* cuda_stream) {
+    long long n_rays, unsigned int seed, int max_depth, int marble, void* cuda_stream) {
     Tables seg;
-    const int err = segments(seg_order, seg_start, seg_box, n_seg, grp_start, grp_box, n_grp,
-                             seg_c, seg_inv_r, n_sphere, seg);
+    int err = segments(seg_order, seg_start, seg_box, n_seg, grp_start, grp_box, n_grp,
+                       seg_c, seg_inv_r, n_sphere, seg);
     if (err != 0) return err;
+    if (n_seg == 0) {
+        Setup L;
+        err = setup(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights, n_rays, L);
+        if (err != 0) return err;
+        const BruteForward kernel = forward_brute(marble != 0);
+        kernel<<<L.blocks, THREADS, L.smem_bytes, (cudaStream_t)cuda_stream>>>(
+            L.G, ox, oy, oz, dx, dy, dz, tm, (const uint32_t*)stream, out, flags, n_rays, seed,
+            max_depth, L.smem_bytes > 0, hdri);
+        return (int)cudaGetLastError();
+    }
     return launch<FWD>(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights, ox,
                          oy, oz, dx, dy, dz, tm, stream, out, flags, n_rays, seed,
                          max_depth, cuda_stream, Stash{nullptr, nullptr, 0},
@@ -782,7 +957,7 @@ extern "C" int wavefront_resume_launch(
     void* const* out, const float* hdri, const short* seg_order, const int* seg_start,
     const float* seg_box, int n_seg, const int* grp_start, const float* grp_box, int n_grp,
     float seg_c, float seg_inv_r, long long n_rays, unsigned int seed,
-    int b_start, int b_end, void* cuda_stream) {
+    int b_start, int b_end, int marble, void* cuda_stream) {
     Tables seg;
     int err = segments(seg_order, seg_start, seg_box, n_seg, grp_start, grp_box, n_grp, seg_c,
                        seg_inv_r, n_sphere, seg);
@@ -810,7 +985,13 @@ extern "C" int wavefront_resume_launch(
     I.stream = (const uint32_t*)in[7];
     I.flags = (const int*)in[14];
     O.flags = (int*)out[9];
-    auto kernel = L.G.n_seg > 0 ? wavefront_resume_kernel<true> : wavefront_resume_kernel<false>;
+    if (L.G.n_seg > 0) {
+        wavefront_resume_kernel<true><<<L.blocks, THREADS, L.smem_bytes,
+                                        (cudaStream_t)cuda_stream>>>(
+            L.G, I, O, n_rays, seed, b_start, b_end, L.smem_bytes > 0, hdri);
+        return (int)cudaGetLastError();
+    }
+    const BruteResume kernel = resume_brute(marble != 0);
     kernel<<<L.blocks, THREADS, L.smem_bytes, (cudaStream_t)cuda_stream>>>(
         L.G, I, O, n_rays, seed, b_start, b_end, L.smem_bytes > 0, hdri);
     return (int)cudaGetLastError();
@@ -833,18 +1014,23 @@ extern "C" int wavefront_pathwise_occupancy(int marble, int smem_bytes,
 
 // The same for the forward, the product-chain gradient forward, the record
 // and the resumable kernel: `kernel` FWD (0), PRODUCT (1), RECORD (3),
-// RESUME_KERNEL or PRODUCT_MARBLE_KERNEL (B2 in a scene with marble);
-// `culled` their culled instantiations (none for PRODUCT).
+// RESUME_KERNEL, PRODUCT_MARBLE_KERNEL (B2 in a scene with marble),
+// FWD_MARBLE_KERNEL or RESUME_MARBLE_KERNEL (the brute B1 and B11 of a
+// scene with marble); `culled` their culled instantiations (none for
+// PRODUCT and the marble ones).
 constexpr int RESUME_KERNEL = 7;
 constexpr int PRODUCT_MARBLE_KERNEL = 8;
+constexpr int FWD_MARBLE_KERNEL = 9;
+constexpr int RESUME_MARBLE_KERNEL = 10;
 
 extern "C" int wavefront_tracing_occupancy(int kernel, int culled, int smem_bytes,
                                            int* blocks_per_sm, int* threads) {
     *threads = THREADS;
     const void* fn = nullptr;
     if (kernel == FWD)
-        fn = culled ? (const void*)wavefront_kernel<FWD, true>
-                    : (const void*)wavefront_kernel<FWD, false>;
+        fn = culled ? (const void*)wavefront_kernel<FWD, true> : (const void*)forward_brute(false);
+    else if (kernel == FWD_MARBLE_KERNEL && !culled)
+        fn = (const void*)forward_brute(true);
     else if (kernel == PRODUCT && !culled)
         fn = (const void*)wavefront_kernel<PRODUCT, false>;
     else if (kernel == PRODUCT_MARBLE_KERNEL && !culled)
@@ -853,8 +1039,9 @@ extern "C" int wavefront_tracing_occupancy(int kernel, int culled, int smem_byte
         fn = culled ? (const void*)wavefront_kernel<RECORD, true>
                     : (const void*)wavefront_kernel<RECORD, false>;
     else if (kernel == RESUME_KERNEL)
-        fn = culled ? (const void*)wavefront_resume_kernel<true>
-                    : (const void*)wavefront_resume_kernel<false>;
+        fn = culled ? (const void*)wavefront_resume_kernel<true> : (const void*)resume_brute(false);
+    else if (kernel == RESUME_MARBLE_KERNEL && !culled)
+        fn = (const void*)resume_brute(true);
     if (fn == nullptr) return (int)cudaErrorInvalidValue;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, THREADS,
                                                               (size_t)smem_bytes);

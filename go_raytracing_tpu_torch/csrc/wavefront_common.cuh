@@ -185,10 +185,13 @@ __device__ __forceinline__ float marble(const float p[3], float scale) {
 // marble's bit for bit; the gradient takes each corner's term by the product
 // rule over its weights (the lattice cell held fixed) and sums the terms
 // over corners, then octaves, in the torch version's order.  Measured on the
-// H100, the turns beat one lane a ray even where 30 of 32 lanes need a
-// marble (PERF.md), so there is no other path.  Every marble kernel takes
-// it: B5a and B4's forwards for the value (B4 with dmarble/dp), B5b for
-// dmarble/dp.
+// H100, the turns beat one lane a ray in B5a even where 30 of 32 lanes need
+// a marble (PERF.md), so B5a and B4's forwards take it for the value (B4
+// with dmarble/dp) and B5b for dmarble/dp at every bounce.  The brute
+// forward and resumable kernels, whose warps start full of marble points
+// (perlin: every hit), take it where few lanes need one and one lane a ray
+// otherwise (trace_ray's MARBLE_TURNS; the turns read about twice one
+// lane's time on full warps there, PERF.md).
 template <bool GRAD>
 __device__ __forceinline__ float marble_warp(bool need, const float p[3],
                                              float scale, float grad[3],

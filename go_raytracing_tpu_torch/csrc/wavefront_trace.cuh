@@ -431,8 +431,16 @@ constexpr int FLAG_ALLOW = 8;
 // one bounce a call, into its block's rows of that bounce; the other
 // pathwise modes start at 0).  CULL (the forward, the
 // record and the resumable kernel, in a scene with segments): the sphere
-// sweeps are the culled sweep's (spheres_hit).
-template <int MODE, bool CULL = false>
+// sweeps are the culled sweep's (spheres_hit).  GATE_ALL (the forward's
+// and the resumable kernel's brute instantiations): planar_sweep's sign gate
+// in the closest-hit sweep and both shadow sweeps, whatever the mode.
+// MARBLE_TURNS > 0 (their instantiations for a scene with marble): every
+// lane of the warp calls and stays in the loop as the marble modes' do
+// (COOP, below), and a bounce where at most MARBLE_TURNS lanes hit marble
+// takes their points in turns across the warp (marble_warp), one where more
+// do evaluates each lane's own (the same bits); a lane whose ray enters
+// dead (or that holds none) takes the allow rule of a ray that entered dead.
+template <int MODE, bool CULL = false, bool GATE_ALL = false, int MARBLE_TURNS = 0>
 __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3],
                                           float tp[3], float tmv, uint32_t sid,
                                           uint32_t seed, int b_start, int b_end,
@@ -456,13 +464,15 @@ __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3]
     // lanes whose ray died (or that hold none: `started` false) idle through
     // the bounce but for the marble's turns.  In the other modes `live` and
     // `shade` are true wherever they are read.
-    constexpr bool COOP = MODE == PATHWISE_MARBLE || MODE == FUSED_MARBLE;
+    constexpr bool WARP_MARBLE = MARBLE_TURNS > 0;
+    constexpr bool COOP = WARP_MARBLE || MODE == PATHWISE_MARBLE || MODE == FUSED_MARBLE;
     // B2 and B5a without marble: the planar sweeps' sign gate
-    constexpr bool GATE = MODE == PATHWISE || MODE == PRODUCT;
+    constexpr bool GATE = GATE_ALL || MODE == PATHWISE || MODE == PRODUCT;
     static_assert(!CULL || MODE == FWD || MODE == RECORD,
                   "the culled sweep is the forward's and the record's");
     const bool started = alive;
-    int b_own = b_end;  // COOP: where this lane's own loop would have stopped
+    // COOP: where this lane's own loop would have stopped
+    int b_own = (WARP_MARBLE && !started) ? b_start : b_end;
     const float zero3[3] = {0.0f, 0.0f, 0.0f};
     int stashed = b_start;  // stash rows (or record rows) written so far
 
@@ -633,8 +643,15 @@ __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3]
         if constexpr (COOP) {
             // every lane, in the warp's turns; FUSED_MARBLE: with dmarble/dp
             const bool need = shade && texkind == 2.0f;
-            const float m = marble_warp<MODE == FUSED_MARBLE>(need, p, inv_scale, dm,
-                                                              threadIdx.x & 31);
+            float m;
+            if constexpr (WARP_MARBLE) {
+                if (__popc(__ballot_sync(0xFFFFFFFFu, need)) > MARBLE_TURNS)
+                    m = need ? marble(p, inv_scale) : 0.0f;
+                else
+                    m = marble_warp<false>(need, p, inv_scale, dm, threadIdx.x & 31);
+            } else {
+                m = marble_warp<MODE == FUSED_MARBLE>(need, p, inv_scale, dm, threadIdx.x & 31);
+            }
             if (need) {
 #pragma unroll
                 for (int c = 0; c < 3; ++c) albedo[c] = m;
@@ -758,7 +775,8 @@ __device__ __forceinline__ int trace_ray(const Tables& S, float o[3], float d[3]
             const float hd[3] = {hr[0], hr[H.n], hr[2 * H.n]};
             const float cos_h = dot3(nrm, hd);
             if (cos_h > 0.0f) {
-                if (occluded<CULL>(S, p, hd, 3.0e38f, sid, seed, bu, VOL_SHADOW_HDRI)) {
+                if (occluded<CULL, GATE_ALL>(S, p, hd, 3.0e38f, sid, seed, bu,
+                                             VOL_SHADOW_HDRI)) {
                     if constexpr (PW) mk |= PW_BLK_H;
                     if constexpr (MODE == RECORD) mk |= DEC_BLK_H;
                 } else {

@@ -279,6 +279,9 @@ class Tables(NamedTuple):
     n_grp: int = 0
     seg_c: float = 0.0       # the padding's scale: max |centre| + radius of
     seg_inv_r: float = 0.0   # the boxed spheres, 1 / their least radius
+    # a marble texture in the scene (``scene.has_noise``, known on the host):
+    # the brute forward and resumable kernels take their marble instantiation
+    marble: bool = False
 
 
 def applicable(scene, max_prims: int = 1024) -> bool:
@@ -529,7 +532,8 @@ def build_tables(scene) -> Tables:
             + [ltex]
         )
     lt = _stack_rows(rows, LT_ROWS, n_lights, dev)
-    tb = Tables(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights)
+    tb = Tables(pt, st, vt, lt, n_planar, n_sphere, n_vol, n_lights,
+                marble=bool(scene.has_noise))
     if n_sphere >= SPH_CULL_MIN:
         tb = tb._replace(**sphere_segments(s))
     return tb
@@ -749,6 +753,17 @@ def _has_noise(tb: Tables) -> bool:
     return bool((tb.pt[16, :tb.n_planar] == 2.0).any()
                 or (tb.st[8, :tb.n_sphere] == 2.0).any()
                 or (tb.vt[20, :tb.n_vol] == 2.0).any())
+
+
+def brute_route(tb: Tables) -> str:
+    """The instantiation of the forward and the resumable kernel that the
+    tables take: "culled" where they have sphere segments (``SPH_CULL_MIN``
+    spheres and more), else the brute sweep's, "marble" in a scene with a
+    marble texture (the marble across the warp where few lanes hit it) and
+    "brute" without.  Read on the host: a launch waits on nothing."""
+    if tb.n_seg > 0:
+        return "culled"
+    return "marble" if tb.marble else "brute"
 
 
 def _bounce_loop(tb: Tables, o, d, tm, stream, seed, max_depth, stash=None,
@@ -1659,14 +1674,15 @@ _SIZES = [ctypes.c_longlong, ctypes.c_uint, _I]   # R, seed, depth
 # the culled sweep's tables: seg_order seg_start seg_box n_seg grp_start
 # grp_box n_grp seg_c seg_inv_r
 _SEG = [_P] * 3 + [_I] + [_P] * 2 + [_I, _F, _F]
-_FWD_ARGTYPES = _TABLES_AND_RAYS + [_P] + _SEG + [_P] * 2 + _SIZES + [_P]  # hdri out flags
+_FWD_ARGTYPES = (_TABLES_AND_RAYS + [_P] + _SEG + [_P] * 2 + _SIZES   # hdri out flags
+                 + [_I, _P])                                          # marble
 _RECORD_ARGTYPES = (_TABLES_AND_RAYS + [_P] + _SEG                   # hdri
                     + [_P] * 4 + _SIZES + [_P])                     # out flags code idx
 # + marble (the product-chain tier's) or f_rows (the pathwise tier's)
 _GRAD_FWD_ARGTYPES = (_TABLES_AND_RAYS + [_P] * 5 + _SIZES
                       + [_I, _F, _F, _F] + [_I, _P])
 _RESUME_ARGTYPES = ([_P] * 4 + [_I] * 4 + [_P] * 3 + _SEG   # tables, counts, in out hdri
-                    + [ctypes.c_longlong, ctypes.c_uint, _I, _I, _P])
+                    + [ctypes.c_longlong, ctypes.c_uint, _I, _I, _I, _P])   # ... marble
 _GRAD_REV_ARGTYPES = [_P] * 5 + [ctypes.c_longlong, _I, _I, _P]
 _GRAD_REV_PATHWISE_ARGTYPES = (
     [_P, _I, _P, _I]                     # light table, volume table, counts
@@ -1780,7 +1796,7 @@ def _wavefront_fwd_cuda(tb: Tables, o, d, tm, stream, seed, max_depth,
             *_table_and_ray_args(tb, o, d, tm, stream),
             None if hdri is None else hdri.data_ptr(), *seg,
             out.data_ptr(), flags.data_ptr(),
-            r, int(seed) & 0xFFFFFFFF, int(max_depth),
+            r, int(seed) & 0xFFFFFFFF, int(max_depth), int(brute_route(tb) == "marble"),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
@@ -1863,7 +1879,7 @@ def _wavefront_resume_cuda(tb: Tables, flat, seed, b_start, b_end, hdri=None):
                  tb.lt.data_ptr(), tb.n_planar, tb.n_sphere, tb.n_vol, tb.n_lights,
                  ins, outs, None if hdri is None else hdri.data_ptr(), *seg, r,
                  int(seed) & 0xFFFFFFFF, int(b_start), int(b_end),
-                 torch.cuda.current_stream(dev).cuda_stream)
+                 int(brute_route(tb) == "marble"), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"wavefront_resume kernel launch failed: CUDA error {err}")
     LAUNCHES_RESUME += 1
@@ -2117,13 +2133,16 @@ def pathwise_occupancy(marble: bool, smem_bytes: int = 0):
 
 
 # wavefront_tracing_occupancy
-TRACING_KERNELS = {"fwd": 0, "grad_fwd": 1, "record": 3, "resume": 7, "grad_fwd_marble": 8}
+TRACING_KERNELS = {"fwd": 0, "grad_fwd": 1, "record": 3, "resume": 7, "grad_fwd_marble": 8,
+                   "fwd_marble": 9, "resume_marble": 10}
 
 
 def tracing_occupancy(kernel: str, culled: bool, smem_bytes: int):
     """The same for ``kernel`` "fwd" (B1), "grad_fwd" (B2), "grad_fwd_marble"
-    (B2's instantiation for a scene with marble), "record" (B6) or "resume"
-    (B11): ``culled`` its instantiation for tables with segments."""
+    (B2's instantiation for a scene with marble), "record" (B6), "resume"
+    (B11), "fwd_marble" or "resume_marble" (B1's and B11's brute
+    instantiations for a scene with marble): ``culled`` its instantiation
+    for tables with segments."""
     return _occupancy("wavefront", "wavefront_tracing_occupancy", TRACING_KERNELS[kernel],
                       culled, smem_bytes)
 

@@ -1642,6 +1642,111 @@ def test_cuda_split_and_compact_renders_equal_single(monkeypatch):
     assert torch.equal(grtt.render_image(scene, cam, seed=2, mega_mode="compact"), single)
 
 
+# ---- B1 and B11 below 64 spheres (the brute sweep) as redesigned.  Each
+# case is held to the plain version bit for bit: every output row and the
+# flag word, on ray sets in the render's order and in turns of path length
+# (the lanes of a warp end at every depth), at ray counts off a warp's and a
+# block's, in scenes with volumes, HDRI rows, an environment without them,
+# and marble at depth 50.
+
+def _brute_case(name, n, depth, seed=6):
+    if name in ("cornell", "cornell-smoke"):
+        scene, cam = grtt.load_scene(name, device="cuda")
+        cam = dataclasses.replace(cam, aspect_ratio=1.0, samples_per_pixel=4)
+    else:
+        build, fields = {"mixed": (build_mixed, MIXED_CAM),
+                         "env-nee": (build_env_nee, ENV_NEE_CAM),
+                         "mini-hdri": (build_mini_hdri, MINI_HDRI_CAM),
+                         "marble": (build_marble, MARBLE_CAM)}[name]
+        scene, cam = build(grtt, device="cuda"), tcamera.Camera(**fields)
+    cam = dataclasses.replace(cam, image_width=64, max_depth=depth)
+    tb = cw.build_tables(scene)
+    # the brute sweep, in the instantiation of a scene with marble or without
+    assert cw.brute_route(tb) == ("marble" if name == "marble" else "brute")
+    o, d, tm, ids = _rays(cam, n, seed, "cuda")
+    return scene, cam, tb, (o, d, tm, cw.stream_to_i32(ids))
+
+
+def _hdri_rows(scene, sid, seed, b1, b0=0):
+    return cw.hdri_rows_for(scene, sid, seed, b1, b_start=b0) if cw.uses_hdri_nee(scene) else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene_name, n, depth, order", [
+    ("cornell", 16384, 5, "render"), ("cornell", 16384, 5, "lengths-in-turn"),
+    ("cornell", 33, 5, "render"), ("cornell-smoke", 4097, 5, "lengths-in-turn"),
+    ("mixed", 16384, 4, "lengths-in-turn"), ("env-nee", 16384, 4, "lengths-in-turn"),
+    ("mini-hdri", 4096, 5, "render"), ("marble", 4096, 50, "render")])
+def test_cuda_forward_brute_bit_for_bit(scene_name, n, depth, order):
+    """On a GPU: B1 below 64 spheres against its plain version bit for bit
+    (radiance, miss direction and throughput, flag word), with the HDRI
+    rows where the scene samples the environment (env-nee)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene, cam, tb, (o, d, tm, sid) = _brute_case(scene_name, n, depth)
+    if order == "lengths-in-turn":
+        length = _path_lengths(tb, o, d, tm, sid, 6, depth)
+        o, d, tm, sid = _in_turns(lengths_in_turn(length, depth), o, d, tm, sid)
+        first = _path_lengths(tb, o, d, tm, sid, 6, depth)[:32]
+        assert int(first.min()) == 1 and int(first.max()) == depth
+    rows = _hdri_rows(scene, sid, 6, depth)
+    assert (rows is not None) == (scene_name == "env-nee")
+    args = (tb, o, d, tm, sid, 6, depth, rows)
+    before = cw.LAUNCHES
+    out, flags = cw.wavefront_fwd(*args)
+    torch.cuda.synchronize()
+    assert cw.LAUNCHES == before + 1
+    p_out, p_flags = cw._wavefront_fwd_plain(*args)
+    assert torch.equal(out, p_out) and torch.equal(flags, p_flags)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scene_name, n, depth, order", [
+    ("cornell", 16384, 12, "lengths-in-turn"), ("cornell-smoke", 4097, 8, "render"),
+    ("mixed", 33, 8, "render"), ("env-nee", 4096, 8, "render"),
+    ("marble", 16384, 50, "render")])
+def test_cuda_resume_brute_bit_for_bit(scene_name, n, depth, order):
+    """On a GPU: B11 below 64 spheres, both launches of an explicit split
+    (bounces [0, 4), the survivors sorted, then the rest), against its plain
+    version bit for bit on all 19 outputs; in turns of path length the
+    first warp of phase 2 holds rays that end at every later bounce and dead
+    ones; the split's outputs are one forward launch's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    scene, cam, tb, (o, d, tm, sid) = _brute_case(scene_name, n, depth)
+    k_at = cw.SPLIT_AT
+
+    def same(state, b0, b1):
+        rows = _hdri_rows(scene, state[7], 6, b1, b0)
+        k = cw.wavefront_resume(tb, state, 6, b0, b1, rows)
+        p = cw._wavefront_resume_plain(tb, state, 6, b0, b1, rows)
+        assert all(torch.equal(a, b) for a, b in zip(k, p))
+        return k
+
+    flat = cw._start_state(o, d, tm, sid)
+    before = cw.LAUNCHES_RESUME
+    k1 = same(flat, 0, k_at)
+    flat2, _ = cw._phase_state_sort(cw._resumed_state(flat, k1), (k1[9] & cw.FLAG_ALIVE) != 0)
+    if order == "lengths-in-turn":
+        # the bounces each state still enters, plus one: 1 for a dead ray
+        left = torch.ones_like(flat2[6], dtype=torch.int64)
+        st = flat2
+        for b in range(k_at, depth):
+            left += (st[14] & cw.FLAG_ALIVE) != 0
+            st = cw._resumed_state(st, cw.wavefront_resume(tb, st, 6, b, b + 1))
+        idx = lengths_in_turn(left, depth - k_at + 1)
+        flat2 = tuple(a[idx].contiguous() for a in flat2)
+        assert sorted(left[idx][:32].unique().tolist()) == list(range(1, depth - k_at + 2))
+    same(flat2, k_at, depth)
+    torch.cuda.synchronize()
+    assert cw.LAUNCHES_RESUME >= before + 2
+    single = cw.trace_megakernel(scene, cam, o, d, tm, sid, 6)
+    split = cw.trace_megakernel(scene, cam, o, d, tm, sid, 6, split=True)
+    assert all(torch.equal(torch.stack(list(a)) if isinstance(a, tuple) else a,
+                           torch.stack(list(b)) if isinstance(b, tuple) else b)
+               for a, b in zip(single, split))
+
+
 # ---- B5a and B4 as redesigned: the marble in turns across the warp, whole
 # warps in the bounce loop, B4's blocks of 128 rays and its stash of entered
 # bounces only.  Each case is held to the plain version: B5a's outputs and

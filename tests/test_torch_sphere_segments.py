@@ -213,8 +213,10 @@ def test_record_with_the_culled_sweep_is_the_plain_record(name, mode):
     (brute): the record (B6) and the forward (B1) at depth 2, and the
     resumable kernel (B11) over bounces [0, 2) and then [2, 5) of the state
     the first launch left: radiance, flags, record and state the same bits;
-    the sweep needs fewer sphere tests than the brute sweep's."""
+    the sweep needs fewer sphere tests than the brute sweep's.  The
+    wrappers launch the kernels' culled instantiations for these tables."""
     tb = _tables(name)
+    assert cw.brute_route(tb) == "culled"
     if name == "random":
         _, cam = _small_random()
         cam = dataclasses.replace(cam, image_width=16, aspect_ratio=1.0)

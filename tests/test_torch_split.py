@@ -162,6 +162,8 @@ def test_two_phase_modes_equal_single(monkeypatch, mode, name):
         ts, cam = build_env_nee(grtt, device="cpu"), tcamera.Camera(**ENV_NEE_CAM)
         cam = dataclasses.replace(cam, max_depth=7)
         assert cw.uses_hdri_nee(ts)
+    # the brute instantiation of B1 and B11 the wrappers launch on the card
+    assert cw.brute_route(cw.build_tables(ts)) == ("marble" if name == "perlin" else "brute")
     o, d, tm, ids = _rays(cam, 512, 4)
     single = twf.trace(ts, cam, o, d, tm, ids, 4, mega_mode="single").rows()
     monkeypatch.setattr(cw, "SPLIT_R_MIN", 1)
