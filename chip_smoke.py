@@ -256,14 +256,15 @@ FLOPS_MOLLER_TRUMBORE, FLOPS_BW_PLANE, FLOPS_BW_UV = 55, 17, 24
 MESH_RAYS_IN, MESH_DEAD_IN, MESH_BYTES_OUT = 7 * 4, 4, 4 + 4 + 4 + 1
 # Times of three kernels that keep their design, recorded in PERF.md section 6
 # on an NVIDIA H100 80GB HBM3 at 700 W (B3 and B7a at a Cornell chunk, B7b at
-# random's): a run that reads them slower is on a slower card.  B1, which
-# PR 16 redesigned, is no longer among them; B7a leaves when it is redesigned.
+# random's): a run that reads them slower is on a slower card.  B1, since
+# redesigned below 64 spheres, is no longer among them; B7a leaves when it is
+# redesigned.
 CARD_YARDSTICK = {"sphere_closest": 1.472, "wavefront_grad_rev": 0.503,
                   "planar_closest": 0.2383}
 # Registers and spill bytes (ptxas) of the instantiations that include the
 # bounce loop (trace_ray, csrc/wavefront_trace.cuh) but keep their own design
 # while B1's and B11's brute instantiations change, as recorded in PERF.md
-# section 6 (B6 brute's from the parent of PR 16): the culled B1, B6 and
+# section 6 (B6 brute's read from the build before that redesign): the culled B1, B6 and
 # B11, B6 brute, B2 and its marble instantiation, B5a <2> and <4>, B4 <19>
 # and <22>.  A build that changes them changed code it must not change.
 UNCHANGED_KERNELS = {"wavefront_kernelILi0ELb1E": (80, 8),
