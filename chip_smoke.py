@@ -26,8 +26,10 @@ against their plain versions, the Cornell job again through
 ``render_image(mega_mode="off")`` held against the megakernel's picture, a
 scene the megakernel cannot take (round and pyramid fog) on both of the
 integrator's routes, ``random`` with ``mega_mode="off"``, ``torch.autograd``
-through ``render(differentiable=True)`` held against ``render_grad``, and
-the four kernels alone.  Then meshes: both mesh kernels against their plain
+through ``render(differentiable=True)`` held against ``render_grad``, the
+four kernels alone, and the two planar ones (B7a, B8p) on the launches one
+Cornell chunk makes on the integrator's fast route, each with its share of
+live rays and its bound (``planar_path_timing``).  Then meshes: both mesh kernels against their plain
 versions (``mesh_kernels_vs_plain``), ``cornell-lucy`` at the JAX package's
 bench size (600x600, 25 spp, depth 5, 112,128 triangles x 10 instances)
 through ``render_image`` with a crop held against the plain versions on the
@@ -37,9 +39,7 @@ mesh scene (``mesh_autograd``) and the two kernels alone
 (``mesh_kernel_timing``; each also in its any-hit instantiation on the same
 chunk and on the rays that leave the chunk's first hits, as a render's
 launches are, ``mesh_sweep`` on each of its four sets held to its plain
-version on every ray), then the card's speed (``card_yardstick``: three
-kernels that keep their design, B3, B7a and B7b, beside their times in
-PERF.md, so that a slow card does not read as a redesign's loss).  Then the replay tier of ``render_grad``: the
+version on every ray).  Then the replay tier of ``render_grad``: the
 record kernel against the forward kernel, its plain version and the
 standard integrator's record (``record_kernel_vs_plain``, early; the
 culled sphere sweep of B6, B1 and B11 against their plain versions on the
@@ -52,7 +52,10 @@ recorded through ``mesh_stream``) at full size (``replay_random_fwd_bwd``,
 (``replay_profile``), the record kernel alone beside B1 on the same rays,
 with the box and sphere tests its culled sweep needs (counted by the
 sweep's plain mirror on the whole chunk) and both bounds, the culled and
-the brute sweep's (``record_kernel_timing``), B1 alone at ``random``'s
+the brute sweep's (``record_kernel_timing``), the card's speed
+(``card_yardstick``: three kernels that keep their design, B3, B6 culled and
+B7b, beside their times in PERF.md, so that a slow card does not read as a
+redesign's loss), B1 alone at ``random``'s
 render chunk (4,066,304 rays, depth 10) held to its plain version bit for
 bit, with its sweep's tests and both bounds (``forward_random_timing``),
 both scenes at 32x32 against the CPU's plain versions and autograd
@@ -130,7 +133,10 @@ is held against the JAX kernel, and that against ``jax.grad``, by the tests.
 
 The closest-hit kernels are held to equality: hit, index, t and every
 attribute row of a ray are the plain version's bits, or the ray counts as a
-mismatch (gate 0.5 % of rays, 0.0 expected).  The standard integrator's
+mismatch; no ray of the planar kernels may differ (on every set: t_max BIG,
+halved, -1 on dead rays in several layouts, t_min 0, Cornell's full chunk and
+its own launches), and the sphere kernels' gate is 0.5 % of rays (0.0
+expected).  The standard integrator's
 pictures are held against the megakernel's, and its two routes against each
 other, on the tonemapped image at rtol 1e-3 / atol 2e-3, the tolerance of
 the JAX package's own test of the same pair; a ray whose branch flips on a
@@ -174,6 +180,7 @@ import dataclasses
 import functools
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -255,18 +262,18 @@ FLOPS_MOLLER_TRUMBORE, FLOPS_BW_PLANE, FLOPS_BW_UV = 55, 17, 24
 # tri, inst and hit.
 MESH_RAYS_IN, MESH_DEAD_IN, MESH_BYTES_OUT = 7 * 4, 4, 4 + 4 + 4 + 1
 # Times of three kernels that keep their design, recorded in PERF.md section 6
-# on an NVIDIA H100 80GB HBM3 at 700 W (B3 and B7a at a Cornell chunk, B7b at
-# random's): a run that reads them slower is on a slower card.  B1, since
-# redesigned below 64 spheres, is no longer among them; B7a leaves when it is
-# redesigned.
+# on an NVIDIA H100 80GB HBM3 at 700 W (B3 at a Cornell chunk, B7b at
+# random's render chunk, B6 culled at random's record chunk of 856,064 rays):
+# a run that reads them slower is on a slower card.
 CARD_YARDSTICK = {"sphere_closest": 1.472, "wavefront_grad_rev": 0.503,
-                  "planar_closest": 0.2383}
-# Registers and spill bytes (ptxas) of the instantiations that include the
-# bounce loop (trace_ray, csrc/wavefront_trace.cuh) but keep their own design
-# while B1's and B11's brute instantiations change, as recorded in PERF.md
-# section 6 (B6 brute's read from the build before that redesign): the culled B1, B6 and
-# B11, B6 brute, B2 and its marble instantiation, B5a <2> and <4>, B4 <19>
-# and <22>.  A build that changes them changed code it must not change.
+                  "wavefront_record": 1.264}
+# Registers and spill bytes (ptxas) of instantiations that keep their design,
+# as recorded in PERF.md section 6: those that include the bounce loop
+# (trace_ray, csrc/wavefront_trace.cuh) beside B1's and B11's brute ones, the
+# culled B1, B6 and B11, B6 brute, B2 and its marble instantiation, B5a <2>
+# and <4>, B4 <19> and <22>; and the sphere closest-hit kernels B7b and B8s
+# (sphere_kernel<false> / <true>), which share csrc/intersect.cu with the
+# planar ones.  A build that changes them changed code it must not change.
 UNCHANGED_KERNELS = {"wavefront_kernelILi0ELb1E": (80, 8),
                      "wavefront_kernelILi3ELb1E": (80, 24),
                      "wavefront_kernelILi3ELb0E": (96, 0),
@@ -276,7 +283,15 @@ UNCHANGED_KERNELS = {"wavefront_kernelILi0ELb1E": (80, 8),
                      "wavefront_kernelILi2ELb0E": (87, 0),
                      "wavefront_kernelILi4ELb0E": (126, 0),
                      "wavefront_grad_fused_kernelILi19E": (118, 0),
-                     "wavefront_grad_fused_kernelILi22E": (128, 0)}
+                     "wavefront_grad_fused_kernelILi22E": (128, 0),
+                     "sphere_kernelILb0E": (72, 0),
+                     "sphere_kernelILb1E": (72, 12)}
+# The planar closest-hit kernels (csrc/intersect.cu): planar_kernel<N_ATTR,
+# GATE>, N_ATTR -1 the closest hit alone (B7a), 12 / 19 / 0 (any count) with
+# the attributes (B8p); GATE the sign gate, taken where t_min > 0
+# (cuda_intersect.planar_gated), as on every main path.
+PLANAR_TAGS = {"planar_closest": "planar_kernelILin1ELb1E",
+               "planar_closest_attrs": "planar_kernelILi12ELb1E"}
 # B1 and B11 below SPH_CULL_MIN spheres (csrc/wavefront.cu: forward_brute,
 # resume_brute), each with an instantiation for a scene without marble and
 # one for a scene with it (cuda_wavefront.brute_route), whose first template
@@ -295,12 +310,16 @@ B5B_WARP_TAG = "wavefront_grad_rev_pathwise_kernelILi19E"
 # the registers the compiler chooses.
 B2_TAG = "wavefront_kernelILi1ELb0ELi6E"
 B2_MARBLE_TAG = "wavefront_kernelILi1ELb0ELi0E"
-# The times of the two kernels last redesigned, in their previous design
+# The times of the kernels last redesigned, in their previous design
 # (PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W; B1 brute at Cornell's
-# chunk, B11 brute's two phases at perlin's), printed in their phase lines
+# chunk, B11 brute's two phases at perlin's; B7a and B8p at Cornell's chunk of
+# camera rays, and summed over the launches one Cornell chunk makes on the
+# standard integrator's fast route, "_path"), printed in their phase lines
 # beside the new.
 PREVIOUS_DESIGN_MS = {"wavefront_fwd": 2.733, "wavefront_resume_phase_1": 1.525,
-                      "wavefront_resume_phase_2": 0.855}
+                      "wavefront_resume_phase_2": 0.855,
+                      "planar_closest": 0.2498, "planar_closest_attrs": 0.3199,
+                      "planar_closest_path": 0.9497, "planar_closest_attrs_path": 1.5001}
 
 
 def emit(phase, **fields):
@@ -1095,12 +1114,12 @@ def intersect_tables(scene):
         if n_p else None)
 
 
-def intersect_calls(scene, o, d, tm, t_max_s, t_max_p):
+def intersect_calls(scene, o, d, tm, t_max_s, t_max_p, t_min=cw.EPS_HIT):
     """name -> (kernel call, plain call, table elements, ray rows in) for each
     of the four kernels this scene has primitives for."""
     sgeo, scon, pgeo, pcon = intersect_tables(scene)
     extra = ck.CHECKER_EXTRA if scene.has_checker else 0
-    ol, dl, t_min = list(o), list(d), cw.EPS_HIT
+    ol, dl, t_min = list(o), list(d), float(np.float32(t_min))
     calls = {}
     if pgeo is not None:
         n_attr = ck.PLANAR_ATTRS + extra
@@ -1143,30 +1162,56 @@ def intersect_mismatch(k, p):
     return float(bad.float().mean()), float(err)
 
 
+def dead_layouts(n, device):
+    """name -> mask of the rays that come in dead (t_max = -1): a third,
+    25, 50 and 75 % spread evenly and in contiguous runs of 1,024, all."""
+    i = torch.arange(n, device=device)
+    masks = {"minus_one_on_a_third": i % 3 == 0, "dead_all": i >= 0}
+    for share in (1, 2, 3):
+        masks[f"dead_{25 * share}_spread"] = (i % 4) < share
+        masks[f"dead_{25 * share}_runs"] = ((i // 1024) % 4) < share
+    return masks
+
+
+def planar_bit_gate(kernel, share, name, where):
+    """The planar kernels must equal their plain versions bit for bit (no
+    share of rays may differ); the sphere kernels keep the share gate."""
+    bad = share > 0.0 if kernel.startswith("planar") else share >= MAX_MISMATCH_SHARE
+    if bad:
+        raise RuntimeError(f"{name}, {where}: {kernel} differs from its plain version "
+                           f"on {share:.4%} of rays")
+
+
 def compare_intersect(scene, o, d, tm, name):
     """The four kernels against their plain versions on one set of rays, with
-    t_max of BIG, of half the nearest hit's distance, and of -1 on a third of
-    the rays.  Returns {kernel: (worst mismatch share, worst error)}."""
+    t_max of BIG, of half the nearest hit's distance, and of -1 on the rays
+    of each of ``dead_layouts``; and with t_min = 0 and t_max BIG, the planar
+    kernels' route without the sign gate.  Returns {kernel: (worst mismatch
+    share, worst error)}."""
     n = tm.shape[0]
     big = torch.full_like(tm, ck.BIG)
-    third = torch.arange(n, device=tm.device) % 3 == 0
+    dead = dead_layouts(n, tm.device)
     first = {k: v[0]() for k, v in intersect_calls(scene, o, d, tm, big, big).items()}
+    if not ck.planar_gated(cw.EPS_HIT) or ck.planar_gated(0.0):
+        raise RuntimeError("the planar kernels' sign gate must be taken at t_min = "
+                           "EPS_HIT and not at 0")
 
     def t_max_for(kernel, kind):
-        if kind == "big":
+        if kind in ("big", "t_min_zero"):
             return big
-        if kind == "minus_one_on_a_third":
-            return torch.where(third, -1.0, big)
+        if kind in dead:
+            return torch.where(dead[kind], -1.0, big)
         t, _, hit = first[kernel][:3]
         return torch.where(hit, t * 0.5, big)
 
     worst = {}
     fields = {}
-    for kind in ("big", "halved", "minus_one_on_a_third"):
+    for kind in ("big", "halved", "t_min_zero", *dead):
         tmax_s = t_max_for("sphere_closest", kind) if "sphere_closest" in first else big
         tmax_p = t_max_for("planar_closest", kind) if "planar_closest" in first else big
+        t_min = 0.0 if kind == "t_min_zero" else cw.EPS_HIT
         for kernel, (run, plain, _, _) in intersect_calls(
-                scene, o, d, tm, tmax_s, tmax_p).items():
+                scene, o, d, tm, tmax_s, tmax_p, t_min).items():
             k = run()
             torch.cuda.synchronize()
             p = plain()
@@ -1175,7 +1220,7 @@ def compare_intersect(scene, o, d, tm, name):
                 raise RuntimeError(f"{name}: {kernel} returned a t that is not finite")
             if kind == "halved" and bool(k[2][first[kernel][2]].any()):
                 raise RuntimeError(f"{name}: {kernel} hit beyond its t_max")
-            if kind == "minus_one_on_a_third" and bool(k[2][third].any()):
+            if kind in dead and bool(k[2][dead[kind]].any()):
                 raise RuntimeError(f"{name}: {kernel} hit on a ray with t_max = -1")
             fields[f"{kernel}_{kind}"] = dict(
                 mismatch_share=share, max_abs_err=err,
@@ -1185,11 +1230,10 @@ def compare_intersect(scene, o, d, tm, name):
     emit("intersect_kernels_vs_plain", scene=name, rays=n,
          n_planar=int(scene.planar.d.shape[0]),
          n_spheres=int(scene.spheres.radius.shape[0]),
-         checker=scene.has_checker, **fields)
+         checker=scene.has_checker, planar_routes_checked=["gated", "ungated"],
+         **fields)
     for kernel, (share, _) in worst.items():
-        if share >= MAX_MISMATCH_SHARE:
-            raise RuntimeError(f"{name}: {kernel} differs from its plain version "
-                               f"on {share:.4%} of rays")
+        planar_bit_gate(kernel, share, name, "its sets")
     return worst
 
 
@@ -1452,9 +1496,7 @@ def intersect_kernel_timing(cases, launches, small_checks):
             ms = median(rounds)
             plain_ms, p = cuda_ms(plain)
             share, err = intersect_mismatch(k, p)
-            if share >= MAX_MISMATCH_SHARE:
-                raise RuntimeError(f"{scene_name}, full chunk: {kernel} differs "
-                                   f"from its plain version on {share:.4%} of rays")
+            planar_bit_gate(kernel, share, scene_name, "full chunk")
             n_prims = (scene.planar.d if kernel.startswith("planar")
                        else scene.spheres.radius).shape[0]
             out_bytes = sum(t.numel() * t.element_size() for t in k)
@@ -1478,6 +1520,105 @@ def intersect_kernel_timing(cases, launches, small_checks):
                     "primitives": int(n_prims), "scene": scene_name}
             del k, p
     return [entries[k] for k in sources]
+
+
+def capture_planar_launches(scene, cam, spp, chunk):
+    """The planar kernels' launches of one chunk of ``cam``'s job on the
+    standard integrator's fast route, in the order made: (kernel name,
+    geometry table, constants table or None, o, d, t_max, t_min, n_attr or
+    None), the inputs as the wrappers hand them to the kernels (cloned).  The
+    wrappers are wrapped for that one render and restored after."""
+    got = []
+    orig = (ck._planar_closest_cuda, ck._planar_closest_attrs_cuda)
+
+    def keep(kernel, geo, con, o, d, t_max, t_min, n_attr):
+        got.append((kernel, geo, con, [c.clone() for c in o], [c.clone() for c in d],
+                    t_max.clone(), t_min, n_attr))
+
+    def closest(geo, o, d, t_max, t_min):
+        keep("planar_closest", geo, None, o, d, t_max, t_min, None)
+        return orig[0](geo, o, d, t_max, t_min)
+
+    def attrs(geo, con, o, d, t_max, t_min, n_attr):
+        keep("planar_closest_attrs", geo, con, o, d, t_max, t_min, n_attr)
+        return orig[1](geo, con, o, d, t_max, t_min, n_attr)
+
+    ck._planar_closest_cuda, ck._planar_closest_attrs_cuda = closest, attrs
+    try:
+        grt.render_image(scene, cam, spp=spp, seed=0, chunk=chunk, mega_mode="off")
+    finally:
+        ck._planar_closest_cuda, ck._planar_closest_attrs_cuda = orig
+    return got
+
+
+def planar_launch_calls(launch):
+    """(kernel call, plain call) of a captured launch."""
+    kernel, geo, con, o, d, t_max, t_min, n_attr = launch
+    if kernel == "planar_closest":
+        return (lambda: ck._planar_closest_cuda(geo, o, d, t_max, t_min),
+                lambda: ck._planar_closest_plain(geo, o, d, t_max, t_min))
+    return (lambda: ck._planar_closest_attrs_cuda(geo, con, o, d, t_max, t_min, n_attr),
+            lambda: ck._planar_closest_attrs_plain(geo, con, o, d, t_max, t_min, n_attr))
+
+
+def planar_launch_bound(launch):
+    """(bytes bound ms, operations bound ms) of a captured launch: a live ray
+    (t_max >= t_min) reads its 7 rows, a dead one its t_max alone, every ray
+    writes t, idx, hit and the attribute rows; live rays x primitives x
+    FLOPS_PLANAR operations."""
+    kernel, geo, con, _, _, t_max, t_min, n_attr = launch
+    n = t_max.shape[0]
+    live = int((ck._clamp_t_max(t_max) >= t_min).sum())
+    moved = (7 * 4 * live + 4 * (n - live) + (4 + 4 + 1 + 4 * (n_attr or 0)) * n
+             + 4 * (geo.numel() + (con.numel() if con is not None else 0)))
+    flops = float(live) * geo.shape[1] * FLOPS_PLANAR
+    return live, (moved / PEAK_BYTES_PER_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3)
+
+
+def planar_path_timing(scene, cam):
+    """B7a and B8p on the launches the main path really makes: one chunk of
+    the Cornell job (``cam``) on the standard integrator's fast route, each
+    launch's inputs captured, then each launch timed alone (median of 3
+    rounds of 5), held to its plain version bit for bit, beside its bound
+    (a dead ray counted at its t_max and its outputs) and its share of live
+    rays; the sums by kernel beside the previous design's (PERF.md section
+    6).  Returns {kernel: fields for its entry of the ``kernels`` line}."""
+    n_virt = cam.image_width * cam.image_height
+    spp = min(renderer.pick_chunk_size(scene) // n_virt, cam.samples_per_pixel)
+    launches = capture_planar_launches(scene, cam, spp, spp * n_virt)
+    rows, out = [], {}
+    for k, launch in enumerate(launches):
+        run, plain = planar_launch_calls(launch)
+        run()
+        rounds, got = rounds_ms(run)
+        ms = median(rounds)
+        share, err = intersect_mismatch(got, plain())
+        planar_bit_gate(launch[0], share, "cornell chunk", f"launch {k}")
+        live, bound = planar_launch_bound(launch)
+        n = int(launch[5].shape[0])
+        rows.append(dict(launch=k, kernel=launch[0], rays=n, live=live, live_share=live / n,
+                         t_min=launch[6], n_attr=launch[7], ms=ms, ms_rounds=rounds,
+                         bound_ms=max(bound), roofline_share=max(bound) / ms,
+                         mismatch_share=share, max_abs_err=err))
+        f = out.setdefault(launch[0], dict(path_launches=0, path_ms_sum=0.0,
+                                           path_bound_ms_sum=0.0, path_live_shares=[],
+                                           path_max_abs_err=0.0))
+        f["path_launches"] += 1
+        f["path_ms_sum"] += ms
+        f["path_bound_ms_sum"] += max(bound)
+        f["path_live_shares"].append(live / n)
+        f["path_max_abs_err"] = max(f["path_max_abs_err"], err)
+        del got
+    for kernel, f in out.items():
+        f["path_roofline_share"] = f["path_bound_ms_sum"] / f["path_ms_sum"]
+        f["path_ms_sum_previous_design"] = PREVIOUS_DESIGN_MS[kernel + "_path"]
+    emit("planar_path_timing", scene="cornell", chunk_rays=spp * n_virt, launches=rows,
+         sums={k: {"ms": f["path_ms_sum"], "bound_ms": f["path_bound_ms_sum"],
+                   "previous_design_ms_perf_md": f["path_ms_sum_previous_design"]}
+               for k, f in out.items()})
+    if set(out) != {"planar_closest", "planar_closest_attrs"}:
+        raise RuntimeError(f"cornell chunk: planar launches {sorted(out)}")
+    return out
 
 
 def device_rows(prof):
@@ -4192,7 +4333,8 @@ def main():
     prev_marble = kernel_stats(built_pw, "wavefront_grad_rev_pathwise_kernelILi20E")
     fused_regs = kernel_stats(built_fused, "wavefront_grad_fused_kernelILi19E")
     fused_marble = kernel_stats(built_fused, "wavefront_grad_fused_kernelILi22E")
-    unchanged = {tag: kernel_stats(built_fused if "grad_fused" in tag else built, tag)
+    unchanged = {tag: kernel_stats(built_fused if "grad_fused" in tag
+                                   else built_ix if "sphere_kernel" in tag else built, tag)
                  for tag in UNCHANGED_KERNELS}
     # stream_micro_kernel<roll, dynamic tile, bit scan>: the probe's variants
     probe_regs = {v: kernel_stats(built_probe, "stream_micro_kernelILb{}ELb{}ELb{}E".format(
@@ -4201,13 +4343,14 @@ def main():
     resume_regs = kernel_stats(built, B11_MARBLE_TAG)   # perlin's split: marble
     resume_cull_regs = kernel_stats(built, "wavefront_resume_kernelILb1E")
     seg_regs = kernel_stats(built_rows, "sorted_segment_sums_kernel")
-    # planar_kernel<false> / <true> and sphere_kernel<false> / <true>: closest
-    # hit alone, and with the winner's attributes
+    # the planar kernels' gated instantiations (PLANAR_TAGS) and sphere_kernel
+    # <false> / <true>: closest hit alone, and with the winner's attributes
     ix_stats = {name: kernel_stats(built_ix, tag) for name, tag in (
-        ("planar_closest", "planar_kernelILb0E"),
-        ("planar_closest_attrs", "planar_kernelILb1E"),
+        *PLANAR_TAGS.items(),
         ("sphere_closest", "sphere_kernelILb0E"),
         ("sphere_closest_attrs", "sphere_kernelILb1E"))}
+    planar_all = {re.search(r"planar_kernelI\w*?E(?=EEv)", n).group(0): v
+                  for n, v in built_ix.kernels.items() if "planar_kernel" in n}
     # mesh_sweep_kernel<false> / <true> and mesh_stream_kernel<false> / <true>:
     # closest hit and any hit
     mesh_stats = {name: kernel_stats(built_mesh, tag) for name, tag in (
@@ -4248,6 +4391,7 @@ def main():
          row_sums_registers=rows_regs[0], row_sums_spill_bytes=rows_regs[1],
          intersect_registers={k: v[0] for k, v in ix_stats.items()},
          intersect_spill_bytes={k: v[1] for k, v in ix_stats.items()},
+         planar_registers_and_spills_every_instantiation=planar_all,
          mesh_registers={k: v[0] for k, v in mesh_stats.items()},
          mesh_spill_bytes={k: v[1] for k, v in mesh_stats.items()},
          mesh_stream_resident_warps_per_sm=stream_warps[False],
@@ -4491,18 +4635,28 @@ def main():
          "sphere_closest_attrs": fog_counts["sphere_closest_attrs"]},
         ix_checks)
     del o, d, tm, ro, rd, rtm
+    path = planar_path_timing(scene, cam)
     for e in ix_entries:
         e["registers"], e["spill_bytes"] = ix_stats[e["name"]]
         if e["name"].startswith("sphere"):
             e["resident_warps_per_sm"] = sphere_warps[e["name"].endswith("attrs")]
+        else:
+            blocks, threads = ck.planar_occupancy(e["name"].endswith("attrs"))
+            e["resident_warps_per_sm"] = blocks * threads // 32
+            e["ms_previous_design_perf_md"] = PREVIOUS_DESIGN_MS[e["name"]]
+            e.update(path[e["name"]])
     by_name = {e["name"]: e for e in ix_entries}
     kernels_ms = (by_name["planar_closest_attrs"]["ms"] * std_counts["planar_closest_attrs"]
                   + by_name["planar_closest"]["ms"] * std_counts["planar_closest"])
+    path_ms = std_chunks * sum(f["path_ms_sum"] for f in path.values())
     emit("standard_split", scene="cornell", chunks=std_chunks,
          render_ms_median=std_ms, closest_hit_kernels_ms_at_full_chunk=kernels_ms,
          kernels_share_of_render_at_most=kernels_ms / std_ms,
-         note="kernel times are those of a launch with every ray alive; later "
-              "bounces and shadow launches sweep fewer rays")
+         closest_hit_kernels_ms_on_the_path_launches=path_ms,
+         kernels_share_of_render=path_ms / std_ms,
+         note="at_full_chunk: every launch timed as one with every ray alive; "
+              "on_the_path_launches: one chunk's own launches (planar_path_timing) "
+              "times the chunks")
     profile_standard_chunk(scene, cam)
 
     # ---- instanced meshes: cornell-lucy through mesh_sweep and mesh_stream ------
@@ -4516,17 +4670,6 @@ def main():
                         "any_hit_registers": mesh_stats["mesh_stream_any_hit"][0],
                         "any_hit_spill_bytes": mesh_stats["mesh_stream_any_hit"][1],
                         "resident_warps_per_sm": stream_warps[False]}})
-    # the card's speed: three kernels that keep their design beside the
-    # times PERF.md section 6 gives them
-    grad_by_name = {e["name"]: e for e in grad_entries}
-    yard = {name: (ms, CARD_YARDSTICK[name]) for name, ms in (
-        ("sphere_closest", by_name["sphere_closest"]["ms"]),
-        ("wavefront_grad_rev", grad_by_name["wavefront_grad_rev"]["ms"]),
-        ("planar_closest", by_name["planar_closest"]["ms"]))}
-    emit("card_yardstick", note="ms of three kernels at the shapes of PERF.md "
-         "section 6, beside the times recorded there",
-         **{name: {"ms": ms, "perf_md_ms": ref, "ratio": ms / ref}
-            for name, (ms, ref) in yard.items()})
 
     # ---- the replay tier: random and cornell-lucy at full size -----------------
     rr_counts, rr_chunks, rr_bits = replay_main_path(
@@ -4548,6 +4691,17 @@ def main():
          ("cornell", scene, cam, chunk_rays(cam, chunk, 0, dev))],
         rr_counts["wavefront_record"], rec_checks, rec_regs)
     del ro, rd, rtm, rsid
+    # the card's speed: three kernels that keep their design beside the
+    # times PERF.md section 6 gives them
+    grad_by_name = {e["name"]: e for e in grad_entries}
+    yard = {name: (ms, CARD_YARDSTICK[name]) for name, ms in (
+        ("sphere_closest", by_name["sphere_closest"]["ms"]),
+        ("wavefront_grad_rev", grad_by_name["wavefront_grad_rev"]["ms"]),
+        ("wavefront_record", rec_entry["ms"]))}
+    emit("card_yardstick", note="ms of three kernels at the shapes of PERF.md "
+         "section 6, beside the times recorded there",
+         **{name: {"ms": ms, "perf_md_ms": ref, "ratio": ms / ref}
+            for name, (ms, ref) in yard.items()})
     b1_random = forward_random_timing(rr_scene, rr_cam, other_launches["random"],
                                       fwd_cull_regs)
     small = dict(image_width=32, aspect_ratio=1.0, samples_per_pixel=2, max_depth=3)

@@ -671,6 +671,153 @@ def test_cuda_intersect_wrappers_reject_what_the_kernels_do_not_take():
         ck.planar_closest_attrs_table(
             pgeo, ck._material_consts(scene.materials, scene.textures,
                                       scene.planar.mat), o, d, big, n_attr=11)
+    out = ck._outputs(64, o.x.device)
+    with pytest.raises(RuntimeError):   # the sign gate where t_min <= 0: refused
+        ck._launch("planar_closest_launch", ck._PLANAR_ARGTYPES, o.x.device,
+                   [pgeo.data_ptr(), pgeo.shape[1], *ck._ptrs(*o, *d, big), 64, 0.0, 1,
+                    *ck._ptrs(*out)])
+
+
+def _planar_prims(n, seed=0):
+    """``n`` planar primitives of the four kinds in turn (quad, triangle,
+    circle, plane) under four materials, a checker among them; the first a
+    quad in the plane y = 0, and from the ninth on every fifth an exact copy
+    of an earlier one, so that rays meet equal t and the earlier must win.
+    Returns (geometry table, constants table, indices that have a copy)."""
+    r = np.random.default_rng(seed)
+    b = grtt.SceneBuilder()
+    mats = [b.lambertian((0.9, 0.5, 0.1)),
+            b.lambertian(b.checker(0.7, (0.2, 0.3, 0.1), (0.9, 0.9, 0.8))),
+            b.metal((0.8, 0.6, 0.2), 0.25), b.dielectric(1.5)]
+    specs, copied = [("quad", ((-2, 0, -2), (4, 0, 0), (0, 0, 4)))], set()
+    for i in range(1, n):
+        if i >= 8 and i % 5 == 0:
+            copied.add(i // 2)
+            specs.append(specs[i // 2])
+        elif i % 4 == 0:
+            specs.append(("quad", (r.normal(size=3) * 3, r.normal(size=3) * 2,
+                                   r.normal(size=3) * 2)))
+        elif i % 4 == 1:
+            specs.append(("triangle", tuple(r.normal(size=3) * 3 for _ in range(3))))
+        elif i % 4 == 2:
+            specs.append(("circle", (r.normal(size=3) * 3, r.normal(size=3),
+                                     r.uniform(0.5, 2.0))))
+        else:
+            specs.append(("plane", (r.normal(size=3) * 6, r.normal(size=3))))
+    for i, (kind, args) in enumerate(specs):
+        getattr(b, kind)(*args, mats[i % 4])
+    scene = b.build(device="cuda")
+    return (ck.planar_table(scene.planar),
+            ck._material_consts(scene.materials, scene.textures, scene.planar.mat),
+            torch.tensor(sorted(copied), dtype=torch.int32, device="cuda"))
+
+
+def _planar_rays(n, seed):
+    """``random_rays``, every fifth origin moved into the first quad's plane
+    (y = 0, inside the quad): there the numerator is exactly 0."""
+    o, d, _ = random_rays(n, seed)
+    r = np.random.default_rng(seed)
+    o[::5] = np.stack([r.uniform(-1.5, 1.5, o[::5].shape[0]),
+                       np.zeros(o[::5].shape[0]),
+                       r.uniform(-1.5, 1.5, o[::5].shape[0])], axis=1)
+    o, d = _cuda_rays(o, d)
+    return o, d
+
+
+def _planar_equal_plain(geo, con, o, d, t_max, t_min):
+    """B7a and B8p (12, 19 and 20 rows) against their plain versions, every
+    output bit for bit.  Returns B7a's (t, idx, hit)."""
+    t_min32 = float(np.float32(t_min))
+    before = (ck.LAUNCHES_PLANAR, ck.LAUNCHES_PLANAR_ATTRS)
+    k = ck.planar_closest_table(geo, o, d, t_max, t_min=t_min)
+    p = ck._planar_closest_plain(geo, list(o), list(d), t_max, t_min32)
+    for a, b in zip(k, p):
+        assert a.shape == b.shape and torch.equal(a, b)
+    for n_attr in (12, 19, 20):
+        ka = ck.planar_closest_attrs_table(geo, con, o, d, t_max, t_min=t_min, n_attr=n_attr)
+        pa = ck._planar_closest_attrs_plain(geo, con, list(o), list(d), t_max, t_min32,
+                                            n_attr)
+        for a, b in zip(ka, pa):
+            assert a.shape == b.shape and torch.equal(a, b)
+        assert all(torch.equal(a, b) for a, b in zip(ka[:3], k))
+    torch.cuda.synchronize()
+    assert (ck.LAUNCHES_PLANAR, ck.LAUNCHES_PLANAR_ATTRS) == (before[0] + 1, before[1] + 3)
+    return k
+
+
+def _dead(n, layout):
+    i = torch.arange(n, device="cuda")
+    if layout == "all":
+        return i >= 0
+    share, how = layout.split("_")
+    q = int(share) // 25
+    return (i % 4) < q if how == "spread" else ((i // 1024) % 4) < q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t_min", [1e-3, 0.0])
+@pytest.mark.parametrize("n_prims", [1, 18, 128, 129, 300])
+def test_cuda_planar_kernels_bit_for_bit_at_table_sizes(n_prims, t_min):
+    """On a GPU: tables of one primitive, Cornell's 18, a staged tile of 128,
+    one over and 300 (three tiles), all four kinds, exact copies (equal t: the
+    first wins) and rays starting in a quad's plane (numerator 0: at t_min = 0
+    the quad is hit at t = 0, at 1e-3 it is not); t_min 1e-3 takes the sign
+    gate, 0 the route without it; t_max BIG, cut at half the nearest hit, and
+    -1 on half the rays.  B7a and B8p with 12, 19 and 20 rows equal their plain
+    versions on every output, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip(_NO_CARD)
+    assert ck.planar_gated(t_min) == (t_min > 0)
+    geo, con, copied = _planar_prims(n_prims, seed=n_prims)
+    o, d = _planar_rays(4096, 21)
+    big = torch.full((4096,), ck.BIG, device="cuda")
+    t, idx, hit = _planar_equal_plain(geo, con, o, d, big, t_min)
+    assert bool(hit.any())
+    on_plane = torch.arange(4096, device="cuda") % 5 == 0
+    at_zero = hit & (t == 0.0) & (idx == 0)
+    assert bool(at_zero[on_plane].any()) == (t_min == 0.0)
+    if n_prims >= 18:
+        assert bool(torch.isin(idx[hit], copied).any())
+    _planar_equal_plain(geo, con, o, d, torch.where(hit, t * 0.5, big), t_min)
+    _planar_equal_plain(geo, con, o, d, torch.where(_dead(4096, "50_spread"), -1.0, big),
+                        t_min)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["all", "25_spread", "50_spread", "75_spread",
+                                    "25_runs", "50_runs", "75_runs"])
+def test_cuda_planar_kernels_bit_for_bit_on_dead_lanes(layout):
+    """On a GPU: t_max = -1 on every ray, and on 25, 50 and 75 % of them spread
+    evenly and in contiguous runs of 1,024 (the live rays a block moves to its
+    first slots), on Cornell's 18 primitives, at both t_min: every output the
+    plain version's bits, and a dead ray a miss."""
+    if not torch.cuda.is_available():
+        pytest.skip(_NO_CARD)
+    geo, con, _ = _planar_prims(18, seed=3)
+    o, d = _planar_rays(8192, 22)
+    dead = _dead(8192, layout)
+    t_max = torch.where(dead, -1.0, torch.full((8192,), ck.BIG, device="cuda"))
+    for t_min in (1e-3, 0.0):
+        t, idx, hit = _planar_equal_plain(geo, con, o, d, t_max, t_min)
+        assert not bool(hit[dead].any()) and bool((t[dead] == ck.BIG).all())
+        assert bool((idx[dead] == 0).all()) and (layout == "all" or bool(hit.any()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 33, 255, 257, 1000])
+def test_cuda_planar_kernels_at_ragged_ray_counts(n):
+    """On a GPU: ray counts that do not fill a warp or a block's run of 256
+    rays, with every third ray dead: both planar kernels equal their plain
+    versions on every output."""
+    if not torch.cuda.is_available():
+        pytest.skip(_NO_CARD)
+    geo, con, _ = _planar_prims(18, seed=4)
+    o, d = _planar_rays(n, 23)
+    big = torch.full((n,), ck.BIG, device="cuda")
+    third = torch.arange(n, device="cuda") % 3 == 1
+    for t_min in (1e-3, 0.0):
+        _planar_equal_plain(geo, con, o, d, big, t_min)
+        _planar_equal_plain(geo, con, o, d, torch.where(third, -1.0, big), t_min)
 
 
 @pytest.mark.cuda
