@@ -95,13 +95,11 @@ constexpr int PLANAR_MAX_ATTRS = 20;
 constexpr int SPHERE_GEO_ATTRS = 4;   // centre(3) radius^2
 
 // The planar sweep: rays a thread (1 and 4 measured slower on the H100), and
-// the blocks an SM the closest hit alone is built for (twelve: 40 registers,
-// no spill; with the attributes that target spilled, so their registers are
-// left to the compiler), PERF.md section 6.
+// the blocks an SM it is built for, 0 leaving its registers to the compiler
+// (twelve spilled and read no better, PERF.md section 6).
 constexpr int PLANAR_K = 2;
 constexpr int PLANAR_RUN = THREADS * PLANAR_K;   // rays a block
-constexpr int PLANAR_BLOCKS_PER_SM = 12;
-constexpr int PLANAR_ATTRS_BLOCKS_PER_SM = 0;    // no minimum
+constexpr int PLANAR_BLOCKS_PER_SM = 0;
 constexpr int PLANAR_REC = 16;   // floats of a primitive's staged record
 
 struct Rays {
@@ -241,8 +239,7 @@ __device__ __forceinline__ void planar_attrs(const Out& W, long long n, long lon
 // shared memory, so that every output is written whole.  N_ATTR: -1 the
 // closest hit alone, else the attribute rows (0: W.n_attr of them).
 template <int N_ATTR, bool GATE>
-__global__ void __launch_bounds__(THREADS, N_ATTR < 0 ? PLANAR_BLOCKS_PER_SM
-                                                      : PLANAR_ATTRS_BLOCKS_PER_SM)
+__global__ void __launch_bounds__(THREADS, PLANAR_BLOCKS_PER_SM)
 planar_kernel(const float* __restrict__ geo, const float* __restrict__ con,
               int n_prims, Rays R, float t_min, Out W) {
     constexpr bool ATTRS = N_ATTR >= 0;

@@ -64,7 +64,7 @@ def options(**values):
 VARIANTS = {
     "K1": options(planar_k=1),
     "K4": options(planar_k=4),
-    "B0": options(planar_blocks_per_sm=0),
+    "B12": options(planar_blocks_per_sm=12),
 }
 
 # the parent's planar kernels' occupancy, appended to its copy of intersect.cu
