@@ -318,8 +318,8 @@ B2_MARBLE_TAG = "wavefront_kernelILi1ELb0ELi0E"
 # beside the new.
 PREVIOUS_DESIGN_MS = {"wavefront_fwd": 2.733, "wavefront_resume_phase_1": 1.525,
                       "wavefront_resume_phase_2": 0.855,
-                      "planar_closest": 0.2498, "planar_closest_attrs": 0.3199,
-                      "planar_closest_path": 0.9497, "planar_closest_attrs_path": 1.5001}
+                      "planar_closest": 0.2507, "planar_closest_attrs": 0.3277,
+                      "planar_closest_path": 0.9405, "planar_closest_attrs_path": 1.5167}
 
 
 def emit(phase, **fields):
