@@ -288,8 +288,8 @@ UNCHANGED_KERNELS = {"wavefront_kernelILi0ELb1E": (80, 8),
                      "sphere_kernelILb1E": (72, 12)}
 # The planar closest-hit kernels (csrc/intersect.cu): planar_kernel<N_ATTR,
 # GATE>, N_ATTR -1 the closest hit alone (B7a), 12 / 19 / 0 (any count) with
-# the attributes (B8p); GATE the sign gate, taken where t_min > 0
-# (cuda_intersect.planar_gated), as on every main path.
+# the attributes (B8p); GATE the sign gate, taken where t_min > 0, as on every
+# main path.
 PLANAR_TAGS = {"planar_closest": "planar_kernelILin1ELb1E",
                "planar_closest_attrs": "planar_kernelILi12ELb1E"}
 # B1 and B11 below SPH_CULL_MIN spheres (csrc/wavefront.cu: forward_brute,
@@ -1192,9 +1192,6 @@ def compare_intersect(scene, o, d, tm, name):
     big = torch.full_like(tm, ck.BIG)
     dead = dead_layouts(n, tm.device)
     first = {k: v[0]() for k, v in intersect_calls(scene, o, d, tm, big, big).items()}
-    if not ck.planar_gated(cw.EPS_HIT) or ck.planar_gated(0.0):
-        raise RuntimeError("the planar kernels' sign gate must be taken at t_min = "
-                           "EPS_HIT and not at 0")
 
     def t_max_for(kernel, kind):
         if kind in ("big", "t_min_zero"):
@@ -1509,7 +1506,8 @@ def intersect_kernel_timing(cases, launches, small_checks):
                  ms=ms, ms_rounds=rounds, plain_ms=plain_ms, bytes_counted=moved,
                  flops_counted=flops, bound_bytes_ms=bound[0], bound_ops_ms=bound[1],
                  roofline_share=max(bound) / ms, hit_share=float(k[2].float().mean()),
-                 mismatch_share_full_chunk=share, max_abs_err_full_chunk=err)
+                 mismatch_share_full_chunk=share, max_abs_err_full_chunk=err,
+                 previous_design_ms_perf_md=PREVIOUS_DESIGN_MS.get(kernel))
             small = [c[kernel] for c in small_checks if kernel in c]
             entries[kernel] = kernel_entry(
                 n, kernel, "go_raytracing_tpu_torch/csrc/intersect.cu",
@@ -1581,8 +1579,9 @@ def planar_path_timing(scene, cam):
     launch's inputs captured, then each launch timed alone (median of 3
     rounds of 5), held to its plain version bit for bit, beside its bound
     (a dead ray counted at its t_max and its outputs) and its share of live
-    rays; the sums by kernel beside the previous design's (PERF.md section
-    6).  Returns {kernel: fields for its entry of the ``kernels`` line}."""
+    rays; in its phase line the sums by kernel beside the previous design's
+    (PERF.md section 6).  Returns {kernel: the sums of the measured times and
+    the bounds, and the live shares, for its entry of the ``kernels`` line}."""
     n_virt = cam.image_width * cam.image_height
     spp = min(renderer.pick_chunk_size(scene) // n_virt, cam.samples_per_pixel)
     launches = capture_planar_launches(scene, cam, spp, spp * n_virt)
@@ -1600,10 +1599,8 @@ def planar_path_timing(scene, cam):
                          t_min=launch[6], n_attr=launch[7], ms=ms, ms_rounds=rounds,
                          bound_ms=max(bound), roofline_share=max(bound) / ms,
                          mismatch_share=share, max_abs_err=err))
-        f = out.setdefault(launch[0], dict(path_launches=0, path_ms_sum=0.0,
-                                           path_bound_ms_sum=0.0, path_live_shares=[],
-                                           path_max_abs_err=0.0))
-        f["path_launches"] += 1
+        f = out.setdefault(launch[0], dict(path_ms_sum=0.0, path_bound_ms_sum=0.0,
+                                           path_live_shares=[], path_max_abs_err=0.0))
         f["path_ms_sum"] += ms
         f["path_bound_ms_sum"] += max(bound)
         f["path_live_shares"].append(live / n)
@@ -1611,10 +1608,10 @@ def planar_path_timing(scene, cam):
         del got
     for kernel, f in out.items():
         f["path_roofline_share"] = f["path_bound_ms_sum"] / f["path_ms_sum"]
-        f["path_ms_sum_previous_design"] = PREVIOUS_DESIGN_MS[kernel + "_path"]
     emit("planar_path_timing", scene="cornell", chunk_rays=spp * n_virt, launches=rows,
-         sums={k: {"ms": f["path_ms_sum"], "bound_ms": f["path_bound_ms_sum"],
-                   "previous_design_ms_perf_md": f["path_ms_sum_previous_design"]}
+         sums={k: {"launches": len(f["path_live_shares"]), "ms": f["path_ms_sum"],
+                   "bound_ms": f["path_bound_ms_sum"],
+                   "previous_design_ms_perf_md": PREVIOUS_DESIGN_MS[k + "_path"]}
                for k, f in out.items()})
     if set(out) != {"planar_closest", "planar_closest_attrs"}:
         raise RuntimeError(f"cornell chunk: planar launches {sorted(out)}")
@@ -4643,7 +4640,6 @@ def main():
         else:
             blocks, threads = ck.planar_occupancy(e["name"].endswith("attrs"))
             e["resident_warps_per_sm"] = blocks * threads // 32
-            e["ms_previous_design_perf_md"] = PREVIOUS_DESIGN_MS[e["name"]]
             e.update(path[e["name"]])
     by_name = {e["name"]: e for e in ix_entries}
     kernels_ms = (by_name["planar_closest_attrs"]["ms"] * std_counts["planar_closest_attrs"]

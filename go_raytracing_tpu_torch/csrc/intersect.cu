@@ -50,7 +50,7 @@
 //     several tests, whose independent chains keep the SM's pipelines busy;
 //   * where t_min > 0 (every caller of the integrator), the planar sweep skips
 //     the division of a candidate whose numerator and denominator are not of
-//     one strict sign (the wrapper picks that route on the host from t_min);
+//     one strict sign (the launch picks that instantiation from t_min);
 //   * a sphere block stages no tile when none of its rays is active, and a
 //     warp with no active ray sweeps none (a dead ray in a live warp is
 //     tested with it: no root lies in (t_min, t_max)); both templates take
@@ -94,12 +94,9 @@ constexpr int PLANAR_KIND_ATTR = 11;  // after 6 constants
 constexpr int PLANAR_MAX_ATTRS = 20;
 constexpr int SPHERE_GEO_ATTRS = 4;   // centre(3) radius^2
 
-// The planar sweep: rays a thread (1 and 4 measured slower on the H100), and
-// the blocks an SM it is built for, 0 leaving its registers to the compiler
-// (twelve spilled and read no better, PERF.md section 6).
+// The planar sweep's rays a thread (1 and 4 measured slower on the H100).
 constexpr int PLANAR_K = 2;
 constexpr int PLANAR_RUN = THREADS * PLANAR_K;   // rays a block
-constexpr int PLANAR_BLOCKS_PER_SM = 0;
 constexpr int PLANAR_REC = 16;   // floats of a primitive's staged record
 
 struct Rays {
@@ -239,7 +236,7 @@ __device__ __forceinline__ void planar_attrs(const Out& W, long long n, long lon
 // shared memory, so that every output is written whole.  N_ATTR: -1 the
 // closest hit alone, else the attribute rows (0: W.n_attr of them).
 template <int N_ATTR, bool GATE>
-__global__ void __launch_bounds__(THREADS, PLANAR_BLOCKS_PER_SM)
+__global__ void __launch_bounds__(THREADS)
 planar_kernel(const float* __restrict__ geo, const float* __restrict__ con,
               int n_prims, Rays R, float t_min, Out W) {
     constexpr bool ATTRS = N_ATTR >= 0;
@@ -477,16 +474,14 @@ sphere_kernel(const float* __restrict__ geo, const float* __restrict__ con,
     }
 }
 
-// gate: take the sign gate (the caller's choice, from t_min on the host; it
-// is exact only where t_min > 0, so it is refused otherwise).
 template <int N_ATTR>
 int launch_planar(const float* geo, const float* con, int n_prims, Rays R,
-                  float t_min, int gate, Out W, void* cuda_stream) {
-    if (gate && !(t_min > 0.0f)) return (int)cudaErrorInvalidValue;
+                  float t_min, Out W, void* cuda_stream) {
     // one block a run of PLANAR_RUN rays, as the sphere kernels
     const long long blocks = (R.n + PLANAR_RUN - 1) / PLANAR_RUN;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    auto kernel = gate ? planar_kernel<N_ATTR, true> : planar_kernel<N_ATTR, false>;
+    // the sign gate is exact only where t_min > 0
+    auto kernel = t_min > 0.0f ? planar_kernel<N_ATTR, true> : planar_kernel<N_ATTR, false>;
     kernel<<<(unsigned int)blocks, THREADS, 0, (cudaStream_t)cuda_stream>>>(
         geo, con, n_prims, R, t_min, W);
     return (int)cudaGetLastError();
@@ -511,11 +506,11 @@ int launch_sphere(const float* geo, const float* con, int n_prims, Rays R,
 extern "C" int planar_closest_launch(
     const float* geo, int n_prims, const float* ox, const float* oy,
     const float* oz, const float* dx, const float* dy, const float* dz,
-    const float* t_max, long long n_rays, float t_min, int gate, float* t_out,
+    const float* t_max, long long n_rays, float t_min, float* t_out,
     int* idx_out, uint8_t* hit_out, void* cuda_stream) {
     return launch_planar<-1>(
         geo, nullptr, n_prims, Rays{ox, oy, oz, dx, dy, dz, nullptr, t_max, n_rays},
-        t_min, gate, Out{t_out, idx_out, hit_out, nullptr, 0}, cuda_stream);
+        t_min, Out{t_out, idx_out, hit_out, nullptr, 0}, cuda_stream);
 }
 
 extern "C" int sphere_closest_launch(
@@ -532,7 +527,7 @@ extern "C" int sphere_closest_launch(
 extern "C" int planar_closest_attrs_launch(
     const float* geo, const float* con, int n_prims, const float* ox,
     const float* oy, const float* oz, const float* dx, const float* dy,
-    const float* dz, const float* t_max, long long n_rays, float t_min, int gate,
+    const float* dz, const float* t_max, long long n_rays, float t_min,
     float* t_out, int* idx_out, uint8_t* hit_out, float* attrs, int n_attr,
     void* cuda_stream) {
     if (n_attr < 12 || n_attr > PLANAR_MAX_ATTRS) return (int)cudaErrorInvalidValue;
@@ -540,9 +535,9 @@ extern "C" int planar_closest_attrs_launch(
     const Out W{t_out, idx_out, hit_out, attrs, n_attr};
     // the rows the callers ask for (12; 19 with a checker) unrolled, the others
     // counted at run time
-    if (n_attr == 12) return launch_planar<12>(geo, con, n_prims, R, t_min, gate, W, cuda_stream);
-    if (n_attr == 19) return launch_planar<19>(geo, con, n_prims, R, t_min, gate, W, cuda_stream);
-    return launch_planar<0>(geo, con, n_prims, R, t_min, gate, W, cuda_stream);
+    if (n_attr == 12) return launch_planar<12>(geo, con, n_prims, R, t_min, W, cuda_stream);
+    if (n_attr == 19) return launch_planar<19>(geo, con, n_prims, R, t_min, W, cuda_stream);
+    return launch_planar<0>(geo, con, n_prims, R, t_min, W, cuda_stream);
 }
 
 extern "C" int sphere_closest_attrs_launch(

@@ -235,9 +235,9 @@ def _sphere_closest_attrs_plain(geo, con, o, d, tm, t_max, t_min, n_attr):
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
-_PLANAR_ARGTYPES = [_P, _I] + [_P] * 7 + [_L, _F, _I] + [_P] * 3 + [_P]
+_PLANAR_ARGTYPES = [_P, _I] + [_P] * 7 + [_L, _F] + [_P] * 3 + [_P]
 _SPHERE_ARGTYPES = [_P, _I] + [_P] * 8 + [_L, _F] + [_P] * 3 + [_P]
-_PLANAR_ATTRS_ARGTYPES = [_P, _P, _I] + [_P] * 7 + [_L, _F, _I] + [_P] * 4 + [_I, _P]
+_PLANAR_ATTRS_ARGTYPES = [_P, _P, _I] + [_P] * 7 + [_L, _F] + [_P] * 4 + [_I, _P]
 _SPHERE_ATTRS_ARGTYPES = [_P, _P, _I] + [_P] * 8 + [_L, _F] + [_P] * 4 + [_I, _P]
 
 
@@ -287,14 +287,6 @@ def _launch(function, argtypes, dev, args):
         raise RuntimeError(f"{function} failed: CUDA error {err}")
 
 
-def planar_gated(t_min):
-    """Whether the planar kernels take the sign gate at this ``t_min`` (a
-    float the caller holds: no device read).  The gate skips the division of
-    a candidate whose numerator and denominator are not of one strict sign,
-    whose t then fails ``t >= t_min``: exact only where ``t_min > 0``."""
-    return t_min > 0.0
-
-
 def planar_occupancy(attrs=False):
     """(blocks an SM holds at once, threads a block) of the gated planar
     kernel, alone or with 12 attribute rows, on the current CUDA device."""
@@ -331,7 +323,7 @@ def _planar_closest_cuda(geo, o, d, t_max, t_min):
     if r:
         _launch("planar_closest_launch", _PLANAR_ARGTYPES, t_max.device,
                 [geo.data_ptr(), geo.shape[1], *_ptrs(*o, *d, t_max), r,
-                 float(t_min), int(planar_gated(t_min)), *_ptrs(t, idx, hit)])
+                 float(t_min), *_ptrs(t, idx, hit)])
         LAUNCHES_PLANAR += 1
     return t, idx, hit.view(torch.bool)
 
@@ -358,7 +350,7 @@ def _planar_closest_attrs_cuda(geo, con, o, d, t_max, t_min, n_attr):
         _launch("planar_closest_attrs_launch", _PLANAR_ATTRS_ARGTYPES,
                 t_max.device,
                 [geo.data_ptr(), con.data_ptr(), geo.shape[1],
-                 *_ptrs(*o, *d, t_max), r, float(t_min), int(planar_gated(t_min)),
+                 *_ptrs(*o, *d, t_max), r, float(t_min),
                  *_ptrs(t, idx, hit, attrs), n_attr])
         LAUNCHES_PLANAR_ATTRS += 1
     return t, idx, hit.view(torch.bool), attrs

@@ -201,14 +201,6 @@ def test_wrappers_reject_bad_n_attr(prims):
         ck.sphere_closest_attrs(ts.spheres, con, o, d, big, big, n_attr=19)
 
 
-
-def test_planar_sign_gate_is_chosen_on_the_host_by_t_min():
-    """The planar kernels take the sign gate only where it is exact, t_min > 0:
-    the integrator's EPS_HIT and SHADOW_EPS (as the wrappers round them), not
-    0, a negative t_min or NaN."""
-    assert ck.planar_gated(float(np.float32(1e-3))) and ck.planar_gated(1e-30)
-    assert not any(ck.planar_gated(t) for t in (0.0, -0.0, -1e-3, float("nan")))
-
 # -----------------------------------------------------------------------------
 # Volume sampling
 # -----------------------------------------------------------------------------
