@@ -287,7 +287,7 @@ UNCHANGED_KERNELS = {"wavefront_kernelILi0ELb1E": (80, 8),
                      "sphere_kernelILb0E": (72, 0),
                      "sphere_kernelILb1E": (72, 12)}
 # The planar closest-hit kernels (csrc/intersect.cu): planar_kernel<N_ATTR,
-# GATE>, N_ATTR -1 the closest hit alone (B7a), 12 / 19 / 0 (any count) with
+# GATE>, N_ATTR -1 the closest hit alone (B7a), 12 / 0 (any count) with
 # the attributes (B8p); GATE the sign gate, taken where t_min > 0, as on every
 # main path.
 PLANAR_TAGS = {"planar_closest": "planar_kernelILin1ELb1E",

@@ -11,7 +11,7 @@
 //   planar_kernel<N_ATTR, GATE>  the planar closest hit and the winner's
 //       attributes: normal, alpha, beta, kindpack, fuzz, ior, colour, planar
 //       kind and, for scenes with a checker texture, even and odd colour and
-//       scale (N_ATTR 12 and 19 unrolled, 0 any count of 12 to 20).  Replaces
+//       scale (N_ATTR 12 unrolled, 0 any count of 12 to 20).  Replaces
 //       _planar_attr_kernel / planar_closest_attrs.
 //   sphere_kernel<true>   the sphere closest hit and the winner's attributes:
 //       centre at the ray's time, radius^2, kindpack, fuzz, ior, colour (and
@@ -533,10 +533,10 @@ extern "C" int planar_closest_attrs_launch(
     if (n_attr < 12 || n_attr > PLANAR_MAX_ATTRS) return (int)cudaErrorInvalidValue;
     const Rays R{ox, oy, oz, dx, dy, dz, nullptr, t_max, n_rays};
     const Out W{t_out, idx_out, hit_out, attrs, n_attr};
-    // the rows the callers ask for (12; 19 with a checker) unrolled, the others
-    // counted at run time
+    // 12 rows, a scene without a checker, unrolled (5 % under the rows counted
+    // at run time on a Cornell chunk's launches; with a checker's 19 rows the
+    // count at run time read the same, PERF.md section 6)
     if (n_attr == 12) return launch_planar<12>(geo, con, n_prims, R, t_min, W, cuda_stream);
-    if (n_attr == 19) return launch_planar<19>(geo, con, n_prims, R, t_min, W, cuda_stream);
     return launch_planar<0>(geo, con, n_prims, R, t_min, W, cuda_stream);
 }
 

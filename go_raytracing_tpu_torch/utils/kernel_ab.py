@@ -56,10 +56,9 @@ IX = "intersect"
 
 # variant -> the lines of csrc/intersect.cu it leaves out (N: this tree as it
 # stands).  R: B8p at every row count through the instantiation that counts
-# its rows at run time (planar_kernel<0, GATE>), none unrolled for 12 or 19.
+# its rows at run time (planar_kernel<0, GATE>), none unrolled for 12.
 VARIANTS = {
-    "R": ["    if (n_attr == 12) return launch_planar<12>(",
-          "    if (n_attr == 19) return launch_planar<19>("],
+    "R": ["    if (n_attr == 12) return launch_planar<12>("],
 }
 
 # the parent's planar kernels' occupancy, appended to its copy of intersect.cu
