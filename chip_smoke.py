@@ -86,7 +86,19 @@ tier all stashed and over budget, ``marble-glossy-nee`` (the same under the
 synthetic sky with its quad light, 800x450, 25 spp, depth 10) on the fused
 tier, each beside the same job through the replay tier (``marble-glossy``
 cut to 25 spp there), and the three kernels alone
-(``marble_kernel_timing``).  Last, the tile-sweep probe of the mesh stream
+(``marble_kernel_timing``).  Then image textures (ROADMAP A16), under a
+synthetic 1024x512 atlas from a fixed seed (the earth scene's
+``earthmap.jpg`` is not in the repository): the JAX bench's ``earth``
+(400x225, 25 spp, depth 10) forward on the 'image' route (B1 on the scene
+with its image made white, then the sphere kernel B7b and one gather a
+camera ray) against the standard integrator's picture, and once at the
+scene's own camera (800x450, 100 spp, depth 50) (``image_main_path``);
+``earth-fwd-bwd`` on the image tier (B2 and B3 on the white scene, the
+per-texel sums for the atlas) twice with the same bits, over budget, and
+against the replay tier (``image_fwd_bwd``); the Cornell box with the atlas
+as a picture on its back wall through the standard integrator, one chunk
+under the profiler, autograd and the replay tier at 8 spp, each twice with
+the same bits (``image_standard``).  Last, the tile-sweep probe of the mesh stream
 (``probe_stream_micro``: its five variants against their plain versions,
 then its command line's run at 512 blocks x 512 sweeps).  The earlier
 phases run at the sizes they always had.  It prints one JSON line per
@@ -4089,6 +4101,353 @@ def marble_grad_phases(dev, env, regs, glossy_plain, record_scene, product_scene
 PROBE_BLOCKS, PROBE_SWEEPS = 512, 512        # scripts/stream_micro.py's defaults
 
 
+# ---- image textures (ROADMAP A16): earth, and a picture in the Cornell box ------
+
+EARTH_BENCH = dict(image_width=400, samples_per_pixel=25, max_depth=10)   # bench.py:59, :228-231
+ATLAS_SEED = 11
+
+
+def synthetic_atlas(seed=ATLAS_SEED, h=512, w=1024):
+    """An [h, w, 3] image texture at the size of the earth scene's
+    ``earthmap.jpg`` (1024x512), from a fixed numpy seed (the reference's
+    asset is not in the repository): seas and land from a few seeded waves
+    over longitude and latitude, ice toward the poles, a little seeded
+    noise, texels in [0, 1] as ``io/images.load_ldr`` gives them."""
+    rng = np.random.default_rng(seed)
+    lat = (np.arange(h) + 0.5) / h * np.pi
+    lon = (np.arange(w) + 0.5) / w * 2.0 * np.pi
+    field = np.zeros((h, w))
+    for _ in range(6):
+        a, b = rng.integers(1, 6, 2)
+        pa, pb = rng.uniform(0.0, 2.0 * np.pi, 2)
+        field += np.sin(a * lon[None, :] + pa) * np.sin(b * lat[:, None] + pb)
+    sea = np.array([0.08, 0.22, 0.55])
+    land = np.array([0.35, 0.55, 0.22])
+    data = np.where((field > 0.4)[..., None], land, sea)
+    data[np.abs(lat - np.pi / 2) > 1.25] = (0.92, 0.94, 0.96)
+    data = data * rng.uniform(0.9, 1.1, (h, w, 1))
+    return np.clip(data, 0.0, 1.0).astype(np.float32)
+
+
+def image_counts():
+    return {"wavefront_fwd": cw.LAUNCHES, "wavefront_record": cw.LAUNCHES_RECORD,
+            "wavefront_grad_fwd": cw.LAUNCHES_GRAD_FWD,
+            "wavefront_grad_rev": cw.LAUNCHES_GRAD_REV,
+            "sorted_segment_sums": cr.LAUNCHES_SEGMENT_SUMS,
+            "row_sums": cr.LAUNCHES_ROW_SUMS, **intersect_counts()}
+
+
+def reset_image_counts():
+    cw.LAUNCHES = cw.LAUNCHES_RECORD = 0
+    cw.LAUNCHES_GRAD_FWD = cw.LAUNCHES_GRAD_REV = 0
+    cr.LAUNCHES_SEGMENT_SUMS = cr.LAUNCHES_ROW_SUMS = 0
+    reset_intersect_counts()
+
+
+def image_main_path(dev, atlas, out_dir):
+    """The JAX bench's ``earth`` (400x225, 25 spp, depth 10) forward under
+    the synthetic atlas through ``render_image``: the 'image' route (B1 on
+    the white scene, then the sphere closest-hit kernel B7b and one gather a
+    camera ray), three rounds, held to the standard integrator's picture of
+    the same seed; the primary factor and B1 on the white scene alone at
+    the render's chunk; then the scene's own camera (800x450, 100 spp,
+    depth 50) once on the same route.  Returns (the scene, the bench
+    camera, the last round's counts, the own camera's counts)."""
+    scene, own_cam = builders.earth_scene(dev, image=atlas)
+    cam = dataclasses.replace(own_cam, **EARTH_BENCH)
+    w, h, spp = cam.image_width, cam.image_height, cam.samples_per_pixel
+    n_rays = w * h * spp
+    route = wavefront.choose_mega_mode(scene, cam, n_rays, False)
+    if route != "image" or not wavefront.image_prefactor_ok(scene):
+        raise RuntimeError(f"image_main_path: route {route}")
+    grt.render_image(scene, cam, seed=0)   # warm-up
+    taken = []
+    for _ in range(3):
+        stats = grt.RenderStats()
+        reset_image_counts()
+        ms, img = cuda_ms(lambda: grt.render_image(scene, cam, seed=0, stats=stats))
+        counts = image_counts()
+        taken.append(ms)
+    nch = stats.chunks
+    want = {"wavefront_fwd": nch, "sphere_closest": nch, "planar_closest": 0,
+            "planar_closest_attrs": 0, "sphere_closest_attrs": 0}
+    if any(counts[k] != v for k, v in want.items()):
+        raise RuntimeError(f"image_main_path: launches {counts} for {nch} chunks")
+    grt.render_image(scene, cam, seed=0, mega_mode="off")   # warm-up
+    std_stats = grt.RenderStats()
+    reset_image_counts()
+    std_ms, std_img = cuda_ms(lambda: grt.render_image(scene, cam, seed=0, mega_mode="off",
+                                                       stats=std_stats))
+    std_counts = image_counts()
+    share = image_share_outside(std_img, img)
+    mean = float(img.mean())
+    png = pathlib.Path(out_dir) / "chip_smoke_earth.png"
+    grt.film.write_png(str(png), grt.film.to_uint8(img))
+    # the parts of one chunk: B1 on the white scene, the primary factor
+    # (B7b and the gather), B7b alone
+    n_virt = w * h
+    chunk = min(renderer.pick_chunk_size(scene) // n_virt, spp) * n_virt
+    cam2, o, d, tm, stream, _, _ = renderer._chunk_rays(
+        scene, cam, 0, 0, spp=spp, chunk=chunk, max_depth=cam.max_depth, device=dev)
+    o, d, tm = V3(*(c.contiguous() for c in o)), V3(*(c.contiguous() for c in d)), \
+        tm.contiguous()
+    tb_white = cw.build_tables(wavefront._strip_image(scene))
+    sid = cw.stream_to_i32(stream)
+    b1_rounds, _ = rounds_ms(lambda: cw.wavefront_fwd(tb_white, o, d, tm, sid, 0,
+                                                      cam.max_depth))
+    factor_rounds, factor = rounds_ms(lambda: wavefront._primary_image_factor(scene, o, d, tm))
+    t_max = torch.full_like(tm, cw.BIG)
+    b7b_rounds, (_, _, hit) = rounds_ms(lambda: ck.sphere_closest(
+        scene.spheres, o, d, tm, t_max, t_min=cw.EPS_HIT))
+    hit_share = float(hit.float().mean())
+    del o, d, tm, stream, sid, factor, t_max, hit
+    # the scene's own camera, once
+    own_n = own_cam.image_width * own_cam.image_height * own_cam.samples_per_pixel
+    own_route = wavefront.choose_mega_mode(scene, own_cam, own_n, False)
+    own_stats = grt.RenderStats()
+    reset_image_counts()
+    own_ms, own_img = cuda_ms(lambda: grt.render_image(scene, own_cam, seed=0,
+                                                       stats=own_stats))
+    own_counts = image_counts()
+    own_mean = float(own_img.mean())
+    ms = median(taken)
+    emit("image_main_path", scene="earth", atlas=f"synthetic {atlas.shape[1]}x"
+         f"{atlas.shape[0]}, seed {ATLAS_SEED}", width=w, height=h, spp=spp,
+         depth=cam.max_depth, camera_rays=n_rays, route=route, chunks=nch,
+         rays_per_chunk=chunk, launches=counts, render_ms_rounds=taken,
+         render_ms_median=ms, camera_mrays_per_s=n_rays / (ms * 1e-3) / 1e6,
+         b1_launches=counts["wavefront_fwd"], b1_white_ms_one_chunk=median(b1_rounds),
+         primary_factor_ms_one_chunk=median(factor_rounds),
+         primary_factor_ms_render=median(factor_rounds) * nch,
+         sphere_closest_ms_one_chunk=median(b7b_rounds), primary_hit_share=hit_share,
+         standard_render_ms=std_ms, standard_launches=std_counts,
+         standard_camera_mrays_per_s=n_rays / (std_ms * 1e-3) / 1e6,
+         pixel_share_outside_tolerance=share, rtol=IMAGE_RTOL, atol=IMAGE_ATOL,
+         image_mean=mean, png=str(png),
+         own_camera=dict(width=own_cam.image_width, height=own_cam.image_height,
+                         spp=own_cam.samples_per_pixel, depth=own_cam.max_depth,
+                         camera_rays=own_n, route=own_route, chunks=own_stats.chunks,
+                         launches=own_counts, render_ms=own_ms,
+                         camera_mrays_per_s=own_n / (own_ms * 1e-3) / 1e6,
+                         image_mean=own_mean))
+    if not torch.isfinite(img).all() or not 0.05 < mean < 0.95:
+        raise RuntimeError(f"image_main_path: image mean {mean}")
+    if std_counts["wavefront_fwd"] != 0 or std_counts["sphere_closest"] < 1:
+        raise RuntimeError(f"image_main_path: standard integrator launches {std_counts}")
+    if share >= MAX_PIXEL_SHARE_OUTSIDE:
+        raise RuntimeError(f"image_main_path: {share:.4%} of pixel channels differ "
+                           "between the 'image' route and the standard integrator")
+    if own_route != "image" or own_counts["wavefront_fwd"] != own_stats.chunks \
+            or own_counts["sphere_closest"] != own_stats.chunks:
+        raise RuntimeError(f"image_main_path: own camera on {own_route}, launches "
+                           f"{own_counts} for {own_stats.chunks} chunks")
+    if not torch.isfinite(own_img).all() or not 0.05 < own_mean < 0.95:
+        raise RuntimeError(f"image_main_path: own camera's image mean {own_mean}")
+    return scene, cam, counts, own_counts
+
+
+def image_fwd_bwd(scene, cam):
+    """The JAX bench's ``earth-fwd-bwd`` (400x225, 25 spp, depth 10, pixel
+    MSE against 0.8 x the render) through ``render_grad`` on the image tier
+    (B2 and B3 on the white scene, the sphere kernel and the per-texel sums
+    for the atlas): twice, the gradients' bits equal; the loss that of
+    ``render``'s picture (rtol 1e-5); the over-budget route (``stash_budget=0``)
+    the same loss and gradients (rtol 1e-5); and the replay tier on the same
+    job within 2e-3 of each gradient's largest entry.  Returns (the timed
+    call's counts, its chunks)."""
+    spp, depth = cam.samples_per_pixel, cam.max_depth
+    n_rays = cam.image_width * cam.image_height * spp
+    tier = gradmod.grad_tier(scene, depth)
+    if tier != "image":
+        raise RuntimeError(f"image_fwd_bwd: tier {tier}")
+    fb = grt.render(scene, cam, seed=0)
+    target = fb / spp * 0.8
+    loss_ref = float(torch.mean((fb / spp - target) ** 2))
+    del fb
+    first_loss, first = grt.render_grad(scene, cam, target, seed=0)   # also the warm-up
+    stats = grt.RenderStats()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_image_counts()
+    ms, (loss, grads) = cuda_ms(lambda: grt.render_grad(scene, cam, target, seed=0,
+                                                        stats=stats))
+    counts = image_counts()
+    peak = torch.cuda.max_memory_allocated()
+    nch = stats.chunks
+    n_stash = nch - counts["wavefront_fwd"]
+    kchunk = gradmod._chunking(scene, cam, spp, None, renderer.pick_chunk_size(scene))[0]
+    per_ray = gradmod.stash_bytes_per_ray(depth, image=True)
+    want = {"wavefront_fwd": 0, "wavefront_grad_fwd": nch, "wavefront_grad_rev": nch,
+            "sphere_closest": nch, "sorted_segment_sums": nch}
+    if any(counts[k] != v for k, v in want.items()):
+        raise RuntimeError(f"image_fwd_bwd: launches {counts} for {nch} chunks")
+    loss_f = float(loss)
+    if not loss_f == loss_f or abs(loss_f - loss_ref) > 1e-5 * loss_ref:
+        raise RuntimeError(f"image_fwd_bwd: loss {loss_f} against {loss_ref} from render()")
+    for key, g in grads.items():
+        if not torch.isfinite(g).all():
+            raise RuntimeError(f"image_fwd_bwd: gradient {key} is not finite")
+    if float(grads["atlas"].abs().max()) == 0.0:
+        raise RuntimeError("image_fwd_bwd: the atlas gradient is zero")
+    same = {k: bool(torch.equal(grads[k], first[k])) for k in grads}
+    same["loss"] = float(first_loss) == loss_f
+    # the over-budget route: every chunk traced again in pass B
+    reset_image_counts()
+    ob_ms, (ob_loss, ob_grads) = cuda_ms(lambda: grt.render_grad(
+        scene, cam, target, seed=0, stash_budget=0))
+    ob_counts = image_counts()
+    ob_err = {k: float((ob_grads[k] - grads[k]).abs().max())
+              / max(float(grads[k].abs().max()), 1e-30) for k in grads}
+    # the replay tier on the same job (the standard integrator records it)
+    reset_image_counts()
+    r_stats = grt.RenderStats()
+    r_ms, (r_loss, r_grads) = cuda_ms(lambda: gradmod._render_grad_replay(
+        scene, cam, target, spp=spp, max_depth=depth, seed=0, chunk=None, stats=r_stats,
+        dec_budget=None))
+    r_counts = image_counts()
+    r_err = {k: float((r_grads[k] - grads[k]).abs().max())
+             / max(float(r_grads[k].abs().max()), 1e-30) for k in grads}
+    atlas = grads["atlas"]
+    emit("image_fwd_bwd", scene="earth", width=cam.image_width, height=cam.image_height,
+         spp=spp, depth=depth, camera_rays=n_rays, tier=tier, chunks=nch,
+         rays_per_chunk=kchunk, launches=counts, render_grad_ms_cuda_events=ms,
+         fwd_bwd_camera_mrays_per_s=n_rays / (ms * 1e-3) / 1e6, loss=loss_f,
+         loss_from_render=loss_ref, n_stash=n_stash, stash_bytes_per_ray=per_ray,
+         stash_bytes=n_stash * kchunk * per_ray, max_memory_allocated=peak,
+         same_bits_two_calls=same,
+         atlas_grad_abs_sum=float(atlas.abs().sum()),
+         atlas_texels_nonzero=int((atlas.abs().amax(dim=-1) > 0).sum()),
+         over_budget=dict(render_grad_ms=ob_ms, loss=float(ob_loss), launches=ob_counts,
+                          grad_diff_of_largest=ob_err),
+         replay=dict(render_grad_ms=r_ms, chunks=r_stats.chunks, loss=float(r_loss),
+                     launches=r_counts, grad_diff_of_largest=r_err,
+                     fwd_bwd_camera_mrays_per_s=n_rays / (r_ms * 1e-3) / 1e6))
+    if not all(same.values()):
+        raise RuntimeError(f"image_fwd_bwd: two render_grad calls differ: {same}")
+    if abs(float(ob_loss) - loss_f) > 1e-5 * loss_f or max(ob_err.values()) > 1e-5 \
+            or ob_counts["wavefront_fwd"] != nch or ob_counts["wavefront_grad_fwd"] != nch:
+        raise RuntimeError(f"image_fwd_bwd: over budget, loss {float(ob_loss)} against "
+                           f"{loss_f}, gradients off by {ob_err}, launches {ob_counts}")
+    if abs(float(r_loss) - loss_f) > 1e-4 * loss_f or max(r_err.values()) > AUTOGRAD_RTOL_OF_LARGEST:
+        raise RuntimeError(f"image_fwd_bwd: against the replay tier, loss {float(r_loss)} "
+                           f"against {loss_f}, gradients off by {r_err}")
+    return counts, nch
+
+
+def image_standard(dev, atlas):
+    """The Cornell box with the synthetic atlas as a picture on its back
+    wall (``tests/test_torch_helpers.build_cornell_image``; outside the
+    megakernel's gate and the image tier's) at Cornell's size (600x338, 100
+    spp, depth 5) through the standard integrator's gather route: its
+    picture, one chunk under ``torch.profiler`` (the device's busy share);
+    then at 8 spp ``loss.backward()`` through ``render(differentiable=True)``
+    twice and the replay tier twice, each pair with the same bits, the two
+    routes' atlas gradients within 2e-3 of the largest entry.  Returns (the
+    forward's counts, its chunks)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    scene = th.build_cornell_image(grt, atlas, device=dev)
+    cam = Camera(**{**th.CORNELL_IMAGE_CAM, "image_width": 600,
+                    "aspect_ratio": 600 / 338, "samples_per_pixel": 100, "max_depth": 5})
+    n_rays = cam.image_width * cam.image_height * cam.samples_per_pixel
+    route = wavefront.choose_mega_mode(scene, cam, n_rays, False)
+    tier = gradmod.grad_tier(scene, cam.max_depth)
+    if route != "off" or tier != "replay":
+        raise RuntimeError(f"image_standard: route {route}, tier {tier}")
+    grt.render_image(scene, cam, seed=0)   # warm-up
+    taken, img, counts, stats, mega_launches = timed_renders(
+        lambda st: grt.render_image(scene, cam, seed=0, stats=st), 2)
+    mean = float(img.mean())
+    per_chunk = cam.max_depth * stats.chunks
+    if mega_launches != 0 or not (0 < counts["planar_closest"] <= 2 * per_chunk) \
+            or counts["planar_closest_attrs"] != 0:
+        raise RuntimeError(f"image_standard: launches {counts}, megakernel {mega_launches}")
+    if not torch.isfinite(img).all() or not 0.02 < mean < 0.98:
+        raise RuntimeError(f"image_standard: image mean {mean}")
+    n_virt = cam.image_width * cam.image_height
+    one = renderer.pick_chunk_size(scene) // n_virt
+    plain_ms, _ = cuda_ms(lambda: grt.render(scene, cam, spp=one, seed=0))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        grt.render(scene, cam, spp=one, seed=0)
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    device_ms = sum(r[1] for r in rows)
+    # autograd and the replay tier at 8 spp
+    a_cam = dataclasses.replace(cam, samples_per_pixel=8)
+    target = grt.render(scene, a_cam, seed=1) / 8 * 0.8
+    runs = []
+    for _ in range(2):
+        params = {k: v.clone().requires_grad_()
+                  for k, v in grt.trainable_params(scene).items()}
+
+        def run():
+            fb = grt.render(grt.apply_params(scene, params), a_cam, seed=0,
+                            differentiable=True)
+            loss = torch.mean((fb / 8 - target) ** 2)
+            loss.backward()
+            return loss.detach()
+
+        a_ms, a_loss = cuda_ms(run)
+        runs.append((a_ms, params["atlas"].grad, float(a_loss)))
+    reps = []
+    for _ in range(2):
+        r_stats = grt.RenderStats()
+        reset_image_counts()
+        r_ms, (r_loss, r_grads) = cuda_ms(lambda: grt.render_grad(scene, a_cam, target,
+                                                                  seed=0, stats=r_stats))
+        reps.append((r_ms, r_grads, float(r_loss), image_counts()))
+    auto_bits = torch.equal(runs[0][1], runs[1][1])
+    replay_bits = all(torch.equal(reps[0][1][k], reps[1][1][k]) for k in reps[0][1])
+    big = float(reps[0][1]["atlas"].abs().max())
+    diff = float((runs[0][1] - reps[0][1]["atlas"]).abs().max()) / max(big, 1e-30)
+    ms = median(taken)
+    emit("image_standard", scene="cornell-image", atlas=f"synthetic {atlas.shape[1]}x"
+         f"{atlas.shape[0]}, seed {ATLAS_SEED}", width=cam.image_width,
+         height=cam.image_height, spp=cam.samples_per_pixel, depth=cam.max_depth,
+         camera_rays=n_rays, route=route, chunks=stats.chunks, launches=counts,
+         render_ms_rounds=taken, render_ms_median=ms,
+         camera_mrays_per_s=n_rays / (ms * 1e-3) / 1e6, image_mean=mean,
+         profile=dict(rays=one * n_virt, render_ms_without_profiler=plain_ms,
+                      device_ms=device_ms, device_busy_share=device_ms / plain_ms,
+                      device_kernel_launches=sum(r[2] for r in rows),
+                      top=[dict(name=r[0][:80], ms=r[1], calls=r[2]) for r in rows[:8]]),
+         autograd=dict(spp=8, forward_backward_ms=[r[0] for r in runs],
+                       loss=runs[0][2], atlas_same_bits=auto_bits,
+                       atlas_texels_nonzero=int((runs[0][1].abs().amax(dim=-1) > 0).sum())),
+         replay=dict(spp=8, render_grad_ms=[r[0] for r in reps], chunks=r_stats.chunks,
+                     loss=reps[0][2], launches=reps[1][3], gradients_same_bits=replay_bits,
+                     atlas_diff_to_autograd_of_largest=diff, largest_atlas_grad=big))
+    if not (auto_bits and replay_bits):
+        raise RuntimeError(f"image_standard: bits differ between runs: autograd "
+                           f"{auto_bits}, replay {replay_bits}")
+    if big == 0.0 or not torch.isfinite(runs[0][1]).all() or diff > AUTOGRAD_RTOL_OF_LARGEST \
+            or abs(runs[0][2] - reps[0][2]) > 1e-4 * reps[0][2]:
+        raise RuntimeError(f"image_standard: autograd against the replay tier: atlas off "
+                           f"by {diff} of {big}, loss {runs[0][2]} against {reps[0][2]}")
+    return counts, stats.chunks
+
+
+def image_phases(dev, out_dir):
+    """Image textures: ``earth`` forward and fwd+bwd at the JAX bench's size,
+    the Cornell box with a picture.  Returns launches for the kernels line."""
+    atlas = synthetic_atlas()
+    emit("atlas", height=atlas.shape[0], width=atlas.shape[1], seed=ATLAS_SEED,
+         mean=float(atlas.mean()), min=float(atlas.min()), max=float(atlas.max()))
+    scene, cam, main, own = image_main_path(dev, atlas, out_dir)
+    fwd_bwd, _ = image_fwd_bwd(scene, cam)
+    std, _ = image_standard(dev, atlas)
+    return {"wavefront_fwd": {"image_main_path": main["wavefront_fwd"],
+                              "image_main_path_own_camera": own["wavefront_fwd"]},
+            "wavefront_grad_fwd": {"image_fwd_bwd": fwd_bwd["wavefront_grad_fwd"]},
+            "wavefront_grad_rev": {"image_fwd_bwd": fwd_bwd["wavefront_grad_rev"]},
+            "sphere_closest": {"image_main_path": main["sphere_closest"],
+                               "image_fwd_bwd": fwd_bwd["sphere_closest"]},
+            "sphere_closest_attrs": {"image_main_path": main["sphere_closest_attrs"],
+                                     "image_fwd_bwd": fwd_bwd["sphere_closest_attrs"]},
+            "planar_closest": {"image_standard": std["planar_closest"]},
+            "planar_closest_attrs": {"image_standard": std["planar_closest_attrs"]}}
+
+
 def probe_phase(regs):
     """The probe's five variants: each against its plain version at 8
     blocks and at the defaults (t and id equal), then the CLI's own run
@@ -4753,6 +5112,12 @@ def main():
     grad_entries[1]["resident_warps_per_sm"] = resident(cw.grad_rev_occupancy(
         9 * int(scene.textures.color.shape[0])))
 
+    # ---- image textures: earth forward and fwd+bwd, a picture in the Cornell box --
+    image_launches = image_phases(dev, out_dir)
+    for e in (*grad_entries, *ix_entries):
+        if e["name"] in image_launches:
+            e["launches_image_paths"] = image_launches[e["name"]]
+
     # ---- the tile-sweep probe of the mesh stream --------------------------------
     probe_entry = probe_phase(probe_regs)
 
@@ -4788,6 +5153,7 @@ def main():
         **b1_marble,
         **b1_random,
         **b1_brute,
+        "launches_image_paths": image_launches["wavefront_fwd"],
         "registers_marble": fwd_marble[0],
         "spill_bytes_marble": fwd_marble[1],
     }, rec_entry, *grad_entries, pw_entries[0] | b5a_marble,

@@ -22,6 +22,7 @@ import torch
 from . import mesh_bvh, packs
 from ..io import assets as assets_mod
 from ..io import hdr as hdr_mod
+from ..io import images as images_mod
 from ..lights import hdri as hdri_mod
 from ..materials import tables as mats
 from ..materials import textures as tex
@@ -148,6 +149,7 @@ class SceneBuilder:
         self._vol: list = []       # (world_to_local 3x4, bmin, bmax, nid, mat, kind, planes)
         self._mat: list = []       # (kind, tex, fuzz, ior)
         self._tex: list = []       # dict per texture
+        self._images: list = []    # [H, W, 3] float32 numpy arrays
         self._lights: list = []    # planar indices
         self._protos: list = []    # (verts [V,3] f64, tris [T,3] i64)
         self._instances: list = []  # (proto id, local->world 4x4, mat)
@@ -171,8 +173,18 @@ class SceneBuilder:
         return len(self._tex) - 1
 
     def image(self, path_or_array) -> int:
-        raise NotImplementedError(
-            "image textures are not ported yet (ROADMAP.md A16)")
+        """An image texture: a path to an LDR image (found by
+        ``io/assets.find_asset``, loaded by ``io/images.load_ldr``; a
+        missing file raises ``FileNotFoundError``) or an [H, W, 3] array.
+        The images of a scene share one atlas, padded to the largest."""
+        if isinstance(path_or_array, str):
+            path = assets_mod.find_asset(path_or_array, "images")
+            arr = images_mod.load_ldr(path)
+        else:
+            arr = np.asarray(path_or_array, np.float32)
+        self._images.append(arr)
+        self._tex.append(dict(kind=tex.TEX_IMAGE, image_id=len(self._images) - 1))
+        return len(self._tex) - 1
 
     def _as_tex(self, color_or_tex) -> int:
         if isinstance(color_or_tex, (int, np.integer)):
@@ -462,6 +474,7 @@ class SceneBuilder:
         odd = np.zeros((t, 3), f32)
         inv_scale = np.zeros(t, f32)
         noise_scale = np.zeros(t, f32)
+        image_id = np.zeros(t, i32)
         for i, tx in enumerate(self._tex):
             kind[i] = tx["kind"]
             color[i] = tx.get("color", (0, 0, 0))
@@ -469,12 +482,26 @@ class SceneBuilder:
             odd[i] = tx.get("odd", (0, 0, 0))
             inv_scale[i] = tx.get("inv_scale", 1.0)
             noise_scale[i] = tx.get("noise_scale", 1.0)
+            image_id[i] = tx.get("image_id", 0)
         # the marble's value only multiplies white (rt/texture.go:81-85)
         color[kind == tex.TEX_NOISE] = (1.0, 1.0, 1.0)
+        # the images in one atlas [I, Hmax, Wmax, 3], each in its top-left
+        # corner, and each one's (width, height)
+        if self._images:
+            hmax = max(im.shape[0] for im in self._images)
+            wmax = max(im.shape[1] for im in self._images)
+            atlas = np.zeros((len(self._images), hmax, wmax, 3), f32)
+            atlas_wh = np.zeros((len(self._images), 2), i32)
+            for i, im in enumerate(self._images):
+                atlas[i, : im.shape[0], : im.shape[1]] = im
+                atlas_wh[i] = (im.shape[1], im.shape[0])
+        else:
+            atlas = np.zeros((1, 1, 1, 3), f32)
+            atlas_wh = np.ones((1, 2), i32)
         textures = tex.TexturePack(
             dv(kind, i32), dv(color, f32), dv(even, f32), dv(odd, f32),
-            dv(inv_scale, f32), dv(noise_scale, f32), dv(np.zeros(t), i32),
-            dv(np.zeros((1, 1, 1, 3)), f32), dv(np.ones((1, 2)), i32),
+            dv(inv_scale, f32), dv(noise_scale, f32), dv(image_id, i32),
+            dv(atlas, f32), dv(atlas_wh, i32),
         )
 
         n_l = len(self._lights)
@@ -516,6 +543,7 @@ class SceneBuilder:
             env=env,
             meshes=tuple(meshes),
             has_noise=bool((kind == tex.TEX_NOISE).any()),
+            has_image=bool((kind == tex.TEX_IMAGE).any()),
             has_checker=bool((kind == tex.TEX_CHECKER).any()),
             env_importance=self._env_importance,
         )

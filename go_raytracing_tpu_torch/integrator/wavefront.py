@@ -57,12 +57,18 @@ The megakernel also runs in two phases (``mega_mode="split"``, picked by
 two launches of its resumable kernel with the survivors moved between them
 (``ops/cuda_wavefront.trace_megakernel``).
 
-Not ported yet, each raising ``NotImplementedError``: image textures and
-the megakernel mode 'image' (ROADMAP.md A16).
+Image textures keep a scene outside the megakernel's gate: it takes the
+standard integrator, whose textures read the atlas by index, except where
+``image_prefactor_ok`` proves that the radiance factors as the albedo of
+the camera ray's first hit times the radiance of the scene with its images
+made white (``mega_mode="image"``, picked by ``choose_mega_mode``): the
+megakernel then traces the white scene and one gather a camera ray applies
+the texel (``_primary_image_factor``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -624,8 +630,9 @@ def _winner_t(scene: Scene, o: V3, d: V3, tm, t_min, which, idx, aux,
     record gave the winner; only its distance is computed again, so the
     backward pass differentiates one primitive a ray and bounce, not a
     sweep.  Gradients flow through o and d (the geometry is not a trainable
-    parameter).  The formulas are those of the sweeps: a sphere's stable
-    root, the plane solve of a planar primitive, Moller-Trumbore in the
+    parameter).  The formulas are those of the sweeps, in their order of
+    operations for the spheres and planar primitives: a sphere's root, the
+    plane solve of a planar primitive, Moller-Trumbore in the
     instance's local space for a mesh (also for prototypes whose kernel
     tests triangles another way: t is the same number), and a volume's free
     flight from where the ray enters it with the same draw.  Every
@@ -647,8 +654,12 @@ def _winner_t(scene: Scene, o: V3, d: V3, tm, t_min, which, idx, aux,
         disc = h * h - a * (oc.dot(oc) - rad * rad)
         pos = disc.detach() > 0.0
         sq = torch.where(pos, torch.sqrt(torch.where(pos, disc, 1.0)), 0.0)
-        r0 = (h - sq) / a
-        r1 = (h + sq) / a
+        # times the reciprocal, as the sweep computes it: the distance is
+        # then the record's to the bit, and so are the hit point and what is
+        # read there (an image's texel flips at an ulp)
+        inv_a = 1.0 / a
+        r0 = (h - sq) * inv_a
+        r1 = (h + sq) * inv_a
         t = torch.where(which == HIT_SPHERE,
                         torch.where(r0.detach() > t_min, r0, r1), t)
 
@@ -877,16 +888,84 @@ def _add_miss(scene, cam, radiance: V3, missed, miss_dir: V3, miss_tp: V3,
                                 V3.zeros((r,), device=dev))
 
 
+def image_prefactor_ok(scene: Scene) -> bool:
+    """Does the radiance factor as the image albedo of the camera ray's
+    first hit times the radiance of the scene with its images made white?
+    It does, exactly, in a scene of one sphere with an image-textured
+    lambertian material and nothing else (no light, environment, volume,
+    planar primitive or mesh): an image hit can only be the first (a
+    cosine-weighted scatter off a convex body never meets it again), and
+    every radiance term is a miss term scaled once by that albedo.  The
+    earth scene is such a scene (rt/scenes.go:210-241).  Reads the scene's
+    tables on the host."""
+    if not scene.has_image or scene.env is not None:
+        return False
+    if scene.n_lights or scene.n_volumes or scene.meshes:
+        return False
+    if scene.planar.d.shape[0] != 0 or scene.spheres.radius.shape[0] != 1:
+        return False
+    mat = int(scene.spheres.mat[0])
+    if int(scene.materials.kind[mat]) != mats.MAT_LAMBERTIAN:
+        return False
+    return int(scene.textures.kind[int(scene.materials.tex[mat])]) == tex.TEX_IMAGE
+
+
+def _strip_image(scene: Scene) -> Scene:
+    """The scene with every image texture made solid white (and
+    ``has_image`` false): what the megakernel and the gradient kernels trace
+    for a scene inside ``image_prefactor_ok``."""
+    tp = scene.textures
+    is_img = tp.kind == tex.TEX_IMAGE
+    stripped = dataclasses.replace(
+        tp, kind=torch.where(is_img, tex.TEX_SOLID, tp.kind),
+        color=torch.where(is_img[:, None], 1.0, tp.color))
+    return dataclasses.replace(scene, textures=stripped, has_image=False)
+
+
+def _primary_image_records(scene: Scene, o: V3, d: V3, tm):
+    """The image records of camera rays in a scene inside
+    ``image_prefactor_ok``: (albedo V3, 1 where the ray misses; the flat
+    atlas row of its texel [R]; the hit mask [R]).  The first hit comes from
+    the sphere closest-hit kernel (``ops/cuda_intersect.sphere_closest``,
+    the standard integrator's sweep, with its root rule and ``EPS_HIT``),
+    its point and (u, v) from ``_sphere_record``, the texel from
+    ``textures.image_texels``, the rule ``textures.evaluate`` reads it by."""
+    r_, dev = o.x.shape[0], o.x.device
+    t_s, _, h_s = ck.sphere_closest(scene.spheres, o, d, tm,
+                                    torch.full((r_,), BIG, device=dev), t_min=EPS_HIT)
+    t_rec = torch.where(h_s, t_s, 1.0)
+    _, _, _, uu, vv, mat = _sphere_record(
+        scene.spheres, torch.zeros((r_,), dtype=torch.int32, device=dev),
+        o, d, tm, t_rec)
+    pack = scene.textures
+    tex_id = scene.materials.tex[mat.long()].long()
+    texel = tex.image_texels(pack, pack.image_id[tex_id], uu, vv)
+    t = torch.index_select(pack.atlas.reshape(-1, 3), 0, texel)
+    one = torch.ones_like(uu)
+    albedo = V3(*(torch.where(h_s, t[:, c], one) for c in range(3)))
+    return albedo, texel, h_s
+
+
+def _primary_image_factor(scene: Scene, o: V3, d: V3, tm) -> V3:
+    """The image albedo of each camera ray's first hit (1 on a miss)."""
+    return _primary_image_records(scene, o, d, tm)[0]
+
+
 def choose_mega_mode(scene: Scene, cam, r: int, differentiable: bool) -> str:
     """Dispatch decision for a trace of ``r`` rays: 'off' (the standard
     integrator) | 'single' (one megakernel launch) | 'split' (two launches
     of the resumable kernel, the survivors of the first ``SPLIT_AT`` bounces
-    re-sorted between them), as the JAX package decides: 'split' from
-    ``mega.SPLIT_DEPTH_MIN`` bounces and ``mega.SPLIT_R_MIN`` rays on (read
-    at call time), unless the scene has an importance-sampled environment
-    (its HDRI NEE rows would be drawn and streamed once a phase; the JAX
-    package measured split 5.8 times slower there).  'compact' is never
-    picked by itself; 'image' comes with image textures (ROADMAP.md A16)."""
+    re-sorted between them) | 'image' ('single' on the scene with its
+    images made white, times each camera ray's texel), as the JAX package
+    decides: 'image' for a scene inside ``image_prefactor_ok`` whatever the
+    depth, 'split' from ``mega.SPLIT_DEPTH_MIN`` bounces and
+    ``mega.SPLIT_R_MIN`` rays on (read at call time), unless the scene has
+    an importance-sampled environment (its HDRI NEE rows would be drawn and
+    streamed once a phase; the JAX package measured split 5.8 times slower
+    there).  'compact' is never picked by itself."""
+    if (not differentiable and image_prefactor_ok(scene)
+            and mega.applicable(dataclasses.replace(scene, has_image=False))):
+        return "image"
     if differentiable or not mega.applicable(scene):
         return "off"
     use_hdri = scene.env is not None and scene.env_importance
@@ -1012,13 +1091,6 @@ def bounce_step(scene: Scene, cam, state: PathState, tm, stream, seed,
                      miss_dir, miss_tp, miss_primary, missed)
 
 
-def _check_standard(scene: Scene):
-    """Raise for what the standard integrator does not take yet."""
-    if scene.has_image:
-        raise NotImplementedError(
-            "image textures are not ported yet (ROADMAP.md A16)")
-
-
 def _stack_decisions(scene: Scene, rows, depth: int, r: int, dev) -> Decisions:
     """Per-bounce record tuples -> ``Decisions``; bounces never run (every
     ray died before them) read as no hit."""
@@ -1049,10 +1121,12 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
 
     ``mega_mode``: None lets ``choose_mega_mode`` pick 'single' or 'split'
     (the megakernel, in one or two phases) for a scene inside its gate when
-    ``differentiable`` is false, else 'off' (the standard integrator); any
-    of them, and 'compact', can be forced.  The three megakernel modes give
+    ``differentiable`` is false, 'image' for a scene inside
+    ``image_prefactor_ok``, else 'off' (the standard integrator); any of
+    them, and 'compact', can be forced.  The three megakernel modes give
     the same radiance: 'split' bit for bit, 'compact' to the rounding of
-    one sum where both of its phases add light.
+    one sum where both of its phases add light.  'image' gives the standard
+    integrator's picture to the rounding of the megakernel's.
 
     ``differentiable=True`` (standard integrator only) keeps the path
     differentiable by ``torch.autograd`` with respect to the texture
@@ -1073,7 +1147,8 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
       phase whatever the mode ('split' and 'compact' record as 'single';
       the JAX package records 'split' on its standard integrator, only
       because its record kernel has no two-phase form either), the standard
-      integrator as it goes.
+      integrator as it goes ('image' records there: the record kernel
+      takes no image texture).
       ``decisions=...`` replays a record differentiably: no closest-hit and
       no shadow sweep runs, each bounce takes its winner from the record and
       recomputes that winner's distance (``_winner_t``), so gradients also
@@ -1095,24 +1170,30 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
         mega_mode = "off"   # the replay runs no sweep
     if mega_mode is None:
         mega_mode = choose_mega_mode(scene, cam, r, differentiable)
-    if mega_mode == "image":
-        raise NotImplementedError(
-            "mega_mode 'image' comes with image textures (ROADMAP.md A16)")
-    if mega_mode not in ("off", "single", "split", "compact"):
+    if mega_mode not in ("off", "single", "split", "compact", "image"):
         raise ValueError(f"unknown mega_mode {mega_mode!r}")
-    if record and mega_mode != "off":
+    if mega_mode == "image" and not image_prefactor_ok(scene):
+        raise ValueError("mega_mode 'image' takes a scene inside image_prefactor_ok: "
+                         "one image-textured lambertian sphere and nothing else")
+    if record and mega_mode == "image":
+        mega_mode = "off"      # the standard integrator records image scenes
+    elif record and mega_mode != "off":
         mega_mode = "single"   # the record kernel runs one phase
 
     stats = dict(mesh_overflow=0)
     if mega_mode != "off":
+        img_mode = mega_mode == "image"
         res = mega.trace_megakernel(
-            scene, cam, V3(*(c.contiguous() for c in o)),
+            _strip_image(scene) if img_mode else scene, cam,
+            V3(*(c.contiguous() for c in o)),
             V3(*(c.contiguous() for c in d)), tm.contiguous(), stream, seed,
             record=record, split=mega_mode == "split",
             compact=mega_mode == "compact")
         radiance, miss_dir, miss_tp, flags = res[:4]
         rad = _add_miss(scene, cam, radiance, (flags & mega.FLAG_MISSED) != 0,
                         miss_dir, miss_tp, (flags & mega.FLAG_PRIMARY) != 0)
+        if img_mode:
+            rad = rad * _primary_image_factor(scene, o, d, tm)
         out = (rad,) + ((stats,) if with_stats else ())
         if record:
             which, idx, blk_a, blk_h = res[4]
@@ -1123,7 +1204,6 @@ def trace(scene: Scene, cam: Camera, o, d, tm, stream, seed, *,
                               blk_a, blk_h),)
         return out if len(out) > 1 else rad
 
-    _check_standard(scene)
     fast = attr_path_ok(scene, differentiable)
     tabs = sweep_tables(scene, with_consts=fast) if decisions is None else None
     false = torch.zeros((r,), dtype=torch.bool, device=dev)

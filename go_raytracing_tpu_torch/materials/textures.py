@@ -1,4 +1,4 @@
-"""Texture tables: solid / checker / Perlin marble (image ids reserved).
+"""Texture tables: solid / checker / Perlin marble / image.
 
 A dense SoA pack evaluated branchlessly per ray.
 
@@ -14,10 +14,13 @@ A dense SoA pack evaluated branchlessly per ray.
     version of the megakernel (``ops/cuda_wavefront._bounce_loop``) both
     call it, and the kernel's device code (``csrc/wavefront_common.cuh``)
     repeats its operations in the same order.
-
-Image textures (ROADMAP.md A16) keep their kind id and table columns so the
-tables stay comparable with the JAX package's, but cannot be built yet;
-``evaluate`` raises for a scene that claims to hold one.
+  - Image: the nearest texel of the image at (u, v), both clamped to [0, 1]
+    and v flipped (rt/image_texture.go:26-41), from the scene's atlas of
+    images padded to the largest (``image_texels``).  The megakernels take
+    no image texture: a scene with one runs on the standard integrator, or,
+    where ``integrator/wavefront.image_prefactor_ok`` holds, through the
+    megakernel on the scene with its images made white, times the texel of
+    each camera ray's first hit.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core import rng as rngmod
+from ..core import segsum
 from ..core.vec3 import V3
 from ..ops import cuda_rows
 
@@ -197,18 +201,34 @@ def marble_grad(p: V3, scale):
                half_cos * (ten_sgn * da[2] + scale)))
 
 
+def image_texels(pack: TexturePack, img, u, v):
+    """Flat atlas row of the nearest texel at (u, v) of image ``img`` (all
+    [R]): u and v clamped to [0, 1], v flipped (rt/image_texture.go:33),
+    the column and row truncated to int32 and clamped to the image's own
+    width and height, as the JAX package's ``evaluate`` computes them.  The
+    row indexes ``pack.atlas`` flattened to [I * Hmax * Wmax, 3]."""
+    wh = torch.index_select(pack.atlas_wh, 0, img.long())
+    w, h = wh[:, 0], wh[:, 1]
+    uc = torch.clamp(u, 0.0, 1.0)
+    vc = 1.0 - torch.clamp(v, 0.0, 1.0)
+    xi = torch.minimum(torch.clamp_min((uc * w.to(u.dtype)).to(torch.int32), 0), w - 1)
+    yi = torch.minimum(torch.clamp_min((vc * h.to(u.dtype)).to(torch.int32), 0), h - 1)
+    _, hh, ww, _ = pack.atlas.shape
+    return (img.to(torch.int64) * hh + yi) * ww + xi
+
+
 def evaluate(pack: TexturePack, tex_id, u, v, p: V3, *, has_noise=False,
              has_image=False) -> V3:
     """Texture value for each ray: tex_id [R] integer, u/v [R], p: V3 -> V3.
 
-    Differentiable in the colour tables (the rows are picked by indexing)
-    and in ``p`` through the marble (a checker's parity is piecewise
-    constant).  ``has_noise`` / ``has_image`` are the scene's static flags:
-    a scene without noise textures skips the marble; image textures are
-    still to be ported."""
-    if has_image:
-        raise NotImplementedError(
-            "image textures are not ported yet (ROADMAP.md A16)")
+    Differentiable in the colour tables and the atlas (the rows are picked
+    by indexing) and in ``p`` through the marble (a checker's parity and an
+    image's texel choice are piecewise constant).  ``has_noise`` /
+    ``has_image`` are the scene's static flags: a scene without noise
+    textures skips the marble, one without images the atlas.  The atlas is
+    read through ``core/segsum.take_rows_sorted``: it has half a million
+    rows at 1024x512, whose per-texel sums the backward pass takes in a
+    fixed order."""
     tex_id = tex_id.long()
     kind = take_rows(pack.kind, tex_id)
     inv_scale = take_rows(pack.inv_scale, tex_id)
@@ -223,4 +243,8 @@ def evaluate(pack: TexturePack, tex_id, u, v, p: V3, *, has_noise=False,
     if has_noise:
         m = marble(p, take_rows(pack.noise_scale, tex_id))
         out = V3.select(kind == TEX_NOISE, V3(m, m, m), out)
+    if has_image:
+        texel = image_texels(pack, take_rows(pack.image_id, tex_id), u, v)
+        t = segsum.take_rows_sorted(pack.atlas.reshape(-1, 3), texel)
+        out = V3.select(kind == TEX_IMAGE, V3(t[:, 0], t[:, 1], t[:, 2]), out)
     return out

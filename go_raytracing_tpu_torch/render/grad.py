@@ -54,9 +54,20 @@ Marble textures ride the tier their materials pick: with metal or glass
 point, and the pathwise and fused kernels carry its derivative by the hit
 point (their stash keeps the winner's marble scale, one more row a bounce).
 
-Every other scene (meshes, non-box media, more than 1,024 primitives or 8
-lights, more textures and materials than the pathwise kernel's accumulator
-holds, environments among them) takes the replay tier.  Pass A records each chunk: its radiance and
+A scene inside ``integrator/wavefront.image_prefactor_ok`` (one sphere with
+an image texture and nothing else: the earth scene) takes the image tier.
+Its radiance is A * W exactly: A the image albedo of the camera ray's first
+hit (1 on a miss), W the radiance of the scene with its images made white.
+Pass A runs the product-chain tier's stash-writing forward on the white
+scene and keeps A, W and the first hit's atlas row of each ray beside the
+stash (``ImageCarry``); pass B runs the reverse sweep with the cotangent
+g * A, which gives the white scene's colour gradients, and sums g * W per
+texel (``core/segsum.cols_segment_sum``), which gives the atlas gradient.
+
+Every other scene (meshes, non-box media, image textures outside the image
+tier, more than 1,024 primitives or 8 lights, more textures and materials
+than the pathwise kernel's accumulator holds, environments among them)
+takes the replay tier.  Pass A records each chunk: its radiance and
 its ``Decisions``, the outcome of every sweep (the record kernel of
 ``ops/cuda_wavefront`` for scenes inside the megakernel's gate, the
 standard integrator for the others).  Pass B replays each chunk's record
@@ -68,22 +79,24 @@ B records each chunk again just before its replay.  Replay chunks hold at
 most ``renderer.MAX_CHUNK_RAYS_DIFFERENTIABLE`` rays: autograd keeps a few
 kilobytes a ray.
 
-Not ported yet, each raising ``NotImplementedError``: image textures
-(ROADMAP.md A16) and ``mesh=`` (A19).
+Not ported yet, raising ``NotImplementedError``: ``mesh=`` (ROADMAP.md
+A19).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..camera import Camera
+from ..core.segsum import cols_segment_sum
 from ..core.vec3 import V3
 from ..geometry.scene import Scene
 from ..integrator import wavefront
+from ..materials import textures as tex
 from ..ops import cuda_wavefront as mega
 from ..parallel.sharding import apply_params, trainable_params
 from ..utils.device import resolve_device
@@ -101,10 +114,12 @@ DEC_BUDGET = 6_000_000_000
 
 
 def grad_tier(scene: Scene, max_depth: int) -> str:
-    """The tier ``render_grad`` takes: 'product', 'pathwise', 'fused' or
-    'replay'.  The product tier wins where both two-phase tiers' gates hold:
-    its stash is lighter.  'fused' serves the pathwise gate's scenes that
-    cannot run two-phase (an environment and quad lights)."""
+    """The tier ``render_grad`` takes: 'product', 'pathwise', 'fused',
+    'image' or 'replay'.  The product tier wins where both two-phase tiers'
+    gates hold: its stash is lighter.  'fused' serves the pathwise gate's
+    scenes that cannot run two-phase (an environment and quad lights).
+    'image' serves the scenes of ``wavefront.image_prefactor_ok`` whose
+    white scene the product tier takes; every other image scene replays."""
     if mega.grad_applicable(scene, max_depth):
         return "product"
     if mega.grad_pathwise_applicable(scene, max_depth):
@@ -112,6 +127,9 @@ def grad_tier(scene: Scene, max_depth: int) -> str:
             return "pathwise"
         if mega.grad_fused_applicable(scene, max_depth):
             return "fused"
+    if (wavefront.image_prefactor_ok(scene)
+            and mega.grad_applicable(wavefront._strip_image(scene), max_depth)):
+        return "image"
     return "replay"
 
 
@@ -122,17 +140,19 @@ def dec_bytes_per_ray(scene: Scene, max_depth: int) -> int:
 
 
 def stash_bytes_per_ray(max_depth: int, pathwise: bool = False,
-                        env: bool = False, noise: bool = False) -> int:
+                        env: bool = False, noise: bool = False,
+                        image: bool = False) -> int:
     """Bytes a ray keeps between the passes: the stash rows of every bounce
     (15 in the product tier, 22 in the pathwise tier, 23 there in a scene
     with marble) and the 3 miss colour rows, or under an environment the 19
-    rows of ``EnvCarry``."""
+    rows of ``EnvCarry``; on the image tier 7 more (``ImageCarry``: A 3, W
+    3, the texel row; the JAX package keeps the hit mask as an eighth)."""
     if pathwise:
         f_rows = mega.PW_STASH_F_ROWS_MARBLE if noise else mega.PW_STASH_F_ROWS
         rows = f_rows + mega.PW_STASH_I_ROWS
     else:
         rows = mega.STASH_F_ROWS + mega.STASH_I_ROWS
-    return (max_depth * rows + (19 if env else 3)) * 4
+    return (max_depth * rows + (19 if env else 10 if image else 3)) * 4
 
 
 def fused_bytes_per_ray(max_depth: int, hdri: bool) -> int:
@@ -193,15 +213,57 @@ def _loss_and_cotangent(flat_vs, target, w: int, h: int, spp: int, tiled: bool,
     return loss, g_virt
 
 
+class ImageCarry(NamedTuple):
+    """What a chunk of the image tier keeps between the passes besides the
+    white scene's stash: 7 rows a ray."""
+
+    white: tuple        # the white scene's carry of ``grad_fwd_stash``
+    albedo: torch.Tensor  # [3, R] A: the first hit's texel, 1 on a miss
+    white_rad: torch.Tensor  # [3, R] W: the white scene's radiance
+    texel: torch.Tensor  # [R] i32 the first hit's atlas row, out of range on a miss
+
+
+def _image_fwd(scene: Scene, cam: Camera, o: V3, d: V3, tm, stream, seed):
+    """Pass A of the image tier for one chunk: the white scene through the
+    product-chain tier's gradient forward, times the first hits' texels.
+    Returns (radiance A * W, ``ImageCarry``)."""
+    rad_w, carry_w = mega.grad_fwd_stash(wavefront._strip_image(scene), cam,
+                                         o, d, tm, stream, seed)
+    albedo, texel, hit = wavefront._primary_image_records(scene, o, d, tm)
+    n_texels = scene.textures.atlas.shape[:3].numel()
+    carry = ImageCarry(carry_w, torch.stack(list(albedo)), torch.stack(list(rad_w)),
+                       torch.where(hit, texel, n_texels).to(torch.int32))
+    return albedo * rad_w, carry
+
+
+def _image_rev(scene: Scene, cam: Camera, g3, carry: ImageCarry):
+    """Pass B of the image tier for one chunk.  d<g, A * W> is, by the
+    product rule, the reverse sweep of the white scene with the cotangent
+    g * A (its image rows' colour gradient dropped: the real scene reads the
+    atlas there), and for the atlas the per-texel sums of g * W over the
+    rays whose first hit took that texel."""
+    grads = mega.grad_rev_stash(wavefront._strip_image(scene), cam,
+                                g3 * carry.albedo, carry.white)
+    is_img = scene.textures.kind == tex.TEX_IMAGE
+    grads["color"] = torch.where(is_img[:, None], 0.0, grads["color"])
+    atlas = scene.textures.atlas
+    grads["atlas"] = cols_segment_sum(
+        carry.texel, list(g3 * carry.white_rad), atlas.shape[:3].numel()
+    ).reshape(atlas.shape)
+    return grads
+
+
 def _twophase_fwd(scene: Scene, cam: Camera, ray_start: int, seed, *,
                   spp: int, chunk: int, max_depth: int, keep_stash: bool,
-                  pathwise: bool = False):
+                  pathwise: bool = False, image: bool = False):
     """Pass A for one chunk.  Returns ([n_virt, 3] sums of the chunk's
     radiance per virtual pixel, carry for pass B or None)."""
     cam2, o, d, tm, stream, _, valid = rmod._chunk_rays(
         scene, cam, ray_start, seed, spp=spp, chunk=chunk,
         max_depth=max_depth, device=scene.device)
-    if keep_stash:
+    if keep_stash and image:
+        rad, carry = _image_fwd(scene, cam2, o, d, tm, stream, seed)
+    elif keep_stash:
         rad, carry = mega.grad_fwd_stash(scene, cam2, o, d, tm, stream, seed,
                                          pathwise=pathwise)
     else:
@@ -270,7 +332,8 @@ def _chunk_cotangent(g_virt, ray_start: int, chunk: int, total: int):
 
 def _twophase_rev(scene: Scene, cam: Camera, g_virt, ray_start: int, seed,
                   carry, *, spp: int, chunk: int, max_depth: int,
-                  pathwise: bool = False, fused: bool = False):
+                  pathwise: bool = False, fused: bool = False,
+                  image: bool = False):
     """Pass B for one chunk: the reverse sweep over the chunk's stash.  A
     chunk without one (over budget in pass A) is traced again first, or,
     on the fused tier, run through the fused kernel."""
@@ -286,13 +349,18 @@ def _twophase_rev(scene: Scene, cam: Camera, g_virt, ray_start: int, seed,
             tm.contiguous()
         if fused:
             return mega.grad_megakernel(scene, cam2, o, d, tm, stream, seed, g3)[1]
-        _, carry = mega.grad_fwd_stash(scene, cam2, o, d, tm, stream, seed,
-                                       pathwise=pathwise)
+        if image:
+            _, carry = _image_fwd(scene, cam2, o, d, tm, stream, seed)
+        else:
+            _, carry = mega.grad_fwd_stash(scene, cam2, o, d, tm, stream, seed,
+                                           pathwise=pathwise)
     elif pathwise:
         # the stream ids of _chunk_rays, without its rays
         stream = torch.clamp_max(
             ray_start + torch.arange(chunk, dtype=torch.int64,
                                      device=scene.device), total - 1)
+    if image:
+        return _image_rev(scene, cam2, g3, carry)
     return mega.grad_rev_stash(scene, cam2, g3, carry, pathwise=pathwise,
                                stream=stream, seed=seed)
 
@@ -314,8 +382,11 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
     A scene without metal and glass goes through the product-chain kernels
     (``fuzz``, ``ior`` and ``atlas`` are then zero by structure), one with
     them through the pathwise kernels (``atlas`` zero), one with an
-    environment and quad lights through the fused kernel, any other through
-    the replay tier (``grad_tier``).  A scene with an environment also has
+    environment and quad lights through the fused kernel, a sphere with an
+    image texture alone (the earth scene) through the image tier (the
+    product-chain kernels on the white scene, and the atlas gradient by
+    per-texel sums), any other through the replay tier (``grad_tier``),
+    image textures among them.  A scene with an environment also has
     ``env_data``, the gradient of its texels.
 
     ``device=None`` means "cuda" (a machine without one raises); the scene
@@ -339,7 +410,6 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
     max_depth = cam.max_depth if max_depth is None else max_depth
     tier = grad_tier(scene, max_depth)
     if tier == "replay":
-        wavefront._check_standard(scene)   # image textures
         return _render_grad_replay(scene, cam, target, spp=spp,
                                    max_depth=max_depth, seed=seed, chunk=chunk,
                                    stats=stats, dec_budget=dec_budget)
@@ -353,11 +423,12 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
     # pass A renders, pass B runs the fused kernel
     fused = tier == "fused"
     pathwise = tier in ("pathwise", "fused")
+    image = tier == "image"
     w, h = cam.image_width, cam.image_height
     tiled = rmod.scene_tiled(scene)
     per_ray = (fused_bytes_per_ray(max_depth, mega.uses_hdri_nee(scene)) if fused
                else stash_bytes_per_ray(max_depth, pathwise, scene.env is not None,
-                                        scene.has_noise))
+                                        scene.has_noise, image))
     largest = rmod.pick_chunk_size(scene)
     if scene.env is not None and chunk is None:
         # an environment chunk pays large fixed costs (the per-texel sums):
@@ -368,7 +439,8 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
 
     _sync(dev)
     t0 = time.perf_counter()
-    args = dict(spp=spp, chunk=kchunk, max_depth=max_depth, pathwise=pathwise)
+    args = dict(spp=spp, chunk=kchunk, max_depth=max_depth, pathwise=pathwise,
+                image=image)
 
     # ---- pass A: framebuffer, and the stashes of the first n_stash chunks
     flat_vs = torch.zeros((n_virt, 3), dtype=torch.float32, device=dev)

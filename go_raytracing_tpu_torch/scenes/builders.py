@@ -2,9 +2,9 @@
 
 Every constructor takes ``device`` (``None`` means "cuda") and returns
 ``(Scene, Camera)``.  The random sphere field in ``random_scene`` uses a
-seeded NumPy generator, so its layout is deterministic.  A scene that needs
-a feature the port does not have yet (``earth``: image textures) raises
-``NotImplementedError`` naming the ROADMAP.md item it waits for.
+seeded NumPy generator, so its layout is deterministic.  A scene whose
+asset is not in the repository (``earth``'s ``earthmap.jpg``, ``hdri-test``'s
+environment map) raises ``FileNotFoundError``, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -108,9 +108,22 @@ def simple_scene(device=None):
     return b.build(device=device), cam
 
 
-def earth_scene(device=None, **kwargs):
-    raise NotImplementedError(
-        "scene not ported yet: it needs image textures (ROADMAP.md A16)")
+# rt/scenes.go:210-241
+def earth_scene(device=None, image="earthmap.jpg"):
+    """A sphere of radius 2 under the sky gradient, textured by ``image``
+    (a path found by ``io/assets.find_asset``, or an [H, W, 3] array)."""
+    b = SceneBuilder()
+    earth = b.lambertian(b.image(image))
+    b.sphere((0, 0, 0), 2, earth)
+    cam = (
+        _camera()
+        .set_resolution(800, 16.0 / 9.0)
+        .set_quality(100, 50)
+        .set_position((0, 0, 12), (0, 0, 0), (0, 1, 0))
+        .set_lens(20, 0, 10)
+        .enable_sky_gradient(True)
+    )
+    return b.build(device=device), cam
 
 
 # rt/scenes.go:242-273

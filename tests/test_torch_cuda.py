@@ -24,13 +24,15 @@ from go_raytracing_tpu_torch.ops import cuda_intersect as ck
 from go_raytracing_tpu_torch.ops import cuda_mesh as cm
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
 from go_raytracing_tpu_torch.utils import stream_micro as sm
-from test_torch_helpers import (CULL_CASES, ENV_NEE_CAM, FOG_ROOM_CAM, LUCY_CAM,
-                                MANY_TEXTURES_CAM, MARBLE_CAM, MINI_HDRI_CAM, MIXED_CAM,
-                                NOISE_GLOSSY_CAM, build_env_nee, build_fog_room, build_lucy,
-                                build_many_textures, build_marble, build_mini_hdri,
-                                build_mixed, build_noise_glossy, build_random_prims,
-                                build_sphere_cloud, cull_case, lengths_in_turn, lucy_instances,
-                                marble_lane_stash, mesh_rays, mini_env, random_rays)
+from test_torch_helpers import (CORNELL_IMAGE_CAM, CULL_CASES, ENV_NEE_CAM, FOG_ROOM_CAM,
+                                IMAGE_SPHERE_CAM, LUCY_CAM, MANY_TEXTURES_CAM, MARBLE_CAM,
+                                MINI_HDRI_CAM, MIXED_CAM, NOISE_GLOSSY_CAM,
+                                build_cornell_image, build_env_nee, build_fog_room,
+                                build_image_sphere, build_lucy, build_many_textures,
+                                build_marble, build_mini_hdri, build_mixed, build_noise_glossy,
+                                build_random_prims, build_sphere_cloud, cull_case,
+                                lengths_in_turn, lucy_instances, marble_lane_stash, mesh_rays,
+                                mini_env, random_rays, seeded_atlas)
 
 
 def _rays(cam, n, seed, device):
@@ -2053,3 +2055,147 @@ def test_cuda_b5a_and_b4_warps_of_all_one_and_no_marble_lanes(fused):
     first = ((mk[0] & cw.PW_MARBLE) != 0).reshape(3, 32).sum(dim=1).tolist()
     assert first == [32, 1, 0]
     assert bool(((mk[0, 64:] & cw.PW_LIT) != 0).all()) and not bool(mk[1:, 64:].any())
+
+
+# -----------------------------------------------------------------------------
+# Image textures: the 'image' route, the image tier, the replay tier
+# -----------------------------------------------------------------------------
+
+def _image_sphere(device, atlas=None, **cam_fields):
+    atlas = seeded_atlas(32, 64, seed=3) if atlas is None else atlas
+    return (build_image_sphere(grtt, atlas, device=device),
+            tcamera.Camera(**{**IMAGE_SPHERE_CAM, **cam_fields}))
+
+
+@pytest.mark.cuda
+def test_cuda_image_route_matches_the_plain_route_on_the_cpu():
+    """On a GPU: the 'image' route launches the forward kernel once a chunk
+    on the white scene and the sphere closest-hit kernel for the camera
+    rays' texels, and its picture is the CPU's plain route's: under 0.5 % of
+    pixels outside rtol 1e-3 / atol 2e-3.  It equals the card's standard
+    integrator's picture to the same gate."""
+    if not torch.cuda.is_available():
+        pytest.skip(_NO_CARD)
+    scene, cam = _image_sphere("cuda", image_width=64, samples_per_pixel=4, max_depth=10)
+    assert wavefront.choose_mega_mode(scene, cam, 64 * 64 * 4, False) == "image"
+    stats = grtt.RenderStats()
+    b1, sph = cw.LAUNCHES, ck.LAUNCHES_SPHERE
+    img = grtt.render(scene, cam, seed=2, stats=stats)
+    torch.cuda.synchronize()
+    assert cw.LAUNCHES - b1 == stats.chunks and ck.LAUNCHES_SPHERE - sph == stats.chunks
+    cpu, _ = _image_sphere("cpu")
+    ref = grtt.render(cpu, cam, seed=2, device="cpu")
+    std = grtt.render(scene, cam, seed=2, mega_mode="off")
+    for other in (ref, std.cpu()):
+        bad = ~torch.isclose(img.cpu(), other, rtol=1e-3, atol=2e-3).all(dim=-1)
+        assert float(bad.float().mean()) < 0.005
+    assert float(img.mean()) > 0.05
+
+
+@pytest.mark.cuda
+def test_cuda_image_tier_matches_the_plain_path_with_the_same_bits():
+    """On a GPU: ``render_grad`` on the image tier launches the product-chain
+    kernels on the white scene once a chunk each and the per-texel sums;
+    loss to rtol 1e-5 and every gradient within 2e-3 of its largest entry of
+    the same call on the CPU; two calls give the same bits; the over-budget
+    route (``stash_budget=0``) the same loss and gradients (rtol 1e-5)."""
+    if not torch.cuda.is_available():
+        pytest.skip(_NO_CARD)
+    from go_raytracing_tpu_torch.ops import cuda_rows
+    from go_raytracing_tpu_torch.render import grad as tgrad
+
+    scene, cam = _image_sphere("cuda", image_width=48, samples_per_pixel=4, max_depth=5)
+    cpu, _ = _image_sphere("cpu")
+    assert tgrad.grad_tier(scene, cam.max_depth) == "image"
+    target = grtt.render(cpu, cam, seed=9, device="cpu") / 4 * 0.8
+    stats = grtt.RenderStats()
+    before = (cw.LAUNCHES_GRAD_FWD, cw.LAUNCHES_GRAD_REV, cuda_rows.LAUNCHES_SEGMENT_SUMS)
+    loss, g = grtt.render_grad(scene, cam, target.cuda(), seed=0, stats=stats)
+    after = (cw.LAUNCHES_GRAD_FWD, cw.LAUNCHES_GRAD_REV, cuda_rows.LAUNCHES_SEGMENT_SUMS)
+    assert [a - b for a, b in zip(after, before)] == [stats.chunks] * 3
+    ref_loss, ref = grtt.render_grad(cpu, cam, target, seed=0, device="cpu")
+    assert abs(float(loss) - float(ref_loss)) <= 1e-5 * float(ref_loss)
+    for k in ref:
+        big = max(float(ref[k].abs().max()), 1e-12)
+        assert float((g[k].cpu() - ref[k]).abs().max()) <= 2e-3 * big, k
+    assert float(g["atlas"].abs().max()) > 0
+    loss2, g2 = grtt.render_grad(scene, cam, target.cuda(), seed=0)
+    assert float(loss2) == float(loss) and all(torch.equal(g[k], g2[k]) for k in g)
+    loss0, g0 = grtt.render_grad(scene, cam, target.cuda(), seed=0, stash_budget=0)
+    assert abs(float(loss0) - float(loss)) <= 1e-5 * float(loss)
+    for k in g:
+        torch.testing.assert_close(g0[k], g[k], rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_cuda_image_replay_and_autograd_reach_the_atlas_with_the_same_bits():
+    """On a GPU: the Cornell box with a picture on its back wall (outside
+    the image tier) through the replay tier twice (the same bits) and
+    through ``render(differentiable=True)`` + ``backward`` twice (the same
+    bits), each against the CPU's replay within 2e-3 of the largest
+    entry."""
+    if not torch.cuda.is_available():
+        pytest.skip(_NO_CARD)
+    atlas = seeded_atlas(24, 40, seed=8)
+    scene = build_cornell_image(grtt, atlas, device="cuda")
+    cpu = build_cornell_image(grtt, atlas, device="cpu")
+    cam = tcamera.Camera(**{**CORNELL_IMAGE_CAM, "image_width": 32})
+    target = torch.full((32, 32, 3), 0.3)
+    (l1, g1), (l2, g2) = (grtt.render_grad(scene, cam, target.cuda(), seed=1)
+                          for _ in range(2))
+    assert float(l1) == float(l2) and torch.equal(g1["atlas"], g2["atlas"])
+
+    def autograd():
+        params = {k: v.clone().requires_grad_()
+                  for k, v in grtt.trainable_params(scene).items()}
+        fb = grtt.render(grtt.apply_params(scene, params), cam, seed=1, differentiable=True)
+        torch.mean((fb / 2 - target.cuda()) ** 2).backward()
+        return params["atlas"].grad
+
+    a1, a2 = autograd(), autograd()
+    assert torch.equal(a1, a2)
+    ref_loss, ref = grtt.render_grad(cpu, cam, target, seed=1, device="cpu")
+    big = float(ref["atlas"].abs().max())
+    assert big > 0 and abs(float(l1) - float(ref_loss)) <= 1e-4 * float(ref_loss)
+    for got in (g1["atlas"], a1):
+        assert float((got.cpu() - ref["atlas"]).abs().max()) <= 2e-3 * big
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one-texel", "odd-sizes", "two-images-padded"])
+def test_cuda_image_texels_at_atlas_edges(case):
+    """On a GPU: ``textures.evaluate`` reads the CPU's texels exactly for an
+    atlas of one texel, of odd sizes, and of two images of different sizes
+    padded in one atlas, at u and v across and outside [0, 1]; a render of
+    a scene with them matches the CPU's picture."""
+    if not torch.cuda.is_available():
+        pytest.skip(_NO_CARD)
+    from go_raytracing_tpu_torch.materials import textures as ttex
+
+    images = {"one-texel": [seeded_atlas(1, 1, seed=1)],
+              "odd-sizes": [seeded_atlas(7, 13, seed=2)],
+              "two-images-padded": [seeded_atlas(5, 9, seed=3), seeded_atlas(11, 3, seed=4)]}[case]
+
+    def build(device):
+        b = grtt.SceneBuilder()
+        for j, im in enumerate(images):
+            b.sphere((2.2 * j - 1.1 * (len(images) - 1), 0, 0), 1.0,
+                     b.lambertian(b.image(im)))
+        return b.build(device=device)
+
+    scene, cpu = build("cuda"), build("cpu")
+    n = 20000
+    gen = torch.Generator().manual_seed(5)
+    tex_id = torch.randint(0, cpu.textures.kind.shape[0], (n,), generator=gen)
+    u, v = (torch.rand((2, n), generator=gen) * 1.4 - 0.2).unbind(0)
+    p = V3(*torch.rand((3, n), generator=gen))
+    ref = ttex.evaluate(cpu.textures, tex_id, u, v, p, has_image=True)
+    got = ttex.evaluate(scene.textures, tex_id.cuda(), u.cuda(), v.cuda(),
+                        V3(*(c.cuda() for c in p)), has_image=True)
+    for c in range(3):
+        assert torch.equal(got[c].cpu(), ref[c])
+    cam = tcamera.Camera(**{**IMAGE_SPHERE_CAM, "image_width": 32, "samples_per_pixel": 2})
+    img = grtt.render(scene, cam, seed=3)
+    ref_img = grtt.render(cpu, cam, seed=3, device="cpu")
+    bad = ~torch.isclose(img.cpu(), ref_img, rtol=1e-3, atol=2e-3).all(dim=-1)
+    assert float(bad.float().mean()) < 0.005

@@ -154,13 +154,16 @@ def test_render_grad_descends():
 
 def test_render_grad_raises_outside_the_ported_tier():
     # metal and dielectric are inside the pathwise tier, marble textures in
-    # the product and replay tiers (tests/test_torch_noise_grad.py); an image
-    # texture is outside every tier
+    # the product and replay tiers (tests/test_torch_noise_grad.py); image
+    # textures in the image and replay tiers (tests/test_torch_image_*.py):
+    # a scene that claims one takes the replay tier, and holding none, has
+    # no atlas gradient
     imaged = dataclasses.replace(build_mixed(grtt, device="cpu"), has_image=True)
     scene, cam = _sky(spp=1)
     target = torch.zeros((16, 16, 3))
-    with pytest.raises(NotImplementedError, match="A16"):
-        grtt.render_grad(imaged, cam, target, device="cpu")
+    assert tgrad.grad_tier(imaged, cam.max_depth) == "replay"
+    loss, grads = grtt.render_grad(imaged, cam, target, device="cpu")
+    assert np.isfinite(float(loss)) and not grads["atlas"].any()
     with pytest.raises(NotImplementedError, match="A19"):
         grtt.render_grad(scene, cam, target, device="cpu", mesh=object())
     if not torch.cuda.is_available():

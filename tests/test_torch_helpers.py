@@ -337,6 +337,60 @@ MANY_TEXTURES_CAM = dict(
 )
 
 
+def seeded_atlas(h, w, seed=0):
+    """An [h, w, 3] image texture of uniform texels in [0.1, 0.9] from a
+    numpy seed (the earth scene's ``earthmap.jpg`` is not in the
+    repository)."""
+    return np.random.default_rng(seed).uniform(0.1, 0.9, (h, w, 3)).astype(np.float32)
+
+
+def build_image_sphere(pkg, image, **build_kwargs):
+    """The image-tier scene of tests/test_grad_render.py: one lambertian
+    sphere of radius 2 at the origin textured by ``image``, nothing else
+    (``integrator/wavefront.image_prefactor_ok`` holds), as the earth
+    scene."""
+    b = pkg.SceneBuilder()
+    b.sphere((0, 0, 0), 2.0, b.lambertian(b.image(image)))
+    return b.build(**build_kwargs)
+
+
+IMAGE_SPHERE_CAM = dict(
+    image_width=12, aspect_ratio=1.0, samples_per_pixel=4, max_depth=3,
+    look_from=(0, 0, 8), look_at=(0, 0, 0), vfov=40.0, use_sky_gradient=True,
+)
+
+
+def build_cornell_image(pkg, image, **build_kwargs):
+    """The Cornell box (``scenes/builders.cornell_box_scene``) with a
+    picture on its back wall: a lambertian quad textured by ``image``, in
+    front of the wall and above the tall box.  Outside the megakernel's
+    gate and the image tier's: the standard integrator renders it and the
+    replay tier takes its gradients."""
+    b = pkg.SceneBuilder()
+    white = b.lambertian((0.73, 0.73, 0.73))
+    red = b.lambertian((0.65, 0.05, 0.05))
+    green = b.lambertian((0.12, 0.45, 0.15))
+    b.add_light(b.quad((213, 554, 227), (130, 0, 0), (0, 0, 105), b.diffuse_light((3, 3, 3))))
+    b.quad((555, 0, 0), (0, 555, 0), (0, 0, 555), green)
+    b.quad((0, 0, 0), (0, 555, 0), (0, 0, 555), red)
+    b.quad((0, 0, 0), (555, 0, 0), (0, 0, 555), white)
+    b.quad((555, 555, 555), (-555, 0, 0), (0, 0, -555), white)
+    b.quad((0, 0, 555), (555, 0, 0), (0, 555, 0), white)
+    b.box((0, 0, 0), (165, 330, 165), white,
+          pkg.Affine.trs(rotation_deg=(0, 15, 0), position=(265, 0, 295)))
+    b.box((0, 0, 0), (165, 165, 165), white,
+          pkg.Affine.trs(rotation_deg=(0, -18, 0), position=(130, 0, 65)))
+    b.quad((455, 345, 554), (-355, 0, 0), (0, 180, 0), b.lambertian(b.image(image)))
+    return b.build(**build_kwargs)
+
+
+CORNELL_IMAGE_CAM = dict(
+    image_width=24, aspect_ratio=1.0, samples_per_pixel=2, max_depth=3,
+    look_from=(278, 278, -800), look_at=(278, 278, 0), vfov=40.0,
+    background=(0.0, 0.0, 0.0), use_sky_gradient=False,
+)
+
+
 def lengths_in_turn(length, depth):
     """Indices that set rays in turns of path length 1, 2, ..., ``depth``, 1,
     2, ... (``length``: [R] the bounces each ray enters), as long as every

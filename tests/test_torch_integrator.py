@@ -207,6 +207,37 @@ def _env_traced(ts, r):
                                torch.stack(list(b)).numpy(), rtol=1e-4, atol=1e-5)
 
 
+def _image_mode_traced(ts, r):
+    """'image' traces a sphere with an image texture alone to the standard
+    integrator's radiance, and refuses a scene outside
+    ``image_prefactor_ok`` (quads)."""
+    cam, o, d, tm, ids, seed = r
+    b = grtt.SceneBuilder()
+    b.sphere((0, 0, 0), 2.0, b.lambertian(b.image(np.full((2, 4, 3), 0.5, np.float32))))
+    ball = b.build(device="cpu")
+    eye = V3(*(torch.full_like(tm, v) for v in (0.0, 0.0, 8.0)))
+    at = V3(d.x * 0.2, d.y * 0.2, torch.full_like(tm, -1.0))
+    a = twf.trace(ball, cam, eye, at, tm, ids, seed, mega_mode="image")
+    b = twf.trace(ball, cam, eye, at, tm, ids, seed, mega_mode="off")
+    np.testing.assert_allclose(torch.stack(list(a)).numpy(),
+                               torch.stack(list(b)).numpy(), rtol=1e-4, atol=1e-5)
+    with pytest.raises(ValueError, match="image_prefactor_ok"):
+        twf.trace(ts, *r, mega_mode="image")
+
+
+def _image_quad_traced(ts, r):
+    """A quad with an image texture takes the standard integrator, which
+    reads the atlas, and records its decisions for the replay."""
+    b = grtt.SceneBuilder()
+    b.quad((-50, -50, -1), (100, 0, 0), (0, 100, 0), b.lambertian(b.image(
+        np.random.default_rng(0).uniform(0, 1, (3, 5, 3)).astype(np.float32))))
+    pic = b.build(device="cpu")
+    assert twf.choose_mega_mode(pic, r[0], 16, False) == "off"
+    rad, dec = twf.trace(pic, *r, record=True)
+    assert torch.equal(rad.rows(), twf.trace(pic, *r).rows())
+    assert bool((dec.which[0] == twf.HIT_PLANAR).any())
+
+
 def _hdri_light_sampled(ts, r):
     """``sample_hdri_light`` returns a contribution, a zero overflow and
     the shadow outcome (given a recorded one, no shadow ray is traced)."""
@@ -228,8 +259,9 @@ def _hdri_light_sampled(ts, r):
 @pytest.mark.parametrize("call, item", [
     (_recorded, "A18"),
     (_replayed, "A18"),
-    (lambda ts, r: twf.trace(ts, *r, mega_mode="image"), "A16"),
-    (lambda ts, r: twf.trace(dataclasses.replace(ts, has_image=True), *r), "A16"),
+    # image textures are ported: the 'image' mode, and the standard integrator
+    (lambda ts, r: _image_mode_traced(ts, r), "A16"),
+    (lambda ts, r: _image_quad_traced(ts, r), "A16"),
     # meshes render, and the standard integrator records their decisions
     (_mesh_recorded, "A18"),
     # environments are ported: the miss shader, and NEE toward the HDRI
@@ -238,12 +270,12 @@ def _hdri_light_sampled(ts, r):
 ])
 def test_what_remains_names_its_roadmap_item(call, item):
     """Each part still to port raises and names its ROADMAP item; the replay
-    tier's calls (A18) and environments (A15) are ported and run their own
-    checks."""
+    tier's calls (A18), environments (A15) and image textures (A16) are
+    ported and run their own checks."""
     ts, cam = grtt.load_scene("quads", device="cpu")
     cam = dataclasses.replace(cam, image_width=8, max_depth=2)
     o, d, tm, ids = _rays(cam, 16, 0)
-    if item in ("A18", "A15"):
+    if item in ("A18", "A15", "A16"):
         call(ts, (cam, o, d, tm, ids, 0))
     else:
         with pytest.raises(NotImplementedError, match=item):

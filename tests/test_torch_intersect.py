@@ -423,8 +423,13 @@ def test_brdf_pdf_emitted_and_evaluate_match_jax(shading):
 
 @pytest.mark.parametrize("flag, item", [("has_image", "A16")])
 def test_evaluate_names_the_roadmap_item(shading, flag, item):
+    """Image textures are ported (A16): with the flag set on a scene that
+    holds no image, ``evaluate`` reads the values it reads without it."""
     ts = shading["ts"]
-    z = torch.zeros(3)
-    with pytest.raises(NotImplementedError, match=item):
-        ttex.evaluate(ts.textures, torch.zeros(3, dtype=torch.int32), z, z,
-                      V3(z, z, z), **{flag: True})
+    n = ts.textures.kind.shape[0]
+    tex_id = torch.arange(n, dtype=torch.int32)
+    uv = torch.linspace(0.0, 1.0, n)
+    p = V3(uv, 1.0 - uv, uv * 0.5)
+    with_flag = ttex.evaluate(ts.textures, tex_id, uv, uv, p, **{flag: True})
+    without = ttex.evaluate(ts.textures, tex_id, uv, uv, p)
+    assert all(torch.equal(a, b) for a, b in zip(with_flag, without))

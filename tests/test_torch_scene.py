@@ -27,7 +27,7 @@ PORTED = ["cornell", "cornell-smoke", "cornell-glossy", "simple", "quads",
           "perlin"]
 # what loading the scene raises, and the message names: a ROADMAP item, or
 # (hdri-test) the missing asset, as the JAX package's builder raises it
-NOT_PORTED = {"earth": (NotImplementedError, "A16"),
+NOT_PORTED = {"earth": (FileNotFoundError, "earthmap.jpg"),
               "hdri-test": (FileNotFoundError, "abandoned_hall_01_1k.hdr")}
 
 
@@ -128,11 +128,10 @@ def test_not_ported_scene_names_roadmap_item(name):
 def test_builder_gaps_and_errors():
     b = SceneBuilder()
     m = b.lambertian((0.5, 0.5, 0.5))
-    for call, item in [
-        (lambda: b.image(np.zeros((2, 2, 3))), "A16"),
-    ]:
-        with pytest.raises(NotImplementedError, match=item):
-            call()
+    # image textures are ported (A16): an array, or a path that must exist
+    assert b.image(np.zeros((2, 2, 3))) == len(b._tex) - 1
+    with pytest.raises(FileNotFoundError, match="not-there.jpg"):
+        b.image("not-there.jpg")
     # marble textures are ported (A13): a texture id like any other
     assert b.noise(4.0) == len(b._tex) - 1
     # environments are ported (A15): an array, or a path that must exist
