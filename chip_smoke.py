@@ -4633,6 +4633,204 @@ def brute_routes(regs, dev):
     return out
 
 
+# -----------------------------------------------------------------------------
+# The sharded paths (ROADMAP A19): torch.distributed at world size 1 (NCCL)
+# and two ranks on the one card (gloo on CUDA tensors: NCCL refuses two ranks
+# on one GPU)
+# -----------------------------------------------------------------------------
+
+# bytes each rank's stashes may take: two ranks share the card, and each
+# would otherwise take half of what is free when it is called
+SHARD_STASH_BUDGET = 4 << 30
+# render_grad on two ranks against one process: the CPU tests' tolerances
+# (the JAX package's own, tests/test_sharding.py)
+SHARD_LOSS_RTOL = 1e-5
+SHARD_GRAD_TOL = dict(rtol=2e-4, atol=1e-9)
+SHARD_TIMEOUT_S = 300.0
+
+
+def full_cornell_cam(cam0):
+    return dataclasses.replace(cam0, image_width=600, aspect_ratio=600 / 338,
+                               samples_per_pixel=100, max_depth=5)
+
+
+def sharded_world1(dev, name_and_limit):
+    """One process in an NCCL group of one (rendezvous over tcp://127.0.0.1
+    on a free port): ``render_sharded`` and ``render_grad(mesh=...)`` of the
+    Cornell job at full size must give ``render``'s and ``render_grad``'s
+    bits; the times of both, each beside the single-device call's."""
+    from go_raytracing_tpu_torch.parallel import launch, multihost, sharding
+    import torch.distributed as dist
+
+    scene, cam0 = grt.load_scene("cornell", device=dev)
+    cam = full_cornell_cam(cam0)
+    spp = cam.samples_per_pixel
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    multihost.initialize(f"127.0.0.1:{launch.free_port()}", 1, 0, device=dev)
+    try:
+        mesh = sharding.make_mesh(device=dev)
+        if mesh.group is None or dist.get_backend() != backend or mesh.size != 1:
+            raise RuntimeError(f"sharded_world1: mesh {mesh}, backend {dist.get_backend()}")
+        sharding.render_sharded(scene, cam, mesh, 0, spp=spp)  # warm-up
+        single_ms, fb = cuda_ms(lambda: grt.render(scene, cam, seed=0, device=dev))
+        cw.LAUNCHES = 0
+        sharded_ms, fb_mesh = cuda_ms(lambda: sharding.render_sharded(scene, cam, mesh, 0,
+                                                                      spp=spp))
+        launches = cw.LAUNCHES
+        target = fb / spp * 0.8
+        kw = dict(seed=0, stash_budget=SHARD_STASH_BUDGET, device=dev)
+        gradmod.render_grad(scene, cam, target, mesh=mesh, **kw)  # warm-up
+        grad_ms, (loss, grads) = cuda_ms(lambda: gradmod.render_grad(scene, cam, target, **kw))
+        cw.LAUNCHES_GRAD_FWD = cw.LAUNCHES_GRAD_REV = 0
+        grad_mesh_ms, (loss_m, grads_m) = cuda_ms(
+            lambda: gradmod.render_grad(scene, cam, target, mesh=mesh, **kw))
+        grad_launches = cw.LAUNCHES_GRAD_FWD, cw.LAUNCHES_GRAD_REV
+    finally:
+        dist.destroy_process_group()
+    render_bits = torch.equal(fb, fb_mesh)
+    grad_bits = torch.equal(loss, loss_m) and all(torch.equal(grads[k], grads_m[k])
+                                                  for k in grads)
+    emit("sharded_world1", nvidia_smi=name_and_limit, backend=backend, world_size=1,
+         scene="cornell", width=cam.image_width, height=cam.image_height, spp=spp,
+         depth=cam.max_depth, render_ms=single_ms, render_sharded_ms=sharded_ms,
+         render_grad_ms=grad_ms, render_grad_mesh_ms=grad_mesh_ms,
+         launches_wavefront_fwd=launches, launches_grad_fwd_rev=list(grad_launches),
+         render_bits_equal=render_bits, render_grad_bits_equal=grad_bits)
+    if not (render_bits and grad_bits):
+        raise RuntimeError("sharded_world1: the NCCL mesh of one rank changed the bits")
+    if launches < 1 or min(grad_launches) < 1:
+        raise RuntimeError(f"sharded_world1: launches {launches}, {grad_launches}")
+
+
+def hdri_nee_scene(device, env, width=800, spp=4, depth=10):
+    """``hdri-test-nee`` (``hdri_scene`` with its quad light) under ``env``,
+    as a rank builds it."""
+    scene, cam = hdri_scene(device, True, env)
+    return scene, dataclasses.replace(cam, image_width=width, samples_per_pixel=spp,
+                                      max_depth=depth)
+
+
+def sharded_two_rank_cases(sky, atlas):
+    """(name, op, scene spec, camera fields, kernel counters that must count
+    on every rank, ``render_grad`` keyword arguments)."""
+    load = builders.load_scene
+    full = dict(image_width=600, aspect_ratio=600 / 338, samples_per_pixel=100, max_depth=5)
+    small = dict(image_width=600, aspect_ratio=1.0, samples_per_pixel=8, max_depth=5)
+    cw_ = "cuda_wavefront."
+    return [
+        ("render_sharded_cornell", "render_sharded", (load, dict(name="cornell")), full,
+         [cw_ + "LAUNCHES"]),
+        ("product_cornell", "render_grad", (load, dict(name="cornell")), full,
+         [cw_ + "LAUNCHES_GRAD_FWD", cw_ + "LAUNCHES_GRAD_REV"]),
+        ("pathwise_cornell_glossy", "render_grad", (load, dict(name="cornell-glossy")), small,
+         [cw_ + "LAUNCHES_GRAD_FWD_PATHWISE", cw_ + "LAUNCHES_GRAD_REV_PATHWISE"]),
+        ("fused_hdri_test_nee", "render_grad", (hdri_nee_scene, dict(env=sky)), None,
+         [cw_ + "LAUNCHES", cw_ + "LAUNCHES_GRAD_FUSED"]),
+        ("image_earth", "render_grad", (load, dict(name="earth", image=atlas)),
+         dict(image_width=400, samples_per_pixel=8, max_depth=10),
+         [cw_ + "LAUNCHES_GRAD_FWD", cw_ + "LAUNCHES_GRAD_REV"]),
+        ("replay_cornell_lucy", "render_grad",
+         (load, dict(name="cornell-lucy", mesh_detail=(48, 40))),
+         dict(image_width=600, aspect_ratio=1.0, samples_per_pixel=2, max_depth=5),
+         ["cuda_mesh.LAUNCHES_SWEEP", "cuda_intersect.LAUNCHES_PLANAR"]),
+        ("train_step_cornell", "train_step", (load, dict(name="cornell")),
+         dict(full, samples_per_pixel=2),
+         # autograd's gather route: the closest hit alone, then the records in torch
+         ["cuda_intersect.LAUNCHES_PLANAR", "cuda_rows.LAUNCHES_ROW_SUMS"]),
+    ]
+
+
+def sharded_two_ranks(dev, name_and_limit):
+    """Two processes on the one card, joined by gloo over CUDA tensors
+    (``parallel/launch.run_ranks``; the kernels were built in this process,
+    so the ranks load them): ``render_sharded`` of the Cornell job at full
+    size within 1e-5 of this process's render, ``render_grad(mesh=...)`` on
+    one scene a tier within the CPU tests' tolerances of this process's call,
+    and ``train_step``.  Each rank's launches of the kernels its calls must
+    run are printed and must be > 0; every rank must return the same bits.
+    A rank that fails or a collective that hangs past the limit fails the
+    phase."""
+    from go_raytracing_tpu_torch.parallel import launch, sharding
+
+    sky, atlas = synthetic_sky()[0], synthetic_atlas()
+    table = sharded_two_rank_cases(sky, atlas)
+    cases, refs = [], {}
+    t0 = time.perf_counter()
+    for name, op, (builder, kwargs), cam_fields, _ in table:
+        scene, cam = builder(device=dev, **kwargs)
+        cam = cam if cam_fields is None else dataclasses.replace(cam, **cam_fields)
+        spp = cam.samples_per_pixel
+        fb = grt.render(scene, cam, seed=0, device=dev)
+        kw = dict(spp=spp, seed=0)
+        if op == "render_grad":
+            target = (fb / spp * 0.8).cpu().numpy()
+            kw = dict(seed=0, target=target, stash_budget=SHARD_STASH_BUDGET)
+            refs[name] = gradmod.render_grad(scene, cam, target, seed=0, device=dev,
+                                             stash_budget=SHARD_STASH_BUDGET)
+        elif op == "train_step":
+            kw = dict(spp=spp, seed=0, lr=0.05, target=np.zeros(tuple(fb.shape), np.float32))
+            refs[name] = sharding.train_step(scene, cam, sharding.make_mesh(device=dev),
+                                             kw["target"], 0, 0.05, spp=spp)[1]
+        else:
+            refs[name] = fb / spp
+        cases.append((op, (builder, kwargs), cam_fields, kw, 1))
+        del scene
+    ref_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = launch.run_ranks(launch.run_cases, 2, (cases, dev.type), device=dev.type,
+                             backend="gloo", timeout=SHARD_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    report, failed = {}, []
+    for i, (name, op, _, _, counters) in enumerate(table):
+        runs = [r[i][0] for r in ranks]
+        out = [run["out"] for run in runs]
+        same_bits = all(_same_bits(o, out[0]) for o in out[1:])
+        if op == "render_grad":
+            loss, grads = out[0]
+            ref_loss, ref_grads = refs[name]
+            ok = np.allclose(float(loss), float(ref_loss), rtol=SHARD_LOSS_RTOL, atol=0.0)
+            err = {}
+            for k, v in ref_grads.items():
+                v = v.cpu().numpy()
+                ok = ok and np.allclose(grads[k], v, **SHARD_GRAD_TOL)
+                err[k] = float(np.abs(grads[k] - v).max() / max(np.abs(v).max(), 1e-30))
+            detail = dict(loss=float(loss), loss_one_process=float(ref_loss),
+                          grad_err_of_largest=err)
+        elif op == "train_step":
+            losses, _ = out[0]
+            ok = np.allclose(float(losses[0]), float(refs[name]), rtol=1e-5, atol=0.0)
+            detail = dict(loss=float(losses[0]), loss_one_process=float(refs[name]))
+        else:
+            ref = refs[name].cpu().numpy()
+            got = out[0] / cases[i][3]["spp"]
+            ok = np.allclose(got, ref, rtol=1e-5, atol=1e-5)
+            detail = dict(max_abs_err_per_sample=float(np.abs(got - ref).max()))
+        launches = [run["launches"] for run in runs]
+        counted = all(ln.get(c, 0) > 0 for ln in launches for c in counters)
+        report[name] = dict(op=op, agrees=bool(ok), same_bits_on_both_ranks=same_bits,
+                            seconds_per_rank=[run["seconds"] for run in runs],
+                            launches_per_rank=launches, **detail)
+        if not (ok and same_bits and counted):
+            failed.append(name)
+    emit("sharded_two_ranks", nvidia_smi=name_and_limit, backend="gloo", world_size=2,
+         device=f"{dev} on both ranks", one_process_reference_s=ref_s,
+         ranks_wall_s_with_spawn=wall, cases=report)
+    if failed:
+        raise RuntimeError(f"sharded_two_ranks: {failed} disagree with one process, "
+                           "differ between the ranks or launched none of their kernels")
+
+
+def _same_bits(a, b):
+    if isinstance(a, np.ndarray):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and bool(((a == b) | (np.isnan(a) & np.isnan(b))).all()))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same_bits(x, y) for x, y in zip(a, b))
+    return a == b
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out-dir", default=str(_build.BUILD_DIR),
@@ -5120,6 +5318,12 @@ def main():
 
     # ---- the tile-sweep probe of the mesh stream --------------------------------
     probe_entry = probe_phase(probe_regs)
+
+    # ---- the sharded paths: NCCL at world size 1, two ranks on the card -----------
+    t_sharded = time.perf_counter()
+    sharded_world1(dev, name_and_limit)
+    sharded_two_ranks(dev, name_and_limit)
+    emit("sharded_phases", seconds=time.perf_counter() - t_sharded)
 
     emit("grad_bit_stable", autograd_same_bits=autograd_bits,
          replay_render_grad_same_bits={"random": rr_bits, "cornell-lucy": lu_bits})

@@ -79,8 +79,16 @@ B records each chunk again just before its replay.  Replay chunks hold at
 most ``renderer.MAX_CHUNK_RAYS_DIFFERENTIABLE`` rays: autograd keeps a few
 kilobytes a ray.
 
-Not ported yet, raising ``NotImplementedError``: ``mesh=`` (ROADMAP.md
-A19).
+Under a mesh (``parallel/sharding.RayMesh``, one process a device) every
+chunk is split over the ranks in whole samples (``sharding.sample_window``)
+and each rank runs both passes on its window of every chunk, keeping its
+own stashes and records.  Two collectives join them: one ``all_reduce`` of
+the per-virtual-pixel sums after pass A, from which every rank computes the
+same loss and cotangent, and one of the flattened gradients after pass B.
+The JAX package sums per chunk (a ``psum`` each) and runs the image tier
+fused under a mesh; the port keeps its two-phase image tier on every rank.
+Both give the single-device numbers up to the order of the sums, and at
+world size 1 the port gives the same bits.
 """
 
 from __future__ import annotations
@@ -98,7 +106,7 @@ from ..geometry.scene import Scene
 from ..integrator import wavefront
 from ..materials import textures as tex
 from ..ops import cuda_wavefront as mega
-from ..parallel.sharding import apply_params, trainable_params
+from ..parallel.sharding import apply_params, sample_window, trainable_params
 from ..utils.device import resolve_device
 from . import renderer as rmod
 
@@ -191,6 +199,20 @@ def _chunking(scene: Scene, cam: Camera, spp: int, chunk: Optional[int],
         nch = max(-(-total // kchunk), 1)
         kchunk = -(-(-(-total // nch)) // n_virt) * n_virt
     return kchunk, -(-total // kchunk), total, n_virt
+
+
+def _rank_windows(starts, sizes, n_virt: int, total: int, mesh):
+    """(ray start, rays) of this rank's window of every chunk: its whole
+    samples of the chunk (``sharding.sample_window``; the whole chunk
+    without a mesh), 0 rays where it takes none or its window starts past
+    the job's end."""
+    size, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    out = []
+    for s0, n in zip(starts, sizes):
+        lo, hi = sample_window(n // n_virt, size, rank)
+        start = s0 + lo * n_virt
+        out.append((start, (hi - lo) * n_virt if start < total else 0))
+    return out
 
 
 def _loss_and_cotangent(flat_vs, target, w: int, h: int, spp: int, tiled: bool,
@@ -398,21 +420,29 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
     passes (``DEC_BUDGET`` by default); a job over it records every chunk
     twice.  ``stats.chunks`` counts ray chunks, once, whatever route they
     took.
+
+    ``mesh``: a ``parallel/sharding.RayMesh``; every rank of it makes the
+    call with the same arguments and gets the same loss and gradients (see
+    the module docstring).  The device is then the mesh's unless ``device``
+    says otherwise.  ``stash_budget`` and ``dec_budget`` hold for each rank
+    alone, and the default share of free memory is taken on each rank's
+    device when it is called: ranks that share a card each see what the
+    others have not taken yet, so give them an explicit budget.
     """
+    if mesh is not None:
+        mesh.check_member()
+        device = mesh.device if device is None else device
     dev = resolve_device(device)
     if scene.device.type != dev.type:
         raise ValueError(f"scene lies on {scene.device}, render_grad asked for {dev}")
     dev = scene.device
-    if mesh is not None:
-        raise NotImplementedError(
-            "render_grad(mesh=...) is not ported yet (ROADMAP.md A19)")
     spp = cam.samples_per_pixel if spp is None else spp
     max_depth = cam.max_depth if max_depth is None else max_depth
     tier = grad_tier(scene, max_depth)
     if tier == "replay":
         return _render_grad_replay(scene, cam, target, spp=spp,
                                    max_depth=max_depth, seed=seed, chunk=chunk,
-                                   stats=stats, dec_budget=dec_budget)
+                                   stats=stats, dec_budget=dec_budget, mesh=mesh)
     if stash_budget is None:
         if dev.type == "cuda":
             free, _ = torch.cuda.mem_get_info(dev)
@@ -430,38 +460,50 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
                else stash_bytes_per_ray(max_depth, pathwise, scene.env is not None,
                                         scene.has_noise, image))
     largest = rmod.pick_chunk_size(scene)
+    ranks = 1 if mesh is None else mesh.size
     if scene.env is not None and chunk is None:
         # an environment chunk pays large fixed costs (the per-texel sums):
-        # grow it to the budget
-        largest = max(largest, int(stash_budget) // per_ray)
+        # grow each rank's window of it to the budget
+        largest = max(largest, ranks * int(stash_budget) // per_ray)
     kchunk, n_chunks, total, n_virt = _chunking(scene, cam, spp, chunk, largest)
-    n_stash = 0 if fused else min(int(stash_budget) // (kchunk * per_ray), n_chunks)
+    windows = _rank_windows([i * kchunk for i in range(n_chunks)],
+                            [kchunk] * n_chunks, n_virt, total, mesh)
+    widest = max(max(n for _, n in windows), 1)
+    n_stash = 0 if fused else min(int(stash_budget) // (widest * per_ray), n_chunks)
 
     _sync(dev)
     t0 = time.perf_counter()
-    args = dict(spp=spp, chunk=kchunk, max_depth=max_depth, pathwise=pathwise,
-                image=image)
+    args = dict(spp=spp, max_depth=max_depth, pathwise=pathwise, image=image)
 
-    # ---- pass A: framebuffer, and the stashes of the first n_stash chunks
+    # ---- pass A: framebuffer, and the stashes of the first n_stash chunks;
+    # the trace of a chunk over budget picks its mode for the rank's window
     flat_vs = torch.zeros((n_virt, 3), dtype=torch.float32, device=dev)
     carries = []
-    for i in range(n_chunks):
-        vs, carry = _twophase_fwd(scene, cam, i * kchunk, seed,
-                                  keep_stash=i < n_stash, **args)
-        flat_vs += vs
+    for i, (s0, n) in enumerate(windows):
+        carry = None
+        if n:
+            vs, carry = _twophase_fwd(scene, cam, s0, seed, chunk=n,
+                                      keep_stash=i < n_stash, **args)
+            flat_vs += vs
         carries.append(carry)
+    if mesh is not None:
+        mesh.all_reduce(flat_vs)
 
     loss, g_virt = _loss_and_cotangent(flat_vs, target, w, h, spp, tiled, dev)
 
     # ---- pass B: reverse sweeps; each stash is dropped as soon as it is used
     grads = {k: torch.zeros_like(v) for k, v in trainable_params(scene).items()}
-    for i in range(n_chunks):
+    for i, (s0, n) in enumerate(windows):
         carry, carries[i] = carries[i], None
-        g = _twophase_rev(scene, cam, g_virt, i * kchunk, seed, carry, fused=fused,
+        if not n:
+            continue
+        g = _twophase_rev(scene, cam, g_virt, s0, seed, carry, chunk=n, fused=fused,
                           **args)
         del carry
         for k, v in g.items():
             grads[k] += v
+    if mesh is not None:
+        grads = mesh.all_reduce_dict(grads)
     _sync(dev)
 
     if stats is not None:
@@ -479,18 +521,20 @@ def _sync(dev):
 def _render_grad_replay(scene: Scene, cam: Camera, target, *, spp: int,
                         max_depth: int, seed: int, chunk: Optional[int],
                         stats: Optional[rmod.RenderStats],
-                        dec_budget: Optional[int]):
+                        dec_budget: Optional[int], mesh=None):
     """``render_grad``'s replay tier (see the module docstring).  The last
-    chunk holds only the samples left, so no ray is traced twice in a pass."""
+    chunk holds only the samples left, so no ray is traced twice in a pass.
+    A rank keeps the records of its own windows, within ``dec_budget``."""
     dev = scene.device
     w, h = cam.image_width, cam.image_height
     tiled = rmod.scene_tiled(scene)
     kchunk, n_chunks, total, n_virt = _chunking(
         scene, cam, spp, chunk, rmod.pick_chunk_size(scene, differentiable=True))
     starts = [i * kchunk for i in range(n_chunks)]
-    sizes = [min(kchunk, total - s0) for s0 in starts]
+    windows = _rank_windows(starts, [min(kchunk, total - s0) for s0 in starts],
+                            n_virt, total, mesh)
     budget = DEC_BUDGET if dec_budget is None else int(dec_budget)
-    keep = total * dec_bytes_per_ray(scene, max_depth) <= budget
+    keep = sum(n for _, n in windows) * dec_bytes_per_ray(scene, max_depth) <= budget
 
     _sync(dev)
     t0 = time.perf_counter()
@@ -499,21 +543,29 @@ def _render_grad_replay(scene: Scene, cam: Camera, target, *, spp: int,
     # ---- pass A: framebuffer, and every chunk's record if they all fit
     flat_vs = torch.zeros((n_virt, 3), dtype=torch.float32, device=dev)
     decs = []
-    for s0, size in zip(starts, sizes):
-        vs, dec = _record_fwd(scene, cam, s0, seed, chunk=size, keep=keep, **args)
-        flat_vs += vs
+    for s0, n in windows:
+        dec = None
+        if n:
+            vs, dec = _record_fwd(scene, cam, s0, seed, chunk=n, keep=keep, **args)
+            flat_vs += vs
         decs.append(dec)
+    if mesh is not None:
+        mesh.all_reduce(flat_vs)
 
     loss, g_virt = _loss_and_cotangent(flat_vs, target, w, h, spp, tiled, dev)
 
     # ---- pass B: replays; each record is dropped as soon as it is used
     grads = {k: torch.zeros_like(v) for k, v in trainable_params(scene).items()}
-    for i, (s0, size) in enumerate(zip(starts, sizes)):
+    for i, (s0, n) in enumerate(windows):
         dec, decs[i] = decs[i], None
-        g = _replay_rev(scene, cam, g_virt, s0, seed, dec, chunk=size, **args)
+        if not n:
+            continue
+        g = _replay_rev(scene, cam, g_virt, s0, seed, dec, chunk=n, **args)
         del dec
         for k, v in g.items():
             grads[k] += v
+    if mesh is not None:
+        grads = mesh.all_reduce_dict(grads)
     _sync(dev)
 
     if stats is not None:

@@ -145,22 +145,26 @@ def _render_chunk(scene, cam: Camera, accum, ray_start: int, seed, *, spp: int,
     rows = torch.where(valid[:, None], radiance.rows(), 0.0)
     # Sample-aligned chunks (render() rounds chunk to a multiple of n_virt
     # and starts chunks on sample boundaries): ids % n_virt is the same
-    # arange pattern for every chunk, so per-pixel accumulation is a
-    # reshape+sum over the chunk's whole samples, in a fixed order.
+    # arange pattern for every chunk, so a sample's rows add to the
+    # accumulator as one [n_virt, 3] block.  The samples are added one at a
+    # time, in sample order: every pixel's sum is then the same sequence of
+    # adds however the samples are cut into chunks, calls (sample_offset),
+    # checkpoints or live-view slices, so all of them give the same bits.
     # Untiled layouts need no scatter at all (virtual pixel == pixel);
-    # tiled layouts scatter once per chunk at n_virt elements.
+    # tiled layouts scatter n_virt rows a sample.
     if chunk % n_virt == 0:
         if ray_start % n_virt != 0:
             raise ValueError("sample-aligned chunks must start on a sample "
                              "boundary (ray_start % n_virt == 0)")
-        vs = rows.reshape(chunk // n_virt, n_virt, 3).sum(dim=0)
-        if not tiled:
-            accum = accum + vs if rows.requires_grad else accum.add_(vs)
-        else:
-            accum = _index_add(accum, pixel[:n_virt], vs)
+        for vs in rows.reshape(chunk // n_virt, n_virt, 3).unbind(0):
+            if tiled:
+                accum = _index_add(accum, pixel[:n_virt], vs)
+            else:
+                accum = accum + vs if rows.requires_grad else accum.add_(vs)
         return accum, tstats["mesh_overflow"]
-    # Unaligned chunks: a scatter-add.  On a GPU index_add uses atomics,
-    # so the order of the sums (and the last bits) changes from run to run.
+    # Unaligned chunks (shorter than a sample): a scatter-add.  A pixel
+    # appears at most once in such a chunk, so its sum is again the samples
+    # in order.
     return _index_add(accum, pixel, rows), tstats["mesh_overflow"]
 
 

@@ -2199,3 +2199,92 @@ def test_cuda_image_texels_at_atlas_edges(case):
     ref_img = grtt.render(cpu, cam, seed=3, device="cpu")
     bad = ~torch.isclose(img.cpu(), ref_img, rtol=1e-3, atol=2e-3).all(dim=-1)
     assert float(bad.float().mean()) < 0.005
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_one_rank_render_and_render_grad_are_the_single_device_bits():
+    """A one-rank mesh without a process group on the GPU: ``render_sharded``
+    gives ``render``'s bits and ``render_grad(mesh=...)`` ``render_grad``'s."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
+    from go_raytracing_tpu_torch.parallel import sharding
+
+    scene, cam = grtt.load_scene("cornell", device="cuda")
+    cam = dataclasses.replace(cam, image_width=64, aspect_ratio=1.0, samples_per_pixel=8,
+                              max_depth=5)
+    mesh = sharding.make_mesh()
+    assert mesh.device == torch.device("cuda", 0) and mesh.group is None
+    fb = grtt.render(scene, cam, seed=3)
+    assert torch.equal(sharding.render_sharded(scene, cam, mesh, 3, spp=8), fb)
+    target = fb / 8 * 0.8
+    loss, grads = grtt.render_grad(scene, cam, target, seed=0, stash_budget=1 << 28)
+    loss_m, grads_m = grtt.render_grad(scene, cam, target, seed=0, mesh=mesh,
+                                       stash_budget=1 << 28)
+    assert torch.equal(loss, loss_m)
+    for k in grads:
+        assert torch.equal(grads[k], grads_m[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_two_gloo_ranks_on_one_card_match_one_process():
+    """Two spawned ranks on the same GPU, joined by gloo over CUDA tensors:
+    ``render_sharded`` within 1e-5 of one process's render a sample, and
+    ``render_grad(mesh=...)`` of the pathwise tier within the CPU tests'
+    tolerances, the same bits on both ranks, every rank launching kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
+    from go_raytracing_tpu_torch.parallel import launch
+    from go_raytracing_tpu_torch.scenes.builders import load_scene
+
+    fields = dict(image_width=64, aspect_ratio=1.0, samples_per_pixel=8, max_depth=5)
+    scene, cam = grtt.load_scene("cornell-glossy", device="cuda")
+    cam = dataclasses.replace(cam, **fields)
+    fb = grtt.render(scene, cam, seed=0)
+    target = (fb / 8 * 0.8).cpu().numpy()
+    loss, grads = grtt.render_grad(scene, cam, target, seed=0)
+    spec = (load_scene, dict(name="cornell-glossy"))
+    cases = [("render_sharded", spec, fields, dict(spp=8), 1),
+             ("render_grad", spec, fields, dict(target=target, seed=0,
+                                                stash_budget=1 << 28), 1)]
+    ranks = launch.run_ranks(launch.run_cases, 2, (cases, "cuda"), device="cuda",
+                             backend="gloo", timeout=240.0)
+    for r in ranks:
+        np.testing.assert_allclose(r[0][0]["out"] / 8, fb.cpu().numpy() / 8,
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(r[0][0]["out"], ranks[0][0][0]["out"])
+        got_loss, got = r[1][0]["out"]
+        np.testing.assert_allclose(float(got_loss), float(loss), rtol=1e-5)
+        for k, v in grads.items():
+            np.testing.assert_allclose(got[k], v.cpu().numpy(), rtol=2e-4, atol=1e-9,
+                                       err_msg=k)
+            np.testing.assert_array_equal(got[k], ranks[0][1][0]["out"][1][k])
+        assert r[0][0]["launches"].get("cuda_wavefront.LAUNCHES", 0) > 0
+        assert r[1][0]["launches"].get("cuda_wavefront.LAUNCHES_GRAD_REV_PATHWISE", 0) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_resume_profiler_and_memory_report(tmp_path):
+    """On the GPU: a render resumed from a checkpoint is the one-shot
+    render's bits; the profiler's CUDA-event timers and trace, and the
+    memory report's device line."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
+    from go_raytracing_tpu_torch.render import checkpoint
+    from go_raytracing_tpu_torch.utils import profiler
+
+    scene, cam = grtt.load_scene("cornell", device="cuda")
+    cam = dataclasses.replace(cam, image_width=64, aspect_ratio=1.0, samples_per_pixel=7,
+                              max_depth=5)
+    path = str(tmp_path / "c.npz")
+    checkpoint.render_with_checkpoints(scene, cam, path, spp=3, seed=1, spp_per_checkpoint=2)
+    prof = profiler.Profiler(trace_dir=str(tmp_path / "trace"))
+    prof.start()
+    with prof.time("resume"):
+        acc = checkpoint.render_with_checkpoints(scene, cam, path, spp=7, seed=1,
+                                                 spp_per_checkpoint=2)
+    prof.stop()
+    assert torch.equal(acc, grtt.render(scene, cam, spp=7, seed=1))
+    assert prof.timers["resume"].count == 1 and prof.timers["resume"].total > 0
+    assert list((tmp_path / "trace").glob("*.json"))
+    rep = profiler.memory_report()
+    assert "cuda:0: in_use=" in rep and "Live device arrays" in rep

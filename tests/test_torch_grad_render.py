@@ -164,8 +164,13 @@ def test_render_grad_raises_outside_the_ported_tier():
     assert tgrad.grad_tier(imaged, cam.max_depth) == "replay"
     loss, grads = grtt.render_grad(imaged, cam, target, device="cpu")
     assert np.isfinite(float(loss)) and not grads["atlas"].any()
-    with pytest.raises(NotImplementedError, match="A19"):
-        grtt.render_grad(scene, cam, target, device="cpu", mesh=object())
+    # render_grad(mesh=...) is ported (tests/test_torch_sharding.py); a rank
+    # outside the mesh it is given is refused
+    from go_raytracing_tpu_torch.parallel.sharding import RayMesh
+
+    outsider = RayMesh(None, 3, 2, torch.device("cpu"), member=False)
+    with pytest.raises(ValueError, match="not a member"):
+        grtt.render_grad(scene, cam, target, device="cpu", mesh=outsider)
     if not torch.cuda.is_available():
         # no device given means the GPU; the port never falls back by itself
         with pytest.raises(RuntimeError, match="CUDA"):

@@ -39,10 +39,12 @@ from go_raytracing_tpu.camera import generate_rays as j_generate_rays
 from go_raytracing_tpu.integrator import wavefront as jwf
 from go_raytracing_tpu.ops import pallas_wavefront as jmega
 from go_raytracing_tpu_torch import camera as tcamera
+from go_raytracing_tpu_torch.core.vec3 import V3
 from go_raytracing_tpu_torch.integrator import wavefront as twf
 from go_raytracing_tpu_torch.materials import textures as ttex
 from go_raytracing_tpu_torch.ops import cuda_rows
 from go_raytracing_tpu_torch.ops import cuda_wavefront as cw
+from go_raytracing_tpu_torch.render import renderer as trenderer
 from test_torch_helpers import port_and_jax
 
 torch.set_num_threads(2)
@@ -269,3 +271,118 @@ def test_take_rows_sums_in_a_fixed_order(cols):
     # without a gradient to take, take_rows is index_select itself
     assert ttex.take_rows(table, idx).grad_fn is None
     torch.testing.assert_close(cuda_rows.row_sums(g, idx, 9), outs[0])
+
+
+def _checker_statues():
+    """Two statues and a floor under one checker texture, a quad light."""
+    from go_raytracing_tpu_torch.geometry.scene import Affine
+    from go_raytracing_tpu_torch.io import obj
+
+    b = grtt.SceneBuilder()
+    chk = b.lambertian(b.checker(7.0, (0.2, 0.3, 0.1), (0.9, 0.9, 0.8)))
+    b.quad((0, 0, 0), (555, 0, 0), (0, 0, 555), chk)
+    b.add_light(b.quad((213, 554, 227), (130, 0, 0), (0, 0, 105),
+                       b.diffuse_light((15, 14, 13))))
+    proto = b.mesh(*obj.lucy_standin(12, 10))
+    for pos, rot in (((150, 0, 150), 30), ((400, 0, 150), -20)):
+        b.mesh_instance(proto, chk, Affine.trs(scale=(0.15, 0.15, 0.15),
+                                               rotation_deg=(0, rot, 0), position=pos))
+    cam = grtt.Camera(image_width=64, aspect_ratio=1.0, samples_per_pixel=4, max_depth=3,
+                      look_from=(278, 278, -800), look_at=(278, 278, 0), vfov=40.0)
+    return b.build(device="cpu"), cam, ([50, 1, 50], [500, 300, 500])
+
+
+def _checker_fog():
+    """A checker floor, and a round and a box fog whose colour is the same
+    fine checker, under a quad light."""
+    b = grtt.SceneBuilder()
+    chk = b.checker(0.37, (0.2, 0.3, 0.1), (0.9, 0.9, 0.8))
+    b.quad((-5, 0, -5), (10, 0, 0), (0, 0, 10), b.lambertian(chk))
+    b.add_light(b.quad((-1.5, 7.9, -1.5), (3, 0, 0), (0, 0, 3),
+                       b.diffuse_light((13, 12, 11))))
+    b.volume_sphere((0.0, 2.0, -1.0), 2.0, 0.35, chk)
+    b.volume_box((1, 0, -3), (3, 2, -1), 0.5, chk)
+    cam = grtt.Camera(image_width=64, aspect_ratio=1.0, samples_per_pixel=4, max_depth=3,
+                      look_from=(0, 3, 9), look_at=(0, 1.5, 0), vfov=45.0)
+    return b.build(device="cpu"), cam, ([-4, 0.2, -4], [4, 6, 4])
+
+
+def replay_distance_parity(scene, o, d, seed=0):
+    """For the mesh hits and the volume entries of one sweep: (winners,
+    replayed distances that differ from the sweep's in any bit, texture
+    reads at the hit point that differ).  The replay recomputes a winner's
+    distance (``_winner_t``); a checker's parity flips where the hit point
+    moves by an ulp."""
+    from go_raytracing_tpu_torch.integrator.wavefront import HIT_MESH_BASE, HIT_VOLUME
+
+    r = o.x.shape[0]
+    tm, stream = torch.zeros(r), torch.arange(r)
+    t, which, idx, aux, _ = twf.closest_hit(scene, o, d, tm, 1e-3,
+                                            torch.full((r,), 3e38), seed, stream, 0)
+    t_rep = twf._winner_t(scene, o, d, tm, 1e-3, which, idx, aux, seed, stream, 0)
+    reads = []
+    for dist in (t, t_rep):
+        p, _, _, u, v, mat = twf.extract_record(scene, o, d, tm, dist, which, idx, aux)
+        reads.append(torch.stack(list(ttex.evaluate(
+            scene.textures, scene.materials.tex[mat.long()], u, v, p))))
+    read_differs = (reads[0] != reads[1]).any(dim=0)
+    out = {}
+    for name, won in (("mesh", which >= HIT_MESH_BASE), ("volume", which == HIT_VOLUME)):
+        out[name] = (int(won.sum()), int((won & (t != t_rep)).sum()),
+                     int((won & read_differs).sum()))
+    return out
+
+
+@pytest.mark.parametrize("build, kind", [(_checker_statues, "mesh"),
+                                         (_checker_fog, "volume")])
+def test_replay_distance_of_mesh_hits_and_volume_entries_is_the_sweeps(build, kind):
+    """The replay's distance of a mesh hit (Moller-Trumbore in the
+    instance's space) and of a volume entry (free flight from the entry
+    point) is the sweep's to the bit, so every checker read after such a
+    hit is the record's: on the camera rays of a 64-pixel, 4-sample frame
+    and on 16,384 rays from inside the scene in random directions."""
+    scene, cam, (lo, hi) = build()
+    spp = cam.samples_per_pixel
+    _, o, d, _, _, _, _ = trenderer._chunk_rays(scene, cam, 0, 0, spp=spp,
+                                                chunk=64 * 64 * spp, max_depth=3,
+                                                device="cpu")
+    rng = np.random.default_rng(1)
+    inside = (rng.uniform(lo, hi, size=(16384, 3)).T.astype(np.float32),
+              rng.normal(size=(3, 16384)).astype(np.float32))
+    for rays in ((o, d), tuple(V3(*torch.from_numpy(a.copy())) for a in inside)):
+        won, t_differs, read_differs = replay_distance_parity(scene, *rays)[kind]
+        assert won > 500, won
+        assert (t_differs, read_differs) == (0, 0)
+
+
+def test_replay_distance_of_a_box_fog_is_the_megakernels():
+    """Box fog lies inside the megakernel's gate, so the record kernel (B6)
+    takes its distance: the replay's free flight is its plain version's
+    (``cuda_wavefront._volume_scatter``, the kernel's arithmetic) to the bit
+    on every entry of 16,384 rays from inside the scene."""
+    b = grtt.SceneBuilder()
+    chk = b.checker(0.37, (0.2, 0.3, 0.1), (0.9, 0.9, 0.8))
+    b.quad((-5, 0, -5), (10, 0, 0), (0, 0, 10), b.lambertian(chk))
+    b.add_light(b.quad((-1.5, 7.9, -1.5), (3, 0, 0), (0, 0, 3),
+                       b.diffuse_light((13, 12, 11))))
+    b.volume_box((-2, 0, -3), (2, 3, 1), 0.5, chk)
+    b.volume_box((1, 0, -3), (3, 2, -1), 0.9, chk)
+    scene = b.build(device="cpu")
+    assert cw.applicable(scene)
+    tb = cw.build_tables(scene)
+    rng = np.random.default_rng(2)
+    n = 16384
+    o = V3(*torch.from_numpy(rng.uniform([-4, 0.2, -4], [4, 6, 4], (n, 3))
+                             .T.astype(np.float32).copy()))
+    d = V3(*torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32)))
+    stream, tm = torch.arange(n), torch.zeros(n)
+    u = twf._volume_uniforms(0, stream, 0, twf.PURPOSE_VOL_MAIN, scene.n_volumes)
+    for vi in range(scene.n_volumes):
+        entered, t_kernel = cw._volume_scatter(tb, list(o), list(d),
+                                               torch.full((n,), 1e30), vi, u[:, vi])
+        idx = torch.full((n,), vi, dtype=torch.int32)
+        t_rep = twf._winner_t(scene, o, d, tm, 1e-3,
+                              torch.full((n,), twf.HIT_VOLUME, dtype=torch.int32), idx,
+                              torch.zeros_like(idx), 0, stream, 0)
+        assert int(entered.sum()) > 500
+        assert torch.equal(t_kernel[entered], t_rep[entered])
