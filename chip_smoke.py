@@ -98,9 +98,17 @@ per-texel sums for the atlas) twice with the same bits, over budget, and
 against the replay tier (``image_fwd_bwd``); the Cornell box with the atlas
 as a picture on its back wall through the standard integrator, one chunk
 under the profiler, autograd and the replay tier at 8 spp, each twice with
-the same bits (``image_standard``).  Last, the tile-sweep probe of the mesh stream
+the same bits (``image_standard``).  Then the tile-sweep probe of the mesh stream
 (``probe_stream_micro``: its five variants against their plain versions,
-then its command line's run at 512 blocks x 512 sweeps).  The earlier
+then its command line's run at 512 blocks x 512 sweeps).  Last, the sharded
+paths (ROADMAP A19): this process in an NCCL group of one, where
+``render_sharded`` and ``render_grad(mesh=...)`` of the Cornell job at full
+size must give ``render``'s and ``render_grad``'s bits (``sharded_world1``),
+and two spawned ranks on the one card joined by gloo over CUDA tensors
+(NCCL refuses two ranks on one GPU): ``render_sharded`` of Cornell,
+``render_grad(mesh=...)`` on one scene a tier and ``train_step``, each held
+to this process's call and the same bits on both ranks, each rank's kernel
+launches printed and required (``sharded_two_ranks``).  The earlier
 phases run at the sizes they always had.  It prints one JSON line per
 phase.
 The last line is

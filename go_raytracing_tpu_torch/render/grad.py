@@ -106,7 +106,7 @@ from ..geometry.scene import Scene
 from ..integrator import wavefront
 from ..materials import textures as tex
 from ..ops import cuda_wavefront as mega
-from ..parallel.sharding import apply_params, sample_window, trainable_params
+from ..parallel.sharding import RayMesh, apply_params, sample_window, trainable_params
 from ..utils.device import resolve_device
 from . import renderer as rmod
 
@@ -201,15 +201,14 @@ def _chunking(scene: Scene, cam: Camera, spp: int, chunk: Optional[int],
     return kchunk, -(-total // kchunk), total, n_virt
 
 
-def _rank_windows(starts, sizes, n_virt: int, total: int, mesh):
+def _rank_windows(starts, sizes, n_virt: int, total: int, mesh: RayMesh):
     """(ray start, rays) of this rank's window of every chunk: its whole
-    samples of the chunk (``sharding.sample_window``; the whole chunk
-    without a mesh), 0 rays where it takes none or its window starts past
-    the job's end."""
-    size, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
+    samples of the chunk (``sharding.sample_window``; on one rank the whole
+    chunk), 0 rays where it takes none or its window starts past the job's
+    end."""
     out = []
     for s0, n in zip(starts, sizes):
-        lo, hi = sample_window(n // n_virt, size, rank)
+        lo, hi = sample_window(n // n_virt, mesh.size, mesh.rank)
         start = s0 + lo * n_virt
         out.append((start, (hi - lo) * n_virt if start < total else 0))
     return out
@@ -436,6 +435,7 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
     if scene.device.type != dev.type:
         raise ValueError(f"scene lies on {scene.device}, render_grad asked for {dev}")
     dev = scene.device
+    mesh = RayMesh(None, 0, 1, dev) if mesh is None else mesh
     spp = cam.samples_per_pixel if spp is None else spp
     max_depth = cam.max_depth if max_depth is None else max_depth
     tier = grad_tier(scene, max_depth)
@@ -460,11 +460,10 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
                else stash_bytes_per_ray(max_depth, pathwise, scene.env is not None,
                                         scene.has_noise, image))
     largest = rmod.pick_chunk_size(scene)
-    ranks = 1 if mesh is None else mesh.size
     if scene.env is not None and chunk is None:
         # an environment chunk pays large fixed costs (the per-texel sums):
         # grow each rank's window of it to the budget
-        largest = max(largest, ranks * int(stash_budget) // per_ray)
+        largest = max(largest, mesh.size * int(stash_budget) // per_ray)
     kchunk, n_chunks, total, n_virt = _chunking(scene, cam, spp, chunk, largest)
     windows = _rank_windows([i * kchunk for i in range(n_chunks)],
                             [kchunk] * n_chunks, n_virt, total, mesh)
@@ -486,8 +485,7 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
                                       keep_stash=i < n_stash, **args)
             flat_vs += vs
         carries.append(carry)
-    if mesh is not None:
-        mesh.all_reduce(flat_vs)
+    mesh.all_reduce(flat_vs)
 
     loss, g_virt = _loss_and_cotangent(flat_vs, target, w, h, spp, tiled, dev)
 
@@ -502,8 +500,7 @@ def render_grad(scene: Scene, cam: Camera, target, *, spp: Optional[int] = None,
         del carry
         for k, v in g.items():
             grads[k] += v
-    if mesh is not None:
-        grads = mesh.all_reduce_dict(grads)
+    grads = mesh.all_reduce_dict(grads)
     _sync(dev)
 
     if stats is not None:
@@ -526,6 +523,7 @@ def _render_grad_replay(scene: Scene, cam: Camera, target, *, spp: int,
     chunk holds only the samples left, so no ray is traced twice in a pass.
     A rank keeps the records of its own windows, within ``dec_budget``."""
     dev = scene.device
+    mesh = RayMesh(None, 0, 1, dev) if mesh is None else mesh
     w, h = cam.image_width, cam.image_height
     tiled = rmod.scene_tiled(scene)
     kchunk, n_chunks, total, n_virt = _chunking(
@@ -549,8 +547,7 @@ def _render_grad_replay(scene: Scene, cam: Camera, target, *, spp: int,
             vs, dec = _record_fwd(scene, cam, s0, seed, chunk=n, keep=keep, **args)
             flat_vs += vs
         decs.append(dec)
-    if mesh is not None:
-        mesh.all_reduce(flat_vs)
+    mesh.all_reduce(flat_vs)
 
     loss, g_virt = _loss_and_cotangent(flat_vs, target, w, h, spp, tiled, dev)
 
@@ -564,8 +561,7 @@ def _render_grad_replay(scene: Scene, cam: Camera, target, *, spp: int,
         del dec
         for k, v in g.items():
             grads[k] += v
-    if mesh is not None:
-        grads = mesh.all_reduce_dict(grads)
+    grads = mesh.all_reduce_dict(grads)
     _sync(dev)
 
     if stats is not None:
