@@ -118,7 +118,7 @@ def _scene_and_camera(spec, cam, device):
     parent (CPU tensors), or (builder, keyword arguments): the rank builds
     ``builder(device=device, **kwargs)`` -> (scene, camera), as
     ``scenes.builders.load_scene`` does.  ``cam`` is the camera, or a dict
-    of fields to change on the builder's camera."""
+    of fields to change on the camera the scene function returns."""
     from ..geometry.scene import Scene
 
     if isinstance(spec, Scene):

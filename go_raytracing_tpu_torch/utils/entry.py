@@ -1,4 +1,4 @@
-"""Entry points of a driver: a single-device forward step and a
+"""Entry points: a single-device forward step and a
 multi-device dry run (the JAX package's ``__graft_entry__.py``).
 
     fn, args = entry()            # fn(*args) -> [4096, 3] radiance rows

@@ -3,7 +3,7 @@ of the same name where both can be run: render checkpoints (files either
 package reads), the live view over HTTP, the profiler and memory report,
 the CLI's flags, the micro-benchmarks and the perf probe at a tiny size
 (they run; no time is checked on the CPU), the inverse-rendering loop in
-each of its modes, and the driver entry points with their two-rank dry
+each of its modes, and the entry points with their two-rank dry
 run (gloo on the CPU).
 """
 
