@@ -232,6 +232,9 @@ RTOL = ATOL = 1e-3
 MAX_MISMATCH_SHARE = 0.005
 MAX_MEAN_REL_DIFF = 0.01
 REV_RTOL_OF_LARGEST = 1e-4
+# The per-key sums of core/segsum add in float64 in another order than their
+# plain version (float64 index_add_), then round to float32.
+SEGMENT_RTOL_OF_LARGEST = 1e-6
 AUTOGRAD_RTOL_OF_LARGEST = 2e-3
 IMAGE_RTOL, IMAGE_ATOL = 1e-3, 2e-3
 MAX_PIXEL_SHARE_OUTSIDE = 0.005
@@ -334,12 +337,22 @@ B2_MARBLE_TAG = "wavefront_kernelILi1ELb0ELi0E"
 # (PERF.md section 6: NVIDIA H100 80GB HBM3, 700 W; B1 brute at Cornell's
 # chunk, B11 brute's two phases at perlin's; B7a and B8p at Cornell's chunk of
 # camera rays, and summed over the launches one Cornell chunk makes on the
-# standard integrator's fast route, "_path"), printed in their phase lines
+# standard integrator's fast route, "_path"; the probe's variants and the
+# per-texel sums' kernel on each path's rows), printed in their phase lines
 # beside the new.
 PREVIOUS_DESIGN_MS = {"wavefront_fwd": 2.733, "wavefront_resume_phase_1": 1.525,
                       "wavefront_resume_phase_2": 0.855,
                       "planar_closest": 0.2507, "planar_closest_attrs": 0.3277,
-                      "planar_closest_path": 0.9405, "planar_closest_attrs_path": 1.5167}
+                      "planar_closest_path": 0.9405, "planar_closest_attrs_path": 1.5167,
+                      # the probe at 512 blocks x 512 sweeps, by variant
+                      "stream_micro_sweeponly": 0.0668, "stream_micro_fori+tri": 1.2429,
+                      "stream_micro_fori+roll": 0.9927, "stream_micro_while": 1.3232,
+                      "stream_micro_full": 1.3079,
+                      # the one-warp-a-key kernel alone on a path's rows (its
+                      # sort, gathers and searchsorted are timed in the run)
+                      "sorted_segment_sums_hdri_test_nee": 2.230,
+                      "sorted_segment_sums_hdri_test_miss": 1.523,
+                      "sorted_segment_sums_earth_atlas": 0.197}
 
 
 def emit(phase, **fields):
@@ -2594,15 +2607,143 @@ def row_sums_check():
         k1 = cr.row_sums(g, idx, n_rows)
         rounds, k2 = rounds_ms(lambda: cr.row_sums(g, idx, n_rows), rounds=3, repeats=5)
         plain_ms, p = cuda_ms(lambda: cr._row_sums_plain(g, idx, n_rows))
+        library_ms, _ = cuda_ms(lambda: torch.zeros((n_rows, cols), device="cuda").index_add_(
+            0, idx, g))
         err = float((k1 - p).abs().max()) / float(p.abs().max())
         same = bool(torch.equal(k1, k2))
         bound_ms = (n * (8 + 4 * cols) + 4 * n_rows * cols) / PEAK_BYTES_PER_S * 1e3
         out[f"{n_rows}x{cols}"] = dict(rows=n, ms=median(rounds), ms_rounds=rounds,
-                                       plain_ms=plain_ms, err_of_largest=err,
+                                       plain_ms=plain_ms, library_ms_index_add=library_ms,
+                                       err_of_largest=err,
                                        same_bits=same, bound_ms=bound_ms)
         if err > REV_RTOL_OF_LARGEST or not same:
             raise RuntimeError(f"row_sums {n_rows}x{cols}: off by {err}, same bits {same}")
     return out
+
+
+# ---- the per-key sums of large tables (core/segsum, csrc/row_sums.cu) -------
+
+class SegmentCalls:
+    """Keeps the arguments of every ``core/segsum`` column sum made while it
+    is open (``with SegmentCalls() as calls:``): ("cols", ids, cols, n) and
+    ("factored", ids, carry_cols, expand, n, zero_cols), in the order made."""
+
+    def __enter__(self):
+        self.calls = []
+        self._orig = (segsum.cols_segment_sum, segsum.cols_segment_sum_factored)
+
+        def cols_sum(ids, cols, n_bins):
+            self.calls.append(("cols", ids, cols, n_bins))
+            return self._orig[0](ids, cols, n_bins)
+
+        def factored(ids, carry_cols, expand, n_bins, zero_cols=None):
+            self.calls.append(("factored", ids, carry_cols, expand, n_bins, zero_cols))
+            return self._orig[1](ids, carry_cols, expand, n_bins, zero_cols=zero_cols)
+
+        segsum.cols_segment_sum, segsum.cols_segment_sum_factored = cols_sum, factored
+        return self.calls
+
+    def __exit__(self, *exc):
+        segsum.cols_segment_sum, segsum.cols_segment_sum_factored = self._orig
+        return False
+
+
+def segment_sums_timing(name, call, rounds=3):
+    """One captured ``core/segsum`` call timed as its path makes it.  The
+    design of this tree, part by part (the kept rows: count, prefix, write;
+    the int32 sort; for the factored form the gather and expansion in
+    torch; the span sums, a launch a level) and whole, in rounds; the
+    parent design's torch parts (the stable int64 sort of every row, the
+    gathers into key order, ``searchsorted``; its kernel's time is PERF.md's,
+    ``PREVIOUS_DESIGN_MS``); the library yardsticks, float32 ``index_add_``
+    on the rows as the caller holds them and ``torch.segment_reduce`` on the
+    kept rows in key order; the kept rows' run lengths; the bound (bytes:
+    the ids as the caller holds them, the columns read, the output).  The
+    sums are held to the float64 plain version (1e-6 of its largest entry)
+    and to a second call (the same bits).  Returns the fields."""
+    factored = call[0] == "factored"
+    ids, n = call[1], call[-2] if factored else call[3]
+    flat_ids = ids.reshape(-1)
+    if factored:
+        _, _, carry_cols, expand, _, zero_cols = call
+        test = torch.stack(list(zero_cols))
+        read_cols = len(carry_cols)
+        run = functools.partial(segsum.cols_segment_sum_factored, ids, carry_cols, expand, n,
+                                zero_cols=zero_cols)
+        values = torch.stack(list(expand(*(c.reshape(-1) for c in carry_cols))))
+    else:
+        cols = call[2] if isinstance(call[2], torch.Tensor) else torch.stack(list(call[2]))
+        test, read_cols = cols, cols.shape[0]
+        run = functools.partial(segsum.cols_segment_sum, ids, cols, n)
+        values = cols.reshape(cols.shape[0], -1)
+    n_cols = values.shape[0]
+    k1 = run()
+    whole_rounds, k2 = rounds_ms(run, rounds=rounds, repeats=2)
+    same = bool(torch.equal(k1, k2))
+    keep = (flat_ids >= 0) & (flat_ids < n)
+    plain_ms, ref = cuda_ms(lambda: torch.zeros(
+        (n, n_cols), dtype=torch.float64, device=values.device).index_add_(
+        0, flat_ids[keep].long(), values[:, keep].t().double()))
+    big = max(float(ref.abs().max()), 1e-30)
+    err = float((k1.double() - ref).abs().max())
+    del ref
+    # this design, part by part
+    keep_ms, (kid, krow) = cuda_ms(lambda: cr.segment_keep(ids, test, n))
+    sort_ms, (keys, perm) = cuda_ms(lambda: torch.sort(kid, stable=True))
+    parts = dict(keep=keep_ms, sort=sort_ms)
+    if factored:
+        def gather_expand():
+            src = krow.index_select(0, perm)
+            return torch.stack(list(expand(*(torch.index_select(c.reshape(-1), 0, src)
+                                             for c in carry_cols))))
+        parts["gather_expand"], sorted_vals = cuda_ms(gather_expand)
+        before = cr.LAUNCHES_SEGMENT_SUMS
+        parts["span_sums"], _ = cuda_ms(lambda: cr.sorted_segment_sums(keys, sorted_vals, n))
+    else:
+        before = cr.LAUNCHES_SEGMENT_SUMS
+        parts["span_sums"], _ = cuda_ms(lambda: cr.sorted_segment_sums(
+            keys, cols, n, perm=perm, rows=krow))
+        sorted_vals = values[:, krow.long()[perm]]
+    levels = cr.LAUNCHES_SEGMENT_SUMS - before
+    # the parent design's torch parts
+    sort64_ms, (sid, p64) = cuda_ms(lambda: torch.sort(flat_ids.to(torch.int64), stable=True))
+    gathered = call[2] if factored else [cols[c] for c in range(n_cols)]
+    gather_ms, _ = cuda_ms(lambda: torch.stack([torch.index_select(c.reshape(-1), 0, p64)
+                                                for c in gathered]))
+    starts_ms, _ = cuda_ms(lambda: torch.searchsorted(
+        sid, torch.arange(n + 1, dtype=torch.int64, device=sid.device)))
+    del sid, p64
+    # the library yardsticks
+    rows_f32 = values[:, keep].t().contiguous()
+    idx = flat_ids[keep].long()
+    index_add_ms, _ = cuda_ms(lambda: torch.zeros((n, n_cols), device=idx.device).index_add_(
+        0, idx, rows_f32))
+    del rows_f32, idx
+    lengths = torch.bincount(keys.long(), minlength=n)
+    data = sorted_vals.t().contiguous()
+    reduce_ms, _ = cuda_ms(lambda: torch.segment_reduce(data, "sum", lengths=lengths, axis=0))
+    del data, sorted_vals
+    runs = lengths[lengths > 0].float()
+    quant = (torch.quantile(runs, torch.tensor([0.5, 0.9, 0.99, 0.999], device=runs.device))
+             .tolist() if runs.numel() else [0.0] * 4)
+    moved = flat_ids.numel() * (flat_ids.element_size() + 4 * read_cols) + 4 * n * n_cols
+    bound = moved / PEAK_BYTES_PER_S * 1e3
+    ms = median(whole_rounds)
+    fields = dict(
+        rows=flat_ids.numel(), id_bytes=flat_ids.element_size(), columns_read=read_cols,
+        columns_out=n_cols, n_keys=n, form=call[0], kept_rows=int(kid.numel()),
+        keys_nonempty=int(runs.numel()), longest_run=int(lengths.max()),
+        run_length_quantiles_50_90_99_999=quant, levels=levels, ms=ms, ms_rounds=whole_rounds,
+        parts_ms=parts, plain_ms=plain_ms, parent_torch_parts_ms=dict(sort_int64=sort64_ms, gathers=gather_ms,
+                                                   searchsorted=starts_ms),
+        parent_kernel_ms_perf_md=PREVIOUS_DESIGN_MS.get("sorted_segment_sums_" + name),
+        library_ms=dict(index_add_float32=index_add_ms, segment_reduce_sorted=reduce_ms),
+        bound_ms=bound, bound_by="bytes", roofline_share=bound / ms,
+        max_abs_err=err, err_of_largest=err / big, same_bits_two_calls=same)
+    if not (err <= SEGMENT_RTOL_OF_LARGEST * big and same):
+        raise RuntimeError(f"segment sums ({call[0]}, {flat_ids.numel()} rows): off by "
+                           f"{err / big:.2e} of the largest, same bits {same}")
+    return fields
 
 
 # -----------------------------------------------------------------------------
@@ -2665,13 +2806,13 @@ def env_counts():
             "wavefront_grad_rev_pathwise": cw.LAUNCHES_GRAD_REV_PATHWISE,
             "wavefront_grad_fused": cw.LAUNCHES_GRAD_FUSED,
             "sorted_segment_sums": cr.LAUNCHES_SEGMENT_SUMS,
-            **intersect_counts()}
+            "segment_keep": cr.LAUNCHES_SEGMENT_KEEP, **intersect_counts()}
 
 
 def reset_env_counts():
     cw.LAUNCHES = cw.LAUNCHES_RECORD = 0
     cw.LAUNCHES_GRAD_FWD_PATHWISE = cw.LAUNCHES_GRAD_REV_PATHWISE = 0
-    cw.LAUNCHES_GRAD_FUSED = cr.LAUNCHES_SEGMENT_SUMS = 0
+    cw.LAUNCHES_GRAD_FUSED = cr.LAUNCHES_SEGMENT_SUMS = cr.LAUNCHES_SEGMENT_KEEP = 0
     reset_intersect_counts()
 
 
@@ -2727,7 +2868,8 @@ def env_fwd_bwd(phase, name, scene, cam, tier):
     del fb
     if gradmod.grad_tier(scene, cam.max_depth) != tier:
         raise RuntimeError(f"{name}: tier {gradmod.grad_tier(scene, cam.max_depth)}")
-    first_loss, first = grt.render_grad(scene, cam, target, seed=0)   # also the warm-up
+    with SegmentCalls() as calls:   # also the warm-up
+        first_loss, first = grt.render_grad(scene, cam, target, seed=0)
     stats = grt.RenderStats()
     reset_env_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -2742,7 +2884,8 @@ def env_fwd_bwd(phase, name, scene, cam, tier):
     else:   # pass A renders, pass B takes the miss records, then the fused kernel
         want = {"wavefront_fwd": 2 * nch, "wavefront_grad_fwd_pathwise": 0,
                 "wavefront_grad_rev_pathwise": 0, "wavefront_grad_fused": nch}
-    if any(counts[k] != v for k, v in want.items()) or counts["sorted_segment_sums"] < 1:
+    if any(counts[k] != v for k, v in want.items()) or counts["sorted_segment_sums"] < 1 \
+            or counts["segment_keep"] < 1:
         raise RuntimeError(f"{name}: launches {counts} for {nch} chunks")
     loss_f = float(loss)
     if not loss_f == loss_f or abs(loss_f - loss_ref) > 1e-5 * loss_ref:
@@ -2756,6 +2899,12 @@ def env_fwd_bwd(phase, name, scene, cam, tier):
     same = {k: bool(torch.equal(grads[k], first[k])) for k in grads}
     same["loss"] = float(first_loss) == loss_f
     env = grads["env_data"]
+    del first
+    # the pathwise tier's miss texel sums (the fused tier's eout sums are
+    # timed in env_kernel_timing), on the rows the path gave them
+    texel_sums = (segment_sums_timing("hdri_test_miss", max(
+        calls, key=lambda c: c[1].numel())) if tier == "pathwise" else None)
+    del calls
     emit(phase, scene=name, width=cam.image_width, height=cam.image_height, spp=spp,
          depth=cam.max_depth, camera_rays=n_rays, tier=tier, chunks=nch,
          launches=counts, render_grad_ms_cuda_events=ms,
@@ -2766,7 +2915,7 @@ def env_fwd_bwd(phase, name, scene, cam, tier):
          env_data_texels_nonzero=int((env.abs().amax(dim=2) > 0).sum()),
          stash_bytes_per_ray=(gradmod.stash_bytes_per_ray(cam.max_depth, True, True)
                               if tier == "pathwise" else None),
-         max_memory_allocated=peak)
+         max_memory_allocated=peak, texel_sums=texel_sums)
     if not all(same.values()):
         raise RuntimeError(f"{name}: two render_grad calls differ: {same}")
     return counts, nch, ms
@@ -2944,8 +3093,8 @@ def env_kernel_timing(hdri, nee, cam, chunks, launches, small):
     b4_rounds, k = rounds_ms(lambda: cw.wavefront_grad_fused(*fused), rounds=3, repeats=2)
     b4_ms = median(b4_rounds)
     h, w = nee.env.data.shape[:2]
-    texel_sum_ms, _ = cuda_ms(lambda: segsum.cols_segment_sum(
-        texels.reshape(-1), [k[4][:, c].reshape(-1) for c in range(3)], h * w))
+    texel_sums = segment_sums_timing("hdri_test_nee", ("cols", texels, k[4].transpose(0, 1),
+                                                      h * w))
     del fused, mc, lmd, rows, texels, k
 
     table_bytes = 4 * sum(t.numel() for t in (tb.pt, tb.st, tb.vt, tb.lt))
@@ -2995,7 +3144,8 @@ def env_kernel_timing(hdri, nee, cam, chunks, launches, small):
          entered_share=entered / (n * depth),
          fused_pass_b_parts_ms=dict(hdri_rows_and_texel_ids=rows_ms,
                                     miss_terms=terms_ms, b4=b4_ms,
-                                    texel_sums=texel_sum_ms),
+                                    texel_sums=texel_sums["ms"]),
+         texel_sums=texel_sums,
          b4_ms=b4_ms, b4_ms_rounds=b4_rounds, b4_plain_ms_16384_rays=small["b4_plain_ms"],
          b4_bytes_counted=b4_bytes, b4_bound_bytes_ms=b4_bound[0],
          b4_bound_ops_ms=b4_bound[1], b4_roofline_share=max(b4_bound) / b4_ms,
@@ -4142,13 +4292,14 @@ def image_counts():
             "wavefront_grad_fwd": cw.LAUNCHES_GRAD_FWD,
             "wavefront_grad_rev": cw.LAUNCHES_GRAD_REV,
             "sorted_segment_sums": cr.LAUNCHES_SEGMENT_SUMS,
+            "segment_keep": cr.LAUNCHES_SEGMENT_KEEP,
             "row_sums": cr.LAUNCHES_ROW_SUMS, **intersect_counts()}
 
 
 def reset_image_counts():
     cw.LAUNCHES = cw.LAUNCHES_RECORD = 0
     cw.LAUNCHES_GRAD_FWD = cw.LAUNCHES_GRAD_REV = 0
-    cr.LAUNCHES_SEGMENT_SUMS = cr.LAUNCHES_ROW_SUMS = 0
+    cr.LAUNCHES_SEGMENT_SUMS = cr.LAUNCHES_SEGMENT_KEEP = cr.LAUNCHES_ROW_SUMS = 0
     reset_intersect_counts()
 
 
@@ -4272,7 +4423,8 @@ def image_fwd_bwd(scene, cam):
     target = fb / spp * 0.8
     loss_ref = float(torch.mean((fb / spp - target) ** 2))
     del fb
-    first_loss, first = grt.render_grad(scene, cam, target, seed=0)   # also the warm-up
+    with SegmentCalls() as calls:   # also the warm-up
+        first_loss, first = grt.render_grad(scene, cam, target, seed=0)
     stats = grt.RenderStats()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4286,8 +4438,9 @@ def image_fwd_bwd(scene, cam):
     kchunk = gradmod._chunking(scene, cam, spp, None, renderer.pick_chunk_size(scene))[0]
     per_ray = gradmod.stash_bytes_per_ray(depth, image=True)
     want = {"wavefront_fwd": 0, "wavefront_grad_fwd": nch, "wavefront_grad_rev": nch,
-            "sphere_closest": nch, "sorted_segment_sums": nch}
-    if any(counts[k] != v for k, v in want.items()):
+            "sphere_closest": nch}
+    if any(counts[k] != v for k, v in want.items()) or counts["sorted_segment_sums"] < nch \
+            or counts["segment_keep"] < nch:
         raise RuntimeError(f"image_fwd_bwd: launches {counts} for {nch} chunks")
     loss_f = float(loss)
     if not loss_f == loss_f or abs(loss_f - loss_ref) > 1e-5 * loss_ref:
@@ -4316,13 +4469,15 @@ def image_fwd_bwd(scene, cam):
     r_err = {k: float((r_grads[k] - grads[k]).abs().max())
              / max(float(r_grads[k].abs().max()), 1e-30) for k in grads}
     atlas = grads["atlas"]
+    texel_sums = segment_sums_timing("earth_atlas", calls[0])
+    del calls
     emit("image_fwd_bwd", scene="earth", width=cam.image_width, height=cam.image_height,
          spp=spp, depth=depth, camera_rays=n_rays, tier=tier, chunks=nch,
          rays_per_chunk=kchunk, launches=counts, render_grad_ms_cuda_events=ms,
          fwd_bwd_camera_mrays_per_s=n_rays / (ms * 1e-3) / 1e6, loss=loss_f,
          loss_from_render=loss_ref, n_stash=n_stash, stash_bytes_per_ray=per_ray,
          stash_bytes=n_stash * kchunk * per_ray, max_memory_allocated=peak,
-         same_bits_two_calls=same,
+         same_bits_two_calls=same, texel_sums=texel_sums,
          atlas_grad_abs_sum=float(atlas.abs().sum()),
          atlas_texels_nonzero=int((atlas.abs().amax(dim=-1) > 0).sum()),
          over_budget=dict(render_grad_ms=ob_ms, loss=float(ob_loss), launches=ob_counts,
@@ -4502,6 +4657,8 @@ def probe_phase(regs):
             bound_ms=max(bound), bound_bytes_ms=bound[0], bound_ops_ms=bound[1],
             bound_by="bytes" if bound[0] >= bound[1] else "operations",
             roofline_share=max(bound) / r["ms"],
+            previous_design_ms_perf_md=PREVIOUS_DESIGN_MS["stream_micro_" + variant],
+            previous_design_share=max(bound) / PREVIOUS_DESIGN_MS["stream_micro_" + variant],
             hits=checks[(PROBE_BLOCKS, variant)]["hits"],
             registers=regs[variant][0], spill_bytes=regs[variant][1])
     emit("probe_stream_micro", blocks=PROBE_BLOCKS, sweeps=PROBE_SWEEPS,
@@ -4904,7 +5061,16 @@ def main():
     resume_brute = kernel_stats(built, B11_BRUTE_TAG)
     resume_regs = kernel_stats(built, B11_MARBLE_TAG)   # perlin's split: marble
     resume_cull_regs = kernel_stats(built, "wavefront_resume_kernelILb1E")
-    seg_regs = kernel_stats(built_rows, "sorted_segment_sums_kernel")
+    # the per-key sums: the kept rows' two kernels (int64 ids) and the span
+    # sums (float32 values at level 0, float64 carries above; up to 4 or 16
+    # columns)
+    seg_regs = {name: kernel_stats(built_rows, tag) for name, tag in (
+        ("keep_count", "segment_keep_count_kernelIxE"),
+        ("keep_write", "segment_keep_write_kernelIxE"),
+        ("span_sums_4", "segment_span_sums_kernelIfLi4E"),
+        ("span_sums_16", "segment_span_sums_kernelIfLi16E"),
+        ("span_sums_carries_4", "segment_span_sums_kernelIdLi4E"),
+        ("span_sums_carries_16", "segment_span_sums_kernelIdLi16E"))}
     # the planar kernels' gated instantiations (PLANAR_TAGS) and sphere_kernel
     # <false> / <true>: closest hit alone, and with the winner's attributes
     ix_stats = {name: kernel_stats(built_ix, tag) for name, tag in (
@@ -4948,7 +5114,7 @@ def main():
          resume_culled_registers=resume_cull_regs[0],
          resume_culled_spill_bytes=resume_cull_regs[1],
          culled_registers=fwd_cull_regs[0], culled_spill_bytes=fwd_cull_regs[1],
-         segment_sums_registers=seg_regs[0], segment_sums_spill_bytes=seg_regs[1],
+         segment_sums_registers_and_spills=seg_regs,
          record_registers=rec_regs[0], record_spill_bytes=rec_regs[1],
          row_sums_registers=rows_regs[0], row_sums_spill_bytes=rows_regs[1],
          intersect_registers={k: v[0] for k, v in ix_stats.items()},

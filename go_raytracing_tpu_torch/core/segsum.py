@@ -3,11 +3,12 @@
 Counterpart of the JAX package's ``core/segsum.py``, which sorts
 (id, value) pairs and runs a segmented scan so that duplicate rows (the
 texel cotangents of an environment map) are reduced before one placement.
-Here: a stable sort of the ids (``torch.sort(stable=True)``), one gather of
-the value columns into that order, and the fixed-order per-key sums of
-``ops/cuda_rows.sorted_segment_sums``.  Neither step uses atomics, so an
-environment's gradient has the same bits from run to run, like every other
-gradient of the port.
+Here, three steps (``ops/cuda_rows``): the rows that add something are kept
+(``segment_keep``: an id in range, a column not zero), their int32 ids are
+sorted (``torch.sort(stable=True)``), and the per-key sums are taken in that
+order through the sort's permutation (``sorted_segment_sums``).  No step
+uses atomics, so an environment's or an atlas's gradient has the same bits
+from run to run, like every other gradient of the port.
 
 Ids outside [0, n_bins) are dropped, negative ones included.  (The JAX
 package clamps only the high end, so a negative id there corrupts every bin:
@@ -21,36 +22,49 @@ import torch
 from ..ops import cuda_rows
 
 
-def _sort(ids):
-    ids = ids.reshape(-1).to(torch.int64)
-    return torch.sort(ids, stable=True)
+def _stacked(cols):
+    """[C, ...] columns: a tensor as it is, a sequence of C tensors stacked."""
+    return cols if isinstance(cols, torch.Tensor) else torch.stack(list(cols))
+
+
+def _kept_in_key_order(ids, test, n_bins: int):
+    """(sorted int32 ids, the sort's permutation, the kept rows' flat
+    indices) of the rows of ``ids`` that add something."""
+    kept_ids, kept_rows = cuda_rows.segment_keep(ids, test, n_bins)
+    keys, perm = torch.sort(kept_ids, stable=True)
+    return keys, perm, kept_rows
 
 
 def rows_segment_sum(ids, rows, n_bins: int):
     """Per-bin sums of ``rows`` [R, C] grouped by integer ``ids`` [R] ->
     [n_bins, C]: ``zeros.index_add_(0, ids, rows)`` for the ids in range,
     in a fixed order."""
-    return cols_segment_sum(ids, [rows[:, j] for j in range(rows.shape[1])],
-                            n_bins)
+    return cols_segment_sum(ids, rows.t(), n_bins)
 
 
-def cols_segment_sum(ids, col_list, n_bins: int):
-    """Column form of :func:`rows_segment_sum`: per-bin sums of C separate
-    [R] value columns, returned as [n_bins, C]."""
-    sid, perm = _sort(ids)
-    vals = torch.stack([torch.index_select(c.reshape(-1), 0, perm)
-                        for c in col_list])
-    return cuda_rows.sorted_segment_sums(sid, vals, n_bins)
+def cols_segment_sum(ids, cols, n_bins: int):
+    """Column form of :func:`rows_segment_sum`: per-bin sums of C value
+    columns, each shaped like ``ids`` (a [C, *ids.shape] tensor, a view of
+    any strides, or a sequence of C tensors), returned as [n_bins, C].  A
+    row whose columns are all zero is skipped: it adds nothing."""
+    cols = _stacked(cols)
+    keys, perm, kept_rows = _kept_in_key_order(ids, cols, n_bins)
+    return cuda_rows.sorted_segment_sums(keys, cols, n_bins, perm=perm, rows=kept_rows)
 
 
-def cols_segment_sum_factored(ids, carry_cols, expand, n_bins: int):
+def cols_segment_sum_factored(ids, carry_cols, expand, n_bins: int, zero_cols=None):
     """Like :func:`cols_segment_sum`, but gathers only the narrow
     ``carry_cols`` into key order and expands them there:
-    ``expand(*sorted_carry)`` -> list of value columns, elementwise."""
-    sid, perm = _sort(ids)
-    carry = [torch.index_select(c.reshape(-1), 0, perm) for c in carry_cols]
+    ``expand(*sorted_carry)`` -> list of value columns, elementwise.
+    ``zero_cols``: columns shaped like ``ids`` where a row whose entries
+    are all zero expands to zeros (it is skipped); None keeps every row
+    whose id is in range."""
+    test = None if zero_cols is None else _stacked(zero_cols)
+    keys, perm, kept_rows = _kept_in_key_order(ids, test, n_bins)
+    src = kept_rows.index_select(0, perm)
+    carry = [torch.index_select(c.reshape(-1), 0, src) for c in carry_cols]
     vals = torch.stack(list(expand(*carry)))
-    return cuda_rows.sorted_segment_sums(sid, vals, n_bins)
+    return cuda_rows.sorted_segment_sums(keys, vals, n_bins)
 
 
 class _TakeRowsSorted(torch.autograd.Function):

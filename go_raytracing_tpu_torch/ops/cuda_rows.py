@@ -1,4 +1,5 @@
-"""Row sums in a fixed order: the backward pass of ``textures.take_rows``.
+"""Row sums in a fixed order: the backward pass of ``textures.take_rows``,
+and the per-key sums of tables too large for it (``core/segsum``).
 
 ``row_sums(g, idx, n_rows)`` is ``zeros(n_rows, ...).index_add_(0, idx, g)``
 with the same bits on every run.  A CUDA tensor launches the kernel of
@@ -10,10 +11,16 @@ Not a port of a TPU kernel: it gives the port's ``torch.autograd`` route
 what the JAX package's gathers have on every backend, gradients that do not
 change from run to run (ROADMAP.md C7).
 
-``sorted_segment_sums(sorted_ids, vals, n_keys)`` sums rows that come sorted
-by key, for tables too large for ``row_sums``' shared memory (an environment
-map's texels, ``core/segsum``): a second kernel of the same file, one warp a
-key; its plain version is ``_sorted_segment_sums_plain``.
+The per-key sums of an environment map's or an atlas's texels take two
+steps of the same file, each with its plain version:
+
+* ``segment_keep(ids, test, n_keys)``: the rows that add something (an id
+  in range, a tested column not zero), as int32 (id, row) pairs in input
+  order (``_segment_keep_plain``);
+* ``sorted_segment_sums(sorted_ids, vals, n_keys, perm, rows)``: the sums of
+  rows taken in key order, through the sort's permutation and the kept
+  rows, one launch a level of spans (``_sorted_segment_sums_plain``, float64
+  ``index_add_``, also the card's oracle).
 """
 
 from __future__ import annotations
@@ -23,7 +30,8 @@ import ctypes
 import torch
 
 LAUNCHES_ROW_SUMS = 0   # row_sums kernel launches (CUDA tensors only)
-LAUNCHES_SEGMENT_SUMS = 0   # sorted_segment_sums kernel launches
+LAUNCHES_SEGMENT_KEEP = 0   # segment_keep's count and write kernel launches
+LAUNCHES_SEGMENT_SUMS = 0   # segment_span_sums kernel launches, one a level
 
 _P = ctypes.c_void_p
 _ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
@@ -92,50 +100,189 @@ def row_sums(g, idx, n_rows: int):
     return _row_sums_plain(g, idx, n_rows)
 
 
-_SEG_ARGTYPES = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, _P]
+_KEEP_COUNT_ARGTYPES = [_P, ctypes.c_int, _P, ctypes.c_int] + [ctypes.c_longlong] * 3 \
+    + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P, _P, _P]
+_KEEP_WRITE_ARGTYPES = [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P]
+_SUMS_ARGTYPES = [_P, _P, _P, _P, ctypes.c_int] + [ctypes.c_longlong] * 4 \
+    + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, _P, _P, _P, _P]
 
 
-def _sorted_segment_sums_plain(sorted_ids, vals, n_keys: int):
-    """Plain version: each key's rows added in float64, in input order."""
+def _ids_2d(ids):
+    """Integer ids of any shape as [D, R] rows (R the last dimension)."""
+    return ids.reshape(-1, ids.shape[-1]) if ids.dim() else ids.reshape(1, 1)
+
+
+def _cols_3d(cols, d: int, r: int):
+    """Columns [C, *ids.shape] as [C, D, R] (a view where the strides allow)."""
+    return cols.reshape(cols.shape[0], d, r)
+
+
+def _segment_keep_plain(ids, test, n_keys: int):
+    """Plain version: the kept rows' ids and flat row indices, int32, in
+    input order."""
+    flat = ids.reshape(-1)
+    keep = (flat >= 0) & (flat < n_keys)
+    if test is not None:
+        keep &= (test.reshape(test.shape[0], -1) != 0).any(dim=0)
+    rows = torch.nonzero(keep).reshape(-1)
+    return flat[rows].to(torch.int32), rows.to(torch.int32)
+
+
+def _segment_keep_cuda(ids, test, n_keys: int):
+    """Launch the count kernel, take the exclusive prefix of the blocks'
+    counts (one read of the total to the host: it sizes the outputs), then
+    launch the write kernel; on PyTorch's current stream."""
+    global LAUNCHES_SEGMENT_KEEP
+    dev = ids.device
+    empty = torch.empty(0, dtype=torch.int32, device=dev)
+    if ids.numel() == 0:
+        return empty, empty
+    ids2 = _ids_2d(ids)
+    if ids2.dtype not in (torch.int32, torch.int64):
+        ids2 = ids2.to(torch.int64)
+    ids2 = ids2.contiguous()
+    d, r = ids2.shape
+    if d * r >= 2 ** 31:
+        raise ValueError(f"segment_keep takes fewer than 2^31 rows, got {d * r}")
+    n_test, ptr, strides = 0, None, (0, 0, 0)
+    if test is not None:
+        t3 = _cols_3d(test, d, r)
+        if t3.dtype != torch.float32:
+            t3 = t3.to(torch.float32)
+        if t3.device != dev:
+            raise ValueError(f"tested columns on {t3.device}, ids on {dev}")
+        n_test, ptr, strides = t3.shape[0], t3.data_ptr(), t3.stride()
+    span = _kernel("segment_keep_span", [])()
+    blocks = -(-r // span) * d
+    mask = torch.empty(blocks * (span // 32), dtype=torch.int32, device=dev)
+    counts = torch.empty(blocks, dtype=torch.int32, device=dev)
+    ids64 = int(ids2.dtype == torch.int64)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _kernel("segment_keep_count_launch", _KEEP_COUNT_ARGTYPES)(
+            ids2.data_ptr(), ids64, ptr, n_test, *strides, d, r, n_keys,
+            mask.data_ptr(), counts.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"segment_keep count kernel launch failed: CUDA error {err}")
+    LAUNCHES_SEGMENT_KEEP += 1
+    ends = torch.cumsum(counts, 0)
+    m = int(ends[-1])
+    if m == 0:
+        return empty, empty
+    offsets = ends - counts
+    kept_ids = torch.empty(m, dtype=torch.int32, device=dev)
+    kept_rows = torch.empty(m, dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = _kernel("segment_keep_write_launch", _KEEP_WRITE_ARGTYPES)(
+            ids2.data_ptr(), ids64, d, r, mask.data_ptr(), offsets.data_ptr(),
+            kept_ids.data_ptr(), kept_rows.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"segment_keep write kernel launch failed: CUDA error {err}")
+    LAUNCHES_SEGMENT_KEEP += 1
+    return kept_ids, kept_rows
+
+
+def segment_keep(ids, test, n_keys: int):
+    """The rows of ``ids`` (integers of any shape, taken flat) that add
+    something to a per-key sum: id in [0, n_keys) and, where ``test`` [C',
+    *ids.shape] is given, one tested column not zero.  Returns (their ids,
+    their flat row indices), int32, in input order."""
+    if ids.is_cuda:
+        return _segment_keep_cuda(ids, test, n_keys)
+    return _segment_keep_plain(ids, test, n_keys)
+
+
+def _sorted_rows(perm, rows):
+    """Flat row of each sorted row: rows[perm], perm, rows or None."""
+    if perm is None:
+        return None if rows is None else rows.long()
+    return perm.long() if rows is None else rows.long()[perm.long()]
+
+
+def _sorted_segment_sums_plain(sorted_ids, vals, n_keys: int, perm=None, rows=None):
+    """Plain version: each key's rows added in float64, in sorted order."""
+    flat = vals.reshape(vals.shape[0], -1)
+    src = _sorted_rows(perm, rows)
+    if src is not None:
+        flat = flat[:, src]
     keep = (sorted_ids >= 0) & (sorted_ids < n_keys)
     out = torch.zeros((n_keys, vals.shape[0]), dtype=torch.float64,
                       device=vals.device)
-    out.index_add_(0, sorted_ids[keep], vals[:, keep].t().to(torch.float64))
+    out.index_add_(0, sorted_ids[keep].long(), flat[:, keep].t().to(torch.float64))
     return out.to(torch.float32)
 
 
-def _sorted_segment_sums_cuda(sorted_ids, vals, n_keys: int):
-    """Launch the kernel on PyTorch's current stream; does not synchronize."""
+def _sorted_segment_sums_cuda(sorted_ids, vals, n_keys: int, perm=None, rows=None):
+    """Launch the span sums on PyTorch's current stream, a level at a time
+    until one span is left; does not synchronize."""
     global LAUNCHES_SEGMENT_SUMS
     dev = vals.device
-    cols, n = vals.shape
-    max_cols = _kernel("sorted_segment_sums_max_cols", [])()
+    cols = vals.shape[0]
+    max_cols = _kernel("segment_sums_max_cols", [])()
     if not 0 < cols <= max_cols:
         raise ValueError(f"sorted_segment_sums takes 1 to {max_cols} columns, got {cols}")
-    if sorted_ids.device != dev or sorted_ids.shape != (n,):
-        raise ValueError("ids must be an [n] tensor on the values' device")
-    out = torch.empty((n_keys, cols), dtype=torch.float32, device=dev)
-    if n_keys == 0:
+    n = sorted_ids.numel()
+    if sorted_ids.device != dev or (perm is not None and perm.shape != (n,)):
+        raise ValueError("ids (and perm) must be [n] tensors on the values' device")
+    if perm is None and rows is None and vals[0].numel() != n:
+        raise ValueError(f"{n} ids for {vals[0].numel()} rows of values")
+    out = torch.zeros((n_keys, cols), dtype=torch.float32, device=dev)
+    if n == 0 or n_keys == 0:
         return out
-    # the first row of each key's run (ids outside [0, n_keys) fall before
-    # the first run or after the last)
-    keys = torch.arange(n_keys + 1, dtype=torch.int64, device=dev)
-    starts = torch.searchsorted(sorted_ids.to(torch.int64).contiguous(), keys)
-    vals = vals.to(torch.float32).contiguous()
-    fn = _kernel("sorted_segment_sums_launch", _SEG_ARGTYPES)
-    with torch.cuda.device(dev):
-        err = fn(vals.data_ptr(), starts.data_ptr(), out.data_ptr(), n, cols,
-                 n_keys, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"sorted_segment_sums kernel launch failed: CUDA error {err}")
-    LAUNCHES_SEGMENT_SUMS += 1
-    return out
+    if n >= 2 ** 31:
+        raise ValueError(f"sorted_segment_sums takes fewer than 2^31 rows, got {n}")
+    keys = sorted_ids.reshape(-1)
+    if keys.dtype != torch.int32:   # out-of-range ids stay out of range, in order
+        keys = keys.clamp(-1, n_keys).to(torch.int32)
+    keys = keys.contiguous()
+    v = vals.reshape(cols, -1, vals.shape[-1])
+    if v.dtype != torch.float32:
+        v = v.to(torch.float32)
+    perm = None if perm is None else perm.to(torch.int64).contiguous()
+    rows = None if rows is None else rows.to(torch.int32).contiguous()
+    span = _kernel("segment_sums_span", [])()
+    fn = _kernel("segment_sums_launch", _SUMS_ARGTYPES)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    # the carries of every level but the last, in one buffer each
+    levels, k = [], n
+    while k > span:
+        k = 2 * -(-k // span)
+        levels.append(k)
+    carry_keys = torch.empty(sum(levels), dtype=torch.int32, device=dev)
+    carry_vals = torch.empty(cols * sum(levels), dtype=torch.float64, device=dev)
+    sc, sb, sr = v.stride()
+    r, v64, at = v.shape[2], 0, 0
+    for level in range(len(levels) + 1):
+        last = level == len(levels)
+        ck = None if last else carry_keys[at:at + levels[level]]
+        cv = None if last else carry_vals[cols * at:cols * (at + levels[level])]
+        with torch.cuda.device(dev):
+            err = fn(keys.data_ptr(), None if perm is None else perm.data_ptr(),
+                     None if rows is None else rows.data_ptr(), v.data_ptr(), v64,
+                     sc, sb, sr, r, cols, n, n_keys, out.data_ptr(),
+                     None if last else ck.data_ptr(), None if last else cv.data_ptr(),
+                     stream)
+        if err != 0:
+            raise RuntimeError(f"segment_span_sums kernel launch failed: CUDA error {err}")
+        LAUNCHES_SEGMENT_SUMS += 1
+        if last:
+            return out
+        # the next level: the carries, in key order, float64 [cols, n]
+        n = r = levels[level]
+        keys, v, perm, rows, v64 = ck, cv, None, None, 1
+        sc, sb, sr = n, 0, 1
+        at += n
 
 
-def sorted_segment_sums(sorted_ids, vals, n_keys: int):
-    """Per-key sums of the columns ``vals`` [C, n] whose rows come sorted by
-    ``sorted_ids`` [n] (ascending int64) -> [n_keys, C] float32, in an order
-    fixed by the keys' run lengths.  Ids outside [0, n_keys) are dropped."""
+def sorted_segment_sums(sorted_ids, vals, n_keys: int, perm=None, rows=None):
+    """Per-key sums of rows taken in key order -> [n_keys, C] float32.
+
+    ``sorted_ids`` [n] ascending; ``vals`` [C, ...] float32 columns whose
+    rows, taken flat, are the rows to add; sorted row j is flat row
+    ``rows[perm[j]]`` (``perm`` the sort's permutation, ``rows`` the kept
+    rows' indices; either may be None, both None: row j).  Ids outside
+    [0, n_keys) are dropped.  The sums are float64, in an order fixed by the
+    sorted rows' order, so the result has the same bits on every run."""
     if vals.is_cuda:
-        return _sorted_segment_sums_cuda(sorted_ids, vals, n_keys)
-    return _sorted_segment_sums_plain(sorted_ids, vals, n_keys)
+        return _sorted_segment_sums_cuda(sorted_ids, vals, n_keys, perm, rows)
+    return _sorted_segment_sums_plain(sorted_ids, vals, n_keys, perm, rows)

@@ -111,7 +111,7 @@ import torch
 
 from ..core import rng as rngmod
 from ..core import vec as vec_consts
-from ..core.segsum import cols_segment_sum
+from ..core import segsum
 from ..core.vec3 import V3
 from ..geometry import packs
 from ..lights import hdri as hdri_mod
@@ -2698,9 +2698,8 @@ def grad_megakernel(scene, cam, o: V3, d: V3, tm, stream, seed, g3,
     if env_grad is not None:
         if eout is not None:
             h, w = scene.env.data.shape[:2]
-            env_grad = env_grad + cols_segment_sum(
-                ids.reshape(-1), [eout[:, c].reshape(-1) for c in range(3)],
-                h * w).reshape(h, w, 3)
+            env_grad = env_grad + segsum.cols_segment_sum(
+                ids, eout.transpose(0, 1), h * w).reshape(h, w, 3)
         gd["env_data"] = env_grad
     return V3(rad[0], rad[1], rad[2]), gd
 

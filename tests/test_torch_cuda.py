@@ -1571,6 +1571,50 @@ def test_cuda_probe_matches_plain_version(variant):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks, n_sweeps", [(7, 77), (13, 45), (1, 31)])
+@pytest.mark.parametrize("variant", list(sm.VARIANTS))
+def test_cuda_probe_odd_sizes_match_plain_version(variant, n_blocks, n_sweeps):
+    """The probe at odd block counts and at sweep counts that are not
+    multiples of 32 (the bit scan then visits 32 * (n // 32) slots, none at
+    31, and the staging ring runs past the last slot): t and id equal to
+    the plain version's, the same bits on a second launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    rays, tri = sm.probe_inputs(n_blocks, "cuda")
+    t, ids = sm.stream_micro(rays, tri, n_sweeps, variant)
+    pt, pids = sm._stream_micro_plain(rays, tri, n_sweeps, variant)
+    assert torch.equal(t, pt) and torch.equal(ids, pids)
+    t2, ids2 = sm.stream_micro(rays, tri, n_sweeps, variant)
+    assert torch.equal(t, t2) and torch.equal(ids, ids2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(sm.VARIANTS))
+def test_cuda_probe_extreme_magnitudes_match_plain_version(variant):
+    """The probe where a test's a = e1 . (d x e2) reaches 2^126 and past
+    (positions scaled by 6e12, directions by 4e12; a few NaN directions):
+    there the kernel's division leaves its fast path, and the outputs must
+    still be the plain version's bits, hits with such an a among them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    rays, tri = sm.probe_inputs(4, "cuda")
+    rays[:, 0:3] *= 6e12
+    rays[:, 3:6] *= 4e12
+    rays[:, 6] = 3e38
+    rays[1, 3, 2, :7] = float("nan")
+    tri[:, 0:9] *= 6e12
+    d, e1, e2 = rays[:, 3:6], tri[0, 3:6], tri[0, 6:9]
+    a = (e1[0] * (d[1] * e2[2] - d[2] * e2[1]) + e1[1] * (d[2] * e2[0] - d[0] * e2[2])
+         + e1[2] * (d[0] * e2[1] - d[1] * e2[0]))
+    assert int(((a.abs() >= 2.0 ** 126) & torch.isfinite(a)).sum()) > 10
+    assert int(torch.isinf(a).sum()) > 10
+    t, ids = sm.stream_micro(rays, tri, 64, variant)
+    pt, pids = sm._stream_micro_plain(rays, tri, 64, variant)
+    assert torch.equal(t, pt) and torch.equal(ids, pids)
+    assert int((ids >= 0).sum()) >= 10
+
+
+@pytest.mark.cuda
 def test_cuda_fused_kernel_matches_plain_version_past_depth_16():
     """The same at depth 20, 16x16 at 4 spp: the fused tier serves
     environment + light scenes to FUSED_MAX_DEPTH (50), past the two-phase
@@ -1642,9 +1686,111 @@ def test_cuda_segment_sums_match_plain_version():
     cols = vals[perm].t().contiguous()
     before = cuda_rows.LAUNCHES_SEGMENT_SUMS
     kk = cuda_rows.sorted_segment_sums(sid, cols, 4096)
-    assert cuda_rows.LAUNCHES_SEGMENT_SUMS == before + 1
+    # one launch a level of spans: 200,000 rows, 391 spans, 2, then 1
+    assert cuda_rows.LAUNCHES_SEGMENT_SUMS == before + 3
     pp = cuda_rows._sorted_segment_sums_plain(sid, cols, 4096)
     assert float((kk - pp).abs().max()) <= 1e-5 * float(pp.abs().max())
+
+
+def _segment_case(name, gen):
+    """(ids, columns [C, *ids.shape], n_keys) of the segment-sum cases."""
+    if name == "skewed":          # one key holds most rows, every other few
+        ids = torch.randint(0, 70000, (3_000_000,), device="cuda", generator=gen)
+        ids[torch.rand(3_000_000, device="cuda", generator=gen) < 0.8] = 4321
+        return ids, torch.randn((3, 3_000_000), device="cuda", generator=gen), 70000
+    if name == "long_run":        # a key whose run crosses about 2,000 spans
+        ids = torch.randint(-7, 9000, (1_500_000,), device="cuda", generator=gen)
+        ids[200_000:1_250_000] = 8999
+        vals = torch.randn((1_500_000, 12), device="cuda", generator=gen).t()
+        vals[:, ::5] = 0.0
+        return ids, vals, 9000
+    if name == "all_dropped":     # every id out of range or every row zero
+        ids = torch.randint(0, 100, (50_000,), device="cuda", generator=gen)
+        ids[::2] = -1
+        vals = torch.randn((1, 50_000), device="cuda", generator=gen)
+        vals[:, 1::2] = 0.0
+        return ids, vals, 100
+    if name == "one_key":
+        ids = torch.zeros(700_000, dtype=torch.int32, device="cuda")
+        ids[::3] = 1
+        return ids, torch.randn((3, 700_000), device="cuda", generator=gen), 1
+    # "layers": [D, 3, R] columns taken as a strided view, as the fused
+    # tier's eout rows are, with int64 ids [D, R]
+    rows = torch.randn((6, 3, 400_000), device="cuda", generator=gen)
+    rows[:, :, 1::3] = -0.0
+    ids = torch.randint(0, 524288, (6, 400_000), device="cuda", generator=gen)
+    return ids, rows.transpose(0, 1), 524288
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["skewed", "long_run", "all_dropped", "one_key", "layers"])
+def test_cuda_segment_pipeline_matches_plain_version(name):
+    """``core/segsum.cols_segment_sum`` through its kernels (the kept rows,
+    the span sums a level at a time): within 1e-6 of the float64 plain
+    version's largest entry, the same bits on two calls, and the kept rows
+    those of the plain compaction."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    from go_raytracing_tpu_torch.core import segsum
+    from go_raytracing_tpu_torch.ops import cuda_rows
+
+    gen = torch.Generator("cuda").manual_seed(3)
+    ids, cols, n_keys = _segment_case(name, gen)
+    before = (cuda_rows.LAUNCHES_SEGMENT_KEEP, cuda_rows.LAUNCHES_SEGMENT_SUMS)
+    k = segsum.cols_segment_sum(ids, cols, n_keys)
+    keep = (cuda_rows.LAUNCHES_SEGMENT_KEEP - before[0],
+            cuda_rows.LAUNCHES_SEGMENT_SUMS - before[1])
+    assert keep[0] == (1 if name == "all_dropped" else 2)
+    assert (keep[1] == 0) == (name == "all_dropped")
+    flat_ids = ids.reshape(-1).long()
+    flat = cols.reshape(cols.shape[0], -1)
+    ok = (flat_ids >= 0) & (flat_ids < n_keys)
+    p = torch.zeros((n_keys, cols.shape[0]), dtype=torch.float64, device="cuda")
+    p.index_add_(0, flat_ids[ok], flat[:, ok].t().double())
+    big = max(float(p.abs().max()), 1e-30)
+    assert float((k.double() - p).abs().max()) <= 1e-6 * big
+    assert torch.equal(k, segsum.cols_segment_sum(ids, cols, n_keys))
+    kid, krow = cuda_rows.segment_keep(ids, cols, n_keys)
+    pid, prow = cuda_rows._segment_keep_plain(ids, cols, n_keys)
+    assert torch.equal(kid, pid) and torch.equal(krow, prow)
+    if name == "all_dropped":
+        assert kid.numel() == 0 and float(k.abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_segment_factored_and_rows_match_plain_version():
+    """The factored form (5 columns gathered into key order, expanded to
+    12, rows whose cotangent is zero skipped) and ``take_rows_sorted``'s
+    backward pass against their CPU routes' numbers, the same bits twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    from go_raytracing_tpu_torch.core import segsum
+
+    gen = torch.Generator("cuda").manual_seed(4)
+    n = 900_000
+    ids = torch.randint(0, 5000, (n,), device="cuda", generator=gen)
+    fx, fy = (torch.rand(n, device="cuda", generator=gen) for _ in range(2))
+    lam = torch.randn((3, n), device="cuda", generator=gen)
+    lam[:, torch.rand(n, device="cuda", generator=gen) < 0.9] = 0.0
+
+    def expand(fx_, fy_, *l3):
+        return [w * ch for w in (fx_ * fy_, 1.0 - fx_) for ch in l3]
+
+    def run(dev):
+        return segsum.cols_segment_sum_factored(
+            ids.to(dev), (fx.to(dev), fy.to(dev), *lam.to(dev)), expand, 5000,
+            zero_cols=tuple(lam.to(dev)))
+
+    k = run("cuda")
+    ref = run("cpu")
+    assert float((k.cpu() - ref).abs().max()) <= 1e-6 * float(ref.abs().max())
+    assert torch.equal(k, run("cuda"))
+    table = torch.randn((5000, 12), device="cuda", generator=gen).requires_grad_()
+    g = torch.randn((n, 12), device="cuda", generator=gen)
+    (segsum.take_rows_sorted(table, ids) * g).sum().backward()
+    want = torch.zeros((5000, 12), dtype=torch.float64, device="cuda")
+    want.index_add_(0, ids, g.double())
+    assert float((table.grad.double() - want).abs().max()) <= 1e-6 * float(want.abs().max())
 
 
 # -----------------------------------------------------------------------------
