@@ -10,8 +10,8 @@ the reverse sweep of the product-chain tier, the same two of the pathwise
 tier, the fused gradient kernel of environment + light scenes, the four
 closest-hit kernels of the standard integrator, the two mesh kernels, the
 tile-sweep probe of the mesh stream, and the row sums of ``take_rows``'
-backward pass, whose file also holds the sorted segment sums of an
-environment's texels), holds each against its plain
+backward pass, whose file also holds the per-key sums of an environment's
+or an atlas's texels: the kept rows and the span sums), holds each against its plain
 PyTorch version on the GPU, renders the Cornell box at full size (600x338,
 100 spp, depth 5) through the public entry points, checks the image, times
 the forward kernel at the render's own shapes beside its roofline bound,
@@ -69,9 +69,13 @@ against their plain versions on 16,384 rays (B1 and B6 with the HDRI NEE
 rows, B5b with the environment's miss rows, the fused kernel B4, also on
 4,096 of them at depth 20, and B4 against autograd on a 32x32 crop), ``hdri-test`` forward by the megakernel
 and by the standard integrator (``hdri_main_path``), its ``render_grad`` on
-the pathwise two-phase tier (``hdri_fwd_bwd``), the same two with a quad
+the pathwise two-phase tier (``hdri_fwd_bwd``, with its miss texel sums
+timed on the rows the call gave them), the same two with a quad
 light added (``env_nee_main_path``, ``env_nee_fwd_bwd``: HDRI NEE, the fused
-tier), and the kernels alone (``env_kernel_timing``).  Then marble
+tier), and the kernels alone (``env_kernel_timing``; the texel sums of B4's
+cotangents part by part beside the previous design's parts, float32
+``index_add_`` and ``segment_reduce``, the run lengths and the bound:
+``segment_sums_timing``).  Then marble
 (``noise_kernels_vs_plain`` ... ``split_profile``: B1 / B6 / B2 with marble,
 perlin, the resumable kernel B11, also on ``random`` at depth 50 with its
 culled sweep's tests and both bounds), then B1 below 64 spheres alone
@@ -94,13 +98,14 @@ with its image made white, then the sphere kernel B7b and one gather a
 camera ray) against the standard integrator's picture, and once at the
 scene's own camera (800x450, 100 spp, depth 50) (``image_main_path``);
 ``earth-fwd-bwd`` on the image tier (B2 and B3 on the white scene, the
-per-texel sums for the atlas) twice with the same bits, over budget, and
-against the replay tier (``image_fwd_bwd``); the Cornell box with the atlas
+per-texel sums for the atlas, timed as the environment's) twice with the
+same bits, over budget, and against the replay tier (``image_fwd_bwd``); the Cornell box with the atlas
 as a picture on its back wall through the standard integrator, one chunk
 under the profiler, autograd and the replay tier at 8 spp, each twice with
 the same bits (``image_standard``).  Then the tile-sweep probe of the mesh stream
 (``probe_stream_micro``: its five variants against their plain versions,
-then its command line's run at 512 blocks x 512 sweeps).  Last, the sharded
+then its command line's run at 512 blocks x 512 sweeps, each variant's
+share of its bound beside the previous design's).  Last, the sharded
 paths (ROADMAP A19): this process in an NCCL group of one, where
 ``render_sharded`` and ``render_grad(mesh=...)`` of the Cornell job at full
 size must give ``render``'s and ``render_grad``'s bits (``sharded_world1``),
@@ -5092,8 +5097,8 @@ def main():
     emit("build", seconds=time.perf_counter() - t0, kernels=16,
          kernels_note="fifteen ports of TPU kernels (the probe of the mesh stream "
                       "among them) and the row-sum kernel of take_rows' backward "
-                      "pass (not a port; its file also holds the sorted segment "
-                      "sums of the environment's texels)",
+                      "pass (not a port; its file also holds the per-key sums of "
+                      "an environment's or an atlas's texels)",
          nvcc_seconds=[b.build_seconds for b in (built, built_fma, built_grad, built_pw,
                                                  built_ix, built_mesh, built_rows,
                                                  built_fused, built_probe)],

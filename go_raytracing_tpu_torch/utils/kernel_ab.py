@@ -238,6 +238,39 @@ def segment_ab(parent, rounds=4):
              **fields)
 
 
+def end_to_end(parent, rounds=4):
+    """``render_grad`` of the three jobs with ``core/segsum``'s column sums
+    as they are (N) and swapped for the parent's pipeline (P), in turns."""
+    from go_raytracing_tpu_torch.core import segsum
+
+    dev = torch.device("cuda", 0)
+    sky, _ = cs.synthetic_sky()
+    nee, cam = cs.hdri_scene(dev, True, sky)
+    hdri, _ = cs.hdri_scene(dev, False, sky)
+    earth, own = builders.earth_scene(dev, image=cs.synthetic_atlas())
+    ecam = dataclasses.replace(own, **cs.EARTH_BENCH)
+    mine = (segsum.cols_segment_sum, segsum.cols_segment_sum_factored)
+    theirs = (lambda ids, cols, n: parent.run(("cols", ids, cols, n)),
+              lambda ids, carry, expand, n, zero_cols=None: parent.run(
+                  ("factored", ids, carry, expand, n, zero_cols)))
+    for name, scene, c in (("hdri-test-nee", nee, cam), ("hdri-test", hdri, cam),
+                           ("earth", earth, ecam)):
+        target = grt.render(scene, c, seed=0) / c.samples_per_pixel * 0.8
+        taken = {"P": [], "N": []}
+        for r in range(rounds + 1):
+            for who in (("P", "N") if r % 2 == 0 else ("N", "P")):
+                segsum.cols_segment_sum, segsum.cols_segment_sum_factored = (
+                    theirs if who == "P" else mine)
+                try:
+                    ms, _ = cs.cuda_ms(lambda: grt.render_grad(scene, c, target, seed=0))
+                finally:
+                    segsum.cols_segment_sum, segsum.cols_segment_sum_factored = mine
+                if r:   # the first round warms both up
+                    taken[who].append(ms)
+        emit("render_grad_ab", job=name, ms={k: cs.median(v) for k, v in taken.items()},
+             ms_rounds=taken)
+
+
 def functools_call(fn, call):
     if call[0] == "factored":
         _, ids, carry, expand, n, zero = call
@@ -270,6 +303,7 @@ def main(argv=None):
     probe_ab({n: built[f"probe_{n}"][0] for n in srcs},
              {n: built[f"probe_{n}"][2] for n in srcs})
     segment_ab(ParentSegsum(built["rows_P"][0]))
+    end_to_end(ParentSegsum(built["rows_P"][0]))
 
 
 if __name__ == "__main__":

@@ -2258,7 +2258,9 @@ def test_cuda_image_tier_matches_the_plain_path_with_the_same_bits():
     before = (cw.LAUNCHES_GRAD_FWD, cw.LAUNCHES_GRAD_REV, cuda_rows.LAUNCHES_SEGMENT_SUMS)
     loss, g = grtt.render_grad(scene, cam, target.cuda(), seed=0, stats=stats)
     after = (cw.LAUNCHES_GRAD_FWD, cw.LAUNCHES_GRAD_REV, cuda_rows.LAUNCHES_SEGMENT_SUMS)
-    assert [a - b for a, b in zip(after, before)] == [stats.chunks] * 3
+    assert [a - b for a, b in zip(after[:2], before[:2])] == [stats.chunks] * 2
+    # the per-texel sums: a launch a level of spans, at least one a chunk
+    assert after[2] - before[2] >= stats.chunks
     ref_loss, ref = grtt.render_grad(cpu, cam, target, seed=0, device="cpu")
     assert abs(float(loss) - float(ref_loss)) <= 1e-5 * float(ref_loss)
     for k in ref:
