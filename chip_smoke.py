@@ -99,7 +99,8 @@ camera ray) against the standard integrator's picture, and once at the
 scene's own camera (800x450, 100 spp, depth 50) (``image_main_path``);
 ``earth-fwd-bwd`` on the image tier (B2 and B3 on the white scene, the
 per-texel sums for the atlas, timed as the environment's) twice with the
-same bits, over budget, and against the replay tier (``image_fwd_bwd``); the Cornell box with the atlas
+same bits, over budget, and against the replay tier (``image_fwd_bwd``); the
+Cornell box with the atlas
 as a picture on its back wall through the standard integrator, one chunk
 under the profiler, autograd and the replay tier at 8 spp, each twice with
 the same bits (``image_standard``).  Then the tile-sweep probe of the mesh stream
@@ -2739,8 +2740,8 @@ def segment_sums_timing(name, call, rounds=3):
         columns_out=n_cols, n_keys=n, form=call[0], kept_rows=int(kid.numel()),
         keys_nonempty=int(runs.numel()), longest_run=int(lengths.max()),
         run_length_quantiles_50_90_99_999=quant, levels=levels, ms=ms, ms_rounds=whole_rounds,
-        parts_ms=parts, plain_ms=plain_ms, parent_torch_parts_ms=dict(sort_int64=sort64_ms, gathers=gather_ms,
-                                                   searchsorted=starts_ms),
+        parts_ms=parts, plain_ms=plain_ms,
+        parent_torch_parts_ms=dict(sort_int64=sort64_ms, gathers=gather_ms, searchsorted=starts_ms),
         parent_kernel_ms_perf_md=PREVIOUS_DESIGN_MS.get("sorted_segment_sums_" + name),
         library_ms=dict(index_add_float32=index_add_ms, segment_reduce_sorted=reduce_ms),
         bound_ms=bound, bound_by="bytes", roofline_share=bound / ms,

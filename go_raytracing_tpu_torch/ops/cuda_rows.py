@@ -107,16 +107,6 @@ _SUMS_ARGTYPES = [_P, _P, _P, _P, ctypes.c_int] + [ctypes.c_longlong] * 4 \
     + [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, _P, _P, _P, _P]
 
 
-def _ids_2d(ids):
-    """Integer ids of any shape as [D, R] rows (R the last dimension)."""
-    return ids.reshape(-1, ids.shape[-1]) if ids.dim() else ids.reshape(1, 1)
-
-
-def _cols_3d(cols, d: int, r: int):
-    """Columns [C, *ids.shape] as [C, D, R] (a view where the strides allow)."""
-    return cols.reshape(cols.shape[0], d, r)
-
-
 def _segment_keep_plain(ids, test, n_keys: int):
     """Plain version: the kept rows' ids and flat row indices, int32, in
     input order."""
@@ -137,7 +127,7 @@ def _segment_keep_cuda(ids, test, n_keys: int):
     empty = torch.empty(0, dtype=torch.int32, device=dev)
     if ids.numel() == 0:
         return empty, empty
-    ids2 = _ids_2d(ids)
+    ids2 = ids.reshape(-1, ids.shape[-1])   # [D, R], R the last dimension
     if ids2.dtype not in (torch.int32, torch.int64):
         ids2 = ids2.to(torch.int64)
     ids2 = ids2.contiguous()
@@ -146,7 +136,7 @@ def _segment_keep_cuda(ids, test, n_keys: int):
         raise ValueError(f"segment_keep takes fewer than 2^31 rows, got {d * r}")
     n_test, ptr, strides = 0, None, (0, 0, 0)
     if test is not None:
-        t3 = _cols_3d(test, d, r)
+        t3 = test.reshape(test.shape[0], d, r)   # a view where the strides allow
         if t3.dtype != torch.float32:
             t3 = t3.to(torch.float32)
         if t3.device != dev:
