@@ -2629,28 +2629,23 @@ def row_sums_check():
 
 # ---- the per-key sums of large tables (core/segsum, csrc/row_sums.cu) -------
 
-class SegmentCalls:
-    """Keeps the arguments of every ``core/segsum`` column sum made while it
-    is open (``with SegmentCalls() as calls:``): ("cols", ids, cols, n) and
-    ("factored", ids, carry_cols, expand, n, zero_cols), in the order made."""
+class SegmentCall:
+    """The arguments of the widest ``core/segsum`` column sum made while it
+    is open (``with SegmentCall() as cap:``, then ``cap.call``), by the
+    module's ``ON_CALL`` hook: ("cols", ids, cols, n) or ("factored", ids,
+    carry_cols, expand, n, zero_cols)."""
 
     def __enter__(self):
-        self.calls = []
-        self._orig = (segsum.cols_segment_sum, segsum.cols_segment_sum_factored)
+        self.call = None
+        segsum.ON_CALL = self._keep
+        return self
 
-        def cols_sum(ids, cols, n_bins):
-            self.calls.append(("cols", ids, cols, n_bins))
-            return self._orig[0](ids, cols, n_bins)
-
-        def factored(ids, carry_cols, expand, n_bins, zero_cols=None):
-            self.calls.append(("factored", ids, carry_cols, expand, n_bins, zero_cols))
-            return self._orig[1](ids, carry_cols, expand, n_bins, zero_cols=zero_cols)
-
-        segsum.cols_segment_sum, segsum.cols_segment_sum_factored = cols_sum, factored
-        return self.calls
+    def _keep(self, *call):
+        if self.call is None or call[1].numel() > self.call[1].numel():
+            self.call = call
 
     def __exit__(self, *exc):
-        segsum.cols_segment_sum, segsum.cols_segment_sum_factored = self._orig
+        segsum.ON_CALL = None
         return False
 
 
@@ -2671,15 +2666,14 @@ def segment_sums_timing(name, call, rounds=3):
     ids, n = call[1], call[-2] if factored else call[3]
     flat_ids = ids.reshape(-1)
     if factored:
-        _, _, carry_cols, expand, _, zero_cols = call
-        test = torch.stack(list(zero_cols))
+        _, _, carry_cols, expand, _, test = call
         read_cols = len(carry_cols)
         run = functools.partial(segsum.cols_segment_sum_factored, ids, carry_cols, expand, n,
-                                zero_cols=zero_cols)
+                                zero_cols=test)
         values = torch.stack(list(expand(*(c.reshape(-1) for c in carry_cols))))
     else:
-        cols = call[2] if isinstance(call[2], torch.Tensor) else torch.stack(list(call[2]))
-        test, read_cols = cols, cols.shape[0]
+        cols = test = call[2]
+        read_cols = cols.shape[0]
         run = functools.partial(segsum.cols_segment_sum, ids, cols, n)
         values = cols.reshape(cols.shape[0], -1)
     n_cols = values.shape[0]
@@ -2874,7 +2868,16 @@ def env_fwd_bwd(phase, name, scene, cam, tier):
     del fb
     if gradmod.grad_tier(scene, cam.max_depth) != tier:
         raise RuntimeError(f"{name}: tier {gradmod.grad_tier(scene, cam.max_depth)}")
-    with SegmentCalls() as calls:   # also the warm-up
+    # the warm-up; on the pathwise tier it also gives the miss texel sums'
+    # rows, timed on the spot and let go before the timed call (the fused
+    # tier's eout sums are timed in env_kernel_timing)
+    texel_sums = None
+    if tier == "pathwise":
+        with SegmentCall() as cap:
+            first_loss, first = grt.render_grad(scene, cam, target, seed=0)
+        texel_sums = segment_sums_timing("hdri_test_miss", cap.call)
+        del cap
+    else:
         first_loss, first = grt.render_grad(scene, cam, target, seed=0)
     stats = grt.RenderStats()
     reset_env_counts()
@@ -2884,14 +2887,19 @@ def env_fwd_bwd(phase, name, scene, cam, tier):
     counts = env_counts()
     peak = torch.cuda.max_memory_allocated()
     nch = stats.chunks
+    # a chunk's texel sums: the miss texels' (both tiers) and the fused
+    # kernel's eout rows' (the fused tier), each the two kernels of the kept
+    # rows and the span sums' levels
     if tier == "pathwise":
         want = {"wavefront_fwd": 0, "wavefront_grad_fwd_pathwise": nch,
-                "wavefront_grad_rev_pathwise": nch, "wavefront_grad_fused": 0}
+                "wavefront_grad_rev_pathwise": nch, "wavefront_grad_fused": 0,
+                "segment_keep": 2 * nch}
     else:   # pass A renders, pass B takes the miss records, then the fused kernel
         want = {"wavefront_fwd": 2 * nch, "wavefront_grad_fwd_pathwise": 0,
-                "wavefront_grad_rev_pathwise": 0, "wavefront_grad_fused": nch}
-    if any(counts[k] != v for k, v in want.items()) or counts["sorted_segment_sums"] < 1 \
-            or counts["segment_keep"] < 1:
+                "wavefront_grad_rev_pathwise": 0, "wavefront_grad_fused": nch,
+                "segment_keep": 4 * nch}
+    if any(counts[k] != v for k, v in want.items()) \
+            or counts["sorted_segment_sums"] < want["segment_keep"] // 2:
         raise RuntimeError(f"{name}: launches {counts} for {nch} chunks")
     loss_f = float(loss)
     if not loss_f == loss_f or abs(loss_f - loss_ref) > 1e-5 * loss_ref:
@@ -2906,11 +2914,6 @@ def env_fwd_bwd(phase, name, scene, cam, tier):
     same["loss"] = float(first_loss) == loss_f
     env = grads["env_data"]
     del first
-    # the pathwise tier's miss texel sums (the fused tier's eout sums are
-    # timed in env_kernel_timing), on the rows the path gave them
-    texel_sums = (segment_sums_timing("hdri_test_miss", max(
-        calls, key=lambda c: c[1].numel())) if tier == "pathwise" else None)
-    del calls
     emit(phase, scene=name, width=cam.image_width, height=cam.image_height, spp=spp,
          depth=cam.max_depth, camera_rays=n_rays, tier=tier, chunks=nch,
          launches=counts, render_grad_ms_cuda_events=ms,
@@ -4429,8 +4432,11 @@ def image_fwd_bwd(scene, cam):
     target = fb / spp * 0.8
     loss_ref = float(torch.mean((fb / spp - target) ** 2))
     del fb
-    with SegmentCalls() as calls:   # also the warm-up
+    with SegmentCall() as cap:   # the warm-up, and the atlas sums' rows
         first_loss, first = grt.render_grad(scene, cam, target, seed=0)
+    # timed on the spot, and let go before the timed call
+    texel_sums = segment_sums_timing("earth_atlas", cap.call)
+    del cap
     stats = grt.RenderStats()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4443,10 +4449,11 @@ def image_fwd_bwd(scene, cam):
     n_stash = nch - counts["wavefront_fwd"]
     kchunk = gradmod._chunking(scene, cam, spp, None, renderer.pick_chunk_size(scene))[0]
     per_ray = gradmod.stash_bytes_per_ray(depth, image=True)
+    # the atlas sums: the kept rows' two kernels a chunk, the span sums a
+    # launch a level
     want = {"wavefront_fwd": 0, "wavefront_grad_fwd": nch, "wavefront_grad_rev": nch,
-            "sphere_closest": nch}
-    if any(counts[k] != v for k, v in want.items()) or counts["sorted_segment_sums"] < nch \
-            or counts["segment_keep"] < nch:
+            "sphere_closest": nch, "segment_keep": 2 * nch}
+    if any(counts[k] != v for k, v in want.items()) or counts["sorted_segment_sums"] < nch:
         raise RuntimeError(f"image_fwd_bwd: launches {counts} for {nch} chunks")
     loss_f = float(loss)
     if not loss_f == loss_f or abs(loss_f - loss_ref) > 1e-5 * loss_ref:
@@ -4475,8 +4482,6 @@ def image_fwd_bwd(scene, cam):
     r_err = {k: float((r_grads[k] - grads[k]).abs().max())
              / max(float(r_grads[k].abs().max()), 1e-30) for k in grads}
     atlas = grads["atlas"]
-    texel_sums = segment_sums_timing("earth_atlas", calls[0])
-    del calls
     emit("image_fwd_bwd", scene="earth", width=cam.image_width, height=cam.image_height,
          spp=spp, depth=depth, camera_rays=n_rays, tier=tier, chunks=nch,
          rays_per_chunk=kchunk, launches=counts, render_grad_ms_cuda_events=ms,

@@ -22,6 +22,13 @@ import torch
 from ..ops import cuda_rows
 
 
+# A harness that times the sums on the rows a path gave them sets this to a
+# callable; each column sum then passes it its arguments before it runs:
+# ("cols", ids, cols, n_bins) or ("factored", ids, carry_cols, expand,
+# n_bins, zero_cols), the columns stacked.  None (the default) does nothing.
+ON_CALL = None
+
+
 def _stacked(cols):
     """[C, ...] columns: a tensor as it is, a sequence of C tensors stacked."""
     return cols if isinstance(cols, torch.Tensor) else torch.stack(list(cols))
@@ -48,6 +55,8 @@ def cols_segment_sum(ids, cols, n_bins: int):
     any strides, or a sequence of C tensors), returned as [n_bins, C].  A
     row whose columns are all zero is skipped: it adds nothing."""
     cols = _stacked(cols)
+    if ON_CALL is not None:
+        ON_CALL("cols", ids, cols, n_bins)
     keys, perm, kept_rows = _kept_in_key_order(ids, cols, n_bins)
     return cuda_rows.sorted_segment_sums(keys, cols, n_bins, perm=perm, rows=kept_rows)
 
@@ -56,10 +65,12 @@ def cols_segment_sum_factored(ids, carry_cols, expand, n_bins: int, zero_cols=No
     """Like :func:`cols_segment_sum`, but gathers only the narrow
     ``carry_cols`` into key order and expands them there:
     ``expand(*sorted_carry)`` -> list of value columns, elementwise.
-    ``zero_cols``: columns shaped like ``ids`` where a row whose entries
-    are all zero expands to zeros (it is skipped); None keeps every row
-    whose id is in range."""
-    test = None if zero_cols is None else _stacked(zero_cols)
+    ``zero_cols`` (the carry columns where not given): columns shaped like
+    ``ids`` where a row whose entries are all zero expands to zeros; such a
+    row is skipped."""
+    test = _stacked(carry_cols if zero_cols is None else zero_cols)
+    if ON_CALL is not None:
+        ON_CALL("factored", ids, carry_cols, expand, n_bins, test)
     keys, perm, kept_rows = _kept_in_key_order(ids, test, n_bins)
     src = kept_rows.index_select(0, perm)
     carry = [torch.index_select(c.reshape(-1), 0, src) for c in carry_cols]

@@ -137,9 +137,8 @@ struct Cols {
 };
 
 // One bit a row of the block's span: its id lies in [0, n_keys) and one of
-// its n_test tested columns is not zero (every column counts as zero when
-// n_test is 0).  ids [D, R]: block (x, y) takes rows x * KEEP_SPAN ... of
-// ids[y].  counts[block] = the bits set.
+// its n_test tested columns is not zero.  ids [D, R]: block (x, y) takes
+// rows x * KEEP_SPAN ... of ids[y].  counts[block] = the bits set.
 template <typename ID>
 __global__ void __launch_bounds__(KEEP_THREADS)
 segment_keep_count_kernel(const ID* __restrict__ ids, Cols<float> test, int n_test,
@@ -158,7 +157,7 @@ segment_keep_count_kernel(const ID* __restrict__ ids, Cols<float> test, int n_te
         if (r >= R) continue;
         const long long id = (long long)ids[b * R + r];
         bool keep = id >= 0 && id < n_keys;
-        if (keep && n_test > 0) {
+        if (keep) {
             const float* q = test.p + b * test.sb + r * test.sr;
             bool any = false;
             for (int c = 0; c < n_test; ++c) any |= q[c * test.sc] != 0.0f;
@@ -245,9 +244,9 @@ __device__ __forceinline__ void put(float* out, long long n_keys, int cols, int 
 }
 
 // One level of the sums.  keys [n] sorted int32; sorted row j's columns at
-// vals.row(rows ? rows[perm ? perm[j] : j] : (perm ? perm[j] : j)).  Keys
-// outside [0, n_keys) are summed and never written.  carry_keys null: the
-// last level (n <= SUM_SPAN), every run written to out.  Otherwise span s
+// vals.row(perm ? rows[perm[j]] : j).  Keys outside [0, n_keys) are summed
+// and never written.  carry_keys null: the last level (n <= SUM_SPAN),
+// every run written to out.  Otherwise span s
 // writes its first run to carry entry 2s and its last to 2s + 1 (key, sum;
 // a span of one run writes (key, 0) there), carry_vals [cols, carry_n].
 template <typename V, int CMAX>
@@ -271,8 +270,7 @@ segment_span_sums_kernel(const int* __restrict__ keys, const long long* __restri
         if (t < here) {
             const long long j = j0 + t;
             key[t] = keys[j];
-            const long long p = perm ? perm[j] : j;
-            src[t] = rows ? (unsigned)rows[p] : (unsigned)p;
+            src[t] = perm ? (unsigned)rows[perm[j]] : (unsigned)j;
         }
     }
     // the lane's rows, run by run: the first run's sum kept (head), a run
@@ -419,7 +417,7 @@ extern "C" int segment_keep_count_launch(const void* ids, int ids64, const float
                                          int n_test, long long sc, long long sb, long long sr,
                                          int D, int R, long long n_keys, unsigned* mask,
                                          int* counts, void* cuda_stream) {
-    if (D < 1 || D > 65535 || R < 1 || n_test < 0) return (int)cudaErrorInvalidValue;
+    if (D < 1 || D > 65535 || R < 1 || n_test < 1) return (int)cudaErrorInvalidValue;
     const dim3 grid((R + KEEP_SPAN - 1) / KEEP_SPAN, D);
     const Cols<float> cols{test, sc, sb, sr, (unsigned)R};
     const cudaStream_t s = (cudaStream_t)cuda_stream;
@@ -449,10 +447,10 @@ extern "C" int segment_keep_write_launch(const void* ids, int ids64, int D, int 
     return (int)cudaGetLastError();
 }
 
-// One level of the per-key sums.  keys [n] i32 sorted; perm [n] i64 or null;
-// rows i32 or null; sorted row j's columns: column c of flat row i = b * R +
-// r at vals[c * sc + b * sb + r * sr], f32 (vals64 0) or f64 (vals64 1), i =
-// rows ? rows[perm ? perm[j] : j] : (perm ? perm[j] : j).  out [n_keys, cols]
+// One level of the per-key sums.  keys [n] i32 sorted; perm [n] i64 and rows
+// i32 both given or both null; sorted row j's columns: column c of flat row
+// i = b * R + r at vals[c * sc + b * sb + r * sr], f32 (vals64 0) or f64
+// (vals64 1), i = perm ? rows[perm[j]] : j.  out [n_keys, cols]
 // f32: the keys of this level's complete runs written.  carry_keys [2 *
 // ceil(n / SUM_SPAN)] i32 and carry_vals [cols, the same] f64 written in
 // full, or both null when n <= SUM_SPAN (the last level).  Launches on the
@@ -464,7 +462,7 @@ extern "C" int segment_sums_launch(const int* keys, const long long* perm, const
                                    long long n_keys, float* out, int* carry_keys,
                                    double* carry_vals, void* cuda_stream) {
     if (cols < 1 || cols > SEG_MAX_COLS || n < 1 || n_keys < 1 || R < 1 || R > UINT_MAX ||
-        (carry_keys == nullptr) != (n <= SUM_SPAN))
+        (carry_keys == nullptr) != (n <= SUM_SPAN) || (perm == nullptr) != (rows == nullptr))
         return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)cuda_stream;
     if (vals64)

@@ -32,7 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core import segsum
+from ..core.segsum import cols_segment_sum_factored, take_rows_sorted
 from ..core.vec3 import V3
 
 TWO_PI = 2.0 * np.pi
@@ -309,7 +309,7 @@ def blend_quad(qcols, fx, fy) -> V3:
 def quad_rows(env: Environment, base):
     """The 12 footprint columns of the texels ``base`` [R], as a [12, R]
     tensor (one gather of the quad table)."""
-    return segsum.take_rows_sorted(quad_table(env.data), base).t()
+    return take_rows_sorted(quad_table(env.data), base).t()
 
 
 def sample_soa(env: Environment, d: V3) -> V3:
@@ -341,7 +341,7 @@ def miss_texel_grad(env: Environment, d: V3, lam: V3):
         return [wgt * ch for wgt in (w00, w10, w01, w11)
                 for ch in (lx_, ly_, lz_)]
 
-    qcot = segsum.cols_segment_sum_factored(
+    qcot = cols_segment_sum_factored(
         base, (fx, fy, lam.x, lam.y, lam.z), expand, h * w,
         zero_cols=(lam.x, lam.y, lam.z))
     return quad_table_transpose(qcot, h, w)
@@ -368,7 +368,7 @@ def sample_direction_soa(env: Environment, xi1, xi2):
     theta = (0.5 - v) * np.pi
     ct = torch.cos(theta)
     d = V3(ct * torch.cos(phi), torch.sin(theta), ct * torch.sin(phi))
-    em = segsum.take_rows_sorted(env.data.reshape(h * w, 3), y * w + x)
+    em = take_rows_sorted(env.data.reshape(h * w, 3), y * w + x)
     emission = V3(em[:, 0], em[:, 1], em[:, 2])
     sin_theta = torch.clamp_min(ct, 1e-10)
     p = env.pdf[y, x] * (w * h) / (2.0 * np.pi * np.pi * sin_theta)

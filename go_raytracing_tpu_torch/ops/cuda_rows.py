@@ -112,8 +112,7 @@ def _segment_keep_plain(ids, test, n_keys: int):
     input order."""
     flat = ids.reshape(-1)
     keep = (flat >= 0) & (flat < n_keys)
-    if test is not None:
-        keep &= (test.reshape(test.shape[0], -1) != 0).any(dim=0)
+    keep &= (test.reshape(test.shape[0], -1) != 0).any(dim=0)
     rows = torch.nonzero(keep).reshape(-1)
     return flat[rows].to(torch.int32), rows.to(torch.int32)
 
@@ -134,14 +133,11 @@ def _segment_keep_cuda(ids, test, n_keys: int):
     d, r = ids2.shape
     if d * r >= 2 ** 31:
         raise ValueError(f"segment_keep takes fewer than 2^31 rows, got {d * r}")
-    n_test, ptr, strides = 0, None, (0, 0, 0)
-    if test is not None:
-        t3 = test.reshape(test.shape[0], d, r)   # a view where the strides allow
-        if t3.dtype != torch.float32:
-            t3 = t3.to(torch.float32)
-        if t3.device != dev:
-            raise ValueError(f"tested columns on {t3.device}, ids on {dev}")
-        n_test, ptr, strides = t3.shape[0], t3.data_ptr(), t3.stride()
+    t3 = test.reshape(test.shape[0], d, r)   # a view where the strides allow
+    if t3.dtype != torch.float32:
+        t3 = t3.to(torch.float32)
+    if t3.device != dev:
+        raise ValueError(f"tested columns on {t3.device}, ids on {dev}")
     span = _kernel("segment_keep_span", [])()
     blocks = -(-r // span) * d
     mask = torch.empty(blocks * (span // 32), dtype=torch.int32, device=dev)
@@ -150,7 +146,7 @@ def _segment_keep_cuda(ids, test, n_keys: int):
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _kernel("segment_keep_count_launch", _KEEP_COUNT_ARGTYPES)(
-            ids2.data_ptr(), ids64, ptr, n_test, *strides, d, r, n_keys,
+            ids2.data_ptr(), ids64, t3.data_ptr(), t3.shape[0], *t3.stride(), d, r, n_keys,
             mask.data_ptr(), counts.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"segment_keep count kernel launch failed: CUDA error {err}")
@@ -174,27 +170,21 @@ def _segment_keep_cuda(ids, test, n_keys: int):
 
 def segment_keep(ids, test, n_keys: int):
     """The rows of ``ids`` (integers of any shape, taken flat) that add
-    something to a per-key sum: id in [0, n_keys) and, where ``test`` [C',
-    *ids.shape] is given, one tested column not zero.  Returns (their ids,
-    their flat row indices), int32, in input order."""
+    something to a per-key sum: id in [0, n_keys) and one of the tested
+    columns ``test`` [C', *ids.shape] not zero.  Returns (their ids, their
+    flat row indices), int32, in input order."""
     if ids.is_cuda:
         return _segment_keep_cuda(ids, test, n_keys)
     return _segment_keep_plain(ids, test, n_keys)
 
 
-def _sorted_rows(perm, rows):
-    """Flat row of each sorted row: rows[perm], perm, rows or None."""
-    if perm is None:
-        return None if rows is None else rows.long()
-    return perm.long() if rows is None else rows.long()[perm.long()]
 
 
 def _sorted_segment_sums_plain(sorted_ids, vals, n_keys: int, perm=None, rows=None):
     """Plain version: each key's rows added in float64, in sorted order."""
     flat = vals.reshape(vals.shape[0], -1)
-    src = _sorted_rows(perm, rows)
-    if src is not None:
-        flat = flat[:, src]
+    if perm is not None:
+        flat = flat[:, rows.long()[perm.long()]]
     keep = (sorted_ids >= 0) & (sorted_ids < n_keys)
     out = torch.zeros((n_keys, vals.shape[0]), dtype=torch.float64,
                       device=vals.device)
@@ -214,7 +204,7 @@ def _sorted_segment_sums_cuda(sorted_ids, vals, n_keys: int, perm=None, rows=Non
     n = sorted_ids.numel()
     if sorted_ids.device != dev or (perm is not None and perm.shape != (n,)):
         raise ValueError("ids (and perm) must be [n] tensors on the values' device")
-    if perm is None and rows is None and vals[0].numel() != n:
+    if perm is None and vals[0].numel() != n:
         raise ValueError(f"{n} ids for {vals[0].numel()} rows of values")
     out = torch.zeros((n_keys, cols), dtype=torch.float32, device=dev)
     if n == 0 or n_keys == 0:
@@ -228,8 +218,8 @@ def _sorted_segment_sums_cuda(sorted_ids, vals, n_keys: int, perm=None, rows=Non
     v = vals.reshape(cols, -1, vals.shape[-1])
     if v.dtype != torch.float32:
         v = v.to(torch.float32)
-    perm = None if perm is None else perm.to(torch.int64).contiguous()
-    rows = None if rows is None else rows.to(torch.int32).contiguous()
+    if perm is not None:
+        perm, rows = perm.to(torch.int64).contiguous(), rows.to(torch.int32).contiguous()
     span = _kernel("segment_sums_span", [])()
     fn = _kernel("segment_sums_launch", _SUMS_ARGTYPES)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -248,7 +238,7 @@ def _sorted_segment_sums_cuda(sorted_ids, vals, n_keys: int, perm=None, rows=Non
         cv = None if last else carry_vals[cols * at:cols * (at + levels[level])]
         with torch.cuda.device(dev):
             err = fn(keys.data_ptr(), None if perm is None else perm.data_ptr(),
-                     None if rows is None else rows.data_ptr(), v.data_ptr(), v64,
+                     None if perm is None else rows.data_ptr(), v.data_ptr(), v64,
                      sc, sb, sr, r, cols, n, n_keys, out.data_ptr(),
                      None if last else ck.data_ptr(), None if last else cv.data_ptr(),
                      stream)
@@ -270,9 +260,11 @@ def sorted_segment_sums(sorted_ids, vals, n_keys: int, perm=None, rows=None):
     ``sorted_ids`` [n] ascending; ``vals`` [C, ...] float32 columns whose
     rows, taken flat, are the rows to add; sorted row j is flat row
     ``rows[perm[j]]`` (``perm`` the sort's permutation, ``rows`` the kept
-    rows' indices; either may be None, both None: row j).  Ids outside
+    rows' indices, both given or both None: row j).  Ids outside
     [0, n_keys) are dropped.  The sums are float64, in an order fixed by the
     sorted rows' order, so the result has the same bits on every run."""
+    if (perm is None) != (rows is None):
+        raise ValueError("perm and rows are given together or not at all")
     if vals.is_cuda:
         return _sorted_segment_sums_cuda(sorted_ids, vals, n_keys, perm, rows)
     return _sorted_segment_sums_plain(sorted_ids, vals, n_keys, perm, rows)

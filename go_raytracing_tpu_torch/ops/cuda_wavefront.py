@@ -111,7 +111,7 @@ import torch
 
 from ..core import rng as rngmod
 from ..core import vec as vec_consts
-from ..core import segsum
+from ..core.segsum import cols_segment_sum
 from ..core.vec3 import V3
 from ..geometry import packs
 from ..lights import hdri as hdri_mod
@@ -2698,7 +2698,7 @@ def grad_megakernel(scene, cam, o: V3, d: V3, tm, stream, seed, g3,
     if env_grad is not None:
         if eout is not None:
             h, w = scene.env.data.shape[:2]
-            env_grad = env_grad + segsum.cols_segment_sum(
+            env_grad = env_grad + cols_segment_sum(
                 ids, eout.transpose(0, 1), h * w).reshape(h, w, 3)
         gd["env_data"] = env_grad
     return V3(rad[0], rad[1], rad[2]), gd

@@ -100,7 +100,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..camera import Camera
-from ..core import segsum
+from ..core.segsum import cols_segment_sum
 from ..core.vec3 import V3
 from ..geometry.scene import Scene
 from ..integrator import wavefront
@@ -268,7 +268,7 @@ def _image_rev(scene: Scene, cam: Camera, g3, carry: ImageCarry):
     is_img = scene.textures.kind == tex.TEX_IMAGE
     grads["color"] = torch.where(is_img[:, None], 0.0, grads["color"])
     atlas = scene.textures.atlas
-    grads["atlas"] = segsum.cols_segment_sum(
+    grads["atlas"] = cols_segment_sum(
         carry.texel, g3 * carry.white_rad, atlas.shape[:3].numel()
     ).reshape(atlas.shape)
     return grads

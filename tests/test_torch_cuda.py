@@ -2255,12 +2255,17 @@ def test_cuda_image_tier_matches_the_plain_path_with_the_same_bits():
     assert tgrad.grad_tier(scene, cam.max_depth) == "image"
     target = grtt.render(cpu, cam, seed=9, device="cpu") / 4 * 0.8
     stats = grtt.RenderStats()
-    before = (cw.LAUNCHES_GRAD_FWD, cw.LAUNCHES_GRAD_REV, cuda_rows.LAUNCHES_SEGMENT_SUMS)
+    counters = ("LAUNCHES_GRAD_FWD", "LAUNCHES_GRAD_REV")
+    before = [getattr(cw, c) for c in counters] + [cuda_rows.LAUNCHES_SEGMENT_KEEP,
+                                                    cuda_rows.LAUNCHES_SEGMENT_SUMS]
     loss, g = grtt.render_grad(scene, cam, target.cuda(), seed=0, stats=stats)
-    after = (cw.LAUNCHES_GRAD_FWD, cw.LAUNCHES_GRAD_REV, cuda_rows.LAUNCHES_SEGMENT_SUMS)
-    assert [a - b for a, b in zip(after[:2], before[:2])] == [stats.chunks] * 2
-    # the per-texel sums: a launch a level of spans, at least one a chunk
-    assert after[2] - before[2] >= stats.chunks
+    after = [getattr(cw, c) for c in counters] + [cuda_rows.LAUNCHES_SEGMENT_KEEP,
+                                                   cuda_rows.LAUNCHES_SEGMENT_SUMS]
+    # the per-texel sums once a chunk: the kept rows' two kernels, then the
+    # span sums a launch a level, at least one
+    assert [a - b for a, b in zip(after[:3], before[:3])] == [stats.chunks, stats.chunks,
+                                                              2 * stats.chunks]
+    assert after[3] - before[3] >= stats.chunks
     ref_loss, ref = grtt.render_grad(cpu, cam, target, seed=0, device="cpu")
     assert abs(float(loss) - float(ref_loss)) <= 1e-5 * float(ref_loss)
     for k in ref:

@@ -66,9 +66,9 @@ def test_segment_keep_keeps_rows_that_add_something_in_input_order():
     keep = (ids >= 0) & (ids < N_KEYS) & (vals != 0).any(dim=0)
     assert torch.equal(krow.long(), torch.nonzero(keep).reshape(-1))
     assert torch.equal(kid.long(), ids[keep])
-    # -0.0 rows count as zero; without tested columns every id in range stays
+    # -0.0 rows count as zero; with a column of ones every id in range stays
     assert not bool(keep[1::7][1:].any()) and bool(keep.any())
-    kid_all, _ = cuda_rows.segment_keep(ids, None, N_KEYS)
+    kid_all, _ = cuda_rows.segment_keep(ids, torch.ones((1, N_ROWS)), N_KEYS)
     assert kid_all.numel() == int(((ids >= 0) & (ids < N_KEYS)).sum())
     # every row dropped
     none_id, none_row = cuda_rows.segment_keep(ids, torch.zeros_like(vals), N_KEYS)
@@ -103,7 +103,8 @@ def test_factored_form_skips_rows_whose_cotangent_is_zero():
         return [w * ch for w in (fx_, 1.0 - fx_) for ch in l3]
 
     want = _reference(ids, torch.stack(expand(fx, *lam)))
-    for zero_cols in (None, tuple(lam)):
+    # the cotangent's columns tested, or (not given) every carry column
+    for zero_cols in (tuple(lam), None):
         got = segsum.cols_segment_sum_factored(ids, (fx, *lam), expand, N_KEYS,
                                                zero_cols=zero_cols)
         _close(got, want)
